@@ -1,0 +1,30 @@
+"""PyTorch / CUDA port of the cosine-sim flash attention framework, for
+NVIDIA Hopper (H100).
+
+The JAX package ``flash_cosine_sim_attention_tpu`` beside it is the
+reference; each module here has a namesake there.  This package holds the
+serving path: the fused forward (prefill) and the INT8-KV decode, each a
+hand-written CUDA kernel under ``csrc/`` with a plain PyTorch version
+beside it, the validation transformer, cached decoding, and the
+continuous-batching ``InferenceEngine``.  Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``; CPU tensors take the plain
+versions.  The kernels are built with ``nvcc`` at first use.
+"""
+
+from .ops import (
+    flash_cosine_sim_attention,
+    grouped_l2norm,
+    l2norm,
+    l2norm_tensors,
+    plain_cosine_sim_attention,
+)
+from .version import __version__
+
+__all__ = [
+    "__version__",
+    "flash_cosine_sim_attention",
+    "grouped_l2norm",
+    "l2norm",
+    "l2norm_tensors",
+    "plain_cosine_sim_attention",
+]

@@ -1,0 +1,268 @@
+"""Continuous-batching inference engine over the INT8-KV decode path.
+
+Counterpart of ``flash_cosine_sim_attention_tpu/serving/engine.py``:
+
+  * a fixed pool of batch slots, each with its own per-layer int8 cache
+    rows and position;
+  * ``add_request`` prefills a prompt, right-padded to a length bucket
+    (exact under causal attention), straight into a free slot's cache rows
+    while the other slots keep their state; with ``chunk_tokens`` the
+    prompt is instead admitted in chunks, one per ``step()``, through the
+    continuation prefill, so a long prompt never stalls the batch;
+  * ``step`` advances every active slot one token (inactive and
+    mid-prefill slots ride along masked).
+
+The port runs eagerly: no jit, and ``step_many`` is a Python loop.
+Positions are mirrored on the host so the capacity guards need no device
+fetch; the last-token vector and the sampling generator live on the
+device, so a steady-state ``step()`` makes exactly one device->host copy,
+the sampled tokens.  Sampling is top-k filter -> softmax(logits /
+temperature) -> ``torch.multinomial`` with the engine's own generator.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Deque, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .._build import resolve_device
+from ..models.decoding import (
+    DecodeState,
+    decode_step,
+    init_decode_state,
+    prefill,
+    prefill_continue,
+)
+from ..models.transformer import top_k_filter
+
+
+def _bucket(n: int, buckets) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"prompt length {n} exceeds largest bucket {buckets[-1]}")
+
+
+class InferenceEngine:
+    def __init__(
+        self,
+        model,
+        num_slots: int = 8,
+        capacity: int = 2048,
+        temperature: float = 1.0,
+        filter_thres: float = 0.9,
+        prompt_buckets: Tuple[int, ...] = (128, 256, 512, 1024),
+        seed: int = 0,
+        kv_dtype=torch.int8,
+        mesh=None,
+        device=None,
+    ):
+        """Serve ``model`` (a ``CosineSimCausalTransformer`` holding its
+        weights) on ``device`` (default ``cuda``; raises when no card is
+        present and the CPU was not asked for).  Only the int8 cache is
+        ported; ``mesh`` (serving tensor parallelism) is not."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "serving tensor parallelism (mesh=) is not ported to the "
+                "PyTorch package yet")
+        if kv_dtype != torch.int8:
+            raise NotImplementedError(
+                f"only the int8 KV cache is ported, got kv_dtype={kv_dtype}")
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(f"model lies on {model.device}, engine on "
+                             f"{self.device}")
+        self.model = model
+        self.num_slots = num_slots
+        self.capacity = capacity
+        self.buckets = tuple(b for b in prompt_buckets if b <= capacity)
+        self.temperature = temperature
+        self.filter_thres = filter_thres
+        self.state = init_decode_state(model, num_slots, capacity,
+                                       device=self.device)
+        self.active = np.zeros(num_slots, bool)
+        self.prefilling = np.zeros(num_slots, bool)
+        self.host_pos = np.zeros(num_slots, np.int64)  # device-pos mirror
+        self.last_token = np.zeros(num_slots, np.int32)
+        self._last_dev = torch.zeros(num_slots, dtype=torch.long,
+                                     device=self.device)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
+        # pending prefill chunks: (slot, tokens, true_len, is_last) FIFO
+        self._pending: Deque[Tuple[int, np.ndarray, int, bool]] = deque()
+
+    # ------------------------------------------------------------------
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        filtered = top_k_filter(logits.float(), self.filter_thres)
+        probs = torch.softmax(filtered / self.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+
+    def _padded(self, tokens: np.ndarray, width: int) -> torch.Tensor:
+        padded = np.zeros((1, width), np.int64)
+        padded[0, :len(tokens)] = tokens
+        return torch.from_numpy(padded).to(self.device)
+
+    def _set_slot(self, slot: int, pos: int) -> None:
+        """Set one slot's cache lengths and position (engine-owned state,
+        updated in place)."""
+        for c in self.state.caches:
+            c.length[slot] = pos
+        self.state.pos[slot] = pos
+
+    def free_slots(self) -> List[int]:
+        return [i for i in range(self.num_slots)
+                if not (self.active[i] or self.prefilling[i])]
+
+    def _queue_chunks(self, slot: int, prompt: np.ndarray,
+                      chunk_tokens: int) -> None:
+        n = len(prompt)
+        for start in range(0, n, chunk_tokens):
+            piece = prompt[start:start + chunk_tokens]
+            self._pending.append(
+                (slot, np.asarray(piece, np.int32), len(piece),
+                 start + chunk_tokens >= n))
+
+    def add_request(self, prompt: np.ndarray,
+                    chunk_tokens: Optional[int] = None) -> int:
+        """Prefill ``prompt`` (1-D int array) into a free slot; returns it.
+
+        With ``chunk_tokens`` set, admission is CHUNKED: the slot is
+        reserved now and the prompt streams in across the following
+        ``step()`` calls (one chunk each) while the other slots keep
+        decoding; the slot turns active when its last chunk lands.
+        """
+        free = self.free_slots()
+        if not free:
+            raise RuntimeError("no free slots")
+        slot = free[0]
+        n = len(prompt)
+        if n > self.capacity:
+            raise ValueError(
+                f"prompt length {n} exceeds capacity {self.capacity}")
+
+        if chunk_tokens is not None:
+            _bucket(min(n, chunk_tokens), self.buckets)  # validate early
+            self._set_slot(slot, 0)
+            self.host_pos[slot] = 0
+            self.prefilling[slot] = True
+            self._queue_chunks(slot, np.asarray(prompt), chunk_tokens)
+            return slot
+
+        width = _bucket(n, self.buckets)
+        # prefill straight into the slot's cache rows (views of the buffers)
+        view = DecodeState(
+            tuple(c._replace(k8=c.k8[slot:slot + 1], v8=c.v8[slot:slot + 1],
+                             v_scale=c.v_scale[slot:slot + 1],
+                             length=torch.zeros_like(c.length[:1]))
+                  for c in self.state.caches),
+            torch.zeros_like(self.state.pos[:1]))
+        true_len = torch.tensor([n], dtype=torch.int32, device=self.device)
+        logits, _ = prefill(self.model, view, self._padded(prompt, width),
+                            true_len=true_len)
+        tok = self._sample(logits)
+        self._set_slot(slot, n)
+        self._last_dev[slot] = tok[0]
+        self.last_token[slot] = int(tok[0])
+        self.host_pos[slot] = n
+        self.active[slot] = True
+        return slot
+
+    def _run_chunk(self, slot: int, tokens: np.ndarray, n: int,
+                   is_last: bool) -> None:
+        width = _bucket(n, self.buckets)
+        # guard on the PADDED width: the whole bucket-padded chunk is written
+        if self.host_pos[slot] + width > self.capacity:
+            raise RuntimeError(
+                f"slot {slot}: prefill chunk (bucket-padded to {width}) "
+                f"would exceed capacity {self.capacity}")
+        true_len = torch.tensor([n], dtype=torch.int32, device=self.device)
+        logits, self.state = prefill_continue(
+            self.model, self.state, slot, self._padded(tokens, width),
+            true_len=true_len)
+        tok = self._sample(logits)
+        self._last_dev[slot] = tok[0]
+        self.host_pos[slot] += n
+        if is_last:
+            self.last_token[slot] = int(tok[0])
+            self.prefilling[slot] = False
+            self.active[slot] = True
+
+    def continue_request(self, slot: int, new_tokens: np.ndarray) -> int:
+        """Multi-turn: extend an ACTIVE slot's context with a new chunk of
+        prompt tokens in one prefill pass.  Returns the token sampled
+        after the chunk."""
+        if not self.active[slot]:
+            raise RuntimeError(f"slot {slot} is not active")
+        self._run_chunk(slot, np.asarray(new_tokens, np.int32),
+                        len(new_tokens), True)
+        return int(self.last_token[slot])
+
+    def _decode(self, active: torch.Tensor) -> torch.Tensor:
+        logits, self.state = decode_step(self.model, self.state,
+                                         self._last_dev, active=active)
+        # inactive / mid-prefill slots keep their last token
+        self._last_dev = torch.where(active, self._sample(logits),
+                                     self._last_dev)
+        return self._last_dev
+
+    def _guard_capacity(self, decode_active: np.ndarray, n: int) -> None:
+        # a slot at capacity must not decode further: its append would
+        # write past the buffer.  host_pos mirror: no device fetch.
+        over = [s for s in range(self.num_slots)
+                if decode_active[s] and self.host_pos[s] + n > self.capacity]
+        if over:
+            raise RuntimeError(
+                f"slots {over} would exceed cache capacity {self.capacity} "
+                f"within {n} steps; finish() them first")
+
+    def step(self) -> Dict[int, int]:
+        """One step: lands ONE pending prefill chunk (if any), then decodes
+        every active slot -> {slot: token}."""
+        # snapshot BEFORE landing a chunk: a slot that finishes its
+        # prefill this step starts decoding next step
+        decode_active = self.active & ~self.prefilling
+        if self._pending:
+            self._run_chunk(*self._pending.popleft())
+        if not decode_active.any():
+            return {}
+        self._guard_capacity(decode_active, 1)
+        toks = self._decode(torch.from_numpy(decode_active).to(self.device))
+        self.host_pos[decode_active] += 1
+        self.last_token = toks.cpu().numpy().astype(np.int32)  # the ONE copy
+        return {i: int(self.last_token[i])
+                for i in range(self.num_slots) if decode_active[i]}
+
+    def step_many(self, n: int) -> Dict[int, List[int]]:
+        """Advance every active slot ``n`` tokens -> {slot: [tokens...]},
+        with one device->host copy at the end.  Token streams equal those
+        of n ``step()`` calls.  Pending prefill chunks are NOT landed."""
+        decode_active = self.active & ~self.prefilling
+        if not decode_active.any():
+            return {}
+        self._guard_capacity(decode_active, n)
+        active = torch.from_numpy(decode_active).to(self.device)
+        toks = torch.stack([self._decode(active) for _ in range(n)])
+        self.host_pos[decode_active] += n
+        toks = toks.cpu().numpy().astype(np.int32)  # (n, slots): the ONE copy
+        self.last_token = toks[-1].copy()
+        return {s: [int(t) for t in toks[:, s]]
+                for s in range(self.num_slots) if decode_active[s]}
+
+    def finish(self, slot: int) -> None:
+        self.active[slot] = False
+        if self.prefilling[slot]:
+            self.prefilling[slot] = False
+            self._pending = deque(
+                p for p in self._pending if p[0] != slot)
+
+    def generate(self, prompt: np.ndarray, max_tokens: int) -> List[int]:
+        """Convenience single-request path (prefill token + decode steps)."""
+        slot = self.add_request(prompt)
+        out = [int(self.last_token[slot])]
+        for _ in range(max_tokens - 1):
+            out.append(self.step()[slot])
+        self.finish(slot)
+        return out

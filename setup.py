@@ -17,6 +17,8 @@ setup(
     ),
     packages=find_packages(exclude=("tests",)),
     include_package_data=True,
+    # the PyTorch port's CUDA sources, compiled with nvcc at first use
+    package_data={"flash_cosine_sim_attention_tpu_torch": ["csrc/*.cu"]},
     data_files=[("native", ["native/dataloader.cc"])],
     python_requires=">=3.10",
     install_requires=[
@@ -28,5 +30,6 @@ setup(
     extras_require={
         "train": ["orbax-checkpoint"],
         "test": ["pytest"],
+        "torch": ["torch>=2.4"],
     },
 )
