@@ -14,10 +14,25 @@ Phases (any failure exits non-zero):
      8 slots of capacity 1024; the kernels' launch counts are read around
      this phase only;
   6. path parity: the same teacher-forced prefill + decode steps with an
-     f32 model on the card (kernels) and on the CPU (plain versions).
-Then one JSON line lists every ported kernel with its launches, error,
-times and bound; the card's name and power limit; and, last, the
-{"ok": true, ...} line.  Kernel times are CUDA-event medians.
+     f32 model on the card (kernels) and on the CPU (plain versions);
+  7. the backward kernels (K2 one-pass; K3a dQ + dB and K3b dK, dV, the
+     two-pass route) against the plain backward on the card, then checked
+     and timed at the shapes phase 8 gives them;
+  8. the training path at full width: the same model with float32
+     parameters and bf16 compute takes 10 optimizer steps of 4
+     microbatches of 4 x 1024 tokens through the port's train_step, on a
+     synthetic byte corpus drawn from a numpy seed; the forward and
+     one-pass backward kernels' launch counts are read around these
+     steps only.  Then the op's attn_bias gradient, the two-pass
+     kernels' path: a learnable (h, i, j) bias takes 3 Adam steps
+     through flash_cosine_sim_attention, counts read around them;
+  9. training parity: one microbatch of an f32 depth-2 model, loss and
+     every parameter's gradient, card (kernels) vs CPU (plain versions).
+Then one JSON line lists every ported kernel with its launches on its
+path, error, times and bound; the card's name and power limit; and,
+the script's own wall time, the nvcc build included; and, last, the
+{"ok": true, ...} line.  Kernel device times come from
+torch.profiler, wrapper times are CUDA-event medians.
 """
 
 from __future__ import annotations
@@ -46,6 +61,16 @@ CHUNKED_LEN, CHUNK_TOKENS = 400, 128
 F32_ERR_BAR = 1e-4    # f32 kernels vs plain: same maths, other sum order
 BF16_ERR_BAR = 2e-2   # bf16 outputs: a few bf16 ulps at |o| <= 2
 PARITY_BAR = 1e-2     # f32 logits, card vs CPU (decode's bf16 roundings)
+# gradients, kernel vs plain (see grad_err): f32 1e-4 of max(1, max|g|)
+# (K2 adds dQ with atomics, whose order varies from run to run); bf16
+# 2^-7 per entry of |g| + rms(g): both round the same f32 sums, added in
+# another order, to bf16, so they differ by at most one bf16 ulp, which
+# is at most 2^-7 of the value
+GRAD_BARS = {torch.float32: F32_ERR_BAR, torch.bfloat16: 2 ** -7}
+TRAIN_STEPS = 10
+TRAIN_CORPUS_BYTES = 1 << 20   # the JAX trainer draws 8 M the same way
+LOSS_BAR = 1e-4               # f32 training loss, card vs CPU
+TRAIN_GRAD_BAR = 1e-3         # f32 gradients, card vs CPU, of max|g|
 
 
 def fail(msg: str) -> None:
@@ -76,6 +101,12 @@ def event_ms(fn, iters: int = 50, warmup: int = 5, flush=None) -> float:
 def kernel_us(work, iters: int) -> float:
     """Total device time (us) of the kernels ``iters`` calls of ``work``
     ran, from torch.profiler."""
+    return kernel_device_us(work, iters, ())[0]
+
+
+def kernel_device_us(work, iters: int, names):
+    """Device time (us) of ``iters`` calls of ``work``: the total and the
+    part spent in kernels whose name contains each of ``names``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -85,8 +116,10 @@ def kernel_us(work, iters: int) -> float:
         for _ in range(iters):
             work()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in rows)
+    return total, {n: sum(e.self_device_time_total for e in rows
+                          if n in e.key) for n in names}
 
 
 def device_ms(fn, flush=None, iters: int = 20) -> float:
@@ -101,6 +134,18 @@ def device_ms(fn, flush=None, iters: int = 20) -> float:
         return total / iters / 1e3
     print("  (the profiler saw no device time: CUDA-event time instead)")
     return event_ms(fn, flush=flush)
+
+
+def grad_err(x: torch.Tensor, y: torch.Tensor, dtype) -> float:
+    """A kernel's gradient ``x`` against the plain version's ``y``, in the
+    units of GRAD_BARS[dtype]: float32 max|x - y| / max(1, max|y|);
+    bfloat16 max over entries of |x - y| / (|y| + rms(y)), which holds
+    small entries to their own size and not to the largest one's."""
+    x, y = x.float(), y.float()
+    if dtype == torch.float32:
+        return (x - y).abs().max().item() / max(1.0, y.abs().max().item())
+    floor = y.square().mean().sqrt()
+    return ((x - y).abs() / (y.abs() + floor).clamp_min(1e-30)).max().item()
 
 
 def bound(flops: float, nbytes: float):
@@ -129,9 +174,11 @@ def random_flax_params(model, seed: int) -> dict:
 
 
 def build_model(params, dtype, device):
+    """The served model: parameters held in its compute dtype."""
     from flash_cosine_sim_attention_tpu_torch.models import (
         CosineSimCausalTransformer, params_from_flax)
-    model = CosineSimCausalTransformer(**MODEL, dtype=dtype, device=device)
+    model = CosineSimCausalTransformer(**MODEL, dtype=dtype, param_dtype=dtype,
+                                       device=device)
     return params_from_flax(params, model).eval()
 
 
@@ -362,7 +409,274 @@ def path_parity(params, devices=("cuda", "cpu")):
         fail(f"path parity: {diff}")
 
 
+def check_backward(card: str):
+    """Phase 7: K2, K3a, K3b vs the plain backward; returns
+    ({kernel: max abs err}, {kernel: timing row})."""
+    import torch.nn.functional as F
+
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        bwd_kernel as bk, flash_attention_backward_plain,
+        flash_attention_forward_plain, l2norm_tensors)
+    from flash_cosine_sim_attention_tpu_torch.ops.reference import causal_keep
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+
+    def inputs(b, h, kvh, sq, sk, d, dtype, mask_kind, bias_kind, causal):
+        q, k = l2norm_tensors(randn(b, h, sq, d), randn(b, kvh, sk, d),
+                              groups=8)
+        q, k, v = q.to(dtype), k.to(dtype), randn(b, kvh, sk, d).to(dtype)
+        mask = None
+        if mask_kind == "some":
+            mask = torch.rand(b, sk, device="cuda", generator=g) < 0.6
+        elif mask_kind == "all":
+            mask = torch.zeros(b, sk, dtype=torch.bool, device="cuda")
+        bias = None if bias_kind is None else 0.5 * randn(
+            b if bias_kind == "b" else h, sq, sk)
+        kw = dict(bias_batch_dim=bias_kind == "b", scale=1.0, causal=causal)
+        o, inv_l = flash_attention_forward_plain(q, k, v, mask, bias, **kw)
+        return (randn(*o.shape).to(dtype), o, inv_l, q, k, v, mask, bias), kw
+
+    cases = [  # name, (b, h, kvh, seq_q, seq_k, d), key mask, bias, causal
+        ("s1024 causal", (1, 8, 8, 1024, 1024, 64), None, None, True),
+        ("q128 x k1024 key-masked", (2, 8, 8, 128, 1024, 64), "some", None,
+         False),
+        ("q128 x k1024 all keys masked", (2, 8, 8, 128, 1024, 64), "all",
+         None, False),
+        ("s1000 GQA 8/2 + (h,i,j) bias", (2, 8, 2, 1000, 1000, 64), None,
+         "h", True),
+        ("s1000 GQA 8/2 key-masked + (b,i,j) bias", (2, 8, 2, 1000, 1000, 64),
+         "some", "b", False),
+        ("b17 + (h,i,j) bias: shared axis 17", (17, 2, 2, 130, 130, 64), None,
+         "h", True),
+    ]
+    worst = {"K2": 0.0, "K3a": 0.0, "K3b": 0.0}
+
+    def compare(name, args, kw, dtype, mask_kind):
+        """Both routes (K2 only without a bias) against the plain version."""
+        bar = GRAD_BARS[dtype]
+        want = flash_attention_backward_plain(*args, **kw)
+        runs = [("K3a", "K3b", bk._backward_twopass(*args, **kw))]
+        if args[7] is None:
+            runs.append(("K2", "K2", bk._backward_onepass(
+                *args[:7], scale=kw["scale"], causal=kw["causal"]) + (None,)))
+        torch.cuda.synchronize()
+        for k_dq, k_dkdv, got in runs:
+            errs = []
+            for grad, owner, x, y in zip(("dq", "dk", "dv", "db"),
+                                         (k_dq, k_dkdv, k_dkdv, k_dq),
+                                         got, want):
+                if y is None:
+                    continue
+                ok = torch.isfinite(x.float()).all().item()
+                rel = grad_err(x, y, dtype)
+                errs.append(f"{grad} {rel:.2e}")
+                if not (ok and rel <= bar):
+                    fail(f"{owner} {name} {dtype} {grad}: err {rel} (bar "
+                         f"{bar}), finite {ok}")
+                if mask_kind == "all" and x.abs().max().item() != 0:
+                    fail(f"{owner} {name}: masked rows need 0 gradients")
+                worst[owner] = max(
+                    worst[owner], (x.float() - y.float()).abs().max().item())
+            unit = ("max(1, max|g|)" if dtype == torch.float32
+                    else "(|g| + rms g)")
+            print(f"  {k_dq}{'' if k_dq == k_dkdv else '+' + k_dkdv} "
+                  f"{name} {str(dtype)[6:]}: err / {unit}: "
+                  f"{', '.join(errs)} (bar {bar:g})")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, shape, mask_kind, bias_kind, causal in cases:
+            args, kw = inputs(*shape, dtype, mask_kind, bias_kind, causal)
+            compare(name, args, kw, dtype, mask_kind)
+
+    # the trainer's attention shape, as phase 8 runs K2 and phase 8b runs
+    # K3 (with an (h, i, j) bias): checked, then timed
+    b, h, s, d = 4, 8, 1024, 64
+    args, kw = inputs(b, h, h, s, s, d, torch.bfloat16, None, None, True)
+    compare("b4 h8 s1024 causal (phase 8's shape)", args, kw,
+            torch.bfloat16, None)
+    x = bk._cuda_inputs(*args, False)
+    args_b, kw_b = inputs(b, h, h, s, s, d, torch.bfloat16, None, "h", True)
+    compare("b4 h8 s1024 causal + (h,i,j) bias (phase 8b's shape)", args_b,
+            kw_b, torch.bfloat16, None)
+    x_b = bk._cuda_inputs(*args_b, False)
+    plain_ms = device_ms(lambda: flash_attention_backward_plain(*args, **kw))
+    plain_b_ms = device_ms(
+        lambda: flash_attention_backward_plain(*args_b, **kw_b))
+    do, _, _, q, k, v = args[:6]
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, scale=1.0)
+    lib_ms = device_ms(lambda: torch.autograd.grad(o, (qs, ks, vs), do,
+                                                   retain_graph=True))
+    keep = causal_keep(s, s, "cuda")
+    mask_b = torch.where(keep, args_b[7], float("-inf")).to(q.dtype)[None]
+    o_b = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask_b,
+                                         scale=1.0)
+    lib_b_ms = device_ms(lambda: torch.autograd.grad(o_b, (qs, ks, vs), do,
+                                                     retain_graph=True))
+    pairs = b * h * s * (s + 1) / 2         # visible (i, j) pairs, all heads
+    io = b * h * s * d * 2                  # one bf16 (b, h, s, d) tensor
+    delta = b * h * s * 4
+    bias_vis = h * s * (s + 1) / 2 * 4      # the bias entries causal reads
+    rows = {}
+    for name, call, wrapper, flops, nbytes, p_ms, l_ms in (
+        ("K2", lambda: bk.fused_bwd_kernel(x, scale=1.0, causal=True),
+         lambda: bk._backward_onepass(*args[:7], scale=1.0, causal=True),
+         10 * d * pairs, 6 * io + delta + 2 * io, plain_ms, lib_ms),
+        ("K3a", lambda: bk.dq_kernel(x_b, **kw_b),
+         lambda: bk._backward_twopass(*args_b, **kw_b),
+         6 * d * pairs, 5 * io + delta + 2 * bias_vis, plain_b_ms, lib_b_ms),
+        ("K3b", lambda: bk.dkdv_kernel(x_b, **kw_b), None,
+         8 * d * pairs, 6 * io + delta + bias_vis, plain_b_ms, lib_b_ms),
+    ):
+        ms = device_ms(call)
+        bound_ms, by = bound(flops, nbytes)
+        call_ms = event_ms(wrapper) if wrapper is not None else None
+        rows[name] = dict(ms=ms, plain_ms=p_ms, bound_ms=bound_ms,
+                          bound_by=by, library_ms=l_ms)
+        print(f"  {name} b{b} h{h} s{s} d{d} causal bf16"
+              f"{'' if name == 'K2' else ' + (h,i,j) bias'} on {card}: "
+              f"device time kernel {ms:.4f} ms, plain {p_ms:.4f} ms, SDPA "
+              f"backward {l_ms:.4f} ms, bound {bound_ms:.5f} ms ({by})"
+              + ("" if call_ms is None else
+                 f"; wrapper call {call_ms:.4f} ms"
+                 f"{'' if name == 'K2' else ' (K3a + K3b)'}"))
+    print("  (plain: the whole plain backward; SDPA: dQ, dK, dV of "
+          "scaled_dot_product_attention, with the bias as a float mask and "
+          "no dB for K3)")
+    return worst, rows
+
+
+def train(card: str):
+    """Phase 8: the training path at full width; returns the launch counts
+    of K1 and K2 over its 10 steps."""
+    from flash_cosine_sim_attention_tpu_torch.data import (
+        TextSampler, synthetic_corpus)
+    from flash_cosine_sim_attention_tpu_torch.models import (
+        CosineSimCausalTransformer)
+    from flash_cosine_sim_attention_tpu_torch.ops import bwd_kernel as bk
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward)
+    from flash_cosine_sim_attention_tpu_torch.train import (
+        BATCH_SIZE, GRAD_ACCUM, make_optimizer, train_step)
+
+    torch.manual_seed(SEED)
+    model = CosineSimCausalTransformer(**MODEL, dtype=torch.bfloat16,
+                                       device="cuda")
+    opt = make_optimizer(model)
+    seq = MODEL["max_seq_len"]
+    sampler = TextSampler(synthetic_corpus(TRAIN_CORPUS_BYTES, seed=SEED),
+                          train_frac=90 / 95, seed=SEED)
+    stream = sampler.stream("train", GRAD_ACCUM * BATCH_SIZE, seq)
+
+    def batches():
+        return torch.from_numpy(next(stream)).cuda().view(
+            GRAD_ACCUM, BATCH_SIZE, seq + 1)
+
+    flash_attention_forward.launches = 0
+    bk.fused_bwd_kernel.launches = 0
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        batch = batches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(train_step(model, opt, batch).item())
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = (flash_attention_forward.launches, bk.fused_bwd_kernel.launches)
+    busy_us, parts = kernel_device_us(
+        lambda: train_step(model, opt, batches()), 1,
+        ("fwd_kernel<", "dkdv_kernel<"))
+
+    med = statistics.median(step_ms)
+    tokens = GRAD_ACCUM * BATCH_SIZE * seq
+    print(f"  losses: {', '.join(f'{x:.4f}' for x in losses)}")
+    print(f"  train step on {card}: {med:.2f} ms median over {TRAIN_STEPS} "
+          f"steps (first {step_ms[0]:.1f} ms), {tokens * 1e3 / med:.0f} "
+          f"tokens/s")
+    print(f"  train step device time on {card}: {busy_us / 1e3:.2f} ms "
+          f"(profiled) of {med:.2f} ms wall (unprofiled median): device "
+          f"idle share {1 - busy_us / 1e3 / med:.3f}; K1 "
+          f"{parts['fwd_kernel<'] / 1e3:.2f} ms and K2 "
+          f"{parts['dkdv_kernel<'] / 1e3:.2f} ms of it")
+    print(f"  launches over the {TRAIN_STEPS} steps: forward kernel "
+          f"{launches[0]}, one-pass backward kernel {launches[1]}")
+    if not all(np.isfinite(losses)):
+        fail(f"training: a loss is not finite: {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        fail(f"training: the loss did not fall: {losses}")
+    per_step = GRAD_ACCUM * MODEL["depth"]
+    if launches != (per_step * TRAIN_STEPS,) * 2:
+        fail(f"training: launches {launches}, want {per_step} per step")
+    return launches
+
+
+def bias_grad_path(card: str):
+    """Phase 8b: the op's attn_bias gradient, the two-pass kernels' path;
+    returns the launch counts of K3a and K3b over it."""
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        bwd_kernel as bk, flash_cosine_sim_attention)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    q, k, v = (torch.randn(4, 8, 1024, 64, device="cuda", generator=g
+                           ).to(torch.bfloat16) for _ in range(3))
+    target = torch.randn(4, 8, 1024, 64, device="cuda", generator=g)
+    bias = torch.zeros(8, 1024, 1024, device="cuda", requires_grad=True)
+    opt = torch.optim.Adam([bias], lr=0.05)
+    bk.dq_kernel.launches = bk.dkdv_kernel.launches = 0
+    losses = []
+    for _ in range(3):
+        o = flash_cosine_sim_attention(q, k, v, attn_bias=bias, causal=True,
+                                       scale=1.0, groups=8)
+        loss = (o.float() - target).square().mean()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    launches = (bk.dq_kernel.launches, bk.dkdv_kernel.launches)
+    print(f"  learnable (h,i,j) bias, b4 h8 s1024 d64 causal bf16 on {card}: "
+          f"losses {', '.join(f'{x:.6f}' for x in losses)}; launches dQ+dB "
+          f"kernel {launches[0]}, dK/dV kernel {launches[1]}")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"bias gradient path: losses {losses}")
+    if launches != (3, 3):
+        fail(f"bias gradient path: launches {launches}, want (3, 3)")
+    return launches
+
+
+def train_parity():
+    """Phase 9: one microbatch of an f32 depth-2 model, card vs CPU."""
+    from flash_cosine_sim_attention_tpu_torch.models import (
+        CosineSimCausalTransformer)
+
+    cfg = dict(MODEL, depth=2)
+    torch.manual_seed(SEED + 6)
+    cpu = CosineSimCausalTransformer(**cfg, device="cpu")
+    card = CosineSimCausalTransformer(**cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 7).integers(
+        0, MODEL["num_tokens"], (2, 257)))
+    losses = [m(tokens.to(m.device), return_loss=True) for m in (cpu, card)]
+    for loss in losses:
+        loss.backward()
+    loss_diff = abs(losses[0].item() - losses[1].item())
+    worst, worst_name = 0.0, ""
+    for (name, p), p2 in zip(cpu.named_parameters(), card.parameters()):
+        g = p.grad
+        err = (p2.grad.cpu() - g).abs().max().item() / g.abs().max().item()
+        if err > worst:
+            worst, worst_name = err, name
+    print(f"  f32 depth 2, batch 2 x 256 tokens, card vs CPU: |loss diff| "
+          f"{loss_diff:.3e} (bar {LOSS_BAR:g}); worst gradient "
+          f"max|diff| / max|g| {worst:.3e} ({worst_name}; bar "
+          f"{TRAIN_GRAD_BAR:g})")
+    if not (loss_diff <= LOSS_BAR and worst <= TRAIN_GRAD_BAR):
+        fail(f"training parity: loss {loss_diff}, gradient {worst}")
+
+
 def main() -> None:
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -396,7 +710,16 @@ def main() -> None:
     launches = serve(smi, params)
     print("[6] path parity")
     path_parity(params)
+    print("[7] backward kernels vs plain")
+    bwd_err, bwd_rows = check_backward(smi)
+    print("[8] training path, full width")
+    train_launches = train(smi)
+    bias_launches = bias_grad_path(smi)
+    print("[9] training parity")
+    train_parity()
 
+    bwd = "flash_cosine_sim_attention_tpu/ops/bwd_kernel.py"
+    src = "flash_cosine_sim_attention_tpu_torch/csrc/bwd_kernel.cu"
     kernels = [
         dict(name="fwd_kernel", route="cuda",
              source="flash_cosine_sim_attention_tpu_torch/csrc/fwd_kernel.cu",
@@ -406,8 +729,18 @@ def main() -> None:
              source="flash_cosine_sim_attention_tpu_torch/csrc/decode_kernel.cu",
              replaces="flash_cosine_sim_attention_tpu/quant/decode_kernel.py:137",
              launches=launches[1], max_abs_err=dec_err, **dec_row),
+        dict(name="bwd_kernel:onepass", route="cuda", source=src,
+             replaces=f"{bwd}:456", launches=train_launches[1],
+             max_abs_err=bwd_err["K2"], **bwd_rows["K2"]),
+        dict(name="bwd_kernel:dq", route="cuda", source=src,
+             replaces=f"{bwd}:64", launches=bias_launches[0],
+             max_abs_err=bwd_err["K3a"], **bwd_rows["K3a"]),
+        dict(name="bwd_kernel:dkdv", route="cuda", source=src,
+             replaces=f"{bwd}:282", launches=bias_launches[1],
+             max_abs_err=bwd_err["K3b"], **bwd_rows["K3b"]),
     ]
     print(json.dumps({"kernels": kernels}))
+    print(f"chip_smoke.py took {time.perf_counter() - started:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

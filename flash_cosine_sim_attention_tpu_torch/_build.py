@@ -22,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
-KERNELS = ("fwd_kernel", "decode_kernel")
+KERNELS = ("fwd_kernel", "decode_kernel", "bwd_kernel")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,4 +1,4 @@
-from .convert import flax_param_shapes, params_from_flax
+from .convert import flax_param_shapes, params_from_flax, params_to_flax
 from .decoding import (
     DecodeState,
     decode_step,
@@ -10,6 +10,7 @@ from .transformer import (
     Attention,
     CosineSimCausalTransformer,
     FeedForward,
+    generate,
     top_k_filter,
 )
 
@@ -20,8 +21,10 @@ __all__ = [
     "FeedForward",
     "decode_step",
     "flax_param_shapes",
+    "generate",
     "init_decode_state",
     "params_from_flax",
+    "params_to_flax",
     "prefill",
     "prefill_continue",
     "top_k_filter",

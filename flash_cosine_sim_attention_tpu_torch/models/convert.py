@@ -1,4 +1,4 @@
-"""Load the JAX model's parameters into the PyTorch model.
+"""Move parameters between the JAX model's flax tree and the PyTorch model.
 
 The flax parameter tree of ``CosineSimCausalTransformer`` arrives as
 nested dicts of numpy arrays (optionally under a top-level ``"params"``
@@ -78,8 +78,8 @@ def flax_param_shapes(model: CosineSimCausalTransformer) -> dict:
 def params_from_flax(params: dict, model: CosineSimCausalTransformer
                      ) -> CosineSimCausalTransformer:
     """Copy a flax parameter tree (nested dicts of numpy arrays) into
-    ``model`` in place, cast to its dtype and device; returns ``model``.
-    Raises on a missing, extra or misshapen leaf."""
+    ``model`` in place, cast to its parameters' dtype and device; returns
+    ``model``.  Raises on a missing, extra or misshapen leaf."""
     tree = params.get("params", params)
     layout = dict(_leaves(_layout(model)))
     given = dict(_leaves(tree))
@@ -99,3 +99,20 @@ def params_from_flax(params: dict, model: CosineSimCausalTransformer
                              f"fit {tuple(dst.shape)}")
         dst.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
     return model
+
+
+def params_to_flax(model: CosineSimCausalTransformer, grads: bool = False
+                   ) -> dict:
+    """The model's parameters (or, with ``grads``, their ``.grad``) as a
+    flax parameter tree of float32 numpy arrays."""
+    def leaf(mod, attr, transposed):
+        t = getattr(mod, attr)
+        t = t.grad if grads else t
+        arr = t.detach().float().cpu().numpy()
+        return arr.T if transposed else arr
+
+    def walk(node):
+        if isinstance(node, tuple):
+            return leaf(*node)
+        return {k: walk(v) for k, v in node.items()}
+    return walk(_layout(model))

@@ -1,12 +1,16 @@
-"""Public fused cosine-sim flash attention op (forward only).
+"""Public fused cosine-sim flash attention op.
 
 Counterpart of ``flash_cosine_sim_attention_tpu/ops/flash_attention.py``
 with its signature and shape rules: 3-D q means merged batch-heads
 (forces ``attn_bias_batch_dim=True``), 3-D k/v means single-headed KV,
 grouped-query KV works by index.  float16 inputs compute in bfloat16 and
-cast back, as in the JAX op.  Every call goes to
-``flash_attention_forward``: the Hopper kernel for CUDA tensors, its plain
-version for CPU tensors.
+cast back, as in the JAX op.  The JAX ``custom_vjp`` becomes a
+``torch.autograd.Function``: its forward calls ``flash_attention_forward``
+and saves (o, inv_l, q, k, v, mask, bias), its backward calls
+``flash_attention_backward``.  Both take the Hopper kernels for CUDA
+tensors and their plain versions for CPU tensors.  The l2norm, the
+float16 casts and the 3-D reshapes sit outside the Function, so autograd
+differentiates them as plain tensor code, as JAX does.
 """
 
 from __future__ import annotations
@@ -16,8 +20,29 @@ from typing import Optional
 import torch
 
 from .blocks import ALLOWED_DIM_HEADS
+from .bwd_kernel import flash_attention_backward
 from .fwd_kernel import flash_attention_forward
 from .reference import canonicalize_qkv, l2norm_tensors
+
+
+class _FusedAttention(torch.autograd.Function):
+    """The fused op on canonical 4-D l2-normalized inputs; differentiable
+    in q, k, v and the bias."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, bias, bias_batch_dim, scale, causal):
+        ctx.kw = dict(bias_batch_dim=bias_batch_dim, scale=scale,
+                      causal=causal)
+        o, inv_l = flash_attention_forward(q, k, v, mask, bias, **ctx.kw)
+        ctx.save_for_backward(o, inv_l, q, k, v, mask, bias)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        o, inv_l, q, k, v, mask, bias = ctx.saved_tensors
+        dq, dk, dv, db = flash_attention_backward(
+            do, o, inv_l, q, k, v, mask, bias, **ctx.kw)
+        return dq, dk, dv, None, db, None, None, None
 
 
 def flash_cosine_sim_attention(
@@ -45,8 +70,8 @@ def flash_cosine_sim_attention(
     True = attend, exclusive with ``causal``; attn_bias (b, i, j) if
     ``attn_bias_batch_dim`` else (h, i, j).
 
-    Not in this port yet: the backward (raises ``NotImplementedError``
-    when a gradient is required), ``qk_int8`` / ``qk_fp8``.  ``block_q``,
+    Differentiable in q, k, v and ``attn_bias``.  Not in this port yet:
+    ``qk_int8`` / ``qk_fp8`` (raise ``NotImplementedError``).  ``block_q``,
     ``block_k`` and ``interpret`` are kept for signature parity and must
     stay None: the Hopper tiles are fixed (``ops/blocks.py``) and the
     device of the inputs alone picks kernel or plain version.
@@ -60,11 +85,6 @@ def flash_cosine_sim_attention(
         raise ValueError(
             "block_q, block_k and interpret have no meaning for the Hopper "
             "kernel; leave them None")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (q, k, v, attn_bias)):
-        raise NotImplementedError(
-            "flash_cosine_sim_attention is forward-only in the PyTorch "
-            "package; the backward kernels arrive with the training slice")
     d = q.shape[-1]
     if d not in ALLOWED_DIM_HEADS and d % 8:
         raise ValueError(
@@ -82,8 +102,7 @@ def flash_cosine_sim_attention(
         if attn_bias is not None and attn_bias.dtype == torch.float16:
             attn_bias = attn_bias.to(torch.bfloat16)
 
-    o, _ = flash_attention_forward(
-        q4, k4, v4, mask, attn_bias, bias_batch_dim=bias_batch_dim,
-        scale=scale, causal=causal)
+    o = _FusedAttention.apply(q4, k4, v4, mask, attn_bias, bias_batch_dim,
+                              float(scale), bool(causal))
     o = o.to(in_dtype)
     return o[:, 0] if merged else o

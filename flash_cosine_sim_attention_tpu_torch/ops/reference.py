@@ -117,3 +117,69 @@ def plain_cosine_sim_attention(
         sim = sim.masked_fill(~mask[:, None, None, :], mask_value)
     out = (sim.softmax(dim=-1) @ v.float()).to(dtype)
     return out[:, 0] if merged else out
+
+
+def streaming_cosine_sim_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    attn_bias: Optional[torch.Tensor] = None,
+    scale: float = 8.0,
+    groups: int = 1,
+    causal: bool = False,
+    l2norm_qk: bool = True,
+    attn_bias_batch_dim: bool = False,
+    col_tile_size: int = 512,
+) -> torch.Tensor:
+    """O(n)-memory streaming attention in plain PyTorch, a loop over key
+    tiles (ref .py:130-241).  Logits are bounded by ``scale``, so each
+    tile adds exp(scale * sim - scale + bias) to the un-normalized output
+    and the row sums with no running row max; the output is
+    O / max(L, 1e-12), so a row that sees no key returns 0."""
+    if causal and mask is not None:
+        raise ValueError("mask should not be supplied if causality is needed")
+    q, k, v, merged, _, attn_bias_batch_dim = canonicalize_qkv(
+        q, k, v, attn_bias_batch_dim)
+    if l2norm_qk:
+        q, k = l2norm_tensors(q, k, groups=groups)
+    dtype = q.dtype
+    h, kvh = q.shape[1], k.shape[1]
+    if 1 < kvh < h:
+        k = k.repeat_interleave(h // kvh, dim=1)
+        v = v.repeat_interleave(h // kvh, dim=1)
+    seq_q, seq_k = q.shape[-2], k.shape[-2]
+    qf = q.float()
+    bias = None
+    if attn_bias is not None:
+        bias = (attn_bias[:, None] if attn_bias_batch_dim
+                else attn_bias[None]).float()
+    keep_all = causal_keep(seq_q, seq_k, q.device) if causal else None
+    o = torch.zeros(*qf.shape[:-1], v.shape[-1], device=q.device)
+    l = torch.zeros(*qf.shape[:-1], 1, device=q.device)
+    for j0 in range(0, seq_k, col_tile_size):
+        j1 = min(j0 + col_tile_size, seq_k)
+        w = qf @ k[:, :, j0:j1].float().transpose(-1, -2) * scale
+        if bias is not None:
+            w = w + bias[..., j0:j1]
+        w = torch.exp(w - scale)
+        keep = None if keep_all is None else keep_all[:, j0:j1]
+        if mask is not None:
+            km = mask[:, None, None, j0:j1].bool()
+            keep = km if keep is None else keep & km
+        if keep is not None:
+            w = torch.where(keep, w, torch.zeros((), device=w.device))
+        o = o + w @ v[:, :, j0:j1].float()
+        l = l + w.sum(-1, keepdim=True)
+    out = (o / l.clamp_min(1e-12)).to(dtype)
+    return out[:, 0] if merged else out
+
+
+def non_cosine_sim_attention(q, k, v, **kwargs):
+    """Vanilla causal softmax attention, the A/B baseline of the
+    validation model (ref transformer.py:30-37); ``kwargs`` are ignored."""
+    q = q * (q.shape[-1] ** -0.5)
+    sim = q @ k.transpose(-1, -2)
+    sim = sim.masked_fill(~causal_keep(*sim.shape[-2:], sim.device),
+                          -torch.finfo(sim.dtype).max)
+    return sim.softmax(dim=-1) @ v

@@ -36,6 +36,9 @@ def test_importing_the_port_loads_no_jax():
             "import flash_cosine_sim_attention_tpu_torch\n"
             "import flash_cosine_sim_attention_tpu_torch.models\n"
             "import flash_cosine_sim_attention_tpu_torch.serving\n"
+            "import flash_cosine_sim_attention_tpu_torch.data\n"
+            "import flash_cosine_sim_attention_tpu_torch.utils\n"
+            "import flash_cosine_sim_attention_tpu_torch.train\n"
             "loaded = [m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r}]\n"
             "assert not loaded, loaded\n")
@@ -60,3 +63,8 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked():
         InferenceEngine(model, capacity=16, prompt_buckets=(16,))
     with pytest.raises(RuntimeError, match="CUDA"):
         init_decode_state(model, 1, 16)
+    from flash_cosine_sim_attention_tpu_torch import train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--steps", "1"])
+    with pytest.raises(NotImplementedError):
+        train.main(["--device", "cpu", "--model-parallel", "2"])

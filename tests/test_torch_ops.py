@@ -1,4 +1,5 @@
-"""The port's forward op against the JAX package, on the CPU.
+"""The port's forward op and plain oracles against the JAX package, on
+the CPU.
 
 Inputs are made with numpy from a seed and go through the JAX function
 (its Pallas kernel in interpret mode, as the JAX suite runs it) and
@@ -23,12 +24,16 @@ from flash_cosine_sim_attention_tpu.ops.fwd_kernel import (
 )
 from flash_cosine_sim_attention_tpu.ops.reference import (
     l2norm_tensors as jax_l2norm_tensors,
+    non_cosine_sim_attention as jax_non_cosine,
+    streaming_cosine_sim_attention as jax_streaming,
 )
 from flash_cosine_sim_attention_tpu_torch.ops import (
     flash_attention_forward,
     flash_cosine_sim_attention,
     l2norm_tensors,
+    non_cosine_sim_attention,
     plain_cosine_sim_attention,
+    streaming_cosine_sim_attention,
 )
 
 
@@ -140,6 +145,39 @@ def test_plain_oracle_matches_jax():
     assert np.abs(_np(o_t) - _np(o_j)).max() <= 1e-5
 
 
+@pytest.mark.parametrize("case", ["causal-gqa-ragged-tiles",
+                                  "key-mask-all-masked-row", "batch-bias"])
+def test_streaming_oracle_matches_jax(case):
+    """The streaming oracle over key tiles (tile 16 of 40 keys: a ragged
+    last tile), with its "- scale" shift and its 1e-12 row-sum clamp."""
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((2, 4, 24, 16))
+    k, v = (rng.standard_normal((2, 2, 40, 16)) for _ in range(2))
+    kw = dict(scale=6.0, groups=2, col_tile_size=16)
+    jkw, tkw = dict(kw), dict(kw)
+    if case == "causal-gqa-ragged-tiles":
+        jkw["causal"] = tkw["causal"] = True
+    elif case == "key-mask-all-masked-row":
+        mask = rng.random((2, 40)) > 0.3
+        mask[1] = False
+        jkw["mask"], tkw["mask"] = jnp.asarray(mask), torch.from_numpy(mask)
+    else:
+        bias = rng.standard_normal((2, 24, 40))
+        jkw["attn_bias"], tkw["attn_bias"] = _j(bias), _t(bias)
+        jkw["attn_bias_batch_dim"] = tkw["attn_bias_batch_dim"] = True
+    o_j = jax_streaming(_j(q), _j(k), _j(v), **jkw)
+    o_t = streaming_cosine_sim_attention(_t(q), _t(k), _t(v), **tkw)
+    assert np.abs(_np(o_t) - _np(o_j)).max() <= 1e-5
+
+
+def test_non_cosine_baseline_matches_jax():
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.standard_normal((2, 2, 20, 16)) for _ in range(3))
+    o_j = jax_non_cosine(_j(q), _j(k), _j(v))
+    o_t = non_cosine_sim_attention(_t(q), _t(k), _t(v))
+    assert np.abs(_np(o_t) - _np(o_j)).max() <= 1e-5
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_l2norm_tensors_matches_jax(dtype):
     rng = np.random.default_rng(3)
@@ -153,9 +191,15 @@ def test_l2norm_tensors_matches_jax(dtype):
 
 
 def test_forward_only_and_unported_flags_raise():
+    """The op is no longer forward-only: a gradient flows.  The flags that
+    are not ported still raise, with or without a gradient."""
     q = torch.randn(1, 1, 8, 16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training"):
-        flash_cosine_sim_attention(q, q, q)
+    (grad,) = torch.autograd.grad(
+        flash_cosine_sim_attention(q, q, q).square().sum(), q)
+    assert grad.shape == q.shape and torch.isfinite(grad).all()
+    for flag in ("qk_int8", "qk_fp8"):
+        with pytest.raises(NotImplementedError):
+            flash_cosine_sim_attention(q, q, q, **{flag: True})
     with torch.no_grad():
         for flag in ("qk_int8", "qk_fp8"):
             with pytest.raises(NotImplementedError):
