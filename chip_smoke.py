@@ -27,7 +27,17 @@ Phases (any failure exits non-zero):
      kernels' path: a learnable (h, i, j) bias takes 3 Adam steps
      through flash_cosine_sim_attention, counts read around them;
   9. training parity: one microbatch of an f32 depth-2 model, loss and
-     every parameter's gradient, card (kernels) vs CPU (plain versions).
+     every parameter's gradient, card (kernels) vs CPU (plain versions);
+ 10. the paged decode kernel (K5) and the decode kernel's e4m3 arm
+     against their plain versions on the card (int8 and e4m3 codes,
+     ragged, empty and finished slots, GQA, shuffled page ids), then
+     checked and timed at the shapes phase 11 gives them;
+ 11. paged serving at full width: the serving model behind
+     PagedInferenceEngine on a 63-page pool, its page accounting checked
+     after each phase of traffic, then 8 steps each on an e4m3 pool and
+     an e4m3 contiguous cache (K1, K5 and K4-e4m3 launches read around
+     this phase only); paged vs contiguous, and paged card vs CPU, with
+     an f32 model.
 Then one JSON line lists every ported kernel with its launches on its
 path, error, times and bound; the card's name and power limit; and,
 the script's own wall time, the nvcc build included; and, last, the
@@ -71,6 +81,10 @@ TRAIN_STEPS = 10
 TRAIN_CORPUS_BYTES = 1 << 20   # the JAX trainer draws 8 M the same way
 LOSS_BAR = 1e-4               # f32 training loss, card vs CPU
 TRAIN_GRAD_BAR = 1e-3         # f32 gradients, card vs CPU, of max|g|
+PAGED_ENGINE = dict(num_slots=8, page_size=128, num_pages=64,
+                    max_pages_per_slot=8, reserve_tokens=128,
+                    prompt_buckets=(128, 256, 512, 1024))
+PAGED_LENGTHS = (0, 1, 127, 128, 129, 500, 1023, 1024)
 
 
 def fail(msg: str) -> None:
@@ -104,9 +118,9 @@ def kernel_us(work, iters: int) -> float:
     return kernel_device_us(work, iters, ())[0]
 
 
-def kernel_device_us(work, iters: int, names):
-    """Device time (us) of ``iters`` calls of ``work``: the total and the
-    part spent in kernels whose name contains each of ``names``."""
+def cuda_rows(work, iters: int):
+    """torch.profiler's per-kernel rows (key, self device time in us,
+    count) over ``iters`` calls of ``work``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -116,10 +130,33 @@ def kernel_device_us(work, iters: int, names):
         for _ in range(iters):
             work()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in rows)
-    return total, {n: sum(e.self_device_time_total for e in rows
-                          if n in e.key) for n in names}
+    return [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def kernel_device_us(work, iters: int, names):
+    """Device time (us) of ``iters`` calls of ``work``: the total and the
+    part spent in kernels whose name contains each of ``names``."""
+    rows = cuda_rows(work, iters)
+    return sum(t for _, t, _ in rows), {
+        n: sum(t for key, t, _ in rows if n in key) for n in names}
+
+
+def whole_us(work, iters: int) -> float:
+    """kernel_us for a ``work`` that launches each of its kernels the same
+    number of times per call: a profile in which some kernel's count is
+    not a multiple of ``iters`` has lost records, and is taken again (at
+    most twice more; the counts are printed)."""
+    for _ in range(3):
+        rows = cuda_rows(work, iters)
+        if all(count % iters == 0 for _, _, count in rows):
+            break
+        print(f"  (the profiler lost kernel records: counts "
+              f"{[count for _, _, count in rows]} over {iters} calls; "
+              f"profiled again)")
+    else:
+        fail("the profiler lost kernel records three times running")
+    return sum(t for _, t, _ in rows)
 
 
 def device_ms(fn, flush=None, iters: int = 20) -> float:
@@ -127,9 +164,9 @@ def device_ms(fn, flush=None, iters: int = 20) -> float:
     CUDA-event time where the profiler saw no device time."""
     for _ in range(3):
         fn()
-    total = kernel_us(fn if flush is None else lambda: (flush(), fn()), iters)
+    total = whole_us(fn if flush is None else lambda: (flush(), fn()), iters)
     if flush is not None:
-        total -= kernel_us(flush, iters)
+        total -= whole_us(flush, iters)
     if total > 0:
         return total / iters / 1e3
     print("  (the profiler saw no device time: CUDA-event time instead)")
@@ -675,6 +712,317 @@ def train_parity():
         fail(f"training parity: loss {loss_diff}, gradient {worst}")
 
 
+def _shuffled_table(b: int, mp: int, num_pages: int, seed: int):
+    """(b, mp) int32 page ids drawn without repeats from 1..num_pages-1 in
+    a shuffled order (page 0 is the null page)."""
+    ids = np.random.default_rng(seed).permutation(np.arange(1, num_pages))
+    return torch.from_numpy(ids[:b * mp].reshape(b, mp).astype(np.int32)
+                            ).cuda()
+
+
+def check_paged(card: str):
+    """Phase 10: K5 and K4's e4m3 arm vs their plain versions, K5 vs K4 on
+    the same bytes; returns ({kernel: max abs err}, {kernel: timing row})."""
+    from flash_cosine_sim_attention_tpu_torch.ops import l2norm_tensors
+    from flash_cosine_sim_attention_tpu_torch.quant import (
+        append, append_paged, decode_attention_plain, gather_pages,
+        init_cache, init_paged_cache, paged_decode_attention,
+        paged_decode_plain, quantized_decode_attention)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    worst = {"K5": 0.0, "K4 e4m3": 0.0}
+    ps, mp, kvh = 128, 8, 2
+    b = len(PAGED_LENGTHS) + 1            # the last slot has finished
+    lengths = torch.tensor(PAGED_LENGTHS + (700,), dtype=torch.int32,
+                           device="cuda")
+    for kv_dtype in (torch.int8, torch.float8_e4m3fn):
+        kv = "int8" if kv_dtype == torch.int8 else "e4m3"
+        for d in (64, 128):
+            k = l2norm_tensors(torch.randn(b, kvh, mp * ps, d, device="cuda",
+                                           generator=g), groups=8)
+            v = 3 * torch.randn(b, kvh, mp * ps, d, device="cuda", generator=g)
+            table = _shuffled_table(b, mp, b * mp + 3, SEED + d)
+            paged = append_paged(init_paged_cache(
+                b * mp + 3, kvh, ps, d, b, mp, kv_dtype=kv_dtype,
+                device="cuda")._replace(page_table=table), k, v)
+            cont = append(init_cache(b, kvh, mp * ps, d, "cuda",
+                                     kv_dtype=kv_dtype), k, v)
+            # the same quantized bytes, laid out both ways
+            same = all(torch.equal(
+                gather_pages(pool, table).transpose(-1, -2).view(torch.uint8),
+                flat.view(torch.uint8)) for pool, flat in (
+                    (paged.k8, cont.k8), (paged.v8, cont.v8)))
+            dead = table.clone()
+            dead[-1] = 0                  # finished: null page, stale length
+            paged = paged._replace(page_table=dead, length=lengths)
+            cont = cont._replace(length=lengths)
+            for gq in (1, 4):
+                q = l2norm_tensors(torch.randn(b, kvh * gq, d, device="cuda",
+                                               generator=g), groups=8)
+                qg = q.view(b, kvh, gq, d)
+                for dtype in (torch.float32, torch.bfloat16):
+                    bar = F32_ERR_BAR if dtype == torch.float32 else BF16_ERR_BAR
+                    kw = dict(scale=8.0, l2norm_qk=False)
+                    o5 = paged_decode_attention(q.to(dtype), paged, **kw)
+                    o4 = quantized_decode_attention(q.to(dtype), cont, **kw)
+                    p5 = paged_decode_plain(qg, paged, 8.0).view(o5.shape)
+                    p4 = decode_attention_plain(qg, cont, 8.0).view(o4.shape)
+                    torch.cuda.synchronize()
+                    e5 = (o5.float() - p5.to(dtype).float()).abs().max().item()
+                    e4 = (o4.float() - p4.to(dtype).float()).abs().max().item()
+                    e54 = (o5[:-1].float() - o4[:-1].float()).abs().max().item()
+                    print(f"  {kv} d{d} g{gq} {str(dtype)[6:]}: K5 vs plain "
+                          f"{e5:.3e}, K4 vs plain {e4:.3e}, K5 vs K4 {e54:.3e} "
+                          f"(bar {bar:g}); same bytes both ways: {same}")
+                    ok = (same and max(e5, e4, e54) <= bar
+                          and torch.isfinite(o5.float()).all().item()
+                          and o5[0].abs().max().item() == 0)
+                    if not ok:
+                        fail(f"paged decode {kv} d{d} g{gq} {dtype}: K5 {e5}, "
+                             f"K4 {e4}, K5 vs K4 {e54}, same bytes {same}")
+                    worst["K5"] = max(worst["K5"], e5)
+                    if kv == "e4m3":
+                        worst["K4 e4m3"] = max(worst["K4 e4m3"], e4)
+
+    # the shapes of phase 11's paths (b8 kvh8 g1 d64 at scale 1, every slot
+    # 1024 tokens: 8 shuffled pages of 128, or the e4m3 contiguous cache),
+    # held against the plain versions, then timed with L2 flushed between
+    # launches as in phase 4
+    b, kvh, d = 8, 8, 64
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    q32 = l2norm_tensors(torch.randn(b, kvh, d, device="cuda", generator=g),
+                         groups=8)
+    q = q32.to(torch.bfloat16)
+    qg = q.float()[:, :, None]
+    k = l2norm_tensors(torch.randn(b, kvh, mp * ps, d, device="cuda",
+                                   generator=g), groups=8)
+    v = torch.randn(b, kvh, mp * ps, d, device="cuda", generator=g)
+    rows = {}
+    tokens = b * kvh * mp * ps
+    small = q.numel() * 2 + b * kvh * d * 4 + b * 4      # q, out, length
+    for kv_dtype in (torch.int8, torch.float8_e4m3fn):
+        kv = "int8" if kv_dtype == torch.int8 else "e4m3"
+        table = _shuffled_table(b, mp, b * mp + 1, SEED + 9)
+        paged = append_paged(init_paged_cache(
+            b * mp + 1, kvh, ps, d, b, mp, kv_dtype=kv_dtype,
+            device="cuda")._replace(page_table=table), k, v)
+        checks = [("K5", f"K5 {kv} pool", paged, paged_decode_attention,
+                   paged_decode_plain)]
+        if kv == "e4m3":
+            cont = append(init_cache(b, kvh, mp * ps, d, "cuda",
+                                     kv_dtype=kv_dtype), k, v)
+            checks.append(("K4 e4m3", "K4 e4m3 cache", cont,
+                           quantized_decode_attention, decode_attention_plain))
+        for name, label, cache, kernel, plain in checks:
+            want = plain(q32[:, :, None], cache, 1.0).view(b, kvh, d)
+            for dtype in (torch.float32, torch.bfloat16):
+                bar = F32_ERR_BAR if dtype == torch.float32 else BF16_ERR_BAR
+                got = kernel(q32.to(dtype), cache, scale=1.0, l2norm_qk=False)
+                torch.cuda.synchronize()
+                err = (got.float() - want.to(dtype).float()).abs().max().item()
+                print(f"  {label} at phase 11's shape, {str(dtype)[6:]} "
+                      f"queries: vs plain {err:.3e} (bar {bar:g})")
+                if not err <= bar:
+                    fail(f"{label} at b8 kvh8 d64, 8 x 1024 tokens, "
+                         f"{dtype}: {err} against the plain version")
+                worst[name] = max(worst[name], err)
+        per_token = 2 * d + (4 if kv == "int8" else 0)
+        bound_ms, by = bound(4 * d * tokens,
+                             tokens * per_token + small + table.numel() * 4)
+        call = lambda: paged_decode_attention(  # noqa: E731
+            q, paged, scale=1.0, l2norm_qk=False)
+        ms = device_ms(call, flush=scratch.zero_)
+        call_ms = event_ms(call, flush=scratch.zero_)
+        plain_ms = device_ms(lambda: paged_decode_plain(qg, paged, 1.0),
+                             flush=scratch.zero_)
+        print(f"  K5 {kv} pool, 8 x 1024 tokens in shuffled pages of 128 on "
+              f"{card}: device time kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {bound_ms:.5f} ms ({by}); wrapper call "
+              f"{call_ms:.4f} ms")
+        if kv == "int8":
+            rows["K5"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=by, library_ms=None)
+        else:
+            call = lambda: quantized_decode_attention(  # noqa: E731
+                q, cont, scale=1.0, l2norm_qk=False)
+            ms4 = device_ms(call, flush=scratch.zero_)
+            plain4 = device_ms(lambda: decode_attention_plain(qg, cont, 1.0),
+                               flush=scratch.zero_)
+            bound4, by4 = bound(4 * d * tokens, tokens * 2 * d + small)
+            print(f"  K4 e4m3 cache, 8 x 1024 tokens on {card}: device time "
+                  f"kernel {ms4:.4f} ms, plain {plain4:.4f} ms, bound "
+                  f"{bound4:.5f} ms ({by4})")
+            rows["K4 e4m3"] = dict(ms=ms4, plain_ms=plain4, bound_ms=bound4,
+                                   bound_by=by4, library_ms=None)
+    print("  (no single PyTorch call computes either: library time null)")
+    return worst, rows
+
+
+def serve_paged(card: str, params, device: str = "cuda"):
+    """Phase 11: the paged serving path; returns the launch counts of K1,
+    K5 and K4's e4m3 arm on it."""
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward)
+    from flash_cosine_sim_attention_tpu_torch.quant import (
+        paged_decode_attention, quantized_decode_attention)
+    from flash_cosine_sim_attention_tpu_torch.serving import (
+        InferenceEngine, PagedInferenceEngine)
+
+    model = build_model(params, torch.bfloat16, device)
+    engine = PagedInferenceEngine(model, **PAGED_ENGINE, seed=SEED,
+                                  device=device)
+    rng = np.random.default_rng(SEED + 10)
+    vocab, ps = MODEL["num_tokens"], PAGED_ENGINE["page_size"]
+    cap = ps * PAGED_ENGINE["max_pages_per_slot"]
+    usable = PAGED_ENGINE["num_pages"] - 1
+    reserved = {}                          # slot -> pages its admission took
+    seen = []
+
+    def check_pages(when: str):
+        live = np.flatnonzero(engine.active | engine.prefilling)
+        want = sum(max(reserved[s], -(-int(engine.host_pos[s]) // ps))
+                   for s in live)
+        got = engine.pages_in_use()
+        print(f"  pages in use {when}: {got} of {usable} (expected {want})")
+        if got != want or got + len(engine.allocator.free) != usable:
+            fail(f"paged accounting {when}: {got} pages in use, want {want}, "
+                 f"{len(engine.allocator.free)} free")
+
+    engine.finish(engine.add_request(rng.integers(0, vocab, 60)))  # warm-up
+    flash_attention_forward.launches = 0
+    paged_decode_attention.launches = 0
+
+    ttft = {}
+    for n in PROMPT_LENS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slot = engine.add_request(rng.integers(0, vocab, n))
+        torch.cuda.synchronize()
+        bucket = next(b for b in PAGED_ENGINE["prompt_buckets"] if n <= b)
+        ttft.setdefault(bucket, []).append(
+            (n, 1e3 * (time.perf_counter() - t0)))
+        reserved[slot] = -(-min(n + PAGED_ENGINE["reserve_tokens"], cap) // ps)
+        seen.append(int(engine.last_token[slot]))
+    chunked = engine.add_request(rng.integers(0, vocab, CHUNKED_LEN),
+                                 chunk_tokens=CHUNK_TOKENS)
+    reserved[chunked] = 0
+    check_pages("after admitting 7 prompts and queueing a chunked one")
+    step_ms = []
+    for _ in range(32):
+        landing = bool(engine.prefilling.any())
+        t0 = time.perf_counter()
+        out = engine.step()
+        if not landing:
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        seen.extend(out.values())
+    if not engine.active[chunked]:
+        fail("paged: the chunked admission did not land within 32 steps")
+    check_pages("after 32 steps")
+    busy_us = kernel_us(lambda: seen.extend(engine.step().values()), 4)
+    seen.append(engine.continue_request(0, rng.integers(0, vocab, 50)))
+    check_pages("after a 50-token continue_request")
+    victim = int(np.argmax([len(p) for p in engine.slot_pages]))
+    freed = set(engine.slot_pages[victim])
+    engine.finish(victim)
+    n = 700
+    slot = engine.add_request(rng.integers(0, vocab, n))
+    reserved[slot] = -(-min(n + PAGED_ENGINE["reserve_tokens"], cap) // ps)
+    reused = set(engine.slot_pages[slot])
+    print(f"  finished slot {victim} ({len(freed)} pages); a {n}-token "
+          f"prompt in slot {slot} took {len(reused)} pages, all of them "
+          f"freed ones: {reused <= freed}")
+    if not reused <= freed:
+        fail(f"paged: the new request took pages {sorted(reused - freed)} "
+             f"that the finished slot did not free")
+    check_pages("after reusing the finished slot's pages")
+    seen.extend(engine.step().values())
+    for s in range(engine.num_slots):
+        engine.finish(s)
+    if engine.pages_in_use() or len(engine.allocator.free) != usable:
+        fail(f"paged: {engine.pages_in_use()} pages still in use after "
+             f"finishing every slot")
+    print(f"  every slot finished: 0 pages in use, {usable} free")
+
+    fp8 = PagedInferenceEngine(model, **PAGED_ENGINE, seed=SEED,
+                               kv_dtype=torch.float8_e4m3fn, device=device)
+    for n in PROMPT_LENS[:4]:
+        fp8.add_request(rng.integers(0, vocab, n))
+    for _ in range(8):
+        seen.extend(fp8.step().values())
+    launches = dict(k1=flash_attention_forward.launches,
+                    k5=paged_decode_attention.launches)
+
+    quantized_decode_attention.launches = 0
+    cont = InferenceEngine(model, **ENGINE, seed=SEED,
+                           kv_dtype=torch.float8_e4m3fn, device=device)
+    for n in PROMPT_LENS[:4]:
+        cont.add_request(rng.integers(0, vocab, n))
+    for _ in range(8):
+        seen.extend(cont.step().values())
+    launches["k4_e4m3"] = quantized_decode_attention.launches
+
+    if not all(0 <= t < vocab for t in seen):
+        fail("paged serving: a token out of range")
+    for bucket, runs in sorted(ttft.items()):
+        print(f"  paged prefill bucket {bucket} on {card}: " + ", ".join(
+            f"{n} tokens {ms:.2f} ms" for n, ms in runs))
+    dec = statistics.median(step_ms)
+    print(f"  paged decode on {card}: {dec:.3f} ms/step median over "
+          f"{len(step_ms)} steps, {PAGED_ENGINE['num_slots'] * 1e3 / dec:.1f} "
+          f"tokens/s at 8 slots; device time {busy_us / 4e3:.3f} ms/step "
+          f"(profiled): device idle share {1 - busy_us / 4e3 / dec:.3f}")
+    print(f"  launches on the paged serving path: forward kernel "
+          f"{launches['k1']}, paged decode kernel {launches['k5']} (8 of "
+          f"its steps on an e4m3 pool); decode kernel e4m3 arm "
+          f"{launches['k4_e4m3']} (contiguous engine, e4m3 cache, 8 steps)")
+    if min(launches.values()) <= 0:
+        fail(f"a kernel of the paged serving path never launched: {launches}")
+    return launches
+
+
+def paged_parity(params, devices=("cuda", "cpu")):
+    """Phase 11, end: f32 model, the same teacher-forced tokens through the
+    contiguous and the paged path on the card, and the paged path on the
+    card vs the CPU."""
+    from flash_cosine_sim_attention_tpu_torch.models import (
+        decode_step, decode_step_paged, init_decode_state,
+        init_paged_decode_state, prefill, prefill_paged)
+
+    tokens = np.random.default_rng(SEED + 11).integers(
+        0, MODEL["num_tokens"], (2, 208))
+    table = torch.tensor([[5, 2], [1, 6]], dtype=torch.int32)
+    logits = {}
+    for device in devices:
+        model = build_model(params, torch.float32, device)
+        toks = torch.from_numpy(tokens).to(device)
+        state = init_decode_state(model, 2, 256, device=device)
+        out, state = prefill(model, state, toks[:, :200])
+        cont = [out]
+        paged = init_paged_decode_state(model, 2, 8, 128, 2, device=device)
+        paged.caches[0].page_table.copy_(table)
+        rows = []
+        for s in range(2):
+            out, paged = prefill_paged(model, paged, s, toks[s:s + 1, :200])
+            rows.append(out)
+        steps = [torch.cat(rows)]
+        active = torch.ones(2, dtype=torch.bool, device=device)
+        for t in range(200, 208):
+            out, state = decode_step(model, state, toks[:, t])
+            cont.append(out)
+            out, paged = decode_step_paged(model, paged, toks[:, t], active)
+            steps.append(out)
+        logits[device] = torch.stack(steps).float().cpu()
+        if device == devices[0]:
+            gap = (logits[device] - torch.stack(cont).float().cpu()
+                   ).abs().max().item()
+    diff = (logits[devices[0]] - logits[devices[1]]).abs().max().item()
+    print(f"  f32 prefill(200) + 8 decode steps, paged vs contiguous on the "
+          f"card: max |logit gap| {gap:.3e}; paged, card vs CPU: "
+          f"{diff:.3e} (bar {PARITY_BAR:g} each)")
+    if not (gap <= PARITY_BAR and diff <= PARITY_BAR):
+        fail(f"paged parity: paged vs contiguous {gap}, card vs CPU {diff}")
+
+
 def main() -> None:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -717,9 +1065,15 @@ def main() -> None:
     bias_launches = bias_grad_path(smi)
     print("[9] training parity")
     train_parity()
+    print("[10] paged decode kernel vs plain")
+    paged_err, paged_rows = check_paged(smi)
+    print("[11] paged serving path, full width")
+    paged_launches = serve_paged(smi, params)
+    paged_parity(params)
 
     bwd = "flash_cosine_sim_attention_tpu/ops/bwd_kernel.py"
     src = "flash_cosine_sim_attention_tpu_torch/csrc/bwd_kernel.cu"
+    csrc = "flash_cosine_sim_attention_tpu_torch/csrc"
     kernels = [
         dict(name="fwd_kernel", route="cuda",
              source="flash_cosine_sim_attention_tpu_torch/csrc/fwd_kernel.cu",
@@ -738,6 +1092,16 @@ def main() -> None:
         dict(name="bwd_kernel:dkdv", route="cuda", source=src,
              replaces=f"{bwd}:282", launches=bias_launches[1],
              max_abs_err=bwd_err["K3b"], **bwd_rows["K3b"]),
+        dict(name="decode_kernel:e4m3", route="cuda",
+             source=f"{csrc}/decode_kernel.cu",
+             replaces="flash_cosine_sim_attention_tpu/quant/decode_kernel.py:49",
+             launches=paged_launches["k4_e4m3"],
+             max_abs_err=paged_err["K4 e4m3"], **paged_rows["K4 e4m3"]),
+        dict(name="paged_decode_kernel", route="cuda",
+             source=f"{csrc}/paged_decode_kernel.cu",
+             replaces="flash_cosine_sim_attention_tpu/quant/paged.py:183",
+             launches=paged_launches["k5"], max_abs_err=paged_err["K5"],
+             **paged_rows["K5"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke.py took {time.perf_counter() - started:.1f} s")

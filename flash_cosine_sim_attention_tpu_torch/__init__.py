@@ -3,10 +3,12 @@ NVIDIA Hopper (H100).
 
 The JAX package ``flash_cosine_sim_attention_tpu`` beside it is the
 reference; each module here has a namesake there.  This package holds the
-serving path: the fused forward (prefill) and the INT8-KV decode, each a
-hand-written CUDA kernel under ``csrc/`` with a plain PyTorch version
-beside it, the validation transformer, cached decoding, and the
-continuous-batching ``InferenceEngine``.  Entry points run on ``cuda``
+serving path (the fused forward for prefill, decode over an int8 or e4m3
+KV cache, and decode over a paged cache), the backward, the validation
+transformer and its trainer, cached and paged decoding, and the
+continuous-batching ``InferenceEngine`` and ``PagedInferenceEngine``.
+Each kernel is hand-written CUDA under ``csrc/`` with a plain PyTorch
+version beside it.  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; CPU tensors take the plain
 versions.  The kernels are built with ``nvcc`` at first use.
 """

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library under ``build/`` (listed in
 ``.gitignore``) at first use, then loaded with ``ctypes``.  The library's
-file name carries a hash of its source, so an edited kernel is rebuilt
-and a stale one is never loaded.  Nothing here runs at import time.
+file name carries a hash of its source and of the shared ``csrc/*.cuh``
+headers, so an edited kernel is rebuilt and a stale one is never loaded.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
-KERNELS = ("fwd_kernel", "decode_kernel", "bwd_kernel")
+KERNELS = ("fwd_kernel", "decode_kernel", "bwd_kernel", "paged_decode_kernel")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -57,8 +57,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD / f"lib{name}-{digest[:12]}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # shared device helpers
+        h.update(header.read_bytes())
+    return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_kernels(names: Iterable[str] = KERNELS) -> Dict[str, str]:

@@ -1,24 +1,29 @@
-// One-token cosine-sim attention over the INT8 KV cache, for Hopper (sm_90a).
+// One-token cosine-sim attention over the quantized KV cache, for Hopper
+// (sm_90a).
 //
 // Replaces both TPU decode kernels of
 // flash_cosine_sim_attention_tpu/quant/decode_kernel.py: `_decode_kernel`
 // and `_decode_kernel_packed`.  The packed one is the same maths on a
 // 128-lane view that works around the TPU's int8 tiling; Hopper has no such
-// tiling, so one kernel over the natural (b, kvh, cap, d) int8 layout
-// serves both.  Per slot b, kv head, and each of its g query heads:
-//     s = bf16(q_hat) . k8                       (K dequant 1/127 folded
-//     e = exp(s * scale / 127 - scale)            into the logit scale)
+// tiling, so one kernel over the natural (b, kvh, cap, d) layout serves
+// both.  It is templated on the storage type: int8 (K at the fixed scale
+// 127, V with a per-token scale) or e4m3 (`__nv_fp8_e4m3`, no scales; the
+// JAX `has_vscale=False` arm).  Per slot b, kv head, and each of its g
+// query heads:
+//     s = bf16(q_hat) . k                        (K's dequant, 1/127 or 1,
+//     e = exp(s * scale * kdq - scale)            folded into the logit scale)
 //     l = sum(e)                                 (unscaled weights)
-//     O = sum(bf16(e * v_scale[t]) * v8)         (V's per-token scale
-//     out = O / max(l, 1e-10)                     folded into e)
-// over the slot's live tokens t < length[b] only.  The bf16 roundings of q
-// and of the scaled weights are the JAX kernel's own (it feeds bf16 to its
-// matrix unit), so the two agree to the order of the f32 sums.  A slot of
-// length 0 returns 0.
+//     O = sum(bf16(e * v_scale[t]) * v)          (int8: V's per-token scale
+//     out = O / max(l, 1e-10)                     folded into e; e4m3: bf16(e))
+// over the slot's live tokens t < length[b] only.  int8 and e4m3 values are
+// exact in bf16, and the bf16 roundings of q and of the weights are the JAX
+// kernel's own (it feeds bf16 to its matrix unit), so the two agree to the
+// order of the f32 sums.  A slot of length 0 returns 0.
 //
-// Bound on the H100: bytes.  At full length a call streams the int8 K and
-// V of every live token once (8.4 MB at b8 kvh8 cap1024 d64, ~2.5 us at
-// 3.35 TB/s) and does ~2 FLOP per byte.  The kernel reads the lengths from
+// Bound on the H100: bytes.  At full length a call streams the K and V
+// codes of every live token once (8.4 MB at b8 kvh8 cap1024 d64 in int8,
+// ~2.5 us at 3.35 TB/s; e4m3 reads no scales) and does ~2 FLOP per byte.
+// The kernel reads the lengths from
 // the device (no host sync) and loops only over live tokens, so dead
 // capacity costs nothing.  One 128-thread block per (slot, kv head): each
 // thread scores one token of a 128-token tile (16-byte loads of its K row)
@@ -29,24 +34,17 @@
 // blocks and merges their partial (O, l) sums in a second pass (split-K,
 // "flash-decoding"), which the no-row-max sums make a plain addition.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "decode_common.cuh"
 
 namespace {
 
-constexpr int NT = 128;   // threads = tokens per tile (ops/blocks.py DECODE_TILE)
-constexpr int GMAX = 8;   // query heads per kv head (ops/blocks.py DECODE_MAX_GROUP)
-constexpr float EPS = 1e-10f;
+using namespace decode_common;
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-template <int D>
+// T: int8_t (per-token V scales) or __nv_fp8_e4m3 (no scales)
+template <typename T, int D>
 __global__ void __launch_bounds__(NT) decode_kernel(
-    const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k8,
-    const int8_t* __restrict__ v8, const float* __restrict__ v_scale,
+    const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ k8,
+    const uint8_t* __restrict__ v8, const float* __restrict__ v_scale,
     const int* __restrict__ length, float* __restrict__ out, int KVH, int G,
     int cap, float logit_scale, float scale) {
   constexpr int NPARTS = NT / D > 0 ? NT / D : 1;  // token lanes in P.V
@@ -54,18 +52,17 @@ __global__ void __launch_bounds__(NT) decode_kernel(
   __shared__ float es[GMAX][NT];
   __shared__ float red[NPARTS][GMAX][D];
   __shared__ float lred[GMAX][NT / 32];
-  __shared__ __align__(16) int8_t vt[NT][D];  // the tile's V rows
+  __shared__ __align__(16) uint8_t vt[NT][D];  // the tile's V rows
+  constexpr bool kScaled = std::is_same<T, int8_t>::value;
 
   const int kvhi = blockIdx.x, bi = blockIdx.y;
   const size_t bh = size_t(bi) * KVH + kvhi;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int len = min(max(length[bi], 0), cap);
+  load_queries<D>(q, bh, G, qs);
 
-  for (int idx = tid; idx < G * D; idx += NT)
-    qs[idx / D][idx % D] = __bfloat162float(q[bh * G * D + idx]);
-
-  const int8_t* kb = k8 + bh * cap * D;
-  const int8_t* vb = v8 + bh * cap * D;
+  const uint8_t* kb = k8 + bh * cap * D;
+  const uint8_t* vb = v8 + bh * cap * D;
   const float* vsb = v_scale + bh * cap;
   const int dcol = tid % D, part = tid / D;
   const bool pv_lane = tid < NPARTS * D;
@@ -88,7 +85,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(
         ku[w] = kr[w];
         vu[w] = vr[w];
       }
-      const float vsc = vsb[t];
+      const float vsc = kScaled ? vsb[t] : 1.f;
       uint4* vdst = reinterpret_cast<uint4*>(&vt[tid][0]);
 #pragma unroll
       for (int w = 0; w < D / 16; ++w) vdst[w] = vu[w];
@@ -97,10 +94,10 @@ __global__ void __launch_bounds__(NT) decode_kernel(
       for (int gi = 0; gi < GMAX; ++gi) s[gi] = 0.f;
 #pragma unroll
       for (int w = 0; w < D / 16; ++w) {
-        const int8_t* kv = reinterpret_cast<const int8_t*>(&ku[w]);
+        const uint8_t* kv = reinterpret_cast<const uint8_t*>(&ku[w]);
 #pragma unroll
         for (int e = 0; e < 16; ++e) {
-          const float kf = float(kv[e]);
+          const float kf = code_value<T>(kv[e]);
 #pragma unroll
           for (int gi = 0; gi < GMAX; ++gi)
             if (gi < G) s[gi] = fmaf(qs[gi][w * 16 + e], kf, s[gi]);
@@ -111,7 +108,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(
         if (gi < G) {
           const float e = expf(s[gi] * logit_scale - scale);
           lpart[gi] += e;
-          es[gi][tid] = bf16_round(e * vsc);
+          es[gi][tid] = bf16_round(kScaled ? e * vsc : e);
         }
       }
     }
@@ -119,7 +116,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     if (pv_lane) {
       const int tmax = min(NT, len - t0);
       for (int kk = part; kk < tmax; kk += NPARTS) {
-        const float vv = float(vt[kk][dcol]);
+        const float vv = code_value<T>(vt[kk][dcol]);
 #pragma unroll
         for (int gi = 0; gi < GMAX; ++gi)
           if (gi < G) acc[gi] = fmaf(es[gi][kk], vv, acc[gi]);
@@ -128,61 +125,31 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     __syncthreads();
   }
 
-#pragma unroll
-  for (int gi = 0; gi < GMAX; ++gi) {
-    if (gi < G) {
-      float l = lpart[gi];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        l += __shfl_xor_sync(0xffffffffu, l, off);
-      if (lane == 0) lred[gi][warp] = l;
-      if (pv_lane) red[part][gi][dcol] = acc[gi];
-    }
-  }
-  __syncthreads();
-  for (int idx = tid; idx < G * D; idx += NT) {
-    const int gi = idx / D, dc = idx % D;
-    float a = 0.f, l = 0.f;
-#pragma unroll
-    for (int p = 0; p < NPARTS; ++p) a += red[p][gi][dc];
-#pragma unroll
-    for (int w = 0; w < NT / 32; ++w) l += lred[gi][w];
-    out[bh * G * D + idx] = a * (1.f / fmaxf(l, EPS));
-  }
-}
-
-template <int D>
-cudaError_t launch(const void* q, const void* k8, const void* v8,
-                   const void* v_scale, const void* length, void* out, int B,
-                   int KVH, int G, int cap, float logit_scale, float scale,
-                   cudaStream_t stream) {
-  decode_kernel<D><<<dim3(KVH, B), NT, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k8),
-      static_cast<const int8_t*>(v8), static_cast<const float*>(v_scale),
-      static_cast<const int*>(length), static_cast<float*>(out), KVH, G, cap,
-      logit_scale, scale);
-  return cudaGetLastError();
+  store_rows<D, NPARTS>(acc, lpart, pv_lane, part, dcol, G, red, lred, out, bh);
 }
 
 }  // namespace
 
 // Contiguous tensors: q (B, KVH, G, d) bf16, already l2-normalized;
-// k8/v8 (B, KVH, cap, d) int8; v_scale (B, KVH, cap) f32; length (B,)
-// int32 on the device; out (B, KVH, G, d) f32.  logit_scale is
-// scale * (1/127).  Returns the cudaGetLastError() after the launch.
+// k8/v8 (B, KVH, cap, d) int8 (fp8 = 0) or e4m3 (fp8 = 1); v_scale
+// (B, KVH, cap) f32, read for int8 only; length (B,) int32 on the device;
+// out (B, KVH, G, d) f32.  logit_scale is scale * kdq (1/127 for int8, 1
+// for e4m3).  Returns the cudaGetLastError() after the launch.
 extern "C" int fcsa_decode(const void* q, const void* k8, const void* v8,
                            const void* v_scale, const void* length, void* out,
-                           int B, int KVH, int G, int cap, int d,
+                           int B, int KVH, int G, int cap, int d, int fp8,
                            float logit_scale, float scale, void* stream) {
   if (B <= 0 || KVH <= 0 || G <= 0 || G > GMAX || cap <= 0)
     return int(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 16: return int(launch<16>(q, k8, v8, v_scale, length, out, B, KVH, G, cap, logit_scale, scale, s));
-    case 32: return int(launch<32>(q, k8, v8, v_scale, length, out, B, KVH, G, cap, logit_scale, scale, s));
-    case 64: return int(launch<64>(q, k8, v8, v_scale, length, out, B, KVH, G, cap, logit_scale, scale, s));
-    case 96: return int(launch<96>(q, k8, v8, v_scale, length, out, B, KVH, G, cap, logit_scale, scale, s));
-    case 128: return int(launch<128>(q, k8, v8, v_scale, length, out, B, KVH, G, cap, logit_scale, scale, s));
-    default: return int(cudaErrorInvalidValue);
-  }
+  return int(dispatch(fp8, d, [&](auto code, auto dim) {
+    decode_kernel<decltype(code), decltype(dim)::value>
+        <<<dim3(KVH, B), NT, 0, s>>>(
+            static_cast<const __nv_bfloat16*>(q),
+            static_cast<const uint8_t*>(k8), static_cast<const uint8_t*>(v8),
+            static_cast<const float*>(v_scale),
+            static_cast<const int*>(length), static_cast<float*>(out), KVH, G,
+            cap, logit_scale, scale);
+    return cudaGetLastError();
+  }));
 }

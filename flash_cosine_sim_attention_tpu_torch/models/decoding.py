@@ -1,16 +1,19 @@
-"""Cached autoregressive decoding: prefill + INT8-KV decode steps.
+"""Cached autoregressive decoding: prefill + quantized-KV decode steps.
 
 Counterpart of ``flash_cosine_sim_attention_tpu/models/decoding.py``:
 
   * ``prefill`` runs the prompt through the fused forward kernel and fills
-    the per-layer int8 caches;
+    the per-layer int8 (or e4m3) caches;
   * ``decode_step`` feeds one token per slot; each layer attends its new
     query against its cache through the decode kernel;
   * ``prefill_continue`` runs a new chunk for a slot that already has
     history (multi-turn, chunked admission): the chunk attends the
     dequantized history (key-masked) and itself (causal), and the two
     partials merge by their row sums, which the no-row-max exp convention
-    makes a plain sum.
+    makes a plain sum;
+  * ``prefill_paged``, ``decode_step_paged`` and ``prefill_continue_paged``
+    do the same over per-layer page pools shared by all slots
+    (``quant/paged.py``), through the paged decode kernel.
 
 The parameters live in the model, so these functions take no ``params``.
 They run eagerly under ``torch.no_grad`` and write the cache buffers in
@@ -27,11 +30,16 @@ import torch
 from .._build import resolve_device
 from ..ops import flash_attention_forward, flash_cosine_sim_attention
 from ..quant import (
+    PagedKVCache,
     QuantKVCache,
     append,
+    append_paged,
     dequantize_k,
     dequantize_v,
+    gather_pages,
     init_cache,
+    init_paged_cache,
+    paged_decode_attention,
     quantized_decode_attention,
 )
 from .transformer import CosineSimCausalTransformer
@@ -42,13 +50,21 @@ class DecodeState(NamedTuple):
     pos: torch.Tensor                  # (b,) int32 tokens consumed per slot
 
 
+class PagedDecodeState(NamedTuple):
+    caches: Tuple[PagedKVCache, ...]   # one per layer (shared page pools)
+    pos: torch.Tensor                  # (num_slots,) int32
+
+
 def init_decode_state(model: CosineSimCausalTransformer, batch: int,
-                      capacity: int, device=None) -> DecodeState:
-    """Empty caches for ``batch`` slots on ``device`` (default ``cuda``;
-    raises when no card is present and the CPU was not asked for)."""
+                      capacity: int, device=None,
+                      kv_dtype=torch.int8) -> DecodeState:
+    """Empty ``kv_dtype`` (int8 or float8_e4m3fn) caches for ``batch``
+    slots on ``device`` (default ``cuda``; raises when no card is present
+    and the CPU was not asked for)."""
     device = resolve_device(device)
     caches = tuple(
-        init_cache(batch, model.kv_heads, capacity, model.dim_head, device)
+        init_cache(batch, model.kv_heads, capacity, model.dim_head, device,
+                   kv_dtype=kv_dtype)
         for _ in range(model.depth))
     return DecodeState(caches, torch.zeros(batch, dtype=torch.int32,
                                            device=device))
@@ -151,3 +167,145 @@ def prefill_continue(model: CosineSimCausalTransformer, state: DecodeState,
     pos = state.pos.clone()
     pos[slot:slot + 1] = pos0 + n_new
     return _last_real(logits, true_len), DecodeState(tuple(caches), pos)
+
+
+# ---------------------------------------------------------------------------
+# paged variants: per-layer page pools shared by all slots (quant/paged.py)
+# ---------------------------------------------------------------------------
+
+
+def init_paged_decode_state(model: CosineSimCausalTransformer,
+                            num_slots: int, num_pages: int, page_size: int,
+                            max_pages_per_slot: int, kv_dtype=torch.int8,
+                            device=None) -> PagedDecodeState:
+    """Empty per-layer pools on ``device`` (default ``cuda``; raises when no
+    card is present and the CPU was not asked for).
+
+    Every layer's cache holds the SAME ``page_table`` tensor (JAX keeps
+    equal per-layer copies): a slot's pages are the same ids in every
+    layer's pool, so the engine uploads one table when it changes.
+    """
+    device = resolve_device(device)
+    caches = [init_paged_cache(num_pages, model.kv_heads, page_size,
+                               model.dim_head, num_slots, max_pages_per_slot,
+                               kv_dtype=kv_dtype, device=device)
+              for _ in range(model.depth)]
+    table = caches[0].page_table
+    return PagedDecodeState(
+        tuple(c._replace(page_table=table) for c in caches),
+        torch.zeros(num_slots, dtype=torch.int32, device=device))
+
+
+def _slot_view(cache: PagedKVCache, slot: int) -> PagedKVCache:
+    """b=1 view of one slot over the shared pool (pool, table row and
+    length are views)."""
+    return cache._replace(page_table=cache.page_table[slot:slot + 1],
+                          length=cache.length[slot:slot + 1])
+
+
+def _with_slot_length(cache: PagedKVCache, slot: int,
+                      n: torch.Tensor) -> PagedKVCache:
+    length = cache.length.clone()
+    length[slot:slot + 1] = n
+    return cache._replace(length=length)
+
+
+@torch.no_grad()
+def prefill_paged(model: CosineSimCausalTransformer, state: PagedDecodeState,
+                  slot: int, tokens: torch.Tensor,
+                  true_len: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, PagedDecodeState]:
+    """Prefill ONE request (tokens (1, n), optionally right-padded with
+    ``true_len`` (1,)) into ``slot`` of the shared pools, from position 0;
+    other slots keep their pages untouched.  The slot's table row must
+    already hold its pages (pad positions past them land on the null page).
+    Returns (last real token's logits (1, vocab), new state)."""
+    caches = list(state.caches)
+
+    def attn(layer, q, k, v):
+        append_paged(_slot_view(caches[layer], slot), k, v)
+        return flash_cosine_sim_attention(
+            q, k, v, causal=True, scale=model.attn_scale, l2norm_qk=False)
+
+    pos0 = torch.zeros(1, dtype=torch.int32, device=tokens.device)
+    logits = model.trunk(model.embed(tokens, pos0), attn)
+    n_new = (torch.full((1,), tokens.shape[1], dtype=torch.int32,
+                        device=tokens.device)
+             if true_len is None else true_len.to(torch.int32))
+    # the slot's length is the TRUE prompt length: pad positions are
+    # never attended, and the next real append overwrites them
+    caches = [_with_slot_length(c, slot, n_new) for c in caches]
+    pos = state.pos.clone()
+    pos[slot:slot + 1] = n_new
+    return (_last_real(logits, true_len),
+            PagedDecodeState(tuple(caches), pos))
+
+
+@torch.no_grad()
+def decode_step_paged(model: CosineSimCausalTransformer,
+                      state: PagedDecodeState, token: torch.Tensor,
+                      active: torch.Tensor
+                      ) -> Tuple[torch.Tensor, PagedDecodeState]:
+    """One decode step for every slot: (num_slots,) tokens in,
+    (num_slots, vocab) logits out.  ``active`` ((num_slots,) bool) masks
+    finished and empty slots: their writes go to the null page and their
+    lengths and positions do not advance."""
+    caches = list(state.caches)
+
+    def attn(layer, q, k, v):
+        caches[layer] = append_paged(caches[layer], k, v, active=active)
+        return paged_decode_attention(
+            q, caches[layer], scale=model.attn_scale, l2norm_qk=False)
+
+    logits = model.trunk(model.embed(token[:, None], state.pos), attn)
+    pos = state.pos + active.to(torch.int32)
+    return logits[:, 0], PagedDecodeState(tuple(caches), pos)
+
+
+@torch.no_grad()
+def prefill_continue_paged(model: CosineSimCausalTransformer,
+                           state: PagedDecodeState, slot: int,
+                           tokens: torch.Tensor,
+                           true_len: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, PagedDecodeState]:
+    """Continuation prefill of a (1, t) chunk for ``slot`` against the
+    paged cache (see ``prefill_continue``): the chunk attends itself
+    (causal) and the slot's gathered, dequantized history pages
+    (key-masked), and the partials merge by their row sums.  The slot's
+    table must already hold pages covering the chunk."""
+    caches = list(state.caches)
+    pos0 = state.pos[slot:slot + 1]
+    n_new = (torch.full((1,), tokens.shape[1], dtype=torch.int32,
+                        device=tokens.device)
+             if true_len is None else true_len.to(torch.int32))
+
+    def attn(layer, q, k, v):
+        c = caches[layer]
+        view = _slot_view(c, slot)
+        hist_len = view.length
+        o_new, inv_new = flash_attention_forward(
+            q, k, v, None, None, bias_batch_dim=False,
+            scale=model.attn_scale, causal=True)
+        # (1, kvh, d, mp * ps) codes -> (1, kvh, mp * ps, d) values
+        k_hist = dequantize_k(gather_pages(c.k8, view.page_table), q.dtype)
+        v_hist = dequantize_v(gather_pages(c.v8, view.page_table),
+                              gather_pages(c.v_scale, view.page_table),
+                              q.dtype)
+        keep = (torch.arange(k_hist.shape[-1], device=q.device)[None, :]
+                < hist_len[:, None])
+        o_hist, inv_hist = flash_attention_forward(
+            q, k_hist.transpose(-1, -2), v_hist.transpose(-1, -2), keep,
+            None, bias_batch_dim=False, scale=model.attn_scale, causal=False)
+        l_new, l_hist = 1.0 / inv_new, 1.0 / inv_hist
+        o = ((o_new.float() * l_new + o_hist.float() * l_hist)
+             / (l_new + l_hist).clamp_min(1e-10))
+        # write the whole (padded) chunk; the corrected length excludes pads
+        append_paged(view, k, v)
+        caches[layer] = _with_slot_length(c, slot, hist_len + n_new)
+        return o.to(q.dtype)
+
+    logits = model.trunk(model.embed(tokens, pos0), attn)
+    pos = state.pos.clone()
+    pos[slot:slot + 1] = pos0 + n_new
+    return (_last_real(logits, true_len),
+            PagedDecodeState(tuple(caches), pos))

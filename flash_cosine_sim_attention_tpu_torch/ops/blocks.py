@@ -3,8 +3,9 @@
 The JAX package's block tables were tuned for the TPU v5e's 128x128
 matrix unit and large VMEM; they do not carry over.  The Hopper kernels
 use the fixed tiles below (see ``csrc/fwd_kernel.cu`` and
-``csrc/decode_kernel.cu``, which hold the same numbers; the backward's
-64 x 64 tiles live in ``csrc/bwd_kernel.cu`` alone).
+``csrc/decode_common.cuh``, shared by both decode kernels, which hold the
+same numbers; the backward's 64 x 64 tiles live in ``csrc/bwd_kernel.cu``
+alone).
 """
 
 # head dims the reference supports (cu:84); the CUDA kernels are built for
@@ -31,3 +32,10 @@ ONEPASS_BWD_MAX_SEQ = 8192
 # heads share a kv head
 DECODE_TILE = 128
 DECODE_MAX_GROUP = 8
+
+# paged decode kernel: one 128-thread block per (slot, kv head) walks the
+# slot's pages PAGED_TILE tokens at a time, so a page holds whole tiles:
+# page_size must be a multiple of PAGED_TILE (the JAX pool's 128-lane rule,
+# kept so that the same configurations are valid in both packages).  At
+# most DECODE_MAX_GROUP query heads share a kv head, as in the decode kernel
+PAGED_TILE = 128

@@ -1,12 +1,15 @@
-"""Decode path: one-token cosine-sim attention over the INT8 KV cache.
+"""Decode path: one-token cosine-sim attention over the quantized KV cache.
 
 Counterpart of ``flash_cosine_sim_attention_tpu/quant/decode_kernel.py``.
 A CUDA query goes to the hand-written Hopper kernel
 ``csrc/decode_kernel.cu`` (one kernel for both TPU forms,
-``_decode_kernel`` and ``_decode_kernel_packed``); a CPU query goes to
-``decode_attention_plain``, the same maths in plain PyTorch, including
-the JAX kernel's bf16 roundings of q and of the V-scaled exp weights.
-``reference_decode_attention`` is the dequantize-everything oracle.
+``_decode_kernel`` and ``_decode_kernel_packed``, with an int8 and an
+e4m3 instance); a CPU query goes to ``decode_attention_plain``, the same
+maths in plain PyTorch, including the JAX kernel's bf16 roundings of q
+and of the (V-scaled, for int8) exp weights.  JAX sends an e4m3 cache to
+an XLA einsum by default, for a Mosaic limit the card does not have; here
+it takes the kernel like int8.  ``reference_decode_attention`` is the
+dequantize-everything oracle.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch
 from .._build import check_launch, current_stream, load_kernel
 from ..ops.blocks import ALLOWED_DIM_HEADS, DECODE_MAX_GROUP, EPS
 from ..ops.reference import l2norm_tensors
-from .kv_cache import QuantKVCache, dequantize_k, dequantize_v
+from .kv_cache import KV_DTYPES, QuantKVCache, dequantize_k, dequantize_v
 
 
 def _live(cache: QuantKVCache) -> torch.Tensor:
@@ -37,25 +40,37 @@ def decode_attention_plain(qg: torch.Tensor, cache: QuantKVCache,
     e = torch.exp(s * (scale * cache.k_dequant_scale) - scale)
     e = torch.where(_live(cache), e, torch.zeros((), device=e.device))
     lsum = e.sum(-1, keepdim=True)                       # unscaled weights
-    e = (e * cache.v_scale[..., 0][:, :, None, :]).to(torch.bfloat16)
+    if not cache.is_fp8:  # fold int8 V's per-token scale into the weights
+        e = e * cache.v_scale[..., 0][:, :, None, :]
+    e = e.to(torch.bfloat16)
     o = e.float() @ cache.v8.float()
     return o / lsum.clamp_min(EPS)
+
+
+def check_decode_args(qg: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
+                      kernel: str) -> None:
+    """What both CUDA decode kernels (contiguous and paged) are built for:
+    qg (b, kvh, g, d) with d in ALLOWED_DIM_HEADS and g <= DECODE_MAX_GROUP,
+    K and V codes both int8 or both e4m3."""
+    _, _, g, d = qg.shape
+    if d not in ALLOWED_DIM_HEADS:
+        raise ValueError(
+            f"the CUDA {kernel} kernel is built for head dims "
+            f"{ALLOWED_DIM_HEADS}, got {d}")
+    if g > DECODE_MAX_GROUP:
+        raise ValueError(
+            f"the CUDA {kernel} kernel takes at most {DECODE_MAX_GROUP} query "
+            f"heads per kv head, got {g}")
+    if k8.dtype not in KV_DTYPES or v8.dtype != k8.dtype:
+        raise TypeError(f"the CUDA {kernel} kernel takes int8 or e4m3 codes, "
+                        f"got {k8.dtype} / {v8.dtype}")
 
 
 def _decode_cuda(qg: torch.Tensor, cache: QuantKVCache,
                  scale: float) -> torch.Tensor:
     b, kvh, g, d = qg.shape
     cap = cache.capacity
-    if d not in ALLOWED_DIM_HEADS:
-        raise ValueError(
-            f"the CUDA decode kernel is built for head dims "
-            f"{ALLOWED_DIM_HEADS}, got {d}")
-    if g > DECODE_MAX_GROUP:
-        raise ValueError(
-            f"the CUDA decode kernel takes at most {DECODE_MAX_GROUP} query "
-            f"heads per kv head, got {g}")
-    if cache.k8.dtype != torch.int8 or cache.v8.dtype != torch.int8:
-        raise TypeError("the CUDA decode kernel takes an int8 cache")
+    check_decode_args(qg, cache.k8, cache.v8, "decode")
     if tuple(cache.k8.shape) != (b, kvh, cap, d) or (
             cache.v8.shape != cache.k8.shape):
         raise ValueError(f"cache shape {tuple(cache.k8.shape)} does not fit "
@@ -71,13 +86,13 @@ def _decode_cuda(qg: torch.Tensor, cache: QuantKVCache,
     lib = load_kernel("decode_kernel")
     lib.fcsa_decode.restype = ctypes.c_int
     lib.fcsa_decode.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     code = lib.fcsa_decode(
         q.data_ptr(), k8.data_ptr(), v8.data_ptr(), vs.data_ptr(),
         length.data_ptr(), out.data_ptr(), b, kvh, g, cap, d,
-        float(scale * cache.k_dequant_scale), float(scale),
-        current_stream())
+        int(cache.is_fp8), float(scale * cache.k_dequant_scale),
+        float(scale), current_stream())
     check_launch(code, "fcsa_decode")
     quantized_decode_attention.launches += 1
     return out
@@ -90,7 +105,7 @@ def quantized_decode_attention(
     groups: int = 1,
     l2norm_qk: bool = True,
 ) -> torch.Tensor:
-    """Attention of one new query token per slot against its int8 cache,
+    """Attention of one new query token per slot against its quantized cache,
     over the slot's live tokens only; returns q's shape and dtype.
 
     CUDA queries launch the Hopper kernel (counted in

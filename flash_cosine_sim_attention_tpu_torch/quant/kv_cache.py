@@ -1,11 +1,16 @@
-"""INT8 KV cache for cosine-sim attention decode.
+"""Quantized KV cache for cosine-sim attention decode.
 
-Counterpart of ``flash_cosine_sim_attention_tpu/quant/kv_cache.py``, int8
-format only:
+Counterpart of ``flash_cosine_sim_attention_tpu/quant/kv_cache.py``, with
+its two storage formats, selected by ``kv_dtype``:
 
-  * K is l2-normalized, so its components lie in [-1, 1] and int8 at the
-    FIXED scale 127 loses no range and needs no per-row scale.
-  * V is unbounded and carries one f32 scale per (slot, kv head, token).
+  * ``torch.int8`` (default): K is l2-normalized, so its components lie in
+    [-1, 1] and int8 at the FIXED scale 127 loses no range and needs no
+    per-row scale; V is unbounded and carries one f32 scale per (slot,
+    kv head, token).
+  * ``torch.float8_e4m3fn``: K and V stored as e4m3 directly, with no
+    scale (``v_scale`` is an all-ones placeholder).  Values are clipped to
+    e4m3's finite range +-448 before the cast: past it torch saturates
+    while JAX gives NaN, and inside it the two frameworks' bytes agree.
 
 The cache is a fixed-capacity append buffer (b, kvh, capacity, d) plus a
 per-slot length.  Unlike the JAX arrays, the buffers are written IN PLACE
@@ -20,12 +25,16 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 K_SCALE = 127.0  # fixed: K components are in [-1, 1] after l2norm
+FP8_DTYPE = torch.float8_e4m3fn
+FP8_MAX = 448.0  # e4m3's largest finite value
+KV_DTYPES = (torch.int8, FP8_DTYPE)
 
 
 class QuantKVCache(NamedTuple):
-    k8: torch.Tensor        # (b, kvh, cap, d) int8, K * 127
-    v8: torch.Tensor        # (b, kvh, cap, d) int8
-    v_scale: torch.Tensor   # (b, kvh, cap, 1) f32 per-token V scale
+    k8: torch.Tensor        # (b, kvh, cap, d) int8 (K * 127) or e4m3 (K)
+    v8: torch.Tensor        # (b, kvh, cap, d) int8 or e4m3
+    v_scale: torch.Tensor   # (b, kvh, cap, 1) f32 per-token V scale (int8;
+                            # all ones for e4m3)
     length: torch.Tensor    # (b,) int32 valid tokens per slot
 
     @property
@@ -33,45 +42,77 @@ class QuantKVCache(NamedTuple):
         return self.k8.shape[2]
 
     @property
+    def is_fp8(self) -> bool:
+        return self.k8.dtype == FP8_DTYPE
+
+    @property
     def k_dequant_scale(self) -> float:
-        """Multiply raw K storage values by this to recover cos-sim units."""
-        return 1.0 / K_SCALE
+        return kdq(self.k8.dtype)
+
+
+def kdq(kv_dtype) -> float:
+    """Multiply raw K storage values of ``kv_dtype`` by this to recover
+    cos-sim units: 1/127 for int8, 1 for e4m3."""
+    return 1.0 if kv_dtype == FP8_DTYPE else 1.0 / K_SCALE
+
+
+def check_kv_dtype(kv_dtype) -> None:
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype}")
 
 
 def init_cache(batch: int, kv_heads: int, capacity: int, dim_head: int,
-               device) -> QuantKVCache:
-    """An empty cache on ``device`` (zeros everywhere, lengths 0)."""
+               device, kv_dtype=torch.int8) -> QuantKVCache:
+    """An empty cache on ``device`` (zero codes, lengths 0; V scales 0 for
+    int8 and 1 for e4m3, as in JAX)."""
+    check_kv_dtype(kv_dtype)
     shape = (batch, kv_heads, capacity, dim_head)
+    fill = torch.zeros if kv_dtype == torch.int8 else torch.ones
     return QuantKVCache(
-        k8=torch.zeros(shape, dtype=torch.int8, device=device),
-        v8=torch.zeros(shape, dtype=torch.int8, device=device),
-        v_scale=torch.zeros((*shape[:3], 1), dtype=torch.float32,
-                            device=device),
+        k8=torch.zeros(shape, dtype=kv_dtype, device=device),
+        v8=torch.zeros(shape, dtype=kv_dtype, device=device),
+        v_scale=fill((*shape[:3], 1), dtype=torch.float32, device=device),
         length=torch.zeros((batch,), dtype=torch.int32, device=device),
     )
 
 
-def quantize_k(k_norm: torch.Tensor) -> torch.Tensor:
-    """l2-normalized K -> int8 at the fixed scale 127 (round half to even,
-    as ``jnp.round``)."""
+def as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """An e4m3 tensor viewed as its uint8 bytes (other dtypes as they are),
+    so that indexing and scatters need no float8 support."""
+    return t.view(torch.uint8) if t.dtype == FP8_DTYPE else t
+
+
+def quantize_k(k_norm: torch.Tensor, kv_dtype=torch.int8) -> torch.Tensor:
+    """l2-normalized K -> storage codes: int8 at the fixed scale 127 (round
+    half to even, as ``jnp.round``) or e4m3."""
+    if kv_dtype == FP8_DTYPE:
+        return k_norm.float().clamp(-FP8_MAX, FP8_MAX).to(FP8_DTYPE)
     return torch.round(
         (k_norm.float() * K_SCALE).clamp(-127, 127)).to(torch.int8)
 
 
-def quantize_v(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """V -> (int8 values, per-token f32 absmax scale (..., 1))."""
+def quantize_v(v: torch.Tensor, kv_dtype=torch.int8
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """V -> (codes, per-token f32 scale (..., 1)): int8 with an absmax
+    scale, or e4m3 with an all-ones scale."""
     vf = v.float()
+    if kv_dtype == FP8_DTYPE:
+        return (vf.clamp(-FP8_MAX, FP8_MAX).to(FP8_DTYPE),
+                torch.ones((*v.shape[:-1], 1), dtype=torch.float32,
+                           device=v.device))
     scale = vf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
     v8 = torch.round((vf / scale).clamp(-127, 127)).to(torch.int8)
     return v8, scale
 
 
 def dequantize_k(k8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-    return (k8.float() * (1.0 / K_SCALE)).to(dtype)
+    return (k8.float() * kdq(k8.dtype)).to(dtype)
 
 
 def dequantize_v(v8: torch.Tensor, v_scale: torch.Tensor,
                  dtype=torch.float32) -> torch.Tensor:
+    if v8.dtype == FP8_DTYPE:
+        return v8.to(dtype)
     return (v8.float() * v_scale).to(dtype)
 
 
@@ -89,8 +130,9 @@ def append(cache: QuantKVCache, k_norm: torch.Tensor, v: torch.Tensor,
     """
     b, _, t, _ = k_norm.shape
     dev = cache.k8.device
-    k8_new = quantize_k(k_norm)
-    v8_new, vs_new = quantize_v(v)
+    kv_dtype = cache.k8.dtype
+    k8_new = quantize_k(k_norm, kv_dtype)
+    v8_new, vs_new = quantize_v(v, kv_dtype)
     if active is not None:
         # inactive slots rewrite what they hold at a clamped offset: a
         # slot at capacity must not index past the buffer
@@ -101,7 +143,7 @@ def append(cache: QuantKVCache, k_norm: torch.Tensor, v: torch.Tensor,
     cols = pos.long()[:, None] + torch.arange(t, device=dev)    # (b, t)
     for buf, new in ((cache.k8, k8_new), (cache.v8, v8_new),
                      (cache.v_scale, vs_new)):
-        new = new.transpose(1, 2)                               # (b, t, kvh, .)
+        buf, new = as_bytes(buf), as_bytes(new).transpose(1, 2)  # (b, t, kvh, .)
         if active is not None:
             keep = active.view(b, 1, 1, 1)
             new = torch.where(keep, new, buf[rows, :, cols])

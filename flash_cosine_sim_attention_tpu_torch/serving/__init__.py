@@ -1,3 +1,4 @@
 from .engine import InferenceEngine
+from .paged_engine import PagedInferenceEngine
 
-__all__ = ["InferenceEngine"]
+__all__ = ["InferenceEngine", "PagedInferenceEngine"]

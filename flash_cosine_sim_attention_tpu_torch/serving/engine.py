@@ -1,9 +1,9 @@
-"""Continuous-batching inference engine over the INT8-KV decode path.
+"""Continuous-batching inference engine over the quantized-KV decode path.
 
 Counterpart of ``flash_cosine_sim_attention_tpu/serving/engine.py``:
 
-  * a fixed pool of batch slots, each with its own per-layer int8 cache
-    rows and position;
+  * a fixed pool of batch slots, each with its own per-layer int8 (or
+    e4m3) cache rows and position;
   * ``add_request`` prefills a prompt, right-padded to a length bucket
     (exact under causal attention), straight into a free slot's cache rows
     while the other slots keep their state; with ``chunk_tokens`` the
@@ -18,6 +18,8 @@ fetch; the last-token vector and the sampling generator live on the
 device, so a steady-state ``step()`` makes exactly one device->host copy,
 the sampled tokens.  Sampling is top-k filter -> softmax(logits /
 temperature) -> ``torch.multinomial`` with the engine's own generator.
+``SlotEngine`` holds the host policy this engine shares with the paged
+one (``paged_engine.py``).
 """
 
 from __future__ import annotations
@@ -46,43 +48,27 @@ def _bucket(n: int, buckets) -> int:
     raise ValueError(f"prompt length {n} exceeds largest bucket {buckets[-1]}")
 
 
-class InferenceEngine:
-    def __init__(
-        self,
-        model,
-        num_slots: int = 8,
-        capacity: int = 2048,
-        temperature: float = 1.0,
-        filter_thres: float = 0.9,
-        prompt_buckets: Tuple[int, ...] = (128, 256, 512, 1024),
-        seed: int = 0,
-        kv_dtype=torch.int8,
-        mesh=None,
-        device=None,
-    ):
-        """Serve ``model`` (a ``CosineSimCausalTransformer`` holding its
-        weights) on ``device`` (default ``cuda``; raises when no card is
-        present and the CPU was not asked for).  Only the int8 cache is
-        ported; ``mesh`` (serving tensor parallelism) is not."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "serving tensor parallelism (mesh=) is not ported to the "
-                "PyTorch package yet")
-        if kv_dtype != torch.int8:
-            raise NotImplementedError(
-                f"only the int8 KV cache is ported, got kv_dtype={kv_dtype}")
+class SlotEngine:
+    """Host policy shared by the contiguous and the paged engine: slot
+    flags, the host mirror of positions, sampling with the engine's own
+    generator, the FIFO of pending prefill chunks, ``step``,
+    ``continue_request`` and ``generate``.  A subclass owns the device
+    state and supplies ``add_request``, ``_run_chunk``, ``_make_room``
+    (what must hold before ``n`` more decode steps) and ``_decode_step``
+    (its cache's decode function)."""
+
+    def __init__(self, model, num_slots: int, max_tokens: int,
+                 temperature: float, filter_thres: float,
+                 prompt_buckets: Tuple[int, ...], seed: int, device):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lies on {model.device}, engine on "
                              f"{self.device}")
         self.model = model
         self.num_slots = num_slots
-        self.capacity = capacity
-        self.buckets = tuple(b for b in prompt_buckets if b <= capacity)
+        self.buckets = tuple(b for b in prompt_buckets if b <= max_tokens)
         self.temperature = temperature
         self.filter_thres = filter_thres
-        self.state = init_decode_state(model, num_slots, capacity,
-                                       device=self.device)
         self.active = np.zeros(num_slots, bool)
         self.prefilling = np.zeros(num_slots, bool)
         self.host_pos = np.zeros(num_slots, np.int64)  # device-pos mirror
@@ -105,19 +91,26 @@ class InferenceEngine:
         padded[0, :len(tokens)] = tokens
         return torch.from_numpy(padded).to(self.device)
 
-    def _set_slot(self, slot: int, pos: int) -> None:
-        """Set one slot's cache lengths and position (engine-owned state,
-        updated in place)."""
-        for c in self.state.caches:
-            c.length[slot] = pos
-        self.state.pos[slot] = pos
+    def _true_len(self, n: int) -> torch.Tensor:
+        return torch.tensor([n], dtype=torch.int32, device=self.device)
 
     def free_slots(self) -> List[int]:
         return [i for i in range(self.num_slots)
                 if not (self.active[i] or self.prefilling[i])]
 
+    def _free_slot(self) -> int:
+        free = self.free_slots()
+        if not free:
+            raise RuntimeError("no free slots")
+        return free[0]
+
     def _queue_chunks(self, slot: int, prompt: np.ndarray,
                       chunk_tokens: int) -> None:
+        """Reserve ``slot`` for a chunked admission: the prompt streams in
+        across the following ``step()`` calls, one chunk each."""
+        _bucket(min(len(prompt), chunk_tokens), self.buckets)  # validate early
+        self.host_pos[slot] = 0
+        self.prefilling[slot] = True
         n = len(prompt)
         for start in range(0, n, chunk_tokens):
             piece = prompt[start:start + chunk_tokens]
@@ -125,70 +118,23 @@ class InferenceEngine:
                 (slot, np.asarray(piece, np.int32), len(piece),
                  start + chunk_tokens >= n))
 
-    def add_request(self, prompt: np.ndarray,
-                    chunk_tokens: Optional[int] = None) -> int:
-        """Prefill ``prompt`` (1-D int array) into a free slot; returns it.
-
-        With ``chunk_tokens`` set, admission is CHUNKED: the slot is
-        reserved now and the prompt streams in across the following
-        ``step()`` calls (one chunk each) while the other slots keep
-        decoding; the slot turns active when its last chunk lands.
-        """
-        free = self.free_slots()
-        if not free:
-            raise RuntimeError("no free slots")
-        slot = free[0]
-        n = len(prompt)
-        if n > self.capacity:
-            raise ValueError(
-                f"prompt length {n} exceeds capacity {self.capacity}")
-
-        if chunk_tokens is not None:
-            _bucket(min(n, chunk_tokens), self.buckets)  # validate early
-            self._set_slot(slot, 0)
-            self.host_pos[slot] = 0
-            self.prefilling[slot] = True
-            self._queue_chunks(slot, np.asarray(prompt), chunk_tokens)
-            return slot
-
-        width = _bucket(n, self.buckets)
-        # prefill straight into the slot's cache rows (views of the buffers)
-        view = DecodeState(
-            tuple(c._replace(k8=c.k8[slot:slot + 1], v8=c.v8[slot:slot + 1],
-                             v_scale=c.v_scale[slot:slot + 1],
-                             length=torch.zeros_like(c.length[:1]))
-                  for c in self.state.caches),
-            torch.zeros_like(self.state.pos[:1]))
-        true_len = torch.tensor([n], dtype=torch.int32, device=self.device)
-        logits, _ = prefill(self.model, view, self._padded(prompt, width),
-                            true_len=true_len)
-        tok = self._sample(logits)
-        self._set_slot(slot, n)
-        self._last_dev[slot] = tok[0]
-        self.last_token[slot] = int(tok[0])
-        self.host_pos[slot] = n
-        self.active[slot] = True
-        return slot
-
-    def _run_chunk(self, slot: int, tokens: np.ndarray, n: int,
-                   is_last: bool) -> None:
-        width = _bucket(n, self.buckets)
-        # guard on the PADDED width: the whole bucket-padded chunk is written
-        if self.host_pos[slot] + width > self.capacity:
-            raise RuntimeError(
-                f"slot {slot}: prefill chunk (bucket-padded to {width}) "
-                f"would exceed capacity {self.capacity}")
-        true_len = torch.tensor([n], dtype=torch.int32, device=self.device)
-        logits, self.state = prefill_continue(
-            self.model, self.state, slot, self._padded(tokens, width),
-            true_len=true_len)
-        tok = self._sample(logits)
+    def _land_chunk(self, slot: int, tok: torch.Tensor, n: int,
+                    is_last: bool) -> None:
+        """Host bookkeeping after a prefill chunk sampled ``tok``."""
         self._last_dev[slot] = tok[0]
         self.host_pos[slot] += n
         if is_last:
             self.last_token[slot] = int(tok[0])
             self.prefilling[slot] = False
             self.active[slot] = True
+
+    def _decode(self, active: torch.Tensor) -> torch.Tensor:
+        logits, self.state = self._decode_step(self.model, self.state,
+                                               self._last_dev, active)
+        # inactive / mid-prefill slots keep their last token
+        self._last_dev = torch.where(active, self._sample(logits),
+                                     self._last_dev)
+        return self._last_dev
 
     def continue_request(self, slot: int, new_tokens: np.ndarray) -> int:
         """Multi-turn: extend an ACTIVE slot's context with a new chunk of
@@ -200,24 +146,6 @@ class InferenceEngine:
                         len(new_tokens), True)
         return int(self.last_token[slot])
 
-    def _decode(self, active: torch.Tensor) -> torch.Tensor:
-        logits, self.state = decode_step(self.model, self.state,
-                                         self._last_dev, active=active)
-        # inactive / mid-prefill slots keep their last token
-        self._last_dev = torch.where(active, self._sample(logits),
-                                     self._last_dev)
-        return self._last_dev
-
-    def _guard_capacity(self, decode_active: np.ndarray, n: int) -> None:
-        # a slot at capacity must not decode further: its append would
-        # write past the buffer.  host_pos mirror: no device fetch.
-        over = [s for s in range(self.num_slots)
-                if decode_active[s] and self.host_pos[s] + n > self.capacity]
-        if over:
-            raise RuntimeError(
-                f"slots {over} would exceed cache capacity {self.capacity} "
-                f"within {n} steps; finish() them first")
-
     def step(self) -> Dict[int, int]:
         """One step: lands ONE pending prefill chunk (if any), then decodes
         every active slot -> {slot: token}."""
@@ -228,28 +156,12 @@ class InferenceEngine:
             self._run_chunk(*self._pending.popleft())
         if not decode_active.any():
             return {}
-        self._guard_capacity(decode_active, 1)
+        self._make_room(decode_active, 1)
         toks = self._decode(torch.from_numpy(decode_active).to(self.device))
         self.host_pos[decode_active] += 1
         self.last_token = toks.cpu().numpy().astype(np.int32)  # the ONE copy
         return {i: int(self.last_token[i])
                 for i in range(self.num_slots) if decode_active[i]}
-
-    def step_many(self, n: int) -> Dict[int, List[int]]:
-        """Advance every active slot ``n`` tokens -> {slot: [tokens...]},
-        with one device->host copy at the end.  Token streams equal those
-        of n ``step()`` calls.  Pending prefill chunks are NOT landed."""
-        decode_active = self.active & ~self.prefilling
-        if not decode_active.any():
-            return {}
-        self._guard_capacity(decode_active, n)
-        active = torch.from_numpy(decode_active).to(self.device)
-        toks = torch.stack([self._decode(active) for _ in range(n)])
-        self.host_pos[decode_active] += n
-        toks = toks.cpu().numpy().astype(np.int32)  # (n, slots): the ONE copy
-        self.last_token = toks[-1].copy()
-        return {s: [int(t) for t in toks[:, s]]
-                for s in range(self.num_slots) if decode_active[s]}
 
     def finish(self, slot: int) -> None:
         self.active[slot] = False
@@ -266,3 +178,116 @@ class InferenceEngine:
             out.append(self.step()[slot])
         self.finish(slot)
         return out
+
+
+class InferenceEngine(SlotEngine):
+    _decode_step = staticmethod(decode_step)
+
+    def __init__(
+        self,
+        model,
+        num_slots: int = 8,
+        capacity: int = 2048,
+        temperature: float = 1.0,
+        filter_thres: float = 0.9,
+        prompt_buckets: Tuple[int, ...] = (128, 256, 512, 1024),
+        seed: int = 0,
+        kv_dtype=torch.int8,
+        mesh=None,
+        device=None,
+    ):
+        """Serve ``model`` (a ``CosineSimCausalTransformer`` holding its
+        weights) on ``device`` (default ``cuda``; raises when no card is
+        present and the CPU was not asked for) from ``kv_dtype`` caches
+        (int8 or float8_e4m3fn).  ``mesh`` (serving tensor parallelism) is
+        not ported."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "serving tensor parallelism (mesh=) is not ported to the "
+                "PyTorch package yet")
+        super().__init__(model, num_slots, capacity, temperature,
+                         filter_thres, prompt_buckets, seed, device)
+        self.capacity = capacity
+        self.state = init_decode_state(model, num_slots, capacity,
+                                       device=self.device, kv_dtype=kv_dtype)
+
+    def _set_slot(self, slot: int, pos: int) -> None:
+        """Set one slot's cache lengths and position (engine-owned state,
+        updated in place)."""
+        for c in self.state.caches:
+            c.length[slot] = pos
+        self.state.pos[slot] = pos
+
+    def add_request(self, prompt: np.ndarray,
+                    chunk_tokens: Optional[int] = None) -> int:
+        """Prefill ``prompt`` (1-D int array) into a free slot; returns it.
+
+        With ``chunk_tokens`` set, admission is CHUNKED: the slot is
+        reserved now and the prompt streams in across the following
+        ``step()`` calls (one chunk each) while the other slots keep
+        decoding; the slot turns active when its last chunk lands.
+        """
+        slot = self._free_slot()
+        n = len(prompt)
+        if n > self.capacity:
+            raise ValueError(
+                f"prompt length {n} exceeds capacity {self.capacity}")
+
+        if chunk_tokens is not None:
+            self._queue_chunks(slot, np.asarray(prompt), chunk_tokens)
+            self._set_slot(slot, 0)
+            return slot
+
+        width = _bucket(n, self.buckets)
+        # prefill straight into the slot's cache rows (views of the buffers)
+        view = DecodeState(
+            tuple(c._replace(k8=c.k8[slot:slot + 1], v8=c.v8[slot:slot + 1],
+                             v_scale=c.v_scale[slot:slot + 1],
+                             length=torch.zeros_like(c.length[:1]))
+                  for c in self.state.caches),
+            torch.zeros_like(self.state.pos[:1]))
+        logits, _ = prefill(self.model, view, self._padded(prompt, width),
+                            true_len=self._true_len(n))
+        self._set_slot(slot, n)
+        self.host_pos[slot] = 0
+        self._land_chunk(slot, self._sample(logits), n, True)
+        return slot
+
+    def _run_chunk(self, slot: int, tokens: np.ndarray, n: int,
+                   is_last: bool) -> None:
+        width = _bucket(n, self.buckets)
+        # guard on the PADDED width: the whole bucket-padded chunk is written
+        if self.host_pos[slot] + width > self.capacity:
+            raise RuntimeError(
+                f"slot {slot}: prefill chunk (bucket-padded to {width}) "
+                f"would exceed capacity {self.capacity}")
+        logits, self.state = prefill_continue(
+            self.model, self.state, slot, self._padded(tokens, width),
+            true_len=self._true_len(n))
+        self._land_chunk(slot, self._sample(logits), n, is_last)
+
+    def _make_room(self, decode_active: np.ndarray, n: int) -> None:
+        # a slot at capacity must not decode further: its append would
+        # write past the buffer.  host_pos mirror: no device fetch.
+        over = [s for s in range(self.num_slots)
+                if decode_active[s] and self.host_pos[s] + n > self.capacity]
+        if over:
+            raise RuntimeError(
+                f"slots {over} would exceed cache capacity {self.capacity} "
+                f"within {n} steps; finish() them first")
+
+    def step_many(self, n: int) -> Dict[int, List[int]]:
+        """Advance every active slot ``n`` tokens -> {slot: [tokens...]},
+        with one device->host copy at the end.  Token streams equal those
+        of n ``step()`` calls.  Pending prefill chunks are NOT landed."""
+        decode_active = self.active & ~self.prefilling
+        if not decode_active.any():
+            return {}
+        self._make_room(decode_active, n)
+        active = torch.from_numpy(decode_active).to(self.device)
+        toks = torch.stack([self._decode(active) for _ in range(n)])
+        self.host_pos[decode_active] += n
+        toks = toks.cpu().numpy().astype(np.int32)  # (n, slots): the ONE copy
+        self.last_token = toks[-1].copy()
+        return {s: [int(t) for t in toks[:, s]]
+                for s in range(self.num_slots) if decode_active[s]}

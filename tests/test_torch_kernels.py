@@ -6,7 +6,8 @@ JAX package, so it also runs where flax is not installed:
     python -m pytest tests/test_torch_kernels.py -q -m cuda
 
 Tolerances: float32 1e-4 (same maths, other sum order, no TF32); bf16
-outputs 2e-2 (a few bf16 ulps at |o| <= 2); inv_l 1e-5 relative.  The
+outputs 2e-2 (a few bf16 ulps at |o| <= 2); inv_l 1e-5 relative; the
+contiguous decode kernel 2e-3 on f32 output.  The
 backward's gradients reach |g| ~ 30 at scale 8: float32 errors are taken
 relative to max(1, max|g|), bar 1e-4 (K2 adds dQ with atomics whose order
 varies from run to run); bf16 errors per entry, relative to |g| + rms(g),
@@ -26,8 +27,12 @@ from flash_cosine_sim_attention_tpu_torch.ops import (
 from flash_cosine_sim_attention_tpu_torch.ops import bwd_kernel
 from flash_cosine_sim_attention_tpu_torch.quant import (
     append,
+    append_paged,
     decode_attention_plain,
     init_cache,
+    init_paged_cache,
+    paged_decode_attention,
+    paged_decode_plain,
     quantized_decode_attention,
 )
 
@@ -117,6 +122,75 @@ def test_decode_kernel_matches_plain(cuda_device, g_per_kv, d):
     err = (got - want.view(b, kvh * g_per_kv, d)).abs().max().item()
     assert err <= 2e-3, err
     assert got[0].abs().max().item() == 0  # an empty slot returns 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g_per_kv,d", [(1, 64), (4, 32), (8, 16), (2, 128)])
+def test_decode_kernel_e4m3_matches_plain(cuda_device, g_per_kv, d):
+    """The decode kernel's e4m3 arm: no V scales, e rounded to bf16."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    b, kvh, cap = 4, 2, 300
+    k = torch.randn(b, kvh, cap, d, device=cuda_device, generator=g)
+    v = 3 * torch.randn(b, kvh, cap, d, device=cuda_device, generator=g)
+    cache = append(init_cache(b, kvh, cap, d, cuda_device,
+                              kv_dtype=torch.float8_e4m3fn),
+                   l2norm_tensors(k), v)
+    cache = cache._replace(length=torch.tensor(
+        [0, 1, 129, 300], dtype=torch.int32, device=cuda_device))
+    q = l2norm_tensors(torch.randn(b, kvh * g_per_kv, d, device=cuda_device,
+                                   generator=g))
+
+    before = quantized_decode_attention.launches
+    got = quantized_decode_attention(q, cache, scale=8.0, l2norm_qk=False)
+    want = decode_attention_plain(q.view(b, kvh, g_per_kv, d), cache, 8.0)
+    torch.cuda.synchronize()
+    assert quantized_decode_attention.launches == before + 1
+    err = (got - want.view(b, kvh * g_per_kv, d)).abs().max().item()
+    assert err <= 1e-4, err
+    assert got[0].abs().max().item() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.int8, torch.float8_e4m3fn],
+                         ids=["int8", "e4m3"])
+@pytest.mark.parametrize("g_per_kv,d", [(1, 16), (8, 32), (4, 64), (2, 96),
+                                        (3, 128)])
+def test_paged_decode_kernel_matches_plain(cuda_device, kv_dtype, g_per_kv,
+                                           d):
+    """Shuffled page ids, ragged lengths (empty, one token, across a page
+    boundary, the whole table) and a finished slot: its row on the null
+    page with a stale length, read only as far as the table reaches."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    b, kvh, ps, mp = 5, 2, 128, 4
+    num_pages = b * mp + 3
+    ids = torch.randperm(num_pages - 1, device=cuda_device, generator=g) + 1
+    table = ids[:b * mp].view(b, mp).to(torch.int32)
+    cache = init_paged_cache(num_pages, kvh, ps, d, b, mp, kv_dtype=kv_dtype,
+                             device=cuda_device)._replace(page_table=table)
+    k = torch.randn(b, kvh, mp * ps, d, device=cuda_device, generator=g)
+    v = 3 * torch.randn(b, kvh, mp * ps, d, device=cuda_device, generator=g)
+    cache = append_paged(cache, l2norm_tensors(k), v)
+    table = table.clone()
+    table[4] = 0
+    cache = cache._replace(page_table=table, length=torch.tensor(
+        [0, 1, 129, mp * ps, 700], dtype=torch.int32, device=cuda_device))
+    q = l2norm_tensors(torch.randn(b, kvh * g_per_kv, d, device=cuda_device,
+                                   generator=g))
+
+    before = paged_decode_attention.launches
+    got = paged_decode_attention(q, cache, scale=8.0, l2norm_qk=False)
+    want = paged_decode_plain(q.view(b, kvh, g_per_kv, d), cache, 8.0)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    assert torch.isfinite(got).all()
+    err = (got - want.view(b, kvh * g_per_kv, d)).abs().max().item()
+    assert err <= 1e-4, err
+    assert got[0].abs().max().item() == 0
+    # the kernel reads q in bf16 and sums in a fixed order: bf16 queries
+    # give the f32 output rounded once
+    got_bf16 = paged_decode_attention(q.to(torch.bfloat16), cache, scale=8.0,
+                                      l2norm_qk=False)
+    assert torch.equal(got_bf16, got.to(torch.bfloat16))
 
 
 # b, h, kvh, seq_q, seq_k, d, causal, key mask, bias leading dim

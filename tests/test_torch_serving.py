@@ -155,8 +155,10 @@ def test_capacity_and_admission_guards(setup):
 
 
 def test_unported_engine_options_raise(setup):
+    """Serving tensor parallelism is not ported; a cache format that
+    neither package has is refused (int8 and e4m3 are both served)."""
     _, _, model = setup
     with pytest.raises(NotImplementedError):
         _engine(model, mesh=object())
-    with pytest.raises(NotImplementedError):
-        _engine(model, kv_dtype=torch.float8_e4m3fn)
+    with pytest.raises(ValueError, match="kv_dtype"):
+        _engine(model, kv_dtype=torch.float16)
