@@ -37,10 +37,28 @@ Phases (any failure exits non-zero):
      after each phase of traffic, then 8 steps each on an e4m3 pool and
      an e4m3 contiguous cache (K1, K5 and K4-e4m3 launches read around
      this phase only); paged vs contiguous, and paged card vs CPU, with
-     an f32 model.
+     an f32 model;
+ 12. the int8-weight matmul (K7) against its plain version over every
+     (in, out) of the 0.81B production model and a ragged shape, at 1,
+     8, 33 and 1024 rows, f32 and bf16, then timed at 8 rows (L2
+     flushed) and 1024 beside F.linear on a bf16 weight copy; K1's int8
+     arm against its plain version, timed beside its bf16 arm, and the
+     bf16 arm against its plain version at phase 13's prefill and
+     continuation shapes (its error joins K1's entry); then one
+     forward and backward of the op with qk_int8 and qk_fp8 against the
+     plain straight-through gradients (K1 launches read around qk_int8);
+ 13. int8-weight serving at full production width: the JAX package's
+     production decode model (tools/bench_prod_decode.py: dim 2048,
+     depth 16, 16 heads of 128, bf16, random weights drawn on the card),
+     quantize_params + fuse_qkv_params, logits held against the bf16
+     weights; InferenceEngine (8 slots, capacity 2048) takes eight
+     1024-token prompts, 36 steps and a continuation, then
+     PagedInferenceEngine 8 steps (K1, K4, K5 and K7 launches read
+     around it, K7's checked at 65 per pass); card vs CPU at depth 2 in
+     f32.
 Then one JSON line lists every ported kernel with its launches on its
-path, error, times and bound; the card's name and power limit; and,
-the script's own wall time, the nvcc build included; and, last, the
+path, error, times and bound; the script's own wall time, the nvcc
+build included; the card's name and power limit; and, last, the
 {"ok": true, ...} line.  Kernel device times come from
 torch.profiler, wrapper times are CUDA-event medians.
 """
@@ -85,6 +103,23 @@ PAGED_ENGINE = dict(num_slots=8, page_size=128, num_pages=64,
                     max_pages_per_slot=8, reserve_tokens=128,
                     prompt_buckets=(128, 256, 512, 1024))
 PAGED_LENGTHS = (0, 1, 127, 128, 129, 500, 1023, 1024)
+# the JAX package's production decode configuration
+# (tools/bench_prod_decode.py): 0.81B parameters, int8 weights, fused QKV
+PROD_MODEL = dict(num_tokens=256, dim=2048, depth=16, max_seq_len=2048,
+                  heads=16, dim_head=128, attn_scale=1.0, pre_norm=True)
+PROD_ENGINE = dict(num_slots=8, capacity=2048,
+                   prompt_buckets=(128, 256, 512, 1024))
+PROD_PAGED = dict(num_slots=8, page_size=128, num_pages=129,
+                  max_pages_per_slot=16, prompt_buckets=(128, 256, 512, 1024))
+PROD_PROMPT, PROD_STEPS = 1024, 32
+# (in, out) of each dense layer of that model and its calls per decode step
+PROD_DENSE = {"qkv": ((2048, 6144), 16), "out": ((2048, 2048), 16),
+              "ff_in": ((2048, 8192), 16), "ff_out": ((8192, 2048), 16),
+              "logits": ((2048, 256), 1)}
+K7_PER_PASS = 16 * 4 + 1     # K7 launches per prefill, continuation or step
+QUANT_BARS = (0.05, 0.08)    # int8 vs bf16 weights, rel L2 of logits:
+                             # prefill, decode (JAX's, tests/test_quant.py)
+PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 (NVIDIA data sheet)
 
 
 def fail(msg: str) -> None:
@@ -120,18 +155,27 @@ def kernel_us(work, iters: int) -> float:
 
 def cuda_rows(work, iters: int):
     """torch.profiler's per-kernel rows (key, self device time in us,
-    count) over ``iters`` calls of ``work``."""
+    count) over ``iters`` calls of ``work``.  The profiler can drop the
+    record of the first kernel launched in its window: on the H100,
+    profiles of 20 calls read 19 for the kernel each call launches first
+    (which then sorts last by first appearance), at the same call sites
+    run after run, and a sentinel kernel closing the window changed
+    nothing.  So a sentinel (torch.cuda._sleep's spin_kernel) opens the
+    window, and it is left out of the rows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         for _ in range(iters):
             work()
         torch.cuda.synchronize()
     return [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and "spin_kernel" not in e.key]
 
 
 def kernel_device_us(work, iters: int, names):
@@ -142,21 +186,21 @@ def kernel_device_us(work, iters: int, names):
         n: sum(t for key, t, _ in rows if n in key) for n in names}
 
 
-def whole_us(work, iters: int) -> float:
+def whole_us(work, iters: int, tries: int = 3) -> float:
     """kernel_us for a ``work`` that launches each of its kernels the same
-    number of times per call: a profile in which some kernel's count is
-    not a multiple of ``iters`` has lost records, and is taken again (at
-    most twice more; the counts are printed)."""
-    for _ in range(3):
+    number of times per call: a kernel whose count is not a multiple of
+    ``iters`` lost a record, so the counts are printed and ``work`` is
+    profiled again; fails after ``tries`` such profiles."""
+    for _ in range(tries):
         rows = cuda_rows(work, iters)
-        if all(count % iters == 0 for _, _, count in rows):
-            break
-        print(f"  (the profiler lost kernel records: counts "
-              f"{[count for _, _, count in rows]} over {iters} calls; "
-              f"profiled again)")
-    else:
-        fail("the profiler lost kernel records three times running")
-    return sum(t for _, t, _ in rows)
+        counts = [count for _, _, count in rows]
+        if not any(count % iters for count in counts):
+            return sum(t for _, t, _ in rows)
+        lost = [(key[:40], count) for key, _, count in rows
+                if count % iters]
+        print(f"  (the profiler lost kernel records: {lost} of counts "
+              f"{counts} over {iters} calls; profiled again)")
+    fail(f"the profiler lost kernel records {tries} times running")
 
 
 def device_ms(fn, flush=None, iters: int = 20) -> float:
@@ -1023,6 +1067,393 @@ def paged_parity(params, devices=("cuda", "cpu")):
         fail(f"paged parity: paged vs contiguous {gap}, card vs CPU {diff}")
 
 
+def rel_err(x: torch.Tensor, y: torch.Tensor) -> float:
+    """max|x - y| / max(1, max|y|): an output's error in units of its own
+    size, as K7's bars are stated."""
+    x, y = x.float(), y.float()
+    return (x - y).abs().max().item() / max(1.0, y.abs().max().item())
+
+
+def check_quant(card: str):
+    """Phase 12: K7 and K1's int8 arm vs their plain versions, timed, and
+    K1's float arm vs plain at phase 13's shapes; then the op's qk_int8 /
+    qk_fp8 forward and straight-through backward; returns ({kernel: max
+    abs err}, {kernel: timing row}, K1-int8 launches on the qk_int8 op
+    path)."""
+    import torch.nn.functional as F
+
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        flash_attention_backward_plain, flash_cosine_sim_attention,
+        l2norm_tensors)
+    from flash_cosine_sim_attention_tpu_torch.ops.flash_attention import (
+        quantize_qk)
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward, flash_attention_forward_plain)
+    from flash_cosine_sim_attention_tpu_torch.quant import (
+        quantize_dense_kernel, quantized_matmul, quantized_matmul_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    worst = {"K7": 0.0, "K1 int8": 0.0, "K1": 0.0}
+    weights = {}
+    shapes = [shape for shape, _ in PROD_DENSE.values()] + [(200, 272)]
+    for d_in, d_out in shapes:   # the last is ragged for K7's tiles
+        w8, scale = quantize_dense_kernel(0.02 * torch.randn(
+            d_in, d_out, device="cuda", generator=g))
+        weights[d_in, d_out] = (w8, scale)
+        errs = []
+        for rows in (1, 8, 33, 1024):
+            x32 = torch.randn(rows, d_in, device="cuda", generator=g)
+            for dtype in (torch.float32, torch.bfloat16):
+                x = x32.to(dtype)
+                got = quantized_matmul(x, w8, scale)
+                want = quantized_matmul_plain(x, w8, scale)
+                torch.cuda.synchronize()
+                err, bar = rel_err(got, want), (
+                    F32_ERR_BAR if dtype == torch.float32 else BF16_ERR_BAR)
+                errs.append(err)
+                if not (err <= bar and got.dtype == dtype
+                        and torch.isfinite(got.float()).all().item()):
+                    fail(f"K7 rows {rows} ({d_in}, {d_out}) {dtype}: err "
+                         f"{err} (bar {bar})")
+                worst["K7"] = max(worst["K7"], (
+                    got.float() - want.float()).abs().max().item())
+        print(f"  K7 ({d_in}, {d_out}), rows 1/8/33/1024, f32 and bf16 x: "
+              f"worst max|y-plain| / max(1, max|y|) {max(errs):.3e} (bars "
+              f"{F32_ERR_BAR:g} f32, {BF16_ERR_BAR:g} bf16)")
+
+    # timed at the serving model's shapes, bf16 x: 8 rows (a decode step,
+    # L2 flushed: the step streams 0.8 GB of weights) and 1024 (a prefill)
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    step = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    for name, ((d_in, d_out), calls) in PROD_DENSE.items():
+        w8, scale = weights[d_in, d_out]
+        w_lib = (w8.float() * scale).to(torch.bfloat16).t().contiguous()
+        for rows in (8, 1024):
+            x = torch.randn(rows, d_in, device="cuda",
+                            generator=g).to(torch.bfloat16)
+            flush = scratch.zero_ if rows == 8 else None
+            ms = device_ms(lambda: quantized_matmul(x, w8, scale), flush)
+            plain_ms = device_ms(
+                lambda: quantized_matmul_plain(x, w8, scale), flush)
+            lib_ms = device_ms(lambda: F.linear(x, w_lib), flush)
+            nbytes = w8.numel() + 4 * d_out + 2 * rows * (d_in + d_out)
+            bound_ms, by = bound(2 * rows * d_in * d_out, nbytes)
+            print(f"  K7 {name} ({d_in}, {d_out}) x {rows} rows bf16"
+                  f"{', L2 flushed' if flush else ''} on {card}: device "
+                  f"time kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"F.linear on a bf16 copy {lib_ms:.4f} ms, bound "
+                  f"{bound_ms:.5f} ms ({by})")
+            if rows == 8:
+                for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                                 ("bound_ms", bound_ms),
+                                 ("library_ms", lib_ms)):
+                    step[key] += calls * val
+    print(f"  K7 over one decode step (65 calls at 8 rows) on {card}: "
+          f"{step['ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, F.linear "
+          f"{step['library_ms']:.4f} ms, bound {step['bound_ms']:.5f} ms "
+          f"(bytes); F.linear reads a bf16 weight copy, 2x K7's bytes")
+    rows = {"K7": dict(step, bound_by="bytes")}
+
+    # K1's int8 arm: the JAX test's shape, then the serving model's heads
+    def qkv(b, h, s, d, v_dtype):
+        q, k = l2norm_tensors(
+            *(torch.randn(b, h, s, d, device="cuda", generator=g)
+              for _ in range(2)))
+        v = torch.randn(b, h, s, d, device="cuda", generator=g).to(v_dtype)
+        return q, k, v
+
+    cases = [(2, 4, 192, 64, False, torch.float32),
+             (2, 4, 192, 64, True, torch.float32),
+             (2, 4, 192, 64, False, torch.bfloat16),
+             (2, 4, 192, 64, True, torch.bfloat16),
+             (1, 16, 1024, 128, True, torch.bfloat16)]
+    for b, h, s, d, causal, v_dtype in cases:
+        q, k, v = qkv(b, h, s, d, v_dtype)
+        q8, k8, sdq = quantize_qk(q, k, "int8")
+        kw = dict(bias_batch_dim=False, scale=1.0, causal=causal,
+                  s_dequant=sdq)
+        o, inv_l = flash_attention_forward(q8, k8, v, None, None, **kw)
+        o_p, inv_p = flash_attention_forward_plain(q8, k8, v, None, None,
+                                                   **kw)
+        torch.cuda.synchronize()
+        err = (o.float() - o_p.float()).abs().max().item()
+        l_err = ((inv_l - inv_p) / inv_p).abs().max().item()
+        bar = F32_ERR_BAR if v_dtype == torch.float32 else BF16_ERR_BAR
+        print(f"  K1 int8 b{b} h{h} s{s} d{d}{' causal' if causal else ''} "
+              f"{str(v_dtype)[6:]} v: max|o-plain| {err:.3e} (bar {bar:g}), "
+              f"max rel inv_l err {l_err:.3e}")
+        if not (err <= bar and l_err <= 1e-5 and o.dtype == v_dtype):
+            fail(f"K1 int8 b{b} h{h} s{s} d{d} {v_dtype}: err {err}, "
+                 f"inv_l {l_err}")
+        worst["K1 int8"] = max(worst["K1 int8"], err)
+
+    # K1's float arm at the shapes phase 13 gives it: the 1024-token
+    # prefills, then a continuation's 128-token chunk against itself
+    # (causal) and against its slot's 2048-row history, 1060 rows live
+    live = torch.arange(2048, device="cuda")[None, :] < 1060
+    float_cases = [("b1 h16 s1024 d128 causal (prefill)", 1024, 1024, None,
+                    True),
+                   ("b1 h16 q128 x k128 d128 causal (continuation chunk)",
+                    128, 128, None, True),
+                   ("b1 h16 q128 x k2048 d128 key-masked (continuation "
+                    "history)", 128, 2048, live, False)]
+    for name, sq, sk, mask, causal in float_cases:
+        qf, kf = l2norm_tensors(
+            torch.randn(1, 16, sq, 128, device="cuda", generator=g),
+            torch.randn(1, 16, sk, 128, device="cuda", generator=g))
+        vf = torch.randn(1, 16, sk, 128, device="cuda", generator=g)
+        qf, kf, vf = (t.to(torch.bfloat16) for t in (qf, kf, vf))
+        kw = dict(bias_batch_dim=False, scale=1.0, causal=causal)
+        o, inv_l = flash_attention_forward(qf, kf, vf, mask, None, **kw)
+        o_p, inv_p = flash_attention_forward_plain(qf, kf, vf, mask, None,
+                                                   **kw)
+        torch.cuda.synchronize()
+        err = (o.float() - o_p.float()).abs().max().item()
+        l_err = ((inv_l - inv_p) / inv_p).abs().max().item()
+        finite = bool(torch.isfinite(o.float()).all())
+        print(f"  K1 bf16 {name}: max|o-plain| {err:.3e} (bar "
+              f"{BF16_ERR_BAR:g}), max rel inv_l err {l_err:.3e}")
+        if not (finite and err <= BF16_ERR_BAR and l_err <= 1e-5):
+            fail(f"K1 bf16 {name}: err {err}, inv_l {l_err}, finite {finite}")
+        worst["K1"] = max(worst["K1"], err)
+
+    # timed at the serving model's prefill heads beside the float arm
+    kw = dict(bias_batch_dim=False, scale=1.0, causal=True)
+    ms = device_ms(lambda: flash_attention_forward(q8, k8, v, None, None,
+                                                   s_dequant=sdq, **kw))
+    plain_ms = device_ms(lambda: flash_attention_forward_plain(
+        q8, k8, v, None, None, s_dequant=sdq, **kw))
+    qb, kb = q.to(torch.bfloat16), k.to(torch.bfloat16)
+    float_ms = device_ms(lambda: flash_attention_forward(qb, kb, v, None,
+                                                         None, **kw))
+    lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qb, kb, v, is_causal=True, scale=1.0))
+    pairs = 1024 * 1025 / 2 * 16                     # visible pairs, heads
+    # QK runs on int8 codes (int8 peak), P.V in bf16: in bf16-peak units
+    ops = 2 * 128 * pairs * PEAK_BF16_FLOPS / PEAK_INT8_OPS + 2 * 128 * pairs
+    nbytes = 2 * q8.numel() + 2 * 2 * v.numel() + 16 * 1024 * 4
+    bound_ms, by = bound(ops, nbytes)
+    print(f"  K1 int8 arm b1 h16 s1024 d128 causal, bf16 v, on {card}: "
+          f"device time kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, K1 "
+          f"bf16 arm {float_ms:.4f} ms, SDPA (bf16) {lib_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({by})")
+    rows["K1 int8"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=by, library_ms=lib_ms)
+
+    # the op's quantized-QK arms, forward and straight-through backward, at
+    # the serving heads; K1-int8 launches counted around the qk_int8 op
+    do = torch.randn(q.shape, device="cuda", generator=g).to(torch.bfloat16)
+    launches = 0
+    for flag in ("qk_int8", "qk_fp8"):
+        leaves = [t.clone().requires_grad_() for t in (qb, kb, v)]
+        flash_attention_forward.launches = 0
+        o = flash_cosine_sim_attention(*leaves, causal=True, scale=1.0,
+                                       l2norm_qk=False, **{flag: True})
+        grads = torch.autograd.grad(o, leaves, do)
+        if flag == "qk_int8":
+            launches = flash_attention_forward.launches
+        # the plain STE gradients on the same residuals: the forward
+        # kernel's o and inv_l on the quantized q/k, the plain backward on
+        # the unquantized ones
+        qq, kq, sdq = quantize_qk(qb, kb, flag[3:])
+        o_k, inv_k = flash_attention_forward(qq, kq, v, None, None,
+                                             s_dequant=sdq, **kw)
+        want = flash_attention_backward_plain(do, o_k, inv_k, qb, kb, v,
+                                              None, None, **kw)[:3]
+        torch.cuda.synchronize()
+        errs = [grad_err(x, y, torch.bfloat16) for x, y in zip(grads, want)]
+        finite = all(torch.isfinite(x.float()).all().item() for x in grads)
+        print(f"  flash_cosine_sim_attention({flag}=True) b1 h16 s1024 d128 "
+              f"causal bf16, forward + backward: finite {finite}; dq, dk, dv "
+              f"vs the plain STE gradients, err / (|g| + rms g): "
+              f"{', '.join(f'{e:.2e}' for e in errs)} (bar "
+              f"{GRAD_BARS[torch.bfloat16]:g})")
+        if not (finite and max(errs) <= GRAD_BARS[torch.bfloat16]
+                and torch.equal(o.detach(), o_k)):
+            fail(f"{flag} op path: grads {errs}, finite {finite}")
+    print(f"  K1 launches on the qk_int8 op path: {launches}")
+    if launches != 1:
+        fail(f"qk_int8 op path: K1 launched {launches} times, want 1")
+    return worst, rows, launches
+
+
+def build_prod_model(dtype, device, depth=PROD_MODEL["depth"]):
+    """The production decode model, random weights drawn on ``device`` from
+    torch seed SEED (no host-side floats), unquantized."""
+    from flash_cosine_sim_attention_tpu_torch.models import (
+        CosineSimCausalTransformer)
+
+    torch.manual_seed(SEED)
+    return CosineSimCausalTransformer(
+        **dict(PROD_MODEL, depth=depth), dtype=dtype, param_dtype=dtype,
+        device=device).eval()
+
+
+def serve_prod(card: str):
+    """Phase 13: int8-weight serving at the 0.81B production width; returns
+    the launch counts of K1, K4, K5 and K7 on it."""
+    import copy
+
+    from flash_cosine_sim_attention_tpu_torch.models import (
+        decode_step, fuse_qkv_params, init_decode_state, prefill,
+        quantize_params)
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward)
+    from flash_cosine_sim_attention_tpu_torch.quant import (
+        paged_decode_attention, quantized_decode_attention, quantized_matmul)
+    from flash_cosine_sim_attention_tpu_torch.serving import (
+        InferenceEngine, PagedInferenceEngine)
+
+    model = build_prod_model(torch.bfloat16, "cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    ref = copy.deepcopy(model)
+    fuse_qkv_params(quantize_params(model))
+    w_bytes = sum(m.weight_q.numel() for m in model.modules()
+                  if hasattr(m, "weight_q"))
+    print(f"  {n_params / 1e9:.3f}B parameters; int8 dense weights "
+          f"{w_bytes / 1e6:.1f} MB after quantize_params + fuse_qkv_params")
+
+    # int8 weights vs the same weights in bf16 (F.linear): one 1024-token
+    # prefill and one decode step, relative L2 of the logits
+    rng = np.random.default_rng(SEED + 13)
+    vocab = PROD_MODEL["num_tokens"]
+    tokens = torch.from_numpy(rng.integers(0, vocab, (1, PROD_PROMPT))).cuda()
+    rel = []
+    with torch.no_grad():
+        outs = []
+        for m in (ref, model):
+            state = init_decode_state(m, 1, PROD_ENGINE["capacity"],
+                                      device="cuda")
+            first, state = prefill(m, state, tokens)
+            tok = outs[0][0].argmax(-1) if outs else first.argmax(-1)
+            second, _ = decode_step(m, state, tok)
+            outs.append((first.float(), second.float()))
+        for (a, b) in zip(*outs):
+            rel.append(((b - a).norm() / a.norm()).item())
+    print(f"  int8 vs bf16 weights, rel L2 of the logits: prefill "
+          f"{rel[0]:.4f} (bar {QUANT_BARS[0]}), decode step {rel[1]:.4f} "
+          f"(bar {QUANT_BARS[1]})")
+    if not (rel[0] < QUANT_BARS[0] and rel[1] < QUANT_BARS[1]):
+        fail(f"int8-weight logits: rel L2 {rel}")
+    del ref, outs
+    torch.cuda.empty_cache()
+
+    engine = InferenceEngine(model, **PROD_ENGINE, seed=SEED, device="cuda")
+    engine.finish(engine.add_request(rng.integers(0, vocab, 60)))  # warm-up
+    counters = (flash_attention_forward, quantized_decode_attention,
+                paged_decode_attention, quantized_matmul)
+    for c in counters:
+        c.launches = 0
+    seen, ttft, step_ms = [], [], []
+    for _ in range(PROD_ENGINE["num_slots"]):
+        prompt = rng.integers(0, vocab, PROD_PROMPT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slot = engine.add_request(prompt)
+        torch.cuda.synchronize()
+        ttft.append(1e3 * (time.perf_counter() - t0))
+        seen.append(int(engine.last_token[slot]))
+    for _ in range(PROD_STEPS):
+        t0 = time.perf_counter()
+        seen.extend(engine.step().values())
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    profiled = 4
+    rows = cuda_rows(lambda: seen.extend(engine.step().values()), profiled)
+    busy_us = sum(t for _, t, _ in rows)
+    k7_us = sum(t for key, t, _ in rows if "qmm_" in key)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seen.append(engine.continue_request(0, rng.integers(0, vocab, 50)))
+    continue_ms = 1e3 * (time.perf_counter() - t0)
+    passes = PROD_ENGINE["num_slots"] + PROD_STEPS + profiled + 1
+    launches = dict(k1=flash_attention_forward.launches,
+                    k4=quantized_decode_attention.launches,
+                    k7=quantized_matmul.launches)
+
+    dec = statistics.median(step_ms)
+    busy = busy_us / profiled / 1e3
+    print(f"  TTFT, 8 prompts of {PROD_PROMPT} tokens on {card}: "
+          + ", ".join(f"{ms:.2f}" for ms in ttft) + " ms")
+    print(f"  decode on {card}: {dec:.3f} ms/step median over {PROD_STEPS} "
+          f"steps at 8 slots ({8e3 / dec:.1f} tokens/s); device time "
+          f"{busy:.3f} ms/step (profiled): device idle share "
+          f"{1 - busy / dec:.3f}; K7 {k7_us / profiled / 1e3:.3f} ms/step, "
+          f"{k7_us / busy_us:.3f} of the device time; continue_request (50 "
+          f"tokens) {continue_ms:.2f} ms")
+    print("  the step's largest device times (ms/step, launches/step): "
+          + "; ".join(f"{key[:48]} {t / profiled / 1e3:.3f} ({n // profiled})"
+                      for key, t, n in sorted(rows, key=lambda r: -r[1])[:6]))
+    print(f"  launches, contiguous engine: K1 {launches['k1']}, K4 "
+          f"{launches['k4']}, K7 {launches['k7']} = {passes} passes (8 "
+          f"prefills, {PROD_STEPS + profiled} steps, 1 continuation) x "
+          f"{K7_PER_PASS}")
+    depth = PROD_MODEL["depth"]
+    want = dict(k1=depth * (PROD_ENGINE["num_slots"] + 2),
+                k4=depth * (PROD_STEPS + profiled), k7=passes * K7_PER_PASS)
+    if launches != want:
+        fail(f"production serving launches {launches}, want {want}")
+    del engine
+    torch.cuda.empty_cache()
+
+    for c in counters:
+        c.launches = 0
+    paged = PagedInferenceEngine(model, **PROD_PAGED, seed=SEED,
+                                 device="cuda")
+    for _ in range(PROD_PAGED["num_slots"]):
+        seen.append(int(paged.last_token[paged.add_request(
+            rng.integers(0, vocab, PROD_PROMPT))]))
+    paged_ms = []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        seen.extend(paged.step().values())
+        paged_ms.append(1e3 * (time.perf_counter() - t0))
+    launches.update(k5=paged_decode_attention.launches,
+                    k7_paged=quantized_matmul.launches)
+    print(f"  paged engine (8 x {PROD_PROMPT}-token prompts on "
+          f"{paged.pages_in_use()} of {PROD_PAGED['num_pages'] - 1} pages, "
+          f"8 steps) on {card}: {statistics.median(paged_ms):.3f} ms/step "
+          f"median; launches K5 {launches['k5']}, K7 {launches['k7_paged']}")
+    if (launches["k5"] != depth * 8
+            or launches["k7_paged"] != 16 * K7_PER_PASS):
+        fail(f"paged production serving launches {launches}")
+    if not all(0 <= t < vocab for t in seen):
+        fail("production serving: a token out of range")
+    return launches
+
+
+def prod_parity():
+    """Phase 13, end: the production widths at depth 2 in f32, quantized
+    and fused; the same prefill and 8 decode steps on the card (kernels)
+    and on the CPU (plain versions)."""
+    import copy
+
+    from flash_cosine_sim_attention_tpu_torch.models import (
+        decode_step, fuse_qkv_params, init_decode_state, prefill,
+        quantize_params)
+
+    cpu = fuse_qkv_params(quantize_params(
+        build_prod_model(torch.float32, "cpu", depth=2)))
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 14).integers(
+        0, PROD_MODEL["num_tokens"], (2, 208)))
+    logits = []
+    for device in ("cuda", "cpu"):
+        model = cpu if device == "cpu" else copy.deepcopy(cpu).to(device)
+        toks = tokens.to(device)
+        state = init_decode_state(model, 2, 256, device=device)
+        out, state = prefill(model, state, toks[:, :200])
+        steps = [out]
+        for t in range(200, 208):
+            out, state = decode_step(model, state, toks[:, t])
+            steps.append(out)
+        logits.append(torch.stack(steps).float().cpu())
+    diff = (logits[0] - logits[1]).abs().max().item()
+    print(f"  f32 depth 2 at the production widths, int8 weights, fused QKV: "
+          f"prefill(200) + 8 decode steps, card vs CPU: max |logit diff| "
+          f"{diff:.3e} (bar {PARITY_BAR:g})")
+    if not diff <= PARITY_BAR:
+        fail(f"production path parity: {diff}")
+
+
 def main() -> None:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1070,6 +1501,11 @@ def main() -> None:
     print("[11] paged serving path, full width")
     paged_launches = serve_paged(smi, params)
     paged_parity(params)
+    print("[12] int8-weight matmul and K1's int8 arm vs plain")
+    quant_err, quant_rows, int8_launches = check_quant(smi)
+    print("[13] int8-weight serving at the 0.81B production width")
+    prod_launches = serve_prod(smi)
+    prod_parity()
 
     bwd = "flash_cosine_sim_attention_tpu/ops/bwd_kernel.py"
     src = "flash_cosine_sim_attention_tpu_torch/csrc/bwd_kernel.cu"
@@ -1078,7 +1514,8 @@ def main() -> None:
         dict(name="fwd_kernel", route="cuda",
              source="flash_cosine_sim_attention_tpu_torch/csrc/fwd_kernel.cu",
              replaces="flash_cosine_sim_attention_tpu/ops/fwd_kernel.py:47",
-             launches=launches[0], max_abs_err=fwd_err, **fwd_row),
+             launches=launches[0], max_abs_err=max(fwd_err, quant_err["K1"]),
+             **fwd_row),
         dict(name="decode_kernel", route="cuda",
              source="flash_cosine_sim_attention_tpu_torch/csrc/decode_kernel.cu",
              replaces="flash_cosine_sim_attention_tpu/quant/decode_kernel.py:137",
@@ -1102,6 +1539,16 @@ def main() -> None:
              replaces="flash_cosine_sim_attention_tpu/quant/paged.py:183",
              launches=paged_launches["k5"], max_abs_err=paged_err["K5"],
              **paged_rows["K5"]),
+        dict(name="quant_matmul", route="cuda",
+             source=f"{csrc}/quant_matmul_kernel.cu",
+             replaces="flash_cosine_sim_attention_tpu/quant/weights.py:66",
+             launches=prod_launches["k7"], max_abs_err=quant_err["K7"],
+             **quant_rows["K7"]),
+        dict(name="fwd_kernel:int8", route="cuda",
+             source=f"{csrc}/fwd_kernel.cu",
+             replaces="flash_cosine_sim_attention_tpu/ops/fwd_kernel.py:47",
+             launches=int8_launches, max_abs_err=quant_err["K1 int8"],
+             **quant_rows["K1 int8"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke.py took {time.perf_counter() - started:.1f} s")

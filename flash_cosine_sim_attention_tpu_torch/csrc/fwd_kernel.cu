@@ -30,10 +30,21 @@
 // see; an optional (b, j) key mask and the ragged edges select e = 0, and
 // out-of-range k/v rows load as 0, so no 0 * garbage NaN can reach O.
 // GQA: query head h reads kv head h / (H / KVH).  Bias: (b|h, i, j) f32.
+//
+// The int8 arm (the TPU kernel's int8 q/k path, `_fwd_kernel_t` with
+// `s_dequant`): q and k arrive as int8 codes of the l2-normalized values
+// at the fixed scale 127, v in float32 or bfloat16, and o comes out in v's
+// dtype.  The q and k tiles stay int8 in shared memory, packed four codes
+// to a word, and each logit's dot product is an exact int32 sum of
+// `__dp4a` products (|sum| <= 127^2 * 128 < 2^24, so its float is exact
+// too).  The logit is then s_int * (scale * log2e * s_dequant) in float32,
+// with the float arms' exp convention, masks, bias and GQA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -48,27 +59,39 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-template <int D>
+template <typename TQ>
+__host__ __device__ constexpr bool is_int8() { return std::is_same<TQ, int8_t>::value; }
+
+// 4-byte words per q / k row in shared memory, one pad word included:
+// float values, or int8 codes packed four to a word
+template <typename TQ, int D>
+__host__ __device__ constexpr int qk_row() { return is_int8<TQ>() ? D / 4 + 1 : D + 1; }
+
+template <typename TQ, int D>
 constexpr size_t smem_bytes() {
-  // q tile and k tile with one pad column, v tile, P tile with one pad column
-  return sizeof(float) * (size_t(BQ) * (D + 1) + size_t(BK) * (D + 1) +
-                          size_t(BK) * D + size_t(BQ) * (BK + 1));
+  // q tile, k tile, v tile, P tile with one pad column
+  return 4 * (size_t(BQ) * qk_row<TQ, D>() + size_t(BK) * qk_row<TQ, D>() +
+              size_t(BK) * D + size_t(BQ) * (BK + 1));
 }
 
-template <typename T, int D>
+template <typename TQ, typename TV, int D>
 __global__ void __launch_bounds__(NT) fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const TQ* __restrict__ q, const TQ* __restrict__ k, const TV* __restrict__ v,
     const uint8_t* __restrict__ mask, const float* __restrict__ bias,
-    T* __restrict__ o, float* __restrict__ inv_l, int H, int KVH, int seq_q,
+    TV* __restrict__ o, float* __restrict__ inv_l, int H, int KVH, int seq_q,
     int seq_k, int causal, int bias_batch_dim, float c) {
-  constexpr int DP = D + 1;
+  constexpr bool Q8 = is_int8<TQ>();
+  constexpr int QR = qk_row<TQ, D>();
+  constexpr int DW = D / 4;  // int8 codes: words per row
   constexpr int PP = BK + 1;
   constexpr int DC = D / 8;  // output columns per thread
   extern __shared__ float smem[];
-  float* qs = smem;          // BQ x DP, pre-multiplied by scale * log2e
-  float* ks = qs + BQ * DP;  // BK x DP
-  float* vs = ks + BK * DP;  // BK x D
+  float* qs = smem;          // BQ x QR; float: pre-multiplied by c
+  float* ks = qs + BQ * QR;  // BK x QR
+  float* vs = ks + BK * QR;  // BK x D
   float* ps = vs + BK * D;   // BQ x PP exp weights
+  int* qw = reinterpret_cast<int*>(qs);  // int8 arm: packed codes
+  int* kw = reinterpret_cast<int*>(ks);
 
   const int bi = blockIdx.z, hi = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
@@ -76,16 +99,24 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
   const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
   const int diff = seq_k - seq_q;
 
-  const T* qb = q + (size_t(bi) * H + hi) * seq_q * D;
-  const T* kb = k + (size_t(bi) * KVH + kvhi) * seq_k * D;
-  const T* vb = v + (size_t(bi) * KVH + kvhi) * seq_k * D;
+  const TQ* qb = q + (size_t(bi) * H + hi) * seq_q * D;
+  const TQ* kb = k + (size_t(bi) * KVH + kvhi) * seq_k * D;
+  const TV* vb = v + (size_t(bi) * KVH + kvhi) * seq_k * D;
   const uint8_t* mb = mask ? mask + size_t(bi) * seq_k : nullptr;
   const float* bb =
       bias ? bias + size_t(bias_batch_dim ? bi : hi) * seq_q * seq_k : nullptr;
 
-  for (int idx = tid; idx < BQ * D; idx += NT) {
-    const int r = idx / D, cc = idx % D, row = q0 + r;
-    qs[r * DP + cc] = row < seq_q ? to_f32(qb[size_t(row) * D + cc]) * c : 0.f;
+  if constexpr (Q8) {
+    const int* qb4 = reinterpret_cast<const int*>(qb);
+    for (int idx = tid; idx < BQ * DW; idx += NT) {
+      const int r = idx / DW, w = idx % DW, row = q0 + r;
+      qw[r * QR + w] = row < seq_q ? qb4[size_t(row) * DW + w] : 0;
+    }
+  } else {
+    for (int idx = tid; idx < BQ * D; idx += NT) {
+      const int r = idx / D, cc = idx % D, row = q0 + r;
+      qs[r * QR + cc] = row < seq_q ? to_f32(qb[size_t(row) * D + cc]) * c : 0.f;
+    }
   }
 
   // keys this block can see: all, or (causal) up to its last row's diagonal
@@ -108,27 +139,59 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
     for (int idx = tid; idx < BK * D; idx += NT) {
       const int r = idx / D, cc = idx % D, col = k0 + r;
       const bool in = col < seq_k;
-      ks[r * DP + cc] = in ? to_f32(kb[size_t(col) * D + cc]) : 0.f;
+      if constexpr (!Q8)
+        ks[r * QR + cc] = in ? to_f32(kb[size_t(col) * D + cc]) : 0.f;
       vs[r * D + cc] = in ? to_f32(vb[size_t(col) * D + cc]) : 0.f;
+    }
+    if constexpr (Q8) {
+      const int* kb4 = reinterpret_cast<const int*>(kb);
+      for (int idx = tid; idx < BK * DW; idx += NT) {
+        const int r = idx / DW, w = idx % DW, col = k0 + r;
+        kw[r * QR + w] = col < seq_k ? kb4[size_t(col) * DW + w] : 0;
+      }
     }
     __syncthreads();
 
     float s[4][8];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int cc = 0; cc < 8; ++cc) s[r][cc] = 0.f;
-#pragma unroll 4
-    for (int dd = 0; dd < D; ++dd) {
-      float a[4], b[8];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = qs[(ty * 4 + r) * DP + dd];
-#pragma unroll
-      for (int cc = 0; cc < 8; ++cc) b[cc] = ks[(tx + 8 * cc) * DP + dd];
+    if constexpr (Q8) {
+      int si[4][8];
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int cc = 0; cc < 8; ++cc) s[r][cc] = fmaf(a[r], b[cc], s[r][cc]);
+        for (int cc = 0; cc < 8; ++cc) si[r][cc] = 0;
+#pragma unroll 4
+      for (int dd = 0; dd < DW; ++dd) {
+        int a[4], b[8];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) a[r] = qw[(ty * 4 + r) * QR + dd];
+#pragma unroll
+        for (int cc = 0; cc < 8; ++cc) b[cc] = kw[(tx + 8 * cc) * QR + dd];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int cc = 0; cc < 8; ++cc) si[r][cc] = __dp4a(a[r], b[cc], si[r][cc]);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int cc = 0; cc < 8; ++cc) s[r][cc] = float(si[r][cc]) * c;
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int cc = 0; cc < 8; ++cc) s[r][cc] = 0.f;
+#pragma unroll 4
+      for (int dd = 0; dd < D; ++dd) {
+        float a[4], b[8];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) a[r] = qs[(ty * 4 + r) * QR + dd];
+#pragma unroll
+        for (int cc = 0; cc < 8; ++cc) b[cc] = ks[(tx + 8 * cc) * QR + dd];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int cc = 0; cc < 8; ++cc) s[r][cc] = fmaf(a[r], b[cc], s[r][cc]);
+      }
     }
 
 #pragma unroll
@@ -170,7 +233,7 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
     for (int off = 4; off > 0; off >>= 1)
       lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], off);
   }
-  T* ob = o + (size_t(bi) * H + hi) * seq_q * D;
+  TV* ob = o + (size_t(bi) * H + hi) * seq_q * D;
   float* lb = inv_l + (size_t(bi) * H + hi) * seq_q;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -184,65 +247,71 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
   }
 }
 
-template <typename T, int D>
+template <typename TQ, typename TV, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* mask, const float* bias, void* o,
                    float* inv_l, int B, int H, int KVH, int seq_q, int seq_k,
                    int causal, int bias_batch_dim, float c,
                    cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = smem_bytes<TQ, D>();
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_kernel<TQ, TV, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((seq_q + BQ - 1) / BQ, H, B);
-  fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, bias, static_cast<T*>(o), inv_l, H, KVH,
-      seq_q, seq_k, causal, bias_batch_dim, c);
+  fwd_kernel<TQ, TV, D><<<grid, NT, smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TQ*>(k),
+      static_cast<const TV*>(v), mask, bias, static_cast<TV*>(o), inv_l, H,
+      KVH, seq_q, seq_k, causal, bias_batch_dim, c);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename TQ, typename TV>
 cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
                        const uint8_t* mask, const float* bias, void* o,
                        float* inv_l, int B, int H, int KVH, int seq_q,
                        int seq_k, int causal, int bias_batch_dim, float c,
                        cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, mask, bias, o, inv_l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c, s);
-    case 32: return launch<T, 32>(q, k, v, mask, bias, o, inv_l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c, s);
-    case 64: return launch<T, 64>(q, k, v, mask, bias, o, inv_l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c, s);
-    case 96: return launch<T, 96>(q, k, v, mask, bias, o, inv_l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c, s);
-    case 128: return launch<T, 128>(q, k, v, mask, bias, o, inv_l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c, s);
+    case 16: return launch<TQ, TV, 16>(q, k, v, mask, bias, o, inv_l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c, s);
+    case 32: return launch<TQ, TV, 32>(q, k, v, mask, bias, o, inv_l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c, s);
+    case 64: return launch<TQ, TV, 64>(q, k, v, mask, bias, o, inv_l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c, s);
+    case 96: return launch<TQ, TV, 96>(q, k, v, mask, bias, o, inv_l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c, s);
+    case 128: return launch<TQ, TV, 128>(q, k, v, mask, bias, o, inv_l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  All tensors
-// contiguous: q/o (B, H, seq_q, d), k/v (B, KVH, seq_k, d), mask (B, seq_k)
-// uint8 or null, bias (B|H, seq_q, seq_k) f32 or null, inv_l (B, H, seq_q)
-// f32.  Returns the cudaGetLastError() after the launch (0 = success).
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); 2 = int8 q/k
+// codes with float32 v and o; 3 = int8 q/k codes with bfloat16 v and o.
+// All tensors contiguous: q/o (B, H, seq_q, d), k/v (B, KVH, seq_k, d),
+// mask (B, seq_k) uint8 or null, bias (B|H, seq_q, seq_k) f32 or null,
+// inv_l (B, H, seq_q) f32.  The logits are scale * s_dequant * q.k (int8
+// arms; s_dequant = 1 for the float ones).  Returns the cudaGetLastError()
+// after the launch (0 = success).
 extern "C" int fcsa_fwd(const void* q, const void* k, const void* v,
                         const void* mask, const void* bias, void* o,
                         void* inv_l, int dtype, int B, int H, int KVH,
                         int seq_q, int seq_k, int d, int causal,
-                        int bias_batch_dim, float scale, void* stream) {
+                        int bias_batch_dim, float scale, float s_dequant,
+                        void* stream) {
   if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || seq_q <= 0 || seq_k <= 0)
     return int(cudaErrorInvalidValue);
   const float c = float(double(scale) * 1.4426950408889634);
+  const float c8 = float(double(scale) * 1.4426950408889634 * s_dequant);
   const auto* m = static_cast<const uint8_t*>(mask);
   const auto* bs = static_cast<const float*>(bias);
   auto* l = static_cast<float*>(inv_l);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_d<float>(d, q, k, v, m, bs, o, l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c, s);
-  else if (dtype == 1)
-    err = dispatch_d<__nv_bfloat16>(d, q, k, v, m, bs, o, l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c, s);
-  else
-    err = cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: err = dispatch_d<float, float>(d, q, k, v, m, bs, o, l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c, s); break;
+    case 1: err = dispatch_d<__nv_bfloat16, __nv_bfloat16>(d, q, k, v, m, bs, o, l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c, s); break;
+    case 2: err = dispatch_d<int8_t, float>(d, q, k, v, m, bs, o, l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c8, s); break;
+    case 3: err = dispatch_d<int8_t, __nv_bfloat16>(d, q, k, v, m, bs, o, l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c8, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
   return int(err);
 }

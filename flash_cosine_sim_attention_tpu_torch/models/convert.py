@@ -4,7 +4,11 @@ The flax parameter tree of ``CosineSimCausalTransformer`` arrives as
 nested dicts of numpy arrays (optionally under a top-level ``"params"``
 key).  Two layout rules: a flax ``Dense`` kernel is (in, out) while
 ``nn.Linear.weight`` is (out, in); ``Embed.embedding`` and LayerNorm
-``scale`` / ``bias`` map to ``weight`` / ``bias`` as they are.
+``scale`` / ``bias`` map to ``weight`` / ``bias`` as they are.  A model
+already quantized (``quantize_params``) and fused (``fuse_qkv_params``)
+takes and gives JAX's quantized leaves, ``kernel_q`` (in, out) int8 and
+``kernel_scale`` (1, out) f32 as they are, and a fused ``to_qkv`` entry
+in place of ``to_q`` / ``to_k`` / ``to_v``.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .transformer import CosineSimCausalTransformer
+from .transformer import CosineSimCausalTransformer, QuantDense
 
 # (torch module, attribute, is a Dense kernel to transpose)
 _Entry = Tuple[nn.Module, str, bool]
@@ -26,6 +30,9 @@ def _layout(model: CosineSimCausalTransformer) -> Dict[str, Dict[str, _Entry]]:
     """flax module name -> {flax leaf name: (torch module, attribute,
     transposed)}."""
     def dense(m):
+        if isinstance(m, QuantDense):
+            return {"kernel_q": (m, "weight_q", False),
+                    "kernel_scale": (m, "weight_scale", False)}
         return {"kernel": (m, "weight", True)}
 
     def norm(m):
@@ -38,8 +45,9 @@ def _layout(model: CosineSimCausalTransformer) -> Dict[str, Dict[str, _Entry]]:
     }
     for i in range(model.depth):
         a, f = model.attn[i], model.ff[i]
-        out[f"attn_{i}"] = {name: dense(getattr(a, name))
-                            for name in ("to_q", "to_k", "to_v", "to_out")}
+        names = (("to_q", "to_k", "to_v") if a.to_qkv is None
+                 else ("to_qkv",)) + ("to_out",)
+        out[f"attn_{i}"] = {name: dense(getattr(a, name)) for name in names}
         out[f"ff_{i}"] = {"Dense_0": dense(f.proj_in),
                           "Dense_1": dense(f.proj_out)}
         if model.pre_norm:
@@ -90,10 +98,12 @@ def params_from_flax(params: dict, model: CosineSimCausalTransformer
                          f"{missing[:4]}, unexpected {extra[:4]}")
     for path, arr in given.items():
         mod, attr, transposed = layout[path]
-        arr = np.array(arr, dtype=np.float32)  # a writable copy
+        dst = getattr(mod, attr)
+        # a writable copy; int8 codes stay codes
+        arr = np.array(arr, dtype=np.int8 if dst.dtype == torch.int8
+                       else np.float32)
         if transposed:
             arr = arr.T
-        dst = getattr(mod, attr)
         if tuple(arr.shape) != tuple(dst.shape):
             raise ValueError(f"{'/'.join(path)}: shape {arr.shape} does not "
                              f"fit {tuple(dst.shape)}")
@@ -104,11 +114,13 @@ def params_from_flax(params: dict, model: CosineSimCausalTransformer
 def params_to_flax(model: CosineSimCausalTransformer, grads: bool = False
                    ) -> dict:
     """The model's parameters (or, with ``grads``, their ``.grad``) as a
-    flax parameter tree of float32 numpy arrays."""
+    flax parameter tree of float32 numpy arrays (int8 for quantized
+    kernels' codes)."""
     def leaf(mod, attr, transposed):
         t = getattr(mod, attr)
         t = t.grad if grads else t
-        arr = t.detach().float().cpu().numpy()
+        t = t.detach().cpu()
+        arr = (t if t.dtype == torch.int8 else t.float()).numpy()
         return arr.T if transposed else arr
 
     def walk(node):

@@ -13,7 +13,11 @@ Counterpart of ``flash_cosine_sim_attention_tpu/models/decoding.py``:
     makes a plain sum;
   * ``prefill_paged``, ``decode_step_paged`` and ``prefill_continue_paged``
     do the same over per-layer page pools shared by all slots
-    (``quant/paged.py``), through the paged decode kernel.
+    (``quant/paged.py``), through the paged decode kernel;
+  * ``quantize_params`` turns every dense layer into an int8 one
+    (``QuantDense``, ``quant/weights.py``), and ``fuse_qkv_params`` fuses
+    each layer's q/k/v projections into one, plain or int8; all of the
+    above serve the fused, quantized model unchanged.
 
 The parameters live in the model, so these functions take no ``params``.
 They run eagerly under ``torch.no_grad`` and write the cache buffers in
@@ -42,7 +46,7 @@ from ..quant import (
     paged_decode_attention,
     quantized_decode_attention,
 )
-from .transformer import CosineSimCausalTransformer
+from .transformer import CosineSimCausalTransformer, Dense, QuantDense
 
 
 class DecodeState(NamedTuple):
@@ -53,6 +57,55 @@ class DecodeState(NamedTuple):
 class PagedDecodeState(NamedTuple):
     caches: Tuple[PagedKVCache, ...]   # one per layer (shared page pools)
     pos: torch.Tensor                  # (num_slots,) int32
+
+
+@torch.no_grad()
+def quantize_params(model: CosineSimCausalTransformer
+                    ) -> CosineSimCausalTransformer:
+    """Replace every ``Dense`` of ``model`` (``to_logits`` included, as JAX
+    quantizes every 2-D kernel) by a ``QuantDense`` holding its int8 codes
+    and scales (``quant/weights.py``); embeddings and LayerNorms stay.
+    Counterpart of JAX's ``quant.weights.quantize_params``, on the model
+    since the port keeps parameters in modules.  In place, dropping the
+    full-precision weights; returns ``model``."""
+    targets = [(parent, name, child)
+               for parent in model.modules()
+               for name, child in parent.named_children()
+               if isinstance(child, Dense)]
+    for parent, name, child in targets:
+        setattr(parent, name, QuantDense.from_dense(child))
+    return model
+
+
+@torch.no_grad()
+def fuse_qkv_params(model: CosineSimCausalTransformer
+                    ) -> CosineSimCausalTransformer:
+    """Concatenate each attention layer's ``to_q`` / ``to_k`` / ``to_v``
+    column-wise into one ``to_qkv`` ([q | k | v], the split
+    ``Attention.project`` takes), so a decode step streams one weight
+    matrix per layer instead of three.  Works on plain and int8
+    (``quantize_params``) layers; apply it after quantizing, as JAX does.
+    In place; returns ``model``."""
+    for attn in model.attn:
+        if attn.to_qkv is not None:
+            continue
+        parts = (attn.to_q, attn.to_k, attn.to_v)
+        if all(isinstance(p, QuantDense) for p in parts):
+            fused = QuantDense(
+                torch.cat([p.weight_q for p in parts], dim=1),
+                torch.cat([p.weight_scale for p in parts], dim=1),
+                parts[0].dtype)
+        elif all(isinstance(p, Dense) for p in parts):
+            w = torch.cat([p.weight for p in parts], dim=0)  # (out, in)
+            fused = Dense(w.shape[1], w.shape[0], dtype=parts[0].dtype,
+                          param_dtype=w.dtype, device=w.device)
+            fused.weight.copy_(w)
+        else:
+            raise ValueError("to_q, to_k and to_v must be all plain or all "
+                             "quantized")
+        del attn.to_q, attn.to_k, attn.to_v
+        attn.to_qkv = fused
+    return model
 
 
 def init_decode_state(model: CosineSimCausalTransformer, batch: int,

@@ -28,6 +28,7 @@ from ..ops import (
     non_cosine_sim_attention,
     plain_cosine_sim_attention,
 )
+from ..quant.weights import quantize_dense_kernel, quantized_matmul
 
 LAYERNORM_EPS = 1e-6  # flax default
 
@@ -46,6 +47,33 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+
+
+class QuantDense(nn.Module):
+    """An int8 ``Dense`` (``quant/weights.py``): buffers ``weight_q`` (in,
+    out) int8 and ``weight_scale`` (1, out) f32, JAX's ``kernel_q`` /
+    ``kernel_scale``; computes in ``dtype``.  It calls
+    ``quantized_matmul``: the dequant-matmul kernel K7 on the card, its
+    plain version on the CPU (f32 sums of x and the codes, scaled after:
+    in f32 the same function as JAX's default ``dense_apply`` arm)."""
+
+    def __init__(self, weight_q: torch.Tensor, weight_scale: torch.Tensor,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.register_buffer("weight_q", weight_q)
+        self.register_buffer("weight_scale", weight_scale)
+
+    @classmethod
+    def from_dense(cls, dense: Dense) -> "QuantDense":
+        w8, scale = quantize_dense_kernel(dense.weight.detach().t())
+        return cls(w8, scale, dense.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-1]
+        y = quantized_matmul(x.to(self.dtype).reshape(-1, x.shape[-1]),
+                             self.weight_q, self.weight_scale)
+        return y.reshape(*lead, -1)
 
 
 class LayerNorm(nn.Module):
@@ -107,6 +135,9 @@ class Attention(nn.Module):
         self.to_k = Dense(dim, dim_head * kvh, 1.0, **kw)
         self.to_v = Dense(dim, dim_head * kvh, init_gain, **kw)
         self.to_out = Dense(dim_head * heads, dim, init_gain, **kw)
+        # one [q | k | v] projection in place of the three, once
+        # ``fuse_qkv_params`` has fused them
+        self.register_module("to_qkv", None)
 
     def project(self, x: torch.Tensor):
         """(b, n, dim) -> q (b, h, n, d), k, v (b, kvh, n, d)."""
@@ -115,9 +146,13 @@ class Attention(nn.Module):
 
         def split(t, nh):
             return t.reshape(*t.shape[:-1], nh, self.dim_head).transpose(1, 2)
-        return (split(self.to_q(x), self.heads),
-                split(self.to_k(x), self.kv_heads),
-                split(self.to_v(x), self.kv_heads))
+        if self.to_qkv is not None:
+            dq, dkv = self.heads * self.dim_head, self.kv_heads * self.dim_head
+            q, k, v = self.to_qkv(x).split((dq, dkv, dkv), dim=-1)
+        else:
+            q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
+        return (split(q, self.heads), split(k, self.kv_heads),
+                split(v, self.kv_heads))
 
     def qkv(self, x: torch.Tensor):
         """``project`` with q and k l2-normalized."""
@@ -207,7 +242,9 @@ class CosineSimCausalTransformer(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.to_logits.weight.device
+        # the embeddings stay in full precision when the dense layers are
+        # quantized (a ``QuantDense`` has no ``weight``)
+        return self.token_emb.weight.device
 
     @property
     def residual_scale(self) -> float:

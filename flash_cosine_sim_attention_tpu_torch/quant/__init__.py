@@ -23,6 +23,13 @@ from .paged import (
     paged_decode_attention,
     paged_decode_plain,
 )
+from .weights import (
+    dense_apply,
+    dequantize_dense_kernel,
+    quantize_dense_kernel,
+    quantized_matmul,
+    quantized_matmul_plain,
+)
 
 __all__ = [
     "FP8_DTYPE",
@@ -33,6 +40,8 @@ __all__ = [
     "append",
     "append_paged",
     "decode_attention_plain",
+    "dense_apply",
+    "dequantize_dense_kernel",
     "dequantize_k",
     "dequantize_v",
     "gather_pages",
@@ -40,8 +49,23 @@ __all__ = [
     "init_paged_cache",
     "paged_decode_attention",
     "paged_decode_plain",
+    "quantize_dense_kernel",
     "quantize_k",
+    "quantize_params",
     "quantize_v",
     "quantized_decode_attention",
+    "quantized_matmul",
+    "quantized_matmul_plain",
     "reference_decode_attention",
 ]
+
+
+def __getattr__(name):
+    # JAX exports quantize_params from its quant package.  The port's
+    # rewrites the model's modules, so it lives with fuse_qkv_params in
+    # models/decoding.py; it is looked up there on first use, as models
+    # import this package.
+    if name == "quantize_params":
+        from ..models.decoding import quantize_params
+        return quantize_params
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

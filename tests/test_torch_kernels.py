@@ -7,7 +7,8 @@ JAX package, so it also runs where flax is not installed:
 
 Tolerances: float32 1e-4 (same maths, other sum order, no TF32); bf16
 outputs 2e-2 (a few bf16 ulps at |o| <= 2); inv_l 1e-5 relative; the
-contiguous decode kernel 2e-3 on f32 output.  The
+contiguous decode kernel 2e-3 on f32 output; the int8-weight matmul
+1e-4 (f32) and 2e-2 (bf16) of max(1, max|y|).  The
 backward's gradients reach |g| ~ 30 at scale 8: float32 errors are taken
 relative to max(1, max|g|), bar 1e-4 (K2 adds dQ with atomics whose order
 varies from run to run); bf16 errors per entry, relative to |g| + rms(g),
@@ -34,7 +35,11 @@ from flash_cosine_sim_attention_tpu_torch.quant import (
     paged_decode_attention,
     paged_decode_plain,
     quantized_decode_attention,
+    quantize_dense_kernel,
+    quantized_matmul,
+    quantized_matmul_plain,
 )
+from flash_cosine_sim_attention_tpu_torch.quant.weights import qmm_plan
 
 BARS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 GRAD_BARS = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
@@ -98,6 +103,148 @@ def test_forward_kernel_matches_plain(cuda_device, case, dtype):
     assert ((inv_l - inv_p) / inv_p).abs().max().item() <= 1e-5
     if mask_kind == "all":
         assert o.abs().max().item() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FWD_CASES))
+def test_forward_kernel_int8_arm_matches_plain(cuda_device, case, v_dtype):
+    """int8 q/k codes at the fixed scale 127 (the op's qk_int8), v and o in
+    v_dtype: masks, bias and GQA as in the float arms."""
+    from flash_cosine_sim_attention_tpu_torch.ops.flash_attention import (
+        quantize_qk)
+
+    b, h, kvh, sq, sk, d, causal, mask_kind, bias_kind = FWD_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=cuda_device, generator=g)
+
+    q, k = l2norm_tensors(randn(b, h, sq, d), randn(b, kvh, sk, d))
+    q8, k8, s_dequant = quantize_qk(q, k, "int8")
+    v = randn(b, kvh, sk, d).to(v_dtype)
+    mask = None
+    if mask_kind == "some":
+        mask = torch.rand(b, sk, device=cuda_device, generator=g) > 0.4
+    elif mask_kind == "all":
+        mask = torch.zeros(b, sk, dtype=torch.bool, device=cuda_device)
+    bias = None if bias_kind is None else randn(
+        b if bias_kind == "b" else h, sq, sk)
+    kw = dict(bias_batch_dim=bias_kind == "b", scale=8.0, causal=causal,
+              s_dequant=s_dequant)
+
+    before = flash_attention_forward.launches
+    o, inv_l = flash_attention_forward(q8, k8, v, mask, bias, **kw)
+    o_p, inv_p = flash_attention_forward_plain(q8, k8, v, mask, bias, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_forward.launches == before + 1
+    assert o.dtype == v_dtype and torch.isfinite(o.float()).all()
+    assert (o.float() - o_p.float()).abs().max().item() <= BARS[v_dtype]
+    assert ((inv_l - inv_p) / inv_p).abs().max().item() <= 1e-5
+    if mask_kind == "all":
+        assert o.abs().max().item() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", ["qk_int8", "qk_fp8"])
+def test_quantized_qk_op_matches_plain(cuda_device, flag):
+    """The public op's quantized-QK arms on the card (K1's int8 arm, or its
+    float arm on e4m3-rounded q/k; then the straight-through backward)
+    against the plain forward on the quantized q/k and the plain backward
+    on the unquantized ones."""
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        flash_cosine_sim_attention)
+    from flash_cosine_sim_attention_tpu_torch.ops.flash_attention import (
+        quantize_qk)
+
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    q, k = l2norm_tensors(
+        *(torch.randn(2, 4, 192, 64, device=cuda_device, generator=g)
+          for _ in range(2)))
+    v, do = (torch.randn(2, 4, 192, 64, device=cuda_device, generator=g)
+             for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = flash_attention_forward.launches
+    o = flash_cosine_sim_attention(*leaves, causal=True, l2norm_qk=False,
+                                   **{flag: True})
+    got = (o, *torch.autograd.grad(o, leaves, do))
+    assert flash_attention_forward.launches == before + 1
+
+    kw = dict(bias_batch_dim=False, scale=8.0, causal=True)
+    qq, kq, s_dequant = quantize_qk(q, k, flag[3:])
+    o_p, inv_p = flash_attention_forward_plain(qq, kq, v, None, None,
+                                               s_dequant=s_dequant, **kw)
+    want = (o_p, *flash_attention_backward_plain(
+        do, o_p, inv_p, q, k, v, None, None, **kw)[:3])
+    for name, x, y in zip(("o", "dq", "dk", "dv"), got, want):
+        assert torch.isfinite(x).all(), name
+        assert _grad_err(x, y, torch.float32) <= GRAD_BARS[torch.float32], name
+
+
+# (in, out) of every dense layer of the 0.81B serving model, and one shape
+# ragged for K7's tiles (in not a multiple of 32, out not of 128)
+QMM_SHAPES = [(2048, 6144), (2048, 2048), (2048, 8192), (8192, 2048),
+              (2048, 256), (200, 272)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_in,d_out", QMM_SHAPES)
+@pytest.mark.parametrize("rows", [1, 8, 33, 1024])
+def test_quant_matmul_kernel_matches_plain(cuda_device, rows, d_in, d_out):
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    w8, scale = quantize_dense_kernel(0.02 * torch.randn(
+        d_in, d_out, device=cuda_device, generator=g))
+    x32 = torch.randn(rows, d_in, device=cuda_device, generator=g)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = x32.to(dtype)
+        before = quantized_matmul.launches
+        got = quantized_matmul(x, w8, scale)
+        want = quantized_matmul_plain(x, w8, scale)
+        torch.cuda.synchronize()
+        assert quantized_matmul.launches == before + 1
+        assert got.dtype == dtype and got.shape == (rows, d_out)
+        err = (got.float() - want.float()).abs().max().item() / max(
+            1.0, want.float().abs().max().item())
+        assert err <= BARS[dtype], (dtype, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d_in,d_out", [(8, 8192, 2048),
+                                             (8, 2048, 256),
+                                             (1024, 2048, 6144)])
+def test_quant_matmul_plan_fills_the_card(cuda_device, rows, d_in, d_out):
+    """K7's plan: decode-sized products with few 128-column output blocks
+    split their input until every SM has a block; the splits cover the
+    whole input, each split at least one tile."""
+    block_rows, splits, per_split = qmm_plan(cuda_device, rows, d_in, d_out)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert block_rows == (8 if rows <= 16 else 64)
+    block_in = 128 if block_rows == 8 else 32
+    tiles = -(-d_in // block_in)
+    assert (splits - 1) * per_split < tiles <= splits * per_split
+    blocks = -(-d_out // 128) * -(-rows // block_rows)
+    assert blocks * splits >= min(sms, blocks * tiles)
+
+
+@pytest.mark.cuda
+def test_quant_matmul_kernel_refuses_what_it_cannot_take(cuda_device):
+    """out not a multiple of 16 (K7's 16-byte weight loads), a weight K7
+    would have to copy on every call, or a float weight: the wrapper
+    raises, launches nothing and falls back to nothing."""
+    x = torch.randn(8, 64, device=cuda_device)
+    w8, scale = quantize_dense_kernel(torch.randn(64, 40, device=cuda_device))
+    before = quantized_matmul.launches
+    with pytest.raises(ValueError, match="16"):
+        quantized_matmul(x, w8, scale)
+    square, sq_scale = quantize_dense_kernel(
+        torch.randn(64, 64, device=cuda_device))
+    assert square.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        quantized_matmul(x, square.t(), sq_scale)
+    with pytest.raises(TypeError):
+        quantized_matmul(x, torch.randn(64, 48, device=cuda_device),
+                         scale[:, :48])
+    assert quantized_matmul.launches == before
 
 
 @pytest.mark.cuda

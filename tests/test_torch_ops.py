@@ -191,19 +191,23 @@ def test_l2norm_tensors_matches_jax(dtype):
 
 
 def test_forward_only_and_unported_flags_raise():
-    """The op is no longer forward-only: a gradient flows.  The flags that
-    are not ported still raise, with or without a gradient."""
+    """The op is no longer forward-only: a gradient flows, also through the
+    quantized-QK flags (straight-through), which run with or without a
+    gradient.  Options without meaning on the card still raise."""
     q = torch.randn(1, 1, 8, 16, requires_grad=True)
     (grad,) = torch.autograd.grad(
         flash_cosine_sim_attention(q, q, q).square().sum(), q)
     assert grad.shape == q.shape and torch.isfinite(grad).all()
     for flag in ("qk_int8", "qk_fp8"):
-        with pytest.raises(NotImplementedError):
-            flash_cosine_sim_attention(q, q, q, **{flag: True})
+        (grad,) = torch.autograd.grad(flash_cosine_sim_attention(
+            q, q, q, **{flag: True}).square().sum(), q)
+        assert grad.shape == q.shape and torch.isfinite(grad).all()
     with torch.no_grad():
         for flag in ("qk_int8", "qk_fp8"):
-            with pytest.raises(NotImplementedError):
-                flash_cosine_sim_attention(q, q, q, **{flag: True})
+            o = flash_cosine_sim_attention(q, q, q, **{flag: True})
+            assert o.shape == q.shape and torch.isfinite(o).all()
+        with pytest.raises(ValueError):
+            flash_cosine_sim_attention(q, q, q, qk_int8=True, qk_fp8=True)
         with pytest.raises(ValueError):
             flash_cosine_sim_attention(q, q, q, block_q=64)
         with pytest.raises(ValueError):
