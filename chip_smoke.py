@@ -23,7 +23,8 @@ Phases (any failure exits non-zero):
      microbatches of 4 x 1024 tokens through the port's train_step, on a
      synthetic byte corpus drawn from a numpy seed; the forward and
      one-pass backward kernels' launch counts are read around these
-     steps only.  Then the op's attn_bias gradient, the two-pass
+     steps only, and a profiled step must show K1's tensor-core
+     instance.  Then the op's attn_bias gradient, the two-pass
      kernels' path: a learnable (h, i, j) bias takes 3 Adam steps
      through flash_cosine_sim_attention, counts read around them;
   9. training parity: one microbatch of an f32 depth-2 model, loss and
@@ -41,10 +42,11 @@ Phases (any failure exits non-zero):
  12. the int8-weight matmul (K7) against its plain version over every
      (in, out) of the 0.81B production model and a ragged shape, at 1,
      8, 33 and 1024 rows, f32 and bf16, then timed at 8 rows (L2
-     flushed) and 1024 beside F.linear on a bf16 weight copy; K1's int8
-     arm against its plain version, timed beside its bf16 arm, and the
-     bf16 arm against its plain version at phase 13's prefill and
-     continuation shapes (its error joins K1's entry); then one
+     flushed) and 1024 beside F.linear on a bf16 weight copy (one decode
+     step's 65 calls; one layer's four products at 1024 rows); K1's int8
+     arm against its plain version, the bf16 arm against its plain
+     version at phase 13's prefill and continuation shapes, both timed
+     at b1 h16 s1024 d128 causal beside SDPA; then one
      forward and backward of the op with qk_int8 and qk_fp8 against the
      plain straight-through gradients (K1 launches read around qk_int8);
  13. int8-weight serving at full production width: the JAX package's
@@ -54,13 +56,17 @@ Phases (any failure exits non-zero):
      weights; InferenceEngine (8 slots, capacity 2048) takes eight
      1024-token prompts, 36 steps and a continuation, then
      PagedInferenceEngine 8 steps (K1, K4, K5 and K7 launches read
-     around it, K7's checked at 65 per pass); card vs CPU at depth 2 in
+     around it and around the prefills, K7's checked at 65 per pass); a
+     ninth 1024-token prompt refills the last slot under the profiler,
+     for its device time and to show K1's and K7's tensor-core instances
+     (a profiled decode step must show K7's); card vs CPU at depth 2 in
      f32.
 Then one JSON line lists every ported kernel with its launches on its
-path, error, times and bound; the script's own wall time, the nvcc
-build included; the card's name and power limit; and, last, the
-{"ok": true, ...} line.  Kernel device times come from
-torch.profiler, wrapper times are CUDA-event medians.
+path, error, times and bound (timing lines also print the achieved
+TFLOP/s); the script's own wall time, the nvcc build included; the
+card's name and power limit; and, last, the {"ok": true, ...} line.
+Kernel device times come from torch.profiler, wrapper times are
+CUDA-event medians.
 """
 
 from __future__ import annotations
@@ -150,7 +156,7 @@ def event_ms(fn, iters: int = 50, warmup: int = 5, flush=None) -> float:
 def kernel_us(work, iters: int) -> float:
     """Total device time (us) of the kernels ``iters`` calls of ``work``
     ran, from torch.profiler."""
-    return kernel_device_us(work, iters, ())[0]
+    return sum(t for _, t, _ in cuda_rows(work, iters))
 
 
 def cuda_rows(work, iters: int):
@@ -176,14 +182,6 @@ def cuda_rows(work, iters: int):
     return [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA
             and "spin_kernel" not in e.key]
-
-
-def kernel_device_us(work, iters: int, names):
-    """Device time (us) of ``iters`` calls of ``work``: the total and the
-    part spent in kernels whose name contains each of ``names``."""
-    rows = cuda_rows(work, iters)
-    return sum(t for _, t, _ in rows), {
-        n: sum(t for key, t, _ in rows if n in key) for n in names}
 
 
 def whole_us(work, iters: int, tries: int = 3) -> float:
@@ -215,6 +213,26 @@ def device_ms(fn, flush=None, iters: int = 20) -> float:
         return total / iters / 1e3
     print("  (the profiler saw no device time: CUDA-event time instead)")
     return event_ms(fn, flush=flush)
+
+
+def tflops(flops: float, ms: float) -> float:
+    """Achieved rate, TFLOP/s, of ``flops`` operations in ``ms``."""
+    return flops / (ms * 1e-3) / 1e12
+
+
+def require_kernels(rows, names, path: str) -> None:
+    """Fail unless every kernel name in ``names`` appears among the
+    profiler's ``rows``, and no f32 FMA instance of K1 or K7 does: the
+    bf16 paths must run the tensor-core instances."""
+    keys = [key for key, _, _ in rows]
+    missing = [n for n in names if not any(n in key for key in keys)]
+    fma = [key[:60] for key in keys if "fwd_kernel<" in key
+           or "qmm_kernel<" in key]
+    print(f"  {path}: tensor-core instances {', '.join(names)} launched: "
+          f"{not missing}; f32 FMA instances launched: {fma or 'none'}")
+    if missing or fma:
+        fail(f"{path}: tensor-core kernels missing {missing}, FMA kernels "
+             f"{fma}")
 
 
 def grad_err(x: torch.Tensor, y: torch.Tensor, dtype) -> float:
@@ -327,8 +345,10 @@ def check_forward(card: str):
     nbytes = 4 * q.numel() * 2 + 8 * 1024 * 4        # q, k, v, o + inv_l
     bound_ms, by = bound(flops, nbytes)
     print(f"  K1 b1 h8 s1024 d64 causal bf16 on {card}: device time kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
-          f"bound {bound_ms:.5f} ms ({by}); wrapper call {call_ms:.4f} ms")
+          f"{ms:.4f} ms ({tflops(flops, ms):.1f} TFLOP/s), plain "
+          f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms ({tflops(flops, lib_ms):.1f}"
+          f" TFLOP/s), bound {bound_ms:.5f} ms ({by}); wrapper call "
+          f"{call_ms:.4f} ms")
     return worst, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=by, library_ms=lib_ms)
 
@@ -666,9 +686,10 @@ def train(card: str):
         losses.append(train_step(model, opt, batch).item())
         step_ms.append(1e3 * (time.perf_counter() - t0))
     launches = (flash_attention_forward.launches, bk.fused_bwd_kernel.launches)
-    busy_us, parts = kernel_device_us(
-        lambda: train_step(model, opt, batches()), 1,
-        ("fwd_kernel<", "dkdv_kernel<"))
+    rows = cuda_rows(lambda: train_step(model, opt, batches()), 1)
+    busy_us = sum(t for _, t, _ in rows)
+    parts = {n: sum(t for key, t, _ in rows if n in key)
+             for n in ("fwd_mma_kernel<", "dkdv_kernel<")}
 
     med = statistics.median(step_ms)
     tokens = GRAD_ACCUM * BATCH_SIZE * seq
@@ -679,10 +700,12 @@ def train(card: str):
     print(f"  train step device time on {card}: {busy_us / 1e3:.2f} ms "
           f"(profiled) of {med:.2f} ms wall (unprofiled median): device "
           f"idle share {1 - busy_us / 1e3 / med:.3f}; K1 "
-          f"{parts['fwd_kernel<'] / 1e3:.2f} ms and K2 "
+          f"{parts['fwd_mma_kernel<'] / 1e3:.2f} ms and K2 "
           f"{parts['dkdv_kernel<'] / 1e3:.2f} ms of it")
     print(f"  launches over the {TRAIN_STEPS} steps: forward kernel "
           f"{launches[0]}, one-pass backward kernel {launches[1]}")
+    require_kernels(rows, ("fwd_mma_kernel<__nv_bfloat16, 64>",),
+                    "training step (bf16 compute)")
     if not all(np.isfinite(losses)):
         fail(f"training: a loss is not finite: {losses}")
     if not np.mean(losses[-3:]) < losses[0]:
@@ -1125,6 +1148,7 @@ def check_quant(card: str):
     # L2 flushed: the step streams 0.8 GB of weights) and 1024 (a prefill)
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     step = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    layer = dict(step)     # one layer's four products at 1024 rows
     for name, ((d_in, d_out), calls) in PROD_DENSE.items():
         w8, scale = weights[d_in, d_out]
         w_lib = (w8.float() * scale).to(torch.bfloat16).t().contiguous()
@@ -1137,22 +1161,37 @@ def check_quant(card: str):
                 lambda: quantized_matmul_plain(x, w8, scale), flush)
             lib_ms = device_ms(lambda: F.linear(x, w_lib), flush)
             nbytes = w8.numel() + 4 * d_out + 2 * rows * (d_in + d_out)
-            bound_ms, by = bound(2 * rows * d_in * d_out, nbytes)
+            flops = 2 * rows * d_in * d_out
+            bound_ms, by = bound(flops, nbytes)
             print(f"  K7 {name} ({d_in}, {d_out}) x {rows} rows bf16"
                   f"{', L2 flushed' if flush else ''} on {card}: device "
-                  f"time kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"F.linear on a bf16 copy {lib_ms:.4f} ms, bound "
-                  f"{bound_ms:.5f} ms ({by})")
-            if rows == 8:
-                for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                                 ("bound_ms", bound_ms),
-                                 ("library_ms", lib_ms)):
+                  f"time kernel {ms:.4f} ms ({tflops(flops, ms):.1f} "
+                  f"TFLOP/s, {nbytes / ms / 1e9:.0f} GB/s), plain "
+                  f"{plain_ms:.4f} ms, F.linear on a bf16 copy {lib_ms:.4f} "
+                  f"ms ({tflops(flops, lib_ms):.1f} TFLOP/s; kernel / "
+                  f"F.linear {ms / lib_ms:.2f}), bound {bound_ms:.5f} ms "
+                  f"({by})")
+            times = (("ms", ms), ("plain_ms", plain_ms),
+                     ("bound_ms", bound_ms), ("library_ms", lib_ms))
+            for key, val in times:
+                if rows == 8:
                     step[key] += calls * val
+                elif name != "logits":
+                    layer[key] += val
     print(f"  K7 over one decode step (65 calls at 8 rows) on {card}: "
           f"{step['ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, F.linear "
           f"{step['library_ms']:.4f} ms, bound {step['bound_ms']:.5f} ms "
           f"(bytes); F.linear reads a bf16 weight copy, 2x K7's bytes")
-    rows = {"K7": dict(step, bound_by="bytes")}
+    layer_flops = 2 * 1024 * sum(
+        d_in * d_out for name, ((d_in, d_out), _) in PROD_DENSE.items()
+        if name != "logits")
+    print(f"  K7 over one layer's four products at 1024 rows on {card}: "
+          f"{layer['ms']:.4f} ms ({tflops(layer_flops, layer['ms']):.1f} "
+          f"TFLOP/s), plain {layer['plain_ms']:.4f} ms, F.linear "
+          f"{layer['library_ms']:.4f} ms, bound {layer['bound_ms']:.5f} ms "
+          f"(operations)")
+    rows = {"K7": dict(step, bound_by="bytes"),
+            "K7 prefill": dict(layer, bound_by="operations")}
 
     # K1's int8 arm: the JAX test's shape, then the serving model's heads
     def qkv(b, h, s, d, v_dtype):
@@ -1226,19 +1265,31 @@ def check_quant(card: str):
     qb, kb = q.to(torch.bfloat16), k.to(torch.bfloat16)
     float_ms = device_ms(lambda: flash_attention_forward(qb, kb, v, None,
                                                          None, **kw))
+    float_plain_ms = device_ms(lambda: flash_attention_forward_plain(
+        qb, kb, v, None, None, **kw))
     lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
         qb, kb, v, is_causal=True, scale=1.0))
     pairs = 1024 * 1025 / 2 * 16                     # visible pairs, heads
+    flops = 4 * 128 * pairs
     # QK runs on int8 codes (int8 peak), P.V in bf16: in bf16-peak units
     ops = 2 * 128 * pairs * PEAK_BF16_FLOPS / PEAK_INT8_OPS + 2 * 128 * pairs
     nbytes = 2 * q8.numel() + 2 * 2 * v.numel() + 16 * 1024 * 4
     bound_ms, by = bound(ops, nbytes)
+    f_bound_ms, f_by = bound(flops, 4 * 2 * v.numel() + 16 * 1024 * 4)
     print(f"  K1 int8 arm b1 h16 s1024 d128 causal, bf16 v, on {card}: "
-          f"device time kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, K1 "
-          f"bf16 arm {float_ms:.4f} ms, SDPA (bf16) {lib_ms:.4f} ms, bound "
-          f"{bound_ms:.5f} ms ({by})")
+          f"device time kernel {ms:.4f} ms ({tflops(flops, ms):.1f} TOP/s), "
+          f"plain {plain_ms:.4f} ms, SDPA (bf16) {lib_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({by}); kernel / SDPA {ms / lib_ms:.2f}")
+    print(f"  K1 bf16 b1 h16 s1024 d128 causal on {card}: device time kernel "
+          f"{float_ms:.4f} ms ({tflops(flops, float_ms):.1f} TFLOP/s), plain "
+          f"{float_plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms ("
+          f"{tflops(flops, lib_ms):.1f} TFLOP/s; kernel / SDPA "
+          f"{float_ms / lib_ms:.2f}), bound {f_bound_ms:.5f} ms ({f_by})")
     rows["K1 int8"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=by, library_ms=lib_ms)
+    rows["K1 d128"] = dict(ms=float_ms, plain_ms=float_plain_ms,
+                           bound_ms=f_bound_ms, bound_by=f_by,
+                           library_ms=lib_ms)
 
     # the op's quantized-QK arms, forward and straight-through backward, at
     # the serving heads; K1-int8 launches counted around the qk_int8 op
@@ -1353,6 +1404,18 @@ def serve_prod(card: str):
         torch.cuda.synchronize()
         ttft.append(1e3 * (time.perf_counter() - t0))
         seen.append(int(engine.last_token[slot]))
+    prefill_launches = dict(k1=flash_attention_forward.launches,
+                            k7=quantized_matmul.launches)
+    # the last slot's request again, profiled: its device time beside the
+    # TTFT, and the tensor-core instances of K1 and K7 (prefill tiles)
+    engine.finish(slot)
+    rows = cuda_rows(lambda: seen.append(int(engine.last_token[
+        engine.add_request(rng.integers(0, vocab, PROD_PROMPT))])), 1)
+    prefill_us = sum(t for _, t, _ in rows)
+    prefill_k7_us = sum(t for key, t, _ in rows if "qmm_" in key)
+    prefill_k1_us = sum(t for key, t, _ in rows if "fwd_" in key)
+    require_kernels(rows, ("fwd_mma_kernel<__nv_bfloat16, 128>",
+                           "qmm_mma_kernel<128,"), "production prefill")
     for _ in range(PROD_STEPS):
         t0 = time.perf_counter()
         seen.extend(engine.step().values())
@@ -1361,11 +1424,12 @@ def serve_prod(card: str):
     rows = cuda_rows(lambda: seen.extend(engine.step().values()), profiled)
     busy_us = sum(t for _, t, _ in rows)
     k7_us = sum(t for key, t, _ in rows if "qmm_" in key)
+    require_kernels(rows, ("qmm_mma_kernel<16,",), "production decode step")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     seen.append(engine.continue_request(0, rng.integers(0, vocab, 50)))
     continue_ms = 1e3 * (time.perf_counter() - t0)
-    passes = PROD_ENGINE["num_slots"] + PROD_STEPS + profiled + 1
+    passes = PROD_ENGINE["num_slots"] + 1 + PROD_STEPS + profiled + 1
     launches = dict(k1=flash_attention_forward.launches,
                     k4=quantized_decode_attention.launches,
                     k7=quantized_matmul.launches)
@@ -1373,7 +1437,14 @@ def serve_prod(card: str):
     dec = statistics.median(step_ms)
     busy = busy_us / profiled / 1e3
     print(f"  TTFT, 8 prompts of {PROD_PROMPT} tokens on {card}: "
-          + ", ".join(f"{ms:.2f}" for ms in ttft) + " ms")
+          + ", ".join(f"{ms:.2f}" for ms in ttft) + f" ms (median "
+          f"{statistics.median(ttft):.2f}); launches over them K1 "
+          f"{prefill_launches['k1']}, K7 {prefill_launches['k7']}")
+    print(f"  one more {PROD_PROMPT}-token prefill, profiled: device time "
+          f"{prefill_us / 1e3:.3f} ms (K7 {prefill_k7_us / 1e3:.3f}, K1 "
+          f"{prefill_k1_us / 1e3:.3f}) of the median TTFT "
+          f"{statistics.median(ttft):.2f} ms wall (unprofiled): device idle "
+          f"share {1 - prefill_us / 1e3 / statistics.median(ttft):.3f}")
     print(f"  decode on {card}: {dec:.3f} ms/step median over {PROD_STEPS} "
           f"steps at 8 slots ({8e3 / dec:.1f} tokens/s); device time "
           f"{busy:.3f} ms/step (profiled): device idle share "
@@ -1384,14 +1455,17 @@ def serve_prod(card: str):
           + "; ".join(f"{key[:48]} {t / profiled / 1e3:.3f} ({n // profiled})"
                       for key, t, n in sorted(rows, key=lambda r: -r[1])[:6]))
     print(f"  launches, contiguous engine: K1 {launches['k1']}, K4 "
-          f"{launches['k4']}, K7 {launches['k7']} = {passes} passes (8 "
+          f"{launches['k4']}, K7 {launches['k7']} = {passes} passes (9 "
           f"prefills, {PROD_STEPS + profiled} steps, 1 continuation) x "
           f"{K7_PER_PASS}")
     depth = PROD_MODEL["depth"]
-    want = dict(k1=depth * (PROD_ENGINE["num_slots"] + 2),
+    want = dict(k1=depth * (PROD_ENGINE["num_slots"] + 1 + 2),
                 k4=depth * (PROD_STEPS + profiled), k7=passes * K7_PER_PASS)
-    if launches != want:
-        fail(f"production serving launches {launches}, want {want}")
+    want_prefill = dict(k1=depth * PROD_ENGINE["num_slots"],
+                        k7=PROD_ENGINE["num_slots"] * K7_PER_PASS)
+    if launches != want or prefill_launches != want_prefill:
+        fail(f"production serving launches {launches}, prefills "
+             f"{prefill_launches}, want {want}, {want_prefill}")
     del engine
     torch.cuda.empty_cache()
 
@@ -1418,6 +1492,8 @@ def serve_prod(card: str):
         fail(f"paged production serving launches {launches}")
     if not all(0 <= t < vocab for t in seen):
         fail("production serving: a token out of range")
+    launches.update(k1_prefill=prefill_launches["k1"],
+                    k7_prefill=prefill_launches["k7"])
     return launches
 
 
@@ -1514,8 +1590,7 @@ def main() -> None:
         dict(name="fwd_kernel", route="cuda",
              source="flash_cosine_sim_attention_tpu_torch/csrc/fwd_kernel.cu",
              replaces="flash_cosine_sim_attention_tpu/ops/fwd_kernel.py:47",
-             launches=launches[0], max_abs_err=max(fwd_err, quant_err["K1"]),
-             **fwd_row),
+             launches=launches[0], max_abs_err=fwd_err, **fwd_row),
         dict(name="decode_kernel", route="cuda",
              source="flash_cosine_sim_attention_tpu_torch/csrc/decode_kernel.cu",
              replaces="flash_cosine_sim_attention_tpu/quant/decode_kernel.py:137",
@@ -1549,6 +1624,16 @@ def main() -> None:
              replaces="flash_cosine_sim_attention_tpu/ops/fwd_kernel.py:47",
              launches=int8_launches, max_abs_err=quant_err["K1 int8"],
              **quant_rows["K1 int8"]),
+        dict(name="quant_matmul:prefill", route="cuda",
+             source=f"{csrc}/quant_matmul_kernel.cu",
+             replaces="flash_cosine_sim_attention_tpu/quant/weights.py:66",
+             launches=prod_launches["k7_prefill"],
+             max_abs_err=quant_err["K7"], **quant_rows["K7 prefill"]),
+        dict(name="fwd_kernel:d128", route="cuda",
+             source=f"{csrc}/fwd_kernel.cu",
+             replaces="flash_cosine_sim_attention_tpu/ops/fwd_kernel.py:47",
+             launches=prod_launches["k1_prefill"],
+             max_abs_err=quant_err["K1"], **quant_rows["K1 d128"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke.py took {time.perf_counter() - started:.1f} s")

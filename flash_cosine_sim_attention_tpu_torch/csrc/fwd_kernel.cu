@@ -12,55 +12,280 @@
 // attentions by their row sums 1/inv_l, so it must equal the JAX forward's.
 // A row that sees no key returns o = 0 and inv_l = 1e10.
 //
-// Without the shift e reaches e^(scale + bias): at the served model's
-// scale 1 with 8 l2norm groups that is e^8.  The P tile stays in float32
-// here; a half-precision P tile would overflow past scale + bias > 11.09.
-//
 // Bound on the H100: at the serving shapes (b1 h8 s1024 d64 causal bf16)
 // the work is ~1.07 GFLOP over ~4.2 MB, far above the card's ~295 FLOP/B
-// ridge, so the bound is the tensor-core rate (~1.1 us).  This first port
-// does not reach it: one 128-thread block per (batch, head, 64 query rows)
-// runs both products as float32 FMAs out of shared memory (q, k, v tiles
-// converted to f32 once at load; padded rows avoid bank conflicts).  That
-// keeps f32 inputs at full f32 precision (no TF32) and bf16 inputs exact
-// up to the f32 sums.  wgmma/TMA tiles are the later, fast version.
+// ridge, so the bound is the tensor-core rate (~1.1 us).
+//
+// bfloat16 q/k/v, and int8 q/k codes with bfloat16 v, run on the tensor
+// cores (`fwd_mma_kernel`), in the FlashAttention-2 shape: one 128-thread
+// block per (batch, head, 64 query rows), 4 warps of 16 rows each.  Q's
+// fragments stay in registers; K and V tiles of 64 keys stream through a
+// double-buffered `cp.async` ring (zero-filled past seq_k, so no 0 *
+// garbage NaN reaches O).  S = Q.K^T by `mma.sync` into f32 (bf16
+// m16n8k16) or exact int32 (int8 m16n8k32: |s| <= 127^2 * 128 < 2^24, so
+// its float is exact too); the logit is s * c in f32, c = scale * log2e
+// (times s_dequant for the codes), plus bias * log2e.  e = exp2(logit),
+// masked to exact 0; l sums the unrounded f32 e, and e is rounded to bf16
+// only as the A fragment of P.V (the C fragments of S are the A fragments
+// of P.V, so P never touches shared memory; V arrives by
+// `ldmatrix.trans`).  This is the JAX kernel's order (fwd_kernel.py:
+// 201-203).  A bf16 P cannot overflow (f32's exponent range): it holds up
+// to e^(scale + bias).  Causal blocks are launched heaviest first.  At d
+// 16 the int8 codes are zero-padded to the k = 32 step in shared memory.
+//
+// float32 q/k/v, and int8 codes with float32 v (parity runs at a 1e-4 bar,
+// which bf16 tensor cores cannot meet without a split product), keep the
+// f32 FMA kernel `fwd_kernel`: the same block shape, both products as f32
+// FMAs out of shared memory (the int8 codes by `__dp4a`), the P tile kept
+// in float32 in shared memory.
 //
 // Masking: causal keeps key col <= row + (seq_k - seq_q) (cross-attention
 // alignment) and the loop stops at the last tile a row of the block can
-// see; an optional (b, j) key mask and the ragged edges select e = 0, and
-// out-of-range k/v rows load as 0, so no 0 * garbage NaN can reach O.
+// see; an optional (b, j) key mask and the ragged edges select e = 0.
 // GQA: query head h reads kv head h / (H / KVH).  Bias: (b|h, i, j) f32.
-//
-// The int8 arm (the TPU kernel's int8 q/k path, `_fwd_kernel_t` with
-// `s_dequant`): q and k arrive as int8 codes of the l2-normalized values
-// at the fixed scale 127, v in float32 or bfloat16, and o comes out in v's
-// dtype.  The q and k tiles stay int8 in shared memory, packed four codes
-// to a word, and each logit's dot product is an exact int32 sum of
-// `__dp4a` products (|sum| <= 127^2 * 128 < 2^24, so its float is exact
-// too).  The logit is then s_int * (scale * log2e * s_dequant) in float32,
-// with the float arms' exp convention, masks, bias and GQA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
+
+#include "mma_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per block (ops/blocks.py FWD_BLOCK_Q)
-constexpr int BK = 64;   // keys per tile (ops/blocks.py FWD_BLOCK_K)
-constexpr int NT = 128;  // threads: 16 row groups of 4 rows x 8 column lanes
+constexpr int BQ = 64;   // query rows per block
+constexpr int BK = 64;   // keys per tile
+constexpr int NT = 128;  // threads
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float EPS = 1e-10f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
 template <typename TQ>
 __host__ __device__ constexpr bool is_int8() { return std::is_same<TQ, int8_t>::value; }
+
+// ---------------------------------------------------------------------------
+// Tensor-core kernel: bf16 q/k/v, or int8 q/k codes with bf16 v
+
+template <typename TQ, int D>
+struct MmaLayout {
+  static constexpr int QB = D * int(sizeof(TQ));    // bytes of a q / k row
+  static constexpr int QBP = QB < 32 ? 32 : QB;     // whole 32-byte k steps
+  // shared-memory row strides, 16 bytes past the row: an odd number of
+  // 16-byte units, so the 8 rows an ldmatrix reads hit 8 distinct banks
+  static constexpr int QS = QBP + 16;
+  static constexpr int VS = 2 * D + 16;
+  static constexpr size_t SMEM = size_t(BQ) * QS + 2 * size_t(BK) * (QS + VS);
+};
+
+template <typename TQ, int D>
+__global__ void __launch_bounds__(NT, 1) fwd_mma_kernel(
+    const TQ* __restrict__ q, const TQ* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
+    const float* __restrict__ bias, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ inv_l, int H, int KVH, int seq_q, int seq_k,
+    int causal, int bias_batch_dim, float c) {
+  using L = MmaLayout<TQ, D>;
+  constexpr bool Q8 = is_int8<TQ>();
+  constexpr int QB = L::QB, QS = L::QS, VS = L::VS;
+  constexpr int KSTEPS = L::QBP / 32;  // 32-byte k steps of S = Q.K^T
+  constexpr int NS = BK / 8;           // n8 tiles of S
+  constexpr int NO = D / 8;            // n8 tiles of O
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* qs = smem;                 // BQ x QS
+  unsigned char* ks = qs + BQ * QS;         // 2 x BK x QS
+  unsigned char* vs = ks + 2 * BK * QS;     // 2 x BK x VS
+
+  const int bi = blockIdx.z, hi = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
+  const int kvhi = hi / (H / KVH);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int diff = seq_k - seq_q;
+
+  const unsigned char* qb = reinterpret_cast<const unsigned char*>(
+      q + (size_t(bi) * H + hi) * seq_q * D);
+  const unsigned char* kb = reinterpret_cast<const unsigned char*>(
+      k + (size_t(bi) * KVH + kvhi) * seq_k * D);
+  const unsigned char* vb = reinterpret_cast<const unsigned char*>(
+      v + (size_t(bi) * KVH + kvhi) * seq_k * D);
+  const uint8_t* mb = mask ? mask + size_t(bi) * seq_k : nullptr;
+  const float* bb =
+      bias ? bias + size_t(bias_batch_dim ? bi : hi) * seq_q * seq_k : nullptr;
+
+  // keys this block can see: all, or (causal) up to its last row's diagonal
+  const int last_row = min(q0 + BQ, seq_q) - 1;
+  const int kend = causal ? max(0, min(seq_k, last_row + diff + 1)) : seq_k;
+  const int nk = (kend + BK - 1) / BK;
+
+  // `nrows` rows of `bytes` from global rows [first, first + nrows) of
+  // `src` (rows past `limit` as zeros) to shared memory rows `stride` apart
+  auto load_rows = [&](unsigned char* dst, const unsigned char* src, int first,
+                       int nrows, int limit, int bytes, int stride) {
+    const int chunks = bytes / 16;
+    for (int idx = tid; idx < nrows * chunks; idx += NT) {
+      const int r = idx / chunks, cc = (idx % chunks) * 16, row = first + r;
+      const bool in = row < limit;
+      cp_async16(dst + r * stride + cc,
+                 in ? src + size_t(row) * bytes + cc : src, in ? 16 : 0);
+    }
+  };
+  auto load_kv = [&](int buf, int k0) {
+    load_rows(ks + buf * BK * QS, kb, k0, BK, seq_k, QB, QS);
+    load_rows(vs + buf * BK * VS, vb, k0, BK, seq_k, 2 * D, VS);
+  };
+
+  if constexpr (L::QBP > QB) {  // int8 d 16: zero the k step's second half
+    for (int r = tid; r < BQ + 2 * BK; r += NT)
+      *reinterpret_cast<uint4*>(smem + r * QS + QB) = make_uint4(0, 0, 0, 0);
+  }
+  if (nk > 0) {
+    load_rows(qs, qb, q0, BQ, seq_q, QB, QS);
+    load_kv(0, 0);
+  }
+  cp_async_commit();
+
+  uint32_t qf[KSTEPS][4];
+  float oacc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  float lsum[2] = {0.f, 0.f};
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    if (kt + 1 < nk) load_kv((kt + 1) & 1, k0 + BK);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile kt (and, at kt 0, the q tile) has landed
+    if (kt == 0) {
+#pragma unroll
+      for (int s = 0; s < KSTEPS; ++s)
+        ldmatrix_x4(qf[s], qs + (warp * 16 + (lane & 15)) * QS + s * 32 +
+                               (lane >> 4) * 16);
+    }
+    const unsigned char* kt_s = ks + (kt & 1) * BK * QS;
+    const unsigned char* vt_s = vs + (kt & 1) * BK * VS;
+
+    // S = Q.K^T: an x4 ldmatrix of K gives the B fragments of 2 n8 tiles
+    float s[NS][4];
+    if constexpr (Q8) {
+      int si[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) si[n][e] = 0;
+#pragma unroll
+      for (int st = 0; st < KSTEPS; ++st)
+#pragma unroll
+        for (int j = 0; j < NS / 2; ++j) {
+          uint32_t b[4];
+          ldmatrix_x4(b, kt_s + (j * 16 + (lane & 7) + (lane >> 4) * 8) * QS +
+                             st * 32 + ((lane >> 3) & 1) * 16);
+          mma_s8(si[2 * j], qf[st], b[0], b[1]);
+          mma_s8(si[2 * j + 1], qf[st], b[2], b[3]);
+        }
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = float(si[n][e]);
+    } else {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int st = 0; st < KSTEPS; ++st)
+#pragma unroll
+        for (int j = 0; j < NS / 2; ++j) {
+          uint32_t b[4];
+          ldmatrix_x4(b, kt_s + (j * 16 + (lane & 7) + (lane >> 4) * 8) * QS +
+                             st * 32 + ((lane >> 3) & 1) * 16);
+          mma_bf16(s[2 * j], qf[st], b[0], b[1]);
+          mma_bf16(s[2 * j + 1], qf[st], b[2], b[3]);
+        }
+    }
+
+    // e = exp2(s * c + bias * log2e), masked to 0, in the C layout: entry
+    // (n, 2h + x) is row rows[h], column k0 + 8n + 2tq + x.  A tile every
+    // row of the block sees whole (no key mask, no bias, inside seq_k and
+    // the causal diagonal) skips the masks: rows past seq_q are not stored
+    const bool whole = mb == nullptr && bb == nullptr && k0 + BK <= seq_k &&
+                       (!causal || k0 + BK - 1 <= q0 + diff);
+    if (whole) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = exp2f(s[n][e] * c);
+          lsum[e >> 1] += s[n][e];
+        }
+    } else {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int row = rows[h], col = k0 + n * 8 + 2 * tq + x;
+            bool keep = row < seq_q && col < seq_k;
+            if (causal) keep = keep && col <= row + diff;
+            if (mb != nullptr) keep = keep && mb[col] != 0;
+            float lg = s[n][2 * h + x] * c;
+            if (bb != nullptr && keep) lg += bb[size_t(row) * seq_k + col] * LOG2E;
+            const float e = keep ? exp2f(lg) : 0.f;
+            lsum[h] += e;
+            s[n][2 * h + x] = e;
+          }
+    }
+
+    // O += P.V: S's C fragments of n8 tiles 2j, 2j + 1 are P's A fragment
+    // of k16 step j
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      const uint32_t a[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
+                             pack_bf16(s[2 * j][2], s[2 * j][3]),
+                             pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                             pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(
+            b, vt_s + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * VS +
+                   (dn * 16 + (lane >> 4) * 8) * 2);
+        mma_bf16(oacc[2 * dn], a, b[0], b[1]);
+        mma_bf16(oacc[2 * dn + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // the next tile's loads may overwrite this buffer
+  }
+
+  // a row's sum is spread over the 4 lanes of a quad
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 1);
+    lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 2);
+  }
+  __nv_bfloat16* ob = o + (size_t(bi) * H + hi) * seq_q * D;
+  float* lb = inv_l + (size_t(bi) * H + hi) * seq_q;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = rows[h];
+    if (row >= seq_q) continue;
+    const float inv = 1.f / fmaxf(lsum[h], EPS);
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<uint32_t*>(ob + size_t(row) * D + n * 8 + 2 * tq) =
+          pack_bf16(oacc[n][2 * h] * inv, oacc[n][2 * h + 1] * inv);
+    if (tq == 0) lb[row] = inv;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 FMA kernel: float32 q/k/v, or int8 q/k codes with float32 v.  Threads
+// are 16 row groups of 4 rows x 8 column lanes.
 
 // 4-byte words per q / k row in shared memory, one pad word included:
 // float values, or int8 codes packed four to a word
@@ -74,19 +299,19 @@ constexpr size_t smem_bytes() {
               size_t(BK) * D + size_t(BQ) * (BK + 1));
 }
 
-template <typename TQ, typename TV, int D>
+template <typename TQ, int D>
 __global__ void __launch_bounds__(NT) fwd_kernel(
-    const TQ* __restrict__ q, const TQ* __restrict__ k, const TV* __restrict__ v,
+    const TQ* __restrict__ q, const TQ* __restrict__ k, const float* __restrict__ v,
     const uint8_t* __restrict__ mask, const float* __restrict__ bias,
-    TV* __restrict__ o, float* __restrict__ inv_l, int H, int KVH, int seq_q,
+    float* __restrict__ o, float* __restrict__ inv_l, int H, int KVH, int seq_q,
     int seq_k, int causal, int bias_batch_dim, float c) {
   constexpr bool Q8 = is_int8<TQ>();
   constexpr int QR = qk_row<TQ, D>();
   constexpr int DW = D / 4;  // int8 codes: words per row
   constexpr int PP = BK + 1;
   constexpr int DC = D / 8;  // output columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;          // BQ x QR; float: pre-multiplied by c
+  extern __shared__ float smem_f[];
+  float* qs = smem_f;        // BQ x QR; float: pre-multiplied by c
   float* ks = qs + BQ * QR;  // BK x QR
   float* vs = ks + BK * QR;  // BK x D
   float* ps = vs + BK * D;   // BQ x PP exp weights
@@ -101,7 +326,7 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
 
   const TQ* qb = q + (size_t(bi) * H + hi) * seq_q * D;
   const TQ* kb = k + (size_t(bi) * KVH + kvhi) * seq_k * D;
-  const TV* vb = v + (size_t(bi) * KVH + kvhi) * seq_k * D;
+  const float* vb = v + (size_t(bi) * KVH + kvhi) * seq_k * D;
   const uint8_t* mb = mask ? mask + size_t(bi) * seq_k : nullptr;
   const float* bb =
       bias ? bias + size_t(bias_batch_dim ? bi : hi) * seq_q * seq_k : nullptr;
@@ -115,7 +340,7 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
   } else {
     for (int idx = tid; idx < BQ * D; idx += NT) {
       const int r = idx / D, cc = idx % D, row = q0 + r;
-      qs[r * QR + cc] = row < seq_q ? to_f32(qb[size_t(row) * D + cc]) * c : 0.f;
+      qs[r * QR + cc] = row < seq_q ? qb[size_t(row) * D + cc] * c : 0.f;
     }
   }
 
@@ -140,8 +365,8 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
       const int r = idx / D, cc = idx % D, col = k0 + r;
       const bool in = col < seq_k;
       if constexpr (!Q8)
-        ks[r * QR + cc] = in ? to_f32(kb[size_t(col) * D + cc]) : 0.f;
-      vs[r * D + cc] = in ? to_f32(vb[size_t(col) * D + cc]) : 0.f;
+        ks[r * QR + cc] = in ? kb[size_t(col) * D + cc] : 0.f;
+      vs[r * D + cc] = in ? vb[size_t(col) * D + cc] : 0.f;
     }
     if constexpr (Q8) {
       const int* kb4 = reinterpret_cast<const int*>(kb);
@@ -233,7 +458,7 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
     for (int off = 4; off > 0; off >>= 1)
       lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], off);
   }
-  TV* ob = o + (size_t(bi) * H + hi) * seq_q * D;
+  float* ob = o + (size_t(bi) * H + hi) * seq_q * D;
   float* lb = inv_l + (size_t(bi) * H + hi) * seq_q;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -241,43 +466,72 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
     if (row >= seq_q) continue;
     const float inv = 1.f / fmaxf(lsum[r], EPS);
 #pragma unroll
-    for (int cc = 0; cc < DC; ++cc)
-      store(ob + size_t(row) * D + tx + 8 * cc, acc[r][cc] * inv);
+    for (int cc = 0; cc < DC; ++cc) ob[size_t(row) * D + tx + 8 * cc] = acc[r][cc] * inv;
     if (tx == 0) lb[row] = inv;
   }
 }
 
-template <typename TQ, typename TV, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const uint8_t* mask, const float* bias, void* o,
-                   float* inv_l, int B, int H, int KVH, int seq_q, int seq_k,
-                   int causal, int bias_batch_dim, float c,
-                   cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<TQ, D>();
+// ---------------------------------------------------------------------------
+
+struct Args {
+  const void *q, *k, *v;
+  const uint8_t* mask;
+  const float* bias;
+  void* o;
+  float* inv_l;
+  int B, H, KVH, seq_q, seq_k, causal, bias_batch_dim;
+  float c;
+};
+
+template <typename TQ, int D>
+cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
+  // 16-byte copies: every row is a 16-byte multiple, so aligned bases do
+  for (const void* p : {a.q, a.k, a.v})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;
+  constexpr size_t smem = MmaLayout<TQ, D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<TQ, TV, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_mma_kernel<TQ, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((seq_q + BQ - 1) / BQ, H, B);
-  fwd_kernel<TQ, TV, D><<<grid, NT, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TQ*>(k),
-      static_cast<const TV*>(v), mask, bias, static_cast<TV*>(o), inv_l, H,
-      KVH, seq_q, seq_k, causal, bias_batch_dim, c);
+  const dim3 grid((a.seq_q + BQ - 1) / BQ, a.H, a.B);
+  fwd_mma_kernel<TQ, D><<<grid, NT, smem, stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TQ*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), a.mask, a.bias,
+      static_cast<__nv_bfloat16*>(a.o), a.inv_l, a.H, a.KVH, a.seq_q,
+      a.seq_k, a.causal, a.bias_batch_dim, a.c);
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TV>
-cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
-                       const uint8_t* mask, const float* bias, void* o,
-                       float* inv_l, int B, int H, int KVH, int seq_q,
-                       int seq_k, int causal, int bias_batch_dim, float c,
-                       cudaStream_t s) {
+template <typename TQ, int D>
+cudaError_t launch_fma(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<TQ, D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_kernel<TQ, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.seq_q + BQ - 1) / BQ, a.H, a.B);
+  fwd_kernel<TQ, D><<<grid, NT, smem, stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TQ*>(a.k),
+      static_cast<const float*>(a.v), a.mask, a.bias,
+      static_cast<float*>(a.o), a.inv_l, a.H, a.KVH, a.seq_q, a.seq_k,
+      a.causal, a.bias_batch_dim, a.c);
+  return cudaGetLastError();
+}
+
+template <typename TQ, bool MMA, int D>
+cudaError_t launch(const Args& a, cudaStream_t s) {
+  if constexpr (MMA) return launch_mma<TQ, D>(a, s);
+  else return launch_fma<TQ, D>(a, s);
+}
+
+template <typename TQ, bool MMA>
+cudaError_t dispatch_d(int d, const Args& a, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<TQ, TV, 16>(q, k, v, mask, bias, o, inv_l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c, s);
-    case 32: return launch<TQ, TV, 32>(q, k, v, mask, bias, o, inv_l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c, s);
-    case 64: return launch<TQ, TV, 64>(q, k, v, mask, bias, o, inv_l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c, s);
-    case 96: return launch<TQ, TV, 96>(q, k, v, mask, bias, o, inv_l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c, s);
-    case 128: return launch<TQ, TV, 128>(q, k, v, mask, bias, o, inv_l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c, s);
+    case 16: return launch<TQ, MMA, 16>(a, s);
+    case 32: return launch<TQ, MMA, 32>(a, s);
+    case 64: return launch<TQ, MMA, 64>(a, s);
+    case 96: return launch<TQ, MMA, 96>(a, s);
+    case 128: return launch<TQ, MMA, 128>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -286,6 +540,7 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); 2 = int8 q/k
 // codes with float32 v and o; 3 = int8 q/k codes with bfloat16 v and o.
+// 1 and 3 run on the tensor cores, 0 and 2 on the FMA kernel.
 // All tensors contiguous: q/o (B, H, seq_q, d), k/v (B, KVH, seq_k, d),
 // mask (B, seq_k) uint8 or null, bias (B|H, seq_q, seq_k) f32 or null,
 // inv_l (B, H, seq_q) f32.  The logits are scale * s_dequant * q.k (int8
@@ -299,18 +554,19 @@ extern "C" int fcsa_fwd(const void* q, const void* k, const void* v,
                         void* stream) {
   if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || seq_q <= 0 || seq_k <= 0)
     return int(cudaErrorInvalidValue);
-  const float c = float(double(scale) * 1.4426950408889634);
-  const float c8 = float(double(scale) * 1.4426950408889634 * s_dequant);
-  const auto* m = static_cast<const uint8_t*>(mask);
-  const auto* bs = static_cast<const float*>(bias);
-  auto* l = static_cast<float*>(inv_l);
+  const bool q8 = dtype == 2 || dtype == 3;
+  const float c = float(double(scale) * 1.4426950408889634 *
+                        (q8 ? double(s_dequant) : 1.0));
+  const Args a{q, k, v, static_cast<const uint8_t*>(mask),
+               static_cast<const float*>(bias), o, static_cast<float*>(inv_l),
+               B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c};
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dtype) {
-    case 0: err = dispatch_d<float, float>(d, q, k, v, m, bs, o, l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c, s); break;
-    case 1: err = dispatch_d<__nv_bfloat16, __nv_bfloat16>(d, q, k, v, m, bs, o, l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c, s); break;
-    case 2: err = dispatch_d<int8_t, float>(d, q, k, v, m, bs, o, l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c8, s); break;
-    case 3: err = dispatch_d<int8_t, __nv_bfloat16>(d, q, k, v, m, bs, o, l, B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c8, s); break;
+    case 0: err = dispatch_d<float, false>(d, a, s); break;
+    case 1: err = dispatch_d<__nv_bfloat16, true>(d, a, s); break;
+    case 2: err = dispatch_d<int8_t, false>(d, a, s); break;
+    case 3: err = dispatch_d<int8_t, true>(d, a, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return int(err);

@@ -1,11 +1,11 @@
 """Constants shared by the kernels and their plain versions.
 
 The JAX package's block tables were tuned for the TPU v5e's 128x128
-matrix unit and large VMEM; they do not carry over.  The Hopper kernels
-use the fixed tiles below (see ``csrc/fwd_kernel.cu`` and
-``csrc/decode_common.cuh``, shared by both decode kernels, which hold the
-same numbers; the backward's 64 x 64 tiles live in ``csrc/bwd_kernel.cu``
-alone).
+matrix unit and large VMEM; they do not carry over.  The decode kernels'
+tiles below are read by their wrappers (``csrc/decode_common.cuh``,
+shared by both decode kernels, holds the same numbers); the forward's
+(64 query rows x 64 keys), the backward's and the int8-weight matmul's
+tiles live in their ``csrc/*.cu`` sources alone.
 """
 
 # head dims the reference supports (cu:84); the CUDA kernels are built for
@@ -13,11 +13,6 @@ alone).
 ALLOWED_DIM_HEADS = (16, 32, 64, 96, 128)
 
 EPS = 1e-10  # rowsum clamp, matches the reference kernel's eps (cu:83)
-
-# forward kernel: one 128-thread block per (batch, head, FWD_BLOCK_Q rows),
-# looping over FWD_BLOCK_K-key tiles
-FWD_BLOCK_Q = 64
-FWD_BLOCK_K = 64
 
 # the one-pass backward (K2) takes every bias-free input with seq_q up to
 # this; longer ones take the two-pass kernels, as in the JAX dispatch

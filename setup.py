@@ -18,7 +18,8 @@ setup(
     packages=find_packages(exclude=("tests",)),
     include_package_data=True,
     # the PyTorch port's CUDA sources, compiled with nvcc at first use
-    package_data={"flash_cosine_sim_attention_tpu_torch": ["csrc/*.cu"]},
+    package_data={"flash_cosine_sim_attention_tpu_torch": ["csrc/*.cu",
+                                                       "csrc/*.cuh"]},
     data_files=[("native", ["native/dataloader.cc"])],
     python_requires=">=3.10",
     install_requires=[

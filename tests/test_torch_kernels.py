@@ -69,6 +69,9 @@ FWD_CASES = {
     "all-keys-masked": (1, 2, 2, 64, 128, 64, False, "all", None),
     "bias-heads-d16": (1, 4, 4, 100, 100, 16, True, None, "h"),
     "bias-batch-d96": (2, 2, 1, 65, 65, 96, False, None, "b"),
+    "one-query-row-d128": (2, 4, 4, 1, 300, 128, True, None, None),
+    "gqa-16-2-d64": (1, 16, 2, 130, 130, 64, True, None, None),
+    "prefill-h16-s1024-d128": (1, 16, 16, 1024, 1024, 128, True, None, None),
 }
 
 
@@ -146,6 +149,39 @@ def test_forward_kernel_int8_arm_matches_plain(cuda_device, case, v_dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["bf16", "int8"])
+@pytest.mark.parametrize("d", [16, 128])
+def test_forward_kernel_large_logits(cuda_device, arm, d):
+    """Scale 10 and a bias up to 4: e reaches e^14, past the f16 limit,
+    which K1's bf16 P fragments hold; l sums the unrounded e."""
+    from flash_cosine_sim_attention_tpu_torch.ops.flash_attention import (
+        quantize_qk)
+
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    b, h, s = 2, 4, 200
+    q, k = l2norm_tensors(
+        *(torch.randn(b, h, s, d, device=cuda_device, generator=g)
+          for _ in range(2)))
+    k[:, :, :s // 2] = q[:, :, :s // 2]      # logits at the full scale
+    # |o| <= 2, where the bar is a few bf16 ulps: one key can carry a row
+    v = (0.4 * torch.randn(b, h, s, d, device=cuda_device,
+                           generator=g)).to(torch.bfloat16)
+    bias = 4 * torch.rand(h, s, s, device=cuda_device, generator=g)
+    kw = dict(bias_batch_dim=False, scale=10.0, causal=True)
+    if arm == "int8":
+        q, k, kw["s_dequant"] = quantize_qk(q, k, "int8")
+    else:
+        q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
+    o, inv_l = flash_attention_forward(q, k, v, None, bias, **kw)
+    o_p, inv_p = flash_attention_forward_plain(q, k, v, None, bias, **kw)
+    torch.cuda.synchronize()
+    assert inv_p.min().item() < 1 / 65504     # past the f16 limit
+    assert torch.isfinite(o.float()).all()
+    assert (o.float() - o_p.float()).abs().max().item() <= BARS[torch.bfloat16]
+    assert ((inv_l - inv_p) / inv_p).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("flag", ["qk_int8", "qk_fp8"])
 def test_quantized_qk_op_matches_plain(cuda_device, flag):
     """The public op's quantized-QK arms on the card (K1's int8 arm, or its
@@ -181,15 +217,16 @@ def test_quantized_qk_op_matches_plain(cuda_device, flag):
         assert _grad_err(x, y, torch.float32) <= GRAD_BARS[torch.float32], name
 
 
-# (in, out) of every dense layer of the 0.81B serving model, and one shape
-# ragged for K7's tiles (in not a multiple of 32, out not of 128)
+# (in, out) of every dense layer of the 0.81B serving model, one shape
+# ragged for K7's tiles (in not a multiple of 64, out not of 128), and two
+# whose bf16 x rows are not 16-byte multiples (element loads of x)
 QMM_SHAPES = [(2048, 6144), (2048, 2048), (2048, 8192), (8192, 2048),
-              (2048, 256), (200, 272)]
+              (2048, 256), (200, 272), (36, 144), (1001, 272)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d_in,d_out", QMM_SHAPES)
-@pytest.mark.parametrize("rows", [1, 8, 33, 1024])
+@pytest.mark.parametrize("rows", [1, 8, 15, 16, 17, 33, 129, 1024])
 def test_quant_matmul_kernel_matches_plain(cuda_device, rows, d_in, d_out):
     g = torch.Generator(device=cuda_device).manual_seed(8)
     w8, scale = quantize_dense_kernel(0.02 * torch.randn(
@@ -213,14 +250,14 @@ def test_quant_matmul_kernel_matches_plain(cuda_device, rows, d_in, d_out):
                                              (8, 2048, 256),
                                              (1024, 2048, 6144)])
 def test_quant_matmul_plan_fills_the_card(cuda_device, rows, d_in, d_out):
-    """K7's plan: decode-sized products with few 128-column output blocks
-    split their input until every SM has a block; the splits cover the
-    whole input, each split at least one tile."""
+    """K7's plan: up to 16 rows take the decode tiles (16 rows a block),
+    more the prefill tiles (128); products with few 128-column output
+    blocks split their input until every SM has a block; the splits cover
+    the whole input in 64-row tiles, each split at least one tile."""
     block_rows, splits, per_split = qmm_plan(cuda_device, rows, d_in, d_out)
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    assert block_rows == (8 if rows <= 16 else 64)
-    block_in = 128 if block_rows == 8 else 32
-    tiles = -(-d_in // block_in)
+    assert block_rows == (16 if rows <= 16 else 128)
+    tiles = -(-d_in // 64)
     assert (splits - 1) * per_split < tiles <= splits * per_split
     blocks = -(-d_out // 128) * -(-rows // block_rows)
     assert blocks * splits >= min(sms, blocks * tiles)
