@@ -23,10 +23,12 @@ Phases (any failure exits non-zero):
      microbatches of 4 x 1024 tokens through the port's train_step, on a
      synthetic byte corpus drawn from a numpy seed; the forward and
      one-pass backward kernels' launch counts are read around these
-     steps only, and a profiled step must show K1's tensor-core
-     instance.  Then the op's attn_bias gradient, the two-pass
-     kernels' path: a learnable (h, i, j) bias takes 3 Adam steps
-     through flash_cosine_sim_attention, counts read around them;
+     steps only, and a profiled step must show the tensor-core
+     instances of K1 and K2 and no bf16 FMA dK/dV kernel.  Then the op's
+     attn_bias gradient, the two-pass kernels' path: a learnable
+     (h, i, j) bias takes 3 Adam steps through flash_cosine_sim_attention,
+     counts read around them, and a profiled fourth step must show K3b's
+     tensor-core instance;
   9. training parity: one microbatch of an f32 depth-2 model, loss and
      every parameter's gradient, card (kernels) vs CPU (plain versions);
  10. the paged decode kernel (K5) and the decode kernel's e4m3 arm
@@ -60,7 +62,14 @@ Phases (any failure exits non-zero):
      ninth 1024-token prompt refills the last slot under the profiler,
      for its device time and to show K1's and K7's tensor-core instances
      (a profiled decode step must show K7's); card vs CPU at depth 2 in
-     f32.
+     f32;
+ 14. widths and groups: the op's forward and backward at d 48 (zero-padded
+     to the kernels' 64), f32 and bf16, against plain with K1's and K2's
+     launches read around them; K4 and K5 at 16 query heads on one kv
+     head and d 8 (int8 and e4m3, ragged, empty and finished slots)
+     against plain; the validation width with 16 heads of 32 on one kv
+     head served by both engines (3 prompts and 8 steps each; K1, K4 and
+     K5 launches read around it), then card vs CPU at depth 2 in f32.
 Then one JSON line lists every ported kernel with its launches on its
 path, error, times and bound (timing lines also print the achieved
 TFLOP/s); the script's own wall time, the nvcc build included; the
@@ -72,6 +81,7 @@ CUDA-event medians.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -126,6 +136,9 @@ K7_PER_PASS = 16 * 4 + 1     # K7 launches per prefill, continuation or step
 QUANT_BARS = (0.05, 0.08)    # int8 vs bf16 weights, rel L2 of logits:
                              # prefill, decode (JAX's, tests/test_quant.py)
 PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 (NVIDIA data sheet)
+# phase 14: the validation width with 16 query heads of 32 on one kv head
+WIDE_MODEL = dict(MODEL, heads=16, kv_heads=1, dim_head=32)
+WIDE_PROMPTS = (100, 300, 700)
 
 
 def fail(msg: str) -> None:
@@ -222,17 +235,31 @@ def tflops(flops: float, ms: float) -> float:
 
 def require_kernels(rows, names, path: str) -> None:
     """Fail unless every kernel name in ``names`` appears among the
-    profiler's ``rows``, and no f32 FMA instance of K1 or K7 does: the
-    bf16 paths must run the tensor-core instances."""
+    profiler's ``rows``, and no FMA instance of K1 or K7, and no bf16 FMA
+    instance of the dK/dV kernel (K2, K3b), does: the bf16 paths must run
+    the tensor-core instances."""
     keys = [key for key, _, _ in rows]
     missing = [n for n in names if not any(n in key for key in keys)]
     fma = [key[:60] for key in keys if "fwd_kernel<" in key
-           or "qmm_kernel<" in key]
+           or "qmm_kernel<" in key or "dkdv_kernel<__nv_bfloat16" in key]
     print(f"  {path}: tensor-core instances {', '.join(names)} launched: "
           f"{not missing}; f32 FMA instances launched: {fma or 'none'}")
     if missing or fma:
         fail(f"{path}: tensor-core kernels missing {missing}, FMA kernels "
              f"{fma}")
+
+
+def spilling(ptxas_log: str):
+    """The (mangled) kernel instances whose ptxas -v report shows register
+    spills, with the bytes stored."""
+    out, entry = [], ""
+    for ln in ptxas_log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and int(m.group(1)):
+            out.append(f"{entry} ({m.group(1)} B)")
+    return out
 
 
 def grad_err(x: torch.Tensor, y: torch.Tensor, dtype) -> float:
@@ -272,11 +299,11 @@ def random_flax_params(model, seed: int) -> dict:
     return walk(flax_param_shapes(model))
 
 
-def build_model(params, dtype, device):
+def build_model(params, dtype, device, cfg=MODEL):
     """The served model: parameters held in its compute dtype."""
     from flash_cosine_sim_attention_tpu_torch.models import (
         CosineSimCausalTransformer, params_from_flax)
-    model = CosineSimCausalTransformer(**MODEL, dtype=dtype, param_dtype=dtype,
+    model = CosineSimCausalTransformer(**cfg, dtype=dtype, param_dtype=dtype,
                                        device=device)
     return params_from_flax(params, model).eval()
 
@@ -484,17 +511,17 @@ def serve(card: str, params, device: str = "cuda"):
     return launches
 
 
-def path_parity(params, devices=("cuda", "cpu")):
-    """Phase 6: f32 model, kernels on the card vs plain versions on the
-    CPU; returns the max logit difference."""
+def path_parity(params, devices=("cuda", "cpu"), cfg=MODEL):
+    """Phase 6 (and 14): f32 model, kernels on the card vs plain versions
+    on the CPU; fails past PARITY_BAR."""
     from flash_cosine_sim_attention_tpu_torch.models import (
         decode_step, init_decode_state, prefill)
 
     tokens = np.random.default_rng(SEED + 3).integers(
-        0, MODEL["num_tokens"], (2, 208))
+        0, cfg["num_tokens"], (2, 208))
     logits = {}
     for device in devices:
-        model = build_model(params, torch.float32, device)
+        model = build_model(params, torch.float32, device, cfg)
         toks = torch.from_numpy(tokens).to(device)
         state = init_decode_state(model, 2, 256, device=device)
         out, state = prefill(model, state, toks[:, :200])
@@ -504,7 +531,9 @@ def path_parity(params, devices=("cuda", "cpu")):
             steps.append(out)
         logits[device] = torch.stack(steps).float().cpu()
     diff = (logits[devices[0]] - logits[devices[1]]).abs().max().item()
-    print(f"  f32 prefill(200) + 8 decode steps, card vs CPU: max |logit "
+    print(f"  f32 depth {cfg['depth']}, {cfg['heads']} heads of "
+          f"{cfg['dim_head']} on {cfg.get('kv_heads', cfg['heads'])} kv "
+          f"heads: prefill(200) + 8 decode steps, card vs CPU: max |logit "
           f"diff| {diff:.3e} (bar {PARITY_BAR:g})")
     if not diff <= PARITY_BAR:
         fail(f"path parity: {diff}")
@@ -639,14 +668,18 @@ def check_backward(card: str):
                           bound_by=by, library_ms=l_ms)
         print(f"  {name} b{b} h{h} s{s} d{d} causal bf16"
               f"{'' if name == 'K2' else ' + (h,i,j) bias'} on {card}: "
-              f"device time kernel {ms:.4f} ms, plain {p_ms:.4f} ms, SDPA "
-              f"backward {l_ms:.4f} ms, bound {bound_ms:.5f} ms ({by})"
+              f"device time kernel {ms:.4f} ms ({tflops(flops, ms):.1f} "
+              f"TFLOP/s), plain {p_ms:.4f} ms, SDPA backward {l_ms:.4f} ms "
+              f"({tflops(flops, l_ms):.1f} TFLOP/s), bound {bound_ms:.5f} ms "
+              f"({by})"
               + ("" if call_ms is None else
                  f"; wrapper call {call_ms:.4f} ms"
                  f"{'' if name == 'K2' else ' (K3a + K3b)'}"))
     print("  (plain: the whole plain backward; SDPA: dQ, dK, dV of "
           "scaled_dot_product_attention, with the bias as a float mask and "
-          "no dB for K3)")
+          "no dB for K3; TFLOP/s count the function's products, 2d FLOPs "
+          "per visible pair each: 5 for K2, 3 for K3a, 4 for K3b; the "
+          "tensor-core K2 and K3b run 8 and 6, e and dS as bf16 hi + lo)")
     return worst, rows
 
 
@@ -689,7 +722,7 @@ def train(card: str):
     rows = cuda_rows(lambda: train_step(model, opt, batches()), 1)
     busy_us = sum(t for _, t, _ in rows)
     parts = {n: sum(t for key, t, _ in rows if n in key)
-             for n in ("fwd_mma_kernel<", "dkdv_kernel<")}
+             for n in ("fwd_mma_kernel<", "dkdv_mma_kernel<")}
 
     med = statistics.median(step_ms)
     tokens = GRAD_ACCUM * BATCH_SIZE * seq
@@ -701,10 +734,11 @@ def train(card: str):
           f"(profiled) of {med:.2f} ms wall (unprofiled median): device "
           f"idle share {1 - busy_us / 1e3 / med:.3f}; K1 "
           f"{parts['fwd_mma_kernel<'] / 1e3:.2f} ms and K2 "
-          f"{parts['dkdv_kernel<'] / 1e3:.2f} ms of it")
+          f"{parts['dkdv_mma_kernel<'] / 1e3:.2f} ms of it")
     print(f"  launches over the {TRAIN_STEPS} steps: forward kernel "
           f"{launches[0]}, one-pass backward kernel {launches[1]}")
-    require_kernels(rows, ("fwd_mma_kernel<__nv_bfloat16, 64>",),
+    require_kernels(rows, ("fwd_mma_kernel<__nv_bfloat16, 64>",
+                           "dkdv_mma_kernel<__nv_bfloat16, 64, true>"),
                     "training step (bf16 compute)")
     if not all(np.isfinite(losses)):
         fail(f"training: a loss is not finite: {losses}")
@@ -728,9 +762,9 @@ def bias_grad_path(card: str):
     target = torch.randn(4, 8, 1024, 64, device="cuda", generator=g)
     bias = torch.zeros(8, 1024, 1024, device="cuda", requires_grad=True)
     opt = torch.optim.Adam([bias], lr=0.05)
-    bk.dq_kernel.launches = bk.dkdv_kernel.launches = 0
     losses = []
-    for _ in range(3):
+
+    def step():
         o = flash_cosine_sim_attention(q, k, v, attn_bias=bias, causal=True,
                                        scale=1.0, groups=8)
         loss = (o.float() - target).square().mean()
@@ -738,7 +772,15 @@ def bias_grad_path(card: str):
         loss.backward()
         opt.step()
         losses.append(loss.item())
+
+    bk.dq_kernel.launches = bk.dkdv_kernel.launches = 0
+    for _ in range(3):
+        step()
     launches = (bk.dq_kernel.launches, bk.dkdv_kernel.launches)
+    require_kernels(cuda_rows(step, 1),
+                    ("dkdv_mma_kernel<__nv_bfloat16, 64, false>",),
+                    "bias gradient step (bf16)")
+    del losses[3:]
     print(f"  learnable (h,i,j) bias, b4 h8 s1024 d64 causal bf16 on {card}: "
           f"losses {', '.join(f'{x:.6f}' for x in losses)}; launches dQ+dB "
           f"kernel {launches[0]}, dK/dV kernel {launches[1]}")
@@ -1530,6 +1572,142 @@ def prod_parity():
         fail(f"production path parity: {diff}")
 
 
+def widths_and_groups(card: str):
+    """Phase 14: head widths between the kernel widths and query-head groups
+    past 8.  The op's forward and backward at d 48 (the wrappers pad to 64)
+    against plain; K4 and K5 at g 16, d 8 against plain; the heads-16,
+    kv_heads=1 model served by both engines (K1, K4 and K5 launches read
+    around it), then card vs CPU in f32 at depth 2.  Returns those counts."""
+    from flash_cosine_sim_attention_tpu_torch.models import (
+        CosineSimCausalTransformer)
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        bwd_kernel as bk, flash_attention_backward_plain,
+        flash_attention_forward_plain, flash_cosine_sim_attention,
+        l2norm_tensors)
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward)
+    from flash_cosine_sim_attention_tpu_torch.quant import (
+        append, append_paged, decode_attention_plain, init_cache,
+        init_paged_cache, paged_decode_attention, paged_decode_plain,
+        quantized_decode_attention)
+    from flash_cosine_sim_attention_tpu_torch.serving import (
+        InferenceEngine, PagedInferenceEngine)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 15)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+
+    b, h, s, d = 2, 8, 512, 48
+    kw = dict(bias_batch_dim=False, scale=8.0, causal=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k = (t.to(dtype) for t in l2norm_tensors(randn(b, h, s, d),
+                                                     randn(b, h, s, d)))
+        v, do = randn(b, h, s, d).to(dtype), randn(b, h, s, d).to(dtype)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        n1, n2 = flash_attention_forward.launches, bk.fused_bwd_kernel.launches
+        o = flash_cosine_sim_attention(*leaves, causal=True, l2norm_qk=False)
+        got = torch.autograd.grad(o, leaves, do)
+        moved = (flash_attention_forward.launches - n1,
+                 bk.fused_bwd_kernel.launches - n2)
+        o_p, _ = flash_attention_forward_plain(q, k, v, None, None, **kw)
+        # the backward against the plain one on the kernel forward's o and
+        # inv_l: K1's bf16 P moves delta' past the backward's own bar
+        o_k, inv_k = flash_attention_forward(q, k, v, None, None, **kw)
+        want = flash_attention_backward_plain(do, o_k, inv_k, q, k, v, None,
+                                              None, **kw)
+        torch.cuda.synchronize()
+        bar = F32_ERR_BAR if dtype == torch.float32 else BF16_ERR_BAR
+        err = (o.float() - o_p.float()).abs().max().item()
+        errs = [grad_err(x, y, dtype) for x, y in zip(got, want)]
+        finite = all(torch.isfinite(t.float()).all().item() for t in got)
+        print(f"  op at d{d} (kernels at 64), b{b} h{h} s{s} causal "
+              f"{str(dtype)[6:]}: max|o-plain| {err:.3e} (bar {bar:g}); dq, "
+              f"dk, dv err {', '.join(f'{e:.2e}' for e in errs)} (bar "
+              f"{GRAD_BARS[dtype]:g}); launches K1 +{moved[0]}, K2 "
+              f"+{moved[1]}")
+        if not (moved == (1, 1) and finite and err <= bar
+                and max(errs) <= GRAD_BARS[dtype]):
+            fail(f"op at d{d} {dtype}: o err {err}, grads {errs}, launches "
+                 f"{moved}, finite {finite}")
+
+    # K4 and K5: 16 query heads on one kv head at d 8 (two chunks of 8
+    # heads, 8-byte rows read in place), ragged, empty and finished slots
+    ps, mp, kvh, gq, d = 128, 8, 1, 16, 8
+    bq = len(PAGED_LENGTHS) + 1           # the last slot has finished
+    lengths = torch.tensor(PAGED_LENGTHS + (700,), dtype=torch.int32,
+                           device="cuda")
+    k = l2norm_tensors(randn(bq, kvh, mp * ps, d))
+    v = 3 * randn(bq, kvh, mp * ps, d)
+    q = l2norm_tensors(randn(bq, kvh * gq, d))
+    qg = q.view(bq, kvh, gq, d)
+    for kv_dtype in (torch.int8, torch.float8_e4m3fn):
+        kv = "int8" if kv_dtype == torch.int8 else "e4m3"
+        cont = append(init_cache(bq, kvh, mp * ps, d, "cuda",
+                                 kv_dtype=kv_dtype), k, v)._replace(
+                                     length=lengths)
+        table = _shuffled_table(bq, mp, bq * mp + 3, SEED + 16)
+        paged = append_paged(init_paged_cache(
+            bq * mp + 3, kvh, ps, d, bq, mp, kv_dtype=kv_dtype,
+            device="cuda")._replace(page_table=table), k, v)
+        dead = table.clone()
+        dead[-1] = 0                      # finished: null page, stale length
+        paged = paged._replace(page_table=dead, length=lengths)
+        n4, n5 = (quantized_decode_attention.launches,
+                  paged_decode_attention.launches)
+        o4 = quantized_decode_attention(q, cont, scale=8.0, l2norm_qk=False)
+        o5 = paged_decode_attention(q, paged, scale=8.0, l2norm_qk=False)
+        moved = (quantized_decode_attention.launches - n4,
+                 paged_decode_attention.launches - n5)
+        p4 = decode_attention_plain(qg, cont, 8.0).view(o4.shape)
+        p5 = paged_decode_plain(qg, paged, 8.0).view(o5.shape)
+        torch.cuda.synchronize()
+        e4 = (o4 - p4).abs().max().item()
+        e5 = (o5 - p5).abs().max().item()
+        print(f"  {kv} g{gq} d{d}, lengths {lengths.tolist()}: K4 vs plain "
+              f"{e4:.3e}, K5 vs plain {e5:.3e} (bar {F32_ERR_BAR:g}); "
+              f"launches K4 +{moved[0]}, K5 +{moved[1]}")
+        if not (moved == (1, 1) and max(e4, e5) <= F32_ERR_BAR
+                and o4[0].abs().max().item() == 0
+                and o5[0].abs().max().item() == 0):
+            fail(f"decode g{gq} d{d} {kv}: K4 {e4}, K5 {e5}, launches "
+                 f"{moved}, empty slot not 0")
+
+    # the validation width with 16 query heads on one kv head: d 32, g 16
+    wide = random_flax_params(
+        CosineSimCausalTransformer(**WIDE_MODEL, device="meta"), SEED + 17)
+    model = build_model(wide, torch.bfloat16, "cuda", WIDE_MODEL)
+    rng = np.random.default_rng(SEED + 18)
+    vocab = WIDE_MODEL["num_tokens"]
+    flash_attention_forward.launches = 0
+    quantized_decode_attention.launches = 0
+    paged_decode_attention.launches = 0
+    seen = []
+    for engine in (InferenceEngine(model, **ENGINE, seed=SEED, device="cuda"),
+                   PagedInferenceEngine(model, **PAGED_ENGINE, seed=SEED,
+                                        device="cuda")):
+        for n in WIDE_PROMPTS:
+            slot = engine.add_request(rng.integers(0, vocab, n))
+            seen.append(int(engine.last_token[slot]))
+        for _ in range(8):
+            seen.extend(engine.step().values())
+    launches = dict(k1=flash_attention_forward.launches,
+                    k4=quantized_decode_attention.launches,
+                    k5=paged_decode_attention.launches)
+    print(f"  heads {WIDE_MODEL['heads']} of {WIDE_MODEL['dim_head']} on "
+          f"{WIDE_MODEL['kv_heads']} kv head, bf16: both engines took prompts "
+          f"{WIDE_PROMPTS} and 8 steps each; launches forward kernel "
+          f"{launches['k1']}, decode kernel {launches['k4']}, paged decode "
+          f"kernel {launches['k5']}; {len(seen)} tokens")
+    if min(launches.values()) <= 0 or not all(0 <= t < vocab for t in seen):
+        fail(f"widths and groups serving: launches {launches}, tokens in "
+             f"range {all(0 <= t < vocab for t in seen)}")
+    cfg = dict(WIDE_MODEL, depth=2)
+    path_parity(random_flax_params(
+        CosineSimCausalTransformer(**cfg, device="meta"), SEED + 19), cfg=cfg)
+    return launches
+
+
 def main() -> None:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1552,6 +1730,8 @@ def main() -> None:
         regs = [ln.split("ptxas info    : ")[-1] for ln in log.splitlines()
                 if "registers" in ln]
         print(f"  {name}: {'; '.join(sorted(set(regs)))}")
+        print(f"  {name} instances that spill: "
+              f"{', '.join(spilling(log)) or 'none'}")
 
     print("[3] forward kernel vs plain")
     fwd_err, fwd_row = check_forward(smi)
@@ -1582,6 +1762,8 @@ def main() -> None:
     print("[13] int8-weight serving at the 0.81B production width")
     prod_launches = serve_prod(smi)
     prod_parity()
+    print("[14] widths and groups")
+    widths_and_groups(smi)
 
     bwd = "flash_cosine_sim_attention_tpu/ops/bwd_kernel.py"
     src = "flash_cosine_sim_attention_tpu_torch/csrc/bwd_kernel.cu"

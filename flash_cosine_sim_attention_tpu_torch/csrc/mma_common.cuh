@@ -1,7 +1,8 @@
 // Tensor-core and asynchronous-copy helpers shared by the forward kernel
-// (fwd_kernel.cu) and the int8-weight matmul (quant_matmul_kernel.cu):
-// 16-byte `cp.async` with zero-fill, `ldmatrix`, and the `mma.sync`
-// products they run (bf16 m16n8k16 and s8 m16n8k32, f32 / s32 sums).
+// (fwd_kernel.cu), the backward's dK/dV kernel (bwd_kernel.cu) and the
+// int8-weight matmul (quant_matmul_kernel.cu): 16- and 4-byte `cp.async`
+// with zero-fill, `ldmatrix`, and the `mma.sync` products they run (bf16
+// m16n8k16 and s8 m16n8k32, f32 / s32 sums).
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 / m16n8k32): with g = lane / 4
 // and q = lane % 4, a thread's C fragment holds rows g and g + 8, columns
@@ -28,6 +29,14 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+// 4 bytes (through L1, for rows that are not 16-byte aligned); with
+// src_bytes 0 nothing is read and the 4 bytes are written as zeros
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(src_bytes));
 }

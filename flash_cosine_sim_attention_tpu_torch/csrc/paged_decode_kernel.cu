@@ -25,9 +25,10 @@
 // int8, the f32 V scales) of every live token once: 8 slots x 8 kv heads x
 // 1024 tokens x (2 x 64 + 4) B = 8.65 MB at d 64 in int8, ~2.6 us at
 // 3.35 TB/s; the work is ~2 FLOP per byte.  Design: one 128-thread block
-// per (slot, kv head) reads its slot's length and table row from device
-// memory (no host sync) and walks the live pages 128 tokens at a time.  A
-// page of one kv head is d rows of page_size contiguous bytes, so a tile's
+// per (slot, kv head, chunk of 8 query heads) reads its slot's length and
+// table row from device memory (no host sync) and walks the live pages 128
+// tokens at a time.  A page of one kv head is d rows of page_size
+// contiguous bytes (any d a multiple of 8: the tile is d rows), so a tile's
 // K and V (d x 128 bytes each) are staged in shared memory with 16-byte
 // loads, every load of the tile in flight before any is used; thread t then
 // scores token t down its column of the K tile, and the block accumulates
@@ -47,18 +48,19 @@ using namespace decode_common;
 
 constexpr int ROW = NT + 4; // bytes per staged row: one word of padding
 
-// T: int8_t (per-token V scales) or __nv_fp8_e4m3 (no scales)
+// T: int8_t (per-token V scales) or __nv_fp8_e4m3 (no scales).  Grid
+// (query-head chunks, KVH, B): a chunk's blocks sit side by side.
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) paged_decode_kernel(
     const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ k8,
     const uint8_t* __restrict__ v8, const float* __restrict__ v_scale,
     const int* __restrict__ page_table, const int* __restrict__ length,
-    float* __restrict__ out, int KVH, int G, int num_pages, int ps, int mp,
-    float logit_scale, float scale) {
+    float* __restrict__ out, int KVH, int G, int d, int num_pages, int ps,
+    int mp, float logit_scale, float scale) {
   constexpr bool kScaled = std::is_same<T, int8_t>::value;
   constexpr int NPARTS = NT / D > 0 ? NT / D : 1;  // token lanes in P.V
-  constexpr int CHUNKS = D * (NT / 16);            // 16-byte pieces of a tile
-  constexpr int PER_THREAD = (CHUNKS + NT - 1) / NT;
+  constexpr int PER_THREAD = (D * (NT / 16) + NT - 1) / NT;
+  const int chunks = d * (NT / 16);                // 16-byte pieces of a tile
   __shared__ __align__(16) uint8_t ks[D][ROW];     // the tile's K, d-major
   __shared__ __align__(16) uint8_t vs[D][ROW];     // the tile's V, d-major
   __shared__ float qs[GMAX][D];
@@ -67,15 +69,16 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   __shared__ float red[NPARTS][GMAX][D];
   __shared__ float lred[GMAX][NT / 32];
 
-  const int kvhi = blockIdx.x, bi = blockIdx.y;
+  const int g0 = blockIdx.x * GMAX, kvhi = blockIdx.y, bi = blockIdx.z;
+  const int gn = min(GMAX, G - g0);
   const size_t bh = size_t(bi) * KVH + kvhi;
   const int tid = threadIdx.x;
   const int len = min(max(length[bi], 0), mp * ps);
   const int* row = page_table + size_t(bi) * mp;
-  load_queries<D>(q, bh, G, qs);
+  load_queries<D>(q, bh, G, g0, gn, d, qs);
 
   const int dcol = tid % D, part = tid / D;
-  const bool pv_lane = tid < NPARTS * D;
+  const bool pv_lane = tid < NPARTS * D && dcol < d;
   float acc[GMAX], lpart[GMAX];
 #pragma unroll
   for (int gi = 0; gi < GMAX; ++gi) acc[gi] = lpart[gi] = 0.f;
@@ -84,7 +87,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   for (int t0 = 0; t0 < len; t0 += NT) {
     int pid = row[t0 / ps];
     if (pid < 0 || pid >= num_pages) pid = 0;
-    const size_t page = (size_t(pid) * KVH + kvhi) * D;  // row 0 of (pid, h)
+    const size_t page = (size_t(pid) * KVH + kvhi) * d;  // row 0 of (pid, h)
     const int off = t0 % ps;
 
     // stage the tile: all 16-byte loads first, then the stores
@@ -92,7 +95,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
 #pragma unroll
     for (int i = 0; i < PER_THREAD; ++i) {
       const int c = tid + i * NT;
-      if (c < CHUNKS) {
+      if (c < chunks) {
         const size_t at = (page + c / (NT / 16)) * ps + off + (c % (NT / 16)) * 16;
         kr[i] = *reinterpret_cast<const uint4*>(k8 + at);
         vr[i] = *reinterpret_cast<const uint4*>(v8 + at);
@@ -102,7 +105,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
 #pragma unroll
     for (int i = 0; i < PER_THREAD; ++i) {
       const int c = tid + i * NT;
-      if (c < CHUNKS) {
+      if (c < chunks) {
         const int r = c / (NT / 16), col = (c % (NT / 16)) * 16;
         uint32_t* kd = reinterpret_cast<uint32_t*>(&ks[r][col]);
         uint32_t* vd = reinterpret_cast<uint32_t*>(&vs[r][col]);
@@ -112,23 +115,23 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     }
     __syncthreads();
 
-    // score: thread tid owns token t0 + tid, reading its K column
+    // score: thread tid owns token t0 + tid, reading its K column's d rows
     const int live = min(NT, len - t0);
     if (tid < live) {
       float s[GMAX];
 #pragma unroll
       for (int gi = 0; gi < GMAX; ++gi) s[gi] = 0.f;
-#pragma unroll 16
-      for (int dd = 0; dd < D; ++dd) {
+#pragma unroll 8
+      for (int dd = 0; dd < d; ++dd) {
         const float kf = code_value<T>(ks[dd][tid]);
 #pragma unroll
         for (int gi = 0; gi < GMAX; ++gi)
-          if (gi < G) s[gi] = fmaf(qs[gi][dd], kf, s[gi]);
+          if (gi < gn) s[gi] = fmaf(qs[gi][dd], kf, s[gi]);
       }
 #pragma unroll
       for (int gi = 0; gi < GMAX; ++gi) {
-        if (gi < G) {
-          const float e = expf(s[gi] * logit_scale - scale);
+        if (gi < gn) {
+          const float e = token_weight(s[gi], logit_scale, scale);
           lpart[gi] += e;
           es[gi][tid] = bf16_round(kScaled ? e * vsc[tid] : e);
         }
@@ -152,7 +155,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
             const float vv = code_value<T>(uint8_t(word >> (8 * j)));
 #pragma unroll
             for (int gi = 0; gi < GMAX; ++gi)
-              if (gi < G) acc[gi] = fmaf(es[gi][4 * w + j], vv, acc[gi]);
+              if (gi < gn) acc[gi] = fmaf(es[gi][4 * w + j], vv, acc[gi]);
           }
         }
       }
@@ -160,13 +163,15 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     __syncthreads();
   }
 
-  store_rows<D, NPARTS>(acc, lpart, pv_lane, part, dcol, G, red, lred, out, bh);
+  store_rows<D, NPARTS>(acc, lpart, pv_lane, part, dcol, gn, d, red, lred,
+                        out + (bh * G + g0) * d);
 }
 
 }  // namespace
 
 // Contiguous tensors on one device: q (B, KVH, G, d) bf16, already
-// l2-normalized; k8/v8 (num_pages, KVH, d, ps) int8 (fp8 = 0) or e4m3
+// l2-normalized, any group G, d a multiple of 8 up to 128; k8/v8
+// (num_pages, KVH, d, ps) int8 (fp8 = 0) or e4m3
 // (fp8 = 1), 16-byte aligned; v_scale (num_pages, KVH, 1, ps) f32, read for
 // int8 only; page_table (B, mp) int32; length (B,) int32; out (B, KVH, G, d)
 // f32.  ps is a multiple of 128.  logit_scale is scale * kdq (1/127 for
@@ -177,19 +182,20 @@ extern "C" int fcsa_paged_decode(const void* q, const void* k8, const void* v8,
                                  int G, int d, int num_pages, int ps, int mp,
                                  int fp8, float logit_scale, float scale,
                                  void* stream) {
-  if (B <= 0 || KVH <= 0 || G <= 0 || G > GMAX || num_pages <= 0 || mp <= 0 ||
+  if (B <= 0 || KVH <= 0 || G <= 0 || num_pages <= 0 || mp <= 0 ||
       ps <= 0 || ps % NT)
     return int(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((G + GMAX - 1) / GMAX, KVH, B);
   return int(dispatch(fp8, d, [&](auto code, auto dim) {
     paged_decode_kernel<decltype(code), decltype(dim)::value>
-        <<<dim3(KVH, B), NT, 0, s>>>(
+        <<<grid, NT, 0, s>>>(
             static_cast<const __nv_bfloat16*>(q),
             static_cast<const uint8_t*>(k8), static_cast<const uint8_t*>(v8),
             static_cast<const float*>(v_scale),
             static_cast<const int*>(page_table),
             static_cast<const int*>(length), static_cast<float*>(out), KVH, G,
-            num_pages, ps, mp, logit_scale, scale);
+            d, num_pages, ps, mp, logit_scale, scale);
     return cudaGetLastError();
   }));
 }

@@ -9,8 +9,22 @@ tiles live in their ``csrc/*.cu`` sources alone.
 """
 
 # head dims the reference supports (cu:84); the CUDA kernels are built for
-# exactly these, the plain versions take any width
+# exactly these widths, the plain versions take any width
 ALLOWED_DIM_HEADS = (16, 32, 64, 96, 128)
+
+
+def kernel_head_dim(d: int, kernel: str) -> int:
+    """The width of the CUDA kernel instance that runs head dim ``d``: the
+    next of ALLOWED_DIM_HEADS at or above it.  Any multiple of 8 up to 128
+    runs there exactly (the forward and backward wrappers pad zero lanes,
+    which add 0 to every dot product and give 0 gradients; the decode
+    kernels read d-byte rows in place).  Raises for any other d."""
+    if 0 < d <= ALLOWED_DIM_HEADS[-1] and d % 8 == 0:
+        return next(w for w in ALLOWED_DIM_HEADS if w >= d)
+    raise ValueError(
+        f"the CUDA {kernel} kernel takes head dims that are multiples of 8 "
+        f"up to {ALLOWED_DIM_HEADS[-1]} (built for {ALLOWED_DIM_HEADS}, a "
+        f"narrower one runs at the next of these), got {d}")
 
 EPS = 1e-10  # rowsum clamp, matches the reference kernel's eps (cu:83)
 
@@ -22,15 +36,15 @@ EPS = 1e-10  # rowsum clamp, matches the reference kernel's eps (cu:83)
 # only keeps the two dispatches alike.
 ONEPASS_BWD_MAX_SEQ = 8192
 
-# decode kernel: one 128-thread block per (batch, kv head) streams the
-# slot's live tokens DECODE_TILE at a time; at most DECODE_MAX_GROUP query
-# heads share a kv head
+# decode kernel: one 128-thread block per (batch, kv head, 8 query heads of
+# its group; csrc/decode_common.cuh GMAX) streams the slot's live tokens
+# DECODE_TILE at a time; a larger group (GQA past 8, MQA) takes one block
+# per 8 of its heads
 DECODE_TILE = 128
-DECODE_MAX_GROUP = 8
 
 # paged decode kernel: one 128-thread block per (slot, kv head) walks the
 # slot's pages PAGED_TILE tokens at a time, so a page holds whole tiles:
 # page_size must be a multiple of PAGED_TILE (the JAX pool's 128-lane rule,
-# kept so that the same configurations are valid in both packages).  At
-# most DECODE_MAX_GROUP query heads share a kv head, as in the decode kernel
+# kept so that the same configurations are valid in both packages).  A
+# block serves 8 query heads, as in the decode kernel
 PAGED_TILE = 128

@@ -16,6 +16,8 @@ routes compute the same gradients.
 As in JAX, the host side around the kernels stays plain tensor code:
 delta = rowsum(dO * O) in f32, then dO and delta pre-scaled by inv_l (dO
 rounded back to its dtype), so the kernels never form P = e * inv_l.
+A head dim below 128 that is not a kernel width runs zero-padded to the
+next one (``kernel_head_dim``) and its gradients are sliced back.
 ``_backward_onepass`` and ``_backward_twopass`` pin one route each on
 CUDA tensors, as ``blocks_f`` / ``blocks_t`` pin them in the JAX tests.
 """
@@ -28,9 +30,9 @@ from typing import Optional
 import torch
 
 from .._build import check_launch, current_stream, load_kernel
-from .blocks import ALLOWED_DIM_HEADS, ONEPASS_BWD_MAX_SEQ
+from .blocks import ONEPASS_BWD_MAX_SEQ, kernel_head_dim
 from .fwd_kernel import _DTYPE_CODES, _check_shapes
-from .reference import causal_keep
+from .reference import causal_keep, pad_head_dim
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
@@ -82,17 +84,15 @@ def flash_attention_backward_plain(do, o, inv_l, q, k, v, mask, bias, *,
 
 
 def _cuda_inputs(do, o, inv_l, q, k, v, mask, bias, bias_batch_dim):
-    """Check what the kernels take; return their contiguous inputs."""
+    """Check what the kernels take; return their contiguous inputs, q, k,
+    v and dO' zero-padded to the kernel's head width."""
     _check_shapes(q, k, v, mask, bias, bias_batch_dim)
     if q.dtype not in _DTYPE_CODES or any(
             t.dtype != q.dtype for t in (k, v, do)):
         raise TypeError(
             f"the CUDA backward takes float32 or bfloat16 q/k/v/dO of one "
             f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}, {do.dtype}")
-    if q.shape[-1] not in ALLOWED_DIM_HEADS:
-        raise ValueError(
-            f"the CUDA backward is built for head dims {ALLOWED_DIM_HEADS}, "
-            f"got {q.shape[-1]}")
+    width = kernel_head_dim(q.shape[-1], "backward")
     if do.shape != q.shape or tuple(inv_l.shape) != (*q.shape[:3], 1):
         raise ValueError(f"dO {tuple(do.shape)} / inv_l {tuple(inv_l.shape)}"
                          f" do not fit q {tuple(q.shape)}")
@@ -101,9 +101,10 @@ def _cuda_inputs(do, o, inv_l, q, k, v, mask, bias, bias_batch_dim):
     if any(t.device != q.device for t in tensors):
         raise ValueError("all inputs must lie on the same CUDA device")
     do_s, delta_s = _prescale(do, o, inv_l)
+    q, k, v, do_s = (pad_head_dim(t, width).contiguous()
+                     for t in (q, k, v, do_s))
     return dict(
-        q=q.contiguous(), k=k.contiguous(), v=v.contiguous(),
-        do=do_s.contiguous(), delta=delta_s[..., 0].contiguous(),
+        q=q, k=k, v=v, do=do_s, delta=delta_s[..., 0].contiguous(),
         mask=None if mask is None else mask.to(torch.uint8).contiguous(),
         bias=None if bias is None else bias.float().contiguous())
 
@@ -120,7 +121,8 @@ def _ptr(t) -> Optional[int]:
 
 def fused_bwd_kernel(x, *, scale, causal):
     """Launch K2 on ``_cuda_inputs``; returns (unscaled f32 sum of dS.k,
-    dk, dv).  Counted in ``fused_bwd_kernel.launches``."""
+    dk, dv) at the kernel's head width.  Counted in
+    ``fused_bwd_kernel.launches``."""
     dq_acc = torch.zeros(x["q"].shape, device=x["q"].device,
                          dtype=torch.float32)
     dk, dv = torch.empty_like(x["k"]), torch.empty_like(x["v"])
@@ -136,8 +138,8 @@ def fused_bwd_kernel(x, *, scale, causal):
 
 
 def dq_kernel(x, *, bias_batch_dim, scale, causal):
-    """Launch K3a on ``_cuda_inputs``; returns (dq, f32 dB or None).
-    Counted in ``dq_kernel.launches``."""
+    """Launch K3a on ``_cuda_inputs``; returns (dq at the kernel's head
+    width, f32 dB or None).  Counted in ``dq_kernel.launches``."""
     dq = torch.empty_like(x["q"])
     db = None if x["bias"] is None else torch.zeros_like(x["bias"])
     fn = load_kernel("bwd_kernel").fcsa_bwd_dq
@@ -153,8 +155,8 @@ def dq_kernel(x, *, bias_batch_dim, scale, causal):
 
 
 def dkdv_kernel(x, *, bias_batch_dim, scale, causal):
-    """Launch K3b on ``_cuda_inputs``; returns (dk, dv).  Counted in
-    ``dkdv_kernel.launches``."""
+    """Launch K3b on ``_cuda_inputs``; returns (dk, dv) at the kernel's
+    head width.  Counted in ``dkdv_kernel.launches``."""
     dk, dv = torch.empty_like(x["k"]), torch.empty_like(x["v"])
     fn = load_kernel("bwd_kernel").fcsa_bwd_dkdv
     fn.restype = _INT
@@ -177,7 +179,8 @@ def _backward_onepass(do, o, inv_l, q, k, v, mask, *, scale, causal):
     """The one-pass route on CUDA tensors (K2); returns (dq, dk, dv)."""
     x = _cuda_inputs(do, o, inv_l, q, k, v, mask, None, False)
     dq_acc, dk, dv = fused_bwd_kernel(x, scale=scale, causal=causal)
-    return (dq_acc * scale).to(q.dtype), dk, dv
+    d = q.shape[-1]
+    return (dq_acc[..., :d] * scale).to(q.dtype), dk[..., :d], dv[..., :d]
 
 
 def _backward_twopass(do, o, inv_l, q, k, v, mask, bias, *, bias_batch_dim,
@@ -188,7 +191,9 @@ def _backward_twopass(do, o, inv_l, q, k, v, mask, bias, *, bias_batch_dim,
     kw = dict(bias_batch_dim=bias_batch_dim, scale=scale, causal=causal)
     dq, db = dq_kernel(x, **kw)
     dk, dv = dkdv_kernel(x, **kw)
-    return dq, dk, dv, None if db is None else db.to(bias.dtype)
+    d = q.shape[-1]
+    return (dq[..., :d], dk[..., :d], dv[..., :d],
+            None if db is None else db.to(bias.dtype))
 
 
 def flash_attention_backward(

@@ -22,8 +22,8 @@ from typing import Optional
 import torch
 
 from .._build import check_launch, current_stream, load_kernel
-from .blocks import ALLOWED_DIM_HEADS, EPS
-from .reference import causal_keep
+from .blocks import EPS, kernel_head_dim
+from .reference import causal_keep, pad_head_dim
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (q/k dtype, v/o dtype) -> the forward kernel's dtype code
@@ -86,14 +86,11 @@ def _forward_cuda(q, k, v, mask, bias, *, bias_batch_dim, scale, causal,
             f"{k.dtype}, {v.dtype}")
     b, h, seq_q, d = q.shape
     kvh, seq_k = k.shape[1], k.shape[2]
-    if d not in ALLOWED_DIM_HEADS:
-        raise ValueError(
-            f"the CUDA forward is built for head dims {ALLOWED_DIM_HEADS}, "
-            f"got {d}")
+    width = kernel_head_dim(d, "forward")
     tensors = [q, k, v] + [t for t in (mask, bias) if t is not None]
     if any(t.device != q.device for t in tensors):
         raise ValueError("all inputs must lie on the same CUDA device")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (pad_head_dim(t, width).contiguous() for t in (q, k, v))
     mask_u8 = mask.to(torch.uint8).contiguous() if mask is not None else None
     bias_f = bias.float().contiguous() if bias is not None else None
     o = torch.empty(q.shape, device=q.device, dtype=v.dtype)
@@ -107,12 +104,12 @@ def _forward_cuda(q, k, v, mask, bias, *, bias_batch_dim, scale, causal,
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     code = lib.fcsa_fwd(
         ptr(q), ptr(k), ptr(v), ptr(mask_u8), ptr(bias_f), ptr(o),
-        ptr(inv_l), dtype_code, b, h, kvh, seq_q, seq_k, d, int(causal),
+        ptr(inv_l), dtype_code, b, h, kvh, seq_q, seq_k, width, int(causal),
         int(bias_batch_dim), float(scale), float(s_dequant),
         current_stream())
     check_launch(code, "fcsa_fwd")
     flash_attention_forward.launches += 1
-    return o, inv_l
+    return (o if width == d else o[..., :d].contiguous()), inv_l
 
 
 def flash_attention_forward(
@@ -132,8 +129,9 @@ def flash_attention_forward(
     q and k are l2-normalized float32 / bfloat16 values of v's dtype, or
     int8 codes whose product ``s_dequant`` dequantizes (1/127^2 for the
     op's ``qk_int8``).  CUDA tensors launch the Hopper kernel (counted in
-    ``flash_attention_forward.launches``); CPU tensors take the plain
-    version.  Any other device raises.
+    ``flash_attention_forward.launches``), a head dim below 128 that is not
+    one of its widths zero-padded to the next (``kernel_head_dim``); CPU
+    tensors take the plain version.  Any other device raises.
     """
     kw = dict(bias_batch_dim=bias_batch_dim, scale=scale, causal=causal,
               s_dequant=s_dequant)

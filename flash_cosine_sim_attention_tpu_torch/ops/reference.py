@@ -72,6 +72,15 @@ def canonicalize_qkv(q, k, v, attn_bias_batch_dim):
     return q, k, v, merged_batch_heads, single_head_kv, attn_bias_batch_dim
 
 
+def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` with its last (head) dim zero-padded to ``width``; ``t`` itself
+    at that width.  Zero lanes add 0 to q.k and give zero o, dq, dk and dv
+    lanes, so a kernel built for ``width`` computes a narrower head dim
+    exactly once its outputs are sliced back."""
+    d = t.shape[-1]
+    return t if d == width else torch.nn.functional.pad(t, (0, width - d))
+
+
 def causal_keep(seq_q: int, seq_k: int, device) -> torch.Tensor:
     """(i, j) bool: query row r sees key cols <= r + (j - i), the
     cross-attention causal alignment (ref .py:114)."""

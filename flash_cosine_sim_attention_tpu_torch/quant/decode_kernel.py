@@ -19,7 +19,7 @@ import ctypes
 import torch
 
 from .._build import check_launch, current_stream, load_kernel
-from ..ops.blocks import ALLOWED_DIM_HEADS, DECODE_MAX_GROUP, EPS
+from ..ops.blocks import EPS, kernel_head_dim
 from ..ops.reference import l2norm_tensors
 from .kv_cache import KV_DTYPES, QuantKVCache, dequantize_k, dequantize_v
 
@@ -49,18 +49,10 @@ def decode_attention_plain(qg: torch.Tensor, cache: QuantKVCache,
 
 def check_decode_args(qg: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
                       kernel: str) -> None:
-    """What both CUDA decode kernels (contiguous and paged) are built for:
-    qg (b, kvh, g, d) with d in ALLOWED_DIM_HEADS and g <= DECODE_MAX_GROUP,
-    K and V codes both int8 or both e4m3."""
-    _, _, g, d = qg.shape
-    if d not in ALLOWED_DIM_HEADS:
-        raise ValueError(
-            f"the CUDA {kernel} kernel is built for head dims "
-            f"{ALLOWED_DIM_HEADS}, got {d}")
-    if g > DECODE_MAX_GROUP:
-        raise ValueError(
-            f"the CUDA {kernel} kernel takes at most {DECODE_MAX_GROUP} query "
-            f"heads per kv head, got {g}")
+    """What both CUDA decode kernels (contiguous and paged) take: qg
+    (b, kvh, g, d) with any group g and d a multiple of 8 up to 128 (read
+    in place as d-byte code rows), K and V codes both int8 or both e4m3."""
+    kernel_head_dim(qg.shape[-1], kernel)
     if k8.dtype not in KV_DTYPES or v8.dtype != k8.dtype:
         raise TypeError(f"the CUDA {kernel} kernel takes int8 or e4m3 codes, "
                         f"got {k8.dtype} / {v8.dtype}")

@@ -13,7 +13,11 @@ backward's gradients reach |g| ~ 30 at scale 8: float32 errors are taken
 relative to max(1, max|g|), bar 1e-4 (K2 adds dQ with atomics whose order
 varies from run to run); bf16 errors per entry, relative to |g| + rms(g),
 bar 2^-7 (kernel and plain version round the same f32 sums, added in
-another order, to bf16: one bf16 ulp is at most 2^-7 of the value).
+another order, to bf16: one bf16 ulp is at most 2^-7 of the value; the
+tensor-core dK/dV kernel feeds e and dS to its products as bf16 hi + lo
+pairs, so its sums stay those of f32 operands to ~16 bits).  Head dims
+between the kernel widths (8, 48, 80) run zero-padded to the next one;
+d past 128 is refused.
 """
 
 import pytest
@@ -72,6 +76,10 @@ FWD_CASES = {
     "one-query-row-d128": (2, 4, 4, 1, 300, 128, True, None, None),
     "gqa-16-2-d64": (1, 16, 2, 130, 130, 64, True, None, None),
     "prefill-h16-s1024-d128": (1, 16, 16, 1024, 1024, 128, True, None, None),
+    # head dims between the kernel widths: zero-padded to 16, 64 and 96
+    "causal-d8": (1, 2, 2, 100, 100, 8, True, None, None),
+    "key-mask-gqa-d48": (2, 4, 1, 70, 150, 48, False, "some", None),
+    "causal-bias-d80": (1, 4, 2, 130, 130, 80, True, None, "h"),
 }
 
 
@@ -285,7 +293,8 @@ def test_quant_matmul_kernel_refuses_what_it_cannot_take(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("g_per_kv,d", [(1, 64), (4, 64), (8, 16), (2, 96)])
+@pytest.mark.parametrize("g_per_kv,d", [(1, 64), (4, 64), (8, 16), (2, 96),
+                                        (16, 8), (32, 48), (16, 48), (32, 8)])
 def test_decode_kernel_matches_plain(cuda_device, g_per_kv, d):
     g = torch.Generator(device=cuda_device).manual_seed(1)
     b, kvh, cap = 4, 2, 300
@@ -309,7 +318,8 @@ def test_decode_kernel_matches_plain(cuda_device, g_per_kv, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("g_per_kv,d", [(1, 64), (4, 32), (8, 16), (2, 128)])
+@pytest.mark.parametrize("g_per_kv,d", [(1, 64), (4, 32), (8, 16), (2, 128),
+                                        (16, 8), (32, 48), (16, 48), (32, 8)])
 def test_decode_kernel_e4m3_matches_plain(cuda_device, g_per_kv, d):
     """The decode kernel's e4m3 arm: no V scales, e rounded to bf16."""
     g = torch.Generator(device=cuda_device).manual_seed(6)
@@ -338,7 +348,8 @@ def test_decode_kernel_e4m3_matches_plain(cuda_device, g_per_kv, d):
 @pytest.mark.parametrize("kv_dtype", [torch.int8, torch.float8_e4m3fn],
                          ids=["int8", "e4m3"])
 @pytest.mark.parametrize("g_per_kv,d", [(1, 16), (8, 32), (4, 64), (2, 96),
-                                        (3, 128)])
+                                        (3, 128), (16, 8), (32, 48), (16, 48),
+                                        (32, 8)])
 def test_paged_decode_kernel_matches_plain(cuda_device, kv_dtype, g_per_kv,
                                            d):
     """Shuffled page ids, ragged lengths (empty, one token, across a page
@@ -388,6 +399,17 @@ BWD_CASES = {
     "bias-heads-gqa": (2, 4, 2, 100, 150, 64, True, None, "h"),
     "bias-batch-mask-d128": (2, 4, 4, 65, 65, 128, False, "some", "b"),
     "bias-reduce-17": (17, 2, 2, 130, 130, 64, True, None, "h"),
+    # head dims between the kernel widths: zero-padded to 16, 64 and 96
+    "causal-d8": (1, 2, 2, 100, 100, 8, True, None, None),
+    "key-mask-gqa-d48": (2, 4, 1, 70, 150, 48, False, "some", None),
+    "causal-gqa-d80": (1, 4, 2, 130, 130, 80, True, None, None),
+    "bias-key-mask-d80": (2, 2, 2, 65, 100, 80, False, "some", "h"),
+    "all-keys-masked-d48": (1, 2, 2, 64, 130, 48, False, "all", None),
+    # the tensor-core dK/dV kernel's edges: GQA 8/2 at d 128, seq_k not a
+    # multiple of its 64 keys, seq_q past seq_k
+    "causal-1024-d128-gqa-8-2": (1, 8, 2, 1024, 1024, 128, True, None, None),
+    "causal-ragged-k-d64": (2, 2, 2, 190, 190, 64, True, None, None),
+    "causal-q-past-k-d64": (1, 2, 2, 200, 100, 64, True, None, None),
 }
 
 
@@ -445,6 +467,113 @@ def test_backward_kernels_match_plain(cuda_device, case, dtype, route):
         assert err <= GRAD_BARS[dtype], (name, err)
     if BWD_CASES[case][7] == "all":
         assert all(t.abs().max().item() == 0 for t in got[:3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["onepass", "twopass"])
+def test_backward_kernels_large_logits(cuda_device, route):
+    """Scale 10 (and, on the two-pass route, an (h, i, j) bias up to 4): e
+    reaches e^10 (e^14), far past the f16 range, which the tensor-core
+    kernel's bf16 e and dS fragments hold."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    b, h, s, d = 2, 4, 200, 64
+    dtype = torch.bfloat16
+    q, k = l2norm_tensors(
+        *(torch.randn(b, h, s, d, device=cuda_device, generator=g)
+          for _ in range(2)))
+    k[:, :, :s // 2] = q[:, :, :s // 2]      # logits at the full scale
+    q, k = q.to(dtype), k.to(dtype)
+    v = torch.randn(b, h, s, d, device=cuda_device, generator=g).to(dtype)
+    bias = None if route == "onepass" else 4 * torch.rand(
+        h, s, s, device=cuda_device, generator=g)
+    kw = dict(bias_batch_dim=False, scale=10.0, causal=True)
+    o, inv_l = flash_attention_forward_plain(q, k, v, None, bias, **kw)
+    do = torch.randn(o.shape, device=cuda_device, generator=g).to(dtype)
+    args = (do, o, inv_l, q, k, v, None, bias)
+    if route == "onepass":
+        got = bwd_kernel._backward_onepass(*args[:7], scale=10.0,
+                                           causal=True) + (None,)
+    else:
+        got = bwd_kernel._backward_twopass(*args, **kw)
+    want = flash_attention_backward_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv", "db"), got, want):
+        if y is None:
+            continue
+        assert torch.isfinite(x.float()).all(), name
+        err = _grad_err(x, y, dtype)
+        assert err <= GRAD_BARS[dtype], (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 48, 80])
+def test_op_between_kernel_widths_runs_the_kernels(cuda_device, d, dtype):
+    """The public op at a head dim that is no kernel width: its forward and
+    backward launch K1 and K2 (zero-padded to the next width) and match
+    the plain forward, and the plain backward on the kernel forward's o
+    and inv_l (a bf16 o from K1's bf16 P moves delta' = rowsum(dO o) by
+    more than the backward's bar; the forward is held to its own)."""
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        flash_cosine_sim_attention)
+
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    q, k = l2norm_tensors(
+        *(torch.randn(2, 4, 150, d, device=cuda_device, generator=g)
+          for _ in range(2)))
+    q, k = q.to(dtype), k.to(dtype)
+    v, do = (torch.randn(2, 4, 150, d, device=cuda_device,
+                         generator=g).to(dtype) for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n1, n2 = (flash_attention_forward.launches,
+              bwd_kernel.fused_bwd_kernel.launches)
+    o = flash_cosine_sim_attention(*leaves, causal=True, l2norm_qk=False)
+    got = torch.autograd.grad(o, leaves, do)
+    assert (flash_attention_forward.launches,
+            bwd_kernel.fused_bwd_kernel.launches) == (n1 + 1, n2 + 1)
+
+    kw = dict(bias_batch_dim=False, scale=8.0, causal=True)
+    o_p, _ = flash_attention_forward_plain(q, k, v, None, None, **kw)
+    o_k, inv_k = flash_attention_forward(q, k, v, None, None, **kw)
+    want = flash_attention_backward_plain(do, o_k, inv_k, q, k, v, None,
+                                          None, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o_k, o.detach())
+    assert o.shape == o_p.shape and o.dtype == dtype
+    assert (o.float() - o_p.float()).abs().max().item() <= BARS[dtype]
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.shape == y.shape, name
+        assert _grad_err(x, y, dtype) <= GRAD_BARS[dtype], name
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_head_dims_past_128(cuda_device):
+    """d 136 is a multiple of 8 the JAX op takes, but no kernel is built
+    for it: every wrapper raises, naming the widths the card takes, and
+    launches nothing."""
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        flash_cosine_sim_attention)
+
+    q, k, v = (torch.randn(1, 2, 64, 136, device=cuda_device,
+                           requires_grad=True) for _ in range(3))
+    counts = lambda: (flash_attention_forward.launches,  # noqa: E731
+                      bwd_kernel.fused_bwd_kernel.launches,
+                      quantized_decode_attention.launches)
+    before = counts()
+    match = r"multiples of 8 up to 128 \(built for \(16, 32, 64, 96, 128\)"
+    with pytest.raises(ValueError, match=match):
+        flash_cosine_sim_attention(q, k, v, causal=True)
+    o, inv_l = flash_attention_forward_plain(q, k, v, None, None,
+                                             bias_batch_dim=False,
+                                             scale=8.0, causal=True)
+    with pytest.raises(ValueError, match=match):
+        bwd_kernel.flash_attention_backward(
+            o, o, inv_l, q, k, v, None, None, bias_batch_dim=False,
+            scale=8.0, causal=True)
+    cache = init_cache(1, 2, 64, 136, cuda_device)
+    with pytest.raises(ValueError, match=match):
+        quantized_decode_attention(q[:, :, 0], cache)
+    assert counts() == before
 
 
 @pytest.mark.cuda
