@@ -17,7 +17,8 @@ Phases (any failure exits non-zero):
      f32 model on the card (kernels) and on the CPU (plain versions);
   7. the backward kernels (K2 one-pass; K3a dQ + dB and K3b dK, dV, the
      two-pass route) against the plain backward on the card, then checked
-     and timed at the shapes phase 8 gives them;
+     and timed at the shapes phase 8 gives them; a profiled two-pass call
+     at phase 8b's shape must show K3a's and K3b's tensor-core instances;
   8. the training path at full width: the same model with float32
      parameters and bf16 compute takes 10 optimizer steps of 4
      microbatches of 4 x 1024 tokens through the port's train_step, on a
@@ -27,8 +28,8 @@ Phases (any failure exits non-zero):
      instances of K1 and K2 and no bf16 FMA dK/dV kernel.  Then the op's
      attn_bias gradient, the two-pass kernels' path: a learnable
      (h, i, j) bias takes 3 Adam steps through flash_cosine_sim_attention,
-     counts read around them, and a profiled fourth step must show K3b's
-     tensor-core instance;
+     counts read around them, and a profiled fourth step must show K3a's
+     and K3b's tensor-core instances;
   9. training parity: one microbatch of an f32 depth-2 model, loss and
      every parameter's gradient, card (kernels) vs CPU (plain versions);
  10. the paged decode kernel (K5) and the decode kernel's e4m3 arm
@@ -69,13 +70,23 @@ Phases (any failure exits non-zero):
      head and d 8 (int8 and e4m3, ragged, empty and finished slots)
      against plain; the validation width with 16 heads of 32 on one kv
      head served by both engines (3 prompts and 8 steps each; K1, K4 and
-     K5 launches read around it), then card vs CPU at depth 2 in f32.
+     K5 launches read around it), then card vs CPU at depth 2 in f32;
+ 15. head dims up to 256: d 264 refused by every wrapper, naming the
+     widths; the op's forward and both backward routes (with an (h, i, j)
+     bias on the two-pass one) at d 200 (padded to 256) and 256, f32 and
+     bf16, and K4 and K5 at d 200 and 256 (int8 and e4m3), against plain;
+     K1, K2, K3a, K3b, K4 and K5 checked against plain and timed at d 256
+     at the shapes the heads-256 model gives them; that model (the
+     validation width with 2 heads of 256) served by both engines,
+     trained 3 steps and its bias gradient taken 3 times (every kernel's
+     launches read around these), then card vs CPU at depth 2 in f32.
 Then one JSON line lists every ported kernel with its launches on its
 path, error, times and bound (timing lines also print the achieved
 TFLOP/s); the script's own wall time, the nvcc build included; the
 card's name and power limit; and, last, the {"ok": true, ...} line.
 Kernel device times come from torch.profiler, wrapper times are
-CUDA-event medians.
+CUDA-event medians; SDPA's forward is the median of five profiler
+windows.
 """
 
 from __future__ import annotations
@@ -139,6 +150,10 @@ PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 (NVIDIA data sheet)
 # phase 14: the validation width with 16 query heads of 32 on one kv head
 WIDE_MODEL = dict(MODEL, heads=16, kv_heads=1, dim_head=32)
 WIDE_PROMPTS = (100, 300, 700)
+# phase 15: the validation width with 2 heads of 256, the widest kernel
+# width (the widest head of the public model families)
+HEAD256_MODEL = dict(MODEL, heads=2, dim_head=256)
+HEAD256_TRAIN_STEPS = 3
 
 
 def fail(msg: str) -> None:
@@ -228,6 +243,19 @@ def device_ms(fn, flush=None, iters: int = 20) -> float:
     return event_ms(fn, flush=flush)
 
 
+def library_ms(name: str, fn, windows: int = 5) -> float:
+    """device_ms of a library call, the median of ``windows`` profiler
+    windows, printed beside each window's reading, the kernels the call
+    launched (the library's choice of backend) and the CUDA-event time
+    (whose host enqueue can exceed a short call's device time)."""
+    reads = [device_ms(fn) for _ in range(windows)]
+    kernels = sorted({key[:70] for key, _, _ in cuda_rows(fn, 1)})
+    print(f"  ({name}: device time in {windows} windows "
+          f"{', '.join(f'{r:.4f}' for r in reads)} ms, median taken; "
+          f"kernels {kernels}; CUDA-event time {event_ms(fn):.4f} ms)")
+    return statistics.median(reads)
+
+
 def tflops(flops: float, ms: float) -> float:
     """Achieved rate, TFLOP/s, of ``flops`` operations in ``ms``."""
     return flops / (ms * 1e-3) / 1e12
@@ -236,12 +264,13 @@ def tflops(flops: float, ms: float) -> float:
 def require_kernels(rows, names, path: str) -> None:
     """Fail unless every kernel name in ``names`` appears among the
     profiler's ``rows``, and no FMA instance of K1 or K7, and no bf16 FMA
-    instance of the dK/dV kernel (K2, K3b), does: the bf16 paths must run
-    the tensor-core instances."""
+    instance of the dK/dV kernel (K2, K3b) or the dQ kernel (K3a), does:
+    the bf16 paths must run the tensor-core instances."""
     keys = [key for key, _, _ in rows]
     missing = [n for n in names if not any(n in key for key in keys)]
     fma = [key[:60] for key in keys if "fwd_kernel<" in key
-           or "qmm_kernel<" in key or "dkdv_kernel<__nv_bfloat16" in key]
+           or "qmm_kernel<" in key or "dkdv_kernel<__nv_bfloat16" in key
+           or "dq_kernel<__nv_bfloat16" in key]
     print(f"  {path}: tensor-core instances {', '.join(names)} launched: "
           f"{not missing}; f32 FMA instances launched: {fma or 'none'}")
     if missing or fma:
@@ -365,8 +394,9 @@ def check_forward(card: str):
     ms, call_ms = device_ms(call), event_ms(call)
     plain_ms = device_ms(
         lambda: flash_attention_forward_plain(q, k, v, None, None, **kw))
-    lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, scale=1.0))
+    lib_ms = library_ms("SDPA b1 h8 s1024 d64",
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, is_causal=True, scale=1.0))
     pairs = 1024 * 1025 / 2                          # visible (i, j) pairs
     flops = 4 * 8 * 64 * pairs
     nbytes = 4 * q.numel() * 2 + 8 * 1024 * 4        # q, k, v, o + inv_l
@@ -539,103 +569,84 @@ def path_parity(params, devices=("cuda", "cpu"), cfg=MODEL):
         fail(f"path parity: {diff}")
 
 
-def check_backward(card: str):
-    """Phase 7: K2, K3a, K3b vs the plain backward; returns
-    ({kernel: max abs err}, {kernel: timing row})."""
-    import torch.nn.functional as F
-
+def bwd_inputs(g, b, h, kvh, sq, sk, d, dtype, mask_kind, bias_kind,
+               causal):
+    """The backward's inputs from generator ``g``: (dO, o, inv_l, q, k, v,
+    mask, bias) with o and inv_l from the plain forward, and its keywords
+    (scale 1)."""
     from flash_cosine_sim_attention_tpu_torch.ops import (
-        bwd_kernel as bk, flash_attention_backward_plain,
         flash_attention_forward_plain, l2norm_tensors)
-    from flash_cosine_sim_attention_tpu_torch.ops.reference import causal_keep
-
-    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
 
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=g)
 
-    def inputs(b, h, kvh, sq, sk, d, dtype, mask_kind, bias_kind, causal):
-        q, k = l2norm_tensors(randn(b, h, sq, d), randn(b, kvh, sk, d),
-                              groups=8)
-        q, k, v = q.to(dtype), k.to(dtype), randn(b, kvh, sk, d).to(dtype)
-        mask = None
-        if mask_kind == "some":
-            mask = torch.rand(b, sk, device="cuda", generator=g) < 0.6
-        elif mask_kind == "all":
-            mask = torch.zeros(b, sk, dtype=torch.bool, device="cuda")
-        bias = None if bias_kind is None else 0.5 * randn(
-            b if bias_kind == "b" else h, sq, sk)
-        kw = dict(bias_batch_dim=bias_kind == "b", scale=1.0, causal=causal)
-        o, inv_l = flash_attention_forward_plain(q, k, v, mask, bias, **kw)
-        return (randn(*o.shape).to(dtype), o, inv_l, q, k, v, mask, bias), kw
+    q, k = l2norm_tensors(randn(b, h, sq, d), randn(b, kvh, sk, d), groups=8)
+    q, k, v = q.to(dtype), k.to(dtype), randn(b, kvh, sk, d).to(dtype)
+    mask = None
+    if mask_kind == "some":
+        mask = torch.rand(b, sk, device="cuda", generator=g) < 0.6
+    elif mask_kind == "all":
+        mask = torch.zeros(b, sk, dtype=torch.bool, device="cuda")
+    bias = None if bias_kind is None else 0.5 * randn(
+        b if bias_kind == "b" else h, sq, sk)
+    kw = dict(bias_batch_dim=bias_kind == "b", scale=1.0, causal=causal)
+    o, inv_l = flash_attention_forward_plain(q, k, v, mask, bias, **kw)
+    return (randn(*o.shape).to(dtype), o, inv_l, q, k, v, mask, bias), kw
 
-    cases = [  # name, (b, h, kvh, seq_q, seq_k, d), key mask, bias, causal
-        ("s1024 causal", (1, 8, 8, 1024, 1024, 64), None, None, True),
-        ("q128 x k1024 key-masked", (2, 8, 8, 128, 1024, 64), "some", None,
-         False),
-        ("q128 x k1024 all keys masked", (2, 8, 8, 128, 1024, 64), "all",
-         None, False),
-        ("s1000 GQA 8/2 + (h,i,j) bias", (2, 8, 2, 1000, 1000, 64), None,
-         "h", True),
-        ("s1000 GQA 8/2 key-masked + (b,i,j) bias", (2, 8, 2, 1000, 1000, 64),
-         "some", "b", False),
-        ("b17 + (h,i,j) bias: shared axis 17", (17, 2, 2, 130, 130, 64), None,
-         "h", True),
-    ]
-    worst = {"K2": 0.0, "K3a": 0.0, "K3b": 0.0}
 
-    def compare(name, args, kw, dtype, mask_kind):
-        """Both routes (K2 only without a bias) against the plain version."""
-        bar = GRAD_BARS[dtype]
-        want = flash_attention_backward_plain(*args, **kw)
-        runs = [("K3a", "K3b", bk._backward_twopass(*args, **kw))]
-        if args[7] is None:
-            runs.append(("K2", "K2", bk._backward_onepass(
-                *args[:7], scale=kw["scale"], causal=kw["causal"]) + (None,)))
-        torch.cuda.synchronize()
-        for k_dq, k_dkdv, got in runs:
-            errs = []
-            for grad, owner, x, y in zip(("dq", "dk", "dv", "db"),
-                                         (k_dq, k_dkdv, k_dkdv, k_dq),
-                                         got, want):
-                if y is None:
-                    continue
-                ok = torch.isfinite(x.float()).all().item()
-                rel = grad_err(x, y, dtype)
-                errs.append(f"{grad} {rel:.2e}")
-                if not (ok and rel <= bar):
-                    fail(f"{owner} {name} {dtype} {grad}: err {rel} (bar "
-                         f"{bar}), finite {ok}")
-                if mask_kind == "all" and x.abs().max().item() != 0:
-                    fail(f"{owner} {name}: masked rows need 0 gradients")
-                worst[owner] = max(
-                    worst[owner], (x.float() - y.float()).abs().max().item())
-            unit = ("max(1, max|g|)" if dtype == torch.float32
-                    else "(|g| + rms g)")
-            print(f"  {k_dq}{'' if k_dq == k_dkdv else '+' + k_dkdv} "
-                  f"{name} {str(dtype)[6:]}: err / {unit}: "
-                  f"{', '.join(errs)} (bar {bar:g})")
+def compare_backward(worst, name, args, kw, dtype, mask_kind):
+    """Both backward routes (K2 only without a bias) on ``args`` against
+    the plain version at GRAD_BARS[dtype]; folds each kernel's max abs
+    error into ``worst``."""
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        bwd_kernel as bk, flash_attention_backward_plain)
 
-    for dtype in (torch.float32, torch.bfloat16):
-        for name, shape, mask_kind, bias_kind, causal in cases:
-            args, kw = inputs(*shape, dtype, mask_kind, bias_kind, causal)
-            compare(name, args, kw, dtype, mask_kind)
+    bar = GRAD_BARS[dtype]
+    want = flash_attention_backward_plain(*args, **kw)
+    runs = [("K3a", "K3b", bk._backward_twopass(*args, **kw))]
+    if args[7] is None:
+        runs.append(("K2", "K2", bk._backward_onepass(
+            *args[:7], scale=kw["scale"], causal=kw["causal"]) + (None,)))
+    torch.cuda.synchronize()
+    for k_dq, k_dkdv, got in runs:
+        errs = []
+        for grad, owner, x, y in zip(("dq", "dk", "dv", "db"),
+                                     (k_dq, k_dkdv, k_dkdv, k_dq), got, want):
+            if y is None:
+                continue
+            ok = torch.isfinite(x.float()).all().item()
+            rel = grad_err(x, y, dtype)
+            errs.append(f"{grad} {rel:.2e}")
+            if not (ok and rel <= bar):
+                fail(f"{owner} {name} {dtype} {grad}: err {rel} (bar "
+                     f"{bar}), finite {ok}")
+            if mask_kind == "all" and x.abs().max().item() != 0:
+                fail(f"{owner} {name}: masked rows need 0 gradients")
+            worst[owner] = max(
+                worst[owner], (x.float() - y.float()).abs().max().item())
+        unit = "max(1, max|g|)" if dtype == torch.float32 else "(|g| + rms g)"
+        print(f"  {k_dq}{'' if k_dq == k_dkdv else '+' + k_dkdv} "
+              f"{name} {str(dtype)[6:]}: err / {unit}: "
+              f"{', '.join(errs)} (bar {bar:g})")
 
-    # the trainer's attention shape, as phase 8 runs K2 and phase 8b runs
-    # K3 (with an (h, i, j) bias): checked, then timed
-    b, h, s, d = 4, 8, 1024, 64
-    args, kw = inputs(b, h, h, s, s, d, torch.bfloat16, None, None, True)
-    compare("b4 h8 s1024 causal (phase 8's shape)", args, kw,
-            torch.bfloat16, None)
+
+def time_backward(card: str, args, kw, args_b, kw_b):
+    """K2 on ``args`` (causal, no bias) and K3a, K3b on ``args_b`` (causal,
+    an (h, i, j) bias), bf16, timed beside the plain backward and SDPA's;
+    returns {kernel: timing row}."""
+    import torch.nn.functional as F
+
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        bwd_kernel as bk, flash_attention_backward_plain)
+    from flash_cosine_sim_attention_tpu_torch.ops.reference import causal_keep
+
     x = bk._cuda_inputs(*args, False)
-    args_b, kw_b = inputs(b, h, h, s, s, d, torch.bfloat16, None, "h", True)
-    compare("b4 h8 s1024 causal + (h,i,j) bias (phase 8b's shape)", args_b,
-            kw_b, torch.bfloat16, None)
     x_b = bk._cuda_inputs(*args_b, False)
+    do, _, _, q, k, v = args[:6]
+    b, h, s, d = q.shape
     plain_ms = device_ms(lambda: flash_attention_backward_plain(*args, **kw))
     plain_b_ms = device_ms(
         lambda: flash_attention_backward_plain(*args_b, **kw_b))
-    do, _, _, q, k, v = args[:6]
     qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
     o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, scale=1.0)
     lib_ms = device_ms(lambda: torch.autograd.grad(o, (qs, ks, vs), do,
@@ -679,8 +690,57 @@ def check_backward(card: str):
           "scaled_dot_product_attention, with the bias as a float mask and "
           "no dB for K3; TFLOP/s count the function's products, 2d FLOPs "
           "per visible pair each: 5 for K2, 3 for K3a, 4 for K3b; the "
-          "tensor-core K2 and K3b run 8 and 6, e and dS as bf16 hi + lo)")
-    return worst, rows
+          "tensor-core K2, K3a and K3b run 8, 4 and 6, e and dS as bf16 "
+          "hi + lo)")
+    return rows
+
+
+def check_backward(card: str):
+    """Phase 7: K2, K3a, K3b vs the plain backward; returns
+    ({kernel: max abs err}, {kernel: timing row})."""
+    from flash_cosine_sim_attention_tpu_torch.ops import bwd_kernel as bk
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+
+    def inputs(*shape_and_kinds):
+        return bwd_inputs(g, *shape_and_kinds)
+
+    cases = [  # name, (b, h, kvh, seq_q, seq_k, d), key mask, bias, causal
+        ("s1024 causal", (1, 8, 8, 1024, 1024, 64), None, None, True),
+        ("q128 x k1024 key-masked", (2, 8, 8, 128, 1024, 64), "some", None,
+         False),
+        ("q128 x k1024 all keys masked", (2, 8, 8, 128, 1024, 64), "all",
+         None, False),
+        ("s1000 GQA 8/2 + (h,i,j) bias", (2, 8, 2, 1000, 1000, 64), None,
+         "h", True),
+        ("s1000 GQA 8/2 key-masked + (b,i,j) bias", (2, 8, 2, 1000, 1000, 64),
+         "some", "b", False),
+        ("b17 + (h,i,j) bias: shared axis 17", (17, 2, 2, 130, 130, 64), None,
+         "h", True),
+    ]
+    worst = {"K2": 0.0, "K3a": 0.0, "K3b": 0.0}
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, shape, mask_kind, bias_kind, causal in cases:
+            args, kw = inputs(*shape, dtype, mask_kind, bias_kind, causal)
+            compare_backward(worst, name, args, kw, dtype, mask_kind)
+
+    # the trainer's attention shape, as phase 8 runs K2 and phase 8b runs
+    # K3 (with an (h, i, j) bias): checked, then timed
+    b, h, s, d = 4, 8, 1024, 64
+    args, kw = inputs(b, h, h, s, s, d, torch.bfloat16, None, None, True)
+    compare_backward(worst, "b4 h8 s1024 causal (phase 8's shape)", args, kw,
+                     torch.bfloat16, None)
+    args_b, kw_b = inputs(b, h, h, s, s, d, torch.bfloat16, None, "h", True)
+    compare_backward(worst,
+                     "b4 h8 s1024 causal + (h,i,j) bias (phase 8b's shape)",
+                     args_b, kw_b, torch.bfloat16, None)
+    require_kernels(cuda_rows(lambda: bk._backward_twopass(*args_b, **kw_b),
+                              1),
+                    ("dq_mma_kernel<__nv_bfloat16, 64>",
+                     "dkdv_mma_kernel<__nv_bfloat16, 64, false>"),
+                    "two-pass backward at phase 8b's shape (bf16)")
+    return worst, time_backward(card, args, kw, args_b, kw_b)
 
 
 def train(card: str):
@@ -777,13 +837,18 @@ def bias_grad_path(card: str):
     for _ in range(3):
         step()
     launches = (bk.dq_kernel.launches, bk.dkdv_kernel.launches)
-    require_kernels(cuda_rows(step, 1),
-                    ("dkdv_mma_kernel<__nv_bfloat16, 64, false>",),
+    rows = cuda_rows(step, 1)
+    require_kernels(rows, ("dq_mma_kernel<__nv_bfloat16, 64>",
+                           "dkdv_mma_kernel<__nv_bfloat16, 64, false>"),
                     "bias gradient step (bf16)")
+    parts = {n: sum(t for key, t, _ in rows if n in key) / 1e3
+             for n in ("dq_mma_kernel<", "dkdv_mma_kernel<", "")}
     del losses[3:]
     print(f"  learnable (h,i,j) bias, b4 h8 s1024 d64 causal bf16 on {card}: "
           f"losses {', '.join(f'{x:.6f}' for x in losses)}; launches dQ+dB "
-          f"kernel {launches[0]}, dK/dV kernel {launches[1]}")
+          f"kernel {launches[0]}, dK/dV kernel {launches[1]}; a step's "
+          f"device time {parts['']:.3f} ms (profiled; K3a "
+          f"{parts['dq_mma_kernel<']:.3f}, K3b {parts['dkdv_mma_kernel<']:.3f})")
     if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
         fail(f"bias gradient path: losses {losses}")
     if launches != (3, 3):
@@ -1309,8 +1374,9 @@ def check_quant(card: str):
                                                          None, **kw))
     float_plain_ms = device_ms(lambda: flash_attention_forward_plain(
         qb, kb, v, None, None, **kw))
-    lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
-        qb, kb, v, is_causal=True, scale=1.0))
+    lib_ms = library_ms("SDPA b1 h16 s1024 d128",
+                        lambda: F.scaled_dot_product_attention(
+                            qb, kb, v, is_causal=True, scale=1.0))
     pairs = 1024 * 1025 / 2 * 16                     # visible pairs, heads
     flops = 4 * 128 * pairs
     # QK runs on int8 codes (int8 peak), P.V in bf16: in bf16-peak units
@@ -1708,6 +1774,305 @@ def widths_and_groups(card: str):
     return launches
 
 
+def heads_256(card: str):
+    """Phase 15: head dims up to 256.  d 264 refused by every wrapper; the
+    op's forward, one-pass backward and two-pass backward with an (h, i, j)
+    bias at d 200 (the wrappers pad to 256) and 256, f32 and bf16, against
+    plain; K4 and K5 at d 200 and 256 (int8 and e4m3, ragged, empty and
+    finished slots) against plain; K1, K2, K3a, K3b, K4 and K5 checked
+    against plain and timed at d 256 at the shapes the heads-256 model
+    gives them; that model
+    (HEAD256_MODEL) served by both engines and trained, its bias-gradient
+    path run, and card vs CPU in f32 at depth 2.  Returns ({kernel: max abs
+    err}, {kernel: timing row}, {kernel: launches})."""
+    import torch.nn.functional as F
+
+    from flash_cosine_sim_attention_tpu_torch.models import (
+        CosineSimCausalTransformer)
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        bwd_kernel as bk, flash_attention_backward,
+        flash_attention_backward_plain, flash_attention_forward_plain,
+        flash_cosine_sim_attention, l2norm_tensors)
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward)
+    from flash_cosine_sim_attention_tpu_torch.quant import (
+        append, append_paged, decode_attention_plain, init_cache,
+        init_paged_cache, paged_decode_attention, paged_decode_plain,
+        quantized_decode_attention)
+    from flash_cosine_sim_attention_tpu_torch.serving import (
+        InferenceEngine, PagedInferenceEngine)
+    from flash_cosine_sim_attention_tpu_torch.train import (
+        BATCH_SIZE, GRAD_ACCUM, make_optimizer, train_step)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+
+    counters = (flash_attention_forward, bk.fused_bwd_kernel, bk.dq_kernel,
+                bk.dkdv_kernel, quantized_decode_attention,
+                paged_decode_attention)
+
+    def counts():
+        return [c.launches for c in counters]
+
+    # d 264: past the widest instance, refused by name, nothing launched
+    q, k, v = (randn(1, 2, 64, 264) for _ in range(3))
+    before = counts()
+    refused = []
+    for name, call in (
+            ("op", lambda: flash_cosine_sim_attention(q, k, v, causal=True)),
+            ("backward", lambda: flash_attention_backward(
+                q, q, torch.ones(1, 2, 64, 1, device="cuda"), q, k, v, None,
+                None, bias_batch_dim=False, scale=8.0, causal=True)),
+            ("decode", lambda: quantized_decode_attention(
+                q[:, :, 0], init_cache(1, 2, 64, 264, "cuda")))):
+        try:
+            call()
+        except ValueError as err:
+            if "(16, 32, 64, 96, 128, 192, 256)" in str(err):
+                refused.append(name)
+    print(f"  d264 refused with the widths named by: {', '.join(refused)}; "
+          f"launches unchanged: {counts() == before}")
+    if len(refused) != 3 or counts() != before:
+        fail(f"d264: refused by {refused}, launches {before} -> {counts()}")
+
+    # the op and both backward routes at d 200 and 256 against plain
+    worst = {"K1": 0.0, "K2": 0.0, "K3a": 0.0, "K3b": 0.0, "K4": 0.0,
+             "K5": 0.0}
+    b, h, kvh, s = 2, 4, 2, 384
+    for d in (200, 256):
+        for dtype in (torch.float32, torch.bfloat16):
+            args, kw = bwd_inputs(g, b, h, kvh, s, s, d, dtype, None, None,
+                                  True)
+            do, _, _, q, k, v = args[:6]
+            n0 = counts()
+            o, inv_l = flash_attention_forward(q, k, v, None, None, **kw)
+            one = bk._backward_onepass(do, o, inv_l, q, k, v, None,
+                                       scale=1.0, causal=True)
+            args_b, kw_b = bwd_inputs(g, b, h, kvh, s, s, d, dtype, None,
+                                      "h", True)
+            two = bk._backward_twopass(*args_b, **kw_b)
+            moved = [n - m for n, m in zip(counts(), n0)][:4]
+            o_p, inv_p = flash_attention_forward_plain(q, k, v, None, None,
+                                                       **kw)
+            want = flash_attention_backward_plain(do, o, inv_l, q, k, v, None,
+                                                  None, **kw)
+            want_b = flash_attention_backward_plain(*args_b, **kw_b)
+            torch.cuda.synchronize()
+            bar = F32_ERR_BAR if dtype == torch.float32 else BF16_ERR_BAR
+            e1 = (o.float() - o_p.float()).abs().max().item()
+            l1 = ((inv_l - inv_p) / inv_p).abs().max().item()
+            errs = {}
+            for owner, got, ref, names in (
+                    ("K2", one, want, ("dq", "dk", "dv")),
+                    ("K3", two, want_b, ("dq", "dk", "dv", "db"))):
+                for name, x, y in zip(names, got, ref):
+                    errs[f"{owner} {name}"] = grad_err(x, y, dtype)
+                    who = owner if owner == "K2" else (
+                        "K3a" if name in ("dq", "db") else "K3b")
+                    worst[who] = max(worst[who],
+                                     (x.float() - y.float()).abs().max().item())
+            worst["K1"] = max(worst["K1"], e1)
+            finite = all(torch.isfinite(t.float()).all().item()
+                         for t in (o, *one, *two))
+            print(f"  d{d} (kernels at 256) b{b} h{h}/{kvh} s{s} causal "
+                  f"{str(dtype)[6:]}: K1 max|o-plain| {e1:.3e} (bar {bar:g}),"
+                  f" inv_l {l1:.1e}; grads err "
+                  + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+                  + f" (bar {GRAD_BARS[dtype]:g}); launches K1, K2, K3a, K3b "
+                  f"+{moved}")
+            if not (finite and moved == [1, 1, 1, 1] and e1 <= bar
+                    and l1 <= 1e-5 and max(errs.values()) <= GRAD_BARS[dtype]):
+                fail(f"d{d} {dtype}: o {e1}, inv_l {l1}, grads {errs}, "
+                     f"launches {moved}, finite {finite}")
+
+    # K4 and K5 at d 200 and 256: ragged, empty and finished slots
+    ps, mp, kvh, gq = 128, 8, 2, 2
+    bq = len(PAGED_LENGTHS) + 1           # the last slot has finished
+    lengths = torch.tensor(PAGED_LENGTHS + (700,), dtype=torch.int32,
+                           device="cuda")
+    for d in (200, 256):
+        k = l2norm_tensors(randn(bq, kvh, mp * ps, d))
+        v = 3 * randn(bq, kvh, mp * ps, d)
+        q = l2norm_tensors(randn(bq, kvh * gq, d))
+        qg = q.view(bq, kvh, gq, d)
+        for kv_dtype in (torch.int8, torch.float8_e4m3fn):
+            kv = "int8" if kv_dtype == torch.int8 else "e4m3"
+            cont = append(init_cache(bq, kvh, mp * ps, d, "cuda",
+                                     kv_dtype=kv_dtype), k, v)._replace(
+                                         length=lengths)
+            table = _shuffled_table(bq, mp, bq * mp + 3, SEED + 21)
+            paged = append_paged(init_paged_cache(
+                bq * mp + 3, kvh, ps, d, bq, mp, kv_dtype=kv_dtype,
+                device="cuda")._replace(page_table=table), k, v)
+            dead = table.clone()
+            dead[-1] = 0                  # finished: null page, stale length
+            paged = paged._replace(page_table=dead, length=lengths)
+            n0 = counts()
+            o4 = quantized_decode_attention(q, cont, scale=8.0,
+                                            l2norm_qk=False)
+            o5 = paged_decode_attention(q, paged, scale=8.0, l2norm_qk=False)
+            moved = [n - m for n, m in zip(counts(), n0)][4:]
+            p4 = decode_attention_plain(qg, cont, 8.0).view(o4.shape)
+            p5 = paged_decode_plain(qg, paged, 8.0).view(o5.shape)
+            torch.cuda.synchronize()
+            e4 = (o4 - p4).abs().max().item()
+            e5 = (o5 - p5).abs().max().item()
+            worst["K4"], worst["K5"] = max(worst["K4"], e4), max(worst["K5"], e5)
+            print(f"  {kv} g{gq} d{d}, lengths {lengths.tolist()}: K4 vs "
+                  f"plain {e4:.3e}, K5 vs plain {e5:.3e} (bar "
+                  f"{F32_ERR_BAR:g}); launches K4, K5 +{moved}")
+            if not (moved == [1, 1] and max(e4, e5) <= F32_ERR_BAR
+                    and o4[0].abs().max().item() == 0
+                    and o5[0].abs().max().item() == 0):
+                fail(f"decode d{d} {kv}: K4 {e4}, K5 {e5}, launches {moved}, "
+                     f"empty slot not 0")
+
+    # at d 256, at the shapes the heads-256 model gives the kernels (a
+    # training microbatch, b4 h2 s1024, and 8 slots of 1024 tokens):
+    # checked against plain, then timed
+    rows = {}
+    b, h, s, d = BATCH_SIZE, HEAD256_MODEL["heads"], MODEL["max_seq_len"], 256
+    args, kw = bwd_inputs(g, b, h, h, s, s, d, torch.bfloat16, None, None,
+                          True)
+    q, k, v = args[3:6]
+    args_b, kw_b = bwd_inputs(g, b, h, h, s, s, d, torch.bfloat16, None, "h",
+                              True)
+    o, inv_l = flash_attention_forward(q, k, v, None, None, **kw)
+    o_p, inv_p = flash_attention_forward_plain(q, k, v, None, None, **kw)
+    torch.cuda.synchronize()
+    e1 = (o.float() - o_p.float()).abs().max().item()
+    l1 = ((inv_l - inv_p) / inv_p).abs().max().item()
+    worst["K1"] = max(worst["K1"], e1)
+    print(f"  K1 b{b} h{h} s{s} d{d} causal bf16 (the timed shape): "
+          f"max|o-plain| {e1:.3e} (bar {BF16_ERR_BAR:g}), max rel inv_l err "
+          f"{l1:.1e} (bar 1e-05)")
+    if not (torch.isfinite(o.float()).all().item() and e1 <= BF16_ERR_BAR
+            and l1 <= 1e-5):
+        fail(f"K1 d{d} at the timed shape: o {e1}, inv_l {l1}")
+    compare_backward(worst, f"b{b} h{h} s{s} d{d} causal (the timed shape)",
+                     args, kw, torch.bfloat16, None)
+    compare_backward(worst, f"b{b} h{h} s{s} d{d} causal + (h,i,j) bias "
+                     "(the timed shape)", args_b, kw_b, torch.bfloat16, None)
+    call = lambda: flash_attention_forward(q, k, v, None, None, **kw)  # noqa: E731
+    ms = device_ms(call)
+    plain_ms = device_ms(
+        lambda: flash_attention_forward_plain(q, k, v, None, None, **kw))
+    lib_ms = library_ms(f"SDPA b{b} h{h} s{s} d{d}",
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, is_causal=True, scale=1.0))
+    flops = 4 * d * b * h * s * (s + 1) / 2
+    bound_ms, by = bound(flops, 4 * q.numel() * 2 + b * h * s * 4)
+    rows["K1"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=by, library_ms=lib_ms)
+    print(f"  K1 b{b} h{h} s{s} d{d} causal bf16 on {card}: device time "
+          f"kernel {ms:.4f} ms ({tflops(flops, ms):.1f} TFLOP/s), plain "
+          f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms ({tflops(flops, lib_ms):.1f}"
+          f" TFLOP/s), bound {bound_ms:.5f} ms ({by})")
+    rows.update(time_backward(card, args, kw, args_b, kw_b))
+
+    bd, kvh, cap = 8, HEAD256_MODEL["heads"], 1024
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    k = l2norm_tensors(randn(bd, kvh, cap, d), groups=8)
+    v = randn(bd, kvh, cap, d)
+    q = l2norm_tensors(randn(bd, kvh, d), groups=8).to(torch.bfloat16)
+    qg = q.float()[:, :, None]
+    full = append(init_cache(bd, kvh, cap, d, "cuda"), k, v)
+    table = _shuffled_table(bd, cap // ps, bd * cap // ps + 1, SEED + 22)
+    pool = append_paged(init_paged_cache(
+        bd * cap // ps + 1, kvh, ps, d, bd, cap // ps,
+        device="cuda")._replace(page_table=table), k, v)
+    tokens = bd * kvh * cap
+    small = q.numel() * 2 + bd * kvh * d * 4 + bd * 4
+    for name, label, cache, kernel, plain, extra in (
+            ("K4", "cache", full, quantized_decode_attention,
+             decode_attention_plain, 0),
+            ("K5", "pool, shuffled pages of 128", pool, paged_decode_attention,
+             paged_decode_plain, table.numel() * 4)):
+        want = plain(qg, cache, 1.0).view(bd, kvh, d)
+        got = kernel(q, cache, scale=1.0, l2norm_qk=False)
+        torch.cuda.synchronize()
+        err = (got.float() - want.to(torch.bfloat16).float()).abs().max().item()
+        worst[name] = max(worst[name], err)
+        if not err <= BF16_ERR_BAR:
+            fail(f"{name} d256 full {label}: {err} against the plain version")
+        call = lambda: kernel(q, cache, scale=1.0, l2norm_qk=False)  # noqa: E731,B023
+        ms = device_ms(call, flush=scratch.zero_)
+        plain_ms = device_ms(lambda: plain(qg, cache, 1.0),  # noqa: B023
+                             flush=scratch.zero_)
+        bound_ms, by = bound(4 * d * tokens,
+                             tokens * (2 * d + 4) + small + extra)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=by, library_ms=None)
+        print(f"  {name} b{bd} kvh{kvh} g1 d{d} int8 {label}, 8 x 1024 tokens "
+              f"on {card}: vs plain {err:.3e} (bar {BF16_ERR_BAR:g}, bf16 "
+              f"output); device time kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({by}); no single "
+              f"PyTorch call computes it")
+
+    # the heads-256 model: both engines, training steps, its bias gradient
+    params = random_flax_params(
+        CosineSimCausalTransformer(**HEAD256_MODEL, device="meta"), SEED + 23)
+    model = build_model(params, torch.bfloat16, "cuda", HEAD256_MODEL)
+    rng = np.random.default_rng(SEED + 24)
+    vocab = HEAD256_MODEL["num_tokens"]
+    for c in counters:
+        c.launches = 0
+    seen = []
+    for engine in (InferenceEngine(model, **ENGINE, seed=SEED, device="cuda"),
+                   PagedInferenceEngine(model, **PAGED_ENGINE, seed=SEED,
+                                        device="cuda")):
+        for n in WIDE_PROMPTS:
+            slot = engine.add_request(rng.integers(0, vocab, n))
+            seen.append(int(engine.last_token[slot]))
+        for _ in range(8):
+            seen.extend(engine.step().values())
+    serving = dict(zip(("k1", "k4", "k5"), (counts()[0], *counts()[4:])))
+    del model
+    torch.manual_seed(SEED + 25)
+    trainee = CosineSimCausalTransformer(**HEAD256_MODEL,
+                                         dtype=torch.bfloat16, device="cuda")
+    opt = make_optimizer(trainee)
+    tokens = torch.from_numpy(rng.integers(
+        0, vocab, (HEAD256_TRAIN_STEPS, GRAD_ACCUM, BATCH_SIZE, s + 1)))
+    n0 = counts()
+    losses = [train_step(trainee, opt, batch.cuda()).item()
+              for batch in tokens]
+    trained = [n - m for n, m in zip(counts(), n0)][:2]
+    del trainee, opt
+    q, k, v = (randn(BATCH_SIZE, h, s, d).to(torch.bfloat16)
+               for _ in range(3))
+    bias = torch.zeros(h, s, s, device="cuda", requires_grad=True)
+    bias_opt = torch.optim.Adam([bias], lr=0.05)
+    n0 = counts()
+    for _ in range(3):
+        loss = flash_cosine_sim_attention(q, k, v, attn_bias=bias, causal=True,
+                                          scale=1.0).float().square().mean()
+        bias_opt.zero_grad()
+        loss.backward()
+        bias_opt.step()
+    bias_path = [n - m for n, m in zip(counts(), n0)][2:4]
+    launches = dict(k1=serving["k1"] + trained[0], k2=trained[1],
+                    k3a=bias_path[0], k3b=bias_path[1], k4=serving["k4"],
+                    k5=serving["k5"])
+    print(f"  heads {h} of {d}, bf16: both engines took prompts "
+          f"{WIDE_PROMPTS} and 8 steps each ({len(seen)} tokens); "
+          f"{HEAD256_TRAIN_STEPS} train steps, losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; 3 bias-gradient steps; "
+          f"launches {launches}")
+    per_train = GRAD_ACCUM * HEAD256_MODEL["depth"] * HEAD256_TRAIN_STEPS
+    if (min(launches.values()) <= 0 or trained != [per_train] * 2
+            or bias_path != [3, 3] or not np.all(np.isfinite(losses))
+            or not all(0 <= t < vocab for t in seen)):
+        fail(f"heads 256: launches {launches}, train {trained}, bias path "
+             f"{bias_path}, losses {losses}")
+    cfg = dict(HEAD256_MODEL, depth=2)
+    path_parity(random_flax_params(
+        CosineSimCausalTransformer(**cfg, device="meta"), SEED + 26), cfg=cfg)
+    return worst, rows, launches
+
+
 def main() -> None:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1764,6 +2129,8 @@ def main() -> None:
     prod_parity()
     print("[14] widths and groups")
     widths_and_groups(smi)
+    print("[15] head dims up to 256")
+    w_err, w_rows, w_launches = heads_256(smi)
 
     bwd = "flash_cosine_sim_attention_tpu/ops/bwd_kernel.py"
     src = "flash_cosine_sim_attention_tpu_torch/csrc/bwd_kernel.cu"
@@ -1817,6 +2184,24 @@ def main() -> None:
              launches=prod_launches["k1_prefill"],
              max_abs_err=quant_err["K1"], **quant_rows["K1 d128"]),
     ]
+    d256 = (
+        ("fwd_kernel:d256", "fwd_kernel.cu", "ops/fwd_kernel.py:47", "K1",
+         "k1"),
+        ("bwd_kernel:onepass:d256", "bwd_kernel.cu", "ops/bwd_kernel.py:456", "K2",
+         "k2"),
+        ("bwd_kernel:dq:d256", "bwd_kernel.cu", "ops/bwd_kernel.py:64", "K3a",
+         "k3a"),
+        ("bwd_kernel:dkdv:d256", "bwd_kernel.cu", "ops/bwd_kernel.py:282", "K3b",
+         "k3b"),
+        ("decode_kernel:d256", "decode_kernel.cu",
+         "quant/decode_kernel.py:137", "K4", "k4"),
+        ("paged_decode_kernel:d256", "paged_decode_kernel.cu",
+         "quant/paged.py:183", "K5", "k5"))
+    kernels += [dict(name=name, route="cuda", source=f"{csrc}/{file}",
+                     replaces=f"flash_cosine_sim_attention_tpu/{tpu}",
+                     launches=w_launches[key], max_abs_err=w_err[k],
+                     **w_rows[k])
+                for name, file, tpu, k, key in d256]
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke.py took {time.perf_counter() - started:.1f} s")
     print(smi)

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library under ``build/`` (listed in
 ``.gitignore``) at first use, then loaded with ``ctypes``.  The library's
-file name carries a hash of its source and of the shared ``csrc/*.cuh``
-headers, so an edited kernel is rebuilt and a stale one is never loaded.  Nothing here runs at import time.
+file name carries a hash of its source, of the shared ``csrc/*.cuh``
+headers and of the compiler flags, so an edited kernel is rebuilt and a
+stale one is never loaded.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -24,9 +25,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 KERNELS = ("fwd_kernel", "decode_kernel", "bwd_kernel", "paged_decode_kernel",
            "quant_matmul_kernel")
+# "-split-compile 0" runs a source's optimization passes on all cores:
+# the attention sources hold many unrolled instances (seven head widths
+# each) and set the length of the parallel build.  chip_smoke.py phase
+# [2] prints the build time and every instance's registers and spills.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-split-compile", "0",
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -61,6 +66,7 @@ def _lib_path(name: str) -> Path:
     h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):  # shared device helpers
         h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 

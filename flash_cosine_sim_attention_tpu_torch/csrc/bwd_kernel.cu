@@ -31,12 +31,12 @@
 //   which does not fit in 227 KB of shared memory.  The wrapper zeroes the
 //   scratch and scales and casts it afterwards.  The atomics' order varies
 //   from run to run.
-// - dq_kernel (K3a): one block per (batch, head, BQ queries) owns its dQ
-//   rows and loops over the keys they can see.  With a bias it adds each
-//   dS entry to an f32 (B|H, seq_q, seq_k) dB scratch with atomicAdd: the
-//   shared axis (batch for an (h, i, j) bias, heads for a (b, i, j) one)
-//   is summed by the blocks that share a bias slice, so there is no cap
-//   on its length (the TPU kernel capped it at 16 for VMEM).
+// - the dQ kernels (K3a): one block per (batch, head, 64 queries) owns its
+//   dQ rows and loops over the keys they can see.  With a bias it adds
+//   each dS entry to an f32 (B|H, seq_q, seq_k) dB scratch with atomics:
+//   the shared axis (batch for an (h, i, j) bias, heads for a (b, i, j)
+//   one) is summed by the blocks that share a bias slice, so there is no
+//   cap on its length (the TPU kernel capped it at 16 for VMEM).
 //
 // Bound on the H100 at the trainer's shape (b4 h8 s1024 d64 causal bf16):
 // K2's maths is 5 products of 2d FLOPs per visible (i, j) pair, ~10.7 GFLOP,
@@ -46,11 +46,13 @@
 // (136 visible 64 x 64 tile pairs per head, 64 x 64 each) into an 8.4 MB
 // scratch that stays in the 50 MB L2.  K3b (with an (h, i, j) bias) does
 // 4 of the products and reads the visible half of the f32 bias (~17 MB).
+// K3a does 3 (S, dP', dQ: ~6.4 GFLOP, ~6.5 us) and reads the same bias and
+// adds dS into dB (~17 MB, 8.4 M float2 adds), so it is bytes bound.
 //
 // bfloat16 inputs run the tensor-core kernel `dkdv_mma_kernel`, the
 // FlashAttention-2 backward reshaped for this op (no row max, JAX's exp2
 // convention, the prescaled dO' and delta').  4 warps of 128 threads, each
-// warp owning 16 of the block's 64 keys.  K and V arrive once by cp.async
+// warp owning 16 of the block's 64 keys (above d 128, 8 warps: see below).  K and V arrive once by cp.async
 // and stay in shared memory: their A fragments are read by ldmatrix per q
 // tile, since in registers they would cost 64 more at d 128 beside dK's
 // and dV's 128 accumulators.  Q, dO' and delta' tiles (64 queries; 32
@@ -81,13 +83,39 @@
 // at b1 h8/2 s1024 d128; the plain version itself moves 0.0104 when the
 // scale moves by 2^-21).
 //
-// float32 inputs keep the FMA kernel `dkdv_kernel`, and K3a stays FMA code
-// for both dtypes: every product is an f32 FMA out of shared memory (tiles
-// widened to f32 once at load, rows padded by one column against bank
-// conflicts), with e and dS in f32.  The f32 instances hold a 1e-4 bar
-// against the plain version that bf16 tensor cores cannot meet without
-// the 3-pass split of the JAX package; K3a (with its per-entry dB atomics)
-// is the next kernel to move to the tensor cores.
+// Above d 128 (the 192 and 256 instances) a warp cannot hold both dK and
+// dV of its 16 keys: 2 x 16 x d f32 is d registers a thread, 256 at d 256.
+// So a block has 8 warps, two for each 16 keys: the first forms S, e and
+// dV += e^T.dO', the second S, dP, e, dS and dK += dS^T.Q (and K2's dS^T
+// staging).  S is formed twice (one more product of 2d FLOPs per visible
+// pair), against a second pass over every Q and dO' tile, which would
+// form S twice as well and read the tiles twice.  All 8 warps share K2's
+// dQ products.  Query tiles are 32 rows at d 192 and 16 at d 256.
+//
+// K3a on bfloat16 runs the tensor-core kernel `dq_mma_kernel`, the
+// FlashAttention-2 dQ kernel for this op: 4 warps of 128 threads own 64
+// queries, 16 a warp.  Q and dO' arrive once by cp.async and stay in
+// shared memory (their A fragments held in registers up to d 64, read by
+// ldmatrix at every key tile above); delta' stays in registers.  K, V
+// and, with a bias, the (64 queries x keys) f32 bias tile stream through a
+// double-buffered cp.async ring, 64 keys a tile (32 above d 128, where
+// dQ's accumulators are d / 2 registers a thread).  Per tile:
+// S = Q.K^T and dP' = dO'.V^T by mma.sync, e and dS in registers (the
+// masks skipped on whole tiles), dS added to dB by float2 atomics
+// (red.global.add.v2.f32) before any rounding, and dQ += dS.K with dS's
+// C fragments re-packed as A fragments (hi + lo, as in the dK/dV kernel)
+// and K read by ldmatrix.trans; dQ is scaled once, at the store.  Causal
+// key loops stop at the block's last diagonal, and query tiles run
+// heaviest first.
+//
+// float32 inputs keep the FMA kernels `dkdv_kernel` and `dq_kernel`:
+// every product is an f32 FMA out of shared memory (tiles widened to f32
+// once at load, rows padded by one column against bank conflicts), with e
+// and dS in f32.  The f32 instances hold a 1e-4 bar against the plain
+// version that bf16 tensor cores cannot meet without the 3-pass split of
+// the JAX package.  Their tiles are 64 queries x 64 keys up to d 128 and
+// 32 x 32 above (four f32 tiles of 64 rows at d 256 would take 263 KB of
+// shared memory).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,10 +128,7 @@
 
 namespace {
 
-constexpr int BQ = 64;    // query rows per tile
-constexpr int BK = 64;    // keys per tile
-constexpr int NT = 256;   // threads: 16 row groups of 4 rows x 16 lanes
-constexpr int PP = BK + 1;
+constexpr int NT = 256;   // FMA kernels' threads: 16 row groups x 16 lanes
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -128,12 +153,17 @@ struct Params {
   float scale, c;       // c = scale * log2e
 };
 
+// The FMA kernels' tiles: B queries x B keys, a thread holding R rows x R
+// columns of the score tile (rows ty * R + r, columns tx + 16 c)
 template <int D>
-constexpr size_t smem_bytes() {
+struct Fma {
+  static constexpr int B = D > 128 ? 32 : 64;
+  static constexpr int R = B / 16;
+  static constexpr int PP = B + 1;  // e and dS tile row stride
   // q, dO, k, v tiles with one pad column; e and dS tiles; delta'
-  return sizeof(float) * (2 * size_t(BQ) * (D + 1) + 2 * size_t(BK) * (D + 1) +
-                          2 * size_t(BQ) * PP + BQ);
-}
+  static constexpr size_t SMEM =
+      sizeof(float) * (4 * size_t(B) * (D + 1) + 2 * size_t(B) * PP + B);
+};
 
 // rows [row0, row0 + rows) of a (*, D) tensor into a padded f32 tile;
 // rows at or past `end` load as 0
@@ -146,50 +176,49 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
   }
 }
 
-// One (BQ queries) x (BK keys) tile: s = q.k and dP' = dO'.v^T, then e and
+// One (B queries) x (B keys) tile: s = q.k and dP' = dO'.v^T, then e and
 // dS with every hidden entry at 0.  Writes e to `es` (if given) and dS to
 // `dss`, both [query][key]; adds dS to `db` (if given) at (row, col).
-// Thread (ty, tx) holds rows ty*4 + r and columns tx + 16*cc.
 template <int D>
 __device__ __forceinline__ void score_tile(
     const float* qs, const float* dos, const float* ks, const float* vs,
     const float* dl, float* es, float* dss, int q0, int k0, const Params& p,
     const uint8_t* mb, const float* bb, float* db) {
-  constexpr int DP = D + 1;
+  constexpr int DP = D + 1, R = Fma<D>::R, PP = Fma<D>::PP;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[4][4], dp[4][4];
+  float s[R][R], dp[R][R];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int cc = 0; cc < 4; ++cc) s[r][cc] = dp[r][cc] = 0.f;
+    for (int cc = 0; cc < R; ++cc) s[r][cc] = dp[r][cc] = 0.f;
 #pragma unroll 4
   for (int dd = 0; dd < D; ++dd) {
-    float a[4], g[4], b[4], w[4];
+    float a[R], g[R], b[R], w[R];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      a[r] = qs[(ty * 4 + r) * DP + dd];
-      g[r] = dos[(ty * 4 + r) * DP + dd];
+    for (int r = 0; r < R; ++r) {
+      a[r] = qs[(ty * R + r) * DP + dd];
+      g[r] = dos[(ty * R + r) * DP + dd];
     }
 #pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
+    for (int cc = 0; cc < R; ++cc) {
       b[cc] = ks[(tx + 16 * cc) * DP + dd];
       w[cc] = vs[(tx + 16 * cc) * DP + dd];
     }
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
+      for (int cc = 0; cc < R; ++cc) {
         s[r][cc] = fmaf(a[r], b[cc], s[r][cc]);
         dp[r][cc] = fmaf(g[r], w[cc], dp[r][cc]);
       }
   }
   const int diff = p.seq_k - p.seq_q;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int lr = ty * 4 + r, row = q0 + lr;
+  for (int r = 0; r < R; ++r) {
+    const int lr = ty * R + r, row = q0 + lr;
     const float dlt = dl[lr];
 #pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
+    for (int cc = 0; cc < R; ++cc) {
       const int lc = tx + 16 * cc, col = k0 + lc;
       bool keep = row < p.seq_q && col < p.seq_k;
       if (p.causal) keep = keep && col <= row + diff;
@@ -213,6 +242,7 @@ template <typename T, int D, bool DQ>
 __global__ void __launch_bounds__(NT) dkdv_kernel(Params p) {
   constexpr int DP = D + 1;
   constexpr int DC = D / 16;  // output columns per thread
+  constexpr int BQ = Fma<D>::B, BK = Fma<D>::B, R = Fma<D>::R, PP = Fma<D>::PP;
   extern __shared__ float smem[];
   float* qs = smem;            // BQ x DP
   float* dos = qs + BQ * DP;   // BQ x DP
@@ -230,9 +260,9 @@ __global__ void __launch_bounds__(NT) dkdv_kernel(Params p) {
   load_tile<T, D>(vs, static_cast<const T*>(p.v) + kvoff, k0, p.seq_k, BK);
   const uint8_t* mb = p.mask ? p.mask + size_t(bi) * p.seq_k : nullptr;
 
-  float adk[4][DC], adv[4][DC];
+  float adk[R][DC], adv[R][DC];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int cc = 0; cc < DC; ++cc) adk[r][cc] = adv[r][cc] = 0.f;
 
@@ -261,18 +291,18 @@ __global__ void __launch_bounds__(NT) dkdv_kernel(Params p) {
       // dV += e^T dO', dK += dS^T q: contraction over the tile's queries
 #pragma unroll 4
       for (int ii = 0; ii < BQ; ++ii) {
-        float e[4], ds[4];
+        float e[R], ds[R];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          e[r] = es[ii * PP + ty * 4 + r];
-          ds[r] = dss[ii * PP + ty * 4 + r];
+        for (int r = 0; r < R; ++r) {
+          e[r] = es[ii * PP + ty * R + r];
+          ds[r] = dss[ii * PP + ty * R + r];
         }
 #pragma unroll
         for (int cc = 0; cc < DC; ++cc) {
           const float o = dos[ii * DP + tx + 16 * cc];
           const float qv = qs[ii * DP + tx + 16 * cc];
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
+          for (int r = 0; r < R; ++r) {
             adv[r][cc] = fmaf(e[r], o, adv[r][cc]);
             adk[r][cc] = fmaf(ds[r], qv, adk[r][cc]);
           }
@@ -281,27 +311,27 @@ __global__ void __launch_bounds__(NT) dkdv_kernel(Params p) {
 
       if constexpr (DQ) {
         // dQ += dS k for this tile's queries, added across key blocks
-        float aq[4][DC];
+        float aq[R][DC];
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+        for (int r = 0; r < R; ++r)
 #pragma unroll
           for (int cc = 0; cc < DC; ++cc) aq[r][cc] = 0.f;
 #pragma unroll 4
         for (int jj = 0; jj < BK; ++jj) {
-          float a[4];
+          float a[R];
 #pragma unroll
-          for (int r = 0; r < 4; ++r) a[r] = dss[(ty * 4 + r) * PP + jj];
+          for (int r = 0; r < R; ++r) a[r] = dss[(ty * R + r) * PP + jj];
 #pragma unroll
           for (int cc = 0; cc < DC; ++cc) {
             const float kv = ks[jj * DP + tx + 16 * cc];
 #pragma unroll
-            for (int r = 0; r < 4; ++r) aq[r][cc] = fmaf(a[r], kv, aq[r][cc]);
+            for (int r = 0; r < R; ++r) aq[r][cc] = fmaf(a[r], kv, aq[r][cc]);
           }
         }
         float* dqb = p.dq_acc + qrow0 * D;
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int row = q0 + ty * 4 + r;
+        for (int r = 0; r < R; ++r) {
+          const int row = q0 + ty * R + r;
           if (row >= p.seq_q) continue;
 #pragma unroll
           for (int cc = 0; cc < DC; ++cc)
@@ -314,8 +344,8 @@ __global__ void __launch_bounds__(NT) dkdv_kernel(Params p) {
   T* dkb = static_cast<T*>(p.dk) + kvoff;
   T* dvb = static_cast<T*>(p.dv) + kvoff;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int col = k0 + ty * 4 + r;
+  for (int r = 0; r < R; ++r) {
+    const int col = k0 + ty * R + r;
     if (col >= p.seq_k) continue;
 #pragma unroll
     for (int cc = 0; cc < DC; ++cc) {
@@ -325,11 +355,12 @@ __global__ void __launch_bounds__(NT) dkdv_kernel(Params p) {
   }
 }
 
-// K3a: grid (query tiles, H, B).
+// K3a on f32 FMAs: grid (query tiles, H, B).
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) dq_kernel(Params p) {
   constexpr int DP = D + 1;
   constexpr int DC = D / 16;
+  constexpr int BQ = Fma<D>::B, BK = Fma<D>::B, R = Fma<D>::R, PP = Fma<D>::PP;
   extern __shared__ float smem[];
   float* qs = smem;
   float* dos = qs + BQ * DP;
@@ -358,9 +389,9 @@ __global__ void __launch_bounds__(NT) dq_kernel(Params p) {
       p.causal ? max(0, min(p.seq_k, last_row + p.seq_k - p.seq_q + 1)) : p.seq_k;
   const int nk = (kend + BK - 1) / BK;
 
-  float acc[4][DC];
+  float acc[R][DC];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int cc = 0; cc < DC; ++cc) acc[r][cc] = 0.f;
 
@@ -374,22 +405,22 @@ __global__ void __launch_bounds__(NT) dq_kernel(Params p) {
     __syncthreads();
 #pragma unroll 4
     for (int jj = 0; jj < BK; ++jj) {
-      float a[4];
+      float a[R];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = dss[(ty * 4 + r) * PP + jj];
+      for (int r = 0; r < R; ++r) a[r] = dss[(ty * R + r) * PP + jj];
 #pragma unroll
       for (int cc = 0; cc < DC; ++cc) {
         const float kv = ks[jj * DP + tx + 16 * cc];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) acc[r][cc] = fmaf(a[r], kv, acc[r][cc]);
+        for (int r = 0; r < R; ++r) acc[r][cc] = fmaf(a[r], kv, acc[r][cc]);
       }
     }
   }
 
   T* dqb = static_cast<T*>(p.dq) + qrow0 * D;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + ty * 4 + r;
+  for (int r = 0; r < R; ++r) {
+    const int row = q0 + ty * R + r;
     if (row >= p.seq_q) continue;
 #pragma unroll
     for (int cc = 0; cc < DC; ++cc)
@@ -399,17 +430,21 @@ __global__ void __launch_bounds__(NT) dq_kernel(Params p) {
 
 // ---------------------------------------------------------------------------
 // Tensor-core dK/dV kernel (bf16): K2 (DQ = true) and K3b (DQ = false).
-// Grid (KVH, B, key tiles); MNT threads, warp w owning keys k0 + 16w ..
+// Grid (KVH, B, key tiles); L::NT threads, warp w owning keys
+// k0 + 16 (w % 4) ..
 
-constexpr int MW = 4;          // warps
-constexpr int MBK = 16 * MW;   // keys per block
-constexpr int MNT = 32 * MW;   // threads
+constexpr int MBK = 64;  // keys per block: 16 a warp, 4 key groups
 
 template <int D, bool DQ>
 struct MmaLayout {
+  // warps: up to d 128 one a key group, forming dK and dV; above, two,
+  // one forming dV and one dK (a thread holds d / 2 accumulators either way)
+  static constexpr int W = D > 128 ? 8 : 4;
+  static constexpr int NT = 32 * W;
   // queries per tile: fewer at larger d keep the S tiles and the
   // accumulators within 255 registers (K3b's bias path needs 16 at d 128)
-  static constexpr int BQ = D <= 64 ? 64 : (DQ || D <= 96 ? 32 : 16);
+  static constexpr int BQ =
+      D <= 64 ? 64 : D <= 128 ? (DQ || D <= 96 ? 32 : 16) : D <= 192 ? 32 : 16;
   static constexpr int RS = 2 * D + 16;        // bf16 row stride, bytes: an
   static constexpr int SS = 2 * BQ + 16;       // odd count of 16-byte units,
                                                // so ldmatrix rows hit 8 banks
@@ -435,7 +470,7 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
 }
 
 // The A fragments (hi, lo) of k16 step j from the C fragments of n8 tiles
-// 2j and 2j + 1 of a (16 x BQ) f32 tile
+// 2j and 2j + 1 of a (16 x N) f32 tile
 template <int NQ>
 __device__ __forceinline__ void split_a(const float (&c)[NQ][4], int j,
                                         uint32_t (&hi)[4], uint32_t (&lo)[4]) {
@@ -445,19 +480,88 @@ __device__ __forceinline__ void split_a(const float (&c)[NQ][4], int j,
   split_bf16(c[2 * j + 1][2], c[2 * j + 1][3], hi[3], lo[3]);
 }
 
+// acc (16 x D, C fragments) += c . src, where c is a (16 x N) f32 tile in C
+// fragments fed as bf16 hi + lo A fragments, and src an (N x D) bf16 tile
+// in shared memory, rows RS bytes apart, read by ldmatrix.trans
+template <int N, int D, int RS>
+__device__ __forceinline__ void add_product(float (&acc)[D / 8][4],
+                                            const float (&c)[N / 8][4],
+                                            const unsigned char* src, int lane) {
+#pragma unroll
+  for (int j = 0; j < N / 16; ++j) {
+    uint32_t ah[4], al[4];
+    split_a(c, j, ah, al);
+#pragma unroll
+    for (int dn = 0; dn < D / 16; ++dn) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, src + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
+                               (dn * 16 + (lane >> 4) * 8) * 2);
+      mma_bf16(acc[2 * dn], ah, b[0], b[1]);
+      mma_bf16(acc[2 * dn], al, b[0], b[1]);
+      mma_bf16(acc[2 * dn + 1], ah, b[2], b[3]);
+      mma_bf16(acc[2 * dn + 1], al, b[2], b[3]);
+    }
+  }
+}
+
+// `nrows` rows of D bf16 from global rows [first, first + nrows) of `src`
+// (rows past `limit` as zeros) to shared memory rows RS bytes apart, by
+// the block's NTH threads
+template <int D, int RS, int NTH>
+__device__ __forceinline__ void load_bf16_rows(unsigned char* dst, const void* src,
+                                               int first, int nrows, int limit) {
+  constexpr int chunks = 2 * D / 16;
+  const unsigned char* sb = static_cast<const unsigned char*>(src);
+  for (int idx = threadIdx.x; idx < nrows * chunks; idx += NTH) {
+    const int r = idx / chunks, cc = (idx % chunks) * 16, row = first + r;
+    const bool in = row < limit;
+    cp_async16(dst + r * RS + cc, in ? sb + size_t(row) * 2 * D + cc : sb,
+               in ? 16 : 0);
+  }
+}
+
+// An f32 bias tile: rows [0, nrows) x columns [0, ncols) of the (*, ld)
+// matrix at `src` (from its tile corner; rows past `rows`, columns past
+// `cols` as zeros) to shared memory rows `stride` floats apart; 16-byte
+// copies where every row starts 16-byte aligned (`by16`), else 4-byte ones
+template <int NTH>
+__device__ __forceinline__ void load_bias_tile(float* dst, const float* src,
+                                               int nrows, int ncols, int rows,
+                                               int cols, int ld, int stride,
+                                               bool by16) {
+  if (by16) {
+    const int per_row = ncols / 4;
+    for (int idx = threadIdx.x; idx < nrows * per_row; idx += NTH) {
+      const int r = idx / per_row, c = (idx % per_row) * 4;
+      const int n = r < rows ? 4 * max(0, min(4, cols - c)) : 0;
+      cp_async16(dst + r * stride + c, n ? src + size_t(r) * ld + c : src, n);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < nrows * ncols; idx += NTH) {
+      const int r = idx / ncols, c = idx % ncols;
+      const bool in = r < rows && c < cols;
+      cp_async4(dst + r * stride + c, in ? src + size_t(r) * ld + c : src,
+                in ? 4 : 0);
+    }
+  }
+}
+
 // T: __nv_bfloat16 (q, k, v, dO' and dK, dV)
 template <typename T, int D, bool DQ>
-__global__ void __launch_bounds__(MNT, 1) dkdv_mma_kernel(Params p) {
+__global__ void __launch_bounds__(MmaLayout<D, DQ>::NT, 1)
+    dkdv_mma_kernel(Params p) {
   static_assert(std::is_same<T, __nv_bfloat16>::value, "bf16 operands");
   using L = MmaLayout<D, DQ>;
-  constexpr int BQ = L::BQ, RS = L::RS, SS = L::SS;
+  constexpr int BQ = L::BQ, RS = L::RS, SS = L::SS, W = L::W, NTH = L::NT;
+  constexpr bool SPLIT = W == 8;  // a warp forms dV or dK, not both
+  constexpr int NACC = SPLIT ? 1 : 2;
   constexpr int NQ = BQ / 8;     // n8 tiles of a warp's (16 keys x BQ) tile
   constexpr int ND = D / 8;      // n8 tiles over the head dim
   constexpr int QG = BQ / 16;    // dQ: 16-query groups of a tile ...
-  constexpr int DP = MW / QG;    // ... and the head-dim parts per group
+  constexpr int DP = W / QG;     // ... and the head-dim parts per group
   constexpr int NDQ = ND / DP;   // n8 tiles of a warp's dQ part, formed
-  constexpr int NH = D > 96 ? 2 : 1;  // in NH passes (d 128: registers)
-  constexpr int NDH = NDQ / NH;
+  constexpr int NH = !SPLIT && D > 96 ? 2 : 1;  // in NH passes (d 128:
+  constexpr int NDH = NDQ / NH;                 // registers)
   static_assert(NDH % 2 == 0, "dQ passes take pairs of n8 tiles");
   extern __shared__ __align__(16) unsigned char msmem[];
   unsigned char* ks = msmem;
@@ -471,6 +575,9 @@ __global__ void __launch_bounds__(MNT, 1) dkdv_mma_kernel(Params p) {
   const int kvhi = blockIdx.x, bi = blockIdx.y, k0 = blockIdx.z * MBK;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tq = lane & 3;
+  const int kg = warp & 3;                        // the warp's 16 keys
+  const bool forms_dv = !SPLIT || warp < 4;       // warp-uniform roles
+  const bool forms_dk = !SPLIT || warp >= 4;
   const int G = p.H / p.KVH, diff = p.seq_k - p.seq_q;
   const size_t kvrow0 = (size_t(bi) * p.KVH + kvhi) * p.seq_k;
   const uint8_t* mb = p.mask ? p.mask + size_t(bi) * p.seq_k : nullptr;
@@ -482,33 +589,22 @@ __global__ void __launch_bounds__(MNT, 1) dkdv_mma_kernel(Params p) {
   const int per_head = max(0, (p.seq_q + BQ - 1) / BQ - qt0);
   const int total = G * per_head;
 
-  // `nrows` rows of D bf16 from global rows [first, first + nrows) of `src`
-  // (rows past `limit` as zeros) to shared memory rows RS bytes apart
-  auto load_rows = [&](unsigned char* dst, const void* src, int first,
-                       int nrows, int limit) {
-    constexpr int chunks = 2 * D / 16;
-    const unsigned char* sb = static_cast<const unsigned char*>(src);
-    for (int idx = tid; idx < nrows * chunks; idx += MNT) {
-      const int r = idx / chunks, cc = (idx % chunks) * 16, row = first + r;
-      const bool in = row < limit;
-      cp_async16(dst + r * RS + cc, in ? sb + size_t(row) * 2 * D + cc : sb,
-                 in ? 16 : 0);
-    }
-  };
   auto q_rows = [&](int it) {  // the query rows' first index, (b, h, 0)
     return (size_t(bi) * p.H + kvhi * G + it / per_head) * p.seq_q;
   };
-  const bool bias16 = p.seq_k % 4 == 0;  // bias rows in 16-byte units
+  // bias rows in 16-byte units
+  const bool bias16 =
+      p.seq_k % 4 == 0 && reinterpret_cast<uintptr_t>(p.bias) % 16 == 0;
   auto load_tile = [&](int it, int buf) {
     const size_t qrow0 = q_rows(it);
     const int q0 = (qt0 + it % per_head) * BQ;
-    load_rows(qs + buf * L::QT,
-              static_cast<const T*>(p.q) + qrow0 * D, q0, BQ,
-              p.seq_q);
-    load_rows(dos + buf * L::QT,
-              static_cast<const T*>(p.dO) + qrow0 * D, q0, BQ,
-              p.seq_q);
-    for (int i = tid; i < BQ; i += MNT) {
+    load_bf16_rows<D, RS, NTH>(qs + buf * L::QT,
+                               static_cast<const T*>(p.q) + qrow0 * D, q0, BQ,
+                               p.seq_q);
+    load_bf16_rows<D, RS, NTH>(dos + buf * L::QT,
+                               static_cast<const T*>(p.dO) + qrow0 * D, q0,
+                               BQ, p.seq_q);
+    for (int i = tid; i < BQ; i += NTH) {
       const bool in = q0 + i < p.seq_q;
       cp_async4(dls + buf * BQ + i, in ? p.delta + qrow0 + q0 + i : p.delta,
                 in ? 4 : 0);
@@ -516,40 +612,31 @@ __global__ void __launch_bounds__(MNT, 1) dkdv_mma_kernel(Params p) {
     if (DQ || p.bias == nullptr) return;
     // the bias tile (queries q0.., keys k0..), past either length as 0
     const int hb = p.bias_batch_dim ? bi : kvhi * G + it / per_head;
-    const float* bb = p.bias + (size_t(hb) * p.seq_q + q0) * p.seq_k + k0;
-    float* dst = bss + buf * BQ * L::BS;
-    const int rows = min(BQ, p.seq_q - q0), cols = min(MBK, p.seq_k - k0);
-    if (bias16) {
-      for (int idx = tid; idx < BQ * MBK / 4; idx += MNT) {
-        const int r = idx / (MBK / 4), c = (idx % (MBK / 4)) * 4;
-        const int n = r < rows ? 4 * max(0, min(4, cols - c)) : 0;
-        cp_async16(dst + r * L::BS + c, n ? bb + size_t(r) * p.seq_k + c : bb,
-                   n);
-      }
-    } else {
-      for (int idx = tid; idx < BQ * MBK; idx += MNT) {
-        const int r = idx / MBK, c = idx % MBK;
-        const bool in = r < rows && c < cols;
-        cp_async4(dst + r * L::BS + c, in ? bb + size_t(r) * p.seq_k + c : bb,
-                  in ? 4 : 0);
-      }
-    }
+    load_bias_tile<NTH>(bss + buf * BQ * L::BS,
+                        p.bias + (size_t(hb) * p.seq_q + q0) * p.seq_k + k0,
+                        BQ, MBK, p.seq_q - q0, p.seq_k - k0, p.seq_k, L::BS,
+                        bias16);
   };
 
   if (total > 0) {
-    load_rows(ks, static_cast<const T*>(p.k) + kvrow0 * D, k0, MBK, p.seq_k);
-    load_rows(vs, static_cast<const T*>(p.v) + kvrow0 * D, k0, MBK, p.seq_k);
+    load_bf16_rows<D, RS, NTH>(ks, static_cast<const T*>(p.k) + kvrow0 * D,
+                               k0, MBK, p.seq_k);
+    load_bf16_rows<D, RS, NTH>(vs, static_cast<const T*>(p.v) + kvrow0 * D,
+                               k0, MBK, p.seq_k);
     load_tile(0, 0);
   }
   cp_async_commit();
 
-  float dk[ND][4], dv[ND][4];
+  // up to d 128: dV, then dK; above, the one this warp forms
+  float acc[NACC][ND][4];
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
+  for (int a = 0; a < NACC; ++a)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][n][e] = 0.f;
   // this thread's keys: C rows g and g + 8 of the warp's 16
-  const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  const int keys[2] = {k0 + kg * 16 + g, k0 + kg * 16 + g + 8};
   bool key_ok[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h)
@@ -568,8 +655,8 @@ __global__ void __launch_bounds__(MNT, 1) dkdv_mma_kernel(Params p) {
     const unsigned char* dot = dos + buf * L::QT;
     const float* dl = dls + buf * BQ;
 
-    // S^T = K.Q^T, dP^T = V.dO'^T: an x4 ldmatrix of Q / dO' gives the B
-    // fragments of 2 n8 tiles
+    // S^T = K.Q^T, dP^T = V.dO'^T (dP^T only where dK is formed): an x4
+    // ldmatrix of Q / dO' gives the B fragments of 2 n8 tiles
     float s[NQ][4], dp[NQ][4];
 #pragma unroll
     for (int n = 0; n < NQ; ++n)
@@ -578,9 +665,9 @@ __global__ void __launch_bounds__(MNT, 1) dkdv_mma_kernel(Params p) {
 #pragma unroll
     for (int st = 0; st < D / 16; ++st) {
       uint32_t ka[4], va[4];
-      const int arow = (warp * 16 + (lane & 15)) * RS + st * 32 + (lane >> 4) * 16;
+      const int arow = (kg * 16 + (lane & 15)) * RS + st * 32 + (lane >> 4) * 16;
       ldmatrix_x4(ka, ks + arow);
-      ldmatrix_x4(va, vs + arow);
+      if (forms_dk) ldmatrix_x4(va, vs + arow);
 #pragma unroll
       for (int j = 0; j < NQ / 2; ++j) {
         const int brow = (j * 16 + (lane & 7) + (lane >> 4) * 8) * RS +
@@ -589,9 +676,11 @@ __global__ void __launch_bounds__(MNT, 1) dkdv_mma_kernel(Params p) {
         ldmatrix_x4(b, qt + brow);
         mma_bf16(s[2 * j], ka, b[0], b[1]);
         mma_bf16(s[2 * j + 1], ka, b[2], b[3]);
-        ldmatrix_x4(b, dot + brow);
-        mma_bf16(dp[2 * j], va, b[0], b[1]);
-        mma_bf16(dp[2 * j + 1], va, b[2], b[3]);
+        if (forms_dk) {
+          ldmatrix_x4(b, dot + brow);
+          mma_bf16(dp[2 * j], va, b[0], b[1]);
+          mma_bf16(dp[2 * j + 1], va, b[2], b[3]);
+        }
       }
     }
 
@@ -602,7 +691,7 @@ __global__ void __launch_bounds__(MNT, 1) dkdv_mma_kernel(Params p) {
     const bool whole = keys_whole && q0 + BQ <= p.seq_q &&
                        (!p.causal || k0 + MBK - 1 <= q0 + diff);
     const bool has_bias = !DQ && p.bias != nullptr;
-    const float* bt = bss + buf * BQ * L::BS + warp * 16 + g;
+    const float* bt = bss + buf * BQ * L::BS + kg * 16 + g;
 #pragma unroll
     for (int n = 0; n < NQ; ++n)
 #pragma unroll
@@ -629,51 +718,25 @@ __global__ void __launch_bounds__(MNT, 1) dkdv_mma_kernel(Params p) {
       }
 
     if constexpr (DQ) {  // stage dS^T (keys x queries) for dQ = dS.K
+      if (forms_dk) {
 #pragma unroll
-      for (int n = 0; n < NQ; ++n)
+        for (int n = 0; n < NQ; ++n)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int at = (warp * 16 + g + 8 * h) * SS + (n * 8 + 2 * tq) * 2;
-          split_bf16(dp[n][2 * h], dp[n][2 * h + 1],
-                     *reinterpret_cast<uint32_t*>(dss + at),
-                     *reinterpret_cast<uint32_t*>(dss + MBK * SS + at));
-        }
+          for (int h = 0; h < 2; ++h) {
+            const int at = (kg * 16 + g + 8 * h) * SS + (n * 8 + 2 * tq) * 2;
+            split_bf16(dp[n][2 * h], dp[n][2 * h + 1],
+                       *reinterpret_cast<uint32_t*>(dss + at),
+                       *reinterpret_cast<uint32_t*>(dss + MBK * SS + at));
+          }
+      }
     }
 
     // dV += e^T.dO', then dK += dS^T.Q: n8 tiles 2j, 2j + 1 of e^T / dS^T
     // are the A fragments (hi and lo) of k16 step j (queries 16j ..); two
     // passes, so one operand's fragments are live at a time (d 128 stays
     // within 255 registers)
-#pragma unroll
-    for (int j = 0; j < BQ / 16; ++j) {
-      uint32_t ah[4], al[4];
-      split_a(s, j, ah, al);
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, dot + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
-                                 (dn * 16 + (lane >> 4) * 8) * 2);
-        mma_bf16(dv[2 * dn], ah, b[0], b[1]);
-        mma_bf16(dv[2 * dn], al, b[0], b[1]);
-        mma_bf16(dv[2 * dn + 1], ah, b[2], b[3]);
-        mma_bf16(dv[2 * dn + 1], al, b[2], b[3]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < BQ / 16; ++j) {
-      uint32_t ah[4], al[4];
-      split_a(dp, j, ah, al);
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, qt + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
-                                 (dn * 16 + (lane >> 4) * 8) * 2);
-        mma_bf16(dk[2 * dn], ah, b[0], b[1]);
-        mma_bf16(dk[2 * dn], al, b[0], b[1]);
-        mma_bf16(dk[2 * dn + 1], ah, b[2], b[3]);
-        mma_bf16(dk[2 * dn + 1], al, b[2], b[3]);
-      }
-    }
+    if (forms_dv) add_product<BQ, D, RS>(acc[0], s, dot, lane);
+    if (forms_dk) add_product<BQ, D, RS>(acc[NACC - 1], dp, qt, lane);
 
     if constexpr (DQ) {
       // dQ rows of this tile += dS.K over the block's 64 keys: warp w takes
@@ -733,11 +796,226 @@ __global__ void __launch_bounds__(MNT, 1) dkdv_mma_kernel(Params p) {
     const size_t at = size_t(keys[h]) * D + 2 * tq;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<uint32_t*>(dkb + at + n * 8) =
-          pack_bf16(dk[n][2 * h] * p.scale, dk[n][2 * h + 1] * p.scale);
-      *reinterpret_cast<uint32_t*>(dvb + at + n * 8) =
-          pack_bf16(dv[n][2 * h], dv[n][2 * h + 1]);
+      const float* a = acc[NACC - 1][n];
+      if (forms_dk)
+        *reinterpret_cast<uint32_t*>(dkb + at + n * 8) =
+            pack_bf16(a[2 * h] * p.scale, a[2 * h + 1] * p.scale);
+      if (forms_dv)
+        *reinterpret_cast<uint32_t*>(dvb + at + n * 8) =
+            pack_bf16(acc[0][n][2 * h], acc[0][n][2 * h + 1]);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core dQ / dB kernel (bf16): K3a.  Grid (query tiles, H, B), query
+// tiles heaviest first; DQ_NT threads, warp w owning queries q0 + 16w ..
+
+constexpr int DQ_BQ = 64;   // queries per block
+constexpr int DQ_NT = 128;  // threads: 4 warps
+
+template <int D>
+struct DqLayout {
+  static constexpr int BK = D > 128 ? 32 : 64;   // keys per tile
+  static constexpr int RS = 2 * D + 16;           // bf16 row stride, bytes
+  static constexpr int BS = BK + 8;               // bias row stride, floats:
+                                                  // rows 8 banks apart, so a
+                                                  // half warp's float2 reads
+                                                  // hit 32 distinct banks
+  static constexpr size_t QT = size_t(DQ_BQ) * RS;  // the Q or dO' tile
+  static constexpr size_t KT = size_t(BK) * RS;     // one K or V tile
+  // Q, dO'; two K and two V tiles; then two bias tiles (64 queries x BK
+  // keys, f32)
+  static constexpr size_t BASE = 2 * QT + 4 * KT;
+  static constexpr size_t BIAS = 2 * size_t(DQ_BQ) * BS * sizeof(float);
+};
+
+// T: __nv_bfloat16 (q, k, v, dO' and dQ)
+template <typename T, int D>
+__global__ void __launch_bounds__(DQ_NT, 1) dq_mma_kernel(Params p) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "bf16 operands");
+  using L = DqLayout<D>;
+  constexpr int BK = L::BK, RS = L::RS, BS = L::BS;
+  constexpr int NS = BK / 8;       // n8 tiles of a warp's (16 x BK) S tile
+  constexpr int ND = D / 8;        // n8 tiles of dQ
+  constexpr int KSTEPS = D / 16;   // k16 steps of S and dP'
+  constexpr bool QREG = D <= 64;   // Q's and dO''s A fragments in registers
+  extern __shared__ __align__(16) unsigned char msmem[];
+  unsigned char* qs = msmem;
+  unsigned char* dos = qs + L::QT;
+  unsigned char* ks = dos + L::QT;       // 2 buffers
+  unsigned char* vs = ks + 2 * L::KT;    // 2 buffers
+  float* bss = reinterpret_cast<float*>(vs + 2 * L::KT);  // 2 bias tiles
+
+  const int bi = blockIdx.z, hi = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * DQ_BQ;  // heaviest first
+  const int kvhi = hi / (p.H / p.KVH);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int diff = p.seq_k - p.seq_q;
+  const size_t qrow0 = (size_t(bi) * p.H + hi) * p.seq_q;
+  const size_t kvrow0 = (size_t(bi) * p.KVH + kvhi) * p.seq_k;
+  const uint8_t* mb = p.mask ? p.mask + size_t(bi) * p.seq_k : nullptr;
+  const size_t bslice = size_t(p.bias_batch_dim ? bi : hi) * p.seq_q * p.seq_k;
+  const float* bb = p.bias ? p.bias + bslice : nullptr;
+  float* db = p.db ? p.db + bslice : nullptr;
+
+  // keys this block can see: all, or (causal) up to its last row's diagonal
+  const int last_row = min(q0 + DQ_BQ, p.seq_q) - 1;
+  const int kend = p.causal ? max(0, min(p.seq_k, last_row + diff + 1)) : p.seq_k;
+  const int nk = (kend + BK - 1) / BK;
+
+  const bool bias16 =
+      p.seq_k % 4 == 0 && reinterpret_cast<uintptr_t>(p.bias) % 16 == 0;
+  auto load_kv = [&](int kt, int buf) {
+    const int k0 = kt * BK;
+    load_bf16_rows<D, RS, DQ_NT>(ks + buf * L::KT,
+                                 static_cast<const T*>(p.k) + kvrow0 * D, k0,
+                                 BK, p.seq_k);
+    load_bf16_rows<D, RS, DQ_NT>(vs + buf * L::KT,
+                                 static_cast<const T*>(p.v) + kvrow0 * D, k0,
+                                 BK, p.seq_k);
+    if (bb != nullptr)
+      load_bias_tile<DQ_NT>(bss + buf * DQ_BQ * BS,
+                            bb + size_t(q0) * p.seq_k + k0, DQ_BQ, BK,
+                            p.seq_q - q0, p.seq_k - k0, p.seq_k, BS, bias16);
+  };
+  if (nk > 0) {
+    load_bf16_rows<D, RS, DQ_NT>(qs, static_cast<const T*>(p.q) + qrow0 * D,
+                                 q0, DQ_BQ, p.seq_q);
+    load_bf16_rows<D, RS, DQ_NT>(dos, static_cast<const T*>(p.dO) + qrow0 * D,
+                                 q0, DQ_BQ, p.seq_q);
+    load_kv(0, 0);
+  }
+  cp_async_commit();
+
+  // this thread's query rows: C rows g and g + 8 of the warp's 16
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  float dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    dlt[h] = rows[h] < p.seq_q ? p.delta[qrow0 + rows[h]] : 0.f;
+  // dS goes to dB as float2 adds where a row's entries pair up 8-byte
+  // aligned (even seq_k: the tile columns 2tq are even)
+  const bool db2 = p.seq_k % 2 == 0;
+
+  float dq[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  uint32_t qf[QREG ? KSTEPS : 1][4], df[QREG ? KSTEPS : 1][4];
+  const int arow = (warp * 16 + (lane & 15)) * RS + (lane >> 4) * 16;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1, k0 = kt * BK;
+    if (kt + 1 < nk) load_kv(kt + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile kt (and, at kt 0, Q and dO') has landed
+    if constexpr (QREG) {
+      if (kt == 0) {
+#pragma unroll
+        for (int st = 0; st < KSTEPS; ++st) {
+          ldmatrix_x4(qf[st], qs + arow + st * 32);
+          ldmatrix_x4(df[st], dos + arow + st * 32);
+        }
+      }
+    }
+    const unsigned char* kt_s = ks + buf * L::KT;
+    const unsigned char* vt_s = vs + buf * L::KT;
+
+    // S = Q.K^T, dP' = dO'.V^T: an x4 ldmatrix of K / V gives the B
+    // fragments of 2 n8 tiles
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int st = 0; st < KSTEPS; ++st) {
+      uint32_t qa[4], da[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          qa[i] = qf[st][i];
+          da[i] = df[st][i];
+        }
+      } else {
+        ldmatrix_x4(qa, qs + arow + st * 32);
+        ldmatrix_x4(da, dos + arow + st * 32);
+      }
+#pragma unroll
+      for (int j = 0; j < NS / 2; ++j) {
+        const int brow = (j * 16 + (lane & 7) + (lane >> 4) * 8) * RS +
+                         st * 32 + ((lane >> 3) & 1) * 16;
+        uint32_t b[4];
+        ldmatrix_x4(b, kt_s + brow);
+        mma_bf16(s[2 * j], qa, b[0], b[1]);
+        mma_bf16(s[2 * j + 1], qa, b[2], b[3]);
+        ldmatrix_x4(b, vt_s + brow);
+        mma_bf16(dp[2 * j], da, b[0], b[1]);
+        mma_bf16(dp[2 * j + 1], da, b[2], b[3]);
+      }
+    }
+
+    // dS into dp, in the C layout: entry (n, 2h + x) is query rows[h], key
+    // k0 + 8n + 2tq + x.  A tile whose every (query, key) pair is visible
+    // (no key mask, inside both lengths and the causal diagonal) skips the
+    // masks; the bias comes from its staged tile.  Each (row, key pair)
+    // adds its two dS to dB at once
+    const bool whole = mb == nullptr && k0 + BK <= p.seq_k &&
+                       q0 + DQ_BQ <= p.seq_q &&
+                       (!p.causal || k0 + BK - 1 <= q0 + diff);
+    const float* bt = bss + buf * DQ_BQ * BS + (warp * 16 + g) * BS + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = k0 + n * 8 + 2 * tq;
+        float2 bv = make_float2(0.f, 0.f);
+        if (bb != nullptr)
+          bv = *reinterpret_cast<const float2*>(bt + 8 * h * BS + n * 8);
+        float ds[2];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const float lg = s[n][2 * h + x] * p.c + (x ? bv.y : bv.x) * LOG2E;
+          bool keep = true;
+          if (!whole) {
+            const int c = col + x;
+            keep = rows[h] < p.seq_q && c < p.seq_k;
+            if (p.causal) keep = keep && c <= rows[h] + diff;
+            if (mb != nullptr) keep = keep && mb[min(c, p.seq_k - 1)] != 0;
+          }
+          ds[x] = keep ? exp2f(lg) * (dp[n][2 * h + x] - dlt[h]) : 0.f;
+          dp[n][2 * h + x] = ds[x];
+        }
+        if (db != nullptr && (ds[0] != 0.f || ds[1] != 0.f)) {
+          float* at = db + size_t(rows[h]) * p.seq_k + col;
+          if (db2 && col + 1 < p.seq_k) {
+            atomicAdd(reinterpret_cast<float2*>(at), make_float2(ds[0], ds[1]));
+          } else {
+            if (ds[0] != 0.f) atomicAdd(at, ds[0]);
+            if (ds[1] != 0.f) atomicAdd(at + 1, ds[1]);
+          }
+        }
+      }
+
+    // dQ += dS.K: dS's C fragments are its A fragments (hi and lo), K is
+    // read by ldmatrix.trans
+    add_product<BK, D, RS>(dq, dp, kt_s, lane);
+    __syncthreads();  // the next tile's loads may overwrite this buffer
+  }
+  cp_async_wait<0>();
+
+  T* dqb = static_cast<T*>(p.dq) + qrow0 * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (rows[h] >= p.seq_q) continue;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<uint32_t*>(dqb + size_t(rows[h]) * D + n * 8 + 2 * tq) =
+          pack_bf16(dq[n][2 * h] * p.scale, dq[n][2 * h + 1] * p.scale);
   }
 }
 
@@ -755,28 +1033,34 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
 
 template <typename T, int D>
 cudaError_t run(Which which, const Params& p, int B, cudaStream_t s) {
-  constexpr size_t smem = smem_bytes<D>();
-  if (which == DQ)
-    return launch(dq_kernel<T, D>, dim3((p.seq_q + BQ - 1) / BQ, p.H, B), NT,
-                  smem, s, p);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     // 16-byte copies: every row is a 16-byte multiple, so aligned bases do
     for (const void* t : {p.q, p.k, p.v, p.dO})
       if (reinterpret_cast<uintptr_t>(t) % 16 != 0) return cudaErrorMisalignedAddress;
+    if (which == DQ) {
+      using L = DqLayout<D>;
+      return launch(dq_mma_kernel<T, D>,
+                    dim3((p.seq_q + DQ_BQ - 1) / DQ_BQ, p.H, B), DQ_NT,
+                    L::BASE + (p.bias ? L::BIAS : 0), s, p);
+    }
     // key tiles slowest, so the causal blocks with the most work go first
     const dim3 grid(p.KVH, B, (p.seq_k + MBK - 1) / MBK);
     using L2 = MmaLayout<D, true>;
     using L3 = MmaLayout<D, false>;
     return which == ONEPASS
-               ? launch(dkdv_mma_kernel<T, D, true>, grid, MNT,
+               ? launch(dkdv_mma_kernel<T, D, true>, grid, L2::NT,
                         L2::BASE + L2::DST, s, p)
-               : launch(dkdv_mma_kernel<T, D, false>, grid, MNT,
+               : launch(dkdv_mma_kernel<T, D, false>, grid, L3::NT,
                         L3::BASE + (p.bias ? L3::BIAS : 0), s, p);
   } else {
-    const dim3 kgrid((p.seq_k + BK - 1) / BK, p.KVH, B);
+    using F = Fma<D>;
+    if (which == DQ)
+      return launch(dq_kernel<T, D>, dim3((p.seq_q + F::B - 1) / F::B, p.H, B),
+                    NT, F::SMEM, s, p);
+    const dim3 kgrid((p.seq_k + F::B - 1) / F::B, p.KVH, B);
     return which == ONEPASS
-               ? launch(dkdv_kernel<T, D, true>, kgrid, NT, smem, s, p)
-               : launch(dkdv_kernel<T, D, false>, kgrid, NT, smem, s, p);
+               ? launch(dkdv_kernel<T, D, true>, kgrid, NT, F::SMEM, s, p)
+               : launch(dkdv_kernel<T, D, false>, kgrid, NT, F::SMEM, s, p);
   }
 }
 
@@ -788,6 +1072,8 @@ cudaError_t run_d(int d, Which which, const Params& p, int B, cudaStream_t s) {
     case 64: return run<T, 64>(which, p, B, s);
     case 96: return run<T, 96>(which, p, B, s);
     case 128: return run<T, 128>(which, p, B, s);
+    case 192: return run<T, 192>(which, p, B, s);
+    case 256: return run<T, 256>(which, p, B, s);
     default: return cudaErrorInvalidValue;
   }
 }

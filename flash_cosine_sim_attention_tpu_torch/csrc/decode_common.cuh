@@ -9,6 +9,11 @@
 // they are what fills the card.  Code rows are d bytes, any multiple of 8
 // up to the instance's width D: the kernels read the cache in place and
 // treat lanes d..D as zero.
+//
+// P.V splits the block's NT threads over the head dim: up to d 128 each
+// thread holds one column of one of NPARTS = NT / D token lanes; above (the
+// 192 and 256 instances) one lane of NCOL = D / NT columns a thread,
+// columns tid and tid + NT (the second only where it is below d).
 
 #pragma once
 
@@ -24,6 +29,13 @@ namespace decode_common {
 constexpr int NT = 128;    // threads = tokens per tile (ops/blocks.py DECODE_TILE, PAGED_TILE)
 constexpr int GMAX = 8;    // query heads per block
 constexpr float EPS = 1e-10f;
+
+template <int D>
+struct PvLanes {
+  static constexpr int NPARTS = D < NT ? NT / D : 1;  // token lanes
+  static constexpr int W = D < NT ? D : NT;           // threads a lane
+  static constexpr int NCOL = (D + NT - 1) / NT;      // columns a thread
+};
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -68,11 +80,12 @@ __device__ __forceinline__ void load_queries(const __nv_bfloat16* q, size_t bh,
 // The end of both kernels: sums each query head's unscaled weights lpart
 // over the block and its P.V partials acc over the NPARTS token lanes,
 // and writes the chunk's gn rows of d lanes, O / max(l, EPS) in f32, from
-// `out` on.  Thread (dcol, part) with pv_lane holds head dim dcol of lane
-// part.
-template <int D, int NPARTS>
+// `out` on.  Thread (dcol, part) with pv_lane holds head dims dcol + j NT
+// (those below d) of lane part.  `red` may share its room with the tiles'
+// (the kernels' last barrier has passed).
+template <int D, int NPARTS = PvLanes<D>::NPARTS, int NCOL = PvLanes<D>::NCOL>
 __device__ __forceinline__ void store_rows(
-    const float (&acc)[GMAX], const float (&lpart)[GMAX], bool pv_lane,
+    const float (&acc)[NCOL][GMAX], const float (&lpart)[GMAX], bool pv_lane,
     int part, int dcol, int gn, int d, float (&red)[NPARTS][GMAX][D],
     float (&lred)[GMAX][NT / 32], float* __restrict__ out) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -83,7 +96,9 @@ __device__ __forceinline__ void store_rows(
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
       if (lane == 0) lred[gi][warp] = l;
-      if (pv_lane) red[part][gi][dcol] = acc[gi];
+#pragma unroll
+      for (int j = 0; j < NCOL; ++j)
+        if (pv_lane && dcol + j * NT < d) red[part][gi][dcol + j * NT] = acc[j][gi];
     }
   }
   __syncthreads();
@@ -100,17 +115,19 @@ __device__ __forceinline__ void store_rows(
 
 // Calls launch(T{}, std::integral_constant<int, D>{}) for the storage type
 // (fp8: __nv_fp8_e4m3, else int8_t) and the instance width D, the first of
-// ops/blocks.py ALLOWED_DIM_HEADS at or above the row length d;
-// cudaErrorInvalidValue unless d is a multiple of 8 up to 128.
+// ops/blocks.py KERNEL_WIDTHS at or above the row length d;
+// cudaErrorInvalidValue unless d is a multiple of 8 up to 256.
 template <typename F>
 cudaError_t dispatch(bool fp8, int d, F&& launch) {
-  if (d <= 0 || d > 128 || d % 8 != 0) return cudaErrorInvalidValue;
+  if (d <= 0 || d > 256 || d % 8 != 0) return cudaErrorInvalidValue;
   auto by_dim = [&](auto code) -> cudaError_t {
     if (d <= 16) return launch(code, std::integral_constant<int, 16>{});
     if (d <= 32) return launch(code, std::integral_constant<int, 32>{});
     if (d <= 64) return launch(code, std::integral_constant<int, 64>{});
     if (d <= 96) return launch(code, std::integral_constant<int, 96>{});
-    return launch(code, std::integral_constant<int, 128>{});
+    if (d <= 128) return launch(code, std::integral_constant<int, 128>{});
+    if (d <= 192) return launch(code, std::integral_constant<int, 192>{});
+    return launch(code, std::integral_constant<int, 256>{});
   };
   return fp8 ? by_dim(__nv_fp8_e4m3{}) : by_dim(int8_t{});
 }

@@ -30,10 +30,15 @@
 // d that is a multiple of 8 is read in place) and stages that token's V
 // row in shared memory, so a tile's loads are in flight together; then the
 // block accumulates the tile's P.V out of shared memory with threads split
-// over the head dim.  At b8 kvh8 that is 64 blocks on 132 SMs, so the card
-// is under-filled: the later design splits each slot's tokens over several
-// blocks and merges their partial (O, l) sums in a second pass (split-K,
-// "flash-decoding"), which the no-row-max sums make a plain addition.
+// over the head dim.  Above d 128 a thread loads its token's rows in
+// halves: a whole 256-byte K and V row would be 64 registers each, and on
+// an H100 halves ran faster than whole rows or 64-byte pieces.  The P.V
+// partials share their shared memory with the V tile, which keeps the
+// block within 48 KB.  At b8 kvh8 that is 64 blocks on 132 SMs, so the
+// card is under-filled: the later design splits each slot's tokens over
+// several blocks and merges their partial (O, l) sums in a second pass
+// (split-K, "flash-decoding"), which the no-row-max sums make a plain
+// addition.
 
 #include <initializer_list>
 
@@ -51,13 +56,18 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     const uint8_t* __restrict__ v8, const float* __restrict__ v_scale,
     const int* __restrict__ length, float* __restrict__ out, int KVH, int G,
     int cap, int d, float logit_scale, float scale) {
-  constexpr int NPARTS = NT / D > 0 ? NT / D : 1;  // token lanes in P.V
+  using PV = PvLanes<D>;
+  constexpr int NPARTS = PV::NPARTS, NCOL = PV::NCOL;
   constexpr int DW = D / 8;                        // 8-byte words of a row
+  constexpr int CW = DW <= 16 ? DW : DW / 2;       // words loaded at once
+  constexpr size_t VT = size_t(NT) * D;            // the tile's V rows
+  constexpr size_t RED = sizeof(float) * NPARTS * GMAX * D;
   __shared__ float qs[GMAX][D];
   __shared__ float es[GMAX][NT];
-  __shared__ float red[NPARTS][GMAX][D];
   __shared__ float lred[GMAX][NT / 32];
-  __shared__ __align__(16) uint8_t vt[NT][D];  // the tile's V rows
+  __shared__ __align__(16) uint8_t tiles[VT > RED ? VT : RED];
+  auto& vt = *reinterpret_cast<uint8_t(*)[NT][D]>(tiles);
+  auto& red = *reinterpret_cast<float(*)[NPARTS][GMAX][D]>(tiles);
   constexpr bool kScaled = std::is_same<T, int8_t>::value;
 
   const int g0 = blockIdx.x * GMAX, kvhi = blockIdx.y, bi = blockIdx.z;
@@ -71,43 +81,51 @@ __global__ void __launch_bounds__(NT) decode_kernel(
   const uint8_t* kb = k8 + bh * cap * d;
   const uint8_t* vb = v8 + bh * cap * d;
   const float* vsb = v_scale + bh * cap;
-  const int dcol = tid % D, part = tid / D;
-  const bool pv_lane = tid < NPARTS * D && dcol < d;
+  const int dcol = tid % PV::W, part = tid / PV::W;
+  const bool pv_lane = tid < NPARTS * PV::W && dcol < d;
 
-  float acc[GMAX], lpart[GMAX];
+  float acc[NCOL][GMAX], lpart[GMAX];
 #pragma unroll
-  for (int gi = 0; gi < GMAX; ++gi) acc[gi] = lpart[gi] = 0.f;
+  for (int gi = 0; gi < GMAX; ++gi) {
+    lpart[gi] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NCOL; ++j) acc[j][gi] = 0.f;
+  }
   __syncthreads();
 
   for (int t0 = 0; t0 < len; t0 += NT) {
     const int t = t0 + tid;
     if (t < len) {
-      // all of the token's loads first, so a tile's K and V rows are in
-      // flight together; its V row is staged for P.V in shared memory
+      // all of a chunk's loads first (the whole row up to d 128), so a
+      // tile's K and V rows are in flight together; the V row is staged
+      // for P.V in shared memory
       const uint2* kr = reinterpret_cast<const uint2*>(kb + size_t(t) * d);
       const uint2* vr = reinterpret_cast<const uint2*>(vb + size_t(t) * d);
-      uint2 ku[DW], vu[DW];
-#pragma unroll
-      for (int w = 0; w < DW; ++w) {
-        ku[w] = w < dw ? kr[w] : make_uint2(0, 0);
-        vu[w] = w < dw ? vr[w] : make_uint2(0, 0);
-      }
       const float vsc = kScaled ? vsb[t] : 1.f;
       uint2* vdst = reinterpret_cast<uint2*>(&vt[tid][0]);
-#pragma unroll
-      for (int w = 0; w < DW; ++w) vdst[w] = vu[w];
       float s[GMAX];
 #pragma unroll
       for (int gi = 0; gi < GMAX; ++gi) s[gi] = 0.f;
 #pragma unroll
-      for (int w = 0; w < DW; ++w) {
-        const uint8_t* kv = reinterpret_cast<const uint8_t*>(&ku[w]);
+      for (int w0 = 0; w0 < DW; w0 += CW) {
+        uint2 ku[CW], vu[CW];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float kf = code_value<T>(kv[e]);
+        for (int w = 0; w < CW; ++w) {
+          ku[w] = w0 + w < dw ? kr[w0 + w] : make_uint2(0, 0);
+          vu[w] = w0 + w < dw ? vr[w0 + w] : make_uint2(0, 0);
+        }
 #pragma unroll
-          for (int gi = 0; gi < GMAX; ++gi)
-            if (gi < gn) s[gi] = fmaf(qs[gi][w * 8 + e], kf, s[gi]);
+        for (int w = 0; w < CW; ++w) vdst[w0 + w] = vu[w];
+#pragma unroll
+        for (int w = 0; w < CW; ++w) {
+          const uint8_t* kv = reinterpret_cast<const uint8_t*>(&ku[w]);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float kf = code_value<T>(kv[e]);
+#pragma unroll
+            for (int gi = 0; gi < GMAX; ++gi)
+              if (gi < gn) s[gi] = fmaf(qs[gi][(w0 + w) * 8 + e], kf, s[gi]);
+          }
         }
       }
 #pragma unroll
@@ -123,24 +141,28 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     if (pv_lane) {
       const int tmax = min(NT, len - t0);
       for (int kk = part; kk < tmax; kk += NPARTS) {
-        const float vv = code_value<T>(vt[kk][dcol]);
 #pragma unroll
-        for (int gi = 0; gi < GMAX; ++gi)
-          if (gi < gn) acc[gi] = fmaf(es[gi][kk], vv, acc[gi]);
+        for (int j = 0; j < NCOL; ++j) {
+          if (j > 0 && dcol + j * NT >= d) continue;
+          const float vv = code_value<T>(vt[kk][dcol + j * NT]);
+#pragma unroll
+          for (int gi = 0; gi < GMAX; ++gi)
+            if (gi < gn) acc[j][gi] = fmaf(es[gi][kk], vv, acc[j][gi]);
+        }
       }
     }
     __syncthreads();
   }
 
-  store_rows<D, NPARTS>(acc, lpart, pv_lane, part, dcol, gn, d, red, lred,
-                        out + (bh * G + g0) * d);
+  store_rows<D>(acc, lpart, pv_lane, part, dcol, gn, d, red, lred,
+                out + (bh * G + g0) * d);
 }
 
 }  // namespace
 
 // Contiguous tensors: q (B, KVH, G, d) bf16, already l2-normalized, any
 // group G; k8/v8 (B, KVH, cap, d) int8 (fp8 = 0) or e4m3 (fp8 = 1), 8-byte
-// aligned, d a multiple of 8 up to 128; v_scale (B, KVH, cap) f32, read
+// aligned, d a multiple of 8 up to 256; v_scale (B, KVH, cap) f32, read
 // for int8 only; length (B,) int32 on the device; out (B, KVH, G, d) f32.
 // logit_scale is scale * kdq (1/127 for int8, 1 for e4m3).  Returns the
 // cudaGetLastError() after the launch.

@@ -32,12 +32,18 @@
 // 201-203).  A bf16 P cannot overflow (f32's exponent range): it holds up
 // to e^(scale + bias).  Causal blocks are launched heaviest first.  At d
 // 16 the int8 codes are zero-padded to the k = 32 step in shared memory.
+// Above d 128 (the 192 and 256 instances) a warp's O accumulators are
+// D / 2 f32 registers a thread (128 at d 256) beside the 32 of the S tile,
+// so Q's A fragments (another D / 4) are not kept: they are read again
+// from the resident Q tile by ldmatrix at every key tile.
 //
 // float32 q/k/v, and int8 codes with float32 v (parity runs at a 1e-4 bar,
 // which bf16 tensor cores cannot meet without a split product), keep the
 // f32 FMA kernel `fwd_kernel`: the same block shape, both products as f32
 // FMAs out of shared memory (the int8 codes by `__dp4a`), the P tile kept
-// in float32 in shared memory.
+// in float32 in shared memory.  Its tiles stay 64 x 64 at every width:
+// at d 256 the f32 Q, K, V and P tiles take 213,760 bytes of the 232,448 a
+// block may have.
 //
 // Masking: causal keeps key col <= row + (seq_k - seq_q) (cross-attention
 // alignment) and the loop stops at the last tile a row of the block can
@@ -91,6 +97,7 @@ __global__ void __launch_bounds__(NT, 1) fwd_mma_kernel(
   constexpr int KSTEPS = L::QBP / 32;  // 32-byte k steps of S = Q.K^T
   constexpr int NS = BK / 8;           // n8 tiles of S
   constexpr int NO = D / 8;            // n8 tiles of O
+  constexpr bool QREG = D <= 128;      // Q's A fragments kept in registers
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* qs = smem;                 // BQ x QS
   unsigned char* ks = qs + BQ * QS;         // 2 x BK x QS
@@ -145,7 +152,7 @@ __global__ void __launch_bounds__(NT, 1) fwd_mma_kernel(
   }
   cp_async_commit();
 
-  uint32_t qf[KSTEPS][4];
+  uint32_t qf[QREG ? KSTEPS : 1][4];
   float oacc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -160,12 +167,23 @@ __global__ void __launch_bounds__(NT, 1) fwd_mma_kernel(
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();  // tile kt (and, at kt 0, the q tile) has landed
-    if (kt == 0) {
+    // Q's A fragment of k step st: kept from the first tile, or (above d
+    // 128) read again from the resident Q tile
+    const unsigned char* qrow = qs + (warp * 16 + (lane & 15)) * QS + (lane >> 4) * 16;
+    if constexpr (QREG) {
+      if (kt == 0) {
 #pragma unroll
-      for (int s = 0; s < KSTEPS; ++s)
-        ldmatrix_x4(qf[s], qs + (warp * 16 + (lane & 15)) * QS + s * 32 +
-                               (lane >> 4) * 16);
+        for (int st = 0; st < KSTEPS; ++st) ldmatrix_x4(qf[st], qrow + st * 32);
+      }
     }
+    auto q_frag = [&](int st, uint32_t(&a)[4]) {
+      if constexpr (QREG) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = qf[st][i];
+      } else {
+        ldmatrix_x4(a, qrow + st * 32);
+      }
+    };
     const unsigned char* kt_s = ks + (kt & 1) * BK * QS;
     const unsigned char* vt_s = vs + (kt & 1) * BK * VS;
 
@@ -178,15 +196,18 @@ __global__ void __launch_bounds__(NT, 1) fwd_mma_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) si[n][e] = 0;
 #pragma unroll
-      for (int st = 0; st < KSTEPS; ++st)
+      for (int st = 0; st < KSTEPS; ++st) {
+        uint32_t a[4];
+        q_frag(st, a);
 #pragma unroll
         for (int j = 0; j < NS / 2; ++j) {
           uint32_t b[4];
           ldmatrix_x4(b, kt_s + (j * 16 + (lane & 7) + (lane >> 4) * 8) * QS +
                              st * 32 + ((lane >> 3) & 1) * 16);
-          mma_s8(si[2 * j], qf[st], b[0], b[1]);
-          mma_s8(si[2 * j + 1], qf[st], b[2], b[3]);
+          mma_s8(si[2 * j], a, b[0], b[1]);
+          mma_s8(si[2 * j + 1], a, b[2], b[3]);
         }
+      }
 #pragma unroll
       for (int n = 0; n < NS; ++n)
 #pragma unroll
@@ -197,15 +218,18 @@ __global__ void __launch_bounds__(NT, 1) fwd_mma_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-      for (int st = 0; st < KSTEPS; ++st)
+      for (int st = 0; st < KSTEPS; ++st) {
+        uint32_t a[4];
+        q_frag(st, a);
 #pragma unroll
         for (int j = 0; j < NS / 2; ++j) {
           uint32_t b[4];
           ldmatrix_x4(b, kt_s + (j * 16 + (lane & 7) + (lane >> 4) * 8) * QS +
                              st * 32 + ((lane >> 3) & 1) * 16);
-          mma_bf16(s[2 * j], qf[st], b[0], b[1]);
-          mma_bf16(s[2 * j + 1], qf[st], b[2], b[3]);
+          mma_bf16(s[2 * j], a, b[0], b[1]);
+          mma_bf16(s[2 * j + 1], a, b[2], b[3]);
         }
+      }
     }
 
     // e = exp2(s * c + bias * log2e), masked to 0, in the C layout: entry
@@ -532,6 +556,8 @@ cudaError_t dispatch_d(int d, const Args& a, cudaStream_t s) {
     case 64: return launch<TQ, MMA, 64>(a, s);
     case 96: return launch<TQ, MMA, 96>(a, s);
     case 128: return launch<TQ, MMA, 128>(a, s);
+    case 192: return launch<TQ, MMA, 192>(a, s);
+    case 256: return launch<TQ, MMA, 256>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }

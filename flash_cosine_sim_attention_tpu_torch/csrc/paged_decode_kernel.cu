@@ -34,7 +34,11 @@
 // scores token t down its column of the K tile, and the block accumulates
 // the tile's P.V with threads split over the head dim, each reading four
 // tokens of its V row at once.  The rows are padded by one word so that
-// neither the column reads nor the row reads conflict on a bank.  At b8
+// neither the column reads nor the row reads conflict on a bank.  The
+// block's shared memory is dynamic: at d 256 the two tiles alone take
+// 66 KB, past the 48 KB of static shared memory (the P.V partials share
+// their room with the tiles), and above d 128 the tile is staged in two
+// rounds, so its loads stay within 64 registers.  At b8
 // kvh8 that is 64 blocks on 132 SMs, and a block waits for each tile's
 // loads: the later design splits a slot's pages over several blocks and
 // merges their partial (O, l) sums (no row max, so a plain addition), and
@@ -48,6 +52,22 @@ using namespace decode_common;
 
 constexpr int ROW = NT + 4; // bytes per staged row: one word of padding
 
+// the block's dynamic shared memory: the K and V tiles (d-major; the P.V
+// partials reuse their room at the end), then the queries, the tile's
+// weights, its V scales and the row sums' partials
+template <int D>
+struct PagedSmem {
+  static constexpr size_t KS = 0;
+  static constexpr size_t VS = KS + size_t(D) * ROW;
+  static constexpr size_t QS = VS + size_t(D) * ROW;
+  static constexpr size_t ES = QS + sizeof(float) * GMAX * D;
+  static constexpr size_t VSC = ES + sizeof(float) * GMAX * NT;
+  static constexpr size_t LRED = VSC + sizeof(float) * NT;
+  static constexpr size_t BYTES = LRED + sizeof(float) * GMAX * (NT / 32);
+  static_assert(sizeof(float) * PvLanes<D>::NPARTS * GMAX * D <= QS,
+                "the P.V partials fit in the tiles' room");
+};
+
 // T: int8_t (per-token V scales) or __nv_fp8_e4m3 (no scales).  Grid
 // (query-head chunks, KVH, B): a chunk's blocks sit side by side.
 template <typename T, int D>
@@ -58,16 +78,21 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     float* __restrict__ out, int KVH, int G, int d, int num_pages, int ps,
     int mp, float logit_scale, float scale) {
   constexpr bool kScaled = std::is_same<T, int8_t>::value;
-  constexpr int NPARTS = NT / D > 0 ? NT / D : 1;  // token lanes in P.V
+  using PV = PvLanes<D>;
+  using S = PagedSmem<D>;
+  constexpr int NPARTS = PV::NPARTS, NCOL = PV::NCOL;
   constexpr int PER_THREAD = (D * (NT / 16) + NT - 1) / NT;
+  // 16-byte pieces a thread loads at once: the whole tile up to d 128
+  constexpr int RB = PER_THREAD <= 8 ? PER_THREAD : PER_THREAD / 2;
   const int chunks = d * (NT / 16);                // 16-byte pieces of a tile
-  __shared__ __align__(16) uint8_t ks[D][ROW];     // the tile's K, d-major
-  __shared__ __align__(16) uint8_t vs[D][ROW];     // the tile's V, d-major
-  __shared__ float qs[GMAX][D];
-  __shared__ __align__(16) float es[GMAX][NT];
-  __shared__ float vsc[NT];
-  __shared__ float red[NPARTS][GMAX][D];
-  __shared__ float lred[GMAX][NT / 32];
+  extern __shared__ __align__(16) unsigned char psmem[];
+  auto& ks = *reinterpret_cast<uint8_t(*)[D][ROW]>(psmem + S::KS);
+  auto& vs = *reinterpret_cast<uint8_t(*)[D][ROW]>(psmem + S::VS);
+  auto& qs = *reinterpret_cast<float(*)[GMAX][D]>(psmem + S::QS);
+  auto& es = *reinterpret_cast<float(*)[GMAX][NT]>(psmem + S::ES);
+  auto& vsc = *reinterpret_cast<float(*)[NT]>(psmem + S::VSC);
+  auto& lred = *reinterpret_cast<float(*)[GMAX][NT / 32]>(psmem + S::LRED);
+  auto& red = *reinterpret_cast<float(*)[NPARTS][GMAX][D]>(psmem + S::KS);
 
   const int g0 = blockIdx.x * GMAX, kvhi = blockIdx.y, bi = blockIdx.z;
   const int gn = min(GMAX, G - g0);
@@ -77,11 +102,15 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   const int* row = page_table + size_t(bi) * mp;
   load_queries<D>(q, bh, G, g0, gn, d, qs);
 
-  const int dcol = tid % D, part = tid / D;
-  const bool pv_lane = tid < NPARTS * D && dcol < d;
-  float acc[GMAX], lpart[GMAX];
+  const int dcol = tid % PV::W, part = tid / PV::W;
+  const bool pv_lane = tid < NPARTS * PV::W && dcol < d;
+  float acc[NCOL][GMAX], lpart[GMAX];
 #pragma unroll
-  for (int gi = 0; gi < GMAX; ++gi) acc[gi] = lpart[gi] = 0.f;
+  for (int gi = 0; gi < GMAX; ++gi) {
+    lpart[gi] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NCOL; ++j) acc[j][gi] = 0.f;
+  }
   __syncthreads();
 
   for (int t0 = 0; t0 < len; t0 += NT) {
@@ -90,27 +119,31 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     const size_t page = (size_t(pid) * KVH + kvhi) * d;  // row 0 of (pid, h)
     const int off = t0 % ps;
 
-    // stage the tile: all 16-byte loads first, then the stores
-    uint4 kr[PER_THREAD], vr[PER_THREAD];
-#pragma unroll
-    for (int i = 0; i < PER_THREAD; ++i) {
-      const int c = tid + i * NT;
-      if (c < chunks) {
-        const size_t at = (page + c / (NT / 16)) * ps + off + (c % (NT / 16)) * 16;
-        kr[i] = *reinterpret_cast<const uint4*>(k8 + at);
-        vr[i] = *reinterpret_cast<const uint4*>(v8 + at);
-      }
-    }
+    // stage the tile: all 16-byte loads of a round (the whole tile up to
+    // d 128) first, then the stores
     if (kScaled) vsc[tid] = v_scale[(size_t(pid) * KVH + kvhi) * ps + off + tid];
 #pragma unroll
-    for (int i = 0; i < PER_THREAD; ++i) {
-      const int c = tid + i * NT;
-      if (c < chunks) {
-        const int r = c / (NT / 16), col = (c % (NT / 16)) * 16;
-        uint32_t* kd = reinterpret_cast<uint32_t*>(&ks[r][col]);
-        uint32_t* vd = reinterpret_cast<uint32_t*>(&vs[r][col]);
-        kd[0] = kr[i].x; kd[1] = kr[i].y; kd[2] = kr[i].z; kd[3] = kr[i].w;
-        vd[0] = vr[i].x; vd[1] = vr[i].y; vd[2] = vr[i].z; vd[3] = vr[i].w;
+    for (int i0 = 0; i0 < PER_THREAD; i0 += RB) {
+      uint4 kr[RB], vr[RB];
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+        const int c = tid + (i0 + i) * NT;
+        if (c < chunks) {
+          const size_t at = (page + c / (NT / 16)) * ps + off + (c % (NT / 16)) * 16;
+          kr[i] = *reinterpret_cast<const uint4*>(k8 + at);
+          vr[i] = *reinterpret_cast<const uint4*>(v8 + at);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+        const int c = tid + (i0 + i) * NT;
+        if (c < chunks) {
+          const int r = c / (NT / 16), col = (c % (NT / 16)) * 16;
+          uint32_t* kd = reinterpret_cast<uint32_t*>(&ks[r][col]);
+          uint32_t* vd = reinterpret_cast<uint32_t*>(&vs[r][col]);
+          kd[0] = kr[i].x; kd[1] = kr[i].y; kd[2] = kr[i].z; kd[3] = kr[i].w;
+          vd[0] = vr[i].x; vd[1] = vr[i].y; vd[2] = vr[i].z; vd[3] = vr[i].w;
+        }
       }
     }
     __syncthreads();
@@ -147,15 +180,20 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     if (pv_lane) {
       const int words = (live + 3) / 4;
       for (int w = part; w < words; w += NPARTS) {
-        const uint32_t word = *reinterpret_cast<const uint32_t*>(&vs[dcol][4 * w]);
         const int n = min(4, live - 4 * w);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (j < n) {
-            const float vv = code_value<T>(uint8_t(word >> (8 * j)));
+        for (int c = 0; c < NCOL; ++c) {
+          if (c > 0 && dcol + c * NT >= d) continue;
+          const uint32_t word =
+              *reinterpret_cast<const uint32_t*>(&vs[dcol + c * NT][4 * w]);
 #pragma unroll
-            for (int gi = 0; gi < GMAX; ++gi)
-              if (gi < gn) acc[gi] = fmaf(es[gi][4 * w + j], vv, acc[gi]);
+          for (int j = 0; j < 4; ++j) {
+            if (j < n) {
+              const float vv = code_value<T>(uint8_t(word >> (8 * j)));
+#pragma unroll
+              for (int gi = 0; gi < GMAX; ++gi)
+                if (gi < gn) acc[c][gi] = fmaf(es[gi][4 * w + j], vv, acc[c][gi]);
+            }
           }
         }
       }
@@ -163,14 +201,14 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     __syncthreads();
   }
 
-  store_rows<D, NPARTS>(acc, lpart, pv_lane, part, dcol, gn, d, red, lred,
-                        out + (bh * G + g0) * d);
+  store_rows<D>(acc, lpart, pv_lane, part, dcol, gn, d, red, lred,
+                out + (bh * G + g0) * d);
 }
 
 }  // namespace
 
 // Contiguous tensors on one device: q (B, KVH, G, d) bf16, already
-// l2-normalized, any group G, d a multiple of 8 up to 128; k8/v8
+// l2-normalized, any group G, d a multiple of 8 up to 256; k8/v8
 // (num_pages, KVH, d, ps) int8 (fp8 = 0) or e4m3
 // (fp8 = 1), 16-byte aligned; v_scale (num_pages, KVH, 1, ps) f32, read for
 // int8 only; page_table (B, mp) int32; length (B,) int32; out (B, KVH, G, d)
@@ -188,8 +226,13 @@ extern "C" int fcsa_paged_decode(const void* q, const void* k8, const void* v8,
   auto s = static_cast<cudaStream_t>(stream);
   const dim3 grid((G + GMAX - 1) / GMAX, KVH, B);
   return int(dispatch(fp8, d, [&](auto code, auto dim) {
-    paged_decode_kernel<decltype(code), decltype(dim)::value>
-        <<<grid, NT, 0, s>>>(
+    constexpr int D = decltype(dim)::value;
+    constexpr size_t smem = PagedSmem<D>::BYTES;
+    auto kernel = paged_decode_kernel<decltype(code), D>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, NT, smem, s>>>(
             static_cast<const __nv_bfloat16*>(q),
             static_cast<const uint8_t*>(k8), static_cast<const uint8_t*>(v8),
             static_cast<const float*>(v_scale),

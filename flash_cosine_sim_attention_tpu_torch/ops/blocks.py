@@ -8,22 +8,26 @@ shared by both decode kernels, holds the same numbers); the forward's
 tiles live in their ``csrc/*.cu`` sources alone.
 """
 
-# head dims the reference supports (cu:84); the CUDA kernels are built for
-# exactly these widths, the plain versions take any width
+# head dims the reference supports (cu:84); the plain versions take any width
 ALLOWED_DIM_HEADS = (16, 32, 64, 96, 128)
+
+# the widths the CUDA kernels are built for: the reference's, and 192 and
+# 256 (the widest head of the public model families, and the widest a
+# FlashAttention-2 tile keeps whole in registers and shared memory)
+KERNEL_WIDTHS = ALLOWED_DIM_HEADS + (192, 256)
 
 
 def kernel_head_dim(d: int, kernel: str) -> int:
     """The width of the CUDA kernel instance that runs head dim ``d``: the
-    next of ALLOWED_DIM_HEADS at or above it.  Any multiple of 8 up to 128
+    next of KERNEL_WIDTHS at or above it.  Any multiple of 8 up to 256
     runs there exactly (the forward and backward wrappers pad zero lanes,
     which add 0 to every dot product and give 0 gradients; the decode
     kernels read d-byte rows in place).  Raises for any other d."""
-    if 0 < d <= ALLOWED_DIM_HEADS[-1] and d % 8 == 0:
-        return next(w for w in ALLOWED_DIM_HEADS if w >= d)
+    if 0 < d <= KERNEL_WIDTHS[-1] and d % 8 == 0:
+        return next(w for w in KERNEL_WIDTHS if w >= d)
     raise ValueError(
         f"the CUDA {kernel} kernel takes head dims that are multiples of 8 "
-        f"up to {ALLOWED_DIM_HEADS[-1]} (built for {ALLOWED_DIM_HEADS}, a "
+        f"up to {KERNEL_WIDTHS[-1]} (built for {KERNEL_WIDTHS}, a "
         f"narrower one runs at the next of these), got {d}")
 
 EPS = 1e-10  # rowsum clamp, matches the reference kernel's eps (cu:83)

@@ -129,7 +129,7 @@ def flash_attention_forward(
     q and k are l2-normalized float32 / bfloat16 values of v's dtype, or
     int8 codes whose product ``s_dequant`` dequantizes (1/127^2 for the
     op's ``qk_int8``).  CUDA tensors launch the Hopper kernel (counted in
-    ``flash_attention_forward.launches``), a head dim below 128 that is not
+    ``flash_attention_forward.launches``), a head dim up to 256 that is not
     one of its widths zero-padded to the next (``kernel_head_dim``); CPU
     tensors take the plain version.  Any other device raises.
     """

@@ -50,7 +50,7 @@ def decode_attention_plain(qg: torch.Tensor, cache: QuantKVCache,
 def check_decode_args(qg: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
                       kernel: str) -> None:
     """What both CUDA decode kernels (contiguous and paged) take: qg
-    (b, kvh, g, d) with any group g and d a multiple of 8 up to 128 (read
+    (b, kvh, g, d) with any group g and d a multiple of 8 up to 256 (read
     in place as d-byte code rows), K and V codes both int8 or both e4m3."""
     kernel_head_dim(qg.shape[-1], kernel)
     if k8.dtype not in KV_DTYPES or v8.dtype != k8.dtype:

@@ -15,9 +15,9 @@ varies from run to run); bf16 errors per entry, relative to |g| + rms(g),
 bar 2^-7 (kernel and plain version round the same f32 sums, added in
 another order, to bf16: one bf16 ulp is at most 2^-7 of the value; the
 tensor-core dK/dV kernel feeds e and dS to its products as bf16 hi + lo
-pairs, so its sums stay those of f32 operands to ~16 bits).  Head dims
-between the kernel widths (8, 48, 80) run zero-padded to the next one;
-d past 128 is refused.
+pairs, so its sums stay those of f32 operands to ~16 bits; so does the
+tensor-core dQ kernel with dS).  Head dims between the kernel widths (8,
+48, 80, 136, 200) run zero-padded to the next one; d past 256 is refused.
 """
 
 import pytest
@@ -80,6 +80,11 @@ FWD_CASES = {
     "causal-d8": (1, 2, 2, 100, 100, 8, True, None, None),
     "key-mask-gqa-d48": (2, 4, 1, 70, 150, 48, False, "some", None),
     "causal-bias-d80": (1, 4, 2, 130, 130, 80, True, None, "h"),
+    # the widest instances (192, 256) and widths padded to them
+    "causal-gqa-d136": (1, 4, 2, 150, 150, 136, True, None, None),
+    "key-mask-bias-d192": (2, 2, 2, 100, 170, 192, False, "some", "h"),
+    "causal-bias-batch-d200": (2, 4, 2, 130, 130, 200, True, None, "b"),
+    "causal-ragged-mqa-d256": (2, 2, 1, 200, 200, 256, True, None, None),
 }
 
 
@@ -158,7 +163,7 @@ def test_forward_kernel_int8_arm_matches_plain(cuda_device, case, v_dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arm", ["bf16", "int8"])
-@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("d", [16, 128, 256])
 def test_forward_kernel_large_logits(cuda_device, arm, d):
     """Scale 10 and a bias up to 4: e reaches e^14, past the f16 limit,
     which K1's bf16 P fragments hold; l sums the unrounded e."""
@@ -294,7 +299,9 @@ def test_quant_matmul_kernel_refuses_what_it_cannot_take(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("g_per_kv,d", [(1, 64), (4, 64), (8, 16), (2, 96),
-                                        (16, 8), (32, 48), (16, 48), (32, 8)])
+                                        (16, 8), (32, 48), (16, 48), (32, 8),
+                                        (2, 136), (1, 192), (16, 200),
+                                        (3, 256)])
 def test_decode_kernel_matches_plain(cuda_device, g_per_kv, d):
     g = torch.Generator(device=cuda_device).manual_seed(1)
     b, kvh, cap = 4, 2, 300
@@ -319,7 +326,9 @@ def test_decode_kernel_matches_plain(cuda_device, g_per_kv, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("g_per_kv,d", [(1, 64), (4, 32), (8, 16), (2, 128),
-                                        (16, 8), (32, 48), (16, 48), (32, 8)])
+                                        (16, 8), (32, 48), (16, 48), (32, 8),
+                                        (2, 136), (1, 192), (16, 200),
+                                        (3, 256)])
 def test_decode_kernel_e4m3_matches_plain(cuda_device, g_per_kv, d):
     """The decode kernel's e4m3 arm: no V scales, e rounded to bf16."""
     g = torch.Generator(device=cuda_device).manual_seed(6)
@@ -349,7 +358,8 @@ def test_decode_kernel_e4m3_matches_plain(cuda_device, g_per_kv, d):
                          ids=["int8", "e4m3"])
 @pytest.mark.parametrize("g_per_kv,d", [(1, 16), (8, 32), (4, 64), (2, 96),
                                         (3, 128), (16, 8), (32, 48), (16, 48),
-                                        (32, 8)])
+                                        (32, 8), (2, 136), (1, 192), (16, 200),
+                                        (3, 256)])
 def test_paged_decode_kernel_matches_plain(cuda_device, kv_dtype, g_per_kv,
                                            d):
     """Shuffled page ids, ragged lengths (empty, one token, across a page
@@ -410,6 +420,17 @@ BWD_CASES = {
     "causal-1024-d128-gqa-8-2": (1, 8, 2, 1024, 1024, 128, True, None, None),
     "causal-ragged-k-d64": (2, 2, 2, 190, 190, 64, True, None, None),
     "causal-q-past-k-d64": (1, 2, 2, 200, 100, 64, True, None, None),
+    # the tensor-core dQ kernel's edges: seq_k odd (dB by single adds, the
+    # bias staged 4 bytes at a time) and a bias past a causal seq_q < seq_k
+    "bias-odd-k-d64": (2, 2, 2, 67, 129, 64, True, None, "h"),
+    # the widest instances (192, 256: 8 warps a dK/dV block) and widths
+    # padded to them
+    "causal-gqa-d136": (1, 4, 2, 130, 130, 136, True, None, None),
+    "key-mask-bias-d192": (2, 2, 2, 100, 170, 192, False, "some", "h"),
+    "causal-ragged-d192": (2, 2, 2, 150, 150, 192, True, None, None),
+    "causal-q-past-k-d200": (1, 2, 2, 150, 90, 200, True, None, None),
+    "causal-gqa-d256": (1, 4, 2, 256, 256, 256, True, None, None),
+    "bias-batch-d256": (2, 4, 4, 70, 130, 256, False, None, "b"),
 }
 
 
@@ -470,13 +491,14 @@ def test_backward_kernels_match_plain(cuda_device, case, dtype, route):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 256])
 @pytest.mark.parametrize("route", ["onepass", "twopass"])
-def test_backward_kernels_large_logits(cuda_device, route):
+def test_backward_kernels_large_logits(cuda_device, route, d):
     """Scale 10 (and, on the two-pass route, an (h, i, j) bias up to 4): e
     reaches e^10 (e^14), far past the f16 range, which the tensor-core
-    kernel's bf16 e and dS fragments hold."""
+    kernels' bf16 e and dS fragments hold."""
     g = torch.Generator(device=cuda_device).manual_seed(11)
-    b, h, s, d = 2, 4, 200, 64
+    b, h, s = 2, 4, 200
     dtype = torch.bfloat16
     q, k = l2norm_tensors(
         *(torch.randn(b, h, s, d, device=cuda_device, generator=g)
@@ -507,7 +529,7 @@ def test_backward_kernels_large_logits(cuda_device, route):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [8, 48, 80])
+@pytest.mark.parametrize("d", [8, 48, 80, 136, 200])
 def test_op_between_kernel_widths_runs_the_kernels(cuda_device, d, dtype):
     """The public op at a head dim that is no kernel width: its forward and
     backward launch K1 and K2 (zero-padded to the next width) and match
@@ -547,20 +569,21 @@ def test_op_between_kernel_widths_runs_the_kernels(cuda_device, d, dtype):
 
 
 @pytest.mark.cuda
-def test_kernels_refuse_head_dims_past_128(cuda_device):
-    """d 136 is a multiple of 8 the JAX op takes, but no kernel is built
+def test_kernels_refuse_head_dims_past_256(cuda_device):
+    """d 264 is a multiple of 8 the JAX op takes, but no kernel is built
     for it: every wrapper raises, naming the widths the card takes, and
     launches nothing."""
     from flash_cosine_sim_attention_tpu_torch.ops import (
         flash_cosine_sim_attention)
 
-    q, k, v = (torch.randn(1, 2, 64, 136, device=cuda_device,
+    q, k, v = (torch.randn(1, 2, 64, 264, device=cuda_device,
                            requires_grad=True) for _ in range(3))
     counts = lambda: (flash_attention_forward.launches,  # noqa: E731
                       bwd_kernel.fused_bwd_kernel.launches,
                       quantized_decode_attention.launches)
     before = counts()
-    match = r"multiples of 8 up to 128 \(built for \(16, 32, 64, 96, 128\)"
+    match = (r"multiples of 8 up to 256 \(built for \(16, 32, 64, 96, 128, "
+             r"192, 256\)")
     with pytest.raises(ValueError, match=match):
         flash_cosine_sim_attention(q, k, v, causal=True)
     o, inv_l = flash_attention_forward_plain(q, k, v, None, None,
@@ -570,10 +593,34 @@ def test_kernels_refuse_head_dims_past_128(cuda_device):
         bwd_kernel.flash_attention_backward(
             o, o, inv_l, q, k, v, None, None, bias_batch_dim=False,
             scale=8.0, causal=True)
-    cache = init_cache(1, 2, 64, 136, cuda_device)
+    cache = init_cache(1, 2, 64, 264, cuda_device)
     with pytest.raises(ValueError, match=match):
         quantized_decode_attention(q[:, :, 0], cache)
     assert counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 256])
+def test_bf16_two_pass_runs_the_tensor_core_dq_kernel(cuda_device, d):
+    """The bf16 two-pass route launches K3a's tensor-core instance
+    (dq_mma_kernel) and K3b's, and no FMA instance of either, as the
+    profiler names them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    case = "bias-heads-gqa" if d == 64 else "bias-batch-d256"
+    args, kw = _bwd_inputs(cuda_device, case, torch.bfloat16)
+    bwd_kernel._backward_twopass(*args, **kw)   # builds and loads first
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bwd_kernel._backward_twopass(*args, **kw)
+        torch.cuda.synchronize()
+    keys = [e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    assert any(f"dq_mma_kernel<__nv_bfloat16, {d}>" in k for k in keys), keys
+    assert any(f"dkdv_mma_kernel<__nv_bfloat16, {d}, false>" in k
+               for k in keys), keys
+    assert not any("dq_kernel<" in k or "dkdv_kernel<" in k for k in keys)
 
 
 @pytest.mark.cuda

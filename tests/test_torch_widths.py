@@ -1,14 +1,16 @@
-"""Head widths that are not kernel widths, and query-head groups past 8,
-on the CPU: the port against itself (padding) and against the JAX package.
+"""Head widths that are not kernel widths, the widest heads, and query-head
+groups past 8, on the CPU: the port against itself (padding) and against
+the JAX package.
 
-On the card a head dim d that is a multiple of 8 up to 128 runs the kernel
-built for the next of (16, 32, 64, 96, 128): the forward and backward
-wrappers zero-pad q, k, v and dO' and slice the outputs back, the decode
-kernels read d-byte code rows in place, and a kv head's group of query
-heads of any size is served in chunks of 8.  Here the padding is held
-exact on the plain path, and the port's op, decode and both engines at
-such widths and groups are held against JAX (its Pallas kernels in
-interpret mode, as the JAX suite runs them; its model functions jitted).
+On the card a head dim d that is a multiple of 8 up to 256 runs the kernel
+built for the next of (16, 32, 64, 96, 128, 192, 256): the forward and
+backward wrappers zero-pad q, k, v and dO' and slice the outputs back, the
+decode kernels read d-byte code rows in place, and a kv head's group of
+query heads of any size is served in chunks of 8.  Here the padding is
+held exact on the plain path, and the port's op, decode, paged decode and
+both engines at such widths and groups are held against JAX (its Pallas
+kernels in interpret mode, as the JAX suite runs them; its model functions
+jitted).
 
 Tolerances: padded against unpadded 1e-6 of max(1, max|y|) (f32: zero
 lanes add exact zeros, but the CPU's matrix products block a wider
@@ -36,6 +38,7 @@ from flash_cosine_sim_attention_tpu.ops.reference import (
 )
 from flash_cosine_sim_attention_tpu.quant import decode_kernel as jdk
 from flash_cosine_sim_attention_tpu.quant import kv_cache as jkv
+from flash_cosine_sim_attention_tpu.quant import paged as jpg
 from flash_cosine_sim_attention_tpu_torch.models import (
     CosineSimCausalTransformer,
     flax_param_shapes,
@@ -48,14 +51,17 @@ from flash_cosine_sim_attention_tpu_torch.ops import (
     l2norm_tensors,
 )
 from flash_cosine_sim_attention_tpu_torch.ops.blocks import (
-    ALLOWED_DIM_HEADS,
+    KERNEL_WIDTHS,
     kernel_head_dim,
 )
 from flash_cosine_sim_attention_tpu_torch.ops.reference import pad_head_dim
 from flash_cosine_sim_attention_tpu_torch.quant import (
     FP8_DTYPE,
     append,
+    append_paged,
     init_cache,
+    init_paged_cache,
+    paged_decode_attention,
     quantized_decode_attention,
 )
 from flash_cosine_sim_attention_tpu_torch.serving import (
@@ -87,16 +93,17 @@ def _np(x):
 
 
 @pytest.mark.parametrize("d,want", [(8, 16), (16, 16), (48, 64), (80, 96),
-                                    (104, 128), (128, 128)])
+                                    (104, 128), (128, 128), (136, 192),
+                                    (192, 192), (200, 256), (256, 256)])
 def test_kernel_head_dim_is_the_next_width(d, want):
     assert kernel_head_dim(d, "forward") == want
 
 
-@pytest.mark.parametrize("d", [136, 256, 12, 0])
+@pytest.mark.parametrize("d", [264, 512, 12, 0])
 def test_kernel_head_dim_refuses_and_names_the_widths(d):
-    with pytest.raises(ValueError, match="multiples of 8 up to 128") as err:
+    with pytest.raises(ValueError, match="multiples of 8 up to 256") as err:
         kernel_head_dim(d, "backward")
-    assert str(ALLOWED_DIM_HEADS) in str(err.value)
+    assert str(KERNEL_WIDTHS) in str(err.value)
     assert "backward" in str(err.value)
 
 
@@ -106,7 +113,7 @@ PAD_CASES = {"causal-gqa": (1, 4, 2, 70, 90, True, False),
 
 
 @pytest.mark.parametrize("case", sorted(PAD_CASES))
-@pytest.mark.parametrize("d", [8, 48, 80])
+@pytest.mark.parametrize("d", [8, 48, 80, 136, 200])
 def test_padding_is_exact_on_the_plain_path(d, case):
     """The wrappers' zero padding, run through the plain versions: forward
     o and inv_l, and backward dq, dk, dv, sliced back, equal the unpadded
@@ -173,6 +180,104 @@ def test_op_at_d48_matches_jax_fused(dtype):
     for name, x, y in zip(("dq", "dk", "dv", "db"), got, want):
         assert tuple(x.shape) == tuple(y.shape), name
         assert err(x, y) <= TOL[dtype], (name, err(x, y))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [136, 256])
+def test_op_at_wide_heads_matches_jax_fused(d, dtype):
+    """The port's op at d 136 (zero-padded to 192 on the card) and 256, GQA
+    and causal, with an (h, i, j) bias, against JAX's fused op: forward,
+    and the gradients of q, k, v and the bias, which take the two-pass
+    route (K3a, K3b on the card).  Bars: f32 1e-4 of max(1, max|g|), bf16
+    0.15."""
+    rng = np.random.default_rng(d)
+    b, h, kvh, s = 1, 2, 1, 50
+    q = rng.standard_normal((b, h, s, d))
+    k, v = (rng.standard_normal((b, kvh, s, d)) for _ in range(2))
+    bias = 0.5 * rng.standard_normal((h, s, s))
+    do = rng.standard_normal((b, h, s, d))
+    kw = dict(causal=True, scale=8.0)
+
+    o_j, vjp = jax.vjp(lambda q, k, v, bias: jax_flash(q, k, v, attn_bias=bias,
+                                                       **kw),
+                       *(_j(x, dtype) for x in (q, k, v, bias)))
+    want = vjp(_j(do, dtype))
+    tin = [_t(x, dtype).requires_grad_() for x in (q, k, v, bias)]
+    o_t = flash_cosine_sim_attention(*tin[:3], attn_bias=tin[3], **kw)
+    got = torch.autograd.grad(o_t, tin, _t(do, dtype))
+
+    def err(x, y):
+        e = np.abs(_np(x) - _np(y)).max()
+        return e / max(1.0, np.abs(_np(y)).max()) if dtype == "float32" else e
+
+    assert o_t.dtype == TORCH[dtype] and err(o_t, o_j) <= TOL[dtype]
+    for name, x, y in zip(("dq", "dk", "dv", "db"), got, want):
+        assert tuple(x.shape) == tuple(y.shape), name
+        assert err(x, y) <= TOL[dtype], (name, err(x, y))
+
+
+@pytest.mark.parametrize("kv", sorted(KV))
+def test_decode_d256_matches_jax(kv):
+    """The port's decode at d 256 (256-byte code rows, read in place in two
+    halves on the card) against JAX's quantized_decode_attention, int8 and
+    e4m3, GQA 4/2, with an empty slot.  Bar 2e-3."""
+    tdt, jdt = KV[kv]
+    rng = np.random.default_rng(256)
+    b, kvh, g, cap, d = 3, 2, 2, 40, 256
+    k = np.array(jax_l2norm_tensors(jnp.asarray(
+        rng.standard_normal((b, kvh, cap, d)).astype(np.float32))))
+    v = (3 * rng.standard_normal((b, kvh, cap, d))).astype(np.float32)
+    lengths = np.array([0, 1, 37], np.int32)
+    cache = append(init_cache(b, kvh, cap, d, "cpu", kv_dtype=tdt),
+                   torch.from_numpy(k), torch.from_numpy(v))
+    cache = cache._replace(length=torch.from_numpy(lengths))
+    jcache = jkv.append(jkv.init_cache(b, kvh, cap, d, kv_dtype=jdt),
+                        jnp.asarray(k), jnp.asarray(v))
+    jcache = jcache._replace(length=jnp.asarray(lengths))
+    q = rng.standard_normal((b, kvh * g, d)).astype(np.float32)
+
+    got = quantized_decode_attention(torch.from_numpy(q), cache, scale=8.0)
+    want = jdk.quantized_decode_attention(jnp.asarray(q), jcache, scale=8.0)
+    assert got.shape == (b, kvh * g, d)
+    assert np.abs(_np(got) - np.asarray(want)).max() <= DECODE_TOL
+    assert np.all(_np(got)[0] == 0)
+
+
+@pytest.mark.parametrize("kv", sorted(KV))
+def test_paged_decode_d256_matches_jax(kv):
+    """The port's paged decode at d 256 (a page holds 256 rows of 128
+    tokens) against JAX's paged_decode_attention, its XLA gather path and
+    its Pallas kernel (interpret mode), on a shuffled table of two pages a
+    slot, one slot across the page boundary.  Bar 2e-3."""
+    tdt, jdt = KV[kv]
+    rng = np.random.default_rng(257)
+    b, kvh, h, n, d, ps = 2, 1, 2, 200, 256, 128
+    mp = -(-n // ps)
+    pages = b * mp + 1
+    table = rng.permutation(np.arange(1, pages))[:b * mp].reshape(b, mp)
+    table = table.astype(np.int32)
+    k = np.array(jax_l2norm_tensors(jnp.asarray(
+        rng.standard_normal((b, kvh, n, d)).astype(np.float32))))
+    v = (2 * rng.standard_normal((b, kvh, n, d))).astype(np.float32)
+    lengths = np.array([n, 129], np.int32)
+    cache = init_paged_cache(pages, kvh, ps, d, b, mp, kv_dtype=tdt,
+                             device="cpu")
+    cache = append_paged(cache._replace(page_table=torch.from_numpy(table)),
+                         torch.from_numpy(k), torch.from_numpy(v))
+    cache = cache._replace(length=torch.from_numpy(lengths))
+    jcache = jpg.init_paged_cache(pages, kvh, ps, d, b, mp, kv_dtype=jdt)
+    jcache = jpg.append_paged(
+        jcache._replace(page_table=jnp.asarray(table)), jnp.asarray(k),
+        jnp.asarray(v))._replace(length=jnp.asarray(lengths))
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+
+    got = paged_decode_attention(torch.from_numpy(q), cache, scale=8.0)
+    assert got.shape == (b, h, d)
+    for use_kernel in (False, True):
+        want = jpg.paged_decode_attention(jnp.asarray(q), jcache, scale=8.0,
+                                          use_kernel=use_kernel)
+        assert np.abs(_np(got) - np.asarray(want)).max() <= DECODE_TOL, (
+            use_kernel)
 
 
 @pytest.mark.parametrize("kv", sorted(KV))
@@ -245,7 +350,13 @@ def test_mqa_d8_engines_match_jax(mqa_models, engine):
     the heads-16, kv_heads=1 model; every logits row they sample from is
     held against the jitted JAX prefill and decode_step fed the same
     tokens."""
-    jmodel, model, jprefill, jdecode = mqa_models
+    _engines_match_jax(mqa_models, engine)
+
+
+def _engines_match_jax(models, engine):
+    """Prefill a 13-token prompt and decode 3 tokens through ``engine``;
+    hold every logits row sampled from against the JAX functions."""
+    jmodel, model, jprefill, jdecode = models
     if engine == "paged":
         eng = PagedInferenceEngine(
             model, num_slots=1, page_size=128, num_pages=4,
@@ -276,3 +387,32 @@ def test_mqa_d8_engines_match_jax(mqa_models, engine):
     assert len(seen) == len(wants) == 4
     for got, want in zip(seen, wants):
         assert np.abs(got - np.asarray(want)).max() <= LOGITS_CACHED_TOL
+
+
+# depth 2, dim 512, 2 heads of 256 lanes: the widest kernel width
+HEAD256_MODEL = dict(num_tokens=64, dim=512, depth=2, max_seq_len=256,
+                     heads=2, dim_head=256, pre_norm=True, attn_scale=1.0)
+
+
+@pytest.fixture(scope="module")
+def head256_models():
+    """Both models on one set of numpy seed weights, carried to the port's
+    by models/convert.py; the JAX prefill and decode step jitted once."""
+    model = CosineSimCausalTransformer(**HEAD256_MODEL, device="cpu")
+    flax = _random_flax_params(model, 256)
+    params_from_flax(flax, model)
+    jmodel = JaxModel(**HEAD256_MODEL, dtype=jnp.float32)
+    params = {"params": jax.tree.map(jnp.asarray, flax)}
+    jprefill = jax.jit(lambda s, t, n: jdec.prefill(jmodel, params, s, t,
+                                                    true_len=n))
+    jdecode = jax.jit(lambda s, t: jdec.decode_step(jmodel, params, s, t))
+    return jmodel, model, jprefill, jdecode
+
+
+@pytest.mark.parametrize("engine", ["contiguous", "paged"])
+def test_heads256_engines_match_jax(head256_models, engine):
+    """Both engines prefill a 13-token prompt and decode 3 tokens through
+    the 2-heads-of-256 model; every logits row they sample from is held
+    against the jitted JAX prefill and decode_step fed the same tokens (f32
+    logits through a quantized cache, bar 1e-2)."""
+    _engines_match_jax(head256_models, engine)
