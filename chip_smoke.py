@@ -7,7 +7,8 @@ Phases (any failure exits non-zero):
   2. build: compiles every kernel under
      flash_cosine_sim_attention_tpu_torch/csrc with nvcc, in parallel;
   3. the forward kernel against its plain PyTorch version on the card;
-  4. the INT8 decode kernel against its plain version on the card;
+  4. the INT8 decode kernel (split-K: every timed K4 and K5 call below is
+     one launch, timed whole) against its plain version on the card;
   5. the serving path at full width: the validation model of train.py
      (dim 512, depth 8, 8 heads of 64, bf16, random weights from a numpy
      seed loaded through params_from_flax) served by InferenceEngine with
@@ -62,8 +63,10 @@ Phases (any failure exits non-zero):
      around it and around the prefills, K7's checked at 65 per pass); a
      ninth 1024-token prompt refills the last slot under the profiler,
      for its device time and to show K1's and K7's tensor-core instances
-     (a profiled decode step must show K7's); card vs CPU at depth 2 in
-     f32;
+     (a profiled decode step must show K7's and K4, whose share of the
+     step's device time it prints); K4 against plain and timed at the
+     shape a production decode step gives it (b8 kvh16 d128, 1060 of 2048
+     tokens a slot); card vs CPU at depth 2 in f32;
  14. widths and groups: the op's forward and backward at d 48 (zero-padded
      to the kernels' 64), f32 and bf16, against plain with K1's and K2's
      launches read around them; K4 and K5 at 16 query heads on one kv
@@ -71,15 +74,20 @@ Phases (any failure exits non-zero):
      against plain; the validation width with 16 heads of 32 on one kv
      head served by both engines (3 prompts and 8 steps each; K1, K4 and
      K5 launches read around it), then card vs CPU at depth 2 in f32;
- 15. head dims up to 256: d 264 refused by every wrapper, naming the
-     widths; the op's forward and both backward routes (with an (h, i, j)
-     bias on the two-pass one) at d 200 (padded to 256) and 256, f32 and
-     bf16, and K4 and K5 at d 200 and 256 (int8 and e4m3), against plain;
-     K1, K2, K3a, K3b, K4 and K5 checked against plain and timed at d 256
-     at the shapes the heads-256 model gives them; that model (the
-     validation width with 2 heads of 256) served by both engines,
-     trained 3 steps and its bias gradient taken 3 times (every kernel's
-     launches read around these), then card vs CPU at depth 2 in f32.
+ 15. head dims up to 256: the op's forward and both backward routes
+     (with an (h, i, j) bias on the two-pass one) at d 200 (padded to 256)
+     and 256, f32 and bf16, and K4 and K5 at d 200 and 256 (int8 and
+     e4m3), against plain; K1, K2, K3a, K3b, K4 and K5 checked against
+     plain and timed at d 256 at the shapes the heads-256 model gives
+     them; that model (the validation width with 2 heads of 256) served by
+     both engines, trained 3 steps and its bias gradient taken 3 times
+     (every kernel's launches read around these), then card vs CPU at
+     depth 2 in f32;
+ 16. head dims past 256 (the wide route): d 260 refused by every wrapper;
+     phase 15's checks at d 264 (padded to 384) and 512, timed at d 512,
+     the profiles showing the wide instances; the validation width with 1
+     head of 512 (seed 29) served, trained, its bias gradient taken, and
+     card vs CPU at depth 2.
 Then one JSON line lists every ported kernel with its launches on its
 path, error, times and bound (timing lines also print the achieved
 TFLOP/s); the script's own wall time, the nvcc build included; the
@@ -153,7 +161,9 @@ WIDE_PROMPTS = (100, 300, 700)
 # phase 15: the validation width with 2 heads of 256, the widest kernel
 # width (the widest head of the public model families)
 HEAD256_MODEL = dict(MODEL, heads=2, dim_head=256)
-HEAD256_TRAIN_STEPS = 3
+# phase 16: the validation width with 1 head of 512, the wide route
+HEAD512_MODEL = dict(MODEL, heads=1, dim_head=512)
+HEAD_TRAIN_STEPS = 3     # training steps of the phase 15 and 16 models
 
 
 def fail(msg: str) -> None:
@@ -259,6 +269,13 @@ def library_ms(name: str, fn, windows: int = 5) -> float:
 def tflops(flops: float, ms: float) -> float:
     """Achieved rate, TFLOP/s, of ``flops`` operations in ``ms``."""
     return flops / (ms * 1e-3) / 1e12
+
+
+# calls of a path profiled for require_kernels: the profiler can drop a
+# kernel's record even after cuda_rows' sentinel (seen once on the H100,
+# for the first kernel of a one-call window), so a kernel must be missing
+# from every call's records to count as not launched
+REQUIRE_ITERS = 3
 
 
 def require_kernels(rows, names, path: str) -> None:
@@ -410,6 +427,35 @@ def check_forward(card: str):
                        bound_by=by, library_ms=lib_ms)
 
 
+def hold_decode(label, kernel, plain, q, cache):
+    """A decode kernel on queries ``q`` (b, h, d) against its plain version
+    on the same cache, with f32 queries (the kernel rounds them to bf16
+    as it does bf16 ones, and its f32 output is kept), at scale 1 (the
+    timed calls') and 8 (the engines', where a score error moves the
+    weights).  The bar is 2**-8 of the output's largest value (at most
+    F32_ERR_BAR): near-uniform weights over ~1000 tokens give |o| ~ 0.03,
+    so an absolute bf16 bar would pass a wrong average.  Returns the
+    larger error."""
+    b, h, d = q.shape
+    kvh = cache.k8.shape[1]
+    qg = q.float().view(b, kvh, h // kvh, d)
+    worst = 0.0
+    for scale in (1.0, 8.0):
+        got = kernel(q.float(), cache, scale=scale, l2norm_qk=False)
+        want = plain(qg, cache, scale).view(got.shape)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        top = want.abs().max().item()
+        bar = min(F32_ERR_BAR, 2 ** -8 * top + 1e-6)
+        print(f"  {label}, f32 queries at scale {scale:g}: vs plain "
+              f"{err:.3e} (bar {bar:.3e}: 2^-8 of max|o| {top:.3e})")
+        if not (err <= bar and torch.isfinite(got).all().item()):
+            fail(f"{label} at scale {scale:g}: {err} against plain (bar "
+                 f"{bar})")
+        worst = max(worst, err)
+    return worst
+
+
 def check_decode(card: str):
     """Phase 4: K4 vs its plain version; returns (max err, timing row)."""
     from flash_cosine_sim_attention_tpu_torch.ops import l2norm_tensors
@@ -436,6 +482,12 @@ def check_decode(card: str):
           f"max|o-plain| {err:.3e} (bar {BF16_ERR_BAR:g}; output in bf16)")
     if not err <= BF16_ERR_BAR or out[0].abs().max().item() != 0:
         fail(f"K4: err {err}, empty slot {out[0].abs().max().item()}")
+    err = max(err, hold_decode(
+        "K4 b8 kvh8 g1 d64, the ragged lengths", quantized_decode_attention,
+        decode_attention_plain, q, ragged))
+    err = max(err, hold_decode(
+        "K4 b8 kvh8 g1 d64, 8 x 1024 tokens (the timed shape)",
+        quantized_decode_attention, decode_attention_plain, q, full))
 
     # timing with every slot full, L2 flushed between launches (a decode
     # step streams 8 layers' caches and the weights, so K/V arrive cold)
@@ -736,7 +788,7 @@ def check_backward(card: str):
                      "b4 h8 s1024 causal + (h,i,j) bias (phase 8b's shape)",
                      args_b, kw_b, torch.bfloat16, None)
     require_kernels(cuda_rows(lambda: bk._backward_twopass(*args_b, **kw_b),
-                              1),
+                              REQUIRE_ITERS),
                     ("dq_mma_kernel<__nv_bfloat16, 64>",
                      "dkdv_mma_kernel<__nv_bfloat16, 64, false>"),
                     "two-pass backward at phase 8b's shape (bf16)")
@@ -1000,6 +1052,8 @@ def check_paged(card: str):
                     fail(f"{label} at b8 kvh8 d64, 8 x 1024 tokens, "
                          f"{dtype}: {err} against the plain version")
                 worst[name] = max(worst[name], err)
+            worst[name] = max(worst[name], hold_decode(
+                f"{label} at phase 11's shape", kernel, plain, q32, cache))
         per_token = 2 * d + (4 if kv == "int8" else 0)
         bound_ms, by = bound(4 * d * tokens,
                              tokens * per_token + small + table.numel() * 4)
@@ -1532,7 +1586,10 @@ def serve_prod(card: str):
     rows = cuda_rows(lambda: seen.extend(engine.step().values()), profiled)
     busy_us = sum(t for _, t, _ in rows)
     k7_us = sum(t for key, t, _ in rows if "qmm_" in key)
-    require_kernels(rows, ("qmm_mma_kernel<16,",), "production decode step")
+    k4_us = sum(t for key, t, _ in rows
+                if "decode_kernel<" in key and "paged" not in key)
+    require_kernels(rows, ("qmm_mma_kernel<16,", "decode_kernel<"),
+                    "production decode step")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     seen.append(engine.continue_request(0, rng.integers(0, vocab, 50)))
@@ -1557,8 +1614,10 @@ def serve_prod(card: str):
           f"steps at 8 slots ({8e3 / dec:.1f} tokens/s); device time "
           f"{busy:.3f} ms/step (profiled): device idle share "
           f"{1 - busy / dec:.3f}; K7 {k7_us / profiled / 1e3:.3f} ms/step, "
-          f"{k7_us / busy_us:.3f} of the device time; continue_request (50 "
-          f"tokens) {continue_ms:.2f} ms")
+          f"{k7_us / busy_us:.3f} of the device time; K4 "
+          f"{k4_us / profiled / 1e3:.3f} ms/step in {PROD_MODEL['depth']} "
+          f"calls, {k4_us / busy_us:.3f} of the device time; "
+          f"continue_request (50 tokens) {continue_ms:.2f} ms")
     print("  the step's largest device times (ms/step, launches/step): "
           + "; ".join(f"{key[:48]} {t / profiled / 1e3:.3f} ({n // profiled})"
                       for key, t, n in sorted(rows, key=lambda r: -r[1])[:6]))
@@ -1602,7 +1661,51 @@ def serve_prod(card: str):
         fail("production serving: a token out of range")
     launches.update(k1_prefill=prefill_launches["k1"],
                     k7_prefill=prefill_launches["k7"])
-    return launches
+    del paged
+    torch.cuda.empty_cache()
+    return (launches, *decode_at_prod_shape(card))
+
+
+def decode_at_prod_shape(card: str):
+    """K4 at the shape a 0.81B decode step gives it: b8 kvh16 g1 d128 int8
+    over a 2048-token cache holding PROD_PROMPT + 36 live tokens a slot
+    (the slots' length after phase 13's traffic), L2 flushed; against plain,
+    then timed, the call whole.  Returns (max abs err, timing row)."""
+    from flash_cosine_sim_attention_tpu_torch.ops import l2norm_tensors
+    from flash_cosine_sim_attention_tpu_torch.quant import (
+        append, decode_attention_plain, init_cache,
+        quantized_decode_attention)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    b, kvh, d = PROD_ENGINE["num_slots"], PROD_MODEL["heads"], \
+        PROD_MODEL["dim_head"]
+    cap, live = PROD_ENGINE["capacity"], PROD_PROMPT + 36
+    k = l2norm_tensors(torch.randn(b, kvh, live, d, device="cuda",
+                                   generator=g))
+    v = torch.randn(b, kvh, live, d, device="cuda", generator=g)
+    cache = append(init_cache(b, kvh, cap, d, "cuda"), k, v)
+    q = l2norm_tensors(torch.randn(b, kvh, d, device="cuda", generator=g)
+                       ).to(torch.bfloat16)
+    qg = q.float()[:, :, None]
+    err = hold_decode(f"K4 b{b} kvh{kvh} g1 d{d} int8, {live} of {cap} "
+                      "tokens a slot", quantized_decode_attention,
+                      decode_attention_plain, q, cache)
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    call = lambda: quantized_decode_attention(  # noqa: E731
+        q, cache, scale=1.0, l2norm_qk=False)
+    ms = device_ms(call, flush=scratch.zero_)
+    plain_ms = device_ms(lambda: decode_attention_plain(qg, cache, 1.0),
+                         flush=scratch.zero_)
+    tokens = b * kvh * live
+    nbytes = tokens * (2 * d + 4) + q.numel() * 2 + b * kvh * d * 4 + b * 4
+    bound_ms, by = bound(4 * d * tokens, nbytes)
+    print(f"  K4 b{b} kvh{kvh} g1 d{d} int8, {live} of {cap} tokens a slot "
+          f"(a production decode step's shape) on {card}: vs plain "
+          f"{err:.3e} (f32 output, above); device time kernel {ms:.4f} ms (the call whole), plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.5f} ms ({by}); no single PyTorch call computes "
+          f"it")
+    return err, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                     library_ms=None)
 
 
 def prod_parity():
@@ -1774,74 +1877,34 @@ def widths_and_groups(card: str):
     return launches
 
 
-def heads_256(card: str):
-    """Phase 15: head dims up to 256.  d 264 refused by every wrapper; the
-    op's forward, one-pass backward and two-pass backward with an (h, i, j)
-    bias at d 200 (the wrappers pad to 256) and 256, f32 and bf16, against
-    plain; K4 and K5 at d 200 and 256 (int8 and e4m3, ragged, empty and
-    finished slots) against plain; K1, K2, K3a, K3b, K4 and K5 checked
-    against plain and timed at d 256 at the shapes the heads-256 model
-    gives them; that model
-    (HEAD256_MODEL) served by both engines and trained, its bias-gradient
-    path run, and card vs CPU in f32 at depth 2.  Returns ({kernel: max abs
-    err}, {kernel: timing row}, {kernel: launches})."""
-    import torch.nn.functional as F
-
-    from flash_cosine_sim_attention_tpu_torch.models import (
-        CosineSimCausalTransformer)
-    from flash_cosine_sim_attention_tpu_torch.ops import (
-        bwd_kernel as bk, flash_attention_backward,
-        flash_attention_backward_plain, flash_attention_forward_plain,
-        flash_cosine_sim_attention, l2norm_tensors)
+def _attention_counters():
+    from flash_cosine_sim_attention_tpu_torch.ops import bwd_kernel as bk
     from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
         flash_attention_forward)
     from flash_cosine_sim_attention_tpu_torch.quant import (
-        append, append_paged, decode_attention_plain, init_cache,
-        init_paged_cache, paged_decode_attention, paged_decode_plain,
-        quantized_decode_attention)
-    from flash_cosine_sim_attention_tpu_torch.serving import (
-        InferenceEngine, PagedInferenceEngine)
-    from flash_cosine_sim_attention_tpu_torch.train import (
-        BATCH_SIZE, GRAD_ACCUM, make_optimizer, train_step)
+        paged_decode_attention, quantized_decode_attention)
+    return (flash_attention_forward, bk.fused_bwd_kernel, bk.dq_kernel,
+            bk.dkdv_kernel, quantized_decode_attention,
+            paged_decode_attention)
 
-    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
 
-    def randn(*shape):
-        return torch.randn(*shape, device="cuda", generator=g)
+def counts():
+    """Launch counts of K1, K2, K3a, K3b, K4 and K5, in that order."""
+    return [c.launches for c in _attention_counters()]
 
-    counters = (flash_attention_forward, bk.fused_bwd_kernel, bk.dq_kernel,
-                bk.dkdv_kernel, quantized_decode_attention,
-                paged_decode_attention)
 
-    def counts():
-        return [c.launches for c in counters]
+def op_widths_vs_plain(g, dims, worst, kernels_at):
+    """The op's forward and both backward routes (an (h, i, j) bias on the
+    two-pass one) at each head dim of ``dims``, f32 and bf16, b2 h4/2 s384
+    causal, against plain; folds max abs errors into ``worst``."""
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        bwd_kernel as bk, flash_attention_backward_plain,
+        flash_attention_forward_plain)
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward)
 
-    # d 264: past the widest instance, refused by name, nothing launched
-    q, k, v = (randn(1, 2, 64, 264) for _ in range(3))
-    before = counts()
-    refused = []
-    for name, call in (
-            ("op", lambda: flash_cosine_sim_attention(q, k, v, causal=True)),
-            ("backward", lambda: flash_attention_backward(
-                q, q, torch.ones(1, 2, 64, 1, device="cuda"), q, k, v, None,
-                None, bias_batch_dim=False, scale=8.0, causal=True)),
-            ("decode", lambda: quantized_decode_attention(
-                q[:, :, 0], init_cache(1, 2, 64, 264, "cuda")))):
-        try:
-            call()
-        except ValueError as err:
-            if "(16, 32, 64, 96, 128, 192, 256)" in str(err):
-                refused.append(name)
-    print(f"  d264 refused with the widths named by: {', '.join(refused)}; "
-          f"launches unchanged: {counts() == before}")
-    if len(refused) != 3 or counts() != before:
-        fail(f"d264: refused by {refused}, launches {before} -> {counts()}")
-
-    # the op and both backward routes at d 200 and 256 against plain
-    worst = {"K1": 0.0, "K2": 0.0, "K3a": 0.0, "K3b": 0.0, "K4": 0.0,
-             "K5": 0.0}
     b, h, kvh, s = 2, 4, 2, 384
-    for d in (200, 256):
+    for d in dims:
         for dtype in (torch.float32, torch.bfloat16):
             args, kw = bwd_inputs(g, b, h, kvh, s, s, d, dtype, None, None,
                                   True)
@@ -1876,9 +1939,9 @@ def heads_256(card: str):
             worst["K1"] = max(worst["K1"], e1)
             finite = all(torch.isfinite(t.float()).all().item()
                          for t in (o, *one, *two))
-            print(f"  d{d} (kernels at 256) b{b} h{h}/{kvh} s{s} causal "
-                  f"{str(dtype)[6:]}: K1 max|o-plain| {e1:.3e} (bar {bar:g}),"
-                  f" inv_l {l1:.1e}; grads err "
+            print(f"  d{d} (kernels at {kernels_at(d)}) b{b} h{h}/{kvh} s{s} "
+                  f"causal {str(dtype)[6:]}: K1 max|o-plain| {e1:.3e} (bar "
+                  f"{bar:g}), inv_l {l1:.1e}; grads err "
                   + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
                   + f" (bar {GRAD_BARS[dtype]:g}); launches K1, K2, K3a, K3b "
                   f"+{moved}")
@@ -1887,12 +1950,25 @@ def heads_256(card: str):
                 fail(f"d{d} {dtype}: o {e1}, inv_l {l1}, grads {errs}, "
                      f"launches {moved}, finite {finite}")
 
-    # K4 and K5 at d 200 and 256: ragged, empty and finished slots
+
+def decode_widths_vs_plain(g, dims, worst):
+    """K4 and K5 at each head dim of ``dims`` (int8 and e4m3, g 2 on 2 kv
+    heads; empty, ragged, whole and finished slots over 8 splits of 128
+    tokens) against plain at F32_ERR_BAR; folds errors into ``worst``."""
+    from flash_cosine_sim_attention_tpu_torch.ops import l2norm_tensors
+    from flash_cosine_sim_attention_tpu_torch.quant import (
+        append, append_paged, decode_attention_plain, init_cache,
+        init_paged_cache, paged_decode_attention, paged_decode_plain,
+        quantized_decode_attention)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+
     ps, mp, kvh, gq = 128, 8, 2, 2
     bq = len(PAGED_LENGTHS) + 1           # the last slot has finished
     lengths = torch.tensor(PAGED_LENGTHS + (700,), dtype=torch.int32,
                            device="cuda")
-    for d in (200, 256):
+    for d in dims:
         k = l2norm_tensors(randn(bq, kvh, mp * ps, d))
         v = 3 * randn(bq, kvh, mp * ps, d)
         q = l2norm_tensors(randn(bq, kvh * gq, d))
@@ -1913,6 +1989,8 @@ def heads_256(card: str):
             o4 = quantized_decode_attention(q, cont, scale=8.0,
                                             l2norm_qk=False)
             o5 = paged_decode_attention(q, paged, scale=8.0, l2norm_qk=False)
+            again = quantized_decode_attention(q, cont, scale=8.0,
+                                               l2norm_qk=False)
             moved = [n - m for n, m in zip(counts(), n0)][4:]
             p4 = decode_attention_plain(qg, cont, 8.0).view(o4.shape)
             p5 = paged_decode_plain(qg, paged, 8.0).view(o5.shape)
@@ -1922,18 +2000,30 @@ def heads_256(card: str):
             worst["K4"], worst["K5"] = max(worst["K4"], e4), max(worst["K5"], e5)
             print(f"  {kv} g{gq} d{d}, lengths {lengths.tolist()}: K4 vs "
                   f"plain {e4:.3e}, K5 vs plain {e5:.3e} (bar "
-                  f"{F32_ERR_BAR:g}); launches K4, K5 +{moved}")
-            if not (moved == [1, 1] and max(e4, e5) <= F32_ERR_BAR
+                  f"{F32_ERR_BAR:g}); a second K4 call equal: "
+                  f"{torch.equal(o4, again)}; launches K4, K5 +{moved}")
+            if not (moved == [2, 1] and max(e4, e5) <= F32_ERR_BAR
+                    and torch.equal(o4, again)
                     and o4[0].abs().max().item() == 0
                     and o5[0].abs().max().item() == 0):
                 fail(f"decode d{d} {kv}: K4 {e4}, K5 {e5}, launches {moved}, "
-                     f"empty slot not 0")
+                     f"empty slot not 0 or calls differ")
 
-    # at d 256, at the shapes the heads-256 model gives the kernels (a
-    # training microbatch, b4 h2 s1024, and 8 slots of 1024 tokens):
-    # checked against plain, then timed
-    rows = {}
-    b, h, s, d = BATCH_SIZE, HEAD256_MODEL["heads"], MODEL["max_seq_len"], 256
+
+def time_attention_at(card, g, d, h, worst, names):
+    """K1, K2, K3a and K3b at b4 h{h} s1024 d{d} causal bf16 (a training
+    microbatch of the model with h heads of d), against plain and timed;
+    ``names`` are the instances the profiles must show.  Returns {kernel:
+    timing row}."""
+    import torch.nn.functional as F
+
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        bwd_kernel as bk, flash_attention_forward_plain)
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward)
+    from flash_cosine_sim_attention_tpu_torch.train import BATCH_SIZE
+
+    b, s = BATCH_SIZE, MODEL["max_seq_len"]
     args, kw = bwd_inputs(g, b, h, h, s, s, d, torch.bfloat16, None, None,
                           True)
     q, k, v = args[3:6]
@@ -1955,6 +2045,11 @@ def heads_256(card: str):
                      args, kw, torch.bfloat16, None)
     compare_backward(worst, f"b{b} h{h} s{s} d{d} causal + (h,i,j) bias "
                      "(the timed shape)", args_b, kw_b, torch.bfloat16, None)
+    require_kernels(cuda_rows(lambda: (
+        flash_attention_forward(q, k, v, None, None, **kw),
+        bk._backward_onepass(*args[:7], scale=1.0, causal=True),
+        bk._backward_twopass(*args_b, **kw_b)), REQUIRE_ITERS), names,
+        f"forward and both backward routes at d {d} (bf16)")
     call = lambda: flash_attention_forward(q, k, v, None, None, **kw)  # noqa: E731
     ms = device_ms(call)
     plain_ms = device_ms(
@@ -1964,15 +2059,30 @@ def heads_256(card: str):
                             q, k, v, is_causal=True, scale=1.0))
     flops = 4 * d * b * h * s * (s + 1) / 2
     bound_ms, by = bound(flops, 4 * q.numel() * 2 + b * h * s * 4)
-    rows["K1"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                      bound_by=by, library_ms=lib_ms)
+    rows = {"K1": dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=by, library_ms=lib_ms)}
     print(f"  K1 b{b} h{h} s{s} d{d} causal bf16 on {card}: device time "
           f"kernel {ms:.4f} ms ({tflops(flops, ms):.1f} TFLOP/s), plain "
           f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms ({tflops(flops, lib_ms):.1f}"
           f" TFLOP/s), bound {bound_ms:.5f} ms ({by})")
     rows.update(time_backward(card, args, kw, args_b, kw_b))
+    return rows
 
-    bd, kvh, cap = 8, HEAD256_MODEL["heads"], 1024
+
+def time_decode_at(card, g, d, kvh, worst):
+    """K4 and K5 at b8 kvh{kvh} g1 d{d} int8, 8 x 1024 live tokens (8
+    slots of the model with kvh heads of d), L2 flushed: against plain, then
+    timed, each call whole.  Returns {kernel: timing row}."""
+    from flash_cosine_sim_attention_tpu_torch.ops import l2norm_tensors
+    from flash_cosine_sim_attention_tpu_torch.quant import (
+        append, append_paged, decode_attention_plain, init_cache,
+        init_paged_cache, paged_decode_attention, paged_decode_plain,
+        quantized_decode_attention)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+
+    bd, cap, ps = 8, 1024, 128
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     k = l2norm_tensors(randn(bd, kvh, cap, d), groups=8)
     v = randn(bd, kvh, cap, d)
@@ -1985,18 +2095,15 @@ def heads_256(card: str):
         device="cuda")._replace(page_table=table), k, v)
     tokens = bd * kvh * cap
     small = q.numel() * 2 + bd * kvh * d * 4 + bd * 4
+    rows = {}
     for name, label, cache, kernel, plain, extra in (
             ("K4", "cache", full, quantized_decode_attention,
              decode_attention_plain, 0),
             ("K5", "pool, shuffled pages of 128", pool, paged_decode_attention,
              paged_decode_plain, table.numel() * 4)):
-        want = plain(qg, cache, 1.0).view(bd, kvh, d)
-        got = kernel(q, cache, scale=1.0, l2norm_qk=False)
-        torch.cuda.synchronize()
-        err = (got.float() - want.to(torch.bfloat16).float()).abs().max().item()
+        err = hold_decode(f"{name} b{bd} kvh{kvh} g1 d{d} int8 {label}, "
+                          "8 x 1024 tokens", kernel, plain, q, cache)
         worst[name] = max(worst[name], err)
-        if not err <= BF16_ERR_BAR:
-            fail(f"{name} d256 full {label}: {err} against the plain version")
         call = lambda: kernel(q, cache, scale=1.0, l2norm_qk=False)  # noqa: E731,B023
         ms = device_ms(call, flush=scratch.zero_)
         plain_ms = device_ms(lambda: plain(qg, cache, 1.0),  # noqa: B023
@@ -2006,18 +2113,35 @@ def heads_256(card: str):
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=by, library_ms=None)
         print(f"  {name} b{bd} kvh{kvh} g1 d{d} int8 {label}, 8 x 1024 tokens "
-              f"on {card}: vs plain {err:.3e} (bar {BF16_ERR_BAR:g}, bf16 "
-              f"output); device time kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({by}); no single "
-              f"PyTorch call computes it")
+              f"on {card}: vs plain {err:.3e} (f32 output, above); device "
+              f"time kernel {ms:.4f} ms (the call whole), "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({by}); no "
+              f"single PyTorch call computes it")
+    return rows
 
-    # the heads-256 model: both engines, training steps, its bias gradient
+
+def model_path(cfg, seed):
+    """The validation width with ``cfg``'s heads: served by both engines
+    (prompts WIDE_PROMPTS, 8 steps each), trained HEAD_TRAIN_STEPS steps,
+    a learnable (h, i, j) bias's gradient taken 3 times (every attention
+    kernel's launches read around these), then card vs CPU in f32 at
+    depth 2.  Seeds seed..seed + 3.  Returns {kernel: launches}."""
+    from flash_cosine_sim_attention_tpu_torch.models import (
+        CosineSimCausalTransformer)
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        flash_cosine_sim_attention)
+    from flash_cosine_sim_attention_tpu_torch.serving import (
+        InferenceEngine, PagedInferenceEngine)
+    from flash_cosine_sim_attention_tpu_torch.train import (
+        BATCH_SIZE, GRAD_ACCUM, make_optimizer, train_step)
+
+    h, d, s = cfg["heads"], cfg["dim_head"], cfg["max_seq_len"]
     params = random_flax_params(
-        CosineSimCausalTransformer(**HEAD256_MODEL, device="meta"), SEED + 23)
-    model = build_model(params, torch.bfloat16, "cuda", HEAD256_MODEL)
-    rng = np.random.default_rng(SEED + 24)
-    vocab = HEAD256_MODEL["num_tokens"]
-    for c in counters:
+        CosineSimCausalTransformer(**cfg, device="meta"), seed)
+    model = build_model(params, torch.bfloat16, "cuda", cfg)
+    rng = np.random.default_rng(seed + 1)
+    vocab = cfg["num_tokens"]
+    for c in _attention_counters():
         c.launches = 0
     seen = []
     for engine in (InferenceEngine(model, **ENGINE, seed=SEED, device="cuda"),
@@ -2030,19 +2154,20 @@ def heads_256(card: str):
             seen.extend(engine.step().values())
     serving = dict(zip(("k1", "k4", "k5"), (counts()[0], *counts()[4:])))
     del model
-    torch.manual_seed(SEED + 25)
-    trainee = CosineSimCausalTransformer(**HEAD256_MODEL,
-                                         dtype=torch.bfloat16, device="cuda")
+    torch.manual_seed(seed + 2)
+    trainee = CosineSimCausalTransformer(**cfg, dtype=torch.bfloat16,
+                                         device="cuda")
     opt = make_optimizer(trainee)
     tokens = torch.from_numpy(rng.integers(
-        0, vocab, (HEAD256_TRAIN_STEPS, GRAD_ACCUM, BATCH_SIZE, s + 1)))
+        0, vocab, (HEAD_TRAIN_STEPS, GRAD_ACCUM, BATCH_SIZE, s + 1)))
     n0 = counts()
     losses = [train_step(trainee, opt, batch.cuda()).item()
               for batch in tokens]
     trained = [n - m for n, m in zip(counts(), n0)][:2]
     del trainee, opt
-    q, k, v = (randn(BATCH_SIZE, h, s, d).to(torch.bfloat16)
-               for _ in range(3))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(BATCH_SIZE, h, s, d, device="cuda",
+                           generator=g).to(torch.bfloat16) for _ in range(3))
     bias = torch.zeros(h, s, s, device="cuda", requires_grad=True)
     bias_opt = torch.optim.Adam([bias], lr=0.05)
     n0 = counts()
@@ -2058,19 +2183,103 @@ def heads_256(card: str):
                     k5=serving["k5"])
     print(f"  heads {h} of {d}, bf16: both engines took prompts "
           f"{WIDE_PROMPTS} and 8 steps each ({len(seen)} tokens); "
-          f"{HEAD256_TRAIN_STEPS} train steps, losses "
-          f"{', '.join(f'{x:.4f}' for x in losses)}; 3 bias-gradient steps; "
-          f"launches {launches}")
-    per_train = GRAD_ACCUM * HEAD256_MODEL["depth"] * HEAD256_TRAIN_STEPS
+          f"{HEAD_TRAIN_STEPS} train steps, losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; 3 bias-gradient steps, "
+          f"bias finite: {bool(torch.isfinite(bias).all())}; launches "
+          f"{launches}")
+    per_train = GRAD_ACCUM * cfg["depth"] * HEAD_TRAIN_STEPS
     if (min(launches.values()) <= 0 or trained != [per_train] * 2
             or bias_path != [3, 3] or not np.all(np.isfinite(losses))
+            or not torch.isfinite(bias).all().item()
             or not all(0 <= t < vocab for t in seen)):
-        fail(f"heads 256: launches {launches}, train {trained}, bias path "
-             f"{bias_path}, losses {losses}")
-    cfg = dict(HEAD256_MODEL, depth=2)
+        fail(f"heads {h} of {d}: launches {launches}, train {trained}, bias "
+             f"path {bias_path}, losses {losses}")
+    small = dict(cfg, depth=2)
     path_parity(random_flax_params(
-        CosineSimCausalTransformer(**cfg, device="meta"), SEED + 26), cfg=cfg)
-    return worst, rows, launches
+        CosineSimCausalTransformer(**small, device="meta"), seed + 3),
+        cfg=small)
+    return launches
+
+
+def heads_256(card: str):
+    """Phase 15: head dims up to 256.  The op's forward, one-pass backward
+    and two-pass backward with an (h, i, j) bias at d 200 (the wrappers pad
+    to 256) and 256, f32 and bf16, against plain; K4 and K5 at d 200 and
+    256 (int8 and e4m3, ragged, empty and finished slots) against plain;
+    K1, K2, K3a, K3b, K4 and K5 checked against plain and timed at d 256 at
+    the shapes the heads-256 model gives them; that model (HEAD256_MODEL)
+    served by both engines and trained, its bias-gradient path run, and
+    card vs CPU in f32 at depth 2.  Returns ({kernel: max abs err},
+    {kernel: timing row}, {kernel: launches})."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    worst = {"K1": 0.0, "K2": 0.0, "K3a": 0.0, "K3b": 0.0, "K4": 0.0,
+             "K5": 0.0}
+    op_widths_vs_plain(g, (200, 256), worst, lambda d: 256)
+    decode_widths_vs_plain(g, (200, 256), worst)
+    h = HEAD256_MODEL["heads"]
+    rows = time_attention_at(card, g, 256, h, worst, (
+        "fwd_mma_kernel<__nv_bfloat16, 256>",
+        "dkdv_mma_kernel<__nv_bfloat16, 256, true>",
+        "dkdv_mma_kernel<__nv_bfloat16, 256, false>",
+        "dq_mma_kernel<__nv_bfloat16, 256>"))
+    rows.update(time_decode_at(card, g, 256, h, worst))
+    return worst, rows, model_path(HEAD256_MODEL, SEED + 23)
+
+
+def heads_past_256(card: str):
+    """Phase 16: head dims past 256, the wide route.  d 260 refused by
+    every wrapper; the op's forward and both backward routes at d 264
+    (padded to 384) and 512, f32 and bf16, against plain; K4 and K5 at d
+    264 and 512 against plain; K1, K2, K3a, K3b, K4 and K5 checked against
+    plain and timed at d 512 at the shapes the heads-512 model gives them;
+    that model (HEAD512_MODEL) served by both engines and trained, its
+    bias-gradient path run, and card vs CPU in f32 at depth 2.  Returns
+    as heads_256."""
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        flash_attention_backward, flash_cosine_sim_attention)
+    from flash_cosine_sim_attention_tpu_torch.quant import (
+        init_cache, init_paged_cache, paged_decode_attention,
+        quantized_decode_attention)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    # d 260: not a multiple of 8, refused, nothing launched
+    q, k, v = (torch.randn(1, 2, 64, 260, device="cuda", generator=g)
+               for _ in range(3))
+    before = counts()
+    refused = []
+    for name, call in (
+            ("op", lambda: flash_cosine_sim_attention(q, k, v, causal=True)),
+            ("backward", lambda: flash_attention_backward(
+                q, q, torch.ones(1, 2, 64, 1, device="cuda"), q, k, v, None,
+                None, bias_batch_dim=False, scale=8.0, causal=True)),
+            ("decode", lambda: quantized_decode_attention(
+                q[:, :, 0], init_cache(1, 2, 64, 260, "cuda"))),
+            ("paged decode", lambda: paged_decode_attention(
+                q[:, :, 0], init_paged_cache(2, 2, 128, 260, 1, 1,
+                                             device="cuda")))):
+        try:
+            call()
+        except ValueError as err:
+            if "multiple of 8" in str(err) or "multiples of 8" in str(err):
+                refused.append(name)
+    print(f"  d260 refused by: {', '.join(refused)}; launches unchanged: "
+          f"{counts() == before}")
+    if len(refused) != 4 or counts() != before:
+        fail(f"d260: refused by {refused}, launches {before} -> {counts()}")
+
+    worst = {"K1": 0.0, "K2": 0.0, "K3a": 0.0, "K3b": 0.0, "K4": 0.0,
+             "K5": 0.0}
+    op_widths_vs_plain(g, (264, 512), worst,
+                       lambda d: f"{-(-d // 128) * 128}, the wide route")
+    decode_widths_vs_plain(g, (264, 512), worst)
+    h = HEAD512_MODEL["heads"]
+    rows = time_attention_at(card, g, 512, h, worst, (
+        "fwd_wide_kernel<__nv_bfloat16, __nv_bfloat16>",
+        "dkdv_wide_kernel<__nv_bfloat16, true>",
+        "dkdv_wide_kernel<__nv_bfloat16, false>",
+        "dq_wide_kernel<__nv_bfloat16>"))
+    rows.update(time_decode_at(card, g, 512, h, worst))
+    return worst, rows, model_path(HEAD512_MODEL, SEED + 29)
 
 
 def main() -> None:
@@ -2125,12 +2334,14 @@ def main() -> None:
     print("[12] int8-weight matmul and K1's int8 arm vs plain")
     quant_err, quant_rows, int8_launches = check_quant(smi)
     print("[13] int8-weight serving at the 0.81B production width")
-    prod_launches = serve_prod(smi)
+    prod_launches, k4_prod_err, k4_prod_row = serve_prod(smi)
     prod_parity()
     print("[14] widths and groups")
     widths_and_groups(smi)
     print("[15] head dims up to 256")
     w_err, w_rows, w_launches = heads_256(smi)
+    print("[16] head dims past 256")
+    x_err, x_rows, x_launches = heads_past_256(smi)
 
     bwd = "flash_cosine_sim_attention_tpu/ops/bwd_kernel.py"
     src = "flash_cosine_sim_attention_tpu_torch/csrc/bwd_kernel.cu"
@@ -2202,6 +2413,18 @@ def main() -> None:
                      launches=w_launches[key], max_abs_err=w_err[k],
                      **w_rows[k])
                 for name, file, tpu, k, key in d256]
+    kernels += [dict(name=name.replace("d256", "d512"), route="cuda",
+                     source=f"{csrc}/{file}",
+                     replaces=f"flash_cosine_sim_attention_tpu/{tpu}",
+                     launches=x_launches[key], max_abs_err=x_err[k],
+                     **x_rows[k])
+                for name, file, tpu, k, key in d256]
+    kernels.append(dict(
+        name="decode_kernel:d128", route="cuda",
+        source=f"{csrc}/decode_kernel.cu",
+        replaces="flash_cosine_sim_attention_tpu/quant/decode_kernel.py:49",
+        launches=prod_launches["k4"], max_abs_err=k4_prod_err,
+        **k4_prod_row))
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke.py took {time.perf_counter() - started:.1f} s")
     print(smi)

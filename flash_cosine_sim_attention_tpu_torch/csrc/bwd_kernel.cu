@@ -108,6 +108,20 @@
 // key loops stop at the block's last diagonal, and query tiles run
 // heaviest first.
 //
+// Past d 256 (the wide route, both dtypes) no warp holds a row's dK, dV
+// or dQ accumulators, so the wrapper pads d to a multiple of 128
+// (ops/blocks.py WIDE_CHUNK) and the output columns become a grid axis:
+// `dkdv_wide_kernel` (K2 with DQ, K3b without) and `dq_wide_kernel` (K3a)
+// give each block 128 columns.  S and dP' are summed over 64-lane d
+// chunks of Q, dO', K and V staged in f32, e and dS formed as in the FMA
+// kernels, and the block adds only its columns: dV += e^T.dO'[:, cols],
+// dK += scale dS^T.Q[:, cols], dQ += scale dS.K[:, cols] (K2's atomics
+// into the scratch's own columns, so no column is added twice).  Every
+// column block forms the same S and dS again (4 times at d 512); dB is
+// added by column block 0 alone, else it would be counted once a column
+// block.  FMA code with f32 tiles, 64 x 64, 256 threads: the route owes
+// correctness, not speed.
+//
 // float32 inputs keep the FMA kernels `dkdv_kernel` and `dq_kernel`:
 // every product is an f32 FMA out of shared memory (tiles widened to f32
 // once at load, rows padded by one column against bank conflicts), with e
@@ -1019,6 +1033,311 @@ __global__ void __launch_bounds__(DQ_NT, 1) dq_mma_kernel(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Wide route (d a multiple of WCOL past 256), f32 FMA tiles of 64 queries
+// x 64 keys for both dtypes, NT threads as in the FMA kernels (thread
+// (ty, tx) holds queries / keys ty * 4 .. and columns tx + 16 c).
+
+constexpr int WKC = 64;    // d lanes of a Q, dO', K or V chunk
+constexpr int WCOL = 128;  // output columns of a block (ops/blocks.py WIDE_CHUNK)
+constexpr int WB = 64;     // queries and keys of a tile
+constexpr int WKS = WKC + 1, WCS = WCOL + 1, WPP = WB + 1;
+constexpr size_t WCHUNKS = 4 * size_t(WB) * WKS;  // floats: Q, dO', K, V chunks
+static_assert(2 * WB * WCS <= WCHUNKS, "two column tiles fit the chunks' room");
+
+// rows [row0, row0 + rows) x columns [c0, c0 + cols) of a (*, d) tensor as
+// f32 into shared rows `stride` floats apart; rows past `end` as 0
+template <typename T>
+__device__ __forceinline__ void load_cols(float* dst, const T* src, int row0,
+                                          int end, int rows, int c0, int cols,
+                                          int d, int stride) {
+  for (int idx = threadIdx.x; idx < rows * cols; idx += NT) {
+    const int r = idx / cols, cc = idx % cols, row = row0 + r;
+    dst[r * stride + cc] =
+        row < end ? to_f32(src[size_t(row) * d + c0 + cc]) : 0.f;
+  }
+}
+
+// One (WB queries) x (WB keys) tile at any width: s = q.k and dP' = dO'.v^T
+// summed over the d chunks (staged in `chunks`), then e and dS with every
+// hidden entry at 0, as score_tile.  Writes e to `es` (if given) and dS to
+// `dss`, both [query][key]; adds dS to `db` (if given) at (row, col).
+// Begins with a barrier (the chunks' room may be in use); `dl` must hold
+// the tile's delta' before it.
+template <typename T>
+__device__ __forceinline__ void wide_scores(
+    float* chunks, const T* qb, const T* dob, const T* kb, const T* vb,
+    const float* dl, float* es, float* dss, int q0, int k0, int d,
+    const Params& p, const uint8_t* mb, const float* bb, float* db) {
+  constexpr int R = 4;
+  float* qc = chunks;
+  float* doc = qc + WB * WKS;
+  float* kc = doc + WB * WKS;
+  float* vc = kc + WB * WKS;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float s[R][R], dp[R][R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int cc = 0; cc < R; ++cc) s[r][cc] = dp[r][cc] = 0.f;
+  for (int d0 = 0; d0 < d; d0 += WKC) {
+    __syncthreads();  // the chunks' previous readers are done
+    load_cols(qc, qb, q0, p.seq_q, WB, d0, WKC, d, WKS);
+    load_cols(doc, dob, q0, p.seq_q, WB, d0, WKC, d, WKS);
+    load_cols(kc, kb, k0, p.seq_k, WB, d0, WKC, d, WKS);
+    load_cols(vc, vb, k0, p.seq_k, WB, d0, WKC, d, WKS);
+    __syncthreads();
+#pragma unroll 4
+    for (int dd = 0; dd < WKC; ++dd) {
+      float a[R], g[R], b[R], w[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        a[r] = qc[(ty * R + r) * WKS + dd];
+        g[r] = doc[(ty * R + r) * WKS + dd];
+      }
+#pragma unroll
+      for (int cc = 0; cc < R; ++cc) {
+        b[cc] = kc[(tx + 16 * cc) * WKS + dd];
+        w[cc] = vc[(tx + 16 * cc) * WKS + dd];
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int cc = 0; cc < R; ++cc) {
+          s[r][cc] = fmaf(a[r], b[cc], s[r][cc]);
+          dp[r][cc] = fmaf(g[r], w[cc], dp[r][cc]);
+        }
+    }
+  }
+  const int diff = p.seq_k - p.seq_q;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int lr = ty * R + r, row = q0 + lr;
+    const float dlt = dl[lr];
+#pragma unroll
+    for (int cc = 0; cc < R; ++cc) {
+      const int lc = tx + 16 * cc, col = k0 + lc;
+      bool keep = row < p.seq_q && col < p.seq_k;
+      if (p.causal) keep = keep && col <= row + diff;
+      if (mb != nullptr && keep) keep = mb[col] != 0;
+      float e = 0.f, ds = 0.f;
+      if (keep) {
+        float x = s[r][cc] * p.c;
+        if (bb != nullptr) x += bb[size_t(row) * p.seq_k + col] * LOG2E;
+        e = exp2f(x);
+        ds = e * (dp[r][cc] - dlt);
+        if (db != nullptr) atomicAdd(db + size_t(row) * p.seq_k + col, ds);
+      }
+      if (es != nullptr) es[lr * WPP + lc] = e;
+      dss[lr * WPP + lc] = ds;
+    }
+  }
+}
+
+template <bool DQ>
+constexpr size_t wide_dkdv_smem() {
+  // chunks (or the Q and dO' column tiles), e and dS tiles, delta', and
+  // for K2 the block's K column tile
+  return sizeof(float) * (WCHUNKS + 2 * size_t(WB) * WPP + WB +
+                          (DQ ? size_t(WB) * WCS : 0));
+}
+
+// K2 (DQ = true) and K3b (DQ = false) past d 256: grid (key tiles, KVH,
+// B x column blocks).
+template <typename T, bool DQ>
+__global__ void __launch_bounds__(NT) dkdv_wide_kernel(Params p, int d) {
+  constexpr int R = 4, DC = WCOL / 16;  // output columns per thread
+  extern __shared__ float wsmem[];
+  float* chunks = wsmem;
+  float* qcol = chunks;               // after the scores: Q[:, cols]
+  float* docol = chunks + WB * WCS;   // and dO'[:, cols]
+  float* es = chunks + WCHUNKS;       // WB x WPP
+  float* dss = es + WB * WPP;         // WB x WPP
+  float* dl = dss + WB * WPP;         // WB
+  float* kcol = dl + WB;              // K2: WB x WCS, K[keys, cols]
+
+  const int ncb = d / WCOL;
+  const int bi = blockIdx.z / ncb, c0 = (blockIdx.z % ncb) * WCOL;
+  const int kvhi = blockIdx.y, k0 = blockIdx.x * WB;
+  const int G = p.H / p.KVH;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const size_t kvoff = (size_t(bi) * p.KVH + kvhi) * p.seq_k * d;
+  const T* kb = static_cast<const T*>(p.k) + kvoff;
+  const T* vb = static_cast<const T*>(p.v) + kvoff;
+  const uint8_t* mb = p.mask ? p.mask + size_t(bi) * p.seq_k : nullptr;
+  if constexpr (DQ) load_cols(kcol, kb, k0, p.seq_k, WB, c0, WCOL, d, WCS);
+
+  float adk[R][DC], adv[R][DC];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int cc = 0; cc < DC; ++cc) adk[r][cc] = adv[r][cc] = 0.f;
+
+  const int qfirst = p.causal ? max(0, k0 - (p.seq_k - p.seq_q)) : 0;
+  const int nq = (p.seq_q + WB - 1) / WB;
+  for (int g = 0; g < G; ++g) {
+    const int hi = kvhi * G + g;
+    const size_t qrow0 = (size_t(bi) * p.H + hi) * p.seq_q;
+    const T* qb = static_cast<const T*>(p.q) + qrow0 * d;
+    const T* dob = static_cast<const T*>(p.dO) + qrow0 * d;
+    const float* bb =
+        p.bias ? p.bias + size_t(p.bias_batch_dim ? bi : hi) * p.seq_q * p.seq_k
+               : nullptr;
+    for (int qt = qfirst / WB; qt < nq; ++qt) {
+      const int q0 = qt * WB;
+      for (int i = threadIdx.x; i < WB; i += NT)
+        dl[i] = q0 + i < p.seq_q ? p.delta[qrow0 + q0 + i] : 0.f;
+      wide_scores<T>(chunks, qb, dob, kb, vb, dl, es, dss, q0, k0, d, p, mb,
+                     bb, nullptr);
+      __syncthreads();  // e, dS staged; the chunks' readers are done
+      load_cols(qcol, qb, q0, p.seq_q, WB, c0, WCOL, d, WCS);
+      load_cols(docol, dob, q0, p.seq_q, WB, c0, WCOL, d, WCS);
+      __syncthreads();
+
+      // dV += e^T dO'[:, cols], dK += dS^T q[:, cols]
+#pragma unroll 4
+      for (int ii = 0; ii < WB; ++ii) {
+        float e[R], ds[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          e[r] = es[ii * WPP + ty * R + r];
+          ds[r] = dss[ii * WPP + ty * R + r];
+        }
+#pragma unroll
+        for (int cc = 0; cc < DC; ++cc) {
+          const float o = docol[ii * WCS + tx + 16 * cc];
+          const float qv = qcol[ii * WCS + tx + 16 * cc];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            adv[r][cc] = fmaf(e[r], o, adv[r][cc]);
+            adk[r][cc] = fmaf(ds[r], qv, adk[r][cc]);
+          }
+        }
+      }
+
+      if constexpr (DQ) {
+        // dQ[:, cols] += dS K[:, cols] for this tile's queries
+        float aq[R][DC];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int cc = 0; cc < DC; ++cc) aq[r][cc] = 0.f;
+#pragma unroll 4
+        for (int jj = 0; jj < WB; ++jj) {
+          float a[R];
+#pragma unroll
+          for (int r = 0; r < R; ++r) a[r] = dss[(ty * R + r) * WPP + jj];
+#pragma unroll
+          for (int cc = 0; cc < DC; ++cc) {
+            const float kv = kcol[jj * WCS + tx + 16 * cc];
+#pragma unroll
+            for (int r = 0; r < R; ++r) aq[r][cc] = fmaf(a[r], kv, aq[r][cc]);
+          }
+        }
+        float* dqb = p.dq_acc + qrow0 * d + c0;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int row = q0 + ty * R + r;
+          if (row >= p.seq_q) continue;
+#pragma unroll
+          for (int cc = 0; cc < DC; ++cc)
+            atomicAdd(dqb + size_t(row) * d + tx + 16 * cc, aq[r][cc]);
+        }
+      }
+    }
+  }
+
+  T* dkb = static_cast<T*>(p.dk) + kvoff + c0;
+  T* dvb = static_cast<T*>(p.dv) + kvoff + c0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int col = k0 + ty * R + r;
+    if (col >= p.seq_k) continue;
+#pragma unroll
+    for (int cc = 0; cc < DC; ++cc) {
+      store(dkb + size_t(col) * d + tx + 16 * cc, adk[r][cc] * p.scale);
+      store(dvb + size_t(col) * d + tx + 16 * cc, adv[r][cc]);
+    }
+  }
+}
+
+constexpr size_t wide_dq_smem() {
+  // chunks (or the K column tile), the dS tile, delta'
+  return sizeof(float) * (WCHUNKS + size_t(WB) * WPP + WB);
+}
+
+// K3a past d 256: grid (query tiles, H, B x column blocks).  dB is added
+// by column block 0 alone.
+template <typename T>
+__global__ void __launch_bounds__(NT) dq_wide_kernel(Params p, int d) {
+  constexpr int R = 4, DC = WCOL / 16;
+  extern __shared__ float wsmem[];
+  float* chunks = wsmem;
+  float* kcol = chunks;                // after the scores: K[keys, cols]
+  float* dss = chunks + WCHUNKS;       // WB x WPP
+  float* dl = dss + WB * WPP;          // WB
+
+  const int ncb = d / WCOL;
+  const int bi = blockIdx.z / ncb, cb = blockIdx.z % ncb, c0 = cb * WCOL;
+  const int hi = blockIdx.y, q0 = blockIdx.x * WB;
+  const int kvhi = hi / (p.H / p.KVH);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const size_t qrow0 = (size_t(bi) * p.H + hi) * p.seq_q;
+  const size_t kvoff = (size_t(bi) * p.KVH + kvhi) * p.seq_k * d;
+  const T* qb = static_cast<const T*>(p.q) + qrow0 * d;
+  const T* dob = static_cast<const T*>(p.dO) + qrow0 * d;
+  const T* kb = static_cast<const T*>(p.k) + kvoff;
+  const T* vb = static_cast<const T*>(p.v) + kvoff;
+  for (int i = threadIdx.x; i < WB; i += NT)
+    dl[i] = q0 + i < p.seq_q ? p.delta[qrow0 + q0 + i] : 0.f;
+  const uint8_t* mb = p.mask ? p.mask + size_t(bi) * p.seq_k : nullptr;
+  const size_t bslice = size_t(p.bias_batch_dim ? bi : hi) * p.seq_q * p.seq_k;
+  const float* bb = p.bias ? p.bias + bslice : nullptr;
+  float* db = p.db && cb == 0 ? p.db + bslice : nullptr;
+
+  const int last_row = min(q0 + WB, p.seq_q) - 1;
+  const int kend =
+      p.causal ? max(0, min(p.seq_k, last_row + p.seq_k - p.seq_q + 1)) : p.seq_k;
+  const int nk = (kend + WB - 1) / WB;
+
+  float acc[R][DC];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int cc = 0; cc < DC; ++cc) acc[r][cc] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * WB;
+    wide_scores<T>(chunks, qb, dob, kb, vb, dl, nullptr, dss, q0, k0, d, p,
+                   mb, bb, db);
+    __syncthreads();  // dS staged; the chunks' readers are done
+    load_cols(kcol, kb, k0, p.seq_k, WB, c0, WCOL, d, WCS);
+    __syncthreads();
+#pragma unroll 2
+    for (int jj = 0; jj < WB; ++jj) {
+      float a[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) a[r] = dss[(ty * R + r) * WPP + jj];
+#pragma unroll
+      for (int cc = 0; cc < DC; ++cc) {
+        const float kv = kcol[jj * WCS + tx + 16 * cc];
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r][cc] = fmaf(a[r], kv, acc[r][cc]);
+      }
+    }
+  }
+
+  T* dqb = static_cast<T*>(p.dq) + qrow0 * d + c0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = q0 + ty * R + r;
+    if (row >= p.seq_q) continue;
+#pragma unroll
+    for (int cc = 0; cc < DC; ++cc)
+      store(dqb + size_t(row) * d + tx + 16 * cc, acc[r][cc] * p.scale);
+  }
+}
+
 enum Which { ONEPASS = 0, DQ = 1, DKDV = 2 };
 
 template <typename Kernel>
@@ -1065,7 +1384,31 @@ cudaError_t run(Which which, const Params& p, int B, cudaStream_t s) {
 }
 
 template <typename T>
+cudaError_t run_wide(Which which, const Params& p, int B, int d,
+                     cudaStream_t s) {
+  if (d % WCOL != 0) return cudaErrorInvalidValue;
+  const int ncb = d / WCOL;
+  auto launch_w = [&](auto kernel, dim3 grid, size_t smem) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, NT, smem, s>>>(p, d);
+    return cudaGetLastError();
+  };
+  if (which == DQ)
+    return launch_w(dq_wide_kernel<T>,
+                    dim3((p.seq_q + WB - 1) / WB, p.H, B * ncb),
+                    wide_dq_smem());
+  const dim3 grid((p.seq_k + WB - 1) / WB, p.KVH, B * ncb);
+  return which == ONEPASS
+             ? launch_w(dkdv_wide_kernel<T, true>, grid, wide_dkdv_smem<true>())
+             : launch_w(dkdv_wide_kernel<T, false>, grid,
+                        wide_dkdv_smem<false>());
+}
+
+template <typename T>
 cudaError_t run_d(int d, Which which, const Params& p, int B, cudaStream_t s) {
+  if (d > 256) return run_wide<T>(which, p, B, d, s);
   switch (d) {
     case 16: return run<T, 16>(which, p, B, s);
     case 32: return run<T, 32>(which, p, B, s);

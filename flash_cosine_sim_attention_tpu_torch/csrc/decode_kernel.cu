@@ -23,22 +23,19 @@
 // Bound on the H100: bytes.  At full length a call streams the K and V
 // codes of every live token once (8.4 MB at b8 kvh8 cap1024 d64 in int8,
 // ~2.5 us at 3.35 TB/s; e4m3 reads no scales) and does ~2 FLOP per byte.
-// The kernel reads the lengths from the device (no host sync) and loops
-// only over live tokens, so dead capacity costs nothing.  One 128-thread
-// block per (slot, kv head, chunk of 8 query heads): each thread scores
-// one token of a 128-token tile (8-byte loads of its d-byte K row, so any
-// d that is a multiple of 8 is read in place) and stages that token's V
-// row in shared memory, so a tile's loads are in flight together; then the
-// block accumulates the tile's P.V out of shared memory with threads split
-// over the head dim.  Above d 128 a thread loads its token's rows in
-// halves: a whole 256-byte K and V row would be 64 registers each, and on
-// an H100 halves ran faster than whole rows or 64-byte pieces.  The P.V
-// partials share their shared memory with the V tile, which keeps the
-// block within 48 KB.  At b8 kvh8 that is 64 blocks on 132 SMs, so the
-// card is under-filled: the later design splits each slot's tokens over
-// several blocks and merges their partial (O, l) sums in a second pass
-// (split-K, "flash-decoding"), which the no-row-max sums make a plain
-// addition.
+// The kernel reads the lengths from the device (no host sync) and loads
+// only live tokens, so dead capacity costs a block that exits at once.
+//
+// Design: split-K over the slot's tokens (decode_common.cuh), one launch
+// a call.  A stage of TT tokens is TT * d contiguous bytes of K (and of
+// V): the block copies it with 8-byte cp.async (any d a multiple of 8),
+// consecutive threads on consecutive words, into rows padded to an odd
+// multiple of 8 * (128 / TT) bytes, double-buffered.  Scores: 128 / TT
+// threads a token, each reading every (128 / TT)-th 8-byte word of its
+// row (the padding puts a half warp's words on 16 distinct bank pairs),
+// summed by shuffles.  P.V: a thread owns 4 columns (one word of a V row)
+// and a share of the stage's tokens; its accumulators stay in registers
+// across stages, and the shares are summed once, at the end of the split.
 
 #include <initializer_list>
 
@@ -48,140 +45,236 @@ namespace {
 
 using namespace decode_common;
 
-// T: int8_t (per-token V scales) or __nv_fp8_e4m3 (no scales).  Grid
-// (query-head chunks, KVH, B): a chunk's blocks sit side by side.
-template <typename T, int D>
+// The block's dynamic shared memory: the stage ring (the P.V partials
+// reuse its room at the end), the queries, a stage's weights, the row
+// sums' partials and the merge flag, for a block of gm query heads.  Rows
+// of a stage are `sb` bytes.
+struct Layout {
+  int tt, tpt, sb, np;
+  size_t stage, qs, es, lred, flag, bytes;
+  __host__ __device__ Layout(int d, int gm) {
+    tt = stage_tokens(d);
+    tpt = NT / tt;                      // threads a token in the scores
+    int m = (d / 8 + tpt - 1) / tpt;    // 8-byte words a thread, made odd
+    if (m % 2 == 0) ++m;
+    sb = 8 * tpt * m;
+    const int nw = d / 4;               // 4-column words of a row
+    np = nw <= NT ? NT / nw : 1;        // P.V token shares
+    stage = (2 * size_t(tt) * sb + sizeof(float) * tt + 15) / 16 * 16;
+    const size_t red = sizeof(float) * size_t(np) * gm * d;
+    qs = 2 * stage > red ? 2 * stage : red;
+    es = qs + sizeof(float) * gm * d;
+    lred = es + sizeof(float) * gm * tt;
+    flag = lred + sizeof(float) * gm * (NT / 32);
+    bytes = flag + 16;
+  }
+};
+
+// T: int8_t (per-token V scales) or __nv_fp8_e4m3 (no scales); WIDE: d
+// past 512, two P.V words a thread; GN: the query heads a block serves
+// (decode_common.cuh heads_instance).  Grid (splits, head chunks, B * KVH).
+template <typename T, bool WIDE, int GN>
 __global__ void __launch_bounds__(NT) decode_kernel(
     const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ k8,
     const uint8_t* __restrict__ v8, const float* __restrict__ v_scale,
-    const int* __restrict__ length, float* __restrict__ out, int KVH, int G,
-    int cap, int d, float logit_scale, float scale) {
-  using PV = PvLanes<D>;
-  constexpr int NPARTS = PV::NPARTS, NCOL = PV::NCOL;
-  constexpr int DW = D / 8;                        // 8-byte words of a row
-  constexpr int CW = DW <= 16 ? DW : DW / 2;       // words loaded at once
-  constexpr size_t VT = size_t(NT) * D;            // the tile's V rows
-  constexpr size_t RED = sizeof(float) * NPARTS * GMAX * D;
-  __shared__ float qs[GMAX][D];
-  __shared__ float es[GMAX][NT];
-  __shared__ float lred[GMAX][NT / 32];
-  __shared__ __align__(16) uint8_t tiles[VT > RED ? VT : RED];
-  auto& vt = *reinterpret_cast<uint8_t(*)[NT][D]>(tiles);
-  auto& red = *reinterpret_cast<float(*)[NPARTS][GMAX][D]>(tiles);
+    const int* __restrict__ length, float* __restrict__ out, Merge m,
+    int KVH, int G, int cap, int d, int tps, float logit_scale, float scale) {
+  constexpr int NCW = WIDE ? 2 : 1;
   constexpr bool kScaled = std::is_same<T, int8_t>::value;
+  const size_t bh = blockIdx.z;
+  const Split sp(length[bh / KVH], cap, tps);
+  if (!sp.live()) return;
+  const Layout L(d, GN);
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;
+  float* red = reinterpret_cast<float*>(smem);
+  float* qs = reinterpret_cast<float*>(smem + L.qs);
+  float* es = reinterpret_cast<float*>(smem + L.es);
+  float* lred = reinterpret_cast<float*>(smem + L.lred);
+  int* flag = reinterpret_cast<int*>(smem + L.flag);
 
-  const int g0 = blockIdx.x * GMAX, kvhi = blockIdx.y, bi = blockIdx.z;
-  const int gn = min(GMAX, G - g0);
-  const size_t bh = size_t(bi) * KVH + kvhi;
-  const int tid = threadIdx.x;
-  const int len = min(max(length[bi], 0), cap);
-  const int dw = d / 8;  // the row's words; words dw..DW read as 0
-  load_queries<D>(q, bh, G, g0, gn, d, qs);
-
+  const int g0 = blockIdx.y * GN, gn = min(GN, G - g0);
+  const int tid = threadIdx.x, tt = L.tt, tpt = L.tpt, sb = L.sb;
+  load_queries(q, bh, G, g0, gn, d, qs);
   const uint8_t* kb = k8 + bh * cap * d;
   const uint8_t* vb = v8 + bh * cap * d;
   const float* vsb = v_scale + bh * cap;
-  const int dcol = tid % PV::W, part = tid / PV::W;
-  const bool pv_lane = tid < NPARTS * PV::W && dcol < d;
+  const int dw8 = d / 8, nw = d / 4;
+  const int nst = (sp.t1 - sp.t0 + tt - 1) / tt;
 
-  float acc[NCOL][GMAX], lpart[GMAX];
+  // stage i's tokens (zeros past the split's live end) into ring buffer i & 1
+  auto load = [&](int i) {
+    unsigned char* st = ring + (i & 1) * L.stage;
+    const int s0 = sp.t0 + i * tt;
+    for (int idx = tid; idx < tt * dw8; idx += NT) {
+      const int r = idx / dw8, w = idx - r * dw8;
+      const bool in = s0 + r < sp.t1;
+      const size_t off = size_t(s0 + r) * d + 8 * w;
+      cp_async8(st + r * sb + 8 * w, in ? kb + off : kb, in ? 8 : 0);
+      cp_async8(st + (tt + r) * sb + 8 * w, in ? vb + off : vb, in ? 8 : 0);
+    }
+    if (kScaled) {
+      float* vsc = reinterpret_cast<float*>(st + 2 * tt * sb);
+      for (int r = tid; r < tt; r += NT) {
+        const bool in = s0 + r < sp.t1;
+        cp_async4(vsc + r, in ? vsb + s0 + r : vsb, in ? 4 : 0);
+      }
+    }
+  };
+
+  // score roles: token tl of the stage, word share p; P.V roles: word w0
+  // (and w0 + NT), token share part
+  const int tl = tid / tpt, p = tid % tpt;
+  const int w0 = nw <= NT ? tid % nw : tid;
+  const int part = nw <= NT ? tid / nw : 0;
+  const bool pv = part < L.np;
+  float lpart[GN], acc[NCW][4][GN];
 #pragma unroll
-  for (int gi = 0; gi < GMAX; ++gi) {
+  for (int gi = 0; gi < GN; ++gi) {
     lpart[gi] = 0.f;
 #pragma unroll
-    for (int j = 0; j < NCOL; ++j) acc[j][gi] = 0.f;
+    for (int j = 0; j < NCW; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[j][x][gi] = 0.f;
   }
-  __syncthreads();
 
-  for (int t0 = 0; t0 < len; t0 += NT) {
-    const int t = t0 + tid;
-    if (t < len) {
-      // all of a chunk's loads first (the whole row up to d 128), so a
-      // tile's K and V rows are in flight together; the V row is staged
-      // for P.V in shared memory
-      const uint2* kr = reinterpret_cast<const uint2*>(kb + size_t(t) * d);
-      const uint2* vr = reinterpret_cast<const uint2*>(vb + size_t(t) * d);
-      const float vsc = kScaled ? vsb[t] : 1.f;
-      uint2* vdst = reinterpret_cast<uint2*>(&vt[tid][0]);
-      float s[GMAX];
+  if (nst > 0) load(0);
+  cp_async_commit();
+  for (int i = 0; i < nst; ++i) {
+    if (i + 1 < nst) load(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // stage i (and, at i 0, the queries) has landed
+    const unsigned char* kst = ring + (i & 1) * L.stage;
+    const unsigned char* vst = kst + tt * sb;
+    const float* vsc = reinterpret_cast<const float*>(kst + 2 * tt * sb);
+    const int n = min(tt, sp.t1 - (sp.t0 + i * tt));  // live tokens
+
+    // scores: 8 codes at a time against 8 query lanes (two float4 loads a
+    // head, the same addresses for every token of a share)
+    float s[GN];
 #pragma unroll
-      for (int gi = 0; gi < GMAX; ++gi) s[gi] = 0.f;
+    for (int gi = 0; gi < GN; ++gi) s[gi] = 0.f;
+    const unsigned char* kr = kst + tl * sb;
+#pragma unroll 2
+    for (int w = p; w < dw8; w += tpt) {
+      const uint2 u = *reinterpret_cast<const uint2*>(kr + 8 * w);
+      float kf[8];
+      decode4<T>(u.x, *reinterpret_cast<float(*)[4]>(kf));
+      decode4<T>(u.y, *reinterpret_cast<float(*)[4]>(kf + 4));
 #pragma unroll
-      for (int w0 = 0; w0 < DW; w0 += CW) {
-        uint2 ku[CW], vu[CW];
-#pragma unroll
-        for (int w = 0; w < CW; ++w) {
-          ku[w] = w0 + w < dw ? kr[w0 + w] : make_uint2(0, 0);
-          vu[w] = w0 + w < dw ? vr[w0 + w] : make_uint2(0, 0);
-        }
-#pragma unroll
-        for (int w = 0; w < CW; ++w) vdst[w0 + w] = vu[w];
-#pragma unroll
-        for (int w = 0; w < CW; ++w) {
-          const uint8_t* kv = reinterpret_cast<const uint8_t*>(&ku[w]);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const float kf = code_value<T>(kv[e]);
-#pragma unroll
-            for (int gi = 0; gi < GMAX; ++gi)
-              if (gi < gn) s[gi] = fmaf(qs[gi][(w0 + w) * 8 + e], kf, s[gi]);
-          }
-        }
+      for (int gi = 0; gi < GN; ++gi) {
+        if (gi >= gn) continue;
+        const float4* qw = reinterpret_cast<const float4*>(qs + gi * d + 8 * w);
+        const float4 a = qw[0], b = qw[1];
+        s[gi] = fmaf(a.x, kf[0], fmaf(a.y, kf[1], fmaf(a.z, kf[2], fmaf(
+            a.w, kf[3], fmaf(b.x, kf[4], fmaf(b.y, kf[5], fmaf(
+                b.z, kf[6], fmaf(b.w, kf[7], s[gi]))))))));
       }
+    }
+    for (int off = tpt / 2; off > 0; off >>= 1) {
 #pragma unroll
-      for (int gi = 0; gi < GMAX; ++gi) {
-        if (gi < gn) {
+      for (int gi = 0; gi < GN; ++gi)
+        if (gi < gn) s[gi] += __shfl_xor_sync(0xffffffffu, s[gi], off);
+    }
+    if (p == 0) {
+#pragma unroll
+      for (int gi = 0; gi < GN; ++gi) {
+        if (gi >= gn) continue;
+        float ev = 0.f;
+        if (tl < n) {
           const float e = token_weight(s[gi], logit_scale, scale);
           lpart[gi] += e;
-          es[gi][tid] = bf16_round(kScaled ? e * vsc : e);
+          ev = bf16_round(kScaled ? e * vsc[tl] : e);
         }
+        es[gi * tt + tl] = ev;
       }
     }
     __syncthreads();
-    if (pv_lane) {
-      const int tmax = min(NT, len - t0);
-      for (int kk = part; kk < tmax; kk += NPARTS) {
-#pragma unroll
-        for (int j = 0; j < NCOL; ++j) {
-          if (j > 0 && dcol + j * NT >= d) continue;
-          const float vv = code_value<T>(vt[kk][dcol + j * NT]);
-#pragma unroll
-          for (int gi = 0; gi < GMAX; ++gi)
-            if (gi < gn) acc[j][gi] = fmaf(es[gi][kk], vv, acc[j][gi]);
-        }
-      }
-    }
-    __syncthreads();
-  }
 
-  store_rows<D>(acc, lpart, pv_lane, part, dcol, gn, d, red, lred,
-                out + (bh * G + g0) * d);
+    if (pv) {
+#pragma unroll 4
+      for (int t = part; t < n; t += L.np) {
+        const unsigned char* vr = vst + t * sb;
+        float ev[GN];
+#pragma unroll
+        for (int gi = 0; gi < GN; ++gi) ev[gi] = gi < gn ? es[gi * tt + t] : 0.f;
+#pragma unroll
+        for (int j = 0; j < NCW; ++j) {
+          const int w = w0 + j * NT;
+          if (j > 0 && w >= nw) continue;
+          float vv[4];
+          decode4<T>(*reinterpret_cast<const uint32_t*>(vr + 4 * w), vv);
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+#pragma unroll
+            for (int gi = 0; gi < GN; ++gi)
+              acc[j][x][gi] = fmaf(ev[gi], vv[x], acc[j][x][gi]);
+        }
+      }
+    }
+    __syncthreads();  // the next stage's loads may overwrite this buffer
+  }
+  cp_async_wait<0>();
+
+  if (pv) {
+#pragma unroll
+    for (int j = 0; j < NCW; ++j) {
+      const int w = w0 + j * NT;
+      if (j > 0 && w >= nw) continue;
+#pragma unroll
+      for (int gi = 0; gi < GN; ++gi) {
+        if (gi >= gn) continue;
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          red[(part * GN + gi) * d + 4 * w + x] = acc[j][x][gi];
+      }
+    }
+  }
+  reduce_lsum<GN>(lpart, gn, lred);
+  finish_split(red, L.np, GN, lred, gn, d, sp, bh * G + g0, out, m, flag);
 }
 
 }  // namespace
 
 // Contiguous tensors: q (B, KVH, G, d) bf16, already l2-normalized, any
 // group G; k8/v8 (B, KVH, cap, d) int8 (fp8 = 0) or e4m3 (fp8 = 1), 8-byte
-// aligned, d a multiple of 8 up to 256; v_scale (B, KVH, cap) f32, read
+// aligned, d a multiple of 8 up to 1024; v_scale (B, KVH, cap) f32, read
 // for int8 only; length (B,) int32 on the device; out (B, KVH, G, d) f32.
+// The split-K workspace: ws_o (nsplit, B, KVH, G, d) and ws_l (nsplit, B,
+// KVH, G) f32, tickets (B * KVH * ceil(G / 8)) int32, zero between calls;
+// tps tokens a split (a multiple of 128), nsplit * tps covering cap.
 // logit_scale is scale * kdq (1/127 for int8, 1 for e4m3).  Returns the
 // cudaGetLastError() after the launch.
 extern "C" int fcsa_decode(const void* q, const void* k8, const void* v8,
                            const void* v_scale, const void* length, void* out,
-                           int B, int KVH, int G, int cap, int d, int fp8,
-                           float logit_scale, float scale, void* stream) {
-  if (B <= 0 || KVH <= 0 || G <= 0 || cap <= 0)
+                           void* ws_o, void* ws_l, void* tickets, int B,
+                           int KVH, int G, int cap, int d, int fp8, int tps,
+                           int nsplit, float logit_scale, float scale,
+                           void* stream) {
+  if (B <= 0 || KVH <= 0 || G <= 0 || cap <= 0 || tps <= 0 || tps % NT ||
+      nsplit <= 0 || size_t(nsplit) * tps < size_t(cap) ||
+      size_t(nsplit - 1) * tps >= size_t(cap))
     return int(cudaErrorInvalidValue);
   for (const void* p : {k8, v8})
     if (reinterpret_cast<uintptr_t>(p) % 8 != 0) return int(cudaErrorMisalignedAddress);
   auto s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((G + GMAX - 1) / GMAX, KVH, B);
-  return int(dispatch(fp8, d, [&](auto code, auto dim) {
-    decode_kernel<decltype(code), decltype(dim)::value><<<grid, NT, 0, s>>>(
+  const int gm = heads_instance(G);
+  const dim3 grid(nsplit, (G + gm - 1) / gm, B * KVH);
+  const Merge m{static_cast<float*>(ws_o), static_cast<float*>(ws_l),
+                static_cast<int*>(tickets), size_t(B) * KVH * G};
+  return int(dispatch(fp8, d, 512, G, [&](auto code, auto wide, auto heads) {
+    constexpr int GN = decltype(heads)::value;
+    auto kernel = decode_kernel<decltype(code), decltype(wide)::value, GN>;
+    const size_t smem = Layout(d, GN).bytes;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, NT, smem, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(k8),
         static_cast<const uint8_t*>(v8), static_cast<const float*>(v_scale),
-        static_cast<const int*>(length), static_cast<float*>(out), KVH, G,
-        cap, d, logit_scale, scale);
+        static_cast<const int*>(length), static_cast<float*>(out), m, KVH, G,
+        cap, d, tps, logit_scale, scale);
     return cudaGetLastError();
   }));
 }

@@ -45,6 +45,17 @@
 // at d 256 the f32 Q, K, V and P tiles take 213,760 bytes of the 232,448 a
 // block may have.
 //
+// Past d 256 (the wide route, `fwd_wide_kernel`, every dtype code) a
+// warp's O accumulators no longer fit, so the output columns become a
+// grid axis: the wrapper pads d to a multiple of 128 (ops/blocks.py
+// WIDE_CHUNK), and each block owns 64 query rows and 128 of O's columns.
+// S = Q.K^T is summed over 64-lane d chunks of Q and K staged in f32 in
+// shared memory, e and l are formed as above, and the block adds P.V for
+// its columns only; so every column block forms the same S and l again
+// (4 times at d 512), and column block 0 alone writes inv_l.  FMA code
+// throughout, P kept in f32: no model runs such heads, and the route owes
+// correctness, not speed.
+//
 // Masking: causal keeps key col <= row + (seq_k - seq_q) (cross-attention
 // alignment) and the loop stops at the last tile a row of the block can
 // see; an optional (b, j) key mask and the ragged edges select e = 0.
@@ -495,6 +506,163 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// Wide route (d a multiple of WCOL past 256), FMA for every dtype code.
+// Grid (query tiles, H, B x column blocks); threads are 16 row groups of 4
+// rows x 8 column lanes, as in fwd_kernel.
+
+constexpr int WKC = 64;    // d lanes of a Q / K chunk
+constexpr int WCOL = 128;  // O columns of a block (ops/blocks.py WIDE_CHUNK)
+
+constexpr size_t wide_smem() {
+  // Q and K chunks and the P tile with one pad column, the V column tile
+  return sizeof(float) * (size_t(BQ) * (WKC + 1) + size_t(BK) * (WKC + 1) +
+                          size_t(BK) * WCOL + size_t(BQ) * (BK + 1));
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return float(x); }
+__device__ __forceinline__ void store_val(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_val(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+// rows [row0, row0 + rows) x columns [c0, c0 + cols) of a (*, d) tensor as
+// f32 into shared rows `stride` floats apart; rows past `end` as 0
+template <typename T>
+__device__ __forceinline__ void load_chunk(float* dst, const T* src, int row0,
+                                           int end, int rows, int c0, int cols,
+                                           int d, int stride) {
+  for (int idx = threadIdx.x; idx < rows * cols; idx += NT) {
+    const int r = idx / cols, cc = idx % cols, row = row0 + r;
+    dst[r * stride + cc] =
+        row < end ? to_f32(src[size_t(row) * d + c0 + cc]) : 0.f;
+  }
+}
+
+template <typename TQ, typename TV>
+__global__ void __launch_bounds__(NT) fwd_wide_kernel(
+    const TQ* __restrict__ q, const TQ* __restrict__ k, const TV* __restrict__ v,
+    const uint8_t* __restrict__ mask, const float* __restrict__ bias,
+    TV* __restrict__ o, float* __restrict__ inv_l, int H, int KVH, int seq_q,
+    int seq_k, int d, int causal, int bias_batch_dim, float c) {
+  constexpr int KS = WKC + 1, PP = BK + 1;
+  constexpr int DC = WCOL / 8;  // output columns per thread
+  extern __shared__ float smem_w[];
+  float* qs = smem_w;        // BQ x KS
+  float* ks = qs + BQ * KS;  // BK x KS
+  float* vs = ks + BK * KS;  // BK x WCOL
+  float* ps = vs + BK * WCOL;  // BQ x PP
+
+  const int ncb = d / WCOL;
+  const int bi = blockIdx.z / ncb, cb = blockIdx.z % ncb, hi = blockIdx.y;
+  const int c0 = cb * WCOL;
+  const int q0 = blockIdx.x * BQ;
+  const int kvhi = hi / (H / KVH);
+  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  const int diff = seq_k - seq_q;
+
+  const TQ* qb = q + (size_t(bi) * H + hi) * seq_q * d;
+  const TQ* kb = k + (size_t(bi) * KVH + kvhi) * seq_k * d;
+  const TV* vb = v + (size_t(bi) * KVH + kvhi) * seq_k * d;
+  const uint8_t* mb = mask ? mask + size_t(bi) * seq_k : nullptr;
+  const float* bb =
+      bias ? bias + size_t(bias_batch_dim ? bi : hi) * seq_q * seq_k : nullptr;
+
+  const int last_row = min(q0 + BQ, seq_q) - 1;
+  const int kend = causal ? max(0, min(seq_k, last_row + diff + 1)) : seq_k;
+  const int nk = (kend + BK - 1) / BK;
+
+  float acc[4][DC];
+  float lsum[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    lsum[r] = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < DC; ++cc) acc[r][cc] = 0.f;
+  }
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    // S = Q.K^T over the d chunks
+    float s[4][8];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int cc = 0; cc < 8; ++cc) s[r][cc] = 0.f;
+    for (int d0 = 0; d0 < d; d0 += WKC) {
+      __syncthreads();  // the previous chunk's (and tile's) readers are done
+      load_chunk(qs, qb, q0, seq_q, BQ, d0, WKC, d, KS);
+      load_chunk(ks, kb, k0, seq_k, BK, d0, WKC, d, KS);
+      __syncthreads();
+#pragma unroll 4
+      for (int dd = 0; dd < WKC; ++dd) {
+        float a[4], b[8];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) a[r] = qs[(ty * 4 + r) * KS + dd];
+#pragma unroll
+        for (int cc = 0; cc < 8; ++cc) b[cc] = ks[(tx + 8 * cc) * KS + dd];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int cc = 0; cc < 8; ++cc) s[r][cc] = fmaf(a[r], b[cc], s[r][cc]);
+      }
+    }
+
+    // e, masked to 0, into the P tile; the block's V columns beside it
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = q0 + ty * 4 + r;
+#pragma unroll
+      for (int cc = 0; cc < 8; ++cc) {
+        const int col = k0 + tx + 8 * cc;
+        bool keep = row < seq_q && col < seq_k;
+        if (causal) keep = keep && col <= row + diff;
+        if (mb != nullptr) keep = keep && mb[min(col, seq_k - 1)] != 0;
+        float x = s[r][cc] * c;
+        if (bb != nullptr && keep) x += bb[size_t(row) * seq_k + col] * LOG2E;
+        const float e = keep ? exp2f(x) : 0.f;
+        lsum[r] += e;
+        ps[(ty * 4 + r) * PP + tx + 8 * cc] = e;
+      }
+    }
+    load_chunk(vs, vb, k0, seq_k, BK, c0, WCOL, d, WCOL);
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float p[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) p[r] = ps[(ty * 4 + r) * PP + kk];
+#pragma unroll
+      for (int cc = 0; cc < DC; ++cc) {
+        const float vv = vs[kk * WCOL + tx + 8 * cc];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[r][cc] = fmaf(p[r], vv, acc[r][cc]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1)
+      lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], off);
+  }
+  TV* ob = o + (size_t(bi) * H + hi) * seq_q * d + c0;
+  float* lb = inv_l + (size_t(bi) * H + hi) * seq_q;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = q0 + ty * 4 + r;
+    if (row >= seq_q) continue;
+    const float inv = 1.f / fmaxf(lsum[r], EPS);
+#pragma unroll
+    for (int cc = 0; cc < DC; ++cc)
+      store_val(ob + size_t(row) * d + tx + 8 * cc, acc[r][cc] * inv);
+    if (tx == 0 && cb == 0) lb[row] = inv;  // every column block has this l
+  }
+}
+
 // ---------------------------------------------------------------------------
 
 struct Args {
@@ -548,6 +716,23 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
   else return launch_fma<TQ, D>(a, s);
 }
 
+template <typename TQ, typename TV>
+cudaError_t launch_wide(int d, const Args& a, cudaStream_t stream) {
+  if (d % WCOL != 0) return cudaErrorInvalidValue;
+  constexpr size_t smem = wide_smem();
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_wide_kernel<TQ, TV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.seq_q + BQ - 1) / BQ, a.H, a.B * (d / WCOL));
+  fwd_wide_kernel<TQ, TV><<<grid, NT, smem, stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TQ*>(a.k),
+      static_cast<const TV*>(a.v), a.mask, a.bias, static_cast<TV*>(a.o),
+      a.inv_l, a.H, a.KVH, a.seq_q, a.seq_k, d, a.causal, a.bias_batch_dim,
+      a.c);
+  return cudaGetLastError();
+}
+
 template <typename TQ, bool MMA>
 cudaError_t dispatch_d(int d, const Args& a, cudaStream_t s) {
   switch (d) {
@@ -566,7 +751,8 @@ cudaError_t dispatch_d(int d, const Args& a, cudaStream_t s) {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); 2 = int8 q/k
 // codes with float32 v and o; 3 = int8 q/k codes with bfloat16 v and o.
-// 1 and 3 run on the tensor cores, 0 and 2 on the FMA kernel.
+// 1 and 3 run on the tensor cores, 0 and 2 on the FMA kernel; d past 256
+// (a multiple of 128) takes the wide FMA route for every code.
 // All tensors contiguous: q/o (B, H, seq_q, d), k/v (B, KVH, seq_k, d),
 // mask (B, seq_k) uint8 or null, bias (B|H, seq_q, seq_k) f32 or null,
 // inv_l (B, H, seq_q) f32.  The logits are scale * s_dequant * q.k (int8
@@ -588,6 +774,15 @@ extern "C" int fcsa_fwd(const void* q, const void* k, const void* v,
                B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c};
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+  if (d > 256) {  // the wide route: d a multiple of WCOL
+    switch (dtype) {
+      case 0: return int(launch_wide<float, float>(d, a, s));
+      case 1: return int(launch_wide<__nv_bfloat16, __nv_bfloat16>(d, a, s));
+      case 2: return int(launch_wide<int8_t, float>(d, a, s));
+      case 3: return int(launch_wide<int8_t, __nv_bfloat16>(d, a, s));
+      default: return int(cudaErrorInvalidValue);
+    }
+  }
   switch (dtype) {
     case 0: err = dispatch_d<float, false>(d, a, s); break;
     case 1: err = dispatch_d<__nv_bfloat16, true>(d, a, s); break;

@@ -1,6 +1,7 @@
 // Tensor-core and asynchronous-copy helpers shared by the forward kernel
-// (fwd_kernel.cu), the backward's dK/dV kernel (bwd_kernel.cu) and the
-// int8-weight matmul (quant_matmul_kernel.cu): 16- and 4-byte `cp.async`
+// (fwd_kernel.cu), the backward's dK/dV kernel (bwd_kernel.cu), the
+// int8-weight matmul (quant_matmul_kernel.cu) and the two decode kernels
+// (decode_common.cuh): 16-, 8- and 4-byte `cp.async`
 // with zero-fill, `ldmatrix`, and the `mma.sync` products they run (bf16
 // m16n8k16 and s8 m16n8k32, f32 / s32 sums).
 //
@@ -29,6 +30,14 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+// 8 bytes (through L1, for rows that are 8- but not 16-byte aligned);
+// with src_bytes 0 nothing is read and the 8 bytes are written as zeros
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(src_bytes));
 }

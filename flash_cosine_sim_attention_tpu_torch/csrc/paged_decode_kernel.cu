@@ -24,25 +24,21 @@
 // Bound on the H100: bytes.  A call streams the K and V codes (and, for
 // int8, the f32 V scales) of every live token once: 8 slots x 8 kv heads x
 // 1024 tokens x (2 x 64 + 4) B = 8.65 MB at d 64 in int8, ~2.6 us at
-// 3.35 TB/s; the work is ~2 FLOP per byte.  Design: one 128-thread block
-// per (slot, kv head, chunk of 8 query heads) reads its slot's length and
-// table row from device memory (no host sync) and walks the live pages 128
-// tokens at a time.  A page of one kv head is d rows of page_size
-// contiguous bytes (any d a multiple of 8: the tile is d rows), so a tile's
-// K and V (d x 128 bytes each) are staged in shared memory with 16-byte
-// loads, every load of the tile in flight before any is used; thread t then
-// scores token t down its column of the K tile, and the block accumulates
-// the tile's P.V with threads split over the head dim, each reading four
-// tokens of its V row at once.  The rows are padded by one word so that
-// neither the column reads nor the row reads conflict on a bank.  The
-// block's shared memory is dynamic: at d 256 the two tiles alone take
-// 66 KB, past the 48 KB of static shared memory (the P.V partials share
-// their room with the tiles), and above d 128 the tile is staged in two
-// rounds, so its loads stay within 64 registers.  At b8
-// kvh8 that is 64 blocks on 132 SMs, and a block waits for each tile's
-// loads: the later design splits a slot's pages over several blocks and
-// merges their partial (O, l) sums (no row max, so a plain addition), and
-// double-buffers tiles with cp.async or TMA.
+// 3.35 TB/s; the work is ~2 FLOP per byte.
+//
+// Design: split-K over the slot's pages (decode_common.cuh), one launch a
+// call; a split is a whole number of 128-token tiles, and a page holds
+// whole tiles (page_size a multiple of 128), so a stage of TT tokens never
+// crosses a page.  A stage of one kv head is d rows of TT contiguous bytes
+// of a page: the block copies them with 16-byte cp.async into rows of TT +
+// 16 bytes, double-buffered.  Scores: a thread owns 4 tokens (one word of
+// a row) and every (512 / TT)-th row, so a warp reads whole rows at once;
+// its partial sums meet by shuffles across the warp's rows and through
+// shared memory across the 4 warps.  P.V: a thread owns a row of V (one
+// output column; above d 128 up to 8 of them) and reads it 16 tokens at a
+// time, weighing 4 tokens at once; 8 lanes on 8 rows hit
+// 8 distinct 16-byte bank groups (the row stride is an odd number of 16-
+// byte units for TT >= 32).
 
 #include "decode_common.cuh"
 
@@ -50,195 +46,273 @@ namespace {
 
 using namespace decode_common;
 
-constexpr int ROW = NT + 4; // bytes per staged row: one word of padding
-
-// the block's dynamic shared memory: the K and V tiles (d-major; the P.V
-// partials reuse their room at the end), then the queries, the tile's
-// weights, its V scales and the row sums' partials
-template <int D>
-struct PagedSmem {
-  static constexpr size_t KS = 0;
-  static constexpr size_t VS = KS + size_t(D) * ROW;
-  static constexpr size_t QS = VS + size_t(D) * ROW;
-  static constexpr size_t ES = QS + sizeof(float) * GMAX * D;
-  static constexpr size_t VSC = ES + sizeof(float) * GMAX * NT;
-  static constexpr size_t LRED = VSC + sizeof(float) * NT;
-  static constexpr size_t BYTES = LRED + sizeof(float) * GMAX * (NT / 32);
-  static_assert(sizeof(float) * PvLanes<D>::NPARTS * GMAX * D <= QS,
-                "the P.V partials fit in the tiles' room");
+// The block's dynamic shared memory: the stage ring (the P.V partials
+// reuse its room at the end), the queries, a stage's weights, the score
+// partials of the 4 warps, the row sums' partials and the merge flag, for
+// a block of gm query heads.
+struct Layout {
+  int tt, rs, np;
+  size_t stage, qs, es, spart, lred, flag, bytes;
+  __host__ __device__ Layout(int d, int gm) {
+    tt = stage_tokens(d);
+    rs = tt + 16;                       // bytes a staged row
+    np = d < NT ? NT / d : 1;           // P.V token shares
+    stage = 2 * size_t(d) * rs + sizeof(float) * tt;  // K, V, V scales
+    stage = (stage + 15) / 16 * 16;
+    const size_t red = sizeof(float) * size_t(np) * gm * d;
+    qs = 2 * stage > red ? 2 * stage : red;
+    es = qs + sizeof(float) * gm * d;
+    spart = es + sizeof(float) * gm * tt;
+    lred = spart + sizeof(float) * (NT / 32) * gm * tt;
+    flag = lred + sizeof(float) * gm * (NT / 32);
+    bytes = flag + 16;
+  }
 };
 
-// T: int8_t (per-token V scales) or __nv_fp8_e4m3 (no scales).  Grid
-// (query-head chunks, KVH, B): a chunk's blocks sit side by side.
-template <typename T, int D>
+// T: int8_t (per-token V scales) or __nv_fp8_e4m3 (no scales); WIDE: d
+// past 256, up to 8 V rows a thread; GN: the query heads a block serves
+// (decode_common.cuh heads_instance).  Grid (splits, head chunks, B * KVH).
+template <typename T, bool WIDE, int GN>
 __global__ void __launch_bounds__(NT) paged_decode_kernel(
     const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ k8,
     const uint8_t* __restrict__ v8, const float* __restrict__ v_scale,
     const int* __restrict__ page_table, const int* __restrict__ length,
-    float* __restrict__ out, int KVH, int G, int d, int num_pages, int ps,
-    int mp, float logit_scale, float scale) {
+    float* __restrict__ out, Merge m, int KVH, int G, int d, int num_pages,
+    int ps, int mp, int tps, float logit_scale, float scale) {
+  constexpr int NR = WIDE ? DMAX / NT : 256 / NT;  // V rows a thread
+  constexpr int NRH = NR < 4 ? NR : GN > 4 ? 2 : 4;  // of them at a time
   constexpr bool kScaled = std::is_same<T, int8_t>::value;
-  using PV = PvLanes<D>;
-  using S = PagedSmem<D>;
-  constexpr int NPARTS = PV::NPARTS, NCOL = PV::NCOL;
-  constexpr int PER_THREAD = (D * (NT / 16) + NT - 1) / NT;
-  // 16-byte pieces a thread loads at once: the whole tile up to d 128
-  constexpr int RB = PER_THREAD <= 8 ? PER_THREAD : PER_THREAD / 2;
-  const int chunks = d * (NT / 16);                // 16-byte pieces of a tile
-  extern __shared__ __align__(16) unsigned char psmem[];
-  auto& ks = *reinterpret_cast<uint8_t(*)[D][ROW]>(psmem + S::KS);
-  auto& vs = *reinterpret_cast<uint8_t(*)[D][ROW]>(psmem + S::VS);
-  auto& qs = *reinterpret_cast<float(*)[GMAX][D]>(psmem + S::QS);
-  auto& es = *reinterpret_cast<float(*)[GMAX][NT]>(psmem + S::ES);
-  auto& vsc = *reinterpret_cast<float(*)[NT]>(psmem + S::VSC);
-  auto& lred = *reinterpret_cast<float(*)[GMAX][NT / 32]>(psmem + S::LRED);
-  auto& red = *reinterpret_cast<float(*)[NPARTS][GMAX][D]>(psmem + S::KS);
+  const size_t bh = blockIdx.z;
+  const int bi = bh / KVH, kvhi = bh % KVH;
+  const Split sp(length[bi], mp * ps, tps);
+  if (!sp.live()) return;
+  const Layout L(d, GN);
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;
+  float* red = reinterpret_cast<float*>(smem);
+  float* qs = reinterpret_cast<float*>(smem + L.qs);
+  float* es = reinterpret_cast<float*>(smem + L.es);
+  float* spart = reinterpret_cast<float*>(smem + L.spart);
+  float* lred = reinterpret_cast<float*>(smem + L.lred);
+  int* flag = reinterpret_cast<int*>(smem + L.flag);
 
-  const int g0 = blockIdx.x * GMAX, kvhi = blockIdx.y, bi = blockIdx.z;
-  const int gn = min(GMAX, G - g0);
-  const size_t bh = size_t(bi) * KVH + kvhi;
-  const int tid = threadIdx.x;
-  const int len = min(max(length[bi], 0), mp * ps);
+  const int g0 = blockIdx.y * GN, gn = min(GN, G - g0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tt = L.tt, rs = L.rs;
   const int* row = page_table + size_t(bi) * mp;
-  load_queries<D>(q, bh, G, g0, gn, d, qs);
+  load_queries(q, bh, G, g0, gn, d, qs);
+  const int nst = (sp.t1 - sp.t0 + tt - 1) / tt;
 
-  const int dcol = tid % PV::W, part = tid / PV::W;
-  const bool pv_lane = tid < NPARTS * PV::W && dcol < d;
-  float acc[NCOL][GMAX], lpart[GMAX];
-#pragma unroll
-  for (int gi = 0; gi < GMAX; ++gi) {
-    lpart[gi] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NCOL; ++j) acc[j][gi] = 0.f;
-  }
-  __syncthreads();
-
-  for (int t0 = 0; t0 < len; t0 += NT) {
-    int pid = row[t0 / ps];
+  // stage i: d rows of tt bytes of one page (16-byte pieces wholly past
+  // the split's live end as zeros) into ring buffer i & 1
+  auto load = [&](int i) {
+    unsigned char* st = ring + (i & 1) * L.stage;
+    const int s0 = sp.t0 + i * tt;
+    int pid = row[s0 / ps];
     if (pid < 0 || pid >= num_pages) pid = 0;
     const size_t page = (size_t(pid) * KVH + kvhi) * d;  // row 0 of (pid, h)
-    const int off = t0 % ps;
-
-    // stage the tile: all 16-byte loads of a round (the whole tile up to
-    // d 128) first, then the stores
-    if (kScaled) vsc[tid] = v_scale[(size_t(pid) * KVH + kvhi) * ps + off + tid];
-#pragma unroll
-    for (int i0 = 0; i0 < PER_THREAD; i0 += RB) {
-      uint4 kr[RB], vr[RB];
-#pragma unroll
-      for (int i = 0; i < RB; ++i) {
-        const int c = tid + (i0 + i) * NT;
-        if (c < chunks) {
-          const size_t at = (page + c / (NT / 16)) * ps + off + (c % (NT / 16)) * 16;
-          kr[i] = *reinterpret_cast<const uint4*>(k8 + at);
-          vr[i] = *reinterpret_cast<const uint4*>(v8 + at);
-        }
+    const int off = s0 % ps, cpr = tt / 16;
+    for (int idx = tid; idx < d * cpr; idx += NT) {
+      const int c = idx / cpr, j = idx - c * cpr;
+      const bool in = s0 + 16 * j < sp.t1;
+      const size_t at = (page + c) * ps + off + 16 * j;
+      cp_async16(st + c * rs + 16 * j, in ? k8 + at : k8, in ? 16 : 0);
+      cp_async16(st + (d + c) * rs + 16 * j, in ? v8 + at : v8, in ? 16 : 0);
+    }
+    if (kScaled) {
+      float* vsc = reinterpret_cast<float*>(st + 2 * d * rs);
+      const float* src = v_scale + (size_t(pid) * KVH + kvhi) * ps + off;
+      for (int r = tid; r < tt; r += NT) {
+        const bool in = s0 + r < sp.t1;
+        cp_async4(vsc + r, in ? src + r : v_scale, in ? 4 : 0);
       }
+    }
+  };
+
+  // score roles: token word w (tokens 4w..4w + 3) of rows r, r + rw, ...
+  // of the warp's share; P.V roles: V row dcol (+ NT j), token share part
+  const int tw4 = tt / 4, rw = 32 / tw4;
+  const int w = lane % tw4, r = lane / tw4;
+  const int pw = d < NT ? d : NT;
+  const int dcol = tid % pw, part = tid / pw;
+  const bool pv = part < L.np;
+  float lpart[GN], acc[NR][GN];
 #pragma unroll
-      for (int i = 0; i < RB; ++i) {
-        const int c = tid + (i0 + i) * NT;
-        if (c < chunks) {
-          const int r = c / (NT / 16), col = (c % (NT / 16)) * 16;
-          uint32_t* kd = reinterpret_cast<uint32_t*>(&ks[r][col]);
-          uint32_t* vd = reinterpret_cast<uint32_t*>(&vs[r][col]);
-          kd[0] = kr[i].x; kd[1] = kr[i].y; kd[2] = kr[i].z; kd[3] = kr[i].w;
-          vd[0] = vr[i].x; vd[1] = vr[i].y; vd[2] = vr[i].z; vd[3] = vr[i].w;
-        }
+  for (int gi = 0; gi < GN; ++gi) {
+    lpart[gi] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NR; ++j) acc[j][gi] = 0.f;
+  }
+
+  if (nst > 0) load(0);
+  cp_async_commit();
+  for (int i = 0; i < nst; ++i) {
+    if (i + 1 < nst) load(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // stage i (and, at i 0, the queries) has landed
+    const unsigned char* kst = ring + (i & 1) * L.stage;
+    const unsigned char* vst = kst + d * rs;
+    const float* vsc = reinterpret_cast<const float*>(kst + 2 * d * rs);
+    const int n = min(tt, sp.t1 - (sp.t0 + i * tt));  // live tokens
+
+    float s[4][GN];
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int gi = 0; gi < GN; ++gi) s[x][gi] = 0.f;
+#pragma unroll 2
+    for (int c = warp * rw + r; c < d; c += (NT / 32) * rw) {
+      float kf[4];
+      decode4<T>(*reinterpret_cast<const uint32_t*>(kst + c * rs + 4 * w), kf);
+#pragma unroll
+      for (int gi = 0; gi < GN; ++gi) {
+        if (gi >= gn) continue;
+        const float qv = qs[gi * d + c];
+#pragma unroll
+        for (int x = 0; x < 4; ++x) s[x][gi] = fmaf(qv, kf[x], s[x][gi]);
+      }
+    }
+    for (int off = tw4; off < 32; off <<= 1) {
+#pragma unroll
+      for (int gi = 0; gi < GN; ++gi) {
+        if (gi >= gn) continue;
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          s[x][gi] += __shfl_xor_sync(0xffffffffu, s[x][gi], off);
+      }
+    }
+    if (r == 0) {
+#pragma unroll
+      for (int gi = 0; gi < GN; ++gi) {
+        if (gi >= gn) continue;
+        *reinterpret_cast<float4*>(spart + (warp * GN + gi) * tt + 4 * w) =
+            make_float4(s[0][gi], s[1][gi], s[2][gi], s[3][gi]);
       }
     }
     __syncthreads();
-
-    // score: thread tid owns token t0 + tid, reading its K column's d rows
-    const int live = min(NT, len - t0);
-    if (tid < live) {
-      float s[GMAX];
+    if (tid < tt) {
 #pragma unroll
-      for (int gi = 0; gi < GMAX; ++gi) s[gi] = 0.f;
-#pragma unroll 8
-      for (int dd = 0; dd < d; ++dd) {
-        const float kf = code_value<T>(ks[dd][tid]);
+      for (int gi = 0; gi < GN; ++gi) {
+        if (gi >= gn) continue;
+        float sc = 0.f;
 #pragma unroll
-        for (int gi = 0; gi < GMAX; ++gi)
-          if (gi < gn) s[gi] = fmaf(qs[gi][dd], kf, s[gi]);
-      }
-#pragma unroll
-      for (int gi = 0; gi < GMAX; ++gi) {
-        if (gi < gn) {
-          const float e = token_weight(s[gi], logit_scale, scale);
+        for (int wp = 0; wp < NT / 32; ++wp) sc += spart[(wp * GN + gi) * tt + tid];
+        float ev = 0.f;
+        if (tid < n) {
+          const float e = token_weight(sc, logit_scale, scale);
           lpart[gi] += e;
-          es[gi][tid] = bf16_round(kScaled ? e * vsc[tid] : e);
+          ev = bf16_round(kScaled ? e * vsc[tid] : e);
         }
+        es[gi * tt + tid] = ev;
       }
-    } else {
-#pragma unroll
-      for (int gi = 0; gi < GMAX; ++gi) es[gi][tid] = 0.f;
     }
     __syncthreads();
 
-    // P.V: thread (dcol, part) sums words part, part + NPARTS, ... of its
-    // V row; tokens past the live count carry e = 0 and are skipped
-    if (pv_lane) {
-      const int words = (live + 3) / 4;
-      for (int w = part; w < words; w += NPARTS) {
-        const int n = min(4, live - 4 * w);
+    if (pv) {
+      // 16 tokens of each of the thread's rows at a time, 4 of them
+      // against their weights at once (tokens past the live count weigh 0)
+      const int nch = (n + 15) / 16;
+      for (int j = part; j < nch; j += L.np) {
 #pragma unroll
-        for (int c = 0; c < NCOL; ++c) {
-          if (c > 0 && dcol + c * NT >= d) continue;
-          const uint32_t word =
-              *reinterpret_cast<const uint32_t*>(&vs[dcol + c * NT][4 * w]);
+        for (int j0 = 0; j0 < NR; j0 += NRH) {  // NRH rows' codes live at once
+          uint4 u[NRH];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (j < n) {
-              const float vv = code_value<T>(uint8_t(word >> (8 * j)));
+          for (int jr = 0; jr < NRH; ++jr) {
+            const int c = dcol + (j0 + jr) * NT;
+            u[jr] = c < d ? *reinterpret_cast<const uint4*>(vst + c * rs + 16 * j)
+                          : make_uint4(0, 0, 0, 0);
+          }
 #pragma unroll
-              for (int gi = 0; gi < GMAX; ++gi)
-                if (gi < gn) acc[c][gi] = fmaf(es[gi][4 * w + j], vv, acc[c][gi]);
+          for (int q4 = 0; q4 < 4; ++q4) {
+            if (16 * j + 4 * q4 >= n) break;
+            float ev[4][GN];
+#pragma unroll
+            for (int gi = 0; gi < GN; ++gi) {
+              const float4 e4 = gi < gn ? *reinterpret_cast<const float4*>(
+                                              es + gi * tt + 16 * j + 4 * q4)
+                                        : make_float4(0.f, 0.f, 0.f, 0.f);
+              ev[0][gi] = e4.x;
+              ev[1][gi] = e4.y;
+              ev[2][gi] = e4.z;
+              ev[3][gi] = e4.w;
+            }
+#pragma unroll
+            for (int jr = 0; jr < NRH; ++jr) {
+              const uint32_t word = q4 == 0 ? u[jr].x : q4 == 1 ? u[jr].y
+                                  : q4 == 2 ? u[jr].z : u[jr].w;
+              float vv[4];
+              decode4<T>(word, vv);
+#pragma unroll
+              for (int x = 0; x < 4; ++x)
+#pragma unroll
+                for (int gi = 0; gi < GN; ++gi)
+                  acc[j0 + jr][gi] = fmaf(ev[x][gi], vv[x], acc[j0 + jr][gi]);
             }
           }
         }
       }
     }
-    __syncthreads();
+    __syncthreads();  // the next stage's loads may overwrite this buffer
   }
+  cp_async_wait<0>();
 
-  store_rows<D>(acc, lpart, pv_lane, part, dcol, gn, d, red, lred,
-                out + (bh * G + g0) * d);
+  if (pv) {
+#pragma unroll
+    for (int jr = 0; jr < NR; ++jr) {
+      const int c = dcol + jr * NT;
+      if (c >= d) continue;
+#pragma unroll
+      for (int gi = 0; gi < GN; ++gi)
+        if (gi < gn) red[(part * GN + gi) * d + c] = acc[jr][gi];
+    }
+  }
+  reduce_lsum<GN>(lpart, gn, lred);
+  finish_split(red, L.np, GN, lred, gn, d, sp, bh * G + g0, out, m, flag);
 }
 
 }  // namespace
 
 // Contiguous tensors on one device: q (B, KVH, G, d) bf16, already
-// l2-normalized, any group G, d a multiple of 8 up to 256; k8/v8
-// (num_pages, KVH, d, ps) int8 (fp8 = 0) or e4m3
-// (fp8 = 1), 16-byte aligned; v_scale (num_pages, KVH, 1, ps) f32, read for
-// int8 only; page_table (B, mp) int32; length (B,) int32; out (B, KVH, G, d)
-// f32.  ps is a multiple of 128.  logit_scale is scale * kdq (1/127 for
-// int8, 1 for e4m3).  Returns the cudaGetLastError() after the launch.
+// l2-normalized, any group G, d a multiple of 8 up to 1024; k8/v8
+// (num_pages, KVH, d, ps) int8 (fp8 = 0) or e4m3 (fp8 = 1), 16-byte
+// aligned; v_scale (num_pages, KVH, 1, ps) f32, read for int8 only;
+// page_table (B, mp) int32; length (B,) int32; out (B, KVH, G, d) f32.  ps
+// is a multiple of 128.  The split-K workspace as for fcsa_decode, over the
+// table's mp * ps tokens.  logit_scale is scale * kdq (1/127 for int8, 1
+// for e4m3).  Returns the cudaGetLastError() after the launch.
 extern "C" int fcsa_paged_decode(const void* q, const void* k8, const void* v8,
                                  const void* v_scale, const void* page_table,
-                                 const void* length, void* out, int B, int KVH,
+                                 const void* length, void* out, void* ws_o,
+                                 void* ws_l, void* tickets, int B, int KVH,
                                  int G, int d, int num_pages, int ps, int mp,
-                                 int fp8, float logit_scale, float scale,
+                                 int fp8, int tps, int nsplit,
+                                 float logit_scale, float scale,
                                  void* stream) {
+  const size_t cap = size_t(mp) * ps;
   if (B <= 0 || KVH <= 0 || G <= 0 || num_pages <= 0 || mp <= 0 ||
-      ps <= 0 || ps % NT)
+      ps <= 0 || ps % NT || tps <= 0 || tps % NT || nsplit <= 0 ||
+      size_t(nsplit) * tps < cap || size_t(nsplit - 1) * tps >= cap)
     return int(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((G + GMAX - 1) / GMAX, KVH, B);
-  return int(dispatch(fp8, d, [&](auto code, auto dim) {
-    constexpr int D = decltype(dim)::value;
-    constexpr size_t smem = PagedSmem<D>::BYTES;
-    auto kernel = paged_decode_kernel<decltype(code), D>;
+  const int gm = heads_instance(G);
+  const dim3 grid(nsplit, (G + gm - 1) / gm, B * KVH);
+  const Merge m{static_cast<float*>(ws_o), static_cast<float*>(ws_l),
+                static_cast<int*>(tickets), size_t(B) * KVH * G};
+  return int(dispatch(fp8, d, 256, G, [&](auto code, auto wide, auto heads) {
+    constexpr int GN = decltype(heads)::value;
+    auto kernel =
+        paged_decode_kernel<decltype(code), decltype(wide)::value, GN>;
+    const size_t smem = Layout(d, GN).bytes;
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return err;
     kernel<<<grid, NT, smem, s>>>(
-            static_cast<const __nv_bfloat16*>(q),
-            static_cast<const uint8_t*>(k8), static_cast<const uint8_t*>(v8),
-            static_cast<const float*>(v_scale),
-            static_cast<const int*>(page_table),
-            static_cast<const int*>(length), static_cast<float*>(out), KVH, G,
-            d, num_pages, ps, mp, logit_scale, scale);
+        static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(k8),
+        static_cast<const uint8_t*>(v8), static_cast<const float*>(v_scale),
+        static_cast<const int*>(page_table), static_cast<const int*>(length),
+        static_cast<float*>(out), m, KVH, G, d, num_pages, ps, mp, tps,
+        logit_scale, scale);
     return cudaGetLastError();
   }));
 }

@@ -17,18 +17,32 @@ ALLOWED_DIM_HEADS = (16, 32, 64, 96, 128)
 KERNEL_WIDTHS = ALLOWED_DIM_HEADS + (192, 256)
 
 
+# past the widest instance the attention kernels take a wide route: the
+# head dim zero-padded to a multiple of WIDE_CHUNK, S (and the backward's
+# dP') summed over 64-lane d chunks, and the output columns (O, dQ, dK,
+# dV) a grid axis of WIDE_CHUNK-column blocks that each form S again.
+# 128 rather than 64: S is formed once per column block, so at d 512 the
+# 64-column blocks would form it 8 times against 4, while d 264 pads to
+# 384 instead of 320 (csrc/fwd_kernel.cu and csrc/bwd_kernel.cu, the
+# `*_wide_kernel` instances, take the same number)
+WIDE_CHUNK = 128
+
+
 def kernel_head_dim(d: int, kernel: str) -> int:
-    """The width of the CUDA kernel instance that runs head dim ``d``: the
-    next of KERNEL_WIDTHS at or above it.  Any multiple of 8 up to 256
-    runs there exactly (the forward and backward wrappers pad zero lanes,
-    which add 0 to every dot product and give 0 gradients; the decode
-    kernels read d-byte rows in place).  Raises for any other d."""
-    if 0 < d <= KERNEL_WIDTHS[-1] and d % 8 == 0:
-        return next(w for w in KERNEL_WIDTHS if w >= d)
+    """The head width the CUDA kernels run head dim ``d`` at: up to 256
+    the next of KERNEL_WIDTHS at or above it, past 256 the next multiple
+    of WIDE_CHUNK (the wide route).  Any multiple of 8 runs there exactly
+    (the forward and backward wrappers pad zero lanes, which add 0 to
+    every dot product and give 0 gradients; the decode kernels read d-byte
+    rows in place).  Raises for any other d."""
+    if d > 0 and d % 8 == 0:
+        if d <= KERNEL_WIDTHS[-1]:
+            return next(w for w in KERNEL_WIDTHS if w >= d)
+        return -(-d // WIDE_CHUNK) * WIDE_CHUNK
     raise ValueError(
-        f"the CUDA {kernel} kernel takes head dims that are multiples of 8 "
-        f"up to {KERNEL_WIDTHS[-1]} (built for {KERNEL_WIDTHS}, a "
-        f"narrower one runs at the next of these), got {d}")
+        f"the CUDA {kernel} kernel takes head dims that are positive "
+        f"multiples of 8 (up to 256 at the next of {KERNEL_WIDTHS}, past "
+        f"it at the next multiple of {WIDE_CHUNK}), got {d}")
 
 EPS = 1e-10  # rowsum clamp, matches the reference kernel's eps (cu:83)
 
@@ -40,15 +54,37 @@ EPS = 1e-10  # rowsum clamp, matches the reference kernel's eps (cu:83)
 # only keeps the two dispatches alike.
 ONEPASS_BWD_MAX_SEQ = 8192
 
-# decode kernel: one 128-thread block per (batch, kv head, 8 query heads of
-# its group; csrc/decode_common.cuh GMAX) streams the slot's live tokens
-# DECODE_TILE at a time; a larger group (GQA past 8, MQA) takes one block
-# per 8 of its heads
-DECODE_TILE = 128
-
-# paged decode kernel: one 128-thread block per (slot, kv head) walks the
-# slot's pages PAGED_TILE tokens at a time, so a page holds whole tiles:
+# decode kernels (K4, csrc/decode_kernel.cu; K5, csrc/paged_decode_kernel.cu):
+# split-K.  One 128-thread block per (split of a slot's tokens, 8 query
+# heads of a kv head's group, slot x kv head; csrc/decode_common.cuh GMAX):
+# a larger group (GQA past 8, MQA) takes one block per 8 of its heads, and
+# a split is a whole number of DECODE_TILE tokens, streamed in stages of up
+# to 128.  The paged kernel's tiles are PAGED_TILE tokens of a page, so
 # page_size must be a multiple of PAGED_TILE (the JAX pool's 128-lane rule,
-# kept so that the same configurations are valid in both packages).  A
-# block serves 8 query heads, as in the decode kernel
+# kept so that the same configurations are valid in both packages)
+DECODE_TILE = 128
 PAGED_TILE = 128
+# the widest head the decode kernels take (csrc/decode_common.cuh DMAX):
+# a block keeps its P.V sums in registers, two 4-column words a thread
+DECODE_MAX_DIM = 1024
+# the blocks a decode call aims to launch on each SM of the card it runs
+# on (132 on the H100), so that the splits that hold live tokens fill the
+# card even when the slots are a quarter full (the lengths live on the
+# device and are not read)
+DECODE_BLOCKS_PER_SM = 8
+
+
+def decode_split(capacity: int, rows: int, sms: int):
+    """(tokens a split, splits) of a decode call over ``capacity`` tokens a
+    slot and ``rows`` = slots x kv heads x chunks of 8 query heads, on a
+    card of ``sms`` SMs: as many whole DECODE_TILE tiles a split as give
+    about DECODE_BLOCKS_PER_SM blocks an SM, and one tile at least.  The
+    host knows the capacity, not the lengths, so a call launches every
+    split and the ones past a slot's length exit at once.  On the H100's
+    132 SMs: b8 kvh8 at 1024 tokens, 8 splits of 128; b8 kvh16 at 2048, 8
+    of 256; b8 kvh2 at 1024, 8 of 128."""
+    tiles = -(-capacity // DECODE_TILE)
+    blocks = DECODE_BLOCKS_PER_SM * max(sms, 1)
+    want = max(1, min(tiles, -(-blocks // max(rows, 1))))
+    per = -(-tiles // want)
+    return per * DECODE_TILE, -(-tiles // per)

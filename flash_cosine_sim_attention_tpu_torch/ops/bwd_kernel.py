@@ -16,8 +16,9 @@ routes compute the same gradients.
 As in JAX, the host side around the kernels stays plain tensor code:
 delta = rowsum(dO * O) in f32, then dO and delta pre-scaled by inv_l (dO
 rounded back to its dtype), so the kernels never form P = e * inv_l.
-A head dim up to 256 that is not a kernel width runs zero-padded to the
-next one (``kernel_head_dim``) and its gradients are sliced back.
+A head dim that is not a kernel width runs zero-padded to the next one,
+and past 256 to the next multiple of 128 for the wide route
+(``kernel_head_dim``); its gradients are sliced back.
 ``_backward_onepass`` and ``_backward_twopass`` pin one route each on
 CUDA tensors, as ``blocks_f`` / ``blocks_t`` pin them in the JAX tests.
 """

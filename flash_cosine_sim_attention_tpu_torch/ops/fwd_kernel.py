@@ -129,9 +129,10 @@ def flash_attention_forward(
     q and k are l2-normalized float32 / bfloat16 values of v's dtype, or
     int8 codes whose product ``s_dequant`` dequantizes (1/127^2 for the
     op's ``qk_int8``).  CUDA tensors launch the Hopper kernel (counted in
-    ``flash_attention_forward.launches``), a head dim up to 256 that is not
-    one of its widths zero-padded to the next (``kernel_head_dim``); CPU
-    tensors take the plain version.  Any other device raises.
+    ``flash_attention_forward.launches``), a head dim that is not one of
+    its widths zero-padded to the next, and past 256 to the next multiple
+    of 128 for the wide route (``kernel_head_dim``); CPU tensors take the
+    plain version.  Any other device raises.
     """
     kw = dict(bias_batch_dim=bias_batch_dim, scale=scale, causal=causal,
               s_dequant=s_dequant)

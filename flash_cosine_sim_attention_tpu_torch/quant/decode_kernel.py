@@ -10,16 +10,24 @@ and of the (V-scaled, for int8) exp weights.  JAX sends an e4m3 cache to
 an XLA einsum by default, for a Mosaic limit the card does not have; here
 it takes the kernel like int8.  ``reference_decode_attention`` is the
 dequantize-everything oracle.
+
+Both decode kernels split each slot's tokens over several blocks and merge
+their partial sums in the same launch (``ops/blocks.py::decode_split``):
+the wrappers allocate the f32 workspace of the partials and keep the
+int32 ticket counters that the merge leaves at zero, one set per (device,
+stream): the calls that share a set are ordered on their stream, and
+calls on two streams at once never take each other's tickets.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
 from .._build import check_launch, current_stream, load_kernel
-from ..ops.blocks import EPS, kernel_head_dim
+from ..ops.blocks import DECODE_MAX_DIM, EPS, decode_split, kernel_head_dim
 from ..ops.reference import l2norm_tensors
 from .kv_cache import KV_DTYPES, QuantKVCache, dequantize_k, dequantize_v
 
@@ -50,12 +58,43 @@ def decode_attention_plain(qg: torch.Tensor, cache: QuantKVCache,
 def check_decode_args(qg: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
                       kernel: str) -> None:
     """What both CUDA decode kernels (contiguous and paged) take: qg
-    (b, kvh, g, d) with any group g and d a multiple of 8 up to 256 (read
-    in place as d-byte code rows), K and V codes both int8 or both e4m3."""
-    kernel_head_dim(qg.shape[-1], kernel)
+    (b, kvh, g, d) with any group g and d a multiple of 8 up to
+    DECODE_MAX_DIM (read in place as d-byte code rows), K and V codes both
+    int8 or both e4m3."""
+    d = qg.shape[-1]
+    kernel_head_dim(d, kernel)
+    if d > DECODE_MAX_DIM:
+        raise ValueError(f"the CUDA {kernel} kernel takes head dims up to "
+                         f"{DECODE_MAX_DIM}, got {d}")
     if k8.dtype not in KV_DTYPES or v8.dtype != k8.dtype:
         raise TypeError(f"the CUDA {kernel} kernel takes int8 or e4m3 codes, "
                         f"got {k8.dtype} / {v8.dtype}")
+
+
+_tickets: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def split_workspace(qg: torch.Tensor, capacity: int):
+    """The split-K arguments of a decode call on queries ``qg`` (b, kvh, g,
+    d) over ``capacity`` tokens a slot: (tokens a split, splits, partial
+    O (splits, b, kvh, g, d) f32, partial l (splits, b, kvh, g) f32, ticket
+    counters).  The splits fill the SMs of ``qg``'s card.  The counters are
+    one int32 per (slot, kv head, chunk of 8 query heads), zeroed once for
+    each (device, current stream) and left at zero by every call's merge."""
+    b, kvh, g, d = qg.shape
+    rows = b * kvh * -(-g // 8)
+    sms = torch.cuda.get_device_properties(qg.device).multi_processor_count
+    tps, nsplit = decode_split(capacity, rows, sms)
+    ws_o = torch.empty((nsplit, b, kvh, g, d), device=qg.device,
+                       dtype=torch.float32)
+    ws_l = torch.empty((nsplit, b, kvh, g), device=qg.device,
+                       dtype=torch.float32)
+    key = (qg.device, torch.cuda.current_stream(qg.device).cuda_stream)
+    tickets = _tickets.get(key)
+    if tickets is None or tickets.numel() < rows:
+        tickets = torch.zeros(rows, device=qg.device, dtype=torch.int32)
+        _tickets[key] = tickets
+    return tps, nsplit, ws_o, ws_l, tickets
 
 
 def _decode_cuda(qg: torch.Tensor, cache: QuantKVCache,
@@ -75,16 +114,17 @@ def _decode_cuda(qg: torch.Tensor, cache: QuantKVCache,
     vs = cache.v_scale.float().contiguous()
     length = cache.length.to(torch.int32).contiguous()
     out = torch.empty((b, kvh, g, d), device=qg.device, dtype=torch.float32)
+    tps, nsplit, ws_o, ws_l, tickets = split_workspace(q, cap)
     lib = load_kernel("decode_kernel")
     lib.fcsa_decode.restype = ctypes.c_int
     lib.fcsa_decode.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
         + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     code = lib.fcsa_decode(
         q.data_ptr(), k8.data_ptr(), v8.data_ptr(), vs.data_ptr(),
-        length.data_ptr(), out.data_ptr(), b, kvh, g, cap, d,
-        int(cache.is_fp8), float(scale * cache.k_dequant_scale),
-        float(scale), current_stream())
+        length.data_ptr(), out.data_ptr(), ws_o.data_ptr(), ws_l.data_ptr(),
+        tickets.data_ptr(), b, kvh, g, cap, d, int(cache.is_fp8), tps, nsplit,
+        float(scale * cache.k_dequant_scale), float(scale), current_stream())
     check_launch(code, "fcsa_decode")
     quantized_decode_attention.launches += 1
     return out

@@ -34,7 +34,7 @@ import torch
 from .._build import check_launch, current_stream, load_kernel, resolve_device
 from ..ops.blocks import EPS, PAGED_TILE
 from ..ops.reference import l2norm_tensors
-from .decode_kernel import check_decode_args
+from .decode_kernel import check_decode_args, split_workspace
 from .kv_cache import (
     FP8_DTYPE,
     as_bytes,
@@ -189,15 +189,17 @@ def _paged_decode_cuda(qg: torch.Tensor, cache: PagedKVCache,
     table = cache.page_table.to(torch.int32).contiguous()
     length = cache.length.to(torch.int32).contiguous()
     out = torch.empty((b, kvh, g, d), device=qg.device, dtype=torch.float32)
+    tps, nsplit, ws_o, ws_l, tickets = split_workspace(q, mp * ps)
     lib = load_kernel("paged_decode_kernel")
     lib.fcsa_paged_decode.restype = ctypes.c_int
     lib.fcsa_paged_decode.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
         + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     code = lib.fcsa_paged_decode(
         q.data_ptr(), cache.k8.data_ptr(), cache.v8.data_ptr(),
         cache.v_scale.data_ptr(), table.data_ptr(), length.data_ptr(),
-        out.data_ptr(), b, kvh, g, d, num_pages, ps, mp, int(cache.is_fp8),
+        out.data_ptr(), ws_o.data_ptr(), ws_l.data_ptr(), tickets.data_ptr(),
+        b, kvh, g, d, num_pages, ps, mp, int(cache.is_fp8), tps, nsplit,
         float(scale * cache.k_dequant_scale), float(scale), current_stream())
     check_launch(code, "fcsa_paged_decode")
     paged_decode_attention.launches += 1

@@ -17,7 +17,15 @@ another order, to bf16: one bf16 ulp is at most 2^-7 of the value; the
 tensor-core dK/dV kernel feeds e and dS to its products as bf16 hi + lo
 pairs, so its sums stay those of f32 operands to ~16 bits; so does the
 tensor-core dQ kernel with dS).  Head dims between the kernel widths (8,
-48, 80, 136, 200) run zero-padded to the next one; d past 256 is refused.
+48, 80, 136, 200) run zero-padded to the next one; past 256 (264, 384,
+512) the wide route runs zero-padded to the next multiple of 128; d that
+is not a multiple of 8 is refused.  The decode kernels split each slot's
+tokens over several blocks and merge their partial sums in the same
+launch: the split edges (lengths 0, 1, 127, 128, 129, a split's end and
+the capacity) and a finished paged slot are held against plain, and two
+calls in a row must agree bit for bit (the merge's ticket counters are
+left at zero); splits of several tiles run at the 0.81B decode step's
+shape, and calls on two streams at once each keep their own counters.
 """
 
 import pytest
@@ -85,6 +93,11 @@ FWD_CASES = {
     "key-mask-bias-d192": (2, 2, 2, 100, 170, 192, False, "some", "h"),
     "causal-bias-batch-d200": (2, 4, 2, 130, 130, 200, True, None, "b"),
     "causal-ragged-mqa-d256": (2, 2, 1, 200, 200, 256, True, None, None),
+    # past 256: the wide route (zero-padded to 384, 384 and 512)
+    "causal-gqa-d264": (1, 4, 2, 130, 130, 264, True, None, None),
+    "key-mask-bias-d384": (2, 2, 2, 70, 150, 384, False, "some", "h"),
+    "causal-bias-batch-d512": (2, 2, 1, 100, 100, 512, True, None, "b"),
+    "all-keys-masked-d512": (1, 2, 2, 64, 100, 512, False, "all", None),
 }
 
 
@@ -301,7 +314,8 @@ def test_quant_matmul_kernel_refuses_what_it_cannot_take(cuda_device):
 @pytest.mark.parametrize("g_per_kv,d", [(1, 64), (4, 64), (8, 16), (2, 96),
                                         (16, 8), (32, 48), (16, 48), (32, 8),
                                         (2, 136), (1, 192), (16, 200),
-                                        (3, 256)])
+                                        (3, 256), (1, 264), (4, 512),
+                                        (2, 1024)])
 def test_decode_kernel_matches_plain(cuda_device, g_per_kv, d):
     g = torch.Generator(device=cuda_device).manual_seed(1)
     b, kvh, cap = 4, 2, 300
@@ -328,7 +342,8 @@ def test_decode_kernel_matches_plain(cuda_device, g_per_kv, d):
 @pytest.mark.parametrize("g_per_kv,d", [(1, 64), (4, 32), (8, 16), (2, 128),
                                         (16, 8), (32, 48), (16, 48), (32, 8),
                                         (2, 136), (1, 192), (16, 200),
-                                        (3, 256)])
+                                        (3, 256), (1, 264), (4, 512),
+                                        (2, 1024)])
 def test_decode_kernel_e4m3_matches_plain(cuda_device, g_per_kv, d):
     """The decode kernel's e4m3 arm: no V scales, e rounded to bf16."""
     g = torch.Generator(device=cuda_device).manual_seed(6)
@@ -359,7 +374,8 @@ def test_decode_kernel_e4m3_matches_plain(cuda_device, g_per_kv, d):
 @pytest.mark.parametrize("g_per_kv,d", [(1, 16), (8, 32), (4, 64), (2, 96),
                                         (3, 128), (16, 8), (32, 48), (16, 48),
                                         (32, 8), (2, 136), (1, 192), (16, 200),
-                                        (3, 256)])
+                                        (3, 256), (1, 264), (4, 512),
+                                        (2, 1024)])
 def test_paged_decode_kernel_matches_plain(cuda_device, kv_dtype, g_per_kv,
                                            d):
     """Shuffled page ids, ragged lengths (empty, one token, across a page
@@ -431,6 +447,10 @@ BWD_CASES = {
     "causal-q-past-k-d200": (1, 2, 2, 150, 90, 200, True, None, None),
     "causal-gqa-d256": (1, 4, 2, 256, 256, 256, True, None, None),
     "bias-batch-d256": (2, 4, 4, 70, 130, 256, False, None, "b"),
+    # past 256: the wide route, column blocks of 128 (dB added by one)
+    "causal-key-mask-gqa-d264": (1, 4, 2, 100, 130, 264, True, "some", None),
+    "bias-heads-gqa-d384": (2, 4, 2, 70, 90, 384, True, None, "h"),
+    "bias-batch-key-mask-d512": (2, 2, 1, 64, 100, 512, False, "some", "b"),
 }
 
 
@@ -569,23 +589,50 @@ def test_op_between_kernel_widths_runs_the_kernels(cuda_device, d, dtype):
 
 
 @pytest.mark.cuda
-def test_kernels_refuse_head_dims_past_256(cuda_device):
-    """d 264 is a multiple of 8 the JAX op takes, but no kernel is built
-    for it: every wrapper raises, naming the widths the card takes, and
+def test_kernels_take_head_dims_past_256(cuda_device):
+    """d 264 is a multiple of 8 the JAX op takes: the op (forward and
+    backward), decode and paged decode run it on the card against plain.
+    d 260 is not: every wrapper raises, naming what the card takes, and
     launches nothing."""
     from flash_cosine_sim_attention_tpu_torch.ops import (
         flash_cosine_sim_attention)
 
-    q, k, v = (torch.randn(1, 2, 64, 264, device=cuda_device,
-                           requires_grad=True) for _ in range(3))
+    g = torch.Generator(device=cuda_device).manual_seed(264)
     counts = lambda: (flash_attention_forward.launches,  # noqa: E731
                       bwd_kernel.fused_bwd_kernel.launches,
-                      quantized_decode_attention.launches)
+                      quantized_decode_attention.launches,
+                      paged_decode_attention.launches)
+    q, k, v = (torch.randn(1, 2, 64, 264, device=cuda_device, generator=g,
+                           requires_grad=True) for _ in range(3))
     before = counts()
-    match = (r"multiples of 8 up to 256 \(built for \(16, 32, 64, 96, 128, "
-             r"192, 256\)")
-    with pytest.raises(ValueError, match=match):
-        flash_cosine_sim_attention(q, k, v, causal=True)
+    o = flash_cosine_sim_attention(q, k, v, causal=True)
+    o.float().square().sum().backward()
+    assert counts()[:2] == (before[0] + 1, before[1] + 1)
+    assert o.shape == q.shape and torch.isfinite(q.grad).all()
+    qn, kn = l2norm_tensors(q.detach(), k.detach())
+    o_p, _ = flash_attention_forward_plain(qn, kn, v.detach(), None, None,
+                                           bias_batch_dim=False, scale=8.0,
+                                           causal=True)
+    assert (o.detach() - o_p).abs().max().item() <= BARS[torch.float32]
+
+    cache = append(init_cache(1, 2, 64, 264, cuda_device), kn, v.detach())
+    got = quantized_decode_attention(qn[:, :, 0], cache, l2norm_qk=False)
+    want = decode_attention_plain(qn[:, :, 0].view(1, 2, 1, 264), cache, 8.0)
+    assert (got - want.view(got.shape)).abs().max().item() <= 2e-3
+    pool = append_paged(init_paged_cache(2, 2, 128, 264, 1, 1,
+                                         device=cuda_device)._replace(
+        page_table=torch.ones(1, 1, dtype=torch.int32, device=cuda_device)),
+        kn, v.detach())
+    got5 = paged_decode_attention(qn[:, :, 0], pool, l2norm_qk=False)
+    want5 = paged_decode_plain(qn[:, :, 0].view(1, 2, 1, 264), pool, 8.0)
+    assert (got5 - want5.view(got5.shape)).abs().max().item() <= 1e-4
+
+    q, k, v = (torch.randn(1, 2, 64, 260, device=cuda_device)
+               for _ in range(3))
+    before = counts()
+    match = r"positive multiples of 8 \(up to 256 at the next of \(16, 32, "
+    with pytest.raises(ValueError, match="or a multiple of 8"):
+        flash_cosine_sim_attention(q, k, v, causal=True)  # the op's own check
     o, inv_l = flash_attention_forward_plain(q, k, v, None, None,
                                              bias_batch_dim=False,
                                              scale=8.0, causal=True)
@@ -593,10 +640,207 @@ def test_kernels_refuse_head_dims_past_256(cuda_device):
         bwd_kernel.flash_attention_backward(
             o, o, inv_l, q, k, v, None, None, bias_batch_dim=False,
             scale=8.0, causal=True)
-    cache = init_cache(1, 2, 64, 264, cuda_device)
     with pytest.raises(ValueError, match=match):
-        quantized_decode_attention(q[:, :, 0], cache)
+        quantized_decode_attention(q[:, :, 0], init_cache(1, 2, 64, 260,
+                                                          cuda_device))
+    with pytest.raises(ValueError, match=match):
+        paged_decode_attention(q[:, :, 0], init_paged_cache(
+            2, 2, 128, 260, 1, 1, device=cuda_device))
     assert counts() == before
+
+
+# kernel, storage, (query heads a kv head, kv heads, d)
+SPLIT_CASES = [(kern, kv, shape)
+               for kern in ("contiguous", "paged")
+               for kv in ("int8", "e4m3")
+               for shape in ((1, 2, 8), (1, 4, 64), (16, 1, 256), (1, 2, 264),
+                             (8, 1, 512))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kern,kv,shape", SPLIT_CASES)
+def test_decode_split_edges_match_plain(cuda_device, kern, kv, shape):
+    """Split-K at its edges: capacity 1024 in 8 splits of 128 tokens;
+    lengths 0, 1, 127, 128 (one split exactly), 129, 500, 1024 (the
+    capacity) and, on the paged kernel, a finished slot on the null page
+    with a stale length; g 16 and MQA.  Held against plain (2e-3 on int8,
+    1e-4 on e4m3), an empty slot exactly 0, and a second call equal to
+    the first bit for bit (the merge leaves its ticket counters at 0)."""
+    from flash_cosine_sim_attention_tpu_torch.ops.blocks import decode_split
+
+    gq, kvh, d = shape
+    kv_dtype = torch.int8 if kv == "int8" else torch.float8_e4m3fn
+    g = torch.Generator(device=cuda_device).manual_seed(d + gq)
+    ps, mp = 128, 8
+    lengths = [0, 1, 127, 128, 129, 500, mp * ps]
+    if kern == "paged":
+        lengths.append(700)
+    b = len(lengths)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert decode_split(mp * ps, b * kvh * -(-gq // 8), sms) == (128, 8)
+    k = l2norm_tensors(torch.randn(b, kvh, mp * ps, d, device=cuda_device,
+                                   generator=g))
+    v = 3 * torch.randn(b, kvh, mp * ps, d, device=cuda_device, generator=g)
+    q = l2norm_tensors(torch.randn(b, kvh * gq, d, device=cuda_device,
+                                   generator=g))
+    length = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    if kern == "paged":
+        ids = torch.randperm(b * mp, device=cuda_device, generator=g) + 1
+        table = ids.view(b, mp).to(torch.int32)
+        cache = append_paged(init_paged_cache(
+            b * mp + 1, kvh, ps, d, b, mp, kv_dtype=kv_dtype,
+            device=cuda_device)._replace(page_table=table), k, v)
+        table = table.clone()
+        table[-1] = 0                 # finished: null page, stale length
+        cache = cache._replace(page_table=table, length=length)
+        kernel, plain = paged_decode_attention, paged_decode_plain
+    else:
+        cache = append(init_cache(b, kvh, mp * ps, d, cuda_device,
+                                  kv_dtype=kv_dtype), k, v)._replace(
+                                      length=length)
+        kernel, plain = quantized_decode_attention, decode_attention_plain
+    before = kernel.launches
+    first = kernel(q, cache, scale=8.0, l2norm_qk=False)
+    second = kernel(q, cache, scale=8.0, l2norm_qk=False)
+    want = plain(q.view(b, kvh, gq, d), cache, 8.0).view(first.shape)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert torch.isfinite(first).all()
+    assert torch.equal(first, second)
+    err = (first - want).abs().max().item()
+    assert err <= (2e-3 if kv == "int8" else 1e-4), err
+    assert first[0].abs().max().item() == 0
+
+
+def _decode_case(kern, kv_dtype, lengths, kvh, d, cap, g, device):
+    """(kernel, plain, queries (b, kvh, d) f32, cache) for one query head a
+    kv head over ``cap`` tokens a slot: a contiguous cache, or the same
+    tokens in shuffled pages of 128."""
+    b, ps = len(lengths), 128
+    k = l2norm_tensors(torch.randn(b, kvh, cap, d, device=device,
+                                   generator=g))
+    v = 3 * torch.randn(b, kvh, cap, d, device=device, generator=g)
+    q = l2norm_tensors(torch.randn(b, kvh, d, device=device, generator=g))
+    length = torch.tensor(lengths, dtype=torch.int32, device=device)
+    if kern == "paged":
+        mp = cap // ps
+        table = (torch.randperm(b * mp, device=device, generator=g) + 1
+                 ).view(b, mp).to(torch.int32)
+        cache = append_paged(init_paged_cache(
+            b * mp + 1, kvh, ps, d, b, mp, kv_dtype=kv_dtype,
+            device=device)._replace(page_table=table), k, v)
+        return (paged_decode_attention, paged_decode_plain, q,
+                cache._replace(length=length))
+    cache = append(init_cache(b, kvh, cap, d, device, kv_dtype=kv_dtype),
+                   k, v)
+    return (quantized_decode_attention, decode_attention_plain, q,
+            cache._replace(length=length))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kern", ["contiguous", "paged"])
+@pytest.mark.parametrize("kv", ["int8", "e4m3"])
+def test_decode_splits_of_several_tiles_match_plain(cuda_device, kern, kv):
+    """The 0.81B decode step's shape: b8 kvh16 g1 d128 over a capacity of
+    2048, 128 rows, so that a split holds several 128-token tiles (256 on
+    the H100's 132 SMs, streamed in stages of 64).  Lengths at a split's
+    edges (255, 256, 257), the step's 1060, the capacity; held against
+    plain at scale 8 (2e-3 on int8, 1e-4 on e4m3)."""
+    from flash_cosine_sim_attention_tpu_torch.ops.blocks import decode_split
+
+    kv_dtype = torch.int8 if kv == "int8" else torch.float8_e4m3fn
+    g = torch.Generator(device=cuda_device).manual_seed(2048)
+    lengths, kvh, d, cap = [0, 1, 255, 256, 257, 1060, 2047, 2048], 16, 128, \
+        2048
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    tps, _ = decode_split(cap, len(lengths) * kvh, sms)
+    assert tps > 128, (sms, tps)
+    kernel, plain, q, cache = _decode_case(kern, kv_dtype, lengths, kvh, d,
+                                           cap, g, cuda_device)
+    before = kernel.launches
+    got = kernel(q, cache, scale=8.0, l2norm_qk=False)
+    want = plain(q[:, :, None], cache, 8.0).view(got.shape)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    err = (got - want).abs().max().item()
+    assert err <= (2e-3 if kv == "int8" else 1e-4), err
+    assert got[0].abs().max().item() == 0
+
+
+@pytest.mark.cuda
+def test_decode_calls_on_two_streams_match_plain(cuda_device):
+    """K4 and K5 launched on two streams at once, alternately, over caches
+    with the same rows: each stream merges with its own ticket counters,
+    so every output equals plain's and every counter is back at 0."""
+    from flash_cosine_sim_attention_tpu_torch.quant import decode_kernel
+
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    lengths = [1024, 900, 129, 1024, 700, 1000, 256, 1024]
+    cases = [_decode_case(kern, torch.int8, lengths, 8, 64, 1024, g,
+                          cuda_device) for kern in ("contiguous", "paged")]
+    wants = [plain(q[:, :, None], cache, 8.0).view(q.shape)
+             for _, plain, q, cache in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    outs = []
+    for i in range(24):
+        for j, stream in enumerate(streams):
+            kernel, _, q, cache = cases[(i + j) % 2]
+            with torch.cuda.stream(stream):
+                outs.append(((i + j) % 2,
+                             kernel(q, cache, scale=8.0, l2norm_qk=False)))
+    torch.cuda.synchronize()
+    for which, out in outs:
+        err = (out - wants[which]).abs().max().item()
+        assert err <= 2e-3, (which, err)
+    for stream in streams:
+        tickets = decode_kernel._tickets[(outs[0][1].device,
+                                          stream.cuda_stream)]
+        assert tickets.abs().max().item() == 0
+
+
+@pytest.mark.cuda
+def test_profiled_calls_name_the_wide_and_split_instances(cuda_device):
+    """The profiler names the wide route's instances (fwd_wide_kernel,
+    dkdv_wide_kernel, dq_wide_kernel) at d 512 and the split-K decode
+    kernels, one kernel a decode call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        flash_cosine_sim_attention)
+
+    g = torch.Generator(device=cuda_device).manual_seed(512)
+    q, k, v = (torch.randn(1, 2, 96, 512, device=cuda_device, generator=g,
+                           dtype=torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    bias = torch.zeros(2, 96, 96, device=cuda_device, requires_grad=True)
+    cache = append(init_cache(2, 2, 256, 512, cuda_device),
+                   *l2norm_tensors(k.detach().float()[:1].expand(2, -1, -1, -1),
+                                   v.detach().float()[:1].expand(2, -1, -1, -1)))
+    qd = l2norm_tensors(q.detach()[:1, :, 0].expand(2, -1, -1))
+
+    def work():
+        flash_cosine_sim_attention(q, k, v, causal=True).float().sum().backward()
+        flash_cosine_sim_attention(q, k, v, attn_bias=bias,
+                                   causal=True).float().sum().backward()
+        quantized_decode_attention(qd, cache, l2norm_qk=False)
+
+    work()                             # builds and loads first
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        work()
+        torch.cuda.synchronize()
+    keys = [e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    for name in ("fwd_wide_kernel<__nv_bfloat16, __nv_bfloat16>",
+                 "dkdv_wide_kernel<__nv_bfloat16, true>",
+                 "dkdv_wide_kernel<__nv_bfloat16, false>",
+                 "dq_wide_kernel<__nv_bfloat16>", "decode_kernel<"):
+        assert any(name in key for key in keys), (name, keys)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "decode_kernel<" in e.key]
+    assert sum(e.count for e in rows) == 1
 
 
 @pytest.mark.cuda

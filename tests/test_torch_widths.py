@@ -3,10 +3,11 @@ groups past 8, on the CPU: the port against itself (padding) and against
 the JAX package.
 
 On the card a head dim d that is a multiple of 8 up to 256 runs the kernel
-built for the next of (16, 32, 64, 96, 128, 192, 256): the forward and
-backward wrappers zero-pad q, k, v and dO' and slice the outputs back, the
-decode kernels read d-byte code rows in place, and a kv head's group of
-query heads of any size is served in chunks of 8.  Here the padding is
+built for the next of (16, 32, 64, 96, 128, 192, 256), and past 256 the
+wide route at the next multiple of 128: the forward and backward wrappers
+zero-pad q, k, v and dO' and slice the outputs back, the decode kernels
+read d-byte code rows in place, and a kv head's group of query heads of
+any size is served in chunks of 8.  Here the padding is
 held exact on the plain path, and the port's op, decode, paged decode and
 both engines at such widths and groups are held against JAX (its Pallas
 kernels in interpret mode, as the JAX suite runs them; its model functions
@@ -52,6 +53,7 @@ from flash_cosine_sim_attention_tpu_torch.ops import (
 )
 from flash_cosine_sim_attention_tpu_torch.ops.blocks import (
     KERNEL_WIDTHS,
+    WIDE_CHUNK,
     kernel_head_dim,
 )
 from flash_cosine_sim_attention_tpu_torch.ops.reference import pad_head_dim
@@ -94,17 +96,42 @@ def _np(x):
 
 @pytest.mark.parametrize("d,want", [(8, 16), (16, 16), (48, 64), (80, 96),
                                     (104, 128), (128, 128), (136, 192),
-                                    (192, 192), (200, 256), (256, 256)])
+                                    (192, 192), (200, 256), (256, 256),
+                                    (264, 384), (512, 512)])
 def test_kernel_head_dim_is_the_next_width(d, want):
+    """Up to 256 the next kernel width; past it (the wide route) the next
+    multiple of WIDE_CHUNK."""
     assert kernel_head_dim(d, "forward") == want
 
 
-@pytest.mark.parametrize("d", [264, 512, 12, 0])
+@pytest.mark.parametrize("d", [260, 4, 12, 0])
 def test_kernel_head_dim_refuses_and_names_the_widths(d):
-    with pytest.raises(ValueError, match="multiples of 8 up to 256") as err:
+    """What is not a positive multiple of 8 is refused, as the JAX op
+    refuses it (flash_attention.py:208-212), naming what the card takes."""
+    with pytest.raises(ValueError, match="positive multiples of 8") as err:
         kernel_head_dim(d, "backward")
     assert str(KERNEL_WIDTHS) in str(err.value)
+    assert f"multiple of {WIDE_CHUNK}" in str(err.value)
     assert "backward" in str(err.value)
+
+
+@pytest.mark.parametrize("capacity,rows,want", [
+    (1024, 64, (128, 8)),     # b8 kvh8 g1 at 1024 tokens (phases 4, 10)
+    (2048, 128, (256, 8)),    # b8 kvh16 at 2048 (the 0.81B decode step)
+    (1024, 16, (128, 8)),     # b8 kvh2 at d 256 (phase 15)
+    (300, 8, (128, 3)),       # a ragged capacity: the last tile is partial
+    (1, 2000, (128, 1)),      # more rows than the target: one split
+])
+def test_decode_split_covers_the_capacity(capacity, rows, want):
+    """The decode kernels' split rule (ops/blocks.py) on the H100's 132
+    SMs: whole 128-token tiles a split, about 8 blocks an SM, and the
+    splits cover the capacity with no split past it."""
+    from flash_cosine_sim_attention_tpu_torch.ops.blocks import decode_split
+
+    tps, nsplit = decode_split(capacity, rows, 132)
+    assert (tps, nsplit) == want
+    assert tps % 128 == 0 and nsplit * tps >= capacity
+    assert (nsplit - 1) * tps < capacity
 
 
 # b, h, kvh, seq_q, seq_k, causal, key mask
@@ -183,13 +210,14 @@ def test_op_at_d48_matches_jax_fused(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [136, 256])
+@pytest.mark.parametrize("d", [136, 256, 264, 512])
 def test_op_at_wide_heads_matches_jax_fused(d, dtype):
-    """The port's op at d 136 (zero-padded to 192 on the card) and 256, GQA
-    and causal, with an (h, i, j) bias, against JAX's fused op: forward,
-    and the gradients of q, k, v and the bias, which take the two-pass
-    route (K3a, K3b on the card).  Bars: f32 1e-4 of max(1, max|g|), bf16
-    0.15."""
+    """The port's op at d 136 (zero-padded to 192 on the card), 256, 264
+    and 512 (the wide route, padded to 384 and 512), GQA and causal,
+    against JAX's fused op: forward, and the gradients of q, k, v and, with
+    an (h, i, j) bias (every d but 264), of the bias, which take the
+    two-pass route (K3a, K3b on the card; without a bias, K2).  Bars: f32
+    1e-4 of max(1, max|g|), bf16 0.15."""
     rng = np.random.default_rng(d)
     b, h, kvh, s = 1, 2, 1, 50
     q = rng.standard_normal((b, h, s, d))
@@ -197,14 +225,21 @@ def test_op_at_wide_heads_matches_jax_fused(d, dtype):
     bias = 0.5 * rng.standard_normal((h, s, s))
     do = rng.standard_normal((b, h, s, d))
     kw = dict(causal=True, scale=8.0)
-
-    o_j, vjp = jax.vjp(lambda q, k, v, bias: jax_flash(q, k, v, attn_bias=bias,
-                                                       **kw),
-                       *(_j(x, dtype) for x in (q, k, v, bias)))
-    want = vjp(_j(do, dtype))
-    tin = [_t(x, dtype).requires_grad_() for x in (q, k, v, bias)]
-    o_t = flash_cosine_sim_attention(*tin[:3], attn_bias=tin[3], **kw)
-    got = torch.autograd.grad(o_t, tin, _t(do, dtype))
+    if d == 264:  # the bias-free route: the one-pass backward
+        o_j, vjp = jax.vjp(lambda q, k, v: jax_flash(q, k, v, **kw),
+                           *(_j(x, dtype) for x in (q, k, v)))
+        want = vjp(_j(do, dtype))
+        tin = [_t(x, dtype).requires_grad_() for x in (q, k, v)]
+        o_t = flash_cosine_sim_attention(*tin, **kw)
+        got = torch.autograd.grad(o_t, tin, _t(do, dtype))
+    else:
+        o_j, vjp = jax.vjp(
+            lambda q, k, v, bias: jax_flash(q, k, v, attn_bias=bias, **kw),
+            *(_j(x, dtype) for x in (q, k, v, bias)))
+        want = vjp(_j(do, dtype))
+        tin = [_t(x, dtype).requires_grad_() for x in (q, k, v, bias)]
+        o_t = flash_cosine_sim_attention(*tin[:3], attn_bias=tin[3], **kw)
+        got = torch.autograd.grad(o_t, tin, _t(do, dtype))
 
     def err(x, y):
         e = np.abs(_np(x) - _np(y)).max()
@@ -217,13 +252,16 @@ def test_op_at_wide_heads_matches_jax_fused(d, dtype):
 
 
 @pytest.mark.parametrize("kv", sorted(KV))
-def test_decode_d256_matches_jax(kv):
-    """The port's decode at d 256 (256-byte code rows, read in place in two
-    halves on the card) against JAX's quantized_decode_attention, int8 and
-    e4m3, GQA 4/2, with an empty slot.  Bar 2e-3."""
+@pytest.mark.parametrize("d", [256, 512, 1032])
+def test_decode_wide_matches_jax(kv, d):
+    """The port's decode at d 256 and 512 (code rows read in place on the
+    card) against JAX's quantized_decode_attention, int8 and e4m3, GQA
+    4/2, with an empty slot.  Bar 2e-3.  d 1032 is past the card's
+    decode kernels (ops/blocks.py DECODE_MAX_DIM); JAX and the plain
+    version take it."""
     tdt, jdt = KV[kv]
-    rng = np.random.default_rng(256)
-    b, kvh, g, cap, d = 3, 2, 2, 40, 256
+    rng = np.random.default_rng(d)
+    b, kvh, g, cap = 3, 2, 2, 40
     k = np.array(jax_l2norm_tensors(jnp.asarray(
         rng.standard_normal((b, kvh, cap, d)).astype(np.float32))))
     v = (3 * rng.standard_normal((b, kvh, cap, d))).astype(np.float32)
@@ -244,14 +282,15 @@ def test_decode_d256_matches_jax(kv):
 
 
 @pytest.mark.parametrize("kv", sorted(KV))
-def test_paged_decode_d256_matches_jax(kv):
-    """The port's paged decode at d 256 (a page holds 256 rows of 128
-    tokens) against JAX's paged_decode_attention, its XLA gather path and
-    its Pallas kernel (interpret mode), on a shuffled table of two pages a
-    slot, one slot across the page boundary.  Bar 2e-3."""
+@pytest.mark.parametrize("d", [256, 512])
+def test_paged_decode_wide_matches_jax(kv, d):
+    """The port's paged decode at d 256 and 512 (a page holds d rows of
+    128 tokens) against JAX's paged_decode_attention, its XLA gather path
+    and its Pallas kernel (interpret mode), on a shuffled table of two
+    pages a slot, one slot across the page boundary.  Bar 2e-3."""
     tdt, jdt = KV[kv]
-    rng = np.random.default_rng(257)
-    b, kvh, h, n, d, ps = 2, 1, 2, 200, 256, 128
+    rng = np.random.default_rng(d + 1)
+    b, kvh, h, n, ps = 2, 1, 2, 200, 128
     mp = -(-n // ps)
     pages = b * mp + 1
     table = rng.permutation(np.arange(1, pages))[:b * mp].reshape(b, mp)
@@ -416,3 +455,31 @@ def test_heads256_engines_match_jax(head256_models, engine):
     against the jitted JAX prefill and decode_step fed the same tokens (f32
     logits through a quantized cache, bar 1e-2)."""
     _engines_match_jax(head256_models, engine)
+
+
+# depth 2, dim 512, 1 head of 512 lanes: the wide route on the card
+HEAD512_MODEL = dict(HEAD256_MODEL, heads=1, dim_head=512)
+
+
+@pytest.fixture(scope="module")
+def head512_models():
+    """Both models on one set of numpy seed weights, carried to the port's
+    by models/convert.py; the JAX prefill and decode step jitted once."""
+    model = CosineSimCausalTransformer(**HEAD512_MODEL, device="cpu")
+    flax = _random_flax_params(model, 512)
+    params_from_flax(flax, model)
+    jmodel = JaxModel(**HEAD512_MODEL, dtype=jnp.float32)
+    params = {"params": jax.tree.map(jnp.asarray, flax)}
+    jprefill = jax.jit(lambda s, t, n: jdec.prefill(jmodel, params, s, t,
+                                                    true_len=n))
+    jdecode = jax.jit(lambda s, t: jdec.decode_step(jmodel, params, s, t))
+    return jmodel, model, jprefill, jdecode
+
+
+@pytest.mark.parametrize("engine", ["contiguous", "paged"])
+def test_heads512_engines_match_jax(head512_models, engine):
+    """Both engines prefill a 13-token prompt and decode 3 tokens through
+    the 1-head-of-512 model; every logits row they sample from is held
+    against the jitted JAX prefill and decode_step fed the same tokens (f32
+    logits through a quantized cache, bar 1e-2)."""
+    _engines_match_jax(head512_models, engine)
