@@ -84,10 +84,14 @@ Phases (any failure exits non-zero):
      (every kernel's launches read around these), then card vs CPU at
      depth 2 in f32;
  16. head dims past 256 (the wide route): d 260 refused by every wrapper;
-     phase 15's checks at d 264 (padded to 384) and 512, timed at d 512,
-     the profiles showing the wide instances; the validation width with 1
-     head of 512 (seed 29) served, trained, its bias gradient taken, and
-     card vs CPU at depth 2.
+     phase 15's checks at d 264 (padded to 384) and 512, the op's at
+     1032 (padded to 1152), timed at d 512, the profiles showing the wide
+     tensor-core instances; K4 and K5 past 1024 (column blocks) at 1032
+     and 2048 against plain (int8 and e4m3, g 1 and 4, an empty slot and
+     one across a split boundary), timed at d 1032; the validation width
+     with 1 head of 512 (seed 29) served, trained (a step timed, wall and
+     device), its bias gradient taken, and card vs CPU at depth 2; with 1
+     head of 1032 at depth 2 (seed 33) served by both engines.
 Then one JSON line lists every ported kernel with its launches on its
 path, error, times and bound (timing lines also print the achieved
 TFLOP/s); the script's own wall time, the nvcc build included; the
@@ -161,8 +165,10 @@ WIDE_PROMPTS = (100, 300, 700)
 # phase 15: the validation width with 2 heads of 256, the widest kernel
 # width (the widest head of the public model families)
 HEAD256_MODEL = dict(MODEL, heads=2, dim_head=256)
-# phase 16: the validation width with 1 head of 512, the wide route
+# phase 16: the validation width with 1 head of 512, the wide route; and
+# with 1 head of 1032 at depth 2 (the decode kernels' column blocks)
 HEAD512_MODEL = dict(MODEL, heads=1, dim_head=512)
+HEAD1032_MODEL = dict(MODEL, heads=1, dim_head=1032, depth=2)
 HEAD_TRAIN_STEPS = 3     # training steps of the phase 15 and 16 models
 
 
@@ -197,6 +203,12 @@ def kernel_us(work, iters: int) -> float:
     return sum(t for _, t, _ in cuda_rows(work, iters))
 
 
+# profiler windows cuda_rows takes before it returns an empty one, and
+# windows whole_rows takes before it fails on lost records
+PROFILE_TRIES = 3
+WHOLE_TRIES = 5
+
+
 def cuda_rows(work, iters: int):
     """torch.profiler's per-kernel rows (key, self device time in us,
     count) over ``iters`` calls of ``work``.  The profiler can drop the
@@ -205,38 +217,55 @@ def cuda_rows(work, iters: int):
     (which then sorts last by first appearance), at the same call sites
     run after run, and a sentinel kernel closing the window changed
     nothing.  So a sentinel (torch.cuda._sleep's spin_kernel) opens the
-    window, and it is left out of the rows."""
+    window, and it is left out of the rows.  A window can also come back
+    with no record of the work's kernels at all (seen on the H100 over 3
+    calls of kernels that had just run and been checked): such a window
+    is profiled again, up to PROFILE_TRIES times, and then returned
+    empty."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1000)
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-        for _ in range(iters):
-            work()
-        torch.cuda.synchronize()
-    return [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-            and "spin_kernel" not in e.key]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(iters):
+                work()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total, e.count)
+                for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                and "spin_kernel" not in e.key]
+        if rows:
+            return rows
+        print("  (the profiler recorded no kernel of the work in its window; "
+              "profiled again)")
+    return rows
 
 
-def whole_us(work, iters: int, tries: int = 3) -> float:
-    """kernel_us for a ``work`` that launches each of its kernels the same
-    number of times per call: a kernel whose count is not a multiple of
-    ``iters`` lost a record, so the counts are printed and ``work`` is
-    profiled again; fails after ``tries`` such profiles."""
-    for _ in range(tries):
-        rows = cuda_rows(work, iters)
+def whole_rows(work, iters: int):
+    """cuda_rows' (key, device time in us, count) per call of a ``work``
+    that launches each of its kernels the same number of times per call,
+    over ``iters`` calls: a kernel whose count is not a multiple of the
+    calls lost a record, so the counts are printed and ``work`` is
+    profiled again over one call more (one run on the H100 lost the same
+    record in three windows of the same length running); fails after
+    WHOLE_TRIES such profiles."""
+    for n in range(iters, iters + WHOLE_TRIES):
+        rows = cuda_rows(work, n)
         counts = [count for _, _, count in rows]
-        if not any(count % iters for count in counts):
-            return sum(t for _, t, _ in rows)
-        lost = [(key[:40], count) for key, _, count in rows
-                if count % iters]
+        if not any(count % n for count in counts):
+            return [(key, t / n, count // n) for key, t, count in rows]
+        lost = [(key[:40], count) for key, _, count in rows if count % n]
         print(f"  (the profiler lost kernel records: {lost} of counts "
-              f"{counts} over {iters} calls; profiled again)")
-    fail(f"the profiler lost kernel records {tries} times running")
+              f"{counts} over {n} calls; profiled again)")
+    fail(f"the profiler lost kernel records {WHOLE_TRIES} times running")
+
+
+def whole_us(work, iters: int) -> float:
+    """Device time (us) per call of ``work``, from whole_rows."""
+    return sum(t for _, t, _ in whole_rows(work, iters))
 
 
 def device_ms(fn, flush=None, iters: int = 20) -> float:
@@ -244,11 +273,12 @@ def device_ms(fn, flush=None, iters: int = 20) -> float:
     CUDA-event time where the profiler saw no device time."""
     for _ in range(3):
         fn()
-    total = whole_us(fn if flush is None else lambda: (flush(), fn()), iters)
+    per_call = whole_us(fn if flush is None else lambda: (flush(), fn()),
+                        iters)
     if flush is not None:
-        total -= whole_us(flush, iters)
-    if total > 0:
-        return total / iters / 1e3
+        per_call -= whole_us(flush, iters)
+    if per_call > 0:
+        return per_call / 1e3
     print("  (the profiler saw no device time: CUDA-event time instead)")
     return event_ms(fn, flush=flush)
 
@@ -282,7 +312,9 @@ def require_kernels(rows, names, path: str) -> None:
     """Fail unless every kernel name in ``names`` appears among the
     profiler's ``rows``, and no FMA instance of K1 or K7, and no bf16 FMA
     instance of the dK/dV kernel (K2, K3b) or the dQ kernel (K3a), does:
-    the bf16 paths must run the tensor-core instances."""
+    the bf16 paths must run the tensor-core instances (past d 256 the
+    wide FMA forward and dK/dV kernels have no bf16 instance, and K3a's
+    dq_wide_kernel alone stays FMA)."""
     keys = [key for key, _, _ in rows]
     missing = [n for n in names if not any(n in key for key in keys)]
     fma = [key[:60] for key in keys if "fwd_kernel<" in key
@@ -2010,6 +2042,94 @@ def decode_widths_vs_plain(g, dims, worst):
                      f"empty slot not 0 or calls differ")
 
 
+def decode_past_1024(g, dims, worst):
+    """K4 and K5 past d 1024 (column blocks of at most 1024 columns) at
+    each head dim of ``dims``: int8 and e4m3, g 1 and GQA 4 on 2 kv heads,
+    slots of lengths 0 (exactly 0 out), 200 (across a split boundary) and
+    the capacity 512, in 4 splits of 128 tokens (the pool's pages
+    shuffled); a first and a second call equal bit for bit, one launch
+    each, then held by hold_decode (f32 queries at scale 1 and 8).  Folds
+    errors into ``worst``; a profiled call must show the column-block
+    instances."""
+    from flash_cosine_sim_attention_tpu_torch.ops import l2norm_tensors
+    from flash_cosine_sim_attention_tpu_torch.quant import (
+        append, append_paged, decode_attention_plain, init_cache,
+        init_paged_cache, paged_decode_attention, paged_decode_plain,
+        quantized_decode_attention)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+
+    ps, mp, kvh = 128, 4, 2
+    lengths = torch.tensor((0, 200, mp * ps), dtype=torch.int32,
+                           device="cuda")
+    b = lengths.numel()
+    for d in dims:
+        for gq in (1, 4):
+            k = l2norm_tensors(randn(b, kvh, mp * ps, d))
+            v = 3 * randn(b, kvh, mp * ps, d)
+            q = l2norm_tensors(randn(b, kvh * gq, d))
+            for kv_dtype in (torch.int8, torch.float8_e4m3fn):
+                kv = "int8" if kv_dtype == torch.int8 else "e4m3"
+                cont = append(init_cache(b, kvh, mp * ps, d, "cuda",
+                                         kv_dtype=kv_dtype), k, v)._replace(
+                                             length=lengths)
+                table = _shuffled_table(b, mp, b * mp + 1, SEED + 31)
+                paged = append_paged(init_paged_cache(
+                    b * mp + 1, kvh, ps, d, b, mp, kv_dtype=kv_dtype,
+                    device="cuda")._replace(page_table=table), k, v)._replace(
+                        length=lengths)
+                for name, kernel, plain, cache in (
+                        ("K4", quantized_decode_attention,
+                         decode_attention_plain, cont),
+                        ("K5", paged_decode_attention, paged_decode_plain,
+                         paged)):
+                    n0 = kernel.launches
+                    first = kernel(q, cache, scale=8.0, l2norm_qk=False)
+                    second = kernel(q, cache, scale=8.0, l2norm_qk=False)
+                    torch.cuda.synchronize()
+                    moved = kernel.launches - n0
+                    same = torch.equal(first, second)
+                    empty = first[0].abs().max().item() == 0
+                    label = (f"{name} {kv} g{gq} d{d}, lengths "
+                             f"{lengths.tolist()}")
+                    err = hold_decode(label, kernel, plain, q, cache)
+                    worst[name] = max(worst[name], err)
+                    print(f"  {label}: launches +{moved}, a second call equal:"
+                          f" {same}, the empty slot 0: {empty}")
+                    if not (moved == 2 and same and empty
+                            and torch.isfinite(first).all().item()):
+                        fail(f"{label}: launches {moved}, calls equal {same},"
+                             f" empty slot 0 {empty}")
+        require_kernels(cuda_rows(lambda: (
+            quantized_decode_attention(q, cont, l2norm_qk=False),  # noqa: B023
+            paged_decode_attention(q, paged, l2norm_qk=False)),  # noqa: B023
+            REQUIRE_ITERS),
+            ("decode_cols_kernel<", "paged_decode_cols_kernel<"),
+            f"decode and paged decode at d {d}")
+
+
+def serve_decode_path(cfg, seed):
+    """The decode path past d 1024: ``cfg``'s model (random weights from
+    ``seed``) through serve_both.  Returns {kernel: launches}."""
+    from flash_cosine_sim_attention_tpu_torch.models import (
+        CosineSimCausalTransformer)
+
+    params = random_flax_params(
+        CosineSimCausalTransformer(**cfg, device="meta"), seed)
+    model = build_model(params, torch.bfloat16, "cuda", cfg)
+    vocab = cfg["num_tokens"]
+    seen, launches = serve_both(model, vocab, np.random.default_rng(seed + 1))
+    print(f"  heads {cfg['heads']} of {cfg['dim_head']} at depth "
+          f"{cfg['depth']}, bf16: both engines took prompts {WIDE_PROMPTS} "
+          f"and 8 steps each ({len(seen)} tokens); launches {launches}")
+    if (min(launches.values()) <= 0
+            or not all(0 <= t < vocab for t in seen)):
+        fail(f"heads of {cfg['dim_head']}: launches {launches}, tokens "
+             f"{seen}")
+    return launches
+
+
 def time_attention_at(card, g, d, h, worst, names):
     """K1, K2, K3a and K3b at b4 h{h} s1024 d{d} causal bf16 (a training
     microbatch of the model with h heads of d), against plain and timed;
@@ -2120,27 +2240,13 @@ def time_decode_at(card, g, d, kvh, worst):
     return rows
 
 
-def model_path(cfg, seed):
-    """The validation width with ``cfg``'s heads: served by both engines
-    (prompts WIDE_PROMPTS, 8 steps each), trained HEAD_TRAIN_STEPS steps,
-    a learnable (h, i, j) bias's gradient taken 3 times (every attention
-    kernel's launches read around these), then card vs CPU in f32 at
-    depth 2.  Seeds seed..seed + 3.  Returns {kernel: launches}."""
-    from flash_cosine_sim_attention_tpu_torch.models import (
-        CosineSimCausalTransformer)
-    from flash_cosine_sim_attention_tpu_torch.ops import (
-        flash_cosine_sim_attention)
+def serve_both(model, vocab, rng):
+    """``model`` served by both engines (prompts WIDE_PROMPTS drawn from
+    ``rng``, 8 steps each), every attention kernel's launch count set to 0
+    first.  Returns (the tokens seen, {"k1", "k4", "k5": launches})."""
     from flash_cosine_sim_attention_tpu_torch.serving import (
         InferenceEngine, PagedInferenceEngine)
-    from flash_cosine_sim_attention_tpu_torch.train import (
-        BATCH_SIZE, GRAD_ACCUM, make_optimizer, train_step)
 
-    h, d, s = cfg["heads"], cfg["dim_head"], cfg["max_seq_len"]
-    params = random_flax_params(
-        CosineSimCausalTransformer(**cfg, device="meta"), seed)
-    model = build_model(params, torch.bfloat16, "cuda", cfg)
-    rng = np.random.default_rng(seed + 1)
-    vocab = cfg["num_tokens"]
     for c in _attention_counters():
         c.launches = 0
     seen = []
@@ -2152,7 +2258,29 @@ def model_path(cfg, seed):
             seen.append(int(engine.last_token[slot]))
         for _ in range(8):
             seen.extend(engine.step().values())
-    serving = dict(zip(("k1", "k4", "k5"), (counts()[0], *counts()[4:])))
+    return seen, dict(zip(("k1", "k4", "k5"), (counts()[0], *counts()[4:])))
+
+
+def model_path(cfg, seed):
+    """The validation width with ``cfg``'s heads: served by both engines
+    (prompts WIDE_PROMPTS, 8 steps each), trained HEAD_TRAIN_STEPS steps,
+    a learnable (h, i, j) bias's gradient taken 3 times (every attention kernel's launches read around
+    these), then card vs CPU in f32 at depth 2.  Seeds seed..seed + 3.
+    Returns {kernel: launches}."""
+    from flash_cosine_sim_attention_tpu_torch.models import (
+        CosineSimCausalTransformer)
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        flash_cosine_sim_attention)
+    from flash_cosine_sim_attention_tpu_torch.train import (
+        BATCH_SIZE, GRAD_ACCUM, make_optimizer, train_step)
+
+    h, d, s = cfg["heads"], cfg["dim_head"], cfg["max_seq_len"]
+    params = random_flax_params(
+        CosineSimCausalTransformer(**cfg, device="meta"), seed)
+    model = build_model(params, torch.bfloat16, "cuda", cfg)
+    rng = np.random.default_rng(seed + 1)
+    vocab = cfg["num_tokens"]
+    seen, serving = serve_both(model, vocab, rng)
     del model
     torch.manual_seed(seed + 2)
     trainee = CosineSimCausalTransformer(**cfg, dtype=torch.bfloat16,
@@ -2201,6 +2329,42 @@ def model_path(cfg, seed):
     return launches
 
 
+def time_train_step(cfg, seed) -> None:
+    """A bf16 training step of the validation width with ``cfg``'s heads
+    (GRAD_ACCUM microbatches of BATCH_SIZE x max_seq_len, a model made
+    from ``seed``), after one untimed step: the host-clock median of 3
+    steps, and the device time per step and its K1 and K2 shares from
+    whole_rows over 2 steps."""
+    from flash_cosine_sim_attention_tpu_torch.models import (
+        CosineSimCausalTransformer)
+    from flash_cosine_sim_attention_tpu_torch.train import (
+        BATCH_SIZE, GRAD_ACCUM, make_optimizer, train_step)
+
+    h, d, s = cfg["heads"], cfg["dim_head"], cfg["max_seq_len"]
+    torch.manual_seed(seed)
+    trainee = CosineSimCausalTransformer(**cfg, dtype=torch.bfloat16,
+                                         device="cuda")
+    opt = make_optimizer(trainee)
+    batch = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg["num_tokens"], (GRAD_ACCUM, BATCH_SIZE, s + 1))).cuda()
+    train_step(trainee, opt, batch).item()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(trainee, opt, batch).item()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    wall_ms = statistics.median(walls)
+    rows = whole_rows(lambda: train_step(trainee, opt, batch).item(), 2)
+    busy_ms = sum(t for _, t, _ in rows) / 1e3
+    parts = {n: sum(t for key, t, _ in rows if n in key) / 1e3
+             for n in ("fwd_", "dkdv_")}
+    print(f"  heads {h} of {d}: a train step ({GRAD_ACCUM} x {BATCH_SIZE} x "
+          f"{s}) {wall_ms:.2f} ms wall (median of 3), {busy_ms:.2f} ms device "
+          f"(profiled over 2 steps; idle share {1 - busy_ms / wall_ms:.3f}), "
+          f"K1 {parts['fwd_']:.2f} ms and K2 {parts['dkdv_']:.2f} ms of it")
+
+
 def heads_256(card: str):
     """Phase 15: head dims up to 256.  The op's forward, one-pass backward
     and two-pass backward with an (h, i, j) bias at d 200 (the wrappers pad
@@ -2229,12 +2393,15 @@ def heads_256(card: str):
 def heads_past_256(card: str):
     """Phase 16: head dims past 256, the wide route.  d 260 refused by
     every wrapper; the op's forward and both backward routes at d 264
-    (padded to 384) and 512, f32 and bf16, against plain; K4 and K5 at d
-    264 and 512 against plain; K1, K2, K3a, K3b, K4 and K5 checked against
-    plain and timed at d 512 at the shapes the heads-512 model gives them;
-    that model (HEAD512_MODEL) served by both engines and trained, its
-    bias-gradient path run, and card vs CPU in f32 at depth 2.  Returns
-    as heads_256."""
+    (padded to 384), 512 and 1032 (padded to 1152), f32 and bf16, against
+    plain; K4 and K5 at d 264 and 512, and past 1024 (column blocks) at
+    1032 and 2048, against plain; K1, K2, K3a, K3b, K4 and K5 checked
+    against plain and timed at d 512 at the shapes the heads-512 model
+    gives them, K4 and K5 at d 1032; that model (HEAD512_MODEL) served by
+    both engines and trained, its bias-gradient path run, and card vs CPU
+    in f32 at depth 2, and its training step timed; the 1-head-of-1032 model (HEAD1032_MODEL) served by
+    both engines.  Returns (as heads_256, for d 512), ({kernel: max abs
+    err}, {kernel: timing row}, {kernel: launches}) for d 1032."""
     from flash_cosine_sim_attention_tpu_torch.ops import (
         flash_attention_backward, flash_cosine_sim_attention)
     from flash_cosine_sim_attention_tpu_torch.quant import (
@@ -2269,17 +2436,24 @@ def heads_past_256(card: str):
 
     worst = {"K1": 0.0, "K2": 0.0, "K3a": 0.0, "K3b": 0.0, "K4": 0.0,
              "K5": 0.0}
-    op_widths_vs_plain(g, (264, 512), worst,
+    op_widths_vs_plain(g, (264, 512, 1032), worst,
                        lambda d: f"{-(-d // 128) * 128}, the wide route")
     decode_widths_vs_plain(g, (264, 512), worst)
+    wide_worst = dict(K4=0.0, K5=0.0)
+    decode_past_1024(g, (1032, 2048), wide_worst)
     h = HEAD512_MODEL["heads"]
     rows = time_attention_at(card, g, 512, h, worst, (
-        "fwd_wide_kernel<__nv_bfloat16, __nv_bfloat16>",
-        "dkdv_wide_kernel<__nv_bfloat16, true>",
-        "dkdv_wide_kernel<__nv_bfloat16, false>",
+        "fwd_wide_mma_kernel<__nv_bfloat16>",
+        "dkdv_wide_mma_kernel<true>",
+        "dkdv_wide_mma_kernel<false>",
         "dq_wide_kernel<__nv_bfloat16>"))
     rows.update(time_decode_at(card, g, 512, h, worst))
-    return worst, rows, model_path(HEAD512_MODEL, SEED + 29)
+    wide_rows = time_decode_at(card, g, 1032, HEAD1032_MODEL["heads"],
+                               wide_worst)
+    launches = model_path(HEAD512_MODEL, SEED + 29)
+    time_train_step(HEAD512_MODEL, SEED + 37)
+    wide_launches = serve_decode_path(HEAD1032_MODEL, SEED + 33)
+    return (worst, rows, launches), (wide_worst, wide_rows, wide_launches)
 
 
 def main() -> None:
@@ -2341,7 +2515,8 @@ def main() -> None:
     print("[15] head dims up to 256")
     w_err, w_rows, w_launches = heads_256(smi)
     print("[16] head dims past 256")
-    x_err, x_rows, x_launches = heads_past_256(smi)
+    (x_err, x_rows, x_launches), (y_err, y_rows, y_launches) = (
+        heads_past_256(smi))
 
     bwd = "flash_cosine_sim_attention_tpu/ops/bwd_kernel.py"
     src = "flash_cosine_sim_attention_tpu_torch/csrc/bwd_kernel.cu"
@@ -2425,6 +2600,11 @@ def main() -> None:
         replaces="flash_cosine_sim_attention_tpu/quant/decode_kernel.py:49",
         launches=prod_launches["k4"], max_abs_err=k4_prod_err,
         **k4_prod_row))
+    kernels.append(dict(
+        name="decode_kernel:d1032", route="cuda",
+        source=f"{csrc}/decode_kernel.cu",
+        replaces="flash_cosine_sim_attention_tpu/quant/decode_kernel.py:137",
+        launches=y_launches["k4"], max_abs_err=y_err["K4"], **y_rows["K4"]))
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke.py took {time.perf_counter() - started:.1f} s")
     print(smi)

@@ -108,19 +108,38 @@
 // key loops stop at the block's last diagonal, and query tiles run
 // heaviest first.
 //
-// Past d 256 (the wide route, both dtypes) no warp holds a row's dK, dV
-// or dQ accumulators, so the wrapper pads d to a multiple of 128
-// (ops/blocks.py WIDE_CHUNK) and the output columns become a grid axis:
-// `dkdv_wide_kernel` (K2 with DQ, K3b without) and `dq_wide_kernel` (K3a)
-// give each block 128 columns.  S and dP' are summed over 64-lane d
-// chunks of Q, dO', K and V staged in f32, e and dS formed as in the FMA
-// kernels, and the block adds only its columns: dV += e^T.dO'[:, cols],
-// dK += scale dS^T.Q[:, cols], dQ += scale dS.K[:, cols] (K2's atomics
-// into the scratch's own columns, so no column is added twice).  Every
-// column block forms the same S and dS again (4 times at d 512); dB is
-// added by column block 0 alone, else it would be counted once a column
-// block.  FMA code with f32 tiles, 64 x 64, 256 threads: the route owes
-// correctness, not speed.
+// Past d 256 (the wide route) no warp holds a row's dK, dV or dQ
+// accumulators, so the wrapper pads d to a multiple of 128 (ops/blocks.py
+// WIDE_CHUNK) and the output columns become a grid axis.  Bound: at the
+// heads-512 training shape (b4 h1 s1024 d512 causal bf16) K2's products
+// are ~10.7 GFLOP (~11 us at the bf16 rate), operations-bound on paper;
+// what bounds this design is mma.sync's issue rate, the hi + lo products
+// and the S and dP' each column block forms again.
+// - bf16 K2 and K3b run on the tensor cores (`dkdv_wide_mma_kernel<DQ>`):
+//   a block of 8 warps owns 64 keys and 256 columns of dK and dV (16 keys
+//   x 256 f32 are 128 registers a thread; at d 384 or 1152 the last block
+//   owns a 128-column remainder), so S^T and dP^T are formed ceil(d / 256)
+//   times, twice at d 512, with 128 blocks in flight at that shape.  Per
+//   tile of 32 queries K, V, Q and dO' stream in 256-byte row chunks
+//   through a double-buffered cp.async ring, and warps 0-3 sum S^T =
+//   K.Q^T, warps 4-7 dP^T = V.dO'^T over them, each once: warps 0-3 form
+//   e^T and hand it to warps 4-7 through shared memory (in C-fragment
+//   order, so each lane reads its own entries), which form dS^T.  Then
+//   dV += e^T.dO'[:, cols] (warps 0-3) and dK += dS^T.Q[:, cols] (warps
+//   4-7), from the tile's Q and dO' column tiles (double-buffered, loaded
+//   with its first chunk), e and dS as bf16 hi + lo as in dkdv_mma_kernel.
+//   K2 stages dS^T and all 8 warps add dS.K[:, cols] (K's column tile
+//   stays resident) to the dQ scratch's own columns with float2 atomics.
+//   K3b stages the bias tile with the first chunk.  Shared memory: 219 KB
+//   (K2) and 193 KB (K3b with a bias) at every d.
+// - K3a (`dq_wide_kernel`, both dtypes) and the f32 K2 and K3b
+//   (`dkdv_wide_kernel`) stay FMA: each block owns 128 columns, S and dP'
+//   are summed over 64-lane d chunks staged in f32, e and dS formed as in
+//   the FMA kernels, and the block adds only its columns (dQ += scale
+//   dS.K[:, cols], dK, dV likewise; K2's atomics into the scratch's own
+//   columns).  Every column block forms the same S and dS again (4 times
+//   at d 512); dB is added by column block 0 alone, else it would be
+//   counted once a column block.  f32 tiles, 64 x 64, 256 threads.
 //
 // float32 inputs keep the FMA kernels `dkdv_kernel` and `dq_kernel`:
 // every product is an f32 FMA out of shared memory (tiles widened to f32
@@ -1034,9 +1053,10 @@ __global__ void __launch_bounds__(DQ_NT, 1) dq_mma_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// Wide route (d a multiple of WCOL past 256), f32 FMA tiles of 64 queries
-// x 64 keys for both dtypes, NT threads as in the FMA kernels (thread
-// (ty, tx) holds queries / keys ty * 4 .. and columns tx + 16 c).
+// Wide route's FMA kernels (d a multiple of WCOL past 256): K3a for both
+// dtypes, K2 and K3b for f32; f32 tiles of 64 queries x 64 keys, NT
+// threads as in the FMA kernels (thread (ty, tx) holds queries / keys ty *
+// 4 .. and columns tx + 16 c).
 
 constexpr int WKC = 64;    // d lanes of a Q, dO', K or V chunk
 constexpr int WCOL = 128;  // output columns of a block (ops/blocks.py WIDE_CHUNK)
@@ -1142,10 +1162,11 @@ constexpr size_t wide_dkdv_smem() {
                           (DQ ? size_t(WB) * WCS : 0));
 }
 
-// K2 (DQ = true) and K3b (DQ = false) past d 256: grid (key tiles, KVH,
-// B x column blocks).
-template <typename T, bool DQ>
+// K2 (DQ = true) and K3b (DQ = false) past d 256 for f32 (bf16 takes
+// dkdv_wide_mma_kernel): grid (key tiles, KVH, B x column blocks).
+template <bool DQ>
 __global__ void __launch_bounds__(NT) dkdv_wide_kernel(Params p, int d) {
+  using T = float;
   constexpr int R = 4, DC = WCOL / 16;  // output columns per thread
   extern __shared__ float wsmem[];
   float* chunks = wsmem;
@@ -1338,6 +1359,358 @@ __global__ void __launch_bounds__(NT) dq_wide_kernel(Params p, int d) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Wide route's dK/dV kernel on the tensor cores (bf16): K2 (DQ = true) and
+// K3b (DQ = false), d a multiple of WCOL past 256.  Grid (KVH, B x column
+// blocks of XCOL, key tiles), key tiles slowest; XNT threads: warp w (key
+// group w % 4, keys k0 + 16 (w % 4) ..) forms S^T, e^T and dV += e^T.dO'
+// for w < 4, dP^T, dS^T and dK += dS^T.Q for w >= 4.
+
+constexpr int XCOL = 256;           // dK, dV columns of a block: 16 keys x
+                                    // 256 f32 are 128 registers a thread
+constexpr int XNT = 256;            // threads: 8 warps
+constexpr int XBQ = 32;             // queries a tile
+constexpr int XCB = 256;            // bytes of a K, V, Q or dO' row chunk
+constexpr int XCS = XCB + 16;       // its shared row stride (17 units)
+constexpr int XVS = 2 * XCOL + 16;  // column tile row stride (33 units)
+constexpr int XSS = 2 * XBQ + 16;   // dS^T row stride, bytes (5 units)
+constexpr int XBS = MBK + 4;        // bias row stride, floats
+constexpr size_t XSTAGE = size_t(2 * MBK + 2 * XBQ) * XCS;  // K, V, Q, dO'
+constexpr size_t XCOLT = size_t(XBQ) * XVS;  // a Q or dO' column tile
+struct XLayout {
+  // two chunk stages; two (Q, dO') column tile pairs; e^T as C fragments;
+  // two delta' rows; then K2's K column tile and dS^T hi and lo tiles, or
+  // K3b's two bias tiles (XBQ queries x 64 keys, f32)
+  static constexpr size_t CHUNKS = 0;
+  static constexpr size_t COLS = CHUNKS + 2 * XSTAGE;
+  static constexpr size_t ES = COLS + 4 * XCOLT;
+  static constexpr size_t DL = ES + sizeof(float) * MBK * XBQ;
+  static constexpr size_t TAIL = DL + 2 * sizeof(float) * XBQ;
+  static constexpr size_t K2 = TAIL + size_t(MBK) * XVS + 2 * size_t(MBK) * XSS;
+  static constexpr size_t K3 = TAIL;
+  static constexpr size_t BIAS = 2 * sizeof(float) * XBQ * XBS;
+};
+static_assert(XLayout::K2 <= 232448 && XLayout::K3 + XLayout::BIAS <= 232448,
+              "the wide dK/dV kernel's shared memory fits a block");
+
+// acc (16 x XCOL, C fragments) += c . src over the first nd16 16-column
+// pairs, c a (16 x N) f32 tile in C fragments fed as bf16 hi + lo A
+// fragments, src an (N x *) bf16 tile, rows RS bytes apart (ldmatrix.trans)
+template <int N, int RS>
+__device__ __forceinline__ void add_product_cols(float (&acc)[XCOL / 8][4],
+                                                 const float (&c)[N / 8][4],
+                                                 const unsigned char* src,
+                                                 int lane, int nd16) {
+#pragma unroll
+  for (int j = 0; j < N / 16; ++j) {
+    uint32_t ah[4], al[4];
+    split_a(c, j, ah, al);
+#pragma unroll
+    for (int dn = 0; dn < XCOL / 16; ++dn) {
+      if (dn >= nd16) break;
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, src + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
+                               (dn * 16 + (lane >> 4) * 8) * 2);
+      mma_bf16(acc[2 * dn], ah, b[0], b[1]);
+      mma_bf16(acc[2 * dn], al, b[0], b[1]);
+      mma_bf16(acc[2 * dn + 1], ah, b[2], b[3]);
+      mma_bf16(acc[2 * dn + 1], al, b[2], b[3]);
+    }
+  }
+}
+
+// `bytes` from byte `off` of global rows [first, first + nrows), `ld` bytes
+// apart (rows past `limit` as zeros), to shared rows `stride` apart, by the
+// block's NTH threads
+template <int NTH>
+__device__ __forceinline__ void load_row_part(unsigned char* dst,
+                                              const unsigned char* src,
+                                              int first, int nrows, int limit,
+                                              int ld, int off, int bytes,
+                                              int stride) {
+  const int chunks = bytes / 16;
+  for (int idx = threadIdx.x; idx < nrows * chunks; idx += NTH) {
+    const int r = idx / chunks, cc = (idx % chunks) * 16, row = first + r;
+    const bool in = row < limit;
+    cp_async16(dst + r * stride + cc,
+               in ? src + size_t(row) * ld + off + cc : src, in ? 16 : 0);
+  }
+}
+
+template <bool DQ>
+__global__ void __launch_bounds__(XNT, 1) dkdv_wide_mma_kernel(Params p, int d) {
+  using T = __nv_bfloat16;
+  using L = XLayout;
+  constexpr int NQ = XBQ / 8;      // n8 tiles of a warp's (16 keys x XBQ) tile
+  constexpr int ND = XCOL / 8;     // n8 tiles of its dK or dV columns
+  constexpr int QG = XBQ / 16;     // dQ: 16-query groups of a tile ...
+  constexpr int DPN = (XNT / 32) / QG;  // ... and the column parts per group
+  extern __shared__ __align__(16) unsigned char msmem[];
+  unsigned char* colt = msmem + L::COLS;               // 2 x (Q, dO') tiles
+  float* es = reinterpret_cast<float*>(msmem + L::ES);  // e^T fragments
+  float* dls = reinterpret_cast<float*>(msmem + L::DL);  // 2 x XBQ
+  unsigned char* kcol = msmem + L::TAIL;               // K2: K[keys, cols]
+  unsigned char* dss = kcol + size_t(MBK) * XVS;       // K2: dS^T hi, lo
+  float* bss = reinterpret_cast<float*>(msmem + L::TAIL);  // K3b: 2 bias tiles
+
+  const int ncb = (d + XCOL - 1) / XCOL;
+  const int kvhi = blockIdx.x, bi = blockIdx.y / ncb;
+  const int c0 = (blockIdx.y % ncb) * XCOL;
+  const int ncols = min(XCOL, d - c0);
+  const int k0 = blockIdx.z * MBK;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int kg = warp & 3;                // the warp's 16 keys
+  const bool forms_dv = warp < 4;         // warp-uniform roles
+  const int G = p.H / p.KVH, diff = p.seq_k - p.seq_q;
+  const int RB = 2 * d;                   // bytes of a row
+  const int nch = RB / XCB;               // chunks of it
+  const size_t kvrow0 = (size_t(bi) * p.KVH + kvhi) * p.seq_k;
+  const unsigned char* kb = reinterpret_cast<const unsigned char*>(
+      static_cast<const T*>(p.k) + kvrow0 * d);
+  const unsigned char* vb = reinterpret_cast<const unsigned char*>(
+      static_cast<const T*>(p.v) + kvrow0 * d);
+  const uint8_t* mb = p.mask ? p.mask + size_t(bi) * p.seq_k : nullptr;
+
+  // (head, q tile) pairs that see the block's keys: the causal start is the
+  // first query row that sees key k0
+  const int qfirst = p.causal ? max(0, k0 - diff) : 0;
+  const int qt0 = qfirst / XBQ;
+  const int per_head = max(0, (p.seq_q + XBQ - 1) / XBQ - qt0);
+  const int total = G * per_head;
+  const int steps = total * nch;  // (pair, chunk), chunks fastest
+
+  auto q_rows = [&](int it) {  // the query rows' first index, (b, h, 0)
+    return (size_t(bi) * p.H + kvhi * G + it / per_head) * p.seq_q;
+  };
+  const bool bias16 =
+      p.seq_k % 4 == 0 && reinterpret_cast<uintptr_t>(p.bias) % 16 == 0;
+  // step st's K, V, Q and dO' chunks into stage st & 1; a pair's first
+  // step also brings its Q and dO' column tiles, delta' and bias tile
+  auto issue = [&](int st) {
+    if (st < steps) {
+      const int it = st / nch, ch = st % nch, off = ch * XCB;
+      const size_t qrow0 = q_rows(it);
+      const int q0 = (qt0 + it % per_head) * XBQ;
+      const unsigned char* qb = reinterpret_cast<const unsigned char*>(
+          static_cast<const T*>(p.q) + qrow0 * d);
+      const unsigned char* dob = reinterpret_cast<const unsigned char*>(
+          static_cast<const T*>(p.dO) + qrow0 * d);
+      unsigned char* stg = msmem + L::CHUNKS + (st & 1) * XSTAGE;
+      load_row_part<XNT>(stg, kb, k0, MBK, p.seq_k, RB, off, XCB, XCS);
+      load_row_part<XNT>(stg + MBK * XCS, vb, k0, MBK, p.seq_k, RB, off, XCB,
+                         XCS);
+      load_row_part<XNT>(stg + 2 * MBK * XCS, qb, q0, XBQ, p.seq_q, RB, off,
+                         XCB, XCS);
+      load_row_part<XNT>(stg + (2 * MBK + XBQ) * XCS, dob, q0, XBQ, p.seq_q,
+                         RB, off, XCB, XCS);
+      if (ch == 0) {
+        const int buf = it & 1;
+        unsigned char* ct = colt + 2 * buf * XCOLT;
+        load_row_part<XNT>(ct, qb, q0, XBQ, p.seq_q, RB, 2 * c0, 2 * ncols,
+                           XVS);
+        load_row_part<XNT>(ct + XCOLT, dob, q0, XBQ, p.seq_q, RB, 2 * c0,
+                           2 * ncols, XVS);
+        for (int i = tid; i < XBQ; i += XNT) {
+          const bool in = q0 + i < p.seq_q;
+          cp_async4(dls + buf * XBQ + i, in ? p.delta + qrow0 + q0 + i : p.delta,
+                    in ? 4 : 0);
+        }
+        if (!DQ && p.bias != nullptr) {
+          const int hb = p.bias_batch_dim ? bi : kvhi * G + it / per_head;
+          load_bias_tile<XNT>(bss + buf * XBQ * XBS,
+                              p.bias + (size_t(hb) * p.seq_q + q0) * p.seq_k + k0,
+                              XBQ, MBK, p.seq_q - q0, p.seq_k - k0, p.seq_k,
+                              XBS, bias16);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (DQ && total > 0)  // K2's dQ products read K[keys, cols]
+    load_row_part<XNT>(kcol, kb, k0, MBK, p.seq_k, RB, 2 * c0, 2 * ncols, XVS);
+  issue(0);
+
+  float acc[ND][4];  // dV (warps 0-3) or dK (warps 4-7)
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // this thread's keys: C rows g and g + 8 of the warp's 16
+  const int keys[2] = {k0 + kg * 16 + g, k0 + kg * 16 + g + 8};
+  bool key_ok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    key_ok[h] = keys[h] < p.seq_k && (mb == nullptr || mb[keys[h]] != 0);
+  const bool keys_whole = mb == nullptr && k0 + MBK <= p.seq_k;
+  float sc[NQ][4];  // S^T (warps 0-3) or dP^T (warps 4-7), summed over d
+
+  for (int st = 0; st < steps; ++st) {
+    issue(st + 1);
+    cp_async_wait<1>();
+    __syncthreads();  // step st's chunks (and its pair's tiles) have landed
+    const int it = st / nch, ch = st % nch, buf = it & 1;
+    const unsigned char* stg = msmem + L::CHUNKS + (st & 1) * XSTAGE;
+    if (ch == 0) {
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+    }
+    // S^T += K.Q^T (warps 0-3) or dP^T += V.dO'^T (warps 4-7) over the
+    // chunk: an x4 ldmatrix of Q / dO' gives the B fragments of 2 n8 tiles
+    {
+      const unsigned char* at = stg + (forms_dv ? 0 : MBK * XCS);
+      const unsigned char* bt = stg + (2 * MBK + (forms_dv ? 0 : XBQ)) * XCS;
+#pragma unroll
+      for (int kk = 0; kk < XCB / 32; ++kk) {
+        uint32_t a[4];
+        ldmatrix_x4(a, at + (kg * 16 + (lane & 15)) * XCS + kk * 32 +
+                           (lane >> 4) * 16);
+#pragma unroll
+        for (int j = 0; j < NQ / 2; ++j) {
+          uint32_t b[4];
+          ldmatrix_x4(b, bt + (j * 16 + (lane & 7) + (lane >> 4) * 8) * XCS +
+                             kk * 32 + ((lane >> 3) & 1) * 16);
+          mma_bf16(sc[2 * j], a, b[0], b[1]);
+          mma_bf16(sc[2 * j + 1], a, b[2], b[3]);
+        }
+      }
+    }
+
+    if (ch == nch - 1) {
+      const size_t qrow0 = q_rows(it);
+      const int q0 = (qt0 + it % per_head) * XBQ;
+      const float* dl = dls + buf * XBQ;
+      const unsigned char* qct = colt + 2 * buf * XCOLT;
+      const unsigned char* doct = qct + XCOLT;
+      float* ef = es + kg * NQ * 4 * 32 + lane;  // this lane's e^T entries
+      if (forms_dv) {
+        // e^T in the C layout: entry (n, 2h + x) is key keys[h], query q0
+        // + 8n + 2tq + x.  A tile whose every pair is visible skips the
+        // masks; the bias comes from its staged tile
+        const bool whole = keys_whole && q0 + XBQ <= p.seq_q &&
+                           (!p.causal || k0 + MBK - 1 <= q0 + diff);
+        const bool has_bias = !DQ && p.bias != nullptr;
+        const float* bt = bss + buf * XBQ * XBS + kg * 16 + g;
+#pragma unroll
+        for (int n = 0; n < NQ; ++n)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int col = n * 8 + 2 * tq + x, qr = q0 + col;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float lg = sc[n][2 * h + x] * p.c;
+              if (has_bias) lg += bt[col * XBS + 8 * h] * LOG2E;
+              bool keep = true;
+              if (!whole) {
+                keep = key_ok[h] && qr < p.seq_q;
+                if (p.causal) keep = keep && keys[h] <= qr + diff;
+              }
+              const float e = keep ? exp2f(lg) : 0.f;
+              sc[n][2 * h + x] = e;
+              ef[(n * 4 + 2 * h + x) * 32] = e;
+            }
+          }
+      }
+      __syncthreads();  // e^T is staged for the dK warps
+      if (!forms_dv) {
+        // dS^T = e^T (dP^T - delta'), e^T from the dV warp of these keys
+#pragma unroll
+        for (int n = 0; n < NQ; ++n)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const float dlt = dl[n * 8 + 2 * tq + x];
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              sc[n][2 * h + x] =
+                  ef[(n * 4 + 2 * h + x) * 32] * (sc[n][2 * h + x] - dlt);
+          }
+        if constexpr (DQ) {  // stage dS^T (keys x queries) for dQ = dS.K
+#pragma unroll
+          for (int n = 0; n < NQ; ++n)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int at = (kg * 16 + g + 8 * h) * XSS + (n * 8 + 2 * tq) * 2;
+              split_bf16(sc[n][2 * h], sc[n][2 * h + 1],
+                         *reinterpret_cast<uint32_t*>(dss + at),
+                         *reinterpret_cast<uint32_t*>(dss + MBK * XSS + at));
+            }
+        }
+      }
+      // dV[:, cols] += e^T.dO'[:, cols], dK[:, cols] += dS^T.Q[:, cols]: n8
+      // tiles 2j, 2j + 1 of e^T / dS^T are the A fragments (hi and lo) of
+      // k16 step j
+      add_product_cols<XBQ, XVS>(acc, sc, forms_dv ? doct : qct, lane,
+                                 ncols / 16);
+
+      if constexpr (DQ) {
+        // dQ[:, cols] of this tile += dS.K[:, cols] over the block's 64
+        // keys: warp w takes query group w % QG and column part w / QG of
+        // ncols / DPN columns; dS^T (hi and lo) read by ldmatrix.trans as
+        // dS's A fragments, K by ldmatrix.trans
+        __syncthreads();  // every dK warp's dS^T is staged
+        const int qg = warp % QG, part = warp / QG;
+        const int pcols = ncols / DPN, pc0 = part * pcols;
+        float* dqb = p.dq_acc + qrow0 * d + c0;
+        float dq[XCOL / DPN / 8][4];
+#pragma unroll
+        for (int n = 0; n < XCOL / DPN / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < MBK / 16; ++kk) {
+          const int arow = (kk * 16 + (lane & 7) + (lane >> 4) * 8) * XSS +
+                           (qg * 16 + ((lane >> 3) & 1) * 8) * 2;
+          uint32_t ah[4], al[4];
+          ldmatrix_x4_trans(ah, dss + arow);
+          ldmatrix_x4_trans(al, dss + MBK * XSS + arow);
+#pragma unroll
+          for (int dn = 0; dn < XCOL / DPN / 16; ++dn) {
+            if (dn * 16 >= pcols) break;
+            uint32_t b[4];
+            ldmatrix_x4_trans(
+                b, kcol + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * XVS +
+                       (pc0 + dn * 16 + (lane >> 4) * 8) * 2);
+            mma_bf16(dq[2 * dn], ah, b[0], b[1]);
+            mma_bf16(dq[2 * dn], al, b[0], b[1]);
+            mma_bf16(dq[2 * dn + 1], ah, b[2], b[3]);
+            mma_bf16(dq[2 * dn + 1], al, b[2], b[3]);
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = q0 + qg * 16 + g + 8 * h;
+          if (row >= p.seq_q) continue;
+#pragma unroll
+          for (int n = 0; n < XCOL / DPN / 8; ++n) {
+            if (n * 8 >= pcols) break;
+            atomicAdd(reinterpret_cast<float2*>(
+                          dqb + size_t(row) * d + pc0 + n * 8 + 2 * tq),
+                      make_float2(dq[n][2 * h], dq[n][2 * h + 1]));
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next steps' loads may overwrite these buffers
+  }
+  cp_async_wait<0>();
+
+  T* dst = static_cast<T*>(forms_dv ? p.dv : p.dk) + kvrow0 * d + c0;
+  const float mul = forms_dv ? 1.f : p.scale;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (keys[h] >= p.seq_k) continue;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      if (n * 8 >= ncols) break;
+      *reinterpret_cast<uint32_t*>(dst + size_t(keys[h]) * d + n * 8 + 2 * tq) =
+          pack_bf16(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
+    }
+  }
+}
+
 enum Which { ONEPASS = 0, DQ = 1, DKDV = 2 };
 
 template <typename Kernel>
@@ -1399,11 +1772,28 @@ cudaError_t run_wide(Which which, const Params& p, int B, int d,
     return launch_w(dq_wide_kernel<T>,
                     dim3((p.seq_q + WB - 1) / WB, p.H, B * ncb),
                     wide_dq_smem());
-  const dim3 grid((p.seq_k + WB - 1) / WB, p.KVH, B * ncb);
-  return which == ONEPASS
-             ? launch_w(dkdv_wide_kernel<T, true>, grid, wide_dkdv_smem<true>())
-             : launch_w(dkdv_wide_kernel<T, false>, grid,
-                        wide_dkdv_smem<false>());
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    for (const void* t : {p.q, p.k, p.v, p.dO})
+      if (reinterpret_cast<uintptr_t>(t) % 16 != 0) return cudaErrorMisalignedAddress;
+    // key tiles slowest, so the causal blocks with the most work go first
+    const dim3 grid(p.KVH, B * ((d + XCOL - 1) / XCOL), (p.seq_k + MBK - 1) / MBK);
+    auto launch_x = [&](auto kernel, size_t smem) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, XNT, smem, s>>>(p, d);
+      return cudaGetLastError();
+    };
+    return which == ONEPASS
+               ? launch_x(dkdv_wide_mma_kernel<true>, XLayout::K2)
+               : launch_x(dkdv_wide_mma_kernel<false>,
+                          XLayout::K3 + (p.bias ? XLayout::BIAS : 0));
+  } else {
+    const dim3 grid((p.seq_k + WB - 1) / WB, p.KVH, B * ncb);
+    return which == ONEPASS
+               ? launch_w(dkdv_wide_kernel<true>, grid, wide_dkdv_smem<true>())
+               : launch_w(dkdv_wide_kernel<false>, grid, wide_dkdv_smem<false>());
+  }
 }
 
 template <typename T>

@@ -1,27 +1,37 @@
 // Device helpers shared by the two one-token decode kernels for Hopper
 // (sm_90a): decode_kernel.cu (contiguous cache) and paged_decode_kernel.cu
 // (page pool).  Both keep the JAX decode kernels' maths and bf16 roundings,
-// read int8 or e4m3 codes, and are split-K ("flash-decoding") kernels:
+// read int8 or e4m3 codes, take any head dim that is a multiple of 8, and
+// are split-K ("flash-decoding") kernels:
 //
-// - Grid (splits, chunks of GMAX query heads, slot x kv head).  A kv
-//   head's group of G query heads, any G (GQA past 8, MQA), takes
-//   ceil(G / GMAX) chunks; a slot's token capacity is cut into splits of
-//   `tps` tokens, a whole number of 128-token tiles (ops/blocks.py
+// - Grid (splits, chunks of GMAX query heads, slot x kv head x column
+//   blocks).  A kv head's group of G query heads, any G (GQA past 8, MQA),
+//   takes ceil(G / GMAX) chunks; a slot's token capacity is cut into splits
+//   of `tps` tokens, a whole number of 128-token tiles (ops/blocks.py
 //   decode_split sets it from the capacity the host knows, never from the
 //   lengths, which live on the device: the engines never read them).
 // - A block reads its slot's length, and a split that starts at or past
 //   it exits at once; the live splits are nlive = max(1, ceil(len / tps)).
-// - Each live block streams its tokens in stages of TT tokens through a
-//   double-buffered cp.async ring (TT = 128 up to d 64, fewer above, so a
-//   stage's K or V stays within 8 KB), forms the unscaled weights e, their
-//   sum l and O = sum(bf16(e v_scale) v) for its tokens.
+// - Up to DCOLS (1024) columns a block serves the whole row: it streams
+//   its tokens in stages of TT tokens through a double-buffered cp.async
+//   ring (TT = 128 up to d 64, fewer above, so a stage's K or V stays
+//   within 8 KB), forms the unscaled weights e, their sum l and O =
+//   sum(bf16(e v_scale) v) for its tokens, its P.V sums in registers (at
+//   most two 4-column words, or 8 V rows, a thread) and the chunk's f32
+//   queries and a stage's rows in shared memory: both grow with d.
+// - Past DCOLS the output columns are a grid axis of ncb = ceil(d / DCOLS)
+//   column blocks of at most DCOLS columns (`*_cols_kernel`), so that
+//   registers and shared memory no longer grow with d.  Each column block
+//   forms the scores over the whole d, reading K and the queries straight
+//   from global memory (L1 and L2 serve the ncb - 1 repeats) with no
+//   staging, and adds P.V for its own columns only.
 // - There is no row max, so partial results merge by plain sums: with one
 //   live split the block writes out = O / max(l, EPS) itself; otherwise it
 //   writes (O, l) to an f32 workspace, and the last block of its (slot, kv
-//   head, chunk) to finish (a ticket from an int32 counter, taken after a
-//   __threadfence) sums the live splits in split order, writes out and
-//   resets the counter for the next call.  One launch a call, and the same
-//   sum order whichever block finishes last.
+//   head, chunk, column block) to finish (a ticket from an int32 counter
+//   of its own, taken after a __threadfence) sums the live splits in split
+//   order, writes out and resets the counter for the next call.  One
+//   launch a call, and the same sum order whichever block finishes last.
 //
 // The splits of a call run on ~8 blocks an SM (ops/blocks.py
 // DECODE_BLOCKS_PER_SM): one block per (slot, kv head, head chunk) over all its
@@ -45,7 +55,9 @@ namespace decode_common {
 
 constexpr int NT = 128;    // threads; tokens per tile (ops/blocks.py DECODE_TILE, PAGED_TILE)
 constexpr int GMAX = 8;    // query heads per block
-constexpr int DMAX = 1024; // widest head (ops/blocks.py DECODE_MAX_DIM)
+// output columns a block serves (ops/blocks.py DECODE_BLOCK_COLUMNS): the
+// whole row up to this head dim, past it a column block
+constexpr int DCOLS = 1024;
 constexpr float EPS = 1e-10f;
 
 // Tokens a stage holds: 128 up to d 64, then halved so that a stage's K
@@ -124,33 +136,52 @@ struct Split {
 };
 
 // The workspace of the split-K merge: partial O (nsplit, rows, d) and l
-// (nsplit, rows) in f32, rows = B * KVH * G, and one int32 ticket counter
-// per (slot, kv head, chunk), zero between calls.
+// (nsplit, rows, ncb) in f32, rows = B * KVH * G, and one int32 ticket
+// counter per (slot, kv head, chunk, column block), zero between calls.
 struct Merge {
   float* ws_o;
   float* ws_l;
   int* tickets;
   size_t rows;
+  int ncb;  // column blocks a row: 1 up to DCOLS
 };
 
-// The end of both kernels.  `red` holds np partial P.V sums, red[(p *
-// gm + gi) * d + c] for every part p < np, head gi < gn <= gm and column
-// c < d; lred[gi * (NT / 32) + w] warp w's row sums.  Writes the chunk's
-// gn rows of d lanes, O / max(l, EPS) in f32, from `out` on (row index
-// `row0` = bh * G + g0): directly with one live split, else through the
-// workspace and the last block's merge.  `flag` is one int of shared
-// memory.
+// The output columns a block writes: n columns from c0 of rows ld floats
+// long, column block cb of the row's Merge::ncb.  Up to DCOLS: {d, d, 0, 0}.
+struct Cols {
+  int n, ld, c0, cb;
+};
+
+// Column block cb of ncb over a row of d lanes: columns [c0, c0 + n),
+// whole 4-column words, the blocks' widths within 4 of each other
+__device__ __forceinline__ Cols column_block(int d, int ncb, int cb) {
+  const int per = 4 * ((d / 4 + ncb - 1) / ncb);
+  const int c0 = cb * per;
+  return Cols{min(per, d - c0), d, c0, cb};
+}
+
+// The end of every decode kernel.  `red` holds np partial P.V sums,
+// red[(p * gm + gi) * cl.n + c] for every part p < np, head gi < gn <= gm
+// and column c < cl.n; lred[gi * (NT / 32) + w] warp w's row sums.  Writes
+// the chunk's gn rows at columns cl.c0 + c, O / max(l, EPS) in f32, from
+// `out` on (row index `row0` = bh * G + g0): directly with one live split,
+// else through the workspace and the last block's merge.  `flag` is one
+// int of shared memory.
 __device__ __forceinline__ void finish_split(const float* red, int np, int gm,
-                                             const float* lred, int gn, int d,
-                                             const Split& sp, size_t row0,
+                                             const float* lred, int gn,
+                                             const Cols& cl, const Split& sp,
+                                             size_t row0,
                                              float* __restrict__ out,
                                              const Merge& m, int* flag) {
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, n = cl.n;
   __syncthreads();  // red and lred are complete
+  // entry idx = gi * n + c of the block: its offset from row row0's start
+  auto at = [&](int idx) {
+    return size_t(idx / n) * cl.ld + cl.c0 + idx % n;
+  };
   auto o_sum = [&](int idx) {
-    const int gi = idx / d, c = idx % d;
     float a = 0.f;
-    for (int p = 0; p < np; ++p) a += red[(p * gm + gi) * d + c];
+    for (int p = 0; p < np; ++p) a += red[p * gm * n + idx];
     return a;
   };
   auto l_sum = [&](int gi) {
@@ -159,15 +190,17 @@ __device__ __forceinline__ void finish_split(const float* red, int np, int gm,
     for (int w = 0; w < NT / 32; ++w) l += lred[gi * (NT / 32) + w];
     return l;
   };
+  float* ob = out + row0 * cl.ld;
   if (sp.nlive == 1) {
-    for (int idx = tid; idx < gn * d; idx += NT)
-      out[row0 * d + idx] = o_sum(idx) * (1.f / fmaxf(l_sum(idx / d), EPS));
+    for (int idx = tid; idx < gn * n; idx += NT)
+      ob[at(idx)] = o_sum(idx) * (1.f / fmaxf(l_sum(idx / n), EPS));
     return;
   }
   const size_t split = blockIdx.x;
-  float* wo = m.ws_o + (split * m.rows + row0) * d;
-  for (int idx = tid; idx < gn * d; idx += NT) wo[idx] = o_sum(idx);
-  if (tid < gn) m.ws_l[split * m.rows + row0 + tid] = l_sum(tid);
+  float* wo = m.ws_o + (split * m.rows + row0) * cl.ld;
+  for (int idx = tid; idx < gn * n; idx += NT) wo[at(idx)] = o_sum(idx);
+  if (tid < gn)
+    m.ws_l[(split * m.rows + row0 + tid) * m.ncb + cl.cb] = l_sum(tid);
   __threadfence();  // the partials are visible before the ticket is taken
   __syncthreads();
   int* ticket = m.tickets + size_t(blockIdx.z) * gridDim.y + blockIdx.y;
@@ -176,14 +209,15 @@ __device__ __forceinline__ void finish_split(const float* red, int np, int gm,
   if (!*flag) return;
   __threadfence();
   // the last block: every live split's partials, summed in split order
-  for (int idx = tid; idx < gn * d; idx += NT) {
-    const int gi = idx / d;
+  for (int idx = tid; idx < gn * n; idx += NT) {
+    const int gi = idx / n;
+    const size_t o_at = at(idx);
     float a = 0.f, l = 0.f;
     for (int s = 0; s < sp.nlive; ++s) {
-      a += __ldcg(m.ws_o + (size_t(s) * m.rows + row0) * d + idx);
-      l += __ldcg(m.ws_l + size_t(s) * m.rows + row0 + gi);
+      a += __ldcg(m.ws_o + (size_t(s) * m.rows + row0) * cl.ld + o_at);
+      l += __ldcg(m.ws_l + (size_t(s) * m.rows + row0 + gi) * m.ncb + cl.cb);
     }
-    out[row0 * d + idx] = a * (1.f / fmaxf(l, EPS));
+    ob[o_at] = a * (1.f / fmaxf(l, EPS));
   }
   if (tid == 0) *ticket = 0;  // ready for the next call on this stream
                               // (each stream has its own counters)
@@ -213,25 +247,34 @@ inline int heads_instance(int G) {
   return g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : GMAX;
 }
 
-// Calls launch(T{}, std::integral_constant<bool, WIDE>{},
+// The width classes of a decode kernel: the whole row in registers, one
+// word (or up to 2 V rows) a thread; two words (up to 8 V rows); past
+// DCOLS, column blocks (the `*_cols_kernel`s)
+enum Width { NARROW = 0, WIDE_ROW = 1, COLUMNS = 2 };
+
+// The column blocks of a row of d lanes (ops/blocks.py decode_col_blocks)
+inline int col_blocks(int d) { return d > DCOLS ? (d + DCOLS - 1) / DCOLS : 1; }
+
+// Calls launch(T{}, std::integral_constant<int, W>{},
 // std::integral_constant<int, GN>{}) for the storage type (fp8:
-// __nv_fp8_e4m3, else int8_t), the width class (WIDE: d past `narrow`)
-// and the heads a block serves (heads_instance(G));
-// cudaErrorInvalidValue unless d is a multiple of 8 up to DMAX.
+// __nv_fp8_e4m3, else int8_t), the width class W (WIDE_ROW: d past `narrow`,
+// COLUMNS: past DCOLS) and the heads a block serves (heads_instance(G));
+// cudaErrorInvalidValue unless d is a positive multiple of 8.
 template <typename F>
 cudaError_t dispatch(bool fp8, int d, int narrow, int G, F&& launch) {
-  if (d <= 0 || d > DMAX || d % 8 != 0 || G <= 0) return cudaErrorInvalidValue;
-  auto by_heads = [&](auto code, auto wide) -> cudaError_t {
+  if (d <= 0 || d % 8 != 0 || G <= 0) return cudaErrorInvalidValue;
+  auto by_heads = [&](auto code, auto width) -> cudaError_t {
     switch (heads_instance(G)) {
-      case 1: return launch(code, wide, std::integral_constant<int, 1>{});
-      case 2: return launch(code, wide, std::integral_constant<int, 2>{});
-      case 4: return launch(code, wide, std::integral_constant<int, 4>{});
-      default: return launch(code, wide, std::integral_constant<int, GMAX>{});
+      case 1: return launch(code, width, std::integral_constant<int, 1>{});
+      case 2: return launch(code, width, std::integral_constant<int, 2>{});
+      case 4: return launch(code, width, std::integral_constant<int, 4>{});
+      default: return launch(code, width, std::integral_constant<int, GMAX>{});
     }
   };
   auto by_width = [&](auto code) -> cudaError_t {
-    if (d <= narrow) return by_heads(code, std::false_type{});
-    return by_heads(code, std::true_type{});
+    if (d <= narrow) return by_heads(code, std::integral_constant<int, NARROW>{});
+    if (d <= DCOLS) return by_heads(code, std::integral_constant<int, WIDE_ROW>{});
+    return by_heads(code, std::integral_constant<int, COLUMNS>{});
   };
   return fp8 ? by_width(__nv_fp8_e4m3{}) : by_width(int8_t{});
 }

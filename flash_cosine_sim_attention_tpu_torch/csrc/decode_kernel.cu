@@ -36,6 +36,18 @@
 // summed by shuffles.  P.V: a thread owns 4 columns (one word of a V row)
 // and a share of the stage's tokens; its accumulators stay in registers
 // across stages, and the shares are summed once, at the end of the split.
+//
+// Past d 1024 (`decode_cols_kernel`, decode_common.cuh DCOLS) the output
+// columns are a grid axis of ceil(d / 1024) column blocks, and nothing a
+// block holds grows with d.  A stage is 32 tokens, 8 a warp (16 and 4
+// above 2 query heads a block, so that the scores, queries and P.V sums
+// stay in registers); the warp's lanes form their scores from 8-byte words
+// of the K rows and 16-byte words of the bf16 queries read straight from
+// global memory (each K row is read once a column block, the repeats from
+// L2), summed by shuffles.  Then each thread adds P.V for up to two
+// 4-column words of the block's columns, a V row's words read coalesced
+// across the block and a stage's words all in flight at once.  The column
+// blocks merge their splits apart, each with its own ticket counters.
 
 #include <initializer_list>
 
@@ -232,20 +244,173 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     }
   }
   reduce_lsum<GN>(lpart, gn, lred);
-  finish_split(red, L.np, GN, lred, gn, d, sp, bh * G + g0, out, m, flag);
+  finish_split(red, L.np, GN, lred, gn, Cols{d, d, 0, 0}, sp, bh * G + g0,
+               out, m, flag);
+}
+
+// d past DCOLS: grid (splits, head chunks, B * KVH * ncb), column block
+// blockIdx.z % ncb.  q must be 16-byte aligned (rows of 2d bytes).
+template <typename T, int GN>
+__global__ void __launch_bounds__(NT) decode_cols_kernel(
+    const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ k8,
+    const uint8_t* __restrict__ v8, const float* __restrict__ v_scale,
+    const int* __restrict__ length, float* __restrict__ out, Merge m,
+    int KVH, int G, int cap, int d, int tps, float logit_scale, float scale) {
+  constexpr bool kScaled = std::is_same<T, int8_t>::value;
+  // tokens a warp and a stage: 8 and 32 for up to 2 query heads, 4 and 16
+  // above (a thread's scores, queries and P.V sums stay within registers)
+  constexpr int CTW = GN > 2 ? 4 : 8, CTT = CTW * (NT / 32);
+  __shared__ float es[GN * CTT];        // a stage's weights
+  __shared__ float red[GN * DCOLS];     // the block's P.V sums
+  __shared__ float lred[GN * (NT / 32)];
+  __shared__ int flag;
+  const size_t bh = blockIdx.z / m.ncb;
+  const Split sp(length[bh / KVH], cap, tps);
+  if (!sp.live()) return;
+  const Cols cl = column_block(d, m.ncb, blockIdx.z % m.ncb);
+  const int g0 = blockIdx.y * GN, gn = min(GN, G - g0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const __nv_bfloat16* qb = q + (bh * G + g0) * d;
+  const uint8_t* kb = k8 + bh * cap * d;
+  const uint8_t* vb = v8 + bh * cap * d + cl.c0;
+  const float* vsb = v_scale + bh * cap;
+  const int dw8 = d / 8, ncw = cl.n / 4;  // K row words; the block's V words
+
+  float lpart[GN], acc[2][4][GN];
+#pragma unroll
+  for (int gi = 0; gi < GN; ++gi) {
+    lpart[gi] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[j][x][gi] = 0.f;
+  }
+
+  for (int s0 = sp.t0; s0 < sp.t1; s0 += CTT) {
+    const int n = min(CTT, sp.t1 - s0);  // live tokens of the stage
+    const int tb = warp * CTW;           // the warp's first token
+    // scores: lane l takes 8-byte words l, l + 32, .. of the warp's rows
+    float s[CTW][GN];
+#pragma unroll
+    for (int j = 0; j < CTW; ++j)
+#pragma unroll
+      for (int gi = 0; gi < GN; ++gi) s[j][gi] = 0.f;
+    // every load is unconditional (rows past the stage's live end read
+    // its last live row, heads past gn the chunk's last head, and their
+    // results go unused), so that a lane's loads are all in flight at once
+#pragma unroll 2
+    for (int w = lane; w < dw8; w += 32) {
+      float qf[GN][8];
+#pragma unroll
+      for (int gi = 0; gi < GN; ++gi) {
+        const uint4 u = __ldg(reinterpret_cast<const uint4*>(
+            qb + size_t(min(gi, gn - 1)) * d + 8 * w));
+        const uint32_t words[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&words[i]));
+          qf[gi][2 * i] = f.x;
+          qf[gi][2 * i + 1] = f.y;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < CTW; ++j) {
+        const uint2 u = __ldg(reinterpret_cast<const uint2*>(
+            kb + size_t(s0 + min(tb + j, n - 1)) * d + 8 * w));
+        float kf[8];
+        decode4<T>(u.x, *reinterpret_cast<float(*)[4]>(kf));
+        decode4<T>(u.y, *reinterpret_cast<float(*)[4]>(kf + 4));
+#pragma unroll
+        for (int gi = 0; gi < GN; ++gi) {
+          float a = s[j][gi];
+#pragma unroll
+          for (int i = 7; i >= 0; --i) a = fmaf(qf[gi][i], kf[i], a);
+          s[j][gi] = a;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < CTW; ++j)
+#pragma unroll
+      for (int gi = 0; gi < GN; ++gi)
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          s[j][gi] += __shfl_xor_sync(0xffffffffu, s[j][gi], off);
+    if (lane == 0) {
+#pragma unroll
+      for (int j = 0; j < CTW; ++j) {
+        const int t = tb + j;
+#pragma unroll
+        for (int gi = 0; gi < GN; ++gi) {
+          if (gi >= gn) continue;
+          float ev = 0.f;
+          if (t < n) {
+            const float e = token_weight(s[j][gi], logit_scale, scale);
+            lpart[gi] += e;
+            ev = bf16_round(kScaled ? e * vsb[s0 + t] : e);
+          }
+          es[gi * CTT + t] = ev;
+        }
+      }
+    }
+    __syncthreads();  // the stage's weights are in es
+
+    // P.V: words tid and tid + NT of the block's columns; the stage's V
+    // words are all loaded before any is used, so their loads overlap
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int w = tid + j * NT;
+      if (w >= ncw) continue;
+      uint32_t vw[CTT];
+#pragma unroll
+      for (int t = 0; t < CTT; ++t)
+        vw[t] = __ldg(reinterpret_cast<const uint32_t*>(
+            vb + size_t(s0 + min(t, n - 1)) * d + 4 * w));
+#pragma unroll
+      for (int t = 0; t < CTT; ++t) {
+        if (t >= n) break;
+        float vv[4];
+        decode4<T>(vw[t], vv);
+#pragma unroll
+        for (int gi = 0; gi < GN; ++gi) {
+          const float ev = gi < gn ? es[gi * CTT + t] : 0.f;
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            acc[j][x][gi] = fmaf(ev, vv[x], acc[j][x][gi]);
+        }
+      }
+    }
+    __syncthreads();  // the next stage may overwrite es
+  }
+
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int w = tid + j * NT;
+    if (w >= ncw) continue;
+#pragma unroll
+    for (int gi = 0; gi < GN; ++gi) {
+      if (gi >= gn) continue;
+#pragma unroll
+      for (int x = 0; x < 4; ++x) red[gi * cl.n + 4 * w + x] = acc[j][x][gi];
+    }
+  }
+  reduce_lsum<GN>(lpart, gn, lred);
+  finish_split(red, 1, GN, lred, gn, cl, sp, bh * G + g0, out, m, &flag);
 }
 
 }  // namespace
 
 // Contiguous tensors: q (B, KVH, G, d) bf16, already l2-normalized, any
-// group G; k8/v8 (B, KVH, cap, d) int8 (fp8 = 0) or e4m3 (fp8 = 1), 8-byte
-// aligned, d a multiple of 8 up to 1024; v_scale (B, KVH, cap) f32, read
-// for int8 only; length (B,) int32 on the device; out (B, KVH, G, d) f32.
-// The split-K workspace: ws_o (nsplit, B, KVH, G, d) and ws_l (nsplit, B,
-// KVH, G) f32, tickets (B * KVH * ceil(G / 8)) int32, zero between calls;
-// tps tokens a split (a multiple of 128), nsplit * tps covering cap.
-// logit_scale is scale * kdq (1/127 for int8, 1 for e4m3).  Returns the
-// cudaGetLastError() after the launch.
+// group G, 16-byte aligned past d 1024; k8/v8 (B, KVH, cap, d) int8 (fp8 =
+// 0) or e4m3 (fp8 = 1), 8-byte aligned, d any multiple of 8; v_scale (B,
+// KVH, cap) f32, read for int8 only; length (B,) int32 on the device; out
+// (B, KVH, G, d) f32.  The split-K workspace: ws_o (nsplit, B, KVH, G, d)
+// and ws_l (nsplit, B, KVH, G, ncb) f32, tickets (B * KVH * ceil(G / 8) *
+// ncb) int32, zero between calls, where ncb = ceil(d / 1024) past d 1024
+// and 1 up to it; tps tokens a split (a multiple of 128), nsplit * tps
+// covering cap.  logit_scale is scale * kdq (1/127 for int8, 1 for e4m3).
+// Returns the cudaGetLastError() after the launch.
 extern "C" int fcsa_decode(const void* q, const void* k8, const void* v8,
                            const void* v_scale, const void* length, void* out,
                            void* ws_o, void* ws_l, void* tickets, int B,
@@ -258,23 +423,35 @@ extern "C" int fcsa_decode(const void* q, const void* k8, const void* v8,
     return int(cudaErrorInvalidValue);
   for (const void* p : {k8, v8})
     if (reinterpret_cast<uintptr_t>(p) % 8 != 0) return int(cudaErrorMisalignedAddress);
+  if (d > DCOLS && reinterpret_cast<uintptr_t>(q) % 16 != 0)
+    return int(cudaErrorMisalignedAddress);
   auto s = static_cast<cudaStream_t>(stream);
-  const int gm = heads_instance(G);
-  const dim3 grid(nsplit, (G + gm - 1) / gm, B * KVH);
+  const int gm = heads_instance(G), ncb = col_blocks(d);
+  const dim3 grid(nsplit, (G + gm - 1) / gm, B * KVH * ncb);
   const Merge m{static_cast<float*>(ws_o), static_cast<float*>(ws_l),
-                static_cast<int*>(tickets), size_t(B) * KVH * G};
-  return int(dispatch(fp8, d, 512, G, [&](auto code, auto wide, auto heads) {
+                static_cast<int*>(tickets), size_t(B) * KVH * G, ncb};
+  return int(dispatch(fp8, d, 512, G, [&](auto code, auto width, auto heads) {
+    using T = decltype(code);
+    constexpr int W = decltype(width)::value;
     constexpr int GN = decltype(heads)::value;
-    auto kernel = decode_kernel<decltype(code), decltype(wide)::value, GN>;
-    const size_t smem = Layout(d, GN).bytes;
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, NT, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(k8),
-        static_cast<const uint8_t*>(v8), static_cast<const float*>(v_scale),
-        static_cast<const int*>(length), static_cast<float*>(out), m, KVH, G,
-        cap, d, tps, logit_scale, scale);
+    const auto qp = static_cast<const __nv_bfloat16*>(q);
+    const auto kp = static_cast<const uint8_t*>(k8);
+    const auto vp = static_cast<const uint8_t*>(v8);
+    const auto sp = static_cast<const float*>(v_scale);
+    const auto lp = static_cast<const int*>(length);
+    const auto op = static_cast<float*>(out);
+    if constexpr (W == COLUMNS) {
+      decode_cols_kernel<T, GN><<<grid, NT, 0, s>>>(
+          qp, kp, vp, sp, lp, op, m, KVH, G, cap, d, tps, logit_scale, scale);
+    } else {
+      auto kernel = decode_kernel<T, W == WIDE_ROW, GN>;
+      const size_t smem = Layout(d, GN).bytes;
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, NT, smem, s>>>(qp, kp, vp, sp, lp, op, m, KVH, G, cap, d,
+                                    tps, logit_scale, scale);
+    }
     return cudaGetLastError();
   }));
 }

@@ -45,16 +45,28 @@
 // at d 256 the f32 Q, K, V and P tiles take 213,760 bytes of the 232,448 a
 // block may have.
 //
-// Past d 256 (the wide route, `fwd_wide_kernel`, every dtype code) a
-// warp's O accumulators no longer fit, so the output columns become a
-// grid axis: the wrapper pads d to a multiple of 128 (ops/blocks.py
-// WIDE_CHUNK), and each block owns 64 query rows and 128 of O's columns.
-// S = Q.K^T is summed over 64-lane d chunks of Q and K staged in f32 in
-// shared memory, e and l are formed as above, and the block adds P.V for
-// its columns only; so every column block forms the same S and l again
-// (4 times at d 512), and column block 0 alone writes inv_l.  FMA code
-// throughout, P kept in f32: no model runs such heads, and the route owes
-// correctness, not speed.
+// Past d 256 (the wide route) a warp's O accumulators no longer fit, so
+// the output columns become a grid axis: the wrapper pads d to a multiple
+// of 128 (ops/blocks.py WIDE_CHUNK).  Bound: at the heads-512 training
+// shape (b4 h1 s1024 d512 causal bf16) the work is ~4.3 GFLOP over ~12.6
+// MB, operations-bound on paper (~5 us); what bounds this design is the
+// tensor cores' issue rate with 4 warps an SM and the S it forms again.
+// bf16 (code 1) and int8 q/k with bf16 v (code 3) run on the tensor cores
+// (`fwd_wide_mma_kernel`): a block owns 64 query rows and 256 of O's
+// columns (a warp's 16 rows x 256 f32 are 128 registers a thread, the d
+// 256 instance's budget; at d 384 or 1152 the last block owns a 128-column
+// remainder), so S is formed ceil(d / 256) times, twice at d 512, which
+// keeps 128 blocks in flight on 132 SMs at that shape (one 8-warp block
+// forming S once per 64 rows would leave half the card idle).  Q and K
+// stream in 256-byte row chunks (128 bf16 or 256 int8 lanes; an int8 row
+// may end in a 128-byte chunk) through a 3-stage cp.async ring, S summed
+// over the chunks by mma.sync in f32 (bf16) or exact int32 (int8); a key
+// tile's V columns (64 x 256 bf16) arrive with its first chunk into a
+// double buffer.  e, l, the masks and P's bf16 rounding are those of
+// fwd_mma_kernel; column block 0 alone writes inv_l.  Shared memory is
+// 168 KB at every d.  float32 (code 0) and int8 with float32 v (code 2)
+// keep the FMA kernel `fwd_wide_kernel`: 128-column blocks, S summed over
+// 64-lane d chunks staged in f32, P kept in f32 (their bar is 1e-4).
 //
 // Masking: causal keeps key col <= row + (seq_k - seq_q) (cross-attention
 // alignment) and the loop stops at the last tile a row of the block can
@@ -508,7 +520,8 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
 
 
 // ---------------------------------------------------------------------------
-// Wide route (d a multiple of WCOL past 256), FMA for every dtype code.
+// Wide route's FMA kernel (d a multiple of WCOL past 256): float32 q/k/v,
+// and int8 q/k codes with float32 v.
 // Grid (query tiles, H, B x column blocks); threads are 16 row groups of 4
 // rows x 8 column lanes, as in fwd_kernel.
 
@@ -522,10 +535,7 @@ constexpr size_t wide_smem() {
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f32(int8_t x) { return float(x); }
-__device__ __forceinline__ void store_val(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_val(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // rows [row0, row0 + rows) x columns [c0, c0 + cols) of a (*, d) tensor as
 // f32 into shared rows `stride` floats apart; rows past `end` as 0
@@ -540,11 +550,11 @@ __device__ __forceinline__ void load_chunk(float* dst, const T* src, int row0,
   }
 }
 
-template <typename TQ, typename TV>
+template <typename TQ>
 __global__ void __launch_bounds__(NT) fwd_wide_kernel(
-    const TQ* __restrict__ q, const TQ* __restrict__ k, const TV* __restrict__ v,
+    const TQ* __restrict__ q, const TQ* __restrict__ k, const float* __restrict__ v,
     const uint8_t* __restrict__ mask, const float* __restrict__ bias,
-    TV* __restrict__ o, float* __restrict__ inv_l, int H, int KVH, int seq_q,
+    float* __restrict__ o, float* __restrict__ inv_l, int H, int KVH, int seq_q,
     int seq_k, int d, int causal, int bias_batch_dim, float c) {
   constexpr int KS = WKC + 1, PP = BK + 1;
   constexpr int DC = WCOL / 8;  // output columns per thread
@@ -564,7 +574,7 @@ __global__ void __launch_bounds__(NT) fwd_wide_kernel(
 
   const TQ* qb = q + (size_t(bi) * H + hi) * seq_q * d;
   const TQ* kb = k + (size_t(bi) * KVH + kvhi) * seq_k * d;
-  const TV* vb = v + (size_t(bi) * KVH + kvhi) * seq_k * d;
+  const float* vb = v + (size_t(bi) * KVH + kvhi) * seq_k * d;
   const uint8_t* mb = mask ? mask + size_t(bi) * seq_k : nullptr;
   const float* bb =
       bias ? bias + size_t(bias_batch_dim ? bi : hi) * seq_q * seq_k : nullptr;
@@ -649,7 +659,7 @@ __global__ void __launch_bounds__(NT) fwd_wide_kernel(
     for (int off = 4; off > 0; off >>= 1)
       lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], off);
   }
-  TV* ob = o + (size_t(bi) * H + hi) * seq_q * d + c0;
+  float* ob = o + (size_t(bi) * H + hi) * seq_q * d + c0;
   float* lb = inv_l + (size_t(bi) * H + hi) * seq_q;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -658,8 +668,264 @@ __global__ void __launch_bounds__(NT) fwd_wide_kernel(
     const float inv = 1.f / fmaxf(lsum[r], EPS);
 #pragma unroll
     for (int cc = 0; cc < DC; ++cc)
-      store_val(ob + size_t(row) * d + tx + 8 * cc, acc[r][cc] * inv);
+      ob[size_t(row) * d + tx + 8 * cc] = acc[r][cc] * inv;
     if (tx == 0 && cb == 0) lb[row] = inv;  // every column block has this l
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Wide route on the tensor cores: bf16 q/k/v, or int8 q/k codes with bf16
+// v, d a multiple of WCOL past 256.  Grid (query tiles, H, B x column
+// blocks of MCOL), query tiles heaviest first; NT threads, warp w owning
+// query rows q0 + 16w ..
+
+constexpr int MCOL = 256;          // O columns of a block: a warp's 16 rows x
+                                   // 256 f32 are 128 registers a thread
+constexpr int MCB = 256;           // bytes of a Q / K row chunk
+constexpr int MCS = MCB + 16;      // its shared row stride (17 16-byte units)
+constexpr int MVS = 2 * MCOL + 16; // V tile row stride (33 units)
+constexpr int MSTAGES = 3;         // Q and K chunk stages in flight
+constexpr size_t MCHUNK = size_t(BQ + BK) * MCS;   // one stage
+constexpr size_t MVT = size_t(BK) * MVS;           // one V tile
+constexpr size_t WIDE_MMA_SMEM = MSTAGES * MCHUNK + 2 * MVT;
+
+template <typename TQ>
+__global__ void __launch_bounds__(NT, 1) fwd_wide_mma_kernel(
+    const TQ* __restrict__ q, const TQ* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
+    const float* __restrict__ bias, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ inv_l, int H, int KVH, int seq_q, int seq_k, int d,
+    int causal, int bias_batch_dim, float c) {
+  constexpr bool Q8 = is_int8<TQ>();
+  constexpr int NS = BK / 8;       // n8 tiles of S
+  constexpr int NO = MCOL / 8;     // n8 tiles of O
+  constexpr int CPR = MCB / 16;    // 16-byte copies of a chunk row
+  constexpr int VPR = 2 * MCOL / 16;  // ... and of a V tile row
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* vs = smem + MSTAGES * MCHUNK;  // 2 V tiles
+
+  const int ncb = (d + MCOL - 1) / MCOL;
+  const int bi = blockIdx.z / ncb, c0 = (blockIdx.z % ncb) * MCOL;
+  const int ncols = min(MCOL, d - c0);   // 256, or 128 (d an odd multiple)
+  const int hi = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
+  const int kvhi = hi / (H / KVH);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int diff = seq_k - seq_q;
+  const int QB = d * int(sizeof(TQ));    // bytes of a q / k row
+  const int nch = (QB + MCB - 1) / MCB;  // chunks of it (the last may be
+                                         // 128 bytes: int8 codes)
+
+  const unsigned char* qb = reinterpret_cast<const unsigned char*>(
+      q + (size_t(bi) * H + hi) * seq_q * d);
+  const unsigned char* kb = reinterpret_cast<const unsigned char*>(
+      k + (size_t(bi) * KVH + kvhi) * seq_k * d);
+  const unsigned char* vb = reinterpret_cast<const unsigned char*>(
+      v + (size_t(bi) * KVH + kvhi) * seq_k * d + c0);
+  const uint8_t* mb = mask ? mask + size_t(bi) * seq_k : nullptr;
+  const float* bb =
+      bias ? bias + size_t(bias_batch_dim ? bi : hi) * seq_q * seq_k : nullptr;
+
+  // keys this block can see: all, or (causal) up to its last row's diagonal
+  const int last_row = min(q0 + BQ, seq_q) - 1;
+  const int kend = causal ? max(0, min(seq_k, last_row + diff + 1)) : seq_k;
+  const int nk = (kend + BK - 1) / BK;
+  const int steps = nk * nch;  // (key tile, chunk) pairs, chunks fastest
+
+  // the copies a thread issues: 16 bytes at byte cq of chunk rows rq +
+  // 8i (i < 8), and at byte cv of V rows rv + 4i (i < 16); each from one
+  // base pointer a call, advanced by a fixed stride, so that no per-row
+  // address stays live in registers across the steps
+  const int rq = tid / CPR, cq = (tid % CPR) * 16;
+  const int rv = tid / VPR, cv = (tid % VPR) * 16;
+  const bool v_in = cv < 2 * ncols;  // else zeros (a 128-column remainder
+                                     // block's P.V stops before them)
+  // 64 rows from global row `first` (rows past `limit` as zeros) of a
+  // chunk at byte `off` into shared rows MCS apart; the bytes past QB (an
+  // int8 row's last, 128-byte chunk) are not copied, nor read
+  auto load_chunk = [&](unsigned char* dst, const unsigned char* src,
+                        int first, int limit, int off) {
+    if (off + cq >= QB) return;
+    const unsigned char* from = src + size_t(first + rq) * QB + off + cq;
+    unsigned char* to = dst + rq * MCS + cq;
+    const size_t step = size_t(NT / CPR) * QB;
+#pragma unroll
+    for (int i = 0; i < BQ * CPR / NT; ++i) {
+      const bool in = first + rq + i * (NT / CPR) < limit;
+      cp_async16(to, in ? from : src, in ? 16 : 0);
+      from += step;
+      to += (NT / CPR) * MCS;
+    }
+  };
+  // step st's Q and K chunks into stage st % MSTAGES; a key tile's first
+  // step also brings its V columns
+  auto issue = [&](int st) {
+    if (st < steps) {
+      const int kt = st / nch, ch = st - kt * nch;
+      unsigned char* qs = smem + (st % MSTAGES) * MCHUNK;
+      load_chunk(qs, qb, q0, seq_q, ch * MCB);
+      load_chunk(qs + BQ * MCS, kb, kt * BK, seq_k, ch * MCB);
+      if (ch == 0) {
+        const int first = kt * BK + rv;
+        const unsigned char* from = vb + size_t(first) * 2 * d + cv;
+        unsigned char* to = vs + (kt & 1) * MVT + rv * MVS + cv;
+        const size_t step = size_t(NT / VPR) * 2 * d;
+#pragma unroll
+        for (int i = 0; i < BK * VPR / NT; ++i) {
+          const bool in = v_in && first + i * (NT / VPR) < seq_k;
+          cp_async16(to, in ? from : vb, in ? 16 : 0);
+          from += step;
+          to += (NT / VPR) * MVS;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  float oacc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  float lsum[2] = {0.f, 0.f};
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  float s[NS][4];
+  int si[Q8 ? NS : 1][4];
+
+#pragma unroll
+  for (int st = 0; st < MSTAGES - 1; ++st) issue(st);
+  for (int st = 0; st < steps; ++st) {
+    issue(st + MSTAGES - 1);
+    cp_async_wait<MSTAGES - 1>();
+    __syncthreads();  // step st's chunks (and its tile's V) have landed
+    const int kt = st / nch, ch = st - kt * nch, k0 = kt * BK;
+    // 32-byte k steps of the chunk: all 8 but in an int8 row's 128-byte
+    // last chunk
+    const int ksteps = Q8 ? min(MCB, QB - ch * MCB) / 32 : MCB / 32;
+    const unsigned char* qs = smem + (st % MSTAGES) * MCHUNK;
+    const unsigned char* ks = qs + BQ * MCS;
+    if (ch == 0) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (Q8) si[n][e] = 0;
+          else s[n][e] = 0.f;
+        }
+    }
+
+    // S += Q.K^T over the chunk: an x4 ldmatrix of K gives the B fragments
+    // of 2 n8 tiles
+    const unsigned char* qrow = qs + (warp * 16 + (lane & 15)) * MCS + (lane >> 4) * 16;
+#pragma unroll
+    for (int kk = 0; kk < MCB / 32; ++kk) {
+      if (kk >= ksteps) break;
+      uint32_t a[4];
+      ldmatrix_x4(a, qrow + kk * 32);
+#pragma unroll
+      for (int j = 0; j < NS / 2; ++j) {
+        uint32_t b[4];
+        ldmatrix_x4(b, ks + (j * 16 + (lane & 7) + (lane >> 4) * 8) * MCS +
+                           kk * 32 + ((lane >> 3) & 1) * 16);
+        if constexpr (Q8) {
+          mma_s8(si[2 * j], a, b[0], b[1]);
+          mma_s8(si[2 * j + 1], a, b[2], b[3]);
+        } else {
+          mma_bf16(s[2 * j], a, b[0], b[1]);
+          mma_bf16(s[2 * j + 1], a, b[2], b[3]);
+        }
+      }
+    }
+
+    if (ch == nch - 1) {
+      if constexpr (Q8) {
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = float(si[n][e]);
+      }
+      // e = exp2(s * c + bias * log2e), masked to 0, in the C layout, as
+      // fwd_mma_kernel: whole tiles skip the masks
+      const bool whole = mb == nullptr && bb == nullptr && k0 + BK <= seq_k &&
+                         (!causal || k0 + BK - 1 <= q0 + diff);
+      if (whole) {
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[n][e] = exp2f(s[n][e] * c);
+            lsum[e >> 1] += s[n][e];
+          }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              const int row = rows[h], col = k0 + n * 8 + 2 * tq + x;
+              bool keep = row < seq_q && col < seq_k;
+              if (causal) keep = keep && col <= row + diff;
+              if (mb != nullptr) keep = keep && mb[col] != 0;
+              float lg = s[n][2 * h + x] * c;
+              if (bb != nullptr && keep) lg += bb[size_t(row) * seq_k + col] * LOG2E;
+              const float e = keep ? exp2f(lg) : 0.f;
+              lsum[h] += e;
+              s[n][2 * h + x] = e;
+            }
+      }
+      // O[:, cols] += P.V[:, cols]: S's C fragments of n8 tiles 2j, 2j + 1
+      // are P's A fragment (rounded to bf16) of k16 step j, packed before
+      // the products.  The loop stops at the block's columns: that bound
+      // (a branch each 16 columns) keeps ptxas from hoisting the V loads
+      // of the whole tile, which spilled at 255 registers
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j) {
+        pa[j][0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
+        pa[j][1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
+        pa[j][2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
+        pa[j][3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+      }
+      const unsigned char* vt = vs + (kt & 1) * MVT;
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j) {
+#pragma unroll
+        for (int dn = 0; dn < MCOL / 16; ++dn) {
+          if (dn * 16 >= ncols) break;
+          uint32_t b[4];
+          ldmatrix_x4_trans(
+              b, vt + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * MVS +
+                     (dn * 16 + (lane >> 4) * 8) * 2);
+          mma_bf16(oacc[2 * dn], pa[j], b[0], b[1]);
+          mma_bf16(oacc[2 * dn + 1], pa[j], b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // the next steps' loads may overwrite these buffers
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 1);
+    lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 2);
+  }
+  __nv_bfloat16* ob = o + (size_t(bi) * H + hi) * seq_q * d + c0;
+  float* lb = inv_l + (size_t(bi) * H + hi) * seq_q;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = rows[h];
+    if (row >= seq_q) continue;
+    const float inv = 1.f / fmaxf(lsum[h], EPS);
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      if (n * 8 >= ncols) break;
+      *reinterpret_cast<uint32_t*>(ob + size_t(row) * d + n * 8 + 2 * tq) =
+          pack_bf16(oacc[n][2 * h] * inv, oacc[n][2 * h + 1] * inv);
+    }
+    if (tq == 0 && c0 == 0) lb[row] = inv;  // every column block has this l
   }
 }
 
@@ -716,18 +982,36 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
   else return launch_fma<TQ, D>(a, s);
 }
 
-template <typename TQ, typename TV>
+template <typename TQ>
+cudaError_t launch_wide_mma(int d, const Args& a, cudaStream_t stream) {
+  if (d % WCOL != 0) return cudaErrorInvalidValue;
+  for (const void* p : {a.q, a.k, a.v})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_wide_mma_kernel<TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(WIDE_MMA_SMEM));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.seq_q + BQ - 1) / BQ, a.H, a.B * ((d + MCOL - 1) / MCOL));
+  fwd_wide_mma_kernel<TQ><<<grid, NT, WIDE_MMA_SMEM, stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TQ*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), a.mask, a.bias,
+      static_cast<__nv_bfloat16*>(a.o), a.inv_l, a.H, a.KVH, a.seq_q,
+      a.seq_k, d, a.causal, a.bias_batch_dim, a.c);
+  return cudaGetLastError();
+}
+
+template <typename TQ>
 cudaError_t launch_wide(int d, const Args& a, cudaStream_t stream) {
   if (d % WCOL != 0) return cudaErrorInvalidValue;
   constexpr size_t smem = wide_smem();
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_wide_kernel<TQ, TV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_wide_kernel<TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.seq_q + BQ - 1) / BQ, a.H, a.B * (d / WCOL));
-  fwd_wide_kernel<TQ, TV><<<grid, NT, smem, stream>>>(
+  fwd_wide_kernel<TQ><<<grid, NT, smem, stream>>>(
       static_cast<const TQ*>(a.q), static_cast<const TQ*>(a.k),
-      static_cast<const TV*>(a.v), a.mask, a.bias, static_cast<TV*>(a.o),
+      static_cast<const float*>(a.v), a.mask, a.bias, static_cast<float*>(a.o),
       a.inv_l, a.H, a.KVH, a.seq_q, a.seq_k, d, a.causal, a.bias_batch_dim,
       a.c);
   return cudaGetLastError();
@@ -751,8 +1035,8 @@ cudaError_t dispatch_d(int d, const Args& a, cudaStream_t s) {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); 2 = int8 q/k
 // codes with float32 v and o; 3 = int8 q/k codes with bfloat16 v and o.
-// 1 and 3 run on the tensor cores, 0 and 2 on the FMA kernel; d past 256
-// (a multiple of 128) takes the wide FMA route for every code.
+// 1 and 3 run on the tensor cores, 0 and 2 on the FMA kernel, at every
+// width; d past 256 (a multiple of 128) takes the wide route.
 // All tensors contiguous: q/o (B, H, seq_q, d), k/v (B, KVH, seq_k, d),
 // mask (B, seq_k) uint8 or null, bias (B|H, seq_q, seq_k) f32 or null,
 // inv_l (B, H, seq_q) f32.  The logits are scale * s_dequant * q.k (int8
@@ -776,10 +1060,10 @@ extern "C" int fcsa_fwd(const void* q, const void* k, const void* v,
   cudaError_t err;
   if (d > 256) {  // the wide route: d a multiple of WCOL
     switch (dtype) {
-      case 0: return int(launch_wide<float, float>(d, a, s));
-      case 1: return int(launch_wide<__nv_bfloat16, __nv_bfloat16>(d, a, s));
-      case 2: return int(launch_wide<int8_t, float>(d, a, s));
-      case 3: return int(launch_wide<int8_t, __nv_bfloat16>(d, a, s));
+      case 0: return int(launch_wide<float>(d, a, s));
+      case 1: return int(launch_wide_mma<__nv_bfloat16>(d, a, s));
+      case 2: return int(launch_wide<int8_t>(d, a, s));
+      case 3: return int(launch_wide_mma<int8_t>(d, a, s));
       default: return int(cudaErrorInvalidValue);
     }
   }

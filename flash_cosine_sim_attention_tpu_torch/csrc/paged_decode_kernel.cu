@@ -39,6 +39,16 @@
 // time, weighing 4 tokens at once; 8 lanes on 8 rows hit
 // 8 distinct 16-byte bank groups (the row stride is an odd number of 16-
 // byte units for TT >= 32).
+//
+// Past d 1024 (`paged_decode_cols_kernel`, decode_common.cuh DCOLS) the
+// output columns are a grid axis of ceil(d / 1024) column blocks, and
+// nothing a block holds grows with d: a stage is one 128-token tile, whose
+// K rows the warps read straight from global memory (a warp one row of
+// 128 contiguous bytes at a time, each lane 4 tokens; the query lane a
+// broadcast), summed across the 4 warps through shared memory; then each
+// thread adds P.V for up to 8 V rows of the block's columns, 16 tokens a
+// load.  The column blocks merge their splits apart, each with its own
+// ticket counters.
 
 #include "decode_common.cuh"
 
@@ -79,7 +89,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     const int* __restrict__ page_table, const int* __restrict__ length,
     float* __restrict__ out, Merge m, int KVH, int G, int d, int num_pages,
     int ps, int mp, int tps, float logit_scale, float scale) {
-  constexpr int NR = WIDE ? DMAX / NT : 256 / NT;  // V rows a thread
+  constexpr int NR = WIDE ? DCOLS / NT : 256 / NT;  // V rows a thread
   constexpr int NRH = NR < 4 ? NR : GN > 4 ? 2 : 4;  // of them at a time
   constexpr bool kScaled = std::is_same<T, int8_t>::value;
   const size_t bh = blockIdx.z;
@@ -268,19 +278,165 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     }
   }
   reduce_lsum<GN>(lpart, gn, lred);
-  finish_split(red, L.np, GN, lred, gn, d, sp, bh * G + g0, out, m, flag);
+  finish_split(red, L.np, GN, lred, gn, Cols{d, d, 0, 0}, sp, bh * G + g0,
+               out, m, flag);
+}
+
+// d past DCOLS: grid (splits, head chunks, B * KVH * ncb), column block
+// blockIdx.z % ncb; stages of NT tokens, one tile of a page.
+template <typename T, int GN>
+__global__ void __launch_bounds__(NT) paged_decode_cols_kernel(
+    const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ k8,
+    const uint8_t* __restrict__ v8, const float* __restrict__ v_scale,
+    const int* __restrict__ page_table, const int* __restrict__ length,
+    float* __restrict__ out, Merge m, int KVH, int G, int d, int num_pages,
+    int ps, int mp, int tps, float logit_scale, float scale) {
+  constexpr int NR = DCOLS / NT;        // V rows a thread
+  constexpr int NRH = GN > 4 ? 2 : 4;   // of them at a time
+  constexpr bool kScaled = std::is_same<T, int8_t>::value;
+  static_assert(NT * (NT / 32) <= DCOLS, "score partials fit red's room");
+  __shared__ __align__(16) float es[GN * NT];      // a stage's weights
+  __shared__ __align__(16) float red[GN * DCOLS];  // score partials, then
+                                                   // the P.V sums
+  __shared__ float lred[GN * (NT / 32)];
+  __shared__ int flag;
+  const size_t bh = blockIdx.z / m.ncb;
+  const int bi = bh / KVH, kvhi = bh % KVH;
+  const Split sp(length[bi], mp * ps, tps);
+  if (!sp.live()) return;
+  const Cols cl = column_block(d, m.ncb, blockIdx.z % m.ncb);
+  const int g0 = blockIdx.y * GN, gn = min(GN, G - g0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const __nv_bfloat16* qb = q + (bh * G + g0) * d;
+  const int* row = page_table + size_t(bi) * mp;
+  float* spart = red;                    // (NT / 32) x GN x NT
+
+  float lpart[GN], acc[NR][GN];
+#pragma unroll
+  for (int gi = 0; gi < GN; ++gi) {
+    lpart[gi] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NR; ++j) acc[j][gi] = 0.f;
+  }
+
+  for (int s0 = sp.t0; s0 < sp.t1; s0 += NT) {
+    const int n = min(NT, sp.t1 - s0);  // live tokens of the stage
+    int pid = row[s0 / ps];
+    if (pid < 0 || pid >= num_pages) pid = 0;
+    const size_t page = (size_t(pid) * KVH + kvhi) * d;  // row 0 of (pid, h)
+    const int off = s0 % ps;
+    // scores: warp w takes rows w, w + 4, ..; lane l tokens 4l .. 4l + 3
+    float s[4][GN];
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int gi = 0; gi < GN; ++gi) s[x][gi] = 0.f;
+#pragma unroll 4
+    for (int c = warp; c < d; c += NT / 32) {
+      float kf[4];
+      decode4<T>(__ldg(reinterpret_cast<const uint32_t*>(
+                     k8 + (page + c) * ps + off + 4 * lane)),
+                 kf);
+#pragma unroll
+      for (int gi = 0; gi < GN; ++gi) {
+        if (gi >= gn) continue;
+        const float qv = __bfloat162float(qb[size_t(gi) * d + c]);
+#pragma unroll
+        for (int x = 0; x < 4; ++x) s[x][gi] = fmaf(qv, kf[x], s[x][gi]);
+      }
+    }
+#pragma unroll
+    for (int gi = 0; gi < GN; ++gi) {
+      if (gi >= gn) continue;
+      *reinterpret_cast<float4*>(spart + (warp * GN + gi) * NT + 4 * lane) =
+          make_float4(s[0][gi], s[1][gi], s[2][gi], s[3][gi]);
+    }
+    __syncthreads();
+    const float* vsc = v_scale + (size_t(pid) * KVH + kvhi) * ps + off;
+#pragma unroll
+    for (int gi = 0; gi < GN; ++gi) {
+      if (gi >= gn) continue;
+      float sc = 0.f;
+#pragma unroll
+      for (int wp = 0; wp < NT / 32; ++wp) sc += spart[(wp * GN + gi) * NT + tid];
+      float ev = 0.f;
+      if (tid < n) {
+        const float e = token_weight(sc, logit_scale, scale);
+        lpart[gi] += e;
+        ev = bf16_round(kScaled ? e * vsc[tid] : e);
+      }
+      es[gi * NT + tid] = ev;
+    }
+    __syncthreads();  // the weights are in es, spart's readers are done
+
+    // P.V: rows tid + NT j of the block's columns, 16 tokens a load, 4 of
+    // them against their weights at once (tokens past n weigh 0)
+    const int nch = (n + 15) / 16;
+#pragma unroll
+    for (int j0 = 0; j0 < NR; j0 += NRH) {
+      for (int ch = 0; ch < nch; ++ch) {
+        uint4 u[NRH];
+#pragma unroll
+        for (int jr = 0; jr < NRH; ++jr) {
+          const int c = tid + (j0 + jr) * NT;
+          u[jr] = c < cl.n ? __ldg(reinterpret_cast<const uint4*>(
+                                 v8 + (page + cl.c0 + c) * ps + off + 16 * ch))
+                           : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int q4 = 0; q4 < 4; ++q4) {
+          if (16 * ch + 4 * q4 >= n) break;
+          float ev[4][GN];
+#pragma unroll
+          for (int gi = 0; gi < GN; ++gi) {
+            const float4 e4 = gi < gn ? *reinterpret_cast<const float4*>(
+                                            es + gi * NT + 16 * ch + 4 * q4)
+                                      : make_float4(0.f, 0.f, 0.f, 0.f);
+            ev[0][gi] = e4.x;
+            ev[1][gi] = e4.y;
+            ev[2][gi] = e4.z;
+            ev[3][gi] = e4.w;
+          }
+#pragma unroll
+          for (int jr = 0; jr < NRH; ++jr) {
+            const uint32_t word = q4 == 0 ? u[jr].x : q4 == 1 ? u[jr].y
+                                : q4 == 2 ? u[jr].z : u[jr].w;
+            float vv[4];
+            decode4<T>(word, vv);
+#pragma unroll
+            for (int x = 0; x < 4; ++x)
+#pragma unroll
+              for (int gi = 0; gi < GN; ++gi)
+                acc[j0 + jr][gi] = fmaf(ev[x][gi], vv[x], acc[j0 + jr][gi]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next stage may overwrite es and spart
+  }
+
+#pragma unroll
+  for (int jr = 0; jr < NR; ++jr) {
+    const int c = tid + jr * NT;
+    if (c >= cl.n) continue;
+#pragma unroll
+    for (int gi = 0; gi < GN; ++gi)
+      if (gi < gn) red[gi * cl.n + c] = acc[jr][gi];
+  }
+  reduce_lsum<GN>(lpart, gn, lred);
+  finish_split(red, 1, GN, lred, gn, cl, sp, bh * G + g0, out, m, &flag);
 }
 
 }  // namespace
 
 // Contiguous tensors on one device: q (B, KVH, G, d) bf16, already
-// l2-normalized, any group G, d a multiple of 8 up to 1024; k8/v8
-// (num_pages, KVH, d, ps) int8 (fp8 = 0) or e4m3 (fp8 = 1), 16-byte
-// aligned; v_scale (num_pages, KVH, 1, ps) f32, read for int8 only;
-// page_table (B, mp) int32; length (B,) int32; out (B, KVH, G, d) f32.  ps
-// is a multiple of 128.  The split-K workspace as for fcsa_decode, over the
-// table's mp * ps tokens.  logit_scale is scale * kdq (1/127 for int8, 1
-// for e4m3).  Returns the cudaGetLastError() after the launch.
+// l2-normalized, any group G, d any multiple of 8; k8/v8 (num_pages, KVH,
+// d, ps) int8 (fp8 = 0) or e4m3 (fp8 = 1), 16-byte aligned; v_scale
+// (num_pages, KVH, 1, ps) f32, read for int8 only; page_table (B, mp)
+// int32; length (B,) int32; out (B, KVH, G, d) f32.  ps is a multiple of
+// 128.  The split-K workspace as for fcsa_decode, over the table's mp * ps
+// tokens.  logit_scale is scale * kdq (1/127 for int8, 1 for e4m3).
+// Returns the cudaGetLastError() after the launch.
 extern "C" int fcsa_paged_decode(const void* q, const void* k8, const void* v8,
                                  const void* v_scale, const void* page_table,
                                  const void* length, void* out, void* ws_o,
@@ -295,24 +451,35 @@ extern "C" int fcsa_paged_decode(const void* q, const void* k8, const void* v8,
       size_t(nsplit) * tps < cap || size_t(nsplit - 1) * tps >= cap)
     return int(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  const int gm = heads_instance(G);
-  const dim3 grid(nsplit, (G + gm - 1) / gm, B * KVH);
+  const int gm = heads_instance(G), ncb = col_blocks(d);
+  const dim3 grid(nsplit, (G + gm - 1) / gm, B * KVH * ncb);
   const Merge m{static_cast<float*>(ws_o), static_cast<float*>(ws_l),
-                static_cast<int*>(tickets), size_t(B) * KVH * G};
-  return int(dispatch(fp8, d, 256, G, [&](auto code, auto wide, auto heads) {
+                static_cast<int*>(tickets), size_t(B) * KVH * G, ncb};
+  return int(dispatch(fp8, d, 256, G, [&](auto code, auto width, auto heads) {
+    using T = decltype(code);
+    constexpr int W = decltype(width)::value;
     constexpr int GN = decltype(heads)::value;
-    auto kernel =
-        paged_decode_kernel<decltype(code), decltype(wide)::value, GN>;
-    const size_t smem = Layout(d, GN).bytes;
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, NT, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(k8),
-        static_cast<const uint8_t*>(v8), static_cast<const float*>(v_scale),
-        static_cast<const int*>(page_table), static_cast<const int*>(length),
-        static_cast<float*>(out), m, KVH, G, d, num_pages, ps, mp, tps,
-        logit_scale, scale);
+    const auto qp = static_cast<const __nv_bfloat16*>(q);
+    const auto kp = static_cast<const uint8_t*>(k8);
+    const auto vp = static_cast<const uint8_t*>(v8);
+    const auto sp = static_cast<const float*>(v_scale);
+    const auto tp = static_cast<const int*>(page_table);
+    const auto lp = static_cast<const int*>(length);
+    const auto op = static_cast<float*>(out);
+    if constexpr (W == COLUMNS) {
+      paged_decode_cols_kernel<T, GN><<<grid, NT, 0, s>>>(
+          qp, kp, vp, sp, tp, lp, op, m, KVH, G, d, num_pages, ps, mp, tps,
+          logit_scale, scale);
+    } else {
+      auto kernel = paged_decode_kernel<T, W == WIDE_ROW, GN>;
+      const size_t smem = Layout(d, GN).bytes;
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, NT, smem, s>>>(qp, kp, vp, sp, tp, lp, op, m, KVH, G, d,
+                                    num_pages, ps, mp, tps, logit_scale,
+                                    scale);
+    }
     return cudaGetLastError();
   }));
 }

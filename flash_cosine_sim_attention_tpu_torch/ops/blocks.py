@@ -18,13 +18,16 @@ KERNEL_WIDTHS = ALLOWED_DIM_HEADS + (192, 256)
 
 
 # past the widest instance the attention kernels take a wide route: the
-# head dim zero-padded to a multiple of WIDE_CHUNK, S (and the backward's
-# dP') summed over 64-lane d chunks, and the output columns (O, dQ, dK,
-# dV) a grid axis of WIDE_CHUNK-column blocks that each form S again.
-# 128 rather than 64: S is formed once per column block, so at d 512 the
-# 64-column blocks would form it 8 times against 4, while d 264 pads to
-# 384 instead of 320 (csrc/fwd_kernel.cu and csrc/bwd_kernel.cu, the
-# `*_wide_kernel` instances, take the same number)
+# head dim zero-padded to a multiple of WIDE_CHUNK, and the output columns
+# (O, dQ, dK, dV) a grid axis of column blocks that each form S (and the
+# backward's dP') again.  The bf16 forward and dK/dV kernels (K1, K2, K3b:
+# `fwd_wide_mma_kernel`, `dkdv_wide_mma_kernel`) own 256 columns a block,
+# so at d 384 or 1152 the last block owns a 128-column remainder, and
+# stream Q, K (V, dO') in 256-byte row chunks; the FMA kernels (f32, and
+# K3a for every dtype: `fwd_wide_kernel`, `dkdv_wide_kernel`,
+# `dq_wide_kernel`) own 128 columns a block.  128 rather than 256: d 264
+# pads to 384 instead of 512, and the FMA blocks need a column axis of
+# 128 (csrc/fwd_kernel.cu and csrc/bwd_kernel.cu take the same number)
 WIDE_CHUNK = 128
 
 
@@ -64,9 +67,12 @@ ONEPASS_BWD_MAX_SEQ = 8192
 # kept so that the same configurations are valid in both packages)
 DECODE_TILE = 128
 PAGED_TILE = 128
-# the widest head the decode kernels take (csrc/decode_common.cuh DMAX):
-# a block keeps its P.V sums in registers, two 4-column words a thread
-DECODE_MAX_DIM = 1024
+# the most output columns a decode block serves (csrc/decode_common.cuh
+# DCOLS): up to this head dim a block serves the whole row, its P.V sums
+# in registers (at most two 4-column words a thread); past it the columns
+# become a grid axis of decode_col_blocks(d) blocks of at most this many
+# columns, each forming the scores over the whole d
+DECODE_BLOCK_COLUMNS = 1024
 # the blocks a decode call aims to launch on each SM of the card it runs
 # on (132 on the H100), so that the splits that hold live tokens fill the
 # card even when the slots are a quarter full (the lengths live on the
@@ -74,13 +80,20 @@ DECODE_MAX_DIM = 1024
 DECODE_BLOCKS_PER_SM = 8
 
 
+def decode_col_blocks(d: int) -> int:
+    """The column blocks of a decode kernel's row of ``d`` lanes: 1 up to
+    DECODE_BLOCK_COLUMNS, else ceil(d / DECODE_BLOCK_COLUMNS)."""
+    return -(-d // DECODE_BLOCK_COLUMNS) if d > DECODE_BLOCK_COLUMNS else 1
+
+
 def decode_split(capacity: int, rows: int, sms: int):
     """(tokens a split, splits) of a decode call over ``capacity`` tokens a
-    slot and ``rows`` = slots x kv heads x chunks of 8 query heads, on a
-    card of ``sms`` SMs: as many whole DECODE_TILE tiles a split as give
-    about DECODE_BLOCKS_PER_SM blocks an SM, and one tile at least.  The
-    host knows the capacity, not the lengths, so a call launches every
-    split and the ones past a slot's length exit at once.  On the H100's
+    slot and ``rows`` = slots x kv heads x chunks of 8 query heads x column
+    blocks, on a card of ``sms`` SMs: as many whole DECODE_TILE tiles a
+    split as give about DECODE_BLOCKS_PER_SM blocks an SM, and one tile at
+    least.  The host knows the capacity, not the lengths, so a call
+    launches every split and the ones past a slot's length exit at once.
+    On the H100's
     132 SMs: b8 kvh8 at 1024 tokens, 8 splits of 128; b8 kvh16 at 2048, 8
     of 256; b8 kvh2 at 1024, 8 of 128."""
     tiles = -(-capacity // DECODE_TILE)

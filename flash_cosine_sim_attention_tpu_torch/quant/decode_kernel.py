@@ -27,7 +27,7 @@ from typing import Dict, Tuple
 import torch
 
 from .._build import check_launch, current_stream, load_kernel
-from ..ops.blocks import DECODE_MAX_DIM, EPS, decode_split, kernel_head_dim
+from ..ops.blocks import EPS, decode_col_blocks, decode_split, kernel_head_dim
 from ..ops.reference import l2norm_tensors
 from .kv_cache import KV_DTYPES, QuantKVCache, dequantize_k, dequantize_v
 
@@ -58,14 +58,11 @@ def decode_attention_plain(qg: torch.Tensor, cache: QuantKVCache,
 def check_decode_args(qg: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
                       kernel: str) -> None:
     """What both CUDA decode kernels (contiguous and paged) take: qg
-    (b, kvh, g, d) with any group g and d a multiple of 8 up to
-    DECODE_MAX_DIM (read in place as d-byte code rows), K and V codes both
-    int8 or both e4m3."""
-    d = qg.shape[-1]
-    kernel_head_dim(d, kernel)
-    if d > DECODE_MAX_DIM:
-        raise ValueError(f"the CUDA {kernel} kernel takes head dims up to "
-                         f"{DECODE_MAX_DIM}, got {d}")
+    (b, kvh, g, d) with any group g and d any positive multiple of 8 (read
+    in place as d-byte code rows; past DECODE_BLOCK_COLUMNS the output
+    columns are split over column blocks), K and V codes both int8 or
+    both e4m3."""
+    kernel_head_dim(qg.shape[-1], kernel)
     if k8.dtype not in KV_DTYPES or v8.dtype != k8.dtype:
         raise TypeError(f"the CUDA {kernel} kernel takes int8 or e4m3 codes, "
                         f"got {k8.dtype} / {v8.dtype}")
@@ -77,17 +74,19 @@ _tickets: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 def split_workspace(qg: torch.Tensor, capacity: int):
     """The split-K arguments of a decode call on queries ``qg`` (b, kvh, g,
     d) over ``capacity`` tokens a slot: (tokens a split, splits, partial
-    O (splits, b, kvh, g, d) f32, partial l (splits, b, kvh, g) f32, ticket
-    counters).  The splits fill the SMs of ``qg``'s card.  The counters are
-    one int32 per (slot, kv head, chunk of 8 query heads), zeroed once for
-    each (device, current stream) and left at zero by every call's merge."""
+    O (splits, b, kvh, g, d) f32, partial l (splits, b, kvh, g, column
+    blocks) f32, ticket counters).  The splits fill the SMs of ``qg``'s
+    card.  The counters are one int32 per (slot, kv head, chunk of 8 query
+    heads, column block), zeroed once for each (device, current stream)
+    and left at zero by every call's merge."""
     b, kvh, g, d = qg.shape
-    rows = b * kvh * -(-g // 8)
+    ncb = decode_col_blocks(d)
+    rows = b * kvh * -(-g // 8) * ncb
     sms = torch.cuda.get_device_properties(qg.device).multi_processor_count
     tps, nsplit = decode_split(capacity, rows, sms)
     ws_o = torch.empty((nsplit, b, kvh, g, d), device=qg.device,
                        dtype=torch.float32)
-    ws_l = torch.empty((nsplit, b, kvh, g), device=qg.device,
+    ws_l = torch.empty((nsplit, b, kvh, g, ncb), device=qg.device,
                        dtype=torch.float32)
     key = (qg.device, torch.cuda.current_stream(qg.device).cuda_stream)
     tickets = _tickets.get(key)
@@ -95,6 +94,14 @@ def split_workspace(qg: torch.Tensor, capacity: int):
         tickets = torch.zeros(rows, device=qg.device, dtype=torch.int32)
         _tickets[key] = tickets
     return tps, nsplit, ws_o, ws_l, tickets
+
+
+def decode_queries(qg: torch.Tensor) -> torch.Tensor:
+    """The queries as the decode kernels read them: bf16, contiguous and
+    16-byte aligned (past d 1024 the contiguous kernel loads 16-byte words
+    of them)."""
+    q = qg.to(torch.bfloat16).contiguous()
+    return q if q.data_ptr() % 16 == 0 else q.clone()
 
 
 def _decode_cuda(qg: torch.Tensor, cache: QuantKVCache,
@@ -109,7 +116,7 @@ def _decode_cuda(qg: torch.Tensor, cache: QuantKVCache,
     parts = (qg, cache.k8, cache.v8, cache.v_scale, cache.length)
     if any(t.device != qg.device for t in parts):
         raise ValueError("queries and cache must lie on the same CUDA device")
-    q = qg.to(torch.bfloat16).contiguous()
+    q = decode_queries(qg)
     k8, v8 = cache.k8.contiguous(), cache.v8.contiguous()
     vs = cache.v_scale.float().contiguous()
     length = cache.length.to(torch.int32).contiguous()

@@ -34,7 +34,7 @@ import torch
 from .._build import check_launch, current_stream, load_kernel, resolve_device
 from ..ops.blocks import EPS, PAGED_TILE
 from ..ops.reference import l2norm_tensors
-from .decode_kernel import check_decode_args, split_workspace
+from .decode_kernel import check_decode_args, decode_queries, split_workspace
 from .kv_cache import (
     FP8_DTYPE,
     as_bytes,
@@ -185,7 +185,7 @@ def _paged_decode_cuda(qg: torch.Tensor, cache: PagedKVCache,
         pool = getattr(cache, name)
         if not pool.is_contiguous() or pool.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    q = qg.to(torch.bfloat16).contiguous()
+    q = decode_queries(qg)
     table = cache.page_table.to(torch.int32).contiguous()
     length = cache.length.to(torch.int32).contiguous()
     out = torch.empty((b, kvh, g, d), device=qg.device, dtype=torch.float32)

@@ -18,10 +18,13 @@ tensor-core dK/dV kernel feeds e and dS to its products as bf16 hi + lo
 pairs, so its sums stay those of f32 operands to ~16 bits; so does the
 tensor-core dQ kernel with dS).  Head dims between the kernel widths (8,
 48, 80, 136, 200) run zero-padded to the next one; past 256 (264, 384,
-512) the wide route runs zero-padded to the next multiple of 128; d that
-is not a multiple of 8 is refused.  The decode kernels split each slot's
-tokens over several blocks and merge their partial sums in the same
-launch: the split edges (lengths 0, 1, 127, 128, 129, a split's end and
+512, 1032) the wide route runs zero-padded to the next multiple of 128
+(bf16 on the tensor cores, in column blocks of 256 with a 128-column
+remainder at 384 and 1152); d that is not a multiple of 8 is refused.
+The decode kernels take any multiple of 8 (past 1024, as at 1032, 2048
+and 4096, their output columns are split over column blocks); they split
+each slot's tokens over several blocks and merge their partial sums in
+the same launch: the split edges (lengths 0, 1, 127, 128, 129, a split's end and
 the capacity) and a finished paged slot are held against plain, and two
 calls in a row must agree bit for bit (the merge's ticket counters are
 left at zero); splits of several tiles run at the 0.81B decode step's
@@ -98,6 +101,12 @@ FWD_CASES = {
     "key-mask-bias-d384": (2, 2, 2, 70, 150, 384, False, "some", "h"),
     "causal-bias-batch-d512": (2, 2, 1, 100, 100, 512, True, None, "b"),
     "all-keys-masked-d512": (1, 2, 2, 64, 100, 512, False, "all", None),
+    # the wide route's edges on the tensor cores: a 128-column remainder
+    # block (384, 1152), GQA with a key mask, and d 1032 (padded to 1152)
+    "causal-key-mask-gqa-d384": (1, 4, 2, 130, 130, 384, True, "some", None),
+    "causal-key-mask-gqa-d512": (2, 4, 2, 150, 150, 512, True, "some", None),
+    "causal-key-mask-bias-gqa-d1032": (1, 4, 2, 100, 130, 1032, True, "some",
+                                       "h"),
 }
 
 
@@ -451,6 +460,18 @@ BWD_CASES = {
     "causal-key-mask-gqa-d264": (1, 4, 2, 100, 130, 264, True, "some", None),
     "bias-heads-gqa-d384": (2, 4, 2, 70, 90, 384, True, None, "h"),
     "bias-batch-key-mask-d512": (2, 2, 1, 64, 100, 512, False, "some", "b"),
+    # the wide route's dK/dV kernel on the tensor cores: a 128-column
+    # remainder block (384, 1152), GQA with key masks and an (h, i, j) bias,
+    # d 1032 (padded to 1152), query tiles past the keys' causal start
+    "causal-key-mask-gqa-d384": (1, 4, 2, 130, 130, 384, True, "some", None),
+    "key-mask-bias-heads-gqa-d384": (2, 4, 2, 70, 150, 384, False, "some",
+                                     "h"),
+    "causal-key-mask-gqa-d512": (2, 4, 2, 150, 150, 512, True, "some", None),
+    "causal-key-mask-bias-gqa-d512": (1, 4, 2, 130, 130, 512, True, "some",
+                                      "h"),
+    "key-mask-gqa-d1032": (2, 4, 2, 70, 130, 1032, False, "some", None),
+    "causal-key-mask-bias-gqa-d1032": (1, 4, 2, 100, 100, 1032, True, "some",
+                                       "h"),
 }
 
 
@@ -799,11 +820,69 @@ def test_decode_calls_on_two_streams_match_plain(cuda_device):
         assert tickets.abs().max().item() == 0
 
 
+# kernel, storage, head dim
+WIDE_DECODE_CASES = [(kern, kv, d) for kern in ("contiguous", "paged")
+                     for kv in ("int8", "e4m3") for d in (1032, 2048, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kern,kv,d", WIDE_DECODE_CASES)
+def test_decode_kernels_past_1024_match_plain(cuda_device, kern, kv, d):
+    """Past d 1024 the decode kernels split the output columns over column
+    blocks of at most 1024 (ceil(d / 1024) of them), each forming the
+    scores over the whole d and merging its own splits.  GQA 4/2 over a
+    capacity of 512 in splits of 128 tokens: an empty slot (exactly 0), a
+    slot across three splits, the whole capacity; held against plain (2e-3
+    on int8, 1e-4 on e4m3), one launch a call, and a second call equal to
+    the first bit for bit (every column block's counters are back at 0)."""
+    from flash_cosine_sim_attention_tpu_torch.ops.blocks import (
+        decode_col_blocks, decode_split)
+
+    kv_dtype = torch.int8 if kv == "int8" else torch.float8_e4m3fn
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    lengths, kvh, gq, cap, ps = [0, 300, 512], 2, 2, 512, 128
+    b = len(lengths)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert decode_split(cap, b * kvh * decode_col_blocks(d), sms) == (128, 4)
+    k = l2norm_tensors(torch.randn(b, kvh, cap, d, device=cuda_device,
+                                   generator=g))
+    v = 3 * torch.randn(b, kvh, cap, d, device=cuda_device, generator=g)
+    q = l2norm_tensors(torch.randn(b, kvh * gq, d, device=cuda_device,
+                                   generator=g))
+    length = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    if kern == "paged":
+        mp = cap // ps
+        table = (torch.randperm(b * mp, device=cuda_device, generator=g) + 1
+                 ).view(b, mp).to(torch.int32)
+        cache = append_paged(init_paged_cache(
+            b * mp + 1, kvh, ps, d, b, mp, kv_dtype=kv_dtype,
+            device=cuda_device)._replace(page_table=table), k, v)
+        kernel, plain = paged_decode_attention, paged_decode_plain
+    else:
+        cache = append(init_cache(b, kvh, cap, d, cuda_device,
+                                  kv_dtype=kv_dtype), k, v)
+        kernel, plain = quantized_decode_attention, decode_attention_plain
+    cache = cache._replace(length=length)
+    before = kernel.launches
+    first = kernel(q, cache, scale=8.0, l2norm_qk=False)
+    second = kernel(q, cache, scale=8.0, l2norm_qk=False)
+    want = plain(q.view(b, kvh, gq, d), cache, 8.0).view(first.shape)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert torch.isfinite(first).all()
+    assert torch.equal(first, second)
+    err = (first - want).abs().max().item()
+    assert err <= (2e-3 if kv == "int8" else 1e-4), err
+    assert first[0].abs().max().item() == 0
+
+
 @pytest.mark.cuda
 def test_profiled_calls_name_the_wide_and_split_instances(cuda_device):
-    """The profiler names the wide route's instances (fwd_wide_kernel,
-    dkdv_wide_kernel, dq_wide_kernel) at d 512 and the split-K decode
-    kernels, one kernel a decode call."""
+    """The profiler names the wide route's instances at d 512 (bf16: the
+    tensor-core fwd_wide_mma_kernel and dkdv_wide_mma_kernel, and the FMA
+    dq_wide_kernel; no bf16 FMA forward or dK/dV instance) and the
+    split-K decode kernels, one kernel a decode call, the column-block
+    instance past d 1024."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -819,12 +898,19 @@ def test_profiled_calls_name_the_wide_and_split_instances(cuda_device):
                    *l2norm_tensors(k.detach().float()[:1].expand(2, -1, -1, -1),
                                    v.detach().float()[:1].expand(2, -1, -1, -1)))
     qd = l2norm_tensors(q.detach()[:1, :, 0].expand(2, -1, -1))
+    kw_, vw = (torch.randn(2, 2, 256, 1032, device=cuda_device, generator=g)
+               for _ in range(2))
+    wide = append(init_cache(2, 2, 256, 1032, cuda_device),
+                  l2norm_tensors(kw_), vw)
+    qw = l2norm_tensors(torch.randn(2, 2, 1032, device=cuda_device,
+                                    generator=g))
 
     def work():
         flash_cosine_sim_attention(q, k, v, causal=True).float().sum().backward()
         flash_cosine_sim_attention(q, k, v, attn_bias=bias,
                                    causal=True).float().sum().backward()
         quantized_decode_attention(qd, cache, l2norm_qk=False)
+        quantized_decode_attention(qw, wide, l2norm_qk=False)
 
     work()                             # builds and loads first
     torch.cuda.synchronize()
@@ -833,14 +919,18 @@ def test_profiled_calls_name_the_wide_and_split_instances(cuda_device):
         torch.cuda.synchronize()
     keys = [e.key for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
-    for name in ("fwd_wide_kernel<__nv_bfloat16, __nv_bfloat16>",
-                 "dkdv_wide_kernel<__nv_bfloat16, true>",
-                 "dkdv_wide_kernel<__nv_bfloat16, false>",
-                 "dq_wide_kernel<__nv_bfloat16>", "decode_kernel<"):
+    for name in ("fwd_wide_mma_kernel<__nv_bfloat16>",
+                 "dkdv_wide_mma_kernel<true>",
+                 "dkdv_wide_mma_kernel<false>",
+                 "dq_wide_kernel<__nv_bfloat16>", "decode_kernel<",
+                 "decode_cols_kernel<"):
         assert any(name in key for key in keys), (name, keys)
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and "decode_kernel<" in e.key]
-    assert sum(e.count for e in rows) == 1
+    assert not any("fwd_wide_kernel<" in key or "dkdv_wide_kernel<" in key
+                   for key in keys), keys
+    for name in ("decode_kernel<", "decode_cols_kernel<"):
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and name in e.key]
+        assert sum(e.count for e in rows) == 1, name
 
 
 @pytest.mark.cuda

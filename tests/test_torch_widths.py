@@ -134,6 +134,37 @@ def test_decode_split_covers_the_capacity(capacity, rows, want):
     assert (nsplit - 1) * tps < capacity
 
 
+@pytest.mark.parametrize("d,want", [(8, 1), (1024, 1), (1032, 2),
+                                    (2048, 2), (2056, 3), (4096, 4)])
+def test_decode_col_blocks_split_past_1024(d, want):
+    """The decode kernels serve a row whole up to DECODE_BLOCK_COLUMNS
+    (1024) and split its output columns over ceil(d / 1024) column blocks
+    past it; the split rule counts each column block as a row of blocks."""
+    from flash_cosine_sim_attention_tpu_torch.ops.blocks import (
+        DECODE_BLOCK_COLUMNS, decode_col_blocks)
+
+    assert DECODE_BLOCK_COLUMNS == 1024
+    assert decode_col_blocks(d) == want
+
+
+@pytest.mark.parametrize("d", [1032, 2048, 4096, 1036, 2052])
+def test_decode_args_take_any_multiple_of_8(d):
+    """The decode kernels' argument check takes any positive multiple of 8
+    (no width cap: the JAX decode takes them all) and refuses the rest by
+    kernel_head_dim's rule, with no mention of 1024."""
+    from flash_cosine_sim_attention_tpu_torch.quant.decode_kernel import (
+        check_decode_args)
+
+    qg = torch.zeros(1, 1, 1, d)
+    codes = torch.zeros(1, 1, 8, d, dtype=torch.int8)
+    if d % 8 == 0:
+        check_decode_args(qg, codes, codes, "decode")
+        return
+    with pytest.raises(ValueError, match="positive multiples of 8") as err:
+        check_decode_args(qg, codes, codes, "paged decode")
+    assert "1024" not in str(err.value)
+
+
 # b, h, kvh, seq_q, seq_k, causal, key mask
 PAD_CASES = {"causal-gqa": (1, 4, 2, 70, 90, True, False),
              "key-mask": (2, 2, 2, 33, 65, False, True)}
@@ -254,11 +285,12 @@ def test_op_at_wide_heads_matches_jax_fused(d, dtype):
 @pytest.mark.parametrize("kv", sorted(KV))
 @pytest.mark.parametrize("d", [256, 512, 1032])
 def test_decode_wide_matches_jax(kv, d):
-    """The port's decode at d 256 and 512 (code rows read in place on the
-    card) against JAX's quantized_decode_attention, int8 and e4m3, GQA
-    4/2, with an empty slot.  Bar 2e-3.  d 1032 is past the card's
-    decode kernels (ops/blocks.py DECODE_MAX_DIM); JAX and the plain
-    version take it."""
+    """The port's decode at d 256, 512 and 1032 against JAX's
+    quantized_decode_attention, int8 and e4m3, GQA 4/2, with an empty
+    slot.  Bar 2e-3.  On the card the code rows are read in place, and
+    past ops/blocks.py DECODE_BLOCK_COLUMNS (1024) the output columns are
+    split over column blocks (two at 1032), each forming the scores over
+    the whole d; the plain version held here is the same maths."""
     tdt, jdt = KV[kv]
     rng = np.random.default_rng(d)
     b, kvh, g, cap = 3, 2, 2, 40
@@ -282,12 +314,14 @@ def test_decode_wide_matches_jax(kv, d):
 
 
 @pytest.mark.parametrize("kv", sorted(KV))
-@pytest.mark.parametrize("d", [256, 512])
+@pytest.mark.parametrize("d", [256, 512, 1032])
 def test_paged_decode_wide_matches_jax(kv, d):
-    """The port's paged decode at d 256 and 512 (a page holds d rows of
-    128 tokens) against JAX's paged_decode_attention, its XLA gather path
-    and its Pallas kernel (interpret mode), on a shuffled table of two
-    pages a slot, one slot across the page boundary.  Bar 2e-3."""
+    """The port's paged decode at d 256, 512 and 1032 (a page holds d rows
+    of 128 tokens; past 1024 the card splits the output columns over
+    column blocks) against JAX's paged_decode_attention, its XLA gather
+    path and its Pallas kernel (interpret mode; at d 1032 the kernel
+    alone, in one jitted call), on a shuffled table of two pages a slot,
+    one slot across the page boundary.  Bar 2e-3."""
     tdt, jdt = KV[kv]
     rng = np.random.default_rng(d + 1)
     b, kvh, h, n, ps = 2, 1, 2, 200, 128
@@ -312,6 +346,11 @@ def test_paged_decode_wide_matches_jax(kv, d):
 
     got = paged_decode_attention(torch.from_numpy(q), cache, scale=8.0)
     assert got.shape == (b, h, d)
+    if d > 1024:
+        want = jax.jit(lambda q, c: jpg.paged_decode_attention(
+            q, c, scale=8.0, use_kernel=True))(jnp.asarray(q), jcache)
+        assert np.abs(_np(got) - np.asarray(want)).max() <= DECODE_TOL
+        return
     for use_kernel in (False, True):
         want = jpg.paged_decode_attention(jnp.asarray(q), jcache, scale=8.0,
                                           use_kernel=use_kernel)
