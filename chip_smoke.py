@@ -91,7 +91,18 @@ Phases (any failure exits non-zero):
      one across a split boundary), timed at d 1032; the validation width
      with 1 head of 512 (seed 29) served, trained (a step timed, wall and
      device), its bias gradient taken, and card vs CPU at depth 2; with 1
-     head of 1032 at depth 2 (seed 33) served by both engines.
+     head of 1032 at depth 2 (seed 33) served by both engines;
+ 17. speculative decoding: K1 against its plain version at the verify's
+     shapes (4 queries against 1024 keys masked by each slot's length,
+     an empty slot included, and the 4 x 4 causal chunk), timed; the
+     validation model served by SpeculativeEngine (8 slots, capacity
+     1024, gamma 4, greedy) with a depth-2 draft (seed 41) and with itself
+     as draft, 7 prompts admitted one and then six, 48 tokens a stream,
+     every stream held to the target's greedy decode under the margin
+     rule (MARGIN_BAR), K1 and K4 launches read around each engine's
+     traffic and checked per round; tokens a round, round wall and device
+     time and idle share printed; one b = 1 speculative_generate and one
+     generate_cached of 32 tokens; card vs CPU at depth 2 in f32.
 Then one JSON line lists every ported kernel with its launches on its
 path, error, times and bound (timing lines also print the achieved
 TFLOP/s); the script's own wall time, the nvcc build included; the
@@ -170,6 +181,23 @@ HEAD256_MODEL = dict(MODEL, heads=2, dim_head=256)
 HEAD512_MODEL = dict(MODEL, heads=1, dim_head=512)
 HEAD1032_MODEL = dict(MODEL, heads=1, dim_head=1032, depth=2)
 HEAD_TRAIN_STEPS = 3     # training steps of the phase 15 and 16 models
+# phase 17: speculative decoding of the validation model, greedy, with a
+# depth-2 draft of its width and with itself as draft
+SPEC_ENGINE = dict(num_slots=8, capacity=1024, gamma=4, temperature=0.0,
+                   prompt_buckets=(128, 256, 512, 1024))
+SPEC_DRAFT = dict(MODEL, depth=2)
+SPEC_TOKENS = 48         # tokens a stream; 960 + 48 + gamma fits 1024
+# The margin rule.  A verify row attends its chunk's own k and v
+# unquantized while decode_step attends the new token through the int8
+# cache, and both run in bf16, so the target's logits for one token differ
+# between the two paths (and between batch shapes, whose GEMMs round
+# differently).  A stream may leave the target's greedy decode only at a
+# token where the decode's top-2 logit margin is below MARGIN_BAR: 4 bf16
+# ulps of a logit in [2, 4) (2^-6 each), above the int8 KV error's share
+# (K rounded to 1/254, V to 1/254 of its row's absmax, attenuated by the
+# residual stream), and above the largest verify-vs-decode logit
+# difference the phase measures, which must stay below it.
+MARGIN_BAR = 2 ** -4
 
 
 def fail(msg: str) -> None:
@@ -204,7 +232,7 @@ def kernel_us(work, iters: int) -> float:
 
 
 # profiler windows cuda_rows takes before it returns an empty one, and
-# windows whole_rows takes before it fails on lost records
+# windows whole_rows takes before it averages over the records it kept
 PROFILE_TRIES = 3
 WHOLE_TRIES = 5
 
@@ -249,9 +277,11 @@ def whole_rows(work, iters: int):
     that launches each of its kernels the same number of times per call,
     over ``iters`` calls: a kernel whose count is not a multiple of the
     calls lost a record, so the counts are printed and ``work`` is
-    profiled again over one call more (one run on the H100 lost the same
-    record in three windows of the same length running); fails after
-    WHOLE_TRIES such profiles."""
+    profiled again over one call more.  Runs on the H100 have lost one
+    record of the same kernel in 3 and in 5 windows running; after
+    WHOLE_TRIES such profiles a window in which each kernel lost at most
+    one record is taken (each kernel's time a call is the mean of its
+    kept records times its launches a call), and any other fails."""
     for n in range(iters, iters + WHOLE_TRIES):
         rows = cuda_rows(work, n)
         counts = [count for _, _, count in rows]
@@ -260,7 +290,17 @@ def whole_rows(work, iters: int):
         lost = [(key[:40], count) for key, _, count in rows if count % n]
         print(f"  (the profiler lost kernel records: {lost} of counts "
               f"{counts} over {n} calls; profiled again)")
-    fail(f"the profiler lost kernel records {WHOLE_TRIES} times running")
+    if any((count + 1) % n for count in counts if count % n):
+        fail(f"the profiler lost kernel records {WHOLE_TRIES} times running, "
+             f"more than one of a kernel in the last window: counts "
+             f"{counts} over {n} calls")
+    per_call = [-(-count // n) for count in counts]
+    print(f"  (lost records {WHOLE_TRIES} times running, at most one of a "
+          f"kernel in the last window: each kernel's time a call is the "
+          f"mean of its {counts} kept records times its {per_call} launches "
+          f"a call)")
+    return [(key, t / count * c, c)
+            for (key, t, count), c in zip(rows, per_call)]
 
 
 def whole_us(work, iters: int) -> float:
@@ -313,13 +353,13 @@ def require_kernels(rows, names, path: str) -> None:
     profiler's ``rows``, and no FMA instance of K1 or K7, and no bf16 FMA
     instance of the dK/dV kernel (K2, K3b) or the dQ kernel (K3a), does:
     the bf16 paths must run the tensor-core instances (past d 256 the
-    wide FMA forward and dK/dV kernels have no bf16 instance, and K3a's
-    dq_wide_kernel alone stays FMA)."""
+    wide FMA kernels have no bf16 instance)."""
     keys = [key for key, _, _ in rows]
     missing = [n for n in names if not any(n in key for key in keys)]
     fma = [key[:60] for key in keys if "fwd_kernel<" in key
            or "qmm_kernel<" in key or "dkdv_kernel<__nv_bfloat16" in key
-           or "dq_kernel<__nv_bfloat16" in key]
+           or "dq_kernel<__nv_bfloat16" in key
+           or "dq_wide_kernel<__nv_bfloat16" in key]
     print(f"  {path}: tensor-core instances {', '.join(names)} launched: "
           f"{not missing}; f32 FMA instances launched: {fma or 'none'}")
     if missing or fma:
@@ -337,6 +377,21 @@ def spilling(ptxas_log: str):
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m and int(m.group(1)):
             out.append(f"{entry} ({m.group(1)} B)")
+    return out
+
+
+def wide_registers(ptxas_log: str):
+    """(kernel, registers) of the wide route's tensor-core instances in a
+    ptxas -v report, the kernel named by the part of its mangled name
+    that tells the instances apart."""
+    out, entry = [], ""
+    for ln in ptxas_log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and "wide_mma_kernel" in entry:
+            name = re.search(r"[a-z]+_wide_mma_kernel(I\w+?E)?", entry)
+            out.append((name.group(0), int(m.group(1))))
     return out
 
 
@@ -2446,7 +2501,7 @@ def heads_past_256(card: str):
         "fwd_wide_mma_kernel<__nv_bfloat16>",
         "dkdv_wide_mma_kernel<true>",
         "dkdv_wide_mma_kernel<false>",
-        "dq_wide_kernel<__nv_bfloat16>"))
+        "dq_wide_mma_kernel"))
     rows.update(time_decode_at(card, g, 512, h, worst))
     wide_rows = time_decode_at(card, g, 1032, HEAD1032_MODEL["heads"],
                                wide_worst)
@@ -2454,6 +2509,368 @@ def heads_past_256(card: str):
     time_train_step(HEAD512_MODEL, SEED + 37)
     wide_launches = serve_decode_path(HEAD1032_MODEL, SEED + 33)
     return (worst, rows, launches), (wide_worst, wide_rows, wide_launches)
+
+
+def greedy_reference(model, prompts, n, capacity, device="cuda"):
+    """The target's greedy decode of every prompt at once: a right-padded
+    prefill with the true lengths, then n - 1 decode_step argmaxes.
+    Returns (tokens (p, n), the decode's top-2 logit margins (p, n), the
+    logits of its first 4 steps (4, p, vocab) f32, the decode steps' wall
+    times in ms)."""
+    from flash_cosine_sim_attention_tpu_torch.models import (
+        decode_step, init_decode_state, prefill)
+
+    tokens, lens = padded_prompts(prompts, device)
+    state = init_decode_state(model, len(prompts), capacity, device=device)
+    logits, state = prefill(model, state, tokens, true_len=lens)
+    toks, margins, first, walls = [], [], [], []
+    for i in range(n):
+        top2 = logits.float().topk(2, dim=-1).values
+        margins.append(top2[:, 0] - top2[:, 1])
+        toks.append(logits.argmax(-1))
+        if i + 1 == n:
+            break
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = decode_step(model, state, toks[-1])
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        if i < 4:
+            first.append(logits.float())
+    return (torch.stack(toks, 1).cpu().numpy(),
+            torch.stack(margins, 1).cpu().numpy(), torch.stack(first), walls)
+
+
+def padded_prompts(prompts, device):
+    """(tokens (p, longest) right-padded with 0, true lengths (p,) int32)."""
+    width = max(len(x) for x in prompts)
+    tokens = np.zeros((len(prompts), width), np.int64)
+    for i, x in enumerate(prompts):
+        tokens[i, :len(x)] = x
+    lens = torch.tensor([len(x) for x in prompts], dtype=torch.int32,
+                        device=device)
+    return torch.from_numpy(tokens).to(device), lens
+
+
+def margin_rule(label, streams, ref, margins):
+    """Hold each stream to its row of the target's greedy decode ``ref``:
+    equal up to its first divergence, where the decode's top-2 margin
+    must be below MARGIN_BAR.  Returns {stream: first diverging index}."""
+    first = {}
+    for i, stream in enumerate(streams):
+        n = min(len(stream), ref.shape[1])
+        p = next((j for j in range(n) if stream[j] != ref[i, j]), None)
+        if p is None:
+            continue
+        first[i] = p
+        if not margins[i, p] < MARGIN_BAR:
+            fail(f"{label}: stream {i} leaves the target's greedy decode at "
+                 f"token {p}, where its top-2 margin is {margins[i, p]:.4f} "
+                 f"(bar {MARGIN_BAR:g})")
+    detail = ", ".join(f"stream {i} at token {p} (margin "
+                       f"{margins[i, p]:.4f})" for i, p in first.items())
+    print(f"  {label}: {len(first)} of {len(streams)} streams diverged from "
+          f"the target's greedy decode{': ' + detail if detail else ''} "
+          f"(margin bar {MARGIN_BAR:g})")
+    return first
+
+
+def spec_counters():
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward)
+    from flash_cosine_sim_attention_tpu_torch.quant import (
+        quantized_decode_attention)
+    return flash_attention_forward, quantized_decode_attention
+
+
+def run_spec_engine(label, target, draft, prompts, ref, margins):
+    """SpeculativeEngine(SPEC_ENGINE) over ``prompts``: one admitted and
+    a round run, then the rest; a slot finishes at SPEC_TOKENS tokens.
+    K1 and K4 launches are read around this traffic (after a warm-up
+    request) and checked per round; two rounds with every slot active are
+    profiled, and their device time is set against the median wall of
+    the unprofiled rounds with every slot active.  Tokens/s counts the
+    unprofiled rounds only.  Every stream is held to the margin rule.
+    Returns {first: each diverging stream's first divergence, short: the
+    slot-rounds that emitted fewer than gamma, launches: (K1, K4)}."""
+    from flash_cosine_sim_attention_tpu_torch.serving import (
+        SpeculativeEngine)
+
+    gamma, depth_t, depth_d = (SPEC_ENGINE["gamma"], target.depth,
+                               draft.depth)
+    engine = SpeculativeEngine(target, draft, **SPEC_ENGINE, seed=SEED,
+                               device="cuda")
+    warm, _ = engine.add_request(prompts[0][:60])
+    engine.step_round()
+    engine.finish(warm)
+    k1, k4 = spec_counters()
+    k1.launches = k4.launches = 0
+    streams, records = {}, []
+    # per round: (wall ms, tokens emitted, active slots, profiled)
+    walls = []
+    rounds = admitted = 0
+    rows = None
+    profiling = False
+
+    def one_round():
+        nonlocal rounds
+        n_active = int(engine.active.sum())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.step_round()
+        walls.append((1e3 * (time.perf_counter() - t0),
+                      sum(len(t) for t in out.values()), n_active,
+                      profiling))
+        rounds += 1
+        for slot, toks in out.items():
+            records.append((slot, len(streams[slot]), len(toks)))
+            streams[slot].extend(toks)
+        for slot in list(streams):
+            if engine.active[slot] and len(streams[slot]) >= SPEC_TOKENS:
+                engine.finish(slot)
+
+    order = []
+    for i, prompt in enumerate(prompts):
+        slot, tok = engine.add_request(prompt)
+        streams[slot] = [tok]
+        order.append(slot)
+        admitted += 1
+        if i == 0:
+            one_round()
+    while engine.active.any():
+        if rows is None and engine.active.sum() == len(prompts):
+            profiling = True        # the profiler's host cost is in these
+            rows = cuda_rows(one_round, 2)
+            profiling = False
+        else:
+            one_round()
+    launches = (k1.launches, k4.launches)
+    want = (rounds * 2 * depth_t + admitted * (depth_t + depth_d),
+            rounds * depth_d * gamma)
+    per_slot = [streams[s] for s in order]
+    first = margin_rule(label, per_slot, ref, margins)
+    # rounds that emitted fewer than gamma tokens for an active slot
+    short = [(order.index(s), at, n) for s, at, n in records if n < gamma]
+    n_tok = sum(n for _, _, n in records)
+    busy = sum(t for _, t, _ in rows) / 2e3
+    k1_ms = sum(t for k, t, _ in rows if "fwd_mma_kernel<" in k) / 2e3
+    k4_ms = sum(t for k, t, _ in rows
+                if "decode_kernel<" in k and "paged" not in k) / 2e3
+    plain = [(w, n, a) for w, n, a, prof in walls if not prof]
+    full = [w for w, _, a in plain if a == len(prompts)]
+    if not full:
+        fail(f"{label}: no unprofiled round had all {len(prompts)} slots "
+             f"active to set the profiled rounds' device time against")
+    wall, full_wall = (statistics.median(w for w, _, _ in plain),
+                       statistics.median(full))
+    rate = sum(n for _, n, _ in plain) / (sum(w for w, _, _ in plain) / 1e3)
+    print(f"  {label}: {rounds} rounds, {len(records)} slot-rounds, "
+          f"{n_tok} tokens accepted, {n_tok / len(records):.3f} tokens a "
+          f"slot a round (gamma {gamma}); round wall {wall:.3f} ms median "
+          f"over {len(plain)} unprofiled rounds ({rate:.1f} tokens/s, their "
+          f"tokens over their wall); with all {len(prompts)} slots active: "
+          f"wall {full_wall:.3f} ms median of {len(full)} unprofiled rounds, "
+          f"device time {busy:.3f} ms a round (2 profiled rounds), idle "
+          f"share {1 - busy / full_wall:.3f}; K1 {k1_ms:.3f} ms and K4 "
+          f"{k4_ms:.3f} ms a round")
+    top = sorted(rows, key=lambda r: -r[1])[:5]
+    print(f"  {label}: a round's largest device times (ms, launches): "
+          + "; ".join(f"{k[:60]} {t / 2e3:.3f} ({c // 2})"
+                      for k, t, c in top))
+    print(f"  {label}: launches K1 {launches[0]} (want {want[0]} = "
+          f"{rounds} rounds x 2 x depth {depth_t} + {admitted} admissions x "
+          f"(depth {depth_t} + {depth_d})), K4 {launches[1]} (want "
+          f"{want[1]} = {rounds} rounds x draft depth {depth_d} x gamma)")
+    if launches != want:
+        fail(f"{label}: launches {launches}, want {want}")
+    require_kernels(rows, ("fwd_mma_kernel<__nv_bfloat16, 64>",
+                           "decode_kernel<"), f"{label}, a round")
+    return dict(first=first, short=short, launches=launches)
+
+
+def check_verify_kernel(card: str):
+    """K1 at the verify's shapes against plain: 4 queries of 8 slots x 8
+    heads of 64 against 1024 keys masked by each slot's length (an empty
+    slot included), and the 4 x 4 causal chunk, f32 and bf16; then the
+    history call timed.  Returns (max err, timing row)."""
+    import torch.nn.functional as F
+
+    from flash_cosine_sim_attention_tpu_torch.ops import l2norm_tensors
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward, flash_attention_forward_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 43)
+    b, h, gq, cap, d = 8, 8, SPEC_ENGINE["gamma"], 1024, 64
+    lengths = torch.tensor([0, 1, 60, 300, 500, 960, 1024, 7],
+                           device="cuda")
+    keep = torch.arange(cap, device="cuda")[None, :] < lengths[:, None]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        bar = F32_ERR_BAR if dtype == torch.float32 else BF16_ERR_BAR
+        q, k = l2norm_tensors(
+            torch.randn(b, h, gq, d, device="cuda", generator=g),
+            torch.randn(b, h, cap, d, device="cuda", generator=g), groups=8)
+        v = torch.randn(b, h, cap, d, device="cuda", generator=g)
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        for name, args, causal in (
+                ("q4 x k1024 key-masked by slot length", (q, k, v, keep),
+                 False),
+                ("4 x 4 causal chunk", (q, k[:, :, :gq], v[:, :, :gq], None),
+                 True)):
+            kw = dict(bias_batch_dim=False, scale=1.0, causal=causal)
+            o, inv_l = flash_attention_forward(*args, None, **kw)
+            o_p, inv_p = flash_attention_forward_plain(*args, None, **kw)
+            torch.cuda.synchronize()
+            err = (o.float() - o_p.float()).abs().max().item()
+            l_err = ((inv_l - inv_p) / inv_p).abs().max().item()
+            print(f"  K1 {name} (b8 h8 d64) {str(dtype)[6:]}: max|o-plain| "
+                  f"{err:.3e} (bar {bar:g}), max rel inv_l err {l_err:.3e} "
+                  f"(bar 1e-05)")
+            if not (torch.isfinite(o.float()).all().item() and err <= bar
+                    and l_err <= 1e-5):
+                fail(f"K1 verify shape {name} {dtype}: o {err}, inv_l {l_err}")
+            if not causal and (o[0].abs().max().item() != 0
+                               or (inv_l[0] - 1e10).abs().max().item() > 1e4):
+                fail("K1: the empty slot's rows must give o = 0, inv_l = 1e10")
+            worst = max(worst, err)
+
+    kw = dict(bias_batch_dim=False, scale=1.0, causal=False)
+    call = lambda: flash_attention_forward(q, k, v, keep, None, **kw)  # noqa: E731
+    ms = device_ms(call)
+    plain_ms = device_ms(
+        lambda: flash_attention_forward_plain(q, k, v, keep, None, **kw))
+    lib_ms = library_ms("SDPA b8 h8 q4 x k1024 d64, key mask",
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, attn_mask=keep[:, None, None, :],
+                            scale=1.0))
+    visible = int(lengths.sum())
+    flops = 4 * d * h * gq * visible
+    # q and o, the k and v rows inside each slot's length, the mask, inv_l
+    nbytes = ((2 * q.numel() + 2 * h * visible * d) * q.element_size()
+              + keep.numel() + b * h * gq * 4)
+    bound_ms, by = bound(flops, nbytes)
+    print(f"  K1 verify history call b8 h8 q4 x k1024 d64 bf16 on {card}: "
+          f"device time kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+          f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({by})")
+    return worst, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=by, library_ms=lib_ms)
+
+
+def spec_parity():
+    """Card vs CPU at depth 2 in f32: a b = 1 greedy speculative_generate
+    (depth-1 draft) gives equal tokens, and the batched verify's rows over
+    a slot with history and an empty one agree within PARITY_BAR."""
+    from flash_cosine_sim_attention_tpu_torch.models import (
+        CosineSimCausalTransformer, init_decode_state, prefill,
+        speculative_generate)
+    from flash_cosine_sim_attention_tpu_torch.models.speculative import (
+        _verify_rows_batched)
+
+    cfg, dcfg = dict(MODEL, depth=2), dict(MODEL, depth=1)
+    params = random_flax_params(
+        CosineSimCausalTransformer(**cfg, device="meta"), SEED + 45)
+    dparams = random_flax_params(
+        CosineSimCausalTransformer(**dcfg, device="meta"), SEED + 47)
+    rng = np.random.default_rng(SEED + 49)
+    prime = rng.integers(0, cfg["num_tokens"], (1, 100))
+    chunk = rng.integers(0, cfg["num_tokens"], (2, SPEC_ENGINE["gamma"]))
+    toks, rows = {}, {}
+    for device in ("cuda", "cpu"):
+        target = build_model(params, torch.float32, device, cfg)
+        draft = build_model(dparams, torch.float32, device, dcfg)
+        toks[device], _ = speculative_generate(
+            target, draft, torch.from_numpy(prime), 16, 256,
+            gamma=SPEC_ENGINE["gamma"], device=device)
+        tokens, lens = padded_prompts([prime[0], prime[0, :1]], device)
+        state = init_decode_state(target, 2, 256, device=device)
+        _, state = prefill(target, state, tokens, true_len=lens)
+        empty = torch.tensor([100, 0], dtype=torch.int32, device=device)
+        state = state._replace(
+            caches=tuple(c._replace(length=empty) for c in state.caches),
+            pos=empty)
+        out, _ = _verify_rows_batched(target, state,
+                                      torch.from_numpy(chunk).to(device),
+                                      None)
+        rows[device] = out.float().cpu()
+    diff = (rows["cuda"] - rows["cpu"]).abs().max().item()
+    same = toks["cuda"].tolist() == toks["cpu"].tolist()
+    print(f"  f32 depth 2 (draft depth 1): speculative_generate of 16 "
+          f"tokens card vs CPU equal: {same}; verify rows (a slot with 100 "
+          f"tokens of history, an empty one) max |logit diff| {diff:.3e} "
+          f"(bar {PARITY_BAR:g})")
+    if not (same and diff <= PARITY_BAR):
+        fail(f"speculative parity: tokens equal {same}, verify rows {diff}")
+
+
+def speculative(card: str):
+    """Phase 17: speculative decoding of the validation model.  Returns
+    (K1's max err at the verify shapes, its timing row, K1 launches on
+    the main path: the depth-2 draft's engine run)."""
+    from flash_cosine_sim_attention_tpu_torch.models import (
+        CosineSimCausalTransformer, generate_cached, init_decode_state,
+        prefill, speculative_generate)
+    from flash_cosine_sim_attention_tpu_torch.models.speculative import (
+        _verify_rows_batched)
+
+    err, row = check_verify_kernel(card)
+    params = random_flax_params(
+        CosineSimCausalTransformer(**MODEL, device="meta"), SEED)
+    dparams = random_flax_params(
+        CosineSimCausalTransformer(**SPEC_DRAFT, device="meta"), SEED + 41)
+    target = build_model(params, torch.bfloat16, "cuda", MODEL)
+    draft = build_model(dparams, torch.bfloat16, "cuda", SPEC_DRAFT)
+    rng = np.random.default_rng(SEED + 42)
+    vocab, cap = MODEL["num_tokens"], SPEC_ENGINE["capacity"]
+    prompts = [rng.integers(0, vocab, n) for n in PROMPT_LENS]
+
+    ref, margins, first_logits, dec_walls = greedy_reference(
+        target, prompts, SPEC_TOKENS, cap)
+    dec = statistics.median(dec_walls)
+    print(f"  the target's greedy decode (prefill + decode_step argmax, "
+          f"{len(prompts)} slots) on {card}: {dec:.3f} ms a step median, "
+          f"{len(prompts) * 1e3 / dec:.1f} tokens/s")
+    # verify rows against decode_step logits for the same 4 tokens, from a
+    # second prefill of the same prompts (the verify appends in place)
+    tokens, lens = padded_prompts(prompts, "cuda")
+    state = init_decode_state(target, len(prompts), cap, device="cuda")
+    _, state = prefill(target, state, tokens, true_len=lens)
+    chunk = torch.from_numpy(ref[:, :SPEC_ENGINE["gamma"]]).cuda()
+    rows, _ = _verify_rows_batched(target, state, chunk, None)
+    dev = (rows.float().transpose(0, 1) - first_logits).abs().max().item()
+    print(f"  verify rows vs decode_step logits for the same 4 tokens of "
+          f"every prompt: max |diff| {dev:.4f} (must stay below the margin "
+          f"bar {MARGIN_BAR:g})")
+    if not dev < MARGIN_BAR:
+        fail(f"verify vs decode logits differ by {dev}, past the margin bar")
+
+    main = run_spec_engine("depth-2 draft", target, draft, prompts, ref,
+                           margins)
+    own = run_spec_engine("self-draft", target, target, prompts, ref,
+                          margins)
+    unexplained = [(i, at, n) for i, at, n in own["short"]
+                   if at + n - 1 < SPEC_TOKENS
+                   and at + n - 1 < own["first"].get(i, SPEC_TOKENS)
+                   and not margins[i, at + n - 1] < MARGIN_BAR]
+    print(f"  self-draft: {len(own['short'])} slot-rounds accepted fewer "
+          f"than gamma, {len(own['short']) - len(unexplained)} of them at a "
+          f"token under the margin bar or past the stream's divergence")
+    if unexplained:
+        fail(f"self-draft rejected proposals at clear margins: {unexplained}")
+
+    toks, acc = speculative_generate(
+        target, draft, torch.from_numpy(prompts[1])[None], SPEC_TOKENS, cap,
+        gamma=SPEC_ENGINE["gamma"], device="cuda")
+    margin_rule("b = 1 speculative_generate (depth-2 draft), "
+                f"{acc:.3f} accepted a round", [toks[0].tolist()],
+                ref[1:2], margins[1:2])
+    cached = generate_cached(target, torch.from_numpy(prompts[2])[None], 32,
+                             cap, filter_thres=0.999,
+                             generator=torch.Generator(device="cuda").manual_seed(3),
+                             device="cuda")
+    margin_rule("generate_cached of 32 tokens (top-k of 1)",
+                [cached[0].tolist()], ref[2:3, :32], margins[2:3, :32])
+    spec_parity()
+    return err, row, main["launches"][0]
 
 
 def main() -> None:
@@ -2480,6 +2897,10 @@ def main() -> None:
         print(f"  {name}: {'; '.join(sorted(set(regs)))}")
         print(f"  {name} instances that spill: "
               f"{', '.join(spilling(log)) or 'none'}")
+        wide = wide_registers(log)
+        if wide:
+            print(f"  {name} wide tensor-core instances' registers: "
+                  f"{', '.join(f'{k} {r}' for k, r in wide)}")
 
     print("[3] forward kernel vs plain")
     fwd_err, fwd_row = check_forward(smi)
@@ -2517,6 +2938,8 @@ def main() -> None:
     print("[16] head dims past 256")
     (x_err, x_rows, x_launches), (y_err, y_rows, y_launches) = (
         heads_past_256(smi))
+    print("[17] speculative decoding")
+    spec_err, spec_row, spec_launches = speculative(smi)
 
     bwd = "flash_cosine_sim_attention_tpu/ops/bwd_kernel.py"
     src = "flash_cosine_sim_attention_tpu_torch/csrc/bwd_kernel.cu"
@@ -2605,6 +3028,10 @@ def main() -> None:
         source=f"{csrc}/decode_kernel.cu",
         replaces="flash_cosine_sim_attention_tpu/quant/decode_kernel.py:137",
         launches=y_launches["k4"], max_abs_err=y_err["K4"], **y_rows["K4"]))
+    kernels.append(dict(
+        name="fwd_kernel:verify", route="cuda", source=f"{csrc}/fwd_kernel.cu",
+        replaces="flash_cosine_sim_attention_tpu/ops/fwd_kernel.py:47",
+        launches=spec_launches, max_abs_err=spec_err, **spec_row))
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke.py took {time.perf_counter() - started:.1f} s")
     print(smi)

@@ -132,14 +132,29 @@
 //   stays resident) to the dQ scratch's own columns with float2 atomics.
 //   K3b stages the bias tile with the first chunk.  Shared memory: 219 KB
 //   (K2) and 193 KB (K3b with a bias) at every d.
-// - K3a (`dq_wide_kernel`, both dtypes) and the f32 K2 and K3b
+// - bf16 K3a runs on the tensor cores (`dq_wide_mma_kernel`), the same
+//   design turned around: a block of 8 warps owns 64 queries and 256 dQ
+//   columns (a 128-column remainder at d 384 or 1152), so S and dP' are
+//   formed ceil(d / 256) times.  Per tile of 64 keys Q, dO', K and V
+//   stream in 256-byte row chunks through a double-buffered cp.async
+//   ring; warps 0-3 sum S = Q.K^T, warps 4-7 dP' = dO'.V^T over them,
+//   16 queries a warp.  Warps 0-3 form e and hand it to warps 4-7 through
+//   shared memory (C-fragment order); those form dS, add it to dB by float2
+//   atomics before any rounding (column block 0 alone, else dB would be
+//   counted once a column block) and hand it back over e.  Then each warp
+//   adds dQ[:, its 128 columns] += dS.K[:, those columns], dS as bf16 hi +
+//   lo, K's column tile (with the bias tile) loaded with the key tile's
+//   last chunk.  dQ is scaled once, at the store; causal key loops stop at
+//   the block's last diagonal, and query tiles run heaviest first.  Shared
+//   memory: 185 KB, 203 KB with a bias, at every d.
+// - The f32 K3a (`dq_wide_kernel<float>`) and the f32 K2 and K3b
 //   (`dkdv_wide_kernel`) stay FMA: each block owns 128 columns, S and dP'
 //   are summed over 64-lane d chunks staged in f32, e and dS formed as in
 //   the FMA kernels, and the block adds only its columns (dQ += scale
 //   dS.K[:, cols], dK, dV likewise; K2's atomics into the scratch's own
 //   columns).  Every column block forms the same S and dS again (4 times
-//   at d 512); dB is added by column block 0 alone, else it would be
-//   counted once a column block.  f32 tiles, 64 x 64, 256 threads.
+//   at d 512); dB is added by column block 0 alone.  f32 tiles, 64 x 64,
+//   256 threads.
 //
 // float32 inputs keep the FMA kernels `dkdv_kernel` and `dq_kernel`:
 // every product is an f32 FMA out of shared memory (tiles widened to f32
@@ -165,9 +180,7 @@ constexpr int NT = 256;   // FMA kernels' threads: 16 row groups x 16 lanes
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 struct Params {
   const void* q;        // (B, H, seq_q, d)
@@ -1393,11 +1406,11 @@ struct XLayout {
 static_assert(XLayout::K2 <= 232448 && XLayout::K3 + XLayout::BIAS <= 232448,
               "the wide dK/dV kernel's shared memory fits a block");
 
-// acc (16 x XCOL, C fragments) += c . src over the first nd16 16-column
+// acc (16 x 8 NA, C fragments) += c . src over the first nd16 16-column
 // pairs, c a (16 x N) f32 tile in C fragments fed as bf16 hi + lo A
 // fragments, src an (N x *) bf16 tile, rows RS bytes apart (ldmatrix.trans)
-template <int N, int RS>
-__device__ __forceinline__ void add_product_cols(float (&acc)[XCOL / 8][4],
+template <int N, int RS, int NA>
+__device__ __forceinline__ void add_product_cols(float (&acc)[NA][4],
                                                  const float (&c)[N / 8][4],
                                                  const unsigned char* src,
                                                  int lane, int nd16) {
@@ -1406,7 +1419,7 @@ __device__ __forceinline__ void add_product_cols(float (&acc)[XCOL / 8][4],
     uint32_t ah[4], al[4];
     split_a(c, j, ah, al);
 #pragma unroll
-    for (int dn = 0; dn < XCOL / 16; ++dn) {
+    for (int dn = 0; dn < NA / 2; ++dn) {
       if (dn >= nd16) break;
       uint32_t b[4];
       ldmatrix_x4_trans(b, src + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
@@ -1711,6 +1724,251 @@ __global__ void __launch_bounds__(XNT, 1) dkdv_wide_mma_kernel(Params p, int d) 
   }
 }
 
+// ---------------------------------------------------------------------------
+// Wide route's dQ / dB kernel on the tensor cores (bf16): K3a, d a multiple
+// of WCOL past 256.  Grid (query tiles, H, B x column blocks of YCOL),
+// query tiles heaviest first; YNT threads: warp w owns queries q0 + 16 (w %
+// 4) .. and half of the block's dQ columns (w / 4); warps 0-3 form S and
+// e, warps 4-7 dP' and dS.
+
+constexpr int YCOL = 256;  // dQ columns of a block: each of a query group's
+                           // two warps holds 16 x 128 f32, 64 registers
+constexpr int YNT = 256;   // threads: 8 warps
+constexpr int YBQ = 64;    // queries of a block
+constexpr int YBK = 64;    // keys a tile
+constexpr int YBS = YBK + 8;  // bias row stride, floats (as DqLayout's)
+constexpr size_t YSTAGE = size_t(2 * YBQ + 2 * YBK) * XCS;  // Q, dO', K, V
+struct YLayout {
+  // two chunk stages; K's column tile; e, then dS, as C fragments; then
+  // the bias tile (YBQ queries x YBK keys, f32).  The column tile and the
+  // bias tile come with a key tile's last chunk and are read only at it,
+  // so one buffer of each serves: the next tile's arrive two steps later
+  // at the earliest (a row has at least 3 chunks past d 256)
+  static constexpr size_t CHUNKS = 0;
+  static constexpr size_t KCOL = CHUNKS + 2 * YSTAGE;
+  static constexpr size_t ES = KCOL + size_t(YBK) * XVS;
+  static constexpr size_t BASE = ES + sizeof(float) * YBQ * YBK;
+  static constexpr size_t BIAS = sizeof(float) * YBQ * YBS;
+};
+static_assert(YLayout::BASE + YLayout::BIAS <= 232448,
+              "the wide dQ kernel's shared memory fits a block");
+
+__global__ void __launch_bounds__(YNT, 1) dq_wide_mma_kernel(Params p, int d) {
+  using T = __nv_bfloat16;
+  using L = YLayout;
+  constexpr int NK = YBK / 8;        // n8 tiles of a warp's (16 x YBK) tile
+  constexpr int NA = YCOL / 2 / 8;   // n8 tiles of a warp's dQ columns
+  extern __shared__ __align__(16) unsigned char msmem[];
+  unsigned char* kcol = msmem + L::KCOL;                // K[keys, cols]
+  float* es = reinterpret_cast<float*>(msmem + L::ES);  // e, then dS
+  float* bss = reinterpret_cast<float*>(msmem + L::BASE);  // the bias tile
+
+  const int ncb = (d + YCOL - 1) / YCOL;
+  const int bi = blockIdx.z / ncb, cb = blockIdx.z % ncb, c0 = cb * YCOL;
+  const int hcols = min(YCOL, d - c0) / 2;  // a warp's dQ columns
+  const int hi = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * YBQ;  // heaviest first
+  const int kvhi = hi / (p.H / p.KVH);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int qg = warp & 3;             // the warp's 16 queries
+  const bool forms_s = warp < 4;       // warp-uniform roles
+  const int part = warp >> 2;          // its half of the dQ columns
+  const int diff = p.seq_k - p.seq_q;
+  const int RB = 2 * d;                // bytes of a row
+  const int nch = RB / XCB;            // chunks of it
+  const size_t qrow0 = (size_t(bi) * p.H + hi) * p.seq_q;
+  const size_t kvrow0 = (size_t(bi) * p.KVH + kvhi) * p.seq_k;
+  auto bytes = [&](const void* t, size_t row0) {
+    return reinterpret_cast<const unsigned char*>(static_cast<const T*>(t) +
+                                                  row0 * d);
+  };
+  const unsigned char* qb = bytes(p.q, qrow0);
+  const unsigned char* dob = bytes(p.dO, qrow0);
+  const unsigned char* kb = bytes(p.k, kvrow0);
+  const unsigned char* vb = bytes(p.v, kvrow0);
+  const uint8_t* mb = p.mask ? p.mask + size_t(bi) * p.seq_k : nullptr;
+  const size_t bslice = size_t(p.bias_batch_dim ? bi : hi) * p.seq_q * p.seq_k;
+  const float* bb = p.bias ? p.bias + bslice : nullptr;
+  float* db = p.db && cb == 0 ? p.db + bslice : nullptr;  // counted once
+
+  // keys this block can see: all, or (causal) up to its last row's diagonal
+  const int last_row = min(q0 + YBQ, p.seq_q) - 1;
+  const int kend = p.causal ? max(0, min(p.seq_k, last_row + diff + 1)) : p.seq_k;
+  const int nk = (kend + YBK - 1) / YBK;
+  const int steps = nk * nch;  // (key tile, chunk), chunks fastest
+
+  const bool bias16 =
+      p.seq_k % 4 == 0 && reinterpret_cast<uintptr_t>(p.bias) % 16 == 0;
+  // step st's Q, dO', K and V chunks into stage st & 1; a key tile's last
+  // step also brings K's column tile and the bias tile
+  auto issue = [&](int st) {
+    if (st < steps) {
+      const int k0 = (st / nch) * YBK, ch = st % nch, off = ch * XCB;
+      unsigned char* stg = msmem + L::CHUNKS + (st & 1) * YSTAGE;
+      load_row_part<YNT>(stg, qb, q0, YBQ, p.seq_q, RB, off, XCB, XCS);
+      load_row_part<YNT>(stg + YBQ * XCS, dob, q0, YBQ, p.seq_q, RB, off, XCB,
+                         XCS);
+      load_row_part<YNT>(stg + 2 * YBQ * XCS, kb, k0, YBK, p.seq_k, RB, off,
+                         XCB, XCS);
+      load_row_part<YNT>(stg + (2 * YBQ + YBK) * XCS, vb, k0, YBK, p.seq_k, RB,
+                         off, XCB, XCS);
+      if (ch == nch - 1) {
+        load_row_part<YNT>(kcol, kb, k0, YBK, p.seq_k, RB, 2 * c0, 4 * hcols,
+                           XVS);
+        if (bb != nullptr)
+          load_bias_tile<YNT>(bss, bb + size_t(q0) * p.seq_k + k0, YBQ, YBK,
+                              p.seq_q - q0, p.seq_k - k0, p.seq_k, YBS, bias16);
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
+  // this thread's query rows: C rows g and g + 8 of the warp's 16
+  const int rows[2] = {q0 + qg * 16 + g, q0 + qg * 16 + g + 8};
+  float dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    dlt[h] = rows[h] < p.seq_q ? p.delta[qrow0 + rows[h]] : 0.f;
+  // dS goes to dB as float2 adds where a row's entries pair up 8-byte
+  // aligned (even seq_k: the tile columns 2tq are even)
+  const bool db2 = p.seq_k % 2 == 0;
+
+  float acc[NA][4];  // dQ[rows, c0 + part * hcols ..]
+#pragma unroll
+  for (int n = 0; n < NA; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float sc[NK][4];   // S (warps 0-3) or dP' (warps 4-7), summed over d
+  float* ef = es + qg * NK * 4 * 32 + lane;  // this lane's e / dS entries
+
+  for (int st = 0; st < steps; ++st) {
+    issue(st + 1);
+    cp_async_wait<1>();
+    __syncthreads();  // step st's chunks (and its tile's column tiles) landed
+    const int ch = st % nch, k0 = (st / nch) * YBK;
+    const unsigned char* stg = msmem + L::CHUNKS + (st & 1) * YSTAGE;
+    if (ch == 0) {
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+    }
+    // S += Q.K^T (warps 0-3) or dP' += dO'.V^T (warps 4-7) over the chunk:
+    // an x4 ldmatrix of K / V gives the B fragments of 2 n8 tiles
+    {
+      const unsigned char* at = stg + (forms_s ? 0 : YBQ * XCS);
+      const unsigned char* bt = stg + (2 * YBQ + (forms_s ? 0 : YBK)) * XCS;
+#pragma unroll
+      for (int kk = 0; kk < XCB / 32; ++kk) {
+        uint32_t a[4];
+        ldmatrix_x4(a, at + (qg * 16 + (lane & 15)) * XCS + kk * 32 +
+                           (lane >> 4) * 16);
+#pragma unroll
+        for (int j = 0; j < NK / 2; ++j) {
+          uint32_t b[4];
+          ldmatrix_x4(b, bt + (j * 16 + (lane & 7) + (lane >> 4) * 8) * XCS +
+                             kk * 32 + ((lane >> 3) & 1) * 16);
+          mma_bf16(sc[2 * j], a, b[0], b[1]);
+          mma_bf16(sc[2 * j + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    if (ch != nch - 1) {
+      __syncthreads();  // the next step's loads may overwrite this stage
+      continue;
+    }
+
+    // e in the C layout: entry (n, 2h + x) is query rows[h], key k0 + 8n +
+    // 2tq + x.  A tile whose every pair is visible (no key mask, inside
+    // both lengths and the causal diagonal) skips the masks; the bias
+    // comes from its staged tile
+    if (forms_s) {
+      const bool whole = mb == nullptr && k0 + YBK <= p.seq_k &&
+                         q0 + YBQ <= p.seq_q &&
+                         (!p.causal || k0 + YBK - 1 <= q0 + diff);
+      const float* bt = bss + (qg * 16 + g) * YBS + 2 * tq;
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float2 bv = make_float2(0.f, 0.f);
+          if (bb != nullptr)
+            bv = *reinterpret_cast<const float2*>(bt + 8 * h * YBS + n * 8);
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const float lg = sc[n][2 * h + x] * p.c + (x ? bv.y : bv.x) * LOG2E;
+            bool keep = true;
+            if (!whole) {
+              const int c = k0 + n * 8 + 2 * tq + x;
+              keep = rows[h] < p.seq_q && c < p.seq_k;
+              if (p.causal) keep = keep && c <= rows[h] + diff;
+              if (mb != nullptr) keep = keep && mb[min(c, p.seq_k - 1)] != 0;
+            }
+            const float e = keep ? exp2f(lg) : 0.f;
+            sc[n][2 * h + x] = e;
+            ef[(n * 4 + 2 * h + x) * 32] = e;
+          }
+        }
+    }
+    __syncthreads();  // e is staged for the dP' warps
+    if (!forms_s) {
+      // dS = e (dP' - delta'), e from the S warp of these queries, written
+      // back over it; each (row, key pair) adds its two dS to dB at once,
+      // before any rounding
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float ds[2];
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            float* at = ef + (n * 4 + 2 * h + x) * 32;
+            ds[x] = *at * (sc[n][2 * h + x] - dlt[h]);
+            sc[n][2 * h + x] = ds[x];
+            *at = ds[x];
+          }
+          const int col = k0 + n * 8 + 2 * tq;
+          if (db != nullptr && (ds[0] != 0.f || ds[1] != 0.f)) {
+            float* at = db + size_t(rows[h]) * p.seq_k + col;
+            if (db2 && col + 1 < p.seq_k) {
+              atomicAdd(reinterpret_cast<float2*>(at), make_float2(ds[0], ds[1]));
+            } else {
+              if (ds[0] != 0.f) atomicAdd(at, ds[0]);
+              if (ds[1] != 0.f) atomicAdd(at + 1, ds[1]);
+            }
+          }
+        }
+    }
+    __syncthreads();  // dS is staged for the S warps
+    if (forms_s) {
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = ef[(n * 4 + e) * 32];
+    }
+    // dQ[:, the warp's columns] += dS.K[:, those columns]: n8 tiles 2j, 2j
+    // + 1 of dS are the A fragments (hi and lo) of k16 step j
+    add_product_cols<YBK, XVS>(acc, sc, kcol + 2 * part * hcols, lane,
+                               hcols / 16);
+    __syncthreads();  // the next steps' loads may overwrite these buffers
+  }
+  cp_async_wait<0>();
+
+  T* dqb = static_cast<T*>(p.dq) + qrow0 * d + c0 + part * hcols;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (rows[h] >= p.seq_q) continue;
+#pragma unroll
+    for (int n = 0; n < NA; ++n) {
+      if (n * 8 >= hcols) break;
+      *reinterpret_cast<uint32_t*>(dqb + size_t(rows[h]) * d + n * 8 + 2 * tq) =
+          pack_bf16(acc[n][2 * h] * p.scale, acc[n][2 * h + 1] * p.scale);
+    }
+  }
+}
+
 enum Which { ONEPASS = 0, DQ = 1, DKDV = 2 };
 
 template <typename Kernel>
@@ -1768,13 +2026,14 @@ cudaError_t run_wide(Which which, const Params& p, int B, int d,
     kernel<<<grid, NT, smem, s>>>(p, d);
     return cudaGetLastError();
   };
-  if (which == DQ)
-    return launch_w(dq_wide_kernel<T>,
-                    dim3((p.seq_q + WB - 1) / WB, p.H, B * ncb),
-                    wide_dq_smem());
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     for (const void* t : {p.q, p.k, p.v, p.dO})
       if (reinterpret_cast<uintptr_t>(t) % 16 != 0) return cudaErrorMisalignedAddress;
+    if (which == DQ)
+      return launch_w(dq_wide_mma_kernel,
+                      dim3((p.seq_q + YBQ - 1) / YBQ, p.H,
+                           B * ((d + YCOL - 1) / YCOL)),
+                      YLayout::BASE + (p.bias ? YLayout::BIAS : 0));
     // key tiles slowest, so the causal blocks with the most work go first
     const dim3 grid(p.KVH, B * ((d + XCOL - 1) / XCOL), (p.seq_k + MBK - 1) / MBK);
     auto launch_x = [&](auto kernel, size_t smem) {
@@ -1789,6 +2048,10 @@ cudaError_t run_wide(Which which, const Params& p, int B, int d,
                : launch_x(dkdv_wide_mma_kernel<false>,
                           XLayout::K3 + (p.bias ? XLayout::BIAS : 0));
   } else {
+    if (which == DQ)
+      return launch_w(dq_wide_kernel<T>,
+                      dim3((p.seq_q + WB - 1) / WB, p.H, B * ncb),
+                      wide_dq_smem());
     const dim3 grid((p.seq_k + WB - 1) / WB, p.KVH, B * ncb);
     return which == ONEPASS
                ? launch_w(dkdv_wide_kernel<true>, grid, wide_dkdv_smem<true>())

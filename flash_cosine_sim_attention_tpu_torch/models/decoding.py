@@ -14,6 +14,8 @@ Counterpart of ``flash_cosine_sim_attention_tpu/models/decoding.py``:
   * ``prefill_paged``, ``decode_step_paged`` and ``prefill_continue_paged``
     do the same over per-layer page pools shared by all slots
     (``quant/paged.py``), through the paged decode kernel;
+  * ``generate_cached`` samples top-k through ``prefill`` and
+    ``decode_step`` (``models/speculative.py`` builds on the same pieces);
   * ``quantize_params`` turns every dense layer into an int8 one
     (``QuantDense``, ``quant/weights.py``), and ``fuse_qkv_params`` fuses
     each layer's q/k/v projections into one, plain or int8; all of the
@@ -46,7 +48,12 @@ from ..quant import (
     paged_decode_attention,
     quantized_decode_attention,
 )
-from .transformer import CosineSimCausalTransformer, Dense, QuantDense
+from .transformer import (
+    CosineSimCausalTransformer,
+    Dense,
+    QuantDense,
+    top_k_filter,
+)
 
 
 class DecodeState(NamedTuple):
@@ -220,6 +227,36 @@ def prefill_continue(model: CosineSimCausalTransformer, state: DecodeState,
     pos = state.pos.clone()
     pos[slot:slot + 1] = pos0 + n_new
     return _last_real(logits, true_len), DecodeState(tuple(caches), pos)
+
+
+@torch.no_grad()
+def generate_cached(model: CosineSimCausalTransformer, prime: torch.Tensor,
+                    seq_len: int, capacity: int, temperature: float = 1.0,
+                    filter_thres: float = 0.9,
+                    generator: Optional[torch.Generator] = None,
+                    device=None) -> torch.Tensor:
+    """Top-k sampling through the cached decode path: ``prefill`` of the
+    prompt ``prime`` (b, n), then ``seq_len - 1`` decode steps.  Returns
+    (b, seq_len) int64 tokens, each drawn from softmax(top_k_filter(logits)
+    / temperature) with ``generator``.  Runs on ``device`` (default
+    ``cuda``; raises when no card is present and the CPU was not asked
+    for), where ``model`` must lie."""
+    device = resolve_device(device)
+    if model.device != device:
+        raise ValueError(f"model lies on {model.device}, not on {device}")
+    state = init_decode_state(model, prime.shape[0], capacity, device=device)
+    logits, state = prefill(model, state, prime.to(device))
+
+    def sample(logits):
+        filtered = top_k_filter(logits.float(), filter_thres)
+        probs = torch.softmax(filtered / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+    toks = [sample(logits)]
+    for _ in range(seq_len - 1):
+        logits, state = decode_step(model, state, toks[-1])
+        toks.append(sample(logits))
+    return torch.stack(toks, dim=1)
 
 
 # ---------------------------------------------------------------------------

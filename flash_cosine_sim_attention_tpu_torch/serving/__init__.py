@@ -1,4 +1,5 @@
 from .engine import InferenceEngine
 from .paged_engine import PagedInferenceEngine
+from .spec_engine import SpeculativeEngine
 
-__all__ = ["InferenceEngine", "PagedInferenceEngine"]
+__all__ = ["InferenceEngine", "PagedInferenceEngine", "SpeculativeEngine"]

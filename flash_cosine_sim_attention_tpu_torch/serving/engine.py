@@ -48,6 +48,35 @@ def _bucket(n: int, buckets) -> int:
     raise ValueError(f"prompt length {n} exceeds largest bucket {buckets[-1]}")
 
 
+def _padded(tokens: np.ndarray, width: int, device) -> torch.Tensor:
+    """``tokens`` as a (1, width) batch, right-padded with 0."""
+    padded = np.zeros((1, width), np.int64)
+    padded[0, :len(tokens)] = tokens
+    return torch.from_numpy(padded).to(device)
+
+
+def _true_len(n: int, device) -> torch.Tensor:
+    return torch.tensor([n], dtype=torch.int32, device=device)
+
+
+def _slot_view(state: DecodeState, slot: int) -> DecodeState:
+    """``slot``'s cache rows as an empty batch-1 state (views of the
+    buffers), so that a prefill writes straight into them."""
+    return DecodeState(
+        tuple(c._replace(k8=c.k8[slot:slot + 1], v8=c.v8[slot:slot + 1],
+                         v_scale=c.v_scale[slot:slot + 1],
+                         length=torch.zeros_like(c.length[:1]))
+              for c in state.caches),
+        torch.zeros_like(state.pos[:1]))
+
+
+def _set_slot(state: DecodeState, slot: int, pos: int) -> None:
+    """Set one slot's cache lengths and position, in place."""
+    for c in state.caches:
+        c.length[slot] = pos
+    state.pos[slot] = pos
+
+
 class SlotEngine:
     """Host policy shared by the contiguous and the paged engine: slot
     flags, the host mirror of positions, sampling with the engine's own
@@ -85,14 +114,6 @@ class SlotEngine:
         filtered = top_k_filter(logits.float(), self.filter_thres)
         probs = torch.softmax(filtered / self.temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=self._gen)[:, 0]
-
-    def _padded(self, tokens: np.ndarray, width: int) -> torch.Tensor:
-        padded = np.zeros((1, width), np.int64)
-        padded[0, :len(tokens)] = tokens
-        return torch.from_numpy(padded).to(self.device)
-
-    def _true_len(self, n: int) -> torch.Tensor:
-        return torch.tensor([n], dtype=torch.int32, device=self.device)
 
     def free_slots(self) -> List[int]:
         return [i for i in range(self.num_slots)
@@ -211,13 +232,6 @@ class InferenceEngine(SlotEngine):
         self.state = init_decode_state(model, num_slots, capacity,
                                        device=self.device, kv_dtype=kv_dtype)
 
-    def _set_slot(self, slot: int, pos: int) -> None:
-        """Set one slot's cache lengths and position (engine-owned state,
-        updated in place)."""
-        for c in self.state.caches:
-            c.length[slot] = pos
-        self.state.pos[slot] = pos
-
     def add_request(self, prompt: np.ndarray,
                     chunk_tokens: Optional[int] = None) -> int:
         """Prefill ``prompt`` (1-D int array) into a free slot; returns it.
@@ -235,20 +249,14 @@ class InferenceEngine(SlotEngine):
 
         if chunk_tokens is not None:
             self._queue_chunks(slot, np.asarray(prompt), chunk_tokens)
-            self._set_slot(slot, 0)
+            _set_slot(self.state, slot, 0)
             return slot
 
         width = _bucket(n, self.buckets)
-        # prefill straight into the slot's cache rows (views of the buffers)
-        view = DecodeState(
-            tuple(c._replace(k8=c.k8[slot:slot + 1], v8=c.v8[slot:slot + 1],
-                             v_scale=c.v_scale[slot:slot + 1],
-                             length=torch.zeros_like(c.length[:1]))
-                  for c in self.state.caches),
-            torch.zeros_like(self.state.pos[:1]))
-        logits, _ = prefill(self.model, view, self._padded(prompt, width),
-                            true_len=self._true_len(n))
-        self._set_slot(slot, n)
+        logits, _ = prefill(self.model, _slot_view(self.state, slot),
+                            _padded(prompt, width, self.device),
+                            true_len=_true_len(n, self.device))
+        _set_slot(self.state, slot, n)
         self.host_pos[slot] = 0
         self._land_chunk(slot, self._sample(logits), n, True)
         return slot
@@ -262,8 +270,9 @@ class InferenceEngine(SlotEngine):
                 f"slot {slot}: prefill chunk (bucket-padded to {width}) "
                 f"would exceed capacity {self.capacity}")
         logits, self.state = prefill_continue(
-            self.model, self.state, slot, self._padded(tokens, width),
-            true_len=self._true_len(n))
+            self.model, self.state, slot,
+            _padded(tokens, width, self.device),
+            true_len=_true_len(n, self.device))
         self._land_chunk(slot, self._sample(logits), n, is_last)
 
     def _make_room(self, decode_active: np.ndarray, n: int) -> None:

@@ -30,7 +30,7 @@ from ..models.decoding import (
     prefill_paged,
 )
 from ..quant.paged import PageAllocator
-from .engine import SlotEngine, _bucket
+from .engine import SlotEngine, _bucket, _padded, _true_len
 
 
 class PagedInferenceEngine(SlotEngine):
@@ -122,8 +122,8 @@ class PagedInferenceEngine(SlotEngine):
         self._ensure_pages(slot, min(n + self.reserve_tokens,
                                      self.max_pages * self.page_size))
         logits, self.state = prefill_paged(
-            self.model, self.state, slot, self._padded(prompt, width),
-            true_len=self._true_len(n))
+            self.model, self.state, slot, _padded(prompt, width, self.device),
+            true_len=_true_len(n, self.device))
         self._land_chunk(slot, self._sample(logits), n, True)
         return slot
 
@@ -136,8 +136,8 @@ class PagedInferenceEngine(SlotEngine):
               if self.host_pos[slot] == 0 and not self.active[slot]
               else prefill_continue_paged)
         logits, self.state = fn(self.model, self.state, slot,
-                                self._padded(tokens, width),
-                                true_len=self._true_len(n))
+                                _padded(tokens, width, self.device),
+                                true_len=_true_len(n, self.device))
         self._land_chunk(slot, self._sample(logits), n, is_last)
 
     def _make_room(self, decode_active: np.ndarray, n: int) -> None:

@@ -37,6 +37,8 @@ def test_importing_the_port_loads_no_jax():
             "import flash_cosine_sim_attention_tpu_torch.models\n"
             "import flash_cosine_sim_attention_tpu_torch.serving\n"
             "import flash_cosine_sim_attention_tpu_torch.serving.paged_engine\n"
+            "import flash_cosine_sim_attention_tpu_torch.serving.spec_engine\n"
+            "import flash_cosine_sim_attention_tpu_torch.models.speculative\n"
             "import flash_cosine_sim_attention_tpu_torch.data\n"
             "import flash_cosine_sim_attention_tpu_torch.utils\n"
             "import flash_cosine_sim_attention_tpu_torch.train\n"
@@ -52,9 +54,10 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     from flash_cosine_sim_attention_tpu_torch.models import (
-        CosineSimCausalTransformer, init_decode_state, init_paged_decode_state)
+        CosineSimCausalTransformer, generate_cached, init_decode_state,
+        init_paged_decode_state, speculative_generate)
     from flash_cosine_sim_attention_tpu_torch.serving import (
-        InferenceEngine, PagedInferenceEngine)
+        InferenceEngine, PagedInferenceEngine, SpeculativeEngine)
 
     kw = dict(num_tokens=16, dim=32, max_seq_len=16, depth=1, heads=2,
               dim_head=16)
@@ -70,6 +73,13 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked():
                              max_pages_per_slot=1, prompt_buckets=(16,))
     with pytest.raises(RuntimeError, match="CUDA"):
         init_paged_decode_state(model, 1, 2, 128, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SpeculativeEngine(model, model, capacity=16, prompt_buckets=(16,))
+    prime = torch.zeros(1, 4, dtype=torch.long)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        speculative_generate(model, model, prime, 4, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate_cached(model, prime, 4, 16)
     from flash_cosine_sim_attention_tpu_torch import train
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--steps", "1"])

@@ -472,6 +472,20 @@ BWD_CASES = {
     "key-mask-gqa-d1032": (2, 4, 2, 70, 130, 1032, False, "some", None),
     "causal-key-mask-bias-gqa-d1032": (1, 4, 2, 100, 100, 1032, True, "some",
                                        "h"),
+    # the wide route's dQ kernel on the tensor cores (K3a past 256, dB added
+    # by column block 0 alone): d 264 (padded to 384, a remainder block),
+    # 512 and 1032 (padded to 1152: 4 full blocks and a remainder), seq_q
+    # below and past seq_k (cross alignment, partial tiles), key masks, GQA
+    # g 2, (h, i, j) and (b, i, j) biases
+    "bias-heads-cross-causal-gqa-d264": (2, 4, 2, 130, 200, 264, True, None,
+                                         "h"),
+    "key-mask-bias-batch-d264": (2, 4, 4, 200, 130, 264, False, "some", "b"),
+    "causal-key-mask-bias-batch-gqa-d512": (2, 4, 2, 130, 200, 512, True,
+                                            "some", "b"),
+    "bias-heads-d512": (2, 2, 2, 256, 256, 512, False, None, "h"),
+    "bias-batch-cross-mqa-d1032": (2, 2, 1, 130, 200, 1032, False, None, "b"),
+    "causal-key-mask-bias-heads-cross-gqa-d1032": (1, 4, 2, 200, 130, 1032,
+                                                   True, "some", "h"),
 }
 
 
@@ -532,7 +546,7 @@ def test_backward_kernels_match_plain(cuda_device, case, dtype, route):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("d", [64, 256, 512])
 @pytest.mark.parametrize("route", ["onepass", "twopass"])
 def test_backward_kernels_large_logits(cuda_device, route, d):
     """Scale 10 (and, on the two-pass route, an (h, i, j) bias up to 4): e
@@ -879,8 +893,8 @@ def test_decode_kernels_past_1024_match_plain(cuda_device, kern, kv, d):
 @pytest.mark.cuda
 def test_profiled_calls_name_the_wide_and_split_instances(cuda_device):
     """The profiler names the wide route's instances at d 512 (bf16: the
-    tensor-core fwd_wide_mma_kernel and dkdv_wide_mma_kernel, and the FMA
-    dq_wide_kernel; no bf16 FMA forward or dK/dV instance) and the
+    tensor-core fwd_wide_mma_kernel, dkdv_wide_mma_kernel and
+    dq_wide_mma_kernel; no FMA forward, dK/dV or dQ instance) and the
     split-K decode kernels, one kernel a decode call, the column-block
     instance past d 1024."""
     from torch.autograd import DeviceType
@@ -922,11 +936,11 @@ def test_profiled_calls_name_the_wide_and_split_instances(cuda_device):
     for name in ("fwd_wide_mma_kernel<__nv_bfloat16>",
                  "dkdv_wide_mma_kernel<true>",
                  "dkdv_wide_mma_kernel<false>",
-                 "dq_wide_kernel<__nv_bfloat16>", "decode_kernel<",
+                 "dq_wide_mma_kernel", "decode_kernel<",
                  "decode_cols_kernel<"):
         assert any(name in key for key in keys), (name, keys)
     assert not any("fwd_wide_kernel<" in key or "dkdv_wide_kernel<" in key
-                   for key in keys), keys
+                   or "dq_wide_kernel<" in key for key in keys), keys
     for name in ("decode_kernel<", "decode_cols_kernel<"):
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and name in e.key]
@@ -955,6 +969,31 @@ def test_bf16_two_pass_runs_the_tensor_core_dq_kernel(cuda_device, d):
     assert any(f"dkdv_mma_kernel<__nv_bfloat16, {d}, false>" in k
                for k in keys), keys
     assert not any("dq_kernel<" in k or "dkdv_kernel<" in k for k in keys)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bias-heads-cross-causal-gqa-d264",
+                                  "causal-key-mask-bias-batch-gqa-d512",
+                                  "bias-batch-cross-mqa-d1032"])
+def test_bf16_wide_two_pass_runs_the_tensor_core_dq_kernel(cuda_device, case):
+    """Past d 256 the bf16 two-pass route launches K3a's tensor-core
+    instance (dq_wide_mma_kernel) and K3b's, and no FMA instance of
+    either, as the profiler names them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args, kw = _bwd_inputs(cuda_device, case, torch.bfloat16)
+    bwd_kernel._backward_twopass(*args, **kw)   # builds and loads first
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bwd_kernel._backward_twopass(*args, **kw)
+        torch.cuda.synchronize()
+    keys = [e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    assert any("dq_wide_mma_kernel" in k for k in keys), keys
+    assert any("dkdv_wide_mma_kernel<false>" in k for k in keys), keys
+    assert not any("dq_wide_kernel<" in k or "dkdv_wide_kernel<" in k
+                   for k in keys), keys
 
 
 @pytest.mark.cuda
