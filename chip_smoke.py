@@ -102,9 +102,26 @@ Phases (any failure exits non-zero):
      rule (MARGIN_BAR), K1 and K4 launches read around each engine's
      traffic and checked per round; tokens a round, round wall and device
      time and idle share printed; one b = 1 speculative_generate and one
-     generate_cached of 32 tokens; card vs CPU at depth 2 in f32.
-Then one JSON line lists every ported kernel with its launches on its
-path, error, times and bound (timing lines also print the achieved
+     generate_cached of 32 tokens; card vs CPU at depth 2 in f32;
+ 18. tensor parallelism: a world of 2 ranks on the one card (gloo, CUDA
+     tensors; two ranks share the card's SMs, so this shows correctness
+     and launches, not a speed-up) on a (1, 2) mesh: (a) phase 13's
+     production model (int8 weights, fused QKV) served by InferenceEngine
+     at TP 2 (8 slots, capacity 2048, 8 prompts of 1024 tokens, 16 steps,
+     near-greedy), its tokens equal on both ranks and held to rank 0's TP
+     1 engine by the margin rule, its logits by phase 13's bars, K1, K4
+     and K7 launches read on each rank; (b) the validation model (float32
+     parameters) trained through make_sharded_train_step against the
+     trainer's train_step from the same weights: one float32-compute step
+     (loss and every gradient at the float32 bars) and 3 bf16-compute
+     steps (losses at 2^-7; the first step's gradients no farther from TP
+     1 than twice bf16's own distance from float32), K1 and K2 launches
+     read; (c) head_sharded_flash_attention and
+     head_sharded_decode_attention timed at phase 13's shapes; then a
+     world of 1 over NCCL serving (a) at depth 2.
+Then one JSON line lists every ported kernel, and phase 18's entry
+(each rank's launches and error), with its launches on its path, error,
+times and bound (timing lines also print the achieved
 TFLOP/s); the script's own wall time, the nvcc build included; the
 card's name and power limit; and, last, the {"ok": true, ...} line.
 Kernel device times come from torch.profiler, wrapper times are
@@ -198,6 +215,14 @@ SPEC_TOKENS = 48         # tokens a stream; 960 + 48 + gamma fits 1024
 # residual stream), and above the largest verify-vs-decode logit
 # difference the phase measures, which must stay below it.
 MARGIN_BAR = 2 ** -4
+# phase 18: tensor parallelism, TP_WORLD ranks sharing the one card over
+# gloo (which takes CUDA tensors for all_reduce and broadcast; NCCL takes
+# one rank a device): the production model served as in phase 13, the
+# validation model trained, the head-sharded ops timed
+TP_WORLD = 2
+TP_PROMPT, TP_STEPS = PROD_PROMPT, 16
+TP_TRAIN_STEPS = 3
+TP_TIMEOUT_S = 600       # a world's time limit, and its collectives'
 
 
 def fail(msg: str) -> None:
@@ -249,7 +274,8 @@ def cuda_rows(work, iters: int):
     with no record of the work's kernels at all (seen on the H100 over 3
     calls of kernels that had just run and been checked): such a window
     is profiled again, up to PROFILE_TRIES times, and then returned
-    empty."""
+    empty.  User annotations are left out: a gloo collective's range
+    (phase 18) spans the copies it issues and would count them twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -264,7 +290,7 @@ def cuda_rows(work, iters: int):
             torch.cuda.synchronize()
         rows = [(e.key, e.self_device_time_total, e.count)
                 for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                and "spin_kernel" not in e.key]
+                and "spin_kernel" not in e.key and not e.is_user_annotation]
         if rows:
             return rows
         print("  (the profiler recorded no kernel of the work in its window; "
@@ -2873,6 +2899,465 @@ def speculative(card: str):
     return err, row, main["launches"][0]
 
 
+def rel_l2(x: torch.Tensor, y: torch.Tensor) -> float:
+    """||x - y|| / ||y||."""
+    x, y = x.float(), y.float()
+    return ((x - y).norm() / y.norm()).item()
+
+
+def tp_counters():
+    """K1, K2, K4 and K7's launch counters, in that order."""
+    from flash_cosine_sim_attention_tpu_torch.ops import bwd_kernel as bk
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward)
+    from flash_cosine_sim_attention_tpu_torch.quant import (
+        quantized_decode_attention, quantized_matmul)
+    return (flash_attention_forward, bk.fused_bwd_kernel,
+            quantized_decode_attention, quantized_matmul)
+
+
+def tp_launches():
+    return dict(zip(("k1", "k2", "k4", "k7"),
+                    (c.launches for c in tp_counters())))
+
+
+def tp_reset():
+    for c in tp_counters():
+        c.launches = 0
+
+
+def tp_serve(mesh, depth: int):
+    """Phase 18 (a), on one rank: the production model (int8 weights,
+    fused QKV) at ``depth`` served by InferenceEngine over ``mesh`` (8
+    slots, capacity 2048; a warm-up request, then 8 prompts of TP_PROMPT
+    tokens and TP_STEPS steps, near-greedy), the logits it sampled from
+    recorded; rank 0 first serves the same traffic on one device (TP 1).
+    Returns numpy results and this rank's launches around the TP traffic."""
+    import copy
+
+    import torch.distributed as dist
+
+    from flash_cosine_sim_attention_tpu_torch.models import (
+        fuse_qkv_params, quantize_params)
+    from flash_cosine_sim_attention_tpu_torch.serving import InferenceEngine
+
+    class Recording(InferenceEngine):
+        """InferenceEngine that keeps the logits it samples from."""
+
+        def _sample(self, logits):
+            self.logits.append(logits.float().cpu().numpy())
+            return super()._sample(logits)
+
+    rank = dist.get_rank()
+    model = fuse_qkv_params(quantize_params(
+        build_prod_model(torch.bfloat16, "cuda", depth=depth)))
+    vocab = PROD_MODEL["num_tokens"]
+
+    def traffic(engine, timed):
+        rng = np.random.default_rng(SEED + 60)
+        engine.logits = []
+        engine.finish(engine.add_request(rng.integers(0, vocab, 60)))
+        engine.logits = []
+        if timed:
+            tp_reset()
+        streams, ttft, walls = [], [], []
+        for _ in range(PROD_ENGINE["num_slots"]):
+            prompt = rng.integers(0, vocab, TP_PROMPT)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            slot = engine.add_request(prompt)
+            torch.cuda.synchronize()
+            ttft.append(1e3 * (time.perf_counter() - t0))
+            streams.append([int(engine.last_token[slot])])
+        launches = tp_launches()
+        for _ in range(TP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = engine.step()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            for slot, tok in out.items():
+                streams[slot].append(tok)
+        prefill_rows = np.concatenate(engine.logits[:len(streams)])
+        step_rows = np.stack(engine.logits[len(streams):])
+        res = dict(tokens=np.array(streams), prefill=prefill_rows,
+                   steps=step_rows, ttft=ttft, walls=walls,
+                   prefill_launches=launches)
+        if timed:
+            res["launches"] = tp_launches()
+            rows = cuda_rows(engine.step, 2)
+            res["step_busy_ms"] = sum(t for _, t, _ in rows) / 2e3
+            res["step_top"] = [(k[:60], t / 2e3, c // 2) for k, t, c in
+                               sorted(rows, key=lambda r: -r[1])[:6]]
+        return res
+
+    kw = dict(PROD_ENGINE, temperature=1e-4, seed=SEED, device="cuda")
+    out = {}
+    if rank == 0:
+        ref_model = copy.deepcopy(model)
+        out["tp1"] = traffic(Recording(ref_model, **kw), False)
+        del ref_model
+        torch.cuda.empty_cache()
+    dist.barrier()
+    engine = Recording(model, mesh=mesh, **kw)
+    out["local_kv_heads"] = engine.state.caches[0].k8.shape[1]
+    out["tp"] = traffic(engine, True)
+    return out
+
+
+def tp_train(mesh):
+    """Phase 18 (b), on one rank: the validation model (float32
+    parameters) from one set of weights, TP 1 (the trainer's train_step)
+    against TP 2 (make_sharded_train_step, clip 0.5 as the trainer's): one
+    step in float32 compute, its loss and every gradient compared, then
+    TP_TRAIN_STEPS steps in bf16 compute, their losses and the first
+    step's gradients compared; bf16's own gradient error is read against
+    the float32 step.  Returns errors, losses and this rank's K1 and K2
+    launches around the TP steps."""
+    from flash_cosine_sim_attention_tpu_torch.models import (
+        CosineSimCausalTransformer)
+    from flash_cosine_sim_attention_tpu_torch.parallel import (
+        local_shard, make_sharded_train_step, param_shardings, shard_params)
+    from flash_cosine_sim_attention_tpu_torch.train import (
+        MAX_GRAD_NORM, make_optimizer, train_step)
+
+    torch.manual_seed(SEED + 50)
+    weights = CosineSimCausalTransformer(**MODEL, device="cuda").state_dict()
+    batch = torch.from_numpy(np.random.default_rng(SEED + 51).integers(
+        0, MODEL["num_tokens"], (1, 4, MODEL["max_seq_len"] + 1))).cuda()
+
+    def model(dtype):
+        m = CosineSimCausalTransformer(**MODEL, dtype=dtype, device="cuda")
+        m.load_state_dict(weights)
+        return m
+
+    def grads(m):
+        return {n: p.grad.detach().clone() for n, p in m.named_parameters()}
+
+    refs = {}
+    for dtype, steps in ((torch.float32, 1), (torch.bfloat16, TP_TRAIN_STEPS)):
+        ref = model(dtype)
+        opt = make_optimizer(ref)
+        losses = []
+        for s in range(steps):
+            losses.append(train_step(ref, opt, batch).item())
+            if s == 0:
+                first = grads(ref)
+        refs[dtype] = (losses, first)
+    tp_reset()
+    out = {}
+    for dtype, steps in ((torch.float32, 1), (torch.bfloat16, TP_TRAIN_STEPS)):
+        tp = shard_params(model(dtype), mesh)
+        step = make_sharded_train_step(tp, make_optimizer(tp), mesh,
+                                       max_grad_norm=MAX_GRAD_NORM)
+        losses = []
+        for s in range(steps):
+            losses.append(step(batch).item())
+            if s == 0:
+                got = grads(tp)
+        specs = param_shardings(tp, mesh)
+        want = {n: local_shard(g, mesh, specs[n])
+                for n, g in refs[dtype][1].items()}
+        f32 = {n: local_shard(g, mesh, specs[n])
+               for n, g in refs[torch.float32][1].items()}
+        out[str(dtype)[6:]] = dict(
+            losses=losses, ref_losses=refs[dtype][0],
+            grad_err=max(grad_err(got[n], want[n], dtype) for n in got),
+            rel_l2=max(rel_l2(got[n], want[n]) for n in got),
+            rel_l2_f32=max(rel_l2(got[n], f32[n]) for n in got))
+    # bf16's own distance from the float32 gradients, at TP 1
+    f32 = refs[torch.float32][1]
+    out["bf16_floor_rel_l2"] = max(rel_l2(refs[torch.bfloat16][1][n], f32[n])
+                                   for n in f32)
+    out["launches"] = tp_launches()
+    return out
+
+
+def tp_time(mesh):
+    """Phase 18 (c), on one rank: head_sharded_flash_attention at phase
+    13's prefill shape (b1 h16 s1024 d128 causal bf16) and
+    head_sharded_decode_attention at its decode shape (b8 h16 d128, 1060
+    of 2048 tokens a slot, this rank's 8 heads of the cache), CUDA-event
+    time of the whole calls on both ranks at once; the gathered outputs
+    against the unsharded ops on the same inputs; then, one rank at a
+    time, K1 and K4 on the local shard, and on rank 0 the whole op's
+    plain version and SDPA."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from flash_cosine_sim_attention_tpu_torch import (
+        flash_cosine_sim_attention, l2norm_tensors)
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward, flash_attention_forward_plain)
+    from flash_cosine_sim_attention_tpu_torch.parallel import (
+        DATA_AXIS, MODEL_AXIS, head_sharded_decode_attention,
+        head_sharded_flash_attention, local_shard, shard_cache, sharding)
+    from flash_cosine_sim_attention_tpu_torch.quant import (
+        append, init_cache, quantized_decode_attention)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 52)
+    h, d = PROD_MODEL["heads"], PROD_MODEL["dim_head"]
+    q, k = l2norm_tensors(torch.randn(1, h, 1024, d, device="cuda",
+                                      generator=g),
+                          torch.randn(1, h, 1024, d, device="cuda",
+                                      generator=g))
+    v = torch.randn(1, h, 1024, d, device="cuda", generator=g)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    kw = dict(causal=True, scale=1.0, l2norm_qk=False)
+    attn = lambda: head_sharded_flash_attention(q, k, v, mesh, **kw)  # noqa: E731
+    err = (attn().float() - flash_cosine_sim_attention(q, k, v, **kw).float()
+           ).abs().max().item()
+    attn_ms = event_ms(attn, iters=20)
+    b, cap, live = PROD_ENGINE["num_slots"], PROD_ENGINE["capacity"], 1060
+    kc = l2norm_tensors(torch.randn(b, h, live, d, device="cuda", generator=g))
+    vc = torch.randn(b, h, live, d, device="cuda", generator=g)
+    cache = append(init_cache(b, h, cap, d, "cuda"), kc, vc)
+    qd = l2norm_tensors(torch.randn(b, h, d, device="cuda", generator=g)
+                        ).to(torch.bfloat16)
+    local_cache = shard_cache(cache, mesh)
+    dec = lambda: head_sharded_decode_attention(  # noqa: E731
+        qd, local_cache, mesh, scale=1.0, l2norm_qk=False)
+    dec_err = (dec().float() - quantized_decode_attention(
+        qd, cache, scale=1.0, l2norm_qk=False).float()).abs().max().item()
+    dec_ms = event_ms(dec, iters=20)
+    out = dict(err=err, dec_err=dec_err, attn_ms=attn_ms, dec_ms=dec_ms)
+    spec = sharding(mesh, DATA_AXIS, MODEL_AXIS, None, None)
+    ql, kl, vl = (local_shard(t, mesh, spec).contiguous() for t in (q, k, v))
+    qdl = local_shard(qd, mesh, sharding(mesh, DATA_AXIS, MODEL_AXIS, None)
+                      ).contiguous()
+    fkw = dict(bias_batch_dim=False, scale=1.0, causal=True)
+    for turn in range(dist.get_world_size()):
+        dist.barrier()   # one rank at a time on the card
+        if turn != dist.get_rank():
+            continue
+        out["local_ms"] = device_ms(
+            lambda: flash_attention_forward(ql, kl, vl, None, None, **fkw))
+        out["local_dec_ms"] = device_ms(lambda: quantized_decode_attention(
+            qdl, local_cache, scale=1.0, l2norm_qk=False))
+        if turn == 0:   # the full op's plain version and SDPA
+            out["plain_ms"] = device_ms(lambda: flash_attention_forward_plain(
+                q, k, v, None, None, **fkw))
+            out["sdpa_ms"] = library_ms(
+                "SDPA b1 h16 s1024 d128", lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, scale=1.0))
+    dist.barrier()
+    return out
+
+
+def tp_rank(rank: int, world: int, workdir: str, backend: str,
+            depth: int) -> None:
+    """One rank of phase 18's world: every rank on the one card (device
+    0), the process group over ``backend`` with a file rendezvous in
+    ``workdir``; (a) at ``depth``, and with more than one rank (b) and
+    (c).  Writes its results, or its traceback, into ``workdir``."""
+    import datetime
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        torch.zeros(1, device="cuda")
+        dist.init_process_group(
+            backend, init_method=f"file://{workdir}/rendezvous", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+        from flash_cosine_sim_attention_tpu_torch.parallel import make_mesh
+        mesh = make_mesh(world, model_parallel=world)
+        out = dict(serve=tp_serve(mesh, depth))
+        if world > 1:
+            out["train"] = tp_train(mesh)
+            out["time"] = tp_time(mesh)
+        with open(f"{workdir}/rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(f"{workdir}/error{rank}.txt", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def tp_world(world: int, backend: str, depth: int):
+    """Run tp_rank on ``world`` processes; fail if any rank fails or the
+    world outlives TP_TIMEOUT_S.  Returns each rank's results."""
+    import multiprocessing
+    import pickle
+    import tempfile
+    from pathlib import Path
+
+    import shutil
+
+    workdir = Path(tempfile.mkdtemp(prefix="fcsa_tp_"))
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=tp_rank, args=(r, world, str(workdir),
+                                               backend, depth))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + TP_TIMEOUT_S
+    while (any(p.is_alive() for p in procs) and time.monotonic() < deadline
+           and not any(p.exitcode not in (None, 0) for p in procs)):
+        time.sleep(0.5)
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+        p.join(timeout=60)
+    errors = [f.read_text() for f in sorted(workdir.glob("error*.txt"))]
+    if errors or any(p.exitcode != 0 for p in procs):
+        fail(f"tensor-parallel world of {world} over {backend}: exit codes "
+             f"{[p.exitcode for p in procs]}\n" + "\n".join(errors))
+    out = []
+    for r in range(world):
+        with open(workdir / f"rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    shutil.rmtree(workdir)
+    return out
+
+
+def check_tp_serving(label, ranks, depth, card):
+    """Hold phase 18 (a)'s TP streams and logits to rank 0's TP 1 ones:
+    every rank's tokens equal, streams by the margin rule, logits by the
+    relative L2 bars of phase 13 up to each stream's first divergence;
+    launches as counted.  Returns (worst rel L2, launches per rank)."""
+    ref, tp = ranks[0]["serve"]["tp1"], [r["serve"]["tp"] for r in ranks]
+    for r, res in enumerate(tp[1:], 1):
+        if not np.array_equal(res["tokens"], tp[0]["tokens"]):
+            fail(f"{label}: rank {r}'s tokens differ from rank 0's")
+    top2 = np.sort(np.concatenate([ref["prefill"][:, None], ref["steps"]
+                                   .transpose(1, 0, 2)], axis=1), -1)
+    margins = top2[..., -1] - top2[..., -2]
+    first = margin_rule(f"{label}: TP streams vs TP 1", list(tp[0]["tokens"]),
+                        ref["tokens"], margins)
+    rel = [float(np.linalg.norm(tp[0]["prefill"] - ref["prefill"])
+                 / np.linalg.norm(ref["prefill"]))]
+    rows = [(s, j) for s in range(len(ref["tokens"]))
+            for j in range(TP_STEPS) if j + 1 <= first.get(s, TP_STEPS)]
+    a = np.stack([tp[0]["steps"][j, s] for s, j in rows])
+    b = np.stack([ref["steps"][j, s] for s, j in rows])
+    rel.append(float(np.linalg.norm(a - b) / np.linalg.norm(b)))
+    print(f"  {label}: logits vs TP 1, rel L2: prefill {rel[0]:.3e} (bar "
+          f"{QUANT_BARS[0]}), decode {rel[1]:.3e} over {len(rows)} "
+          f"slot-steps before any divergence (bar {QUANT_BARS[1]})")
+    if not (rel[0] < QUANT_BARS[0] and rel[1] < QUANT_BARS[1]):
+        fail(f"{label}: logits vs TP 1 {rel}")
+    passes = PROD_ENGINE["num_slots"] + TP_STEPS
+    want = dict(k1=depth * PROD_ENGINE["num_slots"], k2=0,
+                k4=depth * TP_STEPS, k7=passes * (4 * depth + 1))
+    launches = [r["serve"]["tp"]["launches"] for r in ranks]
+    for r, res in enumerate(tp):
+        dec = statistics.median(res["walls"])
+        busy = res["step_busy_ms"]
+        print(f"  {label} rank {r} on {card}: TTFT median "
+              f"{statistics.median(res['ttft']):.2f} ms ({TP_PROMPT}-token "
+              f"prompts); decode step {dec:.3f} ms median over {TP_STEPS} "
+              f"({8e3 / dec:.1f} tokens/s); device time {busy:.3f} ms a step "
+              f"(2 profiled), idle share {1 - busy / dec:.3f}; launches "
+              f"{launches[r]}")
+        print(f"  {label} rank {r}: the step's largest device times (ms a "
+              f"step, launches a step): " + "; ".join(
+                  f"{k} {t:.3f} ({c})" for k, t, c in res["step_top"]))
+        if launches[r] != want:
+            fail(f"{label} rank {r}: launches {launches[r]}, want {want}")
+    return max(rel), launches
+
+
+def tensor_parallel(card: str):
+    """Phase 18: tensor parallelism on the one card.  Returns the
+    `parallel` entry of the kernels line."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = tp_world(TP_WORLD, "gloo", PROD_MODEL["depth"])
+    print(f"  a world of {TP_WORLD} ranks on the one card over gloo (CUDA "
+          f"tensors), a (1, {TP_WORLD}) mesh, {time.perf_counter() - t0:.1f} "
+          f"s; each rank's cache holds "
+          f"{ranks[0]['serve']['local_kv_heads']} of "
+          f"{PROD_MODEL['heads']} kv heads")
+    rel, serve_launches = check_tp_serving(
+        f"(a) 0.81B int8 fused QKV, TP {TP_WORLD}", ranks,
+        PROD_MODEL["depth"], card)
+    for r, res in enumerate(ranks):
+        tr = res["train"]
+        for dtype in ("float32", "bfloat16"):
+            x = tr[dtype]
+            dl = max(abs(a - b) for a, b in zip(x["losses"], x["ref_losses"]))
+            print(f"  (b) rank {r}, validation model {dtype} compute, "
+                  f"{len(x['losses'])} step(s) TP {TP_WORLD} vs TP 1: losses "
+                  f"{', '.join(f'{v:.5f}' for v in x['losses'])} (TP 1 "
+                  f"{', '.join(f'{v:.5f}' for v in x['ref_losses'])}), "
+                  f"max |loss diff| {dl:.3e}; first step's gradients: "
+                  f"worst {x['grad_err']:.3e} in GRAD_BARS units, worst rel "
+                  f"L2 {x['rel_l2']:.3e}")
+        f32, bf16 = tr["float32"], tr["bfloat16"]
+        dl32 = abs(f32["losses"][0] - f32["ref_losses"][0])
+        rel16 = max(abs(a - b) / abs(b) for a, b in
+                    zip(bf16["losses"], bf16["ref_losses"]))
+        print(f"  (b) rank {r}: bf16's own gradient error (TP 1 bf16 vs "
+              f"float32 compute), worst rel L2 {tr['bf16_floor_rel_l2']:.3e}; "
+              f"TP {TP_WORLD} bf16 vs float32 compute {bf16['rel_l2_f32']:.3e};"
+              f" launches around the TP steps {tr['launches']}")
+        if not (dl32 <= LOSS_BAR and f32["grad_err"] <= F32_ERR_BAR):
+            fail(f"(b) rank {r}: float32 TP step vs TP 1: loss {dl32}, "
+                 f"gradients {f32['grad_err']}")
+        # bf16: TP 2 no farther from TP 1 than two runs each as far from
+        # float32 as bf16 puts TP 1 (the triangle inequality's bound)
+        if not (rel16 <= GRAD_BARS[torch.bfloat16]
+                and bf16["rel_l2"] <= 2 * tr["bf16_floor_rel_l2"]):
+            fail(f"(b) rank {r}: bf16 TP steps vs TP 1: loss rel {rel16}, "
+                 f"gradient rel L2 {bf16['rel_l2']} against bf16's own "
+                 f"{tr['bf16_floor_rel_l2']}")
+        want = (1 + TP_TRAIN_STEPS) * MODEL["depth"]
+        if (tr["launches"]["k1"], tr["launches"]["k2"]) != (want, want):
+            fail(f"(b) rank {r}: launches {tr['launches']}, want K1 and K2 "
+                 f"{want}")
+    times = [r["time"] for r in ranks]
+    for r, x in enumerate(times):
+        print(f"  (c) rank {r} on {card}: head_sharded_flash_attention b1 h16 "
+              f"s1024 d128 causal bf16 {x['attn_ms']:.4f} ms a call (CUDA "
+              f"events, both ranks at once, the gather's gloo all_reduce "
+              f"included); its K1 on the local 8 heads alone "
+              f"{x['local_ms']:.4f} ms device time; "
+              f"head_sharded_decode_attention b8 "
+              f"h16 d128 (1060 of 2048 tokens) {x['dec_ms']:.4f} ms a call, "
+              f"its K4 on 8 local heads {x['local_dec_ms']:.4f} ms; gathered "
+              f"outputs vs the unsharded ops: attention max |diff| "
+              f"{x['err']:.3e} (bar 0: the same tiles a head), decode "
+              f"{x['dec_err']:.3e} (bar {BF16_ERR_BAR:g}: the split over the "
+              f"cache may differ with the head count)")
+        if not (x["err"] == 0.0 and x["dec_err"] <= BF16_ERR_BAR):
+            fail(f"(c) rank {r}: the sharded ops differ from the unsharded "
+                 f"ones by {x['err']} and {x['dec_err']}")
+    print(f"  (c) the whole op on {card}, rank 0 alone: plain "
+          f"{times[0]['plain_ms']:.4f} ms, SDPA {times[0]['sdpa_ms']:.4f} ms")
+    t0 = time.perf_counter()
+    nccl = tp_world(1, "nccl", 2)
+    print(f"  a world of 1 over NCCL, (a) at depth 2: "
+          f"{time.perf_counter() - t0:.1f} s")
+    check_tp_serving("(a) over NCCL, world 1, depth 2", nccl, 2, card)
+    pairs = 1024 * 1025 / 2 * PROD_MODEL["heads"]
+    nbytes = 4 * 2 * 1024 * PROD_MODEL["heads"] * PROD_MODEL["dim_head"] \
+        + 1024 * PROD_MODEL["heads"] * 4
+    bound_ms, by = bound(4 * PROD_MODEL["dim_head"] * pairs, nbytes)
+    rank_launches = [dict(
+        serve={k: serve_launches[r][k] for k in ("k1", "k4", "k7")},
+        train={k: ranks[r]["train"]["launches"][k] for k in ("k1", "k2")})
+        for r in range(TP_WORLD)]
+    errs = [ranks[r]["time"]["err"] for r in range(TP_WORLD)]
+    return dict(
+        name=f"parallel:tp{TP_WORLD}", route="cuda",
+        source="flash_cosine_sim_attention_tpu_torch/parallel/"
+               "sharded_attention.py",
+        replaces="flash_cosine_sim_attention_tpu/parallel/"
+                 "sharded_attention.py:26",
+        launches=sum(sum(x["serve"].values()) + sum(x["train"].values())
+                     for x in rank_launches),
+        rank_launches=rank_launches, max_abs_err=max(errs),
+        rank_errors=errs, ms=times[0]["attn_ms"],
+        plain_ms=times[0]["plain_ms"], bound_ms=bound_ms, bound_by=by,
+        library_ms=times[0]["sdpa_ms"])
+
+
 def main() -> None:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2940,6 +3425,8 @@ def main() -> None:
         heads_past_256(smi))
     print("[17] speculative decoding")
     spec_err, spec_row, spec_launches = speculative(smi)
+    print("[18] tensor parallelism")
+    tp_entry = tensor_parallel(smi)
 
     bwd = "flash_cosine_sim_attention_tpu/ops/bwd_kernel.py"
     src = "flash_cosine_sim_attention_tpu_torch/csrc/bwd_kernel.cu"
@@ -3032,6 +3519,7 @@ def main() -> None:
         name="fwd_kernel:verify", route="cuda", source=f"{csrc}/fwd_kernel.cu",
         replaces="flash_cosine_sim_attention_tpu/ops/fwd_kernel.py:47",
         launches=spec_launches, max_abs_err=spec_err, **spec_row))
+    kernels.append(tp_entry)
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke.py took {time.perf_counter() - started:.1f} s")
     print(smi)

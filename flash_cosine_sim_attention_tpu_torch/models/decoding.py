@@ -35,6 +35,11 @@ import torch
 
 from .._build import resolve_device
 from ..ops import flash_attention_forward, flash_cosine_sim_attention
+from ..parallel.sharded_attention import head_sharded_flash_attention_local
+from ..parallel.sharded_decode import (
+    head_sharded_decode_attention_local,
+    local_kv_heads,
+)
 from ..quant import (
     PagedKVCache,
     QuantKVCache,
@@ -120,14 +125,25 @@ def init_decode_state(model: CosineSimCausalTransformer, batch: int,
                       kv_dtype=torch.int8) -> DecodeState:
     """Empty ``kv_dtype`` (int8 or float8_e4m3fn) caches for ``batch``
     slots on ``device`` (default ``cuda``; raises when no card is present
-    and the CPU was not asked for)."""
+    and the CPU was not asked for).  For a model sharded over a mesh, each
+    rank's caches hold its local KV heads (``cache_shardings``' rule; a
+    grouped cache the TP size does not divide raises)."""
     device = resolve_device(device)
+    kvh = (model.kv_heads if model.mesh is None
+           else local_kv_heads(model.mesh, model.kv_heads))
     caches = tuple(
-        init_cache(batch, model.kv_heads, capacity, model.dim_head, device,
+        init_cache(batch, kvh, capacity, model.dim_head, device,
                    kv_dtype=kv_dtype)
         for _ in range(model.depth))
     return DecodeState(caches, torch.zeros(batch, dtype=torch.int32,
                                            device=device))
+
+
+def _check_mesh(model: CosineSimCausalTransformer, mesh) -> None:
+    if mesh is not model.mesh:
+        raise ValueError(
+            "mesh= must be the mesh the model is sharded over (None for an "
+            "unsharded model): parallel.shard_params(model, mesh) first")
 
 
 def _last_real(logits: torch.Tensor, true_len: Optional[torch.Tensor]):
@@ -139,20 +155,25 @@ def _last_real(logits: torch.Tensor, true_len: Optional[torch.Tensor]):
 
 @torch.no_grad()
 def prefill(model: CosineSimCausalTransformer, state: DecodeState,
-            tokens: torch.Tensor, true_len: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, DecodeState]:
+            tokens: torch.Tensor, true_len: Optional[torch.Tensor] = None,
+            mesh=None) -> Tuple[torch.Tensor, DecodeState]:
     """Run the prompt (b, n) through full fused attention, filling the
     caches from empty.  Returns (logits of the last REAL prompt token,
     new state).  ``true_len`` ((b,), optional) supports right-padded,
     length-bucketed prompts: causal attention never attends positions to
     the right, and the cache lengths are cut to the true lengths so later
-    steps never attend the pads."""
+    steps never attend the pads.  ``mesh`` (serving TP; the mesh the model
+    is sharded over) routes attention through the head-sharded path:
+    every rank attends and caches its local heads."""
+    _check_mesh(model, mesh)
+    attend = (flash_cosine_sim_attention if mesh is None
+              else head_sharded_flash_attention_local)
     caches = list(state.caches)
 
     def attn(layer, q, k, v):
         caches[layer] = append(caches[layer], k, v)
-        return flash_cosine_sim_attention(
-            q, k, v, causal=True, scale=model.attn_scale, l2norm_qk=False)
+        return attend(q, k, v, causal=True, scale=model.attn_scale,
+                      l2norm_qk=False)
 
     logits = model.trunk(model.embed(tokens, state.pos), attn)
     if true_len is None:
@@ -165,17 +186,23 @@ def prefill(model: CosineSimCausalTransformer, state: DecodeState,
 
 @torch.no_grad()
 def decode_step(model: CosineSimCausalTransformer, state: DecodeState,
-                token: torch.Tensor, active: Optional[torch.Tensor] = None
+                token: torch.Tensor, mesh=None,
+                active: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, DecodeState]:
-    """One decode step: (b,) tokens in, (b, vocab) logits out.  ``active``
-    ((b,) bool, optional) freezes inactive slots' caches and positions, so
-    slots mid-prefill or finished ride along."""
+    """One decode step: (b,) tokens in, (b, vocab) logits out.  ``mesh``
+    routes attention through the head-sharded path (serving TP: each
+    rank's cache holds its local KV heads).  ``active`` ((b,) bool,
+    optional) freezes inactive slots' caches and positions, so slots
+    mid-prefill or finished ride along."""
+    _check_mesh(model, mesh)
+    attend = (quantized_decode_attention if mesh is None
+              else head_sharded_decode_attention_local)
     caches = list(state.caches)
 
     def attn(layer, q, k, v):
         caches[layer] = append(caches[layer], k, v, active=active)
-        return quantized_decode_attention(
-            q, caches[layer], scale=model.attn_scale, l2norm_qk=False)
+        return attend(q, caches[layer], scale=model.attn_scale,
+                      l2norm_qk=False)
 
     logits = model.trunk(model.embed(token[:, None], state.pos), attn)
     step = 1 if active is None else active.to(torch.int32)
@@ -240,7 +267,16 @@ def generate_cached(model: CosineSimCausalTransformer, prime: torch.Tensor,
     (b, seq_len) int64 tokens, each drawn from softmax(top_k_filter(logits)
     / temperature) with ``generator``.  Runs on ``device`` (default
     ``cuda``; raises when no card is present and the CPU was not asked
-    for), where ``model`` must lie."""
+    for), where ``model`` must lie.  Raises ``ValueError`` before any work
+    when the prompt and the ``seq_len - 1`` decoded tokens do not fit in
+    ``capacity`` cache rows (JAX's append would overwrite the newest
+    history there; the port's would index past the buffer)."""
+    need = prime.shape[1] + seq_len - 1
+    if need > capacity:
+        raise ValueError(
+            f"capacity {capacity} too small: cached decoding needs prime "
+            f"({prime.shape[1]}) + seq_len ({seq_len}) - 1 = {need} cache "
+            f"rows")
     device = resolve_device(device)
     if model.device != device:
         raise ValueError(f"model lies on {model.device}, not on {device}")
@@ -274,7 +310,12 @@ def init_paged_decode_state(model: CosineSimCausalTransformer,
     Every layer's cache holds the SAME ``page_table`` tensor (JAX keeps
     equal per-layer copies): a slot's pages are the same ids in every
     layer's pool, so the engine uploads one table when it changes.
+    Paged serving has no tensor parallelism (JAX's paged engine takes no
+    mesh): a sharded model raises.
     """
+    if model.mesh is not None:
+        raise ValueError("paged decoding of a tensor-parallel model is not "
+                         "supported: serve it with InferenceEngine(mesh=)")
     device = resolve_device(device)
     caches = [init_paged_cache(num_pages, model.kv_heads, page_size,
                                model.dim_head, num_slots, max_pages_per_slot,

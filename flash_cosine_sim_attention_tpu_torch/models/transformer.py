@@ -28,6 +28,16 @@ from ..ops import (
     non_cosine_sim_attention,
     plain_cosine_sim_attention,
 )
+from ..parallel.mesh import (
+    MODEL_AXIS,
+    axis_size,
+    copy_to_model,
+    reduce_from_model,
+)
+from ..parallel.sharded_attention import (
+    head_sharded_flash_attention_local,
+    shard_kv,
+)
 from ..quant.weights import quantize_dense_kernel, quantized_matmul
 
 LAYERNORM_EPS = 1e-6  # flax default
@@ -112,7 +122,17 @@ class Embed(nn.Module):
 class Attention(nn.Module):
     """Causal cosine-sim attention block: projections without bias; the
     fused op, the plain oracle (``use_fused=False``) or the vanilla-softmax
-    baseline (``non_cosine_sim_attn``)."""
+    baseline (``non_cosine_sim_attn``).
+
+    Once ``parallel.shard_params`` has sharded it over ``mesh``, the block
+    holds this rank's heads: ``heads`` and ``kv_heads`` are the local
+    counts, q/k/v are column-parallel (their input passes
+    ``copy_to_model``), the attention runs on the local heads
+    (``head_sharded_flash_attention_local``, before ``use_fused``, as in
+    JAX) and ``to_out`` is row-parallel, summed over the model axis.  KV
+    weights whose heads the TP size does not divide are replicated
+    (``kv_replicated``): every rank projects the full KV, its gradient is
+    summed over the model axis, and ``shard_kv`` takes the rank's KV."""
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
                  kv_heads: Optional[int] = None, scale: float = 8.0,
@@ -138,21 +158,34 @@ class Attention(nn.Module):
         # one [q | k | v] projection in place of the three, once
         # ``fuse_qkv_params`` has fused them
         self.register_module("to_qkv", None)
+        self.mesh, self.kv_replicated = None, False
 
     def project(self, x: torch.Tensor):
-        """(b, n, dim) -> q (b, h, n, d), k, v (b, kvh, n, d)."""
+        """(b, n, dim) -> q (b, h, n, d), k, v (b, kvh, n, d); sharded, this
+        rank's heads, KV as ``shard_kv`` gives it."""
         if self.norm is not None:
             x = self.norm(x)
+        xt = x if self.mesh is None else copy_to_model(x, self.mesh)
 
         def split(t, nh):
             return t.reshape(*t.shape[:-1], nh, self.dim_head).transpose(1, 2)
         if self.to_qkv is not None:
             dq, dkv = self.heads * self.dim_head, self.kv_heads * self.dim_head
-            q, k, v = self.to_qkv(x).split((dq, dkv, dkv), dim=-1)
+            q, k, v = self.to_qkv(xt).split((dq, dkv, dkv), dim=-1)
+        elif self.kv_replicated:
+            # the full KV on every rank; each uses part of it, so its
+            # gradient is summed over the model axis
+            q = self.to_q(xt)
+            k, v = (copy_to_model(f(x), self.mesh)
+                    for f in (self.to_k, self.to_v))
         else:
-            q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
-        return (split(q, self.heads), split(k, self.kv_heads),
-                split(v, self.kv_heads))
+            q, k, v = self.to_q(xt), self.to_k(xt), self.to_v(xt)
+        q, k, v = (split(q, self.heads), split(k, self.kv_heads),
+                   split(v, self.kv_heads))
+        if self.kv_replicated:
+            k, v = shard_kv(k, v, self.heads * axis_size(self.mesh, MODEL_AXIS),
+                            self.mesh)
+        return q, k, v
 
     def qkv(self, x: torch.Tensor):
         """``project`` with q and k l2-normalized."""
@@ -163,19 +196,26 @@ class Attention(nn.Module):
     def out(self, o: torch.Tensor) -> torch.Tensor:
         """(b, h, n, d) attention output -> (b, n, dim)."""
         o = o.transpose(1, 2)
-        return self.to_out(o.reshape(*o.shape[:2], -1))
+        y = self.to_out(o.reshape(*o.shape[:2], -1))
+        return y if self.mesh is None else reduce_from_model(y, self.mesh)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.non_cosine_sim_attn:
             return self.out(non_cosine_sim_attention(*self.project(x)))
-        attend = (flash_cosine_sim_attention if self.use_fused
-                  else plain_cosine_sim_attention)
+        if self.mesh is not None:
+            attend = head_sharded_flash_attention_local
+        elif self.use_fused:
+            attend = flash_cosine_sim_attention
+        else:
+            attend = plain_cosine_sim_attention
         return self.out(attend(*self.qkv(x), causal=True, scale=self.scale,
                                l2norm_qk=False))
 
 
 class FeedForward(nn.Module):
-    """Linear-GELU(tanh)-Linear, ``mult``x expansion."""
+    """Linear-GELU(tanh)-Linear, ``mult``x expansion.  Sharded over
+    ``mesh``: ``proj_in`` column-parallel, ``proj_out`` row-parallel and
+    summed over the model axis."""
 
     def __init__(self, dim: int, mult: int = 4, pre_norm: bool = False,
                  init_gain: float = 1.0, dtype=torch.float32,
@@ -185,11 +225,16 @@ class FeedForward(nn.Module):
         self.norm = LayerNorm(dim, **kw) if pre_norm else None
         self.proj_in = Dense(dim, dim * mult, init_gain, **kw)
         self.proj_out = Dense(dim * mult, dim, init_gain, **kw)
+        self.mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.norm is not None:
             x = self.norm(x)
-        return self.proj_out(F.gelu(self.proj_in(x), approximate="tanh"))
+        if self.mesh is None:
+            return self.proj_out(F.gelu(self.proj_in(x), approximate="tanh"))
+        y = self.proj_out(F.gelu(self.proj_in(copy_to_model(x, self.mesh)),
+                                 approximate="tanh"))
+        return reduce_from_model(y, self.mesh)
 
 
 # attn_fn(layer, q, k, v) -> (b, h, n, d) attention output of that layer
@@ -203,14 +248,19 @@ class CosineSimCausalTransformer(nn.Module):
     Built on ``device`` (default ``cuda``; raises when no card is present
     and the CPU was not asked for), with JAX's init: post-norm takes the
     DeepNet gain (8 * depth) ** -0.25 on to_v / to_out / FF and embeddings
-    N(0, 1e-5), pre-norm gain 1 and N(0, 0.02)."""
+    N(0, 1e-5), pre-norm gain 1 and N(0, 0.02).  With ``mesh`` (a (data,
+    model) ``DeviceMesh``, ``parallel.make_mesh``) the full weights drawn
+    from the torch seed are sharded at once (``parallel.shard_params``):
+    each rank keeps its slices and runs tensor-parallel.  ``heads`` and
+    ``kv_heads`` stay the model's global counts."""
 
     def __init__(self, num_tokens: int, dim: int, max_seq_len: int,
                  depth: int, heads: int = 8, kv_heads: Optional[int] = None,
                  dim_head: int = 64, attn_scale: float = 8.0,
                  attn_l2norm_groups: int = 1, pre_norm: bool = False,
                  use_fused: bool = True, non_cosine_sim_attn: bool = False,
-                 dtype=torch.float32, param_dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=torch.float32, device=None,
+                 mesh=None):
         super().__init__()
         device = resolve_device(device)
         self.num_tokens, self.dim, self.max_seq_len = num_tokens, dim, max_seq_len
@@ -239,6 +289,10 @@ class CosineSimCausalTransformer(nn.Module):
             self.ff_norm = nn.ModuleList(
                 LayerNorm(dim, **kw) for _ in range(depth))
         self.to_logits = Dense(dim, num_tokens, 1.0, **kw)
+        self.mesh = None
+        if mesh is not None:
+            from ..parallel.train import shard_params
+            shard_params(self, mesh)
 
     @property
     def device(self) -> torch.device:

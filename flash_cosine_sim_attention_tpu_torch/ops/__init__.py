@@ -2,7 +2,7 @@ from .bwd_kernel import (
     flash_attention_backward,
     flash_attention_backward_plain,
 )
-from .flash_attention import flash_cosine_sim_attention
+from .flash_attention import debug, flash_cosine_sim_attention
 from .fwd_kernel import flash_attention_forward, flash_attention_forward_plain
 from .reference import (
     canonicalize_qkv,
@@ -16,6 +16,7 @@ from .reference import (
 
 __all__ = [
     "canonicalize_qkv",
+    "debug",
     "flash_attention_backward",
     "flash_attention_backward_plain",
     "flash_attention_forward",

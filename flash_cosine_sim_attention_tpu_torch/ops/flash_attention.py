@@ -135,3 +135,8 @@ def flash_cosine_sim_attention(
                               float(scale), bool(causal), qk_quant)
     o = o.to(in_dtype)
     return o[:, 0] if merged else o
+
+
+def debug():
+    """No-op debug hook, kept for API parity with the JAX package."""
+    return None

@@ -29,6 +29,8 @@ from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from .._build import resolve_device
 from ..models.decoding import (
@@ -39,6 +41,8 @@ from ..models.decoding import (
     prefill_continue,
 )
 from ..models.transformer import top_k_filter
+from ..parallel import DATA_AXIS, MODEL_AXIS, shard_params
+from ..parallel.mesh import axis_size
 
 
 def _bucket(n: int, buckets) -> int:
@@ -75,6 +79,16 @@ def _set_slot(state: DecodeState, slot: int, pos: int) -> None:
     for c in state.caches:
         c.length[slot] = pos
     state.pos[slot] = pos
+
+
+def _same_on_every_rank(tokens: torch.Tensor, mesh) -> None:
+    """Raise unless ``tokens`` equal the model axis's rank 0's."""
+    group = mesh.get_group(MODEL_AXIS)
+    first = tokens.clone()
+    dist.broadcast(first, src=dist.get_process_group_ranks(group)[0],
+                   group=group)
+    if not torch.equal(first, tokens):
+        raise RuntimeError("tensor-parallel ranks sampled different tokens")
 
 
 class SlotEngine:
@@ -202,8 +216,6 @@ class SlotEngine:
 
 
 class InferenceEngine(SlotEngine):
-    _decode_step = staticmethod(decode_step)
-
     def __init__(
         self,
         model,
@@ -220,17 +232,45 @@ class InferenceEngine(SlotEngine):
         """Serve ``model`` (a ``CosineSimCausalTransformer`` holding its
         weights) on ``device`` (default ``cuda``; raises when no card is
         present and the CPU was not asked for) from ``kv_dtype`` caches
-        (int8 or float8_e4m3fn).  ``mesh`` (serving tensor parallelism) is
-        not ported."""
+        (int8 or float8_e4m3fn).
+
+        ``mesh`` enables serving tensor parallelism: use a (data 1, model
+        N) mesh, as in JAX (prefill runs one request at a time), with one
+        engine on every rank, each fed the same requests.  The model is
+        sharded over it in place (``parallel.shard_params``) unless it is
+        already; every rank's caches hold its local KV heads and attention
+        runs on its local heads.  The logits after the last all-reduce are
+        the same on every rank, so every rank's generator, seeded alike,
+        samples the same tokens; under ``__debug__`` the first decode step
+        checks that against rank 0's tokens."""
         if mesh is not None:
-            raise NotImplementedError(
-                "serving tensor parallelism (mesh=) is not ported to the "
-                "PyTorch package yet")
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a DeviceMesh "
+                                f"(parallel.make_mesh), not {type(mesh)}")
+            if axis_size(mesh, DATA_AXIS) != 1:
+                raise ValueError("serving tensor parallelism takes a (data "
+                                 "1, model N) mesh")
+            if model.mesh is None:
+                shard_params(model, mesh)
+            elif model.mesh is not mesh:
+                raise ValueError("the model is sharded over another mesh")
+        self.mesh = mesh
+        self._check_ranks = mesh is not None and __debug__
         super().__init__(model, num_slots, capacity, temperature,
                          filter_thres, prompt_buckets, seed, device)
         self.capacity = capacity
         self.state = init_decode_state(model, num_slots, capacity,
                                        device=self.device, kv_dtype=kv_dtype)
+
+    def _decode_step(self, model, state, last, active):
+        return decode_step(model, state, last, mesh=self.mesh, active=active)
+
+    def _decode(self, active: torch.Tensor) -> torch.Tensor:
+        toks = super()._decode(active)
+        if self._check_ranks:
+            self._check_ranks = False
+            _same_on_every_rank(toks, self.mesh)
+        return toks
 
     def add_request(self, prompt: np.ndarray,
                     chunk_tokens: Optional[int] = None) -> int:
@@ -255,7 +295,8 @@ class InferenceEngine(SlotEngine):
         width = _bucket(n, self.buckets)
         logits, _ = prefill(self.model, _slot_view(self.state, slot),
                             _padded(prompt, width, self.device),
-                            true_len=_true_len(n, self.device))
+                            true_len=_true_len(n, self.device),
+                            mesh=self.mesh)
         _set_slot(self.state, slot, n)
         self.host_pos[slot] = 0
         self._land_chunk(slot, self._sample(logits), n, True)

@@ -8,24 +8,45 @@ bf16 compute with float32 parameters.  If ``data/enwik8.gz`` is absent a
 deterministic synthetic byte corpus stands in, as in the JAX trainer.
 Runs on ``cuda`` unless ``--device cpu`` is given.
 
+``--model-parallel N`` shards the model over a (data W / N, model N) mesh
+(``parallel/``): run it under ``torchrun --nproc-per-node W``, one process
+a rank and a device (NCCL on the card, gloo with ``--device cpu``).  Every
+rank draws the same global batch and takes its data rows; only rank 0
+prints and checkpoints.  Checkpoints hold the full weights: they are
+gathered before saving and sharded again after restoring, so a
+tensor-parallel checkpoint restores into a single-device run and back.
+
 Usage:
   python -m flash_cosine_sim_attention_tpu_torch.train --seq-len 1024 \\
       --steps 1000 [--use-float32] [--no-fused] [--device cpu]
+  torchrun --nproc-per-node 2 -m flash_cosine_sim_attention_tpu_torch.train \\
+      --model-parallel 2 [--device cpu]
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import os
+import tempfile
 import time
 from typing import Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ._build import resolve_device
 from .data import TextSampler, synthetic_corpus
 from .models import CosineSimCausalTransformer, generate
+from .parallel import (
+    make_mesh,
+    make_sharded_train_step,
+    shard_opt_state,
+    shard_params,
+    unshard_opt_state,
+    unshard_params,
+)
 from .utils import restore_checkpoint, save_checkpoint
 
 # the JAX trainer's constants (train.py:40-45)
@@ -38,24 +59,46 @@ GENERATE_EVERY = 500
 GENERATE_LENGTH = 512
 
 
-def make_sampler(path="data/enwik8.gz", seed=0) -> TextSampler:
+def make_sampler(path="data/enwik8.gz", seed=0, log=print) -> TextSampler:
     """enwik8 90M/5M split through the native sampler; the deterministic
     synthetic corpus (written once to data/synthetic.raw, the JAX
     trainer's file) when enwik8 is absent."""
     if not os.path.exists(path):
         synth = "data/synthetic.raw"
         if not os.path.exists(synth):
-            print("data/enwik8.gz not found - generating deterministic "
-                  "synthetic byte corpus (drop enwik8.gz into data/ for the "
-                  "real benchmark)")
+            log("data/enwik8.gz not found - generating deterministic "
+                "synthetic byte corpus (drop enwik8.gz into data/ for the "
+                "real benchmark)")
             os.makedirs("data", exist_ok=True)
-            with open(synth, "wb") as f:
+            fd, tmp = tempfile.mkstemp(dir="data")
+            with os.fdopen(fd, "wb") as f:
                 f.write(synthetic_corpus().tobytes())
+            os.replace(tmp, synth)  # atomic: ranks may write it together
         path = synth
     sampler = TextSampler(path, train_frac=90 / 95, seed=seed)
-    print(f"data: {path}  loader backend: {sampler.backend}  "
-          f"bytes: {sampler.size:,}")
+    log(f"data: {path}  loader backend: {sampler.backend}  "
+        f"bytes: {sampler.size:,}")
     return sampler
+
+
+def init_model_parallel(model_parallel: int, device=None):
+    """Join the process group ``torchrun`` describes in the environment
+    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``): NCCL on
+    the card with each rank on device ``LOCAL_RANK``, gloo on the CPU; and
+    return a (data W / N, model N) mesh over it.  Raises outside torchrun
+    or when N does not divide W."""
+    if "RANK" not in os.environ:
+        raise RuntimeError("--model-parallel runs under torchrun "
+                           "--nproc-per-node W, one process a rank")
+    on_card = resolve_device(device).type == "cuda"
+    if on_card:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if on_card else "gloo")
+    if dist.get_world_size() % model_parallel:
+        raise ValueError(f"--model-parallel {model_parallel} does not "
+                         f"divide the world size {dist.get_world_size()}")
+    return make_mesh(model_parallel=model_parallel,
+                     device_type="cuda" if on_card else "cpu")
 
 
 def decode_bytes(tokens) -> str:
@@ -122,23 +165,32 @@ def main(argv=None):
                     help="save/resume checkpoints here (torch.save)")
     ap.add_argument("--checkpoint-every", type=int, default=1000)
     ap.add_argument("--model-parallel", type=int, default=0,
-                    help="not ported: tensor parallelism")
+                    help="shard over a (data, model) mesh (0 = single "
+                         "device): heads and the MLP hidden over `model`, "
+                         "batch over `data`; run under torchrun")
     ap.add_argument("--pipeline-parallel", type=int, default=0,
-                    help="not ported: GPipe pipeline")
+                    help="GPipe pipeline: not ported yet (next slices)")
     ap.add_argument("--coordinator", type=str, default="",
-                    help="not ported: multi-host coordinator address")
+                    help="multi-host coordinator address: not ported yet "
+                         "(next slices)")
     ap.add_argument("--num-processes", type=int, default=1,
-                    help="not ported: multi-host process count")
+                    help="multi-host process count: not ported yet (next "
+                         "slices)")
     ap.add_argument("--process-id", type=int, default=-1,
-                    help="not ported: multi-host process id")
+                    help="multi-host process id: not ported yet (next "
+                         "slices)")
     args = ap.parse_args(argv)
-    if (args.model_parallel > 1 or args.pipeline_parallel > 1
-            or args.coordinator or args.num_processes > 1
-            or args.process_id >= 0):
+    if (args.pipeline_parallel > 1 or args.coordinator
+            or args.num_processes > 1 or args.process_id >= 0):
         raise NotImplementedError(
-            "model, pipeline and multi-host parallelism are not ported to "
-            "the PyTorch package yet")
+            "pipeline and multi-host parallelism are not ported to the "
+            "PyTorch package yet")
 
+    mesh = None
+    if args.model_parallel > 1:
+        mesh = init_model_parallel(args.model_parallel, args.device)
+    is_main = mesh is None or dist.get_rank() == 0
+    log = print if is_main else (lambda *a, **k: None)
     device = resolve_device(args.device)
     dtype = torch.float32 if args.use_float32 else torch.bfloat16
     torch.manual_seed(args.seed)
@@ -147,10 +199,10 @@ def main(argv=None):
         max_seq_len=args.seq_len, attn_scale=1.0, attn_l2norm_groups=8,
         use_fused=not args.no_fused, pre_norm=True, dtype=dtype,
         device=device)
-    sampler = make_sampler(seed=args.seed)
+    sampler = make_sampler(seed=args.seed, log=log)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"params: {n_params / 1e6:.1f}M  dtype: {str(dtype)[6:]}  "
-          f"fused: {not args.no_fused}  device: {device}")
+    log(f"params: {n_params / 1e6:.1f}M  dtype: {str(dtype)[6:]}  "
+        f"fused: {not args.no_fused}  device: {device}")
     optimizer = make_optimizer(model)
 
     start_step = 0
@@ -158,7 +210,16 @@ def main(argv=None):
         ck_step = restore_checkpoint(args.checkpoint_dir, model, optimizer)
         if ck_step is not None:
             start_step = ck_step + 1
-            print(f"resumed from step {ck_step}")
+            log(f"resumed from step {ck_step}")
+    step_fn = functools.partial(train_step, model, optimizer)
+    if mesh is not None:
+        # shard after restoring: the checkpoint holds the full weights,
+        # and the restored moments are sliced, not dropped
+        shard_params(model, mesh)
+        shard_opt_state(optimizer, model, mesh)
+        step_fn = make_sharded_train_step(model, optimizer, mesh,
+                                          max_grad_norm=MAX_GRAD_NORM)
+        log(f"mesh: data={mesh.size(0)} model={mesh.size(1)}")
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     t_start = time.time()
@@ -167,9 +228,9 @@ def main(argv=None):
     for step in range(start_step, args.steps):
         batches = torch.from_numpy(next(train_stream)).to(device).view(
             GRAD_ACCUM, args.batch_size, args.seq_len + 1)
-        loss = train_step(model, optimizer, batches)
+        loss = step_fn(batches)
 
-        if step % 10 == 0:
+        if step % 10 == 0 and is_main:
             loss = loss.item()
             toks = ((step - start_step + 1) * GRAD_ACCUM * args.batch_size
                     * args.seq_len)
@@ -182,21 +243,35 @@ def main(argv=None):
                 "valid", args.batch_size, args.seq_len)).to(device)
             with torch.no_grad():
                 vl = model(vb, return_loss=True).item()
-            print(f"valid loss {vl:.4f}  valid bpb {vl / np.log(2):.4f}",
-                  flush=True)
+            log(f"valid loss {vl:.4f}  valid bpb {vl / np.log(2):.4f}",
+                flush=True)
 
         if (args.checkpoint_dir and step > 0
                 and step % args.checkpoint_every == 0):
-            save_checkpoint(args.checkpoint_dir, step, model, optimizer)
-            print(f"checkpoint saved at step {step}", flush=True)
+            if mesh is None:
+                save_checkpoint(args.checkpoint_dir, step, model, optimizer)
+            else:
+                # the full weights, gathered over the model axis
+                unshard_opt_state(optimizer, model)
+                unshard_params(model)
+                if is_main:
+                    save_checkpoint(args.checkpoint_dir, step, model,
+                                    optimizer)
+                shard_params(model, mesh)
+                shard_opt_state(optimizer, model, mesh)
+            log(f"checkpoint saved at step {step}", flush=True)
 
-        if step % GENERATE_EVERY == 0 and step > 0:
+        # sampling is a data-dependent host loop: under tensor
+        # parallelism every rank would have to run it in lockstep
+        if step % GENERATE_EVERY == 0 and step > 0 and mesh is None:
             prime = torch.from_numpy(
                 sampler.sample("valid", 1, args.seq_len)[:, :128]).to(device)
             out = generate(model, prime, GENERATE_LENGTH, generator=gen)
             print("prime:", decode_bytes(prime[0, -64:].tolist()))
             print("generated:", decode_bytes(out[0, :256].tolist()),
                   flush=True)
+    if mesh is not None:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

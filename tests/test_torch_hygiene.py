@@ -41,6 +41,15 @@ def test_importing_the_port_loads_no_jax():
             "import flash_cosine_sim_attention_tpu_torch.models.speculative\n"
             "import flash_cosine_sim_attention_tpu_torch.data\n"
             "import flash_cosine_sim_attention_tpu_torch.utils\n"
+            "import flash_cosine_sim_attention_tpu_torch.utils.benchmark\n"
+            "import flash_cosine_sim_attention_tpu_torch.utils.debug\n"
+            "import flash_cosine_sim_attention_tpu_torch.utils.profiling\n"
+            "import flash_cosine_sim_attention_tpu_torch.parallel\n"
+            "import flash_cosine_sim_attention_tpu_torch.parallel.mesh\n"
+            "import flash_cosine_sim_attention_tpu_torch.parallel.sharded_attention\n"
+            "import flash_cosine_sim_attention_tpu_torch.parallel.sharded_decode\n"
+            "import flash_cosine_sim_attention_tpu_torch.parallel.train\n"
+            "import flash_cosine_sim_attention_tpu_torch.benchmark\n"
             "import flash_cosine_sim_attention_tpu_torch.train\n"
             "loaded = [m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r}]\n"
@@ -83,5 +92,8 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked():
     from flash_cosine_sim_attention_tpu_torch import train
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--steps", "1"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="torchrun"):
         train.main(["--device", "cpu", "--model-parallel", "2"])
+    from flash_cosine_sim_attention_tpu_torch import benchmark
+    with pytest.raises(RuntimeError, match="CUDA"):
+        benchmark.main(["--seq-lens", "128"])

@@ -155,10 +155,11 @@ def test_capacity_and_admission_guards(setup):
 
 
 def test_unported_engine_options_raise(setup):
-    """Serving tensor parallelism is not ported; a cache format that
-    neither package has is refused (int8 and e4m3 are both served)."""
+    """Serving tensor parallelism takes a DeviceMesh (served in
+    tests/test_torch_parallel.py); a cache format that neither package
+    has is refused (int8 and e4m3 are both served)."""
     _, _, model = setup
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         _engine(model, mesh=object())
     with pytest.raises(ValueError, match="kv_dtype"):
         _engine(model, kv_dtype=torch.float16)
