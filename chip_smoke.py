@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ring-nccl   # phase 19's rings alone over
+                                        # NCCL, a card a rank (4 cards)
 
 Phases (any failure exits non-zero):
   1. device: requires CUDA; prints the card's name and power limit;
@@ -118,9 +120,32 @@ Phases (any failure exits non-zero):
      1 than twice bf16's own distance from float32), K1 and K2 launches
      read; (c) head_sharded_flash_attention and
      head_sharded_decode_attention timed at phase 13's shapes; then a
-     world of 1 over NCCL serving (a) at depth 2.
-Then one JSON line lists every ported kernel, and phase 18's entry
-(each rank's launches and error), with its launches on its path, error,
+     world of 1 over NCCL serving (a) at depth 2;
+ 19. ring attention: ranks on the one card over gloo (each ppermute hop
+     staged through pinned host memory) run
+     ring_flash_cosine_sim_attention at the 0.81B model's attention
+     width (16 heads of 128): (a) bf16 causal at seq 16384 on a world of
+     2 (local 8192: K1 and K2), (b) at 32768 (local 16384: K1, K3a and
+     K3b), (d) f32 at b1 h4 s1024 d64; then a world of 4 on a (model 2,
+     seq 2) mesh with 4 kv heads at seq 8192, (c) key-masked causal and
+     non-causal; each ring's output and q/k/v gradients held on rank 0
+     against the unsharded fused op (RING_BARS and RING_REL_L2), its
+     output against K1's plain version on the unsharded inputs, each
+     rank's K1, K2, K3a, K3b launches and hops against the schedule's;
+     in this process, each case's pair calls (K1, then K2 or K3a/K3b) at
+     the ring's local shapes against their plain versions; (a) timed through
+     ring_flash_cosine_sim_attention_local (forward wall, forward and
+     backward wall, the transport's share, each rank's device time),
+     beside the unsharded forward's plain version and SDPA;
+ 20. pipeline parallelism: the validation model (float32 parameters) in
+     2 stages of 4 layers on a world of 2, 4 microbatches of 4 x 1024,
+     through make_pipeline_train_step against the trainer's train_step
+     from the same weights (one float32 step at the f32 bars, 3 bf16
+     steps under phase 18's rule), each rank's K1 and K2 launches (16 a
+     step), a bf16 step's wall and device time; then a world of 4 on a
+     (data 2, pipe 2) mesh, one float32 step.
+Then one JSON line lists every ported kernel, and the entries of phases
+18-20 (each rank's launches and error), with its launches on its path, error,
 times and bound (timing lines also print the achieved
 TFLOP/s); the script's own wall time, the nvcc build included; the
 card's name and power limit; and, last, the {"ok": true, ...} line.
@@ -223,6 +248,41 @@ TP_WORLD = 2
 TP_PROMPT, TP_STEPS = PROD_PROMPT, 16
 TP_TRAIN_STEPS = 3
 TP_TIMEOUT_S = 600       # a world's time limit, and its collectives'
+# phase 19: ring attention at the 0.81B model's attention width (16 heads
+# of 128, bf16, causal) over RING_WORLD ranks sharing the card over gloo
+# (ppermute stages each hop through pinned host memory): local lengths
+# 8192 (the backward on K2) and 16384 (on K3a/K3b, past
+# ONEPASS_BWD_MAX_SEQ); then GQA on a (model 2, seq 2) mesh of 4 ranks
+RING_WORLD = 2
+RING_HEADS, RING_DIM = PROD_MODEL["heads"], PROD_MODEL["dim_head"]
+RING_SEQS = (16384, 32768)
+RING_GQA_SEQ, RING_GQA_KV_HEADS = 8192, 4
+# JAX's ring bars (tests/test_parallel.py:138-141, 247, 300, 353): max
+# |diff| on the output, and on the gradients of sum(o^2) over max(1,
+# max |g|) (check_ring_case says why)
+RING_BARS = {torch.float32: (1e-4, 5e-4), torch.bfloat16: (1.5e-1, 3e-1)}
+# and on the relative L2 error of the output and of each gradient: at 8192
+# keys or more o is near a uniform average of v (|o| ~ 0.01-0.05), so
+# JAX's absolute bars would pass a dropped shard pair.  Set from this
+# phase's readings on an H100 (bf16 7e-4 to 4.9e-3, f32 1.4e-7 to 6.6e-7)
+RING_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# phase 19's cases: label, mesh ("seq": RING_WORLD ranks on ("seq",);
+# "model_seq": 4 ranks on (model 2, seq 2)), seq, dtype, causal and the
+# keywords of ring_inputs
+RING_CASES = (
+    ("(a)", "seq", RING_SEQS[0], torch.bfloat16, True, {}),
+    ("(b)", "seq", RING_SEQS[1], torch.bfloat16, True, {}),
+    ("(d)", "seq", 1024, torch.float32, True, dict(h=4, kvh=4, d=64, seed=1)),
+    ("(c) masked causal", "model_seq", RING_GQA_SEQ, torch.bfloat16, True,
+     dict(kvh=RING_GQA_KV_HEADS, masked=True, seed=2)),
+    ("(c) non-causal", "model_seq", RING_GQA_SEQ, torch.bfloat16, False,
+     dict(kvh=RING_GQA_KV_HEADS, seed=3)),
+)
+# f32 elements of one (heads, queries, keys) logits tensor the plain
+# versions hold at once (2 GiB): they run over chunks of heads
+PLAIN_LOGITS = 1 << 29
+# phase 20: the validation model in PIPE_STAGES pipeline stages
+PIPE_STAGES = 2
 
 
 def fail(msg: str) -> None:
@@ -3143,12 +3203,13 @@ def tp_time(mesh):
     return out
 
 
-def tp_rank(rank: int, world: int, workdir: str, backend: str,
-            depth: int) -> None:
-    """One rank of phase 18's world: every rank on the one card (device
-    0), the process group over ``backend`` with a file rendezvous in
-    ``workdir``; (a) at ``depth``, and with more than one rank (b) and
-    (c).  Writes its results, or its traceback, into ``workdir``."""
+def world_rank(rank: int, world: int, workdir: str, backend: str, body,
+               args) -> None:
+    """One rank of a world spawned on the one card (phases 18-20): every
+    rank on device 0 over gloo, rank r on device r over NCCL (which takes
+    one rank a device), the process group over ``backend`` with a file
+    rendezvous in ``workdir``; runs ``body(*args)`` and writes its result,
+    or its traceback, into ``workdir``."""
     import datetime
     import pickle
     import traceback
@@ -3158,17 +3219,12 @@ def tp_rank(rank: int, world: int, workdir: str, backend: str,
     try:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        torch.cuda.set_device(0)
+        torch.cuda.set_device(rank if backend == "nccl" else 0)
         torch.zeros(1, device="cuda")
         dist.init_process_group(
             backend, init_method=f"file://{workdir}/rendezvous", rank=rank,
             world_size=world, timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
-        from flash_cosine_sim_attention_tpu_torch.parallel import make_mesh
-        mesh = make_mesh(world, model_parallel=world)
-        out = dict(serve=tp_serve(mesh, depth))
-        if world > 1:
-            out["train"] = tp_train(mesh)
-            out["time"] = tp_time(mesh)
+        out = body(*args)
         with open(f"{workdir}/rank{rank}.pkl", "wb") as f:
             pickle.dump(out, f)
         dist.barrier()
@@ -3179,9 +3235,10 @@ def tp_rank(rank: int, world: int, workdir: str, backend: str,
         raise
 
 
-def tp_world(world: int, backend: str, depth: int):
-    """Run tp_rank on ``world`` processes; fail if any rank fails or the
-    world outlives TP_TIMEOUT_S.  Returns each rank's results."""
+def run_world(world: int, backend: str, body, *args):
+    """Run ``body(*args)`` on ``world`` spawned ranks (world_rank); fail if
+    any rank fails or the world outlives TP_TIMEOUT_S.  Returns each
+    rank's result."""
     import multiprocessing
     import pickle
     import tempfile
@@ -3189,10 +3246,10 @@ def tp_world(world: int, backend: str, depth: int):
 
     import shutil
 
-    workdir = Path(tempfile.mkdtemp(prefix="fcsa_tp_"))
+    workdir = Path(tempfile.mkdtemp(prefix="fcsa_world_"))
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=tp_rank, args=(r, world, str(workdir),
-                                               backend, depth))
+    procs = [ctx.Process(target=world_rank, args=(r, world, str(workdir),
+                                                  backend, body, args))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -3206,13 +3263,28 @@ def tp_world(world: int, backend: str, depth: int):
         p.join(timeout=60)
     errors = [f.read_text() for f in sorted(workdir.glob("error*.txt"))]
     if errors or any(p.exitcode != 0 for p in procs):
-        fail(f"tensor-parallel world of {world} over {backend}: exit codes "
-             f"{[p.exitcode for p in procs]}\n" + "\n".join(errors))
+        fail(f"{body.__name__}: a world of {world} over {backend}: exit "
+             f"codes {[p.exitcode for p in procs]}\n" + "\n".join(errors))
     out = []
     for r in range(world):
         with open(workdir / f"rank{r}.pkl", "rb") as f:
             out.append(pickle.load(f))
     shutil.rmtree(workdir)
+    return out
+
+
+def tp_body(depth: int):
+    """Phase 18 on one rank: (a) at ``depth``, and with more than one rank
+    (b) and (c), on a (1, world) mesh."""
+    import torch.distributed as dist
+
+    from flash_cosine_sim_attention_tpu_torch.parallel import make_mesh
+    world = dist.get_world_size()
+    mesh = make_mesh(world, model_parallel=world)
+    out = dict(serve=tp_serve(mesh, depth))
+    if world > 1:
+        out["train"] = tp_train(mesh)
+        out["time"] = tp_time(mesh)
     return out
 
 
@@ -3268,7 +3340,7 @@ def tensor_parallel(card: str):
     `parallel` entry of the kernels line."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = tp_world(TP_WORLD, "gloo", PROD_MODEL["depth"])
+    ranks = run_world(TP_WORLD, "gloo", tp_body, PROD_MODEL["depth"])
     print(f"  a world of {TP_WORLD} ranks on the one card over gloo (CUDA "
           f"tensors), a (1, {TP_WORLD}) mesh, {time.perf_counter() - t0:.1f} "
           f"s; each rank's cache holds "
@@ -3331,7 +3403,7 @@ def tensor_parallel(card: str):
     print(f"  (c) the whole op on {card}, rank 0 alone: plain "
           f"{times[0]['plain_ms']:.4f} ms, SDPA {times[0]['sdpa_ms']:.4f} ms")
     t0 = time.perf_counter()
-    nccl = tp_world(1, "nccl", 2)
+    nccl = run_world(1, "nccl", tp_body, 2)
     print(f"  a world of 1 over NCCL, (a) at depth 2: "
           f"{time.perf_counter() - t0:.1f} s")
     check_tp_serving("(a) over NCCL, world 1, depth 2", nccl, 2, card)
@@ -3358,10 +3430,676 @@ def tensor_parallel(card: str):
         library_ms=times[0]["sdpa_ms"])
 
 
+def ring_counters():
+    """The ring's kernels' launch counters (K1, K2, K3a, K3b) and the
+    transport's."""
+    from flash_cosine_sim_attention_tpu_torch.ops import bwd_kernel as bk
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward)
+    from flash_cosine_sim_attention_tpu_torch.parallel import ppermute
+    return dict(k1=flash_attention_forward, k2=bk.fused_bwd_kernel,
+                k3a=bk.dq_kernel, k3b=bk.dkdv_kernel), ppermute
+
+
+def ring_reset() -> None:
+    counters, hop = ring_counters()
+    for c in counters.values():
+        c.launches = 0
+    hop.calls = hop.bytes = 0
+
+
+def ring_launches() -> dict:
+    counters, hop = ring_counters()
+    return dict({k: c.launches for k, c in counters.items()},
+                hops=hop.calls, hop_bytes=hop.bytes)
+
+
+def ring_inputs(n: int, dtype, h=RING_HEADS, kvh=RING_HEADS, d=RING_DIM,
+                masked=False, seed=0):
+    """q (1, h, n, d), k, v (1, kvh, n, d) and a key mask (1, n) or None,
+    the same on every rank (one generator seed)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 70 + seed)
+    q = torch.randn(1, h, n, d, device="cuda", generator=g).to(dtype)
+    k, v = (torch.randn(1, kvh, n, d, device="cuda", generator=g).to(dtype)
+            for _ in range(2))
+    mask = (torch.rand(1, n, device="cuda", generator=g) > 0.3) \
+        if masked else None
+    return q, k, v, mask
+
+
+def head_chunks(h: int, kvh: int, n: int, m: int):
+    """(query heads, their kv heads) slices whose (heads, n, m) f32 logits
+    stay within PLAIN_LOGITS elements, whole kv groups in each."""
+    group = h // kvh
+    c = min(h, max(1, PLAIN_LOGITS // (n * m) // group) * group)
+    return [(slice(i, i + c), slice(i // group, (i + c) // group))
+            for i in range(0, h, c)]
+
+
+def forward_plain_by_heads(q, k, v, mask, causal):
+    """K1's plain version (scale 8, no bias) over head_chunks: (o, inv_l)."""
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward_plain)
+    parts = [flash_attention_forward_plain(
+        q[:, hq], k[:, hk], v[:, hk], mask, None, bias_batch_dim=False,
+        scale=8.0, causal=causal)
+        for hq, hk in head_chunks(q.shape[1], k.shape[1], q.shape[2],
+                                  k.shape[2])]
+    return tuple(torch.cat(x, 1) for x in zip(*parts))
+
+
+def backward_plain_by_heads(do, o, inv_l, q, k, v, mask, causal):
+    """The backward's plain version (scale 8, no bias) over head_chunks:
+    (dq, dk, dv); a chunk holds whole kv groups, so its dk, dv are whole."""
+    from flash_cosine_sim_attention_tpu_torch.ops.bwd_kernel import (
+        flash_attention_backward_plain)
+    parts = [flash_attention_backward_plain(
+        do[:, hq], o[:, hq], inv_l[:, hq], q[:, hq], k[:, hk], v[:, hk],
+        mask, None, bias_batch_dim=False, scale=8.0, causal=causal)[:3]
+        for hq, hk in head_chunks(q.shape[1], k.shape[1], q.shape[2],
+                                  k.shape[2])]
+    return tuple(torch.cat(x, 1) for x in zip(*parts))
+
+
+def ring_case(mesh, n: int, dtype, causal=True, model_axis=None, **kw):
+    """Phase 19 on one rank: ring_flash_cosine_sim_attention on full
+    (1, h, n, d) inputs over ``mesh``, the output and q/k/v gradients of
+    sum(o^2) held on rank 0 against the unsharded fused op (its autograd
+    Function where the ring composes a key mask with causality, which
+    the public op refuses), and the output against K1's plain version
+    on the unsharded inputs; this rank's launches and hops around the
+    ring's forward and backward, and its place on the ring."""
+    import torch.distributed as dist
+
+    from flash_cosine_sim_attention_tpu_torch import (
+        flash_cosine_sim_attention, l2norm_tensors)
+    from flash_cosine_sim_attention_tpu_torch.ops.flash_attention import (
+        _FusedAttention)
+    from flash_cosine_sim_attention_tpu_torch.parallel import (
+        ring_flash_cosine_sim_attention)
+
+    q, k, v, mask = ring_inputs(n, dtype, **kw)
+
+    def attend(ring):
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        if ring:
+            o = ring_flash_cosine_sim_attention(
+                qq, kk, vv, mesh, mask=mask, causal=causal,
+                model_axis=model_axis)
+        elif mask is not None and causal:
+            qn, kn = l2norm_tensors(qq, kk)
+            o = _FusedAttention.apply(qn, kn, vv, mask, None, False, 8.0,
+                                      True, None)
+        else:
+            o = flash_cosine_sim_attention(qq, kk, vv, mask=mask,
+                                           causal=causal)
+        return [o, *torch.autograd.grad(o.float().square().sum(),
+                                        (qq, kk, vv))]
+
+    ring_reset()
+    got = attend(True)
+    torch.cuda.synchronize()
+    out = dict(launches=ring_launches(), seq_rank=mesh.get_local_rank("seq"),
+               seq_size=mesh.size(mesh.mesh_dim_names.index("seq")),
+               local_n=n // mesh.size(mesh.mesh_dim_names.index("seq")))
+    if dist.get_rank() == 0:
+        want = attend(False)
+        out["errors"] = [
+            ((a.float() - b.float()).abs().max().item(),
+             max(1.0, b.float().abs().max().item()), rel_l2(a, b))
+            for a, b in zip(got, want)]
+        del want
+        qn, kn = l2norm_tensors(q, k)
+        plain = forward_plain_by_heads(qn, kn, v, mask, causal)[0]
+        out["plain"] = ((got[0].float() - plain.float()).abs().max().item(),
+                        rel_l2(got[0], plain))
+        del plain
+    del got
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def ring_time(mesh, n: int):
+    """Phase 19 (a) timed, on one rank: ring_flash_cosine_sim_attention_local
+    on this rank's shard of b1 h16 n d128 bf16 causal, both ranks at once:
+    the forward's wall (host clock between synchronizes, started together
+    after a barrier), forward and backward's wall, the share of the
+    forward and backward spent in the transport (host clock around each
+    ppermute, between synchronizes), and this rank's device time of a
+    forward (torch.profiler); then, on rank 0 alone, the unsharded
+    forward's plain version and SDPA."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from flash_cosine_sim_attention_tpu_torch import l2norm_tensors
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward_plain)
+    from flash_cosine_sim_attention_tpu_torch.parallel import (
+        local_shard, ring_attention, ring_flash_cosine_sim_attention_local,
+        sharding)
+
+    q, k, v, _ = ring_inputs(n, torch.bfloat16)
+    spec = sharding(mesh, None, None, "seq", None)
+    ql, kl, vl = (local_shard(t, mesh, spec).contiguous().requires_grad_()
+                  for t in (q, k, v))
+
+    def fwd():
+        return ring_flash_cosine_sim_attention_local(ql, kl, vl, mesh)
+
+    def fwd_bwd():
+        o = fwd()
+        torch.autograd.grad(o.float().square().sum(), (ql, kl, vl))
+
+    def walls(fn, iters):
+        out = []
+        for _ in range(iters):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    with torch.no_grad():
+        fwd()
+    fwd_bwd()
+    res = dict(fwd_ms=walls(lambda: fwd().detach(), 5),
+               fwd_bwd_ms=walls(fwd_bwd, 3))
+    hop, spent = ring_attention.ppermute, []
+
+    def timed_hop(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moved = hop(*args)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return moved
+    ring_attention.ppermute = timed_hop
+    try:
+        patched = walls(fwd_bwd, 3)
+    finally:
+        ring_attention.ppermute = hop
+    res["transport_share"] = 1e3 * sum(spent) / sum(patched)
+    res["hops_a_call"] = len(spent) // 3
+    rows = cuda_rows(lambda: fwd().detach(), 2)
+    res["device_ms"] = sum(t for _, t, _ in rows) / 2e3
+    res["top"] = [(key[:50], t / 2e3, c // 2) for key, t, c in
+                  sorted(rows, key=lambda r: -r[1])[:5]]
+    del ql, kl, vl
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if dist.get_rank() == 0:   # the unsharded forward, rank 0 alone
+        qn, kn = l2norm_tensors(q, k)
+        res["plain_ms"] = device_ms(lambda: flash_attention_forward_plain(
+            qn, kn, v, None, None, bias_batch_dim=False, scale=8.0,
+            causal=True), iters=2)
+        torch.cuda.empty_cache()
+        res["sdpa_ms"] = library_ms(
+            f"SDPA b1 h{RING_HEADS} s{n} d{RING_DIM}",
+            lambda: F.scaled_dot_product_attention(qn, kn, v, is_causal=True,
+                                                   scale=8.0))
+    dist.barrier()
+    return res
+
+
+def ring_body(part: str):
+    """Phase 19 on one rank: RING_CASES on the ``part`` mesh ("seq": a
+    ("seq",) mesh of every rank; "model_seq": (model 2, seq 2)), then on
+    the ("seq",) mesh (a) timed."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    world = dist.get_world_size()
+    if part == "seq":
+        mesh = DeviceMesh("cuda", torch.arange(world),
+                          mesh_dim_names=("seq",))
+    else:
+        mesh = DeviceMesh("cuda", torch.arange(world).reshape(2, -1),
+                          mesh_dim_names=("model", "seq"))
+    out = {label: ring_case(mesh, n, dtype, causal=causal,
+                            model_axis=None if part == "seq" else "model",
+                            **kw)
+           for label, on, n, dtype, causal, kw in RING_CASES if on == part}
+    if part == "seq":
+        out["time"] = ring_time(mesh, RING_SEQS[0])
+    return out
+
+
+def ring_label(label, n, dtype, kw) -> str:
+    """A phase 19 case's name: its label, seq, kv heads under GQA, dtype."""
+    kvh = kw.get("kvh", RING_HEADS)
+    gqa = f" kvh {kvh}" if kvh != kw.get("h", RING_HEADS) else ""
+    return f"{label} s{n}{gqa} {str(dtype)[6:]}"
+
+
+def check_ring_case(label, ranks, dtype, causal) -> float:
+    """Hold one phase 19 case: rank 0's output within JAX's ring bar of
+    the unsharded op's (max |diff|), its gradients within JAX's gradient
+    bar in phase 7's float32 units, max |diff| / max(1, max |g|): JAX's
+    bars are absolute at shapes whose gradients stay below 1, and at the
+    masked GQA shape here |dv| reaches ~10^2, where one bf16 ulp is 0.5;
+    the output and every gradient also within RING_REL_L2 of the
+    unsharded op's (relative L2); the output within the kernel bar
+    (F32_ERR_BAR, BF16_ERR_BAR) and RING_REL_L2 of K1's plain version on
+    the unsharded inputs; and every rank's launches and hops to what the
+    schedule implies: a causal ring of size s gives its rank r r + 1 pair
+    forwards and backwards (s (s + 1) / 2 in all), a non-causal one s
+    each; the backward is K2 up to ONEPASS_BWD_MAX_SEQ local rows, K3a
+    and K3b past it; s - 1 hops forward and s backward.  Returns the
+    output's max |diff| from the plain version."""
+    from flash_cosine_sim_attention_tpu_torch.ops.blocks import (
+        ONEPASS_BWD_MAX_SEQ)
+    out_bar, grad_bar = RING_BARS[dtype]
+    l2_bar = RING_REL_L2[dtype]
+    plain_bar = F32_ERR_BAR if dtype == torch.float32 else BF16_ERR_BAR
+    errs, (p_err, p_l2) = ranks[0]["errors"], ranks[0]["plain"]
+    print(f"  {label}: vs the unsharded op on rank 0, max |diff| / max(1, "
+          f"max |ref|) (rel L2): " + "; ".join(
+              f"{name} {e:.3e} / {m:.3g} ({r:.3e})" for name, (e, m, r) in
+              zip(("o", "dq", "dk", "dv"), errs))
+          + f" (bars: {out_bar:g} on o's max |diff|, {grad_bar:g} on the "
+          f"gradients' ratio, {l2_bar:g} on each rel L2); o vs K1's plain "
+          f"version unsharded: max |diff| {p_err:.3e} (bar {plain_bar:g}), "
+          f"rel L2 {p_l2:.3e}")
+    if (errs[0][0] > out_bar or any(e / m > grad_bar for e, m, _ in errs[1:])
+            or any(r > l2_bar for _, _, r in errs)):
+        fail(f"{label}: ring vs the unsharded op {errs}")
+    if not (p_err <= plain_bar and p_l2 <= l2_bar):
+        fail(f"{label}: ring vs the plain forward: {p_err}, rel L2 {p_l2}")
+    for r, res in enumerate(ranks):
+        size, pairs = res["seq_size"], (res["seq_rank"] + 1 if causal
+                                         else res["seq_size"])
+        onepass = res["local_n"] <= ONEPASS_BWD_MAX_SEQ
+        want = dict(k1=pairs, k2=pairs if onepass else 0,
+                    k3a=0 if onepass else pairs, k3b=0 if onepass else pairs,
+                    hops=2 * size - 1)
+        got = {key: res["launches"][key] for key in want}
+        print(f"  {label} rank {r} (seq rank {res['seq_rank']} of {size}): "
+              f"launches and hops {got}, {res['launches']['hop_bytes']} "
+              f"bytes sent")
+        if got != want:
+            fail(f"{label} rank {r}: {got}, want {want}")
+    return p_err
+
+
+def ring_pairs_vs_plain() -> None:
+    """Phase 19's kernel calls at the ring's shapes, in this process,
+    against their plain versions: for each of RING_CASES, the last seq
+    rank's (on (model 2, seq 2), model rank 0's) pairs as the ring runs
+    them (the diagonal causal, and key-masked where the case is; earlier
+    shards non-causal), K1 then its backward (K2 at a local length up to
+    ONEPASS_BWD_MAX_SEQ, K3a and K3b past it, read from the launch
+    counters) on the global o and inv_l that the pairs merge to and a
+    random dO.  K1's o within F32_ERR_BAR / BF16_ERR_BAR and its inv_l
+    within 1e-5 relative (phase 3's bars), the gradients within
+    GRAD_BARS (phase 7's)."""
+    from flash_cosine_sim_attention_tpu_torch import l2norm_tensors
+    from flash_cosine_sim_attention_tpu_torch.ops.blocks import (
+        EPS, ONEPASS_BWD_MAX_SEQ)
+    from flash_cosine_sim_attention_tpu_torch.ops.bwd_kernel import (
+        flash_attention_backward)
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward)
+
+    kw = dict(bias_batch_dim=False, scale=8.0)
+    for label, part, n, dtype, causal, inputs in RING_CASES:
+        size = RING_WORLD if part == "seq" else 2
+        tp = 1 if part == "seq" else 2
+        q, k, v, mask = ring_inputs(n, dtype, **inputs)
+        q, k, v = q[:, :q.shape[1] // tp], k[:, :k.shape[1] // tp], \
+            v[:, :v.shape[1] // tp]
+        qn, kn = l2norm_tensors(q, k)
+        m, me = n // size, size - 1
+        rows = lambda t, r: t[..., r * m:(r + 1) * m, :].contiguous()  # noqa: E731
+        ql = rows(qn, me)
+        pairs = [dict(g=g, k=rows(kn, g), v=rows(v, g), causal=causal and g == me,
+                      mask=None if mask is None
+                      else mask[:, g * m:(g + 1) * m].contiguous())
+                 for g in range(size) if not causal or g <= me]
+        bar = F32_ERR_BAR if dtype == torch.float32 else BF16_ERR_BAR
+        o_acc = torch.zeros(ql.shape, device="cuda")
+        l_acc = torch.zeros((*ql.shape[:3], 1), device="cuda")
+        for p in pairs:
+            o, inv_l = flash_attention_forward(ql, p["k"], p["v"], p["mask"],
+                                               None, causal=p["causal"], **kw)
+            o_p, inv_p = forward_plain_by_heads(ql, p["k"], p["v"], p["mask"],
+                                                p["causal"])
+            torch.cuda.synchronize()
+            p["o_err"] = (o.float() - o_p.float()).abs().max().item()
+            p["l_err"] = ((inv_l - inv_p) / inv_p).abs().max().item()
+            if not (torch.isfinite(o.float()).all().item()
+                    and p["o_err"] <= bar and p["l_err"] <= 1e-5):
+                fail(f"K1 {label} pair ({me}, {p['g']}): o {p['o_err']}, "
+                     f"inv_l {p['l_err']}")
+            o_acc += o.float() / inv_l
+            l_acc += 1.0 / inv_l
+            del o_p, inv_p
+        inv_l = 1.0 / l_acc.clamp_min(EPS)
+        o = (o_acc * inv_l).to(dtype)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 90)
+        do = torch.randn(o.shape, device="cuda", generator=g).to(dtype)
+        del o_acc, l_acc
+        for p in pairs:
+            ring_reset()
+            got = flash_attention_backward(do, o, inv_l, ql, p["k"], p["v"],
+                                           p["mask"], None, causal=p["causal"],
+                                           **kw)[:3]
+            torch.cuda.synchronize()
+            counts = ring_launches()
+            ran = [name for key, name in (("k2", "K2"), ("k3a", "K3a"),
+                                          ("k3b", "K3b")) if counts[key]]
+            want = backward_plain_by_heads(do, o, inv_l, ql, p["k"], p["v"],
+                                           p["mask"], p["causal"])
+            errs = [grad_err(x, y, dtype) for x, y in zip(got, want)]
+            finite = all(torch.isfinite(x.float()).all().item() for x in got)
+            print(f"  {ring_label(label, n, dtype, inputs)} pair (seq rank "
+                  f"{me}, shard {p['g']}, {'causal' if p['causal'] else 'non-causal'}"
+                  f"{', key-masked' if p['mask'] is not None else ''}) "
+                  f"b1 h{ql.shape[1]} kvh {p['k'].shape[1]} {m}x{m} "
+                  f"d{ql.shape[3]}: K1 max|o-plain| {p['o_err']:.3e} (bar "
+                  f"{bar:g}), max rel inv_l err {p['l_err']:.3e}; "
+                  f"{'+'.join(ran)} vs plain: " + ", ".join(
+                      f"{nm} {e:.2e}" for nm, e in zip(("dq", "dk", "dv"),
+                                                        errs))
+                  + f" (bar {GRAD_BARS[dtype]:g})")
+            if ran != (["K2"] if m <= ONEPASS_BWD_MAX_SEQ else ["K3a", "K3b"]):
+                fail(f"{label} pair backward ran {ran}")
+            if not (finite and max(errs) <= GRAD_BARS[dtype]):
+                fail(f"backward {label} pair ({me}, {p['g']}): {errs}, "
+                     f"finite {finite}")
+            del got, want
+        del q, k, v, qn, kn, ql, pairs, o, do
+        torch.cuda.empty_cache()
+
+
+def ring_attention_phase(card: str, backend: str = "gloo"):
+    """Phase 19: ring attention, its ranks on the one card over gloo, or
+    with ``backend`` "nccl" a card a rank.  Returns the `parallel:ring`
+    entry of the kernels line."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_world(RING_WORLD, backend, ring_body, "seq")
+    where = ("on the one card over gloo" if backend == "gloo"
+             else "over NCCL, a card a rank")
+    print(f"  a world of {RING_WORLD} ranks {where}, a (\"seq\",) mesh, "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    quad = run_world(4, backend, ring_body, "model_seq")
+    print(f"  a world of 4 on a (model 2, seq 2) mesh, "
+          f"{time.perf_counter() - t0:.1f} s")
+    plain_errs = [check_ring_case(
+        ring_label(label, n, dtype, kw),
+        [r[label] for r in (ranks if part == "seq" else quad)], dtype, causal)
+        for label, part, n, dtype, causal, kw in RING_CASES]
+    if backend == "gloo":
+        ring_pairs_vs_plain()
+    times = [r["time"] for r in ranks]
+    hops = ("gloo: device -> pinned host -> TCP -> host -> device"
+            if backend == "gloo" else "NCCL: device to device")
+    for r, x in enumerate(times):
+        fwd, both = statistics.median(x["fwd_ms"]), statistics.median(
+            x["fwd_bwd_ms"])
+        print(f"  (a) timed, rank {r} on {card}: "
+              f"ring_flash_cosine_sim_attention_local b1 h{RING_HEADS} "
+              f"s{RING_SEQS[0]} d{RING_DIM} bf16 causal, local "
+              f"{RING_SEQS[0] // RING_WORLD} rows: forward {fwd:.3f} ms wall "
+              f"(both ranks at once), forward and backward {both:.3f} ms, "
+              f"{x['hops_a_call']} hops in it, transport "
+              f"{x['transport_share']:.3f} of it ({hops}); device time of a "
+              f"forward {x['device_ms']:.3f} ms: " + "; ".join(
+                  f"{k} {t:.3f} ({c})" for k, t, c in x["top"]))
+    n, h, d = RING_SEQS[0], RING_HEADS, RING_DIM
+    print(f"  (a) the unsharded forward on {card}, rank 0 alone: plain "
+          f"{times[0]['plain_ms']:.3f} ms, SDPA {times[0]['sdpa_ms']:.4f} ms")
+    bound_ms, by = bound(4 * d * n * (n + 1) / 2 * h,
+                         4 * 2 * n * h * d + n * h * 4)
+    rank_launches = [{key: r[case]["launches"][key]
+                      for key in ("k1", "k2", "k3a", "k3b")}
+                     for r in ranks + quad for case in r
+                     if case.startswith("(")]
+    # ms: the busiest rank's device time of (a)'s local forward; the wall
+    # beside it is mostly the transport, and two ranks on one card share
+    # its SMs: neither is a speed of the ring
+    return dict(
+        name="parallel:ring", route="cuda",
+        source="flash_cosine_sim_attention_tpu_torch/parallel/"
+               "ring_attention.py",
+        replaces="flash_cosine_sim_attention_tpu/parallel/"
+                 "ring_attention.py:201",
+        launches=sum(sum(x.values()) for x in rank_launches),
+        rank_launches=rank_launches, max_abs_err=max(plain_errs),
+        ms=max(x["device_ms"] for x in times), ms_is="device time a rank",
+        rank_device_ms=[x["device_ms"] for x in times],
+        wall_ms=statistics.median(times[0]["fwd_ms"]), transport=backend,
+        plain_ms=times[0]["plain_ms"], bound_ms=bound_ms, bound_by=by,
+        library_ms=times[0]["sdpa_ms"])
+
+
+def pipe_body():
+    """Phase 20 on one rank: the validation model (float32 parameters)
+    from one set of weights, rank 0's trainer train_step (4 microbatches
+    of 4 x 1024) against make_pipeline_train_step over a (pipe 2) or
+    (data 2, pipe 2) mesh (clip 0.5 as the trainer's): one step in
+    float32 compute, its loss and every gradient (gathered from the
+    stages) compared, and in a world of 2 TP_TRAIN_STEPS steps in bf16
+    compute, their losses and the first step's gradients compared, bf16's
+    own gradient error read against the float32 step; each step's wall,
+    this rank's K1 and K2 launches, and the device time of one more bf16
+    step."""
+    import torch.distributed as dist
+
+    from flash_cosine_sim_attention_tpu_torch.models import (
+        CosineSimCausalTransformer, params_to_flax)
+    from flash_cosine_sim_attention_tpu_torch.parallel import (
+        make_pipeline_mesh, make_pipeline_train_step, shard_pipeline_params,
+        split_pipeline_params, unshard_pipeline_params)
+    from flash_cosine_sim_attention_tpu_torch.train import (
+        GRAD_ACCUM, MAX_GRAD_NORM, make_optimizer, train_step)
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    mesh = make_pipeline_mesh(pipeline_parallel=PIPE_STAGES, device_type="cuda")
+    torch.manual_seed(SEED + 80)
+    weights = CosineSimCausalTransformer(**MODEL, device="cuda").state_dict()
+    batch = torch.from_numpy(np.random.default_rng(SEED + 81).integers(
+        0, MODEL["num_tokens"], (GRAD_ACCUM, 4, MODEL["max_seq_len"] + 1))
+    ).cuda()
+    flat = batch.reshape(-1, batch.shape[-1])
+    kinds = ((torch.float32, 1),) + (
+        ((torch.bfloat16, TP_TRAIN_STEPS),) if world == 2 else ())
+
+    def model(dtype):
+        m = CosineSimCausalTransformer(**MODEL, dtype=dtype, device="cuda")
+        m.load_state_dict(weights)
+        return m
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = fn().item()
+        return loss, 1e3 * (time.perf_counter() - t0)
+
+    refs = {}
+    if rank == 0:      # the trainer's step on one device
+        for dtype, steps in kinds:
+            ref = model(dtype)
+            opt = make_optimizer(ref)
+            losses, walls = [], []
+            for s in range(steps):
+                loss, wall = timed(lambda: train_step(ref, opt, batch))
+                losses.append(loss)
+                walls.append(wall)
+                if s == 0:
+                    first = {n: p.grad.detach().clone()
+                             for n, p in ref.named_parameters()}
+            refs[dtype] = (losses, first, walls)
+            del ref, opt
+        torch.cuda.empty_cache()
+    dist.barrier()
+    out = {}
+    for dtype, steps in kinds:
+        m = model(dtype)
+        stage = shard_pipeline_params(m, *split_pipeline_params(
+            m, params_to_flax(m), PIPE_STAGES), mesh)
+        del m
+        step = make_pipeline_train_step(stage, make_optimizer(stage), mesh,
+                                        GRAD_ACCUM,
+                                        max_grad_norm=MAX_GRAD_NORM)
+        tp_reset()
+        losses, walls = [], []
+        for s in range(steps):
+            dist.barrier()
+            loss, wall = timed(lambda: step(flat))
+            losses.append(loss)
+            walls.append(wall)
+            if s == 0:
+                got = unshard_pipeline_params(stage, mesh, lambda p: p.grad)
+        res = dict(losses=losses, walls=walls, launches=tp_launches())
+        if dtype == torch.bfloat16:
+            rows = cuda_rows(lambda: step(flat), 1)
+            res["busy_ms"] = sum(t for _, t, _ in rows) / 1e3
+            res["top"] = [(key[:50], t / 1e3, c) for key, t, c in
+                          sorted(rows, key=lambda r: -r[1])[:5]]
+        if rank == 0:
+            ref_losses, first, ref_walls = refs[dtype]
+            f32 = refs[torch.float32][1]
+            res.update(
+                ref_losses=ref_losses, ref_walls=ref_walls,
+                grad_err=max(grad_err(got[n], first[n], dtype) for n in got),
+                abs_err=max((got[n] - first[n]).abs().max().item()
+                            for n in got),
+                rel_l2=max(rel_l2(got[n], first[n]) for n in got),
+                rel_l2_f32=max(rel_l2(got[n], f32[n]) for n in got))
+        out[str(dtype)[6:]] = res
+        del stage, step, got
+        torch.cuda.empty_cache()
+    if rank == 0 and world == 2:
+        f32 = refs[torch.float32][1]
+        out["bf16_floor_rel_l2"] = max(
+            rel_l2(refs[torch.bfloat16][1][n], f32[n]) for n in f32)
+    out["stage"] = mesh.get_local_rank("pipe")
+    return out
+
+
+def check_pipeline(label, ranks) -> None:
+    """Hold phase 20's pipelined steps to rank 0's train_step: float32 at
+    the f32 bars; bf16 losses at 2^-7 relative and the first step's
+    gradients no farther from train_step's than twice bf16's own distance
+    from float32 (phase 18's rule); every rank's K1 and K2 launches at
+    GRAD_ACCUM microbatches x depth / PIPE_STAGES layers a step."""
+    r0 = ranks[0]
+    for dtype in ("float32", "bfloat16"):
+        if dtype not in r0:
+            continue
+        x = r0[dtype]
+        dl = max(abs(a - b) for a, b in zip(x["losses"], x["ref_losses"]))
+        print(f"  {label}, {dtype} compute, {len(x['losses'])} step(s) vs "
+              f"train_step: losses {', '.join(f'{v:.5f}' for v in x['losses'])}"
+              f" (train_step {', '.join(f'{v:.5f}' for v in x['ref_losses'])})"
+              f", max |loss diff| {dl:.3e}; first step's gradients: worst "
+              f"{x['grad_err']:.3e} in GRAD_BARS units, max |diff| "
+              f"{x['abs_err']:.3e}, worst rel L2 {x['rel_l2']:.3e}")
+    f32 = r0["float32"]
+    dl32 = abs(f32["losses"][0] - f32["ref_losses"][0])
+    if not (dl32 <= LOSS_BAR and f32["grad_err"] <= F32_ERR_BAR):
+        fail(f"{label}: float32 pipelined step vs train_step: loss {dl32}, "
+             f"gradients {f32['grad_err']}")
+    if "bfloat16" in r0:
+        bf16 = r0["bfloat16"]
+        rel16 = max(abs(a - b) / abs(b) for a, b in
+                    zip(bf16["losses"], bf16["ref_losses"]))
+        print(f"  {label}: bf16's own gradient error (train_step bf16 vs "
+              f"float32 compute), worst rel L2 {r0['bf16_floor_rel_l2']:.3e};"
+              f" pipelined bf16 vs float32 {bf16['rel_l2_f32']:.3e}")
+        if not (rel16 <= GRAD_BARS[torch.bfloat16]
+                and bf16["rel_l2"] <= 2 * r0["bf16_floor_rel_l2"]):
+            fail(f"{label}: bf16 pipelined steps vs train_step: loss rel "
+                 f"{rel16}, gradient rel L2 {bf16['rel_l2']} against bf16's "
+                 f"own {r0['bf16_floor_rel_l2']}")
+    from flash_cosine_sim_attention_tpu_torch.train import GRAD_ACCUM
+    per_step = GRAD_ACCUM * MODEL["depth"] // PIPE_STAGES
+    for r, res in enumerate(ranks):
+        steps = sum(len(res[k]["losses"]) for k in ("float32", "bfloat16")
+                    if k in res)
+        got = {k: sum(res[d]["launches"][k] for d in ("float32", "bfloat16")
+                      if d in res) for k in ("k1", "k2")}
+        print(f"  {label} rank {r} (stage {res['stage']}): K1, K2 launches "
+              f"{got} over {steps} steps ({per_step} each a step: "
+              f"{GRAD_ACCUM} microbatches x "
+              f"{MODEL['depth'] // PIPE_STAGES} layers)")
+        if got != dict(k1=steps * per_step, k2=steps * per_step):
+            fail(f"{label} rank {r}: launches {got}, want "
+                 f"{steps * per_step} each")
+
+
+def pipeline_phase(card: str):
+    """Phase 20: the GPipe pipeline on the one card.  Returns the
+    `parallel:pipeline` entry of the kernels line."""
+    from flash_cosine_sim_attention_tpu_torch.train import GRAD_ACCUM
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_world(2, "gloo", pipe_body)
+    print(f"  a world of 2 ranks on the one card over gloo, a (pipe 2) mesh,"
+          f" {time.perf_counter() - t0:.1f} s")
+    check_pipeline(f"(a) S {PIPE_STAGES}, M {GRAD_ACCUM}", ranks)
+    for r, res in enumerate(ranks):
+        x = res["bfloat16"]
+        wall = statistics.median(x["walls"])
+        print(f"  (a) rank {r} on {card}: a bf16 pipelined step "
+              f"{wall:.2f} ms median wall over {len(x['walls'])} (both ranks"
+              f" at once; {GRAD_ACCUM * 4 * MODEL['max_seq_len']} "
+              f"tokens), device time {x['busy_ms']:.2f} ms (one step "
+              f"profiled), idle share {1 - x['busy_ms'] / wall:.3f}: "
+              + "; ".join(f"{k} {t:.3f} ({c})" for k, t, c in x["top"]))
+    plain = statistics.median(ranks[0]["bfloat16"]["ref_walls"])
+    print(f"  (a) train_step on one device, rank 0 alone: {plain:.2f} ms "
+          f"median wall over {len(ranks[0]['bfloat16']['ref_walls'])}")
+    t0 = time.perf_counter()
+    quad = run_world(4, "gloo", pipe_body)
+    print(f"  a world of 4 on a (data 2, pipe 2) mesh, "
+          f"{time.perf_counter() - t0:.1f} s")
+    check_pipeline("(b) data 2 x pipe 2, float32", quad)
+    # the whole step's least time: its dense products (6 P T, embeddings
+    # being gathers) and its attention (forward 4 d, backward 10 d a
+    # visible (query, key) pair and head)
+    dim, depth, n = MODEL["dim"], MODEL["depth"], MODEL["max_seq_len"]
+    dense = depth * 12 * dim * dim + dim * MODEL["num_tokens"]
+    seqs = GRAD_ACCUM * 4
+    flops = 6 * dense * seqs * n + 14 * MODEL["dim_head"] * n * (n + 1) / 2 \
+        * MODEL["heads"] * depth * seqs
+    bound_ms, by = bound(flops, 4 * (dense + (MODEL["num_tokens"] + n) * dim))
+    rank_launches = [{k: sum(r[d]["launches"][k] for d in ("float32",
+                                                           "bfloat16"))
+                      for k in ("k1", "k2")} for r in ranks]
+    return dict(
+        name="parallel:pipeline", route="cuda",
+        source="flash_cosine_sim_attention_tpu_torch/parallel/pipeline.py",
+        replaces="flash_cosine_sim_attention_tpu/parallel/pipeline.py:253",
+        launches=sum(sum(x.values()) for x in rank_launches),
+        rank_launches=rank_launches,
+        max_abs_err=ranks[0]["float32"]["abs_err"],
+        # ms and plain_ms are walls of a step (two ranks on one card, the
+        # hops through the host), not a speed of the pipeline
+        ms=statistics.median(ranks[0]["bfloat16"]["walls"]), ms_is="wall",
+        rank_device_ms=[r["bfloat16"]["busy_ms"] for r in ranks],
+        plain_ms=plain, bound_ms=bound_ms, bound_by=by, library_ms=None)
+
+
 def main() -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--ring-nccl", action="store_true",
+        help="run phase 19's ring worlds alone over NCCL, a card a rank "
+             "(needs 4 cards)")
+    args = parser.parse_args()
     started = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device")
+    if args.ring_nccl and torch.cuda.device_count() < 4:
+        fail(f"--ring-nccl needs 4 cards, found {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -3387,6 +4125,16 @@ def main() -> None:
             print(f"  {name} wide tensor-core instances' registers: "
                   f"{', '.join(f'{k} {r}' for k, r in wide)}")
 
+    if args.ring_nccl:
+        print("[19] ring attention over NCCL, a card a rank")
+        print(json.dumps({"kernels": [ring_attention_phase(smi, "nccl")]}))
+        print(f"chip_smoke.py --ring-nccl took "
+              f"{time.perf_counter() - started:.1f} s")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     print("[3] forward kernel vs plain")
     fwd_err, fwd_row = check_forward(smi)
     print("[4] decode kernel vs plain")
@@ -3427,6 +4175,10 @@ def main() -> None:
     spec_err, spec_row, spec_launches = speculative(smi)
     print("[18] tensor parallelism")
     tp_entry = tensor_parallel(smi)
+    print("[19] ring attention")
+    ring_entry = ring_attention_phase(smi)
+    print("[20] pipeline parallelism")
+    pipe_entry = pipeline_phase(smi)
 
     bwd = "flash_cosine_sim_attention_tpu/ops/bwd_kernel.py"
     src = "flash_cosine_sim_attention_tpu_torch/csrc/bwd_kernel.cu"
@@ -3519,7 +4271,7 @@ def main() -> None:
         name="fwd_kernel:verify", route="cuda", source=f"{csrc}/fwd_kernel.cu",
         replaces="flash_cosine_sim_attention_tpu/ops/fwd_kernel.py:47",
         launches=spec_launches, max_abs_err=spec_err, **spec_row))
-    kernels.append(tp_entry)
+    kernels += [tp_entry, ring_entry, pipe_entry]
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke.py took {time.perf_counter() - started:.1f} s")
     print(smi)

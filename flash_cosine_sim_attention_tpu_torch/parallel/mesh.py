@@ -1,11 +1,14 @@
-"""Device-mesh helpers and the tensor-parallel collectives.
+"""Device-mesh helpers, the tensor-parallel collectives and the
+point-to-point transport.
 
 Counterpart of ``flash_cosine_sim_attention_tpu/parallel/mesh.py``: a 2-D
 (data, model) mesh where the model axis shards attention heads and the
 MLP hidden and the data axis shards the batch.  JAX's GSPMD inserts the
 collectives from sharding annotations; here every process is one rank
 that owns one device and holds plain local tensors, and every collective
-is explicit, over ``mesh.get_group(axis)``:
+is explicit, over ``mesh.get_group(axis)`` of any ``DeviceMesh`` with
+named dims (ring attention takes ("seq",) or ("model", "seq") meshes,
+the pipeline ("pipe",) or ("data", "pipe")):
 
   * ``copy_to_model``: identity forward, ``all_reduce`` backward (the
     input of a column-parallel layer);
@@ -14,16 +17,23 @@ is explicit, over ``mesh.get_group(axis)``:
   * ``scatter``: this rank's slice forward; backward, each rank's
     gradient zero-padded to the full shape and summed over the mesh;
   * ``gather``: a local slice written into a zero buffer and
-    ``all_reduce``-summed, exact since it adds zeros.
+    ``all_reduce``-summed, exact since it adds zeros;
+  * ``ppermute``: JAX's ``lax.ppermute`` over one mesh dim, point to
+    point (``batch_isend_irecv``); its gradient travels the inverse
+    permutation.  Ring attention rotates K/V (and dK/dV) with it, the
+    pipeline hops activations (and their gradients) from stage to stage.
 
-Only ``all_reduce`` and ``broadcast`` are used: gloo takes CUDA tensors
-for those two, so a world of several ranks can share one card.  Sums of
-floating-point partials are taken in float32 and cast back.
+Gloo takes CUDA tensors for ``all_reduce`` and ``broadcast``, so a world
+of several ranks can share one card; its ``send`` and ``recv`` take CPU
+tensors only, so ``ppermute`` stages a CUDA tensor through pinned host
+memory when the group's backend is gloo.  NCCL (a card a rank) moves
+device tensors directly.  Sums of floating-point partials are taken in
+float32 and cast back.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -186,3 +196,115 @@ def gather(x: torch.Tensor, shape: Sequence[int], mesh: DeviceMesh,
         if isinstance(p, Shard) and axis_size(mesh, name) > 1:
             full = _ReduceFromRegion.apply(full, mesh.get_group(name))
     return full
+
+
+Perm = Sequence[Tuple[int, int]]
+Tensors = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+
+def _check_perm(perm: Perm, n: int) -> None:
+    srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+    if (len(set(srcs)) < len(srcs) or len(set(dsts)) < len(dsts)
+            or any(not 0 <= r < n for r in srcs + dsts)):
+        raise ValueError(f"perm {list(perm)} is not a partial permutation "
+                         f"of {n} axis ranks")
+
+
+def _stages_through_host(group, x: torch.Tensor) -> bool:
+    """Whether ``x`` goes through host memory: a CUDA tensor over a group
+    whose backend for CUDA is gloo.  Read from ``dist.get_backend``
+    alone (a multi-backend group names one a device type, as
+    "cpu:gloo,cuda:nccl"), never from a failed send."""
+    backend = dist.get_backend(group)
+    if ":" in backend:
+        backend = dict(b.split(":") for b in backend.split(","))[
+            x.device.type]
+    return x.device.type == "cuda" and backend == "gloo"
+
+
+def _transfer(xs: List[torch.Tensor], group, rank: int, perm: Perm
+              ) -> List[torch.Tensor]:
+    """The raw hop: every (src, dst) pair of axis ranks sends src's
+    tensors to dst; a rank no pair sends to gets zeros.  Counted in
+    ``ppermute.calls`` (hops) and ``ppermute.bytes`` (bytes this rank
+    sent)."""
+    send_to = [d for s, d in perm if s == rank]
+    recv_from = [s for s, d in perm if d == rank]
+    if send_to and send_to[0] == rank:          # a rank's pair to itself
+        return [x.clone() for x in xs]
+    host = _stages_through_host(group, xs[0])
+
+    def buffer(x):
+        if host:
+            return torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
+    # gloo sends CPU tensors only: the blocking copies leave each pinned
+    # buffer complete before gloo reads it and after it writes it
+    wire = [buffer(x).copy_(x) if host else x.contiguous() for x in xs] \
+        if send_to else []
+    got = [buffer(x) for x in xs] if recv_from else []
+    ops = [dist.P2POp(dist.isend, w, dist.get_global_rank(group, d), group)
+           for d in send_to for w in wire]
+    ops += [dist.P2POp(dist.irecv, w, dist.get_global_rank(group, s), group)
+            for s in recv_from for w in got]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    ppermute.calls += 1
+    ppermute.bytes += sum(w.numel() * w.element_size() for w in wire)
+    if not recv_from:
+        return [torch.zeros_like(x) for x in xs]
+    return [w.to(x.device) for w, x in zip(got, xs)] if host else got
+
+
+class _PPermute(torch.autograd.Function):
+    """``_transfer`` forward; the incoming gradients travel the inverse
+    permutation backward (JAX's transpose of ``ppermute``)."""
+
+    @staticmethod
+    def forward(ctx, group, rank, perm, *xs):
+        ctx.group, ctx.rank = group, rank
+        ctx.inverse = tuple((d, s) for s, d in perm)
+        return tuple(_transfer(list(xs), group, rank, perm))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, None,
+                *_transfer(list(gs), ctx.group, ctx.rank, ctx.inverse))
+
+
+def ppermute(x: Tensors, mesh: DeviceMesh, axis: str, perm: Perm
+             ) -> Tensors:
+    """JAX's ``lax.ppermute`` over mesh dim ``axis``: ``perm`` lists
+    (source, destination) pairs of axis-local ranks; each source's ``x``
+    (a tensor, or a tuple or list of tensors sent together) arrives at
+    its destination, and a rank that no pair sends to gets zeros.  An
+    axis of size 1 returns ``x`` and moves nothing.
+
+    Differentiable: the gradient arriving at each destination travels
+    back along the inverse permutation (JAX's transpose of ``ppermute``).
+
+    Lockstep rule: every rank of the axis must reach every ``ppermute``,
+    forward and backward, in the same order and with tensors of the same
+    shapes and dtypes, including ranks that send or receive nothing: the
+    sends and receives of one call are posted together
+    (``dist.batch_isend_irecv``), so no ring order can deadlock, but a
+    rank that skips a call leaves its peers waiting.
+
+    Transport: the group's backend alone decides (``dist.get_backend``,
+    never a failed send).  Over NCCL device tensors go directly; over
+    gloo a CUDA tensor is copied to pinned host memory, sent, received
+    and copied back onto its device.  Counts hops in ``ppermute.calls``
+    and the bytes this rank sends in ``ppermute.bytes``."""
+    single = isinstance(x, torch.Tensor)
+    xs = (x,) if single else tuple(x)
+    if axis_size(mesh, axis) == 1:
+        return x
+    _check_perm(perm, axis_size(mesh, axis))
+    out = _PPermute.apply(mesh.get_group(axis), axis_rank(mesh, axis),
+                          tuple(map(tuple, perm)), *xs)
+    return out[0] if single else type(x)(out)
+
+
+ppermute.calls = 0
+ppermute.bytes = 0

@@ -36,17 +36,19 @@ from .mesh import (
 
 
 def shard_kv(k: torch.Tensor, v: torch.Tensor, heads: int,
-             mesh: DeviceMesh) -> Tuple[torch.Tensor, torch.Tensor]:
-    """This rank's KV for its block of ``heads`` query heads, from the
-    full (b, kvh, n, d) or single-head (b, n, d) KV (batch untouched)."""
+             mesh: DeviceMesh, axis: str = MODEL_AXIS
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's KV for its block of ``heads`` query heads sharded over
+    mesh dim ``axis``, from the full (b, kvh, n, d) or single-head
+    (b, n, d) KV (batch and sequence untouched)."""
     if k.ndim == 3 or k.shape[1] == 1:
         return k, v
-    tp = axis_size(mesh, MODEL_AXIS)
+    tp = axis_size(mesh, axis)
     if k.shape[1] % tp:
         k = k.repeat_interleave(heads // k.shape[1], dim=1)
         v = v.repeat_interleave(heads // v.shape[1], dim=1)
     n = k.shape[1] // tp
-    r = axis_rank(mesh, MODEL_AXIS)
+    r = axis_rank(mesh, axis)
     return k.narrow(1, r * n, n), v.narrow(1, r * n, n)
 
 

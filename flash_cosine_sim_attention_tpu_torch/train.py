@@ -15,12 +15,20 @@ rank draws the same global batch and takes its data rows; only rank 0
 prints and checkpoints.  Checkpoints hold the full weights: they are
 gathered before saving and sharded again after restoring, so a
 tensor-parallel checkpoint restores into a single-device run and back.
+``--pipeline-parallel N`` (exclusive with ``--model-parallel``, as in the
+JAX trainer) runs the GPipe pipeline over a (data W / N, pipe N) mesh
+under torchrun the same way: rank p holds stage p's layers, and the
+GRAD_ACCUM microbatches of a step drive the schedule.  Its checkpoints
+hold the merged full weights and Adam moments too.  Multi-host
+(``--coordinator``, ``--num-processes``, ``--process-id``) is not ported.
 
 Usage:
   python -m flash_cosine_sim_attention_tpu_torch.train --seq-len 1024 \\
       --steps 1000 [--use-float32] [--no-fused] [--device cpu]
   torchrun --nproc-per-node 2 -m flash_cosine_sim_attention_tpu_torch.train \\
       --model-parallel 2 [--device cpu]
+  torchrun --nproc-per-node 2 -m flash_cosine_sim_attention_tpu_torch.train \\
+      --pipeline-parallel 2 [--device cpu]
 """
 
 from __future__ import annotations
@@ -38,14 +46,19 @@ import torch.distributed as dist
 
 from ._build import resolve_device
 from .data import TextSampler, synthetic_corpus
-from .models import CosineSimCausalTransformer, generate
+from .models import CosineSimCausalTransformer, generate, params_to_flax
 from .parallel import (
     make_mesh,
+    make_pipeline_mesh,
+    make_pipeline_train_step,
     make_sharded_train_step,
     shard_opt_state,
     shard_params,
+    shard_pipeline_params,
+    split_pipeline_params,
     unshard_opt_state,
     unshard_params,
+    unshard_pipeline_params,
 )
 from .utils import restore_checkpoint, save_checkpoint
 
@@ -81,24 +94,67 @@ def make_sampler(path="data/enwik8.gz", seed=0, log=print) -> TextSampler:
     return sampler
 
 
-def init_model_parallel(model_parallel: int, device=None):
+def init_model_parallel(n: int, device=None, pipeline: bool = False):
     """Join the process group ``torchrun`` describes in the environment
     (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``): NCCL on
     the card with each rank on device ``LOCAL_RANK``, gloo on the CPU; and
-    return a (data W / N, model N) mesh over it.  Raises outside torchrun
-    or when N does not divide W."""
+    return a (data W / N, model N) mesh over it, or with ``pipeline`` a
+    (data W / N, pipe N) one.  Raises outside torchrun or when N does not
+    divide W."""
+    flag = "--pipeline-parallel" if pipeline else "--model-parallel"
     if "RANK" not in os.environ:
-        raise RuntimeError("--model-parallel runs under torchrun "
-                           "--nproc-per-node W, one process a rank")
+        raise RuntimeError(f"{flag} runs under torchrun --nproc-per-node W, "
+                           f"one process a rank")
     on_card = resolve_device(device).type == "cuda"
     if on_card:
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
     dist.init_process_group("nccl" if on_card else "gloo")
-    if dist.get_world_size() % model_parallel:
-        raise ValueError(f"--model-parallel {model_parallel} does not "
-                         f"divide the world size {dist.get_world_size()}")
-    return make_mesh(model_parallel=model_parallel,
-                     device_type="cuda" if on_card else "cpu")
+    if dist.get_world_size() % n:
+        raise ValueError(f"{flag} {n} does not divide the world size "
+                         f"{dist.get_world_size()}")
+    device_type = "cuda" if on_card else "cpu"
+    if pipeline:
+        return make_pipeline_mesh(pipeline_parallel=n,
+                                  device_type=device_type)
+    return make_mesh(model_parallel=n, device_type=device_type)
+
+
+def shard_pipeline(model, optimizer, mesh):
+    """This rank's ``PipelineStage`` of ``model`` and an Adam over it that
+    carries ``optimizer``'s moments of its parameters (a restored
+    checkpoint's)."""
+    n_stages = mesh.size(mesh.mesh_dim_names.index("pipe"))
+    stage = shard_pipeline_params(model, *split_pipeline_params(
+        model, params_to_flax(model), n_stages), mesh)
+    stage_opt = make_optimizer(stage)
+    full = dict(model.named_parameters())
+    for name, p in stage.named_parameters():
+        state = optimizer.state.get(full[stage.full_name(name)])
+        if state:
+            stage_opt.state[p] = {k: v.clone() for k, v in state.items()}
+    return stage, stage_opt
+
+
+def merge_pipeline(stage, optimizer, mesh, build):
+    """The full model (``build()``) holding every stage's weights, and an
+    Adam over it holding every stage's moments, on every rank (which all
+    call it together): the inverse of ``shard_pipeline``."""
+    model = build()
+    full = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, t in unshard_pipeline_params(stage, mesh).items():
+            full[name].copy_(t)
+    full_opt = make_optimizer(model)
+    first = optimizer.state.get(next(stage.parameters()))
+    if first:   # after a step every parameter has its moments
+        moments = {key: unshard_pipeline_params(
+            stage, mesh, lambda p, key=key: optimizer.state[p][key])
+            for key in ("exp_avg", "exp_avg_sq")}
+        for name, p in full.items():
+            full_opt.state[p] = dict(
+                step=first["step"].clone(),
+                **{key: moments[key][name] for key in moments})
+    return model, full_opt
 
 
 def decode_bytes(tokens) -> str:
@@ -169,36 +225,46 @@ def main(argv=None):
                          "device): heads and the MLP hidden over `model`, "
                          "batch over `data`; run under torchrun")
     ap.add_argument("--pipeline-parallel", type=int, default=0,
-                    help="GPipe pipeline: not ported yet (next slices)")
+                    help="GPipe pipeline over a (data, pipe) mesh (0 = "
+                         "none): stage p's layers on rank p of `pipe`, "
+                         "GRAD_ACCUM microbatches a step; run under "
+                         "torchrun")
     ap.add_argument("--coordinator", type=str, default="",
                     help="multi-host coordinator address: not ported yet "
-                         "(next slices)")
+                         "(multi-host is the next slice)")
     ap.add_argument("--num-processes", type=int, default=1,
-                    help="multi-host process count: not ported yet (next "
-                         "slices)")
+                    help="multi-host process count: not ported yet "
+                         "(multi-host is the next slice)")
     ap.add_argument("--process-id", type=int, default=-1,
-                    help="multi-host process id: not ported yet (next "
-                         "slices)")
+                    help="multi-host process id: not ported yet "
+                         "(multi-host is the next slice)")
     args = ap.parse_args(argv)
-    if (args.pipeline_parallel > 1 or args.coordinator
-            or args.num_processes > 1 or args.process_id >= 0):
+    if args.coordinator or args.num_processes > 1 or args.process_id >= 0:
         raise NotImplementedError(
-            "pipeline and multi-host parallelism are not ported to the "
-            "PyTorch package yet")
+            "multi-host parallelism (--coordinator, --num-processes, "
+            "--process-id) is not ported to the PyTorch package yet: it is "
+            "the next slice")
+    if args.pipeline_parallel > 1 and args.model_parallel > 1:
+        raise ValueError("--pipeline-parallel is exclusive with "
+                         "--model-parallel")
 
-    mesh = None
+    mesh = pipe = None
     if args.model_parallel > 1:
         mesh = init_model_parallel(args.model_parallel, args.device)
-    is_main = mesh is None or dist.get_rank() == 0
+    if args.pipeline_parallel > 1:
+        pipe = init_model_parallel(args.pipeline_parallel, args.device,
+                                   pipeline=True)
+    is_main = (mesh is None and pipe is None) or dist.get_rank() == 0
     log = print if is_main else (lambda *a, **k: None)
     device = resolve_device(args.device)
     dtype = torch.float32 if args.use_float32 else torch.bfloat16
     torch.manual_seed(args.seed)
-    model = CosineSimCausalTransformer(
-        num_tokens=256, dim=args.dim, depth=args.depth,
-        max_seq_len=args.seq_len, attn_scale=1.0, attn_l2norm_groups=8,
-        use_fused=not args.no_fused, pre_norm=True, dtype=dtype,
-        device=device)
+    build = functools.partial(
+        CosineSimCausalTransformer, num_tokens=256, dim=args.dim,
+        depth=args.depth, max_seq_len=args.seq_len, attn_scale=1.0,
+        attn_l2norm_groups=8, use_fused=not args.no_fused, pre_norm=True,
+        dtype=dtype, device=device)
+    model = build()
     sampler = make_sampler(seed=args.seed, log=log)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"params: {n_params / 1e6:.1f}M  dtype: {str(dtype)[6:]}  "
@@ -220,6 +286,22 @@ def main(argv=None):
         step_fn = make_sharded_train_step(model, optimizer, mesh,
                                           max_grad_norm=MAX_GRAD_NORM)
         log(f"mesh: data={mesh.size(0)} model={mesh.size(1)}")
+    if pipe is not None:
+        # as for the mesh: the stages are cut after restoring
+        stage, optimizer = shard_pipeline(model, optimizer, pipe)
+        del model        # rank p holds stage p's layers only
+        pipe_step = make_pipeline_train_step(
+            stage, optimizer, pipe, GRAD_ACCUM, max_grad_norm=MAX_GRAD_NORM)
+        step_fn = lambda b: pipe_step(b.reshape(-1, b.shape[-1]))  # noqa: E731
+        log(f"pipeline mesh: data={pipe.size() // args.pipeline_parallel} "
+            f"pipe={args.pipeline_parallel} (n_micro={GRAD_ACCUM})")
+
+    def full_model():
+        """The model with every stage's weights (all ranks call it
+        together under the pipeline), and its optimizer."""
+        if pipe is None:
+            return model, optimizer
+        return merge_pipeline(stage, optimizer, pipe, build)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     t_start = time.time()
@@ -242,14 +324,17 @@ def main(argv=None):
             vb = torch.from_numpy(sampler.sample(
                 "valid", args.batch_size, args.seq_len)).to(device)
             with torch.no_grad():
-                vl = model(vb, return_loss=True).item()
+                vl = full_model()[0](vb, return_loss=True).item()
             log(f"valid loss {vl:.4f}  valid bpb {vl / np.log(2):.4f}",
                 flush=True)
 
         if (args.checkpoint_dir and step > 0
                 and step % args.checkpoint_every == 0):
             if mesh is None:
-                save_checkpoint(args.checkpoint_dir, step, model, optimizer)
+                full, full_opt = full_model()
+                if is_main:
+                    save_checkpoint(args.checkpoint_dir, step, full,
+                                    full_opt)
             else:
                 # the full weights, gathered over the model axis
                 unshard_opt_state(optimizer, model)
@@ -262,15 +347,19 @@ def main(argv=None):
             log(f"checkpoint saved at step {step}", flush=True)
 
         # sampling is a data-dependent host loop: under tensor
-        # parallelism every rank would have to run it in lockstep
+        # parallelism every rank would have to run it in lockstep; under
+        # the pipeline rank 0 samples from the merged model
         if step % GENERATE_EVERY == 0 and step > 0 and mesh is None:
             prime = torch.from_numpy(
                 sampler.sample("valid", 1, args.seq_len)[:, :128]).to(device)
-            out = generate(model, prime, GENERATE_LENGTH, generator=gen)
+            full = full_model()[0]
+            if not is_main:
+                continue
+            out = generate(full, prime, GENERATE_LENGTH, generator=gen)
             print("prime:", decode_bytes(prime[0, -64:].tolist()))
             print("generated:", decode_bytes(out[0, :256].tolist()),
                   flush=True)
-    if mesh is not None:
+    if mesh is not None or pipe is not None:
         dist.destroy_process_group()
 
 

@@ -49,6 +49,8 @@ def test_importing_the_port_loads_no_jax():
             "import flash_cosine_sim_attention_tpu_torch.parallel.sharded_attention\n"
             "import flash_cosine_sim_attention_tpu_torch.parallel.sharded_decode\n"
             "import flash_cosine_sim_attention_tpu_torch.parallel.train\n"
+            "import flash_cosine_sim_attention_tpu_torch.parallel.ring_attention\n"
+            "import flash_cosine_sim_attention_tpu_torch.parallel.pipeline\n"
             "import flash_cosine_sim_attention_tpu_torch.benchmark\n"
             "import flash_cosine_sim_attention_tpu_torch.train\n"
             "loaded = [m for m in sys.modules if m.split('.')[0] in "
@@ -94,6 +96,8 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked():
         train.main(["--steps", "1"])
     with pytest.raises(RuntimeError, match="torchrun"):
         train.main(["--device", "cpu", "--model-parallel", "2"])
+    with pytest.raises(RuntimeError, match="torchrun"):
+        train.main(["--device", "cpu", "--pipeline-parallel", "2"])
     from flash_cosine_sim_attention_tpu_torch import benchmark
     with pytest.raises(RuntimeError, match="CUDA"):
         benchmark.main(["--seq-lens", "128"])

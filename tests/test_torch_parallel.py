@@ -1,12 +1,18 @@
-"""The port's tensor parallelism against the JAX package's on the CPU.
+"""The port's tensor, sequence and pipeline parallelism against the JAX
+package's on the CPU.
 
 One gloo world of 4 CPU processes (``tests/torch_parallel_worker.py``,
-``file://`` rendezvous under a temporary directory) builds a (2, 2) and a
-(1, 4) mesh and runs every case once; this process computes the JAX side
-on ``tests/conftest.py``'s 8 virtual devices with meshes of the same
-shapes (JAX's own checks in tests/test_parallel.py).  Bars: f32 outputs
-1e-4 against JAX's sharded result and 1e-5 against the port's own
-unsharded one; gradients relative to max|g|.
+``file://`` rendezvous under a temporary directory) builds (data, model)
+meshes of (2, 2) and (1, 4), ("seq",) and (model, seq) meshes and (pipe,)
+and (data, pipe) meshes, and runs every case once; this process computes
+the JAX side on ``tests/conftest.py``'s 8 virtual devices with meshes of
+the same shapes (JAX's own checks in tests/test_parallel.py and
+tests/test_pipeline.py), the ring's and the pipeline's while the world
+runs.  Bars: f32 outputs 1e-4 against JAX's sharded result and 1e-5
+against the port's own unsharded one; gradients relative to max|g|; the
+ring at JAX's ring bars (f32 1e-4 / 5e-4, bf16 1.5e-1 / 3e-1) against
+JAX's ring, the pipeline at 5e-6 against the plain model and JAX's
+pipeline.
 """
 
 import multiprocessing
@@ -33,10 +39,15 @@ from flash_cosine_sim_attention_tpu.parallel import (
     head_sharded_decode_attention as jax_sharded_decode,
     head_sharded_flash_attention as jax_sharded_attention,
     make_mesh as jax_mesh,
+    make_pipeline_loss_fn as jax_pipeline_loss_fn,
+    make_pipeline_mesh as jax_pipeline_mesh,
     make_sharded_train_step as jax_train_step,
+    merge_pipeline_params as jax_merge_pipeline,
     param_shardings as jax_param_shardings,
+    ring_flash_cosine_sim_attention as jax_ring,
     shard_cache as jax_shard_cache,
     shard_params as jax_shard_params,
+    split_pipeline_params as jax_split_pipeline,
 )
 from flash_cosine_sim_attention_tpu.quant import (
     append as jax_append,
@@ -49,7 +60,12 @@ from flash_cosine_sim_attention_tpu_torch.models import (
     CosineSimCausalTransformer,
     flax_param_shapes,
 )
-from flash_cosine_sim_attention_tpu_torch.parallel import make_mesh
+from flash_cosine_sim_attention_tpu_torch.parallel import (
+    make_mesh,
+    merge_pipeline_params,
+    split_pipeline_params,
+)
+from flash_cosine_sim_attention_tpu_torch.parallel import mesh as port_mesh
 from flash_cosine_sim_attention_tpu_torch.utils import restore_checkpoint
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -60,6 +76,16 @@ SERVE = dict(num_tokens=64, dim=64, depth=2, max_seq_len=256, heads=8,
              dim_head=16, pre_norm=True, attn_scale=1.0)
 # JAX meshes of the port's shapes: (data, model)
 MESHES = {"2x2": (4, 2), "1x4": (4, 4)}
+# ring meshes: (shape, axis names); pipeline meshes: pipeline_parallel
+RING_MESHES = {"seq4": ((4,), ("seq",)),
+               "model2_seq2": ((2, 2), ("model", "seq")),
+               "model4_seq1": ((4, 1), ("model", "seq"))}
+PIPE_MESHES = {"pipe4": None, "data2_pipe2": 2, "data4_pipe1": 1}
+PIPE = dict(num_tokens=64, dim=64, depth=4, max_seq_len=32, heads=4,
+            dim_head=16, pre_norm=True, attn_scale=1.0, use_fused=False)
+# JAX's ring bars (tests/test_parallel.py): outputs, gradients
+RING_BARS = {"float32": (1e-4, 5e-4), "bfloat16": (1.5e-1, 3e-1)}
+PIPE_BAR = 5e-6       # tests/test_pipeline.py
 
 
 def _flax(cfg, seed):
@@ -115,9 +141,84 @@ def _inputs():
         jax_side["serve_" + name] = (jmodel, jparams)
         serving.append((name, cfg, params, quantized))
     rules_cfg = dict(SERVE, depth=1)
+    # (name, mesh, dtype, kwargs, (q, k, v[, mask])), after
+    # tests/test_parallel.py's ring tests at 4-way sequence shards
+    qkv = lambda b, h, kvh: (f32(b, h, 128, 32), f32(b, kvh, 128, 32),  # noqa: E731
+                             f32(b, kvh, 128, 32))
+    ring = [
+        ("causal", "seq4", "float32", dict(causal=True), qkv(1, 2, 2)),
+        ("noncausal", "seq4", "float32", dict(causal=False), qkv(1, 2, 2)),
+        ("gqa1", "seq4", "float32", dict(causal=True), qkv(1, 4, 1)),
+        ("gqa2", "seq4", "float32", dict(causal=True), qkv(1, 4, 2)),
+        ("mask_causal", "seq4", "float32", dict(causal=True),
+         qkv(2, 2, 2) + (rng.random((2, 128)) > 0.3,)),
+        ("mask", "seq4", "float32", dict(causal=False),
+         qkv(2, 2, 2) + (rng.random((2, 128)) > 0.3,)),
+        ("bf16", "seq4", "bfloat16", dict(causal=True), qkv(1, 2, 2)),
+        ("model_seq", "model2_seq2", "float32",
+         dict(causal=True, model_axis="model"), qkv(1, 4, 2)),
+        ("repeat", "model4_seq1", "float32",
+         dict(causal=True, model_axis="model"), qkv(1, 8, 2)),
+    ]
+    # (name, mesh, cfg, params, tokens, stages, microbatches, remat),
+    # after tests/test_pipeline.py
+    pipeline = []
+    for name, mesh_name, depth, fused, b, n_stages, n_micro, remat in (
+            ("4x2", "pipe4", 4, False, 4, 4, 2, False),
+            ("4x2_remat", "pipe4", 4, False, 4, 4, 2, True),
+            ("2x4_data2", "data2_pipe2", 4, False, 8, 2, 4, True),
+            ("1x2_data4", "data4_pipe1", 4, False, 8, 1, 2, False),
+            ("fused", "data2_pipe2", 2, True, 4, 2, 2, False)):
+        cfg = dict(PIPE, depth=depth, use_fused=fused)
+        jmodel, jparams, params = _flax(cfg, 4)
+        jax_side["pipe_" + name] = (jmodel, jparams)
+        pipeline.append((name, mesh_name, cfg, params,
+                         rng.integers(0, 64, (b, 33)), n_stages, n_micro,
+                         remat))
     return dict(attention=attention, decode=decode, train=train,
                 serving=serving, rules=(rules_cfg, _flax(rules_cfg, 3)[2]),
-                x=x), jax_side
+                ring=ring, pipeline=pipeline, x=x), jax_side
+
+
+def _jax_ring(inputs):
+    """JAX's ring on meshes of the port's shapes: (o, dq, dk, dv) of
+    sum(o^2), one jitted call a case."""
+    out = {}
+    for name, mesh_name, dtype, kw, (q, k, v, *mask) in inputs["ring"]:
+        shape, axes = RING_MESHES[mesh_name]
+        mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]).reshape(shape),
+                                 axes)
+        kw = dict(kw, mask=jnp.asarray(mask[0]) if mask else None)
+
+        def loss(q, k, v, kw=kw, mesh=mesh):
+            o = jax_ring(q, k, v, mesh, **kw)
+            return jnp.sum(o.astype(jnp.float32) ** 2), o
+        (_, o), grads = jax.jit(jax.value_and_grad(
+            loss, argnums=(0, 1, 2), has_aux=True))(
+                *(jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v)))
+        out[name] = [np.asarray(t, np.float32) for t in (o, *grads)]
+    return out
+
+
+def _jax_pipeline(inputs, jax_side):
+    """JAX's pipelined loss and merged gradients on meshes of the port's
+    shapes; the fused case's loss alone, as JAX's own test takes it."""
+    out = {}
+    for name, mesh_name, cfg, _, x, n_stages, n_micro, remat in \
+            inputs["pipeline"]:
+        jmodel, jparams = jax_side["pipe_" + name]
+        mesh = jax_pipeline_mesh(4, pipeline_parallel=PIPE_MESHES[mesh_name])
+        loss_fn = jax_pipeline_loss_fn(jmodel, mesh, n_micro, remat=remat)
+        stacked, aux = jax_split_pipeline(jmodel, jparams, n_stages)
+        tokens = jnp.asarray(x)
+        if cfg["use_fused"]:
+            out[name] = (float(loss_fn(stacked, aux, tokens)), None)
+            continue
+        loss, (gs, ga) = jax.jit(jax.value_and_grad(
+            lambda s, a: loss_fn(s, a, tokens), argnums=(0, 1)))(stacked, aux)
+        out[name] = (float(loss), jax.tree.map(
+            np.asarray, jax_merge_pipeline(jmodel, gs, ga)))
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -135,15 +236,21 @@ def world(tmp_path_factory):
              for rank in range(WORLD)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + 300
-    while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
-        if any(p.exitcode not in (None, 0) for p in procs):
-            break
-        time.sleep(0.2)
-    for p in procs:
-        if p.is_alive():
-            p.terminate()
-        p.join(timeout=30)
+    try:
+        # the ring's and the pipeline's JAX side while the world runs
+        jax_side["ring"] = _jax_ring(inputs)
+        jax_side["pipeline"] = _jax_pipeline(inputs, jax_side)
+    finally:
+        deadline = time.monotonic() + 300
+        while (any(p.is_alive() for p in procs)
+               and time.monotonic() < deadline):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(timeout=30)
     errors = [f.read_text() for f in sorted(workdir.glob("error-*.txt"))]
     assert not errors, errors[0]
     assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
@@ -306,6 +413,169 @@ def test_trainer_model_parallel_under_torchrun(tmp_path):
 
 
 def test_trainer_pipeline_parallel_still_raises():
+    """--pipeline-parallel runs under torchrun only and excludes
+    --model-parallel (as in the JAX trainer); the multi-host flags still
+    raise, naming the next slice."""
     from flash_cosine_sim_attention_tpu_torch import train
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="torchrun"):
         train.main(["--device", "cpu", "--pipeline-parallel", "2"])
+    with pytest.raises(ValueError, match="exclusive"):
+        train.main(["--device", "cpu", "--pipeline-parallel", "2",
+                    "--model-parallel", "2"])
+    for flag in (["--coordinator", "localhost:1"], ["--num-processes", "2"],
+                 ["--process-id", "0"]):
+        with pytest.raises(NotImplementedError, match="next slice"):
+            train.main(["--device", "cpu", *flag])
+
+
+def test_trainer_pipeline_parallel_under_torchrun(tmp_path):
+    """--pipeline-parallel 2 on two gloo ranks: a step, then a checkpoint
+    of the merged full weights and moments that restores into a
+    single-device model."""
+    ck = tmp_path / "ck"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m",
+           "flash_cosine_sim_attention_tpu_torch.train", "--device", "cpu",
+           "--pipeline-parallel", "2", "--steps", "2", "--dim", "32",
+           "--depth", "2", "--seq-len", "32", "--batch-size", "2",
+           "--checkpoint-dir", str(ck), "--checkpoint-every", "1"]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=240, env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "pipeline mesh: data=1 pipe=2 (n_micro=4)" in proc.stdout
+    assert proc.stdout.count("step 0  loss") == 1   # rank 0 alone prints
+    model = CosineSimCausalTransformer(
+        num_tokens=256, dim=32, depth=2, max_seq_len=32, attn_scale=1.0,
+        attn_l2norm_groups=8, pre_norm=True, device="cpu")
+    opt = torch.optim.Adam(model.parameters())
+    assert restore_checkpoint(str(ck), model, opt) == 1
+    # every parameter, every stage's layers included, has its moments
+    assert len(opt.state) == len(list(model.parameters()))
+    assert all(s["exp_avg_sq"].abs().max() > 0 for s in opt.state.values())
+
+
+def test_ppermute_partial_permutation_and_its_transpose(world):
+    """A rank no pair sends to gets zeros (rank 3, and rank 3's x gets a
+    zero gradient); the gradient takes the inverse permutation; a tuple
+    keeps its dtypes; an axis of size 1 is the identity, no hop."""
+    got = world[2]["transport"]
+    ones = np.ones((2, 3), np.float32)
+    np.testing.assert_array_equal(got["y"], [3 * ones, ones, 2 * ones,
+                                             0 * ones])
+    w = np.arange(6.0, dtype=np.float32).reshape(2, 3)
+    # rank r sent to d = perm[r]; its gradient is d's weight, (d + 1) w
+    np.testing.assert_array_equal(got["grad"], [2 * w, 3 * w, 1 * w,
+                                                0 * w])
+    assert got["calls"] == 2          # the forward hop and its transpose
+    dtypes, vals = got["tuple"]
+    assert dtypes == ["torch.float32", "torch.bfloat16", "torch.bool"]
+    src = [(r - 1) % 4 for r in range(4)]
+    np.testing.assert_array_equal(vals[0][:, 0], [s + 0.5 for s in src])
+    np.testing.assert_array_equal(vals[1][:, 0], [s + 0.25 for s in src])
+    np.testing.assert_array_equal(vals[2], np.eye(4)[src])
+    assert got["size1_identity"]
+
+
+@pytest.mark.parametrize("backend,staged", [
+    ("gloo", True), ("nccl", False), ("cpu:gloo,cuda:nccl", False),
+    ("cpu:gloo,cuda:gloo", True)])
+def test_ppermute_stages_cuda_tensors_by_backend(monkeypatch, backend,
+                                                 staged):
+    """Host staging is chosen from the group's backend alone: a CUDA
+    tensor goes through host memory over gloo, directly over NCCL; a CPU
+    tensor never stages."""
+    from types import SimpleNamespace
+    monkeypatch.setattr(port_mesh.dist, "get_backend", lambda g: backend)
+    on = lambda kind: SimpleNamespace(device=SimpleNamespace(type=kind))  # noqa: E731
+    assert port_mesh._stages_through_host(None, on("cuda")) is staged
+    assert port_mesh._stages_through_host(None, on("cpu")) is False
+
+
+RING_CASES = ["causal", "noncausal", "gqa1", "gqa2", "mask_causal", "mask",
+              "bf16", "model_seq", "repeat"]
+
+
+@pytest.mark.parametrize("name", RING_CASES)
+def test_ring_attention_matches_jax(world, name):
+    """Output and q/k/v gradients of sum(o^2) against JAX's ring at JAX's
+    bars, and against the port's unsharded op (the plain forward where
+    mask and causality compose) at 1e-5 (bf16: JAX's ring bars, the pairs
+    round on their own); hops: size - 1 forward, size backward."""
+    inputs, jax_side, results = world
+    case = next(c for c in inputs["ring"] if c[0] == name)
+    got, want = results["ring"][name], jax_side["ring"][name]
+    out_bar, grad_bar = RING_BARS[case[2]]
+    assert np.abs(got["o"] - want[0]).max() < out_bar
+    for g, w in zip(got["grads"], want[1:]):
+        assert np.abs(g - w).max() < grad_bar
+    if case[2] == "float32":
+        assert np.abs(got["o"] - got["ref"]).max() < 1e-5
+        for g, gl in zip(got["grads"], got["ref_grads"]):
+            assert _rel(g, gl) < 1e-5
+    else:
+        assert np.abs(got["o"] - got["ref"]).max() < out_bar
+        for g, gl in zip(got["grads"], got["ref_grads"]):
+            assert np.abs(g - gl).max() < grad_bar
+    size = RING_MESHES[case[1]][0][-1]
+    assert got["hops"] == ((size - 1, 2 * size - 1) if size > 1 else (0, 0))
+
+
+def test_pipeline_split_matches_jax_and_round_trips():
+    """The port's split of a flax tree equals JAX's leaf by leaf, and
+    merge inverts it exactly."""
+    cfg = dict(PIPE, depth=4)
+    jmodel, jparams, params = _flax(cfg, 4)
+    model = CosineSimCausalTransformer(**cfg, device="meta")
+    for n_stages in (4, 2, 1):
+        stacked, aux = split_pipeline_params(model, params, n_stages)
+        want = jax_split_pipeline(jmodel, jparams, n_stages)
+        flat = jax.tree_util.tree_flatten_with_path
+        got_leaves = flat(jax.tree.map(np.asarray, (stacked, aux)))[0]
+        want_leaves = flat(jax.tree.map(np.asarray, want))[0]
+        assert [p for p, _ in got_leaves] == [p for p, _ in want_leaves]
+        for (_, a), (_, b) in zip(got_leaves, want_leaves):
+            np.testing.assert_array_equal(a, b)
+        back = merge_pipeline_params(model, stacked, aux)["params"]
+        for (pa, a), (pb, b) in zip(
+                flat(jax.tree.map(np.asarray, back))[0],
+                flat(params)[0]):
+            assert pa == pb
+            np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="split into 3"):
+        split_pipeline_params(model, params, 3)
+    with pytest.raises(ValueError, match="pre-norm"):
+        split_pipeline_params(CosineSimCausalTransformer(
+            **dict(cfg, pre_norm=False), device="meta"), params, 2)
+
+
+PIPE_CASES = ["4x2", "4x2_remat", "2x4_data2", "1x2_data4", "fused"]
+
+
+@pytest.mark.parametrize("name", PIPE_CASES)
+def test_pipeline_matches_plain_and_jax(world, name):
+    """Loss and every gradient of the pipeline (each stage's layers and
+    the summed replicated parameters, gathered) against the plain model
+    and JAX's pipeline at 5e-6; each rank's stage holds exactly its slice
+    of the weights."""
+    _, jax_side, results = world
+    got = results["pipeline"][name]
+    want_loss, want_grads = jax_side["pipeline"][name]
+    assert abs(got["loss"] - got["loss_plain"]) < PIPE_BAR
+    assert got["grad_err"] < PIPE_BAR
+    assert got["weights_err"] == 0.0
+    assert abs(got["loss"] - want_loss) < PIPE_BAR
+    if want_grads is not None:
+        diffs = jax.tree.map(lambda a, b: float(np.abs(a - b).max()),
+                             got["grads"], want_grads["params"])
+        assert max(jax.tree.leaves(diffs)) < PIPE_BAR, diffs
+
+
+def test_parallel_exports_cover_jax_but_multihost():
+    """The port's parallel/ exports every JAX name but multi-host's."""
+    import flash_cosine_sim_attention_tpu.parallel as jax_parallel
+    import flash_cosine_sim_attention_tpu_torch.parallel as port_parallel
+    missing = set(jax_parallel.__all__) - set(port_parallel.__all__)
+    assert missing == {"initialize_distributed", "local_batch_to_global",
+                       "make_multihost_mesh", "process_local_rows",
+                       "run_multiprocess_cpu_dryrun"}

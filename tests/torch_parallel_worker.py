@@ -1,9 +1,10 @@
 """The rank body of tests/test_torch_parallel.py.
 
 Each rank of a gloo world of 4 CPU processes runs every case once, on a
-(2, 2) and a (1, 4) mesh, from the numpy inputs the test wrote; rank 0
-writes the results as numpy.  Imports no JAX: the test process computes
-the JAX side.
+(2, 2) and a (1, 4) (data, model) mesh, on ("seq",) and (model, seq)
+meshes for ring attention and on (pipe,) and (data, pipe) meshes for the
+pipeline, from the numpy inputs the test wrote; rank 0 writes the results
+as numpy.  Imports no JAX: the test process computes the JAX side.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import traceback
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from flash_cosine_sim_attention_tpu_torch import (
     flash_cosine_sim_attention,
@@ -27,10 +29,14 @@ from flash_cosine_sim_attention_tpu_torch.models import (
     init_decode_state,
     init_paged_decode_state,
     params_from_flax,
+    params_to_flax,
     prefill,
     quantize_params,
 )
 from flash_cosine_sim_attention_tpu_torch.models.decoding import decode_step
+from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+    flash_attention_forward_plain,
+)
 from flash_cosine_sim_attention_tpu_torch.parallel import (
     MODEL_AXIS,
     cache_shardings,
@@ -38,14 +44,21 @@ from flash_cosine_sim_attention_tpu_torch.parallel import (
     head_sharded_flash_attention,
     local_shard,
     make_mesh,
+    make_pipeline_mesh,
+    make_pipeline_train_step,
     make_sharded_train_step,
     param_shardings,
+    ppermute,
+    ring_flash_cosine_sim_attention,
     shard_cache,
     shard_opt_state,
     shard_params,
+    shard_pipeline_params,
     sharding,
+    split_pipeline_params,
     unshard_opt_state,
     unshard_params,
+    unshard_pipeline_params,
 )
 from flash_cosine_sim_attention_tpu_torch.quant import (
     append,
@@ -89,7 +102,8 @@ def decode(inp, meshes):
     b, h, n, d = k.shape
     cache = append(init_cache(b, h, cap, d, "cpu"), l2norm_tensors(k), v)
     out = {"o_local": quantized_decode_attention(q, cache).numpy()}
-    for name, mesh in meshes.items():
+    for name in ("2x2", "1x4"):
+        mesh = meshes[name]
         out[name] = head_sharded_decode_attention(
             q, shard_cache(cache, mesh), mesh).numpy()
     try:
@@ -248,6 +262,105 @@ def serving(inp, meshes):
     return out
 
 
+def _all_ranks(x: torch.Tensor) -> np.ndarray:
+    """(world, *x.shape): every rank's ``x``, on every rank."""
+    buf = torch.zeros(dist.get_world_size(), *x.shape, dtype=torch.float32)
+    buf[dist.get_rank()] = x.detach().float()
+    dist.all_reduce(buf)
+    return buf.numpy()
+
+
+def transport(inp, meshes):
+    """ppermute: a partial permutation (rank 3 sends and receives
+    nothing), its backward, a tuple of dtypes around the ring, and an
+    axis of size 1."""
+    mesh, r = meshes["seq4"], dist.get_rank()
+    x = torch.full((2, 3), float(r + 1), requires_grad=True)
+    calls = ppermute.calls
+    y = ppermute(x, mesh, "seq", [(0, 1), (1, 2), (2, 0)])
+    (y * torch.arange(6.0).reshape(2, 3) * (r + 1)).sum().backward()
+    out = dict(y=_all_ranks(y), grad=_all_ranks(x.grad),
+               calls=ppermute.calls - calls)
+    ring = [(i, (i + 1) % 4) for i in range(4)]
+    sent = (torch.full((3,), r + 0.5), torch.full((2,), r + 0.25,
+                                                  dtype=torch.bfloat16),
+            torch.arange(4) == r)
+    got = ppermute(sent, mesh, "seq", ring)
+    out["tuple"] = ([str(t.dtype) for t in got],
+                    [_all_ranks(t) for t in got])
+    one = meshes["model4_seq1"]
+    calls = ppermute.calls
+    out["size1_identity"] = ppermute(x, one, "seq", [(0, 0)]) is x \
+        and ppermute.calls == calls
+    return out
+
+
+def _ring_reference(q, k, v, mask, causal, kw):
+    """The unsharded op, or with a mask and causality together (which the
+    op refuses) the plain forward on l2-normalized inputs."""
+    if mask is not None and causal:
+        qn, kn = l2norm_tensors(q, k, groups=kw.get("groups", 1))
+        return flash_attention_forward_plain(
+            qn, kn, v, mask, None, bias_batch_dim=False,
+            scale=kw.get("scale", 8.0), causal=True)[0]
+    return flash_cosine_sim_attention(q, k, v, mask=mask, causal=causal,
+                                      **kw)
+
+
+def ring(inp, meshes):
+    out = {}
+    for name, mesh_name, dtype, kw, (q, k, v, *mask) in inp["ring"]:
+        kw = dict(kw)
+        causal, model_axis = kw.pop("causal"), kw.pop("model_axis", None)
+        mask = _t(mask[0]) if mask else None
+        q, k, v = (_t(a).to(getattr(torch, dtype)).requires_grad_()
+                   for a in (q, k, v))
+        calls = ppermute.calls
+        o = ring_flash_cosine_sim_attention(
+            q, k, v, meshes[mesh_name], mask=mask, causal=causal,
+            model_axis=model_axis, **kw)
+        hops_fwd = ppermute.calls - calls
+        grads = torch.autograd.grad(o.float().square().sum(), (q, k, v))
+        ref = _ring_reference(q, k, v, mask, causal, kw)
+        ref_grads = torch.autograd.grad(ref.float().square().sum(),
+                                        (q, k, v))
+        out[name] = dict(
+            o=o.detach().float().numpy(), ref=ref.detach().float().numpy(),
+            grads=[g.float().numpy() for g in grads],
+            ref_grads=[g.float().numpy() for g in ref_grads],
+            hops=(hops_fwd, ppermute.calls - calls))
+    return out
+
+
+def pipeline(inp, meshes):
+    out = {}
+    for name, mesh_name, cfg, params, x, n_stages, n_micro, remat in \
+            inp["pipeline"]:
+        mesh, x = meshes[mesh_name], _t(x)
+        model = _model(cfg, params)
+        loss0 = model(x, return_loss=True)
+        loss0.backward()
+        stage = shard_pipeline_params(
+            model, *split_pipeline_params(model, params, n_stages), mesh)
+        step = make_pipeline_train_step(
+            stage, torch.optim.SGD(stage.parameters(), lr=0.0), mesh,
+            n_micro, remat=remat)
+        loss = step(x)
+        full = dict(model.named_parameters())
+        weights = unshard_pipeline_params(stage, mesh)
+        grads = unshard_pipeline_params(stage, mesh, lambda p: p.grad)
+        res = dict(loss=loss.item(), loss_plain=loss0.item(),
+                   weights_err=max((weights[n] - p).abs().max().item()
+                                   for n, p in full.items()),
+                   grad_err=max((grads[n] - p.grad).abs().max().item()
+                                for n, p in full.items()))
+        for n, p in full.items():
+            p.grad = grads[n]
+        res["grads"] = params_to_flax(model, grads=True)
+        out[name] = res
+    return out
+
+
 def run(rank: int, world: int, workdir: str) -> None:
     try:
         torch.set_num_threads(1)
@@ -258,8 +371,19 @@ def run(rank: int, world: int, workdir: str) -> None:
             inp = pickle.load(f)
         meshes = {"2x2": make_mesh(model_parallel=2, device_type="cpu"),
                   "1x4": make_mesh(model_parallel=4, device_type="cpu")}
+        for name, shape, dims in (
+                ("seq4", (4,), ("seq",)),
+                ("model2_seq2", (2, 2), ("model", "seq")),
+                ("model4_seq1", (4, 1), ("model", "seq"))):
+            meshes[name] = DeviceMesh("cpu", torch.arange(4).reshape(shape),
+                                      mesh_dim_names=dims)
+        for name, pp in (("pipe4", None), ("data2_pipe2", 2),
+                         ("data4_pipe1", 1)):
+            meshes[name] = make_pipeline_mesh(pipeline_parallel=pp,
+                                              device_type="cpu")
         res = {}
-        for case in (attention, decode, rules, train, serving):
+        for case in (attention, decode, rules, train, serving, transport,
+                     ring, pipeline):
             res[case.__name__] = case(inp, meshes)
         if rank == 0:
             with open(f"{workdir}/results.tmp", "wb") as f:
