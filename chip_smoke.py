@@ -3,6 +3,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --ring-nccl   # phase 19's rings alone over
                                         # NCCL, a card a rank (4 cards)
+    python3 chip_smoke.py --multihost-nccl  # the trainer as 2 torchrun
+                                        # nodes of 2 cards (4 cards)
 
 Phases (any failure exits non-zero):
   1. device: requires CUDA; prints the card's name and power limit;
@@ -143,9 +145,30 @@ Phases (any failure exits non-zero):
      from the same weights (one float32 step at the f32 bars, 3 bf16
      steps under phase 18's rule), each rank's K1 and K2 launches (16 a
      step), a bf16 step's wall and device time; then a world of 4 on a
-     (data 2, pipe 2) mesh, one float32 step.
+     (data 2, pipe 2) mesh, one float32 step;
+ 21. multi-host training: 2 nodes of 2 ranks on the one card over gloo,
+     joined through initialize_distributed at a localhost TCP store (each
+     rank's LOCAL_RANK and LOCAL_WORLD_SIZE set, its node from its rank),
+     on the (data 2, model 2) mesh of make_multihost_mesh(2); each node
+     feeds only its own rows (4 microbatches of 2 x 1024 from a numpy
+     seed a node) through process_local_rows and local_batch_to_global;
+     the validation model through make_sharded_train_step against rank
+     0's train_step over the node-major concatenation from the same
+     weights (one float32 step at the f32 bars, 3 bf16 steps under phase
+     18's rule), each rank's K1 and K2 launches (32 a step), a bf16
+     step's wall, device time and idle share a rank (no speed: four ranks
+     share the card); make_multihost_mesh(4) refused with 2 ranks a node.
+     --multihost-nccl instead runs the trainer itself as 2 torchrun nodes
+     of 2 cards over NCCL (31 steps, --model-parallel 2) and holds its
+     losses to train_step's on one card over the same rows at 4e-4;
+ 22. in a fresh process, the float32 (FMA) instances at the main path's
+     shapes: K1 (b1 h8 s1024 d64 causal), K2 and K3a/K3b (phase 8's
+     shapes), K7 (one decode step's 65 calls at 8 rows), each checked
+     against its plain version and timed beside it, its bound (bytes, or
+     operations at the float32 peak outside the tensor cores) and SDPA or
+     F.linear in float32 with TF32 off.
 Then one JSON line lists every ported kernel, and the entries of phases
-18-20 (each rank's launches and error), with its launches on its path, error,
+18-22 (each rank's launches and error), with its launches on its path, error,
 times and bound (timing lines also print the achieved
 TFLOP/s); the script's own wall time, the nvcc build included; the
 card's name and power limit; and, last, the {"ok": true, ...} line.
@@ -168,6 +191,7 @@ import torch
 
 SEED = 0
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_F32_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 
 MODEL = dict(num_tokens=256, dim=512, depth=8, max_seq_len=1024, heads=8,
@@ -283,6 +307,16 @@ RING_CASES = (
 PLAIN_LOGITS = 1 << 29
 # phase 20: the validation model in PIPE_STAGES pipeline stages
 PIPE_STAGES = 2
+# phase 21: MH_NODES multi-host nodes of MH_LOCAL ranks, a model axis of
+# MH_LOCAL; --multihost-nccl: the trainer's losses over MH_NCCL_STEPS
+# steps against one card's, at the bar the pipelined trainer met over
+# NCCL on four cards
+MH_NODES = 2
+MH_LOCAL = 2
+MH_NCCL_STEPS = 31
+MH_NCCL_BAR = 4e-4
+MH_NCCL_TIMEOUT_S = 300   # the trainers' time limit (killed past it)
+MH_PROFILED = 2           # bf16 steps a phase-21 rank's device time spans
 
 
 def fail(msg: str) -> None:
@@ -322,7 +356,7 @@ PROFILE_TRIES = 3
 WHOLE_TRIES = 5
 
 
-def cuda_rows(work, iters: int):
+def cuda_rows(work, iters: int, tries: int = PROFILE_TRIES):
     """torch.profiler's per-kernel rows (key, self device time in us,
     count) over ``iters`` calls of ``work``.  The profiler can drop the
     record of the first kernel launched in its window: on the H100,
@@ -333,13 +367,13 @@ def cuda_rows(work, iters: int):
     window, and it is left out of the rows.  A window can also come back
     with no record of the work's kernels at all (seen on the H100 over 3
     calls of kernels that had just run and been checked): such a window
-    is profiled again, up to PROFILE_TRIES times, and then returned
+    is profiled again, up to ``tries`` times, and then returned
     empty.  User annotations are left out: a gloo collective's range
     (phase 18) spans the copies it issues and would count them twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(PROFILE_TRIES):
+    for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -358,7 +392,7 @@ def cuda_rows(work, iters: int):
     return rows
 
 
-def whole_rows(work, iters: int):
+def whole_rows(work, iters: int, group=None):
     """cuda_rows' (key, device time in us, count) per call of a ``work``
     that launches each of its kernels the same number of times per call,
     over ``iters`` calls: a kernel whose count is not a multiple of the
@@ -367,11 +401,19 @@ def whole_rows(work, iters: int):
     record of the same kernel in 3 and in 5 windows running; after
     WHOLE_TRIES such profiles a window in which each kernel lost at most
     one record is taken (each kernel's time a call is the mean of its
-    kept records times its launches a call), and any other fails."""
+    kept records times its launches a call), and any other fails.  With a
+    process ``group`` (a ``work`` whose collectives every rank must run
+    alike) every rank profiles again when any rank lost a record or saw
+    none."""
+    import torch.distributed as dist
+
     for n in range(iters, iters + WHOLE_TRIES):
-        rows = cuda_rows(work, n)
+        rows = cuda_rows(work, n, PROFILE_TRIES if group is None else 1)
         counts = [count for _, _, count in rows]
-        if not any(count % n for count in counts):
+        again = torch.tensor([not rows or any(c % n for c in counts)])
+        if group is not None:
+            dist.all_reduce(again, dist.ReduceOp.MAX, group=group)
+        if not again.item():
             return [(key, t / n, count // n) for key, t, count in rows]
         lost = [(key[:40], count) for key, _, count in rows if count % n]
         print(f"  (the profiler lost kernel records: {lost} of counts "
@@ -493,8 +535,8 @@ def grad_err(x: torch.Tensor, y: torch.Tensor, dtype) -> float:
     return ((x - y).abs() / (y.abs() + floor).clamp_min(1e-30)).max().item()
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
                                        else "bytes")
 
@@ -857,8 +899,9 @@ def compare_backward(worst, name, args, kw, dtype, mask_kind):
 
 def time_backward(card: str, args, kw, args_b, kw_b):
     """K2 on ``args`` (causal, no bias) and K3a, K3b on ``args_b`` (causal,
-    an (h, i, j) bias), bf16, timed beside the plain backward and SDPA's;
-    returns {kernel: timing row}."""
+    an (h, i, j) bias), in their dtype (bf16 bounded at the tensor cores'
+    peak, float32 at the float32 peak outside them), timed beside the
+    plain backward and SDPA's; returns {kernel: timing row}."""
     import torch.nn.functional as F
 
     from flash_cosine_sim_attention_tpu_torch.ops import (
@@ -883,7 +926,9 @@ def time_backward(card: str, args, kw, args_b, kw_b):
     lib_b_ms = device_ms(lambda: torch.autograd.grad(o_b, (qs, ks, vs), do,
                                                      retain_graph=True))
     pairs = b * h * s * (s + 1) / 2         # visible (i, j) pairs, all heads
-    io = b * h * s * d * 2                  # one bf16 (b, h, s, d) tensor
+    io = b * h * s * d * q.element_size()   # one (b, h, s, d) tensor
+    label = str(q.dtype)[6:]
+    peak = PEAK_F32_FLOPS if q.dtype == torch.float32 else PEAK_BF16_FLOPS
     delta = b * h * s * 4
     bias_vis = h * s * (s + 1) / 2 * 4      # the bias entries causal reads
     rows = {}
@@ -898,11 +943,11 @@ def time_backward(card: str, args, kw, args_b, kw_b):
          8 * d * pairs, 6 * io + delta + bias_vis, plain_b_ms, lib_b_ms),
     ):
         ms = device_ms(call)
-        bound_ms, by = bound(flops, nbytes)
+        bound_ms, by = bound(flops, nbytes, peak)
         call_ms = event_ms(wrapper) if wrapper is not None else None
         rows[name] = dict(ms=ms, plain_ms=p_ms, bound_ms=bound_ms,
                           bound_by=by, library_ms=l_ms)
-        print(f"  {name} b{b} h{h} s{s} d{d} causal bf16"
+        print(f"  {name} b{b} h{h} s{s} d{d} causal {label}"
               f"{'' if name == 'K2' else ' + (h,i,j) bias'} on {card}: "
               f"device time kernel {ms:.4f} ms ({tflops(flops, ms):.1f} "
               f"TFLOP/s), plain {p_ms:.4f} ms, SDPA backward {l_ms:.4f} ms "
@@ -3204,13 +3249,17 @@ def tp_time(mesh):
 
 
 def world_rank(rank: int, world: int, workdir: str, backend: str, body,
-               args) -> None:
-    """One rank of a world spawned on the one card (phases 18-20): every
+               args, node: tuple = None) -> None:
+    """One rank of a world spawned on the one card (phases 17-22): every
     rank on device 0 over gloo, rank r on device r over NCCL (which takes
     one rank a device), the process group over ``backend`` with a file
-    rendezvous in ``workdir``; runs ``body(*args)`` and writes its result,
-    or its traceback, into ``workdir``."""
+    rendezvous in ``workdir``, or with ``node`` = (ranks a node, port) as
+    multi-host nodes through initialize_distributed at localhost:port
+    (rank r is local rank r % L of node r // L); with ``backend`` None no
+    process group (a fresh process on device 0); runs ``body(*args)`` and
+    writes its result, or its traceback, into ``workdir``."""
     import datetime
+    import os
     import pickle
     import traceback
 
@@ -3221,24 +3270,39 @@ def world_rank(rank: int, world: int, workdir: str, backend: str, body,
         torch.backends.cudnn.allow_tf32 = False
         torch.cuda.set_device(rank if backend == "nccl" else 0)
         torch.zeros(1, device="cuda")
-        dist.init_process_group(
-            backend, init_method=f"file://{workdir}/rendezvous", rank=rank,
-            world_size=world, timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+        if node is not None:
+            from flash_cosine_sim_attention_tpu_torch.parallel import (
+                initialize_distributed)
+            local, port = node
+            os.environ.update(LOCAL_RANK=str(rank % local),
+                              LOCAL_WORLD_SIZE=str(local))
+            initialize_distributed(f"localhost:{port}", world // local,
+                                   rank // local, backend=backend)
+            if dist.get_rank() != rank:
+                raise RuntimeError(f"rank {rank} joined as {dist.get_rank()}")
+        elif backend is not None:
+            dist.init_process_group(
+                backend, init_method=f"file://{workdir}/rendezvous",
+                rank=rank, world_size=world,
+                timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
         out = body(*args)
         with open(f"{workdir}/rank{rank}.pkl", "wb") as f:
             pickle.dump(out, f)
-        dist.barrier()
-        dist.destroy_process_group()
+        if backend is not None:
+            dist.barrier()
+            dist.destroy_process_group()
     except BaseException:
         with open(f"{workdir}/error{rank}.txt", "w") as f:
             f.write(traceback.format_exc())
         raise
 
 
-def run_world(world: int, backend: str, body, *args):
-    """Run ``body(*args)`` on ``world`` spawned ranks (world_rank); fail if
-    any rank fails or the world outlives TP_TIMEOUT_S.  Returns each
-    rank's result."""
+def run_world(world: int, backend: str, body, *args, node_ranks=None):
+    """Run ``body(*args)`` on ``world`` spawned ranks (world_rank), with
+    ``node_ranks`` as multi-host nodes of that many ranks at a port picked
+    here; fail if any rank fails or the world outlives TP_TIMEOUT_S.
+    Returns each rank's result.  ``run_world(1, None, body, ...)`` runs
+    ``body`` alone in a fresh process."""
     import multiprocessing
     import pickle
     import tempfile
@@ -3248,8 +3312,13 @@ def run_world(world: int, backend: str, body, *args):
 
     workdir = Path(tempfile.mkdtemp(prefix="fcsa_world_"))
     ctx = multiprocessing.get_context("spawn")
+    node = None
+    if node_ranks is not None:
+        from flash_cosine_sim_attention_tpu_torch.parallel.distributed import (
+            free_port)
+        node = (node_ranks, free_port())
     procs = [ctx.Process(target=world_rank, args=(r, world, str(workdir),
-                                                  backend, body, args))
+                                                  backend, body, args, node))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -3877,6 +3946,61 @@ def ring_attention_phase(card: str, backend: str = "gloo"):
         library_ms=times[0]["sdpa_ms"])
 
 
+def timed_loss(fn):
+    """(``fn()``'s loss, its wall in ms from a synchronized start)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = fn().item()
+    return loss, 1e3 * (time.perf_counter() - t0)
+
+
+def train_step_refs(model, batch, kinds):
+    """The trainer's train_step on one device from ``model(dtype)``, for
+    each (dtype, steps) of ``kinds``: {dtype: (losses, the first step's
+    gradients, walls)}."""
+    from flash_cosine_sim_attention_tpu_torch.train import (
+        make_optimizer, train_step)
+
+    refs = {}
+    for dtype, steps in kinds:
+        ref = model(dtype)
+        opt = make_optimizer(ref)
+        losses, walls = [], []
+        for s in range(steps):
+            loss, wall = timed_loss(lambda: train_step(ref, opt, batch))
+            losses.append(loss)
+            walls.append(wall)
+            if s == 0:
+                first = {n: p.grad.detach().clone()
+                         for n, p in ref.named_parameters()}
+        refs[dtype] = (losses, first, walls)
+        del ref, opt
+    torch.cuda.empty_cache()
+    return refs
+
+
+def ref_errors(got, refs, dtype) -> dict:
+    """The first step's full gradients ``got`` against train_step's
+    (``train_step_refs``) in ``dtype``: GRAD_BARS units, max |diff|, rel
+    L2, and rel L2 against the float32 gradients; with the reference
+    losses and walls."""
+    ref_losses, first, ref_walls = refs[dtype]
+    f32 = refs[torch.float32][1]
+    return dict(
+        ref_losses=ref_losses, ref_walls=ref_walls,
+        grad_err=max(grad_err(got[n], first[n], dtype) for n in got),
+        abs_err=max((got[n] - first[n]).abs().max().item() for n in got),
+        rel_l2=max(rel_l2(got[n], first[n]) for n in got),
+        rel_l2_f32=max(rel_l2(got[n], f32[n]) for n in got))
+
+
+def bf16_floor(refs) -> float:
+    """bf16's own distance from float32 (worst rel L2 of train_step's
+    first-step gradients)."""
+    f32 = refs[torch.float32][1]
+    return max(rel_l2(refs[torch.bfloat16][1][n], f32[n]) for n in f32)
+
+
 def pipe_body():
     """Phase 20 on one rank: the validation model (float32 parameters)
     from one set of weights, rank 0's trainer train_step (4 microbatches
@@ -3896,7 +4020,7 @@ def pipe_body():
         make_pipeline_mesh, make_pipeline_train_step, shard_pipeline_params,
         split_pipeline_params, unshard_pipeline_params)
     from flash_cosine_sim_attention_tpu_torch.train import (
-        GRAD_ACCUM, MAX_GRAD_NORM, make_optimizer, train_step)
+        GRAD_ACCUM, MAX_GRAD_NORM, make_optimizer)
 
     world, rank = dist.get_world_size(), dist.get_rank()
     mesh = make_pipeline_mesh(pipeline_parallel=PIPE_STAGES, device_type="cuda")
@@ -3914,28 +4038,8 @@ def pipe_body():
         m.load_state_dict(weights)
         return m
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = fn().item()
-        return loss, 1e3 * (time.perf_counter() - t0)
-
-    refs = {}
-    if rank == 0:      # the trainer's step on one device
-        for dtype, steps in kinds:
-            ref = model(dtype)
-            opt = make_optimizer(ref)
-            losses, walls = [], []
-            for s in range(steps):
-                loss, wall = timed(lambda: train_step(ref, opt, batch))
-                losses.append(loss)
-                walls.append(wall)
-                if s == 0:
-                    first = {n: p.grad.detach().clone()
-                             for n, p in ref.named_parameters()}
-            refs[dtype] = (losses, first, walls)
-            del ref, opt
-        torch.cuda.empty_cache()
+    # the trainer's step on one device
+    refs = train_step_refs(model, batch, kinds) if rank == 0 else {}
     dist.barrier()
     out = {}
     for dtype, steps in kinds:
@@ -3950,7 +4054,7 @@ def pipe_body():
         losses, walls = [], []
         for s in range(steps):
             dist.barrier()
-            loss, wall = timed(lambda: step(flat))
+            loss, wall = timed_loss(lambda: step(flat))
             losses.append(loss)
             walls.append(wall)
             if s == 0:
@@ -3962,33 +4066,21 @@ def pipe_body():
             res["top"] = [(key[:50], t / 1e3, c) for key, t, c in
                           sorted(rows, key=lambda r: -r[1])[:5]]
         if rank == 0:
-            ref_losses, first, ref_walls = refs[dtype]
-            f32 = refs[torch.float32][1]
-            res.update(
-                ref_losses=ref_losses, ref_walls=ref_walls,
-                grad_err=max(grad_err(got[n], first[n], dtype) for n in got),
-                abs_err=max((got[n] - first[n]).abs().max().item()
-                            for n in got),
-                rel_l2=max(rel_l2(got[n], first[n]) for n in got),
-                rel_l2_f32=max(rel_l2(got[n], f32[n]) for n in got))
+            res.update(ref_errors(got, refs, dtype))
         out[str(dtype)[6:]] = res
         del stage, step, got
         torch.cuda.empty_cache()
     if rank == 0 and world == 2:
-        f32 = refs[torch.float32][1]
-        out["bf16_floor_rel_l2"] = max(
-            rel_l2(refs[torch.bfloat16][1][n], f32[n]) for n in f32)
+        out["bf16_floor_rel_l2"] = bf16_floor(refs)
     out["stage"] = mesh.get_local_rank("pipe")
     return out
 
 
-def check_pipeline(label, ranks) -> None:
-    """Hold phase 20's pipelined steps to rank 0's train_step: float32 at
-    the f32 bars; bf16 losses at 2^-7 relative and the first step's
-    gradients no farther from train_step's than twice bf16's own distance
-    from float32 (phase 18's rule); every rank's K1 and K2 launches at
-    GRAD_ACCUM microbatches x depth / PIPE_STAGES layers a step."""
-    r0 = ranks[0]
+def hold_to_train_step(label, what, r0) -> None:
+    """Hold rank 0's ``what`` steps (``ref_errors`` per dtype) to the
+    trainer's train_step: float32 at the f32 bars; bf16 losses at 2^-7
+    relative and the first step's gradients no farther from train_step's
+    than twice bf16's own distance from float32 (phase 18's rule)."""
     for dtype in ("float32", "bfloat16"):
         if dtype not in r0:
             continue
@@ -4003,7 +4095,7 @@ def check_pipeline(label, ranks) -> None:
     f32 = r0["float32"]
     dl32 = abs(f32["losses"][0] - f32["ref_losses"][0])
     if not (dl32 <= LOSS_BAR and f32["grad_err"] <= F32_ERR_BAR):
-        fail(f"{label}: float32 pipelined step vs train_step: loss {dl32}, "
+        fail(f"{label}: float32 {what} step vs train_step: loss {dl32}, "
              f"gradients {f32['grad_err']}")
     if "bfloat16" in r0:
         bf16 = r0["bfloat16"]
@@ -4011,12 +4103,21 @@ def check_pipeline(label, ranks) -> None:
                     zip(bf16["losses"], bf16["ref_losses"]))
         print(f"  {label}: bf16's own gradient error (train_step bf16 vs "
               f"float32 compute), worst rel L2 {r0['bf16_floor_rel_l2']:.3e};"
-              f" pipelined bf16 vs float32 {bf16['rel_l2_f32']:.3e}")
+              f" {what} bf16 vs float32 {bf16['rel_l2_f32']:.3e}")
         if not (rel16 <= GRAD_BARS[torch.bfloat16]
                 and bf16["rel_l2"] <= 2 * r0["bf16_floor_rel_l2"]):
-            fail(f"{label}: bf16 pipelined steps vs train_step: loss rel "
+            fail(f"{label}: bf16 {what} steps vs train_step: loss rel "
                  f"{rel16}, gradient rel L2 {bf16['rel_l2']} against bf16's "
                  f"own {r0['bf16_floor_rel_l2']}")
+
+
+def check_pipeline(label, ranks) -> None:
+    """Hold phase 20's pipelined steps to rank 0's train_step: float32 at
+    the f32 bars; bf16 losses at 2^-7 relative and the first step's
+    gradients no farther from train_step's than twice bf16's own distance
+    from float32 (phase 18's rule); every rank's K1 and K2 launches at
+    GRAD_ACCUM microbatches x depth / PIPE_STAGES layers a step."""
+    hold_to_train_step(label, "pipelined", ranks[0])
     from flash_cosine_sim_attention_tpu_torch.train import GRAD_ACCUM
     per_step = GRAD_ACCUM * MODEL["depth"] // PIPE_STAGES
     for r, res in enumerate(ranks):
@@ -4031,6 +4132,21 @@ def check_pipeline(label, ranks) -> None:
         if got != dict(k1=steps * per_step, k2=steps * per_step):
             fail(f"{label} rank {r}: launches {got}, want "
                  f"{steps * per_step} each")
+
+
+def train_step_bound():
+    """The least time of one training step of MODEL over GRAD_ACCUM
+    microbatches of 4 x max_seq_len: its dense products (6 P T,
+    embeddings being gathers) and its attention (forward 4 d, backward 10
+    d a visible (query, key) pair and head) at the bf16 peak, against its
+    float32 weights' bytes."""
+    from flash_cosine_sim_attention_tpu_torch.train import GRAD_ACCUM
+    dim, depth, n = MODEL["dim"], MODEL["depth"], MODEL["max_seq_len"]
+    dense = depth * 12 * dim * dim + dim * MODEL["num_tokens"]
+    seqs = GRAD_ACCUM * 4
+    flops = 6 * dense * seqs * n + 14 * MODEL["dim_head"] * n * (n + 1) / 2 \
+        * MODEL["heads"] * depth * seqs
+    return bound(flops, 4 * (dense + (MODEL["num_tokens"] + n) * dim))
 
 
 def pipeline_phase(card: str):
@@ -4060,15 +4176,7 @@ def pipeline_phase(card: str):
     print(f"  a world of 4 on a (data 2, pipe 2) mesh, "
           f"{time.perf_counter() - t0:.1f} s")
     check_pipeline("(b) data 2 x pipe 2, float32", quad)
-    # the whole step's least time: its dense products (6 P T, embeddings
-    # being gathers) and its attention (forward 4 d, backward 10 d a
-    # visible (query, key) pair and head)
-    dim, depth, n = MODEL["dim"], MODEL["depth"], MODEL["max_seq_len"]
-    dense = depth * 12 * dim * dim + dim * MODEL["num_tokens"]
-    seqs = GRAD_ACCUM * 4
-    flops = 6 * dense * seqs * n + 14 * MODEL["dim_head"] * n * (n + 1) / 2 \
-        * MODEL["heads"] * depth * seqs
-    bound_ms, by = bound(flops, 4 * (dense + (MODEL["num_tokens"] + n) * dim))
+    bound_ms, by = train_step_bound()
     rank_launches = [{k: sum(r[d]["launches"][k] for d in ("float32",
                                                            "bfloat16"))
                       for k in ("k1", "k2")} for r in ranks]
@@ -4086,6 +4194,376 @@ def pipeline_phase(card: str):
         plain_ms=plain, bound_ms=bound_ms, bound_by=by, library_ms=None)
 
 
+def multihost_body():
+    """Phase 21 on one rank of MH_NODES nodes of MH_LOCAL ranks: the
+    (data, model) mesh of make_multihost_mesh(MH_LOCAL), the validation
+    model (float32 parameters) trained through make_sharded_train_step,
+    each node feeding only its own rows (GRAD_ACCUM microbatches of
+    process_local_rows(4) rows, a numpy seed a node) through
+    local_batch_to_global, against rank 0's train_step over the node-major
+    concatenation from the same weights: one float32 step, TP_TRAIN_STEPS
+    bf16 steps, each step's wall, this rank's K1 and K2 launches and the
+    device time a step of MH_PROFILED more bf16 steps (whole_rows, every
+    rank's windows alike); whether make_multihost_mesh refuses
+    a model axis wider than a node."""
+    import torch.distributed as dist
+
+    from flash_cosine_sim_attention_tpu_torch.models import (
+        CosineSimCausalTransformer)
+    from flash_cosine_sim_attention_tpu_torch.parallel import (
+        local_batch_to_global, make_multihost_mesh, make_sharded_train_step,
+        param_shardings, process_local_rows, shard_params)
+    from flash_cosine_sim_attention_tpu_torch.parallel.distributed import (
+        process_count, process_index)
+    from flash_cosine_sim_attention_tpu_torch.parallel.train import (
+        _split_axis, _to_full)
+    from flash_cosine_sim_attention_tpu_torch.train import (
+        GRAD_ACCUM, MAX_GRAD_NORM, make_optimizer)
+
+    rank, node = dist.get_rank(), process_index()
+    mesh = make_multihost_mesh(MH_LOCAL)
+    try:
+        make_multihost_mesh(2 * MH_LOCAL)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    torch.manual_seed(SEED + 90)
+    weights = CosineSimCausalTransformer(**MODEL, device="cuda").state_dict()
+    local_bs = process_local_rows(4)
+    rows = [np.random.default_rng(SEED + 91 + p).integers(
+        0, MODEL["num_tokens"], (GRAD_ACCUM, local_bs,
+                                 MODEL["max_seq_len"] + 1))
+        for p in range(process_count())]
+    kinds = ((torch.float32, 1), (torch.bfloat16, TP_TRAIN_STEPS))
+
+    def model(dtype):
+        m = CosineSimCausalTransformer(**MODEL, dtype=dtype, device="cuda")
+        m.load_state_dict(weights)
+        return m
+
+    refs = train_step_refs(model, torch.from_numpy(np.concatenate(
+        rows, axis=1)).cuda(), kinds) if rank == 0 else {}
+    dist.barrier()
+    batch = local_batch_to_global(mesh, rows[node], batch_axis=1)
+    per_node = mesh.size(0) // MH_NODES     # data ranks a node
+    share = torch.from_numpy(rows[node]).chunk(per_node, dim=1)[
+        mesh.get_local_rank("data") % per_node]
+    out = dict(mesh=tuple(mesh.shape), refused=refused, node=node,
+               local_bs=local_bs, global_shape=tuple(batch.shape),
+               share_ok=torch.equal(batch.to_local().cpu(), share))
+    for dtype, steps in kinds:
+        m = shard_params(model(dtype), mesh)
+        step = make_sharded_train_step(m, make_optimizer(m), mesh,
+                                       max_grad_norm=MAX_GRAD_NORM)
+        specs = param_shardings(m, mesh)
+        tp_reset()
+        losses, walls = [], []
+        for s in range(steps):
+            dist.barrier()
+            loss, wall = timed_loss(lambda: step(batch))
+            losses.append(loss)
+            walls.append(wall)
+            if s == 0:   # the full gradients, gathered over the model axis
+                got = {n: (p.grad if _split_axis(specs[n]) is None else
+                           _to_full(n, p.grad, m, mesh, specs[n])).clone()
+                       for n, p in m.named_parameters()}
+        res = dict(losses=losses, walls=walls, launches=tp_launches())
+        if dtype == torch.bfloat16:
+            prof = whole_rows(lambda: step(batch), MH_PROFILED,
+                              group=dist.group.WORLD)
+            res["busy_ms"] = sum(t for _, t, _ in prof) / 1e3
+            res["top"] = [(key[:50], t / 1e3, c) for key, t, c in
+                          sorted(prof, key=lambda r: -r[1])[:5]]
+        if rank == 0:
+            res.update(ref_errors(got, refs, dtype))
+        out[str(dtype)[6:]] = res
+        del m, step, got
+        torch.cuda.empty_cache()
+    if rank == 0:
+        out["bf16_floor_rel_l2"] = bf16_floor(refs)
+    return out
+
+
+def multihost_phase(card: str):
+    """Phase 21: multi-host training on the one card, MH_NODES nodes of
+    MH_LOCAL ranks over gloo.  Returns the `parallel:multihost` entry of
+    the kernels line."""
+    from flash_cosine_sim_attention_tpu_torch.train import GRAD_ACCUM
+    torch.cuda.empty_cache()
+    world = MH_NODES * MH_LOCAL
+    t0 = time.perf_counter()
+    ranks = run_world(world, "gloo", multihost_body, node_ranks=MH_LOCAL)
+    r0 = ranks[0]
+    print(f"  {MH_NODES} nodes of {MH_LOCAL} ranks on the one card over gloo "
+          f"(CUDA tensors), joined through initialize_distributed at a "
+          f"localhost TCP store, mesh (data, model) {r0['mesh']}, "
+          f"{time.perf_counter() - t0:.1f} s; each node fed "
+          f"{r0['local_bs']} of {r0['global_shape'][1]} rows a microbatch")
+    for r, res in enumerate(ranks):
+        if not (res["share_ok"] and res["node"] == r // MH_LOCAL
+                and res["mesh"] == (world // MH_LOCAL, MH_LOCAL)
+                and res["global_shape"] == (GRAD_ACCUM, 4,
+                                            MODEL["max_seq_len"] + 1)):
+            fail(f"(a) rank {r}: node {res['node']}, mesh {res['mesh']}, "
+                 f"global batch {res['global_shape']}, its rows its node's: "
+                 f"{res['share_ok']}")
+        if res["refused"] is None or "cross process" not in res["refused"]:
+            fail(f"rank {r}: make_multihost_mesh({2 * MH_LOCAL}) with "
+                 f"{MH_LOCAL} ranks a node did not refuse: {res['refused']}")
+    print(f"  make_multihost_mesh({2 * MH_LOCAL}) with {MH_LOCAL} ranks a "
+          f"node: ValueError on every rank ({r0['refused']})")
+    hold_to_train_step(f"(a) {MH_NODES} x {MH_LOCAL}", "multi-host", r0)
+    per_step = GRAD_ACCUM * MODEL["depth"]
+    for r, res in enumerate(ranks):
+        steps = sum(len(res[k]["losses"]) for k in ("float32", "bfloat16"))
+        got = {k: sum(res[d]["launches"][k] for d in ("float32", "bfloat16"))
+               for k in ("k1", "k2")}
+        x = res["bfloat16"]
+        wall = statistics.median(x["walls"])
+        print(f"  (a) rank {r} (node {res['node']}): K1, K2 launches {got} "
+              f"over {steps} steps ({per_step} each a step: {GRAD_ACCUM} "
+              f"microbatches x {MODEL['depth']} layers); on {card} a bf16 "
+              f"step {wall:.2f} ms median wall over {len(x['walls'])}, "
+              f"device time {x['busy_ms']:.2f} ms (a step of "
+              f"{MH_PROFILED} or more profiled), idle "
+              f"share {1 - x['busy_ms'] / wall:.3f}: no speed ({world} ranks "
+              f"share the card's SMs and gloo's host path): "
+              + "; ".join(f"{k} {t:.3f} ({c})" for k, t, c in x["top"]))
+        if got != dict(k1=steps * per_step, k2=steps * per_step):
+            fail(f"(a) rank {r}: launches {got}, want {steps * per_step} "
+                 f"each")
+    plain = statistics.median(r0["bfloat16"]["ref_walls"])
+    print(f"  (a) train_step on one device, rank 0 alone: {plain:.2f} ms "
+          f"median wall over {len(r0['bfloat16']['ref_walls'])}")
+    bound_ms, by = train_step_bound()
+    rank_launches = [{k: sum(r[d]["launches"][k] for d in ("float32",
+                                                           "bfloat16"))
+                      for k in ("k1", "k2")} for r in ranks]
+    return dict(
+        name="parallel:multihost", route="cuda",
+        source="flash_cosine_sim_attention_tpu_torch/parallel/distributed.py",
+        replaces="flash_cosine_sim_attention_tpu/parallel/distributed.py:92",
+        launches=sum(sum(x.values()) for x in rank_launches),
+        rank_launches=rank_launches, max_abs_err=r0["float32"]["abs_err"],
+        f32_launches={k: sum(r["float32"]["launches"][k] for r in ranks)
+                      for k in ("k1", "k2")},
+        # ms and plain_ms are walls of a step (four ranks on one card, the
+        # collectives through the host), not a speed of multi-host
+        ms=statistics.median(r0["bfloat16"]["walls"]), ms_is="wall",
+        rank_device_ms=[r["bfloat16"]["busy_ms"] for r in ranks],
+        plain_ms=plain, bound_ms=bound_ms, bound_by=by, library_ms=None)
+
+
+def trainer_losses(out: str) -> dict:
+    """{step: loss} of the trainer's "step N  loss X" lines."""
+    return {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"^step (\d+)  loss ([0-9.]+)", out, re.M)}
+
+
+def multihost_nccl(card: str) -> None:
+    """--multihost-nccl, on four cards: the trainer as MH_NODES torchrun
+    nodes of MH_LOCAL ranks over NCCL (cards 0,1 and 2,3, --model-parallel
+    MH_LOCAL, MH_NCCL_STEPS steps, a coordinator at a localhost port),
+    its printed losses held at MH_NCCL_BAR to train_step's on card 0 over
+    the same rows (each node's sampler seeded by seed + 1009 p, the rows
+    concatenated node-major, as the trainer feeds them)."""
+    import os
+    import signal
+    import tempfile
+
+    from flash_cosine_sim_attention_tpu_torch.models import (
+        CosineSimCausalTransformer)
+    from flash_cosine_sim_attention_tpu_torch.parallel.distributed import (
+        free_port)
+    from flash_cosine_sim_attention_tpu_torch.train import (
+        BATCH_SIZE, GRAD_ACCUM, make_optimizer, make_sampler, train_step)
+
+    seed, n = 42, MODEL["max_seq_len"]        # the trainer's defaults
+    local_bs = BATCH_SIZE // MH_NODES
+    streams = [make_sampler(seed=seed + 1009 * p).stream(
+        "train", GRAD_ACCUM * local_bs, n) for p in range(MH_NODES)]
+    torch.manual_seed(seed)
+    model = CosineSimCausalTransformer(
+        num_tokens=256, dim=MODEL["dim"], depth=MODEL["depth"],
+        max_seq_len=n, attn_scale=1.0, attn_l2norm_groups=8, pre_norm=True,
+        dtype=torch.bfloat16, device="cuda")
+    opt = make_optimizer(model)
+    want = {}
+    for step in range(MH_NCCL_STEPS):
+        rows = np.concatenate([next(s).reshape(GRAD_ACCUM, local_bs, n + 1)
+                               for s in streams], axis=1)
+        loss = train_step(model, opt, torch.from_numpy(rows).cuda())
+        if step % 10 == 0:
+            want[step] = loss.item()
+    del model, opt
+    torch.cuda.empty_cache()
+    port = free_port()
+    logs, procs = [], []
+    for p in range(MH_NODES):
+        cards = ",".join(str(p * MH_LOCAL + i) for i in range(MH_LOCAL))
+        log = tempfile.TemporaryFile("w+")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(MH_LOCAL), "-m",
+             "flash_cosine_sim_attention_tpu_torch.train",
+             "--num-processes", str(MH_NODES), "--process-id", str(p),
+             "--coordinator", f"localhost:{port}",
+             "--model-parallel", str(MH_LOCAL),
+             "--steps", str(MH_NCCL_STEPS)],
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=cards), stdout=log,
+            stderr=subprocess.STDOUT, start_new_session=True))
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + MH_NCCL_TIMEOUT_S
+    while (any(proc.poll() is None for proc in procs)
+           and time.monotonic() < deadline and not any(
+               proc.poll() not in (None, 0) for proc in procs)):
+        time.sleep(0.5)
+    for proc in procs:     # torchrun and its ranks, past the time limit
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    outs = []
+    for log in logs:
+        log.seek(0)
+        outs.append(log.read())
+        log.close()
+    for p, (proc, out) in enumerate(zip(procs, outs)):
+        print(f"  node {p}: exit {proc.returncode}; last lines:\n    "
+              + "\n    ".join(out.strip().splitlines()[-40:]))
+        if proc.returncode != 0:
+            fail(f"--multihost-nccl: node {p} exited {proc.returncode}")
+    got = trainer_losses(outs[0])
+    diffs = {k: abs(got.get(k, float("nan")) - v) for k, v in want.items()}
+    print(f"  the trainer on {MH_NODES} nodes x {MH_LOCAL} cards over NCCL "
+          f"({time.perf_counter() - t0:.1f} s, {card}): losses "
+          f"{got}; train_step on one card over the same rows {want}; "
+          f"|diff| {diffs} (bar {MH_NCCL_BAR:g})")
+    if trainer_losses(outs[1]) or not all(d <= MH_NCCL_BAR
+                                          for d in diffs.values()):
+        fail(f"--multihost-nccl: losses {got} against one card's {want}")
+
+
+def f32_instances(card: str):
+    """Phase 22: the float32 (FMA) instances timed at the main path's
+    shapes (no kernel changed): K1 at b1 h8 s1024 d64 causal (phase 3's),
+    K2 and K3a/K3b at phase 8's (b4 h8 s1024 d64 causal; K3 with an (h, i,
+    j) bias), K7 over one decode step's 65 calls at 8 rows (phase 12's,
+    L2 flushed), each checked against its plain version and timed beside
+    it, its bound (bytes at 3.35 TB/s or operations at the float32 peak
+    outside the tensor cores, 67 TFLOP/s) and one PyTorch call with TF32
+    off (SDPA forward, SDPA backward, F.linear on a float32 weight copy);
+    the instances the profiler saw are printed.  Returns ({row: timing},
+    {row: max abs error against plain})."""
+    import torch.nn.functional as F
+
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        bwd_kernel as bk, l2norm_tensors)
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward, flash_attention_forward_plain)
+    from flash_cosine_sim_attention_tpu_torch.quant import (
+        quantize_dense_kernel, quantized_matmul, quantized_matmul_plain)
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("phase 22 times float32 with TF32 off")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 100)
+
+    def instances(work):
+        """The port's kernels ``work`` launched, by instance name; fails
+        on a tensor-core instance (every one here must be FMA code)."""
+        names = sorted({re.sub(r"^void (\(anonymous namespace\)::)?", "",
+                               key).split("(")[0]
+                        for key, _, _ in cuda_rows(work, REQUIRE_ITERS)
+                        if "at::native" not in key})
+        if any("mma" in n for n in names):
+            fail(f"a float32 call ran a tensor-core instance: {names}")
+        return names
+
+    b, h, s, d = 1, 8, 1024, 64
+    q, k = l2norm_tensors(torch.randn(b, h, s, d, device="cuda", generator=g),
+                          torch.randn(b, h, s, d, device="cuda", generator=g),
+                          groups=8)
+    v = torch.randn(b, h, s, d, device="cuda", generator=g)
+    kw = dict(bias_batch_dim=False, scale=1.0, causal=True)
+    call = lambda: flash_attention_forward(q, k, v, None, None, **kw)  # noqa: E731
+    plain = lambda: flash_attention_forward_plain(q, k, v, None, None, **kw)  # noqa: E731
+    err = (call()[0] - plain()[0]).abs().max().item()
+    if not err <= F32_ERR_BAR:
+        fail(f"K1 f32: max|o - plain| {err}")
+    errs = {"K1 f32": err}
+    ms, plain_ms = device_ms(call), device_ms(plain)
+    lib_ms = library_ms("SDPA f32 b1 h8 s1024 d64, TF32 off",
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, is_causal=True, scale=1.0))
+    flops = 4 * h * d * s * (s + 1) / 2
+    bound_ms, by = bound(flops, 4 * q.numel() * 4 + h * s * 4, PEAK_F32_FLOPS)
+    rows = {"K1 f32": dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=by, library_ms=lib_ms)}
+    print(f"  K1 b{b} h{h} s{s} d{d} causal f32 on {card}: device time "
+          f"kernel {ms:.4f} ms ({tflops(flops, ms):.2f} TFLOP/s), plain "
+          f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
+          f"({by}, 67 TFLOP/s); max|o - plain| {err:.2e}; instances "
+          f"{instances(call)}")
+
+    worst = {"K2": 0.0, "K3a": 0.0, "K3b": 0.0}
+    args, kw2 = bwd_inputs(g, 4, 8, 8, s, s, d, torch.float32, None, None,
+                           True)
+    args_b, kw_b = bwd_inputs(g, 4, 8, 8, s, s, d, torch.float32, None, "h",
+                              True)
+    compare_backward(worst, "b4 h8 s1024 causal (phase 8's shape)", args, kw2,
+                     torch.float32, None)
+    compare_backward(worst, "b4 h8 s1024 causal + (h,i,j) bias", args_b,
+                     kw_b, torch.float32, None)
+    for name, row in time_backward(card, args, kw2, args_b, kw_b).items():
+        rows[f"{name} f32"] = row
+        errs[f"{name} f32"] = worst[name]
+    onepass = instances(lambda: bk._backward_onepass(
+        *args[:7], scale=1.0, causal=True))
+    twopass = instances(lambda: bk._backward_twopass(*args_b, **kw_b))
+    print(f"  f32 backward instances: one-pass {onepass}, two-pass "
+          f"{twopass}")
+
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    step = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    for name, ((d_in, d_out), calls) in PROD_DENSE.items():
+        w8, scale = quantize_dense_kernel(0.02 * torch.randn(
+            d_in, d_out, device="cuda", generator=g))
+        w_lib = (w8.float() * scale).t().contiguous()
+        x = torch.randn(8, d_in, device="cuda", generator=g)
+        err = rel_err(quantized_matmul(x, w8, scale),
+                      quantized_matmul_plain(x, w8, scale))
+        if not err <= F32_ERR_BAR:
+            fail(f"K7 f32 {name}: err {err}")
+        errs["K7 f32"] = max(errs.get("K7 f32", 0.0), err)
+        times = dict(
+            ms=device_ms(lambda: quantized_matmul(x, w8, scale),
+                         scratch.zero_),
+            plain_ms=device_ms(lambda: quantized_matmul_plain(x, w8, scale),
+                               scratch.zero_),
+            library_ms=device_ms(lambda: F.linear(x, w_lib), scratch.zero_),
+            bound_ms=bound(2 * 8 * d_in * d_out, w8.numel() + 4 * d_out
+                           + 4 * 8 * (d_in + d_out), PEAK_F32_FLOPS)[0])
+        print(f"  K7 {name} ({d_in}, {d_out}) x 8 rows f32, L2 flushed, on "
+              f"{card}: kernel {times['ms']:.4f} ms, plain "
+              f"{times['plain_ms']:.4f}, F.linear f32 "
+              f"{times['library_ms']:.4f}, bound {times['bound_ms']:.5f} "
+              f"(bytes); err {err:.2e}; "
+              f"instances {instances(lambda: quantized_matmul(x, w8, scale))}")
+        for key, val in times.items():
+            step[key] += calls * val
+    rows["K7 f32"] = dict(step, bound_by="bytes")
+    print(f"  K7 over one decode step (65 calls at 8 rows) f32 on {card}: "
+          f"{step['ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, F.linear "
+          f"f32 {step['library_ms']:.4f} ms (a float32 weight copy, 4x K7's "
+          f"bytes), bound {step['bound_ms']:.5f} ms (bytes)")
+    for name, row in rows.items():
+        print(f"  f32 row {name}: kernel / library "
+              f"{row['ms'] / row['library_ms']:.2f}, bound / kernel "
+              f"{row['bound_ms'] / row['ms']:.3f}, error vs plain "
+              f"{errs[name]:.3e}")
+    return rows, errs
+
+
 def main() -> None:
     import argparse
 
@@ -4094,12 +4572,18 @@ def main() -> None:
         "--ring-nccl", action="store_true",
         help="run phase 19's ring worlds alone over NCCL, a card a rank "
              "(needs 4 cards)")
+    parser.add_argument(
+        "--multihost-nccl", action="store_true",
+        help="run the trainer alone as 2 torchrun nodes of 2 cards over "
+             "NCCL against one card (needs 4 cards)")
     args = parser.parse_args()
     started = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device")
-    if args.ring_nccl and torch.cuda.device_count() < 4:
-        fail(f"--ring-nccl needs 4 cards, found {torch.cuda.device_count()}")
+    for flag, on in (("--ring-nccl", args.ring_nccl),
+                     ("--multihost-nccl", args.multihost_nccl)):
+        if on and torch.cuda.device_count() < 4:
+            fail(f"{flag} needs 4 cards, found {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -4125,10 +4609,15 @@ def main() -> None:
             print(f"  {name} wide tensor-core instances' registers: "
                   f"{', '.join(f'{k} {r}' for k, r in wide)}")
 
-    if args.ring_nccl:
-        print("[19] ring attention over NCCL, a card a rank")
-        print(json.dumps({"kernels": [ring_attention_phase(smi, "nccl")]}))
-        print(f"chip_smoke.py --ring-nccl took "
+    if args.ring_nccl or args.multihost_nccl:
+        if args.ring_nccl:
+            print("[19] ring attention over NCCL, a card a rank")
+            print(json.dumps({"kernels": [ring_attention_phase(smi, "nccl")]}))
+        else:
+            print("[21] the trainer on 2 nodes of 2 cards over NCCL")
+            multihost_nccl(smi)
+        flag = "--ring-nccl" if args.ring_nccl else "--multihost-nccl"
+        print(f"chip_smoke.py {flag} took "
               f"{time.perf_counter() - started:.1f} s")
         print(smi)
         print(json.dumps({"ok": True, "device": {
@@ -4172,13 +4661,22 @@ def main() -> None:
     (x_err, x_rows, x_launches), (y_err, y_rows, y_launches) = (
         heads_past_256(smi))
     print("[17] speculative decoding")
-    spec_err, spec_row, spec_launches = speculative(smi)
+    # phases 17 and 22 run in fresh processes: late in this one the
+    # profiler lost whole calls' records of plain versions and library
+    # calls five windows running (e.g. 22 of 24 calls of SDPA's kernel,
+    # 2 of 20 of its f32 kernel), while a fresh process kept them all
+    spec_err, spec_row, spec_launches = run_world(1, None, speculative,
+                                                  smi)[0]
     print("[18] tensor parallelism")
     tp_entry = tensor_parallel(smi)
     print("[19] ring attention")
     ring_entry = ring_attention_phase(smi)
     print("[20] pipeline parallelism")
     pipe_entry = pipeline_phase(smi)
+    print("[21] multi-host training")
+    multihost_entry = multihost_phase(smi)
+    print("[22] the float32 instances timed")
+    f32_rows, f32_err = run_world(1, None, f32_instances, smi)[0]
 
     bwd = "flash_cosine_sim_attention_tpu/ops/bwd_kernel.py"
     src = "flash_cosine_sim_attention_tpu_torch/csrc/bwd_kernel.cu"
@@ -4271,7 +4769,18 @@ def main() -> None:
         name="fwd_kernel:verify", route="cuda", source=f"{csrc}/fwd_kernel.cu",
         replaces="flash_cosine_sim_attention_tpu/ops/fwd_kernel.py:47",
         launches=spec_launches, max_abs_err=spec_err, **spec_row))
-    kernels += [tp_entry, ring_entry, pipe_entry]
+    kernels += [tp_entry, ring_entry, pipe_entry, multihost_entry]
+    # K1's and K2's float32 instances, with their launches on phase 21's
+    # float32 step (every rank's); phase 22 prints the other f32 rows
+    kernels += [dict(name=name, route="cuda", source=f"{csrc}/{file}",
+                     replaces=f"flash_cosine_sim_attention_tpu/{tpu}",
+                     launches=multihost_entry["f32_launches"][key],
+                     max_abs_err=f32_err[row], **f32_rows[row])
+                for name, file, tpu, row, key in (
+                    ("fwd_kernel:f32", "fwd_kernel.cu", "ops/fwd_kernel.py:47",
+                     "K1 f32", "k1"),
+                    ("bwd_kernel:onepass:f32", "bwd_kernel.cu",
+                     "ops/bwd_kernel.py:456", "K2 f32", "k2"))]
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke.py took {time.perf_counter() - started:.1f} s")
     print(smi)

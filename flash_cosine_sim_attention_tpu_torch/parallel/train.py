@@ -36,6 +36,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.placement_types import Placement, Shard
 
 from .mesh import (
@@ -229,13 +230,16 @@ def make_sharded_train_step(model, optimizer, mesh: DeviceMesh,
     """``step(batch) -> loss`` for a model sharded over ``mesh``.
 
     Every rank passes the same global batch, (b, n + 1) tokens or
-    (n_micro, b, n + 1) microbatches; the step slices its ``data`` rows,
-    averages the loss and the gradients over the microbatches and over
-    ``data``, clips them by their global norm when ``max_grad_norm`` is
-    given (as the trainer's ``clip_by_global_norm_``, counting each
-    sharded slice once), takes the optimizer step and returns the global
-    mean loss.  The parameters keep their dtype policy (f32 master
-    weights, compute in the model's dtype)."""
+    (n_micro, b, n + 1) microbatches, and the step slices its ``data``
+    rows; or a DTensor already sharded over ``data`` along its batch dim
+    (``local_batch_to_global``, multi-host feeding), whose local rows the
+    step takes as they are.  It averages the loss and the gradients over
+    the microbatches and over ``data``, clips them by their global norm
+    when ``max_grad_norm`` is given (as the trainer's
+    ``clip_by_global_norm_``, counting each sharded slice once), takes the
+    optimizer step and returns the global mean loss.  The parameters keep
+    their dtype policy (f32 master weights, compute in the model's
+    dtype)."""
     if model.mesh is not mesh:
         raise ValueError("shard_params(model, mesh) comes first")
     if any(a.to_qkv is not None and a.kv_replicated for a in model.attn):
@@ -265,7 +269,13 @@ def make_sharded_train_step(model, optimizer, mesh: DeviceMesh,
 
     def step(batch: torch.Tensor) -> torch.Tensor:
         rows = sharding(mesh, *([None] * (batch.ndim - 2)), DATA_AXIS, None)
-        local = local_shard(batch, mesh, rows)
+        if isinstance(batch, DTensor):
+            if tuple(batch.placements) != rows:
+                raise ValueError(f"a batch placed {batch.placements}: the "
+                                 f"step takes {rows}")
+            local = batch.to_local()
+        else:
+            local = local_shard(batch, mesh, rows)
         micro = local if local.ndim == 3 else local[None]
         optimizer.zero_grad(set_to_none=True)
         losses = []

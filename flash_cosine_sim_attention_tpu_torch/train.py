@@ -19,8 +19,19 @@ tensor-parallel checkpoint restores into a single-device run and back.
 JAX trainer) runs the GPipe pipeline over a (data W / N, pipe N) mesh
 under torchrun the same way: rank p holds stage p's layers, and the
 GRAD_ACCUM microbatches of a step drive the schedule.  Its checkpoints
-hold the merged full weights and Adam moments too.  Multi-host
-(``--coordinator``, ``--num-processes``, ``--process-id``) is not ported.
+hold the merged full weights and Adam moments too.
+
+Multi-host (``--num-processes N``, ``--process-id p``, ``--coordinator
+host:port``; ``parallel/distributed.py``): N nodes of L ranks each, one
+torchrun a node, form a world of N * L ranks at the coordinator (node 0's
+address and a free port) on a (data, model) mesh whose model axis stays
+inside a node (``--model-parallel`` dividing L; default min(L, 8)).  Each
+node samples its own rows (seed + 1009 p), its ranks split them, and only
+the data-axis gradient sum crosses nodes; global rank 0 alone prints and
+saves the gathered full weights, so the checkpoint directory must be
+shared by the nodes or lie on node 0 (a resume reads it on every node).
+No sampling runs under multi-host, and ``--pipeline-parallel`` excludes it,
+as in the JAX trainer.
 
 Usage:
   python -m flash_cosine_sim_attention_tpu_torch.train --seq-len 1024 \\
@@ -29,6 +40,10 @@ Usage:
       --model-parallel 2 [--device cpu]
   torchrun --nproc-per-node 2 -m flash_cosine_sim_attention_tpu_torch.train \\
       --pipeline-parallel 2 [--device cpu]
+  # on each node p of N (L ranks a node):
+  torchrun --standalone --nproc-per-node L \\
+      -m flash_cosine_sim_attention_tpu_torch.train --num-processes N \\
+      --process-id p --coordinator host:port [--model-parallel mp]
 """
 
 from __future__ import annotations
@@ -48,10 +63,15 @@ from ._build import resolve_device
 from .data import TextSampler, synthetic_corpus
 from .models import CosineSimCausalTransformer, generate, params_to_flax
 from .parallel import (
+    DATA_AXIS,
+    initialize_distributed,
+    local_batch_to_global,
     make_mesh,
+    make_multihost_mesh,
     make_pipeline_mesh,
     make_pipeline_train_step,
     make_sharded_train_step,
+    process_local_rows,
     shard_opt_state,
     shard_params,
     shard_pipeline_params,
@@ -60,6 +80,8 @@ from .parallel import (
     unshard_params,
     unshard_pipeline_params,
 )
+from .parallel.distributed import process_count, process_index
+from .parallel.mesh import _sum
 from .utils import restore_checkpoint, save_checkpoint
 
 # the JAX trainer's constants (train.py:40-45)
@@ -230,26 +252,30 @@ def main(argv=None):
                          "GRAD_ACCUM microbatches a step; run under "
                          "torchrun")
     ap.add_argument("--coordinator", type=str, default="",
-                    help="multi-host coordinator address: not ported yet "
-                         "(multi-host is the next slice)")
+                    help="multi-host: coordinator address host:port (node "
+                         "0's address and a free port; required with "
+                         "--num-processes > 1)")
     ap.add_argument("--num-processes", type=int, default=1,
-                    help="multi-host process count: not ported yet "
-                         "(multi-host is the next slice)")
+                    help="multi-host: node count (1 = single node)")
     ap.add_argument("--process-id", type=int, default=-1,
-                    help="multi-host process id: not ported yet "
-                         "(multi-host is the next slice)")
+                    help="multi-host: this node's rank, 0..N-1 (required "
+                         "with --num-processes > 1)")
     args = ap.parse_args(argv)
-    if args.coordinator or args.num_processes > 1 or args.process_id >= 0:
-        raise NotImplementedError(
-            "multi-host parallelism (--coordinator, --num-processes, "
-            "--process-id) is not ported to the PyTorch package yet: it is "
-            "the next slice")
-    if args.pipeline_parallel > 1 and args.model_parallel > 1:
+    multihost = args.num_processes > 1
+    if args.pipeline_parallel > 1 and (args.model_parallel > 1 or multihost):
         raise ValueError("--pipeline-parallel is exclusive with "
-                         "--model-parallel")
+                         "--model-parallel / multi-host")
 
     mesh = pipe = None
-    if args.model_parallel > 1:
+    if multihost:
+        initialize_distributed(
+            args.coordinator or None, args.num_processes,
+            args.process_id if args.process_id >= 0 else None,
+            device=args.device)
+        mesh = make_multihost_mesh(
+            args.model_parallel or None,
+            device_type=resolve_device(args.device).type)
+    elif args.model_parallel > 1:
         mesh = init_model_parallel(args.model_parallel, args.device)
     if args.pipeline_parallel > 1:
         pipe = init_model_parallel(args.pipeline_parallel, args.device,
@@ -265,7 +291,10 @@ def main(argv=None):
         attn_l2norm_groups=8, use_fused=not args.no_fused, pre_norm=True,
         dtype=dtype, device=device)
     model = build()
-    sampler = make_sampler(seed=args.seed, log=log)
+    # multi-host: each node draws its own rows (its ranks alike); else
+    # every rank draws the whole batch
+    node = process_index() if multihost else 0
+    sampler = make_sampler(seed=args.seed + 1009 * node, log=log)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"params: {n_params / 1e6:.1f}M  dtype: {str(dtype)[6:]}  "
         f"fused: {not args.no_fused}  device: {device}")
@@ -285,7 +314,8 @@ def main(argv=None):
         shard_opt_state(optimizer, model, mesh)
         step_fn = make_sharded_train_step(model, optimizer, mesh,
                                           max_grad_norm=MAX_GRAD_NORM)
-        log(f"mesh: data={mesh.size(0)} model={mesh.size(1)}")
+        log((f"processes: {process_count()}  " if multihost else "")
+            + f"mesh: data={mesh.size(0)} model={mesh.size(1)}")
     if pipe is not None:
         # as for the mesh: the stages are cut after restoring
         stage, optimizer = shard_pipeline(model, optimizer, pipe)
@@ -303,14 +333,23 @@ def main(argv=None):
             return model, optimizer
         return merge_pipeline(stage, optimizer, pipe, build)
 
+    def feed(rows, *shape):
+        """The rows drawn, as ``shape``; under multi-host this rank's data
+        share of its node's rows (batch dim second to last)."""
+        if not multihost:
+            return torch.from_numpy(rows).to(device).view(*shape)
+        return local_batch_to_global(mesh, rows.reshape(shape),
+                                     batch_axis=len(shape) - 2)
+
+    local_bs = (process_local_rows(args.batch_size) if multihost
+                else args.batch_size)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     t_start = time.time()
     train_stream = sampler.stream(
-        "train", GRAD_ACCUM * args.batch_size, args.seq_len)
+        "train", GRAD_ACCUM * local_bs, args.seq_len)
     for step in range(start_step, args.steps):
-        batches = torch.from_numpy(next(train_stream)).to(device).view(
-            GRAD_ACCUM, args.batch_size, args.seq_len + 1)
-        loss = step_fn(batches)
+        loss = step_fn(feed(next(train_stream), GRAD_ACCUM, local_bs,
+                            args.seq_len + 1))
 
         if step % 10 == 0 and is_main:
             loss = loss.item()
@@ -321,10 +360,14 @@ def main(argv=None):
                   f"  tok/s {rate:,.0f}", flush=True)
 
         if step % VALIDATE_EVERY == 0 and step > 0:
-            vb = torch.from_numpy(sampler.sample(
-                "valid", args.batch_size, args.seq_len)).to(device)
+            vb = feed(sampler.sample("valid", local_bs, args.seq_len),
+                      local_bs, args.seq_len + 1)
             with torch.no_grad():
-                vl = full_model()[0](vb, return_loss=True).item()
+                if not multihost:
+                    vl = full_model()[0](vb, return_loss=True).item()
+                else:   # the mean over the data ranks' shares
+                    vl = _sum(model(vb.to_local(), return_loss=True),
+                              mesh.get_group(DATA_AXIS)).item() / mesh.size(0)
             log(f"valid loss {vl:.4f}  valid bpb {vl / np.log(2):.4f}",
                 flush=True)
 
@@ -347,8 +390,8 @@ def main(argv=None):
             log(f"checkpoint saved at step {step}", flush=True)
 
         # sampling is a data-dependent host loop: under tensor
-        # parallelism every rank would have to run it in lockstep; under
-        # the pipeline rank 0 samples from the merged model
+        # parallelism and multi-host every rank would have to run it in
+        # lockstep; under the pipeline rank 0 samples from the merged model
         if step % GENERATE_EVERY == 0 and step > 0 and mesh is None:
             prime = torch.from_numpy(
                 sampler.sample("valid", 1, args.seq_len)[:, :128]).to(device)

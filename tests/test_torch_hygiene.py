@@ -51,6 +51,7 @@ def test_importing_the_port_loads_no_jax():
             "import flash_cosine_sim_attention_tpu_torch.parallel.train\n"
             "import flash_cosine_sim_attention_tpu_torch.parallel.ring_attention\n"
             "import flash_cosine_sim_attention_tpu_torch.parallel.pipeline\n"
+            "import flash_cosine_sim_attention_tpu_torch.parallel.distributed\n"
             "import flash_cosine_sim_attention_tpu_torch.benchmark\n"
             "import flash_cosine_sim_attention_tpu_torch.train\n"
             "loaded = [m for m in sys.modules if m.split('.')[0] in "

@@ -412,20 +412,23 @@ def test_trainer_model_parallel_under_torchrun(tmp_path):
     assert restore_checkpoint(str(ck), model, opt) == 1
 
 
-def test_trainer_pipeline_parallel_still_raises():
+def test_trainer_pipeline_parallel_still_raises(monkeypatch):
     """--pipeline-parallel runs under torchrun only and excludes
-    --model-parallel (as in the JAX trainer); the multi-host flags still
-    raise, naming the next slice."""
+    --model-parallel and multi-host (as in the JAX trainer); multi-host
+    with neither --coordinator nor torchrun's environment raises, naming
+    --coordinator."""
     from flash_cosine_sim_attention_tpu_torch import train
     with pytest.raises(RuntimeError, match="torchrun"):
         train.main(["--device", "cpu", "--pipeline-parallel", "2"])
-    with pytest.raises(ValueError, match="exclusive"):
-        train.main(["--device", "cpu", "--pipeline-parallel", "2",
-                    "--model-parallel", "2"])
-    for flag in (["--coordinator", "localhost:1"], ["--num-processes", "2"],
-                 ["--process-id", "0"]):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            train.main(["--device", "cpu", *flag])
+    for flag in (["--model-parallel", "2"], ["--num-processes", "2"]):
+        with pytest.raises(ValueError, match="exclusive"):
+            train.main(["--device", "cpu", "--pipeline-parallel", "2", *flag])
+    for name in ("MASTER_ADDR", "MASTER_PORT", "GROUP_RANK",
+                 "GROUP_WORLD_SIZE"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(ValueError, match="--coordinator"):
+        train.main(["--device", "cpu", "--num-processes", "2"])
+    assert not dist.is_initialized()
 
 
 def test_trainer_pipeline_parallel_under_torchrun(tmp_path):
@@ -571,11 +574,8 @@ def test_pipeline_matches_plain_and_jax(world, name):
         assert max(jax.tree.leaves(diffs)) < PIPE_BAR, diffs
 
 
-def test_parallel_exports_cover_jax_but_multihost():
-    """The port's parallel/ exports every JAX name but multi-host's."""
+def test_parallel_exports_cover_jax():
+    """The port's parallel/ exports every name of JAX's."""
     import flash_cosine_sim_attention_tpu.parallel as jax_parallel
     import flash_cosine_sim_attention_tpu_torch.parallel as port_parallel
-    missing = set(jax_parallel.__all__) - set(port_parallel.__all__)
-    assert missing == {"initialize_distributed", "local_batch_to_global",
-                       "make_multihost_mesh", "process_local_rows",
-                       "run_multiprocess_cpu_dryrun"}
+    assert not set(jax_parallel.__all__) - set(port_parallel.__all__)
