@@ -5,6 +5,8 @@
                                         # NCCL, a card a rank (4 cards)
     python3 chip_smoke.py --multihost-nccl  # the trainer as 2 torchrun
                                         # nodes of 2 cards (4 cards)
+    python3 chip_smoke.py --f32-step    # the float32 training step
+                                        # alone, profiled (1 card)
 
 Phases (any failure exits non-zero):
   1. device: requires CUDA; prints the card's name and power limit;
@@ -161,12 +163,21 @@ Phases (any failure exits non-zero):
      --multihost-nccl instead runs the trainer itself as 2 torchrun nodes
      of 2 cards over NCCL (31 steps, --model-parallel 2) and holds its
      losses to train_step's on one card over the same rows at 4e-4;
- 22. in a fresh process, the float32 (FMA) instances at the main path's
-     shapes: K1 (b1 h8 s1024 d64 causal), K2 and K3a/K3b (phase 8's
-     shapes), K7 (one decode step's 65 calls at 8 rows), each checked
-     against its plain version and timed beside it, its bound (bytes, or
-     operations at the float32 peak outside the tensor cores) and SDPA or
-     F.linear in float32 with TF32 off.
+ 22. in a fresh process, the float32 instances at the main path's
+     shapes: K1 (b1 h8 s1024 d64 causal) and the one-pass K2 (phase 8's
+     shape) on the tensor cores as 3xTF32 split products, K3a/K3b
+     (phase 8's shape with an (h, i, j) bias) and K7 (one decode step's
+     65 calls at 8 rows) on their FMA instances, each row held to its
+     instances by profiler name, checked against its plain version and
+     timed beside it, its bound (K1, K2: 3 x the operations at the TF32
+     tensor cores' peak; K3a/K3b: operations at the float32 peak outside
+     the tensor cores; K7: bytes) and SDPA or F.linear in float32 with
+     TF32 off; K1 and K2 also against the plain versions with the same
+     split (TF32X3_BARS; on a short chain SPLIT_BARS, above which the
+     bfloat16 split's plain versions must read), over long chains
+     (s8192, values of mean 3) and at 8 l2norm groups and scale 8 (logits
+     to 64); then the validation model's float32 training step profiled:
+     device time a step, K1's and K2's share and launches.
 Then one JSON line lists every ported kernel, and the entries of phases
 18-22 (each rank's launches and error), with its launches on its path, error,
 times and bound (timing lines also print the achieved
@@ -192,6 +203,7 @@ import torch
 SEED = 0
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12    # H100 SXM dense TF32 tensor cores
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 
 MODEL = dict(num_tokens=256, dim=512, depth=8, max_seq_len=1024, heads=8,
@@ -211,6 +223,21 @@ PARITY_BAR = 1e-2     # f32 logits, card vs CPU (decode's bf16 roundings)
 # another order, to bf16, so they differ by at most one bf16 ulp, which
 # is at most 2^-7 of the value
 GRAD_BARS = {torch.float32: F32_ERR_BAR, torch.bfloat16: 2 ** -7}
+# float32 K1 and K2 (3xTF32) against their plain versions with the same
+# split (ops/mxu.py dot_tf32x3), in F32_ERR_BAR's units, at the main
+# path's shapes (b1 h8 and b4 h8 s1024 d64 causal, 8 l2norm groups, scale
+# 1), at about 2.5x the first readings on the H100 (K1's o 2.2e-6; K2's
+# dK and dV 1.4e-5 to 1.9e-5, before their sums were closed every 256
+# queries): what is left is the tensor cores' float32 sums, each rounded
+# toward zero, and the sums' order
+TF32X3_BARS = {"K1": 5e-6, "K2": 5e-5}
+# the same on a short chain (split_check: b4 h8 s128 d64 causal, 8 groups,
+# scale 8), K1 on o, above the readings on the H100 (K1 1.1e-5; K2 1.1e-5
+# to 1.8e-5) and below those of the plain versions with JAX's bfloat16
+# split (dot_f32x3): 1.8e-4 (K1), 4.3e-5 to 6.7e-5 (K2).  Over 1024
+# queries the tensor cores' rounding of each sum toward zero buries the
+# split's error; over 128 it does not, and the two splits read apart
+SPLIT_BARS = {"K1": 4e-5, "K2": 3e-5}
 TRAIN_STEPS = 10
 TRAIN_CORPUS_BYTES = 1 << 20   # the JAX trainer draws 8 M the same way
 LOSS_BAR = 1e-4               # f32 training loss, card vs CPU
@@ -508,17 +535,18 @@ def spilling(ptxas_log: str):
     return out
 
 
-def wide_registers(ptxas_log: str):
-    """(kernel, registers) of the wide route's tensor-core instances in a
-    ptxas -v report, the kernel named by the part of its mangled name
-    that tells the instances apart."""
+def instance_registers(ptxas_log: str, kind: str):
+    """(kernel, registers) of the instances whose mangled name holds
+    ``kind`` (the wide route's tensor-core "wide_mma_kernel", the 3xTF32
+    "tf32_kernel") in a ptxas -v report, each named by the part of its
+    mangled name that tells the instances apart."""
     out, entry = [], ""
     for ln in ptxas_log.splitlines():
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1]
         m = re.search(r"Used (\d+) registers", ln)
-        if m and "wide_mma_kernel" in entry:
-            name = re.search(r"[a-z]+_wide_mma_kernel(I\w+?E)?", entry)
+        if m and kind in entry:
+            name = re.search(rf"[a-z]+_{kind}(I\w+?E)?", entry)
             out.append((name.group(0), int(m.group(1))))
     return out
 
@@ -533,6 +561,17 @@ def grad_err(x: torch.Tensor, y: torch.Tensor, dtype) -> float:
         return (x - y).abs().max().item() / max(1.0, y.abs().max().item())
     floor = y.square().mean().sqrt()
     return ((x - y).abs() / (y.abs() + floor).clamp_min(1e-30)).max().item()
+
+
+def exact_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with each entry correctly rounded from float64 to float32:
+    the plain versions' exact products (``mm=exact_mm``)."""
+    return (a.double() @ b.double()).float()
+
+
+def max_rel(x: torch.Tensor, y: torch.Tensor) -> float:
+    """The largest relative error of ``x`` against ``y`` (inv_l's units)."""
+    return ((x - y) / y).abs().max().item()
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
@@ -944,6 +983,14 @@ def time_backward(card: str, args, kw, args_b, kw_b):
     ):
         ms = device_ms(call)
         bound_ms, by = bound(flops, nbytes, peak)
+        if name == "K2" and q.dtype == torch.float32:
+            # 3xTF32: three products on the TF32 tensor cores for each of
+            # the function's; the FMA bound (67 TFLOP/s) in brackets
+            fma_ms = bound_ms
+            bound_ms, by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+            by_note = f" (3xTF32; FMA bound {fma_ms:.5f} ms)"
+        else:
+            by_note = ""
         call_ms = event_ms(wrapper) if wrapper is not None else None
         rows[name] = dict(ms=ms, plain_ms=p_ms, bound_ms=bound_ms,
                           bound_by=by, library_ms=l_ms)
@@ -952,7 +999,7 @@ def time_backward(card: str, args, kw, args_b, kw_b):
               f"device time kernel {ms:.4f} ms ({tflops(flops, ms):.1f} "
               f"TFLOP/s), plain {p_ms:.4f} ms, SDPA backward {l_ms:.4f} ms "
               f"({tflops(flops, l_ms):.1f} TFLOP/s), bound {bound_ms:.5f} ms "
-              f"({by})"
+              f"({by}){by_note}"
               + ("" if call_ms is None else
                  f"; wrapper call {call_ms:.4f} ms"
                  f"{'' if name == 'K2' else ' (K3a + K3b)'}"))
@@ -961,7 +1008,7 @@ def time_backward(card: str, args, kw, args_b, kw_b):
           "no dB for K3; TFLOP/s count the function's products, 2d FLOPs "
           "per visible pair each: 5 for K2, 3 for K3a, 4 for K3b; the "
           "tensor-core K2, K3a and K3b run 8, 4 and 6, e and dS as bf16 "
-          "hi + lo)")
+          "hi + lo; the float32 K2 runs 15 TF32 products, 3 a product)")
     return rows
 
 
@@ -4444,23 +4491,231 @@ def multihost_nccl(card: str) -> None:
         fail(f"--multihost-nccl: losses {got} against one card's {want}")
 
 
+def scale8(g, card: str) -> None:
+    """K1 and the one-pass K2 in float32 at 8 l2norm groups and scale 8
+    (b1 h8 s1024 d64 causal): logits reach 64, where JAX's bf16 split of a
+    float32 product misses the 1e-4 bar on o.  o and the gradients are held
+    to the plain versions at F32_ERR_BAR; inv_l at 1e-5 relative against
+    the plain forward with exact products (float64, rounded to float32),
+    or at twice the float32 plain version's own distance from it where
+    that is larger: float32's rounding of a logit near 64 moves inv_l by
+    ~1e-5."""
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        bwd_kernel as bk, flash_attention_backward_plain, l2norm_tensors)
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward, flash_attention_forward_plain)
+
+    b, h, s, d = 1, 8, 1024, 64
+    q, k = l2norm_tensors(torch.randn(b, h, s, d, device="cuda", generator=g),
+                          torch.randn(b, h, s, d, device="cuda", generator=g),
+                          groups=8)
+    v, do = (torch.randn(b, h, s, d, device="cuda", generator=g)
+             for _ in range(2))
+    kw = dict(bias_batch_dim=False, scale=8.0, causal=True)
+    o, inv_l = flash_attention_forward(q, k, v, None, None, **kw)
+    o_p, inv_p = flash_attention_forward_plain(q, k, v, None, None, **kw)
+    _, inv_x = flash_attention_forward_plain(q, k, v, None, None,
+                                             mm=exact_mm, **kw)
+    err = (o - o_p).abs().max().item()
+    inv_bar = max(1e-5, 2 * max_rel(inv_p, inv_x))
+    args = (do, o_p, inv_p, q, k, v, None, None)
+    got = bk._backward_onepass(*args[:7], scale=8.0, causal=True)
+    want = flash_attention_backward_plain(*args, **kw)
+    grads = [grad_err(x, y, torch.float32) for x, y in zip(got, want)]
+    print(f"  K1, K2 f32 at 8 groups and scale 8 (b{b} h{h} s{s} d{d} causal) "
+          f"on {card}: max|o - plain| {err:.2e} (bar {F32_ERR_BAR:g}); inv_l "
+          f"against exact products {max_rel(inv_l, inv_x):.2e} (bar "
+          f"{inv_bar:.2e}: the plain version's own "
+          f"{max_rel(inv_p, inv_x):.2e}), against the plain version "
+          f"{max_rel(inv_l, inv_p):.2e}; dq, dk, dv "
+          f"{', '.join(f'{e:.2e}' for e in grads)} (bar {F32_ERR_BAR:g})")
+    if not (err <= F32_ERR_BAR and max_rel(inv_l, inv_x) <= inv_bar
+            and max(grads) <= F32_ERR_BAR):
+        fail(f"f32 at scale 8: o {err}, inv_l {max_rel(inv_l, inv_x)}, "
+             f"gradients {grads}")
+
+
+def split_check(g, card: str) -> None:
+    """K1 and the one-pass K2 in float32 against the plain versions with
+    the kernels' own split (mm=dot_tf32x3), at b4 h8 s128 d64 causal, 8
+    l2norm groups and scale 8, held to SPLIT_BARS; the plain versions with
+    JAX's bfloat16 split (mm=dot_f32x3) must read above the same bars
+    against dot_tf32x3, else the check could not tell the two splits
+    apart.  The chain is short: a long one (dK and dV sum every query)
+    buries the split's error under the tensor cores' rounding of each sum
+    toward zero."""
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        bwd_kernel as bk, flash_attention_backward_plain, l2norm_tensors)
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward, flash_attention_forward_plain)
+    from flash_cosine_sim_attention_tpu_torch.ops.mxu import (
+        dot_f32x3, dot_tf32x3)
+
+    b, h, s, d = 4, 8, 128, 64
+
+    def randn():
+        return torch.randn(b, h, s, d, device="cuda", generator=g)
+
+    q, k = l2norm_tensors(randn(), randn(), groups=8)
+    v, do = randn(), randn()
+    kw = dict(bias_batch_dim=False, scale=8.0, causal=True)
+    o, inv_l = flash_attention_forward(q, k, v, None, None, **kw)
+    o_t, inv_t = flash_attention_forward_plain(q, k, v, None, None,
+                                               mm=dot_tf32x3, **kw)
+    o_b, inv_b = flash_attention_forward_plain(q, k, v, None, None,
+                                               mm=dot_f32x3, **kw)
+    k1 = (o - o_t).abs().max().item()
+    k1_b = (o_b - o_t).abs().max().item()
+    args = (do, o_t, inv_t, q, k, v, None, None)
+    got = bk._backward_onepass(*args[:7], scale=8.0, causal=True)
+    want_t = flash_attention_backward_plain(*args, mm=dot_tf32x3, **kw)
+    want_b = flash_attention_backward_plain(*args, mm=dot_f32x3, **kw)
+    k2 = [grad_err(x, y, torch.float32) for x, y in zip(got, want_t)]
+    k2_b = [grad_err(x, y, torch.float32)
+            for x, y in zip(want_b[:3], want_t)]
+    print(f"  against the dot_tf32x3 plain versions (b{b} h{h} s{s} d{d} "
+          f"causal, groups 8, scale 8) on {card}: K1 o {k1:.2e}, the "
+          f"dot_f32x3 (bf16 split) plain version {k1_b:.2e} (bar "
+          f"{SPLIT_BARS['K1']:g}; inv_l {max_rel(inv_l, inv_t):.2e} and "
+          f"{max_rel(inv_b, inv_t):.2e}); K2 dq, dk, dv "
+          f"{', '.join(f'{e:.2e}' for e in k2)}, the dot_f32x3 plain version "
+          f"{', '.join(f'{e:.2e}' for e in k2_b)} (bar "
+          f"{SPLIT_BARS['K2']:g})")
+    if not (k1 <= SPLIT_BARS["K1"] < k1_b
+            and max(k2) <= SPLIT_BARS["K2"] < max(k2_b)):
+        fail(f"f32 split check: K1 {k1} (bf16 split {k1_b}), K2 {k2} "
+             f"(bf16 split {k2_b})")
+
+
+def long_chains(g, card: str) -> None:
+    """K1 and the one-pass K2 in float32 over long chains (b1 h2 s8192 d64
+    causal, 8192 keys for O, 8192 queries for dK and dV; and 8 query heads
+    on 1 kv head at s1024, G x seq_q 8192), with v and dO' of mean 3 so
+    that every term of O and dV has one sign: the tensor cores round each
+    sum toward zero, and both kernels close their chains every 256 keys or
+    queries.  Held to the plain versions at F32_ERR_BAR (o, gradients) and
+    inv_l at 1e-5 relative."""
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        bwd_kernel as bk, flash_attention_backward_plain, l2norm_tensors)
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward, flash_attention_forward_plain)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+
+    kw = dict(bias_batch_dim=False, scale=8.0, causal=True)
+    for h, kvh, s in ((2, 2, 8192), (8, 1, 1024)):
+        q, k = l2norm_tensors(randn(1, h, s, 64), randn(1, kvh, s, 64))
+        v = randn(1, kvh, s, 64) + 3
+        o, inv_l = flash_attention_forward(q, k, v, None, None, **kw)
+        o_p, inv_p = flash_attention_forward_plain(q, k, v, None, None, **kw)
+        err, err_l = (o - o_p).abs().max().item(), max_rel(inv_l, inv_p)
+        do = randn(*o.shape) + 3
+        args = (do, o_p, inv_p, q, k, v, None, None)
+        got = bk._backward_onepass(*args[:7], scale=8.0, causal=True)
+        want = flash_attention_backward_plain(*args, **kw)
+        grads = [grad_err(x, y, torch.float32) for x, y in zip(got, want)]
+        print(f"  long chains, b1 h{h} kv heads {kvh} s{s} d64 causal, v and "
+              f"dO' of mean 3, on {card}: K1 o {err:.2e}, inv_l {err_l:.2e};"
+              f" K2 dq, dk, dv {', '.join(f'{e:.2e}' for e in grads)} (bars "
+              f"{F32_ERR_BAR:g}, inv_l 1e-5)")
+        if not (err <= F32_ERR_BAR and err_l <= 1e-5
+                and max(grads) <= F32_ERR_BAR):
+            fail(f"f32 long chains h{h} s{s}: o {err}, inv_l {err_l}, "
+                 f"gradients {grads}")
+        del q, k, v, o, o_p, got, want, args
+
+
+def f32_train_step(card: str) -> dict:
+    """The validation model's training step in float32 (the trainer's
+    --use-float32: float32 compute, 4 microbatches of 4 x 1024 of phase
+    8's corpus): device time a step over 2 profiled steps (whole_rows), K1
+    and K2's share of it and their launches a step.  ``python3
+    chip_smoke.py --f32-step`` runs it alone, e.g. from a checkout of an
+    earlier commit, for a reading before and after a change."""
+    from flash_cosine_sim_attention_tpu_torch.data import (
+        TextSampler, synthetic_corpus)
+    from flash_cosine_sim_attention_tpu_torch.models import (
+        CosineSimCausalTransformer)
+    from flash_cosine_sim_attention_tpu_torch.train import (
+        BATCH_SIZE, GRAD_ACCUM, make_optimizer, train_step)
+
+    torch.manual_seed(SEED)
+    model = CosineSimCausalTransformer(**MODEL, dtype=torch.float32,
+                                       device="cuda")
+    opt = make_optimizer(model)
+    seq = MODEL["max_seq_len"]
+    stream = TextSampler(synthetic_corpus(TRAIN_CORPUS_BYTES, seed=SEED),
+                         train_frac=90 / 95, seed=SEED).stream(
+                             "train", GRAD_ACCUM * BATCH_SIZE, seq)
+    batches = [torch.from_numpy(next(stream)).cuda().view(
+        GRAD_ACCUM, BATCH_SIZE, seq + 1) for _ in range(4)]
+    losses = []
+
+    def step():
+        losses.append(train_step(model, opt, batches[len(losses) % 4]))
+
+    for _ in range(2):
+        step()
+    rows = whole_rows(step, 2)
+    total = sum(t for _, t, _ in rows) / 1e3
+    parts = {}
+    for name, pats in (("K1", ("fwd_tf32_kernel<", "fwd_kernel<float")),
+                       ("K2", ("dkdv_tf32_kernel<",
+                               "dkdv_kernel<float, 64, true>"))):
+        mine = [(key, t, c) for key, t, c in rows
+                if any(p in key for p in pats)]
+        parts[name] = (sum(t for _, t, _ in mine) / 1e3,
+                       sum(c for _, _, c in mine),
+                       sorted({re.sub(r"^void (\(anonymous namespace\)::)?",
+                                      "", key).split("(")[0]
+                               for key, _, _ in mine}))
+    loss = [x.item() for x in losses]
+    top = sorted(rows, key=lambda r: -r[1])[:4]
+    print(f"  float32 train step (4 x 4 x 1024) on {card}: device time "
+          f"{total:.2f} ms a step (2 steps profiled); K1 {parts['K1'][0]:.2f}"
+          f" ms ({parts['K1'][0] / total:.3f}), {parts['K1'][1]} launches "
+          f"{parts['K1'][2]}; K2 {parts['K2'][0]:.2f} ms "
+          f"({parts['K2'][0] / total:.3f}), {parts['K2'][1]} launches "
+          f"{parts['K2'][2]}; the largest kernels "
+          + "; ".join(f"{key[:60]} {t / 1e3:.2f} ms ({c} launches)"
+                      for key, t, c in top)
+          + f"; losses {', '.join(f'{x:.4f}' for x in loss)}")
+    if not np.all(np.isfinite(loss)):
+        fail(f"float32 train step: losses {loss}")
+    per_step = GRAD_ACCUM * MODEL["depth"]
+    if parts["K1"][1] != per_step or parts["K2"][1] != per_step:
+        fail(f"float32 train step: K1, K2 launches {parts['K1'][1]}, "
+             f"{parts['K2'][1]} a step, want {per_step}")
+    return dict(ms=total, k1_ms=parts["K1"][0], k2_ms=parts["K2"][0])
+
+
 def f32_instances(card: str):
-    """Phase 22: the float32 (FMA) instances timed at the main path's
-    shapes (no kernel changed): K1 at b1 h8 s1024 d64 causal (phase 3's),
-    K2 and K3a/K3b at phase 8's (b4 h8 s1024 d64 causal; K3 with an (h, i,
-    j) bias), K7 over one decode step's 65 calls at 8 rows (phase 12's,
-    L2 flushed), each checked against its plain version and timed beside
-    it, its bound (bytes at 3.35 TB/s or operations at the float32 peak
-    outside the tensor cores, 67 TFLOP/s) and one PyTorch call with TF32
-    off (SDPA forward, SDPA backward, F.linear on a float32 weight copy);
-    the instances the profiler saw are printed.  Returns ({row: timing},
-    {row: max abs error against plain})."""
+    """Phase 22: the float32 instances at the main path's shapes.  K1 at
+    b1 h8 s1024 d64 causal (phase 3's) and the one-pass K2 at phase 8's
+    (b4 h8 s1024 d64 causal) run 3xTF32 on the tensor cores
+    (fwd_tf32_kernel<64>, dkdv_tf32_kernel<64>); K3a/K3b (phase 8's shape
+    with an (h, i, j) bias) and K7 (one decode step's 65 calls at 8 rows,
+    L2 flushed) their FMA instances.  Each row is held to its instances by
+    profiler name, checked against its plain version and timed beside it,
+    its bound and one PyTorch call with TF32 off (SDPA forward, SDPA
+    backward, F.linear on a float32 weight copy).  K1 and K2 are also held
+    to the plain versions with the kernels' split (mm=dot_tf32x3) at
+    TF32X3_BARS and on a short chain (split_check), checked over long
+    chains (long_chains) and at 8 l2norm groups and scale 8 (logits to 64,
+    where JAX's bf16 split of a float32 product misses the 1e-4 bar).
+    Bounds: K1 and K2 3 x their operations at the TF32 tensor cores' peak
+    (the FMA bound at 67 TFLOP/s printed beside), K3a/K3b at the float32
+    peak outside the tensor cores, K7 bytes.  Then the validation model's
+    float32 training step, profiled (f32_train_step).  Returns ({row:
+    timing}, {row: max abs error against plain})."""
     import torch.nn.functional as F
 
     from flash_cosine_sim_attention_tpu_torch.ops import (
-        bwd_kernel as bk, l2norm_tensors)
+        bwd_kernel as bk, flash_attention_backward_plain, l2norm_tensors)
     from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
         flash_attention_forward, flash_attention_forward_plain)
+    from flash_cosine_sim_attention_tpu_torch.ops.mxu import dot_tf32x3
     from flash_cosine_sim_attention_tpu_torch.quant import (
         quantize_dense_kernel, quantized_matmul, quantized_matmul_plain)
 
@@ -4468,15 +4723,19 @@ def f32_instances(card: str):
         fail("phase 22 times float32 with TF32 off")
     g = torch.Generator(device="cuda").manual_seed(SEED + 100)
 
-    def instances(work):
+    def instances(label, work, want, banned):
         """The port's kernels ``work`` launched, by instance name; fails
-        on a tensor-core instance (every one here must be FMA code)."""
+        unless each name in ``want`` is among them and none holds a
+        string of ``banned``."""
         names = sorted({re.sub(r"^void (\(anonymous namespace\)::)?", "",
                                key).split("(")[0]
                         for key, _, _ in cuda_rows(work, REQUIRE_ITERS)
                         if "at::native" not in key})
-        if any("mma" in n for n in names):
-            fail(f"a float32 call ran a tensor-core instance: {names}")
+        missing = [n for n in want if not any(n in x for x in names)]
+        bad = [x for x in names if any(b in x for b in banned)]
+        if missing or bad:
+            fail(f"{label}: instances {names}; missing {missing}, not "
+                 f"expected {bad}")
         return names
 
     b, h, s, d = 1, 8, 1024, 64
@@ -4487,23 +4746,39 @@ def f32_instances(card: str):
     kw = dict(bias_batch_dim=False, scale=1.0, causal=True)
     call = lambda: flash_attention_forward(q, k, v, None, None, **kw)  # noqa: E731
     plain = lambda: flash_attention_forward_plain(q, k, v, None, None, **kw)  # noqa: E731
-    err = (call()[0] - plain()[0]).abs().max().item()
-    if not err <= F32_ERR_BAR:
-        fail(f"K1 f32: max|o - plain| {err}")
+    (o, inv_l), (o_p, inv_p) = call(), plain()
+    o_t, inv_t = flash_attention_forward_plain(q, k, v, None, None,
+                                               mm=dot_tf32x3, **kw)
+    err = (o - o_p).abs().max().item()
+    err_t = (o - o_t).abs().max().item()
+    print(f"  K1 f32 b{b} h{h} s{s} d{d} causal, groups 8, scale 1: max|o - "
+          f"plain| {err:.2e} (bar {F32_ERR_BAR:g}), inv_l "
+          f"{max_rel(inv_l, inv_p):.2e} (bar 1e-5); against the dot_tf32x3 "
+          f"plain version: o {err_t:.2e}, inv_l {max_rel(inv_l, inv_t):.2e} "
+          f"(bar {TF32X3_BARS['K1']:g})")
+    if not (err <= F32_ERR_BAR and max_rel(inv_l, inv_p) <= 1e-5
+            and max(err_t, max_rel(inv_l, inv_t)) <= TF32X3_BARS["K1"]):
+        fail(f"K1 f32: o {err}, inv_l {max_rel(inv_l, inv_p)}; against "
+             f"dot_tf32x3 o {err_t}, inv_l {max_rel(inv_l, inv_t)}")
     errs = {"K1 f32": err}
     ms, plain_ms = device_ms(call), device_ms(plain)
     lib_ms = library_ms("SDPA f32 b1 h8 s1024 d64, TF32 off",
                         lambda: F.scaled_dot_product_attention(
                             q, k, v, is_causal=True, scale=1.0))
     flops = 4 * h * d * s * (s + 1) / 2
-    bound_ms, by = bound(flops, 4 * q.numel() * 4 + h * s * 4, PEAK_F32_FLOPS)
+    nbytes = 4 * q.numel() * 4 + h * s * 4
+    bound_ms, by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+    fma_ms = bound(flops, nbytes, PEAK_F32_FLOPS)[0]
     rows = {"K1 f32": dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=by, library_ms=lib_ms)}
     print(f"  K1 b{b} h{h} s{s} d{d} causal f32 on {card}: device time "
-          f"kernel {ms:.4f} ms ({tflops(flops, ms):.2f} TFLOP/s), plain "
+          f"kernel {ms:.4f} ms ({tflops(flops, ms):.2f} TFLOP/s of the "
+          f"function's, {tflops(3 * flops, ms):.1f} of TF32 products), plain "
           f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
-          f"({by}, 67 TFLOP/s); max|o - plain| {err:.2e}; instances "
-          f"{instances(call)}")
+          f"({by}, 3xTF32 at 495 TFLOP/s; FMA bound {fma_ms:.5f} ms); "
+          f"instances " + ", ".join(instances(
+              "K1 f32", call, ["fwd_tf32_kernel<64>"],
+              ["fwd_kernel<", "fwd_mma_kernel<"])))
 
     worst = {"K2": 0.0, "K3a": 0.0, "K3b": 0.0}
     args, kw2 = bwd_inputs(g, 4, 8, 8, s, s, d, torch.float32, None, None,
@@ -4514,14 +4789,29 @@ def f32_instances(card: str):
                      torch.float32, None)
     compare_backward(worst, "b4 h8 s1024 causal + (h,i,j) bias", args_b,
                      kw_b, torch.float32, None)
+    got = bk._backward_onepass(*args[:7], scale=1.0, causal=True)
+    want_t = flash_attention_backward_plain(*args, mm=dot_tf32x3, **kw2)
+    errs_t = [grad_err(x, y, torch.float32) for x, y in zip(got, want_t)]
+    print(f"  K2 f32 against the dot_tf32x3 plain version: dq, dk, dv "
+          f"{', '.join(f'{e:.2e}' for e in errs_t)} (bar "
+          f"{TF32X3_BARS['K2']:g})")
+    if not max(errs_t) <= TF32X3_BARS["K2"]:
+        fail(f"K2 f32 against dot_tf32x3: {errs_t}")
+    split_check(g, card)
+    long_chains(g, card)
     for name, row in time_backward(card, args, kw2, args_b, kw_b).items():
         rows[f"{name} f32"] = row
         errs[f"{name} f32"] = worst[name]
-    onepass = instances(lambda: bk._backward_onepass(
-        *args[:7], scale=1.0, causal=True))
-    twopass = instances(lambda: bk._backward_twopass(*args_b, **kw_b))
+    onepass = instances("K2 f32", lambda: bk._backward_onepass(
+        *args[:7], scale=1.0, causal=True), ["dkdv_tf32_kernel<64>"],
+        ["dkdv_kernel<", "dkdv_mma_kernel<"])
+    twopass = instances("K3a/K3b f32", lambda: bk._backward_twopass(
+        *args_b, **kw_b), ["dq_kernel<float, 64>",
+                           "dkdv_kernel<float, 64, false>"],
+        ["mma_kernel", "tf32"])
     print(f"  f32 backward instances: one-pass {onepass}, two-pass "
           f"{twopass}")
+    scale8(g, card)
 
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     step = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
@@ -4548,7 +4838,7 @@ def f32_instances(card: str):
               f"{times['plain_ms']:.4f}, F.linear f32 "
               f"{times['library_ms']:.4f}, bound {times['bound_ms']:.5f} "
               f"(bytes); err {err:.2e}; "
-              f"instances {instances(lambda: quantized_matmul(x, w8, scale))}")
+              f"instances {instances('K7 f32', lambda: quantized_matmul(x, w8, scale), ['qmm_kernel<'], ['qmm_mma_kernel'])}")
         for key, val in times.items():
             step[key] += calls * val
     rows["K7 f32"] = dict(step, bound_by="bytes")
@@ -4561,6 +4851,7 @@ def f32_instances(card: str):
               f"{row['ms'] / row['library_ms']:.2f}, bound / kernel "
               f"{row['bound_ms'] / row['ms']:.3f}, error vs plain "
               f"{errs[name]:.3e}")
+    f32_train_step(card)
     return rows, errs
 
 
@@ -4576,6 +4867,10 @@ def main() -> None:
         "--multihost-nccl", action="store_true",
         help="run the trainer alone as 2 torchrun nodes of 2 cards over "
              "NCCL against one card (needs 4 cards)")
+    parser.add_argument(
+        "--f32-step", action="store_true",
+        help="profile the validation model's float32 training step alone "
+             "(one card)")
     args = parser.parse_args()
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4604,19 +4899,26 @@ def main() -> None:
         print(f"  {name}: {'; '.join(sorted(set(regs)))}")
         print(f"  {name} instances that spill: "
               f"{', '.join(spilling(log)) or 'none'}")
-        wide = wide_registers(log)
-        if wide:
-            print(f"  {name} wide tensor-core instances' registers: "
-                  f"{', '.join(f'{k} {r}' for k, r in wide)}")
+        for kind, label in (("wide_mma_kernel", "wide tensor-core"),
+                            ("tf32_kernel", "3xTF32")):
+            regs = instance_registers(log, kind)
+            if regs:
+                print(f"  {name} {label} instances' registers: "
+                      f"{', '.join(f'{k} {r}' for k, r in regs)}")
 
-    if args.ring_nccl or args.multihost_nccl:
+    if args.ring_nccl or args.multihost_nccl or args.f32_step:
         if args.ring_nccl:
             print("[19] ring attention over NCCL, a card a rank")
             print(json.dumps({"kernels": [ring_attention_phase(smi, "nccl")]}))
-        else:
+            flag = "--ring-nccl"
+        elif args.multihost_nccl:
             print("[21] the trainer on 2 nodes of 2 cards over NCCL")
             multihost_nccl(smi)
-        flag = "--ring-nccl" if args.ring_nccl else "--multihost-nccl"
+            flag = "--multihost-nccl"
+        else:
+            print("[22] the float32 training step")
+            f32_train_step(smi)
+            flag = "--f32-step"
         print(f"chip_smoke.py {flag} took "
               f"{time.perf_counter() - started:.1f} s")
         print(smi)

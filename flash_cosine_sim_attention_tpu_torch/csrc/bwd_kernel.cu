@@ -6,7 +6,9 @@
 //                                                 bias's shared axis
 //   fcsa_bwd_dkdv     K3b  `_dkdv_kernel_t`       dK, dV
 // K2 and K3b share one template (dkdv_mma_kernel for bf16 on the tensor
-// cores, dkdv_kernel for f32 on FMAs); K2 adds the dQ sweep.
+// cores, dkdv_kernel for f32 on FMAs); K2 adds the dQ sweep.  The float32
+// K2 up to d 128 has a kernel of its own on the tensor cores,
+// dkdv_tf32_kernel (3xTF32 split products).
 //
 // Maths (the JAX forward's convention: no row max, no "- scale" shift).
 // The wrapper hands in dO' = dO * inv_l (rounded back to dO's dtype) and
@@ -48,6 +50,8 @@
 // 4 of the products and reads the visible half of the f32 bias (~17 MB).
 // K3a does 3 (S, dP', dQ: ~6.4 GFLOP, ~6.5 us) and reads the same bias and
 // adds dS into dB (~17 MB, 8.4 M float2 adds), so it is bytes bound.
+// In float32 the 3xTF32 K2 does three times K2's operations at the TF32
+// rate (495 TFLOP/s): ~65 us, against ~18 us for its ~59 MB.
 //
 // bfloat16 inputs run the tensor-core kernel `dkdv_mma_kernel`, the
 // FlashAttention-2 backward reshaped for this op (no row max, JAX's exp2
@@ -156,14 +160,41 @@
 //   at d 512); dB is added by column block 0 alone.  f32 tiles, 64 x 64,
 //   256 threads.
 //
-// float32 inputs keep the FMA kernels `dkdv_kernel` and `dq_kernel`:
-// every product is an f32 FMA out of shared memory (tiles widened to f32
-// once at load, rows padded by one column against bank conflicts), with e
-// and dS in f32.  The f32 instances hold a 1e-4 bar against the plain
-// version that bf16 tensor cores cannot meet without the 3-pass split of
-// the JAX package.  Their tiles are 64 queries x 64 keys up to d 128 and
-// 32 x 32 above (four f32 tiles of 64 rows at d 256 would take 263 KB of
-// shared memory).
+// float32 K2 up to d 128 runs on the tensor cores as 3xTF32 split products
+// (`dkdv_tf32_kernel`), in dkdv_mma_kernel's shape: every operand x is
+// split into two tf32 values, hi = rn(x) and lo = rn(x - hi), and each
+// of the five products is lo.hi + hi.lo + hi.hi by mma.sync m16n8k8 into
+// f32 (lo.lo dropped), which holds the f32 bar of 1e-4 against the plain
+// version.  The TPU kernels split into bf16 hi / lo instead (Mosaic has no
+// TF32 tier); at 8 l2norm groups and scale 8 that split misses the bar,
+// TF32's 11 significant bits a part do not.  4 warps own 64 keys, 16 a
+// warp; K and V arrive once as f32, K is split once for the block (hi in
+// place, lo beside it: every warp reads all of K for dQ), V at each A
+// fragment (each warp reads only its own rows).  Q, dO' and delta' tiles
+// (64 queries up to d 32, 32 above: at d 64 two blocks share an SM) stream
+// through a double-buffered cp.async ring, and each tile of Q and dO' is
+// split once for the block after it lands.  S^T = K.Q^T and dP^T =
+// V.dO'^T, then e^T and dS^T in f32 (hidden entries selected to exact 0,
+// masks skipped on whole tiles); dV += e^T.dO' and dK += dS^T.Q with e and
+// dS split in registers: the C fragment of S^T holds queries 2q and 2q +
+// 1, which serve as the tf32 A fragment's k indices q and q + 4 when dO'
+// and Q rows are read in that order (add_product_tf32x3), so they never
+// touch shared memory.  dS itself is staged (queries x keys, f32) for dQ's
+// dS.K, added to the f32 scratch by red.global.add.v2.f32 as in
+// dkdv_mma_kernel.  Shared memory 111 KB at d 64, 207 KB at d 128.
+// The tensor cores round each f32 sum toward zero, and a chain of such
+// sums on one accumulator drifts with its length (~1.5e-5 of max|g| at
+// 1024 queries, 3 x 128 of them); dK and dV sum G x seq_q queries, so
+// every 256 queries the chain is closed: its sums are added, to nearest,
+// into the block's own dK and dV rows in global memory, and the
+// accumulators restart from 0.
+//
+// float32 K3a and K3b, and K2 at d 192 and 256, keep the FMA kernels
+// `dq_kernel` and `dkdv_kernel`: every product is an f32 FMA out of shared
+// memory (tiles widened to f32 once at load, rows padded by one column
+// against bank conflicts), with e and dS in f32.  Their tiles are 64
+// queries x 64 keys up to d 128 and 32 x 32 above (four f32 tiles of 64
+// rows at d 256 would take 263 KB of shared memory).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -550,22 +581,6 @@ __device__ __forceinline__ void add_product(float (&acc)[D / 8][4],
   }
 }
 
-// `nrows` rows of D bf16 from global rows [first, first + nrows) of `src`
-// (rows past `limit` as zeros) to shared memory rows RS bytes apart, by
-// the block's NTH threads
-template <int D, int RS, int NTH>
-__device__ __forceinline__ void load_bf16_rows(unsigned char* dst, const void* src,
-                                               int first, int nrows, int limit) {
-  constexpr int chunks = 2 * D / 16;
-  const unsigned char* sb = static_cast<const unsigned char*>(src);
-  for (int idx = threadIdx.x; idx < nrows * chunks; idx += NTH) {
-    const int r = idx / chunks, cc = (idx % chunks) * 16, row = first + r;
-    const bool in = row < limit;
-    cp_async16(dst + r * RS + cc, in ? sb + size_t(row) * 2 * D + cc : sb,
-               in ? 16 : 0);
-  }
-}
-
 // An f32 bias tile: rows [0, nrows) x columns [0, ncols) of the (*, ld)
 // matrix at `src` (from its tile corner; rows past `rows`, columns past
 // `cols` as zeros) to shared memory rows `stride` floats apart; 16-byte
@@ -644,10 +659,10 @@ __global__ void __launch_bounds__(MmaLayout<D, DQ>::NT, 1)
   auto load_tile = [&](int it, int buf) {
     const size_t qrow0 = q_rows(it);
     const int q0 = (qt0 + it % per_head) * BQ;
-    load_bf16_rows<D, RS, NTH>(qs + buf * L::QT,
+    load_rows<2 * D, RS, NTH>(qs + buf * L::QT,
                                static_cast<const T*>(p.q) + qrow0 * D, q0, BQ,
                                p.seq_q);
-    load_bf16_rows<D, RS, NTH>(dos + buf * L::QT,
+    load_rows<2 * D, RS, NTH>(dos + buf * L::QT,
                                static_cast<const T*>(p.dO) + qrow0 * D, q0,
                                BQ, p.seq_q);
     for (int i = tid; i < BQ; i += NTH) {
@@ -665,9 +680,9 @@ __global__ void __launch_bounds__(MmaLayout<D, DQ>::NT, 1)
   };
 
   if (total > 0) {
-    load_bf16_rows<D, RS, NTH>(ks, static_cast<const T*>(p.k) + kvrow0 * D,
+    load_rows<2 * D, RS, NTH>(ks, static_cast<const T*>(p.k) + kvrow0 * D,
                                k0, MBK, p.seq_k);
-    load_bf16_rows<D, RS, NTH>(vs, static_cast<const T*>(p.v) + kvrow0 * D,
+    load_rows<2 * D, RS, NTH>(vs, static_cast<const T*>(p.v) + kvrow0 * D,
                                k0, MBK, p.seq_k);
     load_tile(0, 0);
   }
@@ -854,6 +869,294 @@ __global__ void __launch_bounds__(MmaLayout<D, DQ>::NT, 1)
 }
 
 // ---------------------------------------------------------------------------
+// Tensor-core f32 K2 (3xTF32) at d <= 128: grid (KVH, B, key tiles), 4
+// warps, warp w owning keys k0 + 16 w ..
+
+template <int D>
+struct Tf32Layout {
+  static constexpr int NT = 128;
+  // queries per tile: 32 at d 64 (two blocks an SM) and above (dK's and
+  // dV's 2 x D / 2 accumulators, the S^T and dP^T tiles and the fragments
+  // within 255 registers, and shared memory)
+  static constexpr int BQ = D <= 32 ? 64 : 32;
+  // f32 rows of D + 4 floats, (4D + 16) bytes: an odd count of 16-byte
+  // units (the 8 rows an ldmatrix reads hit 8 banks), 2 rows 8 banks
+  // apart (add_product_tf32x3's reads)
+  static constexpr int RF = D + 4;
+  static constexpr int RS = 4 * RF;
+  // dS (queries x keys) row stride, floats: a warp's 32 staging writes,
+  // rows 2q + x and columns g, hit 32 banks
+  static constexpr int DSS = MBK + 4;
+  static constexpr size_t KV = size_t(MBK) * RS;  // the K or V tile
+  static constexpr size_t QT = size_t(BQ) * RS;   // one Q or dO' tile
+  // K (split in place into its hi), its lo, V; two Q and two dO' tiles
+  // (each split in place into its hi), the current tile's Q and dO' lo;
+  // two delta' rows; dS
+  static constexpr size_t SMEM =
+      3 * KV + 6 * QT + (2 * size_t(BQ) + size_t(BQ) * DSS) * sizeof(float);
+};
+
+template <int D>
+__global__ void __launch_bounds__(Tf32Layout<D>::NT, 1)
+    dkdv_tf32_kernel(Params p) {
+  using L = Tf32Layout<D>;
+  constexpr int BQ = L::BQ, RS = L::RS, RF = L::RF, DSS = L::DSS, NTH = L::NT;
+  constexpr int NQ = BQ / 8;    // n8 tiles of a warp's (16 keys x BQ) tile
+  constexpr int ND = D / 8;     // n8 tiles over the head dim
+  constexpr int QG = BQ / 16;   // dQ: 16-query groups of a tile ...
+  constexpr int DP = 4 / QG;    // ... and the head-dim parts per group
+  constexpr int NDQ = ND / DP;  // n8 tiles of a warp's dQ part, formed
+  constexpr int NH = D > 96 ? 2 : 1;  // in NH passes (d 128: registers)
+  constexpr int NDH = NDQ / NH;
+  static_assert(NDQ % NH == 0, "dQ passes split the part evenly");
+  extern __shared__ __align__(16) unsigned char msmem[];
+  unsigned char* ks = msmem;
+  unsigned char* kls = ks + L::KV;
+  unsigned char* vs = kls + L::KV;
+  unsigned char* qs = vs + L::KV;        // 2 buffers
+  unsigned char* dos = qs + 2 * L::QT;   // 2 buffers
+  unsigned char* qls = dos + 2 * L::QT;  // the current tile's lo
+  unsigned char* dols = qls + L::QT;
+  float* dls = reinterpret_cast<float*>(dols + L::QT);  // 2 x BQ
+  float* dss = dls + 2 * BQ;             // BQ x DSS
+
+  const int kvhi = blockIdx.x, bi = blockIdx.y, k0 = blockIdx.z * MBK;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int kg = warp;                   // the warp's 16 keys
+  const int G = p.H / p.KVH, diff = p.seq_k - p.seq_q;
+  const size_t kvrow0 = (size_t(bi) * p.KVH + kvhi) * p.seq_k;
+  const uint8_t* mb = p.mask ? p.mask + size_t(bi) * p.seq_k : nullptr;
+
+  // (head, q tile) pairs that see the block's keys: the causal start is the
+  // first query row that sees key k0
+  const int qfirst = p.causal ? max(0, k0 - diff) : 0;
+  const int qt0 = qfirst / BQ;
+  const int per_head = max(0, (p.seq_q + BQ - 1) / BQ - qt0);
+  const int total = G * per_head;
+
+  auto q_rows = [&](int it) {  // the query rows' first index, (b, h, 0)
+    return (size_t(bi) * p.H + kvhi * G + it / per_head) * p.seq_q;
+  };
+  auto load_tile = [&](int it, int buf) {
+    const size_t qrow0 = q_rows(it);
+    const int q0 = (qt0 + it % per_head) * BQ;
+    load_rows<4 * D, RS, NTH>(qs + buf * L::QT,
+                               static_cast<const float*>(p.q) + qrow0 * D, q0,
+                               BQ, p.seq_q);
+    load_rows<4 * D, RS, NTH>(dos + buf * L::QT,
+                               static_cast<const float*>(p.dO) + qrow0 * D, q0,
+                               BQ, p.seq_q);
+    for (int i = tid; i < BQ; i += NTH) {
+      const bool in = q0 + i < p.seq_q;
+      cp_async4(dls + buf * BQ + i, in ? p.delta + qrow0 + q0 + i : p.delta,
+                in ? 4 : 0);
+    }
+  };
+
+  if (total > 0) {
+    load_rows<4 * D, RS, NTH>(ks, static_cast<const float*>(p.k) + kvrow0 * D,
+                               k0, MBK, p.seq_k);
+    load_rows<4 * D, RS, NTH>(vs, static_cast<const float*>(p.v) + kvrow0 * D,
+                               k0, MBK, p.seq_k);
+    load_tile(0, 0);
+  }
+  cp_async_commit();
+
+  float acc[2][ND][4];  // dV, dK
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][n][e] = 0.f;
+  // this thread's keys: C rows g and g + 8 of the warp's 16
+  const int keys[2] = {k0 + kg * 16 + g, k0 + kg * 16 + g + 8};
+  bool key_ok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    key_ok[h] = keys[h] < p.seq_k && (mb == nullptr || mb[keys[h]] != 0);
+  const bool keys_whole = mb == nullptr && k0 + MBK <= p.seq_k;
+  const float* kf = reinterpret_cast<const float*>(ks);
+  const float* klf = reinterpret_cast<const float*>(kls);
+
+  // dK and dV sum G x seq_q queries, each mma rounding its sum toward zero.
+  // Every CHAIN tiles (256 queries) the chain is closed: the sums so far go
+  // into the block's own dK and dV rows, added to nearest to what earlier
+  // chains left there, and the accumulators restart from 0
+  constexpr int CHAIN = 256 / BQ;
+  bool stored = false;
+  auto close_chain = [&]() {
+    float* dkb = static_cast<float*>(p.dk) + kvrow0 * D;
+    float* dvb = static_cast<float*>(p.dv) + kvrow0 * D;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (keys[h] >= p.seq_k) continue;
+      const size_t at = size_t(keys[h]) * D + 2 * tq;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        float2 dk = make_float2(acc[1][n][2 * h] * p.scale,
+                                acc[1][n][2 * h + 1] * p.scale);
+        float2 dv = make_float2(acc[0][n][2 * h], acc[0][n][2 * h + 1]);
+        float2* dkp = reinterpret_cast<float2*>(dkb + at + n * 8);
+        float2* dvp = reinterpret_cast<float2*>(dvb + at + n * 8);
+        if (stored) {
+          const float2 k2 = *dkp, v2 = *dvp;
+          dk.x += k2.x, dk.y += k2.y, dv.x += v2.x, dv.y += v2.y;
+        }
+        *dkp = dk;
+        *dvp = dv;
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[a][n][e] = 0.f;
+    stored = true;
+  };
+
+  // chains of CHAIN tiles, each closed at its end; with no tile at all
+  // (total 0) one empty chain stores the block's zero dK and dV
+  for (int ch = 0; ch == 0 || ch < total; ch += CHAIN) {
+    for (int it = ch; it < min(ch + CHAIN, total); ++it) {
+      const int buf = it & 1;
+      if (it + 1 < total) load_tile(it + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();  // tile it (and, at it 0, K and V) has landed
+      const size_t qrow0 = q_rows(it);
+      const int q0 = (qt0 + it % per_head) * BQ;
+      unsigned char* qt = qs + buf * L::QT;
+      unsigned char* dot = dos + buf * L::QT;
+      const float* dl = dls + buf * BQ;
+      // every warp reads all of the tile's Q and dO' rows, and (for dQ) all
+      // of K: split them once, for the block.  V is read by its own warp
+      // only, and split at each fragment load
+      if (it == 0) split_rows<D, RS, NTH>(ks, kls, MBK);
+      split_rows<D, RS, NTH>(qt, qls, BQ);
+      split_rows<D, RS, NTH>(dot, dols, BQ);
+      __syncthreads();  // the tiles' hi and lo are in place
+
+      // S^T = K.Q^T, dP^T = V.dO'^T: K's and V's A fragments, and x4
+      // ldmatrix of Q / dO' hi and lo (the B fragments of 2 n8 tiles)
+      float s[NQ][4], dp[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int st = 0; st < D / 8; ++st) {
+        uint32_t kh[4], kl[4], va[4], vh[4], vl[4];
+        const int arow =
+            (kg * 16 + (lane & 15)) * RS + st * 32 + (lane >> 4) * 16;
+        ldmatrix_x4(kh, ks + arow);
+        ldmatrix_x4(kl, kls + arow);
+        ldmatrix_x4(va, vs + arow);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split_tf32(__uint_as_float(va[i]), vh[i], vl[i]);
+#pragma unroll
+        for (int j = 0; j < NQ / 2; ++j) {
+          const int brow = (j * 16 + (lane & 7) + (lane >> 4) * 8) * RS +
+                           st * 32 + ((lane >> 3) & 1) * 16;
+          uint32_t bh[4], bl[4];
+          ldmatrix_x4(bh, qt + brow);
+          ldmatrix_x4(bl, qls + brow);
+          mma_tf32x3(s[2 * j], kh, kl, bh[0], bh[1], bl[0], bl[1]);
+          mma_tf32x3(s[2 * j + 1], kh, kl, bh[2], bh[3], bl[2], bl[3]);
+          ldmatrix_x4(bh, dot + brow);
+          ldmatrix_x4(bl, dols + brow);
+          mma_tf32x3(dp[2 * j], vh, vl, bh[0], bh[1], bl[0], bl[1]);
+          mma_tf32x3(dp[2 * j + 1], vh, vl, bh[2], bh[3], bl[2], bl[3]);
+        }
+      }
+
+      // e^T into s, dS^T into dp, in the C layout: entry (n, 2h + x) is key
+      // keys[h], query q0 + 8n + 2tq + x; the masks skipped on whole tiles,
+      // as in dkdv_mma_kernel
+      const bool whole = keys_whole && q0 + BQ <= p.seq_q &&
+                         (!p.causal || k0 + MBK - 1 <= q0 + diff);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int col = n * 8 + 2 * tq + x, qr = q0 + col;
+          const float dlt = dl[col];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float lg = s[n][2 * h + x] * p.c;
+            float e, ds;
+            if (whole) {
+              e = exp2f(lg);
+              ds = e * (dp[n][2 * h + x] - dlt);
+            } else {
+              bool keep = key_ok[h] && qr < p.seq_q;
+              if (p.causal) keep = keep && keys[h] <= qr + diff;
+              e = keep ? exp2f(lg) : 0.f;
+              ds = keep ? e * (dp[n][2 * h + x] - dlt) : 0.f;
+            }
+            s[n][2 * h + x] = e;
+            dp[n][2 * h + x] = ds;
+            // stage dS (queries x keys) for dQ = dS.K
+            dss[col * DSS + kg * 16 + g + 8 * h] = ds;
+          }
+        }
+
+      // dV += e^T.dO', then dK += dS^T.Q, e and dS in f32 (split hi / lo):
+      // their C fragments are the A fragments, dO' and Q rows read in the
+      // matching order
+      add_product_tf32x3<BQ, D, RF>(
+          acc[0], s, reinterpret_cast<const float*>(dot),
+          reinterpret_cast<const float*>(dols), lane);
+      add_product_tf32x3<BQ, D, RF>(
+          acc[1], dp, reinterpret_cast<const float*>(qt),
+          reinterpret_cast<const float*>(qls), lane);
+
+      // dQ rows of this tile += dS.K over the block's 64 keys: warp w takes
+      // query group w % QG and head-dim part w / QG.  A lane's float2 reads
+      // of dS rows g and g + 8 at keys 8kk + 2tq are dS's C fragment of
+      // that k8 step, fed to add_product_tf32x3 as an A fragment
+      __syncthreads();  // every warp's dS is staged
+      const int qg = warp % QG, dpart = warp / QG;
+      float* dqb = p.dq_acc + qrow0 * D;
+#pragma unroll
+      for (int hp = 0; hp < NH; ++hp) {
+        const int c0 = (dpart * NDQ + hp * NDH) * 8;  // the pass's columns
+        float dq[NDH][4];
+#pragma unroll
+        for (int n = 0; n < NDH; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < MBK / 8; ++kk) {
+          const float* row = dss + (qg * 16 + g) * DSS + kk * 8 + 2 * tq;
+          const float2 r0 = *reinterpret_cast<const float2*>(row);
+          const float2 r8 = *reinterpret_cast<const float2*>(row + 8 * DSS);
+          const float cf[1][4] = {{r0.x, r0.y, r8.x, r8.y}};
+          const int at = kk * 8 * RF + c0;
+          add_product_tf32x3<8, NDH * 8, RF>(dq, cf, kf + at, klf + at, lane);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = q0 + qg * 16 + g + 8 * h;
+          if (row >= p.seq_q) continue;
+#pragma unroll
+          for (int n = 0; n < NDH; ++n)
+            atomicAdd(reinterpret_cast<float2*>(
+                          dqb + size_t(row) * D + c0 + n * 8 + 2 * tq),
+                      make_float2(dq[n][2 * h], dq[n][2 * h + 1]));
+        }
+      }
+      __syncthreads();  // the next tile's loads, splits and dS may overwrite
+    }
+    close_chain();
+  }
+  cp_async_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
 // Tensor-core dQ / dB kernel (bf16): K3a.  Grid (query tiles, H, B), query
 // tiles heaviest first; DQ_NT threads, warp w owning queries q0 + 16w ..
 
@@ -915,22 +1218,22 @@ __global__ void __launch_bounds__(DQ_NT, 1) dq_mma_kernel(Params p) {
       p.seq_k % 4 == 0 && reinterpret_cast<uintptr_t>(p.bias) % 16 == 0;
   auto load_kv = [&](int kt, int buf) {
     const int k0 = kt * BK;
-    load_bf16_rows<D, RS, DQ_NT>(ks + buf * L::KT,
-                                 static_cast<const T*>(p.k) + kvrow0 * D, k0,
-                                 BK, p.seq_k);
-    load_bf16_rows<D, RS, DQ_NT>(vs + buf * L::KT,
-                                 static_cast<const T*>(p.v) + kvrow0 * D, k0,
-                                 BK, p.seq_k);
+    load_rows<2 * D, RS, DQ_NT>(ks + buf * L::KT,
+                                static_cast<const T*>(p.k) + kvrow0 * D, k0,
+                                BK, p.seq_k);
+    load_rows<2 * D, RS, DQ_NT>(vs + buf * L::KT,
+                                static_cast<const T*>(p.v) + kvrow0 * D, k0,
+                                BK, p.seq_k);
     if (bb != nullptr)
       load_bias_tile<DQ_NT>(bss + buf * DQ_BQ * BS,
                             bb + size_t(q0) * p.seq_k + k0, DQ_BQ, BK,
                             p.seq_q - q0, p.seq_k - k0, p.seq_k, BS, bias16);
   };
   if (nk > 0) {
-    load_bf16_rows<D, RS, DQ_NT>(qs, static_cast<const T*>(p.q) + qrow0 * D,
-                                 q0, DQ_BQ, p.seq_q);
-    load_bf16_rows<D, RS, DQ_NT>(dos, static_cast<const T*>(p.dO) + qrow0 * D,
-                                 q0, DQ_BQ, p.seq_q);
+    load_rows<2 * D, RS, DQ_NT>(qs, static_cast<const T*>(p.q) + qrow0 * D,
+                                q0, DQ_BQ, p.seq_q);
+    load_rows<2 * D, RS, DQ_NT>(dos, static_cast<const T*>(p.dO) + qrow0 * D,
+                                q0, DQ_BQ, p.seq_q);
     load_kv(0, 0);
   }
   cp_async_commit();
@@ -2008,9 +2311,20 @@ cudaError_t run(Which which, const Params& p, int B, cudaStream_t s) {
       return launch(dq_kernel<T, D>, dim3((p.seq_q + F::B - 1) / F::B, p.H, B),
                     NT, F::SMEM, s, p);
     const dim3 kgrid((p.seq_k + F::B - 1) / F::B, p.KVH, B);
-    return which == ONEPASS
-               ? launch(dkdv_kernel<T, D, true>, kgrid, NT, F::SMEM, s, p)
-               : launch(dkdv_kernel<T, D, false>, kgrid, NT, F::SMEM, s, p);
+    if (which == DKDV)
+      return launch(dkdv_kernel<T, D, false>, kgrid, NT, F::SMEM, s, p);
+    if constexpr (D <= 128) {  // K2 on the tensor cores (3xTF32)
+      for (const void* t : {p.q, p.k, p.v, p.dO})
+        if (reinterpret_cast<uintptr_t>(t) % 16 != 0)
+          return cudaErrorMisalignedAddress;
+      using L = Tf32Layout<D>;
+      // key tiles slowest, so the causal blocks with the most work go first
+      return launch(dkdv_tf32_kernel<D>,
+                    dim3(p.KVH, B, (p.seq_k + MBK - 1) / MBK), L::NT, L::SMEM,
+                    s, p);
+    } else {
+      return launch(dkdv_kernel<T, D, true>, kgrid, NT, F::SMEM, s, p);
+    }
   }
 }
 
@@ -2088,9 +2402,11 @@ int dispatch(Which which, Params p, int dtype, int B, int d, void* stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the dq/dk/dv outputs
-// share it).  All tensors contiguous, shapes as in Params; mask uint8 or
-// null, bias f32 or null.  Each returns the cudaGetLastError() after its
-// launch (0 = success).
+// share it).  bfloat16 runs on the tensor cores; float32 K2 on them as
+// 3xTF32 up to d 128, and on FMAs elsewhere (K3a, K3b, and d past 128).
+// All tensors contiguous, shapes as in Params; mask uint8 or null, bias
+// f32 or null.  Each returns the cudaGetLastError() after its launch (0 =
+// success).
 
 // K2: dk, dv in the input dtype (dk scaled); dq_acc (B, H, seq_q, d) f32,
 // zeroed by the caller, receives the unscaled sum of dS . k.

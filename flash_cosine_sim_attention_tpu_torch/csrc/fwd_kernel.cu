@@ -14,7 +14,9 @@
 //
 // Bound on the H100: at the serving shapes (b1 h8 s1024 d64 causal bf16)
 // the work is ~1.07 GFLOP over ~4.2 MB, far above the card's ~295 FLOP/B
-// ridge, so the bound is the tensor-core rate (~1.1 us).
+// ridge, so the bound is the tensor-core rate (~1.1 us).  In float32 the
+// 3xTF32 instance does three times the operations at the TF32 rate (495
+// TFLOP/s): ~6.5 us, against ~2.5 us for its 8.4 MB.
 //
 // bfloat16 q/k/v, and int8 q/k codes with bfloat16 v, run on the tensor
 // cores (`fwd_mma_kernel`), in the FlashAttention-2 shape: one 128-thread
@@ -37,13 +39,35 @@
 // so Q's A fragments (another D / 4) are not kept: they are read again
 // from the resident Q tile by ldmatrix at every key tile.
 //
-// float32 q/k/v, and int8 codes with float32 v (parity runs at a 1e-4 bar,
-// which bf16 tensor cores cannot meet without a split product), keep the
-// f32 FMA kernel `fwd_kernel`: the same block shape, both products as f32
-// FMAs out of shared memory (the int8 codes by `__dp4a`), the P tile kept
-// in float32 in shared memory.  Its tiles stay 64 x 64 at every width:
-// at d 256 the f32 Q, K, V and P tiles take 213,760 bytes of the 232,448 a
-// block may have.
+// float32 q/k/v up to d 128 run on the tensor cores as 3xTF32 split
+// products (`fwd_tf32_kernel`): every operand x is split into two tf32
+// values, hi = rn(x) and lo = rn(x - hi) (cvt.rn.tf32.f32, which keeps a
+// NaN a NaN), and each product is lo.hi + hi.lo + hi.hi by mma.sync
+// m16n8k8 into f32 (lo.lo dropped), which holds the f32 parity bar of
+// 1e-4.  The TPU kernel splits into bf16 hi / lo instead (Mosaic has no
+// TF32 tier); at 8 l2norm groups and scale 8 that split misses the bar
+// (1.7e-4 on o), TF32's 11 significant bits a part do not.  The FA2 block
+// shape of fwd_mma_kernel; K and V tiles (32 keys above d 96) arrive as
+// f32 by cp.async and are split once for the block after they land (hi in
+// place, lo beside them), since every warp reads all of them; Q's hi / lo
+// fragments stay in registers up to d 64 and are split once into a
+// resident lo tile above.  P stays f32 (the bf16 arm rounds it to bf16)
+// and is split in registers: the C fragment of S holds keys 2q and 2q +
+// 1, which serve as the tf32 A fragment's k indices q and q + 4 when V's
+// rows are read in that order (add_product_tf32x3), so P never touches
+// shared memory.  The masks, e, l and inv_l are the bf16 instance's.  The
+// tensor cores round each f32 sum toward zero, and a chain of them on one
+// accumulator drifts with its length (past the 1e-4 bar over 8192 keys
+// whose values' mean is far from 0): every 256 keys O's chain is closed
+// into a running sum in shared memory, added to nearest.  Shared memory
+// 135 KB at d 64, 224 KB at d 96, 197 KB at d 128.
+// float32 at d 192 and 256 (3xTF32 tiles of this shape would take 240 KB
+// and more), and int8 codes with float32 v, keep the f32 FMA kernel
+// `fwd_kernel`: the same block shape, both products as f32 FMAs out of
+// shared memory (the int8 codes by `__dp4a`), the P tile kept in float32
+// in shared memory.  Its tiles stay 64 x 64 at every width: at d 256 the
+// f32 Q, K, V and P tiles take 213,760 bytes of the 232,448 a block may
+// have.
 //
 // Past d 256 (the wide route) a warp's O accumulators no longer fit, so
 // the output columns become a grid axis: the wrapper pads d to a multiple
@@ -148,21 +172,9 @@ __global__ void __launch_bounds__(NT, 1) fwd_mma_kernel(
   const int kend = causal ? max(0, min(seq_k, last_row + diff + 1)) : seq_k;
   const int nk = (kend + BK - 1) / BK;
 
-  // `nrows` rows of `bytes` from global rows [first, first + nrows) of
-  // `src` (rows past `limit` as zeros) to shared memory rows `stride` apart
-  auto load_rows = [&](unsigned char* dst, const unsigned char* src, int first,
-                       int nrows, int limit, int bytes, int stride) {
-    const int chunks = bytes / 16;
-    for (int idx = tid; idx < nrows * chunks; idx += NT) {
-      const int r = idx / chunks, cc = (idx % chunks) * 16, row = first + r;
-      const bool in = row < limit;
-      cp_async16(dst + r * stride + cc,
-                 in ? src + size_t(row) * bytes + cc : src, in ? 16 : 0);
-    }
-  };
   auto load_kv = [&](int buf, int k0) {
-    load_rows(ks + buf * BK * QS, kb, k0, BK, seq_k, QB, QS);
-    load_rows(vs + buf * BK * VS, vb, k0, BK, seq_k, 2 * D, VS);
+    load_rows<QB, QS, NT>(ks + buf * BK * QS, kb, k0, BK, seq_k);
+    load_rows<2 * D, VS, NT>(vs + buf * BK * VS, vb, k0, BK, seq_k);
   };
 
   if constexpr (L::QBP > QB) {  // int8 d 16: zero the k step's second half
@@ -170,7 +182,7 @@ __global__ void __launch_bounds__(NT, 1) fwd_mma_kernel(
       *reinterpret_cast<uint4*>(smem + r * QS + QB) = make_uint4(0, 0, 0, 0);
   }
   if (nk > 0) {
-    load_rows(qs, qb, q0, BQ, seq_q, QB, QS);
+    load_rows<QB, QS, NT>(qs, qb, q0, BQ, seq_q);
     load_kv(0, 0);
   }
   cp_async_commit();
@@ -326,6 +338,241 @@ __global__ void __launch_bounds__(NT, 1) fwd_mma_kernel(
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<uint32_t*>(ob + size_t(row) * D + n * 8 + 2 * tq) =
           pack_bf16(oacc[n][2 * h] * inv, oacc[n][2 * h + 1] * inv);
+    if (tq == 0) lb[row] = inv;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core f32 kernel: float32 q/k/v at d <= 128, every product as three
+// tf32 mma.sync passes (3xTF32).  Block shape and key loop as
+// fwd_mma_kernel's; key tiles of 32 above d 96 (shared memory).
+
+template <int D>
+struct Tf32Layout {
+  static constexpr int BKT = D <= 96 ? 64 : 32;  // keys a tile
+  static constexpr bool QREG = D <= 64;  // Q's hi / lo fragments in registers
+  // f32 rows of D + 4 floats, (4D + 16) bytes: an odd count of 16-byte
+  // units, so the 8 rows an ldmatrix reads hit 8 distinct banks, and 2
+  // rows 8 banks apart for add_product_tf32x3's reads of V
+  static constexpr int RF = D + 4;
+  static constexpr int RS = 4 * RF;
+  // the Q tile (and, past QREG, its lo), two K and two V tiles (each split
+  // in place into its hi), the current K and V tiles' lo; O's running sum
+  // (fwd_tf32_kernel's closed chains), each thread's D / 2 words
+  static constexpr size_t SMEM = size_t(QREG ? 1 : 2) * BQ * RS +
+                                 6 * size_t(BKT) * RS + size_t(NT) * D / 2 * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1) fwd_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const uint8_t* __restrict__ mask,
+    const float* __restrict__ bias, float* __restrict__ o,
+    float* __restrict__ inv_l, int H, int KVH, int seq_q, int seq_k,
+    int causal, int bias_batch_dim, float c) {
+  using L = Tf32Layout<D>;
+  constexpr int RS = L::RS, RF = L::RF, BKT = L::BKT;
+  constexpr bool QREG = L::QREG;
+  constexpr int KSTEPS = D / 8;   // 32-byte k steps of S = Q.K^T
+  constexpr int NS = BKT / 8;     // n8 tiles of S
+  constexpr int NO = D / 8;       // n8 tiles of O
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* qs = smem;                           // BQ x RS
+  unsigned char* qlo = qs + BQ * RS;                  // past QREG: BQ x RS
+  unsigned char* ks = qs + (QREG ? 1 : 2) * BQ * RS;  // 2 x BKT x RS
+  unsigned char* vs = ks + 2 * BKT * RS;              // 2 x BKT x RS
+  unsigned char* klo = vs + 2 * BKT * RS;             // BKT x RS
+  unsigned char* vlo = klo + BKT * RS;                // BKT x RS
+  float* osum = reinterpret_cast<float*>(vlo + BKT * RS);  // D / 2 x NT
+
+  const int bi = blockIdx.z, hi = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
+  const int kvhi = hi / (H / KVH);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int diff = seq_k - seq_q;
+
+  const float* qb = q + (size_t(bi) * H + hi) * seq_q * D;
+  const float* kb = k + (size_t(bi) * KVH + kvhi) * seq_k * D;
+  const float* vb = v + (size_t(bi) * KVH + kvhi) * seq_k * D;
+  const uint8_t* mb = mask ? mask + size_t(bi) * seq_k : nullptr;
+  const float* bb =
+      bias ? bias + size_t(bias_batch_dim ? bi : hi) * seq_q * seq_k : nullptr;
+
+  // keys this block can see: all, or (causal) up to its last row's diagonal
+  const int last_row = min(q0 + BQ, seq_q) - 1;
+  const int kend = causal ? max(0, min(seq_k, last_row + diff + 1)) : seq_k;
+  const int nk = (kend + BKT - 1) / BKT;
+
+  auto load_kv = [&](int buf, int k0) {
+    load_rows<4 * D, RS, NT>(ks + buf * BKT * RS, kb, k0, BKT, seq_k);
+    load_rows<4 * D, RS, NT>(vs + buf * BKT * RS, vb, k0, BKT, seq_k);
+  };
+  if (nk > 0) {
+    load_rows<4 * D, RS, NT>(qs, qb, q0, BQ, seq_q);
+    load_kv(0, 0);
+  }
+  cp_async_commit();
+
+  uint32_t qh[QREG ? KSTEPS : 1][4], ql[QREG ? KSTEPS : 1][4];
+  float oacc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  float lsum[2] = {0.f, 0.f};
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const int qrow = (warp * 16 + (lane & 15)) * RS + (lane >> 4) * 16;
+
+  // O sums every visible key, each mma rounding its sum toward zero.
+  // Every CHAIN tiles (256 keys) the chain is closed: oacc is added, to
+  // nearest, into O's running sum in shared memory (the thread's own
+  // words, word i at osum[i * NT + tid]) and restarts from 0
+  constexpr int CHAIN = 256 / BKT;
+  bool summed = false;
+  auto close_chain = [&]() {
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float* w = osum + (n * 4 + e) * NT + tid;
+        *w = summed ? *w + oacc[n][e] : oacc[n][e];
+        oacc[n][e] = 0.f;
+      }
+    summed = true;
+  };
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BKT;
+    if (kt + 1 < nk) load_kv((kt + 1) & 1, k0 + BKT);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile kt (and, at kt 0, the q tile) has landed
+    unsigned char* kt_s = ks + (kt & 1) * BKT * RS;
+    unsigned char* vt_s = vs + (kt & 1) * BKT * RS;
+    // every warp reads all of K and V: split them once, for the block
+    split_rows<D, RS, NT>(kt_s, klo, BKT);
+    split_rows<D, RS, NT>(vt_s, vlo, BKT);
+    if (kt == 0) {
+      if constexpr (QREG) {  // a warp's own Q rows, split in registers
+#pragma unroll
+        for (int st = 0; st < KSTEPS; ++st) {
+          uint32_t a[4];
+          ldmatrix_x4(a, qs + qrow + st * 32);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            split_tf32(__uint_as_float(a[i]), qh[st][i], ql[st][i]);
+        }
+      } else {
+        split_rows<D, RS, NT>(qs, qlo, BQ);
+      }
+    }
+    __syncthreads();  // the tiles' hi and lo are in place
+
+    // S = Q.K^T: x4 ldmatrix of K's hi and lo give the B fragments of 2 n8
+    // tiles.  hi.hi sums into s, the small terms lo.hi + hi.lo into sl: the
+    // tensor cores round each sum toward zero, and s chains a third as many
+    // of them (at 8 groups and scale 8 this brings inv_l's distance from
+    // exact products down to float32's own)
+    float s[NS][4], sl[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = sl[n][e] = 0.f;
+#pragma unroll
+    for (int st = 0; st < KSTEPS; ++st) {
+      uint32_t ah[4], al[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ah[i] = qh[st][i];
+          al[i] = ql[st][i];
+        }
+      } else {
+        ldmatrix_x4(ah, qs + qrow + st * 32);
+        ldmatrix_x4(al, qlo + qrow + st * 32);
+      }
+#pragma unroll
+      for (int j = 0; j < NS / 2; ++j) {
+        const int brow = (j * 16 + (lane & 7) + (lane >> 4) * 8) * RS +
+                         st * 32 + ((lane >> 3) & 1) * 16;
+        uint32_t bh[4], bl[4];
+        ldmatrix_x4(bh, kt_s + brow);
+        ldmatrix_x4(bl, klo + brow);
+        mma_tf32(sl[2 * j], al, bh[0], bh[1]);
+        mma_tf32(sl[2 * j], ah, bl[0], bl[1]);
+        mma_tf32(s[2 * j], ah, bh[0], bh[1]);
+        mma_tf32(sl[2 * j + 1], al, bh[2], bh[3]);
+        mma_tf32(sl[2 * j + 1], ah, bl[2], bl[3]);
+        mma_tf32(s[2 * j + 1], ah, bh[2], bh[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] += sl[n][e];
+
+    // e = exp2(s * c + bias * log2e), masked to 0, as in fwd_mma_kernel
+    const bool whole = mb == nullptr && bb == nullptr && k0 + BKT <= seq_k &&
+                       (!causal || k0 + BKT - 1 <= q0 + diff);
+    if (whole) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = exp2f(s[n][e] * c);
+          lsum[e >> 1] += s[n][e];
+        }
+    } else {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int row = rows[h], col = k0 + n * 8 + 2 * tq + x;
+            bool keep = row < seq_q && col < seq_k;
+            if (causal) keep = keep && col <= row + diff;
+            if (mb != nullptr) keep = keep && mb[col] != 0;
+            float lg = s[n][2 * h + x] * c;
+            if (bb != nullptr && keep) lg += bb[size_t(row) * seq_k + col] * LOG2E;
+            const float e = keep ? exp2f(lg) : 0.f;
+            lsum[h] += e;
+            s[n][2 * h + x] = e;
+          }
+    }
+
+    // O += P.V with P in f32 (split hi / lo like any operand): S's C
+    // fragments are P's A fragments, V's rows read in the same order
+    add_product_tf32x3<BKT, D, RF>(oacc, s, reinterpret_cast<const float*>(vt_s),
+                                   reinterpret_cast<const float*>(vlo), lane);
+    __syncthreads();  // the next tile's loads and splits may overwrite these
+    if ((kt + 1) % CHAIN == 0 && kt + 1 < nk) close_chain();
+  }
+  if (summed) {
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[n][e] += osum[(n * 4 + e) * NT + tid];
+  }
+
+  // a row's sum is spread over the 4 lanes of a quad
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 1);
+    lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 2);
+  }
+  float* ob = o + (size_t(bi) * H + hi) * seq_q * D;
+  float* lb = inv_l + (size_t(bi) * H + hi) * seq_q;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = rows[h];
+    if (row >= seq_q) continue;
+    const float inv = 1.f / fmaxf(lsum[h], EPS);
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<float2*>(ob + size_t(row) * D + n * 8 + 2 * tq) =
+          make_float2(oacc[n][2 * h] * inv, oacc[n][2 * h + 1] * inv);
     if (tq == 0) lb[row] = inv;
   }
 }
@@ -960,6 +1207,25 @@ cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_tf32(const Args& a, cudaStream_t stream) {
+  // 16-byte copies: every row is a 16-byte multiple, so aligned bases do
+  for (const void* p : {a.q, a.k, a.v})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;
+  constexpr size_t smem = Tf32Layout<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.seq_q + BQ - 1) / BQ, a.H, a.B);
+  fwd_tf32_kernel<D><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.mask, a.bias,
+      static_cast<float*>(a.o), a.inv_l, a.H, a.KVH, a.seq_q, a.seq_k,
+      a.causal, a.bias_batch_dim, a.c);
+  return cudaGetLastError();
+}
+
 template <typename TQ, int D>
 cudaError_t launch_fma(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<TQ, D>();
@@ -1031,12 +1297,29 @@ cudaError_t dispatch_d(int d, const Args& a, cudaStream_t s) {
   }
 }
 
+// float32 q/k/v: 3xTF32 on the tensor cores up to d 128, the FMA kernel at
+// 192 and 256 (its f32 tiles would take 240 KB and more of shared memory)
+cudaError_t dispatch_f32(int d, const Args& a, cudaStream_t s) {
+  switch (d) {
+    case 16: return launch_tf32<16>(a, s);
+    case 32: return launch_tf32<32>(a, s);
+    case 64: return launch_tf32<64>(a, s);
+    case 96: return launch_tf32<96>(a, s);
+    case 128: return launch_tf32<128>(a, s);
+    case 192: return launch_fma<float, 192>(a, s);
+    case 256: return launch_fma<float, 256>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); 2 = int8 q/k
 // codes with float32 v and o; 3 = int8 q/k codes with bfloat16 v and o.
-// 1 and 3 run on the tensor cores, 0 and 2 on the FMA kernel, at every
-// width; d past 256 (a multiple of 128) takes the wide route.
+// 1 and 3 run on the tensor cores at every width; 0 on the tensor cores as
+// 3xTF32 up to d 128 and on the FMA kernel at 192 and 256; 2 on the FMA
+// kernel.  d past 256 (a multiple of 128) takes the wide route, on the
+// tensor cores for 1 and 3 and on FMAs for 0 and 2.
 // All tensors contiguous: q/o (B, H, seq_q, d), k/v (B, KVH, seq_k, d),
 // mask (B, seq_k) uint8 or null, bias (B|H, seq_q, seq_k) f32 or null,
 // inv_l (B, H, seq_q) f32.  The logits are scale * s_dequant * q.k (int8
@@ -1068,7 +1351,7 @@ extern "C" int fcsa_fwd(const void* q, const void* k, const void* v,
     }
   }
   switch (dtype) {
-    case 0: err = dispatch_d<float, false>(d, a, s); break;
+    case 0: err = dispatch_f32(d, a, s); break;
     case 1: err = dispatch_d<__nv_bfloat16, true>(d, a, s); break;
     case 2: err = dispatch_d<int8_t, false>(d, a, s); break;
     case 3: err = dispatch_d<int8_t, true>(d, a, s); break;

@@ -21,6 +21,14 @@ and past 256 to the next multiple of 128 for the wide route
 (``kernel_head_dim``); its gradients are sliced back.
 ``_backward_onepass`` and ``_backward_twopass`` pin one route each on
 CUDA tensors, as ``blocks_f`` / ``blocks_t`` pin them in the JAX tests.
+
+Which instance runs: bfloat16 on the tensor cores for K2, K3a and K3b at
+every width.  float32 K2 on the tensor cores up to head width 128
+(``dkdv_tf32_kernel``), every product as three TF32 products of a hi / lo
+split of each operand (``ops.mxu.dot_tf32x3`` is its plain version);
+float32 K3a and K3b, and K2 at 192 and 256, on FMAs; past 256 the wide
+route.  A call whose kernel fails to build or launch raises: nothing falls
+back to another instance.
 """
 
 from __future__ import annotations
@@ -45,10 +53,13 @@ def _prescale(do, o, inv_l):
 
 
 def flash_attention_backward_plain(do, o, inv_l, q, k, v, mask, bias, *,
-                                   bias_batch_dim, scale, causal):
+                                   bias_batch_dim, scale, causal, mm=None):
     """Plain PyTorch version of the backward kernels (float32 sums):
-    recompute e, then dP', dS, the five products and dB."""
+    recompute e, then dP', dS, the five products and dB.  ``mm`` forms
+    the products (default ``torch.matmul``, exact float32;
+    ``ops.mxu.dot_tf32x3`` is the float32 K2's split)."""
     _check_shapes(q, k, v, mask, bias, bias_batch_dim)
+    mm = torch.matmul if mm is None else mm
     b, h, seq_q, d = q.shape
     kvh, seq_k = k.shape[1], k.shape[2]
     group = h // kvh
@@ -58,11 +69,11 @@ def flash_attention_backward_plain(do, o, inv_l, q, k, v, mask, bias, *,
     if group > 1:
         kf = kf.repeat_interleave(group, dim=1)
         vf = vf.repeat_interleave(group, dim=1)
-    s = qf @ kf.transpose(-1, -2) * scale
+    s = mm(qf, kf.transpose(-1, -2)) * scale
     if bias is not None:
         s = s + (bias[:, None] if bias_batch_dim else bias[None]).float()
     e = torch.exp(s)
-    ds = e * (do_s @ vf.transpose(-1, -2) - delta_s)
+    ds = e * (mm(do_s, vf.transpose(-1, -2)) - delta_s)
     keep = None
     if causal:
         keep = causal_keep(seq_q, seq_k, q.device)[None, None]
@@ -72,9 +83,9 @@ def flash_attention_backward_plain(do, o, inv_l, q, k, v, mask, bias, *,
     if keep is not None:
         zero = torch.zeros((), device=e.device)
         e, ds = torch.where(keep, e, zero), torch.where(keep, ds, zero)
-    dv = e.transpose(-1, -2) @ do_s
-    dk = ds.transpose(-1, -2) @ qf * scale
-    dq = ds @ kf * scale
+    dv = mm(e.transpose(-1, -2), do_s)
+    dk = mm(ds.transpose(-1, -2), qf) * scale
+    dq = mm(ds, kf) * scale
     if group > 1:
         dk = dk.view(b, kvh, group, seq_k, d).sum(2)
         dv = dv.view(b, kvh, group, seq_k, d).sum(2)

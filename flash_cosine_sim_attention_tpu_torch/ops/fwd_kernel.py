@@ -12,6 +12,16 @@ and inv_l = 1e10.
 The int8 arm (JAX's int8 q/k path): q and k arrive as int8 codes, v in
 float32 or bfloat16; the logits are scale * s_dequant * (exact integer
 q.k), and o comes out in v's dtype.
+
+Which instance runs: bfloat16 q/k/v, and int8 codes with bfloat16 v, on
+the tensor cores at every width.  float32 q/k/v on the tensor cores up to
+head width 128 (``fwd_tf32_kernel``), every product as three TF32 products
+of a hi / lo split of each operand (``ops.mxu.dot_tf32x3`` is its plain
+version; JAX's bfloat16 split, ``dot_f32x3``, misses the float32 bar of
+1e-4 at 8 l2norm groups and scale 8, TF32's does not); at 192 and 256, and
+int8 codes with float32 v, on FMAs; past 256 the wide route.  A float32
+call whose kernel fails to build or launch raises: nothing falls back to
+another instance.
 """
 
 from __future__ import annotations
@@ -49,16 +59,19 @@ def _check_shapes(q, k, v, mask, bias, bias_batch_dim):
 
 
 def flash_attention_forward_plain(q, k, v, mask, bias, *, bias_batch_dim,
-                                  scale, causal, s_dequant=1.0):
+                                  scale, causal, s_dequant=1.0, mm=None):
     """Plain PyTorch version of the forward kernel (float32 sums; int8
-    codes multiply exactly in f32, every partial sum being below 2^24)."""
+    codes multiply exactly in f32, every partial sum being below 2^24).
+    ``mm`` forms its two products (default ``torch.matmul``, exact float32;
+    ``ops.mxu.dot_tf32x3`` is the float32 kernel's split)."""
     _check_shapes(q, k, v, mask, bias, bias_batch_dim)
+    mm = torch.matmul if mm is None else mm
     h, kvh = q.shape[1], k.shape[1]
     kf, vf = k.float(), v.float()
     if kvh != h:
         kf = kf.repeat_interleave(h // kvh, dim=1)
         vf = vf.repeat_interleave(h // kvh, dim=1)
-    s = q.float() @ kf.transpose(-1, -2) * (scale * s_dequant)
+    s = mm(q.float(), kf.transpose(-1, -2)) * (scale * s_dequant)
     if bias is not None:
         s = s + (bias[:, None] if bias_batch_dim else bias[None]).float()
     e = torch.exp(s)
@@ -71,7 +84,7 @@ def flash_attention_forward_plain(q, k, v, mask, bias, *, bias_batch_dim,
     if keep is not None:
         e = torch.where(keep, e, torch.zeros((), device=e.device))
     inv_l = 1.0 / e.sum(-1, keepdim=True).clamp_min(EPS)
-    o = (e @ vf) * inv_l
+    o = mm(e, vf) * inv_l
     return o.to(v.dtype), inv_l
 
 

@@ -5,7 +5,9 @@ JAX package, so it also runs where flax is not installed:
 
     python -m pytest tests/test_torch_kernels.py -q -m cuda
 
-Tolerances: float32 1e-4 (same maths, other sum order, no TF32); bf16
+Tolerances: float32 1e-4 (same maths, other sum order; K1 and K2 in
+float32 up to d 128 form each product as three TF32 products of a hi /
+lo split of its operands, 3xTF32, good to ~2^-21 of each); bf16
 outputs 2e-2 (a few bf16 ulps at |o| <= 2); inv_l 1e-5 relative; the
 contiguous decode kernel 2e-3 on f32 output; the int8-weight matmul
 1e-4 (f32) and 2e-2 (bf16) of max(1, max|y|).  The
@@ -444,6 +446,10 @@ BWD_CASES = {
     # multiple of its 64 keys, seq_q past seq_k
     "causal-1024-d128-gqa-8-2": (1, 8, 2, 1024, 1024, 128, True, None, None),
     "causal-ragged-k-d64": (2, 2, 2, 190, 190, 64, True, None, None),
+    # the longest float32 one-pass chains: dK and dV sum G x seq_q queries
+    # (seq_q up to ONEPASS_BWD_MAX_SEQ), 8192 both ways
+    "causal-8192-d64": (1, 2, 2, 8192, 8192, 64, True, None, None),
+    "causal-1024-d64-gqa-8-1": (1, 8, 1, 1024, 1024, 64, True, None, None),
     "causal-q-past-k-d64": (1, 2, 2, 200, 100, 64, True, None, None),
     # the tensor-core dQ kernel's edges: seq_k odd (dB by single adds, the
     # bias staged 4 bytes at a time) and a bias past a causal seq_q < seq_k
@@ -1047,3 +1053,160 @@ def test_long_queries_take_the_two_pass_kernels(cuda_device):
     assert got[3] is None
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
         assert _grad_err(x, y, torch.float32) <= GRAD_BARS[torch.float32], name
+
+
+def _kernel_names(work):
+    """The CUDA kernels one call of ``work`` launched, as the profiler
+    names them (after a first call that builds and loads)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    work()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        work()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64, 128, 192])
+def test_float32_runs_the_tf32_instances_up_to_d128(cuda_device, d):
+    """float32 K1 and the one-pass K2 run their 3xTF32 tensor-core
+    instances (fwd_tf32_kernel<D>, dkdv_tf32_kernel<D>) up to d 128 and
+    their FMA instances at d 192; the float32 two-pass route (K3a, K3b)
+    stays FMA at every width, as the profiler names them."""
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=cuda_device, generator=g)
+
+    q, k = l2norm_tensors(randn(1, 2, 130, d), randn(1, 2, 130, d))
+    v = randn(1, 2, 130, d)
+    bias = 0.5 * randn(2, 130, 130)
+    kw = dict(bias_batch_dim=False, scale=8.0, causal=True)
+    o, inv_l = flash_attention_forward_plain(q, k, v, None, None, **kw)
+    do = randn(*o.shape)
+
+    def work():
+        flash_attention_forward(q, k, v, None, None, **kw)
+        bwd_kernel._backward_onepass(do, o, inv_l, q, k, v, None,
+                                     scale=8.0, causal=True)
+        bwd_kernel._backward_twopass(do, o, inv_l, q, k, v, None, bias, **kw)
+
+    keys = _kernel_names(work)
+    if d <= 128:
+        want = [f"fwd_tf32_kernel<{d}>", f"dkdv_tf32_kernel<{d}>"]
+        assert not any("fwd_kernel<" in key
+                       or f"dkdv_kernel<float, {d}, true>" in key
+                       for key in keys), keys
+    else:
+        want = [f"fwd_kernel<float, {d}>", f"dkdv_kernel<float, {d}, true>"]
+        assert not any("tf32" in key for key in keys), keys
+    want += [f"dq_kernel<float, {d}>", f"dkdv_kernel<float, {d}, false>"]
+    for name in want:
+        assert any(name in key for key in keys), (name, keys)
+    assert not any("mma_kernel" in key for key in keys), keys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_float32_kernels_at_8_groups_and_scale_8(cuda_device, d):
+    """8 l2norm groups at scale 8: a logit reaches 64, where JAX's bf16
+    split of a float32 product misses the 1e-4 bar on o.  K1 and K2 in
+    float32 (3xTF32) hold o and the gradients at the float32 bars against
+    the plain versions, and inv_l at 1e-5 relative against the plain
+    forward with exact products (float64, rounded to float32), or at
+    twice the float32 plain version's own distance from it where that is
+    larger: float32's rounding of a logit near 64 moves inv_l by ~1e-5."""
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=cuda_device, generator=g)
+
+    def exact_mm(a, b):
+        return (a.double() @ b.double()).float()
+
+    def rel(x, y):
+        return ((x - y) / y).abs().max().item()
+
+    q, k = l2norm_tensors(randn(1, 8, 1024, d), randn(1, 8, 1024, d),
+                          groups=8)
+    v = randn(1, 8, 1024, d)
+    kw = dict(bias_batch_dim=False, scale=8.0, causal=True)
+    o, inv_l = flash_attention_forward(q, k, v, None, None, **kw)
+    o_p, inv_p = flash_attention_forward_plain(q, k, v, None, None, **kw)
+    _, inv_x = flash_attention_forward_plain(q, k, v, None, None,
+                                             mm=exact_mm, **kw)
+    torch.cuda.synchronize()
+    assert (o - o_p).abs().max().item() <= BARS[torch.float32]
+    assert rel(inv_l, inv_x) <= max(1e-5, 2 * rel(inv_p, inv_x))
+    do = randn(*o.shape)
+    args = (do, o_p, inv_p, q, k, v, None, None)
+    got = bwd_kernel._backward_onepass(*args[:7], scale=8.0, causal=True)
+    want = flash_attention_backward_plain(*args, **kw)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        err = _grad_err(x, y, torch.float32)
+        assert err <= GRAD_BARS[torch.float32], (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_float32_kernels_keep_card_nans(cuda_device, d):
+    """A NaN made on the card (0/0 gives 0x7FFFFFFF there) in q and in v
+    leaves K1's o and K2's dq, dk, dv NaN exactly where the plain
+    versions' are: the tensor-core instances' split into TF32 keeps it a
+    NaN (rounding it as a finite word would carry it into -0)."""
+    g = torch.Generator(device=cuda_device).manual_seed(16)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=cuda_device, generator=g)
+
+    q, k = l2norm_tensors(randn(1, 2, 200, d), randn(1, 2, 200, d))
+    v = randn(1, 2, 200, d)
+    nan = torch.zeros(1, device=cuda_device) / 0
+    q[0, 0, 5, :] = nan
+    v[0, 1, 7, 3] = nan
+    kw = dict(bias_batch_dim=False, scale=8.0, causal=False)
+    o, _ = flash_attention_forward(q, k, v, None, None, **kw)
+    o_p, inv_p = flash_attention_forward_plain(q, k, v, None, None, **kw)
+    assert o_p.isnan().any() and not o_p.isnan().all()
+    assert torch.equal(o.isnan(), o_p.isnan())
+    do = randn(*o.shape)
+    got = bwd_kernel._backward_onepass(do, o_p, inv_p, q, k, v, None,
+                                       scale=8.0, causal=False)
+    want = flash_attention_backward_plain(do, o_p, inv_p, q, k, v, None,
+                                          None, **kw)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert y.isnan().any(), name
+        assert torch.equal(x.isnan(), y.isnan()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_float32_long_chains_with_offset_values(cuda_device, d):
+    """K1's O over 8192 keys and K2's dK, dV over 8192 queries are long
+    chains of tensor-core sums, each rounded toward zero; with v and dO'
+    of mean 3 every term of O and dV has one sign, so the drift adds up.
+    The float32 instances close each chain every 256 keys or queries and
+    hold the float32 bars against the plain versions."""
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=cuda_device, generator=g)
+
+    q, k = l2norm_tensors(randn(1, 2, 8192, d), randn(1, 2, 8192, d))
+    v = randn(1, 2, 8192, d) + 3
+    kw = dict(bias_batch_dim=False, scale=8.0, causal=True)
+    o, inv_l = flash_attention_forward(q, k, v, None, None, **kw)
+    o_p, inv_p = flash_attention_forward_plain(q, k, v, None, None, **kw)
+    assert (o - o_p).abs().max().item() <= BARS[torch.float32]
+    assert ((inv_l - inv_p) / inv_p).abs().max().item() <= 1e-5
+    do = randn(*o.shape) + 3
+    args = (do, o_p, inv_p, q, k, v, None, None)
+    got = bwd_kernel._backward_onepass(*args[:7], scale=8.0, causal=True)
+    want = flash_attention_backward_plain(*args, **kw)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        err = _grad_err(x, y, torch.float32)
+        assert err <= GRAD_BARS[torch.float32], (name, err)
