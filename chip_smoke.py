@@ -7,6 +7,8 @@
                                         # nodes of 2 cards (4 cards)
     python3 chip_smoke.py --f32-step    # the float32 training step
                                         # alone, profiled (1 card)
+    python3 chip_smoke.py --f32-long-step  # the float32 training step
+                                        # at seq 16384 alone (1 card)
 
 Phases (any failure exits non-zero):
   1. device: requires CUDA; prints the card's name and power limit;
@@ -164,20 +166,24 @@ Phases (any failure exits non-zero):
      of 2 cards over NCCL (31 steps, --model-parallel 2) and holds its
      losses to train_step's on one card over the same rows at 4e-4;
  22. in a fresh process, the float32 instances at the main path's
-     shapes: K1 (b1 h8 s1024 d64 causal) and the one-pass K2 (phase 8's
-     shape) on the tensor cores as 3xTF32 split products, K3a/K3b
-     (phase 8's shape with an (h, i, j) bias) and K7 (one decode step's
-     65 calls at 8 rows) on their FMA instances, each row held to its
-     instances by profiler name, checked against its plain version and
-     timed beside it, its bound (K1, K2: 3 x the operations at the TF32
-     tensor cores' peak; K3a/K3b: operations at the float32 peak outside
-     the tensor cores; K7: bytes) and SDPA or F.linear in float32 with
-     TF32 off; K1 and K2 also against the plain versions with the same
-     split (TF32X3_BARS; on a short chain SPLIT_BARS, above which the
-     bfloat16 split's plain versions must read), over long chains
-     (s8192, values of mean 3) and at 8 l2norm groups and scale 8 (logits
-     to 64); then the validation model's float32 training step profiled:
-     device time a step, K1's and K2's share and launches.
+     shapes: K1 (b1 h8 s1024 d64 causal), the one-pass K2 (phase 8's
+     shape) and K3a/K3b (phase 8's shape with an (h, i, j) bias, and b1
+     h16 s1024 d128 with one) on the tensor cores as 3xTF32 split
+     products, K7 (one decode step's 65 calls at 8 rows) on its FMA
+     instance, each row held to its instances by profiler name, checked
+     against its plain version and timed beside it, its bound (K1, K2,
+     K3a, K3b: 3 x the operations at the TF32 tensor cores' peak; K7:
+     bytes) and SDPA or F.linear in float32 with TF32 off; K1, K2, K3a
+     and K3b also against the plain versions with the same split
+     (TF32X3_BARS, dB included; on a short chain SPLIT_BARS, above which
+     the bfloat16 split's plain versions must read), over long chains
+     (s8192, and K1, K3a and K3b at the seq-16384 step's own b1 h8 s16384
+     d64; values of mean 3: O's and dQ's keys, dK's and dV's queries)
+     and at 8 l2norm groups and scale 8 (logits to 64); then the
+     validation model's float32 training step profiled (device time a
+     step, K1's and K2's share and launches), and the same at seq 16384
+     (batch 1), where the backward takes K3a and K3b: device time a
+     step, K1's, K3a's and K3b's share and launches, the idle share.
 Then one JSON line lists every ported kernel, and the entries of phases
 18-22 (each rank's launches and error), with its launches on its path, error,
 times and bound (timing lines also print the achieved
@@ -223,21 +229,25 @@ PARITY_BAR = 1e-2     # f32 logits, card vs CPU (decode's bf16 roundings)
 # another order, to bf16, so they differ by at most one bf16 ulp, which
 # is at most 2^-7 of the value
 GRAD_BARS = {torch.float32: F32_ERR_BAR, torch.bfloat16: 2 ** -7}
-# float32 K1 and K2 (3xTF32) against their plain versions with the same
-# split (ops/mxu.py dot_tf32x3), in F32_ERR_BAR's units, at the main
-# path's shapes (b1 h8 and b4 h8 s1024 d64 causal, 8 l2norm groups, scale
-# 1), at about 2.5x the first readings on the H100 (K1's o 2.2e-6; K2's
+# float32 K1, K2, K3a and K3b (3xTF32) against their plain versions with
+# the same split (ops/mxu.py dot_tf32x3), in F32_ERR_BAR's units, at the
+# main path's shapes (b1 h8 and b4 h8 s1024 d64 causal, 8 l2norm groups,
+# scale 1; K3a and K3b with an (h, i, j) bias, also at b1 h16 s1024
+# d128), at about 2.5x the first readings on the H100 (K1's o 2.2e-6; K2's
 # dK and dV 1.4e-5 to 1.9e-5, before their sums were closed every 256
-# queries): what is left is the tensor cores' float32 sums, each rounded
-# toward zero, and the sums' order
-TF32X3_BARS = {"K1": 5e-6, "K2": 5e-5}
+# queries; K3a's dq and db 1.8e-6 to 3.3e-6, K3b's dk and dv 3.6e-6 to
+# 5.5e-6): what is left is the tensor cores' float32 sums, each rounded
+# toward zero, and the sums' order (dB's atomics' varies from run to run)
+TF32X3_BARS = {"K1": 5e-6, "K2": 5e-5, "K3a": 1e-5, "K3b": 1.5e-5}
 # the same on a short chain (split_check: b4 h8 s128 d64 causal, 8 groups,
-# scale 8), K1 on o, above the readings on the H100 (K1 1.1e-5; K2 1.1e-5
-# to 1.8e-5) and below those of the plain versions with JAX's bfloat16
-# split (dot_f32x3): 1.8e-4 (K1), 4.3e-5 to 6.7e-5 (K2).  Over 1024
+# scale 8; K3a and K3b with an (h, i, j) bias), K1 on o, above the
+# readings on the H100 (K1 1.1e-5; K2 1.1e-5 to 1.8e-5; K3a 9.9e-6 to
+# 1.2e-5, K3b 8.7e-6 to 9.6e-6) and below those of the plain versions
+# with JAX's bfloat16 split (dot_f32x3): 1.8e-4 (K1), 4.3e-5 to 6.7e-5
+# (K2), 5.5e-5 to 8.0e-5 (K3a), 5.0e-5 to 5.3e-5 (K3b).  Over 1024
 # queries the tensor cores' rounding of each sum toward zero buries the
 # split's error; over 128 it does not, and the two splits read apart
-SPLIT_BARS = {"K1": 4e-5, "K2": 3e-5}
+SPLIT_BARS = {"K1": 4e-5, "K2": 3e-5, "K3a": 3e-5, "K3b": 3e-5}
 TRAIN_STEPS = 10
 TRAIN_CORPUS_BYTES = 1 << 20   # the JAX trainer draws 8 M the same way
 LOSS_BAR = 1e-4               # f32 training loss, card vs CPU
@@ -546,7 +556,7 @@ def instance_registers(ptxas_log: str, kind: str):
             entry = ln.split("'")[1]
         m = re.search(r"Used (\d+) registers", ln)
         if m and kind in entry:
-            name = re.search(rf"[a-z]+_{kind}(I\w+?E)?", entry)
+            name = re.search(rf"[a-z]+_{kind}(I\w+?EE)?", entry)
             out.append((name.group(0), int(m.group(1))))
     return out
 
@@ -939,8 +949,10 @@ def compare_backward(worst, name, args, kw, dtype, mask_kind):
 def time_backward(card: str, args, kw, args_b, kw_b):
     """K2 on ``args`` (causal, no bias) and K3a, K3b on ``args_b`` (causal,
     an (h, i, j) bias), in their dtype (bf16 bounded at the tensor cores'
-    peak, float32 at the float32 peak outside them), timed beside the
-    plain backward and SDPA's; returns {kernel: timing row}."""
+    peak, float32 up to d 128 by 3 x its operations at the TF32 tensor
+    cores' peak, the bound at the float32 peak outside them printed
+    beside), timed beside the plain backward and SDPA's; returns {kernel:
+    timing row}."""
     import torch.nn.functional as F
 
     from flash_cosine_sim_attention_tpu_torch.ops import (
@@ -983,7 +995,7 @@ def time_backward(card: str, args, kw, args_b, kw_b):
     ):
         ms = device_ms(call)
         bound_ms, by = bound(flops, nbytes, peak)
-        if name == "K2" and q.dtype == torch.float32:
+        if q.dtype == torch.float32 and d <= 128:
             # 3xTF32: three products on the TF32 tensor cores for each of
             # the function's; the FMA bound (67 TFLOP/s) in brackets
             fma_ms = bound_ms
@@ -1008,7 +1020,8 @@ def time_backward(card: str, args, kw, args_b, kw_b):
           "no dB for K3; TFLOP/s count the function's products, 2d FLOPs "
           "per visible pair each: 5 for K2, 3 for K3a, 4 for K3b; the "
           "tensor-core K2, K3a and K3b run 8, 4 and 6, e and dS as bf16 "
-          "hi + lo; the float32 K2 runs 15 TF32 products, 3 a product)")
+          "hi + lo; the float32 K2, K3a and K3b run 15, 9 and 12 TF32 "
+          "products, 3 a product)")
     return rows
 
 
@@ -4536,12 +4549,13 @@ def scale8(g, card: str) -> None:
 
 
 def split_check(g, card: str) -> None:
-    """K1 and the one-pass K2 in float32 against the plain versions with
-    the kernels' own split (mm=dot_tf32x3), at b4 h8 s128 d64 causal, 8
-    l2norm groups and scale 8, held to SPLIT_BARS; the plain versions with
-    JAX's bfloat16 split (mm=dot_f32x3) must read above the same bars
-    against dot_tf32x3, else the check could not tell the two splits
-    apart.  The chain is short: a long one (dK and dV sum every query)
+    """K1, the one-pass K2 and (with an (h, i, j) bias) the two-pass K3a
+    and K3b in float32 against the plain versions with the kernels' own
+    split (mm=dot_tf32x3), at b4 h8 s128 d64 causal, 8 l2norm groups and
+    scale 8, held to SPLIT_BARS (K3a on dq and db, K3b on dk and dv); the
+    plain versions with JAX's bfloat16 split (mm=dot_f32x3) must read
+    above the same bars against dot_tf32x3, else the check could not tell
+    the two splits apart.  The chain is short: a long one (dK and dV sum every query)
     buries the split's error under the tensor cores' rounding of each sum
     toward zero."""
     from flash_cosine_sim_attention_tpu_torch.ops import (
@@ -4553,8 +4567,9 @@ def split_check(g, card: str) -> None:
 
     b, h, s, d = 4, 8, 128, 64
 
-    def randn():
-        return torch.randn(b, h, s, d, device="cuda", generator=g)
+    def randn(*shape):
+        return torch.randn(*(shape or (b, h, s, d)), device="cuda",
+                           generator=g)
 
     q, k = l2norm_tensors(randn(), randn(), groups=8)
     v, do = randn(), randn()
@@ -4573,6 +4588,19 @@ def split_check(g, card: str) -> None:
     k2 = [grad_err(x, y, torch.float32) for x, y in zip(got, want_t)]
     k2_b = [grad_err(x, y, torch.float32)
             for x, y in zip(want_b[:3], want_t)]
+    # the two-pass route on the same inputs with an (h, i, j) bias: K3a's
+    # dq and db, K3b's dk and dv
+    bias = 0.5 * randn(h, s, s)
+    o_t, inv_t = flash_attention_forward_plain(q, k, v, None, bias,
+                                               mm=dot_tf32x3, **kw)
+    args = (do, o_t, inv_t, q, k, v, None, bias)
+    got = bk._backward_twopass(*args, **kw)
+    want_t = flash_attention_backward_plain(*args, mm=dot_tf32x3, **kw)
+    want_b = flash_attention_backward_plain(*args, mm=dot_f32x3, **kw)
+    k3 = [grad_err(x, y, torch.float32) for x, y in zip(got, want_t)]
+    k3_b = [grad_err(x, y, torch.float32) for x, y in zip(want_b, want_t)]
+    k3a, k3b = [k3[0], k3[3]], k3[1:3]
+    k3a_b, k3b_b = [k3_b[0], k3_b[3]], k3_b[1:3]
     print(f"  against the dot_tf32x3 plain versions (b{b} h{h} s{s} d{d} "
           f"causal, groups 8, scale 8) on {card}: K1 o {k1:.2e}, the "
           f"dot_f32x3 (bf16 split) plain version {k1_b:.2e} (bar "
@@ -4580,23 +4608,49 @@ def split_check(g, card: str) -> None:
           f"{max_rel(inv_b, inv_t):.2e}); K2 dq, dk, dv "
           f"{', '.join(f'{e:.2e}' for e in k2)}, the dot_f32x3 plain version "
           f"{', '.join(f'{e:.2e}' for e in k2_b)} (bar "
-          f"{SPLIT_BARS['K2']:g})")
+          f"{SPLIT_BARS['K2']:g}); with an (h,i,j) bias, K3a dq, db "
+          f"{', '.join(f'{e:.2e}' for e in k3a)}, the dot_f32x3 plain "
+          f"version {', '.join(f'{e:.2e}' for e in k3a_b)} (bar "
+          f"{SPLIT_BARS['K3a']:g}); K3b dk, dv "
+          f"{', '.join(f'{e:.2e}' for e in k3b)}, the dot_f32x3 plain "
+          f"version {', '.join(f'{e:.2e}' for e in k3b_b)} (bar "
+          f"{SPLIT_BARS['K3b']:g})")
     if not (k1 <= SPLIT_BARS["K1"] < k1_b
-            and max(k2) <= SPLIT_BARS["K2"] < max(k2_b)):
+            and max(k2) <= SPLIT_BARS["K2"] < max(k2_b)
+            and max(k3a) <= SPLIT_BARS["K3a"] < max(k3a_b)
+            and max(k3b) <= SPLIT_BARS["K3b"] < max(k3b_b)):
         fail(f"f32 split check: K1 {k1} (bf16 split {k1_b}), K2 {k2} "
-             f"(bf16 split {k2_b})")
+             f"(bf16 split {k2_b}), K3a {k3a} (bf16 split {k3a_b}), K3b "
+             f"{k3b} (bf16 split {k3b_b})")
+
+
+def by_heads(fn, tensors, n: int) -> list:
+    """``fn`` over slices of ``n`` heads (dim 1) of ``tensors``, one kv head
+    to each query head, its outputs joined again: a plain version at seq
+    16384 a few heads at a time, within the card's memory (each head's sums
+    are its own)."""
+    outs = [fn(*(t[:, i:i + n] for t in tensors))
+            for i in range(0, tensors[0].shape[1], n)]
+    return [None if parts[0] is None else torch.cat(parts, 1)
+            for parts in zip(*outs)]
 
 
 def long_chains(g, card: str) -> None:
-    """K1 and the one-pass K2 in float32 over long chains (b1 h2 s8192 d64
-    causal, 8192 keys for O, 8192 queries for dK and dV; and 8 query heads
-    on 1 kv head at s1024, G x seq_q 8192), with v and dO' of mean 3 so
-    that every term of O and dV has one sign: the tensor cores round each
-    sum toward zero, and both kernels close their chains every 256 keys or
-    queries.  Held to the plain versions at F32_ERR_BAR (o, gradients) and
-    inv_l at 1e-5 relative."""
+    """K1, the one-pass K2 and the two-pass K3a and K3b in float32 over
+    long chains, no bias, with v and dO' of mean 3 so that every term of O
+    and dV has one sign: the tensor cores round each sum toward zero, and
+    every kernel closes its chains every 256 keys or queries.  b1 h2 s8192
+    d64 causal (8192 keys for O and K3a's dQ, 8192 queries for dK and dV),
+    8 query heads on 1 kv head at s1024 (G x seq_q 8192), and the float32
+    long-context step's own shape, b1 h8 s16384 d64 causal (LONG_SEQ), where
+    the backward takes the two-pass route only (past ONEPASS_BWD_MAX_SEQ):
+    16384 keys for K1's O and K3a's dQ, 16384 queries for K3b's dK and dV;
+    its plain versions run 2 heads at a time (by_heads).  Held to the plain
+    versions at F32_ERR_BAR (o, gradients) and inv_l at 1e-5 relative."""
     from flash_cosine_sim_attention_tpu_torch.ops import (
         bwd_kernel as bk, flash_attention_backward_plain, l2norm_tensors)
+    from flash_cosine_sim_attention_tpu_torch.ops.blocks import (
+        ONEPASS_BWD_MAX_SEQ)
     from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
         flash_attention_forward, flash_attention_forward_plain)
 
@@ -4604,26 +4658,92 @@ def long_chains(g, card: str) -> None:
         return torch.randn(*shape, device="cuda", generator=g)
 
     kw = dict(bias_batch_dim=False, scale=8.0, causal=True)
-    for h, kvh, s in ((2, 2, 8192), (8, 1, 1024)):
+    heads = MODEL["heads"]
+    for h, kvh, s in ((2, 2, 8192), (8, 1, 1024), (heads, heads, LONG_SEQ)):
+        n = h if kvh < h else 2   # heads a plain call
         q, k = l2norm_tensors(randn(1, h, s, 64), randn(1, kvh, s, 64))
         v = randn(1, kvh, s, 64) + 3
         o, inv_l = flash_attention_forward(q, k, v, None, None, **kw)
-        o_p, inv_p = flash_attention_forward_plain(q, k, v, None, None, **kw)
+        o_p, inv_p = by_heads(
+            lambda *t: flash_attention_forward_plain(*t, None, None, **kw),
+            (q, k, v), n)
         err, err_l = (o - o_p).abs().max().item(), max_rel(inv_l, inv_p)
         do = randn(*o.shape) + 3
         args = (do, o_p, inv_p, q, k, v, None, None)
-        got = bk._backward_onepass(*args[:7], scale=8.0, causal=True)
-        want = flash_attention_backward_plain(*args, **kw)
-        grads = [grad_err(x, y, torch.float32) for x, y in zip(got, want)]
+        want = by_heads(
+            lambda *t: flash_attention_backward_plain(*t, None, None, **kw),
+            args[:6], n)
+        got3 = bk._backward_twopass(*args, **kw)[:3]
+        grads3 = [grad_err(x, y, torch.float32) for x, y in zip(got3, want)]
+        grads, apart = [], []
+        if s <= ONEPASS_BWD_MAX_SEQ:
+            got = bk._backward_onepass(*args[:7], scale=8.0, causal=True)
+            grads = [grad_err(x, y, torch.float32) for x, y in zip(got, want)]
+            apart = [grad_err(x, y, torch.float32) for x, y in zip(got3, got)]
+            del got
         print(f"  long chains, b1 h{h} kv heads {kvh} s{s} d64 causal, v and "
               f"dO' of mean 3, on {card}: K1 o {err:.2e}, inv_l {err_l:.2e};"
-              f" K2 dq, dk, dv {', '.join(f'{e:.2e}' for e in grads)} (bars "
-              f"{F32_ERR_BAR:g}, inv_l 1e-5)")
+              + (f" K2 dq, dk, dv {', '.join(f'{e:.2e}' for e in grads)};"
+                 if grads else " K2 not on this route;")
+              + f" K3a dq, K3b dk, dv {', '.join(f'{e:.2e}' for e in grads3)}"
+              f" (bars {F32_ERR_BAR:g}, inv_l 1e-5)"
+              + (f"; the two routes apart {', '.join(f'{e:.2e}' for e in apart)}"
+                 if apart else ""))
         if not (err <= F32_ERR_BAR and err_l <= 1e-5
-                and max(grads) <= F32_ERR_BAR):
+                and max(grads + grads3) <= F32_ERR_BAR):
             fail(f"f32 long chains h{h} s{s}: o {err}, inv_l {err_l}, "
-                 f"gradients {grads}")
-        del q, k, v, o, o_p, got, want, args
+                 f"gradients {grads}, two-pass {grads3}")
+        del q, k, v, o, o_p, got3, want, args
+
+
+# each f32 step's attention kernels, by the instance names that count for
+# them (the FMA ones too, for a reading of an earlier commit)
+F32_STEP_KERNELS = {
+    "K1": ("fwd_tf32_kernel<", "fwd_kernel<float"),
+    "K2": ("dkdv_tf32_kernel<64>", "dkdv_tf32_kernel<64, true>",
+           "dkdv_kernel<float, 64, true>"),
+    "K3a": ("dq_tf32_kernel<", "dq_kernel<float"),
+    "K3b": ("dkdv_tf32_kernel<64, false>", "dkdv_kernel<float, 64, false>"),
+}
+LONG_SEQ = 16384   # the float32 long-context step's --seq-len (batch 1)
+
+
+def step_parts(rows) -> dict:
+    """{kernel: (device ms, launches, instance names)} of F32_STEP_KERNELS
+    among a profiled step's whole_rows."""
+    parts = {}
+    for name, pats in F32_STEP_KERNELS.items():
+        mine = [(key, t, c) for key, t, c in rows
+                if any(p in key for p in pats)]
+        parts[name] = (sum(t for _, t, _ in mine) / 1e3,
+                       sum(c for _, _, c in mine),
+                       sorted({re.sub(r"^void (\(anonymous namespace\)::)?",
+                                      "", key).split("(")[0]
+                               for key, _, _ in mine}))
+    return parts
+
+
+def f32_step_model(seq: int, batch: int):
+    """The validation model in float32 (max_seq_len ``seq``), its
+    optimizer and 4 batches of GRAD_ACCUM microbatches of ``batch`` x
+    ``seq`` from phase 8's corpus: the trainer's --use-float32 --seq-len
+    seq --batch-size batch."""
+    from flash_cosine_sim_attention_tpu_torch.data import (
+        TextSampler, synthetic_corpus)
+    from flash_cosine_sim_attention_tpu_torch.models import (
+        CosineSimCausalTransformer)
+    from flash_cosine_sim_attention_tpu_torch.train import (
+        GRAD_ACCUM, make_optimizer)
+
+    torch.manual_seed(SEED)
+    model = CosineSimCausalTransformer(**dict(MODEL, max_seq_len=seq),
+                                       dtype=torch.float32, device="cuda")
+    stream = TextSampler(synthetic_corpus(TRAIN_CORPUS_BYTES, seed=SEED),
+                         train_frac=90 / 95, seed=SEED).stream(
+                             "train", GRAD_ACCUM * batch, seq)
+    batches = [torch.from_numpy(next(stream)).cuda().view(
+        GRAD_ACCUM, batch, seq + 1) for _ in range(4)]
+    return model, make_optimizer(model), batches
 
 
 def f32_train_step(card: str) -> dict:
@@ -4633,23 +4753,10 @@ def f32_train_step(card: str) -> dict:
     and K2's share of it and their launches a step.  ``python3
     chip_smoke.py --f32-step`` runs it alone, e.g. from a checkout of an
     earlier commit, for a reading before and after a change."""
-    from flash_cosine_sim_attention_tpu_torch.data import (
-        TextSampler, synthetic_corpus)
-    from flash_cosine_sim_attention_tpu_torch.models import (
-        CosineSimCausalTransformer)
     from flash_cosine_sim_attention_tpu_torch.train import (
-        BATCH_SIZE, GRAD_ACCUM, make_optimizer, train_step)
+        BATCH_SIZE, GRAD_ACCUM, train_step)
 
-    torch.manual_seed(SEED)
-    model = CosineSimCausalTransformer(**MODEL, dtype=torch.float32,
-                                       device="cuda")
-    opt = make_optimizer(model)
-    seq = MODEL["max_seq_len"]
-    stream = TextSampler(synthetic_corpus(TRAIN_CORPUS_BYTES, seed=SEED),
-                         train_frac=90 / 95, seed=SEED).stream(
-                             "train", GRAD_ACCUM * BATCH_SIZE, seq)
-    batches = [torch.from_numpy(next(stream)).cuda().view(
-        GRAD_ACCUM, BATCH_SIZE, seq + 1) for _ in range(4)]
+    model, opt, batches = f32_step_model(MODEL["max_seq_len"], BATCH_SIZE)
     losses = []
 
     def step():
@@ -4659,17 +4766,7 @@ def f32_train_step(card: str) -> dict:
         step()
     rows = whole_rows(step, 2)
     total = sum(t for _, t, _ in rows) / 1e3
-    parts = {}
-    for name, pats in (("K1", ("fwd_tf32_kernel<", "fwd_kernel<float")),
-                       ("K2", ("dkdv_tf32_kernel<",
-                               "dkdv_kernel<float, 64, true>"))):
-        mine = [(key, t, c) for key, t, c in rows
-                if any(p in key for p in pats)]
-        parts[name] = (sum(t for _, t, _ in mine) / 1e3,
-                       sum(c for _, _, c in mine),
-                       sorted({re.sub(r"^void (\(anonymous namespace\)::)?",
-                                      "", key).split("(")[0]
-                               for key, _, _ in mine}))
+    parts = step_parts(rows)
     loss = [x.item() for x in losses]
     top = sorted(rows, key=lambda r: -r[1])[:4]
     print(f"  float32 train step (4 x 4 x 1024) on {card}: device time "
@@ -4690,25 +4787,105 @@ def f32_train_step(card: str) -> dict:
     return dict(ms=total, k1_ms=parts["K1"][0], k2_ms=parts["K2"][0])
 
 
+def f32_long_step(card: str) -> dict:
+    """The validation model's float32 training step at seq LONG_SEQ (the
+    trainer's --use-float32 --seq-len 16384 --batch-size 1: GRAD_ACCUM
+    microbatches of 1 x 16384 of phase 8's corpus, max_seq_len 16384).
+    Past ONEPASS_BWD_MAX_SEQ query rows the backward takes the two-pass
+    route, K3a and K3b.  The wrappers' counts are set to 0 before 2
+    warm-up steps (host-clock walls, ended by a synchronize) and read
+    after them; then 2 steps are profiled (whole_rows): device time a
+    step, K1's, K3a's and K3b's share and launches a step, the idle share
+    (1 - device time / the second warm-up step's wall).  Fails unless K3a
+    and K3b ran their tensor-core instances (dq_tf32_kernel<64>,
+    dkdv_tf32_kernel<64, false>) 32 times a step each, K1 32 times, and
+    K2 never, and unless the losses are finite; the reading prints
+    first.  ``python3 chip_smoke.py --f32-long-step`` runs it alone, e.g.
+    from a checkout of an earlier commit.  Returns the wrappers' launches
+    over the 2 counted steps."""
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        bwd_kernel as bk, fwd_kernel as fk)
+    from flash_cosine_sim_attention_tpu_torch.train import (
+        GRAD_ACCUM, train_step)
+
+    model, opt, batches = f32_step_model(LONG_SEQ, 1)
+    losses, walls = [], []
+
+    def step():
+        losses.append(train_step(model, opt, batches[len(losses) % 4]))
+
+    wrappers = dict(k1=fk.flash_attention_forward, k2=bk.fused_bwd_kernel,
+                    k3a=bk.dq_kernel, k3b=bk.dkdv_kernel)
+    for fn in wrappers.values():
+        fn.launches = 0
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = {key: fn.launches for key, fn in wrappers.items()}
+    rows = whole_rows(step, 2)
+    total = sum(t for _, t, _ in rows) / 1e3
+    parts = step_parts(rows)
+    loss = [x.item() for x in losses]
+    top = sorted(rows, key=lambda r: -r[1])[:4]
+    # the function's operations a call: 2 (K1), 3 (K3a), 4 (K3b) products
+    # of 2d FLOPs per visible pair, over the model's heads
+    pairs = MODEL["heads"] * LONG_SEQ * (LONG_SEQ + 1) / 2
+    flops = {name: n * 2 * MODEL["dim_head"] * pairs
+             for name, n in (("K1", 2), ("K3a", 3), ("K3b", 4), ("K2", 5))}
+    print(f"  float32 train step at seq {LONG_SEQ} ({GRAD_ACCUM} x 1 x "
+          f"{LONG_SEQ}) on {card}: device time {total:.2f} ms a step (2 "
+          f"steps profiled); wall {walls[1]:.2f} ms (warm-up steps "
+          f"{', '.join(f'{w:.2f}' for w in walls)}), idle share "
+          f"{1 - total / walls[1]:.3f}; "
+          + "; ".join(f"{name} {ms:.2f} ms ({ms / total:.3f}), {n} launches"
+                      f"{f', {tflops(flops[name] * n, ms):.1f} TFLOP/s' if n else ''}"
+                      f" {names}"
+                      for name in ("K1", "K3a", "K3b", "K2")
+                      for ms, n, names in (parts[name],))
+          + f"; wrapper launches over the 2 counted steps {launches}; the "
+          "largest kernels "
+          + "; ".join(f"{key[:60]} {t / 1e3:.2f} ms ({c} launches)"
+                      for key, t, c in top)
+          + f"; losses {', '.join(f'{x:.4f}' for x in loss)}")
+    if not np.all(np.isfinite(loss)):
+        fail(f"float32 train step at seq {LONG_SEQ}: losses {loss}")
+    per_step = GRAD_ACCUM * MODEL["depth"]
+    want = dict(k1=2 * per_step, k2=0, k3a=2 * per_step, k3b=2 * per_step)
+    if (launches != want or parts["K2"][1] != 0
+            or any(parts[name][1] != per_step for name in ("K1", "K3a", "K3b"))
+            or parts["K3a"][2] != ["dq_tf32_kernel<64>"]
+            or parts["K3b"][2] != ["dkdv_tf32_kernel<64, false>"]):
+        fail(f"float32 train step at seq {LONG_SEQ}: wrapper launches "
+             f"{launches}, want {want}; profiled launches a step and "
+             f"instances {parts}")
+    return launches
+
+
 def f32_instances(card: str):
     """Phase 22: the float32 instances at the main path's shapes.  K1 at
-    b1 h8 s1024 d64 causal (phase 3's) and the one-pass K2 at phase 8's
-    (b4 h8 s1024 d64 causal) run 3xTF32 on the tensor cores
-    (fwd_tf32_kernel<64>, dkdv_tf32_kernel<64>); K3a/K3b (phase 8's shape
-    with an (h, i, j) bias) and K7 (one decode step's 65 calls at 8 rows,
-    L2 flushed) their FMA instances.  Each row is held to its instances by
-    profiler name, checked against its plain version and timed beside it,
-    its bound and one PyTorch call with TF32 off (SDPA forward, SDPA
-    backward, F.linear on a float32 weight copy).  K1 and K2 are also held
-    to the plain versions with the kernels' split (mm=dot_tf32x3) at
-    TF32X3_BARS and on a short chain (split_check), checked over long
-    chains (long_chains) and at 8 l2norm groups and scale 8 (logits to 64,
-    where JAX's bf16 split of a float32 product misses the 1e-4 bar).
-    Bounds: K1 and K2 3 x their operations at the TF32 tensor cores' peak
-    (the FMA bound at 67 TFLOP/s printed beside), K3a/K3b at the float32
-    peak outside the tensor cores, K7 bytes.  Then the validation model's
-    float32 training step, profiled (f32_train_step).  Returns ({row:
-    timing}, {row: max abs error against plain})."""
+    b1 h8 s1024 d64 causal (phase 3's), the one-pass K2 at phase 8's (b4
+    h8 s1024 d64 causal) and K3a/K3b at phase 8's shape with an (h, i, j)
+    bias, and at b1 h16 s1024 d128 with one, run 3xTF32 on the tensor
+    cores (fwd_tf32_kernel<64>, dkdv_tf32_kernel<64, true>,
+    dq_tf32_kernel<D>, dkdv_tf32_kernel<D, false>); K7 (one decode step's
+    65 calls at 8 rows, L2 flushed) its FMA instance.  Each row is held to
+    its instances by profiler name, checked against its plain version and
+    timed beside it, its bound and one PyTorch call with TF32 off (SDPA
+    forward, SDPA backward, F.linear on a float32 weight copy).  K1, K2,
+    K3a and K3b are also held to the plain versions with the kernels'
+    split (mm=dot_tf32x3) at TF32X3_BARS (dB included) and on a short
+    chain (split_check), checked over long chains (long_chains) and K1 and
+    K2 at 8 l2norm groups and scale 8 (logits to 64, where JAX's bf16
+    split of a float32 product misses the 1e-4 bar).  Bounds: K1, K2, K3a
+    and K3b 3 x their operations at the TF32 tensor cores' peak (the FMA
+    bound at 67 TFLOP/s printed beside), K7 bytes.  Then the validation
+    model's float32 training step, profiled (f32_train_step), and the same
+    at seq 16384 (f32_long_step), where the backward runs K3a and K3b.
+    Returns ({row: timing}, {row: max abs error against plain}, the long
+    step's wrapper launches)."""
     import torch.nn.functional as F
 
     from flash_cosine_sim_attention_tpu_torch.ops import (
@@ -4797,18 +4974,41 @@ def f32_instances(card: str):
           f"{TF32X3_BARS['K2']:g})")
     if not max(errs_t) <= TF32X3_BARS["K2"]:
         fail(f"K2 f32 against dot_tf32x3: {errs_t}")
+    # K3a and K3b at d 64 (the bias shape) and d 128 (b1 h16 s1024, an
+    # (h, i, j) bias): against the dot_tf32x3 plain version (K3a on dq and
+    # dB, K3b on dk and dv), and by instance name
+    args_w, kw_w = bwd_inputs(g, 1, 16, 16, s, s, 128, torch.float32, None,
+                              "h", True)
+    compare_backward(worst, "b1 h16 s1024 d128 causal + (h,i,j) bias",
+                     args_w, kw_w, torch.float32, None)
+    twopass = []
+    for dw, a_, kw_ in ((d, args_b, kw_b), (128, args_w, kw_w)):
+        got = bk._backward_twopass(*a_, **kw_)
+        want_t = flash_attention_backward_plain(*a_, mm=dot_tf32x3, **kw_)
+        e3 = [grad_err(x, y, torch.float32) for x, y in zip(got, want_t)]
+        e3a, e3b = [e3[0], e3[3]], e3[1:3]
+        print(f"  K3a, K3b f32 d{dw} + (h,i,j) bias against the dot_tf32x3 "
+              f"plain version: K3a dq, db {', '.join(f'{e:.2e}' for e in e3a)}"
+              f" (bar {TF32X3_BARS['K3a']:g}); K3b dk, dv "
+              f"{', '.join(f'{e:.2e}' for e in e3b)} (bar "
+              f"{TF32X3_BARS['K3b']:g})")
+        if not (max(e3a) <= TF32X3_BARS["K3a"]
+                and max(e3b) <= TF32X3_BARS["K3b"]):
+            fail(f"K3a/K3b f32 d{dw} against dot_tf32x3: {e3a}, {e3b}")
+        twopass += instances(
+            f"K3a/K3b f32 d{dw}",
+            lambda: bk._backward_twopass(*a_, **kw_),
+            [f"dq_tf32_kernel<{dw}>", f"dkdv_tf32_kernel<{dw}, false>"],
+            ["dq_kernel<", "dkdv_kernel<", "mma_kernel"])
+    del args_w, got, want_t
     split_check(g, card)
     long_chains(g, card)
     for name, row in time_backward(card, args, kw2, args_b, kw_b).items():
         rows[f"{name} f32"] = row
         errs[f"{name} f32"] = worst[name]
     onepass = instances("K2 f32", lambda: bk._backward_onepass(
-        *args[:7], scale=1.0, causal=True), ["dkdv_tf32_kernel<64>"],
+        *args[:7], scale=1.0, causal=True), ["dkdv_tf32_kernel<64, true>"],
         ["dkdv_kernel<", "dkdv_mma_kernel<"])
-    twopass = instances("K3a/K3b f32", lambda: bk._backward_twopass(
-        *args_b, **kw_b), ["dq_kernel<float, 64>",
-                           "dkdv_kernel<float, 64, false>"],
-        ["mma_kernel", "tf32"])
     print(f"  f32 backward instances: one-pass {onepass}, two-pass "
           f"{twopass}")
     scale8(g, card)
@@ -4852,7 +5052,7 @@ def f32_instances(card: str):
               f"{row['bound_ms'] / row['ms']:.3f}, error vs plain "
               f"{errs[name]:.3e}")
     f32_train_step(card)
-    return rows, errs
+    return rows, errs, f32_long_step(card)
 
 
 def main() -> None:
@@ -4871,6 +5071,10 @@ def main() -> None:
         "--f32-step", action="store_true",
         help="profile the validation model's float32 training step alone "
              "(one card)")
+    parser.add_argument(
+        "--f32-long-step", action="store_true",
+        help="profile the validation model's float32 training step at seq "
+             f"{LONG_SEQ}, batch 1, alone (one card)")
     args = parser.parse_args()
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4906,7 +5110,8 @@ def main() -> None:
                 print(f"  {name} {label} instances' registers: "
                       f"{', '.join(f'{k} {r}' for k, r in regs)}")
 
-    if args.ring_nccl or args.multihost_nccl or args.f32_step:
+    if (args.ring_nccl or args.multihost_nccl or args.f32_step
+            or args.f32_long_step):
         if args.ring_nccl:
             print("[19] ring attention over NCCL, a card a rank")
             print(json.dumps({"kernels": [ring_attention_phase(smi, "nccl")]}))
@@ -4915,10 +5120,14 @@ def main() -> None:
             print("[21] the trainer on 2 nodes of 2 cards over NCCL")
             multihost_nccl(smi)
             flag = "--multihost-nccl"
-        else:
+        elif args.f32_step:
             print("[22] the float32 training step")
             f32_train_step(smi)
             flag = "--f32-step"
+        else:
+            print(f"[22] the float32 training step at seq {LONG_SEQ}")
+            f32_long_step(smi)
+            flag = "--f32-long-step"
         print(f"chip_smoke.py {flag} took "
               f"{time.perf_counter() - started:.1f} s")
         print(smi)
@@ -4978,7 +5187,8 @@ def main() -> None:
     print("[21] multi-host training")
     multihost_entry = multihost_phase(smi)
     print("[22] the float32 instances timed")
-    f32_rows, f32_err = run_world(1, None, f32_instances, smi)[0]
+    f32_rows, f32_err, long_launches = run_world(1, None, f32_instances,
+                                                 smi)[0]
 
     bwd = "flash_cosine_sim_attention_tpu/ops/bwd_kernel.py"
     src = "flash_cosine_sim_attention_tpu_torch/csrc/bwd_kernel.cu"
@@ -5073,16 +5283,24 @@ def main() -> None:
         launches=spec_launches, max_abs_err=spec_err, **spec_row))
     kernels += [tp_entry, ring_entry, pipe_entry, multihost_entry]
     # K1's and K2's float32 instances, with their launches on phase 21's
-    # float32 step (every rank's); phase 22 prints the other f32 rows
+    # float32 step (every rank's), and K3a's and K3b's, with theirs on
+    # phase 22's float32 step at seq 16384 (2 steps); phase 22 prints the
+    # other f32 rows
     kernels += [dict(name=name, route="cuda", source=f"{csrc}/{file}",
                      replaces=f"flash_cosine_sim_attention_tpu/{tpu}",
-                     launches=multihost_entry["f32_launches"][key],
-                     max_abs_err=f32_err[row], **f32_rows[row])
-                for name, file, tpu, row, key in (
+                     launches=launches[key], max_abs_err=f32_err[row],
+                     **f32_rows[row])
+                for name, file, tpu, row, key, launches in (
                     ("fwd_kernel:f32", "fwd_kernel.cu", "ops/fwd_kernel.py:47",
-                     "K1 f32", "k1"),
+                     "K1 f32", "k1", multihost_entry["f32_launches"]),
                     ("bwd_kernel:onepass:f32", "bwd_kernel.cu",
-                     "ops/bwd_kernel.py:456", "K2 f32", "k2"))]
+                     "ops/bwd_kernel.py:456", "K2 f32", "k2",
+                     multihost_entry["f32_launches"]),
+                    ("bwd_kernel:dq:f32", "bwd_kernel.cu",
+                     "ops/bwd_kernel.py:64", "K3a f32", "k3a", long_launches),
+                    ("bwd_kernel:dkdv:f32", "bwd_kernel.cu",
+                     "ops/bwd_kernel.py:282", "K3b f32", "k3b",
+                     long_launches))]
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke.py took {time.perf_counter() - started:.1f} s")
     print(smi)

@@ -6,9 +6,10 @@
 //                                                 bias's shared axis
 //   fcsa_bwd_dkdv     K3b  `_dkdv_kernel_t`       dK, dV
 // K2 and K3b share one template (dkdv_mma_kernel for bf16 on the tensor
-// cores, dkdv_kernel for f32 on FMAs); K2 adds the dQ sweep.  The float32
-// K2 up to d 128 has a kernel of its own on the tensor cores,
-// dkdv_tf32_kernel (3xTF32 split products).
+// cores, dkdv_tf32_kernel for f32 up to d 128 on them as 3xTF32 split
+// products, dkdv_kernel for f32 at d 192 and 256 on FMAs); K2 adds the dQ
+// sweep.  K3a is dq_mma_kernel (bf16), dq_tf32_kernel (f32 up to d 128,
+// 3xTF32) and dq_kernel (f32 at d 192 and 256).
 //
 // Maths (the JAX forward's convention: no row max, no "- scale" shift).
 // The wrapper hands in dO' = dO * inv_l (rounded back to dO's dtype) and
@@ -51,7 +52,9 @@
 // K3a does 3 (S, dP', dQ: ~6.4 GFLOP, ~6.5 us) and reads the same bias and
 // adds dS into dB (~17 MB, 8.4 M float2 adds), so it is bytes bound.
 // In float32 the 3xTF32 K2 does three times K2's operations at the TF32
-// rate (495 TFLOP/s): ~65 us, against ~18 us for its ~59 MB.
+// rate (495 TFLOP/s): ~65 us, against ~18 us for its ~59 MB; the 3xTF32
+// K3a and K3b ~39 and ~52 us, against ~23 and ~20 us of bytes with the
+// (h, i, j) bias.
 //
 // bfloat16 inputs run the tensor-core kernel `dkdv_mma_kernel`, the
 // FlashAttention-2 backward reshaped for this op (no row max, JAX's exp2
@@ -161,8 +164,9 @@
 //   256 threads.
 //
 // float32 K2 up to d 128 runs on the tensor cores as 3xTF32 split products
-// (`dkdv_tf32_kernel`), in dkdv_mma_kernel's shape: every operand x is
-// split into two tf32 values, hi = rn(x) and lo = rn(x - hi), and each
+// (`dkdv_tf32_kernel<D, true>`), in dkdv_mma_kernel's shape: every
+// operand x is split into two tf32 values, hi = rn(x) and lo = rn(x -
+// hi), and each
 // of the five products is lo.hi + hi.lo + hi.hi by mma.sync m16n8k8 into
 // f32 (lo.lo dropped), which holds the f32 bar of 1e-4 against the plain
 // version.  The TPU kernels split into bf16 hi / lo instead (Mosaic has no
@@ -189,12 +193,41 @@
 // into the block's own dK and dV rows in global memory, and the
 // accumulators restart from 0.
 //
-// float32 K3a and K3b, and K2 at d 192 and 256, keep the FMA kernels
+// float32 K3b up to d 128 is the same kernel without dQ
+// (`dkdv_tf32_kernel<D, false>`): no dS staging and no dQ products, so no
+// warp reads another warp's keys and K, like V, is split at each A
+// fragment load (no K lo tile); the bias tile (BQ queries x 64 keys, f32)
+// streams through the cp.async ring with Q and dO' and is added to the
+// logit in f32, never split.  Shared memory 85 KB at d 64, 102 KB with a
+// bias: two blocks an SM either way.  Its dK and dV chains are closed
+// every 256 queries as K2's.
+//
+// float32 K3a up to d 128 runs on the tensor cores as 3xTF32 split
+// products (`dq_tf32_kernel`), in dq_mma_kernel's shape: 4 warps own 64
+// queries, 16 a warp, query tiles heaviest first, causal key loops
+// stopped at the block's last diagonal.  Q and dO' arrive once as f32 and
+// stay in shared memory; each warp reads only its own rows, so their A
+// fragments are split as they are read.  K, V and, with a bias, the bias
+// tile stream through a double-buffered cp.async ring (32 keys a tile
+// from d 64: two blocks an SM at d 64, 85 KB, 105 KB with a bias; 64
+// below); K and V are read by every warp and split once for the block
+// after they land (hi in place, lo beside).  S = Q.K^T and dP' = dO'.V^T
+// by mma_tf32x3; e and dS in f32, the bias added as bias * log2e, hidden
+// entries selected to exact 0, masks skipped on whole tiles; dS added to
+// dB by float2 red adds before any rounding (scalar adds at odd seq_k),
+// with no cap on the bias's shared axis.  dQ += dS.K keeps dS in
+// registers: the C fragment of S holds keys 2q and 2q + 1, the tf32 A
+// fragment's k indices q and q + 4 when K's rows are read in that order
+// (add_product_tf32x3).  One dQ accumulator sums seq_k keys, each mma
+// rounding toward zero: every 256 keys its chain is closed into a running
+// sum in registers, added to nearest, and restarts from 0.
+//
+// float32 K2, K3a and K3b at d 192 and 256 keep the FMA kernels
 // `dq_kernel` and `dkdv_kernel`: every product is an f32 FMA out of shared
 // memory (tiles widened to f32 once at load, rows padded by one column
-// against bank conflicts), with e and dS in f32.  Their tiles are 64
-// queries x 64 keys up to d 128 and 32 x 32 above (four f32 tiles of 64
-// rows at d 256 would take 263 KB of shared memory).
+// against bank conflicts), with e and dS in f32.  Their tiles are 32
+// queries x 32 keys (four f32 tiles of 64 rows at d 256 would take 263 KB
+// of shared memory; 3xTF32 tiles of the narrow shapes, 240 KB and more).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -230,11 +263,12 @@ struct Params {
   float scale, c;       // c = scale * log2e
 };
 
-// The FMA kernels' tiles: B queries x B keys, a thread holding R rows x R
-// columns of the score tile (rows ty * R + r, columns tx + 16 c)
+// The FMA kernels' tiles (f32 at d 192 and 256): B queries x B keys, a
+// thread holding R rows x R columns of the score tile (rows ty * R + r,
+// columns tx + 16 c)
 template <int D>
 struct Fma {
-  static constexpr int B = D > 128 ? 32 : 64;
+  static constexpr int B = 32;
   static constexpr int R = B / 16;
   static constexpr int PP = B + 1;  // e and dS tile row stride
   // q, dO, k, v tiles with one pad column; e and dS tiles; delta'
@@ -869,10 +903,10 @@ __global__ void __launch_bounds__(MmaLayout<D, DQ>::NT, 1)
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core f32 K2 (3xTF32) at d <= 128: grid (KVH, B, key tiles), 4
-// warps, warp w owning keys k0 + 16 w ..
+// Tensor-core f32 K2 (DQ = true) and K3b (DQ = false), 3xTF32, at d <=
+// 128: grid (KVH, B, key tiles), 4 warps, warp w owning keys k0 + 16 w ..
 
-template <int D>
+template <int D, bool DQ>
 struct Tf32Layout {
   static constexpr int NT = 128;
   // queries per tile: 32 at d 64 (two blocks an SM) and above (dK's and
@@ -884,22 +918,27 @@ struct Tf32Layout {
   // apart (add_product_tf32x3's reads)
   static constexpr int RF = D + 4;
   static constexpr int RS = 4 * RF;
-  // dS (queries x keys) row stride, floats: a warp's 32 staging writes,
-  // rows 2q + x and columns g, hit 32 banks
+  // dS (queries x keys) and bias (queries x keys) row strides, floats: a
+  // warp's 32 dS staging writes and bias reads, rows 2q + x and columns
+  // g, hit 32 banks
   static constexpr int DSS = MBK + 4;
+  static constexpr int BS = MBK + 4;
   static constexpr size_t KV = size_t(MBK) * RS;  // the K or V tile
   static constexpr size_t QT = size_t(BQ) * RS;   // one Q or dO' tile
-  // K (split in place into its hi), its lo, V; two Q and two dO' tiles
-  // (each split in place into its hi), the current tile's Q and dO' lo;
-  // two delta' rows; dS
-  static constexpr size_t SMEM =
-      3 * KV + 6 * QT + (2 * size_t(BQ) + size_t(BQ) * DSS) * sizeof(float);
+  // K (K2: split in place into its hi, its lo beside it; K3b: split at
+  // each fragment load), V; two Q and two dO' tiles (each split in place
+  // into its hi), the current tile's Q and dO' lo; two delta' rows; then
+  // K2's dS, or K3b's two bias tiles (BQ queries x 64 keys, f32)
+  static constexpr size_t BASE =
+      (DQ ? 3 : 2) * KV + 6 * QT + 2 * size_t(BQ) * sizeof(float);
+  static constexpr size_t DST = size_t(BQ) * DSS * sizeof(float);
+  static constexpr size_t BIAS = 2 * size_t(BQ) * BS * sizeof(float);
 };
 
-template <int D>
-__global__ void __launch_bounds__(Tf32Layout<D>::NT, 1)
+template <int D, bool DQ>
+__global__ void __launch_bounds__(Tf32Layout<D, DQ>::NT, 1)
     dkdv_tf32_kernel(Params p) {
-  using L = Tf32Layout<D>;
+  using L = Tf32Layout<D, DQ>;
   constexpr int BQ = L::BQ, RS = L::RS, RF = L::RF, DSS = L::DSS, NTH = L::NT;
   constexpr int NQ = BQ / 8;    // n8 tiles of a warp's (16 keys x BQ) tile
   constexpr int ND = D / 8;     // n8 tiles over the head dim
@@ -911,14 +950,15 @@ __global__ void __launch_bounds__(Tf32Layout<D>::NT, 1)
   static_assert(NDQ % NH == 0, "dQ passes split the part evenly");
   extern __shared__ __align__(16) unsigned char msmem[];
   unsigned char* ks = msmem;
-  unsigned char* kls = ks + L::KV;
-  unsigned char* vs = kls + L::KV;
+  unsigned char* kls = ks + L::KV;       // K2: K's lo
+  unsigned char* vs = ks + (DQ ? 2 : 1) * L::KV;
   unsigned char* qs = vs + L::KV;        // 2 buffers
   unsigned char* dos = qs + 2 * L::QT;   // 2 buffers
   unsigned char* qls = dos + 2 * L::QT;  // the current tile's lo
   unsigned char* dols = qls + L::QT;
   float* dls = reinterpret_cast<float*>(dols + L::QT);  // 2 x BQ
-  float* dss = dls + 2 * BQ;             // BQ x DSS
+  float* dss = dls + 2 * BQ;             // K2: BQ x DSS
+  float* bss = dls + 2 * BQ;             // K3b: 2 bias tiles, BQ x BS
 
   const int kvhi = blockIdx.x, bi = blockIdx.y, k0 = blockIdx.z * MBK;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -938,6 +978,9 @@ __global__ void __launch_bounds__(Tf32Layout<D>::NT, 1)
   auto q_rows = [&](int it) {  // the query rows' first index, (b, h, 0)
     return (size_t(bi) * p.H + kvhi * G + it / per_head) * p.seq_q;
   };
+  // bias rows in 16-byte units
+  const bool bias16 =
+      p.seq_k % 4 == 0 && reinterpret_cast<uintptr_t>(p.bias) % 16 == 0;
   auto load_tile = [&](int it, int buf) {
     const size_t qrow0 = q_rows(it);
     const int q0 = (qt0 + it % per_head) * BQ;
@@ -952,6 +995,13 @@ __global__ void __launch_bounds__(Tf32Layout<D>::NT, 1)
       cp_async4(dls + buf * BQ + i, in ? p.delta + qrow0 + q0 + i : p.delta,
                 in ? 4 : 0);
     }
+    if (DQ || p.bias == nullptr) return;
+    // K3b: the bias tile (queries q0.., keys k0..), past either length as 0
+    const int hb = p.bias_batch_dim ? bi : kvhi * G + it / per_head;
+    load_bias_tile<NTH>(bss + buf * BQ * L::BS,
+                        p.bias + (size_t(hb) * p.seq_q + q0) * p.seq_k + k0,
+                        BQ, MBK, p.seq_q - q0, p.seq_k - k0, p.seq_k, L::BS,
+                        bias16);
   };
 
   if (total > 0) {
@@ -1031,10 +1081,10 @@ __global__ void __launch_bounds__(Tf32Layout<D>::NT, 1)
       unsigned char* qt = qs + buf * L::QT;
       unsigned char* dot = dos + buf * L::QT;
       const float* dl = dls + buf * BQ;
-      // every warp reads all of the tile's Q and dO' rows, and (for dQ) all
-      // of K: split them once, for the block.  V is read by its own warp
-      // only, and split at each fragment load
-      if (it == 0) split_rows<D, RS, NTH>(ks, kls, MBK);
+      // every warp reads all of the tile's Q and dO' rows, and (K2's dQ)
+      // all of K: split them once, for the block.  V, and K3b's K, are
+      // read by their own warp only, and split at each fragment load
+      if (DQ && it == 0) split_rows<D, RS, NTH>(ks, kls, MBK);
       split_rows<D, RS, NTH>(qt, qls, BQ);
       split_rows<D, RS, NTH>(dot, dols, BQ);
       __syncthreads();  // the tiles' hi and lo are in place
@@ -1051,8 +1101,16 @@ __global__ void __launch_bounds__(Tf32Layout<D>::NT, 1)
         uint32_t kh[4], kl[4], va[4], vh[4], vl[4];
         const int arow =
             (kg * 16 + (lane & 15)) * RS + st * 32 + (lane >> 4) * 16;
-        ldmatrix_x4(kh, ks + arow);
-        ldmatrix_x4(kl, kls + arow);
+        if constexpr (DQ) {
+          ldmatrix_x4(kh, ks + arow);
+          ldmatrix_x4(kl, kls + arow);
+        } else {
+          uint32_t ka[4];
+          ldmatrix_x4(ka, ks + arow);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            split_tf32(__uint_as_float(ka[i]), kh[i], kl[i]);
+        }
         ldmatrix_x4(va, vs + arow);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -1075,9 +1133,12 @@ __global__ void __launch_bounds__(Tf32Layout<D>::NT, 1)
 
       // e^T into s, dS^T into dp, in the C layout: entry (n, 2h + x) is key
       // keys[h], query q0 + 8n + 2tq + x; the masks skipped on whole tiles,
-      // as in dkdv_mma_kernel
+      // as in dkdv_mma_kernel; K3b's bias comes from its staged tile, in
+      // f32, never split
       const bool whole = keys_whole && q0 + BQ <= p.seq_q &&
                          (!p.causal || k0 + MBK - 1 <= q0 + diff);
+      const bool has_bias = !DQ && p.bias != nullptr;
+      const float* bt = bss + buf * BQ * L::BS + kg * 16 + g;
 #pragma unroll
       for (int n = 0; n < NQ; ++n)
 #pragma unroll
@@ -1086,7 +1147,8 @@ __global__ void __launch_bounds__(Tf32Layout<D>::NT, 1)
           const float dlt = dl[col];
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const float lg = s[n][2 * h + x] * p.c;
+            float lg = s[n][2 * h + x] * p.c;
+            if (has_bias) lg += bt[col * L::BS + 8 * h] * LOG2E;
             float e, ds;
             if (whole) {
               e = exp2f(lg);
@@ -1099,8 +1161,8 @@ __global__ void __launch_bounds__(Tf32Layout<D>::NT, 1)
             }
             s[n][2 * h + x] = e;
             dp[n][2 * h + x] = ds;
-            // stage dS (queries x keys) for dQ = dS.K
-            dss[col * DSS + kg * 16 + g + 8 * h] = ds;
+            // K2: stage dS (queries x keys) for dQ = dS.K
+            if constexpr (DQ) dss[col * DSS + kg * 16 + g + 8 * h] = ds;
           }
         }
 
@@ -1114,42 +1176,45 @@ __global__ void __launch_bounds__(Tf32Layout<D>::NT, 1)
           acc[1], dp, reinterpret_cast<const float*>(qt),
           reinterpret_cast<const float*>(qls), lane);
 
-      // dQ rows of this tile += dS.K over the block's 64 keys: warp w takes
-      // query group w % QG and head-dim part w / QG.  A lane's float2 reads
-      // of dS rows g and g + 8 at keys 8kk + 2tq are dS's C fragment of
-      // that k8 step, fed to add_product_tf32x3 as an A fragment
-      __syncthreads();  // every warp's dS is staged
-      const int qg = warp % QG, dpart = warp / QG;
-      float* dqb = p.dq_acc + qrow0 * D;
+      if constexpr (DQ) {
+        // dQ rows of this tile += dS.K over the block's 64 keys: warp w takes
+        // query group w % QG and head-dim part w / QG.  A lane's float2 reads
+        // of dS rows g and g + 8 at keys 8kk + 2tq are dS's C fragment of
+        // that k8 step, fed to add_product_tf32x3 as an A fragment
+        __syncthreads();  // every warp's dS is staged
+        const int qg = warp % QG, dpart = warp / QG;
+        float* dqb = p.dq_acc + qrow0 * D;
 #pragma unroll
-      for (int hp = 0; hp < NH; ++hp) {
-        const int c0 = (dpart * NDQ + hp * NDH) * 8;  // the pass's columns
-        float dq[NDH][4];
-#pragma unroll
-        for (int n = 0; n < NDH; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < MBK / 8; ++kk) {
-          const float* row = dss + (qg * 16 + g) * DSS + kk * 8 + 2 * tq;
-          const float2 r0 = *reinterpret_cast<const float2*>(row);
-          const float2 r8 = *reinterpret_cast<const float2*>(row + 8 * DSS);
-          const float cf[1][4] = {{r0.x, r0.y, r8.x, r8.y}};
-          const int at = kk * 8 * RF + c0;
-          add_product_tf32x3<8, NDH * 8, RF>(dq, cf, kf + at, klf + at, lane);
-        }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = q0 + qg * 16 + g + 8 * h;
-          if (row >= p.seq_q) continue;
+        for (int hp = 0; hp < NH; ++hp) {
+          const int c0 = (dpart * NDQ + hp * NDH) * 8;  // the pass's columns
+          float dq[NDH][4];
 #pragma unroll
           for (int n = 0; n < NDH; ++n)
-            atomicAdd(reinterpret_cast<float2*>(
-                          dqb + size_t(row) * D + c0 + n * 8 + 2 * tq),
-                      make_float2(dq[n][2 * h], dq[n][2 * h + 1]));
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < MBK / 8; ++kk) {
+            const float* row = dss + (qg * 16 + g) * DSS + kk * 8 + 2 * tq;
+            const float2 r0 = *reinterpret_cast<const float2*>(row);
+            const float2 r8 = *reinterpret_cast<const float2*>(row + 8 * DSS);
+            const float cf[1][4] = {{r0.x, r0.y, r8.x, r8.y}};
+            const int at = kk * 8 * RF + c0;
+            add_product_tf32x3<8, NDH * 8, RF>(dq, cf, kf + at, klf + at, lane);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = q0 + qg * 16 + g + 8 * h;
+            if (row >= p.seq_q) continue;
+#pragma unroll
+            for (int n = 0; n < NDH; ++n)
+              atomicAdd(reinterpret_cast<float2*>(
+                            dqb + size_t(row) * D + c0 + n * 8 + 2 * tq),
+                        make_float2(dq[n][2 * h], dq[n][2 * h + 1]));
+          }
         }
       }
-      __syncthreads();  // the next tile's loads, splits and dS may overwrite
+      __syncthreads();  // the next tile's loads, splits, dS and bias may
+                        // overwrite
     }
     close_chain();
   }
@@ -1162,6 +1227,63 @@ __global__ void __launch_bounds__(Tf32Layout<D>::NT, 1)
 
 constexpr int DQ_BQ = 64;   // queries per block
 constexpr int DQ_NT = 128;  // threads: 4 warps
+
+// K3a's dS and dB step (dq_mma_kernel, dq_tf32_kernel): dS into dp, in the
+// C layout of the warp's (16 x 8 NS) tile: entry (n, 2h + x) is query
+// rows[h], key k0 + 8n + 2tq + x.  A tile whose every (query, key) pair is
+// visible (no key mask, inside both lengths and the causal diagonal) skips
+// the masks; hidden entries are selected to exact 0.  The bias comes from
+// its staged f32 tile (bt: this thread's row g and column 2tq, rows BS
+// floats apart; nullptr without a bias), added to the logit in f32.  Each
+// (row, key pair) adds its two dS to dB (db: the head's slice) at once, as
+// a float2 where a row's entries pair up 8-byte aligned (even seq_k: the
+// tile columns 2tq are even), else as scalars
+template <int NS, int BS>
+__device__ __forceinline__ void dq_ds_db(const Params& p, const float (&s)[NS][4],
+                                         float (&dp)[NS][4],
+                                         const int (&rows)[2],
+                                         const float (&dlt)[2], const float* bt,
+                                         const uint8_t* mb, float* db, int q0,
+                                         int k0, int tq) {
+  constexpr int BK = 8 * NS;
+  const int diff = p.seq_k - p.seq_q;
+  const bool whole = mb == nullptr && k0 + BK <= p.seq_k &&
+                     q0 + DQ_BQ <= p.seq_q &&
+                     (!p.causal || k0 + BK - 1 <= q0 + diff);
+  const bool db2 = p.seq_k % 2 == 0;
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = k0 + n * 8 + 2 * tq;
+      float2 bv = make_float2(0.f, 0.f);
+      if (bt != nullptr)
+        bv = *reinterpret_cast<const float2*>(bt + 8 * h * BS + n * 8);
+      float ds[2];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const float lg = s[n][2 * h + x] * p.c + (x ? bv.y : bv.x) * LOG2E;
+        bool keep = true;
+        if (!whole) {
+          const int c = col + x;
+          keep = rows[h] < p.seq_q && c < p.seq_k;
+          if (p.causal) keep = keep && c <= rows[h] + diff;
+          if (mb != nullptr) keep = keep && mb[min(c, p.seq_k - 1)] != 0;
+        }
+        ds[x] = keep ? exp2f(lg) * (dp[n][2 * h + x] - dlt[h]) : 0.f;
+        dp[n][2 * h + x] = ds[x];
+      }
+      if (db != nullptr && (ds[0] != 0.f || ds[1] != 0.f)) {
+        float* at = db + size_t(rows[h]) * p.seq_k + col;
+        if (db2 && col + 1 < p.seq_k) {
+          atomicAdd(reinterpret_cast<float2*>(at), make_float2(ds[0], ds[1]));
+        } else {
+          if (ds[0] != 0.f) atomicAdd(at, ds[0]);
+          if (ds[1] != 0.f) atomicAdd(at + 1, ds[1]);
+        }
+      }
+    }
+}
 
 template <int D>
 struct DqLayout {
@@ -1244,9 +1366,6 @@ __global__ void __launch_bounds__(DQ_NT, 1) dq_mma_kernel(Params p) {
 #pragma unroll
   for (int h = 0; h < 2; ++h)
     dlt[h] = rows[h] < p.seq_q ? p.delta[qrow0 + rows[h]] : 0.f;
-  // dS goes to dB as float2 adds where a row's entries pair up 8-byte
-  // aligned (even seq_k: the tile columns 2tq are even)
-  const bool db2 = p.seq_k % 2 == 0;
 
   float dq[ND][4];
 #pragma unroll
@@ -1308,47 +1427,12 @@ __global__ void __launch_bounds__(DQ_NT, 1) dq_mma_kernel(Params p) {
       }
     }
 
-    // dS into dp, in the C layout: entry (n, 2h + x) is query rows[h], key
-    // k0 + 8n + 2tq + x.  A tile whose every (query, key) pair is visible
-    // (no key mask, inside both lengths and the causal diagonal) skips the
-    // masks; the bias comes from its staged tile.  Each (row, key pair)
-    // adds its two dS to dB at once
-    const bool whole = mb == nullptr && k0 + BK <= p.seq_k &&
-                       q0 + DQ_BQ <= p.seq_q &&
-                       (!p.causal || k0 + BK - 1 <= q0 + diff);
-    const float* bt = bss + buf * DQ_BQ * BS + (warp * 16 + g) * BS + 2 * tq;
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int col = k0 + n * 8 + 2 * tq;
-        float2 bv = make_float2(0.f, 0.f);
-        if (bb != nullptr)
-          bv = *reinterpret_cast<const float2*>(bt + 8 * h * BS + n * 8);
-        float ds[2];
-#pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          const float lg = s[n][2 * h + x] * p.c + (x ? bv.y : bv.x) * LOG2E;
-          bool keep = true;
-          if (!whole) {
-            const int c = col + x;
-            keep = rows[h] < p.seq_q && c < p.seq_k;
-            if (p.causal) keep = keep && c <= rows[h] + diff;
-            if (mb != nullptr) keep = keep && mb[min(c, p.seq_k - 1)] != 0;
-          }
-          ds[x] = keep ? exp2f(lg) * (dp[n][2 * h + x] - dlt[h]) : 0.f;
-          dp[n][2 * h + x] = ds[x];
-        }
-        if (db != nullptr && (ds[0] != 0.f || ds[1] != 0.f)) {
-          float* at = db + size_t(rows[h]) * p.seq_k + col;
-          if (db2 && col + 1 < p.seq_k) {
-            atomicAdd(reinterpret_cast<float2*>(at), make_float2(ds[0], ds[1]));
-          } else {
-            if (ds[0] != 0.f) atomicAdd(at, ds[0]);
-            if (ds[1] != 0.f) atomicAdd(at + 1, ds[1]);
-          }
-        }
-      }
+    // dS into dp, and its adds to dB (dq_ds_db)
+    dq_ds_db<NS, BS>(p, s, dp, rows, dlt,
+                     bb != nullptr ? bss + buf * DQ_BQ * BS +
+                                         (warp * 16 + g) * BS + 2 * tq
+                                   : nullptr,
+                     mb, db, q0, k0, tq);
 
     // dQ += dS.K: dS's C fragments are its A fragments (hi and lo), K is
     // read by ldmatrix.trans
@@ -1365,6 +1449,191 @@ __global__ void __launch_bounds__(DQ_NT, 1) dq_mma_kernel(Params p) {
     for (int n = 0; n < ND; ++n)
       *reinterpret_cast<uint32_t*>(dqb + size_t(rows[h]) * D + n * 8 + 2 * tq) =
           pack_bf16(dq[n][2 * h] * p.scale, dq[n][2 * h + 1] * p.scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core f32 K3a (3xTF32) at d <= 128: dq_mma_kernel's grid and block
+// (query tiles heaviest first, DQ_NT threads, warp w owning queries q0 +
+// 16w ..), every product as three tf32 mma.sync passes.
+
+template <int D>
+struct DqTf32Layout {
+  // keys a tile: 32 from d 64 (64-key tiles would take 136 KB at d 64,
+  // one block an SM; 32-key tiles keep two, with or without a bias)
+  static constexpr int BK = D <= 32 ? 64 : 32;
+  // f32 rows of D + 4 floats, as in Tf32Layout: ldmatrix rows hit 8
+  // banks, add_product_tf32x3's two rows 8 banks apart
+  static constexpr int RF = D + 4;
+  static constexpr int RS = 4 * RF;
+  static constexpr int BS = BK + 8;  // bias row stride, floats (DqLayout's)
+  static constexpr size_t QT = size_t(DQ_BQ) * RS;  // the Q or dO' tile
+  static constexpr size_t KT = size_t(BK) * RS;     // one K or V tile
+  // Q, dO' (split at each fragment load: a warp reads its own rows); two
+  // K and two V tiles (each split in place into its hi), the current K
+  // and V tiles' lo; then two bias tiles (64 queries x BK keys, f32)
+  static constexpr size_t BASE = 2 * QT + 6 * KT;
+  static constexpr size_t BIAS = 2 * size_t(DQ_BQ) * BS * sizeof(float);
+};
+
+template <int D>
+__global__ void __launch_bounds__(DQ_NT, 1) dq_tf32_kernel(Params p) {
+  using L = DqTf32Layout<D>;
+  constexpr int BK = L::BK, RS = L::RS, RF = L::RF, BS = L::BS;
+  constexpr int NS = BK / 8;  // n8 tiles of a warp's (16 x BK) S tile
+  constexpr int ND = D / 8;   // n8 tiles of dQ
+  extern __shared__ __align__(16) unsigned char msmem[];
+  unsigned char* qs = msmem;
+  unsigned char* dos = qs + L::QT;
+  unsigned char* ks = dos + L::QT;       // 2 buffers
+  unsigned char* vs = ks + 2 * L::KT;    // 2 buffers
+  unsigned char* kls = vs + 2 * L::KT;   // the current tiles' lo
+  unsigned char* vls = kls + L::KT;
+  float* bss = reinterpret_cast<float*>(vls + L::KT);  // 2 bias tiles
+
+  const int bi = blockIdx.z, hi = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * DQ_BQ;  // heaviest first
+  const int kvhi = hi / (p.H / p.KVH);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int diff = p.seq_k - p.seq_q;
+  const size_t qrow0 = (size_t(bi) * p.H + hi) * p.seq_q;
+  const size_t kvrow0 = (size_t(bi) * p.KVH + kvhi) * p.seq_k;
+  const uint8_t* mb = p.mask ? p.mask + size_t(bi) * p.seq_k : nullptr;
+  const size_t bslice = size_t(p.bias_batch_dim ? bi : hi) * p.seq_q * p.seq_k;
+  const float* bb = p.bias ? p.bias + bslice : nullptr;
+  float* db = p.db ? p.db + bslice : nullptr;
+
+  // keys this block can see: all, or (causal) up to its last row's diagonal
+  const int last_row = min(q0 + DQ_BQ, p.seq_q) - 1;
+  const int kend = p.causal ? max(0, min(p.seq_k, last_row + diff + 1)) : p.seq_k;
+  const int nk = (kend + BK - 1) / BK;
+
+  const bool bias16 =
+      p.seq_k % 4 == 0 && reinterpret_cast<uintptr_t>(p.bias) % 16 == 0;
+  auto load_kv = [&](int kt, int buf) {
+    const int k0 = kt * BK;
+    load_rows<4 * D, RS, DQ_NT>(ks + buf * L::KT,
+                                static_cast<const float*>(p.k) + kvrow0 * D,
+                                k0, BK, p.seq_k);
+    load_rows<4 * D, RS, DQ_NT>(vs + buf * L::KT,
+                                static_cast<const float*>(p.v) + kvrow0 * D,
+                                k0, BK, p.seq_k);
+    if (bb != nullptr)
+      load_bias_tile<DQ_NT>(bss + buf * DQ_BQ * BS,
+                            bb + size_t(q0) * p.seq_k + k0, DQ_BQ, BK,
+                            p.seq_q - q0, p.seq_k - k0, p.seq_k, BS, bias16);
+  };
+  if (nk > 0) {
+    load_rows<4 * D, RS, DQ_NT>(qs, static_cast<const float*>(p.q) + qrow0 * D,
+                                q0, DQ_BQ, p.seq_q);
+    load_rows<4 * D, RS, DQ_NT>(dos,
+                                static_cast<const float*>(p.dO) + qrow0 * D,
+                                q0, DQ_BQ, p.seq_q);
+    load_kv(0, 0);
+  }
+  cp_async_commit();
+
+  // this thread's query rows: C rows g and g + 8 of the warp's 16
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  float dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    dlt[h] = rows[h] < p.seq_q ? p.delta[qrow0 + rows[h]] : 0.f;
+  const int arow = (warp * 16 + (lane & 15)) * RS + (lane >> 4) * 16;
+
+  // dQ sums every visible key, each mma rounding its sum toward zero.
+  // Every CHAIN tiles (256 keys) the chain is closed: dq is added, to
+  // nearest, into dQ's running sum dqs (registers) and restarts from 0
+  constexpr int CHAIN = 256 / BK;
+  float dq[ND][4], dqs[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = dqs[n][e] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1, k0 = kt * BK;
+    if (kt + 1 < nk) load_kv(kt + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile kt (and, at kt 0, Q and dO') has landed
+    unsigned char* kt_s = ks + buf * L::KT;
+    unsigned char* vt_s = vs + buf * L::KT;
+    // every warp reads all of K and V: split them once, for the block
+    split_rows<D, RS, DQ_NT>(kt_s, kls, BK);
+    split_rows<D, RS, DQ_NT>(vt_s, vls, BK);
+    __syncthreads();  // the tiles' hi and lo are in place
+
+    // S = Q.K^T, dP' = dO'.V^T: the warp's Q and dO' A fragments split as
+    // they are read; x4 ldmatrix of K / V hi and lo give the B fragments
+    // of 2 n8 tiles
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int st = 0; st < D / 8; ++st) {
+      uint32_t qa[4], da[4], qh[4], ql[4], dh[4], dl[4];
+      ldmatrix_x4(qa, qs + arow + st * 32);
+      ldmatrix_x4(da, dos + arow + st * 32);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        split_tf32(__uint_as_float(qa[i]), qh[i], ql[i]);
+        split_tf32(__uint_as_float(da[i]), dh[i], dl[i]);
+      }
+#pragma unroll
+      for (int j = 0; j < NS / 2; ++j) {
+        const int brow = (j * 16 + (lane & 7) + (lane >> 4) * 8) * RS +
+                         st * 32 + ((lane >> 3) & 1) * 16;
+        uint32_t bh[4], bl[4];
+        ldmatrix_x4(bh, kt_s + brow);
+        ldmatrix_x4(bl, kls + brow);
+        mma_tf32x3(s[2 * j], qh, ql, bh[0], bh[1], bl[0], bl[1]);
+        mma_tf32x3(s[2 * j + 1], qh, ql, bh[2], bh[3], bl[2], bl[3]);
+        ldmatrix_x4(bh, vt_s + brow);
+        ldmatrix_x4(bl, vls + brow);
+        mma_tf32x3(dp[2 * j], dh, dl, bh[0], bh[1], bl[0], bl[1]);
+        mma_tf32x3(dp[2 * j + 1], dh, dl, bh[2], bh[3], bl[2], bl[3]);
+      }
+    }
+
+    // dS into dp (the bias added in f32, never split), and its adds to dB
+    dq_ds_db<NS, BS>(p, s, dp, rows, dlt,
+                     bb != nullptr ? bss + buf * DQ_BQ * BS +
+                                         (warp * 16 + g) * BS + 2 * tq
+                                   : nullptr,
+                     mb, db, q0, k0, tq);
+
+    // dQ += dS.K with dS in f32 (split hi / lo in registers): the C
+    // fragment of S holds keys 2q and 2q + 1, which serve as the tf32 A
+    // fragment's k indices q and q + 4 when K's rows are read in that order
+    // (add_product_tf32x3), so dS is never staged
+    add_product_tf32x3<BK, D, RF>(dq, dp, reinterpret_cast<const float*>(kt_s),
+                                  reinterpret_cast<const float*>(kls), lane);
+    __syncthreads();  // the next tile's loads and splits may overwrite these
+    if ((kt + 1) % CHAIN == 0) {
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dqs[n][e] += dq[n][e];
+          dq[n][e] = 0.f;
+        }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* dqb = static_cast<float*>(p.dq) + qrow0 * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (rows[h] >= p.seq_q) continue;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<float2*>(dqb + size_t(rows[h]) * D + n * 8 + 2 * tq) =
+          make_float2((dqs[n][2 * h] + dq[n][2 * h]) * p.scale,
+                      (dqs[n][2 * h + 1] + dq[n][2 * h + 1]) * p.scale);
   }
 }
 
@@ -2305,26 +2574,37 @@ cudaError_t run(Which which, const Params& p, int B, cudaStream_t s) {
                         L2::BASE + L2::DST, s, p)
                : launch(dkdv_mma_kernel<T, D, false>, grid, L3::NT,
                         L3::BASE + (p.bias ? L3::BIAS : 0), s, p);
-  } else {
+  } else if constexpr (D <= 128) {  // K2, K3a, K3b on the tensor cores
+                                     // (3xTF32)
+    for (const void* t : {p.q, p.k, p.v, p.dO})
+      if (reinterpret_cast<uintptr_t>(t) % 16 != 0)
+        return cudaErrorMisalignedAddress;
+    if (which == DQ) {
+      using L = DqTf32Layout<D>;
+      static_assert(L::BASE + L::BIAS <= 232448, "K3a f32 shared memory");
+      return launch(dq_tf32_kernel<D>,
+                    dim3((p.seq_q + DQ_BQ - 1) / DQ_BQ, p.H, B), DQ_NT,
+                    L::BASE + (p.bias ? L::BIAS : 0), s, p);
+    }
+    // key tiles slowest, so the causal blocks with the most work go first
+    const dim3 grid(p.KVH, B, (p.seq_k + MBK - 1) / MBK);
+    using L2 = Tf32Layout<D, true>;
+    using L3 = Tf32Layout<D, false>;
+    static_assert(L3::BASE + L3::BIAS <= 232448, "K3b f32 shared memory");
+    return which == ONEPASS
+               ? launch(dkdv_tf32_kernel<D, true>, grid, L2::NT,
+                        L2::BASE + L2::DST, s, p)
+               : launch(dkdv_tf32_kernel<D, false>, grid, L3::NT,
+                        L3::BASE + (p.bias ? L3::BIAS : 0), s, p);
+  } else {  // f32 at d 192 and 256 on FMAs
     using F = Fma<D>;
     if (which == DQ)
       return launch(dq_kernel<T, D>, dim3((p.seq_q + F::B - 1) / F::B, p.H, B),
                     NT, F::SMEM, s, p);
     const dim3 kgrid((p.seq_k + F::B - 1) / F::B, p.KVH, B);
-    if (which == DKDV)
-      return launch(dkdv_kernel<T, D, false>, kgrid, NT, F::SMEM, s, p);
-    if constexpr (D <= 128) {  // K2 on the tensor cores (3xTF32)
-      for (const void* t : {p.q, p.k, p.v, p.dO})
-        if (reinterpret_cast<uintptr_t>(t) % 16 != 0)
-          return cudaErrorMisalignedAddress;
-      using L = Tf32Layout<D>;
-      // key tiles slowest, so the causal blocks with the most work go first
-      return launch(dkdv_tf32_kernel<D>,
-                    dim3(p.KVH, B, (p.seq_k + MBK - 1) / MBK), L::NT, L::SMEM,
-                    s, p);
-    } else {
-      return launch(dkdv_kernel<T, D, true>, kgrid, NT, F::SMEM, s, p);
-    }
+    return which == DKDV
+               ? launch(dkdv_kernel<T, D, false>, kgrid, NT, F::SMEM, s, p)
+               : launch(dkdv_kernel<T, D, true>, kgrid, NT, F::SMEM, s, p);
   }
 }
 
@@ -2402,8 +2682,9 @@ int dispatch(Which which, Params p, int dtype, int B, int d, void* stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the dq/dk/dv outputs
-// share it).  bfloat16 runs on the tensor cores; float32 K2 on them as
-// 3xTF32 up to d 128, and on FMAs elsewhere (K3a, K3b, and d past 128).
+// share it).  bfloat16 runs on the tensor cores; float32 K2, K3a and K3b
+// on them as 3xTF32 up to d 128, and on FMAs above (d 192, 256 and the
+// wide route).
 // All tensors contiguous, shapes as in Params; mask uint8 or null, bias
 // f32 or null.  Each returns the cudaGetLastError() after its launch (0 =
 // success).

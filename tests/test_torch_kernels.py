@@ -5,9 +5,9 @@ JAX package, so it also runs where flax is not installed:
 
     python -m pytest tests/test_torch_kernels.py -q -m cuda
 
-Tolerances: float32 1e-4 (same maths, other sum order; K1 and K2 in
-float32 up to d 128 form each product as three TF32 products of a hi /
-lo split of its operands, 3xTF32, good to ~2^-21 of each); bf16
+Tolerances: float32 1e-4 (same maths, other sum order; K1, K2, K3a and
+K3b in float32 up to d 128 form each product as three TF32 products of a
+hi / lo split of its operands, 3xTF32, good to ~2^-21 of each); bf16
 outputs 2e-2 (a few bf16 ulps at |o| <= 2); inv_l 1e-5 relative; the
 contiguous decode kernel 2e-3 on f32 output; the int8-weight matmul
 1e-4 (f32) and 2e-2 (bf16) of max(1, max|y|).  The
@@ -1057,26 +1057,33 @@ def test_long_queries_take_the_two_pass_kernels(cuda_device):
 
 def _kernel_names(work):
     """The CUDA kernels one call of ``work`` launched, as the profiler
-    names them (after a first call that builds and loads)."""
+    names them (after a first call that builds and loads).  A profile
+    that recorded no device event at all (the tracer missed the call: the
+    call itself raises on any failed launch) is taken again, at most
+    three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     work()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        work()
-        torch.cuda.synchronize()
-    return [e.key for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            work()
+            torch.cuda.synchronize()
+        keys = [e.key for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        if keys:
+            break
+    return keys
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [16, 64, 128, 192])
 def test_float32_runs_the_tf32_instances_up_to_d128(cuda_device, d):
-    """float32 K1 and the one-pass K2 run their 3xTF32 tensor-core
-    instances (fwd_tf32_kernel<D>, dkdv_tf32_kernel<D>) up to d 128 and
-    their FMA instances at d 192; the float32 two-pass route (K3a, K3b)
-    stays FMA at every width, as the profiler names them."""
+    """float32 K1, the one-pass K2 and the two-pass K3a and K3b run their
+    3xTF32 tensor-core instances (fwd_tf32_kernel<D>, dkdv_tf32_kernel<D,
+    true>, dq_tf32_kernel<D>, dkdv_tf32_kernel<D, false>) up to d 128 and
+    their FMA instances at d 192, as the profiler names them."""
     g = torch.Generator(device=cuda_device).manual_seed(14)
 
     def randn(*shape):
@@ -1097,17 +1104,65 @@ def test_float32_runs_the_tf32_instances_up_to_d128(cuda_device, d):
 
     keys = _kernel_names(work)
     if d <= 128:
-        want = [f"fwd_tf32_kernel<{d}>", f"dkdv_tf32_kernel<{d}>"]
-        assert not any("fwd_kernel<" in key
-                       or f"dkdv_kernel<float, {d}, true>" in key
-                       for key in keys), keys
+        want = [f"fwd_tf32_kernel<{d}>", f"dkdv_tf32_kernel<{d}, true>",
+                f"dq_tf32_kernel<{d}>", f"dkdv_tf32_kernel<{d}, false>"]
+        assert not any("fwd_kernel<" in key or "dq_kernel<" in key
+                       or "dkdv_kernel<" in key for key in keys), keys
     else:
-        want = [f"fwd_kernel<float, {d}>", f"dkdv_kernel<float, {d}, true>"]
+        want = [f"fwd_kernel<float, {d}>", f"dkdv_kernel<float, {d}, true>",
+                f"dq_kernel<float, {d}>", f"dkdv_kernel<float, {d}, false>"]
         assert not any("tf32" in key for key in keys), keys
-    want += [f"dq_kernel<float, {d}>", f"dkdv_kernel<float, {d}, false>"]
     for name in want:
         assert any(name in key for key in keys), (name, keys)
     assert not any("mma_kernel" in key for key in keys), keys
+
+
+# the float32 two-pass kernels' edges at every 3xTF32 width: GQA, causal
+# cross alignment with odd seq_k (dB by scalar adds, the bias staged 4
+# bytes at a time) and partial tiles, or a key mask without causal and
+# seq_q past seq_k; an (h, i, j) or a (b, i, j) bias
+TF32_TWOPASS_CASES = {"h": (2, 4, 2, 130, 197, True, False),
+                      "b": (2, 4, 4, 200, 130, False, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_kind", sorted(TF32_TWOPASS_CASES))
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
+def test_float32_two_pass_tf32_instances_match_plain(cuda_device, d,
+                                                     bias_kind):
+    """float32 K3a and K3b up to d 128 (dq_tf32_kernel<D>,
+    dkdv_tf32_kernel<D, false>, 3xTF32) hold dq, dk, dv and dB at the
+    float32 bar against the exact plain backward and against the plain
+    backward with the kernels' split (mm=dot_tf32x3), with a bias, and run
+    those instances by profiler name."""
+    from flash_cosine_sim_attention_tpu_torch.ops.mxu import dot_tf32x3
+
+    b, h, kvh, sq, sk, causal, masked = TF32_TWOPASS_CASES[bias_kind]
+    g = torch.Generator(device=cuda_device).manual_seed(18)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=cuda_device, generator=g)
+
+    q, k = l2norm_tensors(randn(b, h, sq, d), randn(b, kvh, sk, d), groups=8)
+    v = randn(b, kvh, sk, d)
+    mask = (torch.rand(b, sk, device=cuda_device, generator=g) > 0.3
+            if masked else None)
+    bias = 0.5 * randn(b if bias_kind == "b" else h, sq, sk)
+    kw = dict(bias_batch_dim=bias_kind == "b", scale=8.0, causal=causal)
+    o, inv_l = flash_attention_forward_plain(q, k, v, mask, bias, **kw)
+    args = (randn(*o.shape), o, inv_l, q, k, v, mask, bias)
+    got = bwd_kernel._backward_twopass(*args, **kw)
+    for mm in (None, dot_tf32x3):
+        want = flash_attention_backward_plain(*args, mm=mm, **kw)
+        for name, x, y in zip(("dq", "dk", "dv", "db"), got, want):
+            assert x.shape == y.shape and torch.isfinite(x).all(), name
+            err = _grad_err(x, y, torch.float32)
+            assert err <= GRAD_BARS[torch.float32], (name, mm, err)
+    keys = _kernel_names(lambda: bwd_kernel._backward_twopass(*args, **kw))
+    for name in (f"dq_tf32_kernel<{d}>", f"dkdv_tf32_kernel<{d}, false>"):
+        assert any(name in key for key in keys), (name, keys)
+    assert not any("dq_kernel<" in key or "dkdv_kernel<" in key
+                   for key in keys), keys
 
 
 @pytest.mark.cuda
@@ -1186,11 +1241,12 @@ def test_float32_kernels_keep_card_nans(cuda_device, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128])
 def test_float32_long_chains_with_offset_values(cuda_device, d):
-    """K1's O over 8192 keys and K2's dK, dV over 8192 queries are long
-    chains of tensor-core sums, each rounded toward zero; with v and dO'
-    of mean 3 every term of O and dV has one sign, so the drift adds up.
-    The float32 instances close each chain every 256 keys or queries and
-    hold the float32 bars against the plain versions."""
+    """K1's O and K3a's dQ over 8192 keys and K2's and K3b's dK, dV over
+    8192 queries are long chains of tensor-core sums, each rounded toward
+    zero; with v and dO' of mean 3 every term of O and dV has one sign, so
+    the drift adds up.  The float32 instances close each chain every 256
+    keys or queries and hold the float32 bars against the plain
+    versions."""
     g = torch.Generator(device=cuda_device).manual_seed(17)
 
     def randn(*shape):
@@ -1205,8 +1261,46 @@ def test_float32_long_chains_with_offset_values(cuda_device, d):
     assert ((inv_l - inv_p) / inv_p).abs().max().item() <= 1e-5
     do = randn(*o.shape) + 3
     args = (do, o_p, inv_p, q, k, v, None, None)
-    got = bwd_kernel._backward_onepass(*args[:7], scale=8.0, causal=True)
     want = flash_attention_backward_plain(*args, **kw)
+    for route, got in (
+            ("onepass", bwd_kernel._backward_onepass(
+                *args[:7], scale=8.0, causal=True)),
+            ("twopass", bwd_kernel._backward_twopass(*args, **kw)[:3])):
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            err = _grad_err(x, y, torch.float32)
+            assert err <= GRAD_BARS[torch.float32], (route, name, err)
+
+
+@pytest.mark.cuda
+def test_float32_two_pass_chains_at_seq_16384(cuda_device):
+    """The float32 long-context step's chains: past ONEPASS_BWD_MAX_SEQ the
+    backward is K3a and K3b, and at seq 16384 K1's O and K3a's dQ sum 16384
+    keys, K3b's dK and dV 16384 queries, each closed every 256 (v and dO'
+    of mean 3, as above); they hold the float32 bars against the plain
+    versions."""
+    g = torch.Generator(device=cuda_device).manual_seed(19)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=cuda_device, generator=g)
+
+    s = 16384
+    q, k = l2norm_tensors(randn(1, 2, s, 64), randn(1, 2, s, 64))
+    v = randn(1, 2, s, 64) + 3
+    kw = dict(bias_batch_dim=False, scale=8.0, causal=True)
+    o, inv_l = flash_attention_forward(q, k, v, None, None, **kw)
+    o_p, inv_p = flash_attention_forward_plain(q, k, v, None, None, **kw)
+    assert (o - o_p).abs().max().item() <= BARS[torch.float32]
+    assert ((inv_l - inv_p) / inv_p).abs().max().item() <= 1e-5
+    do = randn(*o.shape) + 3
+    args = (do, o_p, inv_p, q, k, v, None, None)
+    want = flash_attention_backward_plain(*args, **kw)
+    for fn in (bwd_kernel.fused_bwd_kernel, bwd_kernel.dq_kernel,
+               bwd_kernel.dkdv_kernel):
+        fn.launches = 0
+    got = bwd_kernel.flash_attention_backward(*args, **kw)
+    assert got[3] is None
+    assert (bwd_kernel.fused_bwd_kernel.launches, bwd_kernel.dq_kernel.launches,
+            bwd_kernel.dkdv_kernel.launches) == (0, 1, 1)
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
         err = _grad_err(x, y, torch.float32)
         assert err <= GRAD_BARS[torch.float32], (name, err)

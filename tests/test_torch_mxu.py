@@ -16,14 +16,19 @@ version.  These tests hold its error budget without a card:
 - the plain forward and backward with ``mm=dot_tf32x3`` against the same
   plain versions with each product correctly rounded from float64 (the
   exact products), at l2norm groups 1 and 8 and scale 1 and 8, causal and
-  key-masked: o and the gradients at the float32 bar 1e-4 (gradients in
-  units of max(1, max|g|), as the card tests hold them), inv_l at 1e-5
-  relative.  At 8 groups and scale 8 a logit reaches 64, and float32's
+  key-masked, and the backward (the float32 K2, K3a and K3b's plain
+  version) also with an (h, i, j) and a (b, i, j) bias at 8 groups and
+  scale 8, dB included: o and the gradients at the float32 bar 1e-4
+  (gradients in units of max(1, max|g|), as the card tests hold them),
+  inv_l at 1e-5 relative.  At 8 groups and scale 8 a logit reaches 64, and float32's
   own rounding of it moves inv_l by ~1e-5: there inv_l is held to twice
   the exact float32 plain version's own distance from the exact
   products, if that is larger than 1e-5;
 - the same forward against the JAX package's float32 forward (its Pallas
-  kernel in interpret mode, as the JAX suite runs it on the CPU) at 1e-4;
+  kernel in interpret mode, as the JAX suite runs it on the CPU) at 1e-4,
+  and the backward with a bias against JAX's float32 backward pinned to
+  its two-pass kernels (``_dq_kernel_t``, ``_dkdv_kernel_t``), whose
+  counterparts K3a and K3b take every float32 backward with a bias;
 - at 8 groups and scale 8, ``mm=dot_f32x3`` (the bfloat16 split) missing
   the float32 bars that ``mm=dot_tf32x3`` holds.
 """
@@ -33,6 +38,9 @@ import numpy as np
 import pytest
 import torch
 
+from flash_cosine_sim_attention_tpu.ops.bwd_kernel import (
+    flash_attention_backward as jax_backward,
+)
 from flash_cosine_sim_attention_tpu.ops.fwd_kernel import (
     flash_attention_forward as jax_forward,
 )
@@ -155,9 +163,12 @@ def test_split_tf32_reconstructs_x():
 
 def _inputs(groups, kind, seed=3):
     """b1 h2 d64: causal at s 256, or 96 queries x 200 keys with a key
-    mask; q, k l2-normalized in ``groups`` groups."""
+    mask; q, k l2-normalized in ``groups`` groups.  A ``kind`` ending in
+    "-bias-heads" or "-bias-batch" adds an (h, i, j) or (b, i, j) bias of
+    0.5 x a standard normal (the sixth value; None otherwise)."""
     rng = np.random.default_rng(seed)
-    sq, sk = (256, 256) if kind == "causal" else (96, 200)
+    causal = kind.startswith("causal")
+    sq, sk = (256, 256) if causal else (96, 200)
 
     def randn(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
@@ -165,18 +176,28 @@ def _inputs(groups, kind, seed=3):
     q, k = l2norm_tensors(randn(1, 2, sq, 64), randn(1, 2, sk, 64),
                           groups=groups)
     mask = None
-    if kind == "key-mask":
+    if not causal:
         mask = torch.from_numpy(rng.random((1, sk)) > 0.3)
-    return q, k, randn(1, 2, sk, 64), mask, randn(1, 2, sq, 64)
+    v, do = randn(1, 2, sk, 64), randn(1, 2, sq, 64)
+    bias = None
+    if kind.endswith("-bias-heads"):
+        bias = 0.5 * randn(2, sq, sk)
+    elif kind.endswith("-bias-batch"):
+        bias = 0.5 * randn(1, sq, sk)
+    return q, k, v, mask, do, bias
 
 
 SPLIT_CASES = [(groups, scale, kind) for groups in (1, 8) for scale in (1, 8)
                for kind in ("causal", "key-mask")]
+# the backward also with a bias (the two-pass kernels K3a and K3b), at 8
+# groups and scale 8, where logits reach 64
+BWD_SPLIT_CASES = SPLIT_CASES + [(8, 8, "causal-bias-heads"),
+                                 (8, 8, "key-mask-bias-batch")]
 
 
 @pytest.mark.parametrize("groups,scale,kind", SPLIT_CASES)
 def test_forward_with_tf32_split_matches_exact_products(groups, scale, kind):
-    q, k, v, mask, _ = _inputs(groups, kind)
+    q, k, v, mask, _, _ = _inputs(groups, kind)
     kw = dict(bias_batch_dim=False, scale=float(scale),
               causal=kind == "causal")
     o_x, l_x = flash_attention_forward_plain(q, k, v, mask, None,
@@ -191,23 +212,25 @@ def test_forward_with_tf32_split_matches_exact_products(groups, scale, kind):
         assert inv_l_bar == INV_L_BAR
 
 
-@pytest.mark.parametrize("groups,scale,kind", SPLIT_CASES)
+@pytest.mark.parametrize("groups,scale,kind", BWD_SPLIT_CASES)
 def test_backward_with_tf32_split_matches_exact_products(groups, scale,
                                                          kind):
-    q, k, v, mask, do = _inputs(groups, kind)
-    kw = dict(bias_batch_dim=False, scale=float(scale),
-              causal=kind == "causal")
-    o, inv_l = flash_attention_forward_plain(q, k, v, mask, None,
+    q, k, v, mask, do, bias = _inputs(groups, kind)
+    kw = dict(bias_batch_dim=kind.endswith("-bias-batch"),
+              scale=float(scale), causal=kind.startswith("causal"))
+    o, inv_l = flash_attention_forward_plain(q, k, v, mask, bias,
                                              mm=exact_mm, **kw)
-    args = (do, o, inv_l, q, k, v, mask, None)
+    args = (do, o, inv_l, q, k, v, mask, bias)
     want = flash_attention_backward_plain(*args, mm=exact_mm, **kw)
     got = flash_attention_backward_plain(*args, mm=dot_tf32x3, **kw)
-    for name, x, y in zip(("dq", "dk", "dv"), got, want):
-        assert _grad_err(x, y) <= F32_BAR, (name, _grad_err(x, y))
+    assert (got[3] is None) == (bias is None)
+    for name, x, y in zip(("dq", "dk", "dv", "db"), got, want):
+        if y is not None:
+            assert _grad_err(x, y) <= F32_BAR, (name, _grad_err(x, y))
 
 
 def test_forward_with_tf32_split_matches_jax_f32_forward():
-    q, k, v, mask, _ = _inputs(1, "key-mask")
+    q, k, v, mask, _, _ = _inputs(1, "key-mask")
     rng = np.random.default_rng(4)
     bias = rng.standard_normal((2, 96, 200)).astype(np.float32)
     kw = dict(bias_batch_dim=False, scale=8.0, causal=True)
@@ -218,6 +241,32 @@ def test_forward_with_tf32_split_matches_jax_f32_forward():
         q, k, v, mask, torch.from_numpy(bias), mm=dot_tf32x3, **kw)
     assert np.abs(o_s.numpy() - np.asarray(o_j)).max() <= F32_BAR
     assert np.abs(l_s.numpy() / np.asarray(l_j) - 1).max() <= F32_BAR
+
+
+def test_backward_with_tf32_split_matches_jax_f32_two_pass():
+    """The plain backward with ``mm=dot_tf32x3`` and an (h, i, j) bias, the
+    plain version of the float32 K3a and K3b, against the JAX package's
+    float32 backward pinned to its two-pass kernels (interpret mode), dq,
+    dk, dv and db at 1e-4 of max(1, max|g|), from JAX's own forward."""
+    q, k, v, mask, do, _ = _inputs(1, "key-mask")
+    rng = np.random.default_rng(4)
+    bias = rng.standard_normal((2, 96, 200)).astype(np.float32)
+    kw = dict(bias_batch_dim=False, scale=8.0, causal=True)
+    jq, jk, jv, jmask = (jnp.asarray(t.numpy()) for t in (q, k, v, mask))
+    o_j, l_j = jax_forward(jq, jk, jv, jmask, jnp.asarray(bias),
+                           interpret=True, **kw)
+    want = jax_backward(jnp.asarray(do.numpy()), o_j, l_j, jq, jk, jv, jmask,
+                        jnp.asarray(bias), interpret=True,
+                        blocks_t=(128, 128, 128),
+                        blocks_t_kv=(128, 128, 128), **kw)
+    got = flash_attention_backward_plain(
+        do, torch.from_numpy(np.array(o_j)),
+        torch.from_numpy(np.array(l_j)), q, k, v, mask,
+        torch.from_numpy(bias), mm=dot_tf32x3, **kw)
+    for name, x, y in zip(("dq", "dk", "dv", "db"), got, want):
+        y = torch.from_numpy(np.array(y))
+        assert x.shape == y.shape, name
+        assert _grad_err(x, y) <= F32_BAR, (name, _grad_err(x, y))
 
 
 def test_bf16_split_misses_the_f32_bar_where_tf32_holds():
