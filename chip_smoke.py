@@ -9,6 +9,10 @@
                                         # alone, profiled (1 card)
     python3 chip_smoke.py --f32-long-step  # the float32 training step
                                         # at seq 16384 alone (1 card)
+    python3 chip_smoke.py --f32-head256-step  # the heads-256 model's
+                                        # float32 training step alone
+    python3 chip_smoke.py --f32-wide-heads  # the float32 K1 and K2 at
+                                        # d 192 and 256 alone (1 card)
 
 Phases (any failure exits non-zero):
   1. device: requires CUDA; prints the card's name and power limit;
@@ -179,9 +183,18 @@ Phases (any failure exits non-zero):
      the bfloat16 split's plain versions must read), over long chains
      (s8192, and K1, K3a and K3b at the seq-16384 step's own b1 h8 s16384
      d64; values of mean 3: O's and dQ's keys, dK's and dV's queries)
-     and at 8 l2norm groups and scale 8 (logits to 64); then the
-     validation model's float32 training step profiled (device time a
-     step, K1's and K2's share and launches), and the same at seq 16384
+     and at 8 l2norm groups and scale 8 (logits to 64); K1 and the
+     one-pass K2 at d 192 and 256 (b4 h2 s1024 causal, the heads-256
+     model's shape) on their 3xTF32 instances by profiler name, against
+     the exact and the dot_tf32x3 plain versions, NaNs in q and v kept, at d
+     256 on a short chain (groups 8, scale 8) and over b1 h2 s16384,
+     timed beside their bounds, plain versions and SDPA f32, with K3a and
+     K3b (still FMA there) checked and timed at d 256 with an (h, i, j)
+     bias (--f32-wide-heads alone); then the validation model's float32
+     training step profiled (device time a step, K1's and K2's share and
+     launches), the heads-256 model's (--f32-head256-step alone: K1 and
+     K2 32 launches a step each on their d 256 3xTF32 instances, K3a and
+     K3b none, the idle share), and the validation model's at seq 16384
      (batch 1), where the backward takes K3a and K3b: device time a
      step, K1's, K3a's and K3b's share and launches, the idle share.
 Then one JSON line lists every ported kernel, and the entries of phases
@@ -949,10 +962,11 @@ def compare_backward(worst, name, args, kw, dtype, mask_kind):
 def time_backward(card: str, args, kw, args_b, kw_b):
     """K2 on ``args`` (causal, no bias) and K3a, K3b on ``args_b`` (causal,
     an (h, i, j) bias), in their dtype (bf16 bounded at the tensor cores'
-    peak, float32 up to d 128 by 3 x its operations at the TF32 tensor
-    cores' peak, the bound at the float32 peak outside them printed
-    beside), timed beside the plain backward and SDPA's; returns {kernel:
-    timing row}."""
+    peak; float32 on the tensor cores, K2 at every width and K3a and K3b
+    up to d 128, by 3 x its operations at the TF32 tensor cores' peak, the
+    bound at the float32 peak outside them printed beside; float32 K3a and
+    K3b at d 192 and 256 at that peak alone), timed beside the plain
+    backward and SDPA's; returns {kernel: timing row}."""
     import torch.nn.functional as F
 
     from flash_cosine_sim_attention_tpu_torch.ops import (
@@ -995,7 +1009,7 @@ def time_backward(card: str, args, kw, args_b, kw_b):
     ):
         ms = device_ms(call)
         bound_ms, by = bound(flops, nbytes, peak)
-        if q.dtype == torch.float32 and d <= 128:
+        if q.dtype == torch.float32 and (d <= 128 or name == "K2"):
             # 3xTF32: three products on the TF32 tensor cores for each of
             # the function's; the FMA bound (67 TFLOP/s) in brackets
             fma_ms = bound_ms
@@ -4548,11 +4562,12 @@ def scale8(g, card: str) -> None:
              f"gradients {grads}")
 
 
-def split_check(g, card: str) -> None:
-    """K1, the one-pass K2 and (with an (h, i, j) bias) the two-pass K3a
-    and K3b in float32 against the plain versions with the kernels' own
-    split (mm=dot_tf32x3), at b4 h8 s128 d64 causal, 8 l2norm groups and
-    scale 8, held to SPLIT_BARS (K3a on dq and db, K3b on dk and dv); the
+def split_check(g, card: str, d: int = 64, twopass: bool = True) -> None:
+    """K1, the one-pass K2 and (with an (h, i, j) bias, ``twopass``) the
+    two-pass K3a and K3b in float32 against the plain versions with the
+    kernels' own split (mm=dot_tf32x3), at b4 h8 s128 d``d`` causal, 8
+    l2norm groups and scale 8, held to SPLIT_BARS (K3a on dq and db, K3b
+    on dk and dv); the
     plain versions with JAX's bfloat16 split (mm=dot_f32x3) must read
     above the same bars against dot_tf32x3, else the check could not tell
     the two splits apart.  The chain is short: a long one (dK and dV sum every query)
@@ -4565,7 +4580,7 @@ def split_check(g, card: str) -> None:
     from flash_cosine_sim_attention_tpu_torch.ops.mxu import (
         dot_f32x3, dot_tf32x3)
 
-    b, h, s, d = 4, 8, 128, 64
+    b, h, s = 4, 8, 128
 
     def randn(*shape):
         return torch.randn(*(shape or (b, h, s, d)), device="cuda",
@@ -4588,6 +4603,19 @@ def split_check(g, card: str) -> None:
     k2 = [grad_err(x, y, torch.float32) for x, y in zip(got, want_t)]
     k2_b = [grad_err(x, y, torch.float32)
             for x, y in zip(want_b[:3], want_t)]
+    print(f"  against the dot_tf32x3 plain versions (b{b} h{h} s{s} d{d} "
+          f"causal, groups 8, scale 8) on {card}: K1 o {k1:.2e}, the "
+          f"dot_f32x3 (bf16 split) plain version {k1_b:.2e} (bar "
+          f"{SPLIT_BARS['K1']:g}; inv_l {max_rel(inv_l, inv_t):.2e} and "
+          f"{max_rel(inv_b, inv_t):.2e}); K2 dq, dk, dv "
+          f"{', '.join(f'{e:.2e}' for e in k2)}, the dot_f32x3 plain version "
+          f"{', '.join(f'{e:.2e}' for e in k2_b)} (bar {SPLIT_BARS['K2']:g})")
+    if not (k1 <= SPLIT_BARS["K1"] < k1_b
+            and max(k2) <= SPLIT_BARS["K2"] < max(k2_b)):
+        fail(f"f32 split check d{d}: K1 {k1} (bf16 split {k1_b}), K2 {k2} "
+             f"(bf16 split {k2_b})")
+    if not twopass:
+        return
     # the two-pass route on the same inputs with an (h, i, j) bias: K3a's
     # dq and db, K3b's dk and dv
     bias = 0.5 * randn(h, s, s)
@@ -4601,26 +4629,16 @@ def split_check(g, card: str) -> None:
     k3_b = [grad_err(x, y, torch.float32) for x, y in zip(want_b, want_t)]
     k3a, k3b = [k3[0], k3[3]], k3[1:3]
     k3a_b, k3b_b = [k3_b[0], k3_b[3]], k3_b[1:3]
-    print(f"  against the dot_tf32x3 plain versions (b{b} h{h} s{s} d{d} "
-          f"causal, groups 8, scale 8) on {card}: K1 o {k1:.2e}, the "
-          f"dot_f32x3 (bf16 split) plain version {k1_b:.2e} (bar "
-          f"{SPLIT_BARS['K1']:g}; inv_l {max_rel(inv_l, inv_t):.2e} and "
-          f"{max_rel(inv_b, inv_t):.2e}); K2 dq, dk, dv "
-          f"{', '.join(f'{e:.2e}' for e in k2)}, the dot_f32x3 plain version "
-          f"{', '.join(f'{e:.2e}' for e in k2_b)} (bar "
-          f"{SPLIT_BARS['K2']:g}); with an (h,i,j) bias, K3a dq, db "
+    print(f"  the same with an (h,i,j) bias, two-pass: K3a dq, db "
           f"{', '.join(f'{e:.2e}' for e in k3a)}, the dot_f32x3 plain "
           f"version {', '.join(f'{e:.2e}' for e in k3a_b)} (bar "
           f"{SPLIT_BARS['K3a']:g}); K3b dk, dv "
           f"{', '.join(f'{e:.2e}' for e in k3b)}, the dot_f32x3 plain "
           f"version {', '.join(f'{e:.2e}' for e in k3b_b)} (bar "
           f"{SPLIT_BARS['K3b']:g})")
-    if not (k1 <= SPLIT_BARS["K1"] < k1_b
-            and max(k2) <= SPLIT_BARS["K2"] < max(k2_b)
-            and max(k3a) <= SPLIT_BARS["K3a"] < max(k3a_b)
+    if not (max(k3a) <= SPLIT_BARS["K3a"] < max(k3a_b)
             and max(k3b) <= SPLIT_BARS["K3b"] < max(k3b_b)):
-        fail(f"f32 split check: K1 {k1} (bf16 split {k1_b}), K2 {k2} "
-             f"(bf16 split {k2_b}), K3a {k3a} (bf16 split {k3a_b}), K3b "
+        fail(f"f32 split check d{d}: K3a {k3a} (bf16 split {k3a_b}), K3b "
              f"{k3b} (bf16 split {k3b_b})")
 
 
@@ -4635,22 +4653,22 @@ def by_heads(fn, tensors, n: int) -> list:
             for parts in zip(*outs)]
 
 
-def long_chains(g, card: str) -> None:
+def long_chains(g, card: str, d: int = 64, cases=None) -> None:
     """K1, the one-pass K2 and the two-pass K3a and K3b in float32 over
     long chains, no bias, with v and dO' of mean 3 so that every term of O
     and dV has one sign: the tensor cores round each sum toward zero, and
-    every kernel closes its chains every 256 keys or queries.  b1 h2 s8192
-    d64 causal (8192 keys for O and K3a's dQ, 8192 queries for dK and dV),
-    8 query heads on 1 kv head at s1024 (G x seq_q 8192), and the float32
-    long-context step's own shape, b1 h8 s16384 d64 causal (LONG_SEQ), where
-    the backward takes the two-pass route only (past ONEPASS_BWD_MAX_SEQ):
-    16384 keys for K1's O and K3a's dQ, 16384 queries for K3b's dK and dV;
-    its plain versions run 2 heads at a time (by_heads).  Held to the plain
-    versions at F32_ERR_BAR (o, gradients) and inv_l at 1e-5 relative."""
+    every kernel closes its chains every 256 keys or queries.  ``cases``
+    are (heads, kv heads, seq, heads a plain call, backward routes); by
+    default at d 64: b1 h2 s8192 causal (8192 keys for O and K3a's dQ,
+    8192 queries for dK and dV), 8 query heads on 1 kv head at s1024 (G x
+    seq_q 8192), both routes, and the float32 long-context step's own
+    shape, b1 h8 s16384 causal (LONG_SEQ), where the backward takes the
+    two-pass route only (past ONEPASS_BWD_MAX_SEQ): 16384 keys for K1's O
+    and K3a's dQ, 16384 queries for K3b's dK and dV; its plain versions
+    run 2 heads at a time (by_heads).  Held to the plain versions at
+    F32_ERR_BAR (o, gradients) and inv_l at 1e-5 relative."""
     from flash_cosine_sim_attention_tpu_torch.ops import (
         bwd_kernel as bk, flash_attention_backward_plain, l2norm_tensors)
-    from flash_cosine_sim_attention_tpu_torch.ops.blocks import (
-        ONEPASS_BWD_MAX_SEQ)
     from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
         flash_attention_forward, flash_attention_forward_plain)
 
@@ -4658,11 +4676,13 @@ def long_chains(g, card: str) -> None:
         return torch.randn(*shape, device="cuda", generator=g)
 
     kw = dict(bias_batch_dim=False, scale=8.0, causal=True)
-    heads = MODEL["heads"]
-    for h, kvh, s in ((2, 2, 8192), (8, 1, 1024), (heads, heads, LONG_SEQ)):
-        n = h if kvh < h else 2   # heads a plain call
-        q, k = l2norm_tensors(randn(1, h, s, 64), randn(1, kvh, s, 64))
-        v = randn(1, kvh, s, 64) + 3
+    heads, both = MODEL["heads"], ("onepass", "twopass")
+    if cases is None:
+        cases = ((2, 2, 8192, 2, both), (8, 1, 1024, 8, both),
+                 (heads, heads, LONG_SEQ, 2, ("twopass",)))
+    for h, kvh, s, n, routes in cases:
+        q, k = l2norm_tensors(randn(1, h, s, d), randn(1, kvh, s, d))
+        v = randn(1, kvh, s, d) + 3
         o, inv_l = flash_attention_forward(q, k, v, None, None, **kw)
         o_p, inv_p = by_heads(
             lambda *t: flash_attention_forward_plain(*t, None, None, **kw),
@@ -4673,20 +4693,25 @@ def long_chains(g, card: str) -> None:
         want = by_heads(
             lambda *t: flash_attention_backward_plain(*t, None, None, **kw),
             args[:6], n)
-        got3 = bk._backward_twopass(*args, **kw)[:3]
-        grads3 = [grad_err(x, y, torch.float32) for x, y in zip(got3, want)]
-        grads, apart = [], []
-        if s <= ONEPASS_BWD_MAX_SEQ:
+        got3, grads3, grads, apart = None, [], [], []
+        if "twopass" in routes:
+            got3 = bk._backward_twopass(*args, **kw)[:3]
+            grads3 = [grad_err(x, y, torch.float32)
+                      for x, y in zip(got3, want)]
+        if "onepass" in routes:
             got = bk._backward_onepass(*args[:7], scale=8.0, causal=True)
             grads = [grad_err(x, y, torch.float32) for x, y in zip(got, want)]
-            apart = [grad_err(x, y, torch.float32) for x, y in zip(got3, got)]
+            if got3 is not None:
+                apart = [grad_err(x, y, torch.float32)
+                         for x, y in zip(got3, got)]
             del got
-        print(f"  long chains, b1 h{h} kv heads {kvh} s{s} d64 causal, v and "
+        print(f"  long chains, b1 h{h} kv heads {kvh} s{s} d{d} causal, v and "
               f"dO' of mean 3, on {card}: K1 o {err:.2e}, inv_l {err_l:.2e};"
               + (f" K2 dq, dk, dv {', '.join(f'{e:.2e}' for e in grads)};"
                  if grads else " K2 not on this route;")
-              + f" K3a dq, K3b dk, dv {', '.join(f'{e:.2e}' for e in grads3)}"
-              f" (bars {F32_ERR_BAR:g}, inv_l 1e-5)"
+              + (f" K3a dq, K3b dk, dv {', '.join(f'{e:.2e}' for e in grads3)}"
+                 if grads3 else " K3a, K3b not run")
+              + f" (bars {F32_ERR_BAR:g}, inv_l 1e-5)"
               + (f"; the two routes apart {', '.join(f'{e:.2e}' for e in apart)}"
                  if apart else ""))
         if not (err <= F32_ERR_BAR and err_l <= 1e-5
@@ -4696,23 +4721,28 @@ def long_chains(g, card: str) -> None:
         del q, k, v, o, o_p, got3, want, args
 
 
-# each f32 step's attention kernels, by the instance names that count for
-# them (the FMA ones too, for a reading of an earlier commit)
-F32_STEP_KERNELS = {
-    "K1": ("fwd_tf32_kernel<", "fwd_kernel<float"),
-    "K2": ("dkdv_tf32_kernel<64>", "dkdv_tf32_kernel<64, true>",
-           "dkdv_kernel<float, 64, true>"),
-    "K3a": ("dq_tf32_kernel<", "dq_kernel<float"),
-    "K3b": ("dkdv_tf32_kernel<64, false>", "dkdv_kernel<float, 64, false>"),
-}
+def f32_step_kernels(d: int) -> dict:
+    """A float32 step's attention kernels at head width ``d``, by the
+    instance names that count for them (the FMA ones too, for a reading of
+    an earlier commit)."""
+    return {
+        "K1": ("fwd_tf32_kernel<", "fwd_kernel<float"),
+        "K2": (f"dkdv_tf32_kernel<{d}>", f"dkdv_tf32_kernel<{d}, true>",
+               f"dkdv_kernel<float, {d}, true>"),
+        "K3a": ("dq_tf32_kernel<", "dq_kernel<float"),
+        "K3b": (f"dkdv_tf32_kernel<{d}, false>",
+                f"dkdv_kernel<float, {d}, false>", f"dkdv_kernel<float, {d}>"),
+    }
+
+
 LONG_SEQ = 16384   # the float32 long-context step's --seq-len (batch 1)
 
 
-def step_parts(rows) -> dict:
-    """{kernel: (device ms, launches, instance names)} of F32_STEP_KERNELS
-    among a profiled step's whole_rows."""
+def step_parts(rows, d: int = 64) -> dict:
+    """{kernel: (device ms, launches, instance names)} of
+    f32_step_kernels(d) among a profiled step's whole_rows."""
     parts = {}
-    for name, pats in F32_STEP_KERNELS.items():
+    for name, pats in f32_step_kernels(d).items():
         mine = [(key, t, c) for key, t, c in rows
                 if any(p in key for p in pats)]
         parts[name] = (sum(t for _, t, _ in mine) / 1e3,
@@ -4723,11 +4753,11 @@ def step_parts(rows) -> dict:
     return parts
 
 
-def f32_step_model(seq: int, batch: int):
-    """The validation model in float32 (max_seq_len ``seq``), its
-    optimizer and 4 batches of GRAD_ACCUM microbatches of ``batch`` x
-    ``seq`` from phase 8's corpus: the trainer's --use-float32 --seq-len
-    seq --batch-size batch."""
+def f32_step_model(seq: int, batch: int, cfg=MODEL):
+    """The model of ``cfg`` (the validation model by default) in float32
+    (max_seq_len ``seq``), its optimizer and 4 batches of GRAD_ACCUM
+    microbatches of ``batch`` x ``seq`` from phase 8's corpus: the
+    trainer's --use-float32 --seq-len seq --batch-size batch."""
     from flash_cosine_sim_attention_tpu_torch.data import (
         TextSampler, synthetic_corpus)
     from flash_cosine_sim_attention_tpu_torch.models import (
@@ -4736,7 +4766,7 @@ def f32_step_model(seq: int, batch: int):
         GRAD_ACCUM, make_optimizer)
 
     torch.manual_seed(SEED)
-    model = CosineSimCausalTransformer(**dict(MODEL, max_seq_len=seq),
+    model = CosineSimCausalTransformer(**dict(cfg, max_seq_len=seq),
                                        dtype=torch.float32, device="cuda")
     stream = TextSampler(synthetic_corpus(TRAIN_CORPUS_BYTES, seed=SEED),
                          train_frac=90 / 95, seed=SEED).stream(
@@ -4864,6 +4894,246 @@ def f32_long_step(card: str) -> dict:
     return launches
 
 
+F32_WIDE_DIMS = (192, 256)   # the widths above 128, where f32 K1 and K2
+                             # run 3xTF32 and K3a and K3b run on FMAs
+
+
+def nan_kept(g, d: int) -> bool:
+    """K1 and the one-pass K2 in float32 at b1 h2 s200 d``d`` (not causal)
+    with a NaN made on the card (0/0, 0x7FFFFFFF there) in q's row 5 of
+    head 0 and in one entry of v: o, dq, dk and dv must be NaN exactly
+    where the plain versions' are (inv_l is not: 1 / max(l, 1e-10) takes
+    the clamp's side of a NaN in the kernel)."""
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        bwd_kernel as bk, flash_attention_backward_plain, l2norm_tensors)
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward, flash_attention_forward_plain)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+
+    q, k = l2norm_tensors(randn(1, 2, 200, d), randn(1, 2, 200, d))
+    v = randn(1, 2, 200, d)
+    nan = torch.zeros(1, device="cuda") / 0
+    q[0, 0, 5, :] = nan
+    v[0, 1, 7, 3] = nan
+    kw = dict(bias_batch_dim=False, scale=8.0, causal=False)
+    o, _ = flash_attention_forward(q, k, v, None, None, **kw)
+    o_p, inv_p = flash_attention_forward_plain(q, k, v, None, None, **kw)
+    do = randn(*o.shape)
+    got = bk._backward_onepass(do, o_p, inv_p, q, k, v, None, scale=8.0,
+                               causal=False)
+    want = flash_attention_backward_plain(do, o_p, inv_p, q, k, v, None,
+                                          None, **kw)
+    return bool(o_p.isnan().any() and not o_p.isnan().all()
+                and torch.equal(o.isnan(), o_p.isnan())
+                and all(y.isnan().any() and torch.equal(x.isnan(), y.isnan())
+                        for x, y in zip(got, want)))
+
+
+def f32_wide_heads(g, card: str):
+    """The float32 K1 and one-pass K2 at d 192 and 256 (F32_WIDE_DIMS) at
+    the heads-256 model's attention shape, b4 h2 s1024 causal (b4 h2 s1024
+    d192 beside it): held to the exact plain versions (F32_ERR_BAR), to
+    the plain versions with the kernels' split (mm=dot_tf32x3,
+    TF32X3_BARS), to their tensor-core instances by profiler name
+    (fwd_tf32_kernel<D>, dkdv_tf32_kernel<D, true>: no FMA instance), and
+    NaN-keeping (nan_kept); at d 256 also on a short chain at 8 groups and
+    scale 8 (split_check) and over a long one, b1 h2 s16384 (long_chains,
+    the plain versions a head at a time); then timed beside their bounds
+    (3 x the operations at the TF32 tensor cores' peak, the FMA bound
+    beside), the plain versions and SDPA f32 (TF32 off).  K3a and K3b,
+    still FMA at these widths, are checked and timed at d 256 with an (h,
+    i, j) bias.  The readings print before any instance check fails, so
+    ``python3 chip_smoke.py --f32-wide-heads`` on an earlier commit gives
+    the FMA parents' times.  Returns ({row: timing}, {row: max abs error
+    against plain}) of d 256's rows ("K1 f32 d256", ...)."""
+    import torch.nn.functional as F
+
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        bwd_kernel as bk, flash_attention_backward_plain, l2norm_tensors)
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward, flash_attention_forward_plain)
+    from flash_cosine_sim_attention_tpu_torch.ops.mxu import dot_tf32x3
+
+    b, h, s = 4, HEAD256_MODEL["heads"], HEAD256_MODEL["max_seq_len"]
+    kw = dict(bias_batch_dim=False, scale=1.0, causal=True)
+    rows, errs, problems = {}, {}, []
+    for d in F32_WIDE_DIMS:
+        q, k = l2norm_tensors(
+            torch.randn(b, h, s, d, device="cuda", generator=g),
+            torch.randn(b, h, s, d, device="cuda", generator=g), groups=8)
+        v = torch.randn(b, h, s, d, device="cuda", generator=g)
+        call = lambda: flash_attention_forward(q, k, v, None, None, **kw)  # noqa: E731,B023
+        plain = lambda: flash_attention_forward_plain(q, k, v, None, None, **kw)  # noqa: E731,B023
+        (o, inv_l), (o_p, inv_p) = call(), plain()
+        o_t, inv_t = flash_attention_forward_plain(q, k, v, None, None,
+                                                   mm=dot_tf32x3, **kw)
+        err, err_t = ((o - x).abs().max().item() for x in (o_p, o_t))
+        print(f"  K1 f32 b{b} h{h} s{s} d{d} causal, groups 8, scale 1: "
+              f"max|o - plain| {err:.2e} (bar {F32_ERR_BAR:g}), inv_l "
+              f"{max_rel(inv_l, inv_p):.2e} (bar 1e-5); against the "
+              f"dot_tf32x3 plain version: o {err_t:.2e}, inv_l "
+              f"{max_rel(inv_l, inv_t):.2e} (bar {TF32X3_BARS['K1']:g})")
+        if not (err <= F32_ERR_BAR and max_rel(inv_l, inv_p) <= 1e-5
+                and max(err_t, max_rel(inv_l, inv_t)) <= TF32X3_BARS["K1"]):
+            fail(f"K1 f32 d{d}: o {err}, inv_l {max_rel(inv_l, inv_p)}; "
+                 f"against dot_tf32x3 o {err_t}, inv_l "
+                 f"{max_rel(inv_l, inv_t)}")
+        ms, plain_ms = device_ms(call), device_ms(plain)
+        lib_ms = library_ms(f"SDPA f32 b{b} h{h} s{s} d{d}, TF32 off",
+                            lambda: F.scaled_dot_product_attention(  # noqa: B023
+                                q, k, v, is_causal=True, scale=1.0))
+        flops = 4 * b * h * d * s * (s + 1) / 2
+        nbytes = 4 * q.numel() * 4 + b * h * s * 4
+        bound_ms, by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+        fma_ms = bound(flops, nbytes, PEAK_F32_FLOPS)[0]
+        rows[f"K1 f32 d{d}"] = dict(ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=by,
+                                    library_ms=lib_ms)
+        errs[f"K1 f32 d{d}"] = err
+        names = sorted({re.sub(r"^void (\(anonymous namespace\)::)?", "",
+                               key).split("(")[0]
+                        for key, _, _ in cuda_rows(call, REQUIRE_ITERS)
+                        if "at::native" not in key})
+        print(f"  K1 b{b} h{h} s{s} d{d} causal f32 on {card}: device time "
+              f"kernel {ms:.4f} ms ({tflops(flops, ms):.2f} TFLOP/s of the "
+              f"function's, {tflops(3 * flops, ms):.1f} of TF32 products), "
+              f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({by}, 3xTF32 at 495 TFLOP/s; FMA bound "
+              f"{fma_ms:.5f} ms); instances {names}")
+        if names != [f"fwd_tf32_kernel<{d}>"]:
+            problems.append(f"K1 f32 d{d} instances {names}")
+        del q, k, v, o, o_p, o_t
+
+        worst = {"K2": 0.0, "K3a": 0.0, "K3b": 0.0}
+        args, kw2 = bwd_inputs(g, b, h, h, s, s, d, torch.float32, None,
+                               None, True)
+        args_b, kw_b = bwd_inputs(g, b, h, h, s, s, d, torch.float32, None,
+                                  "h", True)
+        compare_backward(worst, f"b{b} h{h} s{s} d{d} causal", args, kw2,
+                         torch.float32, None)
+        if d == 256:
+            compare_backward(worst, f"b{b} h{h} s{s} d{d} causal + (h,i,j) "
+                             "bias", args_b, kw_b, torch.float32, None)
+        got = bk._backward_onepass(*args[:7], scale=1.0, causal=True)
+        want_t = flash_attention_backward_plain(*args, mm=dot_tf32x3, **kw2)
+        errs_t = [grad_err(x, y, torch.float32) for x, y in zip(got, want_t)]
+        print(f"  K2 f32 d{d} against the dot_tf32x3 plain version: dq, dk, "
+              f"dv {', '.join(f'{e:.2e}' for e in errs_t)} (bar "
+              f"{TF32X3_BARS['K2']:g})")
+        if not max(errs_t) <= TF32X3_BARS["K2"]:
+            fail(f"K2 f32 d{d} against dot_tf32x3: {errs_t}")
+        del got, want_t
+        timed = time_backward(card, args, kw2, args_b, kw_b)
+        for name in ("K2", "K3a", "K3b") if d == 256 else ("K2",):
+            rows[f"{name} f32 d{d}"] = timed[name]
+            errs[f"{name} f32 d{d}"] = worst[name]
+        names = sorted({re.sub(r"^void (\(anonymous namespace\)::)?", "",
+                               key).split("(")[0]
+                        for key, _, _ in cuda_rows(
+                            lambda: bk._backward_onepass(  # noqa: B023
+                                *args[:7], scale=1.0, causal=True),
+                            REQUIRE_ITERS)
+                        if "dkdv" in key or "dq_" in key})
+        print(f"  K2 f32 d{d} instances {names}")
+        if names != [f"dkdv_tf32_kernel<{d}, true>"]:
+            problems.append(f"K2 f32 d{d} instances {names}")
+        del args, args_b
+        nan_ok = nan_kept(g, d)
+        print(f"  K1, K2 f32 d{d}: NaNs in q and v kept in o and the "
+              f"gradients: {nan_ok}")
+        if not nan_ok:
+            problems.append(f"d{d}: NaNs in q and v not kept")
+    split_check(g, card, d=256, twopass=False)
+    long_chains(g, card, d=256, cases=((2, 2, LONG_SEQ, 1, ("onepass",)),))
+    for name, row in rows.items():
+        print(f"  f32 row {name}: kernel / library "
+              f"{row['ms'] / row['library_ms']:.2f}, bound / kernel "
+              f"{row['bound_ms'] / row['ms']:.3f}, error vs plain "
+              f"{errs[name]:.3e}")
+    if problems:
+        fail(f"f32 at d 192 and 256: {problems}")
+    return ({key: row for key, row in rows.items() if key.endswith("d256")},
+            {key: e for key, e in errs.items() if key.endswith("d256")})
+
+
+def f32_head256_step(card: str) -> dict:
+    """The heads-256 model's training step in float32 (HEAD256_MODEL: dim
+    512, depth 8, 2 heads of 256; the trainer's --use-float32 at that
+    width: 4 microbatches of 4 x 1024 of phase 8's corpus).  The wrappers'
+    counts are set to 0 before 2 warm-up steps (host-clock walls, ended by
+    a synchronize) and read after them; then 2 steps are profiled
+    (whole_rows): device time a step, K1's and K2's share and launches a
+    step, the idle share (1 - device time / the second warm-up step's
+    wall).  Fails unless K1 and K2 ran their tensor-core instances
+    (fwd_tf32_kernel<256>, dkdv_tf32_kernel<256, true>) 32 times a step
+    each, K3a and K3b never, and unless the losses are finite; the reading
+    prints first.  ``python3 chip_smoke.py --f32-head256-step`` runs it
+    alone, e.g. from a checkout of an earlier commit.  Returns the
+    wrappers' launches over the 2 counted steps."""
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        bwd_kernel as bk, fwd_kernel as fk)
+    from flash_cosine_sim_attention_tpu_torch.train import (
+        BATCH_SIZE, GRAD_ACCUM, train_step)
+
+    cfg = HEAD256_MODEL
+    d, seq = cfg["dim_head"], cfg["max_seq_len"]
+    model, opt, batches = f32_step_model(seq, BATCH_SIZE, cfg)
+    losses, walls = [], []
+
+    def step():
+        losses.append(train_step(model, opt, batches[len(losses) % 4]))
+
+    wrappers = dict(k1=fk.flash_attention_forward, k2=bk.fused_bwd_kernel,
+                    k3a=bk.dq_kernel, k3b=bk.dkdv_kernel)
+    for fn in wrappers.values():
+        fn.launches = 0
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = {key: fn.launches for key, fn in wrappers.items()}
+    rows = whole_rows(step, 2)
+    total = sum(t for _, t, _ in rows) / 1e3
+    parts = step_parts(rows, d)
+    loss = [x.item() for x in losses]
+    top = sorted(rows, key=lambda r: -r[1])[:4]
+    # the function's operations a call: 2 (K1) and 5 (K2) products of 2d
+    # FLOPs per visible pair, over the microbatch's rows and heads
+    pairs = BATCH_SIZE * cfg["heads"] * seq * (seq + 1) / 2
+    flops = {"K1": 2 * 2 * d * pairs, "K2": 5 * 2 * d * pairs}
+    print(f"  float32 train step, heads {cfg['heads']} of {d} ({GRAD_ACCUM} "
+          f"x {BATCH_SIZE} x {seq}) on {card}: device time {total:.2f} ms a "
+          f"step (2 steps profiled); wall {walls[1]:.2f} ms (warm-up steps "
+          f"{', '.join(f'{w:.2f}' for w in walls)}), idle share "
+          f"{1 - total / walls[1]:.3f}; "
+          + "; ".join(f"{name} {ms:.2f} ms ({ms / total:.3f}), {n} launches"
+                      f"{f', {tflops(flops[name] * n, ms):.1f} TFLOP/s' if n else ''}"
+                      f" {names}"
+                      for name in ("K1", "K2")
+                      for ms, n, names in (parts[name],))
+          + f"; wrapper launches over the 2 counted steps {launches}; the "
+          "largest kernels "
+          + "; ".join(f"{key[:60]} {t / 1e3:.2f} ms ({c} launches)"
+                      for key, t, c in top)
+          + f"; losses {', '.join(f'{x:.4f}' for x in loss)}")
+    if not np.all(np.isfinite(loss)):
+        fail(f"float32 heads-256 train step: losses {loss}")
+    per_step = GRAD_ACCUM * cfg["depth"]
+    want = dict(k1=2 * per_step, k2=2 * per_step, k3a=0, k3b=0)
+    if (launches != want
+            or any(parts[name][1] != per_step for name in ("K1", "K2"))
+            or parts["K3a"][1] or parts["K3b"][1]
+            or parts["K1"][2] != [f"fwd_tf32_kernel<{d}>"]
+            or parts["K2"][2] != [f"dkdv_tf32_kernel<{d}, true>"]):
+        fail(f"float32 heads-256 train step: wrapper launches {launches}, "
+             f"want {want}; profiled launches a step and instances {parts}")
+    return launches
+
+
 def f32_instances(card: str):
     """Phase 22: the float32 instances at the main path's shapes.  K1 at
     b1 h8 s1024 d64 causal (phase 3's), the one-pass K2 at phase 8's (b4
@@ -4881,11 +5151,13 @@ def f32_instances(card: str):
     K2 at 8 l2norm groups and scale 8 (logits to 64, where JAX's bf16
     split of a float32 product misses the 1e-4 bar).  Bounds: K1, K2, K3a
     and K3b 3 x their operations at the TF32 tensor cores' peak (the FMA
-    bound at 67 TFLOP/s printed beside), K7 bytes.  Then the validation
-    model's float32 training step, profiled (f32_train_step), and the same
+    bound at 67 TFLOP/s printed beside), K7 bytes.  K1 and K2 at d 192
+    and 256, and K3a and K3b at 256, by f32_wide_heads.  Then the
+    validation model's float32 training step, profiled (f32_train_step),
+    the heads-256 model's (f32_head256_step), and the validation model's
     at seq 16384 (f32_long_step), where the backward runs K3a and K3b.
     Returns ({row: timing}, {row: max abs error against plain}, the long
-    step's wrapper launches)."""
+    step's and the heads-256 step's wrapper launches)."""
     import torch.nn.functional as F
 
     from flash_cosine_sim_attention_tpu_torch.ops import (
@@ -5012,6 +5284,9 @@ def f32_instances(card: str):
     print(f"  f32 backward instances: one-pass {onepass}, two-pass "
           f"{twopass}")
     scale8(g, card)
+    wide_rows, wide_errs = f32_wide_heads(g, card)
+    rows.update(wide_rows)
+    errs.update(wide_errs)
 
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     step = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
@@ -5052,7 +5327,8 @@ def f32_instances(card: str):
               f"{row['bound_ms'] / row['ms']:.3f}, error vs plain "
               f"{errs[name]:.3e}")
     f32_train_step(card)
-    return rows, errs, f32_long_step(card)
+    head256_launches = f32_head256_step(card)
+    return rows, errs, f32_long_step(card), head256_launches
 
 
 def main() -> None:
@@ -5075,6 +5351,14 @@ def main() -> None:
         "--f32-long-step", action="store_true",
         help="profile the validation model's float32 training step at seq "
              f"{LONG_SEQ}, batch 1, alone (one card)")
+    parser.add_argument(
+        "--f32-head256-step", action="store_true",
+        help="profile the heads-256 model's float32 training step alone "
+             "(one card)")
+    parser.add_argument(
+        "--f32-wide-heads", action="store_true",
+        help="check and time the float32 K1 and K2 at d 192 and 256 (and "
+             "K3a, K3b at d 256) alone (one card)")
     args = parser.parse_args()
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5111,7 +5395,8 @@ def main() -> None:
                       f"{', '.join(f'{k} {r}' for k, r in regs)}")
 
     if (args.ring_nccl or args.multihost_nccl or args.f32_step
-            or args.f32_long_step):
+            or args.f32_long_step or args.f32_head256_step
+            or args.f32_wide_heads):
         if args.ring_nccl:
             print("[19] ring attention over NCCL, a card a rank")
             print(json.dumps({"kernels": [ring_attention_phase(smi, "nccl")]}))
@@ -5124,6 +5409,15 @@ def main() -> None:
             print("[22] the float32 training step")
             f32_train_step(smi)
             flag = "--f32-step"
+        elif args.f32_head256_step:
+            print("[22] the heads-256 model's float32 training step")
+            f32_head256_step(smi)
+            flag = "--f32-head256-step"
+        elif args.f32_wide_heads:
+            print("[22] the float32 K1 and K2 at d 192 and 256")
+            f32_wide_heads(torch.Generator(device="cuda").manual_seed(
+                SEED + 100), smi)
+            flag = "--f32-wide-heads"
         else:
             print(f"[22] the float32 training step at seq {LONG_SEQ}")
             f32_long_step(smi)
@@ -5187,8 +5481,8 @@ def main() -> None:
     print("[21] multi-host training")
     multihost_entry = multihost_phase(smi)
     print("[22] the float32 instances timed")
-    f32_rows, f32_err, long_launches = run_world(1, None, f32_instances,
-                                                 smi)[0]
+    f32_rows, f32_err, long_launches, head256_launches = run_world(
+        1, None, f32_instances, smi)[0]
 
     bwd = "flash_cosine_sim_attention_tpu/ops/bwd_kernel.py"
     src = "flash_cosine_sim_attention_tpu_torch/csrc/bwd_kernel.cu"
@@ -5278,14 +5572,19 @@ def main() -> None:
         replaces="flash_cosine_sim_attention_tpu/quant/decode_kernel.py:137",
         launches=y_launches["k4"], max_abs_err=y_err["K4"], **y_rows["K4"]))
     kernels.append(dict(
+        name="paged_decode_kernel:d1032", route="cuda",
+        source=f"{csrc}/paged_decode_kernel.cu",
+        replaces="flash_cosine_sim_attention_tpu/quant/paged.py:183",
+        launches=y_launches["k5"], max_abs_err=y_err["K5"], **y_rows["K5"]))
+    kernels.append(dict(
         name="fwd_kernel:verify", route="cuda", source=f"{csrc}/fwd_kernel.cu",
         replaces="flash_cosine_sim_attention_tpu/ops/fwd_kernel.py:47",
         launches=spec_launches, max_abs_err=spec_err, **spec_row))
     kernels += [tp_entry, ring_entry, pipe_entry, multihost_entry]
     # K1's and K2's float32 instances, with their launches on phase 21's
-    # float32 step (every rank's), and K3a's and K3b's, with theirs on
-    # phase 22's float32 step at seq 16384 (2 steps); phase 22 prints the
-    # other f32 rows
+    # float32 step (every rank's), K3a's and K3b's, with theirs on phase
+    # 22's float32 step at seq 16384 (2 steps), and K1's and K2's at d 256;
+    # phase 22 prints the other f32 rows
     kernels += [dict(name=name, route="cuda", source=f"{csrc}/{file}",
                      replaces=f"flash_cosine_sim_attention_tpu/{tpu}",
                      launches=launches[key], max_abs_err=f32_err[row],
@@ -5300,7 +5599,15 @@ def main() -> None:
                      "ops/bwd_kernel.py:64", "K3a f32", "k3a", long_launches),
                     ("bwd_kernel:dkdv:f32", "bwd_kernel.cu",
                      "ops/bwd_kernel.py:282", "K3b f32", "k3b",
-                     long_launches))]
+                     long_launches),
+                    # d 256, with their launches on phase 22's heads-256
+                    # float32 step (2 steps)
+                    ("fwd_kernel:f32:d256", "fwd_kernel.cu",
+                     "ops/fwd_kernel.py:47", "K1 f32 d256", "k1",
+                     head256_launches),
+                    ("bwd_kernel:onepass:f32:d256", "bwd_kernel.cu",
+                     "ops/bwd_kernel.py:456", "K2 f32 d256", "k2",
+                     head256_launches))]
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke.py took {time.perf_counter() - started:.1f} s")
     print(smi)

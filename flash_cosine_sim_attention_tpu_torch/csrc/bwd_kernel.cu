@@ -6,10 +6,11 @@
 //                                                 bias's shared axis
 //   fcsa_bwd_dkdv     K3b  `_dkdv_kernel_t`       dK, dV
 // K2 and K3b share one template (dkdv_mma_kernel for bf16 on the tensor
-// cores, dkdv_tf32_kernel for f32 up to d 128 on them as 3xTF32 split
-// products, dkdv_kernel for f32 at d 192 and 256 on FMAs); K2 adds the dQ
-// sweep.  K3a is dq_mma_kernel (bf16), dq_tf32_kernel (f32 up to d 128,
-// 3xTF32) and dq_kernel (f32 at d 192 and 256).
+// cores, dkdv_tf32_kernel for f32 on them as 3xTF32 split products: K2 at
+// every width up to 256, K3b up to d 128; dkdv_kernel for the f32 K3b at
+// d 192 and 256 on FMAs); K2 adds the dQ sweep.  K3a is dq_mma_kernel
+// (bf16), dq_tf32_kernel (f32 up to d 128, 3xTF32) and dq_kernel (f32 at
+// d 192 and 256).
 //
 // Maths (the JAX forward's convention: no row max, no "- scale" shift).
 // The wrapper hands in dO' = dO * inv_l (rounded back to dO's dtype) and
@@ -54,7 +55,9 @@
 // In float32 the 3xTF32 K2 does three times K2's operations at the TF32
 // rate (495 TFLOP/s): ~65 us, against ~18 us for its ~59 MB; the 3xTF32
 // K3a and K3b ~39 and ~52 us, against ~23 and ~20 us of bytes with the
-// (h, i, j) bias.
+// (h, i, j) bias.  The heads-256 model's shape (b4 h2 s1024 d256 causal)
+// has the same b x h x d, so the same operations: K2 f32 ~65 us on the
+// TF32 tensor cores (~160 us at the FMA rate, 67 TFLOP/s).
 //
 // bfloat16 inputs run the tensor-core kernel `dkdv_mma_kernel`, the
 // FlashAttention-2 backward reshaped for this op (no row max, JAX's exp2
@@ -163,8 +166,9 @@
 //   at d 512); dB is added by column block 0 alone.  f32 tiles, 64 x 64,
 //   256 threads.
 //
-// float32 K2 up to d 128 runs on the tensor cores as 3xTF32 split products
-// (`dkdv_tf32_kernel<D, true>`), in dkdv_mma_kernel's shape: every
+// float32 K2 at every width up to 256 runs on the tensor cores as 3xTF32
+// split products (`dkdv_tf32_kernel<D, true>`), in dkdv_mma_kernel's
+// shape: every
 // operand x is split into two tf32 values, hi = rn(x) and lo = rn(x -
 // hi), and each
 // of the five products is lo.hi + hi.lo + hi.hi by mma.sync m16n8k8 into
@@ -186,6 +190,25 @@
 // touch shared memory.  dS itself is staged (queries x keys, f32) for dQ's
 // dS.K, added to the f32 scratch by red.global.add.v2.f32 as in
 // dkdv_mma_kernel.  Shared memory 111 KB at d 64, 207 KB at d 128.
+// Above d 128 (as in dkdv_mma_kernel) a warp cannot hold both dK and dV
+// of its 16 keys (2 x 16 x d f32, 256 registers a thread at d 256), and
+// 64 keys of f32 K (hi and lo) and V beside the query tiles would take
+// ~300 KB at d 256: a block's 4 warps own 32 keys, two for each 16.  The
+// first forms S^T and e^T, hands e^T to the second through shared memory
+// (at the places the second then writes dS^T over, lane for lane) and
+// forms dV += e^T.dO'; the second forms dP^T, dS^T and dK += dS^T.Q; all
+// four share dQ += dS.K.  So S is formed once, each warp forms two of the
+// five products, and a tile costs one barrier more.  Each warp sums its
+// S^T or dP^T over d / 8 k steps in four accumulators (hi.hi and the
+// small terms apart, each by the k step's parity): four chains of
+// dependent mma, and a quarter as many roundings toward zero on each,
+// which over 16384 queries of mean-3 values kept dQ and dK at the f32
+// bar (one accumulator read 1.7e-4 there: dP sums 256 terms of one sign,
+// and dS takes the difference of two such sums).  Query tiles of 32 at d
+// 192 and 16 at d 256.  Shared memory (K hi and lo, V, six query tiles,
+// dS): 225 KB at d 192, 197 KB at d 256.  At d 192, 16-query tiles, or
+// 64 keys on 8 warps, ran 0.396 and 0.461 ms against 0.364 at b4 h2 s1024
+// causal on an H100 (d 256 fits no other shape).
 // The tensor cores round each f32 sum toward zero, and a chain of such
 // sums on one accumulator drifts with its length (~1.5e-5 of max|g| at
 // 1024 queries, 3 x 128 of them); dK and dV sum G x seq_q queries, so
@@ -222,12 +245,12 @@
 // rounding toward zero: every 256 keys its chain is closed into a running
 // sum in registers, added to nearest, and restarts from 0.
 //
-// float32 K2, K3a and K3b at d 192 and 256 keep the FMA kernels
-// `dq_kernel` and `dkdv_kernel`: every product is an f32 FMA out of shared
-// memory (tiles widened to f32 once at load, rows padded by one column
-// against bank conflicts), with e and dS in f32.  Their tiles are 32
-// queries x 32 keys (four f32 tiles of 64 rows at d 256 would take 263 KB
-// of shared memory; 3xTF32 tiles of the narrow shapes, 240 KB and more).
+// float32 K3a and K3b at d 192 and 256 keep the FMA kernels `dq_kernel`
+// and `dkdv_kernel<float, D>`: every product is an f32 FMA out of
+// shared memory (tiles widened to f32 once at load, rows padded by one
+// column against bank conflicts), with e and dS in f32.  Their tiles are
+// 32 queries x 32 keys (four f32 tiles of 64 rows at d 256 would take 263
+// KB of shared memory).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -348,8 +371,8 @@ __device__ __forceinline__ void score_tile(
   }
 }
 
-// K2 (DQ = true) and K3b (DQ = false) on f32 FMAs: grid (key tiles, KVH, B).
-template <typename T, int D, bool DQ>
+// K3b on f32 FMAs (d 192 and 256): grid (key tiles, KVH, B).
+template <typename T, int D>
 __global__ void __launch_bounds__(NT) dkdv_kernel(Params p) {
   constexpr int DP = D + 1;
   constexpr int DC = D / 16;  // output columns per thread
@@ -417,36 +440,6 @@ __global__ void __launch_bounds__(NT) dkdv_kernel(Params p) {
             adv[r][cc] = fmaf(e[r], o, adv[r][cc]);
             adk[r][cc] = fmaf(ds[r], qv, adk[r][cc]);
           }
-        }
-      }
-
-      if constexpr (DQ) {
-        // dQ += dS k for this tile's queries, added across key blocks
-        float aq[R][DC];
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-          for (int cc = 0; cc < DC; ++cc) aq[r][cc] = 0.f;
-#pragma unroll 4
-        for (int jj = 0; jj < BK; ++jj) {
-          float a[R];
-#pragma unroll
-          for (int r = 0; r < R; ++r) a[r] = dss[(ty * R + r) * PP + jj];
-#pragma unroll
-          for (int cc = 0; cc < DC; ++cc) {
-            const float kv = ks[jj * DP + tx + 16 * cc];
-#pragma unroll
-            for (int r = 0; r < R; ++r) aq[r][cc] = fmaf(a[r], kv, aq[r][cc]);
-          }
-        }
-        float* dqb = p.dq_acc + qrow0 * D;
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int row = q0 + ty * R + r;
-          if (row >= p.seq_q) continue;
-#pragma unroll
-          for (int cc = 0; cc < DC; ++cc)
-            atomicAdd(dqb + size_t(row) * D + tx + 16 * cc, aq[r][cc]);
         }
       }
     }
@@ -903,16 +896,25 @@ __global__ void __launch_bounds__(MmaLayout<D, DQ>::NT, 1)
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core f32 K2 (DQ = true) and K3b (DQ = false), 3xTF32, at d <=
-// 128: grid (KVH, B, key tiles), 4 warps, warp w owning keys k0 + 16 w ..
+// Tensor-core f32 K2 (DQ = true) and K3b (DQ = false), 3xTF32: grid (KVH,
+// B, key tiles).  Up to d 128 (K2 and K3b) 4 warps own 64 keys, warp w
+// keys k0 + 16 w ..; above (K2 alone) 4 warps own 32 keys, two for each
+// 16 (see Tf32Layout)
 
 template <int D, bool DQ>
 struct Tf32Layout {
-  static constexpr int NT = 128;
-  // queries per tile: 32 at d 64 (two blocks an SM) and above (dK's and
-  // dV's 2 x D / 2 accumulators, the S^T and dP^T tiles and the fragments
-  // within 255 registers, and shared memory)
-  static constexpr int BQ = D <= 32 ? 64 : 32;
+  // above d 128 a warp forms dV or dK, not both: 16 keys x d f32 for each
+  // are d / 2 registers a thread, 128 at d 256 (dkdv_mma_kernel's split)
+  static constexpr bool SPLIT = D > 128;
+  static constexpr int BK = SPLIT ? 32 : 64;        // keys a block
+  static constexpr int KG = BK / 16;                // key groups of 16
+  static constexpr int W = SPLIT ? 2 * KG : KG;     // warps
+  static constexpr int NT = 32 * W;
+  // queries per tile: 32 at d 64 (two blocks an SM) and up to d 128 (dK's
+  // and dV's 2 x D / 2 accumulators, the S^T and dP^T tiles and the
+  // fragments within 255 registers, and shared memory) and at d 192; 16
+  // at d 256
+  static constexpr int BQ = D <= 32 ? 64 : D <= 192 ? 32 : 16;
   // f32 rows of D + 4 floats, (4D + 16) bytes: an odd count of 16-byte
   // units (the 8 rows an ldmatrix reads hit 8 banks), 2 rows 8 banks
   // apart (add_product_tf32x3's reads)
@@ -921,14 +923,14 @@ struct Tf32Layout {
   // dS (queries x keys) and bias (queries x keys) row strides, floats: a
   // warp's 32 dS staging writes and bias reads, rows 2q + x and columns
   // g, hit 32 banks
-  static constexpr int DSS = MBK + 4;
-  static constexpr int BS = MBK + 4;
-  static constexpr size_t KV = size_t(MBK) * RS;  // the K or V tile
-  static constexpr size_t QT = size_t(BQ) * RS;   // one Q or dO' tile
+  static constexpr int DSS = BK + 4;
+  static constexpr int BS = BK + 4;
+  static constexpr size_t KV = size_t(BK) * RS;  // the K or V tile
+  static constexpr size_t QT = size_t(BQ) * RS;  // one Q or dO' tile
   // K (K2: split in place into its hi, its lo beside it; K3b: split at
   // each fragment load), V; two Q and two dO' tiles (each split in place
   // into its hi), the current tile's Q and dO' lo; two delta' rows; then
-  // K2's dS, or K3b's two bias tiles (BQ queries x 64 keys, f32)
+  // K2's dS, or K3b's two bias tiles (BQ queries x BK keys, f32)
   static constexpr size_t BASE =
       (DQ ? 3 : 2) * KV + 6 * QT + 2 * size_t(BQ) * sizeof(float);
   static constexpr size_t DST = size_t(BQ) * DSS * sizeof(float);
@@ -939,15 +941,21 @@ template <int D, bool DQ>
 __global__ void __launch_bounds__(Tf32Layout<D, DQ>::NT, 1)
     dkdv_tf32_kernel(Params p) {
   using L = Tf32Layout<D, DQ>;
-  constexpr int BQ = L::BQ, RS = L::RS, RF = L::RF, DSS = L::DSS, NTH = L::NT;
+  constexpr int BQ = L::BQ, BK = L::BK, RS = L::RS, RF = L::RF, DSS = L::DSS;
+  constexpr int NTH = L::NT, KG = L::KG;
+  constexpr bool SPLIT = L::SPLIT;
+  constexpr int NACC = SPLIT ? 1 : 2;  // dV and dK, or the warp's one
   constexpr int NQ = BQ / 8;    // n8 tiles of a warp's (16 keys x BQ) tile
   constexpr int ND = D / 8;     // n8 tiles over the head dim
   constexpr int QG = BQ / 16;   // dQ: 16-query groups of a tile ...
-  constexpr int DP = 4 / QG;    // ... and the head-dim parts per group
+  constexpr int DP = L::W / QG;  // ... and the head-dim parts per group
   constexpr int NDQ = ND / DP;  // n8 tiles of a warp's dQ part, formed
-  constexpr int NH = D > 96 ? 2 : 1;  // in NH passes (d 128: registers)
+  // in NH passes (d 128, where a warp holds both dK and dV: registers)
+  constexpr int NH = !SPLIT && D > 96 ? 2 : 1;
   constexpr int NDH = NDQ / NH;
-  static_assert(NDQ % NH == 0, "dQ passes split the part evenly");
+  static_assert(ND % DP == 0 && NDQ % NH == 0,
+                "dQ parts and passes split the head dim evenly");
+  static_assert(DQ || !SPLIT, "K3b above d 128 runs on FMAs");
   extern __shared__ __align__(16) unsigned char msmem[];
   unsigned char* ks = msmem;
   unsigned char* kls = ks + L::KV;       // K2: K's lo
@@ -960,10 +968,12 @@ __global__ void __launch_bounds__(Tf32Layout<D, DQ>::NT, 1)
   float* dss = dls + 2 * BQ;             // K2: BQ x DSS
   float* bss = dls + 2 * BQ;             // K3b: 2 bias tiles, BQ x BS
 
-  const int kvhi = blockIdx.x, bi = blockIdx.y, k0 = blockIdx.z * MBK;
+  const int kvhi = blockIdx.x, bi = blockIdx.y, k0 = blockIdx.z * BK;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tq = lane & 3;
-  const int kg = warp;                   // the warp's 16 keys
+  const int kg = warp % KG;                       // the warp's 16 keys
+  const bool forms_dv = !SPLIT || warp < KG;      // warp-uniform roles
+  const bool forms_dk = !SPLIT || warp >= KG;
   const int G = p.H / p.KVH, diff = p.seq_k - p.seq_q;
   const size_t kvrow0 = (size_t(bi) * p.KVH + kvhi) * p.seq_k;
   const uint8_t* mb = p.mask ? p.mask + size_t(bi) * p.seq_k : nullptr;
@@ -1000,22 +1010,23 @@ __global__ void __launch_bounds__(Tf32Layout<D, DQ>::NT, 1)
     const int hb = p.bias_batch_dim ? bi : kvhi * G + it / per_head;
     load_bias_tile<NTH>(bss + buf * BQ * L::BS,
                         p.bias + (size_t(hb) * p.seq_q + q0) * p.seq_k + k0,
-                        BQ, MBK, p.seq_q - q0, p.seq_k - k0, p.seq_k, L::BS,
+                        BQ, BK, p.seq_q - q0, p.seq_k - k0, p.seq_k, L::BS,
                         bias16);
   };
 
   if (total > 0) {
     load_rows<4 * D, RS, NTH>(ks, static_cast<const float*>(p.k) + kvrow0 * D,
-                               k0, MBK, p.seq_k);
+                               k0, BK, p.seq_k);
     load_rows<4 * D, RS, NTH>(vs, static_cast<const float*>(p.v) + kvrow0 * D,
-                               k0, MBK, p.seq_k);
+                               k0, BK, p.seq_k);
     load_tile(0, 0);
   }
   cp_async_commit();
 
-  float acc[2][ND][4];  // dV, dK
+  // dV, then dK; above d 128 the one this warp forms
+  float acc[NACC][ND][4];
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
+  for (int a = 0; a < NACC; ++a)
 #pragma unroll
     for (int n = 0; n < ND; ++n)
 #pragma unroll
@@ -1026,7 +1037,7 @@ __global__ void __launch_bounds__(Tf32Layout<D, DQ>::NT, 1)
 #pragma unroll
   for (int h = 0; h < 2; ++h)
     key_ok[h] = keys[h] < p.seq_k && (mb == nullptr || mb[keys[h]] != 0);
-  const bool keys_whole = mb == nullptr && k0 + MBK <= p.seq_k;
+  const bool keys_whole = mb == nullptr && k0 + BK <= p.seq_k;
   const float* kf = reinterpret_cast<const float*>(ks);
   const float* klf = reinterpret_cast<const float*>(kls);
 
@@ -1045,21 +1056,29 @@ __global__ void __launch_bounds__(Tf32Layout<D, DQ>::NT, 1)
       const size_t at = size_t(keys[h]) * D + 2 * tq;
 #pragma unroll
       for (int n = 0; n < ND; ++n) {
-        float2 dk = make_float2(acc[1][n][2 * h] * p.scale,
-                                acc[1][n][2 * h + 1] * p.scale);
-        float2 dv = make_float2(acc[0][n][2 * h], acc[0][n][2 * h + 1]);
-        float2* dkp = reinterpret_cast<float2*>(dkb + at + n * 8);
-        float2* dvp = reinterpret_cast<float2*>(dvb + at + n * 8);
-        if (stored) {
-          const float2 k2 = *dkp, v2 = *dvp;
-          dk.x += k2.x, dk.y += k2.y, dv.x += v2.x, dv.y += v2.y;
+        const float* a = acc[NACC - 1][n];
+        if (forms_dk) {
+          float2 dk = make_float2(a[2 * h] * p.scale, a[2 * h + 1] * p.scale);
+          float2* dkp = reinterpret_cast<float2*>(dkb + at + n * 8);
+          if (stored) {
+            const float2 k2 = *dkp;
+            dk.x += k2.x, dk.y += k2.y;
+          }
+          *dkp = dk;
         }
-        *dkp = dk;
-        *dvp = dv;
+        if (forms_dv) {
+          float2 dv = make_float2(acc[0][n][2 * h], acc[0][n][2 * h + 1]);
+          float2* dvp = reinterpret_cast<float2*>(dvb + at + n * 8);
+          if (stored) {
+            const float2 v2 = *dvp;
+            dv.x += v2.x, dv.y += v2.y;
+          }
+          *dvp = dv;
+        }
       }
     }
 #pragma unroll
-    for (int a = 0; a < 2; ++a)
+    for (int a = 0; a < NACC; ++a)
 #pragma unroll
       for (int n = 0; n < ND; ++n)
 #pragma unroll
@@ -1084,100 +1103,210 @@ __global__ void __launch_bounds__(Tf32Layout<D, DQ>::NT, 1)
       // every warp reads all of the tile's Q and dO' rows, and (K2's dQ)
       // all of K: split them once, for the block.  V, and K3b's K, are
       // read by their own warp only, and split at each fragment load
-      if (DQ && it == 0) split_rows<D, RS, NTH>(ks, kls, MBK);
+      if (DQ && it == 0) split_rows<D, RS, NTH>(ks, kls, BK);
       split_rows<D, RS, NTH>(qt, qls, BQ);
       split_rows<D, RS, NTH>(dot, dols, BQ);
       __syncthreads();  // the tiles' hi and lo are in place
 
-      // S^T = K.Q^T, dP^T = V.dO'^T: K's and V's A fragments, and x4
-      // ldmatrix of Q / dO' hi and lo (the B fragments of 2 n8 tiles)
-      float s[NQ][4], dp[NQ][4];
+      const bool whole = keys_whole && q0 + BQ <= p.seq_q &&
+                         (!p.causal || k0 + BK - 1 <= q0 + diff);
+      if constexpr (SPLIT) {
+        // above d 128 a warp forms one product: S^T = K.Q^T (the warps
+        // that form dV: K's hi and lo tiles) or dP^T = V.dO'^T (the warps
+        // that form dK: V split at each fragment load), B fragments by x4
+        // ldmatrix of Q's / dO''s hi and lo.  hi.hi sums into xb, the
+        // small terms lo.hi + hi.lo into xs, each in two accumulators by
+        // the k step's parity: four chains of dependent mma instead of
+        // one, and shorter chains of sums rounded toward zero (dP's terms
+        // share a sign where v and dO' do, and dS = e (dP - delta) takes
+        // the difference of two such sums)
+        float xb[2][NQ][4], xs[2][NQ][4];
 #pragma unroll
-      for (int n = 0; n < NQ; ++n)
+        for (int r = 0; r < 2; ++r)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+          for (int n = 0; n < NQ; ++n)
 #pragma unroll
-      for (int st = 0; st < D / 8; ++st) {
-        uint32_t kh[4], kl[4], va[4], vh[4], vl[4];
-        const int arow =
-            (kg * 16 + (lane & 15)) * RS + st * 32 + (lane >> 4) * 16;
-        if constexpr (DQ) {
-          ldmatrix_x4(kh, ks + arow);
-          ldmatrix_x4(kl, kls + arow);
-        } else {
-          uint32_t ka[4];
-          ldmatrix_x4(ka, ks + arow);
+            for (int e = 0; e < 4; ++e) xb[r][n][e] = xs[r][n][e] = 0.f;
+        const unsigned char* bhi = forms_dv ? qt : dot;
+        const unsigned char* blo = forms_dv ? qls : dols;
+#pragma unroll
+        for (int st = 0; st < D / 8; ++st) {
+          uint32_t ah[4], al[4];
+          const int arow =
+              (kg * 16 + (lane & 15)) * RS + st * 32 + (lane >> 4) * 16;
+          if (forms_dv) {
+            ldmatrix_x4(ah, ks + arow);
+            ldmatrix_x4(al, kls + arow);
+          } else {
+            uint32_t a[4];
+            ldmatrix_x4(a, vs + arow);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              split_tf32(__uint_as_float(a[i]), ah[i], al[i]);
+          }
+          const int r = st & 1;
+#pragma unroll
+          for (int j = 0; j < NQ / 2; ++j) {
+            const int brow = (j * 16 + (lane & 7) + (lane >> 4) * 8) * RS +
+                             st * 32 + ((lane >> 3) & 1) * 16;
+            uint32_t bh[4], bl[4];
+            ldmatrix_x4(bh, bhi + brow);
+            ldmatrix_x4(bl, blo + brow);
+            mma_tf32(xs[r][2 * j], al, bh[0], bh[1]);
+            mma_tf32(xs[r][2 * j], ah, bl[0], bl[1]);
+            mma_tf32(xb[r][2 * j], ah, bh[0], bh[1]);
+            mma_tf32(xs[r][2 * j + 1], al, bh[2], bh[3]);
+            mma_tf32(xs[r][2 * j + 1], ah, bl[2], bl[3]);
+            mma_tf32(xb[r][2 * j + 1], ah, bh[2], bh[3]);
+          }
+        }
+        float x[NQ][4];  // S^T or dP^T, then e^T or dS^T
+#pragma unroll
+        for (int n = 0; n < NQ; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            x[n][e] = (xb[0][n][e] + xb[1][n][e]) +
+                      (xs[0][n][e] + xs[1][n][e]);
+        // the dV warps form e^T (masked as below) and stage it at dS's
+        // places, where the dK warp of the same keys (the same lanes) reads
+        // it and writes dS over it
+        if (forms_dv) {
+#pragma unroll
+          for (int n = 0; n < NQ; ++n)
+#pragma unroll
+            for (int xx = 0; xx < 2; ++xx) {
+              const int col = n * 8 + 2 * tq + xx, qr = q0 + col;
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                bool keep = whole;
+                if (!whole) {
+                  keep = key_ok[h] && qr < p.seq_q;
+                  if (p.causal) keep = keep && keys[h] <= qr + diff;
+                }
+                const float e = keep ? exp2f(x[n][2 * h + xx] * p.c) : 0.f;
+                x[n][2 * h + xx] = e;
+                dss[col * DSS + kg * 16 + g + 8 * h] = e;
+              }
+            }
+        }
+        __syncthreads();  // e^T is staged
+        if (forms_dv) {  // dV += e^T.dO'
+          add_product_tf32x3<BQ, D, RF>(
+              acc[0], x, reinterpret_cast<const float*>(dot),
+              reinterpret_cast<const float*>(dols), lane);
+        } else {  // dS^T = e^T (dP^T - delta'), staged; dK += dS^T.Q
+#pragma unroll
+          for (int n = 0; n < NQ; ++n)
+#pragma unroll
+            for (int xx = 0; xx < 2; ++xx) {
+              const int col = n * 8 + 2 * tq + xx, qr = q0 + col;
+              const float dlt = dl[col];
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                bool keep = whole;
+                if (!whole) {
+                  keep = key_ok[h] && qr < p.seq_q;
+                  if (p.causal) keep = keep && keys[h] <= qr + diff;
+                }
+                float* at = dss + col * DSS + kg * 16 + g + 8 * h;
+                const float ds = keep ? *at * (x[n][2 * h + xx] - dlt) : 0.f;
+                x[n][2 * h + xx] = ds;
+                *at = ds;
+              }
+            }
+          add_product_tf32x3<BQ, D, RF>(
+              acc[0], x, reinterpret_cast<const float*>(qt),
+              reinterpret_cast<const float*>(qls), lane);
+        }
+      } else {
+        // S^T = K.Q^T, dP^T = V.dO'^T: K's and V's A fragments, and x4
+        // ldmatrix of Q / dO' hi and lo (the B fragments of 2 n8 tiles)
+        float s[NQ][4], dp[NQ][4];
+#pragma unroll
+        for (int n = 0; n < NQ; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+        for (int st = 0; st < D / 8; ++st) {
+          uint32_t kh[4], kl[4], va[4], vh[4], vl[4];
+          const int arow =
+              (kg * 16 + (lane & 15)) * RS + st * 32 + (lane >> 4) * 16;
+          if constexpr (DQ) {
+            ldmatrix_x4(kh, ks + arow);
+            ldmatrix_x4(kl, kls + arow);
+          } else {
+            uint32_t ka[4];
+            ldmatrix_x4(ka, ks + arow);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              split_tf32(__uint_as_float(ka[i]), kh[i], kl[i]);
+          }
+          ldmatrix_x4(va, vs + arow);
 #pragma unroll
           for (int i = 0; i < 4; ++i)
-            split_tf32(__uint_as_float(ka[i]), kh[i], kl[i]);
-        }
-        ldmatrix_x4(va, vs + arow);
+            split_tf32(__uint_as_float(va[i]), vh[i], vl[i]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          split_tf32(__uint_as_float(va[i]), vh[i], vl[i]);
-#pragma unroll
-        for (int j = 0; j < NQ / 2; ++j) {
-          const int brow = (j * 16 + (lane & 7) + (lane >> 4) * 8) * RS +
-                           st * 32 + ((lane >> 3) & 1) * 16;
-          uint32_t bh[4], bl[4];
-          ldmatrix_x4(bh, qt + brow);
-          ldmatrix_x4(bl, qls + brow);
-          mma_tf32x3(s[2 * j], kh, kl, bh[0], bh[1], bl[0], bl[1]);
-          mma_tf32x3(s[2 * j + 1], kh, kl, bh[2], bh[3], bl[2], bl[3]);
-          ldmatrix_x4(bh, dot + brow);
-          ldmatrix_x4(bl, dols + brow);
-          mma_tf32x3(dp[2 * j], vh, vl, bh[0], bh[1], bl[0], bl[1]);
-          mma_tf32x3(dp[2 * j + 1], vh, vl, bh[2], bh[3], bl[2], bl[3]);
-        }
-      }
-
-      // e^T into s, dS^T into dp, in the C layout: entry (n, 2h + x) is key
-      // keys[h], query q0 + 8n + 2tq + x; the masks skipped on whole tiles,
-      // as in dkdv_mma_kernel; K3b's bias comes from its staged tile, in
-      // f32, never split
-      const bool whole = keys_whole && q0 + BQ <= p.seq_q &&
-                         (!p.causal || k0 + MBK - 1 <= q0 + diff);
-      const bool has_bias = !DQ && p.bias != nullptr;
-      const float* bt = bss + buf * BQ * L::BS + kg * 16 + g;
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          const int col = n * 8 + 2 * tq + x, qr = q0 + col;
-          const float dlt = dl[col];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float lg = s[n][2 * h + x] * p.c;
-            if (has_bias) lg += bt[col * L::BS + 8 * h] * LOG2E;
-            float e, ds;
-            if (whole) {
-              e = exp2f(lg);
-              ds = e * (dp[n][2 * h + x] - dlt);
-            } else {
-              bool keep = key_ok[h] && qr < p.seq_q;
-              if (p.causal) keep = keep && keys[h] <= qr + diff;
-              e = keep ? exp2f(lg) : 0.f;
-              ds = keep ? e * (dp[n][2 * h + x] - dlt) : 0.f;
-            }
-            s[n][2 * h + x] = e;
-            dp[n][2 * h + x] = ds;
-            // K2: stage dS (queries x keys) for dQ = dS.K
-            if constexpr (DQ) dss[col * DSS + kg * 16 + g + 8 * h] = ds;
+          for (int j = 0; j < NQ / 2; ++j) {
+            const int brow = (j * 16 + (lane & 7) + (lane >> 4) * 8) * RS +
+                             st * 32 + ((lane >> 3) & 1) * 16;
+            uint32_t bh[4], bl[4];
+            ldmatrix_x4(bh, qt + brow);
+            ldmatrix_x4(bl, qls + brow);
+            mma_tf32x3(s[2 * j], kh, kl, bh[0], bh[1], bl[0], bl[1]);
+            mma_tf32x3(s[2 * j + 1], kh, kl, bh[2], bh[3], bl[2], bl[3]);
+            ldmatrix_x4(bh, dot + brow);
+            ldmatrix_x4(bl, dols + brow);
+            mma_tf32x3(dp[2 * j], vh, vl, bh[0], bh[1], bl[0], bl[1]);
+            mma_tf32x3(dp[2 * j + 1], vh, vl, bh[2], bh[3], bl[2], bl[3]);
           }
         }
 
-      // dV += e^T.dO', then dK += dS^T.Q, e and dS in f32 (split hi / lo):
-      // their C fragments are the A fragments, dO' and Q rows read in the
-      // matching order
-      add_product_tf32x3<BQ, D, RF>(
-          acc[0], s, reinterpret_cast<const float*>(dot),
-          reinterpret_cast<const float*>(dols), lane);
-      add_product_tf32x3<BQ, D, RF>(
-          acc[1], dp, reinterpret_cast<const float*>(qt),
-          reinterpret_cast<const float*>(qls), lane);
+        // e^T into s, dS^T into dp, in the C layout: entry (n, 2h + x) is
+        // key keys[h], query q0 + 8n + 2tq + x; the masks skipped on whole
+        // tiles, as in dkdv_mma_kernel; K3b's bias comes from its staged
+        // tile, in f32, never split
+        const bool has_bias = !DQ && p.bias != nullptr;
+        const float* bt = bss + buf * BQ * L::BS + kg * 16 + g;
+#pragma unroll
+        for (int n = 0; n < NQ; ++n)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int col = n * 8 + 2 * tq + x, qr = q0 + col;
+            const float dlt = dl[col];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float lg = s[n][2 * h + x] * p.c;
+              if (has_bias) lg += bt[col * L::BS + 8 * h] * LOG2E;
+              float e, ds;
+              if (whole) {
+                e = exp2f(lg);
+                ds = e * (dp[n][2 * h + x] - dlt);
+              } else {
+                bool keep = key_ok[h] && qr < p.seq_q;
+                if (p.causal) keep = keep && keys[h] <= qr + diff;
+                e = keep ? exp2f(lg) : 0.f;
+                ds = keep ? e * (dp[n][2 * h + x] - dlt) : 0.f;
+              }
+              s[n][2 * h + x] = e;
+              dp[n][2 * h + x] = ds;
+              // K2: stage dS (queries x keys) for dQ = dS.K
+              if constexpr (DQ) dss[col * DSS + kg * 16 + g + 8 * h] = ds;
+            }
+          }
+
+        // dV += e^T.dO', then dK += dS^T.Q, e and dS in f32 (split hi /
+        // lo): their C fragments are the A fragments, dO' and Q rows read
+        // in the matching order
+        add_product_tf32x3<BQ, D, RF>(
+            acc[0], s, reinterpret_cast<const float*>(dot),
+            reinterpret_cast<const float*>(dols), lane);
+        add_product_tf32x3<BQ, D, RF>(
+            acc[1], dp, reinterpret_cast<const float*>(qt),
+            reinterpret_cast<const float*>(qls), lane);
+      }
 
       if constexpr (DQ) {
-        // dQ rows of this tile += dS.K over the block's 64 keys: warp w takes
+        // dQ rows of this tile += dS.K over the block's BK keys: warp w takes
         // query group w % QG and head-dim part w / QG.  A lane's float2 reads
         // of dS rows g and g + 8 at keys 8kk + 2tq are dS's C fragment of
         // that k8 step, fed to add_product_tf32x3 as an A fragment
@@ -1193,7 +1322,7 @@ __global__ void __launch_bounds__(Tf32Layout<D, DQ>::NT, 1)
 #pragma unroll
             for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
 #pragma unroll
-          for (int kk = 0; kk < MBK / 8; ++kk) {
+          for (int kk = 0; kk < BK / 8; ++kk) {
             const float* row = dss + (qg * 16 + g) * DSS + kk * 8 + 2 * tq;
             const float2 r0 = *reinterpret_cast<const float2*>(row);
             const float2 r8 = *reinterpret_cast<const float2*>(row + 8 * DSS);
@@ -2574,37 +2703,46 @@ cudaError_t run(Which which, const Params& p, int B, cudaStream_t s) {
                         L2::BASE + L2::DST, s, p)
                : launch(dkdv_mma_kernel<T, D, false>, grid, L3::NT,
                         L3::BASE + (p.bias ? L3::BIAS : 0), s, p);
-  } else if constexpr (D <= 128) {  // K2, K3a, K3b on the tensor cores
-                                     // (3xTF32)
-    for (const void* t : {p.q, p.k, p.v, p.dO})
-      if (reinterpret_cast<uintptr_t>(t) % 16 != 0)
-        return cudaErrorMisalignedAddress;
-    if (which == DQ) {
-      using L = DqTf32Layout<D>;
-      static_assert(L::BASE + L::BIAS <= 232448, "K3a f32 shared memory");
-      return launch(dq_tf32_kernel<D>,
-                    dim3((p.seq_q + DQ_BQ - 1) / DQ_BQ, p.H, B), DQ_NT,
-                    L::BASE + (p.bias ? L::BIAS : 0), s, p);
+  } else {  // float32
+    // K2 on the tensor cores (3xTF32) at every width, K3a and K3b up to d
+    // 128; K3a and K3b on FMAs at d 192 and 256
+    constexpr bool TF32_TWOPASS = D <= 128;
+    if (which == ONEPASS || TF32_TWOPASS) {
+      for (const void* t : {p.q, p.k, p.v, p.dO})
+        if (reinterpret_cast<uintptr_t>(t) % 16 != 0)
+          return cudaErrorMisalignedAddress;
     }
-    // key tiles slowest, so the causal blocks with the most work go first
-    const dim3 grid(p.KVH, B, (p.seq_k + MBK - 1) / MBK);
-    using L2 = Tf32Layout<D, true>;
-    using L3 = Tf32Layout<D, false>;
-    static_assert(L3::BASE + L3::BIAS <= 232448, "K3b f32 shared memory");
-    return which == ONEPASS
-               ? launch(dkdv_tf32_kernel<D, true>, grid, L2::NT,
-                        L2::BASE + L2::DST, s, p)
-               : launch(dkdv_tf32_kernel<D, false>, grid, L3::NT,
-                        L3::BASE + (p.bias ? L3::BIAS : 0), s, p);
-  } else {  // f32 at d 192 and 256 on FMAs
-    using F = Fma<D>;
-    if (which == DQ)
-      return launch(dq_kernel<T, D>, dim3((p.seq_q + F::B - 1) / F::B, p.H, B),
-                    NT, F::SMEM, s, p);
-    const dim3 kgrid((p.seq_k + F::B - 1) / F::B, p.KVH, B);
-    return which == DKDV
-               ? launch(dkdv_kernel<T, D, false>, kgrid, NT, F::SMEM, s, p)
-               : launch(dkdv_kernel<T, D, true>, kgrid, NT, F::SMEM, s, p);
+    if (which == ONEPASS) {
+      using L2 = Tf32Layout<D, true>;
+      static_assert(L2::BASE + L2::DST <= 232448, "K2 f32 shared memory");
+      // key tiles slowest, so the causal blocks with the most work go first
+      return launch(dkdv_tf32_kernel<D, true>,
+                    dim3(p.KVH, B, (p.seq_k + L2::BK - 1) / L2::BK), L2::NT,
+                    L2::BASE + L2::DST, s, p);
+    }
+    if constexpr (TF32_TWOPASS) {
+      if (which == DQ) {
+        using L = DqTf32Layout<D>;
+        static_assert(L::BASE + L::BIAS <= 232448, "K3a f32 shared memory");
+        return launch(dq_tf32_kernel<D>,
+                      dim3((p.seq_q + DQ_BQ - 1) / DQ_BQ, p.H, B), DQ_NT,
+                      L::BASE + (p.bias ? L::BIAS : 0), s, p);
+      }
+      using L3 = Tf32Layout<D, false>;
+      static_assert(L3::BASE + L3::BIAS <= 232448, "K3b f32 shared memory");
+      return launch(dkdv_tf32_kernel<D, false>,
+                    dim3(p.KVH, B, (p.seq_k + L3::BK - 1) / L3::BK), L3::NT,
+                    L3::BASE + (p.bias ? L3::BIAS : 0), s, p);
+    } else {
+      using F = Fma<D>;
+      if (which == DQ)
+        return launch(dq_kernel<T, D>,
+                      dim3((p.seq_q + F::B - 1) / F::B, p.H, B), NT, F::SMEM,
+                      s, p);
+      return launch(dkdv_kernel<T, D>,
+                    dim3((p.seq_k + F::B - 1) / F::B, p.KVH, B), NT, F::SMEM,
+                    s, p);
+    }
   }
 }
 
@@ -2682,9 +2820,9 @@ int dispatch(Which which, Params p, int dtype, int B, int d, void* stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the dq/dk/dv outputs
-// share it).  bfloat16 runs on the tensor cores; float32 K2, K3a and K3b
-// on them as 3xTF32 up to d 128, and on FMAs above (d 192, 256 and the
-// wide route).
+// share it).  bfloat16 runs on the tensor cores; float32 K2 on them as
+// 3xTF32 up to d 256, K3a and K3b up to d 128, and on FMAs above (K3a and
+// K3b at d 192 and 256, all three on the wide route).
 // All tensors contiguous, shapes as in Params; mask uint8 or null, bias
 // f32 or null.  Each returns the cudaGetLastError() after its launch (0 =
 // success).

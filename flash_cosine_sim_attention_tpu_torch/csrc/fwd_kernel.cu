@@ -39,35 +39,58 @@
 // so Q's A fragments (another D / 4) are not kept: they are read again
 // from the resident Q tile by ldmatrix at every key tile.
 //
-// float32 q/k/v up to d 128 run on the tensor cores as 3xTF32 split
-// products (`fwd_tf32_kernel`): every operand x is split into two tf32
-// values, hi = rn(x) and lo = rn(x - hi) (cvt.rn.tf32.f32, which keeps a
-// NaN a NaN), and each product is lo.hi + hi.lo + hi.hi by mma.sync
-// m16n8k8 into f32 (lo.lo dropped), which holds the f32 parity bar of
-// 1e-4.  The TPU kernel splits into bf16 hi / lo instead (Mosaic has no
-// TF32 tier); at 8 l2norm groups and scale 8 that split misses the bar
-// (1.7e-4 on o), TF32's 11 significant bits a part do not.  The FA2 block
-// shape of fwd_mma_kernel; K and V tiles (32 keys above d 96) arrive as
-// f32 by cp.async and are split once for the block after they land (hi in
-// place, lo beside them), since every warp reads all of them; Q's hi / lo
-// fragments stay in registers up to d 64 and are split once into a
-// resident lo tile above.  P stays f32 (the bf16 arm rounds it to bf16)
-// and is split in registers: the C fragment of S holds keys 2q and 2q +
-// 1, which serve as the tf32 A fragment's k indices q and q + 4 when V's
-// rows are read in that order (add_product_tf32x3), so P never touches
-// shared memory.  The masks, e, l and inv_l are the bf16 instance's.  The
-// tensor cores round each f32 sum toward zero, and a chain of them on one
-// accumulator drifts with its length (past the 1e-4 bar over 8192 keys
-// whose values' mean is far from 0): every 256 keys O's chain is closed
-// into a running sum in shared memory, added to nearest.  Shared memory
-// 135 KB at d 64, 224 KB at d 96, 197 KB at d 128.
-// float32 at d 192 and 256 (3xTF32 tiles of this shape would take 240 KB
-// and more), and int8 codes with float32 v, keep the f32 FMA kernel
-// `fwd_kernel`: the same block shape, both products as f32 FMAs out of
-// shared memory (the int8 codes by `__dp4a`), the P tile kept in float32
-// in shared memory.  Its tiles stay 64 x 64 at every width: at d 256 the
-// f32 Q, K, V and P tiles take 213,760 bytes of the 232,448 a block may
-// have.
+// float32 q/k/v at every width up to 256 run on the tensor cores as
+// 3xTF32 split products (`fwd_tf32_kernel`): every operand x is split
+// into two tf32 values, hi = rn(x) and lo = rn(x - hi) (cvt.rn.tf32.f32,
+// which keeps a NaN a NaN), and each product is lo.hi + hi.lo + hi.hi by
+// mma.sync m16n8k8 into f32 (lo.lo dropped), which holds the f32 parity
+// bar of 1e-4.  The TPU kernel splits into bf16 hi / lo instead (Mosaic
+// has no TF32 tier); at 8 l2norm groups and scale 8 that split misses the
+// bar (1.7e-4 on o), TF32's 11 significant bits a part do not.  The FA2
+// block shape of fwd_mma_kernel; K and V tiles arrive as f32 by cp.async
+// and are split once for the block after they land (hi in place, lo
+// beside them), since every warp reads all of them; a warp reads only its
+// own Q rows, whose hi / lo fragments stay in registers up to d 64, are
+// split once into a resident lo tile up to d 128, and above are split at
+// each fragment load (a resident lo tile would not fit).  P stays f32
+// (the bf16 arm rounds it to bf16) and is split in registers: the C
+// fragment of S holds keys 2q and 2q + 1, which serve as the tf32 A
+// fragment's k indices q and q + 4 when V's rows are read in that order
+// (add_product_tf32x3), so P never touches shared memory.  The masks, e,
+// l and inv_l are the bf16 instance's.  The tensor cores round each f32
+// sum toward zero, and a chain of them on one accumulator drifts with its
+// length (past the 1e-4 bar over 8192 keys whose values' mean is far from
+// 0): every 256 keys O's chain is closed into a running sum, added to
+// nearest.  Key tiles: 64 keys up to d 96, 32 at d 128 and 192, 16 at
+// 256.  Shared memory up to d 128 (the Q tile, Q's lo, six K / V tiles,
+// O's running sum of D / 2 words a thread): 135 KB at d 64, 224 KB at d
+// 96, 197 KB at d 128.
+// Above d 128 a warp of 16 rows would hold O's 128 accumulators a thread
+// (d 256) and sum S over 32 k steps, one warp an SM sub-partition, whose
+// chains of dependent mma leave the tensor cores idle; and the heaviest
+// causal block sets the time (128 blocks in one wave at the heads-256
+// shape, b4 h2 s1024).  So a block has 8 warps, two for each 16 rows:
+// warp w sums S over half w / 4 of d, the pair adds its halves through
+// shared memory (both in the same order, so both form the same e), and
+// each forms e and O's half of the columns (D / 4 accumulators a thread).
+// S costs nothing twice; a tile costs a pair barrier and a 2 KB (d 256)
+// or 4 KB (d 192) exchange a pair.  O's chains close into o itself (the
+// thread's own words).  Blocks run heaviest causal q tiles first.  The
+// heads-256 shape's 128 blocks of 64 rows run in one wave whose heaviest
+// block, seeing all 64 key tiles against the mean's 34, sets the time:
+// splitting the q tiles' keys over blocks (256-key chunks, merged by the
+// last to finish) took d 256 from 0.261 to 0.223 ms a call on an H100,
+// but the heads-256 f32 step only from 102.5 to 101.4 ms, within its
+// run-to-run spread, so the kernel does without it.
+// Shared memory (the Q tile, six K / V tiles of 32 keys at d 192 and 16
+// at d 256, the halves of S): 212 KB at d 192, 170.5 KB at d 256.  Bound
+// at the heads-256 training shape (b4 h2 s1024 d256 causal f32): 4.3
+// GFLOP, three times that on the TF32 tensor cores, 0.026 ms at 495
+// TFLOP/s (the FMA route's bound, at 67 TFLOP/s, is 0.064 ms).
+// int8 codes with float32 v keep the f32 FMA kernel `fwd_kernel`: the
+// same block shape, both products as f32 FMAs out of shared memory (the
+// int8 codes by `__dp4a`), the P tile kept in float32 in shared memory,
+// 64 x 64 tiles at every width.
 //
 // Past d 256 (the wide route) a warp's O accumulators no longer fit, so
 // the output columns become a grid axis: the wrapper pads d to a multiple
@@ -343,53 +366,82 @@ __global__ void __launch_bounds__(NT, 1) fwd_mma_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core f32 kernel: float32 q/k/v at d <= 128, every product as three
-// tf32 mma.sync passes (3xTF32).  Block shape and key loop as
-// fwd_mma_kernel's; key tiles of 32 above d 96 (shared memory).
+// Tensor-core f32 kernel: float32 q/k/v at every width up to 256, every
+// product as three tf32 mma.sync passes (3xTF32).  Up to d 128 the block
+// shape and key loop of fwd_mma_kernel (4 warps, 16 rows each); above, 8
+// warps, two for each 16 rows (see Tf32Layout).
 
+// Key tiles of the f32 instances above d 128: 32 keys at d 192, 16 at d
+// 256 (32 do not fit there); 16 at d 192 ran 0.172 against 0.158 ms at
+// b4 h2 s1024 causal on an H100
 template <int D>
 struct Tf32Layout {
-  static constexpr int BKT = D <= 96 ? 64 : 32;  // keys a tile
+  // above d 128 a block has 8 warps, two for each 16 rows: warp w sums
+  // S over half h = w / 4 of d and owns O's columns [h D / 2, (h + 1) D /
+  // 2), so a thread holds D / 4 of O's words (64 at d 256) and each SM
+  // sub-partition runs two warps; the pair adds its two halves of S
+  // through shared memory (XS)
+  static constexpr bool WIDE = D > 128;
+  static constexpr int HALVES = WIDE ? 2 : 1;
+  static constexpr int NT = 128 * HALVES;
+  static constexpr int BKT = D <= 96 ? 64 : D <= 192 ? 32 : 16;  // keys a tile
   static constexpr bool QREG = D <= 64;  // Q's hi / lo fragments in registers
+  // Q's lo as a resident tile up to d 128; above, Q's rows (each read by
+  // its own warps only) are split at each fragment load
+  static constexpr bool QLO = !QREG && !WIDE;
   // f32 rows of D + 4 floats, (4D + 16) bytes: an odd count of 16-byte
   // units, so the 8 rows an ldmatrix reads hit 8 distinct banks, and 2
   // rows 8 banks apart for add_product_tf32x3's reads of V
   static constexpr int RF = D + 4;
   static constexpr int RS = 4 * RF;
-  // the Q tile (and, past QREG, its lo), two K and two V tiles (each split
-  // in place into its hi), the current K and V tiles' lo; O's running sum
-  // (fwd_tf32_kernel's closed chains), each thread's D / 2 words
-  static constexpr size_t SMEM = size_t(QREG ? 1 : 2) * BQ * RS +
-                                 6 * size_t(BKT) * RS + size_t(NT) * D / 2 * 4;
+  // the Q tile (and its lo where QLO), two K and two V tiles (each split
+  // in place into its hi), the current K and V tiles' lo; then up to d
+  // 128 O's running sum (the closed chains), each thread's D / 2 words,
+  // and above the pairs' halves of S (8 warps x the S tile's C fragments;
+  // O's chains close into o itself)
+  static constexpr size_t XS = WIDE ? 2 * size_t(NT) * BKT : 0;  // bytes
+  static constexpr size_t SMEM = size_t(QLO ? 2 : 1) * BQ * RS +
+                                 6 * size_t(BKT) * RS +
+                                 (WIDE ? XS : size_t(NT) * D / 2 * 4);
 };
 
+// bar.sync on barrier `id` (1-4; 0 is __syncthreads) by the 64 threads of
+// a warp pair
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
+}
+
 template <int D>
-__global__ void __launch_bounds__(NT, 1) fwd_tf32_kernel(
+__global__ void __launch_bounds__(Tf32Layout<D>::NT, 1) fwd_tf32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const uint8_t* __restrict__ mask,
     const float* __restrict__ bias, float* __restrict__ o,
     float* __restrict__ inv_l, int H, int KVH, int seq_q, int seq_k,
     int causal, int bias_batch_dim, float c) {
   using L = Tf32Layout<D>;
-  constexpr int RS = L::RS, RF = L::RF, BKT = L::BKT;
-  constexpr bool QREG = L::QREG;
-  constexpr int KSTEPS = D / 8;   // 32-byte k steps of S = Q.K^T
-  constexpr int NS = BKT / 8;     // n8 tiles of S
-  constexpr int NO = D / 8;       // n8 tiles of O
+  constexpr int RS = L::RS, RF = L::RF, BKT = L::BKT, NTH = L::NT;
+  constexpr bool QREG = L::QREG, QLO = L::QLO, WIDE = L::WIDE;
+  constexpr int DH = D / L::HALVES;  // S's lanes and O's columns of a warp
+  constexpr int KSTEPS = DH / 8;     // 32-byte k steps of a warp's S
+  constexpr int NS = BKT / 8;        // n8 tiles of S
+  constexpr int NO = DH / 8;         // n8 tiles of a warp's O
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* qs = smem;                           // BQ x RS
-  unsigned char* qlo = qs + BQ * RS;                  // past QREG: BQ x RS
-  unsigned char* ks = qs + (QREG ? 1 : 2) * BQ * RS;  // 2 x BKT x RS
-  unsigned char* vs = ks + 2 * BKT * RS;              // 2 x BKT x RS
-  unsigned char* klo = vs + 2 * BKT * RS;             // BKT x RS
-  unsigned char* vlo = klo + BKT * RS;                // BKT x RS
-  float* osum = reinterpret_cast<float*>(vlo + BKT * RS);  // D / 2 x NT
+  unsigned char* qs = smem;                          // BQ x RS
+  unsigned char* qlo = qs + BQ * RS;                 // QLO: BQ x RS
+  unsigned char* ks = qs + (QLO ? 2 : 1) * BQ * RS;  // 2 x BKT x RS
+  unsigned char* vs = ks + 2 * BKT * RS;             // 2 x BKT x RS
+  unsigned char* klo = vs + 2 * BKT * RS;            // BKT x RS
+  unsigned char* vlo = klo + BKT * RS;               // BKT x RS
+  // up to d 128 O's running sum (D / 2 x NT), above the halves of S
+  float* osum = reinterpret_cast<float*>(vlo + BKT * RS);
+  float* xs = osum;
 
   const int bi = blockIdx.z, hi = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
   const int kvhi = hi / (H / KVH);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tq = lane & 3;
+  const int rg = warp & 3, part = warp >> 2;  // its 16 rows, its half of d
   const int diff = seq_k - seq_q;
 
   const float* qb = q + (size_t(bi) * H + hi) * seq_q * D;
@@ -405,11 +457,11 @@ __global__ void __launch_bounds__(NT, 1) fwd_tf32_kernel(
   const int nk = (kend + BKT - 1) / BKT;
 
   auto load_kv = [&](int buf, int k0) {
-    load_rows<4 * D, RS, NT>(ks + buf * BKT * RS, kb, k0, BKT, seq_k);
-    load_rows<4 * D, RS, NT>(vs + buf * BKT * RS, vb, k0, BKT, seq_k);
+    load_rows<4 * D, RS, NTH>(ks + buf * BKT * RS, kb, k0, BKT, seq_k);
+    load_rows<4 * D, RS, NTH>(vs + buf * BKT * RS, vb, k0, BKT, seq_k);
   };
   if (nk > 0) {
-    load_rows<4 * D, RS, NT>(qs, qb, q0, BQ, seq_q);
+    load_rows<4 * D, RS, NTH>(qs, qb, q0, BQ, seq_q);
     load_kv(0, 0);
   }
   cp_async_commit();
@@ -421,24 +473,53 @@ __global__ void __launch_bounds__(NT, 1) fwd_tf32_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
   float lsum[2] = {0.f, 0.f};
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const int qrow = (warp * 16 + (lane & 15)) * RS + (lane >> 4) * 16;
+  const int rows[2] = {q0 + rg * 16 + g, q0 + rg * 16 + g + 8};
+  // the warp's Q rows, from its half's first k step
+  const int qrow =
+      (rg * 16 + (lane & 15)) * RS + (lane >> 4) * 16 + part * KSTEPS * 32;
+  const int c0 = part * DH;  // the warp's first column of O (and of V)
 
   // O sums every visible key, each mma rounding its sum toward zero.
   // Every CHAIN tiles (256 keys) the chain is closed: oacc is added, to
-  // nearest, into O's running sum in shared memory (the thread's own
-  // words, word i at osum[i * NT + tid]) and restarts from 0
+  // nearest, into O's running sum and restarts from 0.  The running sum
+  // lies in shared memory up to d 128 (the thread's own words, word i at
+  // osum[i * NT + tid]) and above in the thread's own words of o (rows
+  // past seq_q are dropped: they are never stored)
   constexpr int CHAIN = 256 / BKT;
+  // the thread's row `row` of o, from the warp's first column
+  float* const oh = o + (size_t(bi) * H + hi) * seq_q * D;
+  auto out_row = [&](int row) { return oh + size_t(row) * D + c0; };
   bool summed = false;
   auto close_chain = [&]() {
+    if constexpr (!WIDE) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float* w = osum + (n * 4 + e) * NTH + tid;
+          *w = summed ? *w + oacc[n][e] : oacc[n][e];
+        }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (rows[h] >= seq_q) continue;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          float2* w = reinterpret_cast<float2*>(out_row(rows[h]) + n * 8 +
+                                                2 * tq);
+          float2 x = make_float2(oacc[n][2 * h], oacc[n][2 * h + 1]);
+          if (summed) {
+            const float2 y = *w;
+            x.x += y.x, x.y += y.y;
+          }
+          *w = x;
+        }
+      }
+    }
 #pragma unroll
     for (int n = 0; n < NO; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float* w = osum + (n * 4 + e) * NT + tid;
-        *w = summed ? *w + oacc[n][e] : oacc[n][e];
-        oacc[n][e] = 0.f;
-      }
+      for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
     summed = true;
   };
 
@@ -451,8 +532,8 @@ __global__ void __launch_bounds__(NT, 1) fwd_tf32_kernel(
     unsigned char* kt_s = ks + (kt & 1) * BKT * RS;
     unsigned char* vt_s = vs + (kt & 1) * BKT * RS;
     // every warp reads all of K and V: split them once, for the block
-    split_rows<D, RS, NT>(kt_s, klo, BKT);
-    split_rows<D, RS, NT>(vt_s, vlo, BKT);
+    split_rows<D, RS, NTH>(kt_s, klo, BKT);
+    split_rows<D, RS, NTH>(vt_s, vlo, BKT);
     if (kt == 0) {
       if constexpr (QREG) {  // a warp's own Q rows, split in registers
 #pragma unroll
@@ -463,17 +544,17 @@ __global__ void __launch_bounds__(NT, 1) fwd_tf32_kernel(
           for (int i = 0; i < 4; ++i)
             split_tf32(__uint_as_float(a[i]), qh[st][i], ql[st][i]);
         }
-      } else {
-        split_rows<D, RS, NT>(qs, qlo, BQ);
+      } else if constexpr (QLO) {
+        split_rows<D, RS, NTH>(qs, qlo, BQ);
       }
     }
     __syncthreads();  // the tiles' hi and lo are in place
 
-    // S = Q.K^T: x4 ldmatrix of K's hi and lo give the B fragments of 2 n8
-    // tiles.  hi.hi sums into s, the small terms lo.hi + hi.lo into sl: the
-    // tensor cores round each sum toward zero, and s chains a third as many
-    // of them (at 8 groups and scale 8 this brings inv_l's distance from
-    // exact products down to float32's own)
+    // S = Q.K^T over the warp's k steps: x4 ldmatrix of K's hi and lo give
+    // the B fragments of 2 n8 tiles.  hi.hi sums into s, the small terms
+    // lo.hi + hi.lo into sl: the tensor cores round each sum toward zero,
+    // and s chains a third as many of them (at 8 groups and scale 8 this
+    // brings inv_l's distance from exact products down to float32's own)
     float s[NS][4], sl[NS][4];
 #pragma unroll
     for (int n = 0; n < NS; ++n)
@@ -488,14 +569,21 @@ __global__ void __launch_bounds__(NT, 1) fwd_tf32_kernel(
           ah[i] = qh[st][i];
           al[i] = ql[st][i];
         }
-      } else {
+      } else if constexpr (QLO) {
         ldmatrix_x4(ah, qs + qrow + st * 32);
         ldmatrix_x4(al, qlo + qrow + st * 32);
+      } else {  // the warp's own Q rows, split as they are read
+        uint32_t a[4];
+        ldmatrix_x4(a, qs + qrow + st * 32);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split_tf32(__uint_as_float(a[i]), ah[i], al[i]);
       }
 #pragma unroll
       for (int j = 0; j < NS / 2; ++j) {
         const int brow = (j * 16 + (lane & 7) + (lane >> 4) * 8) * RS +
-                         st * 32 + ((lane >> 3) & 1) * 16;
+                         part * KSTEPS * 32 + st * 32 +
+                         ((lane >> 3) & 1) * 16;
         uint32_t bh[4], bl[4];
         ldmatrix_x4(bh, kt_s + brow);
         ldmatrix_x4(bl, klo + brow);
@@ -511,6 +599,23 @@ __global__ void __launch_bounds__(NT, 1) fwd_tf32_kernel(
     for (int n = 0; n < NS; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] += sl[n][e];
+    if constexpr (WIDE) {
+      // the pair's two halves of S, added in the same order by both warps
+      // (so both form the same e): word (n, e) of a lane at
+      // xs[((rg * 2 + part) * NS * 4 + n * 4 + e) * 32 + lane]
+      float* mine = xs + (rg * 2 + part) * NS * 4 * 32 + lane;
+      const float* h0 = xs + rg * 2 * NS * 4 * 32 + lane;
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine[(n * 4 + e) * 32] = s[n][e];
+      pair_sync(1 + rg);
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = h0[(n * 4 + e) * 32] + h0[(NS * 4 + n * 4 + e) * 32];
+    }
 
     // e = exp2(s * c + bias * log2e), masked to 0, as in fwd_mma_kernel
     const bool whole = mb == nullptr && bb == nullptr && k0 + BKT <= seq_k &&
@@ -542,28 +647,44 @@ __global__ void __launch_bounds__(NT, 1) fwd_tf32_kernel(
           }
     }
 
-    // O += P.V with P in f32 (split hi / lo like any operand): S's C
-    // fragments are P's A fragments, V's rows read in the same order
-    add_product_tf32x3<BKT, D, RF>(oacc, s, reinterpret_cast<const float*>(vt_s),
-                                   reinterpret_cast<const float*>(vlo), lane);
-    __syncthreads();  // the next tile's loads and splits may overwrite these
+    // O[:, the warp's columns] += P.V with P in f32 (split hi / lo like
+    // any operand): S's C fragments are P's A fragments, V's rows read in
+    // the same order
+    add_product_tf32x3<BKT, DH, RF>(
+        oacc, s, reinterpret_cast<const float*>(vt_s) + c0,
+        reinterpret_cast<const float*>(vlo) + c0, lane);
+    __syncthreads();  // the next tile's loads, splits and halves of S may
+                      // overwrite these
     if ((kt + 1) % CHAIN == 0 && kt + 1 < nk) close_chain();
   }
-  if (summed) {
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) oacc[n][e] += osum[(n * 4 + e) * NT + tid];
-  }
-
-  // a row's sum is spread over the 4 lanes of a quad
+  // a row's sum is spread over the 4 lanes of a quad (both warps of a
+  // pair hold the same sums)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 1);
     lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 2);
   }
-  float* ob = o + (size_t(bi) * H + hi) * seq_q * D;
   float* lb = inv_l + (size_t(bi) * H + hi) * seq_q;
+  if (summed) {
+    if constexpr (!WIDE) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oacc[n][e] += osum[(n * 4 + e) * NTH + tid];
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (rows[h] >= seq_q) continue;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          const float2 y = *reinterpret_cast<const float2*>(
+              out_row(rows[h]) + n * 8 + 2 * tq);
+          oacc[n][2 * h] += y.x;
+          oacc[n][2 * h + 1] += y.y;
+        }
+      }
+    }
+  }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = rows[h];
@@ -571,46 +692,45 @@ __global__ void __launch_bounds__(NT, 1) fwd_tf32_kernel(
     const float inv = 1.f / fmaxf(lsum[h], EPS);
 #pragma unroll
     for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<float2*>(ob + size_t(row) * D + n * 8 + 2 * tq) =
+      *reinterpret_cast<float2*>(out_row(row) + n * 8 + 2 * tq) =
           make_float2(oacc[n][2 * h] * inv, oacc[n][2 * h + 1] * inv);
-    if (tq == 0) lb[row] = inv;
+    if (tq == 0 && part == 0) lb[row] = inv;
   }
 }
 
 // ---------------------------------------------------------------------------
-// f32 FMA kernel: float32 q/k/v, or int8 q/k codes with float32 v.  Threads
-// are 16 row groups of 4 rows x 8 column lanes.
+// f32 FMA kernel: int8 q/k codes with float32 v (float32 q/k/v run on
+// the tensor cores, fwd_tf32_kernel).  Threads are 16 row groups of 4 rows
+// x 8 column lanes.
 
-// 4-byte words per q / k row in shared memory, one pad word included:
-// float values, or int8 codes packed four to a word
-template <typename TQ, int D>
-__host__ __device__ constexpr int qk_row() { return is_int8<TQ>() ? D / 4 + 1 : D + 1; }
+// 4-byte words per q / k row in shared memory: int8 codes packed four to a
+// word, one pad word included
+template <int D>
+__host__ __device__ constexpr int qk_row() { return D / 4 + 1; }
 
-template <typename TQ, int D>
+template <int D>
 constexpr size_t smem_bytes() {
   // q tile, k tile, v tile, P tile with one pad column
-  return 4 * (size_t(BQ) * qk_row<TQ, D>() + size_t(BK) * qk_row<TQ, D>() +
+  return 4 * (size_t(BQ) * qk_row<D>() + size_t(BK) * qk_row<D>() +
               size_t(BK) * D + size_t(BQ) * (BK + 1));
 }
 
-template <typename TQ, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) fwd_kernel(
-    const TQ* __restrict__ q, const TQ* __restrict__ k, const float* __restrict__ v,
-    const uint8_t* __restrict__ mask, const float* __restrict__ bias,
-    float* __restrict__ o, float* __restrict__ inv_l, int H, int KVH, int seq_q,
-    int seq_k, int causal, int bias_batch_dim, float c) {
-  constexpr bool Q8 = is_int8<TQ>();
-  constexpr int QR = qk_row<TQ, D>();
-  constexpr int DW = D / 4;  // int8 codes: words per row
+    const int8_t* __restrict__ q, const int8_t* __restrict__ k,
+    const float* __restrict__ v, const uint8_t* __restrict__ mask,
+    const float* __restrict__ bias, float* __restrict__ o,
+    float* __restrict__ inv_l, int H, int KVH, int seq_q, int seq_k,
+    int causal, int bias_batch_dim, float c) {
+  constexpr int QR = qk_row<D>();
+  constexpr int DW = D / 4;  // words per row
   constexpr int PP = BK + 1;
   constexpr int DC = D / 8;  // output columns per thread
   extern __shared__ float smem_f[];
-  float* qs = smem_f;        // BQ x QR; float: pre-multiplied by c
-  float* ks = qs + BQ * QR;  // BK x QR
-  float* vs = ks + BK * QR;  // BK x D
-  float* ps = vs + BK * D;   // BQ x PP exp weights
-  int* qw = reinterpret_cast<int*>(qs);  // int8 arm: packed codes
-  int* kw = reinterpret_cast<int*>(ks);
+  int* qw = reinterpret_cast<int*>(smem_f);  // BQ x QR packed codes
+  int* kw = qw + BQ * QR;                    // BK x QR
+  float* vs = smem_f + (BQ + BK) * QR;       // BK x D
+  float* ps = vs + BK * D;                   // BQ x PP exp weights
 
   const int bi = blockIdx.z, hi = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
@@ -618,24 +738,17 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
   const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
   const int diff = seq_k - seq_q;
 
-  const TQ* qb = q + (size_t(bi) * H + hi) * seq_q * D;
-  const TQ* kb = k + (size_t(bi) * KVH + kvhi) * seq_k * D;
+  const int8_t* qb = q + (size_t(bi) * H + hi) * seq_q * D;
+  const int8_t* kb = k + (size_t(bi) * KVH + kvhi) * seq_k * D;
   const float* vb = v + (size_t(bi) * KVH + kvhi) * seq_k * D;
   const uint8_t* mb = mask ? mask + size_t(bi) * seq_k : nullptr;
   const float* bb =
       bias ? bias + size_t(bias_batch_dim ? bi : hi) * seq_q * seq_k : nullptr;
 
-  if constexpr (Q8) {
-    const int* qb4 = reinterpret_cast<const int*>(qb);
-    for (int idx = tid; idx < BQ * DW; idx += NT) {
-      const int r = idx / DW, w = idx % DW, row = q0 + r;
-      qw[r * QR + w] = row < seq_q ? qb4[size_t(row) * DW + w] : 0;
-    }
-  } else {
-    for (int idx = tid; idx < BQ * D; idx += NT) {
-      const int r = idx / D, cc = idx % D, row = q0 + r;
-      qs[r * QR + cc] = row < seq_q ? qb[size_t(row) * D + cc] * c : 0.f;
-    }
+  const int* qb4 = reinterpret_cast<const int*>(qb);
+  for (int idx = tid; idx < BQ * DW; idx += NT) {
+    const int r = idx / DW, w = idx % DW, row = q0 + r;
+    qw[r * QR + w] = row < seq_q ? qb4[size_t(row) * DW + w] : 0;
   }
 
   // keys this block can see: all, or (causal) up to its last row's diagonal
@@ -657,61 +770,37 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
     __syncthreads();  // previous tile's readers are done with ks/vs/ps
     for (int idx = tid; idx < BK * D; idx += NT) {
       const int r = idx / D, cc = idx % D, col = k0 + r;
-      const bool in = col < seq_k;
-      if constexpr (!Q8)
-        ks[r * QR + cc] = in ? kb[size_t(col) * D + cc] : 0.f;
-      vs[r * D + cc] = in ? vb[size_t(col) * D + cc] : 0.f;
+      vs[r * D + cc] = col < seq_k ? vb[size_t(col) * D + cc] : 0.f;
     }
-    if constexpr (Q8) {
-      const int* kb4 = reinterpret_cast<const int*>(kb);
-      for (int idx = tid; idx < BK * DW; idx += NT) {
-        const int r = idx / DW, w = idx % DW, col = k0 + r;
-        kw[r * QR + w] = col < seq_k ? kb4[size_t(col) * DW + w] : 0;
-      }
+    const int* kb4 = reinterpret_cast<const int*>(kb);
+    for (int idx = tid; idx < BK * DW; idx += NT) {
+      const int r = idx / DW, w = idx % DW, col = k0 + r;
+      kw[r * QR + w] = col < seq_k ? kb4[size_t(col) * DW + w] : 0;
     }
     __syncthreads();
 
     float s[4][8];
-    if constexpr (Q8) {
-      int si[4][8];
+    int si[4][8];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int cc = 0; cc < 8; ++cc) si[r][cc] = 0;
+      for (int cc = 0; cc < 8; ++cc) si[r][cc] = 0;
 #pragma unroll 4
-      for (int dd = 0; dd < DW; ++dd) {
-        int a[4], b[8];
+    for (int dd = 0; dd < DW; ++dd) {
+      int a[4], b[8];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) a[r] = qw[(ty * 4 + r) * QR + dd];
+      for (int r = 0; r < 4; ++r) a[r] = qw[(ty * 4 + r) * QR + dd];
 #pragma unroll
-        for (int cc = 0; cc < 8; ++cc) b[cc] = kw[(tx + 8 * cc) * QR + dd];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int cc = 0; cc < 8; ++cc) si[r][cc] = __dp4a(a[r], b[cc], si[r][cc]);
-      }
+      for (int cc = 0; cc < 8; ++cc) b[cc] = kw[(tx + 8 * cc) * QR + dd];
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int cc = 0; cc < 8; ++cc) s[r][cc] = float(si[r][cc]) * c;
-    } else {
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int cc = 0; cc < 8; ++cc) s[r][cc] = 0.f;
-#pragma unroll 4
-      for (int dd = 0; dd < D; ++dd) {
-        float a[4], b[8];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) a[r] = qs[(ty * 4 + r) * QR + dd];
-#pragma unroll
-        for (int cc = 0; cc < 8; ++cc) b[cc] = ks[(tx + 8 * cc) * QR + dd];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int cc = 0; cc < 8; ++cc) s[r][cc] = fmaf(a[r], b[cc], s[r][cc]);
-      }
+        for (int cc = 0; cc < 8; ++cc) si[r][cc] = __dp4a(a[r], b[cc], si[r][cc]);
     }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int cc = 0; cc < 8; ++cc) s[r][cc] = float(si[r][cc]) * c;
 
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -1213,12 +1302,13 @@ cudaError_t launch_tf32(const Args& a, cudaStream_t stream) {
   for (const void* p : {a.q, a.k, a.v})
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;
   constexpr size_t smem = Tf32Layout<D>::SMEM;
+  static_assert(smem <= 232448, "K1 f32 shared memory");
   cudaError_t err = cudaFuncSetAttribute(
       fwd_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.seq_q + BQ - 1) / BQ, a.H, a.B);
-  fwd_tf32_kernel<D><<<grid, NT, smem, stream>>>(
+  fwd_tf32_kernel<D><<<grid, Tf32Layout<D>::NT, smem, stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), a.mask, a.bias,
       static_cast<float*>(a.o), a.inv_l, a.H, a.KVH, a.seq_q, a.seq_k,
@@ -1226,16 +1316,16 @@ cudaError_t launch_tf32(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename TQ, int D>
+// int8 q/k codes with float32 v
+template <int D>
 cudaError_t launch_fma(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<TQ, D>();
+  constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<TQ, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.seq_q + BQ - 1) / BQ, a.H, a.B);
-  fwd_kernel<TQ, D><<<grid, NT, smem, stream>>>(
-      static_cast<const TQ*>(a.q), static_cast<const TQ*>(a.k),
+  fwd_kernel<D><<<grid, NT, smem, stream>>>(
+      static_cast<const int8_t*>(a.q), static_cast<const int8_t*>(a.k),
       static_cast<const float*>(a.v), a.mask, a.bias,
       static_cast<float*>(a.o), a.inv_l, a.H, a.KVH, a.seq_q, a.seq_k,
       a.causal, a.bias_batch_dim, a.c);
@@ -1245,7 +1335,7 @@ cudaError_t launch_fma(const Args& a, cudaStream_t stream) {
 template <typename TQ, bool MMA, int D>
 cudaError_t launch(const Args& a, cudaStream_t s) {
   if constexpr (MMA) return launch_mma<TQ, D>(a, s);
-  else return launch_fma<TQ, D>(a, s);
+  else return launch_fma<D>(a, s);
 }
 
 template <typename TQ>
@@ -1297,8 +1387,7 @@ cudaError_t dispatch_d(int d, const Args& a, cudaStream_t s) {
   }
 }
 
-// float32 q/k/v: 3xTF32 on the tensor cores up to d 128, the FMA kernel at
-// 192 and 256 (its f32 tiles would take 240 KB and more of shared memory)
+// float32 q/k/v: 3xTF32 on the tensor cores at every width up to 256
 cudaError_t dispatch_f32(int d, const Args& a, cudaStream_t s) {
   switch (d) {
     case 16: return launch_tf32<16>(a, s);
@@ -1306,8 +1395,8 @@ cudaError_t dispatch_f32(int d, const Args& a, cudaStream_t s) {
     case 64: return launch_tf32<64>(a, s);
     case 96: return launch_tf32<96>(a, s);
     case 128: return launch_tf32<128>(a, s);
-    case 192: return launch_fma<float, 192>(a, s);
-    case 256: return launch_fma<float, 256>(a, s);
+    case 192: return launch_tf32<192>(a, s);
+    case 256: return launch_tf32<256>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1317,9 +1406,9 @@ cudaError_t dispatch_f32(int d, const Args& a, cudaStream_t s) {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); 2 = int8 q/k
 // codes with float32 v and o; 3 = int8 q/k codes with bfloat16 v and o.
 // 1 and 3 run on the tensor cores at every width; 0 on the tensor cores as
-// 3xTF32 up to d 128 and on the FMA kernel at 192 and 256; 2 on the FMA
-// kernel.  d past 256 (a multiple of 128) takes the wide route, on the
-// tensor cores for 1 and 3 and on FMAs for 0 and 2.
+// 3xTF32 at every width up to 256; 2 on the FMA kernel.  d past 256 (a
+// multiple of 128) takes the wide route, on the tensor cores for 1 and 3
+// and on FMAs for 0 and 2.
 // All tensors contiguous: q/o (B, H, seq_q, d), k/v (B, KVH, seq_k, d),
 // mask (B, seq_k) uint8 or null, bias (B|H, seq_q, seq_k) f32 or null,
 // inv_l (B, H, seq_q) f32.  The logits are scale * s_dequant * q.k (int8

@@ -5,9 +5,10 @@ JAX package, so it also runs where flax is not installed:
 
     python -m pytest tests/test_torch_kernels.py -q -m cuda
 
-Tolerances: float32 1e-4 (same maths, other sum order; K1, K2, K3a and
-K3b in float32 up to d 128 form each product as three TF32 products of a
-hi / lo split of its operands, 3xTF32, good to ~2^-21 of each); bf16
+Tolerances: float32 1e-4 (same maths, other sum order; K1 and K2 in
+float32 at every width up to 256, and K3a and K3b up to d 128, form each
+product as three TF32 products of a hi / lo split of its operands,
+3xTF32, good to ~2^-21 of each); bf16
 outputs 2e-2 (a few bf16 ulps at |o| <= 2); inv_l 1e-5 relative; the
 contiguous decode kernel 2e-3 on f32 output; the int8-weight matmul
 1e-4 (f32) and 2e-2 (bf16) of max(1, max|y|).  The
@@ -1078,12 +1079,14 @@ def _kernel_names(work):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 64, 128, 192])
-def test_float32_runs_the_tf32_instances_up_to_d128(cuda_device, d):
-    """float32 K1, the one-pass K2 and the two-pass K3a and K3b run their
-    3xTF32 tensor-core instances (fwd_tf32_kernel<D>, dkdv_tf32_kernel<D,
-    true>, dq_tf32_kernel<D>, dkdv_tf32_kernel<D, false>) up to d 128 and
-    their FMA instances at d 192, as the profiler names them."""
+@pytest.mark.parametrize("d", [16, 64, 128, 192, 256])
+def test_float32_runs_the_tf32_instances_of_k1_k2_at_every_width(cuda_device,
+                                                                d):
+    """float32 K1 and the one-pass K2 run their 3xTF32 tensor-core
+    instances (fwd_tf32_kernel<D>, dkdv_tf32_kernel<D, true>) at every
+    width up to 256; the two-pass K3a and K3b theirs (dq_tf32_kernel<D>,
+    dkdv_tf32_kernel<D, false>) up to d 128 and their FMA instances at d
+    192 and 256, as the profiler names them."""
     g = torch.Generator(device=cuda_device).manual_seed(14)
 
     def randn(*shape):
@@ -1103,18 +1106,93 @@ def test_float32_runs_the_tf32_instances_up_to_d128(cuda_device, d):
         bwd_kernel._backward_twopass(do, o, inv_l, q, k, v, None, bias, **kw)
 
     keys = _kernel_names(work)
+    want = [f"fwd_tf32_kernel<{d}>", f"dkdv_tf32_kernel<{d}, true>"]
+    assert not any("fwd_kernel<" in key or f"dkdv_kernel<float, {d}, true>"
+                   in key for key in keys), keys
     if d <= 128:
-        want = [f"fwd_tf32_kernel<{d}>", f"dkdv_tf32_kernel<{d}, true>",
-                f"dq_tf32_kernel<{d}>", f"dkdv_tf32_kernel<{d}, false>"]
-        assert not any("fwd_kernel<" in key or "dq_kernel<" in key
-                       or "dkdv_kernel<" in key for key in keys), keys
+        want += [f"dq_tf32_kernel<{d}>", f"dkdv_tf32_kernel<{d}, false>"]
+        assert not any("dq_kernel<" in key or "dkdv_kernel<" in key
+                       for key in keys), keys
     else:
-        want = [f"fwd_kernel<float, {d}>", f"dkdv_kernel<float, {d}, true>",
-                f"dq_kernel<float, {d}>", f"dkdv_kernel<float, {d}, false>"]
-        assert not any("tf32" in key for key in keys), keys
+        want += [f"dq_kernel<float, {d}>", f"dkdv_kernel<float, {d}>"]
+        assert not any("dq_tf32" in key or f"dkdv_tf32_kernel<{d}, false>"
+                       in key for key in keys), keys
     for name in want:
         assert any(name in key for key in keys), (name, keys)
     assert not any("mma_kernel" in key for key in keys), keys
+
+
+# the float32 K1 and one-pass K2 above d 128 (3xTF32 since 192 and 256
+# left the FMA kernels): b, h, kvh, seq_q, seq_k, causal, key mask.  GQA
+# with causal cross alignment and odd seq_k, a key mask without causal and
+# seq_q past seq_k, one partial query and key tile each, and q tiles
+# whose keys run past O's 256-key chains (closed into o) with a partial
+# last tile
+TF32_WIDE_CASES = {"gqa-causal-cross": (2, 4, 2, 130, 197, True, False),
+                   "key-mask": (2, 4, 4, 200, 130, False, True),
+                   "partial-tiles": (1, 2, 2, 77, 77, True, False),
+                   "long-keys": (1, 2, 1, 300, 701, True, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TF32_WIDE_CASES))
+@pytest.mark.parametrize("d", [192, 200, 256])
+def test_float32_wide_k1_k2_tf32_instances_match_plain(cuda_device, d, case):
+    """float32 K1 and the one-pass K2 at d 192 and 256, and at d 200
+    (zero-padded to 256), hold o (inv_l at 1e-5 relative) and dq, dk, dv
+    at the float32 bars against the exact plain versions and against the
+    plain versions with the kernels' split (mm=dot_tf32x3), and run their
+    3xTF32 instances by profiler name."""
+    from flash_cosine_sim_attention_tpu_torch.ops.blocks import (
+        kernel_head_dim)
+    from flash_cosine_sim_attention_tpu_torch.ops.mxu import dot_tf32x3
+
+    b, h, kvh, sq, sk, causal, masked = TF32_WIDE_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(20)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=cuda_device, generator=g)
+
+    q, k = l2norm_tensors(randn(b, h, sq, d), randn(b, kvh, sk, d), groups=8)
+    v = randn(b, kvh, sk, d)
+    mask = (torch.rand(b, sk, device=cuda_device, generator=g) > 0.3
+            if masked else None)
+    kw = dict(bias_batch_dim=False, scale=8.0, causal=causal)
+    o, inv_l = flash_attention_forward(q, k, v, mask, None, **kw)
+    for mm in (None, dot_tf32x3):
+        o_p, inv_p = flash_attention_forward_plain(q, k, v, mask, None,
+                                                   mm=mm, **kw)
+        assert o.shape == o_p.shape and torch.isfinite(o).all()
+        assert (o - o_p).abs().max().item() <= BARS[torch.float32], mm
+    # inv_l as in test_float32_kernels_at_8_groups_and_scale_8: at 8 groups
+    # and scale 8 a logit reaches 64, where float32's own rounding moves
+    # inv_l by ~1e-5
+    _, inv_f = flash_attention_forward_plain(q, k, v, mask, None, **kw)
+    _, inv_x = flash_attention_forward_plain(
+        q, k, v, mask, None, mm=lambda a, b: (a.double() @ b.double()).float(),
+        **kw)
+
+    def rel(x, y):
+        return ((x - y) / y).abs().max().item()
+
+    assert rel(inv_l, inv_x) <= max(1e-5, 2 * rel(inv_f, inv_x))
+    args = (randn(*o.shape), o_p, inv_p, q, k, v, mask, None)
+    got = bwd_kernel._backward_onepass(*args[:7], scale=8.0, causal=causal)
+    for mm in (None, dot_tf32x3):
+        want = flash_attention_backward_plain(*args, mm=mm, **kw)
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            assert x.shape == y.shape and torch.isfinite(x).all(), name
+            err = _grad_err(x, y, torch.float32)
+            assert err <= GRAD_BARS[torch.float32], (name, mm, err)
+    width = kernel_head_dim(d, "forward")
+    keys = _kernel_names(lambda: (
+        flash_attention_forward(q, k, v, mask, None, **kw),
+        bwd_kernel._backward_onepass(*args[:7], scale=8.0, causal=causal)))
+    for name in (f"fwd_tf32_kernel<{width}>",
+                 f"dkdv_tf32_kernel<{width}, true>"):
+        assert any(name in key for key in keys), (name, keys)
+    assert not any("fwd_kernel<" in key or "dkdv_kernel<" in key
+                   for key in keys), keys
 
 
 # the float32 two-pass kernels' edges at every 3xTF32 width: GQA, causal
@@ -1166,7 +1244,7 @@ def test_float32_two_pass_tf32_instances_match_plain(cuda_device, d,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_float32_kernels_at_8_groups_and_scale_8(cuda_device, d):
     """8 l2norm groups at scale 8: a logit reaches 64, where JAX's bf16
     split of a float32 product misses the 1e-4 bar on o.  K1 and K2 in
@@ -1207,7 +1285,7 @@ def test_float32_kernels_at_8_groups_and_scale_8(cuda_device, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
 def test_float32_kernels_keep_card_nans(cuda_device, d):
     """A NaN made on the card (0/0 gives 0x7FFFFFFF there) in q and in v
     leaves K1's o and K2's dq, dk, dv NaN exactly where the plain
@@ -1239,7 +1317,7 @@ def test_float32_kernels_keep_card_nans(cuda_device, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_float32_long_chains_with_offset_values(cuda_device, d):
     """K1's O and K3a's dQ over 8192 keys and K2's and K3b's dK, dV over
     8192 queries are long chains of tensor-core sums, each rounded toward

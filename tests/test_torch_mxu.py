@@ -161,11 +161,11 @@ def test_split_tf32_reconstructs_x():
     assert ((hi.double() - xd).abs() <= 2.0 ** -11 * xd.abs()).all()
 
 
-def _inputs(groups, kind, seed=3):
-    """b1 h2 d64: causal at s 256, or 96 queries x 200 keys with a key
-    mask; q, k l2-normalized in ``groups`` groups.  A ``kind`` ending in
-    "-bias-heads" or "-bias-batch" adds an (h, i, j) or (b, i, j) bias of
-    0.5 x a standard normal (the sixth value; None otherwise)."""
+def _inputs(groups, kind, seed=3, d=64):
+    """b1 h2 at head dim ``d``: causal at s 256, or 96 queries x 200 keys
+    with a key mask; q, k l2-normalized in ``groups`` groups.  A ``kind``
+    ending in "-bias-heads" or "-bias-batch" adds an (h, i, j) or (b, i, j)
+    bias of 0.5 x a standard normal (the sixth value; None otherwise)."""
     rng = np.random.default_rng(seed)
     causal = kind.startswith("causal")
     sq, sk = (256, 256) if causal else (96, 200)
@@ -173,12 +173,12 @@ def _inputs(groups, kind, seed=3):
     def randn(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
 
-    q, k = l2norm_tensors(randn(1, 2, sq, 64), randn(1, 2, sk, 64),
+    q, k = l2norm_tensors(randn(1, 2, sq, d), randn(1, 2, sk, d),
                           groups=groups)
     mask = None
     if not causal:
         mask = torch.from_numpy(rng.random((1, sk)) > 0.3)
-    v, do = randn(1, 2, sk, 64), randn(1, 2, sq, 64)
+    v, do = randn(1, 2, sk, d), randn(1, 2, sq, d)
     bias = None
     if kind.endswith("-bias-heads"):
         bias = 0.5 * randn(2, sq, sk)
@@ -187,17 +187,29 @@ def _inputs(groups, kind, seed=3):
     return q, k, v, mask, do, bias
 
 
+def _case(groups, scale, kind, d=64):
+    return pytest.param(groups, scale, kind, d,
+                        id=f"{groups}-{scale}-{kind}"
+                        + ("" if d == 64 else f"-d{d}"))
+
+
 SPLIT_CASES = [(groups, scale, kind) for groups in (1, 8) for scale in (1, 8)
                for kind in ("causal", "key-mask")]
+# d 256, the widest kernel width, whose float32 K1 and K2 run 3xTF32 too:
+# sums over 4 times as many lanes
+D256_CASES = [(1, 1, "causal", 256), (8, 8, "causal", 256),
+              (8, 8, "key-mask", 256)]
 # the backward also with a bias (the two-pass kernels K3a and K3b), at 8
 # groups and scale 8, where logits reach 64
 BWD_SPLIT_CASES = SPLIT_CASES + [(8, 8, "causal-bias-heads"),
                                  (8, 8, "key-mask-bias-batch")]
 
 
-@pytest.mark.parametrize("groups,scale,kind", SPLIT_CASES)
-def test_forward_with_tf32_split_matches_exact_products(groups, scale, kind):
-    q, k, v, mask, _, _ = _inputs(groups, kind)
+@pytest.mark.parametrize("groups,scale,kind,d",
+                         [_case(*c) for c in SPLIT_CASES + D256_CASES])
+def test_forward_with_tf32_split_matches_exact_products(groups, scale, kind,
+                                                        d):
+    q, k, v, mask, _, _ = _inputs(groups, kind, d=d)
     kw = dict(bias_batch_dim=False, scale=float(scale),
               causal=kind == "causal")
     o_x, l_x = flash_attention_forward_plain(q, k, v, mask, None,
@@ -212,10 +224,11 @@ def test_forward_with_tf32_split_matches_exact_products(groups, scale, kind):
         assert inv_l_bar == INV_L_BAR
 
 
-@pytest.mark.parametrize("groups,scale,kind", BWD_SPLIT_CASES)
+@pytest.mark.parametrize("groups,scale,kind,d",
+                         [_case(*c) for c in BWD_SPLIT_CASES + D256_CASES])
 def test_backward_with_tf32_split_matches_exact_products(groups, scale,
-                                                         kind):
-    q, k, v, mask, do, bias = _inputs(groups, kind)
+                                                         kind, d):
+    q, k, v, mask, do, bias = _inputs(groups, kind, d=d)
     kw = dict(bias_batch_dim=kind.endswith("-bias-batch"),
               scale=float(scale), causal=kind.startswith("causal"))
     o, inv_l = flash_attention_forward_plain(q, k, v, mask, bias,
@@ -241,6 +254,40 @@ def test_forward_with_tf32_split_matches_jax_f32_forward():
         q, k, v, mask, torch.from_numpy(bias), mm=dot_tf32x3, **kw)
     assert np.abs(o_s.numpy() - np.asarray(o_j)).max() <= F32_BAR
     assert np.abs(l_s.numpy() / np.asarray(l_j) - 1).max() <= F32_BAR
+
+
+def test_tf32_split_at_d256_matches_jax_f32_forward_and_one_pass():
+    """The plain forward and backward with ``mm=dot_tf32x3`` at d 256, the
+    plain versions of the float32 K1 and one-pass K2 at that width (b1 h1
+    s128 causal, 8 l2norm groups, scale 8), against the JAX package's
+    float32 forward and its one-pass backward (``_fused_bwd_kernel_t``,
+    interpret mode): o, dq, dk and dv at 1e-4 of max(1, max|g|), inv_l at
+    1e-4 relative, from JAX's own forward."""
+    rng = np.random.default_rng(6)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    q, k = l2norm_tensors(randn(1, 1, 128, 256), randn(1, 1, 128, 256),
+                          groups=8)
+    v, do = randn(1, 1, 128, 256), randn(1, 1, 128, 256)
+    kw = dict(bias_batch_dim=False, scale=8.0, causal=True)
+    jq, jk, jv = (jnp.asarray(t.numpy()) for t in (q, k, v))
+    o_j, l_j = jax_forward(jq, jk, jv, None, None, interpret=True, **kw)
+    o_s, l_s = flash_attention_forward_plain(q, k, v, None, None,
+                                             mm=dot_tf32x3, **kw)
+    assert _grad_err(o_s, torch.from_numpy(np.array(o_j))) <= F32_BAR
+    assert np.abs(l_s.numpy() / np.asarray(l_j) - 1).max() <= F32_BAR
+    want = jax_backward(jnp.asarray(do.numpy()), o_j, l_j, jq, jk, jv, None,
+                        None, interpret=True, **kw)
+    assert want[3] is None
+    got = flash_attention_backward_plain(
+        do, torch.from_numpy(np.array(o_j)), torch.from_numpy(np.array(l_j)),
+        q, k, v, None, None, mm=dot_tf32x3, **kw)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        y = torch.from_numpy(np.array(y))
+        assert x.shape == y.shape, name
+        assert _grad_err(x, y) <= F32_BAR, (name, _grad_err(x, y))
 
 
 def test_backward_with_tf32_split_matches_jax_f32_two_pass():
