@@ -11,8 +11,11 @@
                                         # at seq 16384 alone (1 card)
     python3 chip_smoke.py --f32-head256-step  # the heads-256 model's
                                         # float32 training step alone
-    python3 chip_smoke.py --f32-wide-heads  # the float32 K1 and K2 at
-                                        # d 192 and 256 alone (1 card)
+    python3 chip_smoke.py --f32-head256-long-step  # the heads-256
+                                        # model's float32 step at seq
+                                        # 16384 alone (1 card)
+    python3 chip_smoke.py --f32-wide-heads  # the float32 K1, K2, K3a
+                                        # and K3b at d 192 and 256 alone
 
 Phases (any failure exits non-zero):
   1. device: requires CUDA; prints the card's name and power limit;
@@ -183,20 +186,24 @@ Phases (any failure exits non-zero):
      the bfloat16 split's plain versions must read), over long chains
      (s8192, and K1, K3a and K3b at the seq-16384 step's own b1 h8 s16384
      d64; values of mean 3: O's and dQ's keys, dK's and dV's queries)
-     and at 8 l2norm groups and scale 8 (logits to 64); K1 and the
-     one-pass K2 at d 192 and 256 (b4 h2 s1024 causal, the heads-256
-     model's shape) on their 3xTF32 instances by profiler name, against
-     the exact and the dot_tf32x3 plain versions, NaNs in q and v kept, at d
-     256 on a short chain (groups 8, scale 8) and over b1 h2 s16384,
-     timed beside their bounds, plain versions and SDPA f32, with K3a and
-     K3b (still FMA there) checked and timed at d 256 with an (h, i, j)
-     bias (--f32-wide-heads alone); then the validation model's float32
-     training step profiled (device time a step, K1's and K2's share and
-     launches), the heads-256 model's (--f32-head256-step alone: K1 and
-     K2 32 launches a step each on their d 256 3xTF32 instances, K3a and
-     K3b none, the idle share), and the validation model's at seq 16384
-     (batch 1), where the backward takes K3a and K3b: device time a
-     step, K1's, K3a's and K3b's share and launches, the idle share.
+     and at 8 l2norm groups and scale 8 (logits to 64); K1, the one-pass
+     K2 and (with an (h, i, j) bias) K3a and K3b at d 192 and 256 (b4 h2
+     s1024 causal, the heads-256 model's shape) on their 3xTF32 instances
+     by profiler name, against the exact and the dot_tf32x3 plain
+     versions (dB included), NaNs in q and v kept on both backward
+     routes, at d 256 on a short chain (groups 8, scale 8) and over b1 h2
+     s16384 (both routes), timed beside their bounds, plain versions and
+     SDPA f32 (--f32-wide-heads alone); the float32 instances no main
+     path counts (K1 and K2 at d 128, the wide route's FMA kernels at d
+     512, K1's int8 arm with float32 v), checked and timed alike; then
+     the validation model's float32 training step profiled (device time
+     a step, K1's and K2's share and launches), the heads-256 model's
+     (--f32-head256-step alone: K1 and K2 32 launches a step each on
+     their d 256 3xTF32 instances, K3a and K3b none, the idle share), and
+     both models' at seq 16384 (batch 1; --f32-long-step and
+     --f32-head256-long-step alone), where the backward takes K3a and
+     K3b: device time a step, K1's, K3a's and K3b's share, launches and
+     TFLOP/s, the idle share.
 Then one JSON line lists every ported kernel, and the entries of phases
 18-22 (each rank's launches and error), with its launches on its path, error,
 times and bound (timing lines also print the achieved
@@ -261,6 +268,12 @@ TF32X3_BARS = {"K1": 5e-6, "K2": 5e-5, "K3a": 1e-5, "K3b": 1.5e-5}
 # queries the tensor cores' rounding of each sum toward zero buries the
 # split's error; over 128 it does not, and the two splits read apart
 SPLIT_BARS = {"K1": 4e-5, "K2": 3e-5, "K3a": 3e-5, "K3b": 3e-5}
+# at d 256 the bfloat16 split's plain versions read only 2.5e-5 to 3.6e-5
+# on K2 and 3.3e-5 to 3.5e-5 on K3a (H100 runs, draw to draw): too close
+# to SPLIT_BARS to tell the splits apart, so d 256 holds both kernels to
+# tighter bars, between those readings and the kernels' (K2 5.3e-6 to
+# 7.7e-6, K3a 6.9e-6 to 9.8e-6)
+SPLIT_BARS_D256 = dict(SPLIT_BARS, K2=1.5e-5, K3a=2e-5)
 TRAIN_STEPS = 10
 TRAIN_CORPUS_BYTES = 1 << 20   # the JAX trainer draws 8 M the same way
 LOSS_BAR = 1e-4               # f32 training loss, card vs CPU
@@ -962,11 +975,11 @@ def compare_backward(worst, name, args, kw, dtype, mask_kind):
 def time_backward(card: str, args, kw, args_b, kw_b):
     """K2 on ``args`` (causal, no bias) and K3a, K3b on ``args_b`` (causal,
     an (h, i, j) bias), in their dtype (bf16 bounded at the tensor cores'
-    peak; float32 on the tensor cores, K2 at every width and K3a and K3b
-    up to d 128, by 3 x its operations at the TF32 tensor cores' peak, the
-    bound at the float32 peak outside them printed beside; float32 K3a and
-    K3b at d 192 and 256 at that peak alone), timed beside the plain
-    backward and SDPA's; returns {kernel: timing row}."""
+    peak; float32 up to d 256, on the tensor cores, by 3 x its operations
+    at the TF32 tensor cores' peak, the bound at the float32 peak outside
+    them printed beside; past 256, the wide route's FMA kernels, at that
+    peak alone), timed beside the plain backward and SDPA's; returns
+    {kernel: timing row}."""
     import torch.nn.functional as F
 
     from flash_cosine_sim_attention_tpu_torch.ops import (
@@ -1009,7 +1022,7 @@ def time_backward(card: str, args, kw, args_b, kw_b):
     ):
         ms = device_ms(call)
         bound_ms, by = bound(flops, nbytes, peak)
-        if q.dtype == torch.float32 and (d <= 128 or name == "K2"):
+        if q.dtype == torch.float32 and d <= 256:
             # 3xTF32: three products on the TF32 tensor cores for each of
             # the function's; the FMA bound (67 TFLOP/s) in brackets
             fma_ms = bound_ms
@@ -4566,8 +4579,8 @@ def split_check(g, card: str, d: int = 64, twopass: bool = True) -> None:
     """K1, the one-pass K2 and (with an (h, i, j) bias, ``twopass``) the
     two-pass K3a and K3b in float32 against the plain versions with the
     kernels' own split (mm=dot_tf32x3), at b4 h8 s128 d``d`` causal, 8
-    l2norm groups and scale 8, held to SPLIT_BARS (K3a on dq and db, K3b
-    on dk and dv); the
+    l2norm groups and scale 8, held to SPLIT_BARS (at d 256
+    SPLIT_BARS_D256; K3a on dq and db, K3b on dk and dv); the
     plain versions with JAX's bfloat16 split (mm=dot_f32x3) must read
     above the same bars against dot_tf32x3, else the check could not tell
     the two splits apart.  The chain is short: a long one (dK and dV sum every query)
@@ -4581,6 +4594,7 @@ def split_check(g, card: str, d: int = 64, twopass: bool = True) -> None:
         dot_f32x3, dot_tf32x3)
 
     b, h, s = 4, 8, 128
+    bars = SPLIT_BARS_D256 if d == 256 else SPLIT_BARS
 
     def randn(*shape):
         return torch.randn(*(shape or (b, h, s, d)), device="cuda",
@@ -4606,12 +4620,12 @@ def split_check(g, card: str, d: int = 64, twopass: bool = True) -> None:
     print(f"  against the dot_tf32x3 plain versions (b{b} h{h} s{s} d{d} "
           f"causal, groups 8, scale 8) on {card}: K1 o {k1:.2e}, the "
           f"dot_f32x3 (bf16 split) plain version {k1_b:.2e} (bar "
-          f"{SPLIT_BARS['K1']:g}; inv_l {max_rel(inv_l, inv_t):.2e} and "
+          f"{bars['K1']:g}; inv_l {max_rel(inv_l, inv_t):.2e} and "
           f"{max_rel(inv_b, inv_t):.2e}); K2 dq, dk, dv "
           f"{', '.join(f'{e:.2e}' for e in k2)}, the dot_f32x3 plain version "
-          f"{', '.join(f'{e:.2e}' for e in k2_b)} (bar {SPLIT_BARS['K2']:g})")
-    if not (k1 <= SPLIT_BARS["K1"] < k1_b
-            and max(k2) <= SPLIT_BARS["K2"] < max(k2_b)):
+          f"{', '.join(f'{e:.2e}' for e in k2_b)} (bar {bars['K2']:g})")
+    if not (k1 <= bars["K1"] < k1_b
+            and max(k2) <= bars["K2"] < max(k2_b)):
         fail(f"f32 split check d{d}: K1 {k1} (bf16 split {k1_b}), K2 {k2} "
              f"(bf16 split {k2_b})")
     if not twopass:
@@ -4632,12 +4646,12 @@ def split_check(g, card: str, d: int = 64, twopass: bool = True) -> None:
     print(f"  the same with an (h,i,j) bias, two-pass: K3a dq, db "
           f"{', '.join(f'{e:.2e}' for e in k3a)}, the dot_f32x3 plain "
           f"version {', '.join(f'{e:.2e}' for e in k3a_b)} (bar "
-          f"{SPLIT_BARS['K3a']:g}); K3b dk, dv "
+          f"{bars['K3a']:g}); K3b dk, dv "
           f"{', '.join(f'{e:.2e}' for e in k3b)}, the dot_f32x3 plain "
           f"version {', '.join(f'{e:.2e}' for e in k3b_b)} (bar "
-          f"{SPLIT_BARS['K3b']:g})")
-    if not (max(k3a) <= SPLIT_BARS["K3a"] < max(k3a_b)
-            and max(k3b) <= SPLIT_BARS["K3b"] < max(k3b_b)):
+          f"{bars['K3b']:g})")
+    if not (max(k3a) <= bars["K3a"] < max(k3a_b)
+            and max(k3b) <= bars["K3b"] < max(k3b_b)):
         fail(f"f32 split check d{d}: K3a {k3a} (bf16 split {k3a_b}), K3b "
              f"{k3b} (bf16 split {k3b_b})")
 
@@ -4817,19 +4831,20 @@ def f32_train_step(card: str) -> dict:
     return dict(ms=total, k1_ms=parts["K1"][0], k2_ms=parts["K2"][0])
 
 
-def f32_long_step(card: str) -> dict:
-    """The validation model's float32 training step at seq LONG_SEQ (the
-    trainer's --use-float32 --seq-len 16384 --batch-size 1: GRAD_ACCUM
-    microbatches of 1 x 16384 of phase 8's corpus, max_seq_len 16384).
-    Past ONEPASS_BWD_MAX_SEQ query rows the backward takes the two-pass
-    route, K3a and K3b.  The wrappers' counts are set to 0 before 2
-    warm-up steps (host-clock walls, ended by a synchronize) and read
-    after them; then 2 steps are profiled (whole_rows): device time a
-    step, K1's, K3a's and K3b's share and launches a step, the idle share
-    (1 - device time / the second warm-up step's wall).  Fails unless K3a
-    and K3b ran their tensor-core instances (dq_tf32_kernel<64>,
-    dkdv_tf32_kernel<64, false>) 32 times a step each, K1 32 times, and
-    K2 never, and unless the losses are finite; the reading prints
+def f32_long_step(card: str, cfg=MODEL) -> dict:
+    """The float32 training step at seq LONG_SEQ of the model of ``cfg``
+    (the validation model by default; the trainer's --use-float32
+    --seq-len 16384 --batch-size 1: GRAD_ACCUM microbatches of 1 x 16384
+    of phase 8's corpus, max_seq_len 16384).  Past ONEPASS_BWD_MAX_SEQ
+    query rows the backward takes the two-pass route, K3a and K3b.  The
+    wrappers' counts are set to 0 before 2 warm-up steps (host-clock
+    walls, ended by a synchronize) and read after them; then 2 steps are
+    profiled (whole_rows): device time a step, K1's, K3a's and K3b's share,
+    launches and TFLOP/s a step, the idle share (1 - device time / the
+    second warm-up step's wall).  Fails unless K1, K3a and K3b ran their
+    tensor-core instances at the model's head width (fwd_tf32_kernel<D>,
+    dq_tf32_kernel<D>, dkdv_tf32_kernel<D, false>) 32 times a step each
+    and K2 never, and unless the losses are finite; the reading prints
     first.  ``python3 chip_smoke.py --f32-long-step`` runs it alone, e.g.
     from a checkout of an earlier commit.  Returns the wrappers' launches
     over the 2 counted steps."""
@@ -4838,7 +4853,8 @@ def f32_long_step(card: str) -> dict:
     from flash_cosine_sim_attention_tpu_torch.train import (
         GRAD_ACCUM, train_step)
 
-    model, opt, batches = f32_step_model(LONG_SEQ, 1)
+    d = cfg["dim_head"]
+    model, opt, batches = f32_step_model(LONG_SEQ, 1, cfg)
     losses, walls = [], []
 
     def step():
@@ -4857,19 +4873,19 @@ def f32_long_step(card: str) -> dict:
     launches = {key: fn.launches for key, fn in wrappers.items()}
     rows = whole_rows(step, 2)
     total = sum(t for _, t, _ in rows) / 1e3
-    parts = step_parts(rows)
+    parts = step_parts(rows, d)
     loss = [x.item() for x in losses]
     top = sorted(rows, key=lambda r: -r[1])[:4]
     # the function's operations a call: 2 (K1), 3 (K3a), 4 (K3b) products
     # of 2d FLOPs per visible pair, over the model's heads
-    pairs = MODEL["heads"] * LONG_SEQ * (LONG_SEQ + 1) / 2
-    flops = {name: n * 2 * MODEL["dim_head"] * pairs
+    pairs = cfg["heads"] * LONG_SEQ * (LONG_SEQ + 1) / 2
+    flops = {name: n * 2 * d * pairs
              for name, n in (("K1", 2), ("K3a", 3), ("K3b", 4), ("K2", 5))}
-    print(f"  float32 train step at seq {LONG_SEQ} ({GRAD_ACCUM} x 1 x "
-          f"{LONG_SEQ}) on {card}: device time {total:.2f} ms a step (2 "
-          f"steps profiled); wall {walls[1]:.2f} ms (warm-up steps "
-          f"{', '.join(f'{w:.2f}' for w in walls)}), idle share "
-          f"{1 - total / walls[1]:.3f}; "
+    print(f"  float32 train step at seq {LONG_SEQ}, heads {cfg['heads']} of "
+          f"{d} ({GRAD_ACCUM} x 1 x {LONG_SEQ}) on {card}: device time "
+          f"{total:.2f} ms a step (2 steps profiled); wall {walls[1]:.2f} ms "
+          f"(warm-up steps {', '.join(f'{w:.2f}' for w in walls)}), idle "
+          f"share {1 - total / walls[1]:.3f}; "
           + "; ".join(f"{name} {ms:.2f} ms ({ms / total:.3f}), {n} launches"
                       f"{f', {tflops(flops[name] * n, ms):.1f} TFLOP/s' if n else ''}"
                       f" {names}"
@@ -4881,29 +4897,40 @@ def f32_long_step(card: str) -> dict:
                       for key, t, c in top)
           + f"; losses {', '.join(f'{x:.4f}' for x in loss)}")
     if not np.all(np.isfinite(loss)):
-        fail(f"float32 train step at seq {LONG_SEQ}: losses {loss}")
-    per_step = GRAD_ACCUM * MODEL["depth"]
+        fail(f"float32 train step at seq {LONG_SEQ}, d{d}: losses {loss}")
+    per_step = GRAD_ACCUM * cfg["depth"]
     want = dict(k1=2 * per_step, k2=0, k3a=2 * per_step, k3b=2 * per_step)
     if (launches != want or parts["K2"][1] != 0
             or any(parts[name][1] != per_step for name in ("K1", "K3a", "K3b"))
-            or parts["K3a"][2] != ["dq_tf32_kernel<64>"]
-            or parts["K3b"][2] != ["dkdv_tf32_kernel<64, false>"]):
-        fail(f"float32 train step at seq {LONG_SEQ}: wrapper launches "
+            or parts["K1"][2] != [f"fwd_tf32_kernel<{d}>"]
+            or parts["K3a"][2] != [f"dq_tf32_kernel<{d}>"]
+            or parts["K3b"][2] != [f"dkdv_tf32_kernel<{d}, false>"]):
+        fail(f"float32 train step at seq {LONG_SEQ}, d{d}: wrapper launches "
              f"{launches}, want {want}; profiled launches a step and "
              f"instances {parts}")
     return launches
 
 
-F32_WIDE_DIMS = (192, 256)   # the widths above 128, where f32 K1 and K2
-                             # run 3xTF32 and K3a and K3b run on FMAs
+def f32_head256_long_step(card: str) -> dict:
+    """f32_long_step on the heads-256 model (HEAD256_MODEL: dim 512,
+    depth 8, 2 heads of 256; the trainer's --use-float32 --seq-len 16384
+    --batch-size 1 at that width): K1, K3a and K3b at d 256, 32 launches
+    a step each.  ``python3 chip_smoke.py --f32-head256-long-step`` runs
+    it alone."""
+    return f32_long_step(card, HEAD256_MODEL)
+
+
+F32_WIDE_DIMS = (192, 256)   # the widths above 128, where every f32
+                             # attention kernel runs 3xTF32 too
 
 
 def nan_kept(g, d: int) -> bool:
-    """K1 and the one-pass K2 in float32 at b1 h2 s200 d``d`` (not causal)
-    with a NaN made on the card (0/0, 0x7FFFFFFF there) in q's row 5 of
-    head 0 and in one entry of v: o, dq, dk and dv must be NaN exactly
-    where the plain versions' are (inv_l is not: 1 / max(l, 1e-10) takes
-    the clamp's side of a NaN in the kernel)."""
+    """K1, the one-pass K2 and (with an (h, i, j) bias) the two-pass K3a
+    and K3b in float32 at b1 h2 s200 d``d`` (not causal) with a NaN made
+    on the card (0/0, 0x7FFFFFFF there) in q's row 5 of head 0 and in one
+    entry of v: o, dq, dk, dv and dB must be NaN exactly where the plain
+    versions' are (inv_l is not: 1 / max(l, 1e-10) takes the clamp's side
+    of a NaN in the kernel)."""
     from flash_cosine_sim_attention_tpu_torch.ops import (
         bwd_kernel as bk, flash_attention_backward_plain, l2norm_tensors)
     from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
@@ -4911,6 +4938,10 @@ def nan_kept(g, d: int) -> bool:
 
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=g)
+
+    def same_nans(got, want):
+        return all(y.isnan().any() and torch.equal(x.isnan(), y.isnan())
+                   for x, y in zip(got, want))
 
     q, k = l2norm_tensors(randn(1, 2, 200, d), randn(1, 2, 200, d))
     v = randn(1, 2, 200, d)
@@ -4925,86 +4956,146 @@ def nan_kept(g, d: int) -> bool:
                                causal=False)
     want = flash_attention_backward_plain(do, o_p, inv_p, q, k, v, None,
                                           None, **kw)
+    bias = 0.5 * randn(2, 200, 200)
+    o_b, inv_b = flash_attention_forward_plain(q, k, v, None, bias, **kw)
+    args_b = (do, o_b, inv_b, q, k, v, None, bias)
     return bool(o_p.isnan().any() and not o_p.isnan().all()
                 and torch.equal(o.isnan(), o_p.isnan())
-                and all(y.isnan().any() and torch.equal(x.isnan(), y.isnan())
-                        for x, y in zip(got, want)))
+                and same_nans(got, want)
+                and same_nans(bk._backward_twopass(*args_b, **kw),
+                              flash_attention_backward_plain(*args_b, **kw)))
+
+
+def instance_names(work) -> list:
+    """The port's kernels (no at::native one) that ``work`` launched, by
+    instance name, over REQUIRE_ITERS calls."""
+    return sorted({re.sub(r"^void (\(anonymous namespace\)::)?", "",
+                          key).split("(")[0]
+                   for key, _, _ in cuda_rows(work, REQUIRE_ITERS)
+                   if "at::native" not in key})
+
+
+def require_instances(label, work, want, banned) -> list:
+    """instance_names of ``work``; fails unless each name in ``want`` is
+    among them and none holds a string of ``banned``."""
+    names = instance_names(work)
+    missing = [n for n in want if not any(n in x for x in names)]
+    bad = [x for x in names if any(b in x for b in banned)]
+    if missing or bad:
+        fail(f"{label}: instances {names}; missing {missing}, not expected "
+             f"{bad}")
+    return names
+
+
+def k1_f32(g, card: str, b: int, h: int, s: int, d: int, want, banned,
+           qk_int8: bool = False):
+    """K1 with float32 v at b``b`` h``h`` s``s`` d``d`` causal (8 l2norm
+    groups, scale 1; float32 q and k, or with ``qk_int8`` their int8
+    codes): held to the exact plain version (F32_ERR_BAR; inv_l 1e-5
+    relative) and, on the 3xTF32 instances (float q and k up to d 256), to
+    the plain version with their split (mm=dot_tf32x3, TF32X3_BARS); run
+    as ``want`` by profiler name (none of ``banned``); timed beside its
+    bound, the plain version and SDPA f32 (TF32 off, on the float q and
+    k).  The bound: 3 x the operations at the TF32 tensor cores' peak on
+    the 3xTF32 instances (the FMA bound printed beside), else the
+    operations at the float32 peak outside the tensor cores (the int8
+    codes' Q.K at the int8 peak).  Returns (timing row, max|o - plain|)."""
+    import torch.nn.functional as F
+
+    from flash_cosine_sim_attention_tpu_torch.ops import l2norm_tensors
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward, flash_attention_forward_plain)
+    from flash_cosine_sim_attention_tpu_torch.ops.flash_attention import (
+        quantize_qk)
+    from flash_cosine_sim_attention_tpu_torch.ops.mxu import dot_tf32x3
+
+    q, k = l2norm_tensors(
+        torch.randn(b, h, s, d, device="cuda", generator=g),
+        torch.randn(b, h, s, d, device="cuda", generator=g), groups=8)
+    v = torch.randn(b, h, s, d, device="cuda", generator=g)
+    kw = dict(bias_batch_dim=False, scale=1.0, causal=True)
+    qk, extra = (q, k), {}
+    if qk_int8:
+        q8, k8, sdq = quantize_qk(q, k, "int8")
+        qk, extra = (q8, k8), dict(s_dequant=sdq)
+    call = lambda: flash_attention_forward(*qk, v, None, None, **extra, **kw)  # noqa: E731
+    plain = lambda: flash_attention_forward_plain(*qk, v, None, None, **extra,  # noqa: E731
+                                                  **kw)
+    (o, inv_l), (o_p, inv_p) = call(), plain()
+    err, err_l = (o - o_p).abs().max().item(), max_rel(inv_l, inv_p)
+    label = (f"K1 f32 b{b} h{h} s{s} d{d} causal"
+             + (", int8 q/k codes" if qk_int8 else ", groups 8, scale 1"))
+    tf32 = d <= 256 and not qk_int8
+    note = ""
+    ok = err <= F32_ERR_BAR and err_l <= 1e-5
+    if tf32:
+        o_t, inv_t = flash_attention_forward_plain(*qk, v, None, None,
+                                                   mm=dot_tf32x3, **kw)
+        err_t = max((o - o_t).abs().max().item(), max_rel(inv_l, inv_t))
+        note = (f"; against the dot_tf32x3 plain version: o, inv_l "
+                f"{err_t:.2e} (bar {TF32X3_BARS['K1']:g})")
+        ok = ok and err_t <= TF32X3_BARS["K1"]
+    print(f"  {label}: max|o - plain| {err:.2e} (bar {F32_ERR_BAR:g}), inv_l "
+          f"{err_l:.2e} (bar 1e-5){note}")
+    if not ok:
+        fail(f"{label}: o {err}, inv_l {err_l}{note}")
+    ms, plain_ms = device_ms(call), device_ms(plain)
+    lib_ms = library_ms(f"SDPA f32 b{b} h{h} s{s} d{d}, TF32 off",
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, is_causal=True, scale=1.0))
+    pairs = b * h * s * (s + 1) / 2
+    flops = 4 * d * pairs
+    nbytes = (2 * qk[0].element_size() + 2 * 4) * q.numel() + b * h * s * 4
+    fma_ms, fma_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    if tf32:
+        bound_ms, by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+        why = f"3xTF32 at 495 TFLOP/s; FMA bound {fma_ms:.5f} ms"
+    elif qk_int8:  # Q.K at the int8 peak, P.V at the float32 one
+        bound_ms, by = bound(flops / 2 * (1 + PEAK_F32_FLOPS / PEAK_INT8_OPS),
+                             nbytes, PEAK_F32_FLOPS)
+        why = "Q.K at 1,979 TOP/s, P.V at 67 TFLOP/s"
+    else:
+        bound_ms, by = fma_ms, fma_by
+        why = "FMA, 67 TFLOP/s"
+    names = require_instances(label, call, want, banned)
+    print(f"  {label} on {card}: device time kernel {ms:.4f} ms "
+          f"({tflops(flops, ms):.2f} TFLOP/s of the function's), plain "
+          f"{plain_ms:.4f} ms, SDPA f32 {lib_ms:.4f} ms (kernel / SDPA "
+          f"{ms / lib_ms:.2f}), bound {bound_ms:.5f} ms ({by}, {why}); "
+          f"instances {names}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                library_ms=lib_ms), err
 
 
 def f32_wide_heads(g, card: str):
-    """The float32 K1 and one-pass K2 at d 192 and 256 (F32_WIDE_DIMS) at
+    """The float32 attention kernels at d 192 and 256 (F32_WIDE_DIMS) at
     the heads-256 model's attention shape, b4 h2 s1024 causal (b4 h2 s1024
-    d192 beside it): held to the exact plain versions (F32_ERR_BAR), to
-    the plain versions with the kernels' split (mm=dot_tf32x3,
-    TF32X3_BARS), to their tensor-core instances by profiler name
-    (fwd_tf32_kernel<D>, dkdv_tf32_kernel<D, true>: no FMA instance), and
-    NaN-keeping (nan_kept); at d 256 also on a short chain at 8 groups and
-    scale 8 (split_check) and over a long one, b1 h2 s16384 (long_chains,
+    d192 beside it): K1 (k1_f32), the one-pass K2, and K3a and K3b with an
+    (h, i, j) bias, held to the exact plain versions (F32_ERR_BAR, dB
+    included), to the plain versions with the kernels' split
+    (mm=dot_tf32x3, TF32X3_BARS, dB included), to their tensor-core
+    instances by profiler name (fwd_tf32_kernel<D>, dkdv_tf32_kernel<D,
+    true>, dq_tf32_kernel<D>, dkdv_tf32_kernel<D, false>: no FMA
+    instance), and NaN-keeping on both backward routes (nan_kept); at d
+    256 also on a short chain at 8 groups and scale 8 (split_check, both
+    routes) and over a long one, b1 h2 s16384 (long_chains, both routes,
     the plain versions a head at a time); then timed beside their bounds
     (3 x the operations at the TF32 tensor cores' peak, the FMA bound
-    beside), the plain versions and SDPA f32 (TF32 off).  K3a and K3b,
-    still FMA at these widths, are checked and timed at d 256 with an (h,
-    i, j) bias.  The readings print before any instance check fails, so
+    beside), the plain versions and SDPA f32 (TF32 off).  The backward's
+    readings print before any of its instance or split checks fails, so
     ``python3 chip_smoke.py --f32-wide-heads`` on an earlier commit gives
     the FMA parents' times.  Returns ({row: timing}, {row: max abs error
     against plain}) of d 256's rows ("K1 f32 d256", ...)."""
-    import torch.nn.functional as F
-
     from flash_cosine_sim_attention_tpu_torch.ops import (
-        bwd_kernel as bk, flash_attention_backward_plain, l2norm_tensors)
-    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
-        flash_attention_forward, flash_attention_forward_plain)
+        bwd_kernel as bk, flash_attention_backward_plain)
     from flash_cosine_sim_attention_tpu_torch.ops.mxu import dot_tf32x3
 
     b, h, s = 4, HEAD256_MODEL["heads"], HEAD256_MODEL["max_seq_len"]
-    kw = dict(bias_batch_dim=False, scale=1.0, causal=True)
     rows, errs, problems = {}, {}, []
     for d in F32_WIDE_DIMS:
-        q, k = l2norm_tensors(
-            torch.randn(b, h, s, d, device="cuda", generator=g),
-            torch.randn(b, h, s, d, device="cuda", generator=g), groups=8)
-        v = torch.randn(b, h, s, d, device="cuda", generator=g)
-        call = lambda: flash_attention_forward(q, k, v, None, None, **kw)  # noqa: E731,B023
-        plain = lambda: flash_attention_forward_plain(q, k, v, None, None, **kw)  # noqa: E731,B023
-        (o, inv_l), (o_p, inv_p) = call(), plain()
-        o_t, inv_t = flash_attention_forward_plain(q, k, v, None, None,
-                                                   mm=dot_tf32x3, **kw)
-        err, err_t = ((o - x).abs().max().item() for x in (o_p, o_t))
-        print(f"  K1 f32 b{b} h{h} s{s} d{d} causal, groups 8, scale 1: "
-              f"max|o - plain| {err:.2e} (bar {F32_ERR_BAR:g}), inv_l "
-              f"{max_rel(inv_l, inv_p):.2e} (bar 1e-5); against the "
-              f"dot_tf32x3 plain version: o {err_t:.2e}, inv_l "
-              f"{max_rel(inv_l, inv_t):.2e} (bar {TF32X3_BARS['K1']:g})")
-        if not (err <= F32_ERR_BAR and max_rel(inv_l, inv_p) <= 1e-5
-                and max(err_t, max_rel(inv_l, inv_t)) <= TF32X3_BARS["K1"]):
-            fail(f"K1 f32 d{d}: o {err}, inv_l {max_rel(inv_l, inv_p)}; "
-                 f"against dot_tf32x3 o {err_t}, inv_l "
-                 f"{max_rel(inv_l, inv_t)}")
-        ms, plain_ms = device_ms(call), device_ms(plain)
-        lib_ms = library_ms(f"SDPA f32 b{b} h{h} s{s} d{d}, TF32 off",
-                            lambda: F.scaled_dot_product_attention(  # noqa: B023
-                                q, k, v, is_causal=True, scale=1.0))
-        flops = 4 * b * h * d * s * (s + 1) / 2
-        nbytes = 4 * q.numel() * 4 + b * h * s * 4
-        bound_ms, by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
-        fma_ms = bound(flops, nbytes, PEAK_F32_FLOPS)[0]
-        rows[f"K1 f32 d{d}"] = dict(ms=ms, plain_ms=plain_ms,
-                                    bound_ms=bound_ms, bound_by=by,
-                                    library_ms=lib_ms)
-        errs[f"K1 f32 d{d}"] = err
-        names = sorted({re.sub(r"^void (\(anonymous namespace\)::)?", "",
-                               key).split("(")[0]
-                        for key, _, _ in cuda_rows(call, REQUIRE_ITERS)
-                        if "at::native" not in key})
-        print(f"  K1 b{b} h{h} s{s} d{d} causal f32 on {card}: device time "
-              f"kernel {ms:.4f} ms ({tflops(flops, ms):.2f} TFLOP/s of the "
-              f"function's, {tflops(3 * flops, ms):.1f} of TF32 products), "
-              f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
-              f"{bound_ms:.5f} ms ({by}, 3xTF32 at 495 TFLOP/s; FMA bound "
-              f"{fma_ms:.5f} ms); instances {names}")
-        if names != [f"fwd_tf32_kernel<{d}>"]:
-            problems.append(f"K1 f32 d{d} instances {names}")
-        del q, k, v, o, o_p, o_t
+        rows[f"K1 f32 d{d}"], errs[f"K1 f32 d{d}"] = k1_f32(
+            g, card, b, h, s, d, [f"fwd_tf32_kernel<{d}>"],
+            ["fwd_kernel<", "fwd_mma_kernel<"])
 
         worst = {"K2": 0.0, "K3a": 0.0, "K3b": 0.0}
         args, kw2 = bwd_inputs(g, b, h, h, s, s, d, torch.float32, None,
@@ -5013,47 +5104,60 @@ def f32_wide_heads(g, card: str):
                                   "h", True)
         compare_backward(worst, f"b{b} h{h} s{s} d{d} causal", args, kw2,
                          torch.float32, None)
-        if d == 256:
-            compare_backward(worst, f"b{b} h{h} s{s} d{d} causal + (h,i,j) "
-                             "bias", args_b, kw_b, torch.float32, None)
+        compare_backward(worst, f"b{b} h{h} s{s} d{d} causal + (h,i,j) bias",
+                         args_b, kw_b, torch.float32, None)
         got = bk._backward_onepass(*args[:7], scale=1.0, causal=True)
         want_t = flash_attention_backward_plain(*args, mm=dot_tf32x3, **kw2)
         errs_t = [grad_err(x, y, torch.float32) for x, y in zip(got, want_t)]
-        print(f"  K2 f32 d{d} against the dot_tf32x3 plain version: dq, dk, "
+        got = bk._backward_twopass(*args_b, **kw_b)
+        want_t = flash_attention_backward_plain(*args_b, mm=dot_tf32x3,
+                                                **kw_b)
+        e3 = [grad_err(x, y, torch.float32) for x, y in zip(got, want_t)]
+        e3a, e3b = [e3[0], e3[3]], e3[1:3]
+        print(f"  f32 d{d} against the dot_tf32x3 plain versions: K2 dq, dk, "
               f"dv {', '.join(f'{e:.2e}' for e in errs_t)} (bar "
-              f"{TF32X3_BARS['K2']:g})")
+              f"{TF32X3_BARS['K2']:g}); with the bias K3a dq, db "
+              f"{', '.join(f'{e:.2e}' for e in e3a)} (bar "
+              f"{TF32X3_BARS['K3a']:g}), K3b dk, dv "
+              f"{', '.join(f'{e:.2e}' for e in e3b)} (bar "
+              f"{TF32X3_BARS['K3b']:g})")
         if not max(errs_t) <= TF32X3_BARS["K2"]:
             fail(f"K2 f32 d{d} against dot_tf32x3: {errs_t}")
+        if not (max(e3a) <= TF32X3_BARS["K3a"]
+                and max(e3b) <= TF32X3_BARS["K3b"]):
+            problems.append(f"K3a/K3b f32 d{d} against dot_tf32x3: {e3a}, "
+                            f"{e3b}")
         del got, want_t
-        timed = time_backward(card, args, kw2, args_b, kw_b)
-        for name in ("K2", "K3a", "K3b") if d == 256 else ("K2",):
-            rows[f"{name} f32 d{d}"] = timed[name]
+        for name, row in time_backward(card, args, kw2, args_b, kw_b).items():
+            rows[f"{name} f32 d{d}"] = row
             errs[f"{name} f32 d{d}"] = worst[name]
-        names = sorted({re.sub(r"^void (\(anonymous namespace\)::)?", "",
-                               key).split("(")[0]
-                        for key, _, _ in cuda_rows(
-                            lambda: bk._backward_onepass(  # noqa: B023
-                                *args[:7], scale=1.0, causal=True),
-                            REQUIRE_ITERS)
-                        if "dkdv" in key or "dq_" in key})
-        print(f"  K2 f32 d{d} instances {names}")
-        if names != [f"dkdv_tf32_kernel<{d}, true>"]:
-            problems.append(f"K2 f32 d{d} instances {names}")
+        onepass = instance_names(lambda: bk._backward_onepass(  # noqa: B023
+            *args[:7], scale=1.0, causal=True))
+        twopass = instance_names(
+            lambda: bk._backward_twopass(*args_b, **kw_b))  # noqa: B023
+        print(f"  f32 d{d} backward instances: one-pass {onepass}, two-pass "
+              f"{twopass}")
+        if onepass != [f"dkdv_tf32_kernel<{d}, true>"]:
+            problems.append(f"K2 f32 d{d} instances {onepass}")
+        if twopass != [f"dkdv_tf32_kernel<{d}, false>",
+                       f"dq_tf32_kernel<{d}>"]:
+            problems.append(f"K3a/K3b f32 d{d} instances {twopass}")
         del args, args_b
         nan_ok = nan_kept(g, d)
-        print(f"  K1, K2 f32 d{d}: NaNs in q and v kept in o and the "
-              f"gradients: {nan_ok}")
+        print(f"  K1, K2, K3a, K3b f32 d{d}: NaNs in q and v kept in o, the "
+              f"gradients and dB: {nan_ok}")
         if not nan_ok:
             problems.append(f"d{d}: NaNs in q and v not kept")
-    split_check(g, card, d=256, twopass=False)
-    long_chains(g, card, d=256, cases=((2, 2, LONG_SEQ, 1, ("onepass",)),))
+    if problems:
+        fail(f"f32 at d 192 and 256: {problems}")
+    split_check(g, card, d=256, twopass=True)
+    long_chains(g, card, d=256,
+                cases=((2, 2, LONG_SEQ, 1, ("onepass", "twopass")),))
     for name, row in rows.items():
         print(f"  f32 row {name}: kernel / library "
               f"{row['ms'] / row['library_ms']:.2f}, bound / kernel "
               f"{row['bound_ms'] / row['ms']:.3f}, error vs plain "
               f"{errs[name]:.3e}")
-    if problems:
-        fail(f"f32 at d 192 and 256: {problems}")
     return ({key: row for key, row in rows.items() if key.endswith("d256")},
             {key: e for key, e in errs.items() if key.endswith("d256")})
 
@@ -5151,19 +5255,25 @@ def f32_instances(card: str):
     K2 at 8 l2norm groups and scale 8 (logits to 64, where JAX's bf16
     split of a float32 product misses the 1e-4 bar).  Bounds: K1, K2, K3a
     and K3b 3 x their operations at the TF32 tensor cores' peak (the FMA
-    bound at 67 TFLOP/s printed beside), K7 bytes.  K1 and K2 at d 192
-    and 256, and K3a and K3b at 256, by f32_wide_heads.  Then the
-    validation model's float32 training step, profiled (f32_train_step),
-    the heads-256 model's (f32_head256_step), and the validation model's
-    at seq 16384 (f32_long_step), where the backward runs K3a and K3b.
-    Returns ({row: timing}, {row: max abs error against plain}, the long
-    step's and the heads-256 step's wrapper launches)."""
+    bound at 67 TFLOP/s printed beside), K7 bytes.  The float32 instances
+    no main path counts are timed too: K1, K2, K3a and K3b at b1 h16 s1024
+    d128 (the bias rows' shape), the wide route's FMA kernels at b4 h1
+    s1024 d512 (fwd_wide_kernel<float>, dkdv_wide_kernel<true|false>,
+    dq_wide_kernel<float>; K3a and K3b with an (h, i, j) bias, bounded at
+    the float32 peak), and K1's int8 arm with float32 v (fwd_kernel<128>,
+    b1 h16 s1024 d128).  All four kernels at d 192 and 256 by
+    f32_wide_heads.  Then the validation model's float32 training step,
+    profiled (f32_train_step), the heads-256 model's (f32_head256_step),
+    the validation model's at seq 16384 (f32_long_step), where the
+    backward runs K3a and K3b, and the heads-256 model's at seq 16384
+    (f32_head256_long_step: K1, K3a and K3b at d 256).  Returns ({row:
+    timing}, {row: max abs error against plain}, the launches of the
+    seq-16384 step, of the heads-256 step and of the heads-256 seq-16384
+    step)."""
     import torch.nn.functional as F
 
     from flash_cosine_sim_attention_tpu_torch.ops import (
-        bwd_kernel as bk, flash_attention_backward_plain, l2norm_tensors)
-    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
-        flash_attention_forward, flash_attention_forward_plain)
+        bwd_kernel as bk, flash_attention_backward_plain)
     from flash_cosine_sim_attention_tpu_torch.ops.mxu import dot_tf32x3
     from flash_cosine_sim_attention_tpu_torch.quant import (
         quantize_dense_kernel, quantized_matmul, quantized_matmul_plain)
@@ -5171,63 +5281,11 @@ def f32_instances(card: str):
     if torch.backends.cuda.matmul.allow_tf32:
         fail("phase 22 times float32 with TF32 off")
     g = torch.Generator(device="cuda").manual_seed(SEED + 100)
-
-    def instances(label, work, want, banned):
-        """The port's kernels ``work`` launched, by instance name; fails
-        unless each name in ``want`` is among them and none holds a
-        string of ``banned``."""
-        names = sorted({re.sub(r"^void (\(anonymous namespace\)::)?", "",
-                               key).split("(")[0]
-                        for key, _, _ in cuda_rows(work, REQUIRE_ITERS)
-                        if "at::native" not in key})
-        missing = [n for n in want if not any(n in x for x in names)]
-        bad = [x for x in names if any(b in x for b in banned)]
-        if missing or bad:
-            fail(f"{label}: instances {names}; missing {missing}, not "
-                 f"expected {bad}")
-        return names
-
-    b, h, s, d = 1, 8, 1024, 64
-    q, k = l2norm_tensors(torch.randn(b, h, s, d, device="cuda", generator=g),
-                          torch.randn(b, h, s, d, device="cuda", generator=g),
-                          groups=8)
-    v = torch.randn(b, h, s, d, device="cuda", generator=g)
-    kw = dict(bias_batch_dim=False, scale=1.0, causal=True)
-    call = lambda: flash_attention_forward(q, k, v, None, None, **kw)  # noqa: E731
-    plain = lambda: flash_attention_forward_plain(q, k, v, None, None, **kw)  # noqa: E731
-    (o, inv_l), (o_p, inv_p) = call(), plain()
-    o_t, inv_t = flash_attention_forward_plain(q, k, v, None, None,
-                                               mm=dot_tf32x3, **kw)
-    err = (o - o_p).abs().max().item()
-    err_t = (o - o_t).abs().max().item()
-    print(f"  K1 f32 b{b} h{h} s{s} d{d} causal, groups 8, scale 1: max|o - "
-          f"plain| {err:.2e} (bar {F32_ERR_BAR:g}), inv_l "
-          f"{max_rel(inv_l, inv_p):.2e} (bar 1e-5); against the dot_tf32x3 "
-          f"plain version: o {err_t:.2e}, inv_l {max_rel(inv_l, inv_t):.2e} "
-          f"(bar {TF32X3_BARS['K1']:g})")
-    if not (err <= F32_ERR_BAR and max_rel(inv_l, inv_p) <= 1e-5
-            and max(err_t, max_rel(inv_l, inv_t)) <= TF32X3_BARS["K1"]):
-        fail(f"K1 f32: o {err}, inv_l {max_rel(inv_l, inv_p)}; against "
-             f"dot_tf32x3 o {err_t}, inv_l {max_rel(inv_l, inv_t)}")
-    errs = {"K1 f32": err}
-    ms, plain_ms = device_ms(call), device_ms(plain)
-    lib_ms = library_ms("SDPA f32 b1 h8 s1024 d64, TF32 off",
-                        lambda: F.scaled_dot_product_attention(
-                            q, k, v, is_causal=True, scale=1.0))
-    flops = 4 * h * d * s * (s + 1) / 2
-    nbytes = 4 * q.numel() * 4 + h * s * 4
-    bound_ms, by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
-    fma_ms = bound(flops, nbytes, PEAK_F32_FLOPS)[0]
-    rows = {"K1 f32": dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=by, library_ms=lib_ms)}
-    print(f"  K1 b{b} h{h} s{s} d{d} causal f32 on {card}: device time "
-          f"kernel {ms:.4f} ms ({tflops(flops, ms):.2f} TFLOP/s of the "
-          f"function's, {tflops(3 * flops, ms):.1f} of TF32 products), plain "
-          f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
-          f"({by}, 3xTF32 at 495 TFLOP/s; FMA bound {fma_ms:.5f} ms); "
-          f"instances " + ", ".join(instances(
-              "K1 f32", call, ["fwd_tf32_kernel<64>"],
-              ["fwd_kernel<", "fwd_mma_kernel<"])))
+    s, d = 1024, 64
+    rows, errs = {}, {}
+    rows["K1 f32"], errs["K1 f32"] = k1_f32(
+        g, card, 1, 8, s, d, ["fwd_tf32_kernel<64>"],
+        ["fwd_kernel<", "fwd_mma_kernel<"])
 
     worst = {"K2": 0.0, "K3a": 0.0, "K3b": 0.0}
     args, kw2 = bwd_inputs(g, 4, 8, 8, s, s, d, torch.float32, None, None,
@@ -5249,9 +5307,14 @@ def f32_instances(card: str):
     # K3a and K3b at d 64 (the bias shape) and d 128 (b1 h16 s1024, an
     # (h, i, j) bias): against the dot_tf32x3 plain version (K3a on dq and
     # dB, K3b on dk and dv), and by instance name
+    worst_w = {"K2": 0.0, "K3a": 0.0, "K3b": 0.0}
+    args_n, kw_n = bwd_inputs(g, 1, 16, 16, s, s, 128, torch.float32, None,
+                              None, True)
     args_w, kw_w = bwd_inputs(g, 1, 16, 16, s, s, 128, torch.float32, None,
                               "h", True)
-    compare_backward(worst, "b1 h16 s1024 d128 causal + (h,i,j) bias",
+    compare_backward(worst_w, "b1 h16 s1024 d128 causal", args_n, kw_n,
+                     torch.float32, None)
+    compare_backward(worst_w, "b1 h16 s1024 d128 causal + (h,i,j) bias",
                      args_w, kw_w, torch.float32, None)
     twopass = []
     for dw, a_, kw_ in ((d, args_b, kw_b), (128, args_w, kw_w)):
@@ -5267,26 +5330,66 @@ def f32_instances(card: str):
         if not (max(e3a) <= TF32X3_BARS["K3a"]
                 and max(e3b) <= TF32X3_BARS["K3b"]):
             fail(f"K3a/K3b f32 d{dw} against dot_tf32x3: {e3a}, {e3b}")
-        twopass += instances(
+        twopass += require_instances(
             f"K3a/K3b f32 d{dw}",
-            lambda: bk._backward_twopass(*a_, **kw_),
+            lambda: bk._backward_twopass(*a_, **kw_),  # noqa: B023
             [f"dq_tf32_kernel<{dw}>", f"dkdv_tf32_kernel<{dw}, false>"],
             ["dq_kernel<", "dkdv_kernel<", "mma_kernel"])
-    del args_w, got, want_t
+    del got, want_t
     split_check(g, card)
     long_chains(g, card)
     for name, row in time_backward(card, args, kw2, args_b, kw_b).items():
         rows[f"{name} f32"] = row
         errs[f"{name} f32"] = worst[name]
-    onepass = instances("K2 f32", lambda: bk._backward_onepass(
-        *args[:7], scale=1.0, causal=True), ["dkdv_tf32_kernel<64, true>"],
-        ["dkdv_kernel<", "dkdv_mma_kernel<"])
+    onepass = require_instances(
+        "K2 f32", lambda: bk._backward_onepass(*args[:7], scale=1.0,
+                                               causal=True),
+        ["dkdv_tf32_kernel<64, true>"], ["dkdv_kernel<", "dkdv_mma_kernel<"])
     print(f"  f32 backward instances: one-pass {onepass}, two-pass "
           f"{twopass}")
     scale8(g, card)
     wide_rows, wide_errs = f32_wide_heads(g, card)
     rows.update(wide_rows)
     errs.update(wide_errs)
+
+    # the float32 instances no main path counts: K1 and K2 at d 128 (K3a,
+    # K3b with their bias), the wide route at d 512, K1's int8 arm
+    rows["K1 f32 d128"], errs["K1 f32 d128"] = k1_f32(
+        g, card, 1, 16, s, 128, ["fwd_tf32_kernel<128>"],
+        ["fwd_kernel<", "fwd_mma_kernel<"])
+    for name, row in time_backward(card, args_n, kw_n, args_w, kw_w).items():
+        rows[f"{name} f32 d128"] = row
+        errs[f"{name} f32 d128"] = worst_w[name]
+    require_instances("K2 f32 d128", lambda: bk._backward_onepass(
+        *args_n[:7], scale=1.0, causal=True),
+        ["dkdv_tf32_kernel<128, true>"], ["dkdv_kernel<", "mma_kernel<"])
+    del args_n, args_w
+    rows["K1 f32 d512"], errs["K1 f32 d512"] = k1_f32(
+        g, card, 4, 1, s, 512, ["fwd_wide_kernel<float>"],
+        ["fwd_wide_mma_kernel", "tf32"])
+    worst_x = {"K2": 0.0, "K3a": 0.0, "K3b": 0.0}
+    args_x, kw_x = bwd_inputs(g, 4, 1, 1, s, s, 512, torch.float32, None,
+                              None, True)
+    args_xb, kw_xb = bwd_inputs(g, 4, 1, 1, s, s, 512, torch.float32, None,
+                                "h", True)
+    compare_backward(worst_x, "b4 h1 s1024 d512 causal", args_x, kw_x,
+                     torch.float32, None)
+    compare_backward(worst_x, "b4 h1 s1024 d512 causal + (h,i,j) bias",
+                     args_xb, kw_xb, torch.float32, None)
+    for name, row in time_backward(card, args_x, kw_x, args_xb,
+                                   kw_xb).items():
+        rows[f"{name} f32 d512"] = row
+        errs[f"{name} f32 d512"] = worst_x[name]
+    print("  f32 wide route instances: " + ", ".join(require_instances(
+        "the f32 wide route", lambda: (
+            bk._backward_onepass(*args_x[:7], scale=1.0, causal=True),
+            bk._backward_twopass(*args_xb, **kw_xb)),
+        ["dkdv_wide_kernel<true>", "dkdv_wide_kernel<false>",
+         "dq_wide_kernel<float>"], ["mma_kernel", "tf32"])))
+    del args_x, args_xb
+    rows["K1 int8 f32 v"], errs["K1 int8 f32 v"] = k1_f32(
+        g, card, 1, 16, s, 128, ["fwd_kernel<128>"],
+        ["fwd_tf32_kernel<", "mma_kernel"], qk_int8=True)
 
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     step = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
@@ -5313,7 +5416,9 @@ def f32_instances(card: str):
               f"{times['plain_ms']:.4f}, F.linear f32 "
               f"{times['library_ms']:.4f}, bound {times['bound_ms']:.5f} "
               f"(bytes); err {err:.2e}; "
-              f"instances {instances('K7 f32', lambda: quantized_matmul(x, w8, scale), ['qmm_kernel<'], ['qmm_mma_kernel'])}")
+              "instances " + ", ".join(require_instances(
+                  "K7 f32", lambda: quantized_matmul(x, w8, scale),  # noqa: B023
+                  ["qmm_kernel<"], ["qmm_mma_kernel"])))
         for key, val in times.items():
             step[key] += calls * val
     rows["K7 f32"] = dict(step, bound_by="bytes")
@@ -5328,7 +5433,8 @@ def f32_instances(card: str):
               f"{errs[name]:.3e}")
     f32_train_step(card)
     head256_launches = f32_head256_step(card)
-    return rows, errs, f32_long_step(card), head256_launches
+    return (rows, errs, f32_long_step(card), head256_launches,
+            f32_head256_long_step(card))
 
 
 def main() -> None:
@@ -5356,9 +5462,13 @@ def main() -> None:
         help="profile the heads-256 model's float32 training step alone "
              "(one card)")
     parser.add_argument(
+        "--f32-head256-long-step", action="store_true",
+        help="profile the heads-256 model's float32 training step at seq "
+             f"{LONG_SEQ}, batch 1, alone (one card)")
+    parser.add_argument(
         "--f32-wide-heads", action="store_true",
-        help="check and time the float32 K1 and K2 at d 192 and 256 (and "
-             "K3a, K3b at d 256) alone (one card)")
+        help="check and time the float32 K1, K2, K3a and K3b at d 192 and "
+             "256 alone (one card)")
     args = parser.parse_args()
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5396,7 +5506,7 @@ def main() -> None:
 
     if (args.ring_nccl or args.multihost_nccl or args.f32_step
             or args.f32_long_step or args.f32_head256_step
-            or args.f32_wide_heads):
+            or args.f32_head256_long_step or args.f32_wide_heads):
         if args.ring_nccl:
             print("[19] ring attention over NCCL, a card a rank")
             print(json.dumps({"kernels": [ring_attention_phase(smi, "nccl")]}))
@@ -5413,8 +5523,13 @@ def main() -> None:
             print("[22] the heads-256 model's float32 training step")
             f32_head256_step(smi)
             flag = "--f32-head256-step"
+        elif args.f32_head256_long_step:
+            print("[22] the heads-256 model's float32 training step at seq "
+                  f"{LONG_SEQ}")
+            f32_head256_long_step(smi)
+            flag = "--f32-head256-long-step"
         elif args.f32_wide_heads:
-            print("[22] the float32 K1 and K2 at d 192 and 256")
+            print("[22] the float32 K1, K2, K3a and K3b at d 192 and 256")
             f32_wide_heads(torch.Generator(device="cuda").manual_seed(
                 SEED + 100), smi)
             flag = "--f32-wide-heads"
@@ -5481,8 +5596,8 @@ def main() -> None:
     print("[21] multi-host training")
     multihost_entry = multihost_phase(smi)
     print("[22] the float32 instances timed")
-    f32_rows, f32_err, long_launches, head256_launches = run_world(
-        1, None, f32_instances, smi)[0]
+    (f32_rows, f32_err, long_launches, head256_launches,
+     head256_long_launches) = run_world(1, None, f32_instances, smi)[0]
 
     bwd = "flash_cosine_sim_attention_tpu/ops/bwd_kernel.py"
     src = "flash_cosine_sim_attention_tpu_torch/csrc/bwd_kernel.cu"
@@ -5583,7 +5698,7 @@ def main() -> None:
     kernels += [tp_entry, ring_entry, pipe_entry, multihost_entry]
     # K1's and K2's float32 instances, with their launches on phase 21's
     # float32 step (every rank's), K3a's and K3b's, with theirs on phase
-    # 22's float32 step at seq 16384 (2 steps), and K1's and K2's at d 256;
+    # 22's float32 step at seq 16384 (2 steps), and all four at d 256;
     # phase 22 prints the other f32 rows
     kernels += [dict(name=name, route="cuda", source=f"{csrc}/{file}",
                      replaces=f"flash_cosine_sim_attention_tpu/{tpu}",
@@ -5607,7 +5722,15 @@ def main() -> None:
                      head256_launches),
                     ("bwd_kernel:onepass:f32:d256", "bwd_kernel.cu",
                      "ops/bwd_kernel.py:456", "K2 f32 d256", "k2",
-                     head256_launches))]
+                     head256_launches),
+                    # with their launches on phase 22's heads-256 float32
+                    # step at seq 16384 (2 steps)
+                    ("bwd_kernel:dq:f32:d256", "bwd_kernel.cu",
+                     "ops/bwd_kernel.py:64", "K3a f32 d256", "k3a",
+                     head256_long_launches),
+                    ("bwd_kernel:dkdv:f32:d256", "bwd_kernel.cu",
+                     "ops/bwd_kernel.py:282", "K3b f32 d256", "k3b",
+                     head256_long_launches))]
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke.py took {time.perf_counter() - started:.1f} s")
     print(smi)

@@ -6,11 +6,10 @@
 //                                                 bias's shared axis
 //   fcsa_bwd_dkdv     K3b  `_dkdv_kernel_t`       dK, dV
 // K2 and K3b share one template (dkdv_mma_kernel for bf16 on the tensor
-// cores, dkdv_tf32_kernel for f32 on them as 3xTF32 split products: K2 at
-// every width up to 256, K3b up to d 128; dkdv_kernel for the f32 K3b at
-// d 192 and 256 on FMAs); K2 adds the dQ sweep.  K3a is dq_mma_kernel
-// (bf16), dq_tf32_kernel (f32 up to d 128, 3xTF32) and dq_kernel (f32 at
-// d 192 and 256).
+// cores, dkdv_tf32_kernel for f32 on them as 3xTF32 split products, at
+// every width up to 256); K2 adds the dQ sweep.  K3a is dq_mma_kernel
+// (bf16) and dq_tf32_kernel (f32, 3xTF32, up to d 256).  Past d 256 all
+// three take the wide route's kernels (below).
 //
 // Maths (the JAX forward's convention: no row max, no "- scale" shift).
 // The wrapper hands in dO' = dO * inv_l (rounded back to dO's dtype) and
@@ -57,7 +56,8 @@
 // K3a and K3b ~39 and ~52 us, against ~23 and ~20 us of bytes with the
 // (h, i, j) bias.  The heads-256 model's shape (b4 h2 s1024 d256 causal)
 // has the same b x h x d, so the same operations: K2 f32 ~65 us on the
-// TF32 tensor cores (~160 us at the FMA rate, 67 TFLOP/s).
+// TF32 tensor cores (~160 us at the FMA rate, 67 TFLOP/s), K3a and K3b
+// ~39 and ~52 us.
 //
 // bfloat16 inputs run the tensor-core kernel `dkdv_mma_kernel`, the
 // FlashAttention-2 backward reshaped for this op (no row max, JAX's exp2
@@ -159,8 +159,8 @@
 //   memory: 185 KB, 203 KB with a bias, at every d.
 // - The f32 K3a (`dq_wide_kernel<float>`) and the f32 K2 and K3b
 //   (`dkdv_wide_kernel`) stay FMA: each block owns 128 columns, S and dP'
-//   are summed over 64-lane d chunks staged in f32, e and dS formed as in
-//   the FMA kernels, and the block adds only its columns (dQ += scale
+//   are summed over 64-lane d chunks staged in f32, e and dS formed in
+//   f32, and the block adds only its columns (dQ += scale
 //   dS.K[:, cols], dK, dV likewise; K2's atomics into the scratch's own
 //   columns).  Every column block forms the same S and dS again (4 times
 //   at d 512); dB is added by column block 0 alone.  f32 tiles, 64 x 64,
@@ -216,17 +216,23 @@
 // into the block's own dK and dV rows in global memory, and the
 // accumulators restart from 0.
 //
-// float32 K3b up to d 128 is the same kernel without dQ
-// (`dkdv_tf32_kernel<D, false>`): no dS staging and no dQ products, so no
-// warp reads another warp's keys and K, like V, is split at each A
-// fragment load (no K lo tile); the bias tile (BQ queries x 64 keys, f32)
-// streams through the cp.async ring with Q and dO' and is added to the
-// logit in f32, never split.  Shared memory 85 KB at d 64, 102 KB with a
-// bias: two blocks an SM either way.  Its dK and dV chains are closed
-// every 256 queries as K2's.
+// float32 K3b is the same kernel without dQ (`dkdv_tf32_kernel<D,
+// false>`): no dS staging and no dQ products, so no warp reads another
+// warp's keys and K, like V, is split at each A fragment load (no K lo
+// tile); the bias tile (BQ queries x BK keys, f32) streams through the
+// cp.async ring with Q and dO' and is added to the logit in f32, never
+// split.  Shared memory 85 KB at d 64, 102 KB with a bias: two blocks an
+// SM either way.  Above d 128 it keeps K2's two warps for each 16 keys:
+// the dV warp forms S^T (K split at each fragment load: only it reads
+// those keys), adds the bias, forms e^T, hands it to the dK warp through
+// a staging tile of its own (the bias tiles need theirs) and forms dV +=
+// e^T.dO'; the dK warp forms dP^T, dS^T and dK += dS^T.Q, the sums of S^T
+// and dP^T in four accumulators as K2's.  Shared memory with a bias 210
+// KB at d 192 (32-query tiles), 169 KB at d 256 (16).  Its dK and dV
+// chains are closed every 256 queries as K2's.
 //
-// float32 K3a up to d 128 runs on the tensor cores as 3xTF32 split
-// products (`dq_tf32_kernel`), in dq_mma_kernel's shape: 4 warps own 64
+// float32 K3a runs on the tensor cores as 3xTF32 split products
+// (`dq_tf32_kernel`), in dq_mma_kernel's shape: 4 warps own 64
 // queries, 16 a warp, query tiles heaviest first, causal key loops
 // stopped at the block's last diagonal.  Q and dO' arrive once as f32 and
 // stay in shared memory; each warp reads only its own rows, so their A
@@ -244,13 +250,22 @@
 // (add_product_tf32x3).  One dQ accumulator sums seq_k keys, each mma
 // rounding toward zero: every 256 keys its chain is closed into a running
 // sum in registers, added to nearest, and restarts from 0.
-//
-// float32 K3a and K3b at d 192 and 256 keep the FMA kernels `dq_kernel`
-// and `dkdv_kernel<float, D>`: every product is an f32 FMA out of
-// shared memory (tiles widened to f32 once at load, rows padded by one
-// column against bank conflicts), with e and dS in f32.  Their tiles are
-// 32 queries x 32 keys (four f32 tiles of 64 rows at d 256 would take 263
-// KB of shared memory).
+// Above d 128 the same block and key loop, but Q and dO' take 133 KB at d
+// 256 (64 queries of f32 rows), so K and V have no room for their lo
+// tiles and are split at each fragment load like Q and dO' (keys a tile:
+// 32 at d 192, 16 at d 256); S and dP' are each summed in four
+// accumulators (hi.hi and the small terms apart, each by the k step's
+// parity), as K2's S^T and dP^T above d 128, which holds dQ at the f32
+// bar over 16384 keys of mean-3 values; dQ's D / 2 accumulators a thread
+// leave no room for a running sum, so every 256 keys its chain is closed
+// into the thread's own dQ words in global memory, added to nearest (the
+// block owns those rows: no race).  Shared memory with a bias 216 KB at d
+// 192, 207 KB at d 256.  The other layout that fits, 32 queries a block
+// with two warps for each 16 (each summing S and dP' over half of d, the
+// halves added through shared memory, K and V split once for the block,
+// 177 KB at d 256), ran 0.342-0.348 ms against 0.320-0.326 at d 192 and
+// 0.470 against 0.470 at d 256 (b4 h2 s1024 causal, an (h, i, j) bias,
+// on an H100), so the kernel keeps the simpler one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -263,7 +278,8 @@
 
 namespace {
 
-constexpr int NT = 256;   // FMA kernels' threads: 16 row groups x 16 lanes
+constexpr int NT = 256;   // the wide route's FMA kernels' threads: 16 row
+                          // groups x 16 lanes
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -285,252 +301,6 @@ struct Params {
   int H, KVH, seq_q, seq_k, causal, bias_batch_dim;
   float scale, c;       // c = scale * log2e
 };
-
-// The FMA kernels' tiles (f32 at d 192 and 256): B queries x B keys, a
-// thread holding R rows x R columns of the score tile (rows ty * R + r,
-// columns tx + 16 c)
-template <int D>
-struct Fma {
-  static constexpr int B = 32;
-  static constexpr int R = B / 16;
-  static constexpr int PP = B + 1;  // e and dS tile row stride
-  // q, dO, k, v tiles with one pad column; e and dS tiles; delta'
-  static constexpr size_t SMEM =
-      sizeof(float) * (4 * size_t(B) * (D + 1) + 2 * size_t(B) * PP + B);
-};
-
-// rows [row0, row0 + rows) of a (*, D) tensor into a padded f32 tile;
-// rows at or past `end` load as 0
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int end, int rows) {
-  for (int idx = threadIdx.x; idx < rows * D; idx += NT) {
-    const int r = idx / D, cc = idx % D, row = row0 + r;
-    dst[r * (D + 1) + cc] = row < end ? to_f32(src[size_t(row) * D + cc]) : 0.f;
-  }
-}
-
-// One (B queries) x (B keys) tile: s = q.k and dP' = dO'.v^T, then e and
-// dS with every hidden entry at 0.  Writes e to `es` (if given) and dS to
-// `dss`, both [query][key]; adds dS to `db` (if given) at (row, col).
-template <int D>
-__device__ __forceinline__ void score_tile(
-    const float* qs, const float* dos, const float* ks, const float* vs,
-    const float* dl, float* es, float* dss, int q0, int k0, const Params& p,
-    const uint8_t* mb, const float* bb, float* db) {
-  constexpr int DP = D + 1, R = Fma<D>::R, PP = Fma<D>::PP;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[R][R], dp[R][R];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int cc = 0; cc < R; ++cc) s[r][cc] = dp[r][cc] = 0.f;
-#pragma unroll 4
-  for (int dd = 0; dd < D; ++dd) {
-    float a[R], g[R], b[R], w[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      a[r] = qs[(ty * R + r) * DP + dd];
-      g[r] = dos[(ty * R + r) * DP + dd];
-    }
-#pragma unroll
-    for (int cc = 0; cc < R; ++cc) {
-      b[cc] = ks[(tx + 16 * cc) * DP + dd];
-      w[cc] = vs[(tx + 16 * cc) * DP + dd];
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int cc = 0; cc < R; ++cc) {
-        s[r][cc] = fmaf(a[r], b[cc], s[r][cc]);
-        dp[r][cc] = fmaf(g[r], w[cc], dp[r][cc]);
-      }
-  }
-  const int diff = p.seq_k - p.seq_q;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int lr = ty * R + r, row = q0 + lr;
-    const float dlt = dl[lr];
-#pragma unroll
-    for (int cc = 0; cc < R; ++cc) {
-      const int lc = tx + 16 * cc, col = k0 + lc;
-      bool keep = row < p.seq_q && col < p.seq_k;
-      if (p.causal) keep = keep && col <= row + diff;
-      if (mb != nullptr && keep) keep = mb[col] != 0;
-      float e = 0.f, ds = 0.f;
-      if (keep) {
-        float x = s[r][cc] * p.c;
-        if (bb != nullptr) x += bb[size_t(row) * p.seq_k + col] * LOG2E;
-        e = exp2f(x);
-        ds = e * (dp[r][cc] - dlt);
-        if (db != nullptr) atomicAdd(db + size_t(row) * p.seq_k + col, ds);
-      }
-      if (es != nullptr) es[lr * PP + lc] = e;
-      dss[lr * PP + lc] = ds;
-    }
-  }
-}
-
-// K3b on f32 FMAs (d 192 and 256): grid (key tiles, KVH, B).
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) dkdv_kernel(Params p) {
-  constexpr int DP = D + 1;
-  constexpr int DC = D / 16;  // output columns per thread
-  constexpr int BQ = Fma<D>::B, BK = Fma<D>::B, R = Fma<D>::R, PP = Fma<D>::PP;
-  extern __shared__ float smem[];
-  float* qs = smem;            // BQ x DP
-  float* dos = qs + BQ * DP;   // BQ x DP
-  float* ks = dos + BQ * DP;   // BK x DP
-  float* vs = ks + BK * DP;    // BK x DP
-  float* es = vs + BK * DP;    // BQ x PP
-  float* dss = es + BQ * PP;   // BQ x PP
-  float* dl = dss + BQ * PP;   // BQ
-
-  const int bi = blockIdx.z, kvhi = blockIdx.y, k0 = blockIdx.x * BK;
-  const int G = p.H / p.KVH;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const size_t kvoff = (size_t(bi) * p.KVH + kvhi) * p.seq_k * D;
-  load_tile<T, D>(ks, static_cast<const T*>(p.k) + kvoff, k0, p.seq_k, BK);
-  load_tile<T, D>(vs, static_cast<const T*>(p.v) + kvoff, k0, p.seq_k, BK);
-  const uint8_t* mb = p.mask ? p.mask + size_t(bi) * p.seq_k : nullptr;
-
-  float adk[R][DC], adv[R][DC];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int cc = 0; cc < DC; ++cc) adk[r][cc] = adv[r][cc] = 0.f;
-
-  // the first query row that sees key k0 (causal: col <= row + diff)
-  const int qfirst = p.causal ? max(0, k0 - (p.seq_k - p.seq_q)) : 0;
-  const int nq = (p.seq_q + BQ - 1) / BQ;
-  for (int g = 0; g < G; ++g) {
-    const int hi = kvhi * G + g;
-    const size_t qrow0 = (size_t(bi) * p.H + hi) * p.seq_q;
-    const T* qb = static_cast<const T*>(p.q) + qrow0 * D;
-    const T* dob = static_cast<const T*>(p.dO) + qrow0 * D;
-    const float* bb =
-        p.bias ? p.bias + size_t(p.bias_batch_dim ? bi : hi) * p.seq_q * p.seq_k
-               : nullptr;
-    for (int qt = qfirst / BQ; qt < nq; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();  // the previous tile's readers are done
-      load_tile<T, D>(qs, qb, q0, p.seq_q, BQ);
-      load_tile<T, D>(dos, dob, q0, p.seq_q, BQ);
-      for (int i = threadIdx.x; i < BQ; i += NT)
-        dl[i] = q0 + i < p.seq_q ? p.delta[qrow0 + q0 + i] : 0.f;
-      __syncthreads();
-      score_tile<D>(qs, dos, ks, vs, dl, es, dss, q0, k0, p, mb, bb, nullptr);
-      __syncthreads();
-
-      // dV += e^T dO', dK += dS^T q: contraction over the tile's queries
-#pragma unroll 4
-      for (int ii = 0; ii < BQ; ++ii) {
-        float e[R], ds[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          e[r] = es[ii * PP + ty * R + r];
-          ds[r] = dss[ii * PP + ty * R + r];
-        }
-#pragma unroll
-        for (int cc = 0; cc < DC; ++cc) {
-          const float o = dos[ii * DP + tx + 16 * cc];
-          const float qv = qs[ii * DP + tx + 16 * cc];
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            adv[r][cc] = fmaf(e[r], o, adv[r][cc]);
-            adk[r][cc] = fmaf(ds[r], qv, adk[r][cc]);
-          }
-        }
-      }
-    }
-  }
-
-  T* dkb = static_cast<T*>(p.dk) + kvoff;
-  T* dvb = static_cast<T*>(p.dv) + kvoff;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int col = k0 + ty * R + r;
-    if (col >= p.seq_k) continue;
-#pragma unroll
-    for (int cc = 0; cc < DC; ++cc) {
-      store(dkb + size_t(col) * D + tx + 16 * cc, adk[r][cc] * p.scale);
-      store(dvb + size_t(col) * D + tx + 16 * cc, adv[r][cc]);
-    }
-  }
-}
-
-// K3a on f32 FMAs: grid (query tiles, H, B).
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) dq_kernel(Params p) {
-  constexpr int DP = D + 1;
-  constexpr int DC = D / 16;
-  constexpr int BQ = Fma<D>::B, BK = Fma<D>::B, R = Fma<D>::R, PP = Fma<D>::PP;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* dos = qs + BQ * DP;
-  float* ks = dos + BQ * DP;
-  float* vs = ks + BK * DP;
-  float* dss = vs + BK * DP + BQ * PP;  // the e tile's room stays unused
-  float* dl = dss + BQ * PP;
-
-  const int bi = blockIdx.z, hi = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int kvhi = hi / (p.H / p.KVH);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const size_t qrow0 = (size_t(bi) * p.H + hi) * p.seq_q;
-  const size_t kvoff = (size_t(bi) * p.KVH + kvhi) * p.seq_k * D;
-  load_tile<T, D>(qs, static_cast<const T*>(p.q) + qrow0 * D, q0, p.seq_q, BQ);
-  load_tile<T, D>(dos, static_cast<const T*>(p.dO) + qrow0 * D, q0, p.seq_q, BQ);
-  for (int i = threadIdx.x; i < BQ; i += NT)
-    dl[i] = q0 + i < p.seq_q ? p.delta[qrow0 + q0 + i] : 0.f;
-  const uint8_t* mb = p.mask ? p.mask + size_t(bi) * p.seq_k : nullptr;
-  const size_t bslice = size_t(p.bias_batch_dim ? bi : hi) * p.seq_q * p.seq_k;
-  const float* bb = p.bias ? p.bias + bslice : nullptr;
-  float* db = p.db ? p.db + bslice : nullptr;
-
-  // keys this block can see: all, or (causal) up to its last row's diagonal
-  const int last_row = min(q0 + BQ, p.seq_q) - 1;
-  const int kend =
-      p.causal ? max(0, min(p.seq_k, last_row + p.seq_k - p.seq_q + 1)) : p.seq_k;
-  const int nk = (kend + BK - 1) / BK;
-
-  float acc[R][DC];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int cc = 0; cc < DC; ++cc) acc[r][cc] = 0.f;
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(ks, static_cast<const T*>(p.k) + kvoff, k0, p.seq_k, BK);
-    load_tile<T, D>(vs, static_cast<const T*>(p.v) + kvoff, k0, p.seq_k, BK);
-    __syncthreads();
-    score_tile<D>(qs, dos, ks, vs, dl, nullptr, dss, q0, k0, p, mb, bb, db);
-    __syncthreads();
-#pragma unroll 4
-    for (int jj = 0; jj < BK; ++jj) {
-      float a[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) a[r] = dss[(ty * R + r) * PP + jj];
-#pragma unroll
-      for (int cc = 0; cc < DC; ++cc) {
-        const float kv = ks[jj * DP + tx + 16 * cc];
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r][cc] = fmaf(a[r], kv, acc[r][cc]);
-      }
-    }
-  }
-
-  T* dqb = static_cast<T*>(p.dq) + qrow0 * D;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = q0 + ty * R + r;
-    if (row >= p.seq_q) continue;
-#pragma unroll
-    for (int cc = 0; cc < DC; ++cc)
-      store(dqb + size_t(row) * D + tx + 16 * cc, acc[r][cc] * p.scale);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Tensor-core dK/dV kernel (bf16): K2 (DQ = true) and K3b (DQ = false).
@@ -897,9 +667,8 @@ __global__ void __launch_bounds__(MmaLayout<D, DQ>::NT, 1)
 
 // ---------------------------------------------------------------------------
 // Tensor-core f32 K2 (DQ = true) and K3b (DQ = false), 3xTF32: grid (KVH,
-// B, key tiles).  Up to d 128 (K2 and K3b) 4 warps own 64 keys, warp w
-// keys k0 + 16 w ..; above (K2 alone) 4 warps own 32 keys, two for each
-// 16 (see Tf32Layout)
+// B, key tiles).  Up to d 128 4 warps own 64 keys, warp w keys k0 + 16 w
+// ..; above 4 warps own 32 keys, two for each 16 (see Tf32Layout)
 
 template <int D, bool DQ>
 struct Tf32Layout {
@@ -929,11 +698,15 @@ struct Tf32Layout {
   static constexpr size_t QT = size_t(BQ) * RS;  // one Q or dO' tile
   // K (K2: split in place into its hi, its lo beside it; K3b: split at
   // each fragment load), V; two Q and two dO' tiles (each split in place
-  // into its hi), the current tile's Q and dO' lo; two delta' rows; then
-  // K2's dS, or K3b's two bias tiles (BQ queries x BK keys, f32)
-  static constexpr size_t BASE =
-      (DQ ? 3 : 2) * KV + 6 * QT + 2 * size_t(BQ) * sizeof(float);
+  // into its hi), the current tile's Q and dO' lo; two delta' rows; the
+  // staging tile (BQ queries x BK keys, f32: K2's dS, and above d 128 the
+  // e^T that the dV warps hand to the dK warps); then K3b's two bias
+  // tiles (BQ queries x BK keys, f32)
+  static constexpr bool STAGE = DQ || SPLIT;
   static constexpr size_t DST = size_t(BQ) * DSS * sizeof(float);
+  static constexpr size_t BASE = (DQ ? 3 : 2) * KV + 6 * QT +
+                                 2 * size_t(BQ) * sizeof(float) +
+                                 (STAGE ? DST : 0);
   static constexpr size_t BIAS = 2 * size_t(BQ) * BS * sizeof(float);
 };
 
@@ -955,7 +728,6 @@ __global__ void __launch_bounds__(Tf32Layout<D, DQ>::NT, 1)
   constexpr int NDH = NDQ / NH;
   static_assert(ND % DP == 0 && NDQ % NH == 0,
                 "dQ parts and passes split the head dim evenly");
-  static_assert(DQ || !SPLIT, "K3b above d 128 runs on FMAs");
   extern __shared__ __align__(16) unsigned char msmem[];
   unsigned char* ks = msmem;
   unsigned char* kls = ks + L::KV;       // K2: K's lo
@@ -965,8 +737,8 @@ __global__ void __launch_bounds__(Tf32Layout<D, DQ>::NT, 1)
   unsigned char* qls = dos + 2 * L::QT;  // the current tile's lo
   unsigned char* dols = qls + L::QT;
   float* dls = reinterpret_cast<float*>(dols + L::QT);  // 2 x BQ
-  float* dss = dls + 2 * BQ;             // K2: BQ x DSS
-  float* bss = dls + 2 * BQ;             // K3b: 2 bias tiles, BQ x BS
+  float* dss = dls + 2 * BQ;             // STAGE: BQ x DSS
+  float* bss = dss + (L::STAGE ? BQ * DSS : 0);  // K3b: 2 bias tiles
 
   const int kvhi = blockIdx.x, bi = blockIdx.y, k0 = blockIdx.z * BK;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -1110,11 +882,16 @@ __global__ void __launch_bounds__(Tf32Layout<D, DQ>::NT, 1)
 
       const bool whole = keys_whole && q0 + BQ <= p.seq_q &&
                          (!p.causal || k0 + BK - 1 <= q0 + diff);
+      // K3b's bias comes from its staged tile (this thread's keys, row
+      // `col` at bt[col * BS + 8 h]), added to the logit in f32, never split
+      const bool has_bias = !DQ && p.bias != nullptr;
+      const float* bt = bss + buf * BQ * L::BS + kg * 16 + g;
       if constexpr (SPLIT) {
         // above d 128 a warp forms one product: S^T = K.Q^T (the warps
-        // that form dV: K's hi and lo tiles) or dP^T = V.dO'^T (the warps
-        // that form dK: V split at each fragment load), B fragments by x4
-        // ldmatrix of Q's / dO''s hi and lo.  hi.hi sums into xb, the
+        // that form dV: K2's K hi and lo tiles; K3b's K, read by these
+        // warps alone, split at each fragment load) or dP^T = V.dO'^T (the
+        // warps that form dK: V split at each fragment load), B fragments
+        // by x4 ldmatrix of Q's / dO''s hi and lo.  hi.hi sums into xb, the
         // small terms lo.hi + hi.lo into xs, each in two accumulators by
         // the k step's parity: four chains of dependent mma instead of
         // one, and shorter chains of sums rounded toward zero (dP's terms
@@ -1134,12 +911,12 @@ __global__ void __launch_bounds__(Tf32Layout<D, DQ>::NT, 1)
           uint32_t ah[4], al[4];
           const int arow =
               (kg * 16 + (lane & 15)) * RS + st * 32 + (lane >> 4) * 16;
-          if (forms_dv) {
+          if (DQ && forms_dv) {
             ldmatrix_x4(ah, ks + arow);
             ldmatrix_x4(al, kls + arow);
           } else {
             uint32_t a[4];
-            ldmatrix_x4(a, vs + arow);
+            ldmatrix_x4(a, (forms_dv ? ks : vs) + arow);
 #pragma unroll
             for (int i = 0; i < 4; ++i)
               split_tf32(__uint_as_float(a[i]), ah[i], al[i]);
@@ -1169,7 +946,7 @@ __global__ void __launch_bounds__(Tf32Layout<D, DQ>::NT, 1)
                       (xs[0][n][e] + xs[1][n][e]);
         // the dV warps form e^T (masked as below) and stage it at dS's
         // places, where the dK warp of the same keys (the same lanes) reads
-        // it and writes dS over it
+        // it (and K2's writes dS over it)
         if (forms_dv) {
 #pragma unroll
           for (int n = 0; n < NQ; ++n)
@@ -1183,7 +960,9 @@ __global__ void __launch_bounds__(Tf32Layout<D, DQ>::NT, 1)
                   keep = key_ok[h] && qr < p.seq_q;
                   if (p.causal) keep = keep && keys[h] <= qr + diff;
                 }
-                const float e = keep ? exp2f(x[n][2 * h + xx] * p.c) : 0.f;
+                float lg = x[n][2 * h + xx] * p.c;
+                if (has_bias) lg += bt[col * L::BS + 8 * h] * LOG2E;
+                const float e = keep ? exp2f(lg) : 0.f;
                 x[n][2 * h + xx] = e;
                 dss[col * DSS + kg * 16 + g + 8 * h] = e;
               }
@@ -1211,7 +990,7 @@ __global__ void __launch_bounds__(Tf32Layout<D, DQ>::NT, 1)
                 float* at = dss + col * DSS + kg * 16 + g + 8 * h;
                 const float ds = keep ? *at * (x[n][2 * h + xx] - dlt) : 0.f;
                 x[n][2 * h + xx] = ds;
-                *at = ds;
+                if constexpr (DQ) *at = ds;
               }
             }
           add_product_tf32x3<BQ, D, RF>(
@@ -1263,10 +1042,7 @@ __global__ void __launch_bounds__(Tf32Layout<D, DQ>::NT, 1)
 
         // e^T into s, dS^T into dp, in the C layout: entry (n, 2h + x) is
         // key keys[h], query q0 + 8n + 2tq + x; the masks skipped on whole
-        // tiles, as in dkdv_mma_kernel; K3b's bias comes from its staged
-        // tile, in f32, never split
-        const bool has_bias = !DQ && p.bias != nullptr;
-        const float* bt = bss + buf * BQ * L::BS + kg * 16 + g;
+        // tiles, as in dkdv_mma_kernel
 #pragma unroll
         for (int n = 0; n < NQ; ++n)
 #pragma unroll
@@ -1582,15 +1358,17 @@ __global__ void __launch_bounds__(DQ_NT, 1) dq_mma_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core f32 K3a (3xTF32) at d <= 128: dq_mma_kernel's grid and block
-// (query tiles heaviest first, DQ_NT threads, warp w owning queries q0 +
-// 16w ..), every product as three tf32 mma.sync passes.
+// Tensor-core f32 K3a (3xTF32): dq_mma_kernel's grid (query tiles heaviest
+// first) and block (DQ_NT threads, warp w owning queries q0 + 16w ..),
+// every product as three tf32 mma.sync passes.
 
 template <int D>
 struct DqTf32Layout {
+  static constexpr bool WIDE = D > 128;
   // keys a tile: 32 from d 64 (64-key tiles would take 136 KB at d 64,
-  // one block an SM; 32-key tiles keep two, with or without a bias)
-  static constexpr int BK = D <= 32 ? 64 : 32;
+  // one block an SM; 32-key tiles keep two, with or without a bias), 16
+  // at d 256
+  static constexpr int BK = D <= 32 ? 64 : D <= 192 ? 32 : 16;
   // f32 rows of D + 4 floats, as in Tf32Layout: ldmatrix rows hit 8
   // banks, add_product_tf32x3's two rows 8 banks apart
   static constexpr int RF = D + 4;
@@ -1599,16 +1377,67 @@ struct DqTf32Layout {
   static constexpr size_t QT = size_t(DQ_BQ) * RS;  // the Q or dO' tile
   static constexpr size_t KT = size_t(BK) * RS;     // one K or V tile
   // Q, dO' (split at each fragment load: a warp reads its own rows); two
-  // K and two V tiles (each split in place into its hi), the current K
-  // and V tiles' lo; then two bias tiles (64 queries x BK keys, f32)
-  static constexpr size_t BASE = 2 * QT + 6 * KT;
+  // K and two V tiles (up to d 128 each split in place into its hi, the
+  // current K and V tiles' lo beside; above, where Q and dO' take 133 KB
+  // at d 256, split at each fragment load); then two bias tiles (64
+  // queries x BK keys, f32)
+  static constexpr size_t BASE = 2 * QT + (WIDE ? 4 : 6) * KT;
   static constexpr size_t BIAS = 2 * size_t(DQ_BQ) * BS * sizeof(float);
 };
+
+// t (a warp's 16 x 8 NS tile, C fragments) = A.B^T over KS k steps of 8
+// floats, 3xTF32 (dq_tf32_kernel above d 128): A the warp's 16 rows and
+// B's 8 NS rows in shared memory (x4 ldmatrix at `a` and `b`, this lane's
+// row and byte offset), both split as they are read.  hi.hi and the small
+// terms lo.hi + hi.lo sum apart, each in two accumulators by the k step's
+// parity: four chains of dependent mma a quarter as long, and as many
+// fewer roundings toward zero on each (dP' sums d terms of one sign where
+// v and dO' share it, and dS takes the difference of two such sums)
+template <int NS, int KS, int RS>
+__device__ __forceinline__ void scores_tf32x3(float (&t)[NS][4],
+                                              const unsigned char* a,
+                                              const unsigned char* b) {
+  float hh[2][NS][4], sm[2][NS][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hh[r][n][e] = sm[r][n][e] = 0.f;
+#pragma unroll
+  for (int st = 0; st < KS; ++st) {
+    uint32_t x[4], ah[4], al[4];
+    ldmatrix_x4(x, a + st * 32);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(x[i]), ah[i], al[i]);
+    const int r = st & 1;
+#pragma unroll
+    for (int j = 0; j < NS / 2; ++j) {
+      uint32_t bh[4], bl[4];
+      ldmatrix_x4(x, b + j * 16 * RS + st * 32);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        split_tf32(__uint_as_float(x[i]), bh[i], bl[i]);
+      mma_tf32(sm[r][2 * j], al, bh[0], bh[1]);
+      mma_tf32(sm[r][2 * j], ah, bl[0], bl[1]);
+      mma_tf32(hh[r][2 * j], ah, bh[0], bh[1]);
+      mma_tf32(sm[r][2 * j + 1], al, bh[2], bh[3]);
+      mma_tf32(sm[r][2 * j + 1], ah, bl[2], bl[3]);
+      mma_tf32(hh[r][2 * j + 1], ah, bh[2], bh[3]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      t[n][e] = (hh[0][n][e] + hh[1][n][e]) + (sm[0][n][e] + sm[1][n][e]);
+}
 
 template <int D>
 __global__ void __launch_bounds__(DQ_NT, 1) dq_tf32_kernel(Params p) {
   using L = DqTf32Layout<D>;
   constexpr int BK = L::BK, RS = L::RS, RF = L::RF, BS = L::BS;
+  constexpr bool WIDE = L::WIDE;
   constexpr int NS = BK / 8;  // n8 tiles of a warp's (16 x BK) S tile
   constexpr int ND = D / 8;   // n8 tiles of dQ
   extern __shared__ __align__(16) unsigned char msmem[];
@@ -1616,9 +1445,9 @@ __global__ void __launch_bounds__(DQ_NT, 1) dq_tf32_kernel(Params p) {
   unsigned char* dos = qs + L::QT;
   unsigned char* ks = dos + L::QT;       // 2 buffers
   unsigned char* vs = ks + 2 * L::KT;    // 2 buffers
-  unsigned char* kls = vs + 2 * L::KT;   // the current tiles' lo
+  unsigned char* kls = vs + 2 * L::KT;   // up to d 128: the current tiles' lo
   unsigned char* vls = kls + L::KT;
-  float* bss = reinterpret_cast<float*>(vls + L::KT);  // 2 bias tiles
+  float* bss = reinterpret_cast<float*>(kls + (WIDE ? 0 : 2) * L::KT);
 
   const int bi = blockIdx.z, hi = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * DQ_BQ;  // heaviest first
@@ -1669,17 +1498,53 @@ __global__ void __launch_bounds__(DQ_NT, 1) dq_tf32_kernel(Params p) {
 #pragma unroll
   for (int h = 0; h < 2; ++h)
     dlt[h] = rows[h] < p.seq_q ? p.delta[qrow0 + rows[h]] : 0.f;
+  // the lane's A row (Q, dO') and B rows (K, V: x4 ldmatrix of 2 n8 tiles)
   const int arow = (warp * 16 + (lane & 15)) * RS + (lane >> 4) * 16;
+  const int brow = ((lane & 7) + (lane >> 4) * 8) * RS + ((lane >> 3) & 1) * 16;
 
   // dQ sums every visible key, each mma rounding its sum toward zero.
-  // Every CHAIN tiles (256 keys) the chain is closed: dq is added, to
-  // nearest, into dQ's running sum dqs (registers) and restarts from 0
+  // Every CHAIN tiles (256 keys) the chain is closed and dq restarts from
+  // 0: up to d 128 it is added, to nearest, into dQ's running sum dqs
+  // (registers); above, where dq alone takes D / 2 registers a thread, into
+  // the thread's own dQ words in global memory (scaled), as K2 closes dK
+  // and dV
   constexpr int CHAIN = 256 / BK;
-  float dq[ND][4], dqs[ND][4];
+  float dq[ND][4], dqs[WIDE ? 1 : ND][4];
 #pragma unroll
   for (int n = 0; n < ND; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = dqs[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  if constexpr (!WIDE) {
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqs[n][e] = 0.f;
+  }
+  float* const dqh = static_cast<float*>(p.dq) + qrow0 * D;
+  bool stored = false;
+  auto close_chain = [&]() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (rows[h] >= p.seq_q) continue;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        float2* w = reinterpret_cast<float2*>(dqh + size_t(rows[h]) * D +
+                                              n * 8 + 2 * tq);
+        float2 x = make_float2(dq[n][2 * h] * p.scale,
+                               dq[n][2 * h + 1] * p.scale);
+        if (stored) {
+          const float2 y = *w;
+          x.x += y.x, x.y += y.y;
+        }
+        *w = x;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+    stored = true;
+  };
 
   for (int kt = 0; kt < nk; ++kt) {
     const int buf = kt & 1, k0 = kt * BK;
@@ -1689,42 +1554,48 @@ __global__ void __launch_bounds__(DQ_NT, 1) dq_tf32_kernel(Params p) {
     __syncthreads();  // tile kt (and, at kt 0, Q and dO') has landed
     unsigned char* kt_s = ks + buf * L::KT;
     unsigned char* vt_s = vs + buf * L::KT;
-    // every warp reads all of K and V: split them once, for the block
-    split_rows<D, RS, DQ_NT>(kt_s, kls, BK);
-    split_rows<D, RS, DQ_NT>(vt_s, vls, BK);
-    __syncthreads();  // the tiles' hi and lo are in place
+    if constexpr (!WIDE) {
+      // every warp reads all of K and V: split them once, for the block
+      split_rows<D, RS, DQ_NT>(kt_s, kls, BK);
+      split_rows<D, RS, DQ_NT>(vt_s, vls, BK);
+      __syncthreads();  // the tiles' hi and lo are in place
+    }
 
     // S = Q.K^T, dP' = dO'.V^T: the warp's Q and dO' A fragments split as
-    // they are read; x4 ldmatrix of K / V hi and lo give the B fragments
-    // of 2 n8 tiles
+    // they are read
     float s[NS][4], dp[NS][4];
+    if constexpr (WIDE) {  // K and V split as they are read too
+      scores_tf32x3<NS, D / 8, RS>(s, qs + arow, kt_s + brow);
+      scores_tf32x3<NS, D / 8, RS>(dp, dos + arow, vt_s + brow);
+    } else {
+      // x4 ldmatrix of K / V hi and lo give the B fragments of 2 n8 tiles
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+      for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
 #pragma unroll
-    for (int st = 0; st < D / 8; ++st) {
-      uint32_t qa[4], da[4], qh[4], ql[4], dh[4], dl[4];
-      ldmatrix_x4(qa, qs + arow + st * 32);
-      ldmatrix_x4(da, dos + arow + st * 32);
+      for (int st = 0; st < D / 8; ++st) {
+        uint32_t qa[4], da[4], qh[4], ql[4], dh[4], dl[4];
+        ldmatrix_x4(qa, qs + arow + st * 32);
+        ldmatrix_x4(da, dos + arow + st * 32);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        split_tf32(__uint_as_float(qa[i]), qh[i], ql[i]);
-        split_tf32(__uint_as_float(da[i]), dh[i], dl[i]);
-      }
+        for (int i = 0; i < 4; ++i) {
+          split_tf32(__uint_as_float(qa[i]), qh[i], ql[i]);
+          split_tf32(__uint_as_float(da[i]), dh[i], dl[i]);
+        }
 #pragma unroll
-      for (int j = 0; j < NS / 2; ++j) {
-        const int brow = (j * 16 + (lane & 7) + (lane >> 4) * 8) * RS +
-                         st * 32 + ((lane >> 3) & 1) * 16;
-        uint32_t bh[4], bl[4];
-        ldmatrix_x4(bh, kt_s + brow);
-        ldmatrix_x4(bl, kls + brow);
-        mma_tf32x3(s[2 * j], qh, ql, bh[0], bh[1], bl[0], bl[1]);
-        mma_tf32x3(s[2 * j + 1], qh, ql, bh[2], bh[3], bl[2], bl[3]);
-        ldmatrix_x4(bh, vt_s + brow);
-        ldmatrix_x4(bl, vls + brow);
-        mma_tf32x3(dp[2 * j], dh, dl, bh[0], bh[1], bl[0], bl[1]);
-        mma_tf32x3(dp[2 * j + 1], dh, dl, bh[2], bh[3], bl[2], bl[3]);
+        for (int j = 0; j < NS / 2; ++j) {
+          const int at = brow + j * 16 * RS + st * 32;
+          uint32_t bh[4], bl[4];
+          ldmatrix_x4(bh, kt_s + at);
+          ldmatrix_x4(bl, kls + at);
+          mma_tf32x3(s[2 * j], qh, ql, bh[0], bh[1], bl[0], bl[1]);
+          mma_tf32x3(s[2 * j + 1], qh, ql, bh[2], bh[3], bl[2], bl[3]);
+          ldmatrix_x4(bh, vt_s + at);
+          ldmatrix_x4(bl, vls + at);
+          mma_tf32x3(dp[2 * j], dh, dl, bh[0], bh[1], bl[0], bl[1]);
+          mma_tf32x3(dp[2 * j + 1], dh, dl, bh[2], bh[3], bl[2], bl[3]);
+        }
       }
     }
 
@@ -1737,40 +1608,52 @@ __global__ void __launch_bounds__(DQ_NT, 1) dq_tf32_kernel(Params p) {
 
     // dQ += dS.K with dS in f32 (split hi / lo in registers): the C
     // fragment of S holds keys 2q and 2q + 1, which serve as the tf32 A
-    // fragment's k indices q and q + 4 when K's rows are read in that order
-    // (add_product_tf32x3), so dS is never staged
-    add_product_tf32x3<BK, D, RF>(dq, dp, reinterpret_cast<const float*>(kt_s),
-                                  reinterpret_cast<const float*>(kls), lane);
+    // fragment's k indices q and q + 4 when K's rows are read in that
+    // order (add_product_tf32x3), so dS is never staged
+    const float* kf = reinterpret_cast<const float*>(kt_s);
+    if constexpr (WIDE)
+      add_product_tf32x3<BK, D, RF>(dq, dp, kf, lane);
+    else
+      add_product_tf32x3<BK, D, RF>(
+          dq, dp, kf, reinterpret_cast<const float*>(kls), lane);
     __syncthreads();  // the next tile's loads and splits may overwrite these
     if ((kt + 1) % CHAIN == 0) {
+      if constexpr (WIDE) {
+        if (kt + 1 < nk) close_chain();
+      } else {
 #pragma unroll
-      for (int n = 0; n < ND; ++n)
+        for (int n = 0; n < ND; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          dqs[n][e] += dq[n][e];
-          dq[n][e] = 0.f;
-        }
+          for (int e = 0; e < 4; ++e) {
+            dqs[n][e] += dq[n][e];
+            dq[n][e] = 0.f;
+          }
+      }
     }
   }
   cp_async_wait<0>();
 
-  float* dqb = static_cast<float*>(p.dq) + qrow0 * D;
+  if constexpr (WIDE) {
+    close_chain();  // the last chain, or (no key visible) zeros
+  } else {
+    float* dqb = static_cast<float*>(p.dq) + qrow0 * D;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (rows[h] >= p.seq_q) continue;
+    for (int h = 0; h < 2; ++h) {
+      if (rows[h] >= p.seq_q) continue;
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<float2*>(dqb + size_t(rows[h]) * D + n * 8 + 2 * tq) =
-          make_float2((dqs[n][2 * h] + dq[n][2 * h]) * p.scale,
-                      (dqs[n][2 * h + 1] + dq[n][2 * h + 1]) * p.scale);
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<float2*>(dqb + size_t(rows[h]) * D + n * 8 + 2 * tq) =
+            make_float2((dqs[n][2 * h] + dq[n][2 * h]) * p.scale,
+                        (dqs[n][2 * h + 1] + dq[n][2 * h + 1]) * p.scale);
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
 // Wide route's FMA kernels (d a multiple of WCOL past 256): K3a for both
 // dtypes, K2 and K3b for f32; f32 tiles of 64 queries x 64 keys, NT
-// threads as in the FMA kernels (thread (ty, tx) holds queries / keys ty *
-// 4 .. and columns tx + 16 c).
+// threads (thread (ty, tx) holds queries / keys ty * 4 .. and columns tx
+// + 16 c).
 
 constexpr int WKC = 64;    // d lanes of a Q, dO', K or V chunk
 constexpr int WCOL = 128;  // output columns of a block (ops/blocks.py WIDE_CHUNK)
@@ -1794,7 +1677,7 @@ __device__ __forceinline__ void load_cols(float* dst, const T* src, int row0,
 
 // One (WB queries) x (WB keys) tile at any width: s = q.k and dP' = dO'.v^T
 // summed over the d chunks (staged in `chunks`), then e and dS with every
-// hidden entry at 0, as score_tile.  Writes e to `es` (if given) and dS to
+// hidden entry at 0.  Writes e to `es` (if given) and dS to
 // `dss`, both [query][key]; adds dS to `db` (if given) at (row, col).
 // Begins with a barrier (the chunks' room may be in use); `dl` must hold
 // the tile's delta' before it.
@@ -2703,46 +2586,30 @@ cudaError_t run(Which which, const Params& p, int B, cudaStream_t s) {
                         L2::BASE + L2::DST, s, p)
                : launch(dkdv_mma_kernel<T, D, false>, grid, L3::NT,
                         L3::BASE + (p.bias ? L3::BIAS : 0), s, p);
-  } else {  // float32
-    // K2 on the tensor cores (3xTF32) at every width, K3a and K3b up to d
-    // 128; K3a and K3b on FMAs at d 192 and 256
-    constexpr bool TF32_TWOPASS = D <= 128;
-    if (which == ONEPASS || TF32_TWOPASS) {
-      for (const void* t : {p.q, p.k, p.v, p.dO})
-        if (reinterpret_cast<uintptr_t>(t) % 16 != 0)
-          return cudaErrorMisalignedAddress;
-    }
+  } else {  // float32: K2, K3a and K3b on the tensor cores (3xTF32)
+    for (const void* t : {p.q, p.k, p.v, p.dO})
+      if (reinterpret_cast<uintptr_t>(t) % 16 != 0)
+        return cudaErrorMisalignedAddress;
     if (which == ONEPASS) {
       using L2 = Tf32Layout<D, true>;
-      static_assert(L2::BASE + L2::DST <= 232448, "K2 f32 shared memory");
+      static_assert(L2::BASE <= 232448, "K2 f32 shared memory");
       // key tiles slowest, so the causal blocks with the most work go first
       return launch(dkdv_tf32_kernel<D, true>,
                     dim3(p.KVH, B, (p.seq_k + L2::BK - 1) / L2::BK), L2::NT,
-                    L2::BASE + L2::DST, s, p);
+                    L2::BASE, s, p);
     }
-    if constexpr (TF32_TWOPASS) {
-      if (which == DQ) {
-        using L = DqTf32Layout<D>;
-        static_assert(L::BASE + L::BIAS <= 232448, "K3a f32 shared memory");
-        return launch(dq_tf32_kernel<D>,
-                      dim3((p.seq_q + DQ_BQ - 1) / DQ_BQ, p.H, B), DQ_NT,
-                      L::BASE + (p.bias ? L::BIAS : 0), s, p);
-      }
-      using L3 = Tf32Layout<D, false>;
-      static_assert(L3::BASE + L3::BIAS <= 232448, "K3b f32 shared memory");
-      return launch(dkdv_tf32_kernel<D, false>,
-                    dim3(p.KVH, B, (p.seq_k + L3::BK - 1) / L3::BK), L3::NT,
-                    L3::BASE + (p.bias ? L3::BIAS : 0), s, p);
-    } else {
-      using F = Fma<D>;
-      if (which == DQ)
-        return launch(dq_kernel<T, D>,
-                      dim3((p.seq_q + F::B - 1) / F::B, p.H, B), NT, F::SMEM,
-                      s, p);
-      return launch(dkdv_kernel<T, D>,
-                    dim3((p.seq_k + F::B - 1) / F::B, p.KVH, B), NT, F::SMEM,
-                    s, p);
+    if (which == DQ) {
+      using L = DqTf32Layout<D>;
+      static_assert(L::BASE + L::BIAS <= 232448, "K3a f32 shared memory");
+      return launch(dq_tf32_kernel<D>,
+                    dim3((p.seq_q + DQ_BQ - 1) / DQ_BQ, p.H, B), DQ_NT,
+                    L::BASE + (p.bias ? L::BIAS : 0), s, p);
     }
+    using L3 = Tf32Layout<D, false>;
+    static_assert(L3::BASE + L3::BIAS <= 232448, "K3b f32 shared memory");
+    return launch(dkdv_tf32_kernel<D, false>,
+                  dim3(p.KVH, B, (p.seq_k + L3::BK - 1) / L3::BK), L3::NT,
+                  L3::BASE + (p.bias ? L3::BIAS : 0), s, p);
   }
 }
 
@@ -2820,9 +2687,8 @@ int dispatch(Which which, Params p, int dtype, int B, int d, void* stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the dq/dk/dv outputs
-// share it).  bfloat16 runs on the tensor cores; float32 K2 on them as
-// 3xTF32 up to d 256, K3a and K3b up to d 128, and on FMAs above (K3a and
-// K3b at d 192 and 256, all three on the wide route).
+// share it).  bfloat16 runs on the tensor cores; float32 K2, K3a and K3b
+// on them as 3xTF32 up to d 256, and on FMAs past 256 (the wide route).
 // All tensors contiguous, shapes as in Params; mask uint8 or null, bias
 // f32 or null.  Each returns the cudaGetLastError() after its launch (0 =
 // success).

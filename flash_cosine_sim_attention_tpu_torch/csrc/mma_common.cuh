@@ -213,6 +213,33 @@ __device__ __forceinline__ void add_product_tf32x3(float (&acc)[D / 8][4],
   }
 }
 
+// add_product_tf32x3 with src's words split as they are read (no lo
+// tile): for a tile that one warp reads alone, or that has no room for
+// its lo
+template <int N, int D, int RF>
+__device__ __forceinline__ void add_product_tf32x3(float (&acc)[D / 8][4],
+                                                   const float (&c)[N / 8][4],
+                                                   const float* src,
+                                                   int lane) {
+  const float* b = src + (2 * (lane & 3)) * RF + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    uint32_t ah[4], al[4];
+    split_tf32(c[j][0], ah[0], al[0]);
+    split_tf32(c[j][2], ah[1], al[1]);
+    split_tf32(c[j][1], ah[2], al[2]);
+    split_tf32(c[j][3], ah[3], al[3]);
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      const int r0 = j * 8 * RF + dn * 8;
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(b[r0], bh0, bl0);
+      split_tf32(b[r0 + RF], bh1, bl1);
+      mma_tf32x3(acc[dn], ah, al, bh0, bh1, bl0, bl1);
+    }
+  }
+}
+
 // d += a . b on int8 inputs, exact int32 sums
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
                                        uint32_t b0, uint32_t b1) {

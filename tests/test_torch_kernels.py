@@ -5,10 +5,10 @@ JAX package, so it also runs where flax is not installed:
 
     python -m pytest tests/test_torch_kernels.py -q -m cuda
 
-Tolerances: float32 1e-4 (same maths, other sum order; K1 and K2 in
-float32 at every width up to 256, and K3a and K3b up to d 128, form each
-product as three TF32 products of a hi / lo split of its operands,
-3xTF32, good to ~2^-21 of each); bf16
+Tolerances: float32 1e-4 (same maths, other sum order; K1, K2, K3a and
+K3b in float32 at every width up to 256 form each product as three TF32
+products of a hi / lo split of its operands, 3xTF32, good to ~2^-21 of
+each); bf16
 outputs 2e-2 (a few bf16 ulps at |o| <= 2); inv_l 1e-5 relative; the
 contiguous decode kernel 2e-3 on f32 output; the int8-weight matmul
 1e-4 (f32) and 2e-2 (bf16) of max(1, max|y|).  The
@@ -1082,11 +1082,10 @@ def _kernel_names(work):
 @pytest.mark.parametrize("d", [16, 64, 128, 192, 256])
 def test_float32_runs_the_tf32_instances_of_k1_k2_at_every_width(cuda_device,
                                                                 d):
-    """float32 K1 and the one-pass K2 run their 3xTF32 tensor-core
-    instances (fwd_tf32_kernel<D>, dkdv_tf32_kernel<D, true>) at every
-    width up to 256; the two-pass K3a and K3b theirs (dq_tf32_kernel<D>,
-    dkdv_tf32_kernel<D, false>) up to d 128 and their FMA instances at d
-    192 and 256, as the profiler names them."""
+    """float32 K1, the one-pass K2 and the two-pass K3a and K3b run their
+    3xTF32 tensor-core instances (fwd_tf32_kernel<D>, dkdv_tf32_kernel<D,
+    true>, dq_tf32_kernel<D>, dkdv_tf32_kernel<D, false>) at every width
+    up to 256, and no FMA instance, as the profiler names them."""
     g = torch.Generator(device=cuda_device).manual_seed(14)
 
     def randn(*shape):
@@ -1106,17 +1105,10 @@ def test_float32_runs_the_tf32_instances_of_k1_k2_at_every_width(cuda_device,
         bwd_kernel._backward_twopass(do, o, inv_l, q, k, v, None, bias, **kw)
 
     keys = _kernel_names(work)
-    want = [f"fwd_tf32_kernel<{d}>", f"dkdv_tf32_kernel<{d}, true>"]
-    assert not any("fwd_kernel<" in key or f"dkdv_kernel<float, {d}, true>"
-                   in key for key in keys), keys
-    if d <= 128:
-        want += [f"dq_tf32_kernel<{d}>", f"dkdv_tf32_kernel<{d}, false>"]
-        assert not any("dq_kernel<" in key or "dkdv_kernel<" in key
-                       for key in keys), keys
-    else:
-        want += [f"dq_kernel<float, {d}>", f"dkdv_kernel<float, {d}>"]
-        assert not any("dq_tf32" in key or f"dkdv_tf32_kernel<{d}, false>"
-                       in key for key in keys), keys
+    want = [f"fwd_tf32_kernel<{d}>", f"dkdv_tf32_kernel<{d}, true>",
+            f"dq_tf32_kernel<{d}>", f"dkdv_tf32_kernel<{d}, false>"]
+    assert not any("fwd_kernel<" in key or "dq_kernel<" in key
+                   or "dkdv_kernel<" in key for key in keys), keys
     for name in want:
         assert any(name in key for key in keys), (name, keys)
     assert not any("mma_kernel" in key for key in keys), keys
@@ -1198,24 +1190,32 @@ def test_float32_wide_k1_k2_tf32_instances_match_plain(cuda_device, d, case):
 # the float32 two-pass kernels' edges at every 3xTF32 width: GQA, causal
 # cross alignment with odd seq_k (dB by scalar adds, the bias staged 4
 # bytes at a time) and partial tiles, or a key mask without causal and
-# seq_q past seq_k; an (h, i, j) or a (b, i, j) bias
+# seq_q past seq_k; an (h, i, j) or a (b, i, j) bias (the key's first
+# letter); a shared bias axis of 17 (dB summed by 17 blocks); 2048 keys
+# and queries (K3a's dQ past its 256-key chains, K3b's dK and dV past
+# their 256-query chains)
 TF32_TWOPASS_CASES = {"h": (2, 4, 2, 130, 197, True, False),
-                      "b": (2, 4, 4, 200, 130, False, True)}
+                      "b": (2, 4, 4, 200, 130, False, True),
+                      "h-shared-axis-17": (17, 2, 2, 130, 130, True, False),
+                      "h-long-2048": (1, 2, 2, 2048, 2048, True, False)}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bias_kind", sorted(TF32_TWOPASS_CASES))
-@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 192, 200, 256])
 def test_float32_two_pass_tf32_instances_match_plain(cuda_device, d,
                                                      bias_kind):
-    """float32 K3a and K3b up to d 128 (dq_tf32_kernel<D>,
-    dkdv_tf32_kernel<D, false>, 3xTF32) hold dq, dk, dv and dB at the
-    float32 bar against the exact plain backward and against the plain
-    backward with the kernels' split (mm=dot_tf32x3), with a bias, and run
-    those instances by profiler name."""
+    """float32 K3a and K3b at every width up to 256 (dq_tf32_kernel<D>,
+    dkdv_tf32_kernel<D, false>, 3xTF32; d 200 zero-padded to 256) hold dq,
+    dk, dv and dB at the float32 bar against the exact plain backward and
+    against the plain backward with the kernels' split (mm=dot_tf32x3),
+    with a bias, and run those instances by profiler name."""
+    from flash_cosine_sim_attention_tpu_torch.ops.blocks import (
+        kernel_head_dim)
     from flash_cosine_sim_attention_tpu_torch.ops.mxu import dot_tf32x3
 
     b, h, kvh, sq, sk, causal, masked = TF32_TWOPASS_CASES[bias_kind]
+    batch_bias = bias_kind[0] == "b"
     g = torch.Generator(device=cuda_device).manual_seed(18)
 
     def randn(*shape):
@@ -1225,8 +1225,8 @@ def test_float32_two_pass_tf32_instances_match_plain(cuda_device, d,
     v = randn(b, kvh, sk, d)
     mask = (torch.rand(b, sk, device=cuda_device, generator=g) > 0.3
             if masked else None)
-    bias = 0.5 * randn(b if bias_kind == "b" else h, sq, sk)
-    kw = dict(bias_batch_dim=bias_kind == "b", scale=8.0, causal=causal)
+    bias = 0.5 * randn(b if batch_bias else h, sq, sk)
+    kw = dict(bias_batch_dim=batch_bias, scale=8.0, causal=causal)
     o, inv_l = flash_attention_forward_plain(q, k, v, mask, bias, **kw)
     args = (randn(*o.shape), o, inv_l, q, k, v, mask, bias)
     got = bwd_kernel._backward_twopass(*args, **kw)
@@ -1236,11 +1236,41 @@ def test_float32_two_pass_tf32_instances_match_plain(cuda_device, d,
             assert x.shape == y.shape and torch.isfinite(x).all(), name
             err = _grad_err(x, y, torch.float32)
             assert err <= GRAD_BARS[torch.float32], (name, mm, err)
+    width = kernel_head_dim(d, "backward")
     keys = _kernel_names(lambda: bwd_kernel._backward_twopass(*args, **kw))
-    for name in (f"dq_tf32_kernel<{d}>", f"dkdv_tf32_kernel<{d}, false>"):
+    for name in (f"dq_tf32_kernel<{width}>",
+                 f"dkdv_tf32_kernel<{width}, false>"):
         assert any(name in key for key in keys), (name, keys)
     assert not any("dq_kernel<" in key or "dkdv_kernel<" in key
                    for key in keys), keys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+def test_float32_two_pass_keeps_card_nans(cuda_device, d):
+    """A NaN made on the card (0x7FFFFFFF) in q and in v leaves K3a's dq
+    and dB and K3b's dk and dv NaN exactly where the plain two-pass
+    backward's are (an (h, i, j) bias sends the backward there)."""
+    g = torch.Generator(device=cuda_device).manual_seed(22)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=cuda_device, generator=g)
+
+    q, k = l2norm_tensors(randn(1, 2, 200, d), randn(1, 2, 200, d))
+    v = randn(1, 2, 200, d)
+    nan = torch.zeros(1, device=cuda_device) / 0
+    q[0, 0, 5, :] = nan
+    v[0, 1, 7, 3] = nan
+    bias = 0.5 * randn(2, 200, 200)
+    kw = dict(bias_batch_dim=False, scale=8.0, causal=False)
+    o, inv_l = flash_attention_forward_plain(q, k, v, None, bias, **kw)
+    args = (randn(*o.shape), o, inv_l, q, k, v, None, bias)
+    got = bwd_kernel.flash_attention_backward(*args, **kw)
+    want = flash_attention_backward_plain(*args, **kw)
+    for name, x, y in zip(("dq", "dk", "dv", "db"), got, want):
+        assert y.isnan().any(), name
+        assert torch.equal(x.isnan(), y.isnan()), name
+    assert not want[2].isnan().all()  # dv of head 1 stays finite
 
 
 @pytest.mark.cuda

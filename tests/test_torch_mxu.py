@@ -1,7 +1,7 @@
 """The port's split float32 products (``ops/mxu.py``) on the CPU.
 
-The float32 instances of the forward (K1) and one-pass backward (K2)
-kernels up to d 128 form every product as three TF32 tensor-core
+The float32 instances of the forward (K1) and backward (K2, K3a, K3b)
+kernels up to d 256 form every product as three TF32 tensor-core
 products of a hi / lo split (3xTF32); ``dot_tf32x3`` is their plain
 version.  These tests hold its error budget without a card:
 
@@ -18,7 +18,8 @@ version.  These tests hold its error budget without a card:
   exact products), at l2norm groups 1 and 8 and scale 1 and 8, causal and
   key-masked, and the backward (the float32 K2, K3a and K3b's plain
   version) also with an (h, i, j) and a (b, i, j) bias at 8 groups and
-  scale 8, dB included: o and the gradients at the float32 bar 1e-4
+  scale 8, dB included (the bias cases also at d 256 and 192): o and
+  the gradients at the float32 bar 1e-4
   (gradients in units of max(1, max|g|), as the card tests hold them),
   inv_l at 1e-5 relative.  At 8 groups and scale 8 a logit reaches 64, and float32's
   own rounding of it moves inv_l by ~1e-5: there inv_l is held to twice
@@ -28,7 +29,8 @@ version.  These tests hold its error budget without a card:
   kernel in interpret mode, as the JAX suite runs it on the CPU) at 1e-4,
   and the backward with a bias against JAX's float32 backward pinned to
   its two-pass kernels (``_dq_kernel_t``, ``_dkdv_kernel_t``), whose
-  counterparts K3a and K3b take every float32 backward with a bias;
+  counterparts K3a and K3b take every float32 backward with a bias, at d
+  64 and at d 256;
 - at 8 groups and scale 8, ``mm=dot_f32x3`` (the bfloat16 split) missing
   the float32 bars that ``mm=dot_tf32x3`` holds.
 """
@@ -201,8 +203,10 @@ D256_CASES = [(1, 1, "causal", 256), (8, 8, "causal", 256),
               (8, 8, "key-mask", 256)]
 # the backward also with a bias (the two-pass kernels K3a and K3b), at 8
 # groups and scale 8, where logits reach 64
-BWD_SPLIT_CASES = SPLIT_CASES + [(8, 8, "causal-bias-heads"),
-                                 (8, 8, "key-mask-bias-batch")]
+BIAS_CASES = [(8, 8, "causal-bias-heads"), (8, 8, "key-mask-bias-batch")]
+BWD_SPLIT_CASES = SPLIT_CASES + BIAS_CASES
+# ... and at d 256 and 192, whose float32 K3a and K3b run 3xTF32 too
+WIDE_BIAS_CASES = [c + (d,) for d in (256, 192) for c in BIAS_CASES]
 
 
 @pytest.mark.parametrize("groups,scale,kind,d",
@@ -225,7 +229,8 @@ def test_forward_with_tf32_split_matches_exact_products(groups, scale, kind,
 
 
 @pytest.mark.parametrize("groups,scale,kind,d",
-                         [_case(*c) for c in BWD_SPLIT_CASES + D256_CASES])
+                         [_case(*c) for c in BWD_SPLIT_CASES + D256_CASES
+                          + WIDE_BIAS_CASES])
 def test_backward_with_tf32_split_matches_exact_products(groups, scale,
                                                          kind, d):
     q, k, v, mask, do, bias = _inputs(groups, kind, d=d)
@@ -309,6 +314,39 @@ def test_backward_with_tf32_split_matches_jax_f32_two_pass():
     got = flash_attention_backward_plain(
         do, torch.from_numpy(np.array(o_j)),
         torch.from_numpy(np.array(l_j)), q, k, v, mask,
+        torch.from_numpy(bias), mm=dot_tf32x3, **kw)
+    for name, x, y in zip(("dq", "dk", "dv", "db"), got, want):
+        y = torch.from_numpy(np.array(y))
+        assert x.shape == y.shape, name
+        assert _grad_err(x, y) <= F32_BAR, (name, _grad_err(x, y))
+
+
+def test_tf32_split_at_d256_matches_jax_f32_two_pass():
+    """The plain backward with ``mm=dot_tf32x3`` and an (h, i, j) bias at d
+    256, the plain version of the float32 K3a and K3b at that width (b1 h2
+    s128 causal, 8 l2norm groups, scale 8), against the JAX package's
+    float32 backward pinned to its two-pass kernels (``_dq_kernel_t``,
+    ``_dkdv_kernel_t``, interpret mode): dq, dk, dv and db at 1e-4 of
+    max(1, max|g|), from JAX's own forward."""
+    rng = np.random.default_rng(7)
+
+    def randn(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    q, k = l2norm_tensors(torch.from_numpy(randn(1, 2, 128, 256)),
+                          torch.from_numpy(randn(1, 2, 128, 256)), groups=8)
+    v, do = randn(1, 2, 128, 256), randn(1, 2, 128, 256)
+    bias = 0.5 * randn(2, 128, 128)
+    kw = dict(bias_batch_dim=False, scale=8.0, causal=True)
+    jq, jk = jnp.asarray(q.numpy()), jnp.asarray(k.numpy())
+    jv, jbias = jnp.asarray(v), jnp.asarray(bias)
+    o_j, l_j = jax_forward(jq, jk, jv, None, jbias, interpret=True, **kw)
+    want = jax_backward(jnp.asarray(do), o_j, l_j, jq, jk, jv, None, jbias,
+                        interpret=True, blocks_t=(128, 128, 128),
+                        blocks_t_kv=(128, 128, 128), **kw)
+    got = flash_attention_backward_plain(
+        torch.from_numpy(do), torch.from_numpy(np.array(o_j)),
+        torch.from_numpy(np.array(l_j)), q, k, torch.from_numpy(v), None,
         torch.from_numpy(bias), mm=dot_tf32x3, **kw)
     for name, x, y in zip(("dq", "dk", "dv", "db"), got, want):
         y = torch.from_numpy(np.array(y))
