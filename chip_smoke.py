@@ -14,6 +14,8 @@
     python3 chip_smoke.py --f32-head256-long-step  # the heads-256
                                         # model's float32 step at seq
                                         # 16384 alone (1 card)
+    python3 chip_smoke.py --f32-head512-step  # the heads-512 model's
+                                        # float32 training step alone
     python3 chip_smoke.py --f32-wide-heads  # the float32 K1, K2, K3a
                                         # and K3b at d 192 and 256 alone
 
@@ -193,17 +195,23 @@ Phases (any failure exits non-zero):
      versions (dB included), NaNs in q and v kept on both backward
      routes, at d 256 on a short chain (groups 8, scale 8) and over b1 h2
      s16384 (both routes), timed beside their bounds, plain versions and
-     SDPA f32 (--f32-wide-heads alone); the float32 instances no main
-     path counts (K1 and K2 at d 128, the wide route's FMA kernels at d
-     512, K1's int8 arm with float32 v), checked and timed alike; then
-     the validation model's float32 training step profiled (device time
-     a step, K1's and K2's share and launches), the heads-256 model's
-     (--f32-head256-step alone: K1 and K2 32 launches a step each on
-     their d 256 3xTF32 instances, K3a and K3b none, the idle share), and
-     both models' at seq 16384 (batch 1; --f32-long-step and
-     --f32-head256-long-step alone), where the backward takes K3a and
-     K3b: device time a step, K1's, K3a's and K3b's share, launches and
-     TFLOP/s, the idle share.
+     SDPA f32 (--f32-wide-heads alone); K1 and the one-pass K2 at d 512
+     (b4 h1 s1024 causal, the heads-512 model's shape) on the wide
+     route's 3xTF32 instances by profiler name (the two-pass route's
+     K3a and K3b there on their FMA instances), against the exact and the
+     dot_tf32x3 plain versions, on a short chain (groups 8, scale 8,
+     SPLIT_BARS_D512), over b1 h2 s8192 (one-pass) and with NaNs in q and
+     v kept; the float32 instances no main path counts (K1 and K2 at d
+     128, K3a and K3b at d 512, K1's int8 arm with float32 v), checked and
+     timed alike; then the validation model's float32 training step
+     profiled (device time a step, K1's and K2's share and launches), the
+     heads-256 and heads-512 models' (--f32-head256-step and
+     --f32-head512-step alone: K1 and K2 32 launches a step each on their
+     3xTF32 instances, K3a and K3b none, the idle share), and the
+     validation and heads-256 models' at seq 16384 (batch 1;
+     --f32-long-step and --f32-head256-long-step alone), where the
+     backward takes K3a and K3b: device time a step, K1's, K3a's and
+     K3b's share, launches and TFLOP/s, the idle share.
 Then one JSON line lists every ported kernel, and the entries of phases
 18-22 (each rank's launches and error), with its launches on its path, error,
 times and bound (timing lines also print the achieved
@@ -274,6 +282,10 @@ SPLIT_BARS = {"K1": 4e-5, "K2": 3e-5, "K3a": 3e-5, "K3b": 3e-5}
 # tighter bars, between those readings and the kernels' (K2 5.3e-6 to
 # 7.7e-6, K3a 6.9e-6 to 9.8e-6)
 SPLIT_BARS_D256 = dict(SPLIT_BARS, K2=1.5e-5, K3a=2e-5)
+# at d 512 (K1 and the one-pass K2 on the wide route) d 256's bars part
+# the two splits too (H100 runs: K1 1.3e-5 against the bfloat16 split's
+# 6.1e-5; K2 5.3e-6 to 8.7e-6 against 1.7e-5 to 2.7e-5)
+SPLIT_BARS_D512 = SPLIT_BARS_D256
 TRAIN_STEPS = 10
 TRAIN_CORPUS_BYTES = 1 << 20   # the JAX trainer draws 8 M the same way
 LOSS_BAR = 1e-4               # f32 training loss, card vs CPU
@@ -582,7 +594,7 @@ def instance_registers(ptxas_log: str, kind: str):
             entry = ln.split("'")[1]
         m = re.search(r"Used (\d+) registers", ln)
         if m and kind in entry:
-            name = re.search(rf"[a-z]+_{kind}(I\w+?EE)?", entry)
+            name = re.search(rf"[a-z][a-z_]*?_{kind}(I\w+?EE)?", entry)
             out.append((name.group(0), int(m.group(1))))
     return out
 
@@ -975,11 +987,11 @@ def compare_backward(worst, name, args, kw, dtype, mask_kind):
 def time_backward(card: str, args, kw, args_b, kw_b):
     """K2 on ``args`` (causal, no bias) and K3a, K3b on ``args_b`` (causal,
     an (h, i, j) bias), in their dtype (bf16 bounded at the tensor cores'
-    peak; float32 up to d 256, on the tensor cores, by 3 x its operations
-    at the TF32 tensor cores' peak, the bound at the float32 peak outside
-    them printed beside; past 256, the wide route's FMA kernels, at that
-    peak alone), timed beside the plain backward and SDPA's; returns
-    {kernel: timing row}."""
+    peak; float32 on the tensor cores (all three up to d 256, K2 past it)
+    by 3 x its operations at the TF32 tensor cores' peak, the bound at the
+    float32 peak outside them printed beside; K3a and K3b past 256, the
+    wide route's FMA kernels, at that peak alone), timed beside the plain
+    backward and SDPA's; returns {kernel: timing row}."""
     import torch.nn.functional as F
 
     from flash_cosine_sim_attention_tpu_torch.ops import (
@@ -1022,7 +1034,7 @@ def time_backward(card: str, args, kw, args_b, kw_b):
     ):
         ms = device_ms(call)
         bound_ms, by = bound(flops, nbytes, peak)
-        if q.dtype == torch.float32 and d <= 256:
+        if q.dtype == torch.float32 and (d <= 256 or name == "K2"):
             # 3xTF32: three products on the TF32 tensor cores for each of
             # the function's; the FMA bound (67 TFLOP/s) in brackets
             fma_ms = bound_ms
@@ -4580,7 +4592,8 @@ def split_check(g, card: str, d: int = 64, twopass: bool = True) -> None:
     two-pass K3a and K3b in float32 against the plain versions with the
     kernels' own split (mm=dot_tf32x3), at b4 h8 s128 d``d`` causal, 8
     l2norm groups and scale 8, held to SPLIT_BARS (at d 256
-    SPLIT_BARS_D256; K3a on dq and db, K3b on dk and dv); the
+    SPLIT_BARS_D256, at d 512 SPLIT_BARS_D512; K3a on dq and db, K3b on
+    dk and dv); the
     plain versions with JAX's bfloat16 split (mm=dot_f32x3) must read
     above the same bars against dot_tf32x3, else the check could not tell
     the two splits apart.  The chain is short: a long one (dK and dV sum every query)
@@ -4594,7 +4607,7 @@ def split_check(g, card: str, d: int = 64, twopass: bool = True) -> None:
         dot_f32x3, dot_tf32x3)
 
     b, h, s = 4, 8, 128
-    bars = SPLIT_BARS_D256 if d == 256 else SPLIT_BARS
+    bars = {256: SPLIT_BARS_D256, 512: SPLIT_BARS_D512}.get(d, SPLIT_BARS)
 
     def randn(*shape):
         return torch.randn(*(shape or (b, h, s, d)), device="cuda",
@@ -4740,16 +4753,27 @@ def f32_step_kernels(d: int) -> dict:
     instance names that count for them (the FMA ones too, for a reading of
     an earlier commit)."""
     return {
-        "K1": ("fwd_tf32_kernel<", "fwd_kernel<float"),
+        "K1": ("fwd_tf32_kernel<", "fwd_kernel<float", "fwd_wide_tf32_kernel",
+               "fwd_wide_kernel<float"),
         "K2": (f"dkdv_tf32_kernel<{d}>", f"dkdv_tf32_kernel<{d}, true>",
-               f"dkdv_kernel<float, {d}, true>"),
-        "K3a": ("dq_tf32_kernel<", "dq_kernel<float"),
+               f"dkdv_kernel<float, {d}, true>", "dkdv_wide_tf32_kernel",
+               "dkdv_wide_kernel<true>"),
+        "K3a": ("dq_tf32_kernel<", "dq_kernel<float", "dq_wide_kernel<float"),
         "K3b": (f"dkdv_tf32_kernel<{d}, false>",
-                f"dkdv_kernel<float, {d}, false>", f"dkdv_kernel<float, {d}>"),
+                f"dkdv_kernel<float, {d}, false>", f"dkdv_kernel<float, {d}>",
+                "dkdv_wide_kernel(", "dkdv_wide_kernel<false>"),
     }
 
 
 LONG_SEQ = 16384   # the float32 long-context step's --seq-len (batch 1)
+
+
+def instance_name(key: str) -> str:
+    """A kernel's profiler key without its return type, namespace and
+    parameters: "fwd_tf32_kernel<256>", "fwd_wide_tf32_kernel" (a kernel
+    that is no template has no "void " in its key)."""
+    return re.sub(r"^(void )?(\(anonymous namespace\)::)?", "",
+                  key).split("(")[0]
 
 
 def step_parts(rows, d: int = 64) -> dict:
@@ -4761,9 +4785,7 @@ def step_parts(rows, d: int = 64) -> dict:
                 if any(p in key for p in pats)]
         parts[name] = (sum(t for _, t, _ in mine) / 1e3,
                        sum(c for _, _, c in mine),
-                       sorted({re.sub(r"^void (\(anonymous namespace\)::)?",
-                                      "", key).split("(")[0]
-                               for key, _, _ in mine}))
+                       sorted({instance_name(key) for key, _, _ in mine}))
     return parts
 
 
@@ -4969,8 +4991,7 @@ def nan_kept(g, d: int) -> bool:
 def instance_names(work) -> list:
     """The port's kernels (no at::native one) that ``work`` launched, by
     instance name, over REQUIRE_ITERS calls."""
-    return sorted({re.sub(r"^void (\(anonymous namespace\)::)?", "",
-                          key).split("(")[0]
+    return sorted({instance_name(key)
                    for key, _, _ in cuda_rows(work, REQUIRE_ITERS)
                    if "at::native" not in key})
 
@@ -4992,8 +5013,8 @@ def k1_f32(g, card: str, b: int, h: int, s: int, d: int, want, banned,
     """K1 with float32 v at b``b`` h``h`` s``s`` d``d`` causal (8 l2norm
     groups, scale 1; float32 q and k, or with ``qk_int8`` their int8
     codes): held to the exact plain version (F32_ERR_BAR; inv_l 1e-5
-    relative) and, on the 3xTF32 instances (float q and k up to d 256), to
-    the plain version with their split (mm=dot_tf32x3, TF32X3_BARS); run
+    relative) and, on the 3xTF32 instances (float q and k, every width),
+    to the plain version with their split (mm=dot_tf32x3, TF32X3_BARS); run
     as ``want`` by profiler name (none of ``banned``); timed beside its
     bound, the plain version and SDPA f32 (TF32 off, on the float q and
     k).  The bound: 3 x the operations at the TF32 tensor cores' peak on
@@ -5025,7 +5046,7 @@ def k1_f32(g, card: str, b: int, h: int, s: int, d: int, want, banned,
     err, err_l = (o - o_p).abs().max().item(), max_rel(inv_l, inv_p)
     label = (f"K1 f32 b{b} h{h} s{s} d{d} causal"
              + (", int8 q/k codes" if qk_int8 else ", groups 8, scale 1"))
-    tf32 = d <= 256 and not qk_int8
+    tf32 = not qk_int8
     note = ""
     ok = err <= F32_ERR_BAR and err_l <= 1e-5
     if tf32:
@@ -5162,26 +5183,28 @@ def f32_wide_heads(g, card: str):
             {key: e for key, e in errs.items() if key.endswith("d256")})
 
 
-def f32_head256_step(card: str) -> dict:
-    """The heads-256 model's training step in float32 (HEAD256_MODEL: dim
-    512, depth 8, 2 heads of 256; the trainer's --use-float32 at that
-    width: 4 microbatches of 4 x 1024 of phase 8's corpus).  The wrappers'
-    counts are set to 0 before 2 warm-up steps (host-clock walls, ended by
-    a synchronize) and read after them; then 2 steps are profiled
-    (whole_rows): device time a step, K1's and K2's share and launches a
-    step, the idle share (1 - device time / the second warm-up step's
-    wall).  Fails unless K1 and K2 ran their tensor-core instances
-    (fwd_tf32_kernel<256>, dkdv_tf32_kernel<256, true>) 32 times a step
-    each, K3a and K3b never, and unless the losses are finite; the reading
-    prints first.  ``python3 chip_smoke.py --f32-head256-step`` runs it
-    alone, e.g. from a checkout of an earlier commit.  Returns the
-    wrappers' launches over the 2 counted steps."""
+def f32_head_step(card: str, cfg) -> dict:
+    """The training step in float32 of the model of ``cfg`` (the heads-256
+    or the heads-512 model: dim 512, depth 8, 2 heads of 256 or 1 of 512;
+    the trainer's --use-float32 at that width: 4 microbatches of 4 x 1024
+    of phase 8's corpus).  The wrappers' counts are set to 0 before 2
+    warm-up steps (host-clock walls, ended by a synchronize) and read
+    after them; then 2 steps are profiled (whole_rows): device time a
+    step, K1's and K2's share, launches and TFLOP/s a step, the largest
+    kernels, the idle share (1 - device time / the second warm-up step's
+    wall).  Fails unless K1 and K2 ran their 3xTF32 tensor-core instances
+    at the model's head width (fwd_tf32_kernel<D> and dkdv_tf32_kernel<D,
+    true> up to d 256; past it the wide route's fwd_wide_tf32_kernel and
+    dkdv_wide_tf32_kernel, never an FMA one) 32 times a step each, K3a
+    and K3b never, and unless the losses are finite; the reading prints
+    first, so the same script on a checkout of an earlier commit gives
+    its reading before it fails.  Returns the wrappers' launches over the
+    2 counted steps."""
     from flash_cosine_sim_attention_tpu_torch.ops import (
         bwd_kernel as bk, fwd_kernel as fk)
     from flash_cosine_sim_attention_tpu_torch.train import (
         BATCH_SIZE, GRAD_ACCUM, train_step)
 
-    cfg = HEAD256_MODEL
     d, seq = cfg["dim_head"], cfg["max_seq_len"]
     model, opt, batches = f32_step_model(seq, BATCH_SIZE, cfg)
     losses, walls = [], []
@@ -5225,17 +5248,102 @@ def f32_head256_step(card: str) -> dict:
                       for key, t, c in top)
           + f"; losses {', '.join(f'{x:.4f}' for x in loss)}")
     if not np.all(np.isfinite(loss)):
-        fail(f"float32 heads-256 train step: losses {loss}")
+        fail(f"float32 heads-{d} train step: losses {loss}")
     per_step = GRAD_ACCUM * cfg["depth"]
     want = dict(k1=2 * per_step, k2=2 * per_step, k3a=0, k3b=0)
+    names = (([f"fwd_tf32_kernel<{d}>"], [f"dkdv_tf32_kernel<{d}, true>"])
+             if d <= 256 else
+             (["fwd_wide_tf32_kernel"], ["dkdv_wide_tf32_kernel"]))
     if (launches != want
             or any(parts[name][1] != per_step for name in ("K1", "K2"))
             or parts["K3a"][1] or parts["K3b"][1]
-            or parts["K1"][2] != [f"fwd_tf32_kernel<{d}>"]
-            or parts["K2"][2] != [f"dkdv_tf32_kernel<{d}, true>"]):
-        fail(f"float32 heads-256 train step: wrapper launches {launches}, "
+            or (parts["K1"][2], parts["K2"][2]) != names):
+        fail(f"float32 heads-{d} train step: wrapper launches {launches}, "
              f"want {want}; profiled launches a step and instances {parts}")
     return launches
+
+
+def f32_head256_step(card: str) -> dict:
+    """f32_head_step on the heads-256 model (HEAD256_MODEL): K1 and K2 at
+    d 256 (fwd_tf32_kernel<256>, dkdv_tf32_kernel<256, true>).  ``python3
+    chip_smoke.py --f32-head256-step`` runs it alone, e.g. from a checkout
+    of an earlier commit."""
+    return f32_head_step(card, HEAD256_MODEL)
+
+
+def f32_head512_step(card: str) -> dict:
+    """f32_head_step on the heads-512 model (HEAD512_MODEL: 1 head of 512):
+    K1 and K2 at b4 h1 s1024 d512 on the wide route's 3xTF32 instances
+    (fwd_wide_tf32_kernel, dkdv_wide_tf32_kernel; the one-pass backward,
+    below ONEPASS_BWD_MAX_SEQ), 32 launches a step each.  ``python3
+    chip_smoke.py --f32-head512-step`` runs it alone, e.g. from a checkout
+    of an earlier commit, whose FMA instances it times before it fails."""
+    return f32_head_step(card, HEAD512_MODEL)
+
+
+def f32_head512_kernels(g, card: str, errs: dict) -> dict:
+    """K1 and the one-pass K2 in float32 at the heads-512 model's shape (b4
+    h1 s1024 d512 causal): on the wide route's 3xTF32 instances by
+    profiler name (fwd_wide_tf32_kernel, dkdv_wide_tf32_kernel; no FMA
+    one), held to the exact plain versions (F32_ERR_BAR) and to the plain
+    versions with their split (mm=dot_tf32x3, TF32X3_BARS), on a short
+    chain (split_check at d 512, one-pass: SPLIT_BARS_D512), over a long
+    one (long_chains: b1 h2 s8192, the one-pass route, its plain versions
+    a head at a time) and with NaNs in q and v kept (nan_kept); K3a and K3b
+    with an (h, i, j) bias on their FMA instances (dq_wide_kernel<float>,
+    dkdv_wide_kernel), checked alike against the exact plain versions;
+    all four timed beside their bounds, the plain versions and SDPA f32.
+    Folds each row's max abs error against plain into ``errs``; returns
+    {row: timing} ("K1 f32 d512", ...)."""
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        bwd_kernel as bk, flash_attention_backward_plain)
+    from flash_cosine_sim_attention_tpu_torch.ops.mxu import dot_tf32x3
+
+    b, h, s, d = 4, HEAD512_MODEL["heads"], HEAD512_MODEL["max_seq_len"], 512
+    rows = {}
+    rows["K1 f32 d512"], errs["K1 f32 d512"] = k1_f32(
+        g, card, b, h, s, d, ["fwd_wide_tf32_kernel"],
+        ["fwd_wide_kernel", "fwd_wide_mma_kernel", "fwd_tf32_kernel"])
+    worst = {"K2": 0.0, "K3a": 0.0, "K3b": 0.0}
+    args, kw = bwd_inputs(g, b, h, h, s, s, d, torch.float32, None, None,
+                          True)
+    args_b, kw_b = bwd_inputs(g, b, h, h, s, s, d, torch.float32, None, "h",
+                              True)
+    compare_backward(worst, f"b{b} h{h} s{s} d{d} causal", args, kw,
+                     torch.float32, None)
+    compare_backward(worst, f"b{b} h{h} s{s} d{d} causal + (h,i,j) bias",
+                     args_b, kw_b, torch.float32, None)
+    got = bk._backward_onepass(*args[:7], scale=1.0, causal=True)
+    want_t = flash_attention_backward_plain(*args, mm=dot_tf32x3, **kw)
+    errs_t = [grad_err(x, y, torch.float32) for x, y in zip(got, want_t)]
+    print(f"  K2 f32 d{d} against the dot_tf32x3 plain version: dq, dk, dv "
+          f"{', '.join(f'{e:.2e}' for e in errs_t)} (bar "
+          f"{TF32X3_BARS['K2']:g})")
+    if not max(errs_t) <= TF32X3_BARS["K2"]:
+        fail(f"K2 f32 d{d} against dot_tf32x3: {errs_t}")
+    del got, want_t
+    for name, row in time_backward(card, args, kw, args_b, kw_b).items():
+        rows[f"{name} f32 d{d}"] = row
+        errs[f"{name} f32 d{d}"] = worst[name]
+    onepass = require_instances(
+        f"K2 f32 d{d}", lambda: bk._backward_onepass(*args[:7], scale=1.0,
+                                                     causal=True),
+        ["dkdv_wide_tf32_kernel"],
+        ["dkdv_wide_kernel", "mma_kernel", "dkdv_tf32_kernel"])
+    twopass = require_instances(
+        f"K3a/K3b f32 d{d}", lambda: bk._backward_twopass(*args_b, **kw_b),
+        ["dkdv_wide_kernel", "dq_wide_kernel<float>"], ["mma_kernel", "tf32"])
+    print(f"  f32 d{d} backward instances: one-pass {onepass}, two-pass "
+          f"{twopass}")
+    del args, args_b
+    nan_ok = nan_kept(g, d)
+    print(f"  K1, K2, K3a, K3b f32 d{d}: NaNs in q and v kept in o, the "
+          f"gradients and dB: {nan_ok}")
+    if not nan_ok:
+        fail(f"f32 d{d}: NaNs in q and v not kept")
+    split_check(g, card, d=d, twopass=False)
+    long_chains(g, card, d=d, cases=((2, 2, 8192, 1, ("onepass",)),))
+    return rows
 
 
 def f32_instances(card: str):
@@ -5257,19 +5365,19 @@ def f32_instances(card: str):
     and K3b 3 x their operations at the TF32 tensor cores' peak (the FMA
     bound at 67 TFLOP/s printed beside), K7 bytes.  The float32 instances
     no main path counts are timed too: K1, K2, K3a and K3b at b1 h16 s1024
-    d128 (the bias rows' shape), the wide route's FMA kernels at b4 h1
-    s1024 d512 (fwd_wide_kernel<float>, dkdv_wide_kernel<true|false>,
-    dq_wide_kernel<float>; K3a and K3b with an (h, i, j) bias, bounded at
-    the float32 peak), and K1's int8 arm with float32 v (fwd_kernel<128>,
-    b1 h16 s1024 d128).  All four kernels at d 192 and 256 by
-    f32_wide_heads.  Then the validation model's float32 training step,
-    profiled (f32_train_step), the heads-256 model's (f32_head256_step),
-    the validation model's at seq 16384 (f32_long_step), where the
-    backward runs K3a and K3b, and the heads-256 model's at seq 16384
-    (f32_head256_long_step: K1, K3a and K3b at d 256).  Returns ({row:
-    timing}, {row: max abs error against plain}, the launches of the
-    seq-16384 step, of the heads-256 step and of the heads-256 seq-16384
-    step)."""
+    d128 (the bias rows' shape) and K1's int8 arm with float32 v
+    (fwd_kernel<128>, b1 h16 s1024 d128).  All four kernels at d 192 and
+    256 by f32_wide_heads, at d 512 by f32_head512_kernels (K1 and K2 on
+    the wide route's 3xTF32 instances; K3a and K3b, with an (h, i, j)
+    bias, on its FMA ones, which no main path counts).  Then the
+    validation model's float32 training step, profiled (f32_train_step),
+    the heads-256 and heads-512 models' (f32_head256_step,
+    f32_head512_step), the validation model's at seq 16384
+    (f32_long_step), where the backward runs K3a and K3b, and the
+    heads-256 model's at seq 16384 (f32_head256_long_step: K1, K3a and K3b
+    at d 256).  Returns ({row: timing}, {row: max abs error against
+    plain}, the launches of the seq-16384 step, of the heads-256 step, of
+    the heads-256 seq-16384 step and of the heads-512 step)."""
     import torch.nn.functional as F
 
     from flash_cosine_sim_attention_tpu_torch.ops import (
@@ -5364,29 +5472,7 @@ def f32_instances(card: str):
         *args_n[:7], scale=1.0, causal=True),
         ["dkdv_tf32_kernel<128, true>"], ["dkdv_kernel<", "mma_kernel<"])
     del args_n, args_w
-    rows["K1 f32 d512"], errs["K1 f32 d512"] = k1_f32(
-        g, card, 4, 1, s, 512, ["fwd_wide_kernel<float>"],
-        ["fwd_wide_mma_kernel", "tf32"])
-    worst_x = {"K2": 0.0, "K3a": 0.0, "K3b": 0.0}
-    args_x, kw_x = bwd_inputs(g, 4, 1, 1, s, s, 512, torch.float32, None,
-                              None, True)
-    args_xb, kw_xb = bwd_inputs(g, 4, 1, 1, s, s, 512, torch.float32, None,
-                                "h", True)
-    compare_backward(worst_x, "b4 h1 s1024 d512 causal", args_x, kw_x,
-                     torch.float32, None)
-    compare_backward(worst_x, "b4 h1 s1024 d512 causal + (h,i,j) bias",
-                     args_xb, kw_xb, torch.float32, None)
-    for name, row in time_backward(card, args_x, kw_x, args_xb,
-                                   kw_xb).items():
-        rows[f"{name} f32 d512"] = row
-        errs[f"{name} f32 d512"] = worst_x[name]
-    print("  f32 wide route instances: " + ", ".join(require_instances(
-        "the f32 wide route", lambda: (
-            bk._backward_onepass(*args_x[:7], scale=1.0, causal=True),
-            bk._backward_twopass(*args_xb, **kw_xb)),
-        ["dkdv_wide_kernel<true>", "dkdv_wide_kernel<false>",
-         "dq_wide_kernel<float>"], ["mma_kernel", "tf32"])))
-    del args_x, args_xb
+    rows.update(f32_head512_kernels(g, card, errs))
     rows["K1 int8 f32 v"], errs["K1 int8 f32 v"] = k1_f32(
         g, card, 1, 16, s, 128, ["fwd_kernel<128>"],
         ["fwd_tf32_kernel<", "mma_kernel"], qk_int8=True)
@@ -5433,8 +5519,9 @@ def f32_instances(card: str):
               f"{errs[name]:.3e}")
     f32_train_step(card)
     head256_launches = f32_head256_step(card)
+    head512_launches = f32_head512_step(card)
     return (rows, errs, f32_long_step(card), head256_launches,
-            f32_head256_long_step(card))
+            f32_head256_long_step(card), head512_launches)
 
 
 def main() -> None:
@@ -5465,6 +5552,10 @@ def main() -> None:
         "--f32-head256-long-step", action="store_true",
         help="profile the heads-256 model's float32 training step at seq "
              f"{LONG_SEQ}, batch 1, alone (one card)")
+    parser.add_argument(
+        "--f32-head512-step", action="store_true",
+        help="profile the heads-512 model's float32 training step alone "
+             "(one card)")
     parser.add_argument(
         "--f32-wide-heads", action="store_true",
         help="check and time the float32 K1, K2, K3a and K3b at d 192 and "
@@ -5506,7 +5597,8 @@ def main() -> None:
 
     if (args.ring_nccl or args.multihost_nccl or args.f32_step
             or args.f32_long_step or args.f32_head256_step
-            or args.f32_head256_long_step or args.f32_wide_heads):
+            or args.f32_head256_long_step or args.f32_head512_step
+            or args.f32_wide_heads):
         if args.ring_nccl:
             print("[19] ring attention over NCCL, a card a rank")
             print(json.dumps({"kernels": [ring_attention_phase(smi, "nccl")]}))
@@ -5523,6 +5615,10 @@ def main() -> None:
             print("[22] the heads-256 model's float32 training step")
             f32_head256_step(smi)
             flag = "--f32-head256-step"
+        elif args.f32_head512_step:
+            print("[22] the heads-512 model's float32 training step")
+            f32_head512_step(smi)
+            flag = "--f32-head512-step"
         elif args.f32_head256_long_step:
             print("[22] the heads-256 model's float32 training step at seq "
                   f"{LONG_SEQ}")
@@ -5597,7 +5693,8 @@ def main() -> None:
     multihost_entry = multihost_phase(smi)
     print("[22] the float32 instances timed")
     (f32_rows, f32_err, long_launches, head256_launches,
-     head256_long_launches) = run_world(1, None, f32_instances, smi)[0]
+     head256_long_launches, head512_launches) = run_world(
+         1, None, f32_instances, smi)[0]
 
     bwd = "flash_cosine_sim_attention_tpu/ops/bwd_kernel.py"
     src = "flash_cosine_sim_attention_tpu_torch/csrc/bwd_kernel.cu"
@@ -5698,8 +5795,8 @@ def main() -> None:
     kernels += [tp_entry, ring_entry, pipe_entry, multihost_entry]
     # K1's and K2's float32 instances, with their launches on phase 21's
     # float32 step (every rank's), K3a's and K3b's, with theirs on phase
-    # 22's float32 step at seq 16384 (2 steps), and all four at d 256;
-    # phase 22 prints the other f32 rows
+    # 22's float32 step at seq 16384 (2 steps), all four at d 256, and K1
+    # and K2 at d 512; phase 22 prints the other f32 rows
     kernels += [dict(name=name, route="cuda", source=f"{csrc}/{file}",
                      replaces=f"flash_cosine_sim_attention_tpu/{tpu}",
                      launches=launches[key], max_abs_err=f32_err[row],
@@ -5730,7 +5827,15 @@ def main() -> None:
                      head256_long_launches),
                     ("bwd_kernel:dkdv:f32:d256", "bwd_kernel.cu",
                      "ops/bwd_kernel.py:282", "K3b f32 d256", "k3b",
-                     head256_long_launches))]
+                     head256_long_launches),
+                    # d 512 (the wide route), with their launches on phase
+                    # 22's heads-512 float32 step (2 steps)
+                    ("fwd_kernel:f32:d512", "fwd_kernel.cu",
+                     "ops/fwd_kernel.py:47", "K1 f32 d512", "k1",
+                     head512_launches),
+                    ("bwd_kernel:onepass:f32:d512", "bwd_kernel.cu",
+                     "ops/bwd_kernel.py:456", "K2 f32 d512", "k2",
+                     head512_launches))]
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke.py took {time.perf_counter() - started:.1f} s")
     print(smi)

@@ -157,14 +157,47 @@
 //   last chunk.  dQ is scaled once, at the store; causal key loops stop at
 //   the block's last diagonal, and query tiles run heaviest first.  Shared
 //   memory: 185 KB, 203 KB with a bias, at every d.
-// - The f32 K3a (`dq_wide_kernel<float>`) and the f32 K2 and K3b
-//   (`dkdv_wide_kernel`) stay FMA: each block owns 128 columns, S and dP'
-//   are summed over 64-lane d chunks staged in f32, e and dS formed in
-//   f32, and the block adds only its columns (dQ += scale
-//   dS.K[:, cols], dK, dV likewise; K2's atomics into the scratch's own
-//   columns).  Every column block forms the same S and dS again (4 times
-//   at d 512); dB is added by column block 0 alone.  f32 tiles, 64 x 64,
-//   256 threads.
+// - f32 K2 runs on the tensor cores as 3xTF32 (`dkdv_wide_tf32_kernel`):
+//   a block owns 32 keys and 256 columns of dK and dV (a 128-column
+//   remainder at d 384 or 1152) and walks 32-query tiles.  8 warps: for
+//   each 16 keys a dV pair and a dK pair.  The dV pair forms S^T, e^T and
+//   dV += e^T.dO'[:, cols], the dK pair dP^T, dS^T and dK +=
+//   dS^T.Q[:, cols]; each warp of a pair sums S^T or dP^T over its half of
+//   every chunk (the two halves added through shared memory once a tile,
+//   in the same order by both) and forms its product over its half of the
+//   block's columns (128 f32 a row, 64 registers a thread).  e^T goes
+//   from the dV pair to the dK pair through shared memory (lane for
+//   lane), dS^T to a staging tile, and all eight warps add dS.K[:, cols]
+//   to the dQ scratch's own columns by float2 red adds.  Per tile K, V, Q
+//   and dO' stream in 64-lane chunks through a 3-stage cp.async ring, the
+//   block's own columns last: their Q and dO' chunks land in the column
+//   tiles that the products read, so no column is loaded twice.  The
+//   kernel is bound by those streams (the L2's rate), not by its
+//   products: the bf16 kernel's shape (64 keys, 32-query tiles) does not
+//   fit in f32, 16-query tiles re-read K and V twice as often (1.12 ms at
+//   b4 h1 s1024 d512 causal on an H100; 16 keys x 256 columns in one
+//   warp, the d 256 instance's layout, spilled 2.7 KB besides), and this
+//   shape takes 0.86 ms.  Each operand is split as its fragment is read (a
+//   warp's K or V rows are its own; two warps read each Q, dO' and K
+//   column word; no lo tiles fit beside the ring).  S^T and dP^T sum in
+//   four accumulators (hi.hi and the small terms apart, each by the k
+//   step's parity), as the d 256 instance's, closed every chunk into a
+//   running sum added to nearest (dS = e (dP - delta) takes the
+//   difference of two large sums of one sign, and over d 512 the longer
+//   chains of sums rounded toward zero put dq at 9.8e-5 of max|g| over
+//   8192 mean-3 keys).  dK and dV chains close
+//   every 256 queries into the block's own rows and columns in global
+//   memory.  S^T and dP^T are formed ceil(d / 256) times, twice at d 512,
+//   with 256 blocks at that shape.  Shared memory: 225 KB at every d.
+//   Bound at the heads-512 training shape (b4 h1 s1024 d512 causal): 3 x
+//   10.7 GFLOP on the TF32 tensor cores, 0.065 ms at 495 TFLOP/s (at the
+//   FMA rate, 67 TFLOP/s, 0.160 ms).
+// - The f32 K3a (`dq_wide_kernel<float>`) and K3b (`dkdv_wide_kernel`)
+//   stay FMA: each block owns 128 columns, S and dP' are summed over
+//   64-lane d chunks staged in f32, e and dS formed in f32, and the block
+//   adds only its columns (dQ += scale dS.K[:, cols], dK, dV likewise).
+//   Every column block forms the same S and dS again (4 times at d 512);
+//   dB is added by column block 0 alone.  f32 tiles, 64 x 64, 256 threads.
 //
 // float32 K2 at every width up to 256 runs on the tensor cores as 3xTF32
 // split products (`dkdv_tf32_kernel<D, true>`), in dkdv_mma_kernel's
@@ -1751,17 +1784,13 @@ __device__ __forceinline__ void wide_scores(
   }
 }
 
-template <bool DQ>
 constexpr size_t wide_dkdv_smem() {
-  // chunks (or the Q and dO' column tiles), e and dS tiles, delta', and
-  // for K2 the block's K column tile
-  return sizeof(float) * (WCHUNKS + 2 * size_t(WB) * WPP + WB +
-                          (DQ ? size_t(WB) * WCS : 0));
+  // chunks (or the Q and dO' column tiles), e and dS tiles, delta'
+  return sizeof(float) * (WCHUNKS + 2 * size_t(WB) * WPP + WB);
 }
 
-// K2 (DQ = true) and K3b (DQ = false) past d 256 for f32 (bf16 takes
-// dkdv_wide_mma_kernel): grid (key tiles, KVH, B x column blocks).
-template <bool DQ>
+// K3b past d 256 for f32 (bf16 takes dkdv_wide_mma_kernel<false>, f32 K2
+// dkdv_wide_tf32_kernel): grid (key tiles, KVH, B x column blocks).
 __global__ void __launch_bounds__(NT) dkdv_wide_kernel(Params p, int d) {
   using T = float;
   constexpr int R = 4, DC = WCOL / 16;  // output columns per thread
@@ -1772,7 +1801,6 @@ __global__ void __launch_bounds__(NT) dkdv_wide_kernel(Params p, int d) {
   float* es = chunks + WCHUNKS;       // WB x WPP
   float* dss = es + WB * WPP;         // WB x WPP
   float* dl = dss + WB * WPP;         // WB
-  float* kcol = dl + WB;              // K2: WB x WCS, K[keys, cols]
 
   const int ncb = d / WCOL;
   const int bi = blockIdx.z / ncb, c0 = (blockIdx.z % ncb) * WCOL;
@@ -1783,7 +1811,6 @@ __global__ void __launch_bounds__(NT) dkdv_wide_kernel(Params p, int d) {
   const T* kb = static_cast<const T*>(p.k) + kvoff;
   const T* vb = static_cast<const T*>(p.v) + kvoff;
   const uint8_t* mb = p.mask ? p.mask + size_t(bi) * p.seq_k : nullptr;
-  if constexpr (DQ) load_cols(kcol, kb, k0, p.seq_k, WB, c0, WCOL, d, WCS);
 
   float adk[R][DC], adv[R][DC];
 #pragma unroll
@@ -1830,36 +1857,6 @@ __global__ void __launch_bounds__(NT) dkdv_wide_kernel(Params p, int d) {
             adv[r][cc] = fmaf(e[r], o, adv[r][cc]);
             adk[r][cc] = fmaf(ds[r], qv, adk[r][cc]);
           }
-        }
-      }
-
-      if constexpr (DQ) {
-        // dQ[:, cols] += dS K[:, cols] for this tile's queries
-        float aq[R][DC];
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-          for (int cc = 0; cc < DC; ++cc) aq[r][cc] = 0.f;
-#pragma unroll 4
-        for (int jj = 0; jj < WB; ++jj) {
-          float a[R];
-#pragma unroll
-          for (int r = 0; r < R; ++r) a[r] = dss[(ty * R + r) * WPP + jj];
-#pragma unroll
-          for (int cc = 0; cc < DC; ++cc) {
-            const float kv = kcol[jj * WCS + tx + 16 * cc];
-#pragma unroll
-            for (int r = 0; r < R; ++r) aq[r][cc] = fmaf(a[r], kv, aq[r][cc]);
-          }
-        }
-        float* dqb = p.dq_acc + qrow0 * d + c0;
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int row = q0 + ty * R + r;
-          if (row >= p.seq_q) continue;
-#pragma unroll
-          for (int cc = 0; cc < DC; ++cc)
-            atomicAdd(dqb + size_t(row) * d + tx + 16 * cc, aq[r][cc]);
         }
       }
     }
@@ -2309,6 +2306,383 @@ __global__ void __launch_bounds__(XNT, 1) dkdv_wide_mma_kernel(Params p, int d) 
 }
 
 // ---------------------------------------------------------------------------
+// Wide route's one-pass dK/dV kernel on the tensor cores in float32
+// (3xTF32): K2, d a multiple of WCOL past 256.  Grid (KVH, B x column
+// blocks of XCOL, key tiles of ZBK), key tiles slowest; ZNT threads: warp
+// w (key group w % 2, keys k0 + 16 (w % 2) ..) forms S^T, e^T and dV +=
+// e^T.dO' if w % 4 < 2, else dP^T, dS^T and dK += dS^T.Q, summing S^T or
+// dP^T over half w / 4 of every chunk and forming its product over that
+// half of the block's columns; all eight add dS.K[:, cols] to the dQ
+// scratch.
+
+constexpr int ZNT = 256;               // threads: 8 warps
+constexpr int ZBK = 32;                // keys a block
+constexpr int ZBQ = 32;                // queries a tile
+constexpr int ZKC = 64;                // d lanes of a chunk (256 bytes)
+constexpr int ZCS = 4 * ZKC + 16;      // its shared row stride (17 units)
+constexpr int ZRF = XCOL + 4;          // column tile row stride, floats
+constexpr int ZDSS = ZBK + 4;          // e^T and dS staging row stride, floats
+constexpr int ZSTAGES = 3;             // chunk stages in flight
+struct ZLayout {
+  // the chunk stages (K's, V's, Q's and dO''s rows); the Q and dO' column
+  // tiles (ZBQ queries x the block's columns); K's column tile; the e^T
+  // and dS staging tiles (queries x keys); the warp pairs' halves of S^T
+  // and dP^T (8 warps x their C fragments); two delta' rows
+  static constexpr size_t STAGE = size_t(2 * ZBK + 2 * ZBQ) * ZCS;
+  static constexpr size_t QT = size_t(ZBQ) * ZRF * 4;  // a Q or dO' tile
+  static constexpr size_t KT = size_t(ZBK) * ZRF * 4;  // K's column tile
+  static constexpr size_t ST = size_t(ZBQ) * ZDSS * 4;  // a staging tile
+  static constexpr size_t COLS = ZSTAGES * STAGE;
+  static constexpr size_t KCOL = COLS + 2 * QT;
+  static constexpr size_t ES = KCOL + KT;
+  static constexpr size_t DS = ES + ST;
+  static constexpr size_t XS = DS + ST;
+  static constexpr size_t DL = XS + size_t(ZNT) * (ZBQ / 2) * 4;
+  static constexpr size_t SMEM = DL + 2 * size_t(ZBQ) * 4;
+};
+static_assert(ZLayout::SMEM <= 232448, "the wide f32 K2's shared memory");
+
+__global__ void __launch_bounds__(ZNT, 1) dkdv_wide_tf32_kernel(Params p,
+                                                                int d) {
+  using L = ZLayout;
+  constexpr int NQ = ZBQ / 8;           // n8 tiles of a warp's (16 keys x ZBQ)
+  constexpr int NA = XCOL / 2 / 8;      // n8 tiles of its dK or dV columns
+  constexpr int NDQ = XCOL / 4 / 8;     // n8 tiles of a warp's dQ columns
+  constexpr int KSTEPS = ZKC / 2 / 8;   // k steps of a warp's half chunk
+  extern __shared__ __align__(16) unsigned char msmem[];
+  unsigned char* qct = msmem + L::COLS;  // Q[queries, cols]
+  unsigned char* doct = qct + L::QT;     // dO'[queries, cols]
+  const float* kcf = reinterpret_cast<const float*>(msmem + L::KCOL);
+  float* es = reinterpret_cast<float*>(msmem + L::ES);
+  float* dss = reinterpret_cast<float*>(msmem + L::DS);
+  float* xsh = reinterpret_cast<float*>(msmem + L::XS);
+  float* dls = reinterpret_cast<float*>(msmem + L::DL);  // 2 x ZBQ
+
+  const int ncb = (d + XCOL - 1) / XCOL;
+  const int kvhi = blockIdx.x, bi = blockIdx.y / ncb;
+  const int c0 = (blockIdx.y % ncb) * XCOL;
+  const int ncols = min(XCOL, d - c0);  // 256, or 128 (d an odd multiple)
+  const int k0 = blockIdx.z * ZBK;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int kg = warp & 1;               // the warp's 16 keys
+  const bool forms_dv = (warp & 2) == 0;  // warp-uniform roles
+  const int pair = warp & 3, half = warp >> 2;
+  const int hcols = ncols / 2;           // the warp's dK or dV columns
+  const int G = p.H / p.KVH, diff = p.seq_k - p.seq_q;
+  const int nch = d / ZKC;               // chunks of a row
+  // a tile's chunks run from the one past the block's columns round to
+  // them, so the block's own chunks of Q and dO' come last: they land in
+  // the column tiles (the products' operands) instead of the ring, and
+  // the next tile's own chunks (at least ZSTAGES - 1 steps into it, d
+  // being at least 384) arrive after this tile's products are done
+  const int nown = ncols / ZKC, ce = c0 / ZKC + nown;
+  const size_t kvrow0 = (size_t(bi) * p.KVH + kvhi) * p.seq_k;
+  const float* kb = static_cast<const float*>(p.k) + kvrow0 * d;
+  const float* vb = static_cast<const float*>(p.v) + kvrow0 * d;
+  const uint8_t* mb = p.mask ? p.mask + size_t(bi) * p.seq_k : nullptr;
+
+  // (head, q tile) pairs that see the block's keys: the causal start is the
+  // first query row that sees key k0
+  const int qfirst = p.causal ? max(0, k0 - diff) : 0;
+  const int qt0 = qfirst / ZBQ;
+  const int per_head = max(0, (p.seq_q + ZBQ - 1) / ZBQ - qt0);
+  const int total = G * per_head;
+  const int steps = total * nch;  // (pair, chunk), chunks fastest
+
+  auto q_rows = [&](int it) {  // the query rows' first index, (b, h, 0)
+    return (size_t(bi) * p.H + kvhi * G + it / per_head) * p.seq_q;
+  };
+  // rows [first, first + nrows) of a (*, d) f32 tensor (rows past `limit`
+  // as zeros), `n` floats from lane `off` (those past `n_in` as zeros),
+  // into shared rows `stride` bytes apart
+  auto load = [&](unsigned char* dst, const float* src, int first, int nrows,
+                  int limit, int off, int n, int n_in, int stride) {
+    const int per_row = n / 4;
+    for (int idx = tid; idx < nrows * per_row; idx += ZNT) {
+      const int r = idx / per_row, cc = (idx % per_row) * 4, row = first + r;
+      const bool in = row < limit && cc < n_in;
+      cp_async16(dst + r * stride + cc * 4,
+                 in ? src + size_t(row) * d + off + cc : src, in ? 16 : 0);
+    }
+  };
+  // step st's K and V chunks into stage st % ZSTAGES, and its Q and dO'
+  // chunks there too, or (the block's own columns) into the column tiles;
+  // a pair's first step also brings its delta'
+  auto issue = [&](int st) {
+    if (st < steps) {
+      const int it = st / nch, i = st - it * nch;
+      const int off = (ce + i) % nch * ZKC;
+      const size_t qrow0 = q_rows(it);
+      const int q0 = (qt0 + it % per_head) * ZBQ;
+      const float* qb = static_cast<const float*>(p.q) + qrow0 * d;
+      const float* dob = static_cast<const float*>(p.dO) + qrow0 * d;
+      unsigned char* stg = msmem + (st % ZSTAGES) * L::STAGE;
+      load(stg, kb, k0, ZBK, p.seq_k, off, ZKC, ZKC, ZCS);
+      load(stg + ZBK * ZCS, vb, k0, ZBK, p.seq_k, off, ZKC, ZKC, ZCS);
+      if (i < nch - nown) {
+        load(stg + 2 * ZBK * ZCS, qb, q0, ZBQ, p.seq_q, off, ZKC, ZKC, ZCS);
+        load(stg + (2 * ZBK + ZBQ) * ZCS, dob, q0, ZBQ, p.seq_q, off, ZKC,
+             ZKC, ZCS);
+      } else {
+        const int at = (off - c0) * 4;
+        load(qct + at, qb, q0, ZBQ, p.seq_q, off, ZKC, ZKC, ZRF * 4);
+        load(doct + at, dob, q0, ZBQ, p.seq_q, off, ZKC, ZKC, ZRF * 4);
+      }
+      if (i == 0) {
+        for (int r = tid; r < ZBQ; r += ZNT) {
+          const bool in = q0 + r < p.seq_q;
+          cp_async4(dls + (it & 1) * ZBQ + r,
+                    in ? p.delta + qrow0 + q0 + r : p.delta, in ? 4 : 0);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (total > 0)  // the dQ products read K[keys, cols]
+    load(msmem + L::KCOL, kb, k0, ZBK, p.seq_k, c0, XCOL, ncols, ZRF * 4);
+#pragma unroll
+  for (int st = 0; st < ZSTAGES - 1; ++st) issue(st);
+
+  float acc[NA][4];  // dV or dK over the warp's half of the columns
+#pragma unroll
+  for (int n = 0; n < NA; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // this thread's keys: C rows g and g + 8 of the warp's 16
+  const int keys[2] = {k0 + kg * 16 + g, k0 + kg * 16 + g + 8};
+  bool key_ok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    key_ok[h] = keys[h] < p.seq_k && (mb == nullptr || mb[keys[h]] != 0);
+  const bool keys_whole = mb == nullptr && k0 + ZBK <= p.seq_k;
+  // the warp's A rows (its 16 keys of K or V) in a chunk stage, from its
+  // half's first k step; its B rows (Q or dO') from their first
+  const int arow = (forms_dv ? 0 : ZBK * ZCS) + (kg * 16 + (lane & 15)) * ZCS +
+                   (lane >> 4) * 16 + half * KSTEPS * 32;
+  const int brow = ((lane & 7) + (lane >> 4) * 8);
+  const int bcol = half * KSTEPS * 32 + ((lane >> 3) & 1) * 16;
+
+  // dK and dV sum G x seq_q queries, each mma rounding its sum toward zero:
+  // every CHAIN tiles (256 queries) the chain is closed into the block's
+  // own dK or dV rows and the warp's columns in global memory, added to
+  // nearest, and the accumulators restart from 0
+  constexpr int CHAIN = 256 / ZBQ;
+  float* const dst = static_cast<float*>(forms_dv ? p.dv : p.dk) +
+                     kvrow0 * d + c0 + half * hcols;
+  const float mul = forms_dv ? 1.f : p.scale;
+  bool stored = false;
+  auto close_chain = [&]() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (keys[h] >= p.seq_k) continue;
+#pragma unroll
+      for (int n = 0; n < NA; ++n) {
+        if (n * 8 >= hcols) break;
+        float2* w = reinterpret_cast<float2*>(dst + size_t(keys[h]) * d +
+                                              n * 8 + 2 * tq);
+        float2 x = make_float2(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
+        if (stored) {
+          const float2 y = *w;
+          x.x += y.x, x.y += y.y;
+        }
+        *w = x;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NA; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    stored = true;
+  };
+
+  for (int it = 0; it < total; ++it) {
+    // S^T (dV warps) or dP^T (dK warps) over the warp's half of d, in four
+    // accumulators: hi.hi in xb, the small terms lo.hi + hi.lo in xs, each
+    // by the k step's parity, as dkdv_tf32_kernel's above d 128 (dP's terms
+    // share a sign where v and dO' do, and dS = e (dP - delta) takes the
+    // difference of two such sums); every chunk they are closed into xc,
+    // added to nearest, so no chain of sums rounded toward zero is longer
+    // than a chunk's (a chain over the warp's 256 lanes at d 512 put dq and
+    // dk at 9.8e-5 and 8.7e-5 of the float32 bar's 1e-4 over 8192 queries
+    // and keys of mean-3 values)
+    float xc[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xc[n][e] = 0.f;
+    for (int i = 0; i < nch; ++i) {
+      float xb[2][NQ][4], xs[2][NQ][4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int n = 0; n < NQ; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) xb[r][n][e] = xs[r][n][e] = 0.f;
+      const int st = it * nch + i;
+      cp_async_wait<ZSTAGES - 2>();
+      __syncthreads();  // step st's chunks (and its pair's delta') have
+                        // landed, and step st - 1's readers are done
+      issue(st + ZSTAGES - 1);  // into step st - 1's stage
+      // the warp's own K or V rows split at each fragment load, Q's or
+      // dO''s (two warps read each) too; the own chunks' Q and dO' rows
+      // from the column tiles
+      const unsigned char* stg = msmem + (st % ZSTAGES) * L::STAGE;
+      const bool own = i >= nch - nown;
+      const unsigned char* bsrc =
+          own ? (forms_dv ? qct : doct) + ((ce + i) % nch * ZKC - c0) * 4
+              : stg + (2 * ZBK + (forms_dv ? 0 : ZBQ)) * ZCS;
+      const int bstride = own ? ZRF * 4 : ZCS;
+      const unsigned char* bt = bsrc + brow * bstride + bcol;
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        uint32_t a[4], ah[4], al[4];
+        ldmatrix_x4(a, stg + arow + kk * 32);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(a[e]), ah[e], al[e]);
+        const int r = kk & 1;
+#pragma unroll
+        for (int j = 0; j < NQ / 2; ++j) {
+          uint32_t b[4], bh[4], bl[4];
+          ldmatrix_x4(b, bt + j * 16 * bstride + kk * 32);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            split_tf32(__uint_as_float(b[e]), bh[e], bl[e]);
+          mma_tf32(xs[r][2 * j], al, bh[0], bh[1]);
+          mma_tf32(xs[r][2 * j], ah, bl[0], bl[1]);
+          mma_tf32(xb[r][2 * j], ah, bh[0], bh[1]);
+          mma_tf32(xs[r][2 * j + 1], al, bh[2], bh[3]);
+          mma_tf32(xs[r][2 * j + 1], ah, bl[2], bl[3]);
+          mma_tf32(xb[r][2 * j + 1], ah, bh[2], bh[3]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          xc[n][e] += (xb[0][n][e] + xb[1][n][e]) + (xs[0][n][e] + xs[1][n][e]);
+    }
+
+    const size_t qrow0 = q_rows(it);
+    const int q0 = (qt0 + it % per_head) * ZBQ;
+    const float* dl = dls + (it & 1) * ZBQ;
+    // the tile's S^T or dP^T: the warp's half, then the pair's two halves
+    // added in the same order by both warps: word (n, e) of a lane at
+    // xsh[((pair * 2 + half) * NQ * 4 + n * 4 + e) * 32 + lane]
+    float x[NQ][4];  // S^T or dP^T, then e^T or dS^T
+    float* mine = xsh + (pair * 2 + half) * NQ * 4 * 32 + lane;
+    const float* h0 = xsh + pair * 2 * NQ * 4 * 32 + lane;
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[(n * 4 + e) * 32] = xc[n][e];
+    pair_sync(1 + pair);
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x[n][e] = h0[(n * 4 + e) * 32] + h0[(NQ * 4 + n * 4 + e) * 32];
+    // e^T in the C layout: entry (n, 2h + xx) is key keys[h], query q0 + 8n
+    // + 2tq + xx; a tile whose every pair is visible skips the masks.  The
+    // first-half dV warps stage it, where the dK warps of the same keys
+    // (the same lanes) read it
+    const bool whole = keys_whole && q0 + ZBQ <= p.seq_q &&
+                       (!p.causal || k0 + ZBK - 1 <= q0 + diff);
+    auto keep_at = [&](int h, int qr) {
+      bool keep = whole;
+      if (!whole) {
+        keep = key_ok[h] && qr < p.seq_q;
+        if (p.causal) keep = keep && keys[h] <= qr + diff;
+      }
+      return keep;
+    };
+    if (forms_dv) {
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int xx = 0; xx < 2; ++xx) {
+          const int col = n * 8 + 2 * tq + xx;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float e =
+                keep_at(h, q0 + col) ? exp2f(x[n][2 * h + xx] * p.c) : 0.f;
+            x[n][2 * h + xx] = e;
+            if (half == 0) es[col * ZDSS + kg * 16 + g + 8 * h] = e;
+          }
+        }
+    }
+    __syncthreads();  // e^T is staged
+    // the products' column tiles, each word read by two warps, are split
+    // as they are read (no room for their lo)
+    if (forms_dv) {  // dV[:, the warp's columns] += e^T.dO'[:, those]
+      add_product_tf32x3<ZBQ, XCOL / 2, ZRF>(
+          acc, x, reinterpret_cast<const float*>(doct) + half * hcols, lane,
+          hcols / 8);
+    } else {  // dS^T = e^T (dP^T - delta'), staged; dK += dS^T.Q likewise
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int xx = 0; xx < 2; ++xx) {
+          const int col = n * 8 + 2 * tq + xx;
+          const float dlt = dl[col];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int at = col * ZDSS + kg * 16 + g + 8 * h;
+            const float ds =
+                keep_at(h, q0 + col) ? es[at] * (x[n][2 * h + xx] - dlt) : 0.f;
+            x[n][2 * h + xx] = ds;
+            if (half == 0) dss[at] = ds;
+          }
+        }
+      add_product_tf32x3<ZBQ, XCOL / 2, ZRF>(
+          acc, x, reinterpret_cast<const float*>(qct) + half * hcols, lane,
+          hcols / 8);
+    }
+    // dQ rows of this tile += dS.K[:, cols] over the block's ZBK keys: warp
+    // w takes query group w % 2 and columns [(w / 2) ncols / 4, ...).  A
+    // lane's float2 reads of dS rows g and g + 8 at keys 8kk + 2tq are dS's
+    // C fragment of that k8 step, fed to add_product_tf32x3 as an A
+    // fragment; K's column tile, each word read by two warps, is split as
+    // it is read
+    __syncthreads();  // dS is staged
+    {
+      const int qg = warp & 1, pcols = ncols / 4, pc0 = (warp >> 1) * pcols;
+      float dq[NDQ][4];
+#pragma unroll
+      for (int n = 0; n < NDQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < ZBK / 8; ++kk) {
+        const float* row = dss + (qg * 16 + g) * ZDSS + kk * 8 + 2 * tq;
+        const float2 r0 = *reinterpret_cast<const float2*>(row);
+        const float2 r8 = *reinterpret_cast<const float2*>(row + 8 * ZDSS);
+        const float cf[1][4] = {{r0.x, r0.y, r8.x, r8.y}};
+        add_product_tf32x3<8, NDQ * 8, ZRF>(dq, cf, kcf + kk * 8 * ZRF + pc0,
+                                            lane, pcols / 8);
+      }
+      float* dqb = p.dq_acc + qrow0 * d + c0 + pc0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = q0 + qg * 16 + g + 8 * h;
+        if (row >= p.seq_q) continue;
+#pragma unroll
+        for (int n = 0; n < NDQ; ++n) {
+          if (n * 8 >= pcols) break;
+          atomicAdd(reinterpret_cast<float2*>(dqb + size_t(row) * d + n * 8 +
+                                              2 * tq),
+                    make_float2(dq[n][2 * h], dq[n][2 * h + 1]));
+        }
+      }
+    }
+    if ((it + 1) % CHAIN == 0 && it + 1 < total) close_chain();
+  }
+  cp_async_wait<0>();
+  close_chain();  // the last chain; with no tile at all the block's zeros
+}
+
+// ---------------------------------------------------------------------------
 // Wide route's dQ / dB kernel on the tensor cores (bf16): K3a, d a multiple
 // of WCOL past 256.  Grid (query tiles, H, B x column blocks of YCOL),
 // query tiles heaviest first; YNT threads: warp w owns queries q0 + 16 (w %
@@ -2555,13 +2929,13 @@ __global__ void __launch_bounds__(YNT, 1) dq_wide_mma_kernel(Params p, int d) {
 
 enum Which { ONEPASS = 0, DQ = 1, DKDV = 2 };
 
-template <typename Kernel>
+template <typename Kernel, typename... Extra>
 cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
-                   cudaStream_t s, const Params& p) {
+                   cudaStream_t s, const Params& p, Extra... extra) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, s>>>(p);
+  kernel<<<grid, threads, smem, s>>>(p, extra...);
   return cudaGetLastError();
 }
 
@@ -2651,10 +3025,19 @@ cudaError_t run_wide(Which which, const Params& p, int B, int d,
       return launch_w(dq_wide_kernel<T>,
                       dim3((p.seq_q + WB - 1) / WB, p.H, B * ncb),
                       wide_dq_smem());
-    const dim3 grid((p.seq_k + WB - 1) / WB, p.KVH, B * ncb);
-    return which == ONEPASS
-               ? launch_w(dkdv_wide_kernel<true>, grid, wide_dkdv_smem<true>())
-               : launch_w(dkdv_wide_kernel<false>, grid, wide_dkdv_smem<false>());
+    if (which == ONEPASS) {
+      // 16-byte copies: every row is a 16-byte multiple, so aligned bases do
+      for (const void* t : {p.q, p.k, p.v, p.dO})
+        if (reinterpret_cast<uintptr_t>(t) % 16 != 0)
+          return cudaErrorMisalignedAddress;
+      // key tiles slowest, so the causal blocks with the most work go first
+      const dim3 grid(p.KVH, B * ((d + XCOL - 1) / XCOL),
+                      (p.seq_k + ZBK - 1) / ZBK);
+      return launch(dkdv_wide_tf32_kernel, grid, ZNT, ZLayout::SMEM, s, p, d);
+    }
+    return launch_w(dkdv_wide_kernel,
+                    dim3((p.seq_k + WB - 1) / WB, p.KVH, B * ncb),
+                    wide_dkdv_smem());
   }
 }
 
@@ -2687,8 +3070,9 @@ int dispatch(Which which, Params p, int dtype, int B, int d, void* stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the dq/dk/dv outputs
-// share it).  bfloat16 runs on the tensor cores; float32 K2, K3a and K3b
-// on them as 3xTF32 up to d 256, and on FMAs past 256 (the wide route).
+// share it).  bfloat16 runs on the tensor cores; float32 K2 on them as
+// 3xTF32 at every width, K3a and K3b up to d 256 and on FMAs past it (the
+// wide route).
 // All tensors contiguous, shapes as in Params; mask uint8 or null, bias
 // f32 or null.  Each returns the cudaGetLastError() after its launch (0 =
 // success).

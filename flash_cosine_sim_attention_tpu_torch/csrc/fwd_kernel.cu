@@ -111,10 +111,40 @@
 // tile's V columns (64 x 256 bf16) arrive with its first chunk into a
 // double buffer.  e, l, the masks and P's bf16 rounding are those of
 // fwd_mma_kernel; column block 0 alone writes inv_l.  Shared memory is
-// 168 KB at every d.  float32 (code 0) and int8 with float32 v (code 2)
-// keep the FMA kernel `fwd_wide_kernel`: 128-column blocks, S summed over
-// 64-lane d chunks staged in f32, P kept in f32 (their bar is 1e-4).
-//
+// 168 KB at every d.
+// float32 (code 0) runs on the tensor cores as 3xTF32
+// (`fwd_wide_tf32_kernel`): a block owns 32 query rows and 256 of O's
+// columns, so S is formed twice at d 512, and its grid puts the query
+// tiles slowest, heaviest first over the whole grid: 256 blocks at the
+// heads-512 training shape, whose causal work the card spreads evenly (64
+// rows a block made 128 blocks of one wave, the heaviest with twice the
+// mean's keys).  A 256-byte chunk holds 64 f32 lanes and a 64-key f32 V
+// tile of 256 columns takes 64 KB, so key tiles are 32 keys.  8 warps,
+// four for each 16 rows: warp w sums S over quarter w / 2 of every chunk,
+// the four add their quarters through shared memory once a tile (all in
+// the same order, so all form the same e), and each forms O over its
+// quarter of the block's columns (64 f32, 32 registers a thread).  Up to
+// d 512 the block's Q rows stay resident (66 KB at d 512) and only K
+// streams, in 64-lane chunks through a 4-stage cp.async ring; past it Q's
+// chunks stream beside K's.  Each 16-byte word of a K chunk, which two
+// warps read, and of the V tile (32 x 256 f32, loaded once the last
+// tile's products are done), which two warps read, is split once for the
+// block (hi in place, lo beside) by the thread that copied it, as soon as
+// its own copies land: the split needs no barrier of its own.  A warp's Q
+// rows are split as they are read.  S sums in four accumulators (hi.hi
+// and the small terms apart, each by the k step's parity).  P stays f32,
+// split in registers (add_product_tf32x3).  O's chains close into o
+// itself every 256 keys; the masks, e, l and inv_l are fwd_tf32_kernel's.
+// Shared memory 213.5 KB up to d 512, 183 KB past it.  On an H100 at b4
+// h1 s1024 d512 causal this took K1 from 0.69 ms (64-row blocks, Q
+// streamed, the K chunk split by the whole block after a barrier of its
+// own) through 0.60 and 0.48 to 0.41 ms.  Bound at the heads-512
+// training shape: 3 x 4.3 GFLOP on the TF32 tensor cores, 0.026 ms at
+// 495 TFLOP/s (the FMA rate's, 67 TFLOP/s, 0.064 ms).
+// int8 q/k with float32 v (code 2) keeps the FMA kernel
+// `fwd_wide_kernel`: 128-column blocks, S summed over 64-lane d chunks
+// staged in f32, P kept in f32.
+
 // Masking: causal keeps key col <= row + (seq_k - seq_q) (cross-attention
 // alignment) and the loop stops at the last tile a row of the block can
 // see; an optional (b, j) key mask and the ragged edges select e = 0.
@@ -404,12 +434,6 @@ struct Tf32Layout {
                                  6 * size_t(BKT) * RS +
                                  (WIDE ? XS : size_t(NT) * D / 2 * 4);
 };
-
-// bar.sync on barrier `id` (1-4; 0 is __syncthreads) by the 64 threads of
-// a warp pair
-__device__ __forceinline__ void pair_sync(int id) {
-  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
-}
 
 template <int D>
 __global__ void __launch_bounds__(Tf32Layout<D>::NT, 1) fwd_tf32_kernel(
@@ -856,10 +880,9 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
 
 
 // ---------------------------------------------------------------------------
-// Wide route's FMA kernel (d a multiple of WCOL past 256): float32 q/k/v,
-// and int8 q/k codes with float32 v.
-// Grid (query tiles, H, B x column blocks); threads are 16 row groups of 4
-// rows x 8 column lanes, as in fwd_kernel.
+// Wide route's FMA kernel (d a multiple of WCOL past 256): int8 q/k codes
+// with float32 v.  Grid (query tiles, H, B x column blocks); threads are
+// 16 row groups of 4 rows x 8 column lanes, as in fwd_kernel.
 
 constexpr int WKC = 64;    // d lanes of a Q / K chunk
 constexpr int WCOL = 128;  // O columns of a block (ops/blocks.py WIDE_CHUNK)
@@ -870,9 +893,6 @@ constexpr size_t wide_smem() {
                           size_t(BK) * WCOL + size_t(BQ) * (BK + 1));
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(int8_t x) { return float(x); }
-
 // rows [row0, row0 + rows) x columns [c0, c0 + cols) of a (*, d) tensor as
 // f32 into shared rows `stride` floats apart; rows past `end` as 0
 template <typename T>
@@ -882,13 +902,13 @@ __device__ __forceinline__ void load_chunk(float* dst, const T* src, int row0,
   for (int idx = threadIdx.x; idx < rows * cols; idx += NT) {
     const int r = idx / cols, cc = idx % cols, row = row0 + r;
     dst[r * stride + cc] =
-        row < end ? to_f32(src[size_t(row) * d + c0 + cc]) : 0.f;
+        row < end ? float(src[size_t(row) * d + c0 + cc]) : 0.f;
   }
 }
 
-template <typename TQ>
 __global__ void __launch_bounds__(NT) fwd_wide_kernel(
-    const TQ* __restrict__ q, const TQ* __restrict__ k, const float* __restrict__ v,
+    const int8_t* __restrict__ q, const int8_t* __restrict__ k,
+    const float* __restrict__ v,
     const uint8_t* __restrict__ mask, const float* __restrict__ bias,
     float* __restrict__ o, float* __restrict__ inv_l, int H, int KVH, int seq_q,
     int seq_k, int d, int causal, int bias_batch_dim, float c) {
@@ -908,8 +928,8 @@ __global__ void __launch_bounds__(NT) fwd_wide_kernel(
   const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
   const int diff = seq_k - seq_q;
 
-  const TQ* qb = q + (size_t(bi) * H + hi) * seq_q * d;
-  const TQ* kb = k + (size_t(bi) * KVH + kvhi) * seq_k * d;
+  const int8_t* qb = q + (size_t(bi) * H + hi) * seq_q * d;
+  const int8_t* kb = k + (size_t(bi) * KVH + kvhi) * seq_k * d;
   const float* vb = v + (size_t(bi) * KVH + kvhi) * seq_k * d;
   const uint8_t* mb = mask ? mask + size_t(bi) * seq_k : nullptr;
   const float* bb =
@@ -1266,6 +1286,354 @@ __global__ void __launch_bounds__(NT, 1) fwd_wide_mma_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// Wide route on the tensor cores in float32 (3xTF32), d a multiple of WCOL
+// past 256.  Grid (B x column blocks of MCOL, H, query tiles), query tiles
+// slowest and heaviest first; FT_NT threads: warp w owns query rows q0 +
+// 16 (w % 2) .., sums S over quarter w / 2 of every chunk and forms O
+// over that quarter of the block's columns.
+
+constexpr int FT_NT = 256;               // threads: 8 warps, four a 16 rows
+constexpr int FT_BQ = 32;                // query rows a block
+constexpr int FT_BK = 32;                // keys a tile
+constexpr int FT_KC = 64;                // d lanes of a Q / K chunk (256 B)
+constexpr int FT_CS = 4 * FT_KC + 16;    // its shared row stride (17 units)
+constexpr int FT_RF = MCOL + 4;          // V tile row stride, floats (4 mod 16)
+constexpr int FT_STAGES = 4;             // chunk stages in flight
+constexpr int FT_QRES = 512;             // widest d whose Q rows stay resident
+struct FtLayout {
+  // up to d FT_QRES the block's Q rows, resident (rows of 4d + 16 bytes:
+  // an odd count of 16-byte units); the chunk stages (past FT_QRES Q's
+  // FT_BQ rows, then K's FT_BK rows, hi and lo); the V tile (FT_BK keys x
+  // MCOL columns) and its lo; the warps' quarters of S (8 warps x the S
+  // tile's C fragments)
+  static constexpr size_t VT = size_t(FT_BK) * FT_RF * 4;
+  static constexpr size_t XSB = size_t(FT_NT) * (FT_BK / 2) * 4;
+  __host__ __device__ static bool qres(int d) { return d <= FT_QRES; }
+  __host__ __device__ static int qstride(int d) { return 4 * d + 16; }
+  __host__ __device__ static size_t ring(int d) {
+    return qres(d) ? size_t(FT_BQ) * qstride(d) : 0;
+  }
+  __host__ __device__ static size_t chunk(int d) {
+    return size_t((qres(d) ? 0 : FT_BQ) + 2 * FT_BK) * FT_CS;
+  }
+  __host__ __device__ static size_t vs(int d) {
+    return ring(d) + FT_STAGES * chunk(d);
+  }
+  __host__ __device__ static size_t smem(int d) { return vs(d) + 2 * VT + XSB; }
+};
+static_assert(size_t(FT_BQ) * (4 * FT_QRES + 16) +
+                      FT_STAGES * size_t(2 * FT_BK) * FT_CS +
+                      2 * FtLayout::VT + FtLayout::XSB <=
+                  232448 &&
+              FT_STAGES * size_t(FT_BQ + 2 * FT_BK) * FT_CS + 2 * FtLayout::VT +
+                      FtLayout::XSB <=
+                  232448,
+              "the wide f32 K1's shared memory");
+
+__global__ void __launch_bounds__(FT_NT, 1) fwd_wide_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const uint8_t* __restrict__ mask,
+    const float* __restrict__ bias, float* __restrict__ o,
+    float* __restrict__ inv_l, int H, int KVH, int seq_q, int seq_k, int d,
+    int causal, int bias_batch_dim, float c) {
+  using L = FtLayout;
+  constexpr int NS = FT_BK / 8;          // n8 tiles of S
+  constexpr int NO = MCOL / 4 / 8;       // n8 tiles of a warp's O (at most)
+  constexpr int KSTEPS = FT_KC / 4 / 8;  // k steps of a warp's quarter chunk
+  constexpr int CPR = FT_KC / 4;         // 16-byte copies of a chunk row
+  constexpr int VPR = MCOL / 4;          // ... and of a V tile row
+  extern __shared__ __align__(16) unsigned char smem[];
+  const bool qres = L::qres(d);
+  const int qs_ = L::qstride(d);
+  unsigned char* ring = smem + L::ring(d);
+  const size_t chunk = L::chunk(d);
+  const int kofs = qres ? 0 : FT_BQ * FT_CS;  // K's rows in a stage
+  unsigned char* vt = smem + L::vs(d);
+  unsigned char* vlo = vt + L::VT;
+  float* xs = reinterpret_cast<float*>(vlo + L::VT);
+
+  const int ncb = (d + MCOL - 1) / MCOL;
+  const int bi = blockIdx.x / ncb, c0 = (blockIdx.x % ncb) * MCOL;
+  const int ncols = min(MCOL, d - c0);  // 256, or 128 (d an odd multiple)
+  const int hi = blockIdx.y;
+  // heaviest tiles first, over the whole grid
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * FT_BQ;
+  const int kvhi = hi / (H / KVH);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int rg = warp & 1, part = warp >> 1;  // its 16 rows, its quarter
+  const int wcols = ncols / 4;                // the warp's O columns
+  const int diff = seq_k - seq_q;
+  const int nch = d / FT_KC;                  // chunks of a row
+
+  const float* qb = q + (size_t(bi) * H + hi) * seq_q * d;
+  const float* kb = k + (size_t(bi) * KVH + kvhi) * seq_k * d;
+  const float* vb = v + (size_t(bi) * KVH + kvhi) * seq_k * d + c0;
+  const uint8_t* mb = mask ? mask + size_t(bi) * seq_k : nullptr;
+  const float* bb =
+      bias ? bias + size_t(bias_batch_dim ? bi : hi) * seq_q * seq_k : nullptr;
+
+  // keys this block can see: all, or (causal) up to its last row's diagonal
+  const int last_row = min(q0 + FT_BQ, seq_q) - 1;
+  const int kend = causal ? max(0, min(seq_k, last_row + diff + 1)) : seq_k;
+  const int nk = (kend + FT_BK - 1) / FT_BK;
+  const int steps = nk * nch;  // (key tile, chunk) pairs, chunks fastest
+
+  // `nrows` rows from global row `first` (rows past `limit` as zeros) of a
+  // chunk at lane `off` into shared rows FT_CS apart
+  auto load_chunk = [&](unsigned char* dst, const float* src, int first,
+                        int nrows, int limit, int off) {
+    for (int idx = tid; idx < nrows * CPR; idx += FT_NT) {
+      const int r = idx / CPR, cc = (idx % CPR) * 4, row = first + r;
+      const bool in = row < limit;
+      cp_async16(dst + r * FT_CS + cc * 4,
+                 in ? src + size_t(row) * d + off + cc : src, in ? 16 : 0);
+    }
+  };
+  // step st's K chunk (and past FT_QRES its Q chunk) into stage st %
+  // FT_STAGES
+  auto issue = [&](int st) {
+    if (st < steps) {
+      const int kt = st / nch, ch = st - kt * nch;
+      unsigned char* stg = ring + (st % FT_STAGES) * chunk;
+      if (!qres) load_chunk(stg, qb, q0, FT_BQ, seq_q, ch * FT_KC);
+      load_chunk(stg + kofs, kb, kt * FT_BK, FT_BK, seq_k, ch * FT_KC);
+    }
+    cp_async_commit();
+  };
+  // key tile kt's V columns (zeros past the block's columns), with a
+  // step's chunks
+  auto load_v = [&](int kt) {
+    for (int idx = tid; idx < FT_BK * VPR; idx += FT_NT) {
+      const int r = idx / VPR, cc = (idx % VPR) * 4, row = kt * FT_BK + r;
+      const bool in = row < seq_k && cc < ncols;
+      cp_async16(vt + (r * FT_RF + cc) * 4, in ? vb + size_t(row) * d + cc : vb,
+                 in ? 16 : 0);
+    }
+  };
+  // the 16-byte words this thread copied (same loops as issue's) split in
+  // place into their tf32 hi, each lo at the same place of `lo`: once its
+  // own copies have landed a thread may read them before any barrier, so
+  // the K chunk and V tile, which four warps each read, are split once for
+  // the block at no barrier of their own
+  auto split_own = [&](unsigned char* hi_, unsigned char* lo_, int per_row,
+                       int stride) {
+    for (int idx = tid; idx < FT_BK * per_row; idx += FT_NT) {
+      const int at = (idx / per_row) * stride + (idx % per_row) * 16;
+      const float4 x = *reinterpret_cast<const float4*>(hi_ + at);
+      uint4 h, l;
+      split_tf32(x.x, h.x, l.x);
+      split_tf32(x.y, h.y, l.y);
+      split_tf32(x.z, h.z, l.z);
+      split_tf32(x.w, h.w, l.w);
+      *reinterpret_cast<uint4*>(hi_ + at) = h;
+      *reinterpret_cast<uint4*>(lo_ + at) = l;
+    }
+  };
+
+  float oacc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  float lsum[2] = {0.f, 0.f};
+  const int rows[2] = {q0 + rg * 16 + g, q0 + rg * 16 + g + 8};
+  // the warp's Q rows, resident or in a chunk stage, from its quarter's
+  // first k step
+  const int qrow = (rg * 16 + (lane & 15)) * (qres ? qs_ : FT_CS) +
+                   (lane >> 4) * 16 + part * KSTEPS * 32;
+
+  // O sums every visible key, each mma rounding its sum toward zero: every
+  // CHAIN tiles (256 keys) the chain is closed into the thread's own words
+  // of o, added to nearest, and restarts from 0 (rows past seq_q are
+  // dropped: they are never stored)
+  constexpr int CHAIN = 256 / FT_BK;
+  float* const oh = o + (size_t(bi) * H + hi) * seq_q * d + c0 + part * wcols;
+  auto out_row = [&](int row) { return oh + size_t(row) * d; };
+  bool summed = false;
+  auto close_chain = [&]() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (rows[h] >= seq_q) continue;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        if (n * 8 >= wcols) break;
+        float2* w = reinterpret_cast<float2*>(out_row(rows[h]) + n * 8 + 2 * tq);
+        float2 x = make_float2(oacc[n][2 * h], oacc[n][2 * h + 1]);
+        if (summed) {
+          const float2 y = *w;
+          x.x += y.x, x.y += y.y;
+        }
+        *w = x;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+    summed = true;
+  };
+
+  if (qres && nk > 0) {  // the block's Q rows, once
+    const int per_row = d / 4;
+    for (int idx = tid; idx < FT_BQ * per_row; idx += FT_NT) {
+      const int r = idx / per_row, cc = (idx % per_row) * 4, row = q0 + r;
+      const bool in = row < seq_q;
+      cp_async16(smem + r * qs_ + cc * 4, in ? qb + size_t(row) * d + cc : qb,
+                 in ? 16 : 0);
+    }
+  }
+#pragma unroll
+  for (int st = 0; st < FT_STAGES - 1; ++st) issue(st);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * FT_BK;
+    // S = Q.K^T in four accumulators: hi.hi in sb, the small terms lo.hi +
+    // hi.lo in sm, each by the k step's parity (shorter chains of sums that
+    // the tensor cores round toward zero, over twice the d 256 instance's
+    // lanes a warp)
+    float sb[2][NS][4], sm[2][NS][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sb[r][n][e] = sm[r][n][e] = 0.f;
+    for (int ch = 0; ch < nch; ++ch) {
+      const int st = kt * nch + ch;
+      unsigned char* stg = ring + (st % FT_STAGES) * chunk;
+      const unsigned char* qs = qres ? smem + ch * FT_KC * 4 : stg;
+      unsigned char* ks = stg + kofs;
+      unsigned char* klo = ks + FT_BK * FT_CS;
+      cp_async_wait<FT_STAGES - 2>();  // this thread's copies of step st
+      split_own(ks, klo, CPR, FT_CS);
+      if (ch == nch - 1) split_own(vt, vlo, VPR, FT_RF * 4);
+      __syncthreads();  // step st's chunks (and at the tile's last, its V)
+                        // landed and split; step st - 1's readers are done
+      // the tile's V once the last tile's products are done: it lands
+      // FT_STAGES - 1 steps on, before the tile's last (a row has at least
+      // 6 chunks past d 256)
+      if (ch == 0) load_v(kt);
+      issue(st + FT_STAGES - 1);  // into step st - 1's stage
+      // S += Q.K^T over the warp's quarter of the chunk: x4 ldmatrix of K's
+      // hi and lo give the B fragments of 2 n8 tiles; a warp reads only
+      // its own Q rows, split as they are read
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        uint32_t a[4], ah[4], al[4];
+        ldmatrix_x4(a, qs + qrow + kk * 32);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split_tf32(__uint_as_float(a[i]), ah[i], al[i]);
+        const int r = kk & 1;
+#pragma unroll
+        for (int j = 0; j < NS / 2; ++j) {
+          const int brow = (j * 16 + (lane & 7) + (lane >> 4) * 8) * FT_CS +
+                           part * KSTEPS * 32 + kk * 32 +
+                           ((lane >> 3) & 1) * 16;
+          uint32_t bh[4], bl[4];
+          ldmatrix_x4(bh, ks + brow);
+          ldmatrix_x4(bl, klo + brow);
+          mma_tf32(sm[r][2 * j], al, bh[0], bh[1]);
+          mma_tf32(sm[r][2 * j], ah, bl[0], bl[1]);
+          mma_tf32(sb[r][2 * j], ah, bh[0], bh[1]);
+          mma_tf32(sm[r][2 * j + 1], al, bh[2], bh[3]);
+          mma_tf32(sm[r][2 * j + 1], ah, bl[2], bl[3]);
+          mma_tf32(sb[r][2 * j + 1], ah, bh[2], bh[3]);
+        }
+      }
+    }
+
+    // the tile's S: the warp's quarter, then the four quarters of its rows
+    // added in the same order by each of their warps (so all form the same
+    // e): word (n, e) of a lane at xs[((rg * 4 + part) * NS * 4 + n * 4 +
+    // e) * 32 + lane]
+    constexpr int QW = NS * 4 * 32;  // a warp's words
+    float s[NS][4];
+    float* mine = xs + (rg * 4 + part) * QW + lane;
+    const float* h0 = xs + rg * 4 * QW + lane;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        mine[(n * 4 + e) * 32] =
+            (sb[0][n][e] + sb[1][n][e]) + (sm[0][n][e] + sm[1][n][e]);
+    warps_sync(1 + rg, 128);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int w = (n * 4 + e) * 32;
+        s[n][e] = (h0[w] + h0[QW + w]) + (h0[2 * QW + w] + h0[3 * QW + w]);
+      }
+
+    // e = exp2(s * c + bias * log2e), masked to 0, as in fwd_mma_kernel
+    const bool whole = mb == nullptr && bb == nullptr && k0 + FT_BK <= seq_k &&
+                       (!causal || k0 + FT_BK - 1 <= q0 + diff);
+    if (whole) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = exp2f(s[n][e] * c);
+          lsum[e >> 1] += s[n][e];
+        }
+    } else {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int row = rows[h], col = k0 + n * 8 + 2 * tq + x;
+            bool keep = row < seq_q && col < seq_k;
+            if (causal) keep = keep && col <= row + diff;
+            if (mb != nullptr) keep = keep && mb[col] != 0;
+            float lg = s[n][2 * h + x] * c;
+            if (bb != nullptr && keep) lg += bb[size_t(row) * seq_k + col] * LOG2E;
+            const float e = keep ? exp2f(lg) : 0.f;
+            lsum[h] += e;
+            s[n][2 * h + x] = e;
+          }
+    }
+    // O[:, the warp's columns] += P.V with P in f32, split in registers:
+    // S's C fragments are P's A fragments, V's rows read in the same order
+    add_product_tf32x3<FT_BK, MCOL / 4, FT_RF>(
+        oacc, s, reinterpret_cast<const float*>(vt) + part * wcols,
+        reinterpret_cast<const float*>(vlo) + part * wcols, lane, wcols / 8);
+    if ((kt + 1) % CHAIN == 0 && kt + 1 < nk) close_chain();
+  }
+  cp_async_wait<0>();
+
+  // a row's sum is spread over the 4 lanes of a quad (the four warps of
+  // its rows hold the same sums)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 1);
+    lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 2);
+  }
+  float* lb = inv_l + (size_t(bi) * H + hi) * seq_q;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = rows[h];
+    if (row >= seq_q) continue;
+    const float inv = 1.f / fmaxf(lsum[h], EPS);
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      if (n * 8 >= wcols) break;
+      float2* w = reinterpret_cast<float2*>(out_row(row) + n * 8 + 2 * tq);
+      float2 x = make_float2(oacc[n][2 * h], oacc[n][2 * h + 1]);
+      if (summed) {
+        const float2 y = *w;
+        x.x += y.x, x.y += y.y;
+      }
+      *w = make_float2(x.x * inv, x.y * inv);
+    }
+    // every column block has this l
+    if (tq == 0 && part == 0 && c0 == 0) lb[row] = inv;
+  }
+}
+
+// ---------------------------------------------------------------------------
 
 struct Args {
   const void *q, *k, *v;
@@ -1356,17 +1724,37 @@ cudaError_t launch_wide_mma(int d, const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename TQ>
+cudaError_t launch_wide_tf32(int d, const Args& a, cudaStream_t stream) {
+  if (d % WCOL != 0) return cudaErrorInvalidValue;
+  // 16-byte copies: every row is a 16-byte multiple, so aligned bases do
+  for (const void* p : {a.q, a.k, a.v})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_wide_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(FtLayout::smem(d)));
+  if (err != cudaSuccess) return err;
+  const size_t smem = FtLayout::smem(d);
+  const dim3 grid(a.B * ((d + MCOL - 1) / MCOL), a.H,
+                  (a.seq_q + FT_BQ - 1) / FT_BQ);
+  fwd_wide_tf32_kernel<<<grid, FT_NT, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.mask, a.bias, static_cast<float*>(a.o),
+      a.inv_l, a.H, a.KVH, a.seq_q, a.seq_k, d, a.causal, a.bias_batch_dim,
+      a.c);
+  return cudaGetLastError();
+}
+
+// int8 q/k codes with float32 v
 cudaError_t launch_wide(int d, const Args& a, cudaStream_t stream) {
   if (d % WCOL != 0) return cudaErrorInvalidValue;
   constexpr size_t smem = wide_smem();
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_wide_kernel<TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.seq_q + BQ - 1) / BQ, a.H, a.B * (d / WCOL));
-  fwd_wide_kernel<TQ><<<grid, NT, smem, stream>>>(
-      static_cast<const TQ*>(a.q), static_cast<const TQ*>(a.k),
+  fwd_wide_kernel<<<grid, NT, smem, stream>>>(
+      static_cast<const int8_t*>(a.q), static_cast<const int8_t*>(a.k),
       static_cast<const float*>(a.v), a.mask, a.bias, static_cast<float*>(a.o),
       a.inv_l, a.H, a.KVH, a.seq_q, a.seq_k, d, a.causal, a.bias_batch_dim,
       a.c);
@@ -1406,9 +1794,9 @@ cudaError_t dispatch_f32(int d, const Args& a, cudaStream_t s) {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); 2 = int8 q/k
 // codes with float32 v and o; 3 = int8 q/k codes with bfloat16 v and o.
 // 1 and 3 run on the tensor cores at every width; 0 on the tensor cores as
-// 3xTF32 at every width up to 256; 2 on the FMA kernel.  d past 256 (a
-// multiple of 128) takes the wide route, on the tensor cores for 1 and 3
-// and on FMAs for 0 and 2.
+// 3xTF32 at every width; 2 on the FMA kernels.  d past 256 (a multiple of
+// 128) takes the wide route, on the tensor cores for 0, 1 and 3 and on
+// FMAs for 2.
 // All tensors contiguous: q/o (B, H, seq_q, d), k/v (B, KVH, seq_k, d),
 // mask (B, seq_k) uint8 or null, bias (B|H, seq_q, seq_k) f32 or null,
 // inv_l (B, H, seq_q) f32.  The logits are scale * s_dequant * q.k (int8
@@ -1432,9 +1820,9 @@ extern "C" int fcsa_fwd(const void* q, const void* k, const void* v,
   cudaError_t err;
   if (d > 256) {  // the wide route: d a multiple of WCOL
     switch (dtype) {
-      case 0: return int(launch_wide<float>(d, a, s));
+      case 0: return int(launch_wide_tf32(d, a, s));
       case 1: return int(launch_wide_mma<__nv_bfloat16>(d, a, s));
-      case 2: return int(launch_wide<int8_t>(d, a, s));
+      case 2: return int(launch_wide(d, a, s));
       case 3: return int(launch_wide_mma<int8_t>(d, a, s));
       default: return int(cudaErrorInvalidValue);
     }

@@ -2,10 +2,10 @@
 // (fwd_kernel.cu), the backward's dK/dV kernel (bwd_kernel.cu), the
 // int8-weight matmul (quant_matmul_kernel.cu) and the two decode kernels
 // (decode_common.cuh): 16-, 8- and 4-byte `cp.async` with zero-fill, a
-// block's loader of rows into shared memory, `ldmatrix`, and the
-// `mma.sync` products they run (bf16 m16n8k16, s8 m16n8k32 and tf32
-// m16n8k8, f32 / s32 sums), with the hi / lo split of a float into two
-// tf32 operands.
+// block's loader of rows into shared memory, `ldmatrix`, the `mma.sync`
+// products they run (bf16 m16n8k16, s8 m16n8k32 and tf32 m16n8k8, f32 /
+// s32 sums), with the hi / lo split of a float into two tf32 operands, and
+// a barrier of a few warps.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 / m16n8k32): with g = lane / 4
 // and q = lane % 4, a thread's C fragment holds rows g and g + 8, columns
@@ -186,13 +186,14 @@ __device__ __forceinline__ void split_rows(unsigned char* hi, unsigned char* lo,
 // q, 8j + 2q + 1 for k q + 4).  A permutation of the summed index on both
 // operands leaves the product unchanged, so no value moves between lanes;
 // with RF = 4 (mod 16) the two rows a lane reads sit 8 banks apart and a
-// warp's 32 reads hit 32 banks.
+// warp's 32 reads hit 32 banks.  Only acc's first nd8 n8 tiles are formed
+// (the wide route's blocks that own fewer columns; a branch each tile).
 template <int N, int D, int RF>
 __device__ __forceinline__ void add_product_tf32x3(float (&acc)[D / 8][4],
                                                    const float (&c)[N / 8][4],
                                                    const float* src,
                                                    const float* src_lo,
-                                                   int lane) {
+                                                   int lane, int nd8 = D / 8) {
   const int at = (2 * (lane & 3)) * RF + (lane >> 2);
   const float* bh = src + at;
   const float* bl = src_lo + at;
@@ -205,6 +206,7 @@ __device__ __forceinline__ void add_product_tf32x3(float (&acc)[D / 8][4],
     split_tf32(c[j][3], ah[3], al[3]);
 #pragma unroll
     for (int dn = 0; dn < D / 8; ++dn) {
+      if (dn >= nd8) break;
       const int r0 = j * 8 * RF + dn * 8, r1 = r0 + RF;
       mma_tf32x3(acc[dn], ah, al, __float_as_uint(bh[r0]),
                  __float_as_uint(bh[r1]), __float_as_uint(bl[r0]),
@@ -220,7 +222,7 @@ template <int N, int D, int RF>
 __device__ __forceinline__ void add_product_tf32x3(float (&acc)[D / 8][4],
                                                    const float (&c)[N / 8][4],
                                                    const float* src,
-                                                   int lane) {
+                                                   int lane, int nd8 = D / 8) {
   const float* b = src + (2 * (lane & 3)) * RF + (lane >> 2);
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
@@ -231,6 +233,7 @@ __device__ __forceinline__ void add_product_tf32x3(float (&acc)[D / 8][4],
     split_tf32(c[j][3], ah[3], al[3]);
 #pragma unroll
     for (int dn = 0; dn < D / 8; ++dn) {
+      if (dn >= nd8) break;
       const int r0 = j * 8 * RF + dn * 8;
       uint32_t bh0, bl0, bh1, bl1;
       split_tf32(b[r0], bh0, bl0);
@@ -239,6 +242,13 @@ __device__ __forceinline__ void add_product_tf32x3(float (&acc)[D / 8][4],
     }
   }
 }
+
+// bar.sync on barrier `id` (1-15; 0 is __syncthreads) by `threads`
+// threads, whole warps: a warp pair's or a few warps' barrier
+__device__ __forceinline__ void warps_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void pair_sync(int id) { warps_sync(id, 64); }
 
 // d += a . b on int8 inputs, exact int32 sums
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],

@@ -6,9 +6,9 @@ JAX package, so it also runs where flax is not installed:
     python -m pytest tests/test_torch_kernels.py -q -m cuda
 
 Tolerances: float32 1e-4 (same maths, other sum order; K1, K2, K3a and
-K3b in float32 at every width up to 256 form each product as three TF32
-products of a hi / lo split of its operands, 3xTF32, good to ~2^-21 of
-each); bf16
+K3b in float32 at every width up to 256, and K1 and K2 past it, form
+each product as three TF32 products of a hi / lo split of its operands,
+3xTF32, good to ~2^-21 of each); bf16
 outputs 2e-2 (a few bf16 ulps at |o| <= 2); inv_l 1e-5 relative; the
 contiguous decode kernel 2e-3 on f32 output; the int8-weight matmul
 1e-4 (f32) and 2e-2 (bf16) of max(1, max|y|).  The
@@ -22,8 +22,9 @@ pairs, so its sums stay those of f32 operands to ~16 bits; so does the
 tensor-core dQ kernel with dS).  Head dims between the kernel widths (8,
 48, 80, 136, 200) run zero-padded to the next one; past 256 (264, 384,
 512, 1032) the wide route runs zero-padded to the next multiple of 128
-(bf16 on the tensor cores, in column blocks of 256 with a 128-column
-remainder at 384 and 1152); d that is not a multiple of 8 is refused.
+(bf16, and f32 K1 and K2, on the tensor cores, in column blocks of 256
+with a 128-column remainder at 384 and 1152); d that is not a multiple
+of 8 is refused.
 The decode kernels take any multiple of 8 (past 1024, as at 1032, 2048
 and 4096, their output columns are split over column blocks); they split
 each slot's tokens over several blocks and merge their partial sums in
@@ -946,7 +947,7 @@ def test_profiled_calls_name_the_wide_and_split_instances(cuda_device):
                  "dq_wide_mma_kernel", "decode_kernel<",
                  "decode_cols_kernel<"):
         assert any(name in key for key in keys), (name, keys)
-    assert not any("fwd_wide_kernel<" in key or "dkdv_wide_kernel<" in key
+    assert not any("fwd_wide_kernel" in key or "dkdv_wide_kernel" in key
                    or "dq_wide_kernel<" in key for key in keys), keys
     for name in ("decode_kernel<", "decode_cols_kernel<"):
         rows = [e for e in prof.key_averages()
@@ -999,7 +1000,7 @@ def test_bf16_wide_two_pass_runs_the_tensor_core_dq_kernel(cuda_device, case):
             if e.device_type == DeviceType.CUDA]
     assert any("dq_wide_mma_kernel" in k for k in keys), keys
     assert any("dkdv_wide_mma_kernel<false>" in k for k in keys), keys
-    assert not any("dq_wide_kernel<" in k or "dkdv_wide_kernel<" in k
+    assert not any("dq_wide_kernel<" in k or "dkdv_wide_kernel" in k
                    for k in keys), keys
 
 
@@ -1185,6 +1186,55 @@ def test_float32_wide_k1_k2_tf32_instances_match_plain(cuda_device, d, case):
         assert any(name in key for key in keys), (name, keys)
     assert not any("fwd_kernel<" in key or "dkdv_kernel<" in key
                    for key in keys), keys
+
+
+@pytest.mark.cuda
+def test_op_at_d512_f32_runs_the_wide_tf32_kernels(cuda_device):
+    """The public op in float32 at d 512, the heads-512 model's width: its
+    forward and (no bias, so one-pass) backward launch K1 and K2 once each
+    and K3a, K3b never; o matches the plain forward, and the gradients the
+    plain backward on the kernel forward's o and inv_l, at the float32
+    bar; and the two wrappers run the wide route's 3xTF32 instances
+    (fwd_wide_tf32_kernel, dkdv_wide_tf32_kernel) and no FMA one, as the
+    profiler names them."""
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        flash_cosine_sim_attention)
+
+    g = torch.Generator(device=cuda_device).manual_seed(512)
+    q, k = l2norm_tensors(
+        *(torch.randn(2, 2, 300, 512, device=cuda_device, generator=g)
+          for _ in range(2)), groups=8)
+    v, do = (torch.randn(2, 2, 300, 512, device=cuda_device, generator=g)
+             for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    counts = lambda: (flash_attention_forward.launches,  # noqa: E731
+                      bwd_kernel.fused_bwd_kernel.launches,
+                      bwd_kernel.dq_kernel.launches,
+                      bwd_kernel.dkdv_kernel.launches)
+    before = counts()
+    o = flash_cosine_sim_attention(*leaves, causal=True, l2norm_qk=False)
+    got = torch.autograd.grad(o, leaves, do)
+    assert [n - m for n, m in zip(counts(), before)] == [1, 1, 0, 0]
+
+    kw = dict(bias_batch_dim=False, scale=8.0, causal=True)
+    o_p, _ = flash_attention_forward_plain(q, k, v, None, None, **kw)
+    o_k, inv_k = flash_attention_forward(q, k, v, None, None, **kw)
+    want = flash_attention_backward_plain(do, o_k, inv_k, q, k, v, None,
+                                          None, **kw)
+    torch.cuda.synchronize()
+    assert (o.detach() - o_p).abs().max().item() <= BARS[torch.float32]
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(x).all(), name
+        assert _grad_err(x, y, torch.float32) <= GRAD_BARS[torch.float32], (
+            name, _grad_err(x, y, torch.float32))
+    keys = _kernel_names(lambda: (
+        flash_attention_forward(q, k, v, None, None, **kw),
+        bwd_kernel._backward_onepass(do, o_k, inv_k, q, k, v, None,
+                                     scale=8.0, causal=True)))
+    for name in ("fwd_wide_tf32_kernel", "dkdv_wide_tf32_kernel"):
+        assert any(name in key for key in keys), (name, keys)
+    assert not any("fwd_wide_kernel" in key or "dkdv_wide_kernel" in key
+                   or "dq_wide_kernel" in key for key in keys), keys
 
 
 # the float32 two-pass kernels' edges at every 3xTF32 width: GQA, causal

@@ -1,9 +1,10 @@
 """The port's split float32 products (``ops/mxu.py``) on the CPU.
 
 The float32 instances of the forward (K1) and backward (K2, K3a, K3b)
-kernels up to d 256 form every product as three TF32 tensor-core
-products of a hi / lo split (3xTF32); ``dot_tf32x3`` is their plain
-version.  These tests hold its error budget without a card:
+kernels up to d 256, and of K1 and K2 past it (the wide route), form
+every product as three TF32 tensor-core products of a hi / lo split
+(3xTF32); ``dot_tf32x3`` is their plain version.  These tests hold its
+error budget without a card:
 
 - ``dot_f32x3``, JAX's bfloat16 split, against the JAX package's own, at
   1e-6 of the largest value (both sum exact products in float32, in
@@ -18,7 +19,8 @@ version.  These tests hold its error budget without a card:
   exact products), at l2norm groups 1 and 8 and scale 1 and 8, causal and
   key-masked, and the backward (the float32 K2, K3a and K3b's plain
   version) also with an (h, i, j) and a (b, i, j) bias at 8 groups and
-  scale 8, dB included (the bias cases also at d 256 and 192): o and
+  scale 8, dB included (the bias cases also at d 256 and 192; the
+  bias-free ones at 8 groups and scale 8 also at d 256 and 512): o and
   the gradients at the float32 bar 1e-4
   (gradients in units of max(1, max|g|), as the card tests hold them),
   inv_l at 1e-5 relative.  At 8 groups and scale 8 a logit reaches 64, and float32's
@@ -27,6 +29,8 @@ version.  These tests hold its error budget without a card:
   products, if that is larger than 1e-5;
 - the same forward against the JAX package's float32 forward (its Pallas
   kernel in interpret mode, as the JAX suite runs it on the CPU) at 1e-4,
+  and at d 256 and 512 the forward and one-pass backward against JAX's
+  float32 forward and one-pass backward (``_fused_bwd_kernel_t``),
   and the backward with a bias against JAX's float32 backward pinned to
   its two-pass kernels (``_dq_kernel_t``, ``_dkdv_kernel_t``), whose
   counterparts K3a and K3b take every float32 backward with a bias, at d
@@ -201,6 +205,9 @@ SPLIT_CASES = [(groups, scale, kind) for groups in (1, 8) for scale in (1, 8)
 # sums over 4 times as many lanes
 D256_CASES = [(1, 1, "causal", 256), (8, 8, "causal", 256),
               (8, 8, "key-mask", 256)]
+# d 512, the heads-512 model's width, whose float32 K1 and K2 run 3xTF32
+# on the wide route: sums over twice d 256's lanes
+D512_CASES = [(8, 8, "causal", 512), (8, 8, "key-mask", 512)]
 # the backward also with a bias (the two-pass kernels K3a and K3b), at 8
 # groups and scale 8, where logits reach 64
 BIAS_CASES = [(8, 8, "causal-bias-heads"), (8, 8, "key-mask-bias-batch")]
@@ -210,7 +217,8 @@ WIDE_BIAS_CASES = [c + (d,) for d in (256, 192) for c in BIAS_CASES]
 
 
 @pytest.mark.parametrize("groups,scale,kind,d",
-                         [_case(*c) for c in SPLIT_CASES + D256_CASES])
+                         [_case(*c) for c in SPLIT_CASES + D256_CASES
+                          + D512_CASES])
 def test_forward_with_tf32_split_matches_exact_products(groups, scale, kind,
                                                         d):
     q, k, v, mask, _, _ = _inputs(groups, kind, d=d)
@@ -230,7 +238,7 @@ def test_forward_with_tf32_split_matches_exact_products(groups, scale, kind,
 
 @pytest.mark.parametrize("groups,scale,kind,d",
                          [_case(*c) for c in BWD_SPLIT_CASES + D256_CASES
-                          + WIDE_BIAS_CASES])
+                          + WIDE_BIAS_CASES + D512_CASES])
 def test_backward_with_tf32_split_matches_exact_products(groups, scale,
                                                          kind, d):
     q, k, v, mask, do, bias = _inputs(groups, kind, d=d)
@@ -261,21 +269,23 @@ def test_forward_with_tf32_split_matches_jax_f32_forward():
     assert np.abs(l_s.numpy() / np.asarray(l_j) - 1).max() <= F32_BAR
 
 
-def test_tf32_split_at_d256_matches_jax_f32_forward_and_one_pass():
-    """The plain forward and backward with ``mm=dot_tf32x3`` at d 256, the
-    plain versions of the float32 K1 and one-pass K2 at that width (b1 h1
-    s128 causal, 8 l2norm groups, scale 8), against the JAX package's
-    float32 forward and its one-pass backward (``_fused_bwd_kernel_t``,
-    interpret mode): o, dq, dk and dv at 1e-4 of max(1, max|g|), inv_l at
-    1e-4 relative, from JAX's own forward."""
+@pytest.mark.parametrize("d", [256, 512])
+def test_tf32_split_at_d256_matches_jax_f32_forward_and_one_pass(d):
+    """The plain forward and backward with ``mm=dot_tf32x3`` at d 256 and
+    512, the plain versions of the float32 K1 and one-pass K2 at those
+    widths (the d 256 instances and the wide route's; b1 h1 s128 causal, 8
+    l2norm groups, scale 8), against the JAX package's float32 forward and
+    its one-pass backward (``_fused_bwd_kernel_t``, interpret mode): o,
+    dq, dk and dv at 1e-4 of max(1, max|g|), inv_l at 1e-4 relative, from
+    JAX's own forward."""
     rng = np.random.default_rng(6)
 
     def randn(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
 
-    q, k = l2norm_tensors(randn(1, 1, 128, 256), randn(1, 1, 128, 256),
+    q, k = l2norm_tensors(randn(1, 1, 128, d), randn(1, 1, 128, d),
                           groups=8)
-    v, do = randn(1, 1, 128, 256), randn(1, 1, 128, 256)
+    v, do = randn(1, 1, 128, d), randn(1, 1, 128, d)
     kw = dict(bias_batch_dim=False, scale=8.0, causal=True)
     jq, jk, jv = (jnp.asarray(t.numpy()) for t in (q, k, v))
     o_j, l_j = jax_forward(jq, jk, jv, None, None, interpret=True, **kw)

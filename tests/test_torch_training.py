@@ -72,12 +72,16 @@ def _models(pre_norm, seed=0, **over):
 
 
 @pytest.mark.parametrize("variant", ["pre-norm", "post-norm",
-                                     "plain-attention", "non-cosine"])
+                                     "plain-attention", "non-cosine",
+                                     "heads-512"])
 def test_loss_and_grads_match_jax(variant):
-    """The port's fused op (pre- and post-norm), its plain attention
-    (``use_fused=False``) and the vanilla-softmax baseline."""
+    """The port's fused op (pre- and post-norm; and with 1 head of 512, the
+    heads-512 model's width, whose float32 attention takes the wide
+    route), its plain attention (``use_fused=False``) and the
+    vanilla-softmax baseline."""
     over = {"plain-attention": dict(use_fused=False),
-            "non-cosine": dict(non_cosine_sim_attn=True)}.get(variant, {})
+            "non-cosine": dict(non_cosine_sim_attn=True),
+            "heads-512": dict(heads=1, dim_head=512)}.get(variant, {})
     jmodel, params, tmodel = _models(variant != "post-norm", **over)
     tokens = np.random.default_rng(20).integers(0, 256, (2, 65))
     loss_j, grads_j = jax.value_and_grad(
