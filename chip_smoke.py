@@ -16,6 +16,11 @@
                                         # 16384 alone (1 card)
     python3 chip_smoke.py --f32-head512-step  # the heads-512 model's
                                         # float32 training step alone
+    python3 chip_smoke.py --f32-head512-long-step  # the heads-512
+                                        # model's float32 step at seq
+                                        # 16384 alone (1 card)
+    python3 chip_smoke.py --f32-head512-kernels  # the float32 K1, K2,
+                                        # K3a and K3b at d 512 alone
     python3 chip_smoke.py --f32-wide-heads  # the float32 K1, K2, K3a
                                         # and K3b at d 192 and 256 alone
 
@@ -195,22 +200,23 @@ Phases (any failure exits non-zero):
      versions (dB included), NaNs in q and v kept on both backward
      routes, at d 256 on a short chain (groups 8, scale 8) and over b1 h2
      s16384 (both routes), timed beside their bounds, plain versions and
-     SDPA f32 (--f32-wide-heads alone); K1 and the one-pass K2 at d 512
-     (b4 h1 s1024 causal, the heads-512 model's shape) on the wide
-     route's 3xTF32 instances by profiler name (the two-pass route's
-     K3a and K3b there on their FMA instances), against the exact and the
-     dot_tf32x3 plain versions, on a short chain (groups 8, scale 8,
-     SPLIT_BARS_D512), over b1 h2 s8192 (one-pass) and with NaNs in q and
-     v kept; the float32 instances no main path counts (K1 and K2 at d
-     128, K3a and K3b at d 512, K1's int8 arm with float32 v), checked and
-     timed alike; then the validation model's float32 training step
-     profiled (device time a step, K1's and K2's share and launches), the
-     heads-256 and heads-512 models' (--f32-head256-step and
-     --f32-head512-step alone: K1 and K2 32 launches a step each on their
-     3xTF32 instances, K3a and K3b none, the idle share), and the
-     validation and heads-256 models' at seq 16384 (batch 1;
-     --f32-long-step and --f32-head256-long-step alone), where the
-     backward takes K3a and K3b: device time a step, K1's, K3a's and
+     SDPA f32 (--f32-wide-heads alone); K1, the one-pass K2 and (with an
+     (h, i, j) bias) K3a and K3b at d 512 (b4 h1 s1024 causal, the
+     heads-512 model's shape) on the wide route's 3xTF32 instances by
+     profiler name, against the exact and the dot_tf32x3 plain versions,
+     on a short chain (groups 8, scale 8, SPLIT_BARS_D512, both routes),
+     over b1 h2 s8192 (one-pass) and b1 h1 s16384 (two-pass) and with
+     NaNs in q and v kept (--f32-head512-kernels alone); the float32
+     instances no main path counts (K1 and K2 at d 128, K1's int8 arm
+     with float32 v), checked and timed alike; then the validation
+     model's float32 training step profiled (device time a step, K1's and
+     K2's share and launches), the heads-256 and heads-512 models'
+     (--f32-head256-step and --f32-head512-step alone: K1 and K2 32
+     launches a step each on their 3xTF32 instances, K3a and K3b none,
+     the idle share), and the validation, heads-256 and heads-512
+     models' at seq 16384 (batch 1; --f32-long-step,
+     --f32-head256-long-step and --f32-head512-long-step alone), where
+     the backward takes K3a and K3b: device time a step, K1's, K3a's and
      K3b's share, launches and TFLOP/s, the idle share.
 Then one JSON line lists every ported kernel, and the entries of phases
 18-22 (each rank's launches and error), with its launches on its path, error,
@@ -282,10 +288,14 @@ SPLIT_BARS = {"K1": 4e-5, "K2": 3e-5, "K3a": 3e-5, "K3b": 3e-5}
 # tighter bars, between those readings and the kernels' (K2 5.3e-6 to
 # 7.7e-6, K3a 6.9e-6 to 9.8e-6)
 SPLIT_BARS_D256 = dict(SPLIT_BARS, K2=1.5e-5, K3a=2e-5)
-# at d 512 (K1 and the one-pass K2 on the wide route) d 256's bars part
-# the two splits too (H100 runs: K1 1.3e-5 against the bfloat16 split's
-# 6.1e-5; K2 5.3e-6 to 8.7e-6 against 1.7e-5 to 2.7e-5)
-SPLIT_BARS_D512 = SPLIT_BARS_D256
+# at d 512 (all four on the wide route) d 256's bars part K1's and K2's
+# two splits too (H100 runs: K1 1.0e-5 to 1.3e-5 against the bfloat16
+# split's 6.1e-5 to 6.2e-5; K2 3.4e-6 to 8.7e-6 against 1.6e-5 to
+# 2.7e-5), but the bfloat16 split's K3a and K3b read only 1.3e-5 to
+# 2.8e-5 there (maxima 2.0e-5 to 2.8e-5 a draw), under d 256's 2e-5 and
+# 3e-5, so d 512 holds both to a tighter bar, between those and the
+# kernels' 3.4e-6 to 7.1e-6
+SPLIT_BARS_D512 = dict(SPLIT_BARS_D256, K3a=1.2e-5, K3b=1.2e-5)
 TRAIN_STEPS = 10
 TRAIN_CORPUS_BYTES = 1 << 20   # the JAX trainer draws 8 M the same way
 LOSS_BAR = 1e-4               # f32 training loss, card vs CPU
@@ -427,39 +437,59 @@ def kernel_us(work, iters: int) -> float:
 
 # profiler windows cuda_rows takes before it returns an empty one, and
 # windows whole_rows takes before it averages over the records it kept
-PROFILE_TRIES = 3
+PROFILE_TRIES = 4
 WHOLE_TRIES = 5
+# cycles of the spin that opens a profiler window (about 2 ms on the
+# H100); doubled for this window and every later one whenever a window
+# loses the marker that follows the spin, up to OPEN_SPIN_MAX (0.5 s)
+open_spin = 1 << 22
+OPEN_SPIN_MAX = 1 << 30
+# calls of a matmul in one of --profiler-drift's windows
+DRIFT_CALLS = 20
 
 
 def cuda_rows(work, iters: int, tries: int = PROFILE_TRIES):
     """torch.profiler's per-kernel rows (key, self device time in us,
-    count) over ``iters`` calls of ``work``.  The profiler can drop the
-    record of the first kernel launched in its window: on the H100,
-    profiles of 20 calls read 19 for the kernel each call launches first
-    (which then sorts last by first appearance), at the same call sites
-    run after run, and a sentinel kernel closing the window changed
-    nothing.  So a sentinel (torch.cuda._sleep's spin_kernel) opens the
-    window, and it is left out of the rows.  A window can also come back
-    with no record of the work's kernels at all (seen on the H100 over 3
-    calls of kernels that had just run and been checked): such a window
-    is profiled again, up to ``tries`` times, and then returned
+    count) over ``iters`` calls of ``work``.  The profiler drops the
+    records of a window's first kernels, as if its clock for device
+    records ran behind the host's, by up to some milliseconds: with a
+    bare 0.5 us opening spin, windows of 20 calls of a 0.34 ms matmul on
+    the H100 kept 8 to 17 records in 5 of 321 windows over 330 s of one
+    process (``--profiler-drift``), and a run of this script kept 13 of
+    a kernel's 24 in the last of 5 windows that all lost some.  So a spin
+    (torch.cuda._sleep's spin_kernel) of ``open_spin`` cycles opens the
+    window and a short one marks its end, and the work starts after both;
+    a window whose marker was dropped doubles ``open_spin`` and, while
+    ``tries`` last, is profiled again.  The spins are left out of the
+    rows.  A window with no record of the work's kernels at all is
+    profiled again too, up to ``tries`` windows, and then returned
     empty.  User annotations are left out: a gloo collective's range
     (phase 18) spans the copies it issues and would count them twice."""
+    global open_spin
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(tries):
+    for t in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(open_spin)
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             for _ in range(iters):
                 work()
             torch.cuda.synchronize()
-        rows = [(e.key, e.self_device_time_total, e.count)
-                for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                and "spin_kernel" not in e.key and not e.is_user_annotation]
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        rows = [(e.key, e.self_device_time_total, e.count) for e in events
+                if "spin_kernel" not in e.key and not e.is_user_annotation]
+        marked = any("spin_kernel" in e.key for e in events)
+        if not marked and open_spin < OPEN_SPIN_MAX:
+            open_spin *= 2
+            print(f"  (the profiler dropped the window's opening marker: "
+                  f"the opening spin is now {open_spin} cycles)")
+            if t + 1 < tries:
+                continue
         if rows:
             return rows
         print("  (the profiler recorded no kernel of the work in its window; "
@@ -467,21 +497,64 @@ def cuda_rows(work, iters: int, tries: int = PROFILE_TRIES):
     return rows
 
 
+def profiler_drift(seconds: float) -> None:
+    """Run alone (``--profiler-drift SECONDS``): for ``seconds``, windows
+    of DRIFT_CALLS calls of a 2048 x 2048 float32 matmul (0.34 ms on the
+    H100), a second of 8192 x 8192 matmuls between them, each profiled
+    once with a bare 1000-cycle opening spin and once by cuda_rows; prints
+    the records each kept, every tenth window and wherever the bare one
+    lost any, and fails if cuda_rows lost one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    a = torch.randn(2048, 2048, device="cuda")
+    b = torch.randn(8192, 8192, device="cuda")
+    t0 = time.perf_counter()
+    w = 0
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(45):
+            torch.mm(b, b)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(DRIFT_CALLS):
+                torch.mm(a, a)
+            torch.cuda.synchronize()
+        bare = sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and "spin_kernel" not in e.key)
+        rows = cuda_rows(lambda: torch.mm(a, a), DRIFT_CALLS)
+        kept = sum(c for _, _, c in rows)
+        if w % 10 == 0 or bare != DRIFT_CALLS or kept != DRIFT_CALLS:
+            print(f"  {time.perf_counter() - t0:.1f} s, window {w}: kept "
+                  f"{bare} of {DRIFT_CALLS} records with a bare opening "
+                  f"spin, {kept} by cuda_rows (opening spin {open_spin} "
+                  f"cycles; {sum(t for _, t, _ in rows) / max(kept, 1):.1f} "
+                  f"us a call)", flush=True)
+        if kept != DRIFT_CALLS:
+            fail(f"cuda_rows kept {kept} of {DRIFT_CALLS} records")
+        w += 1
+
+
 def whole_rows(work, iters: int, group=None):
     """cuda_rows' (key, device time in us, count) per call of a ``work``
     that launches each of its kernels the same number of times per call,
     over ``iters`` calls: a kernel whose count is not a multiple of the
     calls lost a record, so the counts are printed and ``work`` is
-    profiled again over one call more.  Runs on the H100 have lost one
-    record of the same kernel in 3 and in 5 windows running; after
-    WHOLE_TRIES such profiles a window in which each kernel lost at most
-    one record is taken (each kernel's time a call is the mean of its
-    kept records times its launches a call), and any other fails.  With a
-    process ``group`` (a ``work`` whose collectives every rank must run
-    alike) every rank profiles again when any rank lost a record or saw
-    none."""
+    profiled again over one call more.  Runs on the H100 have lost
+    records of the same kernel in 3 and in 5 windows running, once 11 of
+    a kernel's 24 in the last of 5.  After WHOLE_TRIES such profiles each
+    kernel's launches a call are the most that one window's kept records
+    show, rounded up (exact where a window lost fewer records of it than
+    it ran calls), and its time a call is the mean of its kept records
+    over all the windows times those launches.  With a process ``group``
+    (a ``work`` whose collectives every rank must run alike) every rank
+    profiles again when any rank lost a record or saw none."""
     import torch.distributed as dist
 
+    kept = {}   # key: [device time in us, records, launches a call]
     for n in range(iters, iters + WHOLE_TRIES):
         rows = cuda_rows(work, n, PROFILE_TRIES if group is None else 1)
         counts = [count for _, _, count in rows]
@@ -493,17 +566,16 @@ def whole_rows(work, iters: int, group=None):
         lost = [(key[:40], count) for key, _, count in rows if count % n]
         print(f"  (the profiler lost kernel records: {lost} of counts "
               f"{counts} over {n} calls; profiled again)")
-    if any((count + 1) % n for count in counts if count % n):
-        fail(f"the profiler lost kernel records {WHOLE_TRIES} times running, "
-             f"more than one of a kernel in the last window: counts "
-             f"{counts} over {n} calls")
-    per_call = [-(-count // n) for count in counts]
-    print(f"  (lost records {WHOLE_TRIES} times running, at most one of a "
-          f"kernel in the last window: each kernel's time a call is the "
-          f"mean of its {counts} kept records times its {per_call} launches "
-          f"a call)")
-    return [(key, t / count * c, c)
-            for (key, t, count), c in zip(rows, per_call)]
+        for key, t, count in rows:
+            k = kept.setdefault(key, [0.0, 0, 0])
+            k[0] += t
+            k[1] += count
+            k[2] = max(k[2], -(-count // n))
+    print(f"  (lost records {WHOLE_TRIES} times running: each kernel's time "
+          f"a call is the mean of its {[k[1] for k in kept.values()]} kept "
+          f"records times its {[k[2] for k in kept.values()]} launches a "
+          f"call)")
+    return [(key, t / count * c, c) for key, (t, count, c) in kept.items()]
 
 
 def whole_us(work, iters: int) -> float:
@@ -555,14 +627,12 @@ def require_kernels(rows, names, path: str) -> None:
     """Fail unless every kernel name in ``names`` appears among the
     profiler's ``rows``, and no FMA instance of K1 or K7, and no bf16 FMA
     instance of the dK/dV kernel (K2, K3b) or the dQ kernel (K3a), does:
-    the bf16 paths must run the tensor-core instances (past d 256 the
-    wide FMA kernels have no bf16 instance)."""
+    the bf16 paths must run the tensor-core instances."""
     keys = [key for key, _, _ in rows]
     missing = [n for n in names if not any(n in key for key in keys)]
     fma = [key[:60] for key in keys if "fwd_kernel<" in key
            or "qmm_kernel<" in key or "dkdv_kernel<__nv_bfloat16" in key
-           or "dq_kernel<__nv_bfloat16" in key
-           or "dq_wide_kernel<__nv_bfloat16" in key]
+           or "dq_kernel<__nv_bfloat16" in key]
     print(f"  {path}: tensor-core instances {', '.join(names)} launched: "
           f"{not missing}; f32 FMA instances launched: {fma or 'none'}")
     if missing or fma:
@@ -987,10 +1057,9 @@ def compare_backward(worst, name, args, kw, dtype, mask_kind):
 def time_backward(card: str, args, kw, args_b, kw_b):
     """K2 on ``args`` (causal, no bias) and K3a, K3b on ``args_b`` (causal,
     an (h, i, j) bias), in their dtype (bf16 bounded at the tensor cores'
-    peak; float32 on the tensor cores (all three up to d 256, K2 past it)
-    by 3 x its operations at the TF32 tensor cores' peak, the bound at the
-    float32 peak outside them printed beside; K3a and K3b past 256, the
-    wide route's FMA kernels, at that peak alone), timed beside the plain
+    peak; float32, on the tensor cores as 3xTF32 at every width, by 3 x
+    its operations at the TF32 tensor cores' peak, the bound at the
+    float32 peak outside them printed beside), timed beside the plain
     backward and SDPA's; returns {kernel: timing row}."""
     import torch.nn.functional as F
 
@@ -1034,7 +1103,7 @@ def time_backward(card: str, args, kw, args_b, kw_b):
     ):
         ms = device_ms(call)
         bound_ms, by = bound(flops, nbytes, peak)
-        if q.dtype == torch.float32 and (d <= 256 or name == "K2"):
+        if q.dtype == torch.float32:
             # 3xTF32: three products on the TF32 tensor cores for each of
             # the function's; the FMA bound (67 TFLOP/s) in brackets
             fma_ms = bound_ms
@@ -4750,18 +4819,21 @@ def long_chains(g, card: str, d: int = 64, cases=None) -> None:
 
 def f32_step_kernels(d: int) -> dict:
     """A float32 step's attention kernels at head width ``d``, by the
-    instance names that count for them (the FMA ones too, for a reading of
-    an earlier commit)."""
+    instance names that count for them (the FMA ones too, and the wide
+    K2's name before it took K3b's template argument, for a reading of an
+    earlier commit)."""
     return {
         "K1": ("fwd_tf32_kernel<", "fwd_kernel<float", "fwd_wide_tf32_kernel",
                "fwd_wide_kernel<float"),
         "K2": (f"dkdv_tf32_kernel<{d}>", f"dkdv_tf32_kernel<{d}, true>",
-               f"dkdv_kernel<float, {d}, true>", "dkdv_wide_tf32_kernel",
-               "dkdv_wide_kernel<true>"),
-        "K3a": ("dq_tf32_kernel<", "dq_kernel<float", "dq_wide_kernel<float"),
+               f"dkdv_kernel<float, {d}, true>", "dkdv_wide_tf32_kernel<true>",
+               "dkdv_wide_tf32_kernel(", "dkdv_wide_kernel<true>"),
+        "K3a": ("dq_tf32_kernel<", "dq_kernel<float", "dq_wide_tf32_kernel",
+                "dq_wide_kernel<float"),
         "K3b": (f"dkdv_tf32_kernel<{d}, false>",
                 f"dkdv_kernel<float, {d}, false>", f"dkdv_kernel<float, {d}>",
-                "dkdv_wide_kernel(", "dkdv_wide_kernel<false>"),
+                "dkdv_wide_tf32_kernel<false>", "dkdv_wide_kernel(",
+                "dkdv_wide_kernel<false>"),
     }
 
 
@@ -4865,11 +4937,13 @@ def f32_long_step(card: str, cfg=MODEL) -> dict:
     launches and TFLOP/s a step, the idle share (1 - device time / the
     second warm-up step's wall).  Fails unless K1, K3a and K3b ran their
     tensor-core instances at the model's head width (fwd_tf32_kernel<D>,
-    dq_tf32_kernel<D>, dkdv_tf32_kernel<D, false>) 32 times a step each
-    and K2 never, and unless the losses are finite; the reading prints
-    first.  ``python3 chip_smoke.py --f32-long-step`` runs it alone, e.g.
-    from a checkout of an earlier commit.  Returns the wrappers' launches
-    over the 2 counted steps."""
+    dq_tf32_kernel<D>, dkdv_tf32_kernel<D, false> up to d 256; past it the
+    wide route's fwd_wide_tf32_kernel, dq_wide_tf32_kernel,
+    dkdv_wide_tf32_kernel<false>) 32 times a step each and K2 never, and
+    unless the losses are finite; the reading prints first.  ``python3
+    chip_smoke.py --f32-long-step`` runs it alone, e.g. from a checkout of
+    an earlier commit.  Returns the wrappers' launches over the 2 counted
+    steps."""
     from flash_cosine_sim_attention_tpu_torch.ops import (
         bwd_kernel as bk, fwd_kernel as fk)
     from flash_cosine_sim_attention_tpu_torch.train import (
@@ -4922,11 +4996,13 @@ def f32_long_step(card: str, cfg=MODEL) -> dict:
         fail(f"float32 train step at seq {LONG_SEQ}, d{d}: losses {loss}")
     per_step = GRAD_ACCUM * cfg["depth"]
     want = dict(k1=2 * per_step, k2=0, k3a=2 * per_step, k3b=2 * per_step)
+    names = (([f"fwd_tf32_kernel<{d}>"], [f"dq_tf32_kernel<{d}>"],
+              [f"dkdv_tf32_kernel<{d}, false>"]) if d <= 256 else
+             (["fwd_wide_tf32_kernel"], ["dq_wide_tf32_kernel"],
+              ["dkdv_wide_tf32_kernel<false>"]))
     if (launches != want or parts["K2"][1] != 0
             or any(parts[name][1] != per_step for name in ("K1", "K3a", "K3b"))
-            or parts["K1"][2] != [f"fwd_tf32_kernel<{d}>"]
-            or parts["K3a"][2] != [f"dq_tf32_kernel<{d}>"]
-            or parts["K3b"][2] != [f"dkdv_tf32_kernel<{d}, false>"]):
+            or (parts["K1"][2], parts["K3a"][2], parts["K3b"][2]) != names):
         fail(f"float32 train step at seq {LONG_SEQ}, d{d}: wrapper launches "
              f"{launches}, want {want}; profiled launches a step and "
              f"instances {parts}")
@@ -4940,6 +5016,18 @@ def f32_head256_long_step(card: str) -> dict:
     a step each.  ``python3 chip_smoke.py --f32-head256-long-step`` runs
     it alone."""
     return f32_long_step(card, HEAD256_MODEL)
+
+
+def f32_head512_long_step(card: str) -> dict:
+    """f32_long_step on the heads-512 model (HEAD512_MODEL: 1 head of 512;
+    the trainer's --use-float32 --seq-len 16384 --batch-size 1 at that
+    width): K1, K3a and K3b at b1 h1 s16384 d512 causal on the wide
+    route's 3xTF32 instances (fwd_wide_tf32_kernel, dq_wide_tf32_kernel,
+    dkdv_wide_tf32_kernel<false>), 32 launches a step each, K2 none.
+    ``python3 chip_smoke.py --f32-head512-long-step`` runs it alone, e.g.
+    from a checkout of an earlier commit, whose FMA K3a and K3b it times
+    before it fails."""
+    return f32_long_step(card, HEAD512_MODEL)
 
 
 F32_WIDE_DIMS = (192, 256)   # the widths above 128, where every f32
@@ -5195,7 +5283,7 @@ def f32_head_step(card: str, cfg) -> dict:
     wall).  Fails unless K1 and K2 ran their 3xTF32 tensor-core instances
     at the model's head width (fwd_tf32_kernel<D> and dkdv_tf32_kernel<D,
     true> up to d 256; past it the wide route's fwd_wide_tf32_kernel and
-    dkdv_wide_tf32_kernel, never an FMA one) 32 times a step each, K3a
+    dkdv_wide_tf32_kernel<true>, never an FMA one) 32 times a step each, K3a
     and K3b never, and unless the losses are finite; the reading prints
     first, so the same script on a checkout of an earlier commit gives
     its reading before it fails.  Returns the wrappers' launches over the
@@ -5253,7 +5341,7 @@ def f32_head_step(card: str, cfg) -> dict:
     want = dict(k1=2 * per_step, k2=2 * per_step, k3a=0, k3b=0)
     names = (([f"fwd_tf32_kernel<{d}>"], [f"dkdv_tf32_kernel<{d}, true>"])
              if d <= 256 else
-             (["fwd_wide_tf32_kernel"], ["dkdv_wide_tf32_kernel"]))
+             (["fwd_wide_tf32_kernel"], ["dkdv_wide_tf32_kernel<true>"]))
     if (launches != want
             or any(parts[name][1] != per_step for name in ("K1", "K2"))
             or parts["K3a"][1] or parts["K3b"][1]
@@ -5274,7 +5362,7 @@ def f32_head256_step(card: str) -> dict:
 def f32_head512_step(card: str) -> dict:
     """f32_head_step on the heads-512 model (HEAD512_MODEL: 1 head of 512):
     K1 and K2 at b4 h1 s1024 d512 on the wide route's 3xTF32 instances
-    (fwd_wide_tf32_kernel, dkdv_wide_tf32_kernel; the one-pass backward,
+    (fwd_wide_tf32_kernel, dkdv_wide_tf32_kernel<true>; the one-pass backward,
     below ONEPASS_BWD_MAX_SEQ), 32 launches a step each.  ``python3
     chip_smoke.py --f32-head512-step`` runs it alone, e.g. from a checkout
     of an earlier commit, whose FMA instances it times before it fails."""
@@ -5282,19 +5370,23 @@ def f32_head512_step(card: str) -> dict:
 
 
 def f32_head512_kernels(g, card: str, errs: dict) -> dict:
-    """K1 and the one-pass K2 in float32 at the heads-512 model's shape (b4
-    h1 s1024 d512 causal): on the wide route's 3xTF32 instances by
-    profiler name (fwd_wide_tf32_kernel, dkdv_wide_tf32_kernel; no FMA
-    one), held to the exact plain versions (F32_ERR_BAR) and to the plain
-    versions with their split (mm=dot_tf32x3, TF32X3_BARS), on a short
-    chain (split_check at d 512, one-pass: SPLIT_BARS_D512), over a long
-    one (long_chains: b1 h2 s8192, the one-pass route, its plain versions
-    a head at a time) and with NaNs in q and v kept (nan_kept); K3a and K3b
-    with an (h, i, j) bias on their FMA instances (dq_wide_kernel<float>,
-    dkdv_wide_kernel), checked alike against the exact plain versions;
-    all four timed beside their bounds, the plain versions and SDPA f32.
-    Folds each row's max abs error against plain into ``errs``; returns
-    {row: timing} ("K1 f32 d512", ...)."""
+    """K1, the one-pass K2 and, with an (h, i, j) bias, the two-pass K3a
+    and K3b in float32 at the heads-512 model's shape (b4 h1 s1024 d512
+    causal): on the wide route's 3xTF32 instances by profiler name
+    (fwd_wide_tf32_kernel, dkdv_wide_tf32_kernel<true>,
+    dq_wide_tf32_kernel, dkdv_wide_tf32_kernel<false>; no FMA one), held
+    to the exact plain versions (F32_ERR_BAR) and to the plain versions
+    with their split (mm=dot_tf32x3, TF32X3_BARS, dB included), on a short
+    chain (split_check at d 512, both routes: SPLIT_BARS_D512), over long
+    ones (long_chains: b1 h2 s8192 on the one-pass route, and the
+    heads-512 step's own b1 h1 s16384 on the two-pass route, the plain
+    versions a head at a time) and with NaNs in q and v kept (nan_kept,
+    both routes); all four timed beside their bounds, the plain versions
+    and SDPA f32.  The timings print before any instance or split check
+    fails, so ``python3 chip_smoke.py --f32-head512-kernels`` on an
+    earlier commit gives its FMA K3a's and K3b's times.  Folds each row's
+    max abs error against plain into ``errs``; returns {row: timing} ("K1
+    f32 d512", ...)."""
     from flash_cosine_sim_attention_tpu_torch.ops import (
         bwd_kernel as bk, flash_attention_backward_plain)
     from flash_cosine_sim_attention_tpu_torch.ops.mxu import dot_tf32x3
@@ -5325,24 +5417,40 @@ def f32_head512_kernels(g, card: str, errs: dict) -> dict:
     for name, row in time_backward(card, args, kw, args_b, kw_b).items():
         rows[f"{name} f32 d{d}"] = row
         errs[f"{name} f32 d{d}"] = worst[name]
+    got = bk._backward_twopass(*args_b, **kw_b)
+    want_t = flash_attention_backward_plain(*args_b, mm=dot_tf32x3, **kw_b)
+    e3 = [grad_err(x, y, torch.float32) for x, y in zip(got, want_t)]
+    e3a, e3b = [e3[0], e3[3]], e3[1:3]
+    print(f"  K3a, K3b f32 d{d} + (h,i,j) bias against the dot_tf32x3 plain "
+          f"version: K3a dq, db {', '.join(f'{e:.2e}' for e in e3a)} (bar "
+          f"{TF32X3_BARS['K3a']:g}); K3b dk, dv "
+          f"{', '.join(f'{e:.2e}' for e in e3b)} (bar "
+          f"{TF32X3_BARS['K3b']:g})")
+    del got, want_t
     onepass = require_instances(
         f"K2 f32 d{d}", lambda: bk._backward_onepass(*args[:7], scale=1.0,
                                                      causal=True),
-        ["dkdv_wide_tf32_kernel"],
+        ["dkdv_wide_tf32_kernel<true>"],
         ["dkdv_wide_kernel", "mma_kernel", "dkdv_tf32_kernel"])
     twopass = require_instances(
         f"K3a/K3b f32 d{d}", lambda: bk._backward_twopass(*args_b, **kw_b),
-        ["dkdv_wide_kernel", "dq_wide_kernel<float>"], ["mma_kernel", "tf32"])
+        ["dq_wide_tf32_kernel", "dkdv_wide_tf32_kernel<false>"],
+        ["dq_wide_kernel<", "dkdv_wide_kernel", "mma_kernel",
+         "dq_tf32_kernel", "dkdv_tf32_kernel"])
     print(f"  f32 d{d} backward instances: one-pass {onepass}, two-pass "
           f"{twopass}")
+    if not (max(e3a) <= TF32X3_BARS["K3a"]
+            and max(e3b) <= TF32X3_BARS["K3b"]):
+        fail(f"K3a/K3b f32 d{d} against dot_tf32x3: {e3a}, {e3b}")
     del args, args_b
     nan_ok = nan_kept(g, d)
     print(f"  K1, K2, K3a, K3b f32 d{d}: NaNs in q and v kept in o, the "
           f"gradients and dB: {nan_ok}")
     if not nan_ok:
         fail(f"f32 d{d}: NaNs in q and v not kept")
-    split_check(g, card, d=d, twopass=False)
-    long_chains(g, card, d=d, cases=((2, 2, 8192, 1, ("onepass",)),))
+    split_check(g, card, d=d, twopass=True)
+    long_chains(g, card, d=d, cases=((2, 2, 8192, 1, ("onepass",)),
+                                     (1, 1, LONG_SEQ, 1, ("twopass",))))
     return rows
 
 
@@ -5367,17 +5475,17 @@ def f32_instances(card: str):
     no main path counts are timed too: K1, K2, K3a and K3b at b1 h16 s1024
     d128 (the bias rows' shape) and K1's int8 arm with float32 v
     (fwd_kernel<128>, b1 h16 s1024 d128).  All four kernels at d 192 and
-    256 by f32_wide_heads, at d 512 by f32_head512_kernels (K1 and K2 on
-    the wide route's 3xTF32 instances; K3a and K3b, with an (h, i, j)
-    bias, on its FMA ones, which no main path counts).  Then the
-    validation model's float32 training step, profiled (f32_train_step),
-    the heads-256 and heads-512 models' (f32_head256_step,
-    f32_head512_step), the validation model's at seq 16384
-    (f32_long_step), where the backward runs K3a and K3b, and the
-    heads-256 model's at seq 16384 (f32_head256_long_step: K1, K3a and K3b
-    at d 256).  Returns ({row: timing}, {row: max abs error against
+    256 by f32_wide_heads, at d 512 by f32_head512_kernels (all four on
+    the wide route's 3xTF32 instances).  Then the validation model's
+    float32 training step, profiled (f32_train_step), the heads-256 and
+    heads-512 models' (f32_head256_step, f32_head512_step), the validation
+    model's at seq 16384 (f32_long_step), where the backward runs K3a and
+    K3b, and the heads-256 and heads-512 models' at seq 16384
+    (f32_head256_long_step, f32_head512_long_step: K1, K3a and K3b at d
+    256 and 512).  Returns ({row: timing}, {row: max abs error against
     plain}, the launches of the seq-16384 step, of the heads-256 step, of
-    the heads-256 seq-16384 step and of the heads-512 step)."""
+    the heads-256 seq-16384 step, of the heads-512 step and of the
+    heads-512 seq-16384 step)."""
     import torch.nn.functional as F
 
     from flash_cosine_sim_attention_tpu_torch.ops import (
@@ -5521,7 +5629,8 @@ def f32_instances(card: str):
     head256_launches = f32_head256_step(card)
     head512_launches = f32_head512_step(card)
     return (rows, errs, f32_long_step(card), head256_launches,
-            f32_head256_long_step(card), head512_launches)
+            f32_head256_long_step(card), head512_launches,
+            f32_head512_long_step(card))
 
 
 def main() -> None:
@@ -5557,9 +5666,21 @@ def main() -> None:
         help="profile the heads-512 model's float32 training step alone "
              "(one card)")
     parser.add_argument(
+        "--f32-head512-long-step", action="store_true",
+        help="profile the heads-512 model's float32 training step at seq "
+             f"{LONG_SEQ}, batch 1, alone (one card)")
+    parser.add_argument(
+        "--f32-head512-kernels", action="store_true",
+        help="check and time the float32 K1, K2, K3a and K3b at d 512 "
+             "alone (one card)")
+    parser.add_argument(
         "--f32-wide-heads", action="store_true",
         help="check and time the float32 K1, K2, K3a and K3b at d 192 and "
              "256 alone (one card)")
+    parser.add_argument(
+        "--profiler-drift", type=float, metavar="SECONDS",
+        help="profile windows of a matmul for SECONDS alone, with a bare "
+             "opening spin and through cuda_rows (one card)")
     args = parser.parse_args()
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5598,8 +5719,13 @@ def main() -> None:
     if (args.ring_nccl or args.multihost_nccl or args.f32_step
             or args.f32_long_step or args.f32_head256_step
             or args.f32_head256_long_step or args.f32_head512_step
-            or args.f32_wide_heads):
-        if args.ring_nccl:
+            or args.f32_head512_long_step or args.f32_head512_kernels
+            or args.f32_wide_heads or args.profiler_drift):
+        if args.profiler_drift:
+            print("[0] the profiler's records over a long process")
+            profiler_drift(args.profiler_drift)
+            flag = "--profiler-drift"
+        elif args.ring_nccl:
             print("[19] ring attention over NCCL, a card a rank")
             print(json.dumps({"kernels": [ring_attention_phase(smi, "nccl")]}))
             flag = "--ring-nccl"
@@ -5624,6 +5750,16 @@ def main() -> None:
                   f"{LONG_SEQ}")
             f32_head256_long_step(smi)
             flag = "--f32-head256-long-step"
+        elif args.f32_head512_long_step:
+            print("[22] the heads-512 model's float32 training step at seq "
+                  f"{LONG_SEQ}")
+            f32_head512_long_step(smi)
+            flag = "--f32-head512-long-step"
+        elif args.f32_head512_kernels:
+            print("[22] the float32 K1, K2, K3a and K3b at d 512")
+            f32_head512_kernels(torch.Generator(device="cuda").manual_seed(
+                SEED + 100), smi, {})
+            flag = "--f32-head512-kernels"
         elif args.f32_wide_heads:
             print("[22] the float32 K1, K2, K3a and K3b at d 192 and 256")
             f32_wide_heads(torch.Generator(device="cuda").manual_seed(
@@ -5693,8 +5829,8 @@ def main() -> None:
     multihost_entry = multihost_phase(smi)
     print("[22] the float32 instances timed")
     (f32_rows, f32_err, long_launches, head256_launches,
-     head256_long_launches, head512_launches) = run_world(
-         1, None, f32_instances, smi)[0]
+     head256_long_launches, head512_launches,
+     head512_long_launches) = run_world(1, None, f32_instances, smi)[0]
 
     bwd = "flash_cosine_sim_attention_tpu/ops/bwd_kernel.py"
     src = "flash_cosine_sim_attention_tpu_torch/csrc/bwd_kernel.cu"
@@ -5795,8 +5931,8 @@ def main() -> None:
     kernels += [tp_entry, ring_entry, pipe_entry, multihost_entry]
     # K1's and K2's float32 instances, with their launches on phase 21's
     # float32 step (every rank's), K3a's and K3b's, with theirs on phase
-    # 22's float32 step at seq 16384 (2 steps), all four at d 256, and K1
-    # and K2 at d 512; phase 22 prints the other f32 rows
+    # 22's float32 step at seq 16384 (2 steps), all four at d 256 and at d
+    # 512; phase 22 prints the other f32 rows
     kernels += [dict(name=name, route="cuda", source=f"{csrc}/{file}",
                      replaces=f"flash_cosine_sim_attention_tpu/{tpu}",
                      launches=launches[key], max_abs_err=f32_err[row],
@@ -5835,7 +5971,15 @@ def main() -> None:
                      head512_launches),
                     ("bwd_kernel:onepass:f32:d512", "bwd_kernel.cu",
                      "ops/bwd_kernel.py:456", "K2 f32 d512", "k2",
-                     head512_launches))]
+                     head512_launches),
+                    # with their launches on phase 22's heads-512 float32
+                    # step at seq 16384 (2 steps)
+                    ("bwd_kernel:dq:f32:d512", "bwd_kernel.cu",
+                     "ops/bwd_kernel.py:64", "K3a f32 d512", "k3a",
+                     head512_long_launches),
+                    ("bwd_kernel:dkdv:f32:d512", "bwd_kernel.cu",
+                     "ops/bwd_kernel.py:282", "K3b f32 d512", "k3b",
+                     head512_long_launches))]
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke.py took {time.perf_counter() - started:.1f} s")
     print(smi)

@@ -157,7 +157,7 @@
 //   last chunk.  dQ is scaled once, at the store; causal key loops stop at
 //   the block's last diagonal, and query tiles run heaviest first.  Shared
 //   memory: 185 KB, 203 KB with a bias, at every d.
-// - f32 K2 runs on the tensor cores as 3xTF32 (`dkdv_wide_tf32_kernel`):
+// - f32 K2 runs on the tensor cores as 3xTF32 (`dkdv_wide_tf32_kernel<true>`):
 //   a block owns 32 keys and 256 columns of dK and dV (a 128-column
 //   remainder at d 384 or 1152) and walks 32-query tiles.  8 warps: for
 //   each 16 keys a dV pair and a dK pair.  The dV pair forms S^T, e^T and
@@ -192,12 +192,34 @@
 //   Bound at the heads-512 training shape (b4 h1 s1024 d512 causal): 3 x
 //   10.7 GFLOP on the TF32 tensor cores, 0.065 ms at 495 TFLOP/s (at the
 //   FMA rate, 67 TFLOP/s, 0.160 ms).
-// - The f32 K3a (`dq_wide_kernel<float>`) and K3b (`dkdv_wide_kernel`)
-//   stay FMA: each block owns 128 columns, S and dP' are summed over
-//   64-lane d chunks staged in f32, e and dS formed in f32, and the block
-//   adds only its columns (dQ += scale dS.K[:, cols], dK, dV likewise).
-//   Every column block forms the same S and dS again (4 times at d 512);
-//   dB is added by column block 0 alone.  f32 tiles, 64 x 64, 256 threads.
+// - f32 K3b is the same kernel without dQ (`dkdv_wide_tf32_kernel<false>`):
+//   no K column tile, no dS staging, no red adds; the bias tile (32
+//   queries x 32 keys, f32) comes through the ring with a tile's first
+//   chunk (double-buffered, as delta') and the dV warps add it to S^T in
+//   f32, never split, before exp2.  Shared memory: 188 KB, 197 KB with a
+//   bias.  Bound at the heads-512 shape with an (h, i, j) bias: 3 x 8.6
+//   GFLOP, 0.052 ms at 495 TFLOP/s.
+// - f32 K3a runs on the tensor cores as 3xTF32 (`dq_wide_tf32_kernel`), the
+//   bf16 K3a's design in K2's f32 streams: a block of 8 warps owns 64
+//   queries and 256 dQ columns (a 128-column remainder at d 384 or 1152)
+//   and walks 32-key tiles.  Warps 0-3 sum S = Q.K^T, warps 4-7 dP' =
+//   dO'.V^T, 16 queries a warp over whole chunks (Q's and dO''s rows are
+//   read by one warp each), in four accumulators closed every chunk as
+//   K2's.  Warps 0-3 form e (the bias added in f32), hand it to the dP'
+//   warp of their queries through shared memory (C-fragment order, a
+//   named barrier a pair), which forms dS, adds it to dB by float2 red
+//   adds before any rounding (column block 0 alone) and hands it back
+//   over e.  Then each warp adds dQ[:, its 128 columns] += dS.K[:, those
+//   columns], dS split in registers, K's column tile split as it is read.
+//   Per tile Q, dO', K and V stream in 64-lane chunks through a 3-stage
+//   cp.async ring, the block's own columns last: their K chunks land in
+//   the column tile the product reads.  dQ's chains close every 256 keys
+//   into the thread's own dQ words in global memory, as dq_tf32_kernel's
+//   above d 128; dQ is scaled there.  64 queries halve how often K and V
+//   stream against K2's 32 (a block forms 64 x 32 pairs for 192 streamed
+//   rows, K2 32 x 32 for 128) at the price of 128 blocks at b4 h1 s1024,
+//   one wave.  Shared memory: 194 KB, 204 KB with a bias.  Bound at the
+//   heads-512 shape: 3 x 6.4 GFLOP, 0.039 ms at 495 TFLOP/s.
 //
 // float32 K2 at every width up to 256 runs on the tensor cores as 3xTF32
 // split products (`dkdv_tf32_kernel<D, true>`), in dkdv_mma_kernel's
@@ -311,12 +333,7 @@
 
 namespace {
 
-constexpr int NT = 256;   // the wide route's FMA kernels' threads: 16 row
-                          // groups x 16 lanes
 constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
 struct Params {
   const void* q;        // (B, H, seq_q, d)
@@ -743,6 +760,40 @@ struct Tf32Layout {
   static constexpr size_t BIAS = 2 * size_t(BQ) * BS * sizeof(float);
 };
 
+// Closes a chain of sums rounded toward zero: a warp's C fragments acc
+// (this thread's rows[0] and rows[1], those at or past `limit` skipped,
+// and columns 8n + 2tq, + 1 of its first nd8 n8 tiles), times `mul`, go to
+// those places of `dst` (rows `ld` floats apart), added to nearest to
+// what an earlier chain left there (`stored`); acc restarts from 0
+template <int NA>
+__device__ __forceinline__ void close_chain_rows(float (&acc)[NA][4],
+                                                 float* dst,
+                                                 const int (&rows)[2],
+                                                 int limit, size_t ld,
+                                                 int nd8, float mul,
+                                                 bool stored, int tq) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (rows[h] >= limit) continue;
+#pragma unroll
+    for (int n = 0; n < NA; ++n) {
+      if (n >= nd8) break;
+      float2* w = reinterpret_cast<float2*>(dst + size_t(rows[h]) * ld +
+                                            n * 8 + 2 * tq);
+      float2 x = make_float2(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
+      if (stored) {
+        const float2 y = *w;
+        x.x += y.x, x.y += y.y;
+      }
+      *w = x;
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NA; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+}
+
 template <int D, bool DQ>
 __global__ void __launch_bounds__(Tf32Layout<D, DQ>::NT, 1)
     dkdv_tf32_kernel(Params p) {
@@ -853,41 +904,12 @@ __global__ void __launch_bounds__(Tf32Layout<D, DQ>::NT, 1)
   constexpr int CHAIN = 256 / BQ;
   bool stored = false;
   auto close_chain = [&]() {
-    float* dkb = static_cast<float*>(p.dk) + kvrow0 * D;
-    float* dvb = static_cast<float*>(p.dv) + kvrow0 * D;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (keys[h] >= p.seq_k) continue;
-      const size_t at = size_t(keys[h]) * D + 2 * tq;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const float* a = acc[NACC - 1][n];
-        if (forms_dk) {
-          float2 dk = make_float2(a[2 * h] * p.scale, a[2 * h + 1] * p.scale);
-          float2* dkp = reinterpret_cast<float2*>(dkb + at + n * 8);
-          if (stored) {
-            const float2 k2 = *dkp;
-            dk.x += k2.x, dk.y += k2.y;
-          }
-          *dkp = dk;
-        }
-        if (forms_dv) {
-          float2 dv = make_float2(acc[0][n][2 * h], acc[0][n][2 * h + 1]);
-          float2* dvp = reinterpret_cast<float2*>(dvb + at + n * 8);
-          if (stored) {
-            const float2 v2 = *dvp;
-            dv.x += v2.x, dv.y += v2.y;
-          }
-          *dvp = dv;
-        }
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < NACC; ++a)
-#pragma unroll
-      for (int n = 0; n < ND; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[a][n][e] = 0.f;
+    if (forms_dk)  // acc[1], or above d 128 this warp's one
+      close_chain_rows(acc[NACC - 1], static_cast<float*>(p.dk) + kvrow0 * D,
+                       keys, p.seq_k, D, ND, p.scale, stored, tq);
+    if (forms_dv)
+      close_chain_rows(acc[0], static_cast<float*>(p.dv) + kvrow0 * D, keys,
+                       p.seq_k, D, ND, 1.f, stored, tq);
     stored = true;
   };
 
@@ -1419,17 +1441,19 @@ struct DqTf32Layout {
 };
 
 // t (a warp's 16 x 8 NS tile, C fragments) = A.B^T over KS k steps of 8
-// floats, 3xTF32 (dq_tf32_kernel above d 128): A the warp's 16 rows and
-// B's 8 NS rows in shared memory (x4 ldmatrix at `a` and `b`, this lane's
-// row and byte offset), both split as they are read.  hi.hi and the small
-// terms lo.hi + hi.lo sum apart, each in two accumulators by the k step's
-// parity: four chains of dependent mma a quarter as long, and as many
-// fewer roundings toward zero on each (dP' sums d terms of one sign where
-// v and dO' share it, and dS takes the difference of two such sums)
-template <int NS, int KS, int RS>
+// floats, 3xTF32 (dq_tf32_kernel above d 128, and the wide route's f32
+// kernels over a chunk): A the warp's 16 rows and B's 8 NS rows in shared
+// memory (x4 ldmatrix at `a` and `b`, this lane's row and byte offset, B's
+// rows `bstride` bytes apart), both split as they are read.  hi.hi and
+// the small terms lo.hi + hi.lo sum apart, each in two accumulators by the
+// k step's parity: four chains of dependent mma a quarter as long, and as
+// many fewer roundings toward zero on each (dP' sums d terms of one sign
+// where v and dO' share it, and dS takes the difference of two such sums)
+template <int NS, int KS>
 __device__ __forceinline__ void scores_tf32x3(float (&t)[NS][4],
                                               const unsigned char* a,
-                                              const unsigned char* b) {
+                                              const unsigned char* b,
+                                              int bstride) {
   float hh[2][NS][4], sm[2][NS][4];
 #pragma unroll
   for (int r = 0; r < 2; ++r)
@@ -1447,7 +1471,7 @@ __device__ __forceinline__ void scores_tf32x3(float (&t)[NS][4],
 #pragma unroll
     for (int j = 0; j < NS / 2; ++j) {
       uint32_t bh[4], bl[4];
-      ldmatrix_x4(x, b + j * 16 * RS + st * 32);
+      ldmatrix_x4(x, b + j * 16 * bstride + st * 32);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         split_tf32(__uint_as_float(x[i]), bh[i], bl[i]);
@@ -1556,26 +1580,7 @@ __global__ void __launch_bounds__(DQ_NT, 1) dq_tf32_kernel(Params p) {
   float* const dqh = static_cast<float*>(p.dq) + qrow0 * D;
   bool stored = false;
   auto close_chain = [&]() {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (rows[h] >= p.seq_q) continue;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        float2* w = reinterpret_cast<float2*>(dqh + size_t(rows[h]) * D +
-                                              n * 8 + 2 * tq);
-        float2 x = make_float2(dq[n][2 * h] * p.scale,
-                               dq[n][2 * h + 1] * p.scale);
-        if (stored) {
-          const float2 y = *w;
-          x.x += y.x, x.y += y.y;
-        }
-        *w = x;
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+    close_chain_rows(dq, dqh, rows, p.seq_q, D, ND, p.scale, stored, tq);
     stored = true;
   };
 
@@ -1598,8 +1603,8 @@ __global__ void __launch_bounds__(DQ_NT, 1) dq_tf32_kernel(Params p) {
     // they are read
     float s[NS][4], dp[NS][4];
     if constexpr (WIDE) {  // K and V split as they are read too
-      scores_tf32x3<NS, D / 8, RS>(s, qs + arow, kt_s + brow);
-      scores_tf32x3<NS, D / 8, RS>(dp, dos + arow, vt_s + brow);
+      scores_tf32x3<NS, D / 8>(s, qs + arow, kt_s + brow, RS);
+      scores_tf32x3<NS, D / 8>(dp, dos + arow, vt_s + brow, RS);
     } else {
       // x4 ldmatrix of K / V hi and lo give the B fragments of 2 n8 tiles
 #pragma unroll
@@ -1683,275 +1688,10 @@ __global__ void __launch_bounds__(DQ_NT, 1) dq_tf32_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// Wide route's FMA kernels (d a multiple of WCOL past 256): K3a for both
-// dtypes, K2 and K3b for f32; f32 tiles of 64 queries x 64 keys, NT
-// threads (thread (ty, tx) holds queries / keys ty * 4 .. and columns tx
-// + 16 c).
+// The wide route: d a multiple of WCOL past 256, each block owning 256
+// output columns (a 128-column remainder at d 384 or 1152)
 
-constexpr int WKC = 64;    // d lanes of a Q, dO', K or V chunk
-constexpr int WCOL = 128;  // output columns of a block (ops/blocks.py WIDE_CHUNK)
-constexpr int WB = 64;     // queries and keys of a tile
-constexpr int WKS = WKC + 1, WCS = WCOL + 1, WPP = WB + 1;
-constexpr size_t WCHUNKS = 4 * size_t(WB) * WKS;  // floats: Q, dO', K, V chunks
-static_assert(2 * WB * WCS <= WCHUNKS, "two column tiles fit the chunks' room");
-
-// rows [row0, row0 + rows) x columns [c0, c0 + cols) of a (*, d) tensor as
-// f32 into shared rows `stride` floats apart; rows past `end` as 0
-template <typename T>
-__device__ __forceinline__ void load_cols(float* dst, const T* src, int row0,
-                                          int end, int rows, int c0, int cols,
-                                          int d, int stride) {
-  for (int idx = threadIdx.x; idx < rows * cols; idx += NT) {
-    const int r = idx / cols, cc = idx % cols, row = row0 + r;
-    dst[r * stride + cc] =
-        row < end ? to_f32(src[size_t(row) * d + c0 + cc]) : 0.f;
-  }
-}
-
-// One (WB queries) x (WB keys) tile at any width: s = q.k and dP' = dO'.v^T
-// summed over the d chunks (staged in `chunks`), then e and dS with every
-// hidden entry at 0.  Writes e to `es` (if given) and dS to
-// `dss`, both [query][key]; adds dS to `db` (if given) at (row, col).
-// Begins with a barrier (the chunks' room may be in use); `dl` must hold
-// the tile's delta' before it.
-template <typename T>
-__device__ __forceinline__ void wide_scores(
-    float* chunks, const T* qb, const T* dob, const T* kb, const T* vb,
-    const float* dl, float* es, float* dss, int q0, int k0, int d,
-    const Params& p, const uint8_t* mb, const float* bb, float* db) {
-  constexpr int R = 4;
-  float* qc = chunks;
-  float* doc = qc + WB * WKS;
-  float* kc = doc + WB * WKS;
-  float* vc = kc + WB * WKS;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[R][R], dp[R][R];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int cc = 0; cc < R; ++cc) s[r][cc] = dp[r][cc] = 0.f;
-  for (int d0 = 0; d0 < d; d0 += WKC) {
-    __syncthreads();  // the chunks' previous readers are done
-    load_cols(qc, qb, q0, p.seq_q, WB, d0, WKC, d, WKS);
-    load_cols(doc, dob, q0, p.seq_q, WB, d0, WKC, d, WKS);
-    load_cols(kc, kb, k0, p.seq_k, WB, d0, WKC, d, WKS);
-    load_cols(vc, vb, k0, p.seq_k, WB, d0, WKC, d, WKS);
-    __syncthreads();
-#pragma unroll 4
-    for (int dd = 0; dd < WKC; ++dd) {
-      float a[R], g[R], b[R], w[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        a[r] = qc[(ty * R + r) * WKS + dd];
-        g[r] = doc[(ty * R + r) * WKS + dd];
-      }
-#pragma unroll
-      for (int cc = 0; cc < R; ++cc) {
-        b[cc] = kc[(tx + 16 * cc) * WKS + dd];
-        w[cc] = vc[(tx + 16 * cc) * WKS + dd];
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-#pragma unroll
-        for (int cc = 0; cc < R; ++cc) {
-          s[r][cc] = fmaf(a[r], b[cc], s[r][cc]);
-          dp[r][cc] = fmaf(g[r], w[cc], dp[r][cc]);
-        }
-    }
-  }
-  const int diff = p.seq_k - p.seq_q;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int lr = ty * R + r, row = q0 + lr;
-    const float dlt = dl[lr];
-#pragma unroll
-    for (int cc = 0; cc < R; ++cc) {
-      const int lc = tx + 16 * cc, col = k0 + lc;
-      bool keep = row < p.seq_q && col < p.seq_k;
-      if (p.causal) keep = keep && col <= row + diff;
-      if (mb != nullptr && keep) keep = mb[col] != 0;
-      float e = 0.f, ds = 0.f;
-      if (keep) {
-        float x = s[r][cc] * p.c;
-        if (bb != nullptr) x += bb[size_t(row) * p.seq_k + col] * LOG2E;
-        e = exp2f(x);
-        ds = e * (dp[r][cc] - dlt);
-        if (db != nullptr) atomicAdd(db + size_t(row) * p.seq_k + col, ds);
-      }
-      if (es != nullptr) es[lr * WPP + lc] = e;
-      dss[lr * WPP + lc] = ds;
-    }
-  }
-}
-
-constexpr size_t wide_dkdv_smem() {
-  // chunks (or the Q and dO' column tiles), e and dS tiles, delta'
-  return sizeof(float) * (WCHUNKS + 2 * size_t(WB) * WPP + WB);
-}
-
-// K3b past d 256 for f32 (bf16 takes dkdv_wide_mma_kernel<false>, f32 K2
-// dkdv_wide_tf32_kernel): grid (key tiles, KVH, B x column blocks).
-__global__ void __launch_bounds__(NT) dkdv_wide_kernel(Params p, int d) {
-  using T = float;
-  constexpr int R = 4, DC = WCOL / 16;  // output columns per thread
-  extern __shared__ float wsmem[];
-  float* chunks = wsmem;
-  float* qcol = chunks;               // after the scores: Q[:, cols]
-  float* docol = chunks + WB * WCS;   // and dO'[:, cols]
-  float* es = chunks + WCHUNKS;       // WB x WPP
-  float* dss = es + WB * WPP;         // WB x WPP
-  float* dl = dss + WB * WPP;         // WB
-
-  const int ncb = d / WCOL;
-  const int bi = blockIdx.z / ncb, c0 = (blockIdx.z % ncb) * WCOL;
-  const int kvhi = blockIdx.y, k0 = blockIdx.x * WB;
-  const int G = p.H / p.KVH;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const size_t kvoff = (size_t(bi) * p.KVH + kvhi) * p.seq_k * d;
-  const T* kb = static_cast<const T*>(p.k) + kvoff;
-  const T* vb = static_cast<const T*>(p.v) + kvoff;
-  const uint8_t* mb = p.mask ? p.mask + size_t(bi) * p.seq_k : nullptr;
-
-  float adk[R][DC], adv[R][DC];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int cc = 0; cc < DC; ++cc) adk[r][cc] = adv[r][cc] = 0.f;
-
-  const int qfirst = p.causal ? max(0, k0 - (p.seq_k - p.seq_q)) : 0;
-  const int nq = (p.seq_q + WB - 1) / WB;
-  for (int g = 0; g < G; ++g) {
-    const int hi = kvhi * G + g;
-    const size_t qrow0 = (size_t(bi) * p.H + hi) * p.seq_q;
-    const T* qb = static_cast<const T*>(p.q) + qrow0 * d;
-    const T* dob = static_cast<const T*>(p.dO) + qrow0 * d;
-    const float* bb =
-        p.bias ? p.bias + size_t(p.bias_batch_dim ? bi : hi) * p.seq_q * p.seq_k
-               : nullptr;
-    for (int qt = qfirst / WB; qt < nq; ++qt) {
-      const int q0 = qt * WB;
-      for (int i = threadIdx.x; i < WB; i += NT)
-        dl[i] = q0 + i < p.seq_q ? p.delta[qrow0 + q0 + i] : 0.f;
-      wide_scores<T>(chunks, qb, dob, kb, vb, dl, es, dss, q0, k0, d, p, mb,
-                     bb, nullptr);
-      __syncthreads();  // e, dS staged; the chunks' readers are done
-      load_cols(qcol, qb, q0, p.seq_q, WB, c0, WCOL, d, WCS);
-      load_cols(docol, dob, q0, p.seq_q, WB, c0, WCOL, d, WCS);
-      __syncthreads();
-
-      // dV += e^T dO'[:, cols], dK += dS^T q[:, cols]
-#pragma unroll 4
-      for (int ii = 0; ii < WB; ++ii) {
-        float e[R], ds[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          e[r] = es[ii * WPP + ty * R + r];
-          ds[r] = dss[ii * WPP + ty * R + r];
-        }
-#pragma unroll
-        for (int cc = 0; cc < DC; ++cc) {
-          const float o = docol[ii * WCS + tx + 16 * cc];
-          const float qv = qcol[ii * WCS + tx + 16 * cc];
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            adv[r][cc] = fmaf(e[r], o, adv[r][cc]);
-            adk[r][cc] = fmaf(ds[r], qv, adk[r][cc]);
-          }
-        }
-      }
-    }
-  }
-
-  T* dkb = static_cast<T*>(p.dk) + kvoff + c0;
-  T* dvb = static_cast<T*>(p.dv) + kvoff + c0;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int col = k0 + ty * R + r;
-    if (col >= p.seq_k) continue;
-#pragma unroll
-    for (int cc = 0; cc < DC; ++cc) {
-      store(dkb + size_t(col) * d + tx + 16 * cc, adk[r][cc] * p.scale);
-      store(dvb + size_t(col) * d + tx + 16 * cc, adv[r][cc]);
-    }
-  }
-}
-
-constexpr size_t wide_dq_smem() {
-  // chunks (or the K column tile), the dS tile, delta'
-  return sizeof(float) * (WCHUNKS + size_t(WB) * WPP + WB);
-}
-
-// K3a past d 256: grid (query tiles, H, B x column blocks).  dB is added
-// by column block 0 alone.
-template <typename T>
-__global__ void __launch_bounds__(NT) dq_wide_kernel(Params p, int d) {
-  constexpr int R = 4, DC = WCOL / 16;
-  extern __shared__ float wsmem[];
-  float* chunks = wsmem;
-  float* kcol = chunks;                // after the scores: K[keys, cols]
-  float* dss = chunks + WCHUNKS;       // WB x WPP
-  float* dl = dss + WB * WPP;          // WB
-
-  const int ncb = d / WCOL;
-  const int bi = blockIdx.z / ncb, cb = blockIdx.z % ncb, c0 = cb * WCOL;
-  const int hi = blockIdx.y, q0 = blockIdx.x * WB;
-  const int kvhi = hi / (p.H / p.KVH);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const size_t qrow0 = (size_t(bi) * p.H + hi) * p.seq_q;
-  const size_t kvoff = (size_t(bi) * p.KVH + kvhi) * p.seq_k * d;
-  const T* qb = static_cast<const T*>(p.q) + qrow0 * d;
-  const T* dob = static_cast<const T*>(p.dO) + qrow0 * d;
-  const T* kb = static_cast<const T*>(p.k) + kvoff;
-  const T* vb = static_cast<const T*>(p.v) + kvoff;
-  for (int i = threadIdx.x; i < WB; i += NT)
-    dl[i] = q0 + i < p.seq_q ? p.delta[qrow0 + q0 + i] : 0.f;
-  const uint8_t* mb = p.mask ? p.mask + size_t(bi) * p.seq_k : nullptr;
-  const size_t bslice = size_t(p.bias_batch_dim ? bi : hi) * p.seq_q * p.seq_k;
-  const float* bb = p.bias ? p.bias + bslice : nullptr;
-  float* db = p.db && cb == 0 ? p.db + bslice : nullptr;
-
-  const int last_row = min(q0 + WB, p.seq_q) - 1;
-  const int kend =
-      p.causal ? max(0, min(p.seq_k, last_row + p.seq_k - p.seq_q + 1)) : p.seq_k;
-  const int nk = (kend + WB - 1) / WB;
-
-  float acc[R][DC];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int cc = 0; cc < DC; ++cc) acc[r][cc] = 0.f;
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * WB;
-    wide_scores<T>(chunks, qb, dob, kb, vb, dl, nullptr, dss, q0, k0, d, p,
-                   mb, bb, db);
-    __syncthreads();  // dS staged; the chunks' readers are done
-    load_cols(kcol, kb, k0, p.seq_k, WB, c0, WCOL, d, WCS);
-    __syncthreads();
-#pragma unroll 2
-    for (int jj = 0; jj < WB; ++jj) {
-      float a[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) a[r] = dss[(ty * R + r) * WPP + jj];
-#pragma unroll
-      for (int cc = 0; cc < DC; ++cc) {
-        const float kv = kcol[jj * WCS + tx + 16 * cc];
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r][cc] = fmaf(a[r], kv, acc[r][cc]);
-      }
-    }
-  }
-
-  T* dqb = static_cast<T*>(p.dq) + qrow0 * d + c0;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = q0 + ty * R + r;
-    if (row >= p.seq_q) continue;
-#pragma unroll
-    for (int cc = 0; cc < DC; ++cc)
-      store(dqb + size_t(row) * d + tx + 16 * cc, acc[r][cc] * p.scale);
-  }
-}
+constexpr int WCOL = 128;  // d's padding unit (ops/blocks.py WIDE_CHUNK)
 
 // ---------------------------------------------------------------------------
 // Wide route's dK/dV kernel on the tensor cores (bf16): K2 (DQ = true) and
@@ -2306,14 +2046,14 @@ __global__ void __launch_bounds__(XNT, 1) dkdv_wide_mma_kernel(Params p, int d) 
 }
 
 // ---------------------------------------------------------------------------
-// Wide route's one-pass dK/dV kernel on the tensor cores in float32
-// (3xTF32): K2, d a multiple of WCOL past 256.  Grid (KVH, B x column
-// blocks of XCOL, key tiles of ZBK), key tiles slowest; ZNT threads: warp
-// w (key group w % 2, keys k0 + 16 (w % 2) ..) forms S^T, e^T and dV +=
-// e^T.dO' if w % 4 < 2, else dP^T, dS^T and dK += dS^T.Q, summing S^T or
-// dP^T over half w / 4 of every chunk and forming its product over that
-// half of the block's columns; all eight add dS.K[:, cols] to the dQ
-// scratch.
+// Wide route's dK/dV kernel on the tensor cores in float32 (3xTF32): K2
+// (DQ = true) and K3b (DQ = false), d a multiple of WCOL past 256.  Grid
+// (KVH, B x column blocks of XCOL, key tiles of ZBK), key tiles slowest;
+// ZNT threads: warp w (key group w % 2, keys k0 + 16 (w % 2) ..) forms
+// S^T, e^T and dV += e^T.dO' if w % 4 < 2, else dP^T, dS^T and dK +=
+// dS^T.Q, summing S^T or dP^T over half w / 4 of every chunk and forming
+// its product over that half of the block's columns; K2's eight add
+// dS.K[:, cols] to the dQ scratch.
 
 constexpr int ZNT = 256;               // threads: 8 warps
 constexpr int ZBK = 32;                // keys a block
@@ -2322,29 +2062,36 @@ constexpr int ZKC = 64;                // d lanes of a chunk (256 bytes)
 constexpr int ZCS = 4 * ZKC + 16;      // its shared row stride (17 units)
 constexpr int ZRF = XCOL + 4;          // column tile row stride, floats
 constexpr int ZDSS = ZBK + 4;          // e^T and dS staging row stride, floats
+constexpr int ZBS = ZBK + 4;           // bias row stride, floats
 constexpr int ZSTAGES = 3;             // chunk stages in flight
+template <bool DQ>
 struct ZLayout {
   // the chunk stages (K's, V's, Q's and dO''s rows); the Q and dO' column
-  // tiles (ZBQ queries x the block's columns); K's column tile; the e^T
-  // and dS staging tiles (queries x keys); the warp pairs' halves of S^T
-  // and dP^T (8 warps x their C fragments); two delta' rows
+  // tiles (ZBQ queries x the block's columns); K2's K column tile; the e^T
+  // staging tile and K2's dS staging tile (queries x keys); the warp
+  // pairs' halves of S^T and dP^T (8 warps x their C fragments); two
+  // delta' rows; then K3b's two bias tiles (ZBQ queries x ZBK keys, f32)
   static constexpr size_t STAGE = size_t(2 * ZBK + 2 * ZBQ) * ZCS;
   static constexpr size_t QT = size_t(ZBQ) * ZRF * 4;  // a Q or dO' tile
   static constexpr size_t KT = size_t(ZBK) * ZRF * 4;  // K's column tile
   static constexpr size_t ST = size_t(ZBQ) * ZDSS * 4;  // a staging tile
   static constexpr size_t COLS = ZSTAGES * STAGE;
   static constexpr size_t KCOL = COLS + 2 * QT;
-  static constexpr size_t ES = KCOL + KT;
+  static constexpr size_t ES = KCOL + (DQ ? KT : 0);
   static constexpr size_t DS = ES + ST;
-  static constexpr size_t XS = DS + ST;
+  static constexpr size_t XS = DS + (DQ ? ST : 0);
   static constexpr size_t DL = XS + size_t(ZNT) * (ZBQ / 2) * 4;
-  static constexpr size_t SMEM = DL + 2 * size_t(ZBQ) * 4;
+  static constexpr size_t BASE = DL + 2 * size_t(ZBQ) * 4;
+  static constexpr size_t BIAS = 2 * size_t(ZBQ) * ZBS * 4;
 };
-static_assert(ZLayout::SMEM <= 232448, "the wide f32 K2's shared memory");
+static_assert(ZLayout<true>::BASE <= 232448 &&
+                  ZLayout<false>::BASE + ZLayout<false>::BIAS <= 232448,
+              "the wide f32 K2's and K3b's shared memory");
 
+template <bool DQ>
 __global__ void __launch_bounds__(ZNT, 1) dkdv_wide_tf32_kernel(Params p,
                                                                 int d) {
-  using L = ZLayout;
+  using L = ZLayout<DQ>;
   constexpr int NQ = ZBQ / 8;           // n8 tiles of a warp's (16 keys x ZBQ)
   constexpr int NA = XCOL / 2 / 8;      // n8 tiles of its dK or dV columns
   constexpr int NDQ = XCOL / 4 / 8;     // n8 tiles of a warp's dQ columns
@@ -2357,6 +2104,7 @@ __global__ void __launch_bounds__(ZNT, 1) dkdv_wide_tf32_kernel(Params p,
   float* dss = reinterpret_cast<float*>(msmem + L::DS);
   float* xsh = reinterpret_cast<float*>(msmem + L::XS);
   float* dls = reinterpret_cast<float*>(msmem + L::DL);  // 2 x ZBQ
+  float* bss = reinterpret_cast<float*>(msmem + L::BASE);  // K3b: 2 x bias
 
   const int ncb = (d + XCOL - 1) / XCOL;
   const int kvhi = blockIdx.x, bi = blockIdx.y / ncb;
@@ -2406,9 +2154,11 @@ __global__ void __launch_bounds__(ZNT, 1) dkdv_wide_tf32_kernel(Params p,
                  in ? src + size_t(row) * d + off + cc : src, in ? 16 : 0);
     }
   };
+  const bool bias16 =
+      p.seq_k % 4 == 0 && reinterpret_cast<uintptr_t>(p.bias) % 16 == 0;
   // step st's K and V chunks into stage st % ZSTAGES, and its Q and dO'
   // chunks there too, or (the block's own columns) into the column tiles;
-  // a pair's first step also brings its delta'
+  // a pair's first step also brings its delta' and K3b's bias tile
   auto issue = [&](int st) {
     if (st < steps) {
       const int it = st / nch, i = st - it * nch;
@@ -2435,12 +2185,20 @@ __global__ void __launch_bounds__(ZNT, 1) dkdv_wide_tf32_kernel(Params p,
           cp_async4(dls + (it & 1) * ZBQ + r,
                     in ? p.delta + qrow0 + q0 + r : p.delta, in ? 4 : 0);
         }
+        if (!DQ && p.bias != nullptr) {  // queries q0.., keys k0.., past
+                                         // either length as 0
+          const int hb = p.bias_batch_dim ? bi : kvhi * G + it / per_head;
+          load_bias_tile<ZNT>(
+              bss + (it & 1) * ZBQ * ZBS,
+              p.bias + (size_t(hb) * p.seq_q + q0) * p.seq_k + k0, ZBQ, ZBK,
+              p.seq_q - q0, p.seq_k - k0, p.seq_k, ZBS, bias16);
+        }
       }
     }
     cp_async_commit();
   };
 
-  if (total > 0)  // the dQ products read K[keys, cols]
+  if (DQ && total > 0)  // K2's dQ products read K[keys, cols]
     load(msmem + L::KCOL, kb, k0, ZBK, p.seq_k, c0, XCOL, ncols, ZRF * 4);
 #pragma unroll
   for (int st = 0; st < ZSTAGES - 1; ++st) issue(st);
@@ -2474,52 +2232,24 @@ __global__ void __launch_bounds__(ZNT, 1) dkdv_wide_tf32_kernel(Params p,
   const float mul = forms_dv ? 1.f : p.scale;
   bool stored = false;
   auto close_chain = [&]() {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (keys[h] >= p.seq_k) continue;
-#pragma unroll
-      for (int n = 0; n < NA; ++n) {
-        if (n * 8 >= hcols) break;
-        float2* w = reinterpret_cast<float2*>(dst + size_t(keys[h]) * d +
-                                              n * 8 + 2 * tq);
-        float2 x = make_float2(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
-        if (stored) {
-          const float2 y = *w;
-          x.x += y.x, x.y += y.y;
-        }
-        *w = x;
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NA; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    close_chain_rows(acc, dst, keys, p.seq_k, d, hcols / 8, mul, stored, tq);
     stored = true;
   };
 
   for (int it = 0; it < total; ++it) {
-    // S^T (dV warps) or dP^T (dK warps) over the warp's half of d, in four
-    // accumulators: hi.hi in xb, the small terms lo.hi + hi.lo in xs, each
-    // by the k step's parity, as dkdv_tf32_kernel's above d 128 (dP's terms
-    // share a sign where v and dO' do, and dS = e (dP - delta) takes the
-    // difference of two such sums); every chunk they are closed into xc,
-    // added to nearest, so no chain of sums rounded toward zero is longer
-    // than a chunk's (a chain over the warp's 256 lanes at d 512 put dq and
-    // dk at 9.8e-5 and 8.7e-5 of the float32 bar's 1e-4 over 8192 queries
-    // and keys of mean-3 values)
+    // S^T (dV warps) or dP^T (dK warps) over the warp's half of d, each
+    // chunk's in four accumulators (scores_tf32x3, as dkdv_tf32_kernel's
+    // above d 128); every chunk they are closed into xc, added to nearest,
+    // so no chain of sums rounded toward zero is longer than a chunk's (a
+    // chain over the warp's 256 lanes at d 512 put dq and dk at 9.8e-5 and
+    // 8.7e-5 of the float32 bar's 1e-4 over 8192 queries and keys of
+    // mean-3 values)
     float xc[NQ][4];
 #pragma unroll
     for (int n = 0; n < NQ; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) xc[n][e] = 0.f;
     for (int i = 0; i < nch; ++i) {
-      float xb[2][NQ][4], xs[2][NQ][4];
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int n = 0; n < NQ; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) xb[r][n][e] = xs[r][n][e] = 0.f;
       const int st = it * nch + i;
       cp_async_wait<ZSTAGES - 2>();
       __syncthreads();  // step st's chunks (and its pair's delta') have
@@ -2534,34 +2264,13 @@ __global__ void __launch_bounds__(ZNT, 1) dkdv_wide_tf32_kernel(Params p,
           own ? (forms_dv ? qct : doct) + ((ce + i) % nch * ZKC - c0) * 4
               : stg + (2 * ZBK + (forms_dv ? 0 : ZBQ)) * ZCS;
       const int bstride = own ? ZRF * 4 : ZCS;
-      const unsigned char* bt = bsrc + brow * bstride + bcol;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        uint32_t a[4], ah[4], al[4];
-        ldmatrix_x4(a, stg + arow + kk * 32);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(a[e]), ah[e], al[e]);
-        const int r = kk & 1;
-#pragma unroll
-        for (int j = 0; j < NQ / 2; ++j) {
-          uint32_t b[4], bh[4], bl[4];
-          ldmatrix_x4(b, bt + j * 16 * bstride + kk * 32);
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            split_tf32(__uint_as_float(b[e]), bh[e], bl[e]);
-          mma_tf32(xs[r][2 * j], al, bh[0], bh[1]);
-          mma_tf32(xs[r][2 * j], ah, bl[0], bl[1]);
-          mma_tf32(xb[r][2 * j], ah, bh[0], bh[1]);
-          mma_tf32(xs[r][2 * j + 1], al, bh[2], bh[3]);
-          mma_tf32(xs[r][2 * j + 1], ah, bl[2], bl[3]);
-          mma_tf32(xb[r][2 * j + 1], ah, bh[2], bh[3]);
-        }
-      }
+      float t[NQ][4];
+      scores_tf32x3<NQ, KSTEPS>(t, stg + arow, bsrc + brow * bstride + bcol,
+                                bstride);
 #pragma unroll
       for (int n = 0; n < NQ; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          xc[n][e] += (xb[0][n][e] + xb[1][n][e]) + (xs[0][n][e] + xs[1][n][e]);
+        for (int e = 0; e < 4; ++e) xc[n][e] += t[n][e];
     }
 
     const size_t qrow0 = q_rows(it);
@@ -2584,8 +2293,10 @@ __global__ void __launch_bounds__(ZNT, 1) dkdv_wide_tf32_kernel(Params p,
       for (int e = 0; e < 4; ++e)
         x[n][e] = h0[(n * 4 + e) * 32] + h0[(NQ * 4 + n * 4 + e) * 32];
     // e^T in the C layout: entry (n, 2h + xx) is key keys[h], query q0 + 8n
-    // + 2tq + xx; a tile whose every pair is visible skips the masks.  The
-    // first-half dV warps stage it, where the dK warps of the same keys
+    // + 2tq + xx; a tile whose every pair is visible skips the masks.  K3b's
+    // bias comes from its staged tile (this thread's keys, row `col` at
+    // bt[col * ZBS + 8 h]), added to the logit in f32, never split.  The
+    // first-half dV warps stage e^T, where the dK warps of the same keys
     // (the same lanes) read it
     const bool whole = keys_whole && q0 + ZBQ <= p.seq_q &&
                        (!p.causal || k0 + ZBK - 1 <= q0 + diff);
@@ -2597,6 +2308,8 @@ __global__ void __launch_bounds__(ZNT, 1) dkdv_wide_tf32_kernel(Params p,
       }
       return keep;
     };
+    const bool has_bias = !DQ && p.bias != nullptr;
+    const float* bt = bss + (it & 1) * ZBQ * ZBS + kg * 16 + g;
     if (forms_dv) {
 #pragma unroll
       for (int n = 0; n < NQ; ++n)
@@ -2605,8 +2318,9 @@ __global__ void __launch_bounds__(ZNT, 1) dkdv_wide_tf32_kernel(Params p,
           const int col = n * 8 + 2 * tq + xx;
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const float e =
-                keep_at(h, q0 + col) ? exp2f(x[n][2 * h + xx] * p.c) : 0.f;
+            float lg = x[n][2 * h + xx] * p.c;
+            if (has_bias) lg += bt[col * ZBS + 8 * h] * LOG2E;
+            const float e = keep_at(h, q0 + col) ? exp2f(lg) : 0.f;
             x[n][2 * h + xx] = e;
             if (half == 0) es[col * ZDSS + kg * 16 + g + 8 * h] = e;
           }
@@ -2619,7 +2333,7 @@ __global__ void __launch_bounds__(ZNT, 1) dkdv_wide_tf32_kernel(Params p,
       add_product_tf32x3<ZBQ, XCOL / 2, ZRF>(
           acc, x, reinterpret_cast<const float*>(doct) + half * hcols, lane,
           hcols / 8);
-    } else {  // dS^T = e^T (dP^T - delta'), staged; dK += dS^T.Q likewise
+    } else {  // dS^T = e^T (dP^T - delta') (K2: staged); dK += dS^T.Q likewise
 #pragma unroll
       for (int n = 0; n < NQ; ++n)
 #pragma unroll
@@ -2632,21 +2346,21 @@ __global__ void __launch_bounds__(ZNT, 1) dkdv_wide_tf32_kernel(Params p,
             const float ds =
                 keep_at(h, q0 + col) ? es[at] * (x[n][2 * h + xx] - dlt) : 0.f;
             x[n][2 * h + xx] = ds;
-            if (half == 0) dss[at] = ds;
+            if (DQ && half == 0) dss[at] = ds;
           }
         }
       add_product_tf32x3<ZBQ, XCOL / 2, ZRF>(
           acc, x, reinterpret_cast<const float*>(qct) + half * hcols, lane,
           hcols / 8);
     }
-    // dQ rows of this tile += dS.K[:, cols] over the block's ZBK keys: warp
-    // w takes query group w % 2 and columns [(w / 2) ncols / 4, ...).  A
-    // lane's float2 reads of dS rows g and g + 8 at keys 8kk + 2tq are dS's
-    // C fragment of that k8 step, fed to add_product_tf32x3 as an A
+    // K2: dQ rows of this tile += dS.K[:, cols] over the block's ZBK keys:
+    // warp w takes query group w % 2 and columns [(w / 2) ncols / 4, ...).
+    // A lane's float2 reads of dS rows g and g + 8 at keys 8kk + 2tq are
+    // dS's C fragment of that k8 step, fed to add_product_tf32x3 as an A
     // fragment; K's column tile, each word read by two warps, is split as
     // it is read
-    __syncthreads();  // dS is staged
-    {
+    if constexpr (DQ) {
+      __syncthreads();  // dS is staged
       const int qg = warp & 1, pcols = ncols / 4, pc0 = (warp >> 1) * pcols;
       float dq[NDQ][4];
 #pragma unroll
@@ -2927,6 +2641,267 @@ __global__ void __launch_bounds__(YNT, 1) dq_wide_mma_kernel(Params p, int d) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Wide route's dQ / dB kernel on the tensor cores in float32 (3xTF32): K3a,
+// d a multiple of WCOL past 256.  Grid (query tiles of UBQ, H, B x column
+// blocks of XCOL), query tiles heaviest first; UNT threads: warp w owns
+// queries q0 + 16 (w % 4) .. and half w / 4 of the block's dQ columns;
+// warps 0-3 form S and e, warps 4-7 dP' and dS, each over whole chunks.
+
+constexpr int UNT = 256;      // threads: 8 warps
+constexpr int UBQ = 64;       // queries of a block
+constexpr int UBK = 32;       // keys a tile
+constexpr int UBS = UBK + 8;  // bias row stride, floats (as DqLayout's)
+struct ULayout {
+  // the chunk stages (Q's, dO''s, K's and V's rows); K's column tile (the
+  // tile's keys x the block's columns); e, then dS, as C fragments; then
+  // the bias tile (UBQ queries x UBK keys, f32).  A key tile's own chunks
+  // (the block's columns) come last and K's land in the column tile, the
+  // product's operand, not in the ring; the bias tile comes with the first
+  // of them.  Both are read only at the tile's end, so one buffer of each
+  // serves: the next tile's own chunks are issued at least ZSTAGES - 1
+  // steps into it (d being at least 384), after its first barrier
+  static constexpr size_t STAGE = size_t(2 * UBQ + 2 * UBK) * ZCS;
+  static constexpr size_t KCOL = ZSTAGES * STAGE;
+  static constexpr size_t ES = KCOL + size_t(UBK) * ZRF * 4;
+  static constexpr size_t BASE = ES + sizeof(float) * UBQ * UBK;
+  static constexpr size_t BIAS = sizeof(float) * UBQ * UBS;
+};
+static_assert(ULayout::BASE + ULayout::BIAS <= 232448,
+              "the wide f32 K3a's shared memory");
+
+__global__ void __launch_bounds__(UNT, 1) dq_wide_tf32_kernel(Params p,
+                                                              int d) {
+  using L = ULayout;
+  constexpr int NK = UBK / 8;         // n8 tiles of a warp's (16 x UBK) tile
+  constexpr int NA = XCOL / 2 / 8;    // n8 tiles of its dQ columns
+  constexpr int KSTEPS = ZKC / 8;     // k steps of a chunk
+  extern __shared__ __align__(16) unsigned char msmem[];
+  unsigned char* kct = msmem + L::KCOL;                    // K[keys, cols]
+  float* es = reinterpret_cast<float*>(msmem + L::ES);     // e, then dS
+  float* bss = reinterpret_cast<float*>(msmem + L::BASE);  // the bias tile
+
+  const int ncb = (d + XCOL - 1) / XCOL;
+  const int bi = blockIdx.z / ncb, cb = blockIdx.z % ncb, c0 = cb * XCOL;
+  const int ncols = min(XCOL, d - c0);  // 256, or 128 (d an odd multiple)
+  const int hcols = ncols / 2;          // a warp's dQ columns
+  const int hi = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * UBQ;  // heaviest first
+  const int kvhi = hi / (p.H / p.KVH);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int qg = warp & 3;             // the warp's 16 queries
+  const bool forms_s = warp < 4;       // warp-uniform roles
+  const int part = warp >> 2;          // its half of the dQ columns
+  const int diff = p.seq_k - p.seq_q;
+  const int RB = 4 * d;                // bytes of a row
+  const int nch = d / ZKC;             // chunks of it
+  // a tile's chunks run from the one past the block's columns round to
+  // them, so the block's own chunks come last (dkdv_wide_tf32_kernel's
+  // order)
+  const int nown = ncols / ZKC, ce = c0 / ZKC + nown;
+  const size_t qrow0 = (size_t(bi) * p.H + hi) * p.seq_q;
+  const size_t kvrow0 = (size_t(bi) * p.KVH + kvhi) * p.seq_k;
+  auto bytes = [&](const void* t, size_t row0) {
+    return reinterpret_cast<const unsigned char*>(static_cast<const float*>(t) +
+                                                  row0 * d);
+  };
+  const unsigned char* qb = bytes(p.q, qrow0);
+  const unsigned char* dob = bytes(p.dO, qrow0);
+  const unsigned char* kb = bytes(p.k, kvrow0);
+  const unsigned char* vb = bytes(p.v, kvrow0);
+  const uint8_t* mb = p.mask ? p.mask + size_t(bi) * p.seq_k : nullptr;
+  const size_t bslice = size_t(p.bias_batch_dim ? bi : hi) * p.seq_q * p.seq_k;
+  const float* bb = p.bias ? p.bias + bslice : nullptr;
+  float* db = p.db && cb == 0 ? p.db + bslice : nullptr;  // counted once
+
+  // keys this block can see: all, or (causal) up to its last row's diagonal
+  const int last_row = min(q0 + UBQ, p.seq_q) - 1;
+  const int kend = p.causal ? max(0, min(p.seq_k, last_row + diff + 1)) : p.seq_k;
+  const int nk = (kend + UBK - 1) / UBK;
+  const int steps = nk * nch;  // (key tile, chunk), chunks fastest
+
+  const bool bias16 =
+      p.seq_k % 4 == 0 && reinterpret_cast<uintptr_t>(p.bias) % 16 == 0;
+  // step st's Q, dO', K and V chunks into stage st % ZSTAGES, K's own
+  // chunks into the column tile; the first own step also brings the bias
+  // tile
+  auto issue = [&](int st) {
+    if (st < steps) {
+      const int kt = st / nch, i = st - kt * nch, k0 = kt * UBK;
+      const int off = (ce + i) % nch * ZKC;
+      const bool own = i >= nch - nown;
+      unsigned char* stg = msmem + (st % ZSTAGES) * L::STAGE;
+      load_row_part<UNT>(stg, qb, q0, UBQ, p.seq_q, RB, 4 * off, 4 * ZKC, ZCS);
+      load_row_part<UNT>(stg + UBQ * ZCS, dob, q0, UBQ, p.seq_q, RB, 4 * off,
+                         4 * ZKC, ZCS);
+      load_row_part<UNT>(own ? kct + (off - c0) * 4 : stg + 2 * UBQ * ZCS, kb,
+                         k0, UBK, p.seq_k, RB, 4 * off, 4 * ZKC,
+                         own ? ZRF * 4 : ZCS);
+      load_row_part<UNT>(stg + (2 * UBQ + UBK) * ZCS, vb, k0, UBK, p.seq_k, RB,
+                         4 * off, 4 * ZKC, ZCS);
+      if (i == nch - nown && bb != nullptr)
+        load_bias_tile<UNT>(bss, bb + size_t(q0) * p.seq_k + k0, UBQ, UBK,
+                            p.seq_q - q0, p.seq_k - k0, p.seq_k, UBS, bias16);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int st = 0; st < ZSTAGES - 1; ++st) issue(st);
+
+  // this thread's query rows: C rows g and g + 8 of the warp's 16
+  const int rows[2] = {q0 + qg * 16 + g, q0 + qg * 16 + g + 8};
+  float dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    dlt[h] = rows[h] < p.seq_q ? p.delta[qrow0 + rows[h]] : 0.f;
+  // dS goes to dB as float2 adds where a row's entries pair up 8-byte
+  // aligned (even seq_k: the tile columns 2tq are even)
+  const bool db2 = p.seq_k % 2 == 0;
+  // the warp's A rows (its 16 queries of Q or dO') in a chunk stage; its B
+  // rows (K or V: x4 ldmatrix of 2 n8 tiles) from their first
+  const int arow = (forms_s ? 0 : UBQ * ZCS) + (qg * 16 + (lane & 15)) * ZCS +
+                   (lane >> 4) * 16;
+  const int brow = (lane & 7) + (lane >> 4) * 8;
+  const int bcol = ((lane >> 3) & 1) * 16;
+  float* ef = es + qg * NK * 4 * 32 + lane;  // this lane's e / dS entries
+
+  // dQ sums every visible key, each mma rounding its sum toward zero: every
+  // CHAIN tiles (256 keys) the chain is closed into the thread's own dQ
+  // words in global memory (scaled), added to nearest, as dq_tf32_kernel
+  // does above d 128, and the accumulators restart from 0
+  constexpr int CHAIN = 256 / UBK;
+  float acc[NA][4];  // dQ[rows, c0 + part * hcols ..]
+#pragma unroll
+  for (int n = 0; n < NA; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float* const dqh = static_cast<float*>(p.dq) + qrow0 * d + c0 + part * hcols;
+  bool stored = false;
+  auto close_chain = [&]() {
+    close_chain_rows(acc, dqh, rows, p.seq_q, d, hcols / 8, p.scale, stored,
+                     tq);
+    stored = true;
+  };
+
+  for (int kt = 0; kt < nk; ++kt) {
+    // S (warps 0-3) or dP' (warps 4-7) over d, each chunk's in four
+    // accumulators (scores_tf32x3) closed into xc, added to nearest, as
+    // dkdv_wide_tf32_kernel's S^T and dP^T
+    float xc[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xc[n][e] = 0.f;
+    for (int i = 0; i < nch; ++i) {
+      const int st = kt * nch + i;
+      cp_async_wait<ZSTAGES - 2>();
+      __syncthreads();  // step st's chunks have landed, and step st - 1's
+                        // readers are done
+      issue(st + ZSTAGES - 1);  // into step st - 1's stage
+      // the warp's own Q or dO' rows split at each fragment load, K's and
+      // V's (four warps read each) too; the own chunks' K rows from the
+      // column tile
+      const unsigned char* stg = msmem + (st % ZSTAGES) * L::STAGE;
+      const bool own = forms_s && i >= nch - nown;
+      const unsigned char* bsrc =
+          own ? kct + ((ce + i) % nch * ZKC - c0) * 4
+              : stg + (2 * UBQ + (forms_s ? 0 : UBK)) * ZCS;
+      const int bstride = own ? ZRF * 4 : ZCS;
+      float t[NK][4];
+      scores_tf32x3<NK, KSTEPS>(t, stg + arow, bsrc + brow * bstride + bcol,
+                                bstride);
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xc[n][e] += t[n][e];
+    }
+
+    // e and dS in the C layout: entry (n, 2h + x) is query rows[h], key k0
+    // + 8n + 2tq + x.  A tile whose every pair is visible (no key mask,
+    // inside both lengths and the causal diagonal) skips the masks; hidden
+    // entries are selected to exact 0
+    const int k0 = kt * UBK;
+    const bool whole = mb == nullptr && k0 + UBK <= p.seq_k &&
+                       q0 + UBQ <= p.seq_q &&
+                       (!p.causal || k0 + UBK - 1 <= q0 + diff);
+    auto keep_at = [&](int h, int c) {
+      if (whole) return true;
+      bool keep = rows[h] < p.seq_q && c < p.seq_k;
+      if (p.causal) keep = keep && c <= rows[h] + diff;
+      if (mb != nullptr) keep = keep && mb[min(c, p.seq_k - 1)] != 0;
+      return keep;
+    };
+    if (forms_s) {
+      // e = exp2(c s + bias log2e), the bias from its staged tile (this
+      // thread's row g and column 2tq), added in f32, never split
+      const float* bt = bss + (qg * 16 + g) * UBS + 2 * tq;
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float2 bv = make_float2(0.f, 0.f);
+          if (bb != nullptr)
+            bv = *reinterpret_cast<const float2*>(bt + 8 * h * UBS + n * 8);
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const float lg = xc[n][2 * h + x] * p.c + (x ? bv.y : bv.x) * LOG2E;
+            ef[(n * 4 + 2 * h + x) * 32] =
+                keep_at(h, k0 + n * 8 + 2 * tq + x) ? exp2f(lg) : 0.f;
+          }
+        }
+    }
+    pair_sync(1 + qg);  // e is staged for the dP' warp of these queries
+    if (!forms_s) {
+      // dS = e (dP' - delta'), written back over e; each (row, key pair)
+      // adds its two dS to dB at once, before any rounding (column block 0
+      // alone, else dB would be counted once a column block)
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = k0 + n * 8 + 2 * tq;
+          float ds[2];
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            float* at = ef + (n * 4 + 2 * h + x) * 32;
+            ds[x] = keep_at(h, col + x) ? *at * (xc[n][2 * h + x] - dlt[h])
+                                        : 0.f;
+            xc[n][2 * h + x] = ds[x];
+            *at = ds[x];
+          }
+          if (db != nullptr && (ds[0] != 0.f || ds[1] != 0.f)) {
+            float* at = db + size_t(rows[h]) * p.seq_k + col;
+            if (db2 && col + 1 < p.seq_k) {
+              atomicAdd(reinterpret_cast<float2*>(at), make_float2(ds[0], ds[1]));
+            } else {
+              if (ds[0] != 0.f) atomicAdd(at, ds[0]);
+              if (ds[1] != 0.f) atomicAdd(at + 1, ds[1]);
+            }
+          }
+        }
+    }
+    pair_sync(1 + qg);  // dS is staged for the S warp
+    if (forms_s) {
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xc[n][e] = ef[(n * 4 + e) * 32];
+    }
+    // dQ[:, the warp's columns] += dS.K[:, those columns], dS in f32 (split
+    // hi / lo in registers): the C fragment of dS holds keys 2q and 2q + 1,
+    // the tf32 A fragment's k indices q and q + 4 when K's rows are read in
+    // that order (add_product_tf32x3); K's column tile, each word read by
+    // four warps, is split as it is read
+    add_product_tf32x3<UBK, XCOL / 2, ZRF>(
+        acc, xc, reinterpret_cast<const float*>(kct) + part * hcols, lane,
+        hcols / 8);
+    if ((kt + 1) % CHAIN == 0 && kt + 1 < nk) close_chain();
+  }
+  cp_async_wait<0>();
+  close_chain();  // the last chain, or (no key visible) zeros
+}
+
 enum Which { ONEPASS = 0, DQ = 1, DKDV = 2 };
 
 template <typename Kernel, typename... Extra>
@@ -2991,53 +2966,35 @@ template <typename T>
 cudaError_t run_wide(Which which, const Params& p, int B, int d,
                      cudaStream_t s) {
   if (d % WCOL != 0) return cudaErrorInvalidValue;
-  const int ncb = d / WCOL;
-  auto launch_w = [&](auto kernel, dim3 grid, size_t smem) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, NT, smem, s>>>(p, d);
-    return cudaGetLastError();
-  };
+  // 16-byte copies: every row is a 16-byte multiple, so aligned bases do
+  for (const void* t : {p.q, p.k, p.v, p.dO})
+    if (reinterpret_cast<uintptr_t>(t) % 16 != 0) return cudaErrorMisalignedAddress;
+  const int ncb = (d + XCOL - 1) / XCOL;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    for (const void* t : {p.q, p.k, p.v, p.dO})
-      if (reinterpret_cast<uintptr_t>(t) % 16 != 0) return cudaErrorMisalignedAddress;
     if (which == DQ)
-      return launch_w(dq_wide_mma_kernel,
-                      dim3((p.seq_q + YBQ - 1) / YBQ, p.H,
-                           B * ((d + YCOL - 1) / YCOL)),
-                      YLayout::BASE + (p.bias ? YLayout::BIAS : 0));
+      return launch(dq_wide_mma_kernel,
+                    dim3((p.seq_q + YBQ - 1) / YBQ, p.H, B * ncb), YNT,
+                    YLayout::BASE + (p.bias ? YLayout::BIAS : 0), s, p, d);
     // key tiles slowest, so the causal blocks with the most work go first
-    const dim3 grid(p.KVH, B * ((d + XCOL - 1) / XCOL), (p.seq_k + MBK - 1) / MBK);
-    auto launch_x = [&](auto kernel, size_t smem) {
-      cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-      if (err != cudaSuccess) return err;
-      kernel<<<grid, XNT, smem, s>>>(p, d);
-      return cudaGetLastError();
-    };
+    const dim3 grid(p.KVH, B * ncb, (p.seq_k + MBK - 1) / MBK);
     return which == ONEPASS
-               ? launch_x(dkdv_wide_mma_kernel<true>, XLayout::K2)
-               : launch_x(dkdv_wide_mma_kernel<false>,
-                          XLayout::K3 + (p.bias ? XLayout::BIAS : 0));
-  } else {
+               ? launch(dkdv_wide_mma_kernel<true>, grid, XNT, XLayout::K2, s,
+                        p, d)
+               : launch(dkdv_wide_mma_kernel<false>, grid, XNT,
+                        XLayout::K3 + (p.bias ? XLayout::BIAS : 0), s, p, d);
+  } else {  // float32: K2, K3a and K3b on the tensor cores (3xTF32)
     if (which == DQ)
-      return launch_w(dq_wide_kernel<T>,
-                      dim3((p.seq_q + WB - 1) / WB, p.H, B * ncb),
-                      wide_dq_smem());
-    if (which == ONEPASS) {
-      // 16-byte copies: every row is a 16-byte multiple, so aligned bases do
-      for (const void* t : {p.q, p.k, p.v, p.dO})
-        if (reinterpret_cast<uintptr_t>(t) % 16 != 0)
-          return cudaErrorMisalignedAddress;
-      // key tiles slowest, so the causal blocks with the most work go first
-      const dim3 grid(p.KVH, B * ((d + XCOL - 1) / XCOL),
-                      (p.seq_k + ZBK - 1) / ZBK);
-      return launch(dkdv_wide_tf32_kernel, grid, ZNT, ZLayout::SMEM, s, p, d);
-    }
-    return launch_w(dkdv_wide_kernel,
-                    dim3((p.seq_k + WB - 1) / WB, p.KVH, B * ncb),
-                    wide_dkdv_smem());
+      return launch(dq_wide_tf32_kernel,
+                    dim3((p.seq_q + UBQ - 1) / UBQ, p.H, B * ncb), UNT,
+                    ULayout::BASE + (p.bias ? ULayout::BIAS : 0), s, p, d);
+    // key tiles slowest, as above
+    const dim3 grid(p.KVH, B * ncb, (p.seq_k + ZBK - 1) / ZBK);
+    using L3 = ZLayout<false>;
+    return which == ONEPASS
+               ? launch(dkdv_wide_tf32_kernel<true>, grid, ZNT,
+                        ZLayout<true>::BASE, s, p, d)
+               : launch(dkdv_wide_tf32_kernel<false>, grid, ZNT,
+                        L3::BASE + (p.bias ? L3::BIAS : 0), s, p, d);
   }
 }
 
@@ -3070,9 +3027,8 @@ int dispatch(Which which, Params p, int dtype, int B, int d, void* stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the dq/dk/dv outputs
-// share it).  bfloat16 runs on the tensor cores; float32 K2 on them as
-// 3xTF32 at every width, K3a and K3b up to d 256 and on FMAs past it (the
-// wide route).
+// share it).  bfloat16 runs on the tensor cores; float32 K2, K3a and K3b
+// on them as 3xTF32, at every width.
 // All tensors contiguous, shapes as in Params; mask uint8 or null, bias
 // f32 or null.  Each returns the cudaGetLastError() after its launch (0 =
 // success).

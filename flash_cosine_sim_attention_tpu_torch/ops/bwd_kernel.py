@@ -23,17 +23,15 @@ and past 256 to the next multiple of 128 for the wide route
 CUDA tensors, as ``blocks_f`` / ``blocks_t`` pin them in the JAX tests.
 
 Which instance runs: bfloat16 on the tensor cores for K2, K3a and K3b at
-every width.  float32 K2 on the tensor cores at every width
-(``dkdv_tf32_kernel<D, true>`` up to 256, past it the wide route's
-``dkdv_wide_tf32_kernel``), K3a and K3b on them up to 256
-(``dq_tf32_kernel<D>``, ``dkdv_tf32_kernel<D, false>``), every product
-as three TF32 products of a hi / lo split of each operand:
-``flash_attention_backward_plain`` with ``mm=ops.mxu.dot_tf32x3`` is
-their plain version, dB included (the bias is added in float32 and never
-split); past 256 float32 K3a and K3b run the wide route's FMA kernels
-(``dq_wide_kernel<float>``, ``dkdv_wide_kernel``).  A call whose kernel
-fails to build or launch raises: nothing falls back to another
-instance.
+every width.  float32 K2, K3a and K3b on the tensor cores at every width
+(up to 256 ``dkdv_tf32_kernel<D, true>``, ``dq_tf32_kernel<D>``,
+``dkdv_tf32_kernel<D, false>``; past it the wide route's
+``dkdv_wide_tf32_kernel<true>``, ``dq_wide_tf32_kernel``,
+``dkdv_wide_tf32_kernel<false>``), every product as three TF32 products
+of a hi / lo split of each operand: ``flash_attention_backward_plain``
+with ``mm=ops.mxu.dot_tf32x3`` is their plain version, dB included (the
+bias is added in float32 and never split).  A call whose kernel fails to
+build or launch raises: nothing falls back to another instance.
 """
 
 from __future__ import annotations

@@ -1192,11 +1192,13 @@ def test_float32_wide_k1_k2_tf32_instances_match_plain(cuda_device, d, case):
 def test_op_at_d512_f32_runs_the_wide_tf32_kernels(cuda_device):
     """The public op in float32 at d 512, the heads-512 model's width: its
     forward and (no bias, so one-pass) backward launch K1 and K2 once each
-    and K3a, K3b never; o matches the plain forward, and the gradients the
-    plain backward on the kernel forward's o and inv_l, at the float32
-    bar; and the two wrappers run the wide route's 3xTF32 instances
-    (fwd_wide_tf32_kernel, dkdv_wide_tf32_kernel) and no FMA one, as the
-    profiler names them."""
+    and K3a, K3b never; with an (h, i, j) bias K1, K3a and K3b once each
+    and K2 never; o matches the plain forward, and the gradients (the
+    bias's too) the plain backward on the kernel forward's o and inv_l, at
+    the float32 bar; and the wrappers run the wide route's 3xTF32
+    instances (fwd_wide_tf32_kernel, dkdv_wide_tf32_kernel<true>;
+    dq_wide_tf32_kernel, dkdv_wide_tf32_kernel<false>) and no FMA one, as
+    the profiler names them."""
     from flash_cosine_sim_attention_tpu_torch.ops import (
         flash_cosine_sim_attention)
 
@@ -1231,10 +1233,35 @@ def test_op_at_d512_f32_runs_the_wide_tf32_kernels(cuda_device):
         flash_attention_forward(q, k, v, None, None, **kw),
         bwd_kernel._backward_onepass(do, o_k, inv_k, q, k, v, None,
                                      scale=8.0, causal=True)))
-    for name in ("fwd_wide_tf32_kernel", "dkdv_wide_tf32_kernel"):
+    for name in ("fwd_wide_tf32_kernel", "dkdv_wide_tf32_kernel<true>"):
         assert any(name in key for key in keys), (name, keys)
     assert not any("fwd_wide_kernel" in key or "dkdv_wide_kernel" in key
                    or "dq_wide_kernel" in key for key in keys), keys
+
+    # with an (h, i, j) bias the backward takes the two-pass route
+    bias = 0.5 * torch.randn(2, 300, 300, device=cuda_device, generator=g)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    before = counts()
+    o = flash_cosine_sim_attention(*leaves[:3], attn_bias=leaves[3],
+                                   causal=True, l2norm_qk=False)
+    got = torch.autograd.grad(o, leaves, do)
+    assert [n - m for n, m in zip(counts(), before)] == [1, 0, 1, 1]
+    o_p, _ = flash_attention_forward_plain(q, k, v, None, bias, **kw)
+    o_k, inv_k = flash_attention_forward(q, k, v, None, bias, **kw)
+    want = flash_attention_backward_plain(do, o_k, inv_k, q, k, v, None,
+                                          bias, **kw)
+    torch.cuda.synchronize()
+    assert (o.detach() - o_p).abs().max().item() <= BARS[torch.float32]
+    for name, x, y in zip(("dq", "dk", "dv", "db"), got, want):
+        assert torch.isfinite(x).all(), name
+        assert _grad_err(x, y, torch.float32) <= GRAD_BARS[torch.float32], (
+            name, _grad_err(x, y, torch.float32))
+    keys = _kernel_names(lambda: bwd_kernel._backward_twopass(
+        do, o_k, inv_k, q, k, v, None, bias, **kw))
+    for name in ("dq_wide_tf32_kernel", "dkdv_wide_tf32_kernel<false>"):
+        assert any(name in key for key in keys), (name, keys)
+    assert not any("dkdv_wide_kernel" in key or "dq_wide_kernel" in key
+                   or "mma_kernel" in key for key in keys), keys
 
 
 # the float32 two-pass kernels' edges at every 3xTF32 width: GQA, causal
@@ -1252,14 +1279,17 @@ TF32_TWOPASS_CASES = {"h": (2, 4, 2, 130, 197, True, False),
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bias_kind", sorted(TF32_TWOPASS_CASES))
-@pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 192, 200, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 192, 200, 256, 384, 512])
 def test_float32_two_pass_tf32_instances_match_plain(cuda_device, d,
                                                      bias_kind):
-    """float32 K3a and K3b at every width up to 256 (dq_tf32_kernel<D>,
-    dkdv_tf32_kernel<D, false>, 3xTF32; d 200 zero-padded to 256) hold dq,
-    dk, dv and dB at the float32 bar against the exact plain backward and
-    against the plain backward with the kernels' split (mm=dot_tf32x3),
-    with a bias, and run those instances by profiler name."""
+    """float32 K3a and K3b at every width (dq_tf32_kernel<D>,
+    dkdv_tf32_kernel<D, false> up to 256, d 200 zero-padded to 256; past
+    it the wide route's dq_wide_tf32_kernel and
+    dkdv_wide_tf32_kernel<false>, d 384 with a 128-column remainder block;
+    3xTF32) hold dq, dk, dv and dB at the float32 bar against the exact
+    plain backward and against the plain backward with the kernels' split
+    (mm=dot_tf32x3), with a bias, and run those instances by profiler
+    name."""
     from flash_cosine_sim_attention_tpu_torch.ops.blocks import (
         kernel_head_dim)
     from flash_cosine_sim_attention_tpu_torch.ops.mxu import dot_tf32x3
@@ -1288,15 +1318,18 @@ def test_float32_two_pass_tf32_instances_match_plain(cuda_device, d,
             assert err <= GRAD_BARS[torch.float32], (name, mm, err)
     width = kernel_head_dim(d, "backward")
     keys = _kernel_names(lambda: bwd_kernel._backward_twopass(*args, **kw))
-    for name in (f"dq_tf32_kernel<{width}>",
-                 f"dkdv_tf32_kernel<{width}, false>"):
+    names = ((f"dq_tf32_kernel<{width}>", f"dkdv_tf32_kernel<{width}, false>")
+             if width <= 256 else
+             ("dq_wide_tf32_kernel", "dkdv_wide_tf32_kernel<false>"))
+    for name in names:
         assert any(name in key for key in keys), (name, keys)
     assert not any("dq_kernel<" in key or "dkdv_kernel<" in key
+                   or "dq_wide_kernel" in key or "dkdv_wide_kernel" in key
                    for key in keys), keys
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("d", [64, 128, 192, 256, 512])
 def test_float32_two_pass_keeps_card_nans(cuda_device, d):
     """A NaN made on the card (0x7FFFFFFF) in q and in v leaves K3a's dq
     and dB and K3b's dk and dv NaN exactly where the plain two-pass

@@ -212,8 +212,9 @@ D512_CASES = [(8, 8, "causal", 512), (8, 8, "key-mask", 512)]
 # groups and scale 8, where logits reach 64
 BIAS_CASES = [(8, 8, "causal-bias-heads"), (8, 8, "key-mask-bias-batch")]
 BWD_SPLIT_CASES = SPLIT_CASES + BIAS_CASES
-# ... and at d 256 and 192, whose float32 K3a and K3b run 3xTF32 too
-WIDE_BIAS_CASES = [c + (d,) for d in (256, 192) for c in BIAS_CASES]
+# ... and at d 256 and 192, whose float32 K3a and K3b run 3xTF32 too, and
+# at d 512, where they run 3xTF32 on the wide route
+WIDE_BIAS_CASES = [c + (d,) for d in (256, 192, 512) for c in BIAS_CASES]
 
 
 @pytest.mark.parametrize("groups,scale,kind,d",
@@ -331,21 +332,23 @@ def test_backward_with_tf32_split_matches_jax_f32_two_pass():
         assert _grad_err(x, y) <= F32_BAR, (name, _grad_err(x, y))
 
 
-def test_tf32_split_at_d256_matches_jax_f32_two_pass():
+@pytest.mark.parametrize("d", [256, 512])
+def test_tf32_split_at_d256_matches_jax_f32_two_pass(d):
     """The plain backward with ``mm=dot_tf32x3`` and an (h, i, j) bias at d
-    256, the plain version of the float32 K3a and K3b at that width (b1 h2
-    s128 causal, 8 l2norm groups, scale 8), against the JAX package's
-    float32 backward pinned to its two-pass kernels (``_dq_kernel_t``,
-    ``_dkdv_kernel_t``, interpret mode): dq, dk, dv and db at 1e-4 of
-    max(1, max|g|), from JAX's own forward."""
+    256 and 512, the plain version of the float32 K3a and K3b at those
+    widths (the d 256 instances and the wide route's; b1 h2 s128 causal, 8
+    l2norm groups, scale 8), against the JAX package's float32 backward
+    pinned to its two-pass kernels (``_dq_kernel_t``, ``_dkdv_kernel_t``,
+    interpret mode): dq, dk, dv and db at 1e-4 of max(1, max|g|), from
+    JAX's own forward."""
     rng = np.random.default_rng(7)
 
     def randn(*shape):
         return rng.standard_normal(shape).astype(np.float32)
 
-    q, k = l2norm_tensors(torch.from_numpy(randn(1, 2, 128, 256)),
-                          torch.from_numpy(randn(1, 2, 128, 256)), groups=8)
-    v, do = randn(1, 2, 128, 256), randn(1, 2, 128, 256)
+    q, k = l2norm_tensors(torch.from_numpy(randn(1, 2, 128, d)),
+                          torch.from_numpy(randn(1, 2, 128, d)), groups=8)
+    v, do = randn(1, 2, 128, d), randn(1, 2, 128, d)
     bias = 0.5 * randn(2, 128, 128)
     kw = dict(bias_batch_dim=False, scale=8.0, causal=True)
     jq, jk = jnp.asarray(q.numpy()), jnp.asarray(k.numpy())
