@@ -23,6 +23,10 @@
                                         # K3a and K3b at d 512 alone
     python3 chip_smoke.py --f32-wide-heads  # the float32 K1, K2, K3a
                                         # and K3b at d 192 and 256 alone
+    python3 chip_smoke.py --f32-quant-kernels  # K1's int8 arm with
+                                        # float32 v and K7 on float32 x
+                                        # alone (1 card)
+    python3 chip_smoke.py --f32-prod-serve  # phase 23 alone (1 card)
 
 Phases (any failure exits non-zero):
   1. device: requires CUDA; prints the card's name and power limit;
@@ -183,11 +187,10 @@ Phases (any failure exits non-zero):
      shapes: K1 (b1 h8 s1024 d64 causal), the one-pass K2 (phase 8's
      shape) and K3a/K3b (phase 8's shape with an (h, i, j) bias, and b1
      h16 s1024 d128 with one) on the tensor cores as 3xTF32 split
-     products, K7 (one decode step's 65 calls at 8 rows) on its FMA
-     instance, each row held to its instances by profiler name, checked
-     against its plain version and timed beside it, its bound (K1, K2,
-     K3a, K3b: 3 x the operations at the TF32 tensor cores' peak; K7:
-     bytes) and SDPA or F.linear in float32 with TF32 off; K1, K2, K3a
+     products, each row held to its instances by profiler name, checked
+     against its plain version and timed beside it, its bound (3 x the
+     operations at the TF32 tensor cores' peak) and SDPA in float32 with
+     TF32 off; K1, K2, K3a
      and K3b also against the plain versions with the same split
      (TF32X3_BARS, dB included; on a short chain SPLIT_BARS, above which
      the bfloat16 split's plain versions must read), over long chains
@@ -206,9 +209,17 @@ Phases (any failure exits non-zero):
      profiler name, against the exact and the dot_tf32x3 plain versions,
      on a short chain (groups 8, scale 8, SPLIT_BARS_D512, both routes),
      over b1 h2 s8192 (one-pass) and b1 h1 s16384 (two-pass) and with
-     NaNs in q and v kept (--f32-head512-kernels alone); the float32
-     instances no main path counts (K1 and K2 at d 128, K1's int8 arm
-     with float32 v), checked and timed alike; then the validation
+     NaNs in q and v kept (--f32-head512-kernels alone); K1 and K2 at d
+     128, checked and timed alike; K1's int8 arm with float32 v (b4 h8
+     d64, b1 h16 d128, b4 h1 d512, s1024 causal) on the int8 instances of
+     the 3xTF32 kernels and K7 on float32 x (a decode step's 65 calls at
+     8 rows, a layer's four products at 1024 rows) on its 2xTF32
+     instances, held to their exact and split plain versions and timed
+     beside SDPA and F.linear in float32 (bounds: Q.K at the int8 peak
+     and 3 x P.V at the TF32 one; 2 x K7's operations at the TF32 peak,
+     or its bytes), the qk_int8 op's forward and straight-through
+     backward against the op on the plain versions, ff_out with inputs
+     offset from zero (--f32-quant-kernels alone); then the validation
      model's float32 training step profiled (device time a step, K1's and
      K2's share and launches), the heads-256 and heads-512 models'
      (--f32-head256-step and --f32-head512-step alone: K1 and K2 32
@@ -217,9 +228,20 @@ Phases (any failure exits non-zero):
      models' at seq 16384 (batch 1; --f32-long-step,
      --f32-head256-long-step and --f32-head512-long-step alone), where
      the backward takes K3a and K3b: device time a step, K1's, K3a's and
-     K3b's share, launches and TFLOP/s, the idle share.
+     K3b's share, launches and TFLOP/s, the idle share;
+ 23. in a fresh process, the 0.81B production model (phase 13's, uncut)
+     in float32 with int8 weights and fused QKV served by
+     InferenceEngine (8 slots, capacity 2048, near-greedy): a warm-up,
+     then a 1024-token prompt in every slot (TTFT each), one more
+     prefill profiled, 32 decode steps and 4 profiled: TTFT and the
+     decode step's wall, device time, idle share, K7's, K1's and K4's
+     shares and launches; the wrappers' launches against the passes and
+     K7's (prefill and decode tiles) and K1's instances by profiler
+     name; every slot's 33 tokens held by the margin rule to the same
+     model's greedy decode on the plain versions on the card
+     (--f32-prod-serve alone).
 Then one JSON line lists every ported kernel, and the entries of phases
-18-22 (each rank's launches and error), with its launches on its path, error,
+18-23 (each rank's launches and error), with its launches on its path, error,
 times and bound (timing lines also print the achieved
 TFLOP/s); the script's own wall time, the nvcc build included; the
 card's name and power limit; and, last, the {"ok": true, ...} line.
@@ -230,6 +252,7 @@ windows.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -272,7 +295,19 @@ GRAD_BARS = {torch.float32: F32_ERR_BAR, torch.bfloat16: 2 ** -7}
 # queries; K3a's dq and db 1.8e-6 to 3.3e-6, K3b's dk and dv 3.6e-6 to
 # 5.5e-6): what is left is the tensor cores' float32 sums, each rounded
 # toward zero, and the sums' order (dB's atomics' varies from run to run)
-TF32X3_BARS = {"K1": 5e-6, "K2": 5e-5, "K3a": 1e-5, "K3b": 1.5e-5}
+TF32X3_BARS = {"K1": 5e-6, "K2": 5e-5, "K3a": 1e-5, "K3b": 1.5e-5,
+               # K1's int8 arm with float32 v (the codes exact, P and V
+               # split; o 6e-7 to 4.8e-6 on the H100 at b1 h16 s1024 and
+               # smaller shapes, d 16 to 1032, scale 8) and K7 on float32 x
+               # in max(1, max|y|)'s units (x's hi and lo times the codes;
+               # 1.1e-6 to 3.3e-6 there, inputs offset from zero included)
+               "K1 int8": 1e-5, "K7": 1e-5}
+# K1's int8 arm with float32 v at the shapes phase 22 runs the qk_int8 op
+# at: bench_int8qk.py's b4 h8 d64, the 0.81B model's b1 h16 d128 and the
+# wide route's b4 h1 d512, all at seq 1024 causal
+INT8_F32_SHAPES = {"K1 int8 f32 v d64": (4, 8, 64),
+                   "K1 int8 f32 v": (1, 16, 128),
+                   "K1 int8 f32 v d512": (4, 1, 512)}
 # the same on a short chain (split_check: b4 h8 s128 d64 causal, 8 groups,
 # scale 8; K3a and K3b with an (h, i, j) bias), K1 on o, above the
 # readings on the H100 (K1 1.1e-5; K2 1.1e-5 to 1.8e-5; K3a 9.9e-6 to
@@ -2851,6 +2886,37 @@ def padded_prompts(prompts, device):
     return torch.from_numpy(tokens).to(device), lens
 
 
+@contextlib.contextmanager
+def plain_on_card():
+    """Inside, the wrappers of K1 (the forward), K2/K3a/K3b (the op's
+    backward), K4 (decode) and K7 take their plain versions on CUDA
+    tensors too: the same model or op on the card with the kernels'
+    references in their place.  Nothing is launched or counted there."""
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        bwd_kernel, flash_attention as op, fwd_kernel)
+    from flash_cosine_sim_attention_tpu_torch.quant import (
+        decode_kernel, weights)
+
+    def forward(q, k, v, mask, bias, **kw):
+        return fwd_kernel.flash_attention_forward_plain(q, k, v, mask, bias,
+                                                        **kw)
+
+    swaps = [(fwd_kernel, "_forward_cuda", forward),
+             (op, "flash_attention_backward",
+              bwd_kernel.flash_attention_backward_plain),
+             (decode_kernel, "_decode_cuda",
+              decode_kernel.decode_attention_plain),
+             (weights, "_matmul_cuda", weights.quantized_matmul_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def margin_rule(label, streams, ref, margins):
     """Hold each stream to its row of the target's greedy decode ``ref``:
     equal up to its first divergence, where the decode's top-2 margin
@@ -4842,8 +4908,8 @@ LONG_SEQ = 16384   # the float32 long-context step's --seq-len (batch 1)
 
 def instance_name(key: str) -> str:
     """A kernel's profiler key without its return type, namespace and
-    parameters: "fwd_tf32_kernel<256>", "fwd_wide_tf32_kernel" (a kernel
-    that is no template has no "void " in its key)."""
+    parameters: "fwd_tf32_kernel<256, float>", "dq_wide_tf32_kernel" (a
+    kernel that is no template has no "void " in its key)."""
     return re.sub(r"^(void )?(\(anonymous namespace\)::)?", "",
                   key).split("(")[0]
 
@@ -4936,9 +5002,9 @@ def f32_long_step(card: str, cfg=MODEL) -> dict:
     profiled (whole_rows): device time a step, K1's, K3a's and K3b's share,
     launches and TFLOP/s a step, the idle share (1 - device time / the
     second warm-up step's wall).  Fails unless K1, K3a and K3b ran their
-    tensor-core instances at the model's head width (fwd_tf32_kernel<D>,
+    tensor-core instances at the model's head width (fwd_tf32_kernel<D, float>,
     dq_tf32_kernel<D>, dkdv_tf32_kernel<D, false> up to d 256; past it the
-    wide route's fwd_wide_tf32_kernel, dq_wide_tf32_kernel,
+    wide route's fwd_wide_tf32_kernel<float>, dq_wide_tf32_kernel,
     dkdv_wide_tf32_kernel<false>) 32 times a step each and K2 never, and
     unless the losses are finite; the reading prints first.  ``python3
     chip_smoke.py --f32-long-step`` runs it alone, e.g. from a checkout of
@@ -4996,9 +5062,9 @@ def f32_long_step(card: str, cfg=MODEL) -> dict:
         fail(f"float32 train step at seq {LONG_SEQ}, d{d}: losses {loss}")
     per_step = GRAD_ACCUM * cfg["depth"]
     want = dict(k1=2 * per_step, k2=0, k3a=2 * per_step, k3b=2 * per_step)
-    names = (([f"fwd_tf32_kernel<{d}>"], [f"dq_tf32_kernel<{d}>"],
+    names = (([f"fwd_tf32_kernel<{d}, float>"], [f"dq_tf32_kernel<{d}>"],
               [f"dkdv_tf32_kernel<{d}, false>"]) if d <= 256 else
-             (["fwd_wide_tf32_kernel"], ["dq_wide_tf32_kernel"],
+             (["fwd_wide_tf32_kernel<float>"], ["dq_wide_tf32_kernel"],
               ["dkdv_wide_tf32_kernel<false>"]))
     if (launches != want or parts["K2"][1] != 0
             or any(parts[name][1] != per_step for name in ("K1", "K3a", "K3b"))
@@ -5022,7 +5088,7 @@ def f32_head512_long_step(card: str) -> dict:
     """f32_long_step on the heads-512 model (HEAD512_MODEL: 1 head of 512;
     the trainer's --use-float32 --seq-len 16384 --batch-size 1 at that
     width): K1, K3a and K3b at b1 h1 s16384 d512 causal on the wide
-    route's 3xTF32 instances (fwd_wide_tf32_kernel, dq_wide_tf32_kernel,
+    route's 3xTF32 instances (fwd_wide_tf32_kernel<float>, dq_wide_tf32_kernel,
     dkdv_wide_tf32_kernel<false>), 32 launches a step each, K2 none.
     ``python3 chip_smoke.py --f32-head512-long-step`` runs it alone, e.g.
     from a checkout of an earlier commit, whose FMA K3a and K3b it times
@@ -5084,31 +5150,37 @@ def instance_names(work) -> list:
                    if "at::native" not in key})
 
 
-def require_instances(label, work, want, banned) -> list:
+def require_instances(label, work, want, banned, defer=None) -> list:
     """instance_names of ``work``; fails unless each name in ``want`` is
-    among them and none holds a string of ``banned``."""
+    among them and none holds a string of ``banned`` (with a ``defer``
+    list, appends the failure to it instead)."""
     names = instance_names(work)
     missing = [n for n in want if not any(n in x for x in names)]
     bad = [x for x in names if any(b in x for b in banned)]
     if missing or bad:
-        fail(f"{label}: instances {names}; missing {missing}, not expected "
-             f"{bad}")
+        msg = (f"{label}: instances {names}; missing {missing}, not "
+               f"expected {bad}")
+        if defer is None:
+            fail(msg)
+        defer.append(msg)
     return names
 
 
 def k1_f32(g, card: str, b: int, h: int, s: int, d: int, want, banned,
-           qk_int8: bool = False):
+           qk_int8: bool = False, defer=None):
     """K1 with float32 v at b``b`` h``h`` s``s`` d``d`` causal (8 l2norm
     groups, scale 1; float32 q and k, or with ``qk_int8`` their int8
     codes): held to the exact plain version (F32_ERR_BAR; inv_l 1e-5
-    relative) and, on the 3xTF32 instances (float q and k, every width),
-    to the plain version with their split (mm=dot_tf32x3, TF32X3_BARS); run
-    as ``want`` by profiler name (none of ``banned``); timed beside its
-    bound, the plain version and SDPA f32 (TF32 off, on the float q and
-    k).  The bound: 3 x the operations at the TF32 tensor cores' peak on
-    the 3xTF32 instances (the FMA bound printed beside), else the
-    operations at the float32 peak outside the tensor cores (the int8
-    codes' Q.K at the int8 peak).  Returns (timing row, max|o - plain|)."""
+    relative) and to the plain version with the kernels' split
+    (mm=dot_tf32x3: the codes are exact in TF32, so on the int8 arm it
+    splits P and V only; TF32X3_BARS["K1"], ["K1 int8"]); run as ``want``
+    by profiler name (none of ``banned``); timed beside its bound, the
+    plain version and SDPA f32 (TF32 off, on the float q and k).  The
+    bound: 3 x the operations at the TF32 tensor cores' peak (the FMA
+    bound printed beside); on the int8 arm Q.K at the int8 peak and 3 x
+    P.V at the TF32 one.  The instance check comes after the times are
+    printed (``defer`` as in require_instances).  Returns (timing row,
+    max|o - plain|)."""
     import torch.nn.functional as F
 
     from flash_cosine_sim_attention_tpu_torch.ops import l2norm_tensors
@@ -5134,16 +5206,13 @@ def k1_f32(g, card: str, b: int, h: int, s: int, d: int, want, banned,
     err, err_l = (o - o_p).abs().max().item(), max_rel(inv_l, inv_p)
     label = (f"K1 f32 b{b} h{h} s{s} d{d} causal"
              + (", int8 q/k codes" if qk_int8 else ", groups 8, scale 1"))
-    tf32 = not qk_int8
-    note = ""
-    ok = err <= F32_ERR_BAR and err_l <= 1e-5
-    if tf32:
-        o_t, inv_t = flash_attention_forward_plain(*qk, v, None, None,
-                                                   mm=dot_tf32x3, **kw)
-        err_t = max((o - o_t).abs().max().item(), max_rel(inv_l, inv_t))
-        note = (f"; against the dot_tf32x3 plain version: o, inv_l "
-                f"{err_t:.2e} (bar {TF32X3_BARS['K1']:g})")
-        ok = ok and err_t <= TF32X3_BARS["K1"]
+    split_bar = TF32X3_BARS["K1 int8" if qk_int8 else "K1"]
+    o_t, inv_t = flash_attention_forward_plain(*qk, v, None, None,
+                                               mm=dot_tf32x3, **extra, **kw)
+    err_t = max((o - o_t).abs().max().item(), max_rel(inv_l, inv_t))
+    note = (f"; against the dot_tf32x3 plain version: o, inv_l "
+            f"{err_t:.2e} (bar {split_bar:g})")
+    ok = err <= F32_ERR_BAR and err_l <= 1e-5 and err_t <= split_bar
     print(f"  {label}: max|o - plain| {err:.2e} (bar {F32_ERR_BAR:g}), inv_l "
           f"{err_l:.2e} (bar 1e-5){note}")
     if not ok:
@@ -5155,25 +5224,68 @@ def k1_f32(g, card: str, b: int, h: int, s: int, d: int, want, banned,
     pairs = b * h * s * (s + 1) / 2
     flops = 4 * d * pairs
     nbytes = (2 * qk[0].element_size() + 2 * 4) * q.numel() + b * h * s * 4
-    fma_ms, fma_by = bound(flops, nbytes, PEAK_F32_FLOPS)
-    if tf32:
-        bound_ms, by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
-        why = f"3xTF32 at 495 TFLOP/s; FMA bound {fma_ms:.5f} ms"
-    elif qk_int8:  # Q.K at the int8 peak, P.V at the float32 one
-        bound_ms, by = bound(flops / 2 * (1 + PEAK_F32_FLOPS / PEAK_INT8_OPS),
-                             nbytes, PEAK_F32_FLOPS)
-        why = "Q.K at 1,979 TOP/s, P.V at 67 TFLOP/s"
+    fma_ms, _ = bound(flops, nbytes, PEAK_F32_FLOPS)
+    if qk_int8:  # Q.K at the int8 peak, P.V as 3 TF32 products
+        bound_ms, by = bound(
+            flops / 2 * (3 + PEAK_TF32_FLOPS / PEAK_INT8_OPS), nbytes,
+            PEAK_TF32_FLOPS)
+        why = "Q.K at 1,979 TOP/s, P.V 3xTF32 at 495 TFLOP/s"
     else:
-        bound_ms, by = fma_ms, fma_by
-        why = "FMA, 67 TFLOP/s"
-    names = require_instances(label, call, want, banned)
+        bound_ms, by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+        why = "3xTF32 at 495 TFLOP/s"
+    why += f"; FMA bound {fma_ms:.5f} ms"
+    names = instance_names(call)
     print(f"  {label} on {card}: device time kernel {ms:.4f} ms "
           f"({tflops(flops, ms):.2f} TFLOP/s of the function's), plain "
           f"{plain_ms:.4f} ms, SDPA f32 {lib_ms:.4f} ms (kernel / SDPA "
           f"{ms / lib_ms:.2f}), bound {bound_ms:.5f} ms ({by}, {why}); "
           f"instances {names}")
+    require_instances(label, call, want, banned, defer)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                 library_ms=lib_ms), err
+
+
+def int8_op_f32(g, b: int, h: int, s: int, d: int, want, defer=None) -> int:
+    """The public op with qk_int8 on float32 q, k, v at b``b`` h``h``
+    s``s`` d``d`` causal (the op's defaults: scale 8, one l2norm group):
+    its forward (K1's int8 arm with float32 v) and straight-through
+    backward (the float32 K2 on the unquantized q and k) against the same
+    op on the plain versions (plain_on_card), o and the q, k, v gradients
+    at GRAD_BARS' float32 bar; run as ``want`` by profiler name, with no
+    FMA or bf16 instance of K1.  Returns K1's launches over the op's
+    call."""
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        flash_cosine_sim_attention)
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward)
+
+    q, k, v, do = (torch.randn(b, h, s, d, device="cuda", generator=g)
+                   for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def run():
+        o = flash_cosine_sim_attention(*leaves, causal=True, qk_int8=True)
+        return (o.detach(), *torch.autograd.grad(o, leaves, do))
+
+    flash_attention_forward.launches = 0
+    got = run()
+    launches = flash_attention_forward.launches
+    with plain_on_card():
+        want_t = run()
+    errs = [grad_err(x, y, torch.float32) for x, y in zip(got, want_t)]
+    label = f"the qk_int8 op f32 b{b} h{h} s{s} d{d} causal"
+    names = require_instances(label, run, want, [
+        "fwd_kernel<", "fwd_wide_kernel", "fwd_mma_kernel",
+        "fwd_wide_mma_kernel", "dkdv_kernel<", "dkdv_wide_kernel"], defer)
+    print(f"  {label}, forward and straight-through backward against the "
+          f"op on the plain versions: o, dq, dk, dv "
+          f"{', '.join(f'{e:.2e}' for e in errs)} (bar "
+          f"{GRAD_BARS[torch.float32]:g} of max(1, max|y|)); K1 launches "
+          f"{launches}; instances {names}")
+    if not (max(errs) <= GRAD_BARS[torch.float32] and launches == 1
+            and all(torch.isfinite(x).all() for x in got)):
+        fail(f"{label}: errors {errs}, launches {launches}")
+    return launches
 
 
 def f32_wide_heads(g, card: str):
@@ -5183,7 +5295,7 @@ def f32_wide_heads(g, card: str):
     (h, i, j) bias, held to the exact plain versions (F32_ERR_BAR, dB
     included), to the plain versions with the kernels' split
     (mm=dot_tf32x3, TF32X3_BARS, dB included), to their tensor-core
-    instances by profiler name (fwd_tf32_kernel<D>, dkdv_tf32_kernel<D,
+    instances by profiler name (fwd_tf32_kernel<D, float>, dkdv_tf32_kernel<D,
     true>, dq_tf32_kernel<D>, dkdv_tf32_kernel<D, false>: no FMA
     instance), and NaN-keeping on both backward routes (nan_kept); at d
     256 also on a short chain at 8 groups and scale 8 (split_check, both
@@ -5203,7 +5315,7 @@ def f32_wide_heads(g, card: str):
     rows, errs, problems = {}, {}, []
     for d in F32_WIDE_DIMS:
         rows[f"K1 f32 d{d}"], errs[f"K1 f32 d{d}"] = k1_f32(
-            g, card, b, h, s, d, [f"fwd_tf32_kernel<{d}>"],
+            g, card, b, h, s, d, [f"fwd_tf32_kernel<{d}, float>"],
             ["fwd_kernel<", "fwd_mma_kernel<"])
 
         worst = {"K2": 0.0, "K3a": 0.0, "K3b": 0.0}
@@ -5281,8 +5393,8 @@ def f32_head_step(card: str, cfg) -> dict:
     step, K1's and K2's share, launches and TFLOP/s a step, the largest
     kernels, the idle share (1 - device time / the second warm-up step's
     wall).  Fails unless K1 and K2 ran their 3xTF32 tensor-core instances
-    at the model's head width (fwd_tf32_kernel<D> and dkdv_tf32_kernel<D,
-    true> up to d 256; past it the wide route's fwd_wide_tf32_kernel and
+    at the model's head width (fwd_tf32_kernel<D, float> and dkdv_tf32_kernel<D,
+    true> up to d 256; past it the wide route's fwd_wide_tf32_kernel<float> and
     dkdv_wide_tf32_kernel<true>, never an FMA one) 32 times a step each, K3a
     and K3b never, and unless the losses are finite; the reading prints
     first, so the same script on a checkout of an earlier commit gives
@@ -5339,9 +5451,9 @@ def f32_head_step(card: str, cfg) -> dict:
         fail(f"float32 heads-{d} train step: losses {loss}")
     per_step = GRAD_ACCUM * cfg["depth"]
     want = dict(k1=2 * per_step, k2=2 * per_step, k3a=0, k3b=0)
-    names = (([f"fwd_tf32_kernel<{d}>"], [f"dkdv_tf32_kernel<{d}, true>"])
+    names = (([f"fwd_tf32_kernel<{d}, float>"], [f"dkdv_tf32_kernel<{d}, true>"])
              if d <= 256 else
-             (["fwd_wide_tf32_kernel"], ["dkdv_wide_tf32_kernel<true>"]))
+             (["fwd_wide_tf32_kernel<float>"], ["dkdv_wide_tf32_kernel<true>"]))
     if (launches != want
             or any(parts[name][1] != per_step for name in ("K1", "K2"))
             or parts["K3a"][1] or parts["K3b"][1]
@@ -5353,7 +5465,7 @@ def f32_head_step(card: str, cfg) -> dict:
 
 def f32_head256_step(card: str) -> dict:
     """f32_head_step on the heads-256 model (HEAD256_MODEL): K1 and K2 at
-    d 256 (fwd_tf32_kernel<256>, dkdv_tf32_kernel<256, true>).  ``python3
+    d 256 (fwd_tf32_kernel<256, float>, dkdv_tf32_kernel<256, true>).  ``python3
     chip_smoke.py --f32-head256-step`` runs it alone, e.g. from a checkout
     of an earlier commit."""
     return f32_head_step(card, HEAD256_MODEL)
@@ -5362,7 +5474,7 @@ def f32_head256_step(card: str) -> dict:
 def f32_head512_step(card: str) -> dict:
     """f32_head_step on the heads-512 model (HEAD512_MODEL: 1 head of 512):
     K1 and K2 at b4 h1 s1024 d512 on the wide route's 3xTF32 instances
-    (fwd_wide_tf32_kernel, dkdv_wide_tf32_kernel<true>; the one-pass backward,
+    (fwd_wide_tf32_kernel<float>, dkdv_wide_tf32_kernel<true>; the one-pass backward,
     below ONEPASS_BWD_MAX_SEQ), 32 launches a step each.  ``python3
     chip_smoke.py --f32-head512-step`` runs it alone, e.g. from a checkout
     of an earlier commit, whose FMA instances it times before it fails."""
@@ -5373,7 +5485,7 @@ def f32_head512_kernels(g, card: str, errs: dict) -> dict:
     """K1, the one-pass K2 and, with an (h, i, j) bias, the two-pass K3a
     and K3b in float32 at the heads-512 model's shape (b4 h1 s1024 d512
     causal): on the wide route's 3xTF32 instances by profiler name
-    (fwd_wide_tf32_kernel, dkdv_wide_tf32_kernel<true>,
+    (fwd_wide_tf32_kernel<float>, dkdv_wide_tf32_kernel<true>,
     dq_wide_tf32_kernel, dkdv_wide_tf32_kernel<false>; no FMA one), held
     to the exact plain versions (F32_ERR_BAR) and to the plain versions
     with their split (mm=dot_tf32x3, TF32X3_BARS, dB included), on a short
@@ -5394,7 +5506,7 @@ def f32_head512_kernels(g, card: str, errs: dict) -> dict:
     b, h, s, d = 4, HEAD512_MODEL["heads"], HEAD512_MODEL["max_seq_len"], 512
     rows = {}
     rows["K1 f32 d512"], errs["K1 f32 d512"] = k1_f32(
-        g, card, b, h, s, d, ["fwd_wide_tf32_kernel"],
+        g, card, b, h, s, d, ["fwd_wide_tf32_kernel<float>"],
         ["fwd_wide_kernel", "fwd_wide_mma_kernel", "fwd_tf32_kernel"])
     worst = {"K2": 0.0, "K3a": 0.0, "K3b": 0.0}
     args, kw = bwd_inputs(g, b, h, h, s, s, d, torch.float32, None, None,
@@ -5454,27 +5566,154 @@ def f32_head512_kernels(g, card: str, errs: dict) -> dict:
     return rows
 
 
+def f32_quant_kernels(card: str):
+    """Phase 22's rows of K1's int8 arm with float32 v and of K7 on float32
+    x.  K1's int8 arm at INT8_F32_SHAPES (b4 h8, b1 h16 and b4 h1 at seq
+    1024 causal, d 64, 128 and 512) through k1_f32 (the exact and the
+    dot_tf32x3 plain versions, timed beside SDPA f32 with TF32 off), then
+    the qk_int8 op's forward and straight-through backward there
+    (int8_op_f32); K7 at one decode step's 65 calls at 8 rows (L2 flushed)
+    and one layer's four products at 1024 rows, against the exact and the
+    dot_tf32x3 plain versions (F32_ERR_BAR, TF32X3_BARS["K7"]), timed
+    beside F.linear on a float32 weight copy and the bound (2 x the
+    operations at the TF32 peak, or the bytes), and ff_out's 8192 inputs
+    with inputs offset from zero.  Each is held to its tensor-core
+    instances by profiler name, no FMA one; a missing instance fails
+    after every row has printed its times (``python3 chip_smoke.py
+    --f32-quant-kernels`` runs this alone, also on a parent checkout for
+    the FMA instances' times).  Returns ({row: timing}, {row: max error
+    against plain}, {int8 row: K1 launches of its op call})."""
+    import torch.nn.functional as F
+
+    from flash_cosine_sim_attention_tpu_torch.ops.mxu import dot_tf32x3
+    from flash_cosine_sim_attention_tpu_torch.quant import (
+        quantize_dense_kernel, quantized_matmul, quantized_matmul_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 100)
+    s = 1024
+    rows, errs, deferred = {}, {}, []
+    # K1's int8 arm with float32 v, the qk_int8 op's forward on float32
+    # inputs: the kernel at INT8_F32_SHAPES, then the op's forward and
+    # straight-through backward there
+    int8_launches = {}
+    for row, (b, h, dw) in INT8_F32_SHAPES.items():
+        want = ([f"fwd_tf32_kernel<{dw}, signed char>"] if dw <= 256 else
+                ["fwd_wide_tf32_kernel<signed char>"])
+        rows[row], errs[row] = k1_f32(
+            g, card, b, h, s, dw, want,
+            ["fwd_kernel<", "fwd_wide_kernel", "mma_kernel", "float>"],
+            qk_int8=True, defer=deferred)
+        int8_launches[row] = int8_op_f32(g, b, h, s, dw, want + [
+            f"dkdv_tf32_kernel<{dw}, true>" if dw <= 256 else
+            "dkdv_wide_tf32_kernel<true>"], deferred)
+
+    # K7 on float32 x: one decode step's 65 calls at 8 rows (L2 flushed)
+    # and one layer's four products at 1024 rows (a prefill), beside
+    # F.linear on a float32 weight copy; then ff_out's 8192 inputs with x
+    # and the weights offset from zero (one long chain of sums a split)
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    k7 = {row: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+          for row in ("K7 f32", "K7 f32 prefill")}
+    k7_names = {8: "qmm_mma_kernel<16, 1, 8, 4, float>",
+                1024: "qmm_mma_kernel<128, 4, 2, 3, float>"}
+
+    def check_k7(label, x, w8, scale):
+        got = quantized_matmul(x, w8, scale)
+        err = rel_err(got, quantized_matmul_plain(x, w8, scale))
+        # the plain version with the kernel's split: dot_tf32x3 of x and
+        # the widened codes (exact in tf32), times the scale
+        err_t = rel_err(got, dot_tf32x3(x, w8.float()) * scale)
+        if not (err <= F32_ERR_BAR and err_t <= TF32X3_BARS["K7"]
+                and torch.isfinite(got).all().item()):
+            fail(f"{label}: err {err} (bar {F32_ERR_BAR}), against "
+                 f"dot_tf32x3 {err_t} (bar {TF32X3_BARS['K7']})")
+        return err, err_t
+
+    for name, ((d_in, d_out), calls) in PROD_DENSE.items():
+        w8, scale = quantize_dense_kernel(0.02 * torch.randn(
+            d_in, d_out, device="cuda", generator=g))
+        w_lib = (w8.float() * scale).t().contiguous()
+        for n in (8, 1024):
+            if n == 1024 and name == "logits":
+                continue
+            row = "K7 f32" if n == 8 else "K7 f32 prefill"
+            x = torch.randn(n, d_in, device="cuda", generator=g)
+            label = f"K7 {name} ({d_in}, {d_out}) x {n} rows f32"
+            err, err_t = check_k7(label, x, w8, scale)
+            errs[row] = max(errs.get(row, 0.0), err)
+            flush = scratch.zero_ if n == 8 else None
+            flops = 2 * n * d_in * d_out
+            nbytes = w8.numel() + 4 * d_out + 4 * n * (d_in + d_out)
+            # 2xTF32: two tf32 products a product
+            bound_ms, by = bound(2 * flops, nbytes, PEAK_TF32_FLOPS)
+            times = dict(
+                ms=device_ms(lambda: quantized_matmul(x, w8, scale), flush),
+                plain_ms=device_ms(
+                    lambda: quantized_matmul_plain(x, w8, scale), flush),
+                library_ms=device_ms(lambda: F.linear(x, w_lib), flush),
+                bound_ms=bound_ms)
+            names = require_instances(
+                label, lambda: quantized_matmul(x, w8, scale),  # noqa: B023
+                [k7_names[n]], ["qmm_kernel<", "__nv_bfloat16"], deferred)
+            print(f"  {label}{', L2 flushed' if flush else ''} on {card}: "
+                  f"kernel {times['ms']:.4f} ms "
+                  f"({tflops(flops, times['ms']):.1f} TFLOP/s, "
+                  f"{nbytes / times['ms'] / 1e9:.0f} GB/s), plain "
+                  f"{times['plain_ms']:.4f}, F.linear f32 "
+                  f"{times['library_ms']:.4f}, bound {bound_ms:.5f} ({by}); "
+                  f"err {err:.2e}, against dot_tf32x3 {err_t:.2e} (bars "
+                  f"{F32_ERR_BAR:g}, {TF32X3_BARS['K7']:g}); instances "
+                  f"{names}")
+            for key, val in times.items():
+                k7[row][key] += (calls if n == 8 else 1) * val
+    rows["K7 f32"] = dict(k7["K7 f32"], bound_by="bytes")
+    rows["K7 f32 prefill"] = dict(k7["K7 f32 prefill"],
+                                  bound_by="operations")
+    step, layer = k7["K7 f32"], k7["K7 f32 prefill"]
+    print(f"  K7 over one decode step (65 calls at 8 rows) f32 on {card}: "
+          f"{step['ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, F.linear "
+          f"f32 {step['library_ms']:.4f} ms (a float32 weight copy, 4x K7's "
+          f"bytes), bound {step['bound_ms']:.5f} ms (bytes)")
+    print(f"  K7 over one layer's four products at 1024 rows f32 on {card}: "
+          f"{layer['ms']:.4f} ms, plain {layer['plain_ms']:.4f} ms, F.linear "
+          f"f32 {layer['library_ms']:.4f} ms, bound {layer['bound_ms']:.5f} "
+          f"ms (operations, 2 x at 495 TFLOP/s; FMA bound "
+          f"{layer['bound_ms'] * PEAK_TF32_FLOPS / 2 / PEAK_F32_FLOPS:.5f})")
+    d_in, d_out = PROD_DENSE["ff_out"][0]
+    w8, scale = quantize_dense_kernel(0.02 * torch.randn(
+        d_in, d_out, device="cuda", generator=g) + 0.01)
+    for n in (8, 1024):
+        x = torch.randn(n, d_in, device="cuda", generator=g) + 1.0
+        err, err_t = check_k7(f"K7 ff_out x {n} rows f32, offset", x, w8,
+                              scale)
+        print(f"  K7 ff_out ({d_in}, {d_out}) x {n} rows f32, x of mean 1 "
+              f"and weights of mean 0.01: err {err:.2e}, against dot_tf32x3 "
+              f"{err_t:.2e} (bars {F32_ERR_BAR:g}, {TF32X3_BARS['K7']:g})")
+    del scratch, w8
+    if deferred:
+        fail("; ".join(deferred))
+    return rows, errs, int8_launches
+
+
 def f32_instances(card: str):
     """Phase 22: the float32 instances at the main path's shapes.  K1 at
     b1 h8 s1024 d64 causal (phase 3's), the one-pass K2 at phase 8's (b4
     h8 s1024 d64 causal) and K3a/K3b at phase 8's shape with an (h, i, j)
     bias, and at b1 h16 s1024 d128 with one, run 3xTF32 on the tensor
-    cores (fwd_tf32_kernel<64>, dkdv_tf32_kernel<64, true>,
-    dq_tf32_kernel<D>, dkdv_tf32_kernel<D, false>); K7 (one decode step's
-    65 calls at 8 rows, L2 flushed) its FMA instance.  Each row is held to
+    cores (fwd_tf32_kernel<64, float>, dkdv_tf32_kernel<64, true>,
+    dq_tf32_kernel<D>, dkdv_tf32_kernel<D, false>).  Each row is held to
     its instances by profiler name, checked against its plain version and
     timed beside it, its bound and one PyTorch call with TF32 off (SDPA
-    forward, SDPA backward, F.linear on a float32 weight copy).  K1, K2,
+    forward, SDPA backward).  K1, K2,
     K3a and K3b are also held to the plain versions with the kernels'
     split (mm=dot_tf32x3) at TF32X3_BARS (dB included) and on a short
     chain (split_check), checked over long chains (long_chains) and K1 and
     K2 at 8 l2norm groups and scale 8 (logits to 64, where JAX's bf16
     split of a float32 product misses the 1e-4 bar).  Bounds: K1, K2, K3a
     and K3b 3 x their operations at the TF32 tensor cores' peak (the FMA
-    bound at 67 TFLOP/s printed beside), K7 bytes.  The float32 instances
-    no main path counts are timed too: K1, K2, K3a and K3b at b1 h16 s1024
-    d128 (the bias rows' shape) and K1's int8 arm with float32 v
-    (fwd_kernel<128>, b1 h16 s1024 d128).  All four kernels at d 192 and
+    bound at 67 TFLOP/s printed beside).  K1, K2, K3a and K3b are timed
+    at b1 h16 s1024 d128 too (the bias rows' shape; K1 f32 d128 is phase
+    23's prefill).  All four kernels at d 192 and
     256 by f32_wide_heads, at d 512 by f32_head512_kernels (all four on
     the wide route's 3xTF32 instances).  Then the validation model's
     float32 training step, profiled (f32_train_step), the heads-256 and
@@ -5486,13 +5725,9 @@ def f32_instances(card: str):
     plain}, the launches of the seq-16384 step, of the heads-256 step, of
     the heads-256 seq-16384 step, of the heads-512 step and of the
     heads-512 seq-16384 step)."""
-    import torch.nn.functional as F
-
     from flash_cosine_sim_attention_tpu_torch.ops import (
         bwd_kernel as bk, flash_attention_backward_plain)
     from flash_cosine_sim_attention_tpu_torch.ops.mxu import dot_tf32x3
-    from flash_cosine_sim_attention_tpu_torch.quant import (
-        quantize_dense_kernel, quantized_matmul, quantized_matmul_plain)
 
     if torch.backends.cuda.matmul.allow_tf32:
         fail("phase 22 times float32 with TF32 off")
@@ -5500,7 +5735,7 @@ def f32_instances(card: str):
     s, d = 1024, 64
     rows, errs = {}, {}
     rows["K1 f32"], errs["K1 f32"] = k1_f32(
-        g, card, 1, 8, s, d, ["fwd_tf32_kernel<64>"],
+        g, card, 1, 8, s, d, ["fwd_tf32_kernel<64, float>"],
         ["fwd_kernel<", "fwd_mma_kernel<"])
 
     worst = {"K2": 0.0, "K3a": 0.0, "K3b": 0.0}
@@ -5571,7 +5806,7 @@ def f32_instances(card: str):
     # the float32 instances no main path counts: K1 and K2 at d 128 (K3a,
     # K3b with their bias), the wide route at d 512, K1's int8 arm
     rows["K1 f32 d128"], errs["K1 f32 d128"] = k1_f32(
-        g, card, 1, 16, s, 128, ["fwd_tf32_kernel<128>"],
+        g, card, 1, 16, s, 128, ["fwd_tf32_kernel<128, float>"],
         ["fwd_kernel<", "fwd_mma_kernel<"])
     for name, row in time_backward(card, args_n, kw_n, args_w, kw_w).items():
         rows[f"{name} f32 d128"] = row
@@ -5581,45 +5816,6 @@ def f32_instances(card: str):
         ["dkdv_tf32_kernel<128, true>"], ["dkdv_kernel<", "mma_kernel<"])
     del args_n, args_w
     rows.update(f32_head512_kernels(g, card, errs))
-    rows["K1 int8 f32 v"], errs["K1 int8 f32 v"] = k1_f32(
-        g, card, 1, 16, s, 128, ["fwd_kernel<128>"],
-        ["fwd_tf32_kernel<", "mma_kernel"], qk_int8=True)
-
-    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    step = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
-    for name, ((d_in, d_out), calls) in PROD_DENSE.items():
-        w8, scale = quantize_dense_kernel(0.02 * torch.randn(
-            d_in, d_out, device="cuda", generator=g))
-        w_lib = (w8.float() * scale).t().contiguous()
-        x = torch.randn(8, d_in, device="cuda", generator=g)
-        err = rel_err(quantized_matmul(x, w8, scale),
-                      quantized_matmul_plain(x, w8, scale))
-        if not err <= F32_ERR_BAR:
-            fail(f"K7 f32 {name}: err {err}")
-        errs["K7 f32"] = max(errs.get("K7 f32", 0.0), err)
-        times = dict(
-            ms=device_ms(lambda: quantized_matmul(x, w8, scale),
-                         scratch.zero_),
-            plain_ms=device_ms(lambda: quantized_matmul_plain(x, w8, scale),
-                               scratch.zero_),
-            library_ms=device_ms(lambda: F.linear(x, w_lib), scratch.zero_),
-            bound_ms=bound(2 * 8 * d_in * d_out, w8.numel() + 4 * d_out
-                           + 4 * 8 * (d_in + d_out), PEAK_F32_FLOPS)[0])
-        print(f"  K7 {name} ({d_in}, {d_out}) x 8 rows f32, L2 flushed, on "
-              f"{card}: kernel {times['ms']:.4f} ms, plain "
-              f"{times['plain_ms']:.4f}, F.linear f32 "
-              f"{times['library_ms']:.4f}, bound {times['bound_ms']:.5f} "
-              f"(bytes); err {err:.2e}; "
-              "instances " + ", ".join(require_instances(
-                  "K7 f32", lambda: quantized_matmul(x, w8, scale),  # noqa: B023
-                  ["qmm_kernel<"], ["qmm_mma_kernel"])))
-        for key, val in times.items():
-            step[key] += calls * val
-    rows["K7 f32"] = dict(step, bound_by="bytes")
-    print(f"  K7 over one decode step (65 calls at 8 rows) f32 on {card}: "
-          f"{step['ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, F.linear "
-          f"f32 {step['library_ms']:.4f} ms (a float32 weight copy, 4x K7's "
-          f"bytes), bound {step['bound_ms']:.5f} ms (bytes)")
     for name, row in rows.items():
         print(f"  f32 row {name}: kernel / library "
               f"{row['ms'] / row['library_ms']:.2f}, bound / kernel "
@@ -5631,6 +5827,150 @@ def f32_instances(card: str):
     return (rows, errs, f32_long_step(card), head256_launches,
             f32_head256_long_step(card), head512_launches,
             f32_head512_long_step(card))
+
+
+def f32_prod_serve(card: str) -> dict:
+    """Phase 23: the 0.81B production model served in float32 with int8
+    weights and fused QKV, uncut (PROD_MODEL: dim 2048, depth 16, 16 heads
+    of 128, random weights drawn on the card from SEED; quantize_params,
+    then fuse_qkv_params) by InferenceEngine under PROD_ENGINE (8 slots x
+    2048, buckets 128-1024, int8 KV cache), near-greedy (temperature
+    1e-4).  After a warm-up request, a PROD_PROMPT-token prompt in every
+    slot (TTFT, synchronized wall a prompt): K7 on float32 x at its
+    prefill tiles and K1 on fwd_tf32_kernel<128, float>; one more prefill
+    of the last slot's prompt profiled (device time, idle share against
+    the median TTFT, K7's and K1's shares and launches); then PROD_STEPS
+    decode steps (wall) and 4 profiled ones (device time, idle share, K7's
+    at its decode tiles and K4's shares and launches).  The wrappers'
+    launches over this traffic are checked against its passes, and the
+    instances by profiler name (no FMA instance of K1 or K7).  Every
+    slot's stream of 1 + PROD_STEPS tokens is held, under margin_rule, to
+    the same model's greedy decode with every kernel's plain version on
+    the card (plain_on_card).  ``python3 chip_smoke.py --f32-prod-serve``
+    runs this alone (on a parent checkout it prints its readings, then
+    fails at the instance check).  Returns the wrapper launches {k1, k4,
+    k7, k1_prefill, k7_prefill}."""
+    from flash_cosine_sim_attention_tpu_torch.models import (
+        fuse_qkv_params, quantize_params)
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward)
+    from flash_cosine_sim_attention_tpu_torch.quant import (
+        quantized_decode_attention, quantized_matmul)
+    from flash_cosine_sim_attention_tpu_torch.serving import InferenceEngine
+
+    model = fuse_qkv_params(quantize_params(
+        build_prod_model(torch.float32, "cuda")))
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 23)
+    vocab, depth = PROD_MODEL["num_tokens"], PROD_MODEL["depth"]
+    slots = PROD_ENGINE["num_slots"]
+    prompts = [rng.integers(0, vocab, PROD_PROMPT) for _ in range(slots)]
+    engine = InferenceEngine(model, **PROD_ENGINE, temperature=1e-4,
+                             seed=SEED, device="cuda")
+    engine.finish(engine.add_request(rng.integers(0, vocab, 60)))  # warm-up
+    counters = (flash_attention_forward, quantized_decode_attention,
+                quantized_matmul)
+    for c in counters:
+        c.launches = 0
+    streams, ttft = {}, []
+    for prompt in prompts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slot = engine.add_request(prompt)
+        torch.cuda.synchronize()
+        ttft.append(1e3 * (time.perf_counter() - t0))
+        streams[slot] = [int(engine.last_token[slot])]
+    order = list(streams)
+    prefill_launches = dict(k1=flash_attention_forward.launches,
+                            k7=quantized_matmul.launches)
+    passes = dict(prefills=slots, steps=0)
+
+    def refill():  # the last slot's prompt again, under the profiler
+        engine.finish(order[-1])
+        if engine.add_request(prompts[-1]) != order[-1]:
+            fail("phase 23: the refilled prompt took another slot")
+        passes["prefills"] += 1
+
+    def step():
+        for slot, tok in engine.step().items():
+            streams[slot].append(tok)
+        passes["steps"] += 1
+
+    pre_rows = whole_rows(refill, 1)
+    streams[order[-1]] = [int(engine.last_token[order[-1]])]
+    step_ms = []
+    for _ in range(PROD_STEPS):
+        t0 = time.perf_counter()
+        step()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    profiled = 4
+    dec_rows = whole_rows(step, profiled)
+    launches = dict(k1=flash_attention_forward.launches,
+                    k4=quantized_decode_attention.launches,
+                    k7=quantized_matmul.launches)
+
+    def part(rows, pat, launch_pat=None):
+        """(device ms of the kernels matching ``pat``, launches of those
+        matching ``launch_pat``: K7's reduce of its splits is in its time,
+        not in its launches)"""
+        return (sum(t for key, t, _ in rows if pat in key) / 1e3,
+                sum(c for key, _, c in rows if (launch_pat or pat) in key))
+
+    med_ttft, dec = statistics.median(ttft), statistics.median(step_ms)
+    pre_ms = sum(t for _, t, _ in pre_rows) / 1e3
+    dec_busy = sum(t for _, t, _ in dec_rows) / 1e3
+    (k7p, k7p_n), (k1p, k1p_n) = (part(pre_rows, "qmm_", "qmm_mma_kernel"),
+                                  part(pre_rows, "fwd_"))
+    (k7d, k7d_n), (k4d, k4d_n) = (part(dec_rows, "qmm_", "qmm_mma_kernel"),
+                                  part(dec_rows, "decode_kernel<"))
+    print(f"  TTFT f32, {slots} prompts of {PROD_PROMPT} tokens on {card}: "
+          + ", ".join(f"{ms:.2f}" for ms in ttft) + f" ms (median "
+          f"{med_ttft:.2f}); launches over them K1 {prefill_launches['k1']},"
+          f" K7 {prefill_launches['k7']}")
+    print(f"  one more {PROD_PROMPT}-token prefill f32, profiled: device "
+          f"time {pre_ms:.3f} ms of the median TTFT {med_ttft:.2f} ms wall: "
+          f"idle share {1 - pre_ms / med_ttft:.3f}; K7 {k7p:.3f} ms "
+          f"({k7p / pre_ms:.3f}, {k7p_n} launches), K1 {k1p:.3f} ms "
+          f"({k1p / pre_ms:.3f}, {k1p_n} launches)")
+    print(f"  decode f32 on {card}: {dec:.3f} ms/step median over "
+          f"{PROD_STEPS} steps at {slots} slots ({slots * 1e3 / dec:.1f} "
+          f"tokens/s); device time {dec_busy:.3f} ms/step (profiled): idle "
+          f"share {1 - dec_busy / dec:.3f}; K7 {k7d:.3f} ms/step "
+          f"({k7d / dec_busy:.3f}, {k7d_n} launches a step), K4 {k4d:.3f} "
+          f"ms/step ({k4d / dec_busy:.3f}, {k4d_n} launches a step)")
+    for label, rows in (("prefill", pre_rows), ("decode step", dec_rows)):
+        print(f"  the f32 {label}'s largest device times (ms, launches): "
+              + "; ".join(f"{key[:56]} {t / 1e3:.3f} ({c})" for key, t, c
+                          in sorted(rows, key=lambda r: -r[1])[:5]))
+    want = dict(k1=depth * passes["prefills"], k4=depth * passes["steps"],
+                k7=K7_PER_PASS * (passes["prefills"] + passes["steps"]))
+    print(f"  launches over the traffic: {launches} (want {want}: "
+          f"{passes['prefills']} prefills, {passes['steps']} steps)")
+    if launches != want or prefill_launches != dict(
+            k1=depth * slots, k7=K7_PER_PASS * slots):
+        fail(f"phase 23: launches {launches}, prefills {prefill_launches}, "
+             f"want {want}")
+    if (k1p_n, k7p_n, k4d_n, k7d_n) != (depth, K7_PER_PASS, depth,
+                                         K7_PER_PASS):
+        fail(f"phase 23: profiled launches K1 {k1p_n}, K7 {k7p_n} a "
+             f"prefill, K4 {k4d_n}, K7 {k7d_n} a step")
+
+    n = 1 + PROD_STEPS
+    with plain_on_card():
+        ref, margins, _, _ = greedy_reference(model, prompts, n,
+                                              PROD_ENGINE["capacity"])
+    margin_rule("f32 int8-weight serving on the kernels vs the plain "
+                "versions", [streams[s][:n] for s in order], ref, margins)
+    require_kernels(pre_rows, ("qmm_mma_kernel<128, 4, 2, 3, float>",
+                               "fwd_tf32_kernel<128, float>"),
+                    "f32 production prefill")
+    require_kernels(dec_rows, ("qmm_mma_kernel<16, 1, 8, 4, float>",
+                               "decode_kernel<"),
+                    "f32 production decode step")
+    del engine, model
+    torch.cuda.empty_cache()
+    return dict(launches, k1_prefill=prefill_launches["k1"],
+                k7_prefill=prefill_launches["k7"])
 
 
 def main() -> None:
@@ -5678,6 +6018,14 @@ def main() -> None:
         help="check and time the float32 K1, K2, K3a and K3b at d 192 and "
              "256 alone (one card)")
     parser.add_argument(
+        "--f32-quant-kernels", action="store_true",
+        help="check and time K1's int8 arm with float32 v and K7 on "
+             "float32 x alone (one card)")
+    parser.add_argument(
+        "--f32-prod-serve", action="store_true",
+        help="serve the 0.81B model in float32 with int8 weights alone "
+             "(phase 23, one card)")
+    parser.add_argument(
         "--profiler-drift", type=float, metavar="SECONDS",
         help="profile windows of a matmul for SECONDS alone, with a bare "
              "opening spin and through cuda_rows (one card)")
@@ -5720,7 +6068,8 @@ def main() -> None:
             or args.f32_long_step or args.f32_head256_step
             or args.f32_head256_long_step or args.f32_head512_step
             or args.f32_head512_long_step or args.f32_head512_kernels
-            or args.f32_wide_heads or args.profiler_drift):
+            or args.f32_wide_heads or args.f32_quant_kernels
+            or args.f32_prod_serve or args.profiler_drift):
         if args.profiler_drift:
             print("[0] the profiler's records over a long process")
             profiler_drift(args.profiler_drift)
@@ -5765,6 +6114,16 @@ def main() -> None:
             f32_wide_heads(torch.Generator(device="cuda").manual_seed(
                 SEED + 100), smi)
             flag = "--f32-wide-heads"
+        elif args.f32_quant_kernels:
+            print("[22] K1's int8 arm with float32 v and K7 on float32 x")
+            f32_quant_kernels(smi)
+            flag = "--f32-quant-kernels"
+        elif args.f32_prod_serve:
+            print("[23] the 0.81B model served in float32 with int8 weights")
+            t23 = time.perf_counter()
+            f32_prod_serve(smi)
+            print(f"  phase 23 took {time.perf_counter() - t23:.1f} s")
+            flag = "--f32-prod-serve"
         else:
             print(f"[22] the float32 training step at seq {LONG_SEQ}")
             f32_long_step(smi)
@@ -5831,6 +6190,15 @@ def main() -> None:
     (f32_rows, f32_err, long_launches, head256_launches,
      head256_long_launches, head512_launches,
      head512_long_launches) = run_world(1, None, f32_instances, smi)[0]
+    print("[22] K1's int8 arm with float32 v and K7 on float32 x")
+    f32q_rows, f32q_errs, int8_f32_launches = run_world(
+        1, None, f32_quant_kernels, smi)[0]
+    f32_rows.update(f32q_rows)
+    f32_err.update(f32q_errs)
+    print("[23] the 0.81B model served in float32 with int8 weights")
+    t23 = time.perf_counter()
+    f32_prod_launches = run_world(1, None, f32_prod_serve, smi)[0]
+    print(f"  phase 23 took {time.perf_counter() - t23:.1f} s")
 
     bwd = "flash_cosine_sim_attention_tpu/ops/bwd_kernel.py"
     src = "flash_cosine_sim_attention_tpu_torch/csrc/bwd_kernel.cu"
@@ -5979,7 +6347,31 @@ def main() -> None:
                      head512_long_launches),
                     ("bwd_kernel:dkdv:f32:d512", "bwd_kernel.cu",
                      "ops/bwd_kernel.py:282", "K3b f32 d512", "k3b",
-                     head512_long_launches))]
+                     head512_long_launches),
+                    # K1 f32 d128 and K7 on float32 x, with their launches
+                    # on phase 23's float32 serving (its prefills, and its
+                    # prefills and steps)
+                    ("fwd_kernel:f32:d128", "fwd_kernel.cu",
+                     "ops/fwd_kernel.py:47", "K1 f32 d128", "k1_prefill",
+                     f32_prod_launches),
+                    ("quant_matmul:f32", "quant_matmul_kernel.cu",
+                     "quant/weights.py:66", "K7 f32", "k7",
+                     f32_prod_launches),
+                    ("quant_matmul:f32:prefill", "quant_matmul_kernel.cu",
+                     "quant/weights.py:66", "K7 f32 prefill", "k7_prefill",
+                     f32_prod_launches))]
+    # K1's int8 arm with float32 v, with its launches on phase 22's
+    # qk_int8 op calls
+    kernels += [dict(name=name, route="cuda", source=f"{csrc}/fwd_kernel.cu",
+                     replaces="flash_cosine_sim_attention_tpu/ops/"
+                              "fwd_kernel.py:47",
+                     launches=int8_f32_launches[row],
+                     max_abs_err=f32_err[row], **f32_rows[row])
+                for name, row in (("fwd_kernel:int8:f32:d64",
+                                   "K1 int8 f32 v d64"),
+                                  ("fwd_kernel:int8:f32", "K1 int8 f32 v"),
+                                  ("fwd_kernel:int8:f32:d512",
+                                   "K1 int8 f32 v d512"))]
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke.py took {time.perf_counter() - started:.1f} s")
     print(smi)

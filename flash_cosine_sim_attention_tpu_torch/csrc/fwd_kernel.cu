@@ -87,10 +87,21 @@
 // at the heads-256 training shape (b4 h2 s1024 d256 causal f32): 4.3
 // GFLOP, three times that on the TF32 tensor cores, 0.026 ms at 495
 // TFLOP/s (the FMA route's bound, at 67 TFLOP/s, is 0.064 ms).
-// int8 codes with float32 v keep the f32 FMA kernel `fwd_kernel`: the
-// same block shape, both products as f32 FMAs out of shared memory (the
-// int8 codes by `__dp4a`), the P tile kept in float32 in shared memory,
-// 64 x 64 tiles at every width.
+// int8 q/k codes with float32 v (the op's qk_int8 on float32 inputs) run
+// as instances of the same kernel, fwd_tf32_kernel<D, int8_t>: Q and K
+// tiles are int8 rows laid out as MmaLayout lays them (a d 16 row padded
+// to one 32-byte k step with zeros), S = Q.K^T by mma.sync m16n8k32.s8
+// into exact int32 sums, as fwd_mma_kernel forms it, converted to float
+// once and scaled by c; the codes are exact, so no hi / lo split of Q or
+// K and no K lo tile.  Q's code fragments stay in registers at every
+// width (D / 32 words a thread at most); above d 128 each warp of a pair
+// sums S over half of a row's bytes and the pair adds its halves through
+// shared memory as the float instances do.  e, the masks, l and P.V
+// (3xTF32, V split) are the float instances'.  K's tiles are a quarter of
+// the bytes, so key tiles are 64 keys up to d 128 and 32 above.  Shared
+// memory 158 KB at d 128, 147.5 KB at d 256.  Bound at b1 h16 s1024 d128
+// causal: Q.K's 2.15 GOP at 1,979 TOP/s and P.V's 3 x 2.15 GFLOP at 495
+// TFLOP/s, 0.0141 ms.
 //
 // Past d 256 (the wide route) a warp's O accumulators no longer fit, so
 // the output columns become a grid axis: the wrapper pads d to a multiple
@@ -141,9 +152,16 @@
 // own) through 0.60 and 0.48 to 0.41 ms.  Bound at the heads-512
 // training shape: 3 x 4.3 GFLOP on the TF32 tensor cores, 0.026 ms at
 // 495 TFLOP/s (the FMA rate's, 67 TFLOP/s, 0.064 ms).
-// int8 q/k with float32 v (code 2) keeps the FMA kernel
-// `fwd_wide_kernel`: 128-column blocks, S summed over 64-lane d chunks
-// staged in f32, P kept in f32.
+// int8 q/k codes with float32 v (code 2) run as its int8 instance,
+// fwd_wide_tf32_kernel<int8_t>: the same grid, warps and V tiles; a chunk
+// holds 128 codes (128 bytes), so a warp's quarter is one 32-byte k step
+// of mma.sync m16n8k32.s8 into exact int32 sums, with no split and no K
+// lo; the quarters are added as floats through shared memory as the float
+// instance adds them.  Q's rows stay resident while they hold at most 2048
+// bytes (d 2048; 16.5 KB at d 512), and the instance takes 115.5 KB of
+// shared memory at d 512.  At d 384 a row has 3 chunks, fewer than the
+// ring's stages, so a tile's last chunk waits for every copy in flight
+// (its V tile among them).
 
 // Masking: causal keeps key col <= row + (seq_k - seq_q) (cross-attention
 // alignment) and the loop stops at the last tile a row of the block can
@@ -396,16 +414,21 @@ __global__ void __launch_bounds__(NT, 1) fwd_mma_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core f32 kernel: float32 q/k/v at every width up to 256, every
-// product as three tf32 mma.sync passes (3xTF32).  Up to d 128 the block
-// shape and key loop of fwd_mma_kernel (4 warps, 16 rows each); above, 8
-// warps, two for each 16 rows (see Tf32Layout).
+// Tensor-core f32 kernel: float32 v and o at every width up to 256, with
+// float32 q/k (every product as three tf32 mma.sync passes, 3xTF32) or
+// int8 q/k codes (S = Q.K^T exact by the s8 mma.sync of fwd_mma_kernel,
+// P.V as 3xTF32).  Up to d 128 the block shape and key loop of
+// fwd_mma_kernel (4 warps, 16 rows each); above, 8 warps, two for each 16
+// rows (see Tf32Layout).
 
-// Key tiles of the f32 instances above d 128: 32 keys at d 192, 16 at d
+// Key tiles of the float instances above d 128: 32 keys at d 192, 16 at d
 // 256 (32 do not fit there); 16 at d 192 ran 0.172 against 0.158 ms at
-// b4 h2 s1024 causal on an H100
-template <int D>
+// b4 h2 s1024 causal on an H100.  The int8 instances, whose K tiles are a
+// quarter of the bytes and have no lo, take 64 keys up to d 128 and 32
+// above.
+template <int D, typename TQ>
 struct Tf32Layout {
+  static constexpr bool Q8 = is_int8<TQ>();
   // above d 128 a block has 8 warps, two for each 16 rows: warp w sums
   // S over half h = w / 4 of d and owns O's columns [h D / 2, (h + 1) D /
   // 2), so a thread holds D / 4 of O's words (64 at d 256) and each SM
@@ -414,48 +437,60 @@ struct Tf32Layout {
   static constexpr bool WIDE = D > 128;
   static constexpr int HALVES = WIDE ? 2 : 1;
   static constexpr int NT = 128 * HALVES;
-  static constexpr int BKT = D <= 96 ? 64 : D <= 192 ? 32 : 16;  // keys a tile
-  static constexpr bool QREG = D <= 64;  // Q's hi / lo fragments in registers
-  // Q's lo as a resident tile up to d 128; above, Q's rows (each read by
-  // its own warps only) are split at each fragment load
+  static constexpr int BKT = Q8 ? (D <= 128 ? 64 : 32)
+                                : D <= 96 ? 64 : D <= 192 ? 32 : 16;
+  // Q's A fragments in registers: the float hi / lo up to d 64, the int8
+  // codes (D / 32 words a thread at most) at every width
+  static constexpr bool QREG = Q8 || D <= 64;
+  // float Q's lo as a resident tile up to d 128; above, Q's rows (each
+  // read by its own warps only) are split at each fragment load
   static constexpr bool QLO = !QREG && !WIDE;
   // f32 rows of D + 4 floats, (4D + 16) bytes: an odd count of 16-byte
   // units, so the 8 rows an ldmatrix reads hit 8 distinct banks, and 2
   // rows 8 banks apart for add_product_tf32x3's reads of V
   static constexpr int RF = D + 4;
   static constexpr int RS = 4 * RF;
-  // the Q tile (and its lo where QLO), two K and two V tiles (each split
-  // in place into its hi), the current K and V tiles' lo; then up to d
-  // 128 O's running sum (the closed chains), each thread's D / 2 words,
-  // and above the pairs' halves of S (8 warps x the S tile's C fragments;
-  // O's chains close into o itself)
+  // Q and K rows: f32 rows, or int8 rows laid out as MmaLayout lays them
+  // (padded to whole 32-byte k steps, 16 bytes past them)
+  static constexpr int QBP = Q8 ? MmaLayout<int8_t, D>::QBP : 4 * D;
+  static constexpr int QS = Q8 ? MmaLayout<int8_t, D>::QS : RS;
+  // the Q tile (and its lo where QLO), two K and two V tiles (float K and
+  // V each split in place into its hi), the current K (float only) and V
+  // tiles' lo; then up to d 128 O's running sum (the closed chains), each
+  // thread's D / 2 words, and above the pairs' halves of S (8 warps x the
+  // S tile's C fragments; O's chains close into o itself)
   static constexpr size_t XS = WIDE ? 2 * size_t(NT) * BKT : 0;  // bytes
-  static constexpr size_t SMEM = size_t(QLO ? 2 : 1) * BQ * RS +
-                                 6 * size_t(BKT) * RS +
+  static constexpr size_t SMEM = size_t(QLO ? 2 : 1) * BQ * QS +
+                                 2 * size_t(BKT) * QS +
+                                 size_t(Q8 ? 3 : 4) * BKT * RS +
                                  (WIDE ? XS : size_t(NT) * D / 2 * 4);
 };
 
-template <int D>
-__global__ void __launch_bounds__(Tf32Layout<D>::NT, 1) fwd_tf32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
+template <int D, typename TQ>
+__global__ void __launch_bounds__(Tf32Layout<D, TQ>::NT, 1) fwd_tf32_kernel(
+    const TQ* __restrict__ q, const TQ* __restrict__ k,
     const float* __restrict__ v, const uint8_t* __restrict__ mask,
     const float* __restrict__ bias, float* __restrict__ o,
     float* __restrict__ inv_l, int H, int KVH, int seq_q, int seq_k,
     int causal, int bias_batch_dim, float c) {
-  using L = Tf32Layout<D>;
-  constexpr int RS = L::RS, RF = L::RF, BKT = L::BKT, NTH = L::NT;
+  using L = Tf32Layout<D, TQ>;
+  constexpr bool Q8 = L::Q8;
+  constexpr int RS = L::RS, RF = L::RF, QS = L::QS, BKT = L::BKT;
+  constexpr int NTH = L::NT;
   constexpr bool QREG = L::QREG, QLO = L::QLO, WIDE = L::WIDE;
-  constexpr int DH = D / L::HALVES;  // S's lanes and O's columns of a warp
-  constexpr int KSTEPS = DH / 8;     // 32-byte k steps of a warp's S
-  constexpr int NS = BKT / 8;        // n8 tiles of S
-  constexpr int NO = DH / 8;         // n8 tiles of a warp's O
+  constexpr int QB = D * int(sizeof(TQ));  // bytes of a q / k row
+  constexpr int DH = D / L::HALVES;        // O's columns of a warp
+  constexpr int HB = L::QBP / L::HALVES;   // bytes of a warp's part of a row
+  constexpr int KSTEPS = HB / 32;          // 32-byte k steps of a warp's S
+  constexpr int NS = BKT / 8;              // n8 tiles of S
+  constexpr int NO = DH / 8;               // n8 tiles of a warp's O
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* qs = smem;                          // BQ x RS
-  unsigned char* qlo = qs + BQ * RS;                 // QLO: BQ x RS
-  unsigned char* ks = qs + (QLO ? 2 : 1) * BQ * RS;  // 2 x BKT x RS
-  unsigned char* vs = ks + 2 * BKT * RS;             // 2 x BKT x RS
-  unsigned char* klo = vs + 2 * BKT * RS;            // BKT x RS
-  unsigned char* vlo = klo + BKT * RS;               // BKT x RS
+  unsigned char* qs = smem;                          // BQ x QS
+  unsigned char* qlo = qs + BQ * QS;                 // QLO: BQ x QS
+  unsigned char* ks = qs + (QLO ? 2 : 1) * BQ * QS;  // 2 x BKT x QS
+  unsigned char* vs = ks + 2 * BKT * QS;             // 2 x BKT x RS
+  unsigned char* klo = vs + 2 * BKT * RS;            // float: BKT x RS
+  unsigned char* vlo = klo + (Q8 ? 0 : BKT * RS);    // BKT x RS
   // up to d 128 O's running sum (D / 2 x NT), above the halves of S
   float* osum = reinterpret_cast<float*>(vlo + BKT * RS);
   float* xs = osum;
@@ -468,8 +503,8 @@ __global__ void __launch_bounds__(Tf32Layout<D>::NT, 1) fwd_tf32_kernel(
   const int rg = warp & 3, part = warp >> 2;  // its 16 rows, its half of d
   const int diff = seq_k - seq_q;
 
-  const float* qb = q + (size_t(bi) * H + hi) * seq_q * D;
-  const float* kb = k + (size_t(bi) * KVH + kvhi) * seq_k * D;
+  const TQ* qb = q + (size_t(bi) * H + hi) * seq_q * D;
+  const TQ* kb = k + (size_t(bi) * KVH + kvhi) * seq_k * D;
   const float* vb = v + (size_t(bi) * KVH + kvhi) * seq_k * D;
   const uint8_t* mb = mask ? mask + size_t(bi) * seq_k : nullptr;
   const float* bb =
@@ -481,16 +516,21 @@ __global__ void __launch_bounds__(Tf32Layout<D>::NT, 1) fwd_tf32_kernel(
   const int nk = (kend + BKT - 1) / BKT;
 
   auto load_kv = [&](int buf, int k0) {
-    load_rows<4 * D, RS, NTH>(ks + buf * BKT * RS, kb, k0, BKT, seq_k);
+    load_rows<QB, QS, NTH>(ks + buf * BKT * QS, kb, k0, BKT, seq_k);
     load_rows<4 * D, RS, NTH>(vs + buf * BKT * RS, vb, k0, BKT, seq_k);
   };
+  if constexpr (L::QBP > QB) {  // int8 d 16: zero the k step's second half
+    for (int r = tid; r < BQ + 2 * BKT; r += NTH)
+      *reinterpret_cast<uint4*>(smem + r * QS + QB) = make_uint4(0, 0, 0, 0);
+  }
   if (nk > 0) {
-    load_rows<4 * D, RS, NTH>(qs, qb, q0, BQ, seq_q);
+    load_rows<QB, QS, NTH>(qs, qb, q0, BQ, seq_q);
     load_kv(0, 0);
   }
   cp_async_commit();
 
-  uint32_t qh[QREG ? KSTEPS : 1][4], ql[QREG ? KSTEPS : 1][4];
+  // Q's A fragments: float hi and lo, or the int8 codes (in qh)
+  uint32_t qh[QREG ? KSTEPS : 1][4], ql[QREG && !Q8 ? KSTEPS : 1][4];
   float oacc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -499,8 +539,7 @@ __global__ void __launch_bounds__(Tf32Layout<D>::NT, 1) fwd_tf32_kernel(
   float lsum[2] = {0.f, 0.f};
   const int rows[2] = {q0 + rg * 16 + g, q0 + rg * 16 + g + 8};
   // the warp's Q rows, from its half's first k step
-  const int qrow =
-      (rg * 16 + (lane & 15)) * RS + (lane >> 4) * 16 + part * KSTEPS * 32;
+  const int qrow = (rg * 16 + (lane & 15)) * QS + (lane >> 4) * 16 + part * HB;
   const int c0 = part * DH;  // the warp's first column of O (and of V)
 
   // O sums every visible key, each mma rounding its sum toward zero.
@@ -553,13 +592,17 @@ __global__ void __launch_bounds__(Tf32Layout<D>::NT, 1) fwd_tf32_kernel(
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();  // tile kt (and, at kt 0, the q tile) has landed
-    unsigned char* kt_s = ks + (kt & 1) * BKT * RS;
+    unsigned char* kt_s = ks + (kt & 1) * BKT * QS;
     unsigned char* vt_s = vs + (kt & 1) * BKT * RS;
-    // every warp reads all of K and V: split them once, for the block
-    split_rows<D, RS, NTH>(kt_s, klo, BKT);
+    // every warp reads all of K and V: split the floats once, for the
+    // block (the int8 codes are exact)
+    if constexpr (!Q8) split_rows<D, RS, NTH>(kt_s, klo, BKT);
     split_rows<D, RS, NTH>(vt_s, vlo, BKT);
     if (kt == 0) {
-      if constexpr (QREG) {  // a warp's own Q rows, split in registers
+      if constexpr (Q8) {  // a warp's own Q rows' codes, in registers
+#pragma unroll
+        for (int st = 0; st < KSTEPS; ++st) ldmatrix_x4(qh[st], qs + qrow + st * 32);
+      } else if constexpr (QREG) {  // a warp's own Q rows, split in registers
 #pragma unroll
         for (int st = 0; st < KSTEPS; ++st) {
           uint32_t a[4];
@@ -574,55 +617,82 @@ __global__ void __launch_bounds__(Tf32Layout<D>::NT, 1) fwd_tf32_kernel(
     }
     __syncthreads();  // the tiles' hi and lo are in place
 
-    // S = Q.K^T over the warp's k steps: x4 ldmatrix of K's hi and lo give
-    // the B fragments of 2 n8 tiles.  hi.hi sums into s, the small terms
-    // lo.hi + hi.lo into sl: the tensor cores round each sum toward zero,
-    // and s chains a third as many of them (at 8 groups and scale 8 this
-    // brings inv_l's distance from exact products down to float32's own)
-    float s[NS][4], sl[NS][4];
+    float s[NS][4];
+    if constexpr (Q8) {
+      // S = Q.K^T over the warp's k steps in exact int32 sums (|s| <=
+      // 127^2 D < 2^24, so its float is exact too), as fwd_mma_kernel
+      // forms it: an x4 ldmatrix of K gives the B fragments of 2 n8 tiles
+      int si[NS][4];
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+      for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = sl[n][e] = 0.f;
+        for (int e = 0; e < 4; ++e) si[n][e] = 0;
 #pragma unroll
-    for (int st = 0; st < KSTEPS; ++st) {
-      uint32_t ah[4], al[4];
-      if constexpr (QREG) {
+      for (int st = 0; st < KSTEPS; ++st) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ah[i] = qh[st][i];
-          al[i] = ql[st][i];
+        for (int j = 0; j < NS / 2; ++j) {
+          uint32_t b[4];
+          ldmatrix_x4(b, kt_s + (j * 16 + (lane & 7) + (lane >> 4) * 8) * QS +
+                             part * HB + st * 32 + ((lane >> 3) & 1) * 16);
+          mma_s8(si[2 * j], qh[st], b[0], b[1]);
+          mma_s8(si[2 * j + 1], qh[st], b[2], b[3]);
         }
-      } else if constexpr (QLO) {
-        ldmatrix_x4(ah, qs + qrow + st * 32);
-        ldmatrix_x4(al, qlo + qrow + st * 32);
-      } else {  // the warp's own Q rows, split as they are read
-        uint32_t a[4];
-        ldmatrix_x4(a, qs + qrow + st * 32);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          split_tf32(__uint_as_float(a[i]), ah[i], al[i]);
       }
 #pragma unroll
-      for (int j = 0; j < NS / 2; ++j) {
-        const int brow = (j * 16 + (lane & 7) + (lane >> 4) * 8) * RS +
-                         part * KSTEPS * 32 + st * 32 +
-                         ((lane >> 3) & 1) * 16;
-        uint32_t bh[4], bl[4];
-        ldmatrix_x4(bh, kt_s + brow);
-        ldmatrix_x4(bl, klo + brow);
-        mma_tf32(sl[2 * j], al, bh[0], bh[1]);
-        mma_tf32(sl[2 * j], ah, bl[0], bl[1]);
-        mma_tf32(s[2 * j], ah, bh[0], bh[1]);
-        mma_tf32(sl[2 * j + 1], al, bh[2], bh[3]);
-        mma_tf32(sl[2 * j + 1], ah, bl[2], bl[3]);
-        mma_tf32(s[2 * j + 1], ah, bh[2], bh[3]);
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = float(si[n][e]);
+    } else {
+      // S = Q.K^T over the warp's k steps: x4 ldmatrix of K's hi and lo
+      // give the B fragments of 2 n8 tiles.  hi.hi sums into s, the small
+      // terms lo.hi + hi.lo into sl: the tensor cores round each sum
+      // toward zero, and s chains a third as many of them (at 8 groups and
+      // scale 8 this brings inv_l's distance from exact products down to
+      // float32's own)
+      float sl[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = sl[n][e] = 0.f;
+#pragma unroll
+      for (int st = 0; st < KSTEPS; ++st) {
+        uint32_t ah[4], al[4];
+        if constexpr (QREG) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            ah[i] = qh[st][i];
+            al[i] = ql[st][i];
+          }
+        } else if constexpr (QLO) {
+          ldmatrix_x4(ah, qs + qrow + st * 32);
+          ldmatrix_x4(al, qlo + qrow + st * 32);
+        } else {  // the warp's own Q rows, split as they are read
+          uint32_t a[4];
+          ldmatrix_x4(a, qs + qrow + st * 32);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            split_tf32(__uint_as_float(a[i]), ah[i], al[i]);
+        }
+#pragma unroll
+        for (int j = 0; j < NS / 2; ++j) {
+          const int brow = (j * 16 + (lane & 7) + (lane >> 4) * 8) * QS +
+                           part * HB + st * 32 + ((lane >> 3) & 1) * 16;
+          uint32_t bh[4], bl[4];
+          ldmatrix_x4(bh, kt_s + brow);
+          ldmatrix_x4(bl, klo + brow);
+          mma_tf32(sl[2 * j], al, bh[0], bh[1]);
+          mma_tf32(sl[2 * j], ah, bl[0], bl[1]);
+          mma_tf32(s[2 * j], ah, bh[0], bh[1]);
+          mma_tf32(sl[2 * j + 1], al, bh[2], bh[3]);
+          mma_tf32(sl[2 * j + 1], ah, bl[2], bl[3]);
+          mma_tf32(s[2 * j + 1], ah, bh[2], bh[3]);
+        }
       }
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] += sl[n][e];
     }
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] += sl[n][e];
     if constexpr (WIDE) {
       // the pair's two halves of S, added in the same order by both warps
       // (so both form the same e): word (n, e) of a lane at
@@ -723,318 +793,13 @@ __global__ void __launch_bounds__(Tf32Layout<D>::NT, 1) fwd_tf32_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// f32 FMA kernel: int8 q/k codes with float32 v (float32 q/k/v run on
-// the tensor cores, fwd_tf32_kernel).  Threads are 16 row groups of 4 rows
-// x 8 column lanes.
-
-// 4-byte words per q / k row in shared memory: int8 codes packed four to a
-// word, one pad word included
-template <int D>
-__host__ __device__ constexpr int qk_row() { return D / 4 + 1; }
-
-template <int D>
-constexpr size_t smem_bytes() {
-  // q tile, k tile, v tile, P tile with one pad column
-  return 4 * (size_t(BQ) * qk_row<D>() + size_t(BK) * qk_row<D>() +
-              size_t(BK) * D + size_t(BQ) * (BK + 1));
-}
-
-template <int D>
-__global__ void __launch_bounds__(NT) fwd_kernel(
-    const int8_t* __restrict__ q, const int8_t* __restrict__ k,
-    const float* __restrict__ v, const uint8_t* __restrict__ mask,
-    const float* __restrict__ bias, float* __restrict__ o,
-    float* __restrict__ inv_l, int H, int KVH, int seq_q, int seq_k,
-    int causal, int bias_batch_dim, float c) {
-  constexpr int QR = qk_row<D>();
-  constexpr int DW = D / 4;  // words per row
-  constexpr int PP = BK + 1;
-  constexpr int DC = D / 8;  // output columns per thread
-  extern __shared__ float smem_f[];
-  int* qw = reinterpret_cast<int*>(smem_f);  // BQ x QR packed codes
-  int* kw = qw + BQ * QR;                    // BK x QR
-  float* vs = smem_f + (BQ + BK) * QR;       // BK x D
-  float* ps = vs + BK * D;                   // BQ x PP exp weights
-
-  const int bi = blockIdx.z, hi = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int kvhi = hi / (H / KVH);
-  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
-  const int diff = seq_k - seq_q;
-
-  const int8_t* qb = q + (size_t(bi) * H + hi) * seq_q * D;
-  const int8_t* kb = k + (size_t(bi) * KVH + kvhi) * seq_k * D;
-  const float* vb = v + (size_t(bi) * KVH + kvhi) * seq_k * D;
-  const uint8_t* mb = mask ? mask + size_t(bi) * seq_k : nullptr;
-  const float* bb =
-      bias ? bias + size_t(bias_batch_dim ? bi : hi) * seq_q * seq_k : nullptr;
-
-  const int* qb4 = reinterpret_cast<const int*>(qb);
-  for (int idx = tid; idx < BQ * DW; idx += NT) {
-    const int r = idx / DW, w = idx % DW, row = q0 + r;
-    qw[r * QR + w] = row < seq_q ? qb4[size_t(row) * DW + w] : 0;
-  }
-
-  // keys this block can see: all, or (causal) up to its last row's diagonal
-  const int last_row = min(q0 + BQ, seq_q) - 1;
-  const int kend = causal ? max(0, min(seq_k, last_row + diff + 1)) : seq_k;
-  const int nk = (kend + BK - 1) / BK;
-
-  float acc[4][DC];
-  float lsum[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    lsum[r] = 0.f;
-#pragma unroll
-    for (int cc = 0; cc < DC; ++cc) acc[r][cc] = 0.f;
-  }
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // previous tile's readers are done with ks/vs/ps
-    for (int idx = tid; idx < BK * D; idx += NT) {
-      const int r = idx / D, cc = idx % D, col = k0 + r;
-      vs[r * D + cc] = col < seq_k ? vb[size_t(col) * D + cc] : 0.f;
-    }
-    const int* kb4 = reinterpret_cast<const int*>(kb);
-    for (int idx = tid; idx < BK * DW; idx += NT) {
-      const int r = idx / DW, w = idx % DW, col = k0 + r;
-      kw[r * QR + w] = col < seq_k ? kb4[size_t(col) * DW + w] : 0;
-    }
-    __syncthreads();
-
-    float s[4][8];
-    int si[4][8];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int cc = 0; cc < 8; ++cc) si[r][cc] = 0;
-#pragma unroll 4
-    for (int dd = 0; dd < DW; ++dd) {
-      int a[4], b[8];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = qw[(ty * 4 + r) * QR + dd];
-#pragma unroll
-      for (int cc = 0; cc < 8; ++cc) b[cc] = kw[(tx + 8 * cc) * QR + dd];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int cc = 0; cc < 8; ++cc) si[r][cc] = __dp4a(a[r], b[cc], si[r][cc]);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int cc = 0; cc < 8; ++cc) s[r][cc] = float(si[r][cc]) * c;
-
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = q0 + ty * 4 + r;
-#pragma unroll
-      for (int cc = 0; cc < 8; ++cc) {
-        const int col = k0 + tx + 8 * cc;
-        bool keep = row < seq_q && col < seq_k;
-        if (causal) keep = keep && col <= row + diff;
-        if (mb != nullptr) keep = keep && mb[min(col, seq_k - 1)] != 0;
-        float x = s[r][cc];
-        if (bb != nullptr && keep) x += bb[size_t(row) * seq_k + col] * LOG2E;
-        const float e = keep ? exp2f(x) : 0.f;
-        lsum[r] += e;
-        ps[(ty * 4 + r) * PP + tx + 8 * cc] = e;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) p[r] = ps[(ty * 4 + r) * PP + kk];
-#pragma unroll
-      for (int cc = 0; cc < DC; ++cc) {
-        const float vv = vs[kk * D + tx + 8 * cc];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[r][cc] = fmaf(p[r], vv, acc[r][cc]);
-      }
-    }
-  }
-
-  // the 8 lanes of a row group are consecutive lanes of one warp
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-#pragma unroll
-    for (int off = 4; off > 0; off >>= 1)
-      lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], off);
-  }
-  float* ob = o + (size_t(bi) * H + hi) * seq_q * D;
-  float* lb = inv_l + (size_t(bi) * H + hi) * seq_q;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + ty * 4 + r;
-    if (row >= seq_q) continue;
-    const float inv = 1.f / fmaxf(lsum[r], EPS);
-#pragma unroll
-    for (int cc = 0; cc < DC; ++cc) ob[size_t(row) * D + tx + 8 * cc] = acc[r][cc] * inv;
-    if (tx == 0) lb[row] = inv;
-  }
-}
-
-
-// ---------------------------------------------------------------------------
-// Wide route's FMA kernel (d a multiple of WCOL past 256): int8 q/k codes
-// with float32 v.  Grid (query tiles, H, B x column blocks); threads are
-// 16 row groups of 4 rows x 8 column lanes, as in fwd_kernel.
-
-constexpr int WKC = 64;    // d lanes of a Q / K chunk
-constexpr int WCOL = 128;  // O columns of a block (ops/blocks.py WIDE_CHUNK)
-
-constexpr size_t wide_smem() {
-  // Q and K chunks and the P tile with one pad column, the V column tile
-  return sizeof(float) * (size_t(BQ) * (WKC + 1) + size_t(BK) * (WKC + 1) +
-                          size_t(BK) * WCOL + size_t(BQ) * (BK + 1));
-}
-
-// rows [row0, row0 + rows) x columns [c0, c0 + cols) of a (*, d) tensor as
-// f32 into shared rows `stride` floats apart; rows past `end` as 0
-template <typename T>
-__device__ __forceinline__ void load_chunk(float* dst, const T* src, int row0,
-                                           int end, int rows, int c0, int cols,
-                                           int d, int stride) {
-  for (int idx = threadIdx.x; idx < rows * cols; idx += NT) {
-    const int r = idx / cols, cc = idx % cols, row = row0 + r;
-    dst[r * stride + cc] =
-        row < end ? float(src[size_t(row) * d + c0 + cc]) : 0.f;
-  }
-}
-
-__global__ void __launch_bounds__(NT) fwd_wide_kernel(
-    const int8_t* __restrict__ q, const int8_t* __restrict__ k,
-    const float* __restrict__ v,
-    const uint8_t* __restrict__ mask, const float* __restrict__ bias,
-    float* __restrict__ o, float* __restrict__ inv_l, int H, int KVH, int seq_q,
-    int seq_k, int d, int causal, int bias_batch_dim, float c) {
-  constexpr int KS = WKC + 1, PP = BK + 1;
-  constexpr int DC = WCOL / 8;  // output columns per thread
-  extern __shared__ float smem_w[];
-  float* qs = smem_w;        // BQ x KS
-  float* ks = qs + BQ * KS;  // BK x KS
-  float* vs = ks + BK * KS;  // BK x WCOL
-  float* ps = vs + BK * WCOL;  // BQ x PP
-
-  const int ncb = d / WCOL;
-  const int bi = blockIdx.z / ncb, cb = blockIdx.z % ncb, hi = blockIdx.y;
-  const int c0 = cb * WCOL;
-  const int q0 = blockIdx.x * BQ;
-  const int kvhi = hi / (H / KVH);
-  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
-  const int diff = seq_k - seq_q;
-
-  const int8_t* qb = q + (size_t(bi) * H + hi) * seq_q * d;
-  const int8_t* kb = k + (size_t(bi) * KVH + kvhi) * seq_k * d;
-  const float* vb = v + (size_t(bi) * KVH + kvhi) * seq_k * d;
-  const uint8_t* mb = mask ? mask + size_t(bi) * seq_k : nullptr;
-  const float* bb =
-      bias ? bias + size_t(bias_batch_dim ? bi : hi) * seq_q * seq_k : nullptr;
-
-  const int last_row = min(q0 + BQ, seq_q) - 1;
-  const int kend = causal ? max(0, min(seq_k, last_row + diff + 1)) : seq_k;
-  const int nk = (kend + BK - 1) / BK;
-
-  float acc[4][DC];
-  float lsum[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    lsum[r] = 0.f;
-#pragma unroll
-    for (int cc = 0; cc < DC; ++cc) acc[r][cc] = 0.f;
-  }
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
-    // S = Q.K^T over the d chunks
-    float s[4][8];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int cc = 0; cc < 8; ++cc) s[r][cc] = 0.f;
-    for (int d0 = 0; d0 < d; d0 += WKC) {
-      __syncthreads();  // the previous chunk's (and tile's) readers are done
-      load_chunk(qs, qb, q0, seq_q, BQ, d0, WKC, d, KS);
-      load_chunk(ks, kb, k0, seq_k, BK, d0, WKC, d, KS);
-      __syncthreads();
-#pragma unroll 4
-      for (int dd = 0; dd < WKC; ++dd) {
-        float a[4], b[8];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) a[r] = qs[(ty * 4 + r) * KS + dd];
-#pragma unroll
-        for (int cc = 0; cc < 8; ++cc) b[cc] = ks[(tx + 8 * cc) * KS + dd];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int cc = 0; cc < 8; ++cc) s[r][cc] = fmaf(a[r], b[cc], s[r][cc]);
-      }
-    }
-
-    // e, masked to 0, into the P tile; the block's V columns beside it
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = q0 + ty * 4 + r;
-#pragma unroll
-      for (int cc = 0; cc < 8; ++cc) {
-        const int col = k0 + tx + 8 * cc;
-        bool keep = row < seq_q && col < seq_k;
-        if (causal) keep = keep && col <= row + diff;
-        if (mb != nullptr) keep = keep && mb[min(col, seq_k - 1)] != 0;
-        float x = s[r][cc] * c;
-        if (bb != nullptr && keep) x += bb[size_t(row) * seq_k + col] * LOG2E;
-        const float e = keep ? exp2f(x) : 0.f;
-        lsum[r] += e;
-        ps[(ty * 4 + r) * PP + tx + 8 * cc] = e;
-      }
-    }
-    load_chunk(vs, vb, k0, seq_k, BK, c0, WCOL, d, WCOL);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) p[r] = ps[(ty * 4 + r) * PP + kk];
-#pragma unroll
-      for (int cc = 0; cc < DC; ++cc) {
-        const float vv = vs[kk * WCOL + tx + 8 * cc];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[r][cc] = fmaf(p[r], vv, acc[r][cc]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-#pragma unroll
-    for (int off = 4; off > 0; off >>= 1)
-      lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], off);
-  }
-  float* ob = o + (size_t(bi) * H + hi) * seq_q * d + c0;
-  float* lb = inv_l + (size_t(bi) * H + hi) * seq_q;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + ty * 4 + r;
-    if (row >= seq_q) continue;
-    const float inv = 1.f / fmaxf(lsum[r], EPS);
-#pragma unroll
-    for (int cc = 0; cc < DC; ++cc)
-      ob[size_t(row) * d + tx + 8 * cc] = acc[r][cc] * inv;
-    if (tx == 0 && cb == 0) lb[row] = inv;  // every column block has this l
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Wide route on the tensor cores: bf16 q/k/v, or int8 q/k codes with bf16
 // v, d a multiple of WCOL past 256.  Grid (query tiles, H, B x column
 // blocks of MCOL), query tiles heaviest first; NT threads, warp w owning
 // query rows q0 + 16w ..
 
+constexpr int WCOL = 128;          // the wide route's d is a multiple of it
+                                   // (ops/blocks.py WIDE_CHUNK)
 constexpr int MCOL = 256;          // O columns of a block: a warp's 16 rows x
                                    // 256 f32 are 128 registers a thread
 constexpr int MCB = 256;           // bytes of a Q / K row chunk
@@ -1286,68 +1051,83 @@ __global__ void __launch_bounds__(NT, 1) fwd_wide_mma_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Wide route on the tensor cores in float32 (3xTF32), d a multiple of WCOL
-// past 256.  Grid (B x column blocks of MCOL, H, query tiles), query tiles
-// slowest and heaviest first; FT_NT threads: warp w owns query rows q0 +
-// 16 (w % 2) .., sums S over quarter w / 2 of every chunk and forms O
-// over that quarter of the block's columns.
+// Wide route on the tensor cores with float32 v and o, d a multiple of
+// WCOL past 256: float32 q/k (3xTF32) or int8 q/k codes (S exact by the
+// s8 mma.sync, P.V as 3xTF32).  Grid (B x column blocks of MCOL, H, query
+// tiles), query tiles slowest and heaviest first; FT_NT threads: warp w
+// owns query rows q0 + 16 (w % 2) .., sums S over quarter w / 2 of every
+// chunk and forms O over that quarter of the block's columns.
 
 constexpr int FT_NT = 256;               // threads: 8 warps, four a 16 rows
 constexpr int FT_BQ = 32;                // query rows a block
 constexpr int FT_BK = 32;                // keys a tile
-constexpr int FT_KC = 64;                // d lanes of a Q / K chunk (256 B)
-constexpr int FT_CS = 4 * FT_KC + 16;    // its shared row stride (17 units)
 constexpr int FT_RF = MCOL + 4;          // V tile row stride, floats (4 mod 16)
 constexpr int FT_STAGES = 4;             // chunk stages in flight
-constexpr int FT_QRES = 512;             // widest d whose Q rows stay resident
+template <typename TQ>
 struct FtLayout {
-  // up to d FT_QRES the block's Q rows, resident (rows of 4d + 16 bytes:
-  // an odd count of 16-byte units); the chunk stages (past FT_QRES Q's
-  // FT_BQ rows, then K's FT_BK rows, hi and lo); the V tile (FT_BK keys x
-  // MCOL columns) and its lo; the warps' quarters of S (8 warps x the S
-  // tile's C fragments)
+  static constexpr bool Q8 = is_int8<TQ>();
+  static constexpr int ES = int(sizeof(TQ));
+  // d lanes of a Q / K chunk: 64 floats or 128 codes, so a warp's quarter
+  // is two 32-byte k steps (tf32 m16n8k8) or one (s8 m16n8k32)
+  static constexpr int KC = Q8 ? 128 : 64;
+  static constexpr int CB = KC * ES;      // bytes of a chunk row
+  static constexpr int CS = CB + 16;      // its shared row stride (odd units)
+  // bytes of the widest Q row that stays resident: d 512 in f32, 2048 codes
+  static constexpr int QRES = 2048;
+  // K's rows of a chunk stage: hi and lo (floats), or the codes
+  static constexpr int KROWS = Q8 ? FT_BK : 2 * FT_BK;
+  // the block's Q rows, resident while a row holds at most QRES bytes
+  // (rows of d ES + 16 bytes: an odd count of 16-byte units); the chunk
+  // stages (past QRES Q's FT_BQ rows, then K's rows); the V tile (FT_BK
+  // keys x MCOL columns) and its lo; the warps' quarters of S (8 warps x
+  // the S tile's C fragments)
   static constexpr size_t VT = size_t(FT_BK) * FT_RF * 4;
   static constexpr size_t XSB = size_t(FT_NT) * (FT_BK / 2) * 4;
-  __host__ __device__ static bool qres(int d) { return d <= FT_QRES; }
-  __host__ __device__ static int qstride(int d) { return 4 * d + 16; }
+  __host__ __device__ static bool qres(int d) { return d * ES <= QRES; }
+  __host__ __device__ static int qstride(int d) { return d * ES + 16; }
   __host__ __device__ static size_t ring(int d) {
     return qres(d) ? size_t(FT_BQ) * qstride(d) : 0;
   }
   __host__ __device__ static size_t chunk(int d) {
-    return size_t((qres(d) ? 0 : FT_BQ) + 2 * FT_BK) * FT_CS;
+    return size_t((qres(d) ? 0 : FT_BQ) + KROWS) * CS;
   }
   __host__ __device__ static size_t vs(int d) {
     return ring(d) + FT_STAGES * chunk(d);
   }
   __host__ __device__ static size_t smem(int d) { return vs(d) + 2 * VT + XSB; }
+  // the most of it at any d: Q resident at QRES, or streamed
+  static constexpr size_t MOST =
+      (size_t(FT_BQ) * (QRES + 16) + FT_STAGES * size_t(KROWS) * CS >
+               FT_STAGES * size_t(FT_BQ + KROWS) * CS
+           ? size_t(FT_BQ) * (QRES + 16) + FT_STAGES * size_t(KROWS) * CS
+           : FT_STAGES * size_t(FT_BQ + KROWS) * CS) +
+      2 * VT + XSB;
 };
-static_assert(size_t(FT_BQ) * (4 * FT_QRES + 16) +
-                      FT_STAGES * size_t(2 * FT_BK) * FT_CS +
-                      2 * FtLayout::VT + FtLayout::XSB <=
-                  232448 &&
-              FT_STAGES * size_t(FT_BQ + 2 * FT_BK) * FT_CS + 2 * FtLayout::VT +
-                      FtLayout::XSB <=
-                  232448,
+static_assert(FtLayout<float>::MOST <= 232448 &&
+                  FtLayout<int8_t>::MOST <= 232448,
               "the wide f32 K1's shared memory");
 
+template <typename TQ>
 __global__ void __launch_bounds__(FT_NT, 1) fwd_wide_tf32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
+    const TQ* __restrict__ q, const TQ* __restrict__ k,
     const float* __restrict__ v, const uint8_t* __restrict__ mask,
     const float* __restrict__ bias, float* __restrict__ o,
     float* __restrict__ inv_l, int H, int KVH, int seq_q, int seq_k, int d,
     int causal, int bias_batch_dim, float c) {
-  using L = FtLayout;
+  using L = FtLayout<TQ>;
+  constexpr bool Q8 = L::Q8;
+  constexpr int CS = L::CS, CB = L::CB;
   constexpr int NS = FT_BK / 8;          // n8 tiles of S
   constexpr int NO = MCOL / 4 / 8;       // n8 tiles of a warp's O (at most)
-  constexpr int KSTEPS = FT_KC / 4 / 8;  // k steps of a warp's quarter chunk
-  constexpr int CPR = FT_KC / 4;         // 16-byte copies of a chunk row
+  constexpr int KSTEPS = CB / 4 / 32;    // k steps of a warp's quarter chunk
+  constexpr int CPR = CB / 16;           // 16-byte copies of a chunk row
   constexpr int VPR = MCOL / 4;          // ... and of a V tile row
   extern __shared__ __align__(16) unsigned char smem[];
   const bool qres = L::qres(d);
   const int qs_ = L::qstride(d);
   unsigned char* ring = smem + L::ring(d);
   const size_t chunk = L::chunk(d);
-  const int kofs = qres ? 0 : FT_BQ * FT_CS;  // K's rows in a stage
+  const int kofs = qres ? 0 : FT_BQ * CS;  // K's rows in a stage
   unsigned char* vt = smem + L::vs(d);
   unsigned char* vlo = vt + L::VT;
   float* xs = reinterpret_cast<float*>(vlo + L::VT);
@@ -1364,10 +1144,13 @@ __global__ void __launch_bounds__(FT_NT, 1) fwd_wide_tf32_kernel(
   const int rg = warp & 1, part = warp >> 1;  // its 16 rows, its quarter
   const int wcols = ncols / 4;                // the warp's O columns
   const int diff = seq_k - seq_q;
-  const int nch = d / FT_KC;                  // chunks of a row
+  const int nch = d / L::KC;                  // chunks of a row
+  const size_t rowb = size_t(d) * L::ES;      // bytes of a q / k row
 
-  const float* qb = q + (size_t(bi) * H + hi) * seq_q * d;
-  const float* kb = k + (size_t(bi) * KVH + kvhi) * seq_k * d;
+  const unsigned char* qb = reinterpret_cast<const unsigned char*>(
+      q + (size_t(bi) * H + hi) * seq_q * d);
+  const unsigned char* kb = reinterpret_cast<const unsigned char*>(
+      k + (size_t(bi) * KVH + kvhi) * seq_k * d);
   const float* vb = v + (size_t(bi) * KVH + kvhi) * seq_k * d + c0;
   const uint8_t* mb = mask ? mask + size_t(bi) * seq_k : nullptr;
   const float* bb =
@@ -1380,24 +1163,24 @@ __global__ void __launch_bounds__(FT_NT, 1) fwd_wide_tf32_kernel(
   const int steps = nk * nch;  // (key tile, chunk) pairs, chunks fastest
 
   // `nrows` rows from global row `first` (rows past `limit` as zeros) of a
-  // chunk at lane `off` into shared rows FT_CS apart
-  auto load_chunk = [&](unsigned char* dst, const float* src, int first,
-                        int nrows, int limit, int off) {
+  // chunk at byte `off` into shared rows CS apart
+  auto load_chunk = [&](unsigned char* dst, const unsigned char* src,
+                        int first, int nrows, int limit, int off) {
     for (int idx = tid; idx < nrows * CPR; idx += FT_NT) {
-      const int r = idx / CPR, cc = (idx % CPR) * 4, row = first + r;
+      const int r = idx / CPR, cc = (idx % CPR) * 16, row = first + r;
       const bool in = row < limit;
-      cp_async16(dst + r * FT_CS + cc * 4,
-                 in ? src + size_t(row) * d + off + cc : src, in ? 16 : 0);
+      cp_async16(dst + r * CS + cc, in ? src + size_t(row) * rowb + off + cc : src,
+                 in ? 16 : 0);
     }
   };
-  // step st's K chunk (and past FT_QRES its Q chunk) into stage st %
+  // step st's K chunk (and past QRES its Q chunk) into stage st %
   // FT_STAGES
   auto issue = [&](int st) {
     if (st < steps) {
       const int kt = st / nch, ch = st - kt * nch;
       unsigned char* stg = ring + (st % FT_STAGES) * chunk;
-      if (!qres) load_chunk(stg, qb, q0, FT_BQ, seq_q, ch * FT_KC);
-      load_chunk(stg + kofs, kb, kt * FT_BK, FT_BK, seq_k, ch * FT_KC);
+      if (!qres) load_chunk(stg, qb, q0, FT_BQ, seq_q, ch * CB);
+      load_chunk(stg + kofs, kb, kt * FT_BK, FT_BK, seq_k, ch * CB);
     }
     cp_async_commit();
   };
@@ -1414,8 +1197,8 @@ __global__ void __launch_bounds__(FT_NT, 1) fwd_wide_tf32_kernel(
   // the 16-byte words this thread copied (same loops as issue's) split in
   // place into their tf32 hi, each lo at the same place of `lo`: once its
   // own copies have landed a thread may read them before any barrier, so
-  // the K chunk and V tile, which four warps each read, are split once for
-  // the block at no barrier of their own
+  // the float K chunk and the V tile, which four warps each read, are
+  // split once for the block at no barrier of their own
   auto split_own = [&](unsigned char* hi_, unsigned char* lo_, int per_row,
                        int stride) {
     for (int idx = tid; idx < FT_BK * per_row; idx += FT_NT) {
@@ -1440,7 +1223,7 @@ __global__ void __launch_bounds__(FT_NT, 1) fwd_wide_tf32_kernel(
   const int rows[2] = {q0 + rg * 16 + g, q0 + rg * 16 + g + 8};
   // the warp's Q rows, resident or in a chunk stage, from its quarter's
   // first k step
-  const int qrow = (rg * 16 + (lane & 15)) * (qres ? qs_ : FT_CS) +
+  const int qrow = (rg * 16 + (lane & 15)) * (qres ? qs_ : CS) +
                    (lane >> 4) * 16 + part * KSTEPS * 32;
 
   // O sums every visible key, each mma rounding its sum toward zero: every
@@ -1475,11 +1258,11 @@ __global__ void __launch_bounds__(FT_NT, 1) fwd_wide_tf32_kernel(
   };
 
   if (qres && nk > 0) {  // the block's Q rows, once
-    const int per_row = d / 4;
+    const int per_row = int(rowb / 16);
     for (int idx = tid; idx < FT_BQ * per_row; idx += FT_NT) {
-      const int r = idx / per_row, cc = (idx % per_row) * 4, row = q0 + r;
+      const int r = idx / per_row, cc = (idx % per_row) * 16, row = q0 + r;
       const bool in = row < seq_q;
-      cp_async16(smem + r * qs_ + cc * 4, in ? qb + size_t(row) * d + cc : qb,
+      cp_async16(smem + r * qs_ + cc, in ? qb + size_t(row) * rowb + cc : qb,
                  in ? 16 : 0);
     }
   }
@@ -1487,58 +1270,81 @@ __global__ void __launch_bounds__(FT_NT, 1) fwd_wide_tf32_kernel(
   for (int st = 0; st < FT_STAGES - 1; ++st) issue(st);
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * FT_BK;
-    // S = Q.K^T in four accumulators: hi.hi in sb, the small terms lo.hi +
-    // hi.lo in sm, each by the k step's parity (shorter chains of sums that
-    // the tensor cores round toward zero, over twice the d 256 instance's
-    // lanes a warp)
+    // S = Q.K^T: the float products in four accumulators, hi.hi in sb, the
+    // small terms lo.hi + hi.lo in sm, each by the k step's parity
+    // (shorter chains of sums that the tensor cores round toward zero,
+    // over twice the d 256 instance's lanes a warp); the int8 codes' in
+    // exact int32 sums (si: |s| <= 127^2 d, below 2^31)
     float sb[2][NS][4], sm[2][NS][4];
+    int si[NS][4];
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
+    for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sb[r][n][e] = sm[r][n][e] = 0.f;
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (Q8) {
+          si[n][e] = 0;
+        } else {
+          sb[0][n][e] = sm[0][n][e] = sb[1][n][e] = sm[1][n][e] = 0.f;
+        }
+      }
     for (int ch = 0; ch < nch; ++ch) {
       const int st = kt * nch + ch;
       unsigned char* stg = ring + (st % FT_STAGES) * chunk;
-      const unsigned char* qs = qres ? smem + ch * FT_KC * 4 : stg;
+      const unsigned char* qs = qres ? smem + ch * CB : stg;
       unsigned char* ks = stg + kofs;
-      unsigned char* klo = ks + FT_BK * FT_CS;
-      cp_async_wait<FT_STAGES - 2>();  // this thread's copies of step st
-      split_own(ks, klo, CPR, FT_CS);
+      unsigned char* klo = ks + FT_BK * CS;  // floats only
+      // this thread's copies of step st; at a tile's last step also its V,
+      // which lands FT_STAGES - 1 steps after the tile's first: with fewer
+      // chunks than that (int8 codes at d 384) every copy in flight
+      if (ch == nch - 1 && nch < FT_STAGES)
+        cp_async_wait<0>();
+      else
+        cp_async_wait<FT_STAGES - 2>();
+      if constexpr (!Q8) split_own(ks, klo, CPR, CS);
       if (ch == nch - 1) split_own(vt, vlo, VPR, FT_RF * 4);
       __syncthreads();  // step st's chunks (and at the tile's last, its V)
                         // landed and split; step st - 1's readers are done
-      // the tile's V once the last tile's products are done: it lands
-      // FT_STAGES - 1 steps on, before the tile's last (a row has at least
-      // 6 chunks past d 256)
+      // the tile's V once the last tile's products are done
       if (ch == 0) load_v(kt);
       issue(st + FT_STAGES - 1);  // into step st - 1's stage
-      // S += Q.K^T over the warp's quarter of the chunk: x4 ldmatrix of K's
-      // hi and lo give the B fragments of 2 n8 tiles; a warp reads only
-      // its own Q rows, split as they are read
+      // S += Q.K^T over the warp's quarter of the chunk: x4 ldmatrix of K
+      // (float: its hi and lo) give the B fragments of 2 n8 tiles; a warp
+      // reads only its own Q rows, float ones split as they are read
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk) {
-        uint32_t a[4], ah[4], al[4];
+        uint32_t a[4];
         ldmatrix_x4(a, qs + qrow + kk * 32);
+        if constexpr (Q8) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          split_tf32(__uint_as_float(a[i]), ah[i], al[i]);
-        const int r = kk & 1;
+          for (int j = 0; j < NS / 2; ++j) {
+            uint32_t b[4];
+            ldmatrix_x4(b, ks + (j * 16 + (lane & 7) + (lane >> 4) * 8) * CS +
+                               part * KSTEPS * 32 + kk * 32 +
+                               ((lane >> 3) & 1) * 16);
+            mma_s8(si[2 * j], a, b[0], b[1]);
+            mma_s8(si[2 * j + 1], a, b[2], b[3]);
+          }
+        } else {
+          uint32_t ah[4], al[4];
 #pragma unroll
-        for (int j = 0; j < NS / 2; ++j) {
-          const int brow = (j * 16 + (lane & 7) + (lane >> 4) * 8) * FT_CS +
-                           part * KSTEPS * 32 + kk * 32 +
-                           ((lane >> 3) & 1) * 16;
-          uint32_t bh[4], bl[4];
-          ldmatrix_x4(bh, ks + brow);
-          ldmatrix_x4(bl, klo + brow);
-          mma_tf32(sm[r][2 * j], al, bh[0], bh[1]);
-          mma_tf32(sm[r][2 * j], ah, bl[0], bl[1]);
-          mma_tf32(sb[r][2 * j], ah, bh[0], bh[1]);
-          mma_tf32(sm[r][2 * j + 1], al, bh[2], bh[3]);
-          mma_tf32(sm[r][2 * j + 1], ah, bl[2], bl[3]);
-          mma_tf32(sb[r][2 * j + 1], ah, bh[2], bh[3]);
+          for (int i = 0; i < 4; ++i)
+            split_tf32(__uint_as_float(a[i]), ah[i], al[i]);
+          const int r = kk & 1;
+#pragma unroll
+          for (int j = 0; j < NS / 2; ++j) {
+            const int brow = (j * 16 + (lane & 7) + (lane >> 4) * 8) * CS +
+                             part * KSTEPS * 32 + kk * 32 +
+                             ((lane >> 3) & 1) * 16;
+            uint32_t bh[4], bl[4];
+            ldmatrix_x4(bh, ks + brow);
+            ldmatrix_x4(bl, klo + brow);
+            mma_tf32(sm[r][2 * j], al, bh[0], bh[1]);
+            mma_tf32(sm[r][2 * j], ah, bl[0], bl[1]);
+            mma_tf32(sb[r][2 * j], ah, bh[0], bh[1]);
+            mma_tf32(sm[r][2 * j + 1], al, bh[2], bh[3]);
+            mma_tf32(sm[r][2 * j + 1], ah, bl[2], bl[3]);
+            mma_tf32(sb[r][2 * j + 1], ah, bh[2], bh[3]);
+          }
         }
       }
     }
@@ -1556,7 +1362,8 @@ __global__ void __launch_bounds__(FT_NT, 1) fwd_wide_tf32_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         mine[(n * 4 + e) * 32] =
-            (sb[0][n][e] + sb[1][n][e]) + (sm[0][n][e] + sm[1][n][e]);
+            Q8 ? float(si[n][e])
+               : (sb[0][n][e] + sb[1][n][e]) + (sm[0][n][e] + sm[1][n][e]);
     warps_sync(1 + rg, 128);
 #pragma unroll
     for (int n = 0; n < NS; ++n)
@@ -1664,46 +1471,24 @@ cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename TQ>
 cudaError_t launch_tf32(const Args& a, cudaStream_t stream) {
   // 16-byte copies: every row is a 16-byte multiple, so aligned bases do
   for (const void* p : {a.q, a.k, a.v})
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;
-  constexpr size_t smem = Tf32Layout<D>::SMEM;
-  static_assert(smem <= 232448, "K1 f32 shared memory");
+  using L = Tf32Layout<D, TQ>;
+  static_assert(L::SMEM <= 232448, "K1 f32 shared memory");
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      fwd_tf32_kernel<D, TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(L::SMEM));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.seq_q + BQ - 1) / BQ, a.H, a.B);
-  fwd_tf32_kernel<D><<<grid, Tf32Layout<D>::NT, smem, stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+  fwd_tf32_kernel<D, TQ><<<grid, L::NT, L::SMEM, stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TQ*>(a.k),
       static_cast<const float*>(a.v), a.mask, a.bias,
       static_cast<float*>(a.o), a.inv_l, a.H, a.KVH, a.seq_q, a.seq_k,
       a.causal, a.bias_batch_dim, a.c);
   return cudaGetLastError();
-}
-
-// int8 q/k codes with float32 v
-template <int D>
-cudaError_t launch_fma(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.seq_q + BQ - 1) / BQ, a.H, a.B);
-  fwd_kernel<D><<<grid, NT, smem, stream>>>(
-      static_cast<const int8_t*>(a.q), static_cast<const int8_t*>(a.k),
-      static_cast<const float*>(a.v), a.mask, a.bias,
-      static_cast<float*>(a.o), a.inv_l, a.H, a.KVH, a.seq_q, a.seq_k,
-      a.causal, a.bias_batch_dim, a.c);
-  return cudaGetLastError();
-}
-
-template <typename TQ, bool MMA, int D>
-cudaError_t launch(const Args& a, cudaStream_t s) {
-  if constexpr (MMA) return launch_mma<TQ, D>(a, s);
-  else return launch_fma<D>(a, s);
 }
 
 template <typename TQ>
@@ -1724,67 +1509,53 @@ cudaError_t launch_wide_mma(int d, const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename TQ>
 cudaError_t launch_wide_tf32(int d, const Args& a, cudaStream_t stream) {
   if (d % WCOL != 0) return cudaErrorInvalidValue;
   // 16-byte copies: every row is a 16-byte multiple, so aligned bases do
   for (const void* p : {a.q, a.k, a.v})
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;
+  const size_t smem = FtLayout<TQ>::smem(d);
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_wide_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(FtLayout::smem(d)));
-  if (err != cudaSuccess) return err;
-  const size_t smem = FtLayout::smem(d);
-  const dim3 grid(a.B * ((d + MCOL - 1) / MCOL), a.H,
-                  (a.seq_q + FT_BQ - 1) / FT_BQ);
-  fwd_wide_tf32_kernel<<<grid, FT_NT, smem, stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), a.mask, a.bias, static_cast<float*>(a.o),
-      a.inv_l, a.H, a.KVH, a.seq_q, a.seq_k, d, a.causal, a.bias_batch_dim,
-      a.c);
-  return cudaGetLastError();
-}
-
-// int8 q/k codes with float32 v
-cudaError_t launch_wide(int d, const Args& a, cudaStream_t stream) {
-  if (d % WCOL != 0) return cudaErrorInvalidValue;
-  constexpr size_t smem = wide_smem();
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_wide_tf32_kernel<TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.seq_q + BQ - 1) / BQ, a.H, a.B * (d / WCOL));
-  fwd_wide_kernel<<<grid, NT, smem, stream>>>(
-      static_cast<const int8_t*>(a.q), static_cast<const int8_t*>(a.k),
+  const dim3 grid(a.B * ((d + MCOL - 1) / MCOL), a.H,
+                  (a.seq_q + FT_BQ - 1) / FT_BQ);
+  fwd_wide_tf32_kernel<TQ><<<grid, FT_NT, smem, stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TQ*>(a.k),
       static_cast<const float*>(a.v), a.mask, a.bias, static_cast<float*>(a.o),
       a.inv_l, a.H, a.KVH, a.seq_q, a.seq_k, d, a.causal, a.bias_batch_dim,
       a.c);
   return cudaGetLastError();
 }
 
-template <typename TQ, bool MMA>
-cudaError_t dispatch_d(int d, const Args& a, cudaStream_t s) {
+// bf16 v and o: bf16 q/k, or int8 q/k codes
+template <typename TQ>
+cudaError_t dispatch_mma(int d, const Args& a, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<TQ, MMA, 16>(a, s);
-    case 32: return launch<TQ, MMA, 32>(a, s);
-    case 64: return launch<TQ, MMA, 64>(a, s);
-    case 96: return launch<TQ, MMA, 96>(a, s);
-    case 128: return launch<TQ, MMA, 128>(a, s);
-    case 192: return launch<TQ, MMA, 192>(a, s);
-    case 256: return launch<TQ, MMA, 256>(a, s);
+    case 16: return launch_mma<TQ, 16>(a, s);
+    case 32: return launch_mma<TQ, 32>(a, s);
+    case 64: return launch_mma<TQ, 64>(a, s);
+    case 96: return launch_mma<TQ, 96>(a, s);
+    case 128: return launch_mma<TQ, 128>(a, s);
+    case 192: return launch_mma<TQ, 192>(a, s);
+    case 256: return launch_mma<TQ, 256>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// float32 q/k/v: 3xTF32 on the tensor cores at every width up to 256
-cudaError_t dispatch_f32(int d, const Args& a, cudaStream_t s) {
+// f32 v and o: float32 q/k (3xTF32), or int8 q/k codes (P.V 3xTF32)
+template <typename TQ>
+cudaError_t dispatch_tf32(int d, const Args& a, cudaStream_t s) {
   switch (d) {
-    case 16: return launch_tf32<16>(a, s);
-    case 32: return launch_tf32<32>(a, s);
-    case 64: return launch_tf32<64>(a, s);
-    case 96: return launch_tf32<96>(a, s);
-    case 128: return launch_tf32<128>(a, s);
-    case 192: return launch_tf32<192>(a, s);
-    case 256: return launch_tf32<256>(a, s);
+    case 16: return launch_tf32<16, TQ>(a, s);
+    case 32: return launch_tf32<32, TQ>(a, s);
+    case 64: return launch_tf32<64, TQ>(a, s);
+    case 96: return launch_tf32<96, TQ>(a, s);
+    case 128: return launch_tf32<128, TQ>(a, s);
+    case 192: return launch_tf32<192, TQ>(a, s);
+    case 256: return launch_tf32<256, TQ>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1793,10 +1564,11 @@ cudaError_t dispatch_f32(int d, const Args& a, cudaStream_t s) {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); 2 = int8 q/k
 // codes with float32 v and o; 3 = int8 q/k codes with bfloat16 v and o.
-// 1 and 3 run on the tensor cores at every width; 0 on the tensor cores as
-// 3xTF32 at every width; 2 on the FMA kernels.  d past 256 (a multiple of
-// 128) takes the wide route, on the tensor cores for 0, 1 and 3 and on
-// FMAs for 2.
+// Every dtype runs on the tensor cores at every width: 1 and 3 by bf16 and
+// s8 mma.sync (fwd_mma_kernel), 0 and 2 with P.V, and 0's S, as 3xTF32
+// (fwd_tf32_kernel), 2's S by s8 mma.sync.  d past 256 (a multiple of 128)
+// takes the wide route: fwd_wide_mma_kernel for 1 and 3,
+// fwd_wide_tf32_kernel for 0 and 2.
 // All tensors contiguous: q/o (B, H, seq_q, d), k/v (B, KVH, seq_k, d),
 // mask (B, seq_k) uint8 or null, bias (B|H, seq_q, seq_k) f32 or null,
 // inv_l (B, H, seq_q) f32.  The logits are scale * s_dequant * q.k (int8
@@ -1817,22 +1589,20 @@ extern "C" int fcsa_fwd(const void* q, const void* k, const void* v,
                static_cast<const float*>(bias), o, static_cast<float*>(inv_l),
                B, H, KVH, seq_q, seq_k, causal, bias_batch_dim, c};
   auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (d > 256) {  // the wide route: d a multiple of WCOL
     switch (dtype) {
-      case 0: return int(launch_wide_tf32(d, a, s));
+      case 0: return int(launch_wide_tf32<float>(d, a, s));
       case 1: return int(launch_wide_mma<__nv_bfloat16>(d, a, s));
-      case 2: return int(launch_wide(d, a, s));
+      case 2: return int(launch_wide_tf32<int8_t>(d, a, s));
       case 3: return int(launch_wide_mma<int8_t>(d, a, s));
       default: return int(cudaErrorInvalidValue);
     }
   }
   switch (dtype) {
-    case 0: err = dispatch_f32(d, a, s); break;
-    case 1: err = dispatch_d<__nv_bfloat16, true>(d, a, s); break;
-    case 2: err = dispatch_d<int8_t, false>(d, a, s); break;
-    case 3: err = dispatch_d<int8_t, true>(d, a, s); break;
-    default: err = cudaErrorInvalidValue;
+    case 0: return int(dispatch_tf32<float>(d, a, s));
+    case 1: return int(dispatch_mma<__nv_bfloat16>(d, a, s));
+    case 2: return int(dispatch_tf32<int8_t>(d, a, s));
+    case 3: return int(dispatch_mma<int8_t>(d, a, s));
+    default: return int(cudaErrorInvalidValue);
   }
-  return int(err);
 }

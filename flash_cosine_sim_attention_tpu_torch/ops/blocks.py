@@ -20,15 +20,15 @@ KERNEL_WIDTHS = ALLOWED_DIM_HEADS + (192, 256)
 # past the widest instance the attention kernels take a wide route: the
 # head dim zero-padded to a multiple of WIDE_CHUNK, and the output columns
 # (O, dQ, dK, dV) a grid axis of column blocks that each form S (and the
-# backward's dP') again.  The tensor-core kernels (bf16 K1, K2, K3b, K3a:
+# backward's dP') again.  The kernels (bf16 K1, K2, K3b, K3a:
 # `fwd_wide_mma_kernel`, `dkdv_wide_mma_kernel`, `dq_wide_mma_kernel`;
-# f32 K1, K2, K3b, K3a: `fwd_wide_tf32_kernel`, `dkdv_wide_tf32_kernel`,
-# `dq_wide_tf32_kernel`) own 256 columns a block, so at d 384 or 1152 the
-# last block owns a 128-column remainder, and stream Q, K, V and dO' in
-# 256-byte row chunks; the FMA forward for int8 codes with f32 v
-# (`fwd_wide_kernel`) owns 128 columns a block.  128 rather than 256: d
-# 264 pads to 384 instead of 512, and the FMA blocks need a column axis
-# of 128 (csrc/fwd_kernel.cu and csrc/bwd_kernel.cu take the same number)
+# f32 K1, K2, K3b, K3a and K1 on int8 codes with f32 v:
+# `fwd_wide_tf32_kernel`, `dkdv_wide_tf32_kernel`, `dq_wide_tf32_kernel`)
+# own 256 columns a block, so at d 384 or 1152 the last block owns a
+# 128-column remainder, and stream Q, K, V and dO' in row chunks of 256
+# bytes (128 bytes: 128 int8 codes a chunk in the f32 forward).  128
+# rather than 256: d 264 pads to 384 instead of 512 (csrc/fwd_kernel.cu
+# and csrc/bwd_kernel.cu take the same number)
 WIDE_CHUNK = 128
 
 

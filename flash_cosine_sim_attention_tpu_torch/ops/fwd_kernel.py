@@ -15,13 +15,15 @@ q.k), and o comes out in v's dtype.
 
 Which instance runs: bfloat16 q/k/v, and int8 codes with bfloat16 v, on
 the tensor cores at every width.  float32 q/k/v on the tensor cores at
-every width (``fwd_tf32_kernel`` up to 256, past it the wide route's
-``fwd_wide_tf32_kernel``), every product as three TF32 products of a hi /
-lo split of each operand (``ops.mxu.dot_tf32x3`` is its plain version;
-JAX's bfloat16 split, ``dot_f32x3``, misses the float32 bar of 1e-4 at 8
-l2norm groups and scale 8, TF32's does not); int8 codes with float32 v on
-FMAs (``fwd_kernel``, past 256 ``fwd_wide_kernel``).  A call whose kernel
-fails to build or launch raises: nothing falls back to another instance.
+every width (``fwd_tf32_kernel<D, float>`` up to 256, past it the wide
+route's ``fwd_wide_tf32_kernel<float>``), every product as three TF32
+products of a hi / lo split of each operand (``ops.mxu.dot_tf32x3`` is its
+plain version; JAX's bfloat16 split, ``dot_f32x3``, misses the float32 bar
+of 1e-4 at 8 l2norm groups and scale 8, TF32's does not); int8 codes with
+float32 v on the int8 instances of the same kernels
+(``fwd_tf32_kernel<D, int8_t>``, ``fwd_wide_tf32_kernel<int8_t>``): Q.K
+exact on the int8 tensor cores, P.V as 3xTF32.  A call whose kernel fails
+to build or launch raises: nothing falls back to another instance.
 """
 
 from __future__ import annotations

@@ -11,10 +11,13 @@ re-exports it under JAX's name.
 ``quantized_matmul`` is the entry of K7: a CUDA tensor launches the
 hand-written Hopper kernel ``csrc/quant_matmul_kernel.cu`` (which replaces
 the TPU kernel ``_dequant_matmul_kernel``), a CPU tensor takes
-``quantized_matmul_plain``.  On the card the quantized dense layers run
-K7 (``QuantDense``): unlike the TPU, where a kernel per matmul broke XLA's
-fusion and JAX left ``dense_apply`` on its XLA arm, a decode step here is
-a chain of separate kernels anyway, and K7 reads int8 bytes only.
+``quantized_matmul_plain``.  Both dtypes of x run on the tensor cores:
+bfloat16 x by bf16 products, float32 x as 2xTF32 (x split into TF32 hi
+and lo, each times the codes, which are exact in TF32).  On the card the
+quantized dense layers run K7 (``QuantDense``): unlike the TPU, where a
+kernel per matmul broke XLA's fusion and JAX left ``dense_apply`` on its
+XLA arm, a decode step here is a chain of separate kernels anyway, and
+K7 reads int8 bytes only.
 """
 
 from __future__ import annotations
@@ -48,7 +51,9 @@ def dequantize_dense_kernel(w8: torch.Tensor, scale: torch.Tensor,
 def quantized_matmul_plain(x: torch.Tensor, w8: torch.Tensor,
                            scale: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K7: f32 product of x and the codes, the
-    per-column scale after it, cast to x's dtype."""
+    per-column scale after it, cast to x's dtype.  (On float32 x the
+    kernel forms ``ops.mxu.dot_tf32x3(x, w8.float())``: the codes are
+    exact in TF32, so that is x's hi and lo times the codes.)"""
     return ((x.float() @ w8.float()) * scale.float()).to(x.dtype)
 
 

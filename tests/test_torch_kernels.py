@@ -6,9 +6,11 @@ JAX package, so it also runs where flax is not installed:
     python -m pytest tests/test_torch_kernels.py -q -m cuda
 
 Tolerances: float32 1e-4 (same maths, other sum order; K1, K2, K3a and
-K3b in float32 at every width up to 256, and K1 and K2 past it, form
-each product as three TF32 products of a hi / lo split of its operands,
-3xTF32, good to ~2^-21 of each); bf16
+K3b in float32 at every width, K1 also on int8 codes with float32 v,
+form each float product as three TF32 products of a hi / lo split of
+its operands, 3xTF32, good to ~2^-21 of each; K7 on float32 x takes
+x's hi and lo times the codes, exact in TF32, 2xTF32, and is also held
+at 1e-5 to that split's plain version); bf16
 outputs 2e-2 (a few bf16 ulps at |o| <= 2); inv_l 1e-5 relative; the
 contiguous decode kernel 2e-3 on f32 output; the int8-weight matmul
 1e-4 (f32) and 2e-2 (bf16) of max(1, max|y|).  The
@@ -152,7 +154,13 @@ def test_forward_kernel_matches_plain(cuda_device, case, dtype):
 @pytest.mark.parametrize("case", sorted(FWD_CASES))
 def test_forward_kernel_int8_arm_matches_plain(cuda_device, case, v_dtype):
     """int8 q/k codes at the fixed scale 127 (the op's qk_int8), v and o in
-    v_dtype: masks, bias and GQA as in the float arms."""
+    v_dtype: masks, bias and GQA as in the float arms, at every width; on
+    the tensor-core instances by profiler name (float32 v: the 3xTF32
+    kernels' int8 instances, fwd_tf32_kernel<D, signed char> and past 256
+    fwd_wide_tf32_kernel<signed char>; bfloat16 v: fwd_mma_kernel<signed
+    char, D> and fwd_wide_mma_kernel<signed char>), no FMA instance."""
+    from flash_cosine_sim_attention_tpu_torch.ops.blocks import (
+        kernel_head_dim)
     from flash_cosine_sim_attention_tpu_torch.ops.flash_attention import (
         quantize_qk)
 
@@ -185,6 +193,18 @@ def test_forward_kernel_int8_arm_matches_plain(cuda_device, case, v_dtype):
     assert ((inv_l - inv_p) / inv_p).abs().max().item() <= 1e-5
     if mask_kind == "all":
         assert o.abs().max().item() == 0
+    width = kernel_head_dim(d, "forward")
+    if v_dtype == torch.float32:
+        want = (f"fwd_tf32_kernel<{width}, signed char>" if width <= 256
+                else "fwd_wide_tf32_kernel<signed char>")
+    else:
+        want = (f"fwd_mma_kernel<signed char, {width}>" if width <= 256
+                else "fwd_wide_mma_kernel<signed char>")
+    keys = _kernel_names(
+        lambda: flash_attention_forward(q8, k8, v, mask, bias, **kw))
+    assert any(want in key for key in keys), (want, keys)
+    assert not any("fwd_kernel<" in key or "fwd_wide_kernel" in key
+                   for key in keys), keys
 
 
 @pytest.mark.cuda
@@ -267,21 +287,42 @@ QMM_SHAPES = [(2048, 6144), (2048, 2048), (2048, 8192), (8192, 2048),
 @pytest.mark.parametrize("d_in,d_out", QMM_SHAPES)
 @pytest.mark.parametrize("rows", [1, 8, 15, 16, 17, 33, 129, 1024])
 def test_quant_matmul_kernel_matches_plain(cuda_device, rows, d_in, d_out):
+    """float32 and bfloat16 x at both of K7's regimes (up to 16 rows the
+    decode tiles, above the prefill tiles), on its tensor-core instances
+    by profiler name (qmm_mma_kernel<16, 1, 8, 4, T> or <128, 4, 2, 3,
+    T>), no FMA one; float32 x also with x and the weights offset from
+    zero (long chains of same-signed sums, which the tensor cores round
+    toward zero) and against the plain version with the kernel's split
+    (dot_tf32x3 of x and the codes: 1e-5 of max(1, max|y|))."""
+    from flash_cosine_sim_attention_tpu_torch.ops.mxu import dot_tf32x3
+
     g = torch.Generator(device=cuda_device).manual_seed(8)
-    w8, scale = quantize_dense_kernel(0.02 * torch.randn(
-        d_in, d_out, device=cuda_device, generator=g))
-    x32 = torch.randn(rows, d_in, device=cuda_device, generator=g)
-    for dtype in (torch.float32, torch.bfloat16):
-        x = x32.to(dtype)
-        before = quantized_matmul.launches
-        got = quantized_matmul(x, w8, scale)
-        want = quantized_matmul_plain(x, w8, scale)
-        torch.cuda.synchronize()
-        assert quantized_matmul.launches == before + 1
-        assert got.dtype == dtype and got.shape == (rows, d_out)
-        err = (got.float() - want.float()).abs().max().item() / max(
-            1.0, want.float().abs().max().item())
-        assert err <= BARS[dtype], (dtype, err)
+    tiles = "16, 1, 8, 4" if rows <= 16 else "128, 4, 2, 3"
+    for offset in (0.0, 1.0):
+        w8, scale = quantize_dense_kernel(0.02 * torch.randn(
+            d_in, d_out, device=cuda_device, generator=g) + 0.01 * offset)
+        x32 = torch.randn(rows, d_in, device=cuda_device, generator=g) + offset
+        for dtype in (torch.float32, torch.bfloat16):
+            if offset and dtype == torch.bfloat16:
+                continue
+            x = x32.to(dtype)
+            before = quantized_matmul.launches
+            got = quantized_matmul(x, w8, scale)
+            want = quantized_matmul_plain(x, w8, scale)
+            torch.cuda.synchronize()
+            assert quantized_matmul.launches == before + 1
+            assert got.dtype == dtype and got.shape == (rows, d_out)
+            den = max(1.0, want.float().abs().max().item())
+            err = (got.float() - want.float()).abs().max().item() / den
+            assert err <= BARS[dtype], (dtype, offset, err)
+            if dtype == torch.float32:
+                split = dot_tf32x3(x, w8.float()) * scale
+                assert (got - split).abs().max().item() / den <= 1e-5
+            name = ("float" if dtype == torch.float32 else "__nv_bfloat16")
+            keys = _kernel_names(lambda: quantized_matmul(x, w8, scale))
+            assert any(f"qmm_mma_kernel<{tiles}, {name}>" in key
+                       for key in keys), keys
+            assert not any("qmm_kernel<" in key for key in keys), keys
 
 
 @pytest.mark.cuda
@@ -1106,7 +1147,7 @@ def test_float32_runs_the_tf32_instances_of_k1_k2_at_every_width(cuda_device,
         bwd_kernel._backward_twopass(do, o, inv_l, q, k, v, None, bias, **kw)
 
     keys = _kernel_names(work)
-    want = [f"fwd_tf32_kernel<{d}>", f"dkdv_tf32_kernel<{d}, true>",
+    want = [f"fwd_tf32_kernel<{d}, float>", f"dkdv_tf32_kernel<{d}, true>",
             f"dq_tf32_kernel<{d}>", f"dkdv_tf32_kernel<{d}, false>"]
     assert not any("fwd_kernel<" in key or "dq_kernel<" in key
                    or "dkdv_kernel<" in key for key in keys), keys
@@ -1181,7 +1222,7 @@ def test_float32_wide_k1_k2_tf32_instances_match_plain(cuda_device, d, case):
     keys = _kernel_names(lambda: (
         flash_attention_forward(q, k, v, mask, None, **kw),
         bwd_kernel._backward_onepass(*args[:7], scale=8.0, causal=causal)))
-    for name in (f"fwd_tf32_kernel<{width}>",
+    for name in (f"fwd_tf32_kernel<{width}, float>",
                  f"dkdv_tf32_kernel<{width}, true>"):
         assert any(name in key for key in keys), (name, keys)
     assert not any("fwd_kernel<" in key or "dkdv_kernel<" in key
@@ -1233,7 +1274,7 @@ def test_op_at_d512_f32_runs_the_wide_tf32_kernels(cuda_device):
         flash_attention_forward(q, k, v, None, None, **kw),
         bwd_kernel._backward_onepass(do, o_k, inv_k, q, k, v, None,
                                      scale=8.0, causal=True)))
-    for name in ("fwd_wide_tf32_kernel", "dkdv_wide_tf32_kernel<true>"):
+    for name in ("fwd_wide_tf32_kernel<float>", "dkdv_wide_tf32_kernel<true>"):
         assert any(name in key for key in keys), (name, keys)
     assert not any("fwd_wide_kernel" in key or "dkdv_wide_kernel" in key
                    or "dq_wide_kernel" in key for key in keys), keys

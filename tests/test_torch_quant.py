@@ -13,7 +13,12 @@ after); ``qk_int8`` f32 forward 1e-5 of max(1, max|v|) (the int8 dot
 is exact on both sides; JAX's P.V is a 3-pass bf16 split, good to about
 2^-17 of |v|: 3.6e-5 where a causal row sees one key and |v| is 4.4),
 ``qk_fp8`` f32 forward 1e-4 of it (QK too is JAX's 3-pass split); the
-STE gradients 1e-4 of max(1, max|g|), as ``test_torch_backward.py``.
+STE gradients 1e-4 of max(1, max|g|), as ``test_torch_backward.py``;
+the float32 K7's 2xTF32 split (``dot_tf32x3`` of x and the codes) 1e-5
+of max|y| against JAX's kernel at 8192 inputs offset from zero (3.4e-7
+read: both sum f32 products of the same codes); a float32 int8-weight
+model at head width 128 1e-4 of max|logit| at prefill and at each decode
+step (4.1e-6 and under 1e-6 read: both read the same int8 cache).
 """
 
 import jax
@@ -262,19 +267,25 @@ def test_engines_serve_quantized_fused_model(paged):
     assert got == want
 
 
-def _qk_inputs():
+def _qk_inputs(shape=(2, 4, 192, 64)):
     rng = np.random.default_rng(13)
-    return [rng.standard_normal((2, 4, 192, 64)).astype(np.float32)
-            for _ in range(3)]
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
 
 
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("flag", ["qk_int8", "qk_fp8"])
-def test_quantized_qk_matches_jax(flag, causal):
-    """tests/test_fused_parity.py:192-230's shapes: forward and
-    straight-through gradients in q, k and v against the JAX op in
-    interpret mode."""
-    q, k, v = _qk_inputs()
+# tests/test_fused_parity.py:192-230's shape for both flags, and qk_int8 at
+# d 128 (the 0.81B model's heads) and d 512 (the kernels' wide route)
+QK_CASES = [pytest.param(flag, causal, (2, 4, 192, 64),
+                         id=f"{flag}-{causal}")
+            for flag in ("qk_int8", "qk_fp8") for causal in (False, True)]
+QK_CASES += [pytest.param("qk_int8", True, (1, 2, 128, d),
+                          id=f"qk_int8-True-d{d}") for d in (128, 512)]
+
+
+@pytest.mark.parametrize("flag,causal,shape", QK_CASES)
+def test_quantized_qk_matches_jax(flag, causal, shape):
+    """Forward and straight-through gradients in q, k and v against the
+    JAX op in interpret mode."""
+    q, k, v = _qk_inputs(shape)
     kw = {"causal": causal, flag: True}
     do = np.random.default_rng(14).standard_normal(q.shape).astype(np.float32)
     o_j, vjp = jax.vjp(lambda *a: jax_flash(*a, **kw),
@@ -294,3 +305,51 @@ def test_quantized_qk_matches_jax(flag, causal):
         assert np.isfinite(_np(x)).all(), name
         err = np.abs(_np(x) - y).max() / max(1.0, np.abs(y).max())
         assert err <= 1e-4, (name, err)
+
+
+def test_float32_quantized_matmul_split_matches_jax_kernel():
+    """K7's float32 arithmetic on the card, 2xTF32 (``dot_tf32x3`` of x and
+    the codes, which are exact in TF32, times the scale), at ff_out's 8192
+    inputs with x and the weights offset from zero, against JAX's Pallas
+    kernel in interpret mode in float32: 1e-5 of max|y|."""
+    from flash_cosine_sim_attention_tpu_torch.ops.mxu import dot_tf32x3
+
+    rng = np.random.default_rng(20)
+    x = (rng.standard_normal((8, 8192)) + 1.0).astype(np.float32)
+    w = (rng.standard_normal((8192, 256)) * 0.02 + 0.01).astype(np.float32)
+    jw8, jscale = jw.quantize_dense_kernel(jnp.asarray(w))
+    want = np.asarray(jw.quantized_matmul(
+        jnp.asarray(x), jw8, jscale, interpret=True))
+    w8, scale = quantize_dense_kernel(_t(w))
+    got = _np(dot_tf32x3(_t(x), w8.float()) * scale)
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= 1e-5, err
+
+
+def test_float32_quantized_fused_model_at_head_width_128_matches_jax():
+    """The 0.81B model's head width served in float32 with int8 weights
+    and fused QKV, cut to depth 2, dim 256 and 2 heads of 128: the port's
+    prefill and 3 decode steps on the CPU against JAX's jitted model
+    functions on the same tree, at 1e-4 of max|logit|."""
+    cfg = dict(num_tokens=64, dim=256, depth=2, max_seq_len=128, heads=2,
+               dim_head=128, pre_norm=True, attn_scale=1.0)
+    jmodel = JaxModel(**cfg, dtype=jnp.float32)
+    params = jax.tree.map(np.asarray, jmodel.init(
+        jax.random.PRNGKey(20), jnp.zeros((1, 8), jnp.int32)))
+    model = params_from_flax(params, CosineSimCausalTransformer(
+        **cfg, device="cpu"))
+    jtree = jdec.fuse_qkv_params(jw.quantize_params(params))
+    fuse_qkv_params(quantize_params(model))
+    tokens = np.random.default_rng(21).integers(0, 64, (2, 15))
+    got = _prefill_decode(model, tokens)
+    jprefill = jax.jit(lambda p, s, t: jdec.prefill(jmodel, p, s, t))
+    jstep = jax.jit(lambda p, s, t: jdec.decode_step(jmodel, p, s, t))
+    out, state = jprefill(jtree, jdec.init_decode_state(jmodel, 2, 64),
+                          jnp.asarray(tokens[:, :12]))
+    want = [np.asarray(out)]
+    for t in range(12, 15):
+        out, state = jstep(jtree, state, jnp.asarray(tokens[:, t]))
+        want.append(np.asarray(out))
+    for i, (a, b) in enumerate(zip(got, want)):
+        err = np.abs(a - b).max() / np.abs(b).max()
+        assert err <= 1e-4, (i, err)
