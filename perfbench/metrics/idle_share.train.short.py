@@ -1,0 +1,8 @@
+"""idle_share.train.short: ``idle_share.train`` read in the cells whose rate is
+``train_tokens_per_s.short`` (sequences of 1024, host-bound)."""
+
+from perfbench import core
+
+_base = core.load_module("metrics", "idle_share.train")
+UNIT, LAYER, read = _base.UNIT, _base.LAYER, _base.read
+MOVES = "train_tokens_per_s.short"
