@@ -53,6 +53,7 @@ from ..quant import (
     paged_decode_attention,
     quantized_decode_attention,
 )
+from ..utils.profiling import span
 from .transformer import (
     CosineSimCausalTransformer,
     Dense,
@@ -166,22 +167,24 @@ def prefill(model: CosineSimCausalTransformer, state: DecodeState,
     is sharded over) routes attention through the head-sharded path:
     every rank attends and caches its local heads."""
     _check_mesh(model, mesh)
-    attend = (flash_cosine_sim_attention if mesh is None
-              else head_sharded_flash_attention_local)
-    caches = list(state.caches)
+    with span("prefill", batch=tokens.shape[0], width=tokens.shape[1]):
+        attend = (flash_cosine_sim_attention if mesh is None
+                  else head_sharded_flash_attention_local)
+        caches = list(state.caches)
 
-    def attn(layer, q, k, v):
-        caches[layer] = append(caches[layer], k, v)
-        return attend(q, k, v, causal=True, scale=model.attn_scale,
-                      l2norm_qk=False)
+        def attn(layer, q, k, v):
+            caches[layer] = append(caches[layer], k, v)
+            return attend(q, k, v, causal=True, scale=model.attn_scale,
+                          l2norm_qk=False)
 
-    logits = model.trunk(model.embed(tokens, state.pos), attn)
-    if true_len is None:
-        new_pos = state.pos + tokens.shape[1]
-    else:
-        new_pos = state.pos + true_len.to(torch.int32)
-        caches = [c._replace(length=new_pos) for c in caches]
-    return _last_real(logits, true_len), DecodeState(tuple(caches), new_pos)
+        logits = model.trunk(model.embed(tokens, state.pos), attn)
+        if true_len is None:
+            new_pos = state.pos + tokens.shape[1]
+        else:
+            new_pos = state.pos + true_len.to(torch.int32)
+            caches = [c._replace(length=new_pos) for c in caches]
+        return (_last_real(logits, true_len),
+                DecodeState(tuple(caches), new_pos))
 
 
 @torch.no_grad()
@@ -195,18 +198,19 @@ def decode_step(model: CosineSimCausalTransformer, state: DecodeState,
     optional) freezes inactive slots' caches and positions, so slots
     mid-prefill or finished ride along."""
     _check_mesh(model, mesh)
-    attend = (quantized_decode_attention if mesh is None
-              else head_sharded_decode_attention_local)
-    caches = list(state.caches)
+    with span("decode_step", slots=token.shape[0]):
+        attend = (quantized_decode_attention if mesh is None
+                  else head_sharded_decode_attention_local)
+        caches = list(state.caches)
 
-    def attn(layer, q, k, v):
-        caches[layer] = append(caches[layer], k, v, active=active)
-        return attend(q, caches[layer], scale=model.attn_scale,
-                      l2norm_qk=False)
+        def attn(layer, q, k, v):
+            caches[layer] = append(caches[layer], k, v, active=active)
+            return attend(q, caches[layer], scale=model.attn_scale,
+                          l2norm_qk=False)
 
-    logits = model.trunk(model.embed(token[:, None], state.pos), attn)
-    step = 1 if active is None else active.to(torch.int32)
-    return logits[:, 0], DecodeState(tuple(caches), state.pos + step)
+        logits = model.trunk(model.embed(token[:, None], state.pos), attn)
+        step = 1 if active is None else active.to(torch.int32)
+        return logits[:, 0], DecodeState(tuple(caches), state.pos + step)
 
 
 @torch.no_grad()
@@ -217,43 +221,47 @@ def prefill_continue(model: CosineSimCausalTransformer, state: DecodeState,
     """Continuation prefill of a (1, t) chunk, optionally right-padded with
     ``true_len`` ((1,)), for ``slot``, which may already hold history.
     Returns (last real token's logits (1, vocab), new state)."""
-    caches = list(state.caches)
-    pos0 = state.pos[slot:slot + 1]
-    n_new = (torch.full((1,), tokens.shape[1], dtype=torch.int32,
-                        device=tokens.device)
-             if true_len is None else true_len.to(torch.int32))
+    with span("prefill_continue", batch=tokens.shape[0],
+              width=tokens.shape[1]):
+        caches = list(state.caches)
+        pos0 = state.pos[slot:slot + 1]
+        n_new = (torch.full((1,), tokens.shape[1], dtype=torch.int32,
+                            device=tokens.device)
+                 if true_len is None else true_len.to(torch.int32))
 
-    def attn(layer, q, k, v):
-        c = caches[layer]
-        view = QuantKVCache(c.k8[slot:slot + 1], c.v8[slot:slot + 1],
-                            c.v_scale[slot:slot + 1], c.length[slot:slot + 1])
-        hist_len = view.length
-        # chunk vs itself: causal
-        o_new, inv_new = flash_attention_forward(
-            q, k, v, None, None, bias_batch_dim=False,
-            scale=model.attn_scale, causal=True)
-        # chunk vs the dequantized history: key-masked, non-causal
-        keep = (torch.arange(view.capacity, device=q.device)[None, :]
-                < hist_len[:, None])
-        o_hist, inv_hist = flash_attention_forward(
-            q, dequantize_k(view.k8, q.dtype),
-            dequantize_v(view.v8, view.v_scale, q.dtype), keep, None,
-            bias_batch_dim=False, scale=model.attn_scale, causal=False)
-        # merge the partials by plain sums of their row sums
-        l_new, l_hist = 1.0 / inv_new, 1.0 / inv_hist
-        o = ((o_new.float() * l_new + o_hist.float() * l_hist)
-             / (l_new + l_hist).clamp_min(1e-10))
-        # write the whole (padded) chunk; the corrected length excludes pads
-        append(view, k, v)
-        length = c.length.clone()
-        length[slot:slot + 1] = hist_len + n_new
-        caches[layer] = c._replace(length=length)
-        return o.to(q.dtype)
+        def attn(layer, q, k, v):
+            c = caches[layer]
+            view = QuantKVCache(c.k8[slot:slot + 1], c.v8[slot:slot + 1],
+                                c.v_scale[slot:slot + 1],
+                                c.length[slot:slot + 1])
+            hist_len = view.length
+            # chunk vs itself: causal
+            o_new, inv_new = flash_attention_forward(
+                q, k, v, None, None, bias_batch_dim=False,
+                scale=model.attn_scale, causal=True)
+            # chunk vs the dequantized history: key-masked, non-causal
+            keep = (torch.arange(view.capacity, device=q.device)[None, :]
+                    < hist_len[:, None])
+            o_hist, inv_hist = flash_attention_forward(
+                q, dequantize_k(view.k8, q.dtype),
+                dequantize_v(view.v8, view.v_scale, q.dtype), keep, None,
+                bias_batch_dim=False, scale=model.attn_scale, causal=False)
+            # merge the partials by plain sums of their row sums
+            l_new, l_hist = 1.0 / inv_new, 1.0 / inv_hist
+            o = ((o_new.float() * l_new + o_hist.float() * l_hist)
+                 / (l_new + l_hist).clamp_min(1e-10))
+            # write the whole (padded) chunk; the corrected length excludes
+            # pads
+            append(view, k, v)
+            length = c.length.clone()
+            length[slot:slot + 1] = hist_len + n_new
+            caches[layer] = c._replace(length=length)
+            return o.to(q.dtype)
 
-    logits = model.trunk(model.embed(tokens, pos0), attn)
-    pos = state.pos.clone()
-    pos[slot:slot + 1] = pos0 + n_new
-    return _last_real(logits, true_len), DecodeState(tuple(caches), pos)
+        logits = model.trunk(model.embed(tokens, pos0), attn)
+        pos = state.pos.clone()
+        pos[slot:slot + 1] = pos0 + n_new
+        return _last_real(logits, true_len), DecodeState(tuple(caches), pos)
 
 
 @torch.no_grad()

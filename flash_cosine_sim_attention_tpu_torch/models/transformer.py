@@ -39,6 +39,7 @@ from ..parallel.sharded_attention import (
     shard_kv,
 )
 from ..quant.weights import quantize_dense_kernel, quantized_matmul
+from ..utils.profiling import span
 
 LAYERNORM_EPS = 1e-6  # flax default
 
@@ -81,8 +82,9 @@ class QuantDense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-1]
-        y = quantized_matmul(x.to(self.dtype).reshape(-1, x.shape[-1]),
-                             self.weight_q, self.weight_scale)
+        with span("qmm", rows=lead.numel()):
+            y = quantized_matmul(x.to(self.dtype).reshape(-1, x.shape[-1]),
+                                 self.weight_q, self.weight_scale)
         return y.reshape(*lead, -1)
 
 

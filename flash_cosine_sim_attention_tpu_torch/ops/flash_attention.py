@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.profiling import span
 from .blocks import ALLOWED_DIM_HEADS
 from .bwd_kernel import flash_attention_backward
 from .fwd_kernel import flash_attention_forward
@@ -54,17 +55,19 @@ class _FusedAttention(torch.autograd.Function):
                 qk_quant):
         ctx.kw = dict(bias_batch_dim=bias_batch_dim, scale=scale,
                       causal=causal)
-        qq, kq, s_dequant = quantize_qk(q, k, qk_quant)
-        o, inv_l = flash_attention_forward(qq, kq, v, mask, bias,
-                                           s_dequant=s_dequant, **ctx.kw)
+        with span("attention.fwd"):
+            qq, kq, s_dequant = quantize_qk(q, k, qk_quant)
+            o, inv_l = flash_attention_forward(qq, kq, v, mask, bias,
+                                               s_dequant=s_dequant, **ctx.kw)
         ctx.save_for_backward(o, inv_l, q, k, v, mask, bias)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        o, inv_l, q, k, v, mask, bias = ctx.saved_tensors
-        dq, dk, dv, db = flash_attention_backward(
-            do, o, inv_l, q, k, v, mask, bias, **ctx.kw)
+        with span("attention.bwd"):
+            o, inv_l, q, k, v, mask, bias = ctx.saved_tensors
+            dq, dk, dv, db = flash_attention_backward(
+                do, o, inv_l, q, k, v, mask, bias, **ctx.kw)
         return dq, dk, dv, None, db, None, None, None, None
 
 

@@ -29,6 +29,7 @@ import torch
 from .._build import check_launch, current_stream, load_kernel
 from ..ops.blocks import EPS, decode_col_blocks, decode_split, kernel_head_dim
 from ..ops.reference import l2norm_tensors
+from ..utils.profiling import span
 from .kv_cache import KV_DTYPES, QuantKVCache, dequantize_k, dequantize_v
 
 
@@ -151,26 +152,28 @@ def quantized_decode_attention(
     ``quantized_decode_attention.launches``); CPU queries take the plain
     version.  Any other device raises.
     """
-    squeeze = q.ndim == 4
-    if squeeze:
-        if q.shape[2] != 1:
-            raise ValueError(f"one query token per slot, got {q.shape[2]}")
-        q = q[:, :, 0]
-    if l2norm_qk:
-        q = l2norm_tensors(q, groups=groups)
-    b, h, d = q.shape
-    kvh = cache.k8.shape[1]
-    if h % kvh:
-        raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
-    qg = q.reshape(b, kvh, h // kvh, d)
-    if q.device.type == "cuda":
-        out = _decode_cuda(qg, cache, float(scale))
-    elif q.device.type == "cpu":
-        out = decode_attention_plain(qg, cache, float(scale))
-    else:
-        raise ValueError(f"no decode attention for device {q.device}")
-    out = out.reshape(b, h, d).to(q.dtype)
-    return out[:, :, None, :] if squeeze else out
+    with span("decode_attention"):
+        squeeze = q.ndim == 4
+        if squeeze:
+            if q.shape[2] != 1:
+                raise ValueError(f"one query token per slot, got {q.shape[2]}")
+            q = q[:, :, 0]
+        if l2norm_qk:
+            q = l2norm_tensors(q, groups=groups)
+        b, h, d = q.shape
+        kvh = cache.k8.shape[1]
+        if h % kvh:
+            raise ValueError(f"{h} query heads do not group over {kvh} kv "
+                             f"heads")
+        qg = q.reshape(b, kvh, h // kvh, d)
+        if q.device.type == "cuda":
+            out = _decode_cuda(qg, cache, float(scale))
+        elif q.device.type == "cpu":
+            out = decode_attention_plain(qg, cache, float(scale))
+        else:
+            raise ValueError(f"no decode attention for device {q.device}")
+        out = out.reshape(b, h, d).to(q.dtype)
+        return out[:, :, None, :] if squeeze else out
 
 
 quantized_decode_attention.launches = 0

@@ -24,6 +24,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils.profiling import span
+
 K_SCALE = 127.0  # fixed: K components are in [-1, 1] after l2norm
 FP8_DTYPE = torch.float8_e4m3fn
 FP8_MAX = 448.0  # e4m3's largest finite value
@@ -129,24 +131,26 @@ def append(cache: QuantKVCache, k_norm: torch.Tensor, v: torch.Tensor,
     length + t <= capacity for every active slot.
     """
     b, _, t, _ = k_norm.shape
-    dev = cache.k8.device
-    kv_dtype = cache.k8.dtype
-    k8_new = quantize_k(k_norm, kv_dtype)
-    v8_new, vs_new = quantize_v(v, kv_dtype)
-    if active is not None:
-        # inactive slots rewrite what they hold at a clamped offset: a
-        # slot at capacity must not index past the buffer
-        pos = cache.length.clamp(max=cache.capacity - t)
-    else:
-        pos = cache.length
-    rows = torch.arange(b, device=dev)[:, None]                 # (b, 1)
-    cols = pos.long()[:, None] + torch.arange(t, device=dev)    # (b, t)
-    for buf, new in ((cache.k8, k8_new), (cache.v8, v8_new),
-                     (cache.v_scale, vs_new)):
-        buf, new = as_bytes(buf), as_bytes(new).transpose(1, 2)  # (b, t, kvh, .)
+    with span("kv_append", t=t):
+        dev = cache.k8.device
+        kv_dtype = cache.k8.dtype
+        k8_new = quantize_k(k_norm, kv_dtype)
+        v8_new, vs_new = quantize_v(v, kv_dtype)
         if active is not None:
-            keep = active.view(b, 1, 1, 1)
-            new = torch.where(keep, new, buf[rows, :, cols])
-        buf[rows, :, cols] = new
-    step = t if active is None else t * active.to(torch.int32)
-    return cache._replace(length=cache.length + step)
+            # inactive slots rewrite what they hold at a clamped offset: a
+            # slot at capacity must not index past the buffer
+            pos = cache.length.clamp(max=cache.capacity - t)
+        else:
+            pos = cache.length
+        rows = torch.arange(b, device=dev)[:, None]                 # (b, 1)
+        cols = pos.long()[:, None] + torch.arange(t, device=dev)    # (b, t)
+        for buf, new in ((cache.k8, k8_new), (cache.v8, v8_new),
+                         (cache.v_scale, vs_new)):
+            # (b, t, kvh, .)
+            buf, new = as_bytes(buf), as_bytes(new).transpose(1, 2)
+            if active is not None:
+                keep = active.view(b, 1, 1, 1)
+                new = torch.where(keep, new, buf[rows, :, cols])
+            buf[rows, :, cols] = new
+        step = t if active is None else t * active.to(torch.int32)
+        return cache._replace(length=cache.length + step)

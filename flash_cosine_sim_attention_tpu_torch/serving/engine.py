@@ -43,6 +43,7 @@ from ..models.decoding import (
 from ..models.transformer import top_k_filter
 from ..parallel import DATA_AXIS, MODEL_AXIS, shard_params
 from ..parallel.mesh import axis_size
+from ..utils.profiling import recording, span
 
 
 def _bucket(n: int, buckets) -> int:
@@ -125,9 +126,10 @@ class SlotEngine:
 
     # ------------------------------------------------------------------
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
-        filtered = top_k_filter(logits.float(), self.filter_thres)
-        probs = torch.softmax(filtered / self.temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+        with span("engine.sample"):
+            filtered = top_k_filter(logits.float(), self.filter_thres)
+            probs = torch.softmax(filtered / self.temperature, dim=-1)
+            return torch.multinomial(probs, 1, generator=self._gen)[:, 0]
 
     def free_slots(self) -> List[int]:
         return [i for i in range(self.num_slots)
@@ -187,16 +189,27 @@ class SlotEngine:
         # snapshot BEFORE landing a chunk: a slot that finishes its
         # prefill this step starts decoding next step
         decode_active = self.active & ~self.prefilling
-        if self._pending:
-            self._run_chunk(*self._pending.popleft())
-        if not decode_active.any():
-            return {}
-        self._make_room(decode_active, 1)
-        toks = self._decode(torch.from_numpy(decode_active).to(self.device))
-        self.host_pos[decode_active] += 1
-        self.last_token = toks.cpu().numpy().astype(np.int32)  # the ONE copy
-        return {i: int(self.last_token[i])
-                for i in range(self.num_slots) if decode_active[i]}
+        # counted only while a profiler records: the slots decoding, the
+        # tokens they attend (the new ones included), a chunk landing
+        counts = {}
+        if recording():
+            slots = int(decode_active.sum())
+            counts = dict(slots=slots, chunk=bool(self._pending),
+                          live=int(self.host_pos[decode_active].sum()) + slots)
+        with span("engine.step", **counts):
+            if self._pending:
+                self._run_chunk(*self._pending.popleft())
+            if not decode_active.any():
+                return {}
+            self._make_room(decode_active, 1)
+            toks = self._decode(
+                torch.from_numpy(decode_active).to(self.device))
+            self.host_pos[decode_active] += 1
+            with span("engine.sync"):
+                toks = toks.cpu()                   # the ONE copy
+            self.last_token = toks.numpy().astype(np.int32)
+            return {i: int(self.last_token[i])
+                    for i in range(self.num_slots) if decode_active[i]}
 
     def finish(self, slot: int) -> None:
         self.active[slot] = False
@@ -293,13 +306,14 @@ class InferenceEngine(SlotEngine):
             return slot
 
         width = _bucket(n, self.buckets)
-        logits, _ = prefill(self.model, _slot_view(self.state, slot),
-                            _padded(prompt, width, self.device),
-                            true_len=_true_len(n, self.device),
-                            mesh=self.mesh)
-        _set_slot(self.state, slot, n)
-        self.host_pos[slot] = 0
-        self._land_chunk(slot, self._sample(logits), n, True)
+        with span("engine.add_request", slot=slot, rows=n, width=width):
+            logits, _ = prefill(self.model, _slot_view(self.state, slot),
+                                _padded(prompt, width, self.device),
+                                true_len=_true_len(n, self.device),
+                                mesh=self.mesh)
+            _set_slot(self.state, slot, n)
+            self.host_pos[slot] = 0
+            self._land_chunk(slot, self._sample(logits), n, True)
         return slot
 
     def _run_chunk(self, slot: int, tokens: np.ndarray, n: int,

@@ -83,6 +83,7 @@ from .parallel import (
 from .parallel.distributed import process_count, process_index
 from .parallel.mesh import _sum
 from .utils import restore_checkpoint, save_checkpoint
+from .utils.profiling import span
 
 # the JAX trainer's constants (train.py:40-45)
 BATCH_SIZE = 4
@@ -210,19 +211,22 @@ def train_step(model: CosineSimCausalTransformer,
     (n_micro, batch, seq_len + 1): the mean of their losses and of their
     gradients (train.py:255-267), clipped, then Adam.  Returns the mean
     loss as a device tensor."""
-    optimizer.zero_grad(set_to_none=True)
-    losses = []
-    for batch in batches:
-        loss = model(batch, return_loss=True)
-        loss.backward()
-        losses.append(loss.detach())
-    with torch.no_grad():
-        for p in model.parameters():
-            if p.grad is not None:
-                p.grad.div_(len(batches))
-    clip_by_global_norm_(model.parameters(), MAX_GRAD_NORM)
-    optimizer.step()
-    return torch.stack(losses).mean()
+    with span("train.step", micro=len(batches)):
+        optimizer.zero_grad(set_to_none=True)
+        losses = []
+        for i, batch in enumerate(batches):
+            with span("train.micro", i=i):
+                loss = model(batch, return_loss=True)
+                loss.backward()
+                losses.append(loss.detach())
+        with span("train.update"):
+            with torch.no_grad():
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(len(batches))
+            clip_by_global_norm_(model.parameters(), MAX_GRAD_NORM)
+            optimizer.step()
+        return torch.stack(losses).mean()
 
 
 def main(argv=None):

@@ -22,7 +22,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from ..ops import l2norm_tensors
+from ..ops.reference import l2norm_tensors
 
 
 def _time_ms(step: Callable, x0: torch.Tensor, num_times: int,

@@ -17,7 +17,9 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..ops import flash_cosine_sim_attention, plain_cosine_sim_attention
+# the package, not its names: ``ops`` loads ``utils.profiling`` while it
+# is itself loading
+from .. import ops
 
 
 class AttentionError:
@@ -44,7 +46,7 @@ def checkify_attention(**attn_kwargs):
     """
 
     def fn(q, k, v, mask=None, attn_bias=None):
-        out = flash_cosine_sim_attention(
+        out = ops.flash_cosine_sim_attention(
             q, k, v, mask=mask, attn_bias=attn_bias, **attn_kwargs)
         bad = ~torch.isfinite(out.float())
         msg = None
@@ -61,9 +63,9 @@ def checkify_attention(**attn_kwargs):
 def debug_attention(q, k, v, mask=None, attn_bias=None, **kw
                     ) -> Dict[str, Any]:
     """Fused vs plain on the same inputs; returns a numeric report."""
-    fused = flash_cosine_sim_attention(
+    fused = ops.flash_cosine_sim_attention(
         q, k, v, mask=mask, attn_bias=attn_bias, **kw)
-    plain = plain_cosine_sim_attention(
+    plain = ops.plain_cosine_sim_attention(
         q, k, v, mask=mask, attn_bias=attn_bias, **kw)
     diff = (fused.float() - plain.float()).abs()
     return {
