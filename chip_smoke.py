@@ -395,8 +395,9 @@ TP_TIMEOUT_S = 600       # a world's time limit, and its collectives'
 # phase 19: ring attention at the 0.81B model's attention width (16 heads
 # of 128, bf16, causal) over RING_WORLD ranks sharing the card over gloo
 # (ppermute stages each hop through pinned host memory): local lengths
-# 8192 (the backward on K2) and 16384 (on K3a/K3b, past
-# ONEPASS_BWD_MAX_SEQ); then GQA on a (model 2, seq 2) mesh of 4 ranks
+# 8192 and 16384 (the backward on K2 at both: bf16 at d 128 takes it at
+# any length, ops/blocks.py onepass_backward); then GQA on a (model 2,
+# seq 2) mesh of 4 ranks
 RING_WORLD = 2
 RING_HEADS, RING_DIM = PROD_MODEL["heads"], PROD_MODEL["dim_head"]
 RING_SEQS = (16384, 32768)
@@ -3844,7 +3845,8 @@ def ring_case(mesh, n: int, dtype, causal=True, model_axis=None, **kw):
     torch.cuda.synchronize()
     out = dict(launches=ring_launches(), seq_rank=mesh.get_local_rank("seq"),
                seq_size=mesh.size(mesh.mesh_dim_names.index("seq")),
-               local_n=n // mesh.size(mesh.mesh_dim_names.index("seq")))
+               local_n=n // mesh.size(mesh.mesh_dim_names.index("seq")),
+               d=q.shape[-1])
     if dist.get_rank() == 0:
         want = attend(False)
         out["errors"] = [
@@ -3989,11 +3991,11 @@ def check_ring_case(label, ranks, dtype, causal) -> float:
     the unsharded inputs; and every rank's launches and hops to what the
     schedule implies: a causal ring of size s gives its rank r r + 1 pair
     forwards and backwards (s (s + 1) / 2 in all), a non-causal one s
-    each; the backward is K2 up to ONEPASS_BWD_MAX_SEQ local rows, K3a
-    and K3b past it; s - 1 hops forward and s backward.  Returns the
+    each; the backward is K2 or K3a and K3b as onepass_backward decides
+    at the local rows; s - 1 hops forward and s backward.  Returns the
     output's max |diff| from the plain version."""
     from flash_cosine_sim_attention_tpu_torch.ops.blocks import (
-        ONEPASS_BWD_MAX_SEQ)
+        onepass_backward)
     out_bar, grad_bar = RING_BARS[dtype]
     l2_bar = RING_REL_L2[dtype]
     plain_bar = F32_ERR_BAR if dtype == torch.float32 else BF16_ERR_BAR
@@ -4014,7 +4016,7 @@ def check_ring_case(label, ranks, dtype, causal) -> float:
     for r, res in enumerate(ranks):
         size, pairs = res["seq_size"], (res["seq_rank"] + 1 if causal
                                          else res["seq_size"])
-        onepass = res["local_n"] <= ONEPASS_BWD_MAX_SEQ
+        onepass = onepass_backward(False, dtype, res["d"], res["local_n"])
         want = dict(k1=pairs, k2=pairs if onepass else 0,
                     k3a=0 if onepass else pairs, k3b=0 if onepass else pairs,
                     hops=2 * size - 1)
@@ -4032,15 +4034,14 @@ def ring_pairs_vs_plain() -> None:
     against their plain versions: for each of RING_CASES, the last seq
     rank's (on (model 2, seq 2), model rank 0's) pairs as the ring runs
     them (the diagonal causal, and key-masked where the case is; earlier
-    shards non-causal), K1 then its backward (K2 at a local length up to
-    ONEPASS_BWD_MAX_SEQ, K3a and K3b past it, read from the launch
-    counters) on the global o and inv_l that the pairs merge to and a
+    shards non-causal), K1 then its backward (K2 or K3a and K3b as
+    onepass_backward decides, read from the launch counters) on the global o and inv_l that the pairs merge to and a
     random dO.  K1's o within F32_ERR_BAR / BF16_ERR_BAR and its inv_l
     within 1e-5 relative (phase 3's bars), the gradients within
     GRAD_BARS (phase 7's)."""
     from flash_cosine_sim_attention_tpu_torch import l2norm_tensors
     from flash_cosine_sim_attention_tpu_torch.ops.blocks import (
-        EPS, ONEPASS_BWD_MAX_SEQ)
+        EPS, onepass_backward)
     from flash_cosine_sim_attention_tpu_torch.ops.bwd_kernel import (
         flash_attention_backward)
     from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
@@ -4107,7 +4108,8 @@ def ring_pairs_vs_plain() -> None:
                       f"{nm} {e:.2e}" for nm, e in zip(("dq", "dk", "dv"),
                                                         errs))
                   + f" (bar {GRAD_BARS[dtype]:g})")
-            if ran != (["K2"] if m <= ONEPASS_BWD_MAX_SEQ else ["K3a", "K3b"]):
+            if ran != (["K2"] if onepass_backward(False, dtype, ql.shape[3], m)
+                       else ["K3a", "K3b"]):
                 fail(f"{label} pair backward ran {ran}")
             if not (finite and max(errs) <= GRAD_BARS[dtype]):
                 fail(f"backward {label} pair ({me}, {p['g']}): {errs}, "
@@ -4883,6 +4885,119 @@ def long_chains(g, card: str, d: int = 64, cases=None) -> None:
         del q, k, v, o, o_p, got3, want, args
 
 
+def bf16_long_bwd(card: str, widths=(16, 32, 64, 96, 128, 192, 256)) -> dict:
+    """The bf16 backward past ONEPASS_BWD_MAX_SEQ (``--bf16-long-bwd``
+    alone).  At the long-context training cell's attention shape (b4 h8
+    s16384 causal, no bias; LONG_SEQ) and each width in ``widths``: K2
+    alone against K3a + K3b (each through its wrapper on the same
+    prepared inputs, device time a call by whole_rows), then the two
+    routes whole (``_backward_onepass``: the dQ scratch's zeroing, K2, the
+    scale and cast; ``_backward_twopass``: K3a, K3b), the prescale of dO
+    in both; at d 64 beside them the plain backward (1 head of each batch
+    row a call, by_heads) and SDPA's flash backward.  Then at b1 h2 s16384 causal, at
+    each width, both routes held to the plain backward on the plain
+    forward's o and inv_l (by_heads, 1 head a call) at GRAD_BARS[bf16],
+    and each route's kernels checked by instance name.  Returns {d: row}."""
+    import torch.nn.functional as F
+
+    from flash_cosine_sim_attention_tpu_torch.ops import (
+        bwd_kernel as bk, flash_attention_backward_plain, l2norm_tensors)
+    from flash_cosine_sim_attention_tpu_torch.ops.fwd_kernel import (
+        flash_attention_forward, flash_attention_forward_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 120)
+    kw = dict(bias_batch_dim=False, scale=1.0, causal=True)
+    dt = torch.bfloat16
+
+    def inputs(b, h, d, plain):
+        q, k = l2norm_tensors(
+            *(torch.randn(b, h, LONG_SEQ, d, device="cuda", generator=g)
+              for _ in range(2)), groups=8)
+        q, k = q.to(dt), k.to(dt)
+        v = torch.randn(b, h, LONG_SEQ, d, device="cuda", generator=g).to(dt)
+        if plain:
+            o, inv_l = by_heads(lambda *t: flash_attention_forward_plain(
+                *t, None, None, **kw), (q, k, v), 1)
+        else:
+            o, inv_l = flash_attention_forward(q, k, v, None, None, **kw)
+        do = torch.randn(o.shape, device="cuda", generator=g).to(dt)
+        return (do, o, inv_l, q, k, v, None, None)
+
+    b, h = 4, 8
+    pairs = b * h * LONG_SEQ * (LONG_SEQ + 1) / 2
+    rows = {}
+    for d in widths:
+        args = inputs(b, h, d, False)
+        x = bk._cuda_inputs(*args, False)
+        k2_ms = whole_us(lambda: bk.fused_bwd_kernel(  # noqa: B023
+            x, scale=1.0, causal=True), 2) / 1e3
+        k3_ms = whole_us(lambda: (bk.dq_kernel(x, **kw),  # noqa: B023
+                                  bk.dkdv_kernel(x, **kw)), 2) / 1e3  # noqa: B023
+        one_ms = whole_us(lambda: bk._backward_onepass(  # noqa: B023
+            *args[:7], scale=1.0, causal=True), 2) / 1e3  # noqa: B023
+        two_ms = whole_us(lambda: bk._backward_twopass(*args, **kw),  # noqa: B023
+                          2) / 1e3
+        io = b * h * LONG_SEQ * d * 2
+        bound_ms, by = bound(10 * d * pairs, 8 * io + b * h * LONG_SEQ * 4)
+        row = dict(k2_ms=k2_ms, k3_ms=k3_ms, onepass_ms=one_ms,
+                   twopass_ms=two_ms, bound_ms=bound_ms, bound_by=by)
+        extra = ""
+        if d == 64:
+            do, _, _, q, k, v = args[:6]
+            row["plain_ms"] = whole_us(lambda: by_heads(  # noqa: B023
+                lambda *t: flash_attention_backward_plain(
+                    *t, None, None, **kw), args[:6], 1), 1) / 1e3  # noqa: B023
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                               scale=1.0)
+            row["library_ms"] = library_ms(
+                "SDPA backward", lambda: torch.autograd.grad(  # noqa: B023
+                    o, (qs, ks, vs), do, retain_graph=True), 3)  # noqa: B023
+            extra = (f"; plain {row['plain_ms']:.2f} ms (1 head a call), "
+                     f"SDPA backward {row['library_ms']:.4f} ms")
+            del qs, ks, vs, o
+        rows[d] = row
+        print(f"  bf16 b{b} h{h} s{LONG_SEQ} d{d} causal on {card}: K2 "
+              f"{k2_ms:.4f} ms, K3a + K3b {k3_ms:.4f} ms (K2 / two-pass "
+              f"{k2_ms / k3_ms:.3f}); routes whole: one-pass {one_ms:.4f} "
+              f"ms, two-pass {two_ms:.4f} ms; bound {bound_ms:.4f} ms ({by}; "
+              f"K2 at {bound_ms / k2_ms:.3f} of it, K3a + K3b at "
+              f"{bound_ms / k3_ms:.3f}){extra}", flush=True)
+        del args, x
+        torch.cuda.empty_cache()
+
+    for d in widths:
+        args = inputs(1, 2, d, True)
+        want = by_heads(lambda *t: flash_attention_backward_plain(
+            *t, None, None, **kw), args[:6], 1)
+        errs = {}
+        for route, run in (
+                ("K2", lambda: bk._backward_onepass(  # noqa: B023
+                    *args[:7], scale=1.0, causal=True)),  # noqa: B023
+                ("K3a+K3b", lambda: bk._backward_twopass(*args, **kw)[:3])):  # noqa: B023
+            got = run()
+            errs[route] = [grad_err(x, y, dt) for x, y in zip(got, want)]
+            if not (all(torch.isfinite(x.float()).all().item() for x in got)
+                    and max(errs[route]) <= GRAD_BARS[dt]):
+                fail(f"bf16 {route} b1 h2 s{LONG_SEQ} d{d}: {errs[route]}")
+            del got
+        names = instance_names(lambda: bk._backward_onepass(
+            *args[:7], scale=1.0, causal=True))  # noqa: B023
+        if not any(n.startswith("dkdv_mma_kernel<") and n.endswith("true>")
+                   for n in names) or any("dq_" in n for n in names):
+            fail(f"bf16 K2 d{d}: instances {names}")
+        print(f"  bf16 b1 h2 s{LONG_SEQ} d{d} causal vs plain, err / (|g| + "
+              f"rms g), dq, dk, dv: " + "; ".join(
+                  f"{r} {', '.join(f'{e:.2e}' for e in es)}"
+                  for r, es in errs.items())
+              + f" (bar {GRAD_BARS[dt]:g}); K2's instances {names}",
+              flush=True)
+        rows[d]["errs"] = errs
+        del args, want
+        torch.cuda.empty_cache()
+    return rows
+
+
 def f32_step_kernels(d: int) -> dict:
     """A float32 step's attention kernels at head width ``d``, by the
     instance names that count for them (the FMA ones too, and the wide
@@ -4996,7 +5111,8 @@ def f32_long_step(card: str, cfg=MODEL) -> dict:
     (the validation model by default; the trainer's --use-float32
     --seq-len 16384 --batch-size 1: GRAD_ACCUM microbatches of 1 x 16384
     of phase 8's corpus, max_seq_len 16384).  Past ONEPASS_BWD_MAX_SEQ
-    query rows the backward takes the two-pass route, K3a and K3b.  The
+    query rows the float32 backward takes the two-pass route, K3a and K3b
+    (ops/blocks.py onepass_backward).  The
     wrappers' counts are set to 0 before 2 warm-up steps (host-clock
     walls, ended by a synchronize) and read after them; then 2 steps are
     profiled (whole_rows): device time a step, K1's, K3a's and K3b's share,
@@ -5990,6 +6106,10 @@ def main() -> None:
         help="profile the validation model's float32 training step alone "
              "(one card)")
     parser.add_argument(
+        "--bf16-long-bwd", action="store_true",
+        help="time K2 against K3a + K3b in bf16 at seq 16384 and hold both "
+             "routes to the plain backward there (one card)")
+    parser.add_argument(
         "--f32-long-step", action="store_true",
         help="profile the validation model's float32 training step at seq "
              f"{LONG_SEQ}, batch 1, alone (one card)")
@@ -6069,11 +6189,17 @@ def main() -> None:
             or args.f32_head256_long_step or args.f32_head512_step
             or args.f32_head512_long_step or args.f32_head512_kernels
             or args.f32_wide_heads or args.f32_quant_kernels
-            or args.f32_prod_serve or args.profiler_drift):
+            or args.f32_prod_serve or args.profiler_drift
+            or args.bf16_long_bwd):
         if args.profiler_drift:
             print("[0] the profiler's records over a long process")
             profiler_drift(args.profiler_drift)
             flag = "--profiler-drift"
+        elif args.bf16_long_bwd:
+            print(f"[7] the bf16 backward at seq {LONG_SEQ}: K2 against "
+                  "K3a + K3b")
+            bf16_long_bwd(smi)
+            flag = "--bf16-long-bwd"
         elif args.ring_nccl:
             print("[19] ring attention over NCCL, a card a rank")
             print(json.dumps({"kernels": [ring_attention_phase(smi, "nccl")]}))

@@ -33,7 +33,14 @@
 //   kernel avoided atomics by keeping the whole q extent resident in VMEM,
 //   which does not fit in 227 KB of shared memory.  The wrapper zeroes the
 //   scratch and scales and casts it afterwards.  The atomics' order varies
-//   from run to run.
+//   from run to run.  Nor does K2 need a cap on seq_q, and bf16 up to d
+//   256 takes it at every length (ops/blocks.py onepass_backward): at
+//   the long-context training shape (b4 h8 s16384 d64 causal) the
+//   scratch is 134 MB, past the 50 MB L2, but a wave of blocks (key
+//   tiles slowest, low keys first, each sweeping its q tiles upward)
+//   adds into q rows near one another, and K2 took 16.6 ms a call on an
+//   H100 against 32.0 ms for K3a + K3b, which form S and dP' twice and
+//   stream Q, K, V and dO' twice.
 // - the dQ kernels (K3a): one block per (batch, head, 64 queries) owns its
 //   dQ rows and loops over the keys they can see.  With a bias it adds
 //   each dS entry to an f32 (B|H, seq_q, seq_k) dB scratch with atomics:

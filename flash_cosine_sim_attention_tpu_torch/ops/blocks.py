@@ -8,6 +8,8 @@ shared by both decode kernels, holds the same numbers); the forward's
 tiles live in their ``csrc/*.cu`` sources alone.
 """
 
+import torch
+
 # head dims the reference supports (cu:84); the plain versions take any width
 ALLOWED_DIM_HEADS = (16, 32, 64, 96, 128)
 
@@ -50,13 +52,33 @@ def kernel_head_dim(d: int, kernel: str) -> int:
 
 EPS = 1e-10  # rowsum clamp, matches the reference kernel's eps (cu:83)
 
-# the one-pass backward (K2) takes every bias-free input with seq_q up to
-# this; longer ones take the two-pass kernels, as in the JAX dispatch
-# (its onepass_bwd_max_seq default, without the environment override).
-# On the TPU the cap bounds the VMEM-resident q extent; the Hopper K2 adds
-# dQ into an f32 scratch with atomics and has no such limit, so the cap
-# only keeps the two dispatches alike.
+# the JAX dispatch's onepass_bwd_max_seq default (without the environment
+# override): on the TPU it bounds the VMEM-resident q extent of the
+# one-pass backward.  The Hopper K2 adds dQ into an f32 scratch with
+# atomics and has no such limit; here the cap holds only where
+# onepass_backward says
 ONEPASS_BWD_MAX_SEQ = 8192
+
+
+def onepass_backward(bias: bool, dtype, d: int, seq_q: int) -> bool:
+    """Whether the CUDA backward of an input with (``bias``) or without a
+    bias, of ``dtype``, head dim ``d`` and ``seq_q`` query rows takes the
+    one-pass kernel K2 (else K3a, then K3b).  A bias always takes the two
+    passes (only K3a forms dB).  bfloat16 up to d 256 (the tensor-core
+    `dkdv_mma_kernel` instances) takes K2 at any length: it forms S and
+    dP' once where K3a and K3b form both twice (8 products a visible
+    pair against 4 + 6), and its dQ atomics cost less than the second
+    pass: at b4 h8 s16384 causal on an H100, K2 ran 0.27-0.82 of K3a +
+    K3b's time at every width from 16 to 256 (16.6 against 32.0 ms at d
+    64).  float32, and bfloat16 past d 256 (the wide route), keep the
+    two passes past ONEPASS_BWD_MAX_SEQ rows: their K2 is unmeasured at
+    that length, and no main path of theirs but chip_smoke.py's float32
+    long-context steps runs there."""
+    if bias:
+        return False
+    if dtype == torch.bfloat16 and d <= KERNEL_WIDTHS[-1]:
+        return True
+    return seq_q <= ONEPASS_BWD_MAX_SEQ
 
 # decode kernels (K4, csrc/decode_kernel.cu; K5, csrc/paged_decode_kernel.cu):
 # split-K.  One 128-thread block per (split of a slot's tokens, 8 query

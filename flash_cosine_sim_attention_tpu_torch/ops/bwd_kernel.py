@@ -5,13 +5,18 @@ Counterpart of ``flash_cosine_sim_attention_tpu/ops/bwd_kernel.py``.  A
 CUDA tensor goes to the hand-written Hopper kernels of
 ``csrc/bwd_kernel.cu``; a CPU tensor goes to
 ``flash_attention_backward_plain``, the same formulas in plain PyTorch.
-The dispatch is the JAX one: without a bias (and seq_q up to
-``ONEPASS_BWD_MAX_SEQ``) the one-pass kernel K2 (replaces
+``blocks.onepass_backward`` picks the route (``backward_route`` names
+it): without a bias the one-pass kernel K2 (replaces
 ``_fused_bwd_kernel_t``), else the two-pass kernels K3a (dQ and dB,
 replaces ``_dq_kernel_t``) and K3b (dK and dV, replaces
-``_dkdv_kernel_t``).  The JAX gate that sends causal f32 past seq 4096 to
-the two-pass kernels is a TPU tuning choice and is dropped here; both
-routes compute the same gradients.
+``_dkdv_kernel_t``).  The JAX dispatch also sends every bias-free input
+past ``ONEPASS_BWD_MAX_SEQ`` query rows to the two passes, a cap that
+bounds the TPU kernel's VMEM-resident q extent; the card's K2 adds dQ
+into an f32 scratch and has no such limit, so bfloat16 up to d 256 takes
+K2 at any length, and only float32 and the wide route keep the cap.  The
+JAX gate that sends causal f32 past seq 4096 to the two-pass kernels is
+a TPU tuning choice and is dropped here; both routes compute the same
+gradients.
 
 As in JAX, the host side around the kernels stays plain tensor code:
 delta = rowsum(dO * O) in f32, then dO and delta pre-scaled by inv_l (dO
@@ -42,7 +47,7 @@ from typing import Optional
 import torch
 
 from .._build import check_launch, current_stream, load_kernel
-from .blocks import ONEPASS_BWD_MAX_SEQ, kernel_head_dim
+from .blocks import kernel_head_dim, onepass_backward
 from .fwd_kernel import _DTYPE_CODES, _check_shapes
 from .reference import causal_keep, pad_head_dim
 
@@ -211,6 +216,17 @@ def _backward_twopass(do, o, inv_l, q, k, v, mask, bias, *, bias_batch_dim,
             None if db is None else db.to(bias.dtype))
 
 
+def backward_route(q: torch.Tensor, bias: Optional[torch.Tensor]) -> str:
+    """The route ``flash_attention_backward`` takes for ``q`` and ``bias``:
+    "plain" on a CPU tensor, else "onepass" (K2) or "twopass" (K3a, then
+    K3b), as ``blocks.onepass_backward`` decides."""
+    if q.device.type == "cpu":
+        return "plain"
+    return ("onepass" if onepass_backward(bias is not None, q.dtype,
+                                          q.shape[-1], q.shape[2])
+            else "twopass")
+
+
 def flash_attention_backward(
     do: torch.Tensor,                # (b, h, i, d), the output's gradient
     o: torch.Tensor,                 # (b, h, i, d), the forward's output
@@ -234,7 +250,7 @@ def flash_attention_backward(
             scale=scale, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"no backward for device {q.device}")
-    if bias is None and q.shape[2] <= ONEPASS_BWD_MAX_SEQ:
+    if backward_route(q, bias) == "onepass":
         return (*_backward_onepass(do, o, inv_l, q, k, v, mask, scale=scale,
                                    causal=causal), None)
     return _backward_twopass(do, o, inv_l, q, k, v, mask, bias,

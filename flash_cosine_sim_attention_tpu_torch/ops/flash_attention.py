@@ -24,7 +24,7 @@ import torch
 
 from ..utils.profiling import span
 from .blocks import ALLOWED_DIM_HEADS
-from .bwd_kernel import flash_attention_backward
+from .bwd_kernel import backward_route, flash_attention_backward
 from .fwd_kernel import flash_attention_forward
 from .reference import canonicalize_qkv, l2norm_tensors
 
@@ -64,8 +64,8 @@ class _FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        with span("attention.bwd"):
-            o, inv_l, q, k, v, mask, bias = ctx.saved_tensors
+        o, inv_l, q, k, v, mask, bias = ctx.saved_tensors
+        with span("attention.bwd", route=backward_route(q, bias)):
             dq, dk, dv, db = flash_attention_backward(
                 do, o, inv_l, q, k, v, mask, bias, **ctx.kw)
         return dq, dk, dv, None, db, None, None, None, None

@@ -17,8 +17,9 @@ n (n + 1) / 2 pair forwards in all, rank r r + 1 of them.
 
 The backward runs the same ring.  The forward's global ``inv_l`` makes
 each pair's softmax partial exact, so each pair calls the standard
-backward (``ops/bwd_kernel.py::flash_attention_backward``: K2 at a local
-length up to ``ONEPASS_BWD_MAX_SEQ``, K3a/K3b past it) with the global
+backward (``ops/bwd_kernel.py::flash_attention_backward``: K2 or K3a/K3b
+as ``ops/blocks.py::onepass_backward`` decides at the local length;
+bfloat16 up to d 256 takes K2 at any length) with the global
 dO, o and inv_l.  dQ accumulates in float32 on its rank; dK and dV
 accumulate in the input dtype, rounded at every hop as JAX rounds them,
 and travel the ring with their K/V shard, home after ``size`` hops.  The

@@ -41,6 +41,8 @@ from flash_cosine_sim_attention_tpu_torch.ops import (
     flash_attention_backward,
     flash_cosine_sim_attention,
 )
+from flash_cosine_sim_attention_tpu_torch.ops.blocks import onepass_backward
+from flash_cosine_sim_attention_tpu_torch.ops.bwd_kernel import backward_route
 
 TOL = {"float32": 1e-4, "bfloat16": 0.15, "float16": 0.1}
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
@@ -183,3 +185,24 @@ def test_autograd_matches_jax_vjp(layout):
         assert x.dtype == TORCH[dtype] and tuple(x.shape) == tuple(y.shape)
         err = _err(x, y, dtype)
         assert err <= TOL[dtype], (name, err)
+
+
+@pytest.mark.parametrize("seq_q", [8192, 8193, 16384])
+@pytest.mark.parametrize("d", [64, 256, 512])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("bias", [False, True], ids=["no-bias", "bias"])
+def test_onepass_backward_rule(bias, dtype, d, seq_q):
+    """The card's backward route: a bias always takes K3a then K3b (only
+    K3a forms dB); without one, bfloat16 up to d 256 takes the one-pass
+    K2 at any length, and float32 and the wide route past d 256 keep the
+    two passes past 8192 query rows."""
+    want = not bias and (seq_q <= 8192
+                         or (dtype == "bfloat16" and d <= 256))
+    assert onepass_backward(bias, TORCH[dtype], d, seq_q) is want
+
+
+def test_cpu_backward_route_is_plain():
+    """CPU tensors take the plain version on either route's inputs."""
+    q = torch.zeros(1, 1, 8193, 8, dtype=torch.bfloat16)
+    assert backward_route(q, None) == "plain"
+    assert backward_route(q, torch.zeros(1, 8193, 16)) == "plain"

@@ -1066,36 +1066,84 @@ def test_autograd_runs_the_backward_kernels(cuda_device):
     assert bias.grad is not None and torch.isfinite(bias.grad).all()
 
 
+# past ONEPASS_BWD_MAX_SEQ query rows: (dtype, (h,i,j) bias) and the
+# launches (K2, K3a, K3b) the call must make (ops/blocks.py
+# onepass_backward)
+LONG_QUERY_ROUTES = {
+    "bf16": (torch.bfloat16, False, (1, 0, 0)),
+    "bf16-bias": (torch.bfloat16, True, (0, 1, 1)),
+    "f32": (torch.float32, False, (0, 1, 1)),
+}
+
+
 @pytest.mark.cuda
-def test_long_queries_take_the_two_pass_kernels(cuda_device):
-    """Past ONEPASS_BWD_MAX_SEQ query rows the bias-free backward takes
-    K3a/K3b, as the JAX dispatch does, and still matches the plain one."""
+@pytest.mark.parametrize("case", sorted(LONG_QUERY_ROUTES))
+def test_long_queries_take_their_route(cuda_device, case):
+    """Past ONEPASS_BWD_MAX_SEQ query rows a bias-free bf16 input takes
+    K2 once (the card's K2 has no cap on the q extent), a biased or a
+    float32 input K3a and K3b once each; each matches the plain version."""
     from flash_cosine_sim_attention_tpu_torch.ops import (
         flash_attention_backward)
     from flash_cosine_sim_attention_tpu_torch.ops.blocks import (
         ONEPASS_BWD_MAX_SEQ)
 
+    dtype, with_bias, want = LONG_QUERY_ROUTES[case]
     g = torch.Generator(device=cuda_device).manual_seed(4)
     q, k = l2norm_tensors(
         torch.randn(1, 2, ONEPASS_BWD_MAX_SEQ + 1, 64, device=cuda_device,
                     generator=g),
         torch.randn(1, 2, 128, 64, device=cuda_device, generator=g))
-    v = torch.randn(1, 2, 128, 64, device=cuda_device, generator=g)
+    q, k = q.to(dtype), k.to(dtype)
+    v = torch.randn(1, 2, 128, 64, device=cuda_device, generator=g).to(dtype)
+    bias = None
+    if with_bias:
+        bias = 0.5 * torch.randn(2, ONEPASS_BWD_MAX_SEQ + 1, 128,
+                                 device=cuda_device, generator=g)
     kw = dict(bias_batch_dim=False, scale=8.0, causal=False)
-    o, inv_l = flash_attention_forward_plain(q, k, v, None, None, **kw)
-    do = torch.randn(o.shape, device=cuda_device, generator=g)
-    args = (do, o, inv_l, q, k, v, None, None)
-    counts = [bwd_kernel.fused_bwd_kernel.launches,
-              bwd_kernel.dq_kernel.launches, bwd_kernel.dkdv_kernel.launches]
+    o, inv_l = flash_attention_forward_plain(q, k, v, None, bias, **kw)
+    do = torch.randn(o.shape, device=cuda_device, generator=g).to(dtype)
+    args = (do, o, inv_l, q, k, v, None, bias)
+    wrappers = (bwd_kernel.fused_bwd_kernel, bwd_kernel.dq_kernel,
+                bwd_kernel.dkdv_kernel)
+    counts = [fn.launches for fn in wrappers]
     got = flash_attention_backward(*args, **kw)
+    want_grads = flash_attention_backward_plain(*args, **kw)
+    assert tuple(fn.launches - n for fn, n in zip(wrappers, counts)) == want
+    assert (got[3] is None) is (bias is None)
+    for name, x, y in zip(("dq", "dk", "dv", "db"), got, want_grads):
+        if y is not None:
+            assert _grad_err(x, y, dtype) <= GRAD_BARS[dtype], name
+
+
+@pytest.mark.cuda
+def test_bf16_one_pass_at_seq_16384(cuda_device):
+    """K2 in bf16 at b1 h2 s16384 d64 causal, the long-context training
+    step's length (the dispatch's own route there): each dQ row sums the
+    adds of up to 256 key tiles into the f32 scratch, and dK and dV sum
+    16384 queries; all three hold the bf16 bar against the plain
+    version."""
+    g = torch.Generator(device=cuda_device).manual_seed(25)
+    s = 16384
+    q, k = l2norm_tensors(
+        *(torch.randn(1, 2, s, 64, device=cuda_device, generator=g)
+          for _ in range(2)), groups=8)
+    q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
+    v, do = (torch.randn(1, 2, s, 64, device=cuda_device,
+                         generator=g).to(torch.bfloat16) for _ in range(2))
+    kw = dict(bias_batch_dim=False, scale=8.0, causal=True)
+    o, inv_l = flash_attention_forward_plain(q, k, v, None, None, **kw)
+    args = (do, o, inv_l, q, k, v, None, None)
+    wrappers = (bwd_kernel.fused_bwd_kernel, bwd_kernel.dq_kernel,
+                bwd_kernel.dkdv_kernel)
+    counts = [fn.launches for fn in wrappers]
+    got = bwd_kernel.flash_attention_backward(*args, **kw)
+    assert tuple(fn.launches - n
+                 for fn, n in zip(wrappers, counts)) == (1, 0, 0)
     want = flash_attention_backward_plain(*args, **kw)
-    assert [bwd_kernel.fused_bwd_kernel.launches,
-            bwd_kernel.dq_kernel.launches,
-            bwd_kernel.dkdv_kernel.launches] == [counts[0], counts[1] + 1,
-                                                 counts[2] + 1]
-    assert got[3] is None
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
-        assert _grad_err(x, y, torch.float32) <= GRAD_BARS[torch.float32], name
+        assert torch.isfinite(x.float()).all(), name
+        err = _grad_err(x, y, torch.bfloat16)
+        assert err <= GRAD_BARS[torch.bfloat16], (name, err)
 
 
 def _kernel_names(work):

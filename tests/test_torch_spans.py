@@ -192,3 +192,5 @@ def test_records_pair_with_ranges(tmp_path, kind):
         assert by["train.step"] == [{"micro": 2}]
         assert by["train.micro"] == [{"i": 0}, {"i": 1}]
         assert by["train.update"] == [{}]
+        # the CPU backward is the plain version, whatever the card would run
+        assert by["attention.bwd"] == [{"route": "plain"}] * (2 * DEPTH)
