@@ -18,6 +18,14 @@ HERE = Path(__file__).resolve().parent
 # top-level modules that may not be loaded in a run: JAX and the JAX
 # package (whose name the port's begins with, so names compare whole)
 BANNED = ("jax", "jaxlib", "flax", "optax", "flash_cosine_sim_attention_tpu")
+# where the model families are found (a test points it at families of its own)
+ARCHS = HERE / "archs"
+# what a model family's module exports (``perfbench/README.md``)
+ARCH_EXPORTS = ("build", "reference_weights", "reference_logits",
+                "reference_loss", "train_step_flops", "prefill_flops",
+                "decode_flops", "attention_train_bound_s",
+                "k1_prefill_bound_s", "decode_k4_bound_s", "dense_k7_bound_s",
+                "tiny", "COUNTED")
 
 
 def load_json(kind: str, name: str) -> dict:
@@ -26,9 +34,10 @@ def load_json(kind: str, name: str) -> dict:
         return json.load(f)
 
 
-def load_module(kind: str, name: str):
-    """``perfbench/<kind>/<name>.py`` as a module (names may hold dots)."""
-    path = HERE / kind / f"{name}.py"
+def load_module(kind: str, name: str, root: Optional[Path] = None):
+    """``perfbench/<kind>/<name>.py`` (or ``<root>/<name>.py``) as a
+    module (names may hold dots)."""
+    path = (HERE / kind if root is None else root) / f"{name}.py"
     spec = importlib.util.spec_from_file_location(
         f"perfbench_{kind}_{name.replace('.', '_').replace('-', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
@@ -36,34 +45,16 @@ def load_module(kind: str, name: str):
     return mod
 
 
-def build_model(cfg: dict, max_seq_len: int, seed: int, device):
-    """The program's model of configuration ``cfg``, its leaves in the
-    configuration's dtype holding the benchmark's weights, drawn on
-    ``device`` from ``seed`` (``reference.model.make_weights``, which the
-    reference draws again).  Built on the meta device first, so the
-    program's own initialization draws nothing."""
-    import torch
-    from flash_cosine_sim_attention_tpu_torch.models import (
-        CosineSimCausalTransformer)
-    from perfbench.reference.model import make_weights
-
-    param_dtype = getattr(torch, cfg["param_dtype"])
-    model = CosineSimCausalTransformer(
-        num_tokens=cfg["num_tokens"], dim=cfg["dim"], max_seq_len=max_seq_len,
-        depth=cfg["depth"], heads=cfg["heads"], dim_head=cfg["dim_head"],
-        attn_scale=cfg["attn_scale"],
-        attn_l2norm_groups=cfg["attn_l2norm_groups"], pre_norm=True,
-        use_fused=True, dtype=getattr(torch, cfg["compute_dtype"]),
-        param_dtype=param_dtype, device="meta").to_empty(device=device)
-    weights = make_weights(cfg, max_seq_len, seed, device, param_dtype)
-    params = dict(model.named_parameters())
-    if set(params) != set(weights):
-        raise RuntimeError(f"the model's leaves differ from the benchmark's: "
-                           f"{sorted(set(params) ^ set(weights))[:8]}")
-    with torch.no_grad():
-        for name, p in params.items():
-            p.copy_(weights[name])
-    return model
+def arch(cfg: dict):
+    """The model family that configuration ``cfg`` names under ``arch``:
+    ``perfbench/archs/<arch>.py``, the one part of the harness that knows
+    the model's layout (its build, reference, work counts and bounds;
+    ``ARCH_EXPORTS``)."""
+    mod = load_module("archs", cfg["arch"], ARCHS)
+    missing = [n for n in ARCH_EXPORTS if not hasattr(mod, n)]
+    if missing:
+        raise AttributeError(f"model family {cfg['arch']!r} lacks {missing}")
+    return mod
 
 
 def banned_modules(modules=None) -> List[str]:

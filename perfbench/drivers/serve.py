@@ -8,6 +8,12 @@ slot's client sends its next request at once: it is admitted
 (``add_request``, whose first token is the request's first), then one
 ``step()`` is taken.  After the window, a sample of the finished requests
 is held against the reference.
+
+A cell that reports ``serve_tokens_per_busy_s`` runs its measured window
+(with ``--trace 0``) in stretches of loop turns, each under a profiler
+that records the device alone: the tokens served over the seconds in
+which the device was busy.  Its host-clock rate is read with
+``--trace 1``, from an unprofiled window, as a per-layer metric.
 """
 
 from __future__ import annotations
@@ -19,24 +25,10 @@ from collections import deque
 import numpy as np
 import torch
 
-from perfbench import core, generator, roofline
+from perfbench import core, generator
 from perfbench import trace as tracing
 from perfbench.reference import compare
 from perfbench.reference import model as ref
-
-
-def build_model(cfg: dict, seed: int, device):
-    """The served model with the benchmark's weights, quantized and fused
-    as the configuration says."""
-    from flash_cosine_sim_attention_tpu_torch.models.decoding import (
-        fuse_qkv_params, quantize_params)
-
-    model = core.build_model(cfg, cfg["max_seq_len"], seed, device)
-    if cfg.get("int8_weights"):
-        quantize_params(model)
-    if cfg.get("fused_qkv"):
-        fuse_qkv_params(model)
-    return model.eval()
 
 
 class Loop:
@@ -47,6 +39,7 @@ class Loop:
         self.by_slot = {}
         self.finished = []
         self.waiting = deque()      # when each waiting client sent
+        self.tokens = 0             # tokens served so far
 
     def admit(self, req: generator.Request, sent: float) -> None:
         with self.spans.span("admit", rows=len(req.prompt)) as sp:
@@ -54,6 +47,7 @@ class Loop:
         req.sent, req.admitted = sent, sp.end
         req.served.append(int(self.engine.last_token[slot]))
         req.times.append(sp.end)
+        self.tokens += 1
         self.by_slot[slot] = req
         if len(req.served) >= req.out_len:
             self._finish(slot, sp.end)
@@ -63,9 +57,11 @@ class Loop:
         live_slots = eng.active & ~eng.prefilling
         rows = int(live_slots.sum())
         live = int(eng.host_pos[live_slots].sum()) + rows
-        with self.spans.span("step", rows=rows, live=live,
+        lens = (eng.host_pos[live_slots] + 1).tolist()
+        with self.spans.span("step", rows=rows, live=live, lens=lens,
                              admitted=admitted) as sp:
             toks = eng.step()
+        self.tokens += len(toks)
         for slot, tok in toks.items():
             req = self.by_slot[slot]
             req.served.append(tok)
@@ -129,6 +125,52 @@ def sample(finished, seed: int, tokens: int, requests: int = 1):
     return picked
 
 
+BUSY = "serve_tokens_per_busy_s"
+
+
+def busy_window(loop: Loop, seconds: float, turns: int, counted: dict,
+                log) -> tuple:
+    """The measured window as stretches of ``turns`` loop turns, each
+    under ``trace.device_busy``, until the stretches' own time (the
+    profiler's start and stop between them left out) reaches
+    ``seconds``.  Returns the tokens served and the device's busy
+    seconds over the stretches whose records are whole, and the count of
+    stretches and of those left out."""
+    from perfbench import launches
+
+    ran, tokens, busy_s, stretches, left_out = 0.0, 0, 0.0, 0, 0
+    while ran < seconds:
+        n0, took = loop.tokens, []
+
+        def stretch():
+            start = time.perf_counter()
+            for _ in range(turns):
+                loop.iterate()
+                if ran + loop.spans.items[-1].end - start >= seconds:
+                    break
+            took.append(loop.spans.items[-1].end - start)
+
+        a = time.perf_counter()
+        b = tracing.device_busy(stretch, counted)
+        launches.program_spans()    # the port's span records, not kept
+        ran += took[0]
+        stretches += 1
+        log(f"busy stretch {stretches}: {took[0]:.3f} s of loop in "
+            f"{time.perf_counter() - a:.3f} s, {loop.tokens - n0} tokens, "
+            f"{b.seconds:.4f} s busy, {b.ops} device operations, launched "
+            f"{b.launched}, recorded {b.found}")
+        if b.short:
+            left_out += 1
+            log(f"busy stretch {stretches}: short of records of {b.short}; "
+                f"left out")
+            continue
+        tokens += loop.tokens - n0
+        busy_s += b.seconds
+    log(f"busy window: {stretches} stretches ({left_out} left out), "
+        f"{ran:.2f} s of loop, {tokens} tokens, {busy_s:.4f} s busy")
+    return tokens, busy_s, stretches, left_out
+
+
 @torch.no_grad()
 def reference_rows(W, cfg, req, device, rnd=ref.identity) -> torch.Tensor:
     """The reference's logits (m, vocab) at the positions that served the
@@ -137,15 +179,14 @@ def reference_rows(W, cfg, req, device, rnd=ref.identity) -> torch.Tensor:
     n = len(req.prompt)
     seq = np.concatenate([req.prompt, np.asarray(req.served[:-1], np.int32)])
     toks = torch.from_numpy(seq.astype(np.int64)).to(device)[None]
-    lg = ref.logits(W, cfg, toks, rnd, prompt_len=n)[0]
+    lg = core.arch(cfg).reference_logits(W, cfg, toks, rnd, prompt_len=n)[0]
     return lg[n - 1:]
 
 
-def reference_weights(cfg: dict, seed: int, device) -> dict:
-    raw = ref.make_weights(cfg, cfg["max_seq_len"], seed, device,
-                           getattr(torch, cfg["param_dtype"]))
-    return ref.served_weights(raw) if cfg.get("int8_weights") else {
-        k: v.float() for k, v in raw.items()}
+def reference_weights(cfg: dict, seed: int, device):
+    """What the family's reference takes for the served model."""
+    return core.arch(cfg).reference_weights(cfg, cfg["max_seq_len"], seed,
+                                            device, serving=True)
 
 
 def held(cfg, wseed, picked, device, log) -> float:
@@ -172,9 +213,10 @@ def serve(cell: core.Cell, seed: int, seconds: float, trace: bool, device,
     from flash_cosine_sim_attention_tpu_torch.serving import InferenceEngine
 
     cfg, mix = cell.config, cell.traffic
+    arch = core.arch(cfg)
     wseed = generator.derive_seed(seed, "weights")
     log(f"set-up: program imported at {time.perf_counter() - t_start:.1f} s")
-    model = build_model(cfg, wseed, device)
+    model = arch.build(cfg, cfg["max_seq_len"], wseed, device, serving=True)
     kw = {"prompt_buckets": tuple(mix["prompt_buckets"])} if (
         "prompt_buckets" in mix) else {}
     engine = InferenceEngine(
@@ -190,14 +232,22 @@ def serve(cell: core.Cell, seed: int, seconds: float, trace: bool, device,
     for _ in range(2):
         loop.iterate()
     log(f"set-up: slots filled at {time.perf_counter() - t_start:.1f} s")
+    busy = (not trace and device.type == "cuda"
+            and BUSY in {m["name"] for m in cell.end_to_end})
+    if busy:    # the profiler's first start sets up its device tracing
+        tracing.device_busy(lambda: None, arch.COUNTED)
     if device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     setup_s = t0 - t_start
-    while True:
-        loop.iterate()
-        if spans.items[-1].end >= t0 + seconds:
-            break
+    if busy:
+        tokens, busy_s, stretches, left_out = busy_window(
+            loop, seconds, mix["busy_turns"], arch.COUNTED, log)
+    else:
+        while True:
+            loop.iterate()
+            if spans.items[-1].end >= t0 + seconds:
+                break
     t1 = spans.items[-1].end
     finished = [r for r in loop.finished if t0 <= r.times[-1] <= t1]
 
@@ -206,20 +256,24 @@ def serve(cell: core.Cell, seed: int, seconds: float, trace: bool, device,
     gaps = [r.times[i] - r.times[i - 1] for r in served
             for i in range(1, len(r.times)) if t0 <= r.times[i] <= t1]
     admitted = [r for r in served if t0 <= r.admitted <= t1]
-    values = {"serve_tokens_per_s": len(times) / (t1 - t0),
-              "setup_s": setup_s}
+    values = {"setup_s": setup_s}
+    if not busy:
+        values["serve_tokens_per_s"] = len(times) / (t1 - t0)
+    elif busy_s > 0 and 4 * left_out <= stretches:
+        values[BUSY] = tokens / busy_s
 
     log_fifths(spans, t0, t1, times, log)
     steps = spans.between(t0, t1, "step")
     admits = spans.between(t0, t1, "admit")
     work = {
-        "model_flops": sum(roofline.decode_flops(cfg, s.info["rows"],
-                                                 s.info["live"]) for s in steps)
-        + sum(roofline.prefill_flops(cfg, s.info["rows"]) for s in admits),
-        "prefill_flops": sum(roofline.prefill_flops(cfg, s.info["rows"])
+        "model_flops": sum(arch.decode_flops(cfg, s.info["lens"]) for s in steps)
+        + sum(arch.prefill_flops(cfg, s.info["rows"]) for s in admits),
+        "prefill_flops": sum(arch.prefill_flops(cfg, s.info["rows"])
                              for s in admits),
         "steps": len(steps), "admits": len(admits),
     }
+    if not busy:
+        work["tokens_per_s"] = values["serve_tokens_per_s"]
     if gaps:
         work["itl_p95_ms"] = 1e3 * float(np.percentile(gaps, 95))
     if admitted:
@@ -230,7 +284,7 @@ def serve(cell: core.Cell, seed: int, seconds: float, trace: bool, device,
         spans.profiling = True
         prof = tracing.profile_window(
             lambda: [loop.iterate() for _ in range(mix["profile_steps"])],
-            log=log)
+            arch.COUNTED, log=log)
         spans.profiling = False
         context = core.Context(cell, spans, (t0, t1), work, *prof)
     peak = (torch.cuda.max_memory_allocated(device)

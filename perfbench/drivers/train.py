@@ -16,7 +16,7 @@ import time
 
 import torch
 
-from perfbench import core, generator, roofline
+from perfbench import core, generator
 from perfbench import trace as tracing
 from perfbench.reference import compare
 from perfbench.reference import model as ref
@@ -29,7 +29,8 @@ def build(cfg: dict, mix: dict, seed: int, device):
     """The model with the benchmark's weights, and the trainer's Adam."""
     from flash_cosine_sim_attention_tpu_torch import train as port_train
 
-    model = core.build_model(cfg, mix["seq_len"], seed, device)
+    model = core.arch(cfg).build(cfg, mix["seq_len"], seed, device,
+                                 serving=False)
     return model, port_train.make_optimizer(model)
 
 
@@ -63,13 +64,14 @@ def first_moment(optimizer, p) -> float:
 def reference(cfg, mix, seed, device, rnd=ref.identity, half_batch=False,
               steps=HELD_STEPS):
     """The reference's readings over the same weights and batches."""
-    W0 = ref.make_weights(cfg, mix["seq_len"], generator.derive_seed(
-        seed, "weights"), device, torch.float32)
+    arch = core.arch(cfg)
+    W0 = arch.reference_weights(cfg, mix["seq_len"], generator.derive_seed(
+        seed, "weights"), device, serving=False)
     feed = generator.Batches(mix, seed, cfg["num_tokens"], device)
     batches = [feed.next() for _ in range(steps)]
     with ref.exact_matmuls():
-        return ref_train.steps(cfg, cfg["optimizer"], W0, batches, rnd,
-                               half_batch)
+        return ref_train.steps(arch.reference_loss, cfg, cfg["optimizer"],
+                               W0, batches, rnd, half_batch)
 
 
 def run(cell: core.Cell, seed: int, seconds: float, trace: bool, device,
@@ -77,6 +79,7 @@ def run(cell: core.Cell, seed: int, seconds: float, trace: bool, device,
     from flash_cosine_sim_attention_tpu_torch import train as port_train
 
     cfg, mix = cell.config, cell.traffic
+    arch = core.arch(cfg)
     log(f"set-up: program imported at {time.perf_counter() - t_start:.1f} s")
     model, optimizer = build(cfg, mix, generator.derive_seed(seed, "weights"),
                              device)
@@ -103,7 +106,7 @@ def run(cell: core.Cell, seed: int, seconds: float, trace: bool, device,
     t1 = time.perf_counter()
     n_steps = len(losses)
     failed = int((~torch.isfinite(torch.stack(losses))).sum().item())
-    work = {"model_flops": n_steps * roofline.train_step_flops(
+    work = {"model_flops": n_steps * arch.train_step_flops(
                 cfg, mix["batch"], mix["seq_len"], mix["grad_accum"]),
             "steps": n_steps}
     context = None
@@ -113,7 +116,7 @@ def run(cell: core.Cell, seed: int, seconds: float, trace: bool, device,
         def traced():
             for _ in range(mix["profile_steps"]):
                 step(sync=True)
-        prof = tracing.profile_window(traced, log=log)
+        prof = tracing.profile_window(traced, arch.COUNTED, log=log)
         spans.profiling = False
         context = core.Context(cell, spans, (t0, t1), work, *prof)
     peak = (torch.cuda.max_memory_allocated(device)

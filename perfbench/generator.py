@@ -6,6 +6,9 @@ Sizes are stratified: every block of ``strata`` requests holds the same
 quantiles of the mix's distributions, in an order the seed draws, so
 every seed asks for the same set of sizes and windows of any seed see
 nearly the same work.  The seed alone sets the tokens and the order.
+So are the tokens left to the requests in flight when a window opens:
+each takes the share of its length that a fixed pairing gives its
+output quantile, so a block of them leaves the same set for every seed.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ class Request:
     rid: int
     prompt: np.ndarray          # int32 token ids
     out_len: int                # tokens to serve, the first from prefill
+    stratum: int = 0            # its output length's quantile in the block
     served: List[int] = field(default_factory=list)
     times: List[float] = field(default_factory=list)   # host clock a token
     sent: float = 0.0           # when its client sent it
@@ -58,27 +62,35 @@ class Requests:
         self.strata = int(mix.get("strata", 64))
         self._sizes: List[tuple] = []
         self._next = 0
+        # the share left of an in-flight request of each output quantile:
+        # one fixed pairing, the same for every seed
+        self._left = np.random.default_rng(0).permutation(self.strata)
 
     def _refill(self) -> None:
         u = (np.arange(self.strata) + 0.5) / self.strata
         prompts = [quantile(self.mix["prompt"], x) for x in self.rng.permutation(u)]
-        outs = [quantile(self.mix["output"], x) for x in self.rng.permutation(u)]
-        self._sizes.extend(zip(prompts, outs))
+        ranks = self.rng.permutation(self.strata)
+        outs = [quantile(self.mix["output"], u[j]) for j in ranks]
+        self._sizes.extend(zip(prompts, outs, ranks.tolist()))
 
     def next(self) -> Request:
         if not self._sizes:
             self._refill()
-        n, m = self._sizes.pop(0)
+        n, m, j = self._sizes.pop(0)
         prompt = self.rng.integers(0, self.vocab, n, dtype=np.int32)
         self._next += 1
-        return Request(self._next - 1, prompt, m)
+        return Request(self._next - 1, prompt, m, stratum=j)
 
     def in_flight(self) -> Request:
         """A request already part-served when the window opens: its
-        remaining outputs drawn uniform over its length, so that the
-        requests in flight finish at staggered times."""
+        remaining outputs a share of its length, one of the block's
+        quantiles of a uniform share by a fixed pairing with its output
+        quantile, so that the requests in flight finish at staggered
+        times and a block of them leaves the same tokens for every
+        seed."""
         r = self.next()
-        r.out_len = 1 + int(self.rng.integers(0, r.out_len))
+        share = (self._left[r.stratum] + 0.5) / self.strata
+        r.out_len = 1 + int(share * r.out_len)
         return r
 
 

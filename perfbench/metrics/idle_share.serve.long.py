@@ -1,0 +1,8 @@
+"""idle_share.serve.long: ``idle_share.serve`` read in the cell whose end-to-end rate is
+``serve_tokens_per_busy_s`` (128 slots decoding long contexts)."""
+
+from perfbench import core
+
+_base = core.load_module("metrics", "idle_share.serve")
+UNIT, LAYER, read = _base.UNIT, _base.LAYER, _base.read
+MOVES = "serve_tokens_per_busy_s"

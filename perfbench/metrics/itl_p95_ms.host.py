@@ -3,7 +3,7 @@ the measured window, of the gap (host clock) since its request's
 previous token; stalls from admissions count.  A per-layer metric: the
 host's speed moves it by more than an end-to-end bound may allow."""
 
-UNIT, LAYER, MOVES = "ms", "engine", "serve_tokens_per_s"
+UNIT, LAYER, MOVES = "ms", "engine", "serve_tokens_per_busy_s"
 
 
 def read(ctx):

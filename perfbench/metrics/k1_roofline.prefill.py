@@ -1,30 +1,24 @@
 """k1_roofline.prefill: the fused forward's share of its roofline in the
 traced window's admissions.  The bound is causal attention over each
 admission's real rows, the ``rows`` of the ``fcsa.engine.add_request``
-record around its ``fcsa.prefill`` (``perfbench/roofline.py``:
+record around its ``fcsa.prefill``, every layer (the model family's
+``k1_prefill_bound_s``; for ``cosine-causal-transformer``
 ``causal_pairs`` and ``attention_fwd_ops`` at the bf16 peak, or q, k, v
-and o moved once with the f32 row sums, whichever is longer), every
-layer; the time is that of the operations whose innermost range is
+and o moved once with the f32 row sums, whichever is longer); the time
+is that of the operations whose innermost range is
 ``fcsa.attention.fwd`` inside ``fcsa.prefill``: K1 at the bucket's
 padded width, and whatever copies it needs (``perfbench/launches.py``).
 """
 
-from perfbench import launches, roofline
+from perfbench import core, launches
 
 UNIT, LAYER, MOVES = "%", "kernels", "serve_tokens_per_s"
-ELT = {"bfloat16": 2, "float32": 4}
 
 
 def k1_bound_s(cfg: dict, rows: int) -> float:
     """K1's least time over the layers of one prefill of ``rows`` real
     tokens."""
-    h, d = cfg["heads"], cfg["dim_head"]
-    kvh = cfg.get("kv_heads") or h
-    ops = roofline.attention_fwd_ops(1, h, roofline.causal_pairs(rows, rows),
-                                     d)
-    nbytes = ((2 * h + 2 * kvh) * rows * d * ELT[cfg["compute_dtype"]]
-              + 4 * h * rows)
-    return cfg["depth"] * roofline.bound_s(ops, nbytes)
+    return core.arch(cfg).k1_prefill_bound_s(cfg, rows)
 
 
 def read(ctx):

@@ -7,7 +7,7 @@ over the traced window and divided by its ``fcsa.decode_step`` ranges
 
 from perfbench import launches
 
-UNIT, LAYER, MOVES = "ms", "kernels", "serve_tokens_per_s"
+UNIT, LAYER, MOVES = "ms", "kernels", "serve_tokens_per_busy_s"
 
 
 def read(ctx):

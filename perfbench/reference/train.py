@@ -1,23 +1,25 @@
-"""The reference training step: the loss and gradients of
-``reference.model`` over every microbatch, their mean, a clip by global
-norm and Adam, all in plain float32 PyTorch.  Rows are taken one at a
-time, so a 16384-token row's activations are all that is held."""
+"""The reference training step: the loss and gradients of the model
+family's reference (``loss``) over every microbatch, their mean, a clip
+by global norm and Adam, all in plain float32 PyTorch.  Rows are taken
+one at a time, so a 16384-token row's activations are all that is
+held."""
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 import torch
 
 from . import model as ref
 
 
-def steps(cfg: dict, opt: dict, W0: Dict[str, torch.Tensor],
+def steps(loss: Callable, cfg: dict, opt: dict, W0: Dict[str, torch.Tensor],
           batches: List[torch.Tensor], rnd=ref.identity,
           half_batch: bool = False) -> dict:
     """Run ``len(batches)`` optimizer steps from the float32 leaves ``W0``
-    on batches (micro, b, n + 1).  Returns each step's mean loss, each
+    on batches (micro, b, n + 1); ``loss(W, cfg, tokens, rnd)`` is the
+    family's reference loss.  Returns each step's mean loss, each
     leaf's norm of the first step's clipped gradient (``grads``) and of
     its change over all the steps (``changes``).  ``half_batch`` plants
     a fault: each microbatch's second half of rows left out, the mean
@@ -35,7 +37,7 @@ def steps(cfg: dict, opt: dict, W0: Dict[str, torch.Tensor],
             rows = micro[:micro.shape[0] // 2] if half_batch else micro
             total = 0.0
             for r in range(rows.shape[0]):
-                l = ref.loss(W, cfg, rows[r:r + 1], rnd) / rows.shape[0]
+                l = loss(W, cfg, rows[r:r + 1], rnd) / rows.shape[0]
                 for n, gr in zip(names, torch.autograd.grad(
                         l, [W[n] for n in names])):
                     g[n] += gr

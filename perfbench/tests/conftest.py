@@ -14,14 +14,23 @@ if str(REPO) not in sys.path:
 
 from perfbench import core  # noqa: E402
 
-TINY_MODEL = {"dim": 64, "depth": 2, "heads": 2, "dim_head": 32,
-              "max_seq_len": 96}
 TINY_TRAFFIC = {
     "train": {"batch": 2, "grad_accum": 2, "seq_len": 64},
     "serve": {"slots": 3, "capacity": 96, "prompt_buckets": [16, 32, 64],
               "prompt": {"dist": "log_uniform", "min": 8, "max": 40},
               "output": {"dist": "uniform", "min": 12, "max": 16}},
 }
+
+
+def cut(cell: core.Cell) -> core.Cell:
+    """``cell`` with its model cut to the CPU size its family's ``tiny``
+    gives, its traffic to ``TINY_TRAFFIC`` and its check to 60 served
+    tokens; its limits are the cell's own."""
+    cell.config = core.arch(cell.config).tiny(cell.config)
+    cell.traffic = dict(cell.traffic, **TINY_TRAFFIC[cell.traffic["kind"]])
+    if "sample_tokens" in cell.check:
+        cell.check = dict(cell.check, sample_tokens=60)
+    return cell
 
 
 @pytest.fixture(scope="session")
@@ -37,14 +46,7 @@ def tiny_cell(bench):
     Served requests get at least 12 tokens and the check holds 60, so
     that decode steps, not prefills, serve most of what is compared."""
     def make(name):
-        cell = core.Cell.load(bench, name)
-        cell.config = dict(cell.config, **TINY_MODEL)
-        if cell.config["attn_l2norm_groups"] > 1:
-            cell.config["attn_l2norm_groups"] = 2
-        cell.traffic = dict(cell.traffic, **TINY_TRAFFIC[cell.traffic["kind"]])
-        if "sample_tokens" in cell.check:
-            cell.check = dict(cell.check, sample_tokens=60)
-        return cell
+        return cut(core.Cell.load(bench, name))
     return make
 
 

@@ -6,6 +6,7 @@ import re
 import pytest
 
 from perfbench import core
+from perfbench import trace as tracing
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -58,6 +59,18 @@ def test_configs_found_by_name(bench):
         assert cfg["source"] == c["source"]
         assert cfg["reduced"] == c["reduced"]
         assert any(w["config"] == c["name"] for w in bench["workloads"])
+
+
+def test_every_config_names_a_family_that_exports_the_contract(bench):
+    for c in bench["configs"]:
+        cfg = core.load_json("configs", c["name"])
+        assert NAME.match(cfg["arch"]), c["name"]
+        assert (core.HERE / "archs" / f"{cfg['arch']}.py").is_file()
+        arch = core.arch(cfg)
+        assert all(callable(getattr(arch, n)) for n in core.ARCH_EXPORTS
+                   if n != "COUNTED"), c["name"]
+        assert isinstance(arch.COUNTED, dict)
+        assert not set(arch.COUNTED) & set(tracing.COUNTED)
 
 
 @pytest.mark.parametrize("kind", ["train", "serve"])

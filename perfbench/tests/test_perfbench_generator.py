@@ -76,3 +76,19 @@ def test_derived_seeds_differ_by_stream():
     assert generator.derive_seed(SEED, "weights") == generator.derive_seed(
         SEED, "weights")
     assert 0 <= generator.derive_seed(2**62, "x") < 2**63
+
+
+def test_a_block_in_flight_leaves_the_same_tokens_for_every_seed():
+    mix = core.load_json("traffic", "closed-128-long")
+    n = mix["strata"]
+
+    def left(seed):
+        reqs = generator.Requests(mix, seed, 256)
+        return sorted(reqs.in_flight().out_len for _ in range(2 * n))
+
+    assert left(1) == left(SEED) == left(SEED + 1)
+    reqs = generator.Requests(mix, SEED, 256)
+    flying = [reqs.in_flight() for _ in range(n)]
+    fresh = draw(mix, SEED, n)
+    assert all(1 <= f.out_len <= r.out_len for f, r in zip(flying, fresh))
+    assert [len(f.prompt) for f in flying] == [len(r.prompt) for r in fresh]

@@ -56,12 +56,10 @@ sys.path.insert(0, {str(HERE.parent)!r})
 sys.path.insert(0, {str(HERE / 'tests')!r})
 import torch
 from perfbench import core
-from conftest import TINY_MODEL, TINY_TRAFFIC
+from conftest import cut
 bench = json.load(open({str(HERE.parent / 'BENCHMARK.json')!r}))
 for name in ("val-train-s1024", "prod-prefill-heavy"):
-    cell = core.Cell.load(bench, name)
-    cell.config = dict(cell.config, **TINY_MODEL, attn_l2norm_groups=1)
-    cell.traffic = dict(cell.traffic, **TINY_TRAFFIC[cell.traffic["kind"]])
+    cell = cut(core.Cell.load(bench, name))
     cell.check = dict(cell.check, sample_tokens=10)
     core.load_module("drivers", cell.traffic["kind"]).run(
         cell, 5, 0.5, False, torch.device("cpu"), time.perf_counter(),

@@ -8,8 +8,9 @@ from perfbench import core, launches, roofline
 from perfbench import trace as tracing
 from flash_cosine_sim_attention_tpu_torch.utils.profiling import SpanRecord
 
-CFG = {"num_tokens": 256, "dim": 2048, "depth": 16, "heads": 16,
-       "dim_head": 128, "ff_mult": 4, "compute_dtype": "bfloat16"}
+CFG = {"arch": "cosine-causal-transformer", "num_tokens": 256, "dim": 2048,
+       "depth": 16, "heads": 16, "dim_head": 128, "ff_mult": 4,
+       "compute_dtype": "bfloat16"}
 CLOCK = 5.0       # the records' clock less the trace's, seconds
 
 

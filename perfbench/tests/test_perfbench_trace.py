@@ -6,8 +6,8 @@ import pytest
 from perfbench import core, roofline
 from perfbench import trace as tracing
 
-CFG = {"num_tokens": 256, "dim": 2048, "depth": 16, "heads": 16,
-       "dim_head": 128, "ff_mult": 4}
+CFG = {"arch": "cosine-causal-transformer", "num_tokens": 256, "dim": 2048,
+       "depth": 16, "heads": 16, "dim_head": 128, "ff_mult": 4}
 
 
 def ev(cat, name, ts, dur):
@@ -82,6 +82,7 @@ def spans_with(*items):
 def test_serving_readers():
     spans = spans_with(*[("x", 0, 0, {})] * 7,
                        ("step", 0.1, 0.3, {"rows": 8, "live": 4000,
+                                           "lens": [500] * 8,
                                            "admitted": False}),
                        ("admit", 0.3, 0.6, {"rows": 500}))
     ctx = context(tracing.Trace(window_events()), spans)

@@ -8,6 +8,10 @@ opens the window and a short one marks it; a window whose marker is
 missing, or that holds fewer records of a counted kernel than the
 program's counters say it launched, is profiled once more, and if it
 falls short again its device numbers are not measured.
+
+``device_busy`` is the other use of the profiler: a stretch of the
+measured window under a profiler that records the device alone, read
+back in memory as the seconds in which some device operation ran.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ WINDOW = "bench.window"
 _RANGE = re.compile(r"^bench\.(.+)#(\d+)$")
 
 # the program's launch counters and the kernels each counts: the
-# function names of its CUDA sources
+# function names of its CUDA sources; a model family adds its own
+# (``archs/<family>.py``'s ``COUNTED``, merged by ``families``)
 COUNTED = {
     "K1": (("ops.fwd_kernel", "flash_attention_forward"),
            ("fwd_mma_kernel", "fwd_tf32_kernel", "fwd_wide_mma_kernel",
@@ -184,30 +189,41 @@ class Trace:
         return {"device_ops": ranked(by_op), "idle_gaps": ranked(gaps)}
 
 
-def counters() -> Dict[str, int]:
-    """The program's launch counters, by kernel family."""
+def families(added: Dict[str, tuple]) -> Dict[str, tuple]:
+    """``COUNTED`` with a model family's own kernel families added; a
+    family may not count one of the fixed table's again."""
+    again = sorted(set(added) & set(COUNTED))
+    if again:
+        raise ValueError(f"kernel families counted twice: {again}")
+    return {**COUNTED, **added}
+
+
+def counters(table: Dict[str, tuple]) -> Dict[str, int]:
+    """The program's launch counters, by kernel family of ``table``."""
     import importlib
     out = {}
-    for family, ((module, *fns), _) in COUNTED.items():
+    for family, ((module, *fns), _) in table.items():
         mod = importlib.import_module(
             f"flash_cosine_sim_attention_tpu_torch.{module}")
         out[family] = sum(getattr(mod, fn).launches for fn in fns)
     return out
 
 
-def short_families(trace: Trace, launched: Dict[str, int]) -> List[str]:
-    """Kernel families of which the trace holds fewer records than the
-    program launched."""
+def short_families(trace: Trace, launched: Dict[str, int],
+                   table: Dict[str, tuple] = COUNTED) -> List[str]:
+    """Kernel families of ``table`` of which the trace holds fewer records
+    than the program launched."""
     return [f for f, n in launched.items()
-            if n and trace.count(COUNTED[f][1]) < n]
+            if n and trace.count(table[f][1]) < n]
 
 
-def _profile_once(work: Callable[[], None]) -> Tuple[Trace, Dict[str, int]]:
+def _profile_once(work: Callable[[], None], table: Dict[str, tuple]
+                  ) -> Tuple[Trace, Dict[str, int]]:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
-    before = counters()
+    before = counters(table)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(OPEN_SPIN)
@@ -216,7 +232,7 @@ def _profile_once(work: Callable[[], None]) -> Tuple[Trace, Dict[str, int]]:
         with record_function(WINDOW):
             work()
             torch.cuda.synchronize()
-    after = counters()
+    after = counters(table)
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
     try:
@@ -228,15 +244,97 @@ def _profile_once(work: Callable[[], None]) -> Tuple[Trace, Dict[str, int]]:
     return Trace(events), {k: after[k] - before[k] for k in after}
 
 
-def profile_window(work: Callable[[], None], log=print
-                   ) -> Tuple[Trace, bool]:
+def merged_seconds(starts, ends) -> float:
+    """The length of the union of the intervals [starts[i], ends[i]]."""
+    import numpy as np
+
+    s, e = np.asarray(starts, np.float64), np.asarray(ends, np.float64)
+    if not len(s):
+        return 0.0
+    order = np.argsort(s, kind="stable")
+    s, e = s[order], e[order]
+    reach = np.maximum.accumulate(e)
+    first = np.flatnonzero(np.r_[True, s[1:] > reach[:-1]])
+    return float((np.maximum.reduceat(e, first) - s[first]).sum())
+
+
+@dataclass
+class Busy:
+    """One profiled stretch: the seconds in which some device operation
+    ran, the count of device operations, and by kernel family of the
+    record check what the program launched and what the profiler
+    recorded; ``short`` lists the families it lost records of."""
+    seconds: float
+    ops: int
+    launched: Dict[str, int]
+    found: Dict[str, int]
+
+    @property
+    def short(self) -> List[str]:
+        return [f for f, n in self.launched.items() if n > self.found[f]]
+
+
+def _device_only_config():
+    """The profiler's settings for ``device_busy``: no correlation of host
+    operations with device ones, which nothing reads there and which
+    costs the host time at every operation, where this torch has it."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        return _ExperimentalConfig(disable_external_correlation=True)
+    except (ImportError, TypeError):
+        return None
+
+
+def device_busy(work: Callable[[], None], counted: Dict[str, tuple]) -> Busy:
+    """Run ``work`` under a profiler that records the device alone (no
+    host operations, no trace file) and read back, in memory, the
+    seconds in which some device operation (kernel, copy or set) ran,
+    the opening spin left out, checked against the program's launch
+    counters for ``COUNTED`` and ``counted``.  A stretch stays short
+    (some tens of thousands of operations): longer ones lost records."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    table = families(counted)
+    torch.cuda.synchronize()
+    before = counters(table)
+    with profile(activities=[ProfilerActivity.CUDA],
+                 experimental_config=_device_only_config()) as prof:
+        torch.cuda._sleep(OPEN_SPIN)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        work()
+        torch.cuda.synchronize()
+    after = counters(table)
+    starts, ends, names = [], [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or getattr(
+                e, "is_user_annotation", bool)():
+            continue
+        name = e.name()
+        if SPIN in name:
+            continue
+        starts.append(e.start_ns())
+        ends.append(e.start_ns() + e.duration_ns())
+        names.append(name)
+    found = {f: sum(1 for n in names if kernel_function(n) in fns)
+             for f, (_, fns) in table.items()}
+    return Busy(1e-9 * merged_seconds(starts, ends), len(names),
+                {f: after[f] - before[f] for f in table}, found)
+
+
+def profile_window(work: Callable[[], None], counted: Dict[str, tuple],
+                   log=print) -> Tuple[Trace, bool]:
     """Profile ``work`` (a stretch of the cell's loop that can be run
-    again).  Returns the trace and whether it is whole: False where two
-    windows in a row lost records, and the kernels' numbers are then not
-    measured."""
+    again), checking its records against ``COUNTED`` and the model
+    family's ``counted``.  Returns the trace and whether it is whole:
+    False where two windows in a row lost records, and the kernels'
+    numbers are then not measured."""
+    table = families(counted)
     for attempt in range(2):
-        trace, launched = _profile_once(work)
-        short = short_families(trace, launched)
+        trace, launched = _profile_once(work, table)
+        short = short_families(trace, launched, table)
         if trace.window is not None and trace.marked and not short:
             return trace, True
         log(f"traced window {attempt + 1}: marker "
